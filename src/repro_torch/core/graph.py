@@ -1,0 +1,138 @@
+"""Graph container and batched BFS distances.
+
+The port's counterpart of ``repro.core.graph``: the same edge-list + CSR
+``Graph`` (numpy, host side), and ``bfs_distances_batched`` advanced one
+BFS level at a time as boolean frontier products in torch, on whatever
+device the caller names.  Graphs up to :data:`DENSE_MAX_N` vertices use a
+dense (N, N) adjacency; larger ones a sparse CSR adjacency, so memory
+stays O(E + S*N).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+
+__all__ = ["Graph", "bfs_distances_batched", "DENSE_MAX_N"]
+
+# largest vertex count whose BFS runs on a dense (N, N) adjacency (the
+# reference's util_dense_max perf-flag default)
+DENSE_MAX_N = 6144
+
+# ~64 MB of float32 frontier per source block
+_BLOCK_BYTES = 64 << 20
+
+
+@dataclass
+class Graph:
+    """Undirected simple graph as an edge list + CSR adjacency."""
+
+    n: int
+    edges: np.ndarray  # (E, 2) int64, each undirected edge once
+    name: str = ""
+    meta: dict = field(default_factory=dict)
+
+    indptr: np.ndarray = field(init=False, repr=False)
+    indices: np.ndarray = field(init=False, repr=False)
+    # arc k is (arc_src[k] -> indices[k]); arc_edge_id[k] its edge id
+    arc_src: np.ndarray = field(init=False, repr=False)
+    arc_edge_id: np.ndarray = field(init=False, repr=False)
+
+    def __post_init__(self) -> None:
+        e = np.asarray(self.edges, dtype=np.int64).reshape(-1, 2)
+        if e.size and (e.min() < 0 or e.max() >= self.n):
+            raise ValueError("edge endpoint out of range")
+        if np.any(e[:, 0] == e[:, 1]):
+            raise ValueError("self-loop")
+        # dedup undirected edges, keeping first-seen order
+        key = np.sort(e, axis=1)
+        _, uniq_idx = np.unique(key[:, 0] * self.n + key[:, 1],
+                                return_index=True)
+        e = key[np.sort(uniq_idx)]
+        self.edges = e
+        m = e.shape[0]
+        src = np.concatenate([e[:, 0], e[:, 1]])
+        dst = np.concatenate([e[:, 1], e[:, 0]])
+        eid = np.concatenate([np.arange(m), np.arange(m)])
+        order = np.argsort(src, kind="stable")
+        src, dst, eid = src[order], dst[order], eid[order]
+        indptr = np.zeros(self.n + 1, dtype=np.int64)
+        np.add.at(indptr, src + 1, 1)
+        self.indptr = np.cumsum(indptr)
+        self.indices = dst
+        self.arc_src = src
+        self.arc_edge_id = eid
+
+    @property
+    def num_edges(self) -> int:
+        return self.edges.shape[0]
+
+    @property
+    def degrees(self) -> np.ndarray:
+        return np.diff(self.indptr)
+
+    @property
+    def max_degree(self) -> int:
+        return int(self.degrees.max()) if self.n else 0
+
+    def neighbors(self, v: int) -> np.ndarray:
+        return self.indices[self.indptr[v]: self.indptr[v + 1]]
+
+
+def _adjacency(g: Graph, device: torch.device) -> torch.Tensor:
+    """float32 adjacency on ``device``: dense up to DENSE_MAX_N vertices,
+    sparse CSR above."""
+    if g.n <= DENSE_MAX_N:
+        a = torch.zeros((g.n, g.n), dtype=torch.float32, device=device)
+        if g.num_edges:
+            u = torch.as_tensor(g.edges[:, 0], device=device)
+            v = torch.as_tensor(g.edges[:, 1], device=device)
+            a[u, v] = 1.0
+            a[v, u] = 1.0
+        return a
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(g.indptr, device=device),
+        torch.as_tensor(g.indices, device=device),
+        torch.ones(len(g.indices), dtype=torch.float32, device=device),
+        size=(g.n, g.n))
+
+
+def bfs_distances_batched(g: Graph, sources, device=None) -> torch.Tensor:
+    """Level-synchronous BFS from a block of sources at once: an (S, N)
+    int32 tensor on ``device``, -1 for unreachable.  Each level is one
+    frontier product ``(S, N) @ (N, N)``; 0/1 operands with sums at most
+    the degree are exact in float32 (and in TF32)."""
+    device = resolve_device(device)
+    sources = torch.as_tensor(np.asarray(sources, dtype=np.int64),
+                              device=device)
+    s_tot = len(sources)
+    out = torch.empty((s_tot, g.n), dtype=torch.int32, device=device)
+    if s_tot == 0:
+        return out
+    adj = _adjacency(g, device)
+    sparse = adj.layout == torch.sparse_csr
+    block = max(32, _BLOCK_BYTES // max(4 * g.n, 1))
+    for lo in range(0, s_tot, block):
+        chunk = sources[lo: lo + block]
+        s = len(chunk)
+        rows = torch.arange(s, device=device)
+        dist = torch.full((s, g.n), -1, dtype=torch.int32, device=device)
+        dist[rows, chunk] = 0
+        frontier = torch.zeros((s, g.n), dtype=torch.float32, device=device)
+        frontier[rows, chunk] = 1.0
+        lvl = 0
+        while True:
+            lvl += 1
+            # the adjacency is symmetric: frontier @ A == (A @ frontier^T)^T
+            hit = (adj @ frontier.T).T if sparse else frontier @ adj
+            new = (hit > 0) & (dist < 0)
+            if not bool(new.any()):
+                break
+            dist[new] = lvl
+            frontier = new.to(torch.float32)
+        out[lo: lo + s] = dist
+    return out

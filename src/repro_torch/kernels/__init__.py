@@ -1,0 +1,7 @@
+"""Hand-written Hopper kernels of the port and their plain versions."""
+
+from .sim_step import (DEST_TILE, LAUNCHES, fused_decision,
+                       fused_step_update, reset_launches)
+
+__all__ = ["DEST_TILE", "LAUNCHES", "fused_decision", "fused_step_update",
+           "reset_launches"]

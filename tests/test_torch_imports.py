@@ -1,0 +1,67 @@
+"""repro_torch stands alone: importing every module of the port loads
+neither jax nor the reference package, and the entry points refuse to
+drop to the CPU quietly."""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"modules": names, "foreign": loaded}))
+"""
+
+
+def test_port_imports_neither_jax_nor_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["foreign"] == []
+    expected = {"repro_torch.convert", "repro_torch.core.graph",
+                "repro_torch.core.traffic", "repro_torch.sim.kernel",
+                "repro_torch.kernels.sim_step", "repro_torch.kernels._build"}
+    assert expected <= set(res["modules"])
+
+
+def test_port_sources_never_name_the_reference():
+    """No module of the port or the chip script imports jax or repro."""
+    root = SRC.parent
+    files = sorted((SRC / "repro_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    for path in files:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                mod = words[1].split(".")[0]
+                assert mod not in ("jax", "jaxlib", "repro"), \
+                    f"{path.name}: {line.strip()}"
+    assert len(files) > 15
+
+
+def test_simulator_without_device_needs_cuda():
+    from repro_torch.core import pn_graph
+    from repro_torch.sim import SimConfig, Simulator
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Simulator(pn_graph(2), SimConfig())
+    sim = Simulator(pn_graph(2), SimConfig(), device="cpu")
+    assert sim.tables.split.device.type == "cpu"
