@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the flow-level simulator on one NVIDIA
-card, end to end, and check it.
+"""Drive the PyTorch/CUDA port on one NVIDIA card, end to end, and check
+it: the flow-level simulator and the analytic arc-load engines behind
+its reference theta.
 
     python3 chip_smoke.py
 
@@ -9,30 +10,50 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the build of the CUDA kernels from ``src/repro_torch/
    kernels/csrc`` into ``build/torch_ext/``.
-2. Each kernel against its plain PyTorch version on the card, on the
-   real PN(27) route tables: ``fused_step_update`` at the VC1 width
-   (1514) and the compacted VC0 width (757) with dead tiles, float64 at
-   rtol 1e-12 and float32 at rtol 1e-5 of the max; ``fused_decision`` in
-   float64 with thr 0 and 16, identical wherever the comparison is clear
-   of rounding (|lhs - rhs| > 1e-9 of the scale).  Then each kernel's
-   time, its plain version's time and its HBM bound at the main path's
-   shapes.
-3. PN(16) uniform under ugal_threshold(0): 24 steps on the fused float32
+2. The simulator-step kernels against their plain PyTorch versions on
+   the card, on the real PN(27) route tables: ``fused_step_update`` at
+   the VC1 width (1514) and the compacted VC0 width (757) with dead
+   tiles, float64 at rtol 1e-12 and float32 at rtol 1e-5 of the max;
+   ``fused_decision`` in float64 with thr 0 and 16, identical wherever
+   the comparison is clear of rounding (|lhs - rhs| > 1e-9 of the
+   scale).  Then each kernel's time, its plain version's time and its
+   HBM bound at the main path's shapes.
+3. The mask+GEMM kernels (``frontier_step``, ``backward_step``) against
+   their plain versions on the card, at PN(27) (S = N = 1514) and on the
+   first PN(64) source block (S = 756, N = 8322): every BFS level and
+   dependency level of the real sweep, plus random integer fronts up to
+   2^20; float64 at rtol 1e-12 and float32 at rtol 1e-6 of the max,
+   ``dist'`` and the any-new flag exactly.  Then each kernel's time, its
+   plain version's, the dense ``torch.matmul`` of the same product (the
+   yardstick; the port never calls it) and the HBM bound.
+4. The analytic main path: ``saturation_report`` of PN(16) uniform and of
+   the PN(27) points demand under ``ugal``, ``engine="auto"`` on the
+   card (must resolve to the fused kernels), each within rtol 1e-9 of
+   the reference's value recorded below; launch counts zeroed just
+   before and read just after (4 frontier and 3 backward launches per
+   source block and sweep).
+5. Full width for the analytic engines, PN(64) (8322 routers, degree
+   65): ``utilization`` on the fused engine (u = 1 within 1e-12, kbar =
+   20673/8321 and sum(loads) = kbar x pairs at rtol 1e-12) and where its
+   device time goes (torch.profiler, by kernel, and the idle share), then
+   ``saturation_report`` of ``random_permutation(0)`` under ``ugal`` on
+   the fused and on the dense engine, loads within rtol 1e-9; seconds
+   per sweep and peak device memory.
+6. PN(16) uniform under ugal_threshold(0): 24 steps on the fused float32
    step and on the dense float64 step, both on the card, delivered
    histories within 1e-5; then a saturation sweep whose knee must land
-   within 0.025 of the analytic theta.
-4. The main path at full width: PN(27) (1514 routers), every source to
-   the 757 points, ugal_threshold(0), ``backend="auto"`` (must resolve to
-   the fused step on 757 compacted columns).  Kernel launch counts are
-   zeroed just before the sweep and read just after; the knee must land
-   within 0.025 of the analytic theta with every probe's residual
-   <= 1e-4.  One probe runs twice and must repeat bitwise.
-5. Where a PN(27) step's device time goes: torch.profiler over a short
+   within 0.025 of phase 4's analytic theta.
+7. The simulator's main path at full width: PN(27) (1514 routers), every
+   source to the 757 points, ugal_threshold(0), ``backend="auto"`` (must
+   resolve to the fused step on 757 compacted columns), theta from phase
+   4.  Kernel launch counts are zeroed just before the sweep and read
+   just after; the knee must land within 0.025 of the analytic theta
+   with every probe's residual <= 1e-4.  The sweep then runs again with
+   ``theta_analytic=None``, so that it computes its own theta through
+   the mask+GEMM kernels, and must land within 0.025 of it too.  One
+   probe runs twice and must repeat bitwise.
+8. Where a PN(27) step's device time goes: torch.profiler over a short
    run, device time per step by kernel and the device's idle share.
-
-The analytic thetas below are the reference's analytic ``ugal`` theta of
-each demand (``repro.core.traffic.saturation_report``), computed on the
-CPU: the port's analytic engines come in a later slice.
 
 Output: the card's name and power limit, then a ``kernels`` JSON line,
 then ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -51,10 +72,14 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+# the reference's analytic ugal theta of each demand
+# (repro.core.traffic.saturation_report), the expected values of phase 4
 THETA_PN16_UGAL = 6.971407072988353
 THETA_PN27_POINTS_UGAL = 9.454058876003565
+THETA_RTOL = 1e-9
 KNEE_BUDGET = 0.025
 KERNEL_SRC = "src/repro_torch/kernels/csrc/sim_step.cu"
+MASK_SRC = "src/repro_torch/kernels/csrc/mask_gemm.cu"
 
 
 def log(*args):
@@ -222,8 +247,229 @@ def check_kernels(dev, bw):
     return errs, timing
 
 
-def check_pn16(dev):
-    """Phase 3: fused float32 vs dense float64 on the card, then a knee."""
+def level_states(g, rows: int, dev, dtype=torch.float64):
+    """The real level states of the first ``rows`` sources of ``g``: the
+    forward sweep's inputs ``(front, dist, sigma, lvl)`` per BFS level and
+    the backward sweep's ``(coeff, dist, sigma, delta, lvl - 1)`` per
+    dependency level (uniform traffic), from the plain epilogues on the
+    dense adjacency."""
+    from repro_torch.core.graph import adjacency_dense
+    from repro_torch.kernels.ref import backward_epilogue, frontier_epilogue
+    n = g.n
+    a = adjacency_dense(g, dtype, dev)
+    r = torch.arange(rows, device=dev)
+    front = torch.zeros((rows, n), dtype=dtype, device=dev)
+    front[r, r] = 1.0
+    dist = torch.full((rows, n), -1, dtype=torch.int32, device=dev)
+    dist[r, r] = 0
+    sigma = front.clone()
+    fwd, lvl = [], 0
+    while True:
+        lvl += 1
+        fwd.append((front, dist, sigma, lvl))
+        front, dist, sigma, any_new = frontier_epilogue(front @ a, dist,
+                                                        sigma, lvl)
+        if not int(any_new):
+            break
+    bwd = []
+    delta = torch.zeros_like(sigma)
+    for lv in range(lvl - 1, 0, -1):
+        m = dist == lv
+        coeff = torch.where(m, (1.0 + delta) / torch.where(m, sigma, 1.0),
+                            0.0)
+        bwd.append((coeff, dist, sigma, delta, lv - 1))
+        delta = backward_epilogue(coeff @ a, dist, sigma, delta, lv - 1)
+    return fwd, bwd, a
+
+
+def check_mask_gemm(dev, bw):
+    """Phase 3: the mask+GEMM kernels against their plain versions at the
+    main path's shapes, then their times."""
+    from repro_torch.core import pn_graph
+    from repro_torch.core.graph import adjacency_csr
+    from repro_torch.kernels import mask_gemm as MG
+    from repro_torch.kernels.ref import backward_step_ref, frontier_step_ref
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    errs = {"frontier_step": 0.0, "backward_step": 0.0}
+    timing = {}
+
+    def close(name, got, want, rtol, record):
+        err = float((got - want).abs().max())
+        scale = max(float(want.abs().max()), 1.0)
+        if not err <= rtol * scale:
+            raise AssertionError(f"{name}: max error {err} > {rtol} * "
+                                 f"{scale}")
+        if record:
+            key = name.split()[0]
+            errs[key] = max(errs[key], err)
+
+    for label, q, rows in (("PN(27)", 27, None), ("PN(64) block", 64, 756)):
+        g = pn_graph(q)
+        rows = g.n if rows is None else min(rows, g.n)
+        fwd, bwd, a = level_states(g, rows, dev)
+        n = g.n
+        # random integer fronts up to 2^20 against a partly reached table
+        rnd = (torch.randint(0, 2**20, (rows, n), generator=gen,
+                             device=dev, dtype=torch.int64).double()
+               * (torch.rand((rows, n), generator=gen, device=dev) < 0.3))
+        rdist = torch.randint(-1, 3, (rows, n), generator=gen, device=dev,
+                              dtype=torch.int32)
+        fwd = fwd + [(rnd, rdist, fwd[-1][2], 3)]
+        for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-6)):
+            csr = adjacency_csr(g, dtype, dev)
+            record = dtype == torch.float64
+            for front, dist, sigma, lvl in fwd:
+                args = (front.to(dtype), csr, dist, sigma.to(dtype), lvl)
+                got = MG.frontier_step(*args)
+                want = frontier_step_ref(*args)
+                torch.cuda.synchronize()
+                name = f"frontier_step {label} lvl={lvl} {dtype}"
+                close(name, got[0], want[0], rtol, record)
+                close(name, got[2], want[2], rtol, record)
+                if not (torch.equal(got[1], want[1])
+                        and int(got[3]) == int(want[3])):
+                    raise AssertionError(f"{name}: dist' or any_new differ")
+            for coeff, dist, sigma, delta, lvl in bwd:
+                args = (coeff.to(dtype), csr, dist, sigma.to(dtype),
+                        delta.to(dtype), lvl)
+                close(f"backward_step {label} lvl={lvl} {dtype}",
+                      MG.backward_step(*args), backward_step_ref(*args),
+                      rtol, record)
+            log(f"mask_gemm {label} S={rows} N={n} {dtype}: "
+                f"{len(fwd)} frontier and {len(bwd)} backward levels ok")
+
+        # times at this shape, float64: the widest forward level (2) and
+        # the dependency level with the most masked cells (lvl 2 -> 1)
+        csr = adjacency_csr(g, torch.float64, dev)
+        front, dist, sigma, lvl = fwd[1]
+        coeff, bdist, bsigma, delta, blvl = bwd[0]
+        cells = rows * n
+        rows_t = {}
+        for name, kern, ref, args, x, nbytes in (
+                ("frontier_step", MG.frontier_step, frontier_step_ref,
+                 (front, csr, dist, sigma, lvl), front, cells * 40),
+                ("backward_step", MG.backward_step, backward_step_ref,
+                 (coeff, csr, bdist, bsigma, delta, blvl), coeff,
+                 cells * 36)):
+            flops = 2.0 * rows * n * n
+            rows_t[name] = dict(
+                ms=cuda_ms(lambda: kern(*args), 20),
+                plain_ms=cuda_ms(lambda: ref(*args), 5),
+                library_ms=cuda_ms(lambda: torch.matmul(x, a), 5),
+                bound_ms=nbytes / bw * 1e3, nbytes=nbytes,
+                dense_flop_ms=flops / 67e12 * 1e3, flops=flops,
+                shape=f"{label} S={rows} N={n} nnz={len(g.indices)} "
+                      f"float64")
+            r = rows_t[name]
+            log(f"{name} [{r['shape']}]: {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, torch.matmul {r['library_ms']:.4f}"
+                f" ms, bound {r['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB); "
+                f"dense product {flops / 1e9:.1f} GFLOP = "
+                f"{r['dense_flop_ms']:.3f} ms at 67 TFLOP/s")
+        timing[label] = rows_t
+        del fwd, bwd, a, rnd, rdist, csr
+        torch.cuda.empty_cache()
+    return errs, timing["PN(64) block"]
+
+
+def check_analytic(dev):
+    """Phase 4: the analytic main path, saturation_report on the card."""
+    from repro_torch.core import pn_graph, saturation_report
+    from repro_torch.core.utilization import resolve_engine
+    from repro_torch.kernels import mask_gemm as MG
+
+    if resolve_engine("auto", dev) != "fused":
+        raise AssertionError("engine='auto' does not resolve to the fused "
+                             "kernels on the card")
+    thetas, launches = {}, {}
+    g27 = pn_graph(27)
+    for label, g, pat, want in (
+            ("pn16 uniform", pn_graph(16), "uniform", THETA_PN16_UGAL),
+            ("pn27 points", g27, points_demand(g27, 27),
+             THETA_PN27_POINTS_UGAL)):
+        MG.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = saturation_report(g, pat, routing="ugal", device=dev)
+        seconds = time.perf_counter() - t0
+        got = dict(MG.LAUNCHES)
+        rel = abs(rep.theta - want) / want
+        log(f"{label} ugal: theta {rep.theta!r} (alpha {rep.alpha}) vs "
+            f"reference {want!r}, rel err {rel:.3e}; {seconds:.2f} s; "
+            f"launches {got}")
+        if not rel <= THETA_RTOL:
+            raise AssertionError(f"{label} theta rel err {rel} > "
+                                 f"{THETA_RTOL}")
+        # one source block each; minimal + two Valiant phases
+        if got != {"frontier_step": 12, "backward_step": 9}:
+            raise AssertionError(f"{label}: launches {got}, expected 4 "
+                                 f"frontier and 3 backward per sweep, "
+                                 f"3 sweeps")
+        thetas[label] = rep.theta
+        for key, count in got.items():
+            launches[key] = launches.get(key, 0) + count
+    return thetas, launches
+
+
+def check_pn64(dev, q: int = 64):
+    """Phase 5: the analytic engines at full width, PN(64).  From a point
+    of PN(q), its q + 1 lines lie at 1 hop, the other points at 2 and
+    the remaining lines at 3: kbar = 20673/8321 at q = 64."""
+    from repro_torch.core import pn_graph, saturation_report, utilization
+    from repro_torch.kernels import mask_gemm as MG
+
+    g = pn_graph(q)
+    pairs = g.n * (g.n - 1)
+    npts = q * q + q + 1
+    kbar = ((q + 1) + 2 * (npts - 1) + 3 * (npts - q - 1)) / (g.n - 1)
+    MG.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = utilization(g, engine="fused", device=dev)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log(f"pn64 utilization (N={g.n}, {2 * g.num_edges} arcs) fused: u "
+        f"{rep.u!r}, kbar {rep.kbar!r}, diameter {rep.diameter}; "
+        f"{seconds:.2f} s; peak memory {peak / 2**30:.2f} GiB; launches "
+        f"{dict(MG.LAUNCHES)}")
+    if not abs(rep.u - 1.0) <= 1e-12:
+        raise AssertionError(f"pn64 u = {rep.u!r}, not 1 within 1e-12")
+    if not abs(rep.kbar - kbar) <= 1e-12 * kbar:
+        raise AssertionError(f"pn64 kbar {rep.kbar!r} != {kbar!r}")
+    total = float(rep.loads.sum())
+    if not abs(total - kbar * pairs) <= 1e-12 * kbar * pairs:
+        raise AssertionError(f"pn64 sum(loads) {total!r} != kbar x pairs")
+    blocks = MG.LAUNCHES["backward_step"] // 3
+    profile_device(lambda: utilization(g, engine="fused", device=dev),
+                   blocks, "source block", "profile pn64")
+    reps = {}
+    for engine in ("fused", "dense"):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reps[engine] = saturation_report(g, "random_permutation(0)",
+                                         routing="ugal", engine=engine,
+                                         device=dev)
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        r = reps[engine]
+        log(f"pn64 random_permutation(0) ugal {engine}: theta {r.theta!r} "
+            f"(alpha {r.alpha}); {seconds:.2f} s for 3 sweeps "
+            f"({seconds / 3:.2f} s per sweep); peak memory "
+            f"{peak / 2**30:.2f} GiB")
+    want = reps["dense"].loads
+    err = float(np.abs(reps["fused"].loads - want).max())
+    if not err <= 1e-9 * float(np.abs(want).max()):
+        raise AssertionError(f"pn64 fused vs dense loads: max error {err}")
+    log(f"pn64 fused vs dense: loads max abs error {err:.3e}, theta rel "
+        f"{abs(reps['fused'].theta / reps['dense'].theta - 1):.3e}")
+
+
+def check_pn16(dev, th):
+    """Phase 6: fused float32 vs dense float64 on the card, then a knee
+    against the analytic theta ``th``."""
     from repro_torch.core import make_pattern, normalize_demand, pn_graph
     from repro_torch.sim import SimConfig, Simulator, saturation_sweep
 
@@ -243,7 +489,6 @@ def check_pn16(dev):
     log(f"pn16 fused-vs-dense delivered gap {gap:.3e}")
     if not gap <= 1e-5:
         raise AssertionError(f"pn16 fused/dense gap {gap} > 1e-5")
-    th = THETA_PN16_UGAL
     t0 = time.perf_counter()
     sw = saturation_sweep(g, "uniform", routing="ugal_threshold(0)",
                           loads=np.array([0.97, 1.08]) * th, steps=40,
@@ -258,18 +503,20 @@ def check_pn16(dev):
     return sw
 
 
-def check_pn27(dev):
-    """Phase 4: the main path at full width."""
+def check_pn27(dev, th):
+    """Phase 7: the simulator's main path at full width, against the
+    analytic theta ``th`` and then against its own."""
     from repro_torch.core import pn_graph
+    from repro_torch.kernels import mask_gemm as MG
     from repro_torch.kernels import sim_step as K
     from repro_torch.sim import SimConfig, Simulator, saturation_sweep
 
     g = pn_graph(27)
     dem = points_demand(g, 27)
-    th = THETA_PN27_POINTS_UGAL
     cfg = SimConfig(routing="ugal_threshold(0)")           # backend=auto
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
+    MG.reset_launches()
     t0 = time.perf_counter()
     sw = saturation_sweep(g, dem, routing="ugal_threshold(0)", config=cfg,
                           loads=np.array([0.95, 1.08]) * th, steps=30,
@@ -277,6 +524,9 @@ def check_pn27(dev):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
+    if any(MG.LAUNCHES.values()):
+        raise AssertionError("the sweep given theta_analytic launched the "
+                             "mask+GEMM kernels")
     peak = torch.cuda.max_memory_allocated()
     for r in sw.runs:
         log(f"pn27 probe offered {r.offered:.4f}: theta {r.theta:.4f} "
@@ -298,6 +548,31 @@ def check_pn27(dev):
         if count <= 0:
             raise AssertionError(f"{name} was never launched on the main "
                                  f"path")
+
+    # the same sweep computing its own analytic theta on the card
+    K.reset_launches()
+    MG.reset_launches()
+    t0 = time.perf_counter()
+    sw = saturation_sweep(g, dem, routing="ugal_threshold(0)", config=cfg,
+                          loads=np.array([0.95, 1.08]) * th, steps=30,
+                          refine=2, theta_analytic=None, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    own = {**K.LAUNCHES, **MG.LAUNCHES}
+    rel = abs(sw.theta - sw.theta_analytic) / sw.theta_analytic
+    log(f"pn27 sweep, theta_analytic=None: own analytic theta "
+        f"{sw.theta_analytic!r}, knee {sw.theta:.4f} (err {rel:.4f}); "
+        f"{seconds:.1f} s; launches {own}")
+    if not abs(sw.theta_analytic - th) <= THETA_RTOL * th:
+        raise AssertionError(f"pn27 sweep's own theta {sw.theta_analytic} "
+                             f"!= {th}")
+    if not rel <= KNEE_BUDGET:
+        raise AssertionError(f"pn27 knee error {rel} > {KNEE_BUDGET} "
+                             f"(own theta)")
+    for name, count in own.items():
+        if count <= 0:
+            raise AssertionError(f"{name} was never launched in the sweep "
+                                 f"with theta_analytic=None")
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -330,16 +605,21 @@ def check_pn27(dev):
 
 
 def profile_steps(sim, dem, offered, steps: int = 6):
-    """Where a PN(27) step's device time goes: torch.profiler over one
-    short run, device time per step by kernel, and the device's idle
-    share of the run's wall time (CUDA events)."""
+    """Where a PN(27) step's device time goes (phase 8)."""
+    profile_device(lambda: sim.run(dem, offered, steps), steps, "step")
+
+
+def profile_device(fn, per: int, unit: str, label: str = "profile"):
+    """torch.profiler over one call of ``fn``: device time per ``unit``
+    (``per`` units in the call) by kernel, and the device's idle share of
+    the call's wall time (CUDA events)."""
     from torch.profiler import ProfilerActivity, profile
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start.record()
-        sim.run(dem, offered, steps)
+        fn()
         end.record()
         torch.cuda.synchronize()
     wall_ms = start.elapsed_time(end)
@@ -355,14 +635,14 @@ def profile_steps(sim, dem, offered, steps: int = 6):
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
     if busy_ms <= 0:
-        log("profile: the profiler saw no device time (CUDA events only)")
+        log(f"{label}: the profiler saw no device time (CUDA events only)")
         return
-    log(f"profile: {steps} steps, wall {wall_ms / steps:.3f} ms/step, "
-        f"device busy {busy_ms / steps:.3f} ms/step, idle share "
+    log(f"{label}: {per} {unit}s, wall {wall_ms / per:.3f} ms/{unit}, "
+        f"device busy {busy_ms / per:.3f} ms/{unit}, idle share "
         f"{1.0 - busy_ms / wall_ms:.3f}")
     for ms, count, key in rows[:14]:
-        log(f"profile:   {ms / steps:8.4f} ms/step {count / steps:6.1f} "
-            f"launches/step  {key[:90]}")
+        log(f"{label}:   {ms / per:8.4f} ms/{unit} {count / per:6.1f} "
+            f"launches/{unit}  {key[:90]}")
 
 
 def main() -> int:
@@ -388,19 +668,30 @@ def main() -> int:
     dev = torch.device("cuda")
 
     errs, timing = check_kernels(dev, bw)
-    check_pn16(dev)
-    launches = check_pn27(dev)
+    mg_errs, mg_timing = check_mask_gemm(dev, bw)
+    thetas, mg_launches = check_analytic(dev)
+    check_pn64(dev)
+    check_pn16(dev, thetas["pn16 uniform"])
+    launches = check_pn27(dev, thetas["pn27 points"])
 
+    errs.update(mg_errs)
+    timing.update(mg_timing)
+    launches.update(mg_launches)
     replaces = {"fused_step_update": "src/repro/kernels/sim_step.py:53",
-                "fused_decision": "src/repro/kernels/sim_step.py:129"}
-    kernels = [{"name": kname, "route": "cuda", "source": KERNEL_SRC,
+                "fused_decision": "src/repro/kernels/sim_step.py:129",
+                "frontier_step": "src/repro/kernels/mask_gemm.py:49",
+                "backward_step": "src/repro/kernels/mask_gemm.py:70"}
+    kernels = [{"name": kname, "route": "cuda",
+                "source": KERNEL_SRC if kname.startswith("fused")
+                else MASK_SRC,
                 "replaces": replaces[kname], "launches": launches[kname],
                 "max_abs_err": errs[kname],
                 "ms": timing[kname]["ms"],
                 "plain_ms": timing[kname]["plain_ms"],
                 "bound_ms": timing[kname]["bound_ms"],
-                "bound_by": "bytes", "library_ms": None}
-               for kname in ("fused_step_update", "fused_decision")]
+                "bound_by": "bytes",
+                "library_ms": timing[kname].get("library_ms")}
+               for kname in replaces]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

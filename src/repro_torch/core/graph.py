@@ -5,19 +5,23 @@ The port's counterpart of ``repro.core.graph``: the same edge-list + CSR
 BFS level at a time as boolean frontier products in torch, on whatever
 device the caller names.  Graphs up to :data:`DENSE_MAX_N` vertices use a
 dense (N, N) adjacency; larger ones a sparse CSR adjacency, so memory
-stays O(E + S*N).
+stays O(E + S*N).  :func:`adjacency_dense` and :func:`adjacency_csr`
+build the adjacency in any dtype on any device, for the BFS and for the
+arc-load engines of :mod:`repro_torch.core.utilization`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
 
-__all__ = ["Graph", "bfs_distances_batched", "DENSE_MAX_N"]
+__all__ = ["Graph", "CsrAdjacency", "adjacency_csr", "adjacency_dense",
+           "bfs_distances_batched", "DENSE_MAX_N"]
 
 # largest vertex count whose BFS runs on a dense (N, N) adjacency (the
 # reference's util_dense_max perf-flag default)
@@ -83,22 +87,50 @@ class Graph:
         return self.indices[self.indptr[v]: self.indptr[v + 1]]
 
 
+class CsrAdjacency(NamedTuple):
+    """A weighted adjacency in CSR form on one device: row ``v`` holds
+    ``data[indptr[v]:indptr[v+1]]`` at columns ``indices[...]``
+    (int32 index arrays, as the mask+GEMM kernels take them)."""
+
+    indptr: torch.Tensor
+    indices: torch.Tensor
+    data: torch.Tensor
+
+
+def adjacency_dense(g: Graph, dtype=torch.float64,
+                    device=None) -> torch.Tensor:
+    """Dense (N, N) 0/1 adjacency in ``dtype`` on ``device``."""
+    device = resolve_device(device)
+    a = torch.zeros((g.n, g.n), dtype=dtype, device=device)
+    if g.num_edges:
+        u = torch.as_tensor(g.edges[:, 0], device=device)
+        v = torch.as_tensor(g.edges[:, 1], device=device)
+        a[u, v] = 1
+        a[v, u] = 1
+    return a
+
+
+def adjacency_csr(g: Graph, dtype=torch.float64,
+                  device=None) -> CsrAdjacency:
+    """The graph's CSR adjacency (its own ``indptr``/``indices``) with
+    unit values in ``dtype`` on ``device``.  The adjacency is symmetric,
+    so this is also its compressed-column form, which the mask+GEMM
+    kernels take."""
+    device = resolve_device(device)
+    return CsrAdjacency(
+        torch.as_tensor(g.indptr, dtype=torch.int32, device=device),
+        torch.as_tensor(g.indices, dtype=torch.int32, device=device),
+        torch.ones(len(g.indices), dtype=dtype, device=device))
+
+
 def _adjacency(g: Graph, device: torch.device) -> torch.Tensor:
-    """float32 adjacency on ``device``: dense up to DENSE_MAX_N vertices,
-    sparse CSR above."""
+    """float32 adjacency on ``device`` for the BFS: dense up to
+    DENSE_MAX_N vertices, a sparse CSR tensor above."""
     if g.n <= DENSE_MAX_N:
-        a = torch.zeros((g.n, g.n), dtype=torch.float32, device=device)
-        if g.num_edges:
-            u = torch.as_tensor(g.edges[:, 0], device=device)
-            v = torch.as_tensor(g.edges[:, 1], device=device)
-            a[u, v] = 1.0
-            a[v, u] = 1.0
-        return a
-    return torch.sparse_csr_tensor(
-        torch.as_tensor(g.indptr, device=device),
-        torch.as_tensor(g.indices, device=device),
-        torch.ones(len(g.indices), dtype=torch.float32, device=device),
-        size=(g.n, g.n))
+        return adjacency_dense(g, torch.float32, device)
+    csr = adjacency_csr(g, torch.float32, device)
+    return torch.sparse_csr_tensor(csr.indptr.long(), csr.indices.long(),
+                                   csr.data, size=(g.n, g.n))
 
 
 def bfs_distances_batched(g: Graph, sources, device=None) -> torch.Tensor:

@@ -1,11 +1,11 @@
-"""Traffic patterns: the demand matrices the simulator replays.
+"""Traffic patterns and their analytic saturation throughput.
 
-The port's own copy of the pattern registry of ``repro.core.traffic``
-(and of ``parse_spec`` from ``repro.core.routing``), numpy only, so that
-demands stay bit-equal to the reference's: ``random_permutation`` keeps
-``np.random.default_rng(seed)``.  A pattern builds a dense (N, N)
-float64 demand for any graph; :func:`normalize_demand` scales it so the
-busiest source injects one unit, the normalization behind every theta.
+The port's own copy of the pattern registry of ``repro.core.traffic``,
+numpy only, so that demands stay bit-equal to the reference's:
+``random_permutation`` keeps ``np.random.default_rng(seed)``.  A pattern
+builds a dense (N, N) float64 demand for any graph;
+:func:`normalize_demand` scales it so the busiest source injects one
+unit, the normalization behind every theta.
 
   uniform             all-to-all, 1 unit per ordered pair
   bit_reversal        rank i -> bit-reversed rank
@@ -17,49 +17,31 @@ busiest source injects one unit, the normalization behind every theta.
   hot_region(frac, boost)   all-to-all with a boosted hot target region
   collective(op)      demand of one fabric collective
 
-``saturation_report`` (the analytic theta) waits for the port of the
-analytic engines.
+:func:`saturation_report` evaluates one pattern under one routing model
+(repro_torch.core.routing) on the arc-load engines of
+repro_torch.core.utilization, on the card unless ``device="cpu"``:
+theta = 1/max arc load of the normalized demand.  :func:`saturation_sweep`
+runs a battery of patterns.
 """
 
 from __future__ import annotations
 
 import math
-import re
 from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
 
+from .._device import resolve_device
 from .graph import Graph
+from .routing import make_routing, parse_spec
 
 __all__ = [
     "TrafficPattern", "PATTERNS", "register_pattern", "make_pattern",
     "matrix_pattern", "COLLECTIVE_OPS", "normalize_demand", "parse_spec",
+    "SaturationReport", "saturation_report", "saturation_sweep",
+    "DEFAULT_SWEEP",
 ]
-
-
-_SPEC_RE = re.compile(r"^\s*([A-Za-z_][A-Za-z0-9_-]*)\s*(?:\((.*)\))?\s*$")
-
-
-def parse_spec(spec, registry: dict, kind: str):
-    """Shared ``name`` / ``name(arg, ...)`` spec parser for the pattern
-    and routing registries: tokens coerce int -> float -> str, and an
-    unknown name raises ``ValueError("unknown {kind} ...")``."""
-    m = _SPEC_RE.match(str(spec))
-    if not m or m.group(1) not in registry:
-        raise ValueError(f"unknown {kind} {spec!r}; "
-                         f"options: {sorted(registry)}")
-    name, argstr = m.group(1), m.group(2)
-    args = []
-    for tok in filter(None, (t.strip() for t in (argstr or "").split(","))):
-        try:
-            args.append(int(tok))
-        except ValueError:
-            try:
-                args.append(float(tok))
-            except ValueError:
-                args.append(tok)
-    return registry[name](*args)
 
 
 @dataclass(frozen=True)
@@ -289,3 +271,91 @@ def normalize_demand(demand: np.ndarray) -> np.ndarray:
     if peak <= 0:
         raise ValueError("demand matrix is all zero")
     return demand / peak
+
+
+# ---------------------------------------------------------------------------
+# Saturation analysis
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SaturationReport:
+    """Load statistics of one (pattern, routing) on one graph.
+
+    Demand is normalized so the busiest source injects 1 unit; arcs have
+    unit capacity, so ``theta = 1/max_load`` is the per-node saturation
+    injection rate in link-equivalents (uniform: Eq. 1's a = Δ·u/k̄) and
+    ``u = mean/max`` is the paper's balance figure for this pattern."""
+
+    pattern: str
+    routing: str
+    theta: float
+    u: float
+    max_load: float
+    mean_load: float
+    kbar_eff: float  # demand-weighted hops (both phases under Valiant)
+    diameter: int    # longest hops traveled (Valiant: two-leg upper bound)
+    total_demand: float
+    loads: np.ndarray = field(repr=False)
+    alpha: float | None = None  # blend weight on minimal (ugal models)
+
+
+def saturation_report(g: Graph, pattern, routing: str = "minimal",
+                      engine: str | None = "auto",
+                      targets_mask: np.ndarray | None = None,
+                      faults=None, device=None) -> SaturationReport:
+    """Evaluate one traffic pattern on ``g`` under one routing model.
+
+    ``pattern`` is a spec for :func:`make_pattern` (a registry name, a
+    TrafficPattern, or a raw (N, N) demand matrix); ``routing`` a spec for
+    :func:`repro_torch.core.routing.make_routing` ("minimal", "valiant",
+    "ugal", "ugal(source)", "ugal_threshold(T)", or a RoutingModel);
+    ``engine`` the arc-load engine (``auto``, ``dense``, ``fused``);
+    ``targets_mask`` defaults to the graph's leaf mask for indirect
+    networks.  Runs on the card unless ``device="cpu"``."""
+    if faults is not None:
+        raise NotImplementedError(
+            "saturation_report(faults=...) waits for the port of "
+            "core/faults.py (ROADMAP.md, queue 1: faults)")
+    device = resolve_device(device)
+    model = make_routing(routing)
+    pat = make_pattern(pattern)
+    if targets_mask is None:
+        targets_mask = g.meta.get("leaf_mask")
+    demand = normalize_demand(pat.demand(g, targets_mask))
+    total = float(demand.sum())
+    active = (np.arange(g.n) if targets_mask is None
+              else np.nonzero(np.asarray(targets_mask, dtype=bool))[0])
+    res = model.evaluate(g, demand, active, engine, device)
+
+    mx = float(res.loads.max())
+    mean = float(res.loads.mean())
+    return SaturationReport(
+        pattern=pat.name, routing=model.name, theta=1.0 / mx, u=mean / mx,
+        max_load=mx, mean_load=mean, kbar_eff=res.kbar_eff,
+        diameter=int(res.diameter), total_demand=total, loads=res.loads,
+        alpha=res.alpha)
+
+
+DEFAULT_SWEEP = ("uniform", "bit_reversal", "transpose", "tornado",
+                 "random_permutation", "hot_region")
+
+
+def saturation_sweep(g: Graph, patterns=DEFAULT_SWEEP,
+                     routings=("minimal", "valiant"),
+                     engine: str | None = "auto",
+                     targets_mask: np.ndarray | None = None, device=None):
+    """Run a battery of patterns; returns ``(reports, summary)`` where
+    ``summary`` names the worst pattern per routing: min theta (the
+    throughput guarantee) and the worst-case u over patterns."""
+    device = resolve_device(device)
+    reports = [saturation_report(g, p, routing=r, engine=engine,
+                                 targets_mask=targets_mask, device=device)
+               for p in patterns for r in routings]
+    summary = {}
+    for r in routings:
+        rs = [rep for rep in reports if rep.routing == r]
+        worst = min(rs, key=lambda rep: rep.theta)
+        summary[r] = {"min_theta": worst.theta, "worst_pattern": worst.pattern,
+                      "worst_u": min(rep.u for rep in rs)}
+    return reports, summary

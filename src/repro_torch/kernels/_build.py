@@ -5,9 +5,9 @@ kernels (``csrc/*.cu``, plain CUDA C++ with no PyTorch header) and the
 one small binding file, the only one that includes PyTorch headers.  The
 kernels are compiled with ``nvcc`` for ``sm_90a`` (Hopper) into
 ``build/torch_ext/`` at the repository root, which ``.gitignore`` lists.
-The first build in a fresh checkout takes about 20 s (Python 3.12, torch
-2.11, CUDA 12.8, on the host of an H100); later builds in the same
-checkout reuse the cache.
+The first build in a fresh checkout took about 20 s with the simulator
+kernels alone (Python 3.12, torch 2.11, CUDA 12.8, on the host of an
+H100); later builds in the same checkout reuse the cache.
 
 Nothing here runs at import time: a machine without ``nvcc`` imports the
 package and runs the kernels' plain versions on CPU tensors.  A failed
@@ -23,7 +23,8 @@ from pathlib import Path
 __all__ = ["extension", "SOURCES", "BUILD_DIR"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "sim_step.cu", _CSRC / "sim_step_binding.cpp")
+SOURCES = (_CSRC / "sim_step.cu", _CSRC / "mask_gemm.cu",
+           _CSRC / "sim_step_binding.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 
@@ -33,7 +34,7 @@ def extension():
     """The compiled extension module (built once per process)."""
     from torch.utils.cpp_extension import load
     os.makedirs(BUILD_DIR, exist_ok=True)  # load() needs it to exist
-    return load(name="repro_torch_sim_step",
+    return load(name="repro_torch_kernels",
                 sources=[str(s) for s in SOURCES],
                 build_directory=str(BUILD_DIR),
                 extra_cflags=["-O2"],

@@ -1,10 +1,12 @@
-// PyTorch binding of the simulator-step kernels in sim_step.cu.
+// PyTorch binding of the port's kernels: the simulator-step kernels in
+// sim_step.cu and the mask+GEMM kernels in mask_gemm.cu.
 //
 // The only file of the extension that includes PyTorch's headers, and
 // only the few it needs (the tensor, the pybind11 tensor caster and the
 // CUDA stream/guard/launch-check helpers): the catch-all
 // <torch/extension.h> would multiply the first build's time.  The
-// Python wrappers (repro_torch/kernels/sim_step.py) check shapes, dtypes
+// Python wrappers (repro_torch/kernels/sim_step.py, mask_gemm.py) check
+// shapes, dtypes
 // and contiguity and allocate every output; this file re-checks what a
 // wrong pointer would turn into a fault, launches on PyTorch's current
 // stream and checks the launch.
@@ -32,6 +34,20 @@
 
 SIM_STEP_DECLARE(float, f32)
 SIM_STEP_DECLARE(double, f64)
+
+#define MASK_GEMM_DECLARE(T, SUFFIX)                                        \
+  cudaError_t mask_frontier_##SUFFIX(                                       \
+      const T* front, const int32_t* indptr, const int32_t* indices,        \
+      const T* data, const int32_t* dist, const T* sigma, T* nxt,           \
+      int32_t* dist_out, T* sigma_out, int32_t* any_new, int64_t s, int n,  \
+      int lvl, cudaStream_t stream);                                        \
+  cudaError_t mask_backward_##SUFFIX(                                       \
+      const T* coeff, const int32_t* indptr, const int32_t* indices,        \
+      const T* data, const int32_t* dist, const T* sigma, const T* delta,   \
+      T* out, int64_t s, int n, int lvl, cudaStream_t stream);
+
+MASK_GEMM_DECLARE(float, f32)
+MASK_GEMM_DECLARE(double, f64)
 
 namespace {
 
@@ -135,6 +151,109 @@ void fused_decision(const at::Tensor& b0, const at::Tensor& split,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// An (S, N) operand of a mask+GEMM call: on the card, contiguous, of
+// the given dtype and of the same shape as the level state x.
+void check_like(const at::Tensor& t, const char* name, const at::Tensor& x,
+                at::ScalarType dtype) {
+  check_cuda(t, name, dtype);
+  TORCH_CHECK(t.sizes() == x.sizes(), name, " must be (S, N)");
+}
+
+// The compressed-column A and the (S, N) level state of one mask+GEMM
+// call.
+void check_level(const at::Tensor& x, const at::Tensor& indptr,
+                 const at::Tensor& indices, const at::Tensor& data,
+                 const at::Tensor& dist) {
+  const auto dt = x.scalar_type();
+  TORCH_CHECK(dt == at::kFloat || dt == at::kDouble,
+              "the mask+GEMM kernels take float32 or float64");
+  check_cuda(x, "x", dt);
+  check_cuda(data, "data", dt);
+  check_cuda(indptr, "indptr", at::kInt);
+  check_cuda(indices, "indices", at::kInt);
+  check_cuda(dist, "dist", at::kInt);
+  TORCH_CHECK(x.dim() == 2 && dist.sizes() == x.sizes(),
+              "x and dist must be (S, N)");
+  TORCH_CHECK(indptr.numel() == x.size(1) + 1, "indptr must have N + 1 "
+              "entries");
+  TORCH_CHECK(indices.numel() == data.numel(), "indices and data differ "
+              "in length");
+}
+
+void mask_frontier(const at::Tensor& front, const at::Tensor& indptr,
+                   const at::Tensor& indices, const at::Tensor& data,
+                   const at::Tensor& dist, const at::Tensor& sigma,
+                   int64_t lvl, at::Tensor& nxt, at::Tensor& dist_out,
+                   at::Tensor& sigma_out, at::Tensor& any_new) {
+  check_level(front, indptr, indices, data, dist);
+  const auto dt = front.scalar_type();
+  check_like(sigma, "sigma", front, dt);
+  check_like(nxt, "nxt", front, dt);
+  check_like(sigma_out, "sigma_out", front, dt);
+  check_like(dist_out, "dist_out", front, at::kInt);
+  check_cuda(any_new, "any_new", at::kInt);
+  TORCH_CHECK(any_new.numel() == 1, "any_new must hold one int32");
+  const int64_t s = front.size(0), n = front.size(1);
+  const c10::cuda::CUDAGuard guard(front.device());
+  const cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
+  if (s == 0 || n == 0) return;
+  cudaError_t err;
+  if (dt == at::kFloat) {
+    err = mask_frontier_f32(
+        front.data_ptr<float>(), indptr.data_ptr<int32_t>(),
+        indices.data_ptr<int32_t>(), data.data_ptr<float>(),
+        dist.data_ptr<int32_t>(), sigma.data_ptr<float>(),
+        nxt.data_ptr<float>(), dist_out.data_ptr<int32_t>(),
+        sigma_out.data_ptr<float>(), any_new.data_ptr<int32_t>(), s,
+        static_cast<int>(n), static_cast<int>(lvl), stream);
+  } else {
+    err = mask_frontier_f64(
+        front.data_ptr<double>(), indptr.data_ptr<int32_t>(),
+        indices.data_ptr<int32_t>(), data.data_ptr<double>(),
+        dist.data_ptr<int32_t>(), sigma.data_ptr<double>(),
+        nxt.data_ptr<double>(), dist_out.data_ptr<int32_t>(),
+        sigma_out.data_ptr<double>(), any_new.data_ptr<int32_t>(), s,
+        static_cast<int>(n), static_cast<int>(lvl), stream);
+  }
+  TORCH_CHECK(err == cudaSuccess, "frontier_step launch failed: ",
+              cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void mask_backward(const at::Tensor& coeff, const at::Tensor& indptr,
+                   const at::Tensor& indices, const at::Tensor& data,
+                   const at::Tensor& dist, const at::Tensor& sigma,
+                   const at::Tensor& delta, int64_t lvl, at::Tensor& out) {
+  check_level(coeff, indptr, indices, data, dist);
+  const auto dt = coeff.scalar_type();
+  check_like(sigma, "sigma", coeff, dt);
+  check_like(delta, "delta", coeff, dt);
+  check_like(out, "out", coeff, dt);
+  const int64_t s = coeff.size(0), n = coeff.size(1);
+  const c10::cuda::CUDAGuard guard(coeff.device());
+  const cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
+  if (s == 0 || n == 0) return;
+  cudaError_t err;
+  if (dt == at::kFloat) {
+    err = mask_backward_f32(
+        coeff.data_ptr<float>(), indptr.data_ptr<int32_t>(),
+        indices.data_ptr<int32_t>(), data.data_ptr<float>(),
+        dist.data_ptr<int32_t>(), sigma.data_ptr<float>(),
+        delta.data_ptr<float>(), out.data_ptr<float>(), s,
+        static_cast<int>(n), static_cast<int>(lvl), stream);
+  } else {
+    err = mask_backward_f64(
+        coeff.data_ptr<double>(), indptr.data_ptr<int32_t>(),
+        indices.data_ptr<int32_t>(), data.data_ptr<double>(),
+        dist.data_ptr<int32_t>(), sigma.data_ptr<double>(),
+        delta.data_ptr<double>(), out.data_ptr<double>(), s,
+        static_cast<int>(n), static_cast<int>(lvl), stream);
+  }
+  TORCH_CHECK(err == cudaSuccess, "backward_step launch failed: ",
+              cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -142,4 +261,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "fused forward/throttle/enqueue update of one VC (CUDA)");
   m.def("fused_decision", &fused_decision,
         "per-hop UGAL divert decision (CUDA)");
+  m.def("mask_frontier", &mask_frontier,
+        "forward BFS level, sparse product + mask epilogue (CUDA)");
+  m.def("mask_backward", &mask_backward,
+        "backward dependency level, sparse product + mask epilogue (CUDA)");
 }

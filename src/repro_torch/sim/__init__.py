@@ -24,7 +24,7 @@ import torch
 
 from .._device import resolve_device
 from ..core.graph import Graph
-from ..core.traffic import make_pattern, normalize_demand
+from ..core.traffic import make_pattern, normalize_demand, saturation_report
 from .engine import (SIM_MAX_CELLS, SimConfig, SimState, init_state,
                      make_step, parse_sim_routing, pick_backend)
 from .kernel import make_step_sparse, resolve_dtype
@@ -330,25 +330,25 @@ def saturation_sweep(g: Graph, pattern, routing: str = "minimal",
     """Latency-vs-offered-load curve and measured saturation throughput
     for one (topology, pattern, routing).
 
-    ``theta_analytic`` is the fluid-model reference (required until the
-    analytic engines are ported); ``loads`` defaults to
-    :data:`DEFAULT_LOAD_GRID` times it, and the grid is extended when
-    every probe lands on one side.  ``theta`` is the largest offered load
+    ``theta_analytic`` is the fluid-model reference: when it is None the
+    sweep computes it with :func:`repro_torch.core.saturation_report`
+    under the matching analytic model (:func:`fluid_routing_spec`), on the
+    same device.  ``loads`` defaults to :data:`DEFAULT_LOAD_GRID` times
+    it, and the grid is extended when every probe lands on one side.  ``theta`` is the largest offered load
     whose delivered/offered ratio stays >= ``stable_ratio``, sharpened by
     ``refine`` bisection probes.  ``knee="per_dest"`` judges stability by
     the minimum per-dest-column ratio instead."""
     if knee not in ("aggregate", "per_dest"):
         raise ValueError(f"unknown knee criterion {knee!r}; options: "
                          f"aggregate, per_dest")
-    if theta_analytic is None:
-        raise ValueError("saturation_sweep needs theta_analytic: the "
-                         "analytic engines (core/utilization, "
-                         "saturation_report) come with a later slice of "
-                         "the port")
     per_dest = knee == "per_dest"
+    device = resolve_device(device)
     cfg = _config_with(config, routing)
     pat, demand, targets_mask = _demand_for(g, pattern, targets_mask, True)
-    ref = float(theta_analytic)
+    ref = float(theta_analytic if theta_analytic is not None else
+                saturation_report(g, pat, routing=fluid_routing_spec(routing),
+                                  targets_mask=targets_mask,
+                                  device=device).theta)
     if loads is None:
         loads = np.asarray(DEFAULT_LOAD_GRID) * ref
     loads = np.sort(np.asarray(loads, dtype=np.float64))

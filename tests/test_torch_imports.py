@@ -37,7 +37,9 @@ def test_port_imports_neither_jax_nor_repro():
     assert res["foreign"] == []
     expected = {"repro_torch.convert", "repro_torch.core.graph",
                 "repro_torch.core.traffic", "repro_torch.sim.kernel",
-                "repro_torch.kernels.sim_step", "repro_torch.kernels._build"}
+                "repro_torch.kernels.sim_step", "repro_torch.kernels._build",
+                "repro_torch.core.utilization", "repro_torch.core.routing",
+                "repro_torch.kernels.mask_gemm"}
     assert expected <= set(res["modules"])
 
 
@@ -65,3 +67,27 @@ def test_simulator_without_device_needs_cuda():
         Simulator(pn_graph(2), SimConfig())
     sim = Simulator(pn_graph(2), SimConfig(), device="cpu")
     assert sim.tables.split.device.type == "cpu"
+
+
+def test_analytic_entry_points_without_device_need_cuda():
+    from repro_torch.core import pn_graph, saturation_report, utilization
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    g = pn_graph(2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        utilization(g)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        saturation_report(g, "uniform", routing="ugal")
+    assert utilization(g, device="cpu").u == pytest.approx(1.0, abs=1e-12)
+
+
+def test_mask_gemm_kernels_are_in_the_one_build():
+    """Both kernel sources go to the single extension build, and only
+    the binding file includes PyTorch's headers."""
+    from repro_torch.kernels import _build
+    names = [p.name for p in _build.SOURCES]
+    assert names == ["sim_step.cu", "mask_gemm.cu", "sim_step_binding.cpp"]
+    for path in _build.SOURCES:
+        text = path.read_text()
+        assert ("#include <torch/" in text or "#include <ATen/" in text) \
+            == (path.suffix == ".cpp"), path.name

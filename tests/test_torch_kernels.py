@@ -1,5 +1,5 @@
-"""The simulator-step kernels of repro_torch against the reference's
-Pallas kernels.
+"""The kernels of repro_torch against the reference's Pallas kernels:
+the simulator-step kernels here, the mask+GEMM kernels further down.
 
 On the CPU the port's wrappers run the kernels' plain versions; those are
 held against ``repro.kernels.sim_step`` run through the Pallas
@@ -14,7 +14,7 @@ the inequality differ by more than 1e-9 (float64) or 1e-5 (float32) of
 their scale; a rounding can flip a comparison only inside that band.
 
 The CUDA kernels themselves are checked against the plain versions by
-the ``cuda``-marked test, which skips without a card.
+the ``cuda``-marked tests, which skip without a card.
 """
 
 from __future__ import annotations
@@ -191,3 +191,192 @@ def test_cuda_kernels_match_plain_versions(dtype):
         want = fused_decision_ref(*ddev, dm, thr)
         _assert_decision_equal(got.cpu().numpy(), want.cpu().numpy(),
                                darrs, thr)
+
+
+# ---------------------------------------------------------------------------
+# The mask+GEMM kernels (frontier_step, backward_step)
+# ---------------------------------------------------------------------------
+#
+# Ragged shapes (S = 77, N = 203: neither a multiple of the Pallas block)
+# and a random weighted A (degree about 12, integer weights 1..3).  Fronts
+# hold integer path counts up to 2^14, so products exceed 2^11 (the
+# float32 hazard of a TF32 product) and stay exact below 2^24.
+# Tolerances: float64 at rtol 1e-12 and float32 at rtol 1e-6 of the
+# output's max (the sums run in different orders); dist' and any_new
+# exactly.
+
+from repro_torch.kernels import mask_gemm as MG                 # noqa: E402
+from repro_torch.kernels.ref import (backward_step_ref,         # noqa: E402
+                                     dense_from_csc, frontier_step_ref)
+
+MS, MN = 77, 203
+
+
+def _csc(a):
+    """A compressed by column, as the kernels take it."""
+    cols, rows = np.nonzero(a.T)
+    indptr = np.zeros(a.shape[1] + 1, dtype=np.int32)
+    np.add.at(indptr, cols + 1, 1)
+    return (np.cumsum(indptr).astype(np.int32), rows.astype(np.int32),
+            a[rows, cols])
+
+
+def _mask_inputs(seed, dtype, lvl=3):
+    rng = np.random.default_rng(seed)
+    a = ((rng.random((MN, MN)) < 0.06)
+         * rng.integers(1, 4, (MN, MN))).astype(np.float64)
+    front = (rng.integers(0, 2**14, (MS, MN))
+             * (rng.random((MS, MN)) < 0.3)).astype(np.float64)
+    dist = rng.integers(-1, lvl, (MS, MN)).astype(np.int32)
+    sigma = rng.integers(1, 2**12, (MS, MN)).astype(np.float64)
+    delta = rng.random((MS, MN))
+    coeff = rng.random((MS, MN)) * (dist == lvl - 1)
+    cast = lambda x: x.astype(dtype)                            # noqa: E731
+    return dict(a=cast(a), csr=_csc(cast(a)), front=cast(front), dist=dist,
+                sigma=cast(sigma), delta=cast(delta), coeff=cast(coeff),
+                lvl=lvl)
+
+
+def _jax_mask_gemm(fn_name, *args, **kw):
+    jax = pytest.importorskip("jax")
+    from repro.kernels import mask_gemm
+    with jax.enable_x64(True):
+        out = getattr(mask_gemm, fn_name)(*args, interpret=True, **kw)
+        return [np.asarray(o) for o in
+                (out if isinstance(out, (tuple, list)) else (out,))]
+
+
+def _tcsr(csr):
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)) for x in csr)
+
+
+def _close(got, want, rtol):
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=rtol * max(np.abs(want).max(), 1.0))
+
+
+@pytest.mark.parametrize("dtype,rtol", [(np.float64, 1e-12),
+                                        (np.float32, 1e-6)])
+@pytest.mark.parametrize("lvl", [1, 3])
+def test_frontier_plain_matches_pallas(dtype, rtol, lvl):
+    x = _mask_inputs(10 + lvl, dtype, lvl)
+    want = _jax_mask_gemm("frontier_step", x["front"], x["a"], x["dist"],
+                          x["sigma"], lvl)
+    nxt, dist, sigma, any_new = frontier_step_ref(
+        torch.from_numpy(x["front"]), _tcsr(x["csr"]),
+        torch.from_numpy(x["dist"]), torch.from_numpy(x["sigma"]), lvl)
+    assert nxt.dtype == torch.from_numpy(x["front"]).dtype
+    _close(nxt.numpy(), want[0], rtol)
+    np.testing.assert_array_equal(dist.numpy(), want[1])
+    _close(sigma.numpy(), want[2], rtol)
+    assert int(any_new) == int((want[0] > 0).any()) == 1
+    assert want[0].max() > 2**11            # above the TF32 hazard
+
+
+@pytest.mark.parametrize("dtype,rtol", [(np.float64, 1e-12),
+                                        (np.float32, 1e-6)])
+def test_backward_plain_matches_pallas(dtype, rtol):
+    x = _mask_inputs(20, dtype)
+    lvl = x["lvl"] - 2
+    want = _jax_mask_gemm("backward_step", x["coeff"], x["a"], x["dist"],
+                          x["sigma"], x["delta"], lvl)[0]
+    got = backward_step_ref(
+        torch.from_numpy(x["coeff"]), _tcsr(x["csr"]),
+        torch.from_numpy(x["dist"]), torch.from_numpy(x["sigma"]),
+        torch.from_numpy(x["delta"]), lvl)
+    _close(got.numpy(), want, rtol)
+    untouched = x["dist"] != lvl
+    np.testing.assert_array_equal(got.numpy()[untouched],
+                                  x["delta"][untouched])
+
+
+def test_frontier_reports_no_new_vertex():
+    x = _mask_inputs(30, np.float64)
+    dist = np.zeros_like(x["dist"])          # everything already reached
+    out = MG.frontier_step(torch.from_numpy(x["front"]), _tcsr(x["csr"]),
+                           torch.from_numpy(dist),
+                           torch.from_numpy(x["sigma"]), 4)
+    assert int(out[3]) == 0 and not out[0].any()
+    assert out[3].dtype == torch.int32 and out[3].dim() == 0
+
+
+def test_dense_from_csc_rebuilds_the_matrix():
+    """A is not symmetric here: the triple must be read by column."""
+    x = _mask_inputs(31, np.float64)
+    assert not np.array_equal(x["a"], x["a"].T)
+    np.testing.assert_array_equal(dense_from_csc(*_tcsr(x["csr"])).numpy(),
+                                  x["a"])
+
+
+def test_mask_wrappers_route_cpu_tensors_to_plain_versions():
+    MG.reset_launches()
+    x = _mask_inputs(32, np.float64)
+    t = {k: torch.from_numpy(v) for k, v in x.items()
+         if isinstance(v, np.ndarray)}
+    csr = _tcsr(x["csr"])
+    got = MG.frontier_step(t["front"], csr, t["dist"], t["sigma"], 3)
+    want = frontier_step_ref(t["front"], csr, t["dist"], t["sigma"], 3)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    got = MG.backward_step(t["coeff"], csr, t["dist"], t["sigma"],
+                           t["delta"], 1)
+    assert torch.equal(got, backward_step_ref(t["coeff"], csr, t["dist"],
+                                              t["sigma"], t["delta"], 1))
+    assert MG.LAUNCHES == {"frontier_step": 0, "backward_step": 0}
+
+
+def test_mask_wrappers_reject_bad_inputs():
+    x = _mask_inputs(33, np.float64)
+    t = {k: torch.from_numpy(v) for k, v in x.items()
+         if isinstance(v, np.ndarray)}
+    csr = _tcsr(x["csr"])
+    with pytest.raises(ValueError, match="shape"):
+        MG.frontier_step(t["front"], csr, t["dist"][:, :5], t["sigma"], 1)
+    with pytest.raises(TypeError, match="int32"):
+        MG.frontier_step(t["front"], csr, t["dist"].long(), t["sigma"], 1)
+    with pytest.raises(TypeError, match="dtype"):
+        MG.backward_step(t["coeff"], csr, t["dist"], t["sigma"].float(),
+                         t["delta"], 1)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        MG.frontier_step(t["front"].half(), csr, t["dist"],
+                         t["sigma"].half(), 1)
+    with pytest.raises(TypeError, match="int32"):
+        MG.frontier_step(t["front"], (csr[0].long(), *csr[1:]), t["dist"],
+                         t["sigma"], 1)
+    with pytest.raises(ValueError, match="indptr"):
+        MG.frontier_step(t["front"], (csr[0][:-1], *csr[1:]), t["dist"],
+                         t["sigma"], 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        MG.backward_step(t["coeff"].t().contiguous().t(), csr, t["dist"],
+                         t["sigma"], t["delta"], 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_mask_gemm_matches_plain_versions(dtype):
+    """Both mask+GEMM kernels against their plain versions on the card:
+    float64 at rtol 1e-12, float32 at rtol 1e-6 of the max; dist' and
+    the any-new flag exactly; one launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels cannot run "
+                    "on the CPU")
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    rtol = 1e-12 if dtype == torch.float64 else 1e-6
+    x = _mask_inputs(34, npdt)
+    t = {k: torch.from_numpy(v).cuda() for k, v in x.items()
+         if isinstance(v, np.ndarray)}
+    csr = tuple(c.cuda() for c in _tcsr(x["csr"]))
+    before = dict(MG.LAUNCHES)
+    got = MG.frontier_step(t["front"], csr, t["dist"], t["sigma"], 3)
+    want = frontier_step_ref(t["front"], csr, t["dist"], t["sigma"], 3)
+    torch.cuda.synchronize()
+    assert MG.LAUNCHES["frontier_step"] == before["frontier_step"] + 1
+    for g_, w_ in ((got[0], want[0]), (got[2], want[2])):
+        _close(g_.cpu().numpy(), w_.cpu().numpy(), rtol)
+    assert torch.equal(got[1], want[1]) and int(got[3]) == int(want[3])
+    got = MG.backward_step(t["coeff"], csr, t["dist"], t["sigma"],
+                           t["delta"], 1)
+    want = backward_step_ref(t["coeff"], csr, t["dist"], t["sigma"],
+                             t["delta"], 1)
+    torch.cuda.synchronize()
+    assert MG.LAUNCHES["backward_step"] == before["backward_step"] + 1
+    _close(got.cpu().numpy(), want.cpu().numpy(), rtol)

@@ -202,8 +202,29 @@ def test_saturation_sweep_per_dest_matches_reference():
 
 
 def test_sweep_requires_analytic_theta():
-    with pytest.raises(ValueError, match="analytic"):
-        saturation_sweep(PN7, "uniform", device="cpu")
+    """Without ``theta_analytic`` the sweep computes the analytic theta
+    itself (``saturation_report`` under the matching fluid model, on the
+    sweep's device), grids its probes on it and lands on the reference's
+    knee: the reference's own sweep, ``backend="numpy"``, does the same.
+    Tornado, not uniform: at uniform the grid's probe at exactly 1.0x
+    theta sits on the capacity itself, where a one-ulp difference in
+    theta decides whether the threshold rule fires."""
+    kw = dict(routing="ugal_threshold(0)", steps=24, refine=1)
+    ref = ref_sweep(PN7_REF, "tornado",
+                    config=RefConfig(backend="numpy", dtype="float64"), **kw)
+    port = saturation_sweep(PN7, "tornado",
+                            config=SimConfig(backend="dense",
+                                             dtype="float64"),
+                            device="cpu", **kw)
+    theta = ref_saturation_report(PN7_REF, "tornado", routing="ugal").theta
+    assert port.theta_analytic == pytest.approx(theta, rel=1e-9)
+    assert port.theta_analytic == pytest.approx(ref.theta_analytic,
+                                                rel=1e-9)
+    assert len(port.runs) == len(ref.runs) == 6
+    np.testing.assert_allclose(port.loads, ref.loads, rtol=1e-9)
+    np.testing.assert_allclose(port.delivered, ref.delivered, rtol=1e-9)
+    assert port.theta == pytest.approx(ref.theta, rel=1e-9)
+    assert 0.0 < port.theta < port.theta_unstable < np.inf
 
 
 def test_compacted_run_rejects_foreign_demand():
