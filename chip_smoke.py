@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card, end to end, and check
-it: the flow-level simulator and the analytic arc-load engines behind
-its reference theta.
+it: the flow-level simulator, the analytic arc-load engines behind its
+reference theta, and the serving path of smollm-135m and mamba2-130m.
 
     python3 chip_smoke.py
 
@@ -54,6 +54,38 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    probe runs twice and must repeat bitwise.
 8. Where a PN(27) step's device time goes: torch.profiler over a short
    run, device time per step by kernel and the device's idle share.
+9. The flash-attention forward (kernel #5) against its plain version on
+   the card: smollm's serve shape (B=1, Hq=9, Hkv=3, D=64, bf16, causal,
+   S = 1000 and 2048), a window, a q_offset, float32, non-causal, MQA and
+   D = 32 / 128 cases, ragged lengths throughout; float32 at 3e-5, bf16
+   within one bf16 rounding (1e-4 + 2^-7 |o|), the log-sum-exp at 3e-5.
+   Then its time at S = 2048 beside SDPA's
+   (``scaled_dot_product_attention(..., is_causal=True,
+   enable_gqa=True)`` in bf16, the yardstick; the port never calls it)
+   and its bound: bytes at the HBM rate against Q K^T at the bf16
+   tensor-core rate plus P.V at the float32 rate.
+10. The SSD chunked scan (kernel #8) against its plain version at
+    mamba2's serve shape (B=1, H=24, P=64, G=1, N=128, chunk 256, L =
+    1000, 2048 and 300): y and the final state at 3e-4 with float32
+    operands; with bf16 x, B, C the state at 3e-4 and y within one bf16
+    rounding.  Then its time at L = 2048 and its bound (C B^T at the bf16
+    tensor-core rate, the other products at the float32 rate).
+11. smollm-135m at full width (30 x 576, vocab 49152, random weights
+    from a seeded torch.Generator) served through ``Engine.run``: 8
+    requests of 256-1536 prompt tokens (drawn from a seed), 32 new
+    tokens each, batches of 4, 2048 cache slots.  Kernel #5 must launch
+    exactly 30 times per request around ``Engine.run`` alone; every
+    emitted token must lie within 0.05 of the max logit of a solo
+    teacher-forced run on the card, whose logits must be finite.  Prints
+    prefill ms per request (each, in serving order), ms per batched
+    decode step, tokens/s and peak device memory; then serves the same
+    requests again through a new Engine, so that the first run's
+    first-call costs show beside a warm run's.
+12. mamba2-130m at full width (24 x 768, 24 heads of 64, d_state 128,
+    chunk 256), the same traffic and checks; kernel #8 must launch
+    exactly 24 times per request, and the SSD states must be finite.
+13. Where smollm's device time goes: torch.profiler over one 1536-token
+    prefill and over 8 batched decode steps at batch 4.
 
 Output: the card's name and power limit, then a ``kernels`` JSON line,
 then ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -80,6 +112,8 @@ THETA_RTOL = 1e-9
 KNEE_BUDGET = 0.025
 KERNEL_SRC = "src/repro_torch/kernels/csrc/sim_step.cu"
 MASK_SRC = "src/repro_torch/kernels/csrc/mask_gemm.cu"
+FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 
 
 def log(*args):
@@ -645,6 +679,346 @@ def profile_device(fn, per: int, unit: str, label: str = "profile"):
             f"launches/{unit}  {key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# The serving path: kernels #5 and #8, then smollm-135m and mamba2-130m
+# ---------------------------------------------------------------------------
+
+FP32_FLOPS = 67e12      # H100 SXM float32 CUDA-core peak (data sheet)
+BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
+SERVE = dict(requests=8, min_len=256, max_len_prompt=1536, max_new=32,
+             max_batch=4, max_len=2048, gap=0.05)
+
+
+def _close_or_raise(name, got, want, atol, rtol):
+    """Max abs error of got vs want, and the max relative error over the
+    elements with |want| > atol; raises beyond atol + rtol * |want|."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    bad = diff > atol + rtol * want.abs()
+    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: {int(bad.sum())} elements beyond "
+                             f"{atol} + {rtol}|want|, max error "
+                             f"{float(diff.max())}")
+    big = want.abs() > atol
+    rel = float((diff[big] / want.abs()[big]).max()) if bool(big.any()) \
+        else 0.0
+    return float(diff.max()), rel
+
+
+def check_flash(dev, bw):
+    """Kernel #5 against its plain version at the serve shapes and around
+    them, then its time at S = 2048 beside SDPA (the yardstick)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    err = 0.0
+    cases = [  # (hq, hkv, sq, skv, d, causal, window, q_offset, dtype)
+        (9, 3, 1000, 1000, 64, True, None, 0, torch.bfloat16),
+        (9, 3, 2048, 2048, 64, True, None, 0, torch.bfloat16),
+        (9, 3, 1000, 1000, 64, True, None, 0, torch.float32),
+        (9, 3, 777, 777, 64, True, 128, 0, torch.bfloat16),
+        (9, 3, 300, 1300, 64, True, None, 1000, torch.bfloat16),
+        (9, 3, 333, 333, 64, False, None, 0, torch.float32),
+        (4, 1, 257, 257, 32, True, 64, 0, torch.float32),
+        (4, 2, 130, 130, 128, True, None, 0, torch.float32),
+    ]
+    for hq, hkv, sq, skv, d, causal, window, off, dtype in cases:
+        q = torch.randn((1, hq, sq, d), generator=gen, device=dev).to(dtype)
+        k = torch.randn((1, hkv, skv, d), generator=gen, device=dev).to(dtype)
+        v = torch.randn((1, hkv, skv, d), generator=gen, device=dev).to(dtype)
+        kw = dict(causal=causal, window=window, q_offset=off)
+        o, lse = FA.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        w_o, w_lse = flash_attention_ref(q, k, v, **kw)
+        # both sides compute in float32 from the same inputs: float32 o at
+        # 3e-5; bf16 o within one bf16 rounding (a relative 2^-7), far
+        # inside |o| (about 0.03 at S = 2048), so a wrong P.V shows
+        atol, rtol = ((1e-4, 2.0 ** -7) if dtype == torch.bfloat16
+                      else (3e-5, 3e-5))
+        name = (f"flash_attention Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} D={d} "
+                f"causal={causal} window={window} q_offset={off} {dtype}")
+        e, rel = _close_or_raise(name, o, w_o, atol, rtol)
+        _close_or_raise(name + " lse", lse, w_lse, 3e-5, 3e-5)
+        if dtype == torch.bfloat16 and hq == 9 and window is None:
+            err = max(err, e)
+        log(f"{name}: ok (max abs err {e:.3e}, max rel err {rel:.3e}; "
+            f"limit {atol} + {rtol:.3e}|o|)")
+
+    # time at the longest serve prompt, one smollm layer, bf16 causal
+    hq, hkv, s, d = 9, 3, 2048, 64
+    q = torch.randn((1, hq, s, d), generator=gen, device=dev).bfloat16()
+    k = torch.randn((1, hkv, s, d), generator=gen, device=dev).bfloat16()
+    v = torch.randn((1, hkv, s, d), generator=gen, device=dev).bfloat16()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pairs = s * (s + 1) // 2                        # live (q, k) pairs
+    # Q K^T has bf16 operands (the 1/8 scale is exact): the bf16 tensor
+    # cores compute the same float32 sums.  P.V takes float32
+    # probabilities: float32 CUDA cores.
+    qk_flops = pv_flops = 2.0 * d * hq * pairs
+    nbytes = 2 * (2 * hq * s * d + 2 * hkv * s * d) + 4 * hq * s
+    row = dict(
+        ms=cuda_ms(lambda: FA.flash_attention(q, k, v), 20),
+        plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v), 5),
+        library_ms=cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                        enable_gqa=True), 20),
+        **_bound(nbytes, bf16_flops=qk_flops, fp32_flops=pv_flops, bw=bw))
+    log(f"flash_attention_fwd [B=1 Hq=9 Hkv=3 S=2048 D=64 bf16 causal]: "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, SDPA "
+        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by "
+        f"{row['bound_by']} (Q K^T {qk_flops / 1e9:.3f} GFLOP at 989 "
+        f"TFLOP/s bf16 = {row['bf16_ms']:.4f} ms + P.V "
+        f"{pv_flops / 1e9:.3f} GFLOP at 67 TFLOP/s float32 = "
+        f"{row['fp32_ms']:.4f} ms; {nbytes / 1e6:.2f} MB = "
+        f"{row['bytes_ms']:.4f} ms); "
+        f"{(qk_flops + pv_flops) / row['ms'] / 1e9:.2f} TFLOP/s achieved")
+    return err, row
+
+
+def _bound(nbytes, *, bf16_flops, fp32_flops, bw):
+    """The least time for the work: the larger of its bytes at the HBM
+    rate and its products, each at the peak rate its operand types allow
+    (bf16 operands on the tensor cores, float32 on the CUDA cores)."""
+    bytes_ms = nbytes / bw * 1e3
+    bf16_ms = bf16_flops / BF16_FLOPS * 1e3
+    fp32_ms = fp32_flops / FP32_FLOPS * 1e3
+    ops_ms = bf16_ms + fp32_ms
+    return dict(bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
+                bf16_ms=bf16_ms, fp32_ms=fp32_ms,
+                bound_by="operations" if ops_ms > bytes_ms else "bytes")
+
+
+def _ssd_inputs(gen, dev, length, h=24, p=64, g=1, n=128):
+    """One mamba2 layer's SSD operands: x, B, C from unit normals, dt
+    from softplus of a normal, a_log = log(linspace(1, 16)), d_skip 1."""
+    x = torch.randn((1, length, h, p), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((1, length, h), generator=gen, device=dev))
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+    b = torch.randn((1, length, g, n), generator=gen, device=dev)
+    c = torch.randn((1, length, g, n), generator=gen, device=dev)
+    return x, dt, a_log, b, c, torch.ones(h, device=dev)
+
+
+def check_ssd(dev, bw, chunk: int = 256):
+    """Kernel #8 against its plain version at the serve shapes, then its
+    time at L = 2048 (no single PyTorch call computes it)."""
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.kernels.ref import ssd_scan_ref
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    err = 0.0
+    for length in (1000, 2048, 300):
+        x, dt, a_log, b, c, ds = _ssd_inputs(gen, dev, length)
+        # float32 operands holding bf16 values: y and state at 3e-4
+        f32 = [t.bfloat16().float() for t in (x, b, c)]
+        args = (f32[0], dt, a_log, f32[1], f32[2], ds)
+        y, st = SS.ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        w_y, w_st = ssd_scan_ref(*args, chunk=chunk)
+        name = f"ssd_scan L={length} H=24 P=64 N=128 chunk={chunk}"
+        e = max(_close_or_raise(name + " f32 y", y, w_y, 3e-4, 3e-4)[0],
+                _close_or_raise(name + " f32 state", st, w_st, 3e-4,
+                                3e-4)[0])
+        # the serve dtype: bf16 x, B, C; state at 3e-4, y after rounding
+        # both sides to bf16 (one bf16 ulp is 2^-8 of the value)
+        bargs = (x.bfloat16(), dt, a_log, b.bfloat16(), c.bfloat16(), ds)
+        y, st = SS.ssd_scan(*bargs, chunk=chunk)
+        torch.cuda.synchronize()
+        w_y, w_st = ssd_scan_ref(*bargs, chunk=chunk)
+        e = max(e, _close_or_raise(name + " bf16 state", st, w_st, 3e-4,
+                                   3e-4)[0])
+        eb, rel = _close_or_raise(name + " bf16 y", y, w_y, 3e-4, 2.0 ** -7)
+        err = max(err, e)
+        log(f"{name}: ok (max abs err {e:.3e} on float32 y and both "
+            f"states; bf16 y {eb:.3e}, max rel err {rel:.3e})")
+    # an initial state, a short chunk and several groups
+    x, dt, a_log, b, c, ds = _ssd_inputs(gen, dev, 200, h=8, p=16, g=2,
+                                         n=64)
+    s0 = torch.randn((1, 8, 64, 16), generator=gen, device=dev)
+    got = SS.ssd_scan(x, dt, a_log, b, c, ds, chunk=64, state=s0)
+    want = ssd_scan_ref(x, dt, a_log, b, c, ds, chunk=64, state=s0)
+    for gv, wv, what in zip(got, want, ("y", "state")):
+        _close_or_raise(f"ssd_scan with state, G=2 {what}", gv, wv, 3e-4,
+                        3e-4)
+    log("ssd_scan with an initial state, G=2, chunk 64: ok")
+
+    length, h, p, n = 2048, 24, 64, 128
+    x, dt, a_log, b, c, ds = _ssd_inputs(gen, dev, length)
+    args = (x.bfloat16(), dt, a_log, b.bfloat16(), c.bfloat16(), ds)
+    # C B^T has bf16 operands (tensor-core rate); the products with the
+    # float32 decayed scores, x dt and state are float32
+    cb_flops = rest_flops = 0.0
+    for c0 in range(0, length, chunk):
+        qc = min(chunk, length - c0)
+        tri = qc * (qc + 1) / 2
+        cb_flops += 2 * tri * n * h
+        rest_flops += (2 * tri * p + 4 * qc * n * p) * h
+    nbytes = 2 * (2 * length * h * p + 2 * length * n) + 4 * length * h \
+        + 8 * h + 4 * h * n * p
+    row = dict(
+        ms=cuda_ms(lambda: SS.ssd_scan(*args, chunk=chunk), 20),
+        plain_ms=cuda_ms(lambda: ssd_scan_ref(*args, chunk=chunk), 5),
+        library_ms=None,
+        **_bound(nbytes, bf16_flops=cb_flops, fp32_flops=rest_flops, bw=bw))
+    log(f"ssd_scan [B=1 L=2048 H=24 P=64 G=1 N=128 chunk 256, x bf16]: "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms by {row['bound_by']} (C B^T "
+        f"{cb_flops / 1e9:.3f} GFLOP causal at 989 TFLOP/s bf16 = "
+        f"{row['bf16_ms']:.4f} ms + the rest {rest_flops / 1e9:.3f} GFLOP "
+        f"at 67 TFLOP/s float32 = {row['fp32_ms']:.4f} ms; "
+        f"{nbytes / 1e6:.2f} MB = {row['bytes_ms']:.4f} ms); "
+        f"{(cb_flops + rest_flops) / row['ms'] / 1e9:.2f} TFLOP/s achieved")
+    return err, row
+
+
+def serve_arch(dev, arch: str, kernel: str, seed: int = 0):
+    """Serve ``arch`` at full width through Engine.run: 8 requests of
+    256-1536 prompt tokens, 32 new tokens each, batches of 4.  Counts
+    the kernels' launches around Engine.run alone, then holds every
+    emitted token against a solo teacher-forced run on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models import build
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_arch(arch)
+    bundle = build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = bundle.init(seed, dev)
+    torch.cuda.synchronize()
+    log(f"{arch}: {cfg.n_layers} layers x d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab}, {bundle.num_params(model) / 1e6:.2f}M parameters, "
+        f"random init in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(SERVE["min_len"], SERVE["max_len_prompt"] + 1,
+                        SERVE["requests"])
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in lens]
+    eng = Engine(cfg, model, ServeConfig(max_batch=SERVE["max_batch"],
+                                         max_len=SERVE["max_len"]),
+                 device=dev)
+    rids = [eng.submit(pr, max_new=SERVE["max_new"]) for pr in prompts]
+    FA.reset_launches()
+    SS.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {**FA.LAUNCHES, **SS.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    per_req = cfg.n_layers
+    want = {k: (per_req * len(prompts) if k == kernel else 0)
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"{arch}: launches {launches} in Engine.run, "
+                             f"expected {want}")
+    n_tok = sum(len(v) for v in out.values())
+    st = eng.stats
+    decode_ms = sum(st["decode_ms"]) / sum(st["decode_steps"])
+    log(f"{arch} serve: {len(out)} requests, {n_tok} tokens in "
+        f"{seconds:.3f} s ({n_tok / seconds:.1f} tok/s, "
+        f"{(sum(lens) + n_tok) / seconds:.0f} tok/s with prompts); prefill "
+        f"{np.mean(st['prefill_ms']):.2f} ms per request; batched decode "
+        f"step {decode_ms:.3f} ms at batch {SERVE['max_batch']}; peak "
+        f"memory {peak / 2**30:.2f} GiB; launches {launches}")
+    each = [(int(n), round(ms, 2)) for n, ms in zip(lens, st["prefill_ms"])]
+    steps = [round(ms / k, 3)
+             for ms, k in zip(st["decode_ms"], st["decode_steps"])]
+    log(f"{arch} serve: (prompt tokens, prefill ms) in serving order "
+        f"{each}; decode ms per step by batch {steps}")
+
+    # the same requests again through a new Engine: a warm run
+    eng2 = Engine(cfg, model, ServeConfig(max_batch=SERVE["max_batch"],
+                                          max_len=SERVE["max_len"]),
+                  device=dev)
+    for pr in prompts:
+        eng2.submit(pr, max_new=SERVE["max_new"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng2.run()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    st2 = eng2.stats
+    warm_decode = sum(st2["decode_ms"]) / sum(st2["decode_steps"])
+    each = [(int(n), round(ms, 2)) for n, ms in zip(lens, st2["prefill_ms"])]
+    log(f"{arch} serve, warm run: {n_tok} tokens in {warm_s:.3f} s "
+        f"({n_tok / warm_s:.1f} tok/s); prefill "
+        f"{np.mean(st2['prefill_ms']):.2f} ms per request {each}; batched "
+        f"decode step {warm_decode:.3f} ms")
+
+    # solo teacher-forced runs on the card (not counted above)
+    worst = 0.0
+    for rid, prompt in zip(rids, prompts):
+        toks = out[rid]
+        if len(toks) != SERVE["max_new"]:
+            raise AssertionError(f"{arch} req {rid}: {len(toks)} tokens")
+        tok_t = torch.tensor(toks, device=dev)
+        logits, cache = bundle.prefill(
+            model, torch.as_tensor(prompt[None], device=dev).long(),
+            cache_slots=SERVE["max_len"])
+        lg = [logits[0, -1]]
+        finite = [torch.isfinite(logits).all()]
+        if kernel == "ssd_scan":
+            finite += [torch.isfinite(c["mixer"]["state"]).all()
+                       for c in cache]
+        for i in range(len(toks) - 1):
+            pos = torch.full((1, 1), len(prompt) + i, device=dev)
+            logits, cache = bundle.decode_step(model, cache,
+                                               tok_t[i].view(1, 1).long(),
+                                               pos)
+            lg.append(logits[0, 0])
+            finite.append(torch.isfinite(logits).all())
+        lg = torch.stack(lg)
+        gaps = lg.max(-1).values - lg.gather(1, tok_t[:, None].long())[:, 0]
+        if not bool(torch.stack(finite).all()):
+            raise AssertionError(f"{arch} req {rid}: non-finite logits or "
+                                 f"SSD state")
+        g = float(gaps.max())
+        worst = max(worst, g)
+        if not g <= SERVE["gap"]:
+            raise AssertionError(f"{arch} req {rid}: an emitted token is "
+                                 f"{g:.4f} below the solo max logit")
+    log(f"{arch}: every emitted token within {worst:.4f} of the solo "
+        f"teacher-forced max logit (limit {SERVE['gap']}); logits"
+        f"{' and SSD states' if kernel == 'ssd_scan' else ''} finite")
+    return model, launches[kernel], dict(
+        seconds=seconds, tok_s=n_tok / seconds, decode_ms=decode_ms,
+        prefill_ms=float(np.mean(st["prefill_ms"])), peak=peak)
+
+
+def profile_serve(dev, model, arch: str, seed: int = 1):
+    """Where a full-width prefill's and a batched decode step's device
+    time goes (torch.profiler, by kernel, and the idle share)."""
+    from repro_torch.models import build
+    cfg = model.cfg
+    bundle = build(cfg)
+    rng = np.random.default_rng(seed)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 1536)),
+                             device=dev)
+    profile_device(lambda: bundle.prefill(model, prompt,
+                                          cache_slots=SERVE["max_len"]),
+                   1, "prefill", f"profile {arch} prefill S=1536")
+    caches = [bundle.prefill(model, prompt[:, :n], cache_slots=2048)[1]
+              for n in (256, 700, 1100, 1536)]
+    cache = bundle.concat_caches(caches)
+    tok = torch.zeros((4, 1), dtype=torch.long, device=dev)
+    pos = torch.tensor([[256], [700], [1100], [1536]], device=dev)
+    steps = 8
+
+    def decode():
+        nonlocal cache
+        for i in range(steps):
+            _, cache = bundle.decode_step(model, cache, tok, pos + i)
+
+    decode()          # warm
+    profile_device(decode, steps, "decode step",
+                   f"profile {arch} decode batch 4")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA "
@@ -673,6 +1047,13 @@ def main() -> int:
     check_pn64(dev)
     check_pn16(dev, thetas["pn16 uniform"])
     launches = check_pn27(dev, thetas["pn27 points"])
+    errs["flash_attention_fwd"], timing["flash_attention_fwd"] = \
+        check_flash(dev, bw)
+    errs["ssd_scan"], timing["ssd_scan"] = check_ssd(dev, bw)
+    smollm, launches["flash_attention_fwd"], _ = serve_arch(
+        dev, "smollm-135m", "flash_attention_fwd")
+    _, launches["ssd_scan"], _ = serve_arch(dev, "mamba2-130m", "ssd_scan")
+    profile_serve(dev, smollm, "smollm-135m")
 
     errs.update(mg_errs)
     timing.update(mg_timing)
@@ -680,16 +1061,20 @@ def main() -> int:
     replaces = {"fused_step_update": "src/repro/kernels/sim_step.py:53",
                 "fused_decision": "src/repro/kernels/sim_step.py:129",
                 "frontier_step": "src/repro/kernels/mask_gemm.py:49",
-                "backward_step": "src/repro/kernels/mask_gemm.py:70"}
-    kernels = [{"name": kname, "route": "cuda",
-                "source": KERNEL_SRC if kname.startswith("fused")
-                else MASK_SRC,
+                "backward_step": "src/repro/kernels/mask_gemm.py:70",
+                "flash_attention_fwd":
+                    "src/repro/kernels/flash_attention.py:62",
+                "ssd_scan": "src/repro/kernels/ssd_scan.py:31"}
+    sources = {"fused_step_update": KERNEL_SRC, "fused_decision": KERNEL_SRC,
+               "frontier_step": MASK_SRC, "backward_step": MASK_SRC,
+               "flash_attention_fwd": FLASH_SRC, "ssd_scan": SSD_SRC}
+    kernels = [{"name": kname, "route": "cuda", "source": sources[kname],
                 "replaces": replaces[kname], "launches": launches[kname],
                 "max_abs_err": errs[kname],
                 "ms": timing[kname]["ms"],
                 "plain_ms": timing[kname]["plain_ms"],
                 "bound_ms": timing[kname]["bound_ms"],
-                "bound_by": "bytes",
+                "bound_by": timing[kname].get("bound_by", "bytes"),
                 "library_ms": timing[kname].get("library_ms")}
                for kname in replaces]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,10 +1,14 @@
 """repro_torch — the PyTorch/CUDA port of the projective-network
 toolkit, beside the JAX reference package ``repro``.
 
-This slice ports the flow-level simulator's main path: graph
-construction (``core``), route tables, the dense and the fused step
-(``sim``) and the two hand-written Hopper kernels the fused step runs
-(``kernels``).  Entry points run on the card unless the caller passes
+Ported so far, each with its hand-written Hopper kernels (``kernels``):
+the flow-level simulator's main path (graph construction in ``core``,
+route tables, the dense and the fused step in ``sim``); the analytic
+arc-load engines, routing models and ``saturation_report`` (``core``);
+and the serving path of the dense-attention and Mamba-2 families
+(``configs``, ``models``, ``serve``, ``launch.serve``: per-request
+prefill through the flash-attention and SSD-scan kernels, batched greedy
+decode).  Entry points run on the card unless the caller passes
 ``device="cpu"``.  The package imports torch, numpy and scipy, never
 jax and never ``repro``.
 """

@@ -1,10 +1,12 @@
-"""Carry topology, route tables and fluid state across from plain arrays.
+"""Carry topology, route tables, fluid state, model weights and serve
+caches across from plain arrays.
 
 The reference package builds graph families this slice does not port yet
-(tori, fat trees, placement graphs) and keeps its tables and state as
-numpy arrays.  These helpers build the port's objects from such arrays,
-so both packages compute the same thing on the same inputs.  They take
-arrays, never objects of the reference, and import nothing of it.
+(tori, fat trees, placement graphs) and keeps its tables, state, weights
+and caches as arrays.  These helpers build the port's objects from such
+arrays (and caches back), so both packages compute the same thing on the
+same inputs.  They take arrays, never objects of the reference, and
+import nothing of it.
 """
 
 from __future__ import annotations
@@ -13,12 +15,16 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .configs.base import ArchConfig
 from .core.graph import Graph
+from .models.model import build
+from .models.transformer import Model, layer_plan
 from .sim.engine import SimState
 from .sim.tables import RouteTables
 
 __all__ = ["graph_from_arrays", "tables_from_numpy", "state_from_numpy",
-           "state_to_numpy"]
+           "state_to_numpy", "params_from_numpy", "cache_from_numpy",
+           "cache_to_numpy"]
 
 _TABLE_ARRAYS = ("active", "head", "split", "deliver", "spread", "dist_act",
                  "hval_rem", "slot_ok", "router_ok", "dest_ok", "routable")
@@ -65,3 +71,96 @@ def state_to_numpy(state) -> tuple:
     if isinstance(state, SimState):
         state = state.as_tuple()
     return tuple(a.detach().cpu().numpy() for a in state)
+
+
+# ---------------------------------------------------------------------------
+# Model weights and serve caches
+# ---------------------------------------------------------------------------
+
+
+def _tensor(arr, device) -> torch.Tensor:
+    """A tensor of ``arr``; bfloat16 arrays (numpy's ml_dtypes extension
+    type, as JAX hands them out) become bfloat16 tensors."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.as_tensor(np.array(arr), device=device)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _per_layer(cfg: ArchConfig, tree) -> list:
+    """The per-layer subtrees of a (prefix | stacked body | suffix) tree,
+    in layer order."""
+    plan = layer_plan(cfg)
+    layers = list(tree.get("prefix") or [])
+    body = tree.get("body") or {}
+    for r in range(plan.reps):
+        for j in range(plan.period):
+            layers.append(_tree_map(lambda a, r=r: np.asarray(a)[r],
+                                    body[f"pos{j}"]))
+    layers += list(tree.get("suffix") or [])
+    return layers
+
+
+def _flatten(prefix: str, tree, out: dict) -> None:
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            _flatten(f"{prefix}{key}.", val, out)
+        else:
+            out[prefix + key] = val
+
+
+def params_from_numpy(cfg: ArchConfig, tree, device=None) -> Model:
+    """The port's model holding the reference's weights: ``tree`` is the
+    reference's unboxed parameter pytree as arrays (``embed``,
+    ``lm_head`` unless tied, ``prefix``/``body``/``suffix`` with the
+    stacked layer axis, ``final_norm``).  Every weight must be there."""
+    device = resolve_device(device)
+    build(cfg)                                # raises for unported configs
+    model = Model(cfg, device=device, generator=None)
+    flat = {"embed": tree["embed"], "final_norm": tree["final_norm"]}
+    if not cfg.tie_embeddings:
+        flat["lm_head"] = tree["lm_head"]
+    for i, layer in enumerate(_per_layer(cfg, tree)):
+        _flatten(f"blocks.{i}.", layer, flat)
+    model.load_state_dict({k: _tensor(v, device) for k, v in flat.items()},
+                          strict=True)
+    return model
+
+
+def cache_from_numpy(cfg: ArchConfig, tree, device=None) -> list:
+    """The port's per-layer cache list from a reference cache tree of
+    arrays (``prefix``/``body``/``suffix``, body leaves stacked)."""
+    device = resolve_device(device)
+    return [_tree_map(lambda a: _tensor(a, device), layer)
+            for layer in _per_layer(cfg, tree)]
+
+
+def cache_to_numpy(cfg: ArchConfig, cache: list) -> dict:
+    """The reference's cache tree of numpy arrays (bfloat16 leaves as
+    float32) from the port's per-layer cache list."""
+    plan = layer_plan(cfg)
+    host = [_tree_map(lambda t: t.detach().float().cpu().numpy()
+                      if t.is_floating_point() else t.detach().cpu().numpy(),
+                      layer) for layer in cache]
+    body_end = plan.prefix + plan.reps * plan.period
+    body = {}
+    for j in range(plan.period if plan.reps else 0):
+        reps = host[plan.prefix + j:body_end:plan.period]
+        body[f"pos{j}"] = _stack(reps)
+    return {"prefix": host[:plan.prefix], "body": body,
+            "suffix": host[body_end:]}
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)

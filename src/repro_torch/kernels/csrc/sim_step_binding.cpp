@@ -1,15 +1,16 @@
 // PyTorch binding of the port's kernels: the simulator-step kernels in
-// sim_step.cu and the mask+GEMM kernels in mask_gemm.cu.
+// sim_step.cu, the mask+GEMM kernels in mask_gemm.cu, the flash-attention
+// forward in flash_attention.cu and the SSD chunked scan in ssd_scan.cu.
 //
 // The only file of the extension that includes PyTorch's headers, and
 // only the few it needs (the tensor, the pybind11 tensor caster and the
 // CUDA stream/guard/launch-check helpers): the catch-all
 // <torch/extension.h> would multiply the first build's time.  The
-// Python wrappers (repro_torch/kernels/sim_step.py, mask_gemm.py) check
-// shapes, dtypes
-// and contiguity and allocate every output; this file re-checks what a
-// wrong pointer would turn into a fault, launches on PyTorch's current
-// stream and checks the launch.
+// Python wrappers (repro_torch/kernels/sim_step.py, mask_gemm.py,
+// flash_attention.py, ssd_scan.py) check shapes, dtypes and contiguity
+// and allocate every output; this file re-checks what a wrong pointer
+// would turn into a fault, launches on PyTorch's current stream and
+// checks the launch.
 
 #include <ATen/core/Tensor.h>
 #include <c10/cuda/CUDAException.h>
@@ -48,6 +49,18 @@ SIM_STEP_DECLARE(double, f64)
 
 MASK_GEMM_DECLARE(float, f32)
 MASK_GEMM_DECLARE(double, f64)
+
+cudaError_t flash_attention_fwd(const void* q, const void* k, const void* v,
+                                void* o, float* lse, int is_bf16, int b,
+                                int hq, int hkv, int sq, int skv, int d,
+                                int causal, int window, int q_offset,
+                                float scale, cudaStream_t stream);
+
+cudaError_t ssd_scan_fwd(const void* x, const float* dt, const float* a_log,
+                         const void* bm, const void* cm, const float* d_skip,
+                         const float* state_in, void* y, float* state_out,
+                         int is_bf16, int b, int len, int h, int p, int g,
+                         int n, int q, cudaStream_t stream);
 
 namespace {
 
@@ -254,6 +267,96 @@ void mask_backward(const at::Tensor& coeff, const at::Tensor& indptr,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), o like q, lse (B, Hq, Sq)
+// float32; bfloat16 or float32 operands.
+void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+               bool causal, int64_t window, int64_t q_offset, double scale,
+               at::Tensor& o, at::Tensor& lse) {
+  const auto dt = q.scalar_type();
+  TORCH_CHECK(dt == at::kFloat || dt == at::kBFloat16,
+              "flash_attention takes float32 or bfloat16");
+  check_cuda(q, "q", dt);
+  check_cuda(k, "k", dt);
+  check_cuda(v, "v", dt);
+  check_cuda(o, "o", dt);
+  check_cuda(lse, "lse", at::kFloat);
+  TORCH_CHECK(q.dim() == 4 && k.dim() == 4 && k.sizes() == v.sizes(),
+              "q, k, v must be (B, H, S, D) with k and v alike");
+  TORCH_CHECK(o.sizes() == q.sizes(), "o must be shaped like q");
+  const int64_t b = q.size(0), hq = q.size(1), sq = q.size(2), d = q.size(3);
+  const int64_t hkv = k.size(1), skv = k.size(2);
+  TORCH_CHECK(k.size(0) == b && k.size(3) == d && hq % hkv == 0,
+              "k does not match q");
+  TORCH_CHECK(lse.numel() == b * hq * sq, "lse must hold B * Hq * Sq");
+  const c10::cuda::CUDAGuard guard(q.device());
+  const cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
+  if (b * hq * sq == 0) return;
+  const cudaError_t err = flash_attention_fwd(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+      lse.data_ptr<float>(), dt == at::kBFloat16, static_cast<int>(b),
+      static_cast<int>(hq), static_cast<int>(hkv), static_cast<int>(sq),
+      static_cast<int>(skv), static_cast<int>(d), causal ? 1 : 0,
+      static_cast<int>(window), static_cast<int>(q_offset),
+      static_cast<float>(scale), stream);
+  TORCH_CHECK(err == cudaSuccess, "flash_attention launch failed: ",
+              cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// x (B, L, H, P), b_mat and c_mat (B, L, G, N), y like x: bfloat16 or
+// float32; dt (B, L, H), a_log and d_skip (H,), state_out (B, H, N, P) and
+// state_in float32, state_in empty for a zero initial state.
+void ssd_scan(const at::Tensor& x, const at::Tensor& dt,
+              const at::Tensor& a_log, const at::Tensor& b_mat,
+              const at::Tensor& c_mat, const at::Tensor& d_skip,
+              const at::Tensor& state_in, int64_t chunk,
+              at::Tensor& y, at::Tensor& state_out) {
+  const auto xt = x.scalar_type();
+  TORCH_CHECK(xt == at::kFloat || xt == at::kBFloat16,
+              "ssd_scan takes float32 or bfloat16 x");
+  check_cuda(x, "x", xt);
+  check_cuda(b_mat, "b_mat", xt);
+  check_cuda(c_mat, "c_mat", xt);
+  check_cuda(y, "y", xt);
+  check_cuda(dt, "dt", at::kFloat);
+  check_cuda(a_log, "a_log", at::kFloat);
+  check_cuda(d_skip, "d_skip", at::kFloat);
+  check_cuda(state_out, "state_out", at::kFloat);
+  TORCH_CHECK(x.dim() == 4 && b_mat.dim() == 4 && b_mat.sizes() == c_mat.sizes(),
+              "x must be (B, L, H, P) and b_mat, c_mat (B, L, G, N)");
+  const int64_t b = x.size(0), len = x.size(1), h = x.size(2), p = x.size(3);
+  const int64_t g = b_mat.size(2), n = b_mat.size(3);
+  TORCH_CHECK(y.sizes() == x.sizes(), "y must be shaped like x");
+  TORCH_CHECK(dt.dim() == 3 && dt.size(0) == b && dt.size(1) == len &&
+                  dt.size(2) == h, "dt must be (B, L, H)");
+  TORCH_CHECK(b_mat.size(0) == b && b_mat.size(1) == len && h % g == 0,
+              "b_mat does not match x");
+  TORCH_CHECK(a_log.numel() == h && d_skip.numel() == h,
+              "a_log and d_skip must hold H values");
+  TORCH_CHECK(state_out.numel() == b * h * n * p, "state_out must be "
+              "(B, H, N, P)");
+  const float* s_in = nullptr;
+  if (state_in.numel() != 0) {
+    check_cuda(state_in, "state_in", at::kFloat);
+    TORCH_CHECK(state_in.numel() == b * h * n * p, "state_in must be "
+                "(B, H, N, P)");
+    s_in = state_in.data_ptr<float>();
+  }
+  const c10::cuda::CUDAGuard guard(x.device());
+  const cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
+  if (b * len * h * p == 0) return;
+  const cudaError_t err = ssd_scan_fwd(
+      x.data_ptr(), dt.data_ptr<float>(), a_log.data_ptr<float>(),
+      b_mat.data_ptr(), c_mat.data_ptr(), d_skip.data_ptr<float>(), s_in,
+      y.data_ptr(), state_out.data_ptr<float>(), xt == at::kBFloat16,
+      static_cast<int>(b), static_cast<int>(len), static_cast<int>(h),
+      static_cast<int>(p), static_cast<int>(g), static_cast<int>(n),
+      static_cast<int>(chunk), stream);
+  TORCH_CHECK(err == cudaSuccess, "ssd_scan launch failed: ",
+              cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -265,4 +368,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "forward BFS level, sparse product + mask epilogue (CUDA)");
   m.def("mask_backward", &mask_backward,
         "backward dependency level, sparse product + mask epilogue (CUDA)");
+  m.def("flash_fwd", &flash_fwd,
+        "flash-attention forward with the row log-sum-exp (CUDA)");
+  m.def("ssd_scan", &ssd_scan, "Mamba-2 SSD chunked scan (CUDA)");
 }

@@ -1,13 +1,16 @@
 """Plain PyTorch versions of the port's kernels.
 
-Same functions as the CUDA kernels of ``csrc/sim_step.cu`` and
-``csrc/mask_gemm.cu``, written as ordinary tensor algebra (formulas:
-``repro/kernels/sim_step.py`` and ``repro/kernels/mask_gemm.py``).  The
-wrappers in :mod:`repro_torch.kernels.sim_step` and
-:mod:`repro_torch.kernels.mask_gemm` run these for CPU tensors; tests and
-``chip_smoke.py`` hold the CUDA kernels against them on the card.
-Nothing on the main path uses them when a card is present, except the
-mask epilogues, which the analytic ``dense`` engine shares.
+Same functions as the CUDA kernels of ``csrc/*.cu``, written as ordinary
+tensor algebra (formulas: ``repro/kernels/sim_step.py``,
+``mask_gemm.py``, ``flash_attention.py`` and ``ssd_scan.py``).  The
+kernel wrappers of :mod:`repro_torch.kernels` run these for CPU tensors;
+tests and ``chip_smoke.py`` hold the CUDA kernels against them on the
+card.  Nothing on the main path uses them when a card is present, except
+the mask epilogues, which the analytic ``dense`` engine shares.
+
+``attention_ref`` and ``ssd_ref`` are the oracles of the model kernels,
+as in the reference: masked softmax attention in one piece, and the SSD
+as its exact sequential recurrence.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ import torch
 
 __all__ = ["fused_step_update_ref", "fused_decision_ref", "tile_live",
            "dense_from_csc", "frontier_epilogue", "backward_epilogue",
-           "frontier_step_ref", "backward_step_ref"]
+           "frontier_step_ref", "backward_step_ref", "flash_attention_ref",
+           "ssd_scan_ref", "attention_ref", "ssd_ref", "NEG_INF"]
 
 DEST_TILE = 128
 
@@ -99,3 +103,157 @@ def backward_step_ref(coeff, adj, dist, sigma, delta, lvl: int):
     :func:`backward_epilogue`."""
     return backward_epilogue(coeff @ dense_from_csc(*adj), dist, sigma,
                              delta, lvl)
+
+
+# ---------------------------------------------------------------------------
+# Model kernels: flash-attention forward and the SSD chunked scan
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30  # the kernels' mask value (finite, as in the reference)
+
+
+def _attention_mask(q_pos, k_pos, causal: bool, window):
+    mask = torch.ones((len(q_pos), len(k_pos)), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    return mask
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
+                        q_offset: int = 0, scale=None, block_k: int = 64):
+    """``(o, lse)`` of the flash-attention forward: float32 online softmax
+    over kv tiles of ``block_k`` keys, masked with -1e30.
+
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D), Hq % Hkv == 0; query row i
+    sits at position ``q_offset + i``, key j at j.  Any Sq and Skv.
+    ``o`` (B, Hq, Sq, D) in q's dtype, 0 on a row with no live key;
+    ``lse`` (B, Hq, Sq, 1) float32, ``m + log(max(l, 1e-30))``.
+    """
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qf = q.float() * scale
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    acc = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, hq, sq, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    for k0 in range(0, skv, block_k):
+        k_pos = torch.arange(k0, min(k0 + block_k, skv), device=q.device)
+        mask = _attention_mask(q_pos, k_pos, causal, window)
+        s = qf @ kf[:, :, k0:k0 + block_k].transpose(-1, -2)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new) * mask
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p @ vf[:, :, k0:k0 + block_k]
+        m = m_new
+    o = acc / torch.where(l == 0.0, 1.0, l)
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    return o.to(q.dtype), lse
+
+
+def ssd_scan_ref(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int,
+                 state=None):
+    """``(y, final_state)`` of the Mamba-2 SSD chunked scan, in the
+    reference kernel's order of operations, chunk by chunk with the
+    float32 (N, P) state carried across; the last chunk may be short.
+
+    x: (B, L, H, P); dt: (B, L, H) (positive step sizes); a_log, d_skip:
+    (H,); b_mat, c_mat: (B, L, G, N), H % G == 0; state: optional (B, H,
+    N, P) initial state.  ``y`` in x's dtype, the state float32.
+    """
+    bsz, length, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    rep = h // g
+    a = -torch.exp(a_log.float())                            # (H,)
+    xf, dtf = x.float(), dt.float()
+    bf = b_mat.float().repeat_interleave(rep, dim=2)         # (B, L, H, N)
+    cf = c_mat.float().repeat_interleave(rep, dim=2)
+    s = (torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+         if state is None else state.float())
+    ys = []
+    for c0 in range(0, length, chunk):
+        xc = xf[:, c0:c0 + chunk].transpose(1, 2)            # (B, H, Q, P)
+        dtc = dtf[:, c0:c0 + chunk].transpose(1, 2)          # (B, H, Q)
+        bc = bf[:, c0:c0 + chunk].transpose(1, 2)            # (B, H, Q, N)
+        cc = cf[:, c0:c0 + chunk].transpose(1, 2)
+        q = xc.shape[2]
+        # the cumsum in float64, differences rounded to float32 before
+        # the exp (see csrc/ssd_scan.cu)
+        cum = torch.cumsum((dtc * a[None, :, None]).double(), dim=-1)
+        causal = torch.ones((q, q), dtype=torch.bool,
+                            device=x.device).tril()
+        # mask before the exp: cum_i - cum_j > 0 above the diagonal
+        seg = torch.where(causal,
+                          (cum[..., :, None] - cum[..., None, :]).float(),
+                          float("-inf"))
+        scores = (cc @ bc.transpose(-1, -2)) * torch.exp(seg)
+        xdt = xc * dtc[..., None]
+        y = scores @ xdt
+        y = y + (cc @ s) * torch.exp(cum.float())[..., None]
+        y = y + xc * d_skip.float()[None, :, None, None]
+        ys.append(y.transpose(1, 2))
+        last = cum[..., -1:]
+        w = torch.exp((last - cum).float())[..., None]        # (B, H, Q, 1)
+        s = torch.exp(last.float())[..., None] * s \
+            + bc.transpose(-1, -2) @ (xdt * w)
+    return torch.cat(ys, dim=1).to(x.dtype), s
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window=None,
+                  q_offset: int = 0, kv_len=None, scale=None):
+    """Masked multi-head GQA attention in one piece (the oracle).
+
+    Shapes and positions as :func:`flash_attention_ref`; ``kv_len`` (B,)
+    masks keys at or beyond it (padded decode caches).  A row with no
+    live key gives zeros.
+    """
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qf = q.float() * scale
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    logits = qf @ kf.transpose(-1, -2)
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    k_pos = torch.arange(skv, device=q.device)
+    mask = _attention_mask(q_pos, k_pos, causal, window).expand(
+        b, hq, sq, skv)
+    if kv_len is not None:
+        kl = torch.as_tensor(kv_len, device=q.device).reshape(b, 1, 1, 1)
+        mask = mask & (k_pos < kl)
+    logits = torch.where(mask, logits, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    probs = torch.where(mask.any(-1, keepdim=True), probs, 0.0)
+    return (probs @ vf).to(q.dtype)
+
+
+def ssd_ref(x, dt, a_log, b_mat, c_mat, d_skip, *, state=None):
+    """Mamba-2 SSD as its exact sequential recurrence (the oracle); shapes
+    as :func:`ssd_scan_ref`.  Returns ``(y, final_state)``."""
+    bsz, length, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    rep = h // g
+    a = -torch.exp(a_log.float())
+    xf, dtf = x.float(), dt.float()
+    bf = b_mat.float().repeat_interleave(rep, dim=2)
+    cf = c_mat.float().repeat_interleave(rep, dim=2)
+    s = (torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+         if state is None else state.float())
+    ys = []
+    for t in range(length):
+        decay = torch.exp(dtf[:, t] * a[None, :])            # (B, H)
+        s = s * decay[..., None, None] + bf[:, t, :, :, None] \
+            * (xf[:, t] * dtf[:, t, :, None])[:, :, None, :]
+        ys.append(torch.einsum("bhn,bhnp->bhp", cf[:, t], s))
+    y = torch.stack(ys, dim=1) + xf * d_skip.float()[None, None, :, None]
+    return y.to(x.dtype), s

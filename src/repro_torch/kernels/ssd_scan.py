@@ -1,0 +1,102 @@
+"""The Mamba-2 SSD chunked scan: y and the final state of one sequence
+pass, the float32 (N, P) state carried from chunk to chunk.
+
+Counterpart of ``repro/kernels/ssd_scan.py``, whose Pallas kernel
+``_kernel`` (via ``ssd_scan``) it replaces.  On CUDA tensors
+:func:`ssd_scan` launches the hand-written Hopper kernel of
+``csrc/ssd_scan.cu`` (built at first use by
+:mod:`repro_torch.kernels._build`) and counts the launch in
+:data:`LAUNCHES`; on CPU tensors it runs the plain version
+:func:`repro_torch.kernels.ref.ssd_scan_ref`.  Any other device raises,
+and so does a failed build or launch.
+
+Unlike the Pallas kernel, it also returns the final state (the reference
+recomputes it on its jnp path), takes a length that is no multiple of
+the chunk (the last chunk is short) and an optional initial state.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .ref import ssd_scan_ref
+
+__all__ = ["ssd_scan", "LAUNCHES", "reset_launches", "MAX_CHUNK"]
+
+# kernel launches on the card since the last reset_launches()
+LAUNCHES = {"ssd_scan": 0}
+
+MAX_CHUNK = 256          # chunk rows one block handles
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def _check(name, t, shape, dtype, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int,
+             state=None):
+    """``(y, final_state)`` of the SSD over a sequence.
+
+    x: (B, L, H, P) float32 or bfloat16; dt: (B, L, H) float32 positive
+    step sizes; a_log, d_skip: (H,) float32; b_mat, c_mat: (B, L, G, N) in
+    x's dtype, H % G == 0; state: optional (B, H, N, P) float32 initial
+    state.  ``y`` in x's dtype, ``final_state`` (B, H, N, P) float32.
+    The chunk is ``min(chunk, L)``.
+    """
+    if not isinstance(x, torch.Tensor) or x.dim() != 4:
+        raise ValueError("x must be a 4-d tensor (B, L, H, P)")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"ssd_scan takes float32 or bfloat16 x, not "
+                        f"{x.dtype}")
+    bsz, length, h, p = x.shape
+    dev, f32 = x.device, torch.float32
+    _check("x", x, x.shape, x.dtype, dev)
+    if b_mat.dim() != 4:
+        raise ValueError("b_mat must be (B, L, G, N)")
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    if g == 0 or h % g:
+        raise ValueError(f"{h} heads are no multiple of {g} groups")
+    _check("dt", dt, (bsz, length, h), f32, dev)
+    _check("a_log", a_log, (h,), f32, dev)
+    _check("d_skip", d_skip, (h,), f32, dev)
+    _check("b_mat", b_mat, (bsz, length, g, n), x.dtype, dev)
+    _check("c_mat", c_mat, (bsz, length, g, n), x.dtype, dev)
+    if state is not None:
+        _check("state", state, (bsz, h, n, p), f32, dev)
+    chunk = min(int(chunk), length)
+    if chunk < 1:
+        raise ValueError("ssd_scan needs a chunk and a length >= 1")
+    if dev.type == "cpu":
+        return ssd_scan_ref(x, dt, a_log, b_mat, c_mat, d_skip, chunk=chunk,
+                            state=state)
+    if dev.type != "cuda":
+        raise ValueError(f"no ssd_scan kernel for device {dev}")
+    if chunk > MAX_CHUNK or n > 256 or n % 4:
+        raise ValueError(f"the kernel takes chunk <= {MAX_CHUNK} and a "
+                         f"d_state <= 256 that is a multiple of 4, got "
+                         f"{chunk} and {n}")
+    from ._build import extension
+    ext = extension()
+    y = torch.empty_like(x)
+    final = torch.empty((bsz, h, n, p), dtype=f32, device=dev)
+    s_in = state if state is not None else torch.empty(0, dtype=f32,
+                                                       device=dev)
+    ext.ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, s_in, chunk, y, final)
+    LAUNCHES["ssd_scan"] += 1
+    return y, final

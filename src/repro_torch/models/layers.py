@@ -1,0 +1,242 @@
+"""Neural building blocks of the port: RMSNorm, rotary embeddings, GQA
+attention with its serve caches, the dense MLP and the initialisers.
+
+Counterpart of ``repro/models/layers.py`` (GQA only; MLA and the
+cross-attention kinds are not ported yet).  Blocks are ``nn.Module``s
+whose parameters keep the reference's names, shapes and dtype
+(``cfg.param_dtype``); matrices are cast to the activation dtype at use,
+as there.  Attention runs prefill through the flash-attention kernel
+(:func:`repro_torch.kernels.ops.attention`) and writes the cache; decode
+attends the cache in plain torch, as the reference does outside any
+kernel, and updates the cache tensors in place.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import ArchConfig
+from ..kernels import ops
+
+__all__ = ["rms_norm", "rope", "rope_table", "apply_rope", "cast_weight",
+           "truncated_normal", "constant", "Attention", "MLP", "KPOS_PAD"]
+
+KPOS_PAD = 2 ** 30   # position of an empty slot of a linear cache
+
+
+def rms_norm(x, w, eps: float = 1e-5):
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(d: int, theta: float, device: torch.device):
+    half = d // 2
+    freqs = 1.0 / (theta ** (np.arange(0, half) * 2.0 / d))
+    return torch.tensor(freqs, dtype=torch.float32, device=device)
+
+
+def rope_table(positions, d: int, theta: float, device):
+    """``(cos, sin)`` of the rotary angles, (B or 1, 1, S, d/2) float32,
+    for positions (S,) or (B, S).  One table serves every layer."""
+    freqs = _rope_freqs(d, float(theta), device)
+    pos = positions.to(torch.float32)
+    if pos.dim() == 1:
+        pos = pos[None, :]
+    angles = pos[:, None, :, None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x, table):
+    """x: (B, H, S, D) rotated by a :func:`rope_table`."""
+    cos, sin = table
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def rope(x, positions, theta: float):
+    """x: (B, H, S, D); positions: (S,) or (B, S) integer tensor."""
+    return apply_rope(x, rope_table(positions, x.shape[-1], theta,
+                                    x.device))
+
+
+def cast_weight(module: nn.Module, name: str, dtype):
+    """Parameter ``name`` of ``module`` in ``dtype``.  The reference casts
+    a matrix to the activation dtype at every use; here the cast is made
+    once and reused until the parameter changes (same values, one launch
+    and one pass over the weights less per use)."""
+    w = getattr(module, name)
+    if w.dtype == dtype:
+        return w
+    cache = module.__dict__.setdefault("_casts", {})
+    hit = cache.get(name)
+    if (hit is None or hit[0] is not w or hit[1] != w._version
+            or hit[2].dtype != dtype or hit[2].device != w.device):
+        hit = (w, w._version, w.detach().to(dtype))
+        cache[name] = hit
+    return hit[2]
+
+
+def truncated_normal(shape, dtype, device, generator, scale=None,
+                     fan_in_dims=(0,)):
+    """A parameter tensor drawn as the reference's ``truncated_normal_init``
+    (standard normal cut at +-2, times ``scale`` or 1/sqrt(fan-in));
+    uninitialised when ``generator`` is None (weights loaded after)."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    if generator is not None:
+        fan_in = int(np.prod([shape[d] for d in fan_in_dims])) or 1
+        std = scale if scale is not None else 1.0 / np.sqrt(fan_in)
+        nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
+                              generator=generator)
+        t.mul_(std)
+    return nn.Parameter(t.to(dtype), requires_grad=False)
+
+
+def constant(shape, value, dtype, device):
+    """A parameter tensor filled with ``value`` (norm gains, biases)."""
+    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+def _project(h, w):
+    """``einsum('bsm,mhd->bhsd', h, w)``, w in h's dtype."""
+    b, s, m = h.shape
+    heads, d = w.shape[1], w.shape[2]
+    out = h @ w.reshape(m, heads * d)
+    return out.view(b, s, heads, d).transpose(1, 2)
+
+
+class Attention(nn.Module):
+    """GQA self-attention: ``wq`` (M, Hq, D), ``wk``/``wv`` (M, Hkv, D),
+    ``wo`` (Hq, D, M), pre-norm ``norm`` (M,)."""
+
+    def __init__(self, cfg: ArchConfig, *, device=None, generator=None):
+        super().__init__()
+        m, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+        dh = cfg.resolved_head_dim
+        dt = cfg.param_dtype
+        self.cfg = cfg
+        tn = functools.partial(truncated_normal, dtype=dt, device=device,
+                               generator=generator)
+        self.wq = tn((m, hq, dh))
+        self.wk = tn((m, hkv, dh))
+        self.wv = tn((m, hkv, dh))
+        self.wo = tn((hq, dh, m), fan_in_dims=(0, 1))
+        self.norm = constant((m,), 1.0, dt, device)
+
+    def forward(self, x, *, positions, mode: str, cache=None, window=None,
+                cache_slots=None, rope_tab=None):
+        """mode 'prefill' (positions (S,); returns the cache) or 'decode'
+        (S = 1, positions (B, 1); cache updated in place); ``rope_tab``
+        the positions' :func:`rope_table` where the caller has it.
+        Returns ``(y (B, S, M), cache)``."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        hq, dh = self.wq.shape[1], self.wq.shape[2]
+        h = rms_norm(x, self.norm, cfg.norm_eps)
+        q = _project(h, cast_weight(self, "wq", h.dtype))
+        k = _project(h, cast_weight(self, "wk", h.dtype))
+        v = _project(h, cast_weight(self, "wv", h.dtype))
+        if rope_tab is None:
+            rope_tab = rope_table(positions, dh, cfg.rope_theta, x.device)
+        q = apply_rope(q, rope_tab)
+        k = apply_rope(k, rope_tab)
+        if mode == "prefill":
+            out = ops.attention(q, k, v, causal=True, window=window)
+            new_cache = self._prefill_cache(k, v, s, window, cache_slots)
+        elif mode == "decode":
+            out, new_cache = self._decode(q, k, v, positions, cache, window)
+        else:
+            raise ValueError(f"mode {mode!r}: the port serves 'prefill' and "
+                             f"'decode' (training is not ported yet)")
+        y = out.transpose(1, 2).reshape(b, s, hq * dh) \
+            @ cast_weight(self, "wo", out.dtype).reshape(hq * dh, -1)
+        return y, new_cache
+
+    @staticmethod
+    def _prefill_cache(k, v, s, window, cache_slots):
+        b = k.shape[0]
+        dev = k.device
+        slots = cache_slots if cache_slots is not None else (
+            min(window, s) if window is not None else s)
+        if slots < s:
+            # ring invariant: position p lives at slot p % slots
+            shift = s % slots
+            kc = torch.roll(k[:, :, -slots:], shift, dims=2)
+            vc = torch.roll(v[:, :, -slots:], shift, dims=2)
+            kpos = torch.roll(torch.arange(s - slots, s, device=dev), shift)
+        else:
+            pad = slots - s
+            kc = F.pad(k, (0, 0, 0, pad))
+            vc = F.pad(v, (0, 0, 0, pad))
+            kpos = torch.cat([torch.arange(s, device=dev),
+                              torch.full((pad,), KPOS_PAD, device=dev)])
+        kpos = kpos.to(torch.int32)[None, :].repeat(b, 1)
+        return {"k": kc.contiguous(), "v": vc.contiguous(), "kpos": kpos}
+
+    @staticmethod
+    def _decode(q, k, v, positions, cache, window):
+        ck, cv, kpos = cache["k"], cache["v"], cache["kpos"]
+        b, slots = kpos.shape
+        hq, hkv, dh = q.shape[1], ck.shape[1], q.shape[3]
+        pos = positions.reshape(b).to(torch.int64)
+        slot = pos % slots
+        rows = torch.arange(b, device=pos.device)
+        ck[rows, :, slot] = k[:, :, 0]
+        cv[rows, :, slot] = v[:, :, 0]
+        kpos[rows, slot] = pos.to(torch.int32)
+        mask_pos = kpos[:, None, None, :]
+        qpos = pos[:, None, None, None]
+        mask = mask_pos <= qpos
+        if window is not None:
+            mask &= mask_pos > qpos - window
+        # q head h reads kv head h // (hq / hkv): the q heads of one group
+        # stand in the rows of one product (no repeated K/V)
+        qg = q.float().view(b, hkv, hq // hkv, dh)
+        logits = (qg @ ck.float().transpose(-1, -2)) * dh ** -0.5
+        logits = torch.where(mask, logits, -1e30)
+        probs = torch.softmax(logits, dim=-1)
+        out = (probs @ cv.float()).view(b, hq, 1, dh).to(q.dtype)
+        return out, {"k": ck, "v": cv, "kpos": kpos}
+
+
+_ACTS = {"silu_glu": F.silu,
+         "gelu_glu": functools.partial(F.gelu, approximate="tanh"),
+         "gelu": functools.partial(F.gelu, approximate="tanh")}
+
+
+class MLP(nn.Module):
+    """Dense MLP with pre-norm: GLU (``w_gate``, ``w_up``) or plain
+    (``w_up``), then ``w_down``."""
+
+    def __init__(self, cfg: ArchConfig, *, device=None, generator=None):
+        super().__init__()
+        m, f = cfg.d_model, cfg.d_ff
+        dt = cfg.param_dtype
+        self.cfg = cfg
+        tn = functools.partial(truncated_normal, dtype=dt, device=device,
+                               generator=generator)
+        self.norm = constant((m,), 1.0, dt, device)
+        if cfg.mlp_act.endswith("_glu"):
+            self.w_gate = tn((m, f))
+        self.w_up = tn((m, f))
+        self.w_down = tn((f, m))
+
+    def forward(self, x):
+        cfg = self.cfg
+        h = rms_norm(x, self.norm, cfg.norm_eps)
+        act = _ACTS[cfg.mlp_act]
+        up = h @ cast_weight(self, "w_up", h.dtype)
+        if cfg.mlp_act.endswith("_glu"):
+            hidden = act(h @ cast_weight(self, "w_gate", h.dtype)) * up
+        else:
+            hidden = act(up)
+        return hidden @ cast_weight(self, "w_down", h.dtype)

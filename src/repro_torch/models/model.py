@@ -1,0 +1,88 @@
+"""Public model API of the port: ``build(cfg)`` -> ModelBundle with init,
+prefill, decode_step and concat_caches.
+
+Counterpart of ``repro/models/model.py`` for serving.  ``params`` is the
+:class:`~repro_torch.models.transformer.Model` (an ``nn.Module``).  The
+batch is axis 0 of every cache leaf, so ``concat_caches`` concatenates
+there (the reference needs ``cache_logical_axes`` to find it under its
+stacked layer axis).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from .._device import resolve_device
+from ..configs.base import ArchConfig
+from .transformer import Model, forward
+
+__all__ = ["ModelBundle", "build", "unsupported"]
+
+
+def unsupported(cfg: ArchConfig) -> list[str]:
+    """What of ``cfg`` the port cannot run yet (empty when it can)."""
+    missing = [name for name, on in (
+        ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
+        ("encoder", cfg.encoder is not None),
+        ("vision", cfg.vision is not None), ("mtp", cfg.mtp)) if on]
+    missing += sorted(set(cfg.pattern) - {"attn", "ssd"})  # rglru, xattn
+    if "ssd" in cfg.pattern and cfg.ssm is None:
+        missing.append("ssd without an SSMConfig")
+    return missing
+
+
+@dataclass
+class ModelBundle:
+    cfg: ArchConfig
+
+    def init(self, seed: int = 0, device=None) -> Model:
+        """A model with random weights drawn from a ``torch.Generator``
+        seeded with ``seed``, on ``device`` (default: the card)."""
+        device = resolve_device(device)
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+        return Model(self.cfg, device=device, generator=gen)
+
+    @torch.no_grad()
+    def prefill(self, params: Model, tokens, *, cache_slots=None):
+        """tokens (B, S) -> (logits (B, S, V) float32, cache)."""
+        out = forward(params, tokens, mode="prefill", cache_slots=cache_slots)
+        return out["logits"], out["cache"]
+
+    @torch.no_grad()
+    def decode_step(self, params: Model, cache, tokens, positions):
+        """tokens (B, 1), positions (B, 1) -> (logits (B, 1, V), cache);
+        the attention caches are updated in place."""
+        out = forward(params, tokens, mode="decode", positions=positions,
+                      cache=cache)
+        return out["logits"], out["cache"]
+
+    @staticmethod
+    def concat_caches(caches: list):
+        """Merge per-request caches along the batch axis (axis 0)."""
+        if len(caches) == 1:
+            return caches[0]
+
+        def merge(*leaves):
+            if isinstance(leaves[0], dict):
+                return {k: merge(*(lf[k] for lf in leaves))
+                        for k in leaves[0]}
+            if isinstance(leaves[0], list):
+                return [merge(*items) for items in zip(*leaves)]
+            return torch.cat(leaves, dim=0)
+
+        return merge(*caches)
+
+    @staticmethod
+    def num_params(params: Model) -> int:
+        return sum(p.numel() for p in params.parameters())
+
+
+def build(cfg: ArchConfig) -> ModelBundle:
+    missing = unsupported(cfg)
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet (this slice "
+            f"serves dense GQA attention and the Mamba-2 SSD)")
+    return ModelBundle(cfg)

@@ -39,7 +39,15 @@ def test_port_imports_neither_jax_nor_repro():
                 "repro_torch.core.traffic", "repro_torch.sim.kernel",
                 "repro_torch.kernels.sim_step", "repro_torch.kernels._build",
                 "repro_torch.core.utilization", "repro_torch.core.routing",
-                "repro_torch.kernels.mask_gemm"}
+                "repro_torch.kernels.mask_gemm",
+                "repro_torch.kernels.flash_attention",
+                "repro_torch.kernels.ssd_scan", "repro_torch.kernels.ops",
+                "repro_torch.configs", "repro_torch.configs.base",
+                "repro_torch.configs.smollm_135m",
+                "repro_torch.configs.mamba2_130m",
+                "repro_torch.models.layers", "repro_torch.models.ssm",
+                "repro_torch.models.transformer", "repro_torch.models.model",
+                "repro_torch.serve.engine", "repro_torch.launch.serve"}
     assert expected <= set(res["modules"])
 
 
@@ -82,12 +90,34 @@ def test_analytic_entry_points_without_device_need_cuda():
 
 
 def test_mask_gemm_kernels_are_in_the_one_build():
-    """Both kernel sources go to the single extension build, and only
+    """Every kernel source goes to the single extension build, and only
     the binding file includes PyTorch's headers."""
     from repro_torch.kernels import _build
     names = [p.name for p in _build.SOURCES]
-    assert names == ["sim_step.cu", "mask_gemm.cu", "sim_step_binding.cpp"]
+    assert names == ["sim_step.cu", "mask_gemm.cu", "flash_attention.cu",
+                     "ssd_scan.cu", "sim_step_binding.cpp"]
     for path in _build.SOURCES:
         text = path.read_text()
         assert ("#include <torch/" in text or "#include <ATen/" in text) \
             == (path.suffix == ".cpp"), path.name
+
+
+def test_serving_entry_points_without_device_need_cuda():
+    """Engine, the bundle's init and the serve launcher default to the
+    card and raise where there is none; device='cpu' is the way onto the
+    CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build
+    from repro_torch.serve import Engine
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    cfg = get_arch("smollm-135m").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build(cfg).init(0)
+    model = build(cfg).init(0, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(cfg, model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve("smollm-135m", requests=1, max_new=1)
+    assert Engine(cfg, model, device="cpu").device.type == "cpu"

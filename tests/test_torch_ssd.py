@@ -1,0 +1,215 @@
+"""The Mamba-2 SSD chunked scan of repro_torch against the reference.
+
+On the CPU the port's wrapper runs the kernel's plain version
+(``ssd_scan_ref``); it is held against the reference's Pallas kernel run
+through the interpreter (``ssd_scan``, y only: the kernel emits no
+state), its chunked jnp path (``ops.ssd(impl="jnp")``, y and the final
+state) and its sequential oracle ``ssd_ref``, over the reference's
+``SSD_SHAPES`` (``tests/test_kernels.py``).  A length that is no
+multiple of the chunk, which the Pallas kernel cannot take, and the
+decay of a real mamba2 layer (a = -1 .. -16 with dt near 0.7, so that
+the cumsum within a chunk reaches the thousands) are held against the
+oracle.  ``ssd_decode_step`` is held against the reference's.
+
+Tolerance: 3e-4 absolute and relative on y and on the state, the
+reference's own (``test_kernels.py``) for the chunked forms against the
+sequential recurrence.
+
+The CUDA kernel itself is held against the plain version by the
+``cuda``-marked test, which skips without a card.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as SS
+
+SSD_SHAPES = [
+    # (b, l, h, p, g, n, chunk)
+    (2, 64, 4, 16, 1, 32, 16),
+    (1, 96, 6, 8, 2, 16, 32),
+    (1, 32, 2, 32, 1, 64, 32),
+    (2, 128, 8, 16, 4, 8, 64),
+]
+RAGGED = [(1, 77, 4, 16, 1, 32, 32), (2, 45, 6, 8, 2, 16, 64)]
+TOL = 3e-4
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Tiny CPU products: torch's thread pool only adds latency here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(case, seed=0, decay="test"):
+    """numpy inputs as the reference's tests make them; ``decay="serve"``
+    uses a mamba2 layer's a_log = log(linspace(1, 16)) and dt ~ 0.7."""
+    b, l, h, p, g, n = case[:6]
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, l, h, p))
+    if decay == "serve":
+        dt = np.log1p(np.exp(rng.normal(size=(b, l, h)) * 0.1))
+        a_log = np.log(np.linspace(1.0, 16.0, h))
+    else:
+        dt = np.abs(rng.normal(size=(b, l, h))) * 0.1 + 0.01
+        a_log = rng.normal(size=h) * 0.5
+    bm, cm = rng.normal(size=(b, l, g, n)), rng.normal(size=(b, l, g, n))
+    ds = rng.normal(size=h)
+    return [a.astype(np.float32) for a in (x, dt, a_log, bm, cm, ds)]
+
+
+def _t(arrs):
+    return [torch.from_numpy(a) for a in arrs]
+
+
+@functools.cache
+def _reference():
+    """The reference's Pallas scan, chunked jnp SSD and oracle, jitted."""
+    import jax
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+    from repro.kernels.ssd_scan import ssd_scan
+    return (jax.jit(ssd_scan, static_argnames=("chunk", "interpret")),
+            jax.jit(jops.ssd, static_argnames=("chunk", "impl")),
+            jax.jit(jref.ssd_ref), jops.ssd_decode_step)
+
+
+def _close(got, want, what):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), atol=TOL,
+                               rtol=TOL, err_msg=what)
+
+
+@pytest.mark.parametrize("case", SSD_SHAPES)
+def test_ssd_plain_matches_pallas_jnp_and_oracle(case):
+    chunk = case[-1]
+    arrs = _inputs(case)
+    y, s = SS.ssd_scan(*_t(arrs), chunk=chunk)
+    assert SS.LAUNCHES["ssd_scan"] == 0           # CPU: no kernel
+    pallas, jnp_ssd, oracle, _ = _reference()
+    _close(y, pallas(*arrs, chunk=chunk, interpret=True), "y vs Pallas")
+    y_j, s_j = jnp_ssd(*arrs, chunk=chunk, impl="jnp")
+    _close(y, y_j, "y vs jnp chunked")
+    _close(s, s_j, "state vs jnp chunked")
+    y_o, s_o = oracle(*arrs)
+    _close(y, y_o, "y vs ssd_ref")
+    _close(s, s_o, "state vs ssd_ref")
+
+
+@pytest.mark.parametrize("decay", ["test", "serve"])
+@pytest.mark.parametrize("case", RAGGED)
+def test_ssd_plain_ragged_and_serve_decay_match_oracle(case, decay):
+    arrs = _inputs(case, seed=1, decay=decay)
+    y, s = ops.ssd(*_t(arrs), chunk=case[-1])
+    y_o, s_o = _reference()[2](*arrs)
+    _close(y, y_o, "y vs ssd_ref")
+    _close(s, s_o, "state vs ssd_ref")
+
+
+def test_ssd_initial_state_carries_across_calls():
+    """Two halves with the state carried equal one pass, and the
+    reference's chunked SSD given the same initial state."""
+    case = (1, 64, 4, 16, 1, 32, 16)
+    arrs = _inputs(case, seed=2)
+    x, dt, a_log, bm, cm, ds = _t(arrs)
+    y_all, s_all = SS.ssd_scan(x, dt, a_log, bm, cm, ds, chunk=16)
+    y1, s_mid = SS.ssd_scan(x[:, :40].contiguous(), dt[:, :40].contiguous(),
+                            a_log, bm[:, :40].contiguous(),
+                            cm[:, :40].contiguous(), ds, chunk=16)
+    y2, s_end = SS.ssd_scan(x[:, 40:].contiguous(), dt[:, 40:].contiguous(),
+                            a_log, bm[:, 40:].contiguous(),
+                            cm[:, 40:].contiguous(), ds, chunk=16,
+                            state=s_mid)
+    _close(torch.cat([y1, y2], 1), y_all, "split y")
+    _close(s_end, s_all, "split state")
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    half = [a[:, 40:] if a.ndim > 1 else a for a in arrs]
+    y_j, s_j = jops.ssd(*half, chunk=8, impl="jnp",
+                        state=jnp.asarray(s_mid.numpy()))
+    _close(y2, y_j, "y vs jnp with state")
+    _close(s_end, s_j, "state vs jnp with state")
+
+
+def test_port_oracle_matches_reference_oracle():
+    arrs = _inputs((2, 24, 4, 8, 2, 16), seed=3)
+    y, s = ref.ssd_ref(*_t(arrs))
+    y_o, s_o = _reference()[2](*arrs)
+    _close(y, y_o, "ssd_ref y")
+    _close(s, s_o, "ssd_ref state")
+
+
+def test_ssd_decode_step_matches_reference():
+    """Token by token from a zero state: the port's and the reference's
+    one-token updates agree with each other and with the oracle."""
+    case = (1, 16, 4, 8, 2, 16)
+    arrs = _inputs(case, seed=4)
+    x, dt, a_log, bm, cm, ds = arrs
+    jstep = _reference()[3]
+    y_o, _ = ref.ssd_ref(*_t(arrs))
+    s = torch.zeros((1, 4, 16, 8))
+    s_j = np.zeros((1, 4, 16, 8), np.float32)
+    for t in range(case[1]):
+        y_t, s = ops.ssd_decode_step(s, *_t([x[:, t], dt[:, t], a_log,
+                                             bm[:, t], cm[:, t], ds]))
+        y_jt, s_j = jstep(s_j, x[:, t], dt[:, t], a_log, bm[:, t], cm[:, t],
+                          ds)
+        _close(y_t, y_jt, f"decode y step {t}")
+        _close(s, s_j, f"decode state step {t}")
+        _close(y_t, y_o[:, t], f"decode y step {t} vs oracle")
+
+
+def test_ssd_wrapper_rejects_bad_inputs():
+    x, dt, a_log, bm, cm, ds = _t(_inputs((1, 8, 2, 4, 1, 4)))
+    with pytest.raises(TypeError, match="float32"):
+        SS.ssd_scan(x, dt.double(), a_log, bm, cm, ds, chunk=4)
+    with pytest.raises(ValueError, match="shape"):
+        SS.ssd_scan(x, dt[:, :4], a_log, bm, cm, ds, chunk=4)
+    with pytest.raises(ValueError, match="groups"):
+        SS.ssd_scan(x, dt, a_log, bm.expand(1, 8, 3, 4).contiguous(),
+                    cm.expand(1, 8, 3, 4).contiguous(), ds, chunk=4)
+    with pytest.raises(TypeError, match="dtype"):
+        SS.ssd_scan(x, dt, a_log, bm.to(torch.bfloat16), cm, ds, chunk=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        SS.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt,
+                    a_log, bm, cm, ds, chunk=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_scan_matches_plain_version(dtype):
+    """On the card: the kernel against its plain version over the shape
+    lists, ragged lengths, an initial state and the serve shape (3e-4 on
+    y and on the final state; bf16 y within one bf16 rounding: atol
+    3e-4, rtol 2^-7)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    cases = [(c, "test") for c in SSD_SHAPES + RAGGED]
+    cases.append(((1, 1000, 24, 64, 1, 128, 256), "serve"))
+    before = SS.LAUNCHES["ssd_scan"]
+    for case, decay in cases:
+        x, dt, a_log, bm, cm, ds = [t.cuda() for t in
+                                    _t(_inputs(case, seed=5, decay=decay))]
+        args = (x.to(dtype), dt, a_log, bm.to(dtype), cm.to(dtype), ds)
+        state = torch.randn((case[0], case[2], case[5], case[3]),
+                            device="cuda")
+        for s_in in (None, state):
+            y, s = SS.ssd_scan(*args, chunk=case[-1], state=s_in)
+            torch.cuda.synchronize()
+            w_y, w_s = ref.ssd_scan_ref(*args, chunk=case[-1], state=s_in)
+            rtol = TOL if dtype == torch.float32 else 2.0 ** -7
+            np.testing.assert_allclose(y.float().cpu(), w_y.float().cpu(),
+                                       atol=TOL, rtol=rtol,
+                                       err_msg=str(case))
+            np.testing.assert_allclose(s.cpu(), w_s.cpu(), atol=TOL,
+                                       rtol=TOL, err_msg=str(case))
+    assert SS.LAUNCHES["ssd_scan"] == before + 2 * len(cases)
