@@ -86,6 +86,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     exactly 24 times per request, and the SSD states must be finite.
 13. Where smollm's device time goes: torch.profiler over one 1536-token
     prefill and over 8 batched decode steps at batch 4.
+14. The flash-attention backward kernels, #6 (dq) and #7 (dk, dv per q
+    head), against their plain versions on the card: smollm's training
+    shape (B=8, Hq=9, Hkv=3, S=2048, D=64, bf16, causal), a window, MQA,
+    D = 32 and 128, float32, non-causal and ragged lengths; float32 dq
+    at 2e-5, bf16 dq within one bf16 rounding (1e-4 + 2^-7 |dq|), the
+    float32 per-head dk, dv at 2e-4 + 2e-5 |d|; and the whole backward
+    with a zero-padded head of 16.  Then each kernel's time at the
+    training shape, its plain version's, its bound (the products with
+    bf16 operands at the tensor-core rate, those on float32 p or ds at
+    the float32 rate) and the backward of ``scaled_dot_product_attention``
+    at the same shape (the yardstick of #6 and #7 together; the port
+    never calls it).
+15. smollm-135m trained at full width (30 x 576, vocab 49152, weights
+    from a seeded torch.Generator) through ``launch.train.train``: 8
+    steps of 8 x 2048 tokens of the reference's synthetic data (seed 0),
+    the launcher's cosine schedule at lr 1e-3.  Launches counted around
+    the run: exactly 60 of #5, 30 of #6 and 30 of #7 per step (remat
+    recomputes each forward); every loss finite, the first within 0.5 of
+    ln 49152, the last below the first.  Then a run with checkpoints
+    every 4 steps that crashes at step 6 and resumes: its last loss
+    equals the uncrashed run's at rtol 1e-4.  Then one step of the same
+    model cut to 4 layers at B=1, S=256 on the card and on the CPU from
+    the same weights: loss within 5e-3 and global gradient norm within
+    1e-2 relative.  Prints ms per warm step, tokens/s, peak memory, and
+    one step under torch.profiler: the idle share and the shares of #5,
+    #6 and #7.
 
 Output: the card's name and power limit, then a ``kernels`` JSON line,
 then ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -114,6 +140,7 @@ KERNEL_SRC = "src/repro_torch/kernels/csrc/sim_step.cu"
 MASK_SRC = "src/repro_torch/kernels/csrc/mask_gemm.cu"
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+FLASH_BWD_SRC = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 
 
 def log(*args):
@@ -643,10 +670,11 @@ def profile_steps(sim, dem, offered, steps: int = 6):
     profile_device(lambda: sim.run(dem, offered, steps), steps, "step")
 
 
-def profile_device(fn, per: int, unit: str, label: str = "profile"):
-    """torch.profiler over one call of ``fn``: device time per ``unit``
-    (``per`` units in the call) by kernel, and the device's idle share of
-    the call's wall time (CUDA events)."""
+def device_rows(fn):
+    """torch.profiler over one call of ``fn``: ``(rows, wall_ms,
+    busy_ms)``, rows ``(ms, launches, kernel name)`` of device time by
+    kernel, the call's wall time (CUDA events) and the device's busy
+    time."""
     from torch.profiler import ProfilerActivity, profile
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -656,7 +684,6 @@ def profile_device(fn, per: int, unit: str, label: str = "profile"):
         fn()
         end.record()
         torch.cuda.synchronize()
-    wall_ms = start.elapsed_time(end)
     rows = []
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
@@ -667,16 +694,24 @@ def profile_device(fn, per: int, unit: str, label: str = "profile"):
         if us > 0:
             rows.append((us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
+    return rows, start.elapsed_time(end), sum(r[0] for r in rows)
+
+
+def profile_device(fn, per: int, unit: str, label: str = "profile"):
+    """Prints :func:`device_rows` of one call of ``fn`` per ``unit``
+    (``per`` units in the call) and the device's idle share of the
+    call's wall time; returns them."""
+    rows, wall_ms, busy_ms = device_rows(fn)
     if busy_ms <= 0:
         log(f"{label}: the profiler saw no device time (CUDA events only)")
-        return
+        return rows, wall_ms, busy_ms
     log(f"{label}: {per} {unit}s, wall {wall_ms / per:.3f} ms/{unit}, "
         f"device busy {busy_ms / per:.3f} ms/{unit}, idle share "
         f"{1.0 - busy_ms / wall_ms:.3f}")
     for ms, count, key in rows[:14]:
         log(f"{label}:   {ms / per:8.4f} ms/{unit} {count / per:6.1f} "
             f"launches/{unit}  {key[:90]}")
+    return rows, wall_ms, busy_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1019,6 +1054,261 @@ def profile_serve(dev, model, arch: str, seed: int = 1):
                    f"profile {arch} decode batch 4")
 
 
+# ---------------------------------------------------------------------------
+# The training path: kernels #6 and #7, then smollm-135m trained at full
+# width
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(steps=8, seq=2048, batch=8, lr=1e-3, ckpt_every=4, crash_at=6)
+TRAIN_DIR = ROOT / "build" / "train_smoke"
+
+
+def check_flash_bwd(dev, bw):
+    """Kernels #6 and #7 against their plain versions around smollm's
+    training shape, then their times at it beside SDPA's backward (the
+    yardstick of both together)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    errs = {"flash_attention_dq": 0.0, "flash_attention_dkv": 0.0}
+    cases = [  # (b, hq, hkv, sq, skv, d, causal, window, q_offset, dtype)
+        (8, 9, 3, 2048, 2048, 64, True, None, 0, torch.bfloat16),
+        (2, 9, 3, 1000, 1000, 64, True, None, 0, torch.float32),
+        (1, 9, 3, 777, 777, 64, True, 128, 0, torch.bfloat16),
+        (1, 9, 3, 300, 1300, 64, True, None, 1000, torch.bfloat16),
+        (1, 4, 1, 257, 257, 32, True, 64, 0, torch.float32),
+        (1, 4, 2, 130, 130, 128, True, None, 0, torch.float32),
+        (2, 6, 2, 333, 333, 64, False, None, 0, torch.float32),
+        (1, 8, 1, 200, 200, 64, True, None, 0, torch.bfloat16),
+    ]
+    for b, hq, hkv, sq, skv, d, causal, window, off, dtype in cases:
+        q, do = (torch.randn((b, hq, sq, d), generator=gen,
+                             device=dev).to(dtype) for _ in range(2))
+        k, v = (torch.randn((b, hkv, skv, d), generator=gen,
+                            device=dev).to(dtype) for _ in range(2))
+        kw = dict(causal=causal, window=window, q_offset=off)
+        o, lse = FA.flash_attention(q, k, v, **kw)
+        dsum = (do.float() * o.float()).sum(-1, keepdim=True)
+        dq = FA.flash_attention_dq(q, k, v, do, lse, dsum, **kw)
+        dkh, dvh = FA.flash_attention_dkv(q, k, v, do, lse, dsum, **kw)
+        torch.cuda.synchronize()
+        w_dq = ref.flash_attention_dq_ref(q, k, v, do, lse, dsum, **kw)
+        w_dk, w_dv = ref.flash_attention_dkv_ref(q, k, v, do, lse, dsum, **kw)
+        name = (f"flash_attention bwd B={b} Hq={hq} Hkv={hkv} Sq={sq} "
+                f"Skv={skv} D={d} causal={causal} window={window} "
+                f"q_offset={off} {dtype}")
+        # both sides sum float32 products of the same inputs: float32 dq
+        # at 2e-5; bf16 dq within one bf16 rounding; dk, dv stay float32
+        # per q head on both sides (longer sums: 2e-4 + 2e-5 |d|)
+        atol, rtol = ((1e-4, 2.0 ** -7) if dtype == torch.bfloat16
+                      else (2e-5, 2e-5))
+        e_dq, rel = _close_or_raise(name + " dq", dq, w_dq, atol, rtol)
+        e_kv = max(_close_or_raise(name + " dk", dkh, w_dk, 2e-4, 2e-5)[0],
+                   _close_or_raise(name + " dv", dvh, w_dv, 2e-4, 2e-5)[0])
+        errs["flash_attention_dq"] = max(errs["flash_attention_dq"], e_dq)
+        errs["flash_attention_dkv"] = max(errs["flash_attention_dkv"], e_kv)
+        log(f"{name}: ok (dq max abs err {e_dq:.3e}, max rel err "
+            f"{rel:.3e}; dk, dv max abs err {e_kv:.3e})")
+    # the whole backward with a head of 16, zero-padded to 32 and cut back
+    q, do = (torch.randn((1, 4, 100, 16), generator=gen, device=dev)
+             for _ in range(2))
+    k, v = (torch.randn((1, 2, 100, 16), generator=gen, device=dev)
+            for _ in range(2))
+    o, lse = FA.flash_attention(q, k, v, window=24)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, window=24)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, window=24)
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        if g.shape != w.shape:
+            raise AssertionError(f"padded backward {what}: {g.shape}")
+        _close_or_raise(f"padded backward D=16 {what}", g, w, 2e-4, 2e-5)
+    log("flash_attention_bwd with a head of 16 (padded to 32): ok")
+
+    # one smollm layer of the training step: B=8, S=2048, bf16, causal
+    b, hq, hkv, s, d = 8, 9, 3, 2048, 64
+    q, do = (torch.randn((b, hq, s, d), generator=gen,
+                         device=dev).bfloat16() for _ in range(2))
+    k, v = (torch.randn((b, hkv, s, d), generator=gen,
+                        device=dev).bfloat16() for _ in range(2))
+    o, lse = FA.flash_attention(q, k, v)
+    dsum = (do.float() * o.float()).sum(-1, keepdim=True)
+    args = (q, k, v, do, lse, dsum)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    o_sdpa = torch.nn.functional.scaled_dot_product_attention(
+        qg, kg, vg, is_causal=True, enable_gqa=True)
+    sdpa_bwd = lambda: torch.autograd.grad(o_sdpa, (qg, kg, vg), do,
+                                           retain_graph=True)
+    sdpa_bwd_ms = cuda_ms(sdpa_bwd, 20)
+    # the same calls' device time alone: back to back, a slow host can
+    # stretch the event timing of a short call
+    sdpa_dev_ms = device_rows(lambda: [sdpa_bwd() for _ in range(10)])[2] \
+        / 10
+    log(f"SDPA backward [B=8 Hq=9 Hkv=3 S=2048 D=64 bf16 causal, GQA]: "
+        f"{sdpa_bwd_ms:.4f} ms per call by CUDA events, {sdpa_dev_ms:.4f} "
+        f"ms of device time per call (torch.profiler)")
+    pairs = s * (s + 1) // 2
+    mm = 2.0 * d * hq * b * pairs      # one product over the live pairs
+    in_bytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d) \
+        + 8 * b * hq * s
+    rows = {}
+    for kname, fn, plain, fp32_mm, out_bytes in (
+            ("flash_attention_dq", FA.flash_attention_dq,
+             ref.flash_attention_dq_ref, 1, 2 * b * hq * s * d),
+            ("flash_attention_dkv", FA.flash_attention_dkv,
+             ref.flash_attention_dkv_ref, 2, 2 * 4 * b * hq * s * d)):
+        rows[kname] = dict(
+            ms=cuda_ms(lambda: fn(*args), 20),
+            plain_ms=cuda_ms(lambda: plain(*args), 3),
+            library_ms=sdpa_bwd_ms,
+            **_bound(in_bytes + out_bytes, bf16_flops=2 * mm,
+                     fp32_flops=fp32_mm * mm, bw=bw))
+        r = rows[kname]
+        log(f"{kname} [B=8 Hq=9 Hkv=3 S=2048 D=64 bf16 causal]: "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA backward "
+            f"(dq, dk, dv together) {sdpa_bwd_ms:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} (Q K^T and dO V^T "
+            f"{2 * mm / 1e9:.3f} GFLOP at 989 TFLOP/s bf16 = "
+            f"{r['bf16_ms']:.4f} ms + {fp32_mm} product(s) on float32 p or "
+            f"ds {fp32_mm * mm / 1e9:.3f} GFLOP at 67 TFLOP/s = "
+            f"{r['fp32_ms']:.4f} ms; {(in_bytes + out_bytes) / 1e6:.2f} MB "
+            f"= {r['bytes_ms']:.4f} ms); "
+            f"{(2 + fp32_mm) * mm / r['ms'] / 1e9:.2f} TFLOP/s achieved")
+    # kernel #5 at the same shape: reads q, k, v, writes o and lse
+    fwd_ms = cuda_ms(lambda: FA.flash_attention(q, k, v), 20)
+    fwd = _bound(in_bytes - 4 * b * hq * s, bf16_flops=mm, fp32_flops=mm,
+                 bw=bw)
+    log(f"flash_attention_fwd at the training shape: {fwd_ms:.4f} ms, "
+        f"bound {fwd['bound_ms']:.4f} ms by {fwd['bound_by']}")
+    return errs, rows
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def train_smollm(dev):
+    """Phase 15: smollm-135m trained at full width through the
+    launcher's entry point; launch counts, losses, crash and resume, a
+    card-vs-CPU step, timings and a profile."""
+    import shutil
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.train import train
+    from repro_torch.train import (TrainStepConfig, init_train_state,
+                                   make_train_step)
+
+    cfg = get_arch("smollm-135m")
+    steps = TRAIN["steps"]
+    tokens = TRAIN["seq"] * TRAIN["batch"]
+    kw = dict(full=True, steps=steps, seq=TRAIN["seq"],
+              batch=TRAIN["batch"], lr=TRAIN["lr"],
+              ckpt_every=TRAIN["ckpt_every"], log_every=1, device=dev)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer, state = train("smollm-135m", ckpt_dir=str(TRAIN_DIR / "a"),
+                           **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(FA.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n = len(trainer.history)
+    want = {"flash_attention_fwd": 60 * n, "flash_attention_dq": 30 * n,
+            "flash_attention_dkv": 30 * n}
+    if n != steps or launches != want:
+        raise AssertionError(f"train: {n} steps, launches {launches}, "
+                             f"expected {want}")
+    losses = [h.loss for h in trainer.history]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: non-finite loss in {losses}")
+    if abs(losses[0] - np.log(cfg.vocab)) > 0.5:
+        raise AssertionError(f"train: first loss {losses[0]:.4f} is not "
+                             f"within 0.5 of ln {cfg.vocab}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss did not fall: {losses}")
+    warm = sorted(h.seconds for h in trainer.history[1:])
+    warm_ms = warm[len(warm) // 2] * 1e3
+    log(f"smollm-135m train: {n} steps of {TRAIN['batch']} x {TRAIN['seq']} "
+        f"tokens in {seconds:.2f} s (checkpoints every "
+        f"{TRAIN['ckpt_every']} included); losses "
+        f"{[round(x, 4) for x in losses]}; step ms "
+        f"{[round(h.seconds * 1e3, 1) for h in trainer.history]}; warm step "
+        f"(median of steps 1-{n - 1}) {warm_ms:.1f} ms, "
+        f"{tokens / warm_ms * 1e3:.0f} tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches per step "
+        f"{ {k: v // n for k, v in launches.items()} }")
+    shutil.rmtree(TRAIN_DIR / "a", ignore_errors=True)
+
+    # crash at step 6, resume from the step-4 checkpoint, replay
+    crashed = []
+
+    def fault(step):
+        if step == TRAIN["crash_at"] and not crashed:
+            crashed.append(step)
+            return "crash"
+        return None
+
+    tr2, state2 = train("smollm-135m", ckpt_dir=str(TRAIN_DIR / "b"),
+                        fault_hook=fault, **kw)
+    replay = [h.step for h in tr2.history]
+    if tr2.restarts != 1 or int(state2["step"]) != steps:
+        raise AssertionError(f"crash run: restarts {tr2.restarts}, step "
+                             f"{int(state2['step'])}, steps {replay}")
+    last = tr2.history[-1].loss
+    if not np.isclose(last, losses[-1], rtol=1e-4, atol=0.0):
+        raise AssertionError(f"crash run: last loss {last} vs uncrashed "
+                             f"{losses[-1]}")
+    log(f"smollm-135m crash at step {TRAIN['crash_at']} and resume: steps "
+        f"{replay}; last loss {last:.6f} vs uncrashed {losses[-1]:.6f} "
+        f"(rel {abs(last - losses[-1]) / abs(losses[-1]):.2e}, limit 1e-4)")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    del state2, tr2
+
+    # one step under the profiler, on the trained state
+    batch = trainer._device_batch(steps)
+    rows, wall_ms, busy_ms = profile_device(
+        lambda: trainer.step_fn(state, batch), 1, "step",
+        "profile smollm-135m train step")
+    if busy_ms > 0:
+        shares = {kname: sum(ms for ms, _, key in rows if kname in key)
+                  / busy_ms
+                  for kname in ("flash_fwd_kernel", "flash_dq_kernel",
+                                "flash_dkv_kernel")}
+        log(f"profile smollm-135m train step: device busy {busy_ms:.2f} ms "
+            f"of {wall_ms:.2f} ms wall (idle share "
+            f"{1.0 - busy_ms / wall_ms:.3f}); shares of device time: #5 "
+            f"{shares['flash_fwd_kernel']:.3f}, #6 "
+            f"{shares['flash_dq_kernel']:.3f}, #7 "
+            f"{shares['flash_dkv_kernel']:.3f}")
+    del state, trainer
+
+    # the card against the CPU: full width cut to 4 layers, B=1, S=256
+    cfg4 = cfg.replace(n_layers=4)
+    ts = TrainStepConfig()
+    gpu_state = init_train_state(cfg4, 0, ts, dev)
+    cpu_state = _tree_to(gpu_state, "cpu")
+    tok = np.random.default_rng(0).integers(0, cfg.vocab, (1, 256))
+    tok = tok.astype(np.int32)
+    _, m_gpu = make_train_step(cfg4, dev, ts)(gpu_state, {"tokens": tok})
+    _, m_cpu = make_train_step(cfg4, "cpu", ts)(cpu_state, {"tokens": tok})
+    lg, lc = float(m_gpu["loss"]), float(m_cpu["loss"])
+    ng, nc = float(m_gpu["grad_norm"]), float(m_cpu["grad_norm"])
+    # bf16 activations, rounded by cuBLAS on the card and by the CPU's
+    # kernels elsewhere: loss within 5e-3, gradient norm within 1e-2
+    if not (abs(lg - lc) <= 5e-3 and abs(ng - nc) <= 1e-2 * nc):
+        raise AssertionError(f"card vs CPU step: loss {lg} vs {lc}, grad "
+                             f"norm {ng} vs {nc}")
+    log(f"smollm-135m (4 layers, B=1, S=256) one step, card vs CPU: loss "
+        f"{lg:.6f} vs {lc:.6f} (limit 5e-3), grad norm {ng:.6f} vs "
+        f"{nc:.6f} (rel {abs(ng - nc) / nc:.2e}, limit 1e-2)")
+    return launches, dict(warm_ms=warm_ms, tok_s=tokens / warm_ms * 1e3,
+                          peak=peak)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA "
@@ -1041,12 +1331,18 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda")
 
+    t_start = time.perf_counter()
+
+    def done(phases: str):
+        log(f"[{time.perf_counter() - t_start:7.1f} s] phases {phases} done")
+
     errs, timing = check_kernels(dev, bw)
     mg_errs, mg_timing = check_mask_gemm(dev, bw)
     thetas, mg_launches = check_analytic(dev)
     check_pn64(dev)
     check_pn16(dev, thetas["pn16 uniform"])
     launches = check_pn27(dev, thetas["pn27 points"])
+    done("2-8")
     errs["flash_attention_fwd"], timing["flash_attention_fwd"] = \
         check_flash(dev, bw)
     errs["ssd_scan"], timing["ssd_scan"] = check_ssd(dev, bw)
@@ -1054,6 +1350,16 @@ def main() -> int:
         dev, "smollm-135m", "flash_attention_fwd")
     _, launches["ssd_scan"], _ = serve_arch(dev, "mamba2-130m", "ssd_scan")
     profile_serve(dev, smollm, "smollm-135m")
+    del smollm
+    done("9-13")
+    bwd_errs, bwd_timing = check_flash_bwd(dev, bw)
+    errs.update(bwd_errs)
+    timing.update(bwd_timing)
+    done("14")
+    train_launches, _ = train_smollm(dev)
+    for kname in bwd_errs:
+        launches[kname] = train_launches[kname]
+    done("15")
 
     errs.update(mg_errs)
     timing.update(mg_timing)
@@ -1064,10 +1370,16 @@ def main() -> int:
                 "backward_step": "src/repro/kernels/mask_gemm.py:70",
                 "flash_attention_fwd":
                     "src/repro/kernels/flash_attention.py:62",
-                "ssd_scan": "src/repro/kernels/ssd_scan.py:31"}
+                "ssd_scan": "src/repro/kernels/ssd_scan.py:31",
+                "flash_attention_dq":
+                    "src/repro/kernels/flash_attention.py:152",
+                "flash_attention_dkv":
+                    "src/repro/kernels/flash_attention.py:192"}
     sources = {"fused_step_update": KERNEL_SRC, "fused_decision": KERNEL_SRC,
                "frontier_step": MASK_SRC, "backward_step": MASK_SRC,
-               "flash_attention_fwd": FLASH_SRC, "ssd_scan": SSD_SRC}
+               "flash_attention_fwd": FLASH_SRC, "ssd_scan": SSD_SRC,
+               "flash_attention_dq": FLASH_BWD_SRC,
+               "flash_attention_dkv": FLASH_BWD_SRC}
     kernels = [{"name": kname, "route": "cuda", "source": sources[kname],
                 "replaces": replaces[kname], "launches": launches[kname],
                 "max_abs_err": errs[kname],

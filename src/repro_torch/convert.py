@@ -23,8 +23,8 @@ from .sim.engine import SimState
 from .sim.tables import RouteTables
 
 __all__ = ["graph_from_arrays", "tables_from_numpy", "state_from_numpy",
-           "state_to_numpy", "params_from_numpy", "cache_from_numpy",
-           "cache_to_numpy"]
+           "state_to_numpy", "params_from_numpy", "params_to_numpy",
+           "cache_from_numpy", "cache_to_numpy"]
 
 _TABLE_ARRAYS = ("active", "head", "split", "deliver", "spread", "dist_act",
                  "hval_rem", "slot_ok", "router_ok", "dest_ok", "routable")
@@ -134,6 +134,38 @@ def params_from_numpy(cfg: ArchConfig, tree, device=None) -> Model:
     model.load_state_dict({k: _tensor(v, device) for k, v in flat.items()},
                           strict=True)
     return model
+
+
+def params_to_numpy(cfg: ArchConfig, params) -> dict:
+    """The reference's parameter tree of numpy arrays (``embed``,
+    ``lm_head`` unless tied, ``prefix``/``body``/``suffix`` with the
+    stacked layer axis, ``final_norm``; bfloat16 leaves as float32) from
+    the port's :class:`Model` or a dict of tensors under its parameter
+    names (a train state's ``params``, or gradients)."""
+    if isinstance(params, Model):
+        params = dict(params.named_parameters())
+    host = {k: (t.detach().float() if t.dtype == torch.bfloat16
+                else t.detach()).cpu().numpy() for k, t in params.items()}
+    layers = [dict() for _ in range(cfg.n_layers)]
+    tree = {}
+    for name, arr in host.items():
+        if not name.startswith("blocks."):
+            tree[name] = arr
+            continue
+        _, i, rest = name.split(".", 2)
+        node = layers[int(i)]
+        *path, leaf = rest.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = arr
+    plan = layer_plan(cfg)
+    body_end = plan.prefix + plan.reps * plan.period
+    tree["prefix"] = layers[:plan.prefix]
+    tree["body"] = {f"pos{j}": _stack(layers[plan.prefix + j:body_end:
+                                             plan.period])
+                    for j in range(plan.period if plan.reps else 0)}
+    tree["suffix"] = layers[body_end:]
+    return tree
 
 
 def cache_from_numpy(cfg: ArchConfig, tree, device=None) -> list:

@@ -25,8 +25,8 @@ __all__ = ["extension", "SOURCES", "BUILD_DIR"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "sim_step.cu", _CSRC / "mask_gemm.cu",
-           _CSRC / "flash_attention.cu", _CSRC / "ssd_scan.cu",
-           _CSRC / "sim_step_binding.cpp")
+           _CSRC / "flash_attention.cu", _CSRC / "flash_attention_bwd.cu",
+           _CSRC / "ssd_scan.cu", _CSRC / "sim_step_binding.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 

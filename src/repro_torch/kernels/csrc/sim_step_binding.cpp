@@ -1,6 +1,7 @@
 // PyTorch binding of the port's kernels: the simulator-step kernels in
 // sim_step.cu, the mask+GEMM kernels in mask_gemm.cu, the flash-attention
-// forward in flash_attention.cu and the SSD chunked scan in ssd_scan.cu.
+// forward in flash_attention.cu and its backward in
+// flash_attention_bwd.cu, and the SSD chunked scan in ssd_scan.cu.
 //
 // The only file of the extension that includes PyTorch's headers, and
 // only the few it needs (the tensor, the pybind11 tensor caster and the
@@ -20,6 +21,7 @@
 
 #include <torch/csrc/utils/pybind.h>
 
+#include <array>
 #include <cstdint>
 
 #define SIM_STEP_DECLARE(T, SUFFIX)                                        \
@@ -55,6 +57,21 @@ cudaError_t flash_attention_fwd(const void* q, const void* k, const void* v,
                                 int hq, int hkv, int sq, int skv, int d,
                                 int causal, int window, int q_offset,
                                 float scale, cudaStream_t stream);
+
+cudaError_t flash_attention_dq(const void* q, const void* k, const void* v,
+                               const void* dout, const float* lse,
+                               const float* dsum, void* dq, int is_bf16,
+                               int b, int hq, int hkv, int sq, int skv,
+                               int d, int causal, int window, int q_offset,
+                               float scale, cudaStream_t stream);
+
+cudaError_t flash_attention_dkv(const void* q, const void* k, const void* v,
+                                const void* dout, const float* lse,
+                                const float* dsum, float* dk, float* dv,
+                                int is_bf16, int b, int hq, int hkv, int sq,
+                                int skv, int d, int causal, int window,
+                                int q_offset, float scale,
+                                cudaStream_t stream);
 
 cudaError_t ssd_scan_fwd(const void* x, const float* dt, const float* a_log,
                          const void* bm, const void* cm, const float* d_skip,
@@ -303,6 +320,84 @@ void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// q and dout (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), bfloat16 or
+// float32; lse and dsum (B, Hq, Sq) float32.  Checks what the two
+// backward kernels share and returns (b, hq, hkv, sq, skv, d).
+std::array<int64_t, 6> check_bwd(const at::Tensor& q, const at::Tensor& k,
+                                 const at::Tensor& v, const at::Tensor& dout,
+                                 const at::Tensor& lse,
+                                 const at::Tensor& dsum) {
+  const auto dt = q.scalar_type();
+  TORCH_CHECK(dt == at::kFloat || dt == at::kBFloat16,
+              "flash_attention backward takes float32 or bfloat16");
+  check_cuda(q, "q", dt);
+  check_cuda(k, "k", dt);
+  check_cuda(v, "v", dt);
+  check_cuda(dout, "dout", dt);
+  check_cuda(lse, "lse", at::kFloat);
+  check_cuda(dsum, "dsum", at::kFloat);
+  TORCH_CHECK(q.dim() == 4 && k.dim() == 4 && k.sizes() == v.sizes() &&
+                  dout.sizes() == q.sizes(),
+              "q, dout must be (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D)");
+  const int64_t b = q.size(0), hq = q.size(1), sq = q.size(2), d = q.size(3);
+  const int64_t hkv = k.size(1), skv = k.size(2);
+  TORCH_CHECK(k.size(0) == b && k.size(3) == d && hq % hkv == 0,
+              "k does not match q");
+  TORCH_CHECK(lse.numel() == b * hq * sq && dsum.numel() == b * hq * sq,
+              "lse and dsum must hold B * Hq * Sq");
+  return {b, hq, hkv, sq, skv, d};
+}
+
+void flash_dq(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+              const at::Tensor& dout, const at::Tensor& lse,
+              const at::Tensor& dsum, bool causal, int64_t window,
+              int64_t q_offset, double scale, at::Tensor& dq) {
+  const auto [b, hq, hkv, sq, skv, d] = check_bwd(q, k, v, dout, lse, dsum);
+  check_cuda(dq, "dq", q.scalar_type());
+  TORCH_CHECK(dq.sizes() == q.sizes(), "dq must be shaped like q");
+  const c10::cuda::CUDAGuard guard(q.device());
+  const cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
+  if (b * hq * sq * skv == 0) return;
+  const cudaError_t err = flash_attention_dq(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+      lse.data_ptr<float>(), dsum.data_ptr<float>(), dq.data_ptr(),
+      q.scalar_type() == at::kBFloat16, static_cast<int>(b),
+      static_cast<int>(hq), static_cast<int>(hkv), static_cast<int>(sq),
+      static_cast<int>(skv), static_cast<int>(d), causal ? 1 : 0,
+      static_cast<int>(window), static_cast<int>(q_offset),
+      static_cast<float>(scale), stream);
+  TORCH_CHECK(err == cudaSuccess, "flash_attention dq launch failed: ",
+              cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// dk and dv (B, Hq, Skv, D) float32, per q head.
+void flash_dkv(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+               const at::Tensor& dout, const at::Tensor& lse,
+               const at::Tensor& dsum, bool causal, int64_t window,
+               int64_t q_offset, double scale, at::Tensor& dk,
+               at::Tensor& dv) {
+  const auto [b, hq, hkv, sq, skv, d] = check_bwd(q, k, v, dout, lse, dsum);
+  check_cuda(dk, "dk", at::kFloat);
+  check_cuda(dv, "dv", at::kFloat);
+  TORCH_CHECK(dk.numel() == b * hq * skv * d && dv.numel() == dk.numel(),
+              "dk and dv must be (B, Hq, Skv, D)");
+  const c10::cuda::CUDAGuard guard(q.device());
+  const cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
+  if (b * hq * sq * skv == 0) return;
+  const cudaError_t err = flash_attention_dkv(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+      lse.data_ptr<float>(), dsum.data_ptr<float>(), dk.data_ptr<float>(),
+      dv.data_ptr<float>(), q.scalar_type() == at::kBFloat16,
+      static_cast<int>(b), static_cast<int>(hq), static_cast<int>(hkv),
+      static_cast<int>(sq), static_cast<int>(skv), static_cast<int>(d),
+      causal ? 1 : 0, static_cast<int>(window), static_cast<int>(q_offset),
+      static_cast<float>(scale), stream);
+  TORCH_CHECK(err == cudaSuccess, "flash_attention dk/dv launch failed: ",
+              cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 // x (B, L, H, P), b_mat and c_mat (B, L, G, N), y like x: bfloat16 or
 // float32; dt (B, L, H), a_log and d_skip (H,), state_out (B, H, N, P) and
 // state_in float32, state_in empty for a zero initial state.
@@ -370,5 +465,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "backward dependency level, sparse product + mask epilogue (CUDA)");
   m.def("flash_fwd", &flash_fwd,
         "flash-attention forward with the row log-sum-exp (CUDA)");
+  m.def("flash_dq", &flash_dq, "flash-attention backward, dq (CUDA)");
+  m.def("flash_dkv", &flash_dkv,
+        "flash-attention backward, dk and dv per q head (CUDA)");
   m.def("ssd_scan", &ssd_scan, "Mamba-2 SSD chunked scan (CUDA)");
 }

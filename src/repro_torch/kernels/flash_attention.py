@@ -1,15 +1,18 @@
-"""Flash-attention forward: causal / sliding-window / GQA online-softmax
-attention with the row log-sum-exp.
+"""Flash attention: causal / sliding-window / GQA online-softmax
+attention with the row log-sum-exp, and its recompute backward.
 
-Counterpart of ``repro/kernels/flash_attention.py``, whose Pallas kernel
-``_fwd_kernel`` (via ``flash_attention`` -> ``_fwd``) it replaces; the
-backward kernels belong to the training slice.  On CUDA tensors
-:func:`flash_attention` launches the hand-written Hopper kernel of
-``csrc/flash_attention.cu`` (built at first use by
+Counterpart of ``repro/kernels/flash_attention.py``, whose Pallas kernels
+``_fwd_kernel`` (via ``_fwd``), ``_dq_kernel`` and ``_dkv_kernel`` (via
+``_bwd_impl``) it replaces, and of its ``custom_vjp`` (``_flash``):
+:class:`FlashAttention` is the ``torch.autograd.Function`` whose forward
+is :func:`flash_attention` and whose backward is
+:func:`flash_attention_bwd`.  On CUDA tensors each wrapper launches its
+hand-written Hopper kernel (``csrc/flash_attention.cu``,
+``csrc/flash_attention_bwd.cu``, built at first use by
 :mod:`repro_torch.kernels._build`) and counts the launch in
-:data:`LAUNCHES`; on CPU tensors it runs the plain version
-:func:`repro_torch.kernels.ref.flash_attention_ref`.  Any other device
-raises, and so does a failed build or launch.
+:data:`LAUNCHES`; on CPU tensors it runs the plain version in
+:mod:`repro_torch.kernels.ref`.  Any other device raises, and so does a
+failed build or launch.
 
 Unlike the Pallas kernel, which needs Sq and Skv to be multiples of its
 blocks, the kernel takes any lengths and masks the ragged edge itself, so
@@ -17,7 +20,8 @@ an unpadded prompt of any length goes through it.  q, k and v are read in
 their dtype (bfloat16 or float32) and the arithmetic is float32.  The
 kernel is built for head sizes 32, 64 and 128; a smaller head is
 zero-padded to the next of them (the scores and the output's first D
-columns do not change).
+columns do not change); the backward pads and cuts its gradients the
+same way, so they come back at the caller's D.
 """
 
 from __future__ import annotations
@@ -25,12 +29,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .ref import flash_attention_ref
+from .ref import (flash_attention_dkv_ref, flash_attention_dq_ref,
+                  flash_attention_ref)
 
-__all__ = ["flash_attention", "LAUNCHES", "reset_launches", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_dq", "flash_attention_dkv",
+           "flash_attention_bwd", "FlashAttention", "LAUNCHES",
+           "reset_launches", "HEAD_DIMS"]
 
 # kernel launches on the card since the last reset_launches()
-LAUNCHES = {"flash_attention_fwd": 0}
+LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_dq": 0,
+            "flash_attention_dkv": 0}
 
 HEAD_DIMS = (32, 64, 128)   # head sizes the kernel is built for
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -70,6 +78,16 @@ def _check(q, k, v, window, q_offset) -> str:
     raise ValueError(f"no flash-attention kernel for device {q.device}")
 
 
+def _pad_head(d: int) -> int:
+    return next(h for h in HEAD_DIMS if h >= d)
+
+
+def _aligned(*ts):
+    """The kernels read 4 elements per load: rows must start 16-byte
+    aligned."""
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in ts]
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     q_offset: int = 0, scale=None):
     """``(o, lse)``: q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) with Hq %
@@ -85,11 +103,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                                    q_offset=int(q_offset), scale=scale)
     from ._build import extension
     ext = extension()
-    d_pad = next(h for h in HEAD_DIMS if h >= d)
+    d_pad = _pad_head(d)
     if d_pad != d:
         q, k, v = (F.pad(t, (0, d_pad - d)) for t in (q, k, v))
-    # the kernel reads 4 elements per load: rows must start 16-byte aligned
-    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+    q, k, v = _aligned(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, sq, 1), dtype=torch.float32, device=q.device)
     ext.flash_fwd(q, k, v, bool(causal), 0 if window is None else int(window),
@@ -98,3 +115,118 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     if d_pad != d:
         o = o[..., :d].contiguous()
     return o, lse
+
+
+def _check_bwd(q, k, v, do, lse, dsum, window, q_offset) -> str:
+    route = _check(q, k, v, window, q_offset)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError("do must match q in shape, dtype and device")
+    if not do.is_contiguous():
+        raise ValueError("do must be contiguous")
+    rows = q.shape[:3] + (1,)
+    for name, t in (("lse", lse), ("dsum", dsum)):
+        if (t.shape != rows or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 "
+                             f"{tuple(rows)} tensor on q's device")
+    if route == "cuda" and q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"the backward kernels take head sizes "
+                         f"{HEAD_DIMS}; flash_attention_bwd pads")
+    return route
+
+
+def flash_attention_dq(q, k, v, do, lse, dsum, *, causal: bool = True,
+                       window=None, q_offset: int = 0, scale=None):
+    """dq of the recompute backward (kernel #6 on the card): q, do (B,
+    Hq, Sq, D); k, v (B, Hkv, Skv, D); lse, dsum (B, Hq, Sq, 1) float32,
+    the forward's lse and ``rowsum(do * o)``.  Returns dq in q's dtype.
+    On the card D must be 32, 64 or 128."""
+    route = _check_bwd(q, k, v, do, lse, dsum, window, int(q_offset))
+    scale = float(scale) if scale is not None else q.shape[3] ** -0.5
+    kw = dict(causal=bool(causal), window=window, q_offset=int(q_offset),
+              scale=scale)
+    if route == "cpu":
+        return flash_attention_dq_ref(q, k, v, do, lse, dsum, **kw)
+    from ._build import extension
+    ext = extension()
+    q, k, v, do = _aligned(q, k, v, do)
+    dq = torch.empty_like(q)
+    ext.flash_dq(q, k, v, do, lse, dsum, kw["causal"],
+                 0 if window is None else int(window), kw["q_offset"],
+                 scale, dq)
+    LAUNCHES["flash_attention_dq"] += 1
+    return dq
+
+
+def flash_attention_dkv(q, k, v, do, lse, dsum, *, causal: bool = True,
+                        window=None, q_offset: int = 0, scale=None):
+    """dk and dv of the recompute backward per q head (kernel #7 on the
+    card): inputs as :func:`flash_attention_dq`; returns ``(dk, dv)``,
+    each (B, Hq, Skv, D) float32, for the caller to sum over each kv
+    group."""
+    route = _check_bwd(q, k, v, do, lse, dsum, window, int(q_offset))
+    scale = float(scale) if scale is not None else q.shape[3] ** -0.5
+    kw = dict(causal=bool(causal), window=window, q_offset=int(q_offset),
+              scale=scale)
+    if route == "cpu":
+        return flash_attention_dkv_ref(q, k, v, do, lse, dsum, **kw)
+    from ._build import extension
+    ext = extension()
+    q, k, v, do = _aligned(q, k, v, do)
+    b, hq, _, d = q.shape
+    dk = torch.empty((b, hq, k.shape[2], d), dtype=torch.float32,
+                     device=q.device)
+    dv = torch.empty_like(dk)
+    ext.flash_dkv(q, k, v, do, lse, dsum, kw["causal"],
+                  0 if window is None else int(window), kw["q_offset"],
+                  scale, dk, dv)
+    LAUNCHES["flash_attention_dkv"] += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window=None, q_offset: int = 0, scale=None):
+    """``(dq, dk, dv)`` of :func:`flash_attention` at cotangent ``do``,
+    the reference's ``_bwd_impl``: ``dsum = rowsum(do * o)`` in float32,
+    then the dq and dk/dv kernels, dk and dv summed over each kv group in
+    float32.  dq in q's dtype, dk and dv in k's.  ``o`` and ``lse`` are
+    the forward's outputs.  p is exactly 0 on masked entries (see
+    :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`)."""
+    b, hq, _, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    scale = float(scale) if scale is not None else d ** -0.5
+    dsum = (do.float() * o.float()).sum(-1, keepdim=True)
+    d_pad = _pad_head(d) if q.device.type == "cuda" else d
+    if d_pad != d:
+        q, k, v, do = (F.pad(t, (0, d_pad - d)) for t in (q, k, v, do))
+    kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
+    dq = flash_attention_dq(q, k, v, do, lse, dsum, **kw)
+    dkh, dvh = flash_attention_dkv(q, k, v, do, lse, dsum, **kw)
+    dk = dkh.view(b, hkv, hq // hkv, skv, d_pad).sum(2)
+    dv = dvh.view(b, hkv, hq // hkv, skv, d_pad).sum(2)
+    if d_pad != d:
+        dq, dk, dv = (t[..., :d].contiguous() for t in (dq, dk, dv))
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention, the reference's ``_flash``
+    custom_vjp: the forward kernel saves ``(q, k, v, o, lse)``, the
+    backward runs :func:`flash_attention_bwd`.  Under ``no_grad`` it is
+    one forward launch and saves nothing."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, scale):
+        o, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
+                        scale=scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         **ctx.opts)
+        return dq, dk, dv, None, None, None, None

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from .flash_attention import flash_attention
+from .flash_attention import FlashAttention
 from .ssd_scan import ssd_scan
 
 __all__ = ["attention", "ssd", "ssd_decode_step"]
@@ -25,17 +25,18 @@ def attention(q, k, v, *, causal: bool = True, window=None,
               q_offset: int = 0, kv_len=None, scale=None):
     """Multi-head GQA attention (see :func:`repro_torch.kernels.ref.
     attention_ref` for the semantics): the flash-attention kernel on the
-    card, its plain version on the CPU.  ``kv_len`` (padded caches) has
-    no kernel route and raises; the model's decode attends its cache in
-    plain torch instead."""
+    card, its plain version on the CPU, differentiable through the
+    backward kernels (:class:`~repro_torch.kernels.flash_attention.
+    FlashAttention`); under ``no_grad`` one forward launch.  ``kv_len``
+    (padded caches) has no kernel route and raises; the model's decode
+    attends its cache in plain torch instead."""
     if kv_len is not None:
         raise NotImplementedError("attention with kv_len has no kernel "
                                   "route; decode attends its cache in "
                                   "models.layers")
-    o, _ = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=causal, window=window, q_offset=q_offset,
-                           scale=scale)
-    return o
+    return FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal, window, q_offset,
+                                scale)
 
 
 def ssd(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int = 256,

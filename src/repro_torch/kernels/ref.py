@@ -2,7 +2,8 @@
 
 Same functions as the CUDA kernels of ``csrc/*.cu``, written as ordinary
 tensor algebra (formulas: ``repro/kernels/sim_step.py``,
-``mask_gemm.py``, ``flash_attention.py`` and ``ssd_scan.py``).  The
+``mask_gemm.py``, ``flash_attention.py`` (forward and backward) and
+``ssd_scan.py``).  The
 kernel wrappers of :mod:`repro_torch.kernels` run these for CPU tensors;
 tests and ``chip_smoke.py`` hold the CUDA kernels against them on the
 card.  Nothing on the main path uses them when a card is present, except
@@ -20,7 +21,9 @@ import torch
 __all__ = ["fused_step_update_ref", "fused_decision_ref", "tile_live",
            "dense_from_csc", "frontier_epilogue", "backward_epilogue",
            "frontier_step_ref", "backward_step_ref", "flash_attention_ref",
-           "ssd_scan_ref", "attention_ref", "ssd_ref", "NEG_INF"]
+           "flash_attention_dq_ref", "flash_attention_dkv_ref",
+           "flash_attention_bwd_ref", "ssd_scan_ref", "attention_ref",
+           "ssd_ref", "NEG_INF"]
 
 DEST_TILE = 128
 
@@ -158,6 +161,89 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
     o = acc / torch.where(l == 0.0, 1.0, l)
     lse = m + torch.log(torch.clamp(l, min=1e-30))
     return o.to(q.dtype), lse
+
+
+def _bwd_tiles(q, k, v, do, lse, dsum, causal, window, q_offset, scale,
+               block_k):
+    """Per kv tile of ``block_k`` keys: ``(k0, qf, kt, p, ds)`` of the
+    recompute backward, float32, K and V repeated over each group:
+    ``p = exp(s - lse)`` on live entries and exactly 0 on masked ones,
+    ``ds = p * (dO V^T - dsum)``."""
+    hq, sq, d = q.shape[1], q.shape[2], q.shape[3]
+    group = hq // k.shape[1]
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    dof = do.float()
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    for k0 in range(0, k.shape[2], block_k):
+        kt = kf[:, :, k0:k0 + block_k]
+        k_pos = torch.arange(k0, k0 + kt.shape[2], device=q.device)
+        mask = _attention_mask(q_pos, k_pos, causal, window)
+        s = (qf * scale) @ kt.transpose(-1, -2)
+        p = torch.where(mask, torch.exp(s - lse), 0.0)
+        dp = dof @ vf[:, :, k0:k0 + block_k].transpose(-1, -2)
+        yield k0, qf, kt, p, p * (dp - dsum)
+
+
+def flash_attention_dq_ref(q, k, v, do, lse, dsum, *, causal: bool = True,
+                           window=None, q_offset: int = 0, scale=None,
+                           block_k: int = 64):
+    """Plain version of the dq kernel: ``dq = sum over kv tiles of ds K
+    scale``, float32, returned in q's dtype.  ``lse`` and ``dsum`` (B,
+    Hq, Sq, 1) float32; shapes and positions as
+    :func:`flash_attention_ref`."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for _, _, kt, _, ds in _bwd_tiles(q, k, v, do, lse, dsum, causal,
+                                      window, q_offset, scale, block_k):
+        dq += (ds @ kt) * scale
+    return dq.to(q.dtype)
+
+
+def flash_attention_dkv_ref(q, k, v, do, lse, dsum, *, causal: bool = True,
+                            window=None, q_offset: int = 0, scale=None,
+                            block_k: int = 64):
+    """Plain version of the dk/dv kernel: per q head, ``dk = ds^T Q
+    scale`` and ``dv = p^T dO``, each (B, Hq, Skv, D) float32 (the caller
+    sums them over each kv group)."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    b, hq, _, d = q.shape
+    shape = (b, hq, k.shape[2], d)
+    dkh = torch.zeros(shape, dtype=torch.float32, device=q.device)
+    dvh = torch.zeros(shape, dtype=torch.float32, device=q.device)
+    dof = do.float()
+    for k0, qf, kt, p, ds in _bwd_tiles(q, k, v, do, lse, dsum, causal,
+                                        window, q_offset, scale, block_k):
+        n = kt.shape[2]
+        dkh[:, :, k0:k0 + n] = (ds.transpose(-1, -2) @ qf) * scale
+        dvh[:, :, k0:k0 + n] = p.transpose(-1, -2) @ dof
+    return dkh, dvh
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            window=None, q_offset: int = 0, scale=None,
+                            block_k: int = 64):
+    """``(dq, dk, dv)`` of the flash-attention backward, the recompute
+    scheme of the reference's ``_bwd_impl``: ``D = rowsum(dO o)``, then
+    :func:`flash_attention_dq_ref` and :func:`flash_attention_dkv_ref`,
+    dk and dv summed over each kv group.  Float32 arithmetic; dq in q's
+    dtype, dk and dv in k's.  ``o`` and ``lse`` are the forward's.
+
+    One difference from the reference: ``p`` is 0 on masked entries.  The
+    reference takes ``exp(-1e30 - lse)``, which is 1 on the masked entries
+    of a row with no live key (its lse is -1e30) and gives that row a
+    gradient although its output is the constant 0."""
+    b, hq, _, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale,
+              block_k=block_k)
+    dsum = (do.float() * o.float()).sum(-1, keepdim=True)
+    dq = flash_attention_dq_ref(q, k, v, do, lse, dsum, **kw)
+    dkh, dvh = flash_attention_dkv_ref(q, k, v, do, lse, dsum, **kw)
+    dk = dkh.view(b, hkv, hq // hkv, skv, d).sum(2).to(k.dtype)
+    dv = dvh.view(b, hkv, hq // hkv, skv, d).sum(2).to(v.dtype)
+    return dq, dk, dv
 
 
 def ssd_scan_ref(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int,

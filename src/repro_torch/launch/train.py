@@ -1,0 +1,95 @@
+"""Training launcher of the port: the entry point around
+:class:`repro_torch.train.Trainer`, on the card unless ``--device cpu``.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+      --reduced --device cpu --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+      --full --seq 2048 --batch 8 --steps 20
+
+The data is the reference's synthetic LM stream and the weights are
+random, drawn from ``--seed``.  Checkpoints land in ``--ckpt-dir``;
+running again resumes exactly (the step, the data and the weights' seed
+are functions of the saved step).  The learning rate follows the
+reference launcher's cosine schedule (warmup ``min(20, steps // 10 +
+1)``).  The kernels are built before the first step.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from .._device import resolve_device
+from ..configs import ARCHS, get_arch
+from ..data import DataConfig
+from ..optim import AdamWConfig, cosine_schedule
+from ..train.train_step import TrainStepConfig
+from ..train.trainer import DEFAULT_CKPT_DIR, Trainer, TrainerConfig
+
+__all__ = ["main", "train"]
+
+
+def train(arch: str, *, full: bool = False, steps: int = 200, seq: int = 128,
+          batch: int = 4, lr: float = 1e-3,
+          ckpt_dir: str = str(DEFAULT_CKPT_DIR), ckpt_every: int = 100,
+          grad_compress: bool = False, seed: int = 0, log_every: int = 10,
+          device=None, fault_hook=None):
+    """Build the trainer and run it to ``steps``; returns ``(trainer,
+    state)``."""
+    device = resolve_device(device)
+    cfg = get_arch(arch) if full else get_arch(arch).reduced()
+    data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                      memory_tokens=(cfg.vision.n_image_tokens
+                                     if cfg.vision else 0),
+                      d_model=cfg.d_model)
+    trainer = Trainer(
+        cfg, data,
+        TrainerConfig(total_steps=steps, checkpoint_every=ckpt_every,
+                      checkpoint_dir=ckpt_dir, log_every=log_every),
+        TrainStepConfig(
+            optimizer=AdamWConfig(lr=cosine_schedule(
+                lr, warmup=min(20, steps // 10 + 1), total=steps)),
+            grad_compress=grad_compress),
+        device=device, fault_hook=fault_hook)
+    if device.type == "cuda":
+        from ..kernels._build import extension
+        extension()                     # the kernels' build is set-up
+    return trainer, trainer.run(seed=seed)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=sorted(ARCHS), required=True)
+    size = ap.add_mutually_exclusive_group()
+    size.add_argument("--full", action="store_true",
+                      help="the published config")
+    size.add_argument("--reduced", action="store_true",
+                      help="CPU-sized variant of the same family (default)")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=str(DEFAULT_CKPT_DIR))
+    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--grad-compress", action="store_true",
+                    help="error-feedback int8 gradient compression")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card; 'cpu' to run "
+                         "the kernels' plain versions on the CPU)")
+    args = ap.parse_args(argv)
+    trainer, state = train(
+        args.arch, full=args.full, steps=args.steps, seq=args.seq,
+        batch=args.batch, lr=args.lr, ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every, grad_compress=args.grad_compress,
+        seed=args.seed, device=args.device)
+    hist = trainer.history
+    if hist:
+        ms = sorted(h.seconds for h in hist)[len(hist) // 2] * 1e3
+        print(f"trained {trainer.cfg.name} to step {int(state['step'])}: "
+              f"loss {hist[0].loss:.4f} -> {hist[-1].loss:.4f}, median "
+              f"{ms:.1f} ms per step on {trainer.device}")
+    return trainer, state
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,8 @@
 """The model substrate of the port: GQA attention and Mamba-2 SSD
-blocks, the decoder and the serving bundle."""
+blocks, the decoder, the loss and the bundle."""
 
-from .model import ModelBundle, build, unsupported
+from .model import ModelBundle, build, loss_fn, unsupported
 from .transformer import Model, forward, layer_plan
 
 __all__ = ["Model", "ModelBundle", "build", "forward", "layer_plan",
-           "unsupported"]
+           "loss_fn", "unsupported"]

@@ -4,11 +4,13 @@ attention with its serve caches, the dense MLP and the initialisers.
 Counterpart of ``repro/models/layers.py`` (GQA only; MLA and the
 cross-attention kinds are not ported yet).  Blocks are ``nn.Module``s
 whose parameters keep the reference's names, shapes and dtype
-(``cfg.param_dtype``); matrices are cast to the activation dtype at use,
-as there.  Attention runs prefill through the flash-attention kernel
-(:func:`repro_torch.kernels.ops.attention`) and writes the cache; decode
-attends the cache in plain torch, as the reference does outside any
-kernel, and updates the cache tensors in place.
+(``cfg.param_dtype``) and are trainable; serving runs under
+``torch.no_grad``.  Matrices are cast to the activation dtype at use, as
+there.  Attention runs training and prefill through the flash-attention
+kernels (:func:`repro_torch.kernels.ops.attention`, differentiable), and
+prefill writes the cache; decode attends the cache in plain torch, as
+the reference does outside any kernel, and updates the cache tensors in
+place.
 """
 
 from __future__ import annotations
@@ -70,12 +72,16 @@ def rope(x, positions, theta: float):
 
 def cast_weight(module: nn.Module, name: str, dtype):
     """Parameter ``name`` of ``module`` in ``dtype``.  The reference casts
-    a matrix to the activation dtype at every use; here the cast is made
-    once and reused until the parameter changes (same values, one launch
-    and one pass over the weights less per use)."""
+    a matrix to the activation dtype at every use.  With autograd
+    recording a trainable weight, so is the cast here (gradients reach
+    the float32 weight); otherwise the cast is made once and reused until
+    the parameter changes (same values, one launch and one pass over the
+    weights less per use)."""
     w = getattr(module, name)
     if w.dtype == dtype:
         return w
+    if w.requires_grad and torch.is_grad_enabled():
+        return w.to(dtype)
     cache = module.__dict__.setdefault("_casts", {})
     hit = cache.get(name)
     if (hit is None or hit[0] is not w or hit[1] != w._version
@@ -97,13 +103,12 @@ def truncated_normal(shape, dtype, device, generator, scale=None,
         nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
                               generator=generator)
         t.mul_(std)
-    return nn.Parameter(t.to(dtype), requires_grad=False)
+    return nn.Parameter(t.to(dtype))
 
 
 def constant(shape, value, dtype, device):
     """A parameter tensor filled with ``value`` (norm gains, biases)."""
-    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device))
 
 
 def _project(h, w):
@@ -134,10 +139,11 @@ class Attention(nn.Module):
 
     def forward(self, x, *, positions, mode: str, cache=None, window=None,
                 cache_slots=None, rope_tab=None):
-        """mode 'prefill' (positions (S,); returns the cache) or 'decode'
+        """mode 'train' (positions (S,); causal, the config's window, no
+        cache), 'prefill' (positions (S,); returns the cache) or 'decode'
         (S = 1, positions (B, 1); cache updated in place); ``rope_tab``
         the positions' :func:`rope_table` where the caller has it.
-        Returns ``(y (B, S, M), cache)``."""
+        Returns ``(y (B, S, M), cache)``, the cache None in training."""
         cfg = self.cfg
         b, s, _ = x.shape
         hq, dh = self.wq.shape[1], self.wq.shape[2]
@@ -149,14 +155,17 @@ class Attention(nn.Module):
             rope_tab = rope_table(positions, dh, cfg.rope_theta, x.device)
         q = apply_rope(q, rope_tab)
         k = apply_rope(k, rope_tab)
-        if mode == "prefill":
+        if mode == "train":
+            out = ops.attention(q, k, v, causal=True, window=window)
+            new_cache = None
+        elif mode == "prefill":
             out = ops.attention(q, k, v, causal=True, window=window)
             new_cache = self._prefill_cache(k, v, s, window, cache_slots)
         elif mode == "decode":
             out, new_cache = self._decode(q, k, v, positions, cache, window)
         else:
-            raise ValueError(f"mode {mode!r}: the port serves 'prefill' and "
-                             f"'decode' (training is not ported yet)")
+            raise ValueError(f"mode {mode!r}: 'train', 'prefill' or "
+                             f"'decode'")
         y = out.transpose(1, 2).reshape(b, s, hq * dh) \
             @ cast_weight(self, "wo", out.dtype).reshape(hq * dh, -1)
         return y, new_cache

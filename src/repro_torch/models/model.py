@@ -1,7 +1,8 @@
 """Public model API of the port: ``build(cfg)`` -> ModelBundle with init,
-prefill, decode_step and concat_caches.
+loss, prefill, decode_step and concat_caches, and ``loss_fn``.
 
-Counterpart of ``repro/models/model.py`` for serving.  ``params`` is the
+Counterpart of ``repro/models/model.py`` (no MTP head or memory inputs:
+their families are not ported).  ``params`` is the
 :class:`~repro_torch.models.transformer.Model` (an ``nn.Module``).  The
 batch is axis 0 of every cache leaf, so ``concat_caches`` concatenates
 there (the reference needs ``cache_logical_axes`` to find it under its
@@ -18,7 +19,7 @@ from .._device import resolve_device
 from ..configs.base import ArchConfig
 from .transformer import Model, forward
 
-__all__ = ["ModelBundle", "build", "unsupported"]
+__all__ = ["ModelBundle", "build", "loss_fn", "unsupported"]
 
 
 def unsupported(cfg: ArchConfig) -> list[str]:
@@ -33,6 +34,27 @@ def unsupported(cfg: ArchConfig) -> list[str]:
     return missing
 
 
+def loss_fn(cfg: ArchConfig, params: Model, batch) -> tuple:
+    """Next-token cross-entropy plus the aux loss (0 for dense models):
+    ``(loss, {"ce": ..., "aux": ...})``.  ``batch["tokens"]`` (B, S); the
+    target of position i is token i + 1, the last position is masked, and
+    ``ce = mean over the mask of (logsumexp(logits) - logits[target])``
+    in float32.  A gather takes the place of the reference's one-hot
+    contraction, which it equals (that form exists to keep vocab-sharded
+    logits sharded)."""
+    tokens = batch["tokens"]
+    out = forward(params, tokens, mode="train")
+    logits = out["logits"]
+    targets = torch.roll(tokens, -1, dims=1).long()
+    mask = torch.ones(tokens.shape, dtype=torch.float32,
+                      device=logits.device)
+    mask[:, -1] = 0.0
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets[..., None])[..., 0]
+    ce = ((lse - gold) * mask).sum() / mask.sum().clamp(min=1.0)
+    return ce + out["aux"], {"ce": ce, "aux": out["aux"]}
+
+
 @dataclass
 class ModelBundle:
     cfg: ArchConfig
@@ -43,6 +65,10 @@ class ModelBundle:
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(int(seed))
         return Model(self.cfg, device=device, generator=gen)
+
+    def loss(self, params: Model, batch):
+        """:func:`loss_fn` of this bundle's config."""
+        return loss_fn(self.cfg, params, batch)
 
     @torch.no_grad()
     def prefill(self, params: Model, tokens, *, cache_slots=None):

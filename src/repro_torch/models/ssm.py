@@ -72,8 +72,7 @@ class SSDBlock(nn.Module):
         self.conv_w = tn((ssm.d_conv, conv_dim), fan_in_dims=(0,))
         self.conv_b = const((conv_dim,), 0.0)
         self.a_log = nn.Parameter(
-            torch.log(torch.linspace(1.0, 16.0, h, device=device)).to(dt),
-            requires_grad=False)
+            torch.log(torch.linspace(1.0, 16.0, h, device=device)).to(dt))
         self.dt_bias = const((h,), 0.0)
         self.d_skip = const((h,), 1.0)
         self.gate_norm = const((d_inner,), 1.0)
@@ -102,9 +101,12 @@ class SSDBlock(nn.Module):
                              .float()).to(x.dtype)
             pad = max(0, ssm.d_conv - 1 - s)
             new_conv = F.pad(xbc, (0, 0, pad, 0))[:, -(ssm.d_conv - 1):]
+        elif mode == "train":
+            raise NotImplementedError(
+                "training through the SSD has no backward kernel (the "
+                "reference has none either); see ROADMAP queue 1")
         else:
-            raise ValueError(f"mode {mode!r}: the port serves 'prefill' and "
-                             f"'decode' (training is not ported yet)")
+            raise ValueError(f"mode {mode!r}: 'prefill' or 'decode'")
 
         xs, bmat, cmat = torch.split(xbc_act, [d_inner, gn, gn], dim=-1)
         xs = xs.reshape(b, -1, h, ssm.head_dim)

@@ -2,12 +2,16 @@
 (GQA attention or the Mamba-2 SSD) with an optional dense MLP, between
 the embedding and the (tied) LM head.
 
-Counterpart of ``repro/models/transformer.py`` for the serve modes
-``prefill`` and ``decode``.  The reference scans a stacked layer axis;
-here the blocks are an ``nn.ModuleList`` and the cache a list with one
-``{"mixer": ...}`` entry per layer.  ``layer_plan`` is kept so that the
-reference's (prefix | scanned body | suffix) parameter trees can be
-mapped onto the list (see :mod:`repro_torch.convert`).
+Counterpart of ``repro/models/transformer.py`` for the modes ``train``
+(dense GQA models), ``prefill`` and ``decode``.  The reference scans a
+stacked layer axis; here the blocks are an ``nn.ModuleList`` and the
+cache a list with one ``{"mixer": ...}`` entry per layer.  With
+``cfg.remat`` each block trains under activation checkpointing
+(``torch.utils.checkpoint``, non-reentrant), the reference's
+``jax.checkpoint`` of its scanned body: only block inputs are kept, and
+the backward recomputes each block's forward.  ``layer_plan`` is kept so
+that the reference's (prefix | scanned body | suffix) parameter trees
+can be mapped onto the list (see :mod:`repro_torch.convert`).
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from .layers import (MLP, Attention, cast_weight, rms_norm, rope_table,
@@ -106,22 +111,32 @@ class Model(nn.Module):
             Block(cfg, kind, device=device, generator=generator)
             for kind in plan.kinds)
         self.final_norm = nn.Parameter(
-            torch.ones((cfg.d_model,), dtype=torch.float32, device=device),
-            requires_grad=False)
+            torch.ones((cfg.d_model,), dtype=torch.float32, device=device))
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
 
+def _train_block(block: Block, h, positions, rope_tab):
+    return block(h, mode="train", positions=positions, cache=None,
+                 cache_slots=None, rope_tab=rope_tab)[0]
+
+
 def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
             cache=None, cache_slots=None):
     """tokens: (B, S) integer tensor on the model's device.  mode
-    'prefill' or 'decode' (then ``positions`` (B, 1) and the cache list
-    are required).  Returns ``{"logits": (B, S, V) float32, "cache":
-    [per-layer {"mixer": ...}]}``."""
+    'train', 'prefill' or 'decode' (then ``positions`` (B, 1) and the
+    cache list are required).  Returns ``{"logits": (B, S, V) float32,
+    "aux": 0.0 (no MoE is ported)}`` plus ``"cache": [per-layer {"mixer":
+    ...}]`` outside training.  Training a model with SSD blocks raises
+    ``NotImplementedError``: the SSD has no backward kernel."""
     cfg = model.cfg
     _, s = tokens.shape
+    if mode == "train" and any(b.kind == "ssd" for b in model.blocks):
+        raise NotImplementedError(
+            f"{cfg.name}: training through the SSD has no backward kernel "
+            f"(the reference has none either); see ROADMAP queue 1")
     h = F.embedding(tokens, model.embed).to(torch.bfloat16)
     if positions is None:
         positions = torch.arange(s, device=tokens.device)
@@ -129,6 +144,11 @@ def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
                       tokens.device) if "attn" in cfg.pattern else None)
     new_cache = []
     for i, block in enumerate(model.blocks):
+        if mode == "train":
+            h = (checkpoint(_train_block, block, h, positions, tab,
+                            use_reentrant=False) if cfg.remat
+                 else _train_block(block, h, positions, tab))
+            continue
         h, c = block(h, mode=mode, positions=positions,
                      cache=cache[i] if cache is not None else None,
                      cache_slots=cache_slots, rope_tab=tab)
@@ -137,5 +157,9 @@ def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
     head = (cast_weight(model, "embed", hf.dtype).T if cfg.tie_embeddings
             else cast_weight(model, "lm_head", hf.dtype))
     logits = (hf @ head).float()
-    return {"logits": logits, "cache": new_cache}
+    out = {"logits": logits,
+           "aux": torch.zeros((), dtype=torch.float32, device=h.device)}
+    if mode != "train":
+        out["cache"] = new_cache
+    return out
 

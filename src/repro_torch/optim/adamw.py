@@ -1,0 +1,96 @@
+"""AdamW as plain functions on dicts of tensors (name -> tensor).
+
+Counterpart of ``repro/optim/adamw.py``, with its arithmetic: gradients
+clipped by their global norm (the square root of the summed float32
+squares), moments in ``state_dtype`` (bf16 for the 671B-scale configs),
+bias correction with the count after its increment, and ``p - lr *
+(update + weight_decay * p)`` on every leaf, embeddings and norm gains
+included.  ``torch.optim.AdamW`` orders decay and update differently and
+is not used.  Everything stays on the parameters' device: no host sync.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, NamedTuple
+
+import torch
+
+__all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update",
+           "global_norm", "cosine_schedule"]
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float | Callable[[torch.Tensor], torch.Tensor] = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    state_dtype: torch.dtype = torch.float32
+
+
+class AdamWState(NamedTuple):
+    m: dict
+    v: dict
+    count: torch.Tensor      # int32 scalar on the parameters' device
+
+
+def adamw_init(params: dict, cfg: AdamWConfig = AdamWConfig()) -> AdamWState:
+    m = {k: torch.zeros_like(p, dtype=cfg.state_dtype)
+         for k, p in params.items()}
+    v = {k: torch.zeros_like(p, dtype=cfg.state_dtype)
+         for k, p in params.items()}
+    device = next(iter(params.values())).device if params else "cpu"
+    return AdamWState(m, v, torch.zeros((), dtype=torch.int32,
+                                        device=device))
+
+
+def global_norm(tree: dict) -> torch.Tensor:
+    """sqrt of the sum over leaves of the float32 sum of squares."""
+    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
+                          for t in tree.values()))
+
+
+def adamw_update(grads: dict, state: AdamWState, params: dict,
+                 cfg: AdamWConfig = AdamWConfig()):
+    """Returns ``(new_params, new_state, {"grad_norm", "lr"})``; new
+    tensors, the inputs are left as they were."""
+    count = state.count + 1
+    gnorm = global_norm(grads)
+    scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                         max=1.0) if cfg.grad_clip else 1.0)
+    lr = cfg.lr(count) if callable(cfg.lr) else cfg.lr
+    cf = count.float()
+    b1c = 1.0 - cfg.b1 ** cf
+    b2c = 1.0 - cfg.b2 ** cf
+    new_p, new_m, new_v = {}, {}, {}
+    for key, p in params.items():
+        g = grads[key].float() * scale
+        m32 = state.m[key].float() * cfg.b1 + g * (1 - cfg.b1)
+        v32 = state.v[key].float() * cfg.b2 + g * g * (1 - cfg.b2)
+        update = (m32 / b1c) / (torch.sqrt(v32 / b2c) + cfg.eps)
+        p32 = p.float()
+        p_new = p32 - lr * (update + cfg.weight_decay * p32)
+        new_p[key] = p_new.to(p.dtype)
+        new_m[key] = m32.to(cfg.state_dtype)
+        new_v[key] = v32.to(cfg.state_dtype)
+    lr_t = torch.as_tensor(lr, dtype=torch.float32, device=count.device)
+    return new_p, AdamWState(new_m, new_v, count), \
+        {"grad_norm": gnorm, "lr": lr_t}
+
+
+def cosine_schedule(peak_lr: float, warmup: int, total: int,
+                    floor: float = 0.1):
+    """``lr(step)``: linear warmup to ``peak_lr``, then a cosine down to
+    ``floor * peak_lr`` at ``total``; float32 on the step's device."""
+    def lr(step: torch.Tensor) -> torch.Tensor:
+        step = step.float()
+        warm = peak_lr * step / max(warmup, 1)
+        t = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = peak_lr * (floor + (1 - floor) * 0.5
+                         * (1 + torch.cos(math.pi * t)))
+        return torch.where(step < warmup, warm, cos)
+    return lr

@@ -1,0 +1,118 @@
+"""The train step: loss and gradients through the model (flash-attention
+forward and backward kernels, remat per block), optional error-feedback
+int8 compression of the gradients, then AdamW.
+
+Counterpart of ``repro/train/train_step.py`` on one device.  The train
+state is a dict ``{"params": {name: tensor}, "opt": {"m": {...}, "v":
+{...}, "count": int32}, "step": int32[, "ef": {...}]}``, the parameter
+names those of :class:`~repro_torch.models.Model`.  ``step_fn(state,
+batch) -> (state, metrics)`` returns a new state and leaves the old one
+as it was, as the reference's jitted step does (it donates the old one).
+The mesh, ``zero1`` and the ``REPRO_PERF`` microbatching belong to the
+multi-device slice: ``zero1=True`` raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from .._device import resolve_device
+from ..configs.base import ArchConfig
+from ..models import Model, build
+from ..optim import (AdamWConfig, AdamWState, adamw_init, adamw_update,
+                     ef_compress_grads, ef_init)
+
+__all__ = ["TrainStepConfig", "init_train_state", "train_state_from_model",
+           "make_train_step"]
+
+
+@dataclass(frozen=True)
+class TrainStepConfig:
+    optimizer: AdamWConfig = AdamWConfig()
+    grad_compress: bool = False       # error-feedback int8
+    zero1: bool = False               # multi-device slice; raises here
+
+
+def _opt_cfg(cfg: ArchConfig, ts: TrainStepConfig) -> AdamWConfig:
+    """bf16 AdamW moments for bf16-param archs, as the reference."""
+    if cfg.bf16_params and ts.optimizer.state_dtype == torch.float32:
+        return dataclasses.replace(ts.optimizer, state_dtype=torch.bfloat16)
+    return ts.optimizer
+
+
+def train_state_from_model(cfg: ArchConfig, model: Model,
+                           ts: TrainStepConfig = TrainStepConfig()) -> dict:
+    """A fresh train state holding ``model``'s weights (shared, not
+    copied)."""
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    state = {"params": params,
+             "opt": adamw_init(params, _opt_cfg(cfg, ts))._asdict(),
+             "step": torch.zeros((), dtype=torch.int32,
+                                 device=model.device)}
+    if ts.grad_compress:
+        state["ef"] = ef_init(params)
+    return state
+
+
+def init_train_state(cfg: ArchConfig, seed: int = 0,
+                     ts: TrainStepConfig = TrainStepConfig(),
+                     device=None) -> dict:
+    """A fresh train state with weights from a ``torch.Generator`` seeded
+    with ``seed``, on ``device`` (default: the card)."""
+    return train_state_from_model(cfg, build(cfg).init(seed, device), ts)
+
+
+def _bind(model: Model, params: dict) -> dict:
+    """Make ``params`` the model's parameters (sharing their storage) as
+    leaves that record gradients; returns them by name."""
+    bound = {}
+    for name, t in params.items():
+        owner, _, leaf = name.rpartition(".")
+        p = nn.Parameter(t)
+        model.get_submodule(owner)._parameters[leaf] = p
+        bound[name] = p
+    return bound
+
+
+def make_train_step(cfg: ArchConfig, device=None,
+                    ts: TrainStepConfig = TrainStepConfig()):
+    """``step_fn(state, batch) -> (new_state, metrics)`` on ``device``
+    (default: the card).  ``batch["tokens"]`` (B, S) integer tensor or
+    array; metrics ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr``,
+    scalar tensors on the device."""
+    if ts.zero1:
+        raise NotImplementedError("zero1 shards the optimizer over a "
+                                  "mesh: the multi-device slice (ROADMAP "
+                                  "queue 1)")
+    device = resolve_device(device)
+    bundle = build(cfg)
+    model = Model(cfg, device="meta")      # weights bound at every step
+    opt_cfg = _opt_cfg(cfg, ts)
+
+    def step_fn(state, batch):
+        params = _bind(model, state["params"])
+        tokens = torch.as_tensor(batch["tokens"], device=device)
+        loss, metrics = bundle.loss(model, {"tokens": tokens})
+        names = list(params)
+        grads = dict(zip(names, torch.autograd.grad(
+            loss, [params[n] for n in names])))
+        if ts.grad_compress:
+            grads, new_ef = ef_compress_grads(grads, state["ef"])
+        opt = AdamWState(state["opt"]["m"], state["opt"]["v"],
+                         state["opt"]["count"])
+        new_params, new_opt, opt_metrics = adamw_update(
+            grads, opt, state["params"], opt_cfg)
+        _bind(model, new_params)           # drop the old weights
+        new_state = {"params": new_params, "opt": new_opt._asdict(),
+                     "step": state["step"] + 1}
+        if ts.grad_compress:
+            new_state["ef"] = new_ef
+        metrics = {"loss": loss.detach(), "ce": metrics["ce"].detach(),
+                   "aux": metrics["aux"], **opt_metrics}
+        return new_state, metrics
+
+    return step_fn

@@ -47,7 +47,11 @@ def test_port_imports_neither_jax_nor_repro():
                 "repro_torch.configs.mamba2_130m",
                 "repro_torch.models.layers", "repro_torch.models.ssm",
                 "repro_torch.models.transformer", "repro_torch.models.model",
-                "repro_torch.serve.engine", "repro_torch.launch.serve"}
+                "repro_torch.serve.engine", "repro_torch.launch.serve",
+                "repro_torch.optim.adamw", "repro_torch.optim.compress",
+                "repro_torch.data.pipeline", "repro_torch.train.train_step",
+                "repro_torch.train.checkpoint", "repro_torch.train.trainer",
+                "repro_torch.launch.train"}
     assert expected <= set(res["modules"])
 
 
@@ -95,7 +99,8 @@ def test_mask_gemm_kernels_are_in_the_one_build():
     from repro_torch.kernels import _build
     names = [p.name for p in _build.SOURCES]
     assert names == ["sim_step.cu", "mask_gemm.cu", "flash_attention.cu",
-                     "ssd_scan.cu", "sim_step_binding.cpp"]
+                     "flash_attention_bwd.cu", "ssd_scan.cu",
+                     "sim_step_binding.cpp"]
     for path in _build.SOURCES:
         text = path.read_text()
         assert ("#include <torch/" in text or "#include <ATen/" in text) \

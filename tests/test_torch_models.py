@@ -135,7 +135,7 @@ def test_params_from_numpy_keeps_every_weight():
         ref_cfg) + cfg.d_model * (1 + 2 * cfg.n_layers)  # + the norms
     np_params = _reference("smollm-135m")[4]
     np.testing.assert_array_equal(
-        model.blocks[1].mixer.wq.numpy(),
+        model.blocks[1].mixer.wq.detach().numpy(),
         np_params["body"]["pos0"]["mixer"]["wq"][1])
     assert model.lm_head is None                 # tied embeddings
 
