@@ -6,9 +6,12 @@ one small binding file, the only one that includes PyTorch headers.  The
 kernels are compiled with ``nvcc`` for ``sm_90a`` (Hopper) into
 ``build/torch_ext/`` at the repository root, which ``.gitignore`` lists;
 ninja compiles the sources in parallel.
-The first build in a fresh checkout took about 20 s with the simulator
-kernels alone (Python 3.12, torch 2.11, CUDA 12.8, on the host of an
-H100); later builds in the same checkout reuse the cache.
+The first build in a fresh checkout took 18.5 s for all seven sources
+(Python 3.12, torch 2.11, CUDA 12.8, on the host of an H100,
+``chip_smoke.py``); later builds in the same checkout reuse the cache.
+The extension links against nothing beyond PyTorch and the CUDA
+runtime: the tensor-core kernels copy with ``cp.async``, not TMA, so
+they need no tensor-map descriptors from ``libcuda`` (``-lcuda``).
 
 Nothing here runs at import time: a machine without ``nvcc`` imports the
 package and runs the kernels' plain versions on CPU tensors.  A failed
@@ -26,7 +29,8 @@ __all__ = ["extension", "SOURCES", "BUILD_DIR"]
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "sim_step.cu", _CSRC / "mask_gemm.cu",
            _CSRC / "flash_attention.cu", _CSRC / "flash_attention_bwd.cu",
-           _CSRC / "ssd_scan.cu", _CSRC / "sim_step_binding.cpp")
+           _CSRC / "flash_attention_bwd_fma.cu", _CSRC / "ssd_scan.cu",
+           _CSRC / "sim_step_binding.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 

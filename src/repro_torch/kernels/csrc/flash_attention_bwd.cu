@@ -1,5 +1,8 @@
-// Flash-attention backward for Hopper (sm_90a): dq, and dk / dv per q
-// head, of causal / sliding-window / GQA attention, any Sq and Skv.
+// Flash-attention backward for Hopper (sm_90a) on the tensor cores: dq,
+// and dk / dv per q head, of causal / sliding-window / GQA attention with
+// bf16 q, k, v, dO, any Sq and Skv.  (float32 operands go to the
+// CUDA-core kernels of flash_attention_bwd_fma.cu; the binding chooses by
+// dtype.)
 //
 // Replaces the Pallas TPU kernels repro/kernels/flash_attention.py:152
 // (_dq_kernel) and :192 (_dkv_kernel), both via _bwd_impl.  They are the
@@ -10,37 +13,69 @@
 // and no (Sq, Skv) tensor ever reaches device memory.  There, a
 // sequential grid axis carried dq (kv innermost) or dk, dv (q innermost)
 // in VMEM.  Blocks on Hopper run in no order, so here
-//   * flash_dq_kernel (#6): one block per (batch, q head, 64-row q tile)
-//     walks the live 64-key tiles with dq in registers;
+//   * flash_dq_kernel (#6): one block (one warpgroup) per (batch, q head,
+//     64-row q tile) walks the live 64-key tiles with dq in registers;
 //   * flash_dkv_kernel (#7): one block per (batch, q head, 64-key tile)
-//     walks the live 32-row q tiles with dk and dv in registers, and
-//     writes them per q head in float32; the wrapper sums each kv group
-//     in a fixed order, as the reference sums outside its kernel.
+//     walks the live q tiles (64 rows; 32 at D = 128) with dk and dv in
+//     registers, and writes them per q head in float32; the wrapper sums
+//     each kv group in a fixed order, as the reference sums outside its
+//     kernel.
 // No float atomics anywhere, so a training step repeats bitwise.
 //
-// What bounds them on the H100: operations.  At smollm-135m's training
-// shape (B = 8, Hq = 9, S = 2048, D = 64, causal) each kernel recomputes
-// q k^T and dO v^T (bf16 operands: 38.7 GFLOP, 0.04 ms on the tensor
-// cores at 989 TFLOP/s) and forms one (#6: ds k, 19.3 GFLOP) or two (#7:
-// p^T dO and ds^T q, 38.7 GFLOP) products on float32 p or ds, which the
-// reference keeps in float32: 0.29 and 0.58 ms at the float32 67
-// TFLOP/s.  Against that, the bytes (about 100 MB) take 0.03 ms.  These
-// kernels do every product in float32 FMAs and leave the tensor cores
-// for later.  What the design does:
-//   * Every product is register-tiled as in the forward kernel
-//     (flash_attention.cu): a thread owns a 4 x 8 (#6) or 4 x 4 (#7)
-//     tile of the scores and a 4 x D/8 tile of each accumulator, and
-//     reads its operands as float4 rows of float32 shared memory, staged
-//     transposed where the product runs over the head dim and row-major
-//     where it runs over the keys or queries; rows are padded by 4 floats.
-//   * #7 walks 32-row q tiles so that its eight staged tiles fit a
-//     block's shared memory at D = 128 (157.7 KB; 88.1 KB at D = 64).
-//   * Operands are read in their dtype (bf16 on the train path), four
-//     elements per load, and converted to float32 in shared memory; the
-//     arithmetic is float32; dq is written in q's dtype.
-//   * Tiles that the reference's _tile_live rules out are never visited;
-//     the ragged edges of Sq and Skv are masked in the kernel.  Under a
-//     causal mask the heaviest tiles are launched first.
+// Precision.  The reference computes every product in float32.  q k^T and
+// dO v^T have bf16 operands: wgmma forms the products exactly and sums
+// them into float32 accumulators; the softmax scale is applied to the
+// float32 sum (q scale is not bf16-exact at D = 32 or 128).  p = 2^(s
+// scale log2 e - lse log2 e) is formed in float32 by one FMA and the
+// special-function unit's ex2 (relative error about 2^-22).  The products
+// on p and ds (#6: ds k; #7: p^T dO and ds^T q) have one float32
+// operand.  Each float32 x splits exactly into three bf16 terms (split3
+// below: hi is x cut to bf16, mid the same of x - hi, lo of x - hi - mid;
+// exact for |x| above 2^-110), so three wgmma products against the bf16
+// operand are the float32 product's exact parts.  No TF32, and p or ds
+// is never cast to a single bf16.  What the kernels do not match is the
+// rounding of the sums: the tensor cores add a wgmma's products into the
+// float32 accumulator by their own rules, not as a chain of float32 FMAs.
+// At smollm's training shape dk and dv lie 3.4e-5 and 6.6e-5 from a
+// float64 recompute, the plain float32 version 1.0e-5 and 1.7e-5; a
+// build with expf in place of ex2 (-DFLASH_BWD_EXPF) errs as much (dk
+// alike to four digits, dv 6.57e-5) and takes 20 % (#6) and 10 % (#7)
+// longer (chip_flash_bwd_exp.py on an H100 80GB HBM3 at 700 W).  Phase
+// 14 holds them to 2e-4 + 2e-5 |d|.
+//
+// What bounds them on the H100.  At smollm-135m's training shape (B = 8,
+// Hq = 9, S = 2048, D = 64, causal) #6 runs 38.7 GFLOP of bf16 products
+// and 19.3 GFLOP of float32-by-bf16 ones, three tensor-core products each
+// (97 GFLOP of tensor-core work, 0.098 ms at 989 TFLOP/s); #7 38.7 and
+// 38.7 (155 GFLOP, 0.156 ms).  The bytes (70 and 127 MB) take 0.02 and
+// 0.04 ms.  Measured, they take about twice that (0.21 and 0.36 ms on an
+// H100 80GB HBM3 at 700 W, chip_smoke.py phase 14), and what holds them
+// there is the instruction count, not the tensor cores: beside their 20
+// and 32 wgmma the kernels' SASS holds some 1,400 (#6) and 1,900 (#7)
+// instructions (the exp, the mask, ds, the split, addresses; phase 14
+// prints the counts).  Cutting them (the exp to two instructions,
+// the split's conversions) cut the time in proportion; occupancy and
+// ring depth did not move it.  What the design does:
+//   * Every product is a wgmma m64nNk16 with float32 accumulators: S and
+//     dP (#6), S^T and dP^T (#7) with both operands in shared memory; the
+//     split products with A (the three bf16 terms of ds, p^T or ds^T)
+//     from registers, where the accumulator of S or dP already lies in
+//     the A-fragment layout, and B (K in #6, dO and Q in #7) read
+//     transposed from the same tile through an MN-major descriptor.
+//   * Tiles live in shared memory in bf16, in the 128-byte swizzle (64
+//     at D = 32) that the descriptors name.  The tile that the block walks
+//     (K and V in #6; Q, dO, lse and dsum in #7) arrives through a ring
+//     of two stages: cp.async into the swizzled layout, completion counted
+//     by one mbarrier per stage, the next tile's copy in flight while the
+//     current one is used.  Q and dO (#6), K and V (#7) stay resident.
+//   * The elementwise work runs while wgmma groups are in flight: p while
+//     dP is computed, and in #7 ds while dV is.  The mask is applied only
+//     on tiles that the diagonal, the window edge or the ragged Sq / Skv
+//     edge crosses; tiles that the reference's _tile_live rules out are
+//     never visited.  Under a causal mask the heaviest tiles are launched
+//     first.
+//   * One warpgroup per block, 2 to 3 blocks per SM by registers (150
+//     and 212 a thread at D = 64, no spills).
 // Masking: p is set to 0 on every masked entry.  The reference computes
 // exp(-1e30 - lse) there, which is 1 on a row with no live key (its lse
 // is -1e30) and gives that row a spurious gradient; a row that sees at
@@ -54,96 +89,332 @@
 
 namespace {
 
-constexpr int kThreads = 128;   // 16 row groups x 8 column groups
-constexpr int kBQ = 64;         // #6: query rows per block
-constexpr int kBK = 64;         // #6: keys per kv tile; #7: keys per block
-constexpr int kLD = 64 + 4;     // padded row of a transposed 64-wide tile
-constexpr int kBQ7 = 32;        // #7: query rows per q tile
-constexpr int kLD7 = kBQ7 + 4;  // padded row of a transposed 32-wide tile
+using bf16 = __nv_bfloat16;
 
-// Four consecutive elements as loaded (one 16- or 8-byte load).
-template <typename T>
-struct Raw4;
-template <>
-struct Raw4<float> {
-  float4 v;
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kBM = 64;        // #6: q rows and keys a tile; #7: keys
+constexpr int kStages = 2;     // depth of the ring
+
+// ---------------------------------------------------------------------
+// Shared-memory tiles.  A tile of R rows of D bf16 is stored as D / C
+// column blocks of R rows x C columns (C = 64, rows of 128 bytes, the
+// 128-byte swizzle; C = 32 at D = 32, the 64-byte swizzle): the 16-byte
+// chunk c of row r of a block sits at chunk c ^ (r % 8) (c ^ (r / 2 % 4)).
+// Read with the rows along M or N and the columns along K, the tile is a
+// K-major wgmma operand; read with the rows along K and the columns along
+// N, the same bytes are an MN-major (transposed) one.
+
+template <int D>
+struct Swz {
+  static constexpr int kCols = D >= 64 ? 64 : 32;        // C
+  static constexpr int kRowBytes = 2 * kCols;
+  static constexpr int kAtom = 8 * kRowBytes;            // 8 rows
+  static constexpr uint64_t kLayout = D >= 64 ? 1 : 2;   // SW128, SW64
+  static constexpr int kBlocks = D / kCols;
 };
-template <>
-struct Raw4<__nv_bfloat16> {
-  uint2 v;
-};
 
-__device__ __forceinline__ void load4(Raw4<float>& r, const float* p) {
-  r.v = *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void load4(Raw4<__nv_bfloat16>& r,
-                                      const __nv_bfloat16* p) {
-  r.v = *reinterpret_cast<const uint2*>(p);
-}
-__device__ __forceinline__ void zero4(Raw4<float>& r) {
-  r.v = make_float4(0.f, 0.f, 0.f, 0.f);
-}
-__device__ __forceinline__ void zero4(Raw4<__nv_bfloat16>& r) {
-  r.v = make_uint2(0u, 0u);
-}
-__device__ __forceinline__ float4 to_f32(const Raw4<float>& r) { return r.v; }
-__device__ __forceinline__ float4 to_f32(const Raw4<__nv_bfloat16>& r) {
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.v.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.v.y));
-  return make_float4(a.x, a.y, b.x, b.y);
+// Byte offset of 16-byte chunk ch (of D / 8) of row r in an R-row tile.
+template <int D, int R>
+__device__ __forceinline__ uint32_t chunk_off(int r, int ch) {
+  using G = Swz<D>;
+  constexpr int cpr = G::kCols / 8;
+  const int sw = G::kCols == 64 ? (r & 7) : ((r >> 1) & 3);
+  return (ch / cpr) * R * G::kRowBytes + r * G::kRowBytes +
+         (((ch % cpr) ^ sw) << 4);
 }
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// The K-major operand of columns 16 kk .. 16 kk + 15 of an R-row tile.
+template <int D, int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  using G = Swz<D>;
+  const int col = 16 * kk;
+  return make_desc(tile + (col / G::kCols) * R * G::kRowBytes +
+                       (col % G::kCols) * 2,
+                   16, G::kAtom, G::kLayout);
 }
 
-// Column c (0..7) of column group cg in a 64-wide tile: 4 cg .. 4 cg + 3,
-// then 32 further.
-__device__ __forceinline__ int col_of(int cg, int c) {
-  return 4 * cg + (c & 3) + 32 * (c >> 2);
+// The MN-major operand of rows 16 kc .. 16 kc + 15 (along K) and column
+// block blk (along N) of an R-row tile.
+template <int D, int R>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kc, int blk) {
+  using G = Swz<D>;
+  return make_desc(tile + blk * R * G::kRowBytes + 16 * kc * G::kRowBytes,
+                   G::kAtom, G::kAtom, G::kLayout);
 }
 
-// Rows [r0, r0 + ROWS) of a row-major (n, D) matrix into shared memory as
-// float32 times mul: transposed into t[d * ldt + r] and, if rm is given,
-// row-major into rm[r * (D + 4) + d].  Rows at or past n are zero.  Lanes
-// run along the rows, so that a warp's transposed stores hit consecutive
-// banks.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void stage(const T* __restrict__ src, int r0,
-                                      int n, float mul, float* t, int ldt,
-                                      float* rm, int tid) {
-  constexpr int CH = ROWS * D / 4 / kThreads;
-  static_assert(CH * 4 * kThreads == ROWS * D, "tile does not split");
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------
+// Asynchronous copies and their barriers.
+
+// 16 bytes global -> shared; zero-filled where !ok (src is not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Arrive on bar once every cp.async this thread has started has landed.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// cp.async writes through the generic proxy, wgmma reads through the
+// async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + R) of a row-major (n, D) bf16 matrix into a swizzled
+// tile; rows at or past n are zero.
+template <int D, int R>
+__device__ __forceinline__ void load_tile(uint32_t tile,
+                                          const bf16* __restrict__ src,
+                                          int r0, int n, int tid) {
+  constexpr int cpr = D / 8;
+  constexpr int per = R * cpr / kThreads;
+  static_assert(per * kThreads == R * cpr, "tile does not split");
 #pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    const int e = tid + c * kThreads;
-    const int r = e % ROWS;
-    const int d = 4 * (e / ROWS);
-    Raw4<T> raw;
-    if (r0 + r < n)
-      load4(raw, src + static_cast<int64_t>(r0 + r) * D + d);
-    else
-      zero4(raw);
-    float4 f = to_f32(raw);
-    f.x *= mul;
-    f.y *= mul;
-    f.z *= mul;
-    f.w *= mul;
-    t[(d + 0) * ldt + r] = f.x;
-    t[(d + 1) * ldt + r] = f.y;
-    t[(d + 2) * ldt + r] = f.z;
-    t[(d + 3) * ldt + r] = f.w;
-    if (rm != nullptr)
-      *reinterpret_cast<float4*>(rm + r * (D + 4) + d) = f;
+  for (int i = 0; i < per; ++i) {
+    const int e = tid + i * kThreads;
+    const int r = e / cpr, ch = e % cpr;
+    const bool ok = r0 + r < n;
+    cp_async16(tile + chunk_off<D, R>(r, ch),
+               src + (ok ? static_cast<int64_t>(r0 + r) * D + ch * 8 : 0),
+               ok);
   }
 }
+
+// ---------------------------------------------------------------------
+// wgmma.  Accumulators of an m64nN tile: thread t of the warpgroup holds
+// rows 16 (t / 32) + t % 32 / 4 + 8 i and columns 8 n8 + 2 (t % 4) + j in
+// d[4 n8 + 2 i + j].
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed groups are still in flight.
+template <int N = 0>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving register reads and writes across a
+// wgmma that is still in flight.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (+)= A B, m64n64k16, A and B from shared memory (K-major);
+// acc = 0 overwrites d.
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
+                                          uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d += A B, m64n64k16, A from registers (four bf16x2), B from shared
+// memory MN-major (transposed).
+__device__ __forceinline__ void mma_rs_n64(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// d (+)= A B, m64n32k16, A and B from shared memory (K-major);
+// acc = 0 overwrites d.
+__device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint64_t a,
+                                          uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d += A B, m64n32k16, A from registers (four bf16x2), B from shared
+// memory MN-major (transposed).
+__device__ __forceinline__ void mma_rs_n32(float (&d)[16],
+                                          const uint32_t (&a)[4],
+                                          uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15"
+      "}, {%16, %17, %18, %19}, %20, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// The wgmma of an accumulator's width, N = 64 or 32: #7's q step at
+// D = 128, and the split products' width at D = 32.
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a,
+                                       uint64_t b, int acc) {
+  mma_ss_n64(d, a, b, acc);
+}
+__device__ __forceinline__ void mma_ss(float (&d)[16], uint64_t a,
+                                       uint64_t b, int acc) {
+  mma_ss_n32(d, a, b, acc);
+}
+__device__ __forceinline__ void mma_rs(float (&d)[32],
+                                       const uint32_t (&a)[4], uint64_t b) {
+  mma_rs_n64(d, a, b);
+}
+__device__ __forceinline__ void mma_rs(float (&d)[16],
+                                       const uint32_t (&a)[4], uint64_t b) {
+  mma_rs_n32(d, a, b);
+}
+
+// The upper halves of a and b, the bf16 values that they truncate to,
+// packed as a bf16x2 (a in the low half).
+__device__ __forceinline__ uint32_t upper2(float a, float b) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, 0x7632;\n"
+      : "=r"(d)
+      : "r"(__float_as_uint(a)), "r"(__float_as_uint(b)));
+  return d;
+}
+
+// x cut to its bf16 value (rounded toward zero), as a float.
+__device__ __forceinline__ float cut(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xFFFF0000u);
+}
+
+// The three bf16 terms of x0 and x1, each pair packed as a bf16x2 (x0 in
+// the low half): hi = cut(x), mid = cut(x - hi), lo = cut(x - hi - mid).
+// The differences are exact in float32 and hold 16 and then 8 bits of x's
+// 24, so x = hi + mid + lo exactly for |x| >= 2^-110 (7.7e-34); below
+// that, lo is a bf16 subnormal and drops x's bits under 2^-133.  Rounding
+// toward zero splits as exactly as rounding to nearest would, with no
+// conversion instructions.
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  hi = upper2(x0, x1);
+  const float r0 = x0 - cut(x0), r1 = x1 - cut(x1);
+  mid = upper2(r0, r1);
+  lo = upper2(r0 - cut(r0), r1 - cut(r1));
+}
+
+// The wgmma A fragments of columns 16 kc .. 16 kc + 15 of an m64nN
+// accumulator tile x, split: f[part][kc] for part hi, mid, lo.  The
+// accumulator layout of columns 16 kc .. is the A layout of k16.
+template <int N>
+__device__ __forceinline__ void split_frags(const float (&x)[N / 2],
+                                            uint32_t (&f)[3][N / 16][4]) {
+#pragma unroll
+  for (int kc = 0; kc < N / 16; ++kc)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int at = 4 * (2 * kc + (r >> 1)) + 2 * (r & 1);
+      split3(x[at], x[at + 1], f[0][kc][r], f[1][kc][r], f[2][kc][r]);
+    }
+}
+
+template <int M>
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[3][M][4]) {
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int kc = 0; kc < M; ++kc) fence_regs(f[p][kc]);
+}
+
+#ifndef FLASH_BWD_EXPF
+// p = 2^x, x = s scale log2 e - lse log2 e: kExpUnit scales the softmax
+// scale and lse, exp_p is the special-function unit's ex2 (one
+// instruction, relative error about 2^-22; results below 2^-126 are
+// flushed to 0).
+constexpr float kExpUnit = 1.4426950408889634f;  // log2 e
+__device__ __forceinline__ float exp_p(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+#else
+// Built with -DFLASH_BWD_EXPF (chip_flash_bwd_exp.py only): p = expf(s
+// scale - lse), the exp of the CUDA-core kernels, to hold the ex2 against.
+constexpr float kExpUnit = 1.f;
+__device__ __forceinline__ float exp_p(float x) { return expf(x); }
+#endif
 
 __device__ __forceinline__ bool live(int q_pos, int k_pos, int skv,
                                      int causal, int window) {
@@ -151,309 +422,404 @@ __device__ __forceinline__ bool live(int q_pos, int k_pos, int skv,
          (window <= 0 || k_pos > q_pos - window);
 }
 
-// Shared memory of #6: Qt, dOt, Kt, Vt [D][kLD] (q scaled), Ks [kBK]
-// [D + 4], dSt [kBK][kLD] (ds transposed: dSt[key][row]).
-__host__ __device__ constexpr int dq_smem_bytes(int d) {
-  return 4 * (4 * d * kLD + kBK * (d + 4) + kBK * kLD);
+// ---------------------------------------------------------------------
+// #6: dq.  Shared memory: Q, dO (64 x D), then per stage K, V (64 x D),
+// then one mbarrier per stage; 1024 bytes of slack align the tiles.
+
+template <int D>
+__host__ __device__ constexpr int dq_smem_bytes() {
+  return 1024 + (2 + 2 * kStages) * kBM * D * 2 + 8 * kStages;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dout,
                 const float* __restrict__ lse,
-                const float* __restrict__ dsum, T* __restrict__ dq, int hq,
-                int hkv, int sq, int skv, int causal, int window,
+                const float* __restrict__ dsum, bf16* __restrict__ dq,
+                int hq, int hkv, int sq, int skv, int causal, int window,
                 int q_offset, float scale, int n_qtiles) {
-  constexpr int LDR = D + 4;
-  constexpr int DG = D / 32;       // 4-wide output groups per thread
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;
-  float* dot = qt + D * kLD;
-  float* kt = dot + D * kLD;
-  float* vt = kt + D * kLD;
-  float* ks = vt + D * kLD;
-  float* dst = ks + kBK * LDR;
+  using G = Swz<D>;
+  constexpr int kTile = kBM * D * 2;
+  constexpr int NB = G::kBlocks, NC = G::kCols;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t s_q = base, s_do = base + kTile;
+  const uint32_t bars = base + (2 + 2 * kStages) * kTile;
+  auto s_k = [&](int st) { return base + (2 + 2 * st) * kTile; };
+  auto s_v = [&](int st) { return base + (3 + 2 * st) * kTile; };
 
   const int tid = threadIdx.x;
-  const int rg = tid / 8;          // rows 4 rg .. 4 rg + 3
-  const int cg = tid % 8;          // keys col_of(cg, 0..7)
+  const int warp = tid / 32, lane = tid % 32;
   const int iq = causal ? n_qtiles - 1 - blockIdx.x : blockIdx.x;
   const int ih = blockIdx.y;
   const int ib = blockIdx.z;
   const int ikv = ih / (hq / hkv);
-  const int q0 = iq * kBQ;
-
+  const int q0 = iq * kBM;
   const int64_t q_head = (static_cast<int64_t>(ib) * hq + ih) * sq;
-  const T* kp = k + (static_cast<int64_t>(ib) * hkv + ikv) * skv * D;
-  const T* vp = v + (static_cast<int64_t>(ib) * hkv + ikv) * skv * D;
-
-  stage<T, D, kBQ>(q + q_head * D, q0, sq, scale, qt, kLD, nullptr, tid);
-  stage<T, D, kBQ>(dout + q_head * D, q0, sq, 1.f, dot, kLD, nullptr, tid);
-  float row_lse[4], row_d[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + 4 * rg + r;
-    row_lse[r] = row < sq ? lse[q_head + row] : 0.f;
-    row_d[r] = row < sq ? dsum[q_head + row] : 0.f;
-  }
-
-  float acc[4][4 * DG];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4 * DG; ++c) acc[r][c] = 0.f;
+  const bf16* kp = k + (static_cast<int64_t>(ib) * hkv + ikv) * skv * D;
+  const bf16* vp = v + (static_cast<int64_t>(ib) * hkv + ikv) * skv * D;
 
   // the live kv range of this q tile (the reference's _tile_live)
   const int q_first = q_offset + q0;
-  const int q_last = q_first + kBQ - 1;
+  const int q_last = q_first + kBM - 1;
   const int k_end = causal ? min(skv, q_last + 1) : skv;
-  int k_begin = 0;
-  if (window > 0) k_begin = max(0, q_first - window + 1) / kBK * kBK;
+  const int k_begin =
+      window > 0 ? max(0, q_first - window + 1) / kBM * kBM : 0;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBM - 1) / kBM
+                                      : 0;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous tile has been consumed
-    stage<T, D, kBK>(kp, k0, skv, 1.f, kt, kLD, ks, tid);
-    stage<T, D, kBK>(vp, k0, skv, 1.f, vt, kLD, nullptr, tid);
-    __syncthreads();
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) mbar_init(bars + 8 * st, kThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (n_tiles > 0) {  // Q and dO land with the first kv tile
+    load_tile<D, kBM>(s_q, q + q_head * D, q0, sq, tid);
+    load_tile<D, kBM>(s_do, dout + q_head * D, q0, sq, tid);
+  }
+  for (int t = 0; t < kStages - 1 && t < n_tiles; ++t) {
+    load_tile<D, kBM>(s_k(t), kp, k_begin + t * kBM, skv, tid);
+    load_tile<D, kBM>(s_v(t), vp, k_begin + t * kBM, skv, tid);
+    cp_async_arrive(bars + 8 * t);
+  }
 
-    // s = (q scale) k^T and dp = dO v^T for rows 4 rg + r, keys
-    // col_of(cg, c)
-    float s[4][8], dp[4][8];
+  // this thread's rows of the tile: r_lo and r_lo + 8
+  const int r_lo = 16 * warp + lane / 4;
+  // p = exp(s scale - lse) = 2^(s scale log2 e - lse log2 e)
+  const float scale2 = scale * kExpUnit;
+  float row_lse[2], row_d[2];  // row_lse times kExpUnit
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r_lo + 8 * i;
+    row_lse[i] = row < sq ? lse[q_head + row] * kExpUnit : 0.f;
+    row_d[i] = row < sq ? dsum[q_head + row] : 0.f;
+  }
+  float acc[NB][NC / 2];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) s[r][c] = dp[r][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 qv = ld4(qt + d * kLD + 4 * rg);
-      const float4 ov = ld4(dot + d * kLD + 4 * rg);
-      const float4 ka = ld4(kt + d * kLD + 4 * cg);
-      const float4 kb = ld4(kt + d * kLD + 32 + 4 * cg);
-      const float4 va = ld4(vt + d * kLD + 4 * cg);
-      const float4 vb = ld4(vt + d * kLD + 32 + 4 * cg);
-      const float qr[4] = {qv.x, qv.y, qv.z, qv.w};
-      const float orow[4] = {ov.x, ov.y, ov.z, ov.w};
-      const float kc[8] = {ka.x, ka.y, ka.z, ka.w, kb.x, kb.y, kb.z, kb.w};
-      const float vc[8] = {va.x, va.y, va.z, va.w, vb.x, vb.y, vb.z, vb.w};
+  for (int b = 0; b < NB; ++b)
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          s[r][c] = fmaf(qr[r], kc[c], s[r][c]);
-          dp[r][c] = fmaf(orow[r], vc[c], dp[r][c]);
-        }
+    for (int c = 0; c < NC / 2; ++c) acc[b][c] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_begin + it * kBM;
+    const int st = it % kStages;
+    if (it + kStages - 1 < n_tiles) {
+      __syncthreads();  // every warp is done with the stage refilled here
+      const int nx = (it + kStages - 1) % kStages;
+      const int kn = k0 + (kStages - 1) * kBM;
+      load_tile<D, kBM>(s_k(nx), kp, kn, skv, tid);
+      load_tile<D, kBM>(s_v(nx), vp, kn, skv, tid);
+      cp_async_arrive(bars + 8 * nx);
     }
+    mbar_wait(bars + 8 * st, (it / kStages) & 1);
+    fence_proxy_async();
 
-    // ds = p (dp - D), p = exp(s - lse) on live entries, else 0; stored
-    // transposed: dSt[key][row]
+    // s = q k^T and dp = dO v^T: rows of the q tile, the tile's 64 keys
+    float s[32], dp[32];  // the first product overwrites them
+    wg_fence();
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int k_pos = k0 + col_of(cg, c);
-      float ds[4];
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss(s, desc_k<D, kBM>(s_q, kk), desc_k<D, kBM>(s_k(st), kk), kk);
+    wg_commit();
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const bool ok =
-            live(q_first + 4 * rg + r, k_pos, skv, causal, window);
-        const float p = ok ? expf(s[r][c] - row_lse[r]) : 0.f;
-        ds[r] = p * (dp[r][c] - row_d[r]);
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss(dp, desc_k<D, kBM>(s_do, kk), desc_k<D, kBM>(s_v(st), kk),
+             kk);
+    wg_commit();
+    fence_regs(dp);
+    wg_wait<1>();  // s is done; dp may still run
+    fence_regs(s);
+
+    // p on live entries, else 0, in place of s; the mask only where the
+    // diagonal, the window edge or the end of the keys crosses the tile
+    const bool edge = k0 + kBM > skv || (causal && q_first < k0 + kBM - 1) ||
+                      (window > 0 && k0 <= q_last - window);
+    if (edge) {
+#pragma unroll
+      for (int at = 0; at < 32; ++at) {  // at = 4 n8 + 2 i + j
+        const int i = at / 2 % 2;
+        s[at] = live(q_first + r_lo + 8 * i,
+                     k0 + 8 * (at / 4) + 2 * (lane % 4) + at % 2, skv,
+                     causal, window)
+                    ? exp_p(fmaf(s[at], scale2, -row_lse[i]))
+                    : 0.f;
       }
-      *reinterpret_cast<float4*>(dst + col_of(cg, c) * kLD + 4 * rg) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
+    } else {
+#pragma unroll
+      for (int at = 0; at < 32; ++at)
+        s[at] = exp_p(fmaf(s[at], scale2, -row_lse[at / 2 % 2]));
     }
-    __syncthreads();
+    wg_wait();
+    fence_regs(dp);
+    // ds = p (dp - D) in place of dp
+#pragma unroll
+    for (int at = 0; at < 32; ++at)
+      dp[at] = s[at] * (dp[at] - row_d[at / 2 % 2]);
 
-    // acc += ds k for rows 4 rg + r, dims 32 g + 4 cg + i
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      const float4 dv4 = ld4(dst + j * kLD + 4 * rg);
-      const float dr[4] = {dv4.x, dv4.y, dv4.z, dv4.w};
+    // dq += ds k: ds from registers in three bf16 terms, k transposed
+    uint32_t f[3][4][4];
+    split_frags<64>(dp, f);
+    wg_fence();
 #pragma unroll
-      for (int g = 0; g < DG; ++g) {
-        const float4 kv = ld4(ks + j * LDR + 32 * g + 4 * cg);
-        const float kc[4] = {kv.x, kv.y, kv.z, kv.w};
+    for (int kc = 0; kc < 4; ++kc)
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+      for (int part = 0; part < 3; ++part)
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            acc[r][4 * g + i] = fmaf(dr[r], kc[i], acc[r][4 * g + i]);
-      }
-    }
+        for (int b = 0; b < NB; ++b)
+          mma_rs(acc[b], f[part][kc], desc_mn<D, kBM>(s_k(st), kc, b));
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
+    fence_frags(f);
   }
 
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + 4 * rg + r;
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r_lo + 8 * i;
     if (row >= sq) continue;
+    bf16* dst = dq + (q_head + row) * D + 2 * (lane % 4);
 #pragma unroll
-    for (int g = 0; g < DG; ++g)
+    for (int b = 0; b < NB; ++b)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        store(&dq[(q_head + row) * D + 32 * g + 4 * cg + i],
-              acc[r][4 * g + i] * scale);
+      for (int n8 = 0; n8 < NC / 8; ++n8)
+        *reinterpret_cast<__nv_bfloat162*>(dst + b * NC + 8 * n8) =
+            __floats2bfloat162_rn(acc[b][4 * n8 + 2 * i] * scale,
+                                  acc[b][4 * n8 + 2 * i + 1] * scale);
   }
 }
 
-// Shared memory of #7: Kt, Vt [D][kLD], Qt, dOt [D][kLD7] (q scaled), Qs,
-// dOs [kBQ7][D + 4] (q scaled), Ps, dSs [kBQ7][kLD] (Ps[row][key]).
-__host__ __device__ constexpr int dkv_smem_bytes(int d) {
-  return 4 * (2 * d * kLD + 2 * d * kLD7 + 2 * kBQ7 * (d + 4) +
-              2 * kBQ7 * kLD);
+// ---------------------------------------------------------------------
+// #7: dk, dv per q head.  Shared memory: K, V (64 x D), then per stage Q,
+// dO (NQ x D), then per stage lse, dsum (NQ floats each), then one
+// mbarrier per stage.
+
+template <int D>
+__host__ __device__ constexpr int dkv_rows() {
+  return D == 128 ? 32 : 64;  // NQ: 64 rows spill registers at D = 128
 }
 
-template <typename T, int D>
+template <int D>
+__host__ __device__ constexpr int dkv_smem_bytes() {
+  return 1024 + 2 * kBM * D * 2 +
+         kStages * (2 * dkv_rows<D>() * D * 2 + 8 * dkv_rows<D>()) +
+         8 * kStages;
+}
+
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ dsum, float* __restrict__ dk,
                  float* __restrict__ dv, int hq, int hkv, int sq, int skv,
                  int causal, int window, int q_offset, float scale) {
-  constexpr int LDR = D + 4;
-  constexpr int DG = D / 32;
-  extern __shared__ __align__(16) float smem[];
-  float* kt = smem;
-  float* vt = kt + D * kLD;
-  float* qt = vt + D * kLD;
-  float* dot = qt + D * kLD7;
-  float* qs = dot + D * kLD7;
-  float* dos = qs + kBQ7 * LDR;
-  float* ps = dos + kBQ7 * LDR;
-  float* dss = ps + kBQ7 * kLD;
+  using G = Swz<D>;
+  constexpr int NQ = dkv_rows<D>();  // q rows a step
+  constexpr int kTileK = kBM * D * 2, kTileQ = NQ * D * 2;
+  constexpr int NB = G::kBlocks, NC = G::kCols;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t s_k = base, s_v = base + kTileK;
+  const uint32_t s_rows = base + 2 * kTileK + 2 * kStages * kTileQ;
+  const uint32_t bars = s_rows + kStages * 8 * NQ;
+  auto s_q = [&](int st) { return base + 2 * kTileK + 2 * st * kTileQ; };
+  auto s_do = [&](int st) { return s_q(st) + kTileQ; };
+  auto s_lse = [&](int st) { return s_rows + 8 * NQ * st; };
 
   const int tid = threadIdx.x;
-  const int rg = tid / 8;          // keys 4 rg .. 4 rg + 3
-  const int cg = tid % 8;          // q rows 4 cg .. 4 cg + 3 of a q tile
-  const int k0 = blockIdx.x * kBK; // under a causal mask the first key
-  const int ih = blockIdx.y;       // tiles see the most rows: first out
+  const int warp = tid / 32, lane = tid % 32;
+  const int k0 = blockIdx.x * kBM;  // under a causal mask the first key
+  const int ih = blockIdx.y;        // tiles see the most rows: first out
   const int ib = blockIdx.z;
   const int ikv = ih / (hq / hkv);
-
   const int64_t q_head = (static_cast<int64_t>(ib) * hq + ih) * sq;
   const int64_t kv_head = (static_cast<int64_t>(ib) * hkv + ikv) * skv;
-  stage<T, D, kBK>(k + kv_head * D, k0, skv, 1.f, kt, kLD, nullptr, tid);
-  stage<T, D, kBK>(v + kv_head * D, k0, skv, 1.f, vt, kLD, nullptr, tid);
-
-  float dk_acc[4][4 * DG], dv_acc[4][4 * DG];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4 * DG; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
+  const bf16* qp = q + q_head * D;
+  const bf16* dop = dout + q_head * D;
 
   // the live q rows of this kv tile: a query at position p sees key j
   // iff p >= j (causal) and p < j + window
-  const int k_last = min(skv, k0 + kBK) - 1;
+  const int k_last = min(skv, k0 + kBM) - 1;
   const int i_begin = causal ? max(0, k0 - q_offset) : 0;
   const int i_end =
       window > 0 ? min(sq, max(0, k_last + window - q_offset)) : sq;
+  const int n_tiles = i_end > i_begin ? (i_end - i_begin + NQ - 1) / NQ : 0;
 
-  for (int i0 = i_begin; i0 < i_end; i0 += kBQ7) {
-    __syncthreads();  // the previous q tile has been consumed
-    stage<T, D, kBQ7>(q + q_head * D, i0, sq, scale, qt, kLD7, qs, tid);
-    stage<T, D, kBQ7>(dout + q_head * D, i0, sq, 1.f, dot, kLD7, dos, tid);
-    float col_lse[4], col_d[4];
+  // lse (threads 0 ..) and dsum (64 ..) of rows [i0, i0 + NQ) into
+  // stage st; 0 past Sq
+  auto load_rows = [&](int st, int i0) {
+    const int t = tid % 64, row = i0 + t;
+    const bool ok = row < sq;
+    if (t < NQ)
+      cp_async4(s_lse(st) + 4 * (tid < 64 ? t : NQ + t),
+                (tid < 64 ? lse : dsum) + q_head + (ok ? row : 0), ok);
+  };
+
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) mbar_init(bars + 8 * st, kThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (n_tiles > 0) {  // K and V land with the first q tile
+    load_tile<D, kBM>(s_k, k + kv_head * D, k0, skv, tid);
+    load_tile<D, kBM>(s_v, v + kv_head * D, k0, skv, tid);
+  }
+  for (int t = 0; t < kStages - 1 && t < n_tiles; ++t) {
+    load_tile<D, NQ>(s_q(t), qp, i_begin + t * NQ, sq, tid);
+    load_tile<D, NQ>(s_do(t), dop, i_begin + t * NQ, sq, tid);
+    load_rows(t, i_begin + t * NQ);
+    cp_async_arrive(bars + 8 * t);
+  }
+
+  // this thread's keys of the tile: key_lo and key_lo + 8
+  const int key_lo = k0 + 16 * warp + lane / 4;
+  const float scale2 = scale * kExpUnit;  // p = exp_p(s scale2 - lse kExpUnit)
+  float dk_acc[NB][NC / 2], dv_acc[NB][NC / 2];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int row = i0 + 4 * cg + c;
-      col_lse[c] = row < sq ? lse[q_head + row] : 0.f;
-      col_d[c] = row < sq ? dsum[q_head + row] : 0.f;
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int c = 0; c < NC / 2; ++c) dk_acc[b][c] = dv_acc[b][c] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int i0 = i_begin + it * NQ;
+    const int st = it % kStages;
+    if (it + kStages - 1 < n_tiles) {
+      __syncthreads();  // every warp is done with the stage refilled here
+      const int nx = (it + kStages - 1) % kStages;
+      const int in = i0 + (kStages - 1) * NQ;
+      load_tile<D, NQ>(s_q(nx), qp, in, sq, tid);
+      load_tile<D, NQ>(s_do(nx), dop, in, sq, tid);
+      load_rows(nx, in);
+      cp_async_arrive(bars + 8 * nx);
     }
-    __syncthreads();
+    mbar_wait(bars + 8 * st, (it / kStages) & 1);
+    fence_proxy_async();
 
-    // s^T = k (q scale)^T and dp^T = v dO^T for keys 4 rg + r, rows
-    // 4 cg + c
-    float s[4][4], dp[4][4];
+    // s^T = k q^T and dp^T = v dO^T: the tile's keys, rows i0 ..
+    float s[NQ / 2], dp[NQ / 2];  // the first product overwrites them
+    wg_fence();
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss(s, desc_k<D, kBM>(s_k, kk), desc_k<D, NQ>(s_q(st), kk), kk);
+    wg_commit();
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 kv = ld4(kt + d * kLD + 4 * rg);
-      const float4 vv = ld4(vt + d * kLD + 4 * rg);
-      const float4 qv = ld4(qt + d * kLD7 + 4 * cg);
-      const float4 ov = ld4(dot + d * kLD7 + 4 * cg);
-      const float kr[4] = {kv.x, kv.y, kv.z, kv.w};
-      const float vr[4] = {vv.x, vv.y, vv.z, vv.w};
-      const float qc[4] = {qv.x, qv.y, qv.z, qv.w};
-      const float oc[4] = {ov.x, ov.y, ov.z, ov.w};
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss(dp, desc_k<D, kBM>(s_v, kk), desc_k<D, NQ>(s_do(st), kk), kk);
+    wg_commit();
+    fence_regs(dp);
+    wg_wait<1>();  // s^T is done; dp^T may still run
+    fence_regs(s);
+
+    // p^T in place of s^T
+    const bool edge = i0 + NQ > sq || k0 + kBM > skv ||
+                      (causal && q_offset + i0 < k0 + kBM - 1) ||
+                      (window > 0 && k0 <= q_offset + i0 + NQ - 1 - window);
+    // lse and dsum of this thread's columns 8 n8 + 2 (lane % 4) + j:
+    // float2 (lse[st][c], lse[st][c + 1]) at rows[4 n8 + lane % 4],
+    // dsum's NQ / 2 further; lse in units of log2
+    const float2* rows =
+        reinterpret_cast<const float2*>(smem_raw + (s_lse(st) - raw));
+    float col_lse[NQ / 4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[r][c] = fmaf(kr[r], qc[c], s[r][c]);
-          dp[r][c] = fmaf(vr[r], oc[c], dp[r][c]);
-        }
+    for (int n8 = 0; n8 < NQ / 8; ++n8) {
+      const float2 l = rows[4 * n8 + lane % 4];
+      col_lse[2 * n8] = l.x * kExpUnit;
+      col_lse[2 * n8 + 1] = l.y * kExpUnit;
     }
-
-    // p and ds, stored as Ps[row][key], dSs[row][key]
+    if (edge) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int row = i0 + 4 * cg + c;
-      float p[4], ds[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const bool ok = row < sq && live(q_offset + row, k0 + 4 * rg + r,
-                                         skv, causal, window);
-        p[r] = ok ? expf(s[r][c] - col_lse[c]) : 0.f;
-        ds[r] = p[r] * (dp[r][c] - col_d[c]);
+      for (int at = 0; at < NQ / 2; ++at) {  // at = 4 n8 + 2 i + j
+        const int col = 8 * (at / 4) + 2 * (lane % 4) + at % 2;
+        s[at] = i0 + col < sq && live(q_offset + i0 + col,
+                                      key_lo + 8 * (at / 2 % 2), skv,
+                                      causal, window)
+                    ? exp_p(fmaf(s[at], scale2,
+                                       -col_lse[2 * (at / 4) + at % 2]))
+                    : 0.f;
       }
-      *reinterpret_cast<float4*>(ps + (4 * cg + c) * kLD + 4 * rg) =
-          make_float4(p[0], p[1], p[2], p[3]);
-      *reinterpret_cast<float4*>(dss + (4 * cg + c) * kLD + 4 * rg) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
+    } else {
+#pragma unroll
+      for (int at = 0; at < NQ / 2; ++at)
+        s[at] = exp_p(
+            fmaf(s[at], scale2, -col_lse[2 * (at / 4) + at % 2]));
     }
-    __syncthreads();
 
-    // dv += p^T dO and dk += ds^T (q scale) for keys 4 rg + r, dims
-    // 32 g + 4 cg + i
-#pragma unroll 4
-    for (int i = 0; i < kBQ7; ++i) {
-      const float4 pv = ld4(ps + i * kLD + 4 * rg);
-      const float4 sv = ld4(dss + i * kLD + 4 * rg);
-      const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
-      const float sr[4] = {sv.x, sv.y, sv.z, sv.w};
+    // dv += p^T dO: p^T from registers in three bf16 terms, dO transposed
+    uint32_t fp[3][NQ / 16][4], fs[3][NQ / 16][4];
+    split_frags<NQ>(s, fp);
+    wg_fence();
 #pragma unroll
-      for (int g = 0; g < DG; ++g) {
-        const float4 ov = ld4(dos + i * LDR + 32 * g + 4 * cg);
-        const float4 qv = ld4(qs + i * LDR + 32 * g + 4 * cg);
-        const float oc[4] = {ov.x, ov.y, ov.z, ov.w};
-        const float qc[4] = {qv.x, qv.y, qv.z, qv.w};
+    for (int kc = 0; kc < NQ / 16; ++kc)
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+      for (int part = 0; part < 3; ++part)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            dv_acc[r][4 * g + e] = fmaf(pr[r], oc[e], dv_acc[r][4 * g + e]);
-            dk_acc[r][4 * g + e] = fmaf(sr[r], qc[e], dk_acc[r][4 * g + e]);
-          }
+        for (int b = 0; b < NB; ++b)
+          mma_rs(dv_acc[b], fp[part][kc], desc_mn<D, NQ>(s_do(st), kc, b));
+    wg_commit();
+#pragma unroll
+    for (int b = 0; b < NB; ++b) fence_regs(dv_acc[b]);
+    wg_wait<1>();  // dp^T is done; dv may still run
+    fence_regs(dp);
+
+    // ds^T in place of dp^T, while dv runs; then dk += ds^T q
+#pragma unroll
+    for (int n8 = 0; n8 < NQ / 8; ++n8) {
+      const float2 dd = rows[NQ / 2 + 4 * n8 + lane % 4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int at = 4 * n8 + 2 * i;
+        dp[at] = s[at] * (dp[at] - dd.x);
+        dp[at + 1] = s[at + 1] * (dp[at + 1] - dd.y);
       }
     }
+    split_frags<NQ>(dp, fs);
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < NQ / 16; ++kc)
+#pragma unroll
+      for (int part = 0; part < 3; ++part)
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          mma_rs(dk_acc[b], fs[part][kc], desc_mn<D, NQ>(s_q(st), kc, b));
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      fence_regs(dk_acc[b]);
+      fence_regs(dv_acc[b]);
+    }
+    fence_frags(fp);
+    fence_frags(fs);
   }
 
   // per q head, float32; keys no q row sees get 0
   const int64_t out_head = (static_cast<int64_t>(ib) * hq + ih) * skv;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int key = k0 + 4 * rg + r;
+  for (int i = 0; i < 2; ++i) {
+    const int key = key_lo + 8 * i;
     if (key >= skv) continue;
+    const int64_t at = (out_head + key) * D + 2 * (lane % 4);
 #pragma unroll
-    for (int g = 0; g < DG; ++g) {
-      const int64_t at = (out_head + key) * D + 32 * g + 4 * cg;
-      *reinterpret_cast<float4*>(dk + at) =
-          make_float4(dk_acc[r][4 * g], dk_acc[r][4 * g + 1],
-                      dk_acc[r][4 * g + 2], dk_acc[r][4 * g + 3]);
-      *reinterpret_cast<float4*>(dv + at) =
-          make_float4(dv_acc[r][4 * g], dv_acc[r][4 * g + 1],
-                      dv_acc[r][4 * g + 2], dv_acc[r][4 * g + 3]);
-    }
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int n8 = 0; n8 < NC / 8; ++n8) {
+        const int c = 4 * n8 + 2 * i;
+        *reinterpret_cast<float2*>(dk + at + b * NC + 8 * n8) =
+            make_float2(dk_acc[b][c] * scale, dk_acc[b][c + 1] * scale);
+        *reinterpret_cast<float2*>(dv + at + b * NC + 8 * n8) =
+            make_float2(dv_acc[b][c], dv_acc[b][c + 1]);
+      }
   }
 }
 
 struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const bf16* dout;
   const float* lse;
   const float* dsum;
   int b, hq, hkv, sq, skv, causal, window, q_offset;
@@ -461,65 +827,33 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
-cudaError_t launch_dq(const Args& a, void* dq) {
-  constexpr int bytes = dq_smem_bytes(D);
+template <int D>
+cudaError_t launch_dq(const Args& a, bf16* dq) {
+  constexpr int bytes = dq_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
-  const int n_qtiles = (a.sq + kBQ - 1) / kBQ;
+  const int n_qtiles = (a.sq + kBM - 1) / kBM;
   const dim3 grid(n_qtiles, a.hq, a.b);
-  flash_dq_kernel<T, D><<<grid, kThreads, bytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.dsum, static_cast<T*>(dq), a.hq, a.hkv, a.sq, a.skv, a.causal,
-      a.window, a.q_offset, a.scale, n_qtiles);
+  flash_dq_kernel<D><<<grid, kThreads, bytes, a.stream>>>(
+      a.q, a.k, a.v, a.dout, a.lse, a.dsum, dq, a.hq, a.hkv, a.sq, a.skv,
+      a.causal, a.window, a.q_offset, a.scale, n_qtiles);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const Args& a, float* dk, float* dv) {
-  constexpr int bytes = dkv_smem_bytes(D);
+  constexpr int bytes = dkv_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.skv + kBK - 1) / kBK, a.hq, a.b);
-  flash_dkv_kernel<T, D><<<grid, kThreads, bytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.dsum, dk, dv, a.hq, a.hkv, a.sq, a.skv, a.causal, a.window,
-      a.q_offset, a.scale);
+  const dim3 grid((a.skv + kBM - 1) / kBM, a.hq, a.b);
+  flash_dkv_kernel<D><<<grid, kThreads, bytes, a.stream>>>(
+      a.q, a.k, a.v, a.dout, a.lse, a.dsum, dk, dv, a.hq, a.hkv, a.sq,
+      a.skv, a.causal, a.window, a.q_offset, a.scale);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_dq(int d, const Args& a, void* dq) {
-  switch (d) {
-    case 32:
-      return launch_dq<T, 32>(a, dq);
-    case 64:
-      return launch_dq<T, 64>(a, dq);
-    case 128:
-      return launch_dq<T, 128>(a, dq);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-cudaError_t dispatch_dkv(int d, const Args& a, float* dk, float* dv) {
-  switch (d) {
-    case 32:
-      return launch_dkv<T, 32>(a, dk, dv);
-    case 64:
-      return launch_dkv<T, 64>(a, dk, dv);
-    case 128:
-      return launch_dkv<T, 128>(a, dk, dv);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 bool valid(int b, int hq, int hkv, int sq, int skv) {
@@ -528,20 +862,31 @@ bool valid(int b, int hq, int hkv, int sq, int skv) {
 
 }  // namespace
 
-// q, dout (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D), contiguous, one dtype
-// (bfloat16 if is_bf16, else float32); lse and dsum (B, Hq, Sq) float32;
-// dq like q.  window <= 0 means none.  D in {32, 64, 128}.
+// q, dout (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D), contiguous bfloat16,
+// rows 16-byte aligned; lse and dsum (B, Hq, Sq) float32; dq like q.
+// window <= 0 means none.  D in {32, 64, 128}.
 cudaError_t flash_attention_dq(const void* q, const void* k, const void* v,
                                const void* dout, const float* lse,
-                               const float* dsum, void* dq, int is_bf16,
-                               int b, int hq, int hkv, int sq, int skv,
-                               int d, int causal, int window, int q_offset,
-                               float scale, cudaStream_t stream) {
+                               const float* dsum, void* dq, int b, int hq,
+                               int hkv, int sq, int skv, int d, int causal,
+                               int window, int q_offset, float scale,
+                               cudaStream_t stream) {
   if (!valid(b, hq, hkv, sq, skv)) return cudaErrorInvalidValue;
-  const Args a{q, k, v, dout, lse, dsum, b, hq, hkv, sq, skv, causal,
-               window, q_offset, scale, stream};
-  return is_bf16 ? dispatch_dq<__nv_bfloat16>(d, a, dq)
-                 : dispatch_dq<float>(d, a, dq);
+  const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+               static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+               lse, dsum, b, hq, hkv, sq, skv, causal, window, q_offset,
+               scale, stream};
+  bf16* out = static_cast<bf16*>(dq);
+  switch (d) {
+    case 32:
+      return launch_dq<32>(a, out);
+    case 64:
+      return launch_dq<64>(a, out);
+    case 128:
+      return launch_dq<128>(a, out);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // Inputs as flash_attention_dq; dk and dv (B, Hq, Skv, D) float32, per q
@@ -549,13 +894,22 @@ cudaError_t flash_attention_dq(const void* q, const void* k, const void* v,
 cudaError_t flash_attention_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const float* lse,
                                 const float* dsum, float* dk, float* dv,
-                                int is_bf16, int b, int hq, int hkv, int sq,
-                                int skv, int d, int causal, int window,
-                                int q_offset, float scale,
-                                cudaStream_t stream) {
+                                int b, int hq, int hkv, int sq, int skv,
+                                int d, int causal, int window, int q_offset,
+                                float scale, cudaStream_t stream) {
   if (!valid(b, hq, hkv, sq, skv)) return cudaErrorInvalidValue;
-  const Args a{q, k, v, dout, lse, dsum, b, hq, hkv, sq, skv, causal,
-               window, q_offset, scale, stream};
-  return is_bf16 ? dispatch_dkv<__nv_bfloat16>(d, a, dk, dv)
-                 : dispatch_dkv<float>(d, a, dk, dv);
+  const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+               static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+               lse, dsum, b, hq, hkv, sq, skv, causal, window, q_offset,
+               scale, stream};
+  switch (d) {
+    case 32:
+      return launch_dkv<32>(a, dk, dv);
+    case 64:
+      return launch_dkv<64>(a, dk, dv);
+    case 128:
+      return launch_dkv<128>(a, dk, dv);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

@@ -1,7 +1,8 @@
 // PyTorch binding of the port's kernels: the simulator-step kernels in
 // sim_step.cu, the mask+GEMM kernels in mask_gemm.cu, the flash-attention
-// forward in flash_attention.cu and its backward in
-// flash_attention_bwd.cu, and the SSD chunked scan in ssd_scan.cu.
+// forward in flash_attention.cu, its backward in flash_attention_bwd.cu
+// (bfloat16, tensor cores) and flash_attention_bwd_fma.cu (float32, CUDA
+// cores; chosen here by dtype), and the SSD chunked scan in ssd_scan.cu.
 //
 // The only file of the extension that includes PyTorch's headers, and
 // only the few it needs (the tensor, the pybind11 tensor caster and the
@@ -58,20 +59,37 @@ cudaError_t flash_attention_fwd(const void* q, const void* k, const void* v,
                                 int causal, int window, int q_offset,
                                 float scale, cudaStream_t stream);
 
+// bfloat16 operands: the tensor-core kernels of flash_attention_bwd.cu.
 cudaError_t flash_attention_dq(const void* q, const void* k, const void* v,
                                const void* dout, const float* lse,
-                               const float* dsum, void* dq, int is_bf16,
-                               int b, int hq, int hkv, int sq, int skv,
-                               int d, int causal, int window, int q_offset,
-                               float scale, cudaStream_t stream);
+                               const float* dsum, void* dq, int b, int hq,
+                               int hkv, int sq, int skv, int d, int causal,
+                               int window, int q_offset, float scale,
+                               cudaStream_t stream);
 
 cudaError_t flash_attention_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const float* lse,
                                 const float* dsum, float* dk, float* dv,
-                                int is_bf16, int b, int hq, int hkv, int sq,
-                                int skv, int d, int causal, int window,
-                                int q_offset, float scale,
-                                cudaStream_t stream);
+                                int b, int hq, int hkv, int sq, int skv,
+                                int d, int causal, int window, int q_offset,
+                                float scale, cudaStream_t stream);
+
+// float32 operands: the CUDA-core kernels of flash_attention_bwd_fma.cu.
+cudaError_t flash_attention_dq_fma(const float* q, const float* k,
+                                   const float* v, const float* dout,
+                                   const float* lse, const float* dsum,
+                                   float* dq, int b, int hq, int hkv, int sq,
+                                   int skv, int d, int causal, int window,
+                                   int q_offset, float scale,
+                                   cudaStream_t stream);
+
+cudaError_t flash_attention_dkv_fma(const float* q, const float* k,
+                                    const float* v, const float* dout,
+                                    const float* lse, const float* dsum,
+                                    float* dk, float* dv, int b, int hq,
+                                    int hkv, int sq, int skv, int d,
+                                    int causal, int window, int q_offset,
+                                    float scale, cudaStream_t stream);
 
 cudaError_t ssd_scan_fwd(const void* x, const float* dt, const float* a_log,
                          const void* bm, const void* cm, const float* d_skip,
@@ -358,14 +376,25 @@ void flash_dq(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
   const c10::cuda::CUDAGuard guard(q.device());
   const cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
   if (b * hq * sq * skv == 0) return;
-  const cudaError_t err = flash_attention_dq(
-      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-      lse.data_ptr<float>(), dsum.data_ptr<float>(), dq.data_ptr(),
-      q.scalar_type() == at::kBFloat16, static_cast<int>(b),
-      static_cast<int>(hq), static_cast<int>(hkv), static_cast<int>(sq),
-      static_cast<int>(skv), static_cast<int>(d), causal ? 1 : 0,
-      static_cast<int>(window), static_cast<int>(q_offset),
-      static_cast<float>(scale), stream);
+  const int ib = static_cast<int>(b), ihq = static_cast<int>(hq),
+            ihkv = static_cast<int>(hkv), isq = static_cast<int>(sq),
+            iskv = static_cast<int>(skv), id = static_cast<int>(d),
+            ic = causal ? 1 : 0, iw = static_cast<int>(window),
+            io = static_cast<int>(q_offset);
+  const float sc = static_cast<float>(scale);
+  const cudaError_t err =
+      q.scalar_type() == at::kBFloat16
+          ? flash_attention_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               dout.data_ptr(), lse.data_ptr<float>(),
+                               dsum.data_ptr<float>(), dq.data_ptr(), ib,
+                               ihq, ihkv, isq, iskv, id, ic, iw, io, sc,
+                               stream)
+          : flash_attention_dq_fma(
+                q.data_ptr<float>(), k.data_ptr<float>(),
+                v.data_ptr<float>(), dout.data_ptr<float>(),
+                lse.data_ptr<float>(), dsum.data_ptr<float>(),
+                dq.data_ptr<float>(), ib, ihq, ihkv, isq, iskv, id, ic, iw,
+                io, sc, stream);
   TORCH_CHECK(err == cudaSuccess, "flash_attention dq launch failed: ",
               cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
@@ -385,14 +414,25 @@ void flash_dkv(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
   const c10::cuda::CUDAGuard guard(q.device());
   const cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
   if (b * hq * sq * skv == 0) return;
-  const cudaError_t err = flash_attention_dkv(
-      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-      lse.data_ptr<float>(), dsum.data_ptr<float>(), dk.data_ptr<float>(),
-      dv.data_ptr<float>(), q.scalar_type() == at::kBFloat16,
-      static_cast<int>(b), static_cast<int>(hq), static_cast<int>(hkv),
-      static_cast<int>(sq), static_cast<int>(skv), static_cast<int>(d),
-      causal ? 1 : 0, static_cast<int>(window), static_cast<int>(q_offset),
-      static_cast<float>(scale), stream);
+  const int ib = static_cast<int>(b), ihq = static_cast<int>(hq),
+            ihkv = static_cast<int>(hkv), isq = static_cast<int>(sq),
+            iskv = static_cast<int>(skv), id = static_cast<int>(d),
+            ic = causal ? 1 : 0, iw = static_cast<int>(window),
+            io = static_cast<int>(q_offset);
+  const float sc = static_cast<float>(scale);
+  const cudaError_t err =
+      q.scalar_type() == at::kBFloat16
+          ? flash_attention_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                dout.data_ptr(), lse.data_ptr<float>(),
+                                dsum.data_ptr<float>(), dk.data_ptr<float>(),
+                                dv.data_ptr<float>(), ib, ihq, ihkv, isq,
+                                iskv, id, ic, iw, io, sc, stream)
+          : flash_attention_dkv_fma(
+                q.data_ptr<float>(), k.data_ptr<float>(),
+                v.data_ptr<float>(), dout.data_ptr<float>(),
+                lse.data_ptr<float>(), dsum.data_ptr<float>(),
+                dk.data_ptr<float>(), dv.data_ptr<float>(), ib, ihq, ihkv,
+                isq, iskv, id, ic, iw, io, sc, stream);
   TORCH_CHECK(err == cudaSuccess, "flash_attention dk/dv launch failed: ",
               cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();

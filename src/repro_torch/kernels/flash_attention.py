@@ -7,8 +7,10 @@ Counterpart of ``repro/kernels/flash_attention.py``, whose Pallas kernels
 :class:`FlashAttention` is the ``torch.autograd.Function`` whose forward
 is :func:`flash_attention` and whose backward is
 :func:`flash_attention_bwd`.  On CUDA tensors each wrapper launches its
-hand-written Hopper kernel (``csrc/flash_attention.cu``,
-``csrc/flash_attention_bwd.cu``, built at first use by
+hand-written Hopper kernel (``csrc/flash_attention.cu``; for the
+backward ``csrc/flash_attention_bwd.cu`` on the tensor cores for bf16
+operands, ``csrc/flash_attention_bwd_fma.cu`` on the CUDA cores for
+float32 ones; built at first use by
 :mod:`repro_torch.kernels._build`) and counts the launch in
 :data:`LAUNCHES`; on CPU tensors it runs the plain version in
 :mod:`repro_torch.kernels.ref`.  Any other device raises, and so does a
@@ -17,7 +19,9 @@ failed build or launch.
 Unlike the Pallas kernel, which needs Sq and Skv to be multiples of its
 blocks, the kernel takes any lengths and masks the ragged edge itself, so
 an unpadded prompt of any length goes through it.  q, k and v are read in
-their dtype (bfloat16 or float32) and the arithmetic is float32.  The
+their dtype (bfloat16 or float32) and the arithmetic is float32 (the
+bf16 backward multiplies float32 p and ds on the tensor cores as three
+exact bf16 terms, :func:`repro_torch.kernels.ref.bf16_split3`).  The
 kernel is built for head sizes 32, 64 and 128; a smaller head is
 zero-padded to the next of them (the scores and the output's first D
 columns do not change); the backward pads and cuts its gradients the

@@ -22,8 +22,8 @@ __all__ = ["fused_step_update_ref", "fused_decision_ref", "tile_live",
            "dense_from_csc", "frontier_epilogue", "backward_epilogue",
            "frontier_step_ref", "backward_step_ref", "flash_attention_ref",
            "flash_attention_dq_ref", "flash_attention_dkv_ref",
-           "flash_attention_bwd_ref", "ssd_scan_ref", "attention_ref",
-           "ssd_ref", "NEG_INF"]
+           "flash_attention_bwd_ref", "bf16_split3", "ssd_scan_ref",
+           "attention_ref", "ssd_ref", "NEG_INF"]
 
 DEST_TILE = 128
 
@@ -244,6 +244,26 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     dk = dkh.view(b, hkv, hq // hkv, skv, d).sum(2).to(k.dtype)
     dv = dvh.view(b, hkv, hq // hkv, skv, d).sum(2).to(v.dtype)
     return dq, dk, dv
+
+
+def bf16_split3(x):
+    """``(hi, mid, lo)``, bfloat16: the three bf16 terms into which the
+    backward kernels split a float32 operand (p or ds) to multiply it on
+    the tensor cores.  ``hi`` is x cut to bf16 (its upper 16 bits, i.e.
+    rounded toward zero), ``mid`` the same of ``x - hi``, ``lo`` of
+    ``x - hi - mid``.  Both differences are exact in float32, so
+    ``hi + mid + lo == x`` bit for bit unless lo is subnormal (|x| below
+    about 1e-33), and three bf16 products with float32 sums give the
+    float32 product."""
+    x = x.float().contiguous()
+
+    def cut(t):
+        return (t.view(torch.int32) & -65536).view(torch.float32)
+
+    hi = cut(x)
+    mid = cut(x - hi)
+    lo = cut(x - hi - mid)
+    return hi.bfloat16(), mid.bfloat16(), lo.bfloat16()
 
 
 def ssd_scan_ref(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int,

@@ -99,8 +99,8 @@ def test_mask_gemm_kernels_are_in_the_one_build():
     from repro_torch.kernels import _build
     names = [p.name for p in _build.SOURCES]
     assert names == ["sim_step.cu", "mask_gemm.cu", "flash_attention.cu",
-                     "flash_attention_bwd.cu", "ssd_scan.cu",
-                     "sim_step_binding.cpp"]
+                     "flash_attention_bwd.cu", "flash_attention_bwd_fma.cu",
+                     "ssd_scan.cu", "sim_step_binding.cpp"]
     for path in _build.SOURCES:
         text = path.read_text()
         assert ("#include <torch/" in text or "#include <ATen/" in text) \
