@@ -1,397 +1,288 @@
-// Flash-attention forward for Hopper (sm_90a): causal / sliding-window /
-// GQA online-softmax attention with the row log-sum-exp, any Sq and Skv.
+// Flash-attention forward for Hopper (sm_90a) on the tensor cores: causal
+// / sliding-window / GQA online-softmax attention with the row
+// log-sum-exp, bf16 q, k, v, any Sq and Skv.  (float32 operands go to the
+// CUDA-core kernel of flash_attention_fma.cu; the binding chooses by
+// dtype.)
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py:62
 // (_fwd_kernel via flash_attention -> _fwd).  There, a sequential kv grid
 // axis carried the float32 (acc, m, l) state in VMEM from one kv block to
-// the next.  Blocks on Hopper run in no order, so one block here owns a
-// (batch, q head, 64-row q tile) and walks the 64-key kv tiles in a loop,
-// with the online-softmax state in registers.
+// the next.  Blocks on Hopper run in no order, so one block (one
+// warpgroup) here owns a (batch, q head, 64-row q tile) and walks the
+// live 64-key tiles in a loop, with the online-softmax state in registers.
+//
+// Precision.  The reference computes both products in float32.  Q K^T has
+// bf16 operands: wgmma forms the products exactly and sums them into
+// float32 accumulators; the softmax scale is applied to the float32 sum
+// (q scale is not bf16-exact at D = 32 or 128).  p = 2^(s scale log2 e -
+// m log2 e) is formed in float32 by one FMA and the special-function
+// unit's ex2 (relative error about 2^-22).  P V has one float32 operand,
+// p: split3 (wgmma.cuh) cuts it exactly into three bf16 terms, and three
+// wgmma products against V are the float32 product's exact parts.  No
+// TF32, and p is never cast to a single bf16.  The tensor cores add a
+// wgmma's products into the float32 accumulator by their own rounding,
+// not as a chain of float32 FMAs.
 //
 // What bounds it on the H100: operations.  At the serve shape (one
-// smollm-135m layer, S = 2048, 9 q heads, D = 64) the causal call does
-// 2 x 2.4 GFLOP on 6.4 MB, 1.9 us of HBM traffic.  Q K^T has bf16
-// operands (the 1/8 scale is exact), so the bf16 tensor cores could
-// form the same float32 sums in 2.4 us at 989 TFLOP/s; P V takes the
-// float32 probabilities, 36 us of float32 FMA at 67 TFLOP/s (the
-// reference keeps them in float32, and TF32 is ruled out): a bound of
-// 39 us.  This kernel does both products in float32 FMAs (72 us at
-// best) and leaves the tensor cores for later.  What the design does:
-//   * Both products are register-tiled, as a SIMT GEMM: each of the 128
-//     threads owns a 4 x 8 tile of the (64, 64) scores and a 4 x D/8
-//     tile of the output, and reads its operands as float4 rows of
-//     shared memory, so that three 16-byte loads feed 32 FMAs.  Q, K
-//     and the probabilities are staged transposed (column-major) and V
-//     row-major, each row padded by 4 floats; a lane's 8 columns are two
-//     groups of 4, 32 apart, so that the lanes of a warp read 16-byte
-//     chunks side by side.
-//   * q, k and v are read in their dtype (bf16 on the serve path) once
-//     per block and tile, four elements per load, converted to float32 in
-//     shared memory (69.6 KB at D = 64, dynamic shared memory).  The next
-//     kv tile's loads are issued before the current tile's products and
-//     stored after them, so their latency hides behind the FMAs.
-//   * A row's max and sum are reduced over the 8 lanes that share it with
-//     warp shuffles; the state (m, l) is kept in all 8.
-//   * Tiles that the reference's _tile_live rules out (above the causal
-//     diagonal, below the window) are never visited; the ragged edge of
-//     Sq and Skv is masked in the kernel, so unpadded prompts of any
-//     length take this path.  Under a causal mask the last (heaviest) q
-//     tiles are launched first.
-// Masking follows the reference: -1e30 (not -inf); a row with l == 0
-// gets o = 0; lse = m + log(max(l, 1e-30)).  Head sizes 32, 64 and 128;
-// the Python wrapper zero-pads smaller ones.
+// smollm-135m layer, B = 1, Hq = 9, S = 2048, D = 64, causal) Q K^T is
+// 2.4 GFLOP of bf16 products and P V 2.4 GFLOP of float32-by-bf16 ones,
+// three tensor-core products each: 9.7 GFLOP of tensor-core work, 9.8 us
+// at 989 TFLOP/s, against 6.4 MB of HBM traffic (1.9 us).  Measured, it
+// takes 2.5x its bound at the training shape (B = 8: 0.197 ms of device
+// time against 0.078 ms on an H100 80GB HBM3 at 700 W, chip_smoke.py
+// phase 14), held there, like #6 and #7, by instructions per thread as
+// much as by the tensor cores: some 10 per score (max, sum, the ex2 and
+// its FMA, 5.5 for the split) beside 16 wgmma per kv tile.  What the
+// design does:
+//   * Every product is a wgmma m64nNk16 with float32 accumulators: S = Q
+//     K^T with both operands in shared memory, then acc += P V with the
+//     three bf16 terms of p from registers, where the accumulator of S
+//     already lies in the A-fragment layout, and V read transposed from
+//     its tile through an MN-major descriptor.
+//   * Tiles live in shared memory in bf16, in the 128-byte swizzle (64 at
+//     D = 32) that the descriptors name.  Q stays resident; K and V
+//     arrive through a ring of two stages: cp.async into the swizzled
+//     layout, completion counted by one mbarrier per stage, the next
+//     tile's copy in flight while the current one is used.
+//   * The online softmax runs on the accumulator: a row's max and sum over
+//     the four lanes of a quad take two shuffles each.  acc is rescaled
+//     only after the wgmma group that wrote it has been waited for.
+//   * The mask is applied only on tiles that the diagonal, the window edge
+//     or the ragged Sq / Skv edge crosses; tiles that the reference's
+//     _tile_live rules out are never visited.  Under a causal mask the
+//     heaviest q tiles are launched first.
+//   * One warpgroup per block; several blocks share an SM, so one block's
+//     softmax overlaps another's products.
+// Masking follows the reference: masked entries get p = 0; m starts at
+// -1e30, so a row with no live key gets l = 0, o = 0 and lse = -1e30 +
+// log(1e-30); o = acc / l, lse = m + log(max(l, 1e-30)).  Head sizes 32,
+// 64 and 128; the Python wrapper zero-pads smaller ones.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kBK = 64;          // keys per kv tile
-constexpr int kThreads = 128;    // 16 row groups x 8 column groups
-constexpr int kLD = kBQ + 4;     // padded row of Qt, Kt and Pt
+constexpr float kNegInf = -1e30f;  // the reference's mask value, m's start
+constexpr int kThreads = 128;      // one warpgroup
+constexpr int kBM = 64;            // q rows a block, keys a kv tile
+constexpr int kStages = 2;         // depth of the ring
 
-// Four consecutive elements as loaded (one 16- or 8-byte load), and as
-// float32.
-template <typename T>
-struct Raw4;
-template <>
-struct Raw4<float> {
-  float4 v;
-};
-template <>
-struct Raw4<__nv_bfloat16> {
-  uint2 v;
-};
-
-__device__ __forceinline__ void load4(Raw4<float>& r, const float* p) {
-  r.v = *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void load4(Raw4<__nv_bfloat16>& r,
-                                      const __nv_bfloat16* p) {
-  r.v = *reinterpret_cast<const uint2*>(p);
-}
-__device__ __forceinline__ void zero4(Raw4<float>& r) {
-  r.v = make_float4(0.f, 0.f, 0.f, 0.f);
-}
-__device__ __forceinline__ void zero4(Raw4<__nv_bfloat16>& r) {
-  r.v = make_uint2(0u, 0u);
-}
-__device__ __forceinline__ float4 to_f32(const Raw4<float>& r) { return r.v; }
-__device__ __forceinline__ float4 to_f32(const Raw4<__nv_bfloat16>& r) {
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.v.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.v.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// Column c (0..7) of column group cg: 4 cg .. 4 cg + 3, then 32 further.
-__device__ __forceinline__ int col_of(int cg, int c) {
-  return 4 * cg + (c & 3) + 32 * (c >> 2);
-}
-
-// Shared memory: Qt[D][kLD] (scaled q, transposed), Kt[D][kLD], Vs[kBK]
-// [D + 4], Pt[kBK][kLD] (probabilities, transposed), all float32.
-__host__ __device__ constexpr int smem_bytes(int d) {
-  return 4 * (2 * d * kLD + kBK * (d + 4) + kBK * kLD);
-}
-
-// 4-element chunks of a (64, D) tile per thread.
+// Shared memory: Q (64 x D), then per stage K, V (64 x D), then one
+// mbarrier per stage; 1024 bytes of slack align the tiles.
 template <int D>
-constexpr int chunks() {
-  return kBK * D / 4 / kThreads;
+__host__ __device__ constexpr int fwd_smem_bytes() {
+  return 1024 + (1 + 2 * kStages) * kBM * D * 2 + 8 * kStages;
 }
 
-// Loads of the kv tile at k0 into registers (keys past Skv zero).  For K
-// the lanes run along the keys, so that stash_kv's transposed stores hit
-// consecutive banks; for V along the head dim.
-template <typename T, int D>
-__device__ __forceinline__ void fetch_kv(Raw4<T> (&kraw)[chunks<D>()],
-                                         Raw4<T> (&vraw)[chunks<D>()],
-                                         const T* kp, const T* vp, int k0,
-                                         int skv, int tid) {
-#pragma unroll
-  for (int c = 0; c < chunks<D>(); ++c) {
-    const int e = tid + c * kThreads;
-    const int j = e % kBK;
-    if (k0 + j < skv)
-      load4(kraw[c], kp + static_cast<int64_t>(k0 + j) * D + 4 * (e / kBK));
-    else
-      zero4(kraw[c]);
-    const int jv = e / (D / 4);
-    if (k0 + jv < skv)
-      load4(vraw[c],
-            vp + static_cast<int64_t>(k0 + jv) * D + 4 * (e % (D / 4)));
-    else
-      zero4(vraw[c]);
-  }
-}
-
-// The fetched tile into shared memory: K transposed, V row-major.
-template <typename T, int D>
-__device__ __forceinline__ void stash_kv(const Raw4<T> (&kraw)[chunks<D>()],
-                                         const Raw4<T> (&vraw)[chunks<D>()],
-                                         float* kt, float* vs, int tid) {
-#pragma unroll
-  for (int c = 0; c < chunks<D>(); ++c) {
-    const int e = tid + c * kThreads;
-    const int j = e % kBK;
-    const int d = 4 * (e / kBK);
-    const float4 f = to_f32(kraw[c]);
-    kt[(d + 0) * kLD + j] = f.x;
-    kt[(d + 1) * kLD + j] = f.y;
-    kt[(d + 2) * kLD + j] = f.z;
-    kt[(d + 3) * kLD + j] = f.w;
-    *reinterpret_cast<float4*>(vs + (e / (D / 4)) * (D + 4) +
-                               4 * (e % (D / 4))) = to_f32(vraw[c]);
-  }
-}
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
                  float* __restrict__ lse, int hq, int hkv, int sq, int skv,
                  int causal, int window, int q_offset, float scale,
                  int n_qtiles) {
-  constexpr int LDV = D + 4;
-  constexpr int DG = D / 32;       // 4-wide output groups per thread
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;
-  float* kt = qt + D * kLD;
-  float* vs = kt + D * kLD;
-  float* pt = vs + kBK * LDV;
+  using G = Swz<D>;
+  constexpr int kTile = kBM * D * 2;
+  constexpr int NB = G::kBlocks, NC = G::kCols;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t s_q = base;
+  const uint32_t bars = base + (1 + 2 * kStages) * kTile;
+  auto s_k = [&](int st) { return base + (1 + 2 * st) * kTile; };
+  auto s_v = [&](int st) { return base + (2 + 2 * st) * kTile; };
 
   const int tid = threadIdx.x;
-  const int rg = tid / 8;          // rows 4 rg .. 4 rg + 3
-  const int cg = tid % 8;          // lanes 8 rg .. 8 rg + 7 share a row
+  const int warp = tid / 32, lane = tid % 32;
   const int iq = causal ? n_qtiles - 1 - blockIdx.x : blockIdx.x;
   const int ih = blockIdx.y;
   const int ib = blockIdx.z;
   const int ikv = ih / (hq / hkv);
-  const int q0 = iq * kBQ;
-
+  const int q0 = iq * kBM;
   const int64_t q_head = (static_cast<int64_t>(ib) * hq + ih) * sq;
-  const T* kp = k + (static_cast<int64_t>(ib) * hkv + ikv) * skv * D;
-  const T* vp = v + (static_cast<int64_t>(ib) * hkv + ikv) * skv * D;
+  const bf16* kp = k + (static_cast<int64_t>(ib) * hkv + ikv) * skv * D;
+  const bf16* vp = v + (static_cast<int64_t>(ib) * hkv + ikv) * skv * D;
 
-  // the q tile, scaled, transposed; rows past Sq are zero.  Each thread
-  // loads 4 consecutive elements of a row: lanes run along the rows, so
-  // the transposed stores of a warp hit consecutive banks.
-  constexpr int CH = chunks<D>();
-  {
-    Raw4<T> raw[CH];
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      const int e = tid + c * kThreads;
-      const int r = e % kBQ;
-      if (q0 + r < sq)
-        load4(raw[c], q + (q_head + q0 + r) * D + 4 * (e / kBQ));
-      else
-        zero4(raw[c]);
-    }
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      const int e = tid + c * kThreads;
-      const int r = e % kBQ;
-      const int d = 4 * (e / kBQ);
-      const float4 f = to_f32(raw[c]);
-      qt[(d + 0) * kLD + r] = f.x * scale;
-      qt[(d + 1) * kLD + r] = f.y * scale;
-      qt[(d + 2) * kLD + r] = f.z * scale;
-      qt[(d + 3) * kLD + r] = f.w * scale;
-    }
-  }
-
-  // K and V of a kv tile travel through registers: the next tile's loads
-  // are issued before the current tile's products, and land in shared
-  // memory after them.
-  Raw4<T> kraw[CH], vraw[CH];
-
-  float acc[4][4 * DG];
-  float m[4], l[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * DG; ++c) acc[r][c] = 0.f;
-  }
-
-  // the live kv range of this q tile (the reference's _tile_live, with
-  // the whole tile's first and last positions)
+  // the live kv range of this q tile (the reference's _tile_live)
   const int q_first = q_offset + q0;
-  const int q_last = q_first + kBQ - 1;
+  const int q_last = q_first + kBM - 1;
   const int k_end = causal ? min(skv, q_last + 1) : skv;
-  int k_begin = 0;
-  if (window > 0) k_begin = max(0, q_first - window + 1) / kBK * kBK;
+  const int k_begin =
+      window > 0 ? max(0, q_first - window + 1) / kBM * kBM : 0;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBM - 1) / kBM
+                                      : 0;
 
-  if (k_begin < k_end) fetch_kv<T, D>(kraw, vraw, kp, vp, k_begin, skv, tid);
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous tile has been consumed
-    stash_kv<T, D>(kraw, vraw, kt, vs, tid);
-    if (k0 + kBK < k_end)
-      fetch_kv<T, D>(kraw, vraw, kp, vp, k0 + kBK, skv, tid);
-    __syncthreads();
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) mbar_init(bars + 8 * st, kThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (n_tiles > 0)  // Q lands with the first kv tile
+    load_tile<D, kBM>(s_q, q + q_head * D, q0, sq, tid);
+  for (int t = 0; t < kStages - 1 && t < n_tiles; ++t) {
+    load_tile<D, kBM>(s_k(t), kp, k_begin + t * kBM, skv, tid);
+    load_tile<D, kBM>(s_v(t), vp, k_begin + t * kBM, skv, tid);
+    cp_async_arrive(bars + 8 * t);
+  }
 
-    // scores s = (q * scale) k^T for rows 4 rg + r, columns col_of(cg, c)
-    float s[4][8];
+  // this thread's rows of the tile: r_lo and r_lo + 8; m in units of the
+  // scaled scores, mb = m kExpUnit
+  const int r_lo = 16 * warp + lane / 4;
+  const float scale2 = scale * kExpUnit;
+  const float masked = -__int_as_float(0x7f800000);  // -inf: p = 0
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[NB][NC / 2];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+  for (int b = 0; b < NB; ++b)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) s[r][c] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(qt + d * kLD + 4 * rg);
-      const float4 ka = *reinterpret_cast<const float4*>(kt + d * kLD + 4 * cg);
-      const float4 kb =
-          *reinterpret_cast<const float4*>(kt + d * kLD + 32 + 4 * cg);
-      const float qr[4] = {qv.x, qv.y, qv.z, qv.w};
-      const float kc[8] = {ka.x, ka.y, ka.z, ka.w, kb.x, kb.y, kb.z, kb.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) s[r][c] = fmaf(qr[r], kc[c], s[r][c]);
+    for (int c = 0; c < NC / 2; ++c) acc[b][c] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_begin + it * kBM;
+    const int st = it % kStages;
+    if (it + kStages - 1 < n_tiles) {
+      __syncthreads();  // every warp is done with the stage refilled here
+      const int nx = (it + kStages - 1) % kStages;
+      const int kn = k0 + (kStages - 1) * kBM;
+      load_tile<D, kBM>(s_k(nx), kp, kn, skv, tid);
+      load_tile<D, kBM>(s_v(nx), vp, kn, skv, tid);
+      cp_async_arrive(bars + 8 * nx);
     }
+    mbar_wait(bars + 8 * st, (it / kStages) & 1);
+    fence_proxy_async();
 
-    // online softmax, row by row
+    // s = q k^T: rows of the q tile, the tile's 64 keys
+    float s[32];  // the first product overwrites it
+    wg_fence();
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int q_pos = q_first + 4 * rg + r;
-      unsigned live = 0u;
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int k_pos = k0 + col_of(cg, c);
-        const bool ok = k_pos < skv && (!causal || q_pos >= k_pos) &&
-                        (window <= 0 || k_pos > q_pos - window);
-        live |= ok ? (1u << c) : 0u;
-        s[r][c] = ok ? s[r][c] : kNegInf;
-        mx = fmaxf(mx, s[r][c]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = expf(m[r] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        s[r][c] = (live >> c) & 1u ? expf(s[r][c] - m_new) : 0.f;
-        ps += s[r][c];
-      }
-      ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-      ps += __shfl_xor_sync(0xffffffffu, ps, 2);
-      ps += __shfl_xor_sync(0xffffffffu, ps, 4);
-      l[r] = alpha * l[r] + ps;
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * DG; ++c) acc[r][c] *= alpha;
-    }
-    // the probabilities, transposed: Pt[key][row]
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      *reinterpret_cast<float4*>(pt + col_of(cg, c) * kLD + 4 * rg) =
-          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
-    __syncthreads();
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss(s, desc_k<D, kBM>(s_q, kk), desc_k<D, kBM>(s_k(st), kk), kk);
+    wg_commit();
+    wg_wait();
+    fence_regs(s);
 
-    // acc += p v for rows 4 rg + r, dims 4 cg + 32 g + i
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      const float4 pv = *reinterpret_cast<const float4*>(pt + j * kLD + 4 * rg);
-      const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
+    // the mask only where the diagonal, the window edge or the end of the
+    // keys crosses the tile
+    const bool edge = k0 + kBM > skv || (causal && q_first < k0 + kBM - 1) ||
+                      (window > 0 && k0 <= q_last - window);
+    if (edge) {
 #pragma unroll
-      for (int g = 0; g < DG; ++g) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(vs + j * LDV + 32 * g + 4 * cg);
-        const float vc[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            acc[r][4 * g + i] = fmaf(pr[r], vc[i], acc[r][4 * g + i]);
-      }
+      for (int at = 0; at < 32; ++at)  // at = 4 n8 + 2 i + j
+        if (!live(q_first + r_lo + 8 * (at / 2 % 2),
+                  k0 + 8 * (at / 4) + 2 * (lane % 4) + at % 2, skv, causal,
+                  window))
+          s[at] = masked;
     }
+    // online softmax: the rows' max over the quad, p in place of s
+    float mx[2] = {masked, masked}, mb[2], alpha[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int at = 0; at < 32; ++at)
+      mx[at / 2 % 2] = fmaxf(mx[at / 2 % 2], s[at]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i] * scale);
+      alpha[i] = exp_p((m[i] - m_new) * kExpUnit);
+      mb[i] = m_new * kExpUnit;
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int at = 0; at < 32; ++at) {
+      s[at] = exp_p(fmaf(s[at], scale2, -mb[at / 2 % 2]));
+      ps[at / 2 % 2] += s[at];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      ps[i] += __shfl_xor_sync(0xffffffffu, ps[i], 1);
+      ps[i] += __shfl_xor_sync(0xffffffffu, ps[i], 2);
+      l[i] = alpha[i] * l[i] + ps[i];
+    }
+    // the previous tile's P V has been waited for: acc is free
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int c = 0; c < NC / 2; ++c) acc[b][c] *= alpha[c / 2 % 2];
+
+    // acc += p v: p from registers in three bf16 terms, v transposed
+    uint32_t f[3][4][4];
+    split_frags<64>(s, f);
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+      for (int part = 0; part < 3; ++part)
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          mma_rs(acc[b], f[part][kc], desc_mn<D, kBM>(s_v(st), kc, b));
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
+    fence_frags(f);
   }
 
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + 4 * rg + r;
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r_lo + 8 * i;
     if (row >= sq) continue;
-    const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+    const float li = l[i] == 0.f ? 1.f : l[i];
+    bf16* dst = o + (q_head + row) * D + 2 * (lane % 4);
 #pragma unroll
-    for (int g = 0; g < DG; ++g)
+    for (int b = 0; b < NB; ++b)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        store(&o[(q_head + row) * D + 32 * g + 4 * cg + i],
-              acc[r][4 * g + i] * inv);
-    if (cg == 0) lse[q_head + row] = m[r] + logf(fmaxf(l[r], 1e-30f));
+      for (int n8 = 0; n8 < NC / 8; ++n8)
+        *reinterpret_cast<__nv_bfloat162*>(dst + b * NC + 8 * n8) =
+            __floats2bfloat162_rn(acc[b][4 * n8 + 2 * i] / li,
+                                  acc[b][4 * n8 + 2 * i + 1] / li);
+    if (lane % 4 == 0) lse[q_head + row] = m[i] + logf(fmaxf(l[i], 1e-30f));
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+template <int D>
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                    float* lse, int b, int hq, int hkv, int sq, int skv,
                    int causal, int window, int q_offset, float scale,
                    cudaStream_t stream) {
-  constexpr int bytes = smem_bytes(D);
+  constexpr int bytes = fwd_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
-  const int n_qtiles = (sq + kBQ - 1) / kBQ;
+  const int n_qtiles = (sq + kBM - 1) / kBM;
   const dim3 grid(n_qtiles, hq, b);
-  flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, hq, hkv, sq, skv,
-      causal, window, q_offset, scale, n_qtiles);
+  flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, o, lse, hq, hkv, sq, skv, causal, window, q_offset, scale,
+      n_qtiles);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
-                     void* o, float* lse, int b, int hq, int hkv, int sq,
-                     int skv, int causal, int window, int q_offset,
-                     float scale, cudaStream_t stream) {
-  switch (d) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, lse, b, hq, hkv, sq, skv, causal,
-                           window, q_offset, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, b, hq, hkv, sq, skv, causal,
-                           window, q_offset, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, b, hq, hkv, sq, skv, causal,
-                            window, q_offset, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), o like q, all contiguous and
-// of one dtype (bfloat16 if is_bf16, else float32); lse (B, Hq, Sq)
-// float32.  window <= 0 means none.  D in {32, 64, 128}.
+// q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), o like q, contiguous
+// bfloat16, rows 16-byte aligned; lse (B, Hq, Sq) float32.  window <= 0
+// means none.  D in {32, 64, 128}.
 cudaError_t flash_attention_fwd(const void* q, const void* k, const void* v,
-                                void* o, float* lse, int is_bf16, int b,
-                                int hq, int hkv, int sq, int skv, int d,
-                                int causal, int window, int q_offset,
-                                float scale, cudaStream_t stream) {
+                                void* o, float* lse, int b, int hq, int hkv,
+                                int sq, int skv, int d, int causal,
+                                int window, int q_offset, float scale,
+                                cudaStream_t stream) {
   if (b <= 0 || sq <= 0 || hkv <= 0 || hq % hkv != 0)
     return cudaErrorInvalidValue;
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(d, q, k, v, o, lse, b, hq, hkv, sq, skv,
-                                   causal, window, q_offset, scale, stream);
-  return dispatch<float>(d, q, k, v, o, lse, b, hq, hkv, sq, skv, causal,
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  bf16* ob = static_cast<bf16*>(o);
+  switch (d) {
+    case 32:
+      return launch<32>(qb, kb, vb, ob, lse, b, hq, hkv, sq, skv, causal,
+                        window, q_offset, scale, stream);
+    case 64:
+      return launch<64>(qb, kb, vb, ob, lse, b, hq, hkv, sq, skv, causal,
+                        window, q_offset, scale, stream);
+    case 128:
+      return launch<128>(qb, kb, vb, ob, lse, b, hq, hkv, sq, skv, causal,
                          window, q_offset, scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

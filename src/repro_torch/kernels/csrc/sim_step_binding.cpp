@@ -1,8 +1,10 @@
 // PyTorch binding of the port's kernels: the simulator-step kernels in
-// sim_step.cu, the mask+GEMM kernels in mask_gemm.cu, the flash-attention
-// forward in flash_attention.cu, its backward in flash_attention_bwd.cu
-// (bfloat16, tensor cores) and flash_attention_bwd_fma.cu (float32, CUDA
-// cores; chosen here by dtype), and the SSD chunked scan in ssd_scan.cu.
+// sim_step.cu, the mask+GEMM kernels in mask_gemm.cu, and the model
+// kernels, each in two sources chosen here by dtype (bfloat16: tensor
+// cores; float32: CUDA cores): the flash-attention forward in
+// flash_attention.cu and flash_attention_fma.cu, its backward in
+// flash_attention_bwd.cu and flash_attention_bwd_fma.cu, and the SSD
+// chunked scan in ssd_scan.cu and ssd_scan_fma.cu.
 //
 // The only file of the extension that includes PyTorch's headers, and
 // only the few it needs (the tensor, the pybind11 tensor caster and the
@@ -53,11 +55,20 @@ SIM_STEP_DECLARE(double, f64)
 MASK_GEMM_DECLARE(float, f32)
 MASK_GEMM_DECLARE(double, f64)
 
+// bfloat16 operands: the tensor-core kernel of flash_attention.cu.
 cudaError_t flash_attention_fwd(const void* q, const void* k, const void* v,
-                                void* o, float* lse, int is_bf16, int b,
-                                int hq, int hkv, int sq, int skv, int d,
-                                int causal, int window, int q_offset,
-                                float scale, cudaStream_t stream);
+                                void* o, float* lse, int b, int hq, int hkv,
+                                int sq, int skv, int d, int causal,
+                                int window, int q_offset, float scale,
+                                cudaStream_t stream);
+
+// float32 operands: the CUDA-core kernel of flash_attention_fma.cu.
+cudaError_t flash_attention_fwd_fma(const float* q, const float* k,
+                                    const float* v, float* o, float* lse,
+                                    int b, int hq, int hkv, int sq, int skv,
+                                    int d, int causal, int window,
+                                    int q_offset, float scale,
+                                    cudaStream_t stream);
 
 // bfloat16 operands: the tensor-core kernels of flash_attention_bwd.cu.
 cudaError_t flash_attention_dq(const void* q, const void* k, const void* v,
@@ -91,11 +102,20 @@ cudaError_t flash_attention_dkv_fma(const float* q, const float* k,
                                     int causal, int window, int q_offset,
                                     float scale, cudaStream_t stream);
 
+// bfloat16 operands: the tensor-core kernels of ssd_scan.cu.
 cudaError_t ssd_scan_fwd(const void* x, const float* dt, const float* a_log,
                          const void* bm, const void* cm, const float* d_skip,
                          const float* state_in, void* y, float* state_out,
-                         int is_bf16, int b, int len, int h, int p, int g,
-                         int n, int q, cudaStream_t stream);
+                         double* cum, float* states, int b, int len, int h,
+                         int p, int g, int n, int q, cudaStream_t stream);
+
+// float32 operands: the CUDA-core kernel of ssd_scan_fma.cu.
+cudaError_t ssd_scan_fwd_fma(const float* x, const float* dt,
+                             const float* a_log, const float* bm,
+                             const float* cm, const float* d_skip,
+                             const float* state_in, float* y,
+                             float* state_out, int b, int len, int h, int p,
+                             int g, int n, int q, cudaStream_t stream);
 
 namespace {
 
@@ -326,13 +346,22 @@ void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
   const c10::cuda::CUDAGuard guard(q.device());
   const cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
   if (b * hq * sq == 0) return;
-  const cudaError_t err = flash_attention_fwd(
-      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-      lse.data_ptr<float>(), dt == at::kBFloat16, static_cast<int>(b),
-      static_cast<int>(hq), static_cast<int>(hkv), static_cast<int>(sq),
-      static_cast<int>(skv), static_cast<int>(d), causal ? 1 : 0,
-      static_cast<int>(window), static_cast<int>(q_offset),
-      static_cast<float>(scale), stream);
+  const int ib = static_cast<int>(b), ihq = static_cast<int>(hq),
+            ihkv = static_cast<int>(hkv), isq = static_cast<int>(sq),
+            iskv = static_cast<int>(skv), id = static_cast<int>(d),
+            ic = causal ? 1 : 0, iw = static_cast<int>(window),
+            io = static_cast<int>(q_offset);
+  const float sc = static_cast<float>(scale);
+  const cudaError_t err =
+      dt == at::kBFloat16
+          ? flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                o.data_ptr(), lse.data_ptr<float>(), ib, ihq,
+                                ihkv, isq, iskv, id, ic, iw, io, sc, stream)
+          : flash_attention_fwd_fma(
+                q.data_ptr<float>(), k.data_ptr<float>(),
+                v.data_ptr<float>(), o.data_ptr<float>(),
+                lse.data_ptr<float>(), ib, ihq, ihkv, isq, iskv, id, ic, iw,
+                io, sc, stream);
   TORCH_CHECK(err == cudaSuccess, "flash_attention launch failed: ",
               cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
@@ -440,12 +469,15 @@ void flash_dkv(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
 
 // x (B, L, H, P), b_mat and c_mat (B, L, G, N), y like x: bfloat16 or
 // float32; dt (B, L, H), a_log and d_skip (H,), state_out (B, H, N, P) and
-// state_in float32, state_in empty for a zero initial state.
+// state_in float32, state_in empty for a zero initial state.  bfloat16
+// only: the scratch cum (B, H, L) float64 and states (B, H, n_chunks, N,
+// P) float32 (empty for float32).
 void ssd_scan(const at::Tensor& x, const at::Tensor& dt,
               const at::Tensor& a_log, const at::Tensor& b_mat,
               const at::Tensor& c_mat, const at::Tensor& d_skip,
               const at::Tensor& state_in, int64_t chunk,
-              at::Tensor& y, at::Tensor& state_out) {
+              at::Tensor& y, at::Tensor& state_out, at::Tensor& cum,
+              at::Tensor& states) {
   const auto xt = x.scalar_type();
   TORCH_CHECK(xt == at::kFloat || xt == at::kBFloat16,
               "ssd_scan takes float32 or bfloat16 x");
@@ -477,16 +509,36 @@ void ssd_scan(const at::Tensor& x, const at::Tensor& dt,
                 "(B, H, N, P)");
     s_in = state_in.data_ptr<float>();
   }
+  const bool bf = xt == at::kBFloat16;
+  if (bf) {
+    TORCH_CHECK(chunk >= 1, "chunk must be >= 1");
+    const int64_t n_chunks = (len + chunk - 1) / chunk;
+    check_cuda(cum, "cum", at::kDouble);
+    check_cuda(states, "states", at::kFloat);
+    TORCH_CHECK(cum.numel() == b * h * len &&
+                    states.numel() == b * h * n_chunks * n * p,
+                "cum must be (B, H, L) and states (B, H, n_chunks, N, P)");
+  }
   const c10::cuda::CUDAGuard guard(x.device());
   const cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
   if (b * len * h * p == 0) return;
-  const cudaError_t err = ssd_scan_fwd(
-      x.data_ptr(), dt.data_ptr<float>(), a_log.data_ptr<float>(),
-      b_mat.data_ptr(), c_mat.data_ptr(), d_skip.data_ptr<float>(), s_in,
-      y.data_ptr(), state_out.data_ptr<float>(), xt == at::kBFloat16,
-      static_cast<int>(b), static_cast<int>(len), static_cast<int>(h),
-      static_cast<int>(p), static_cast<int>(g), static_cast<int>(n),
-      static_cast<int>(chunk), stream);
+  const int ib = static_cast<int>(b), il = static_cast<int>(len),
+            ih = static_cast<int>(h), ip = static_cast<int>(p),
+            ig = static_cast<int>(g), in = static_cast<int>(n),
+            iq = static_cast<int>(chunk);
+  const cudaError_t err =
+      bf ? ssd_scan_fwd(x.data_ptr(), dt.data_ptr<float>(),
+                        a_log.data_ptr<float>(), b_mat.data_ptr(),
+                        c_mat.data_ptr(), d_skip.data_ptr<float>(), s_in,
+                        y.data_ptr(), state_out.data_ptr<float>(),
+                        cum.data_ptr<double>(), states.data_ptr<float>(), ib,
+                        il, ih, ip, ig, in, iq, stream)
+         : ssd_scan_fwd_fma(x.data_ptr<float>(), dt.data_ptr<float>(),
+                            a_log.data_ptr<float>(), b_mat.data_ptr<float>(),
+                            c_mat.data_ptr<float>(),
+                            d_skip.data_ptr<float>(), s_in,
+                            y.data_ptr<float>(), state_out.data_ptr<float>(),
+                            ib, il, ih, ip, ig, in, iq, stream);
   TORCH_CHECK(err == cudaSuccess, "ssd_scan launch failed: ",
               cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();

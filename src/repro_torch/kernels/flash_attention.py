@@ -7,12 +7,12 @@ Counterpart of ``repro/kernels/flash_attention.py``, whose Pallas kernels
 :class:`FlashAttention` is the ``torch.autograd.Function`` whose forward
 is :func:`flash_attention` and whose backward is
 :func:`flash_attention_bwd`.  On CUDA tensors each wrapper launches its
-hand-written Hopper kernel (``csrc/flash_attention.cu``; for the
-backward ``csrc/flash_attention_bwd.cu`` on the tensor cores for bf16
-operands, ``csrc/flash_attention_bwd_fma.cu`` on the CUDA cores for
-float32 ones; built at first use by
-:mod:`repro_torch.kernels._build`) and counts the launch in
-:data:`LAUNCHES`; on CPU tensors it runs the plain version in
+hand-written Hopper kernel (the forward ``csrc/flash_attention.cu``, the
+backward ``csrc/flash_attention_bwd.cu``, on the tensor cores for bf16
+operands; ``csrc/flash_attention_fma.cu`` and
+``csrc/flash_attention_bwd_fma.cu`` on the CUDA cores for float32 ones;
+built at first use by :mod:`repro_torch.kernels._build`) and counts the
+launch in :data:`LAUNCHES`; on CPU tensors it runs the plain version in
 :mod:`repro_torch.kernels.ref`.  Any other device raises, and so does a
 failed build or launch.
 
@@ -20,8 +20,8 @@ Unlike the Pallas kernel, which needs Sq and Skv to be multiples of its
 blocks, the kernel takes any lengths and masks the ragged edge itself, so
 an unpadded prompt of any length goes through it.  q, k and v are read in
 their dtype (bfloat16 or float32) and the arithmetic is float32 (the
-bf16 backward multiplies float32 p and ds on the tensor cores as three
-exact bf16 terms, :func:`repro_torch.kernels.ref.bf16_split3`).  The
+bf16 kernels multiply float32 p and ds on the tensor cores as three exact
+bf16 terms, :func:`repro_torch.kernels.ref.bf16_split3`).  The
 kernel is built for head sizes 32, 64 and 128; a smaller head is
 zero-padded to the next of them (the scores and the output's first D
 columns do not change); the backward pads and cuts its gradients the
@@ -87,7 +87,7 @@ def _pad_head(d: int) -> int:
 
 
 def _aligned(*ts):
-    """The kernels read 4 elements per load: rows must start 16-byte
+    """The kernels read 16 bytes per load: rows must start 16-byte
     aligned."""
     return [t if t.data_ptr() % 16 == 0 else t.clone() for t in ts]
 

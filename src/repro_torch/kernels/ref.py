@@ -11,7 +11,10 @@ the mask epilogues, which the analytic ``dense`` engine shares.
 
 ``attention_ref`` and ``ssd_ref`` are the oracles of the model kernels,
 as in the reference: masked softmax attention in one piece, and the SSD
-as its exact sequential recurrence.
+as its exact sequential recurrence.  ``ssd_scan_chunked_ref`` mirrors the
+three phases of the bf16 SSD kernels, and the ``terms`` options of it and
+of ``flash_attention_ref`` emulate how the tensor-core kernels multiply a
+float32 operand (tests and ``chip_smoke.py`` only).
 """
 
 from __future__ import annotations
@@ -22,8 +25,9 @@ __all__ = ["fused_step_update_ref", "fused_decision_ref", "tile_live",
            "dense_from_csc", "frontier_epilogue", "backward_epilogue",
            "frontier_step_ref", "backward_step_ref", "flash_attention_ref",
            "flash_attention_dq_ref", "flash_attention_dkv_ref",
-           "flash_attention_bwd_ref", "bf16_split3", "ssd_scan_ref",
-           "attention_ref", "ssd_ref", "NEG_INF"]
+           "flash_attention_bwd_ref", "bf16_split3", "split_matmul",
+           "ssd_scan_ref", "ssd_scan_chunked_ref", "attention_ref",
+           "ssd_ref", "NEG_INF"]
 
 DEST_TILE = 128
 
@@ -126,7 +130,8 @@ def _attention_mask(q_pos, k_pos, causal: bool, window):
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
-                        q_offset: int = 0, scale=None, block_k: int = 64):
+                        q_offset: int = 0, scale=None, block_k: int = 64,
+                        p_terms=None):
     """``(o, lse)`` of the flash-attention forward: float32 online softmax
     over kv tiles of ``block_k`` keys, masked with -1e30.
 
@@ -134,6 +139,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
     sits at position ``q_offset + i``, key j at j.  Any Sq and Skv.
     ``o`` (B, Hq, Sq, D) in q's dtype, 0 on a row with no live key;
     ``lse`` (B, Hq, Sq, 1) float32, ``m + log(max(l, 1e-30))``.
+    ``p_terms`` (3 or 1) multiplies p by V as that many bf16 terms (see
+    :func:`split_matmul`); None, the plain version, in float32.
     """
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -156,7 +163,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
         p = torch.exp(s - m_new) * mask
         alpha = torch.exp(m - m_new)
         l = alpha * l + p.sum(-1, keepdim=True)
-        acc = acc * alpha + p @ vf[:, :, k0:k0 + block_k]
+        acc = acc * alpha + split_matmul(p, vf[:, :, k0:k0 + block_k],
+                                         p_terms, split_a=True)
         m = m_new
     o = acc / torch.where(l == 0.0, 1.0, l)
     lse = m + torch.log(torch.clamp(l, min=1e-30))
@@ -266,6 +274,29 @@ def bf16_split3(x):
     return hi.bfloat16(), mid.bfloat16(), lo.bfloat16()
 
 
+def split_matmul(a, b, terms, *, split_a: bool):
+    """``a @ b`` with its float32 operand (``a`` if ``split_a``, else
+    ``b``) as the tensor-core kernels take it: ``terms=3``, the three bf16
+    terms of :func:`bf16_split3`, one float32 product each, summed in
+    float32 (the float32 product up to its sums' rounding); ``terms=1``,
+    one bf16 cast (round to nearest), what a kernel without the split
+    computes; None, ``a @ b`` as it is."""
+    if terms is None:
+        return a @ b
+    x = a if split_a else b
+    if terms == 3:
+        parts = [t.float() for t in bf16_split3(x)]
+    elif terms == 1:
+        parts = [x.bfloat16().float()]
+    else:
+        raise ValueError(f"terms must be 3, 1 or None, got {terms}")
+    out = None
+    for t in parts:
+        prod = t @ b if split_a else a @ t
+        out = prod if out is None else out + prod
+    return out
+
+
 def ssd_scan_ref(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int,
                  state=None):
     """``(y, final_state)`` of the Mamba-2 SSD chunked scan, in the
@@ -311,6 +342,65 @@ def ssd_scan_ref(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int,
         w = torch.exp((last - cum).float())[..., None]        # (B, H, Q, 1)
         s = torch.exp(last.float())[..., None] * s \
             + bc.transpose(-1, -2) @ (xdt * w)
+    return torch.cat(ys, dim=1).to(x.dtype), s
+
+
+def ssd_scan_chunked_ref(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int,
+                         state=None, terms=None):
+    """``(y, final_state)`` of :func:`ssd_scan_ref` by the chunk-parallel
+    decomposition of the bf16 kernels (``csrc/ssd_scan.cu``), float32:
+
+    1. chunk states: ``L_c = B_c^T (x_c (dt w))``, ``w = exp(cum[-1] -
+       cum)``, for every chunk at once;
+    2. state passing: ``S_in[c] = S``, ``S = exp(cum_c[-1]) S + L_c``,
+       from the initial state (or zero);
+    3. chunk output: ``y = (C B^T exp(seg) dt_j) x + (C S_in) exp(cum) +
+       x d_skip``, the terms in the reference's order, dt folded into the
+       scores.
+
+    ``terms`` (3 or 1) multiplies the float32 operand of each product but
+    C B^T (x dt w, the scores, S_in) as that many bf16 terms
+    (:func:`split_matmul`); None in float32.  Shapes as
+    :func:`ssd_scan_ref`; the last chunk may be short."""
+    bsz, length, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    rep = h // g
+    a = -torch.exp(a_log.float())
+    xf, dtf = x.float(), dt.float()
+    bf = b_mat.float().repeat_interleave(rep, dim=2)
+    cf = c_mat.float().repeat_interleave(rep, dim=2)
+    chunks = []
+    for c0 in range(0, length, chunk):
+        dtc = dtf[:, c0:c0 + chunk].transpose(1, 2)          # (B, H, Q)
+        chunks.append((xf[:, c0:c0 + chunk].transpose(1, 2), dtc,
+                       bf[:, c0:c0 + chunk].transpose(1, 2),
+                       cf[:, c0:c0 + chunk].transpose(1, 2),
+                       torch.cumsum((dtc * a[None, :, None]).double(), -1)))
+    own = []                                                 # 1.
+    for xc, dtc, bc, _, cum in chunks:
+        f = dtc * torch.exp((cum[..., -1:] - cum).float())
+        own.append(split_matmul(bc.transpose(-1, -2), xc * f[..., None],
+                                terms, split_a=False))
+    s = (torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+         if state is None else state.float())
+    s_in = []                                                # 2.
+    for (*_, cum), lc in zip(chunks, own):
+        s_in.append(s)
+        s = torch.exp(cum[..., -1:].float())[..., None] * s + lc
+    ys = []                                                  # 3.
+    for (xc, dtc, bc, cc, cum), si in zip(chunks, s_in):
+        q = xc.shape[2]
+        causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+        seg = torch.where(causal,
+                          (cum[..., :, None] - cum[..., None, :]).float(),
+                          float("-inf"))
+        scores = (cc @ bc.transpose(-1, -2)) * torch.exp(seg) \
+            * dtc[..., None, :]
+        y = split_matmul(scores, xc, terms, split_a=True)
+        y = y + split_matmul(cc, si, terms, split_a=False) \
+            * torch.exp(cum.float())[..., None]
+        y = y + xc * d_skip.float()[None, :, None, None]
+        ys.append(y.transpose(1, 2))
     return torch.cat(ys, dim=1).to(x.dtype), s
 
 

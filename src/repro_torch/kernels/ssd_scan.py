@@ -3,22 +3,32 @@ pass, the float32 (N, P) state carried from chunk to chunk.
 
 Counterpart of ``repro/kernels/ssd_scan.py``, whose Pallas kernel
 ``_kernel`` (via ``ssd_scan``) it replaces.  On CUDA tensors
-:func:`ssd_scan` launches the hand-written Hopper kernel of
-``csrc/ssd_scan.cu`` (built at first use by
-:mod:`repro_torch.kernels._build`) and counts the launch in
-:data:`LAUNCHES`; on CPU tensors it runs the plain version
-:func:`repro_torch.kernels.ref.ssd_scan_ref`.  Any other device raises,
-and so does a failed build or launch.
+:func:`ssd_scan` launches the hand-written Hopper kernels (built at first
+use by :mod:`repro_torch.kernels._build`): for bf16 operands the
+tensor-core kernels of ``csrc/ssd_scan.cu``, the chunk-parallel
+decomposition of the SSD in three launches (chunk states, state passing,
+chunk output; mirrored by
+:func:`repro_torch.kernels.ref.ssd_scan_chunked_ref`), for float32 ones
+the CUDA-core kernel of ``csrc/ssd_scan_fma.cu``.  Each call counts one
+launch in :data:`LAUNCHES`.  On CPU tensors it runs the
+plain version :func:`repro_torch.kernels.ref.ssd_scan_ref`.  Any other
+device raises, and so does a failed build or launch.
 
 Unlike the Pallas kernel, it also returns the final state (the reference
 recomputes it on its jnp path), takes a length that is no multiple of
-the chunk (the last chunk is short) and an optional initial state.
+the chunk (the last chunk is short) and an optional initial state.  The
+tensor-core kernels take d_state 64, 128 or 256 and a head size that is
+a multiple of 64: the wrapper zero-pads any other d_state up to 256 and
+head size (the padded rows and columns of B, C, x and the state add
+nothing to y or to the state), and cuts y and the state back.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from .flash_attention import _aligned
 from .ref import ssd_scan_ref
 
 __all__ = ["ssd_scan", "LAUNCHES", "reset_launches", "MAX_CHUNK"]
@@ -27,6 +37,9 @@ __all__ = ["ssd_scan", "LAUNCHES", "reset_launches", "MAX_CHUNK"]
 LAUNCHES = {"ssd_scan": 0}
 
 MAX_CHUNK = 256          # chunk rows one block handles
+MAX_STATE = 256          # d_state the kernels take
+_STATE_DIMS = (64, 128, 256)   # d_state of the tensor-core kernels
+_P_BLOCK = 64            # head-size multiple of the tensor-core kernels
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -87,16 +100,38 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int,
                             state=state)
     if dev.type != "cuda":
         raise ValueError(f"no ssd_scan kernel for device {dev}")
-    if chunk > MAX_CHUNK or n > 256 or n % 4:
-        raise ValueError(f"the kernel takes chunk <= {MAX_CHUNK} and a "
-                         f"d_state <= 256 that is a multiple of 4, got "
-                         f"{chunk} and {n}")
+    if chunk > MAX_CHUNK or n > MAX_STATE:
+        raise ValueError(f"the kernels take chunk <= {MAX_CHUNK} and "
+                         f"d_state <= {MAX_STATE}, got {chunk} and {n}")
+    if x.dtype == f32 and n % 4:
+        raise ValueError(f"the float32 kernel takes a d_state that is a "
+                         f"multiple of 4, got {n}")
     from ._build import extension
     ext = extension()
+    empty = torch.empty(0, dtype=f32, device=dev)
+    n_pad, p_pad = n, p
+    cum = states = empty
+    if x.dtype == torch.bfloat16:
+        n_pad = next(d for d in _STATE_DIMS if d >= n)
+        p_pad = -(-p // _P_BLOCK) * _P_BLOCK
+        if p_pad != p:
+            x = F.pad(x, (0, p_pad - p))
+        if n_pad != n:
+            b_mat, c_mat = (F.pad(t, (0, n_pad - n)) for t in (b_mat, c_mat))
+        if state is not None and (n_pad, p_pad) != (n, p):
+            state = F.pad(state, (0, p_pad - p, 0, n_pad - n))
+        x, b_mat, c_mat = _aligned(x, b_mat, c_mat)
+        n_chunks = -(-length // chunk)
+        cum = torch.empty((bsz, h, length), dtype=torch.float64, device=dev)
+        states = torch.empty((bsz, h, n_chunks, n_pad, p_pad), dtype=f32,
+                             device=dev)
     y = torch.empty_like(x)
-    final = torch.empty((bsz, h, n, p), dtype=f32, device=dev)
-    s_in = state if state is not None else torch.empty(0, dtype=f32,
-                                                       device=dev)
-    ext.ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, s_in, chunk, y, final)
+    final = torch.empty((bsz, h, n_pad, p_pad), dtype=f32, device=dev)
+    s_in = state if state is not None else empty
+    ext.ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, s_in, chunk, y, final,
+                 cum, states)
     LAUNCHES["ssd_scan"] += 1
+    if (n_pad, p_pad) != (n, p):
+        y = y[..., :p].contiguous()
+        final = final[:, :, :n, :p].contiguous()
     return y, final

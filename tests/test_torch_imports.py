@@ -95,13 +95,16 @@ def test_analytic_entry_points_without_device_need_cuda():
 
 def test_mask_gemm_kernels_are_in_the_one_build():
     """Every kernel source goes to the single extension build, and only
-    the binding file includes PyTorch's headers."""
+    the binding file includes PyTorch's headers (the kernels' shared
+    header wgmma.cuh none)."""
     from repro_torch.kernels import _build
     names = [p.name for p in _build.SOURCES]
     assert names == ["sim_step.cu", "mask_gemm.cu", "flash_attention.cu",
-                     "flash_attention_bwd.cu", "flash_attention_bwd_fma.cu",
-                     "ssd_scan.cu", "sim_step_binding.cpp"]
-    for path in _build.SOURCES:
+                     "flash_attention_fma.cu", "flash_attention_bwd.cu",
+                     "flash_attention_bwd_fma.cu", "ssd_scan.cu",
+                     "ssd_scan_fma.cu", "sim_step_binding.cpp"]
+    header = _build.SOURCES[0].parent / "wgmma.cuh"
+    for path in (*_build.SOURCES, header):
         text = path.read_text()
         assert ("#include <torch/" in text or "#include <ATen/" in text) \
             == (path.suffix == ".cpp"), path.name
