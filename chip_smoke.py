@@ -23,9 +23,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    first PN(64) source block (S = 756, N = 8322): every BFS level and
    dependency level of the real sweep, plus random integer fronts up to
    2^20; float64 at rtol 1e-12 and float32 at rtol 1e-6 of the max,
-   ``dist'`` and the any-new flag exactly.  Then each kernel's time, its
-   plain version's, the dense ``torch.matmul`` of the same product (the
-   yardstick; the port never calls it) and the HBM bound.
+   ``dist'`` and the any-new flag exactly, and every output bit for bit
+   the tiled mirror of the kernels' summation order
+   (``ref.*_step_tiled_ref`` at the plan's chunk).  Then S = 37 rows of
+   N = 30,011 float64, too long for a block's shared memory (the chunked
+   route), against both.  Then, at level 2 and at the deepest dependency
+   level, a repeated launch bit for bit and each kernel's time beside
+   its plain version's, the dense ``torch.matmul`` and
+   ``torch.sparse.mm`` on the CSR of A^T (cuSPARSE on the same sparse
+   storage; two yardsticks without the epilogue, which the port never
+   calls) and the HBM bound; and every level of the PN(64) block by CUDA
+   events, summed per source block (printed again beside phase 5's
+   profile).
 4. The analytic main path: ``saturation_report`` of PN(16) uniform and of
    the PN(27) points demand under ``ugal``, ``engine="auto"`` on the
    card (must resolve to the fused kernels), each within rtol 1e-9 of
@@ -165,6 +174,8 @@ MASK_SRC = "src/repro_torch/kernels/csrc/mask_gemm.cu"
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 FLASH_BWD_SRC = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+# phase 3's (S, N) whose float64 rows do not fit a block's shared memory
+WIDE_SHAPE = (37, 30011)
 
 
 def log(*args):
@@ -367,13 +378,58 @@ def level_states(g, rows: int, dev, dtype=torch.float64):
     return fwd, bwd, a
 
 
+def _wide_level(gen, dev, s: int, n: int, degree: int = 12):
+    """A random weighted A given by column (integer weights 1..3, about
+    ``degree`` entries a column, no dense copy) and ``s`` rows of level
+    state: integer fronts up to 2^14, dist in [-1, 2]."""
+    nnz = n * degree
+    cols = torch.randint(0, n, (nnz,), generator=gen, device=dev).sort()[0]
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    indptr[1:] = torch.bincount(cols, minlength=n).cumsum(0)
+    csr = (indptr.to(torch.int32),
+           torch.randint(0, n, (nnz,), generator=gen, device=dev,
+                         dtype=torch.int32),
+           torch.randint(1, 4, (nnz,), generator=gen,
+                         device=dev).to(torch.float64))
+    dist = torch.randint(-1, 3, (s, n), generator=gen, device=dev,
+                         dtype=torch.int32)
+    front = (torch.randint(0, 2**14, (s, n), generator=gen, device=dev)
+             * (torch.rand((s, n), generator=gen, device=dev) < 0.3)).double()
+    sigma = torch.randint(1, 2**12, (s, n), generator=gen,
+                          device=dev).double()
+    delta = torch.rand((s, n), generator=gen, device=dev,
+                       dtype=torch.float64)
+    coeff = torch.rand((s, n), generator=gen, device=dev,
+                       dtype=torch.float64) * (dist == 2)
+    return csr, front, dist, sigma, delta, coeff
+
+
+def sparse_transpose(csr, n: int):
+    """A^T as torch's CSR tensor, for torch.sparse.mm: the kernels'
+    compressed-column triple of A with each column's entries sorted by
+    row (torch and cuSPARSE require sorted, distinct columns in a CSR
+    row; the kernels take any order)."""
+    indptr, indices, data = csr
+    col = torch.repeat_interleave(torch.arange(n, device=indices.device),
+                                  (indptr[1:] - indptr[:-1]).long())
+    order = torch.argsort(col * n + indices.long())
+    return torch.sparse_csr_tensor(indptr, indices[order], data[order],
+                                   (n, n), check_invariants=True)
+
+
 def check_mask_gemm(dev, bw):
-    """Phase 3: the mask+GEMM kernels against their plain versions at the
-    main path's shapes, then their times."""
+    """Phase 3: the mask+GEMM kernels against their plain versions and
+    bit for bit against the mirror of their summation order at the main
+    path's shapes, then their times: every level of the first PN(64)
+    source block, and level 2 and the deepest dependency level beside
+    their plain versions, the dense torch.matmul and torch.sparse.mm."""
     from repro_torch.core import pn_graph
     from repro_torch.core.graph import adjacency_csr
     from repro_torch.kernels import mask_gemm as MG
-    from repro_torch.kernels.ref import backward_step_ref, frontier_step_ref
+    from repro_torch.kernels.ref import (backward_step_ref,
+                                         backward_step_tiled_ref,
+                                         frontier_step_ref,
+                                         frontier_step_tiled_ref)
 
     gen = torch.Generator(device=dev).manual_seed(1)
     errs = {"frontier_step": 0.0, "backward_step": 0.0}
@@ -389,6 +445,30 @@ def check_mask_gemm(dev, bw):
             key = name.split()[0]
             errs[key] = max(errs[key], err)
 
+    def check_frontier(name, args, rtol, record):
+        got = MG.frontier_step(*args)
+        want = frontier_step_ref(*args)
+        mirror = frontier_step_tiled_ref(*args,
+                                         chunk=MG._plan_for(args[0])[1])
+        torch.cuda.synchronize()
+        close(name, got[0], want[0], rtol, record)
+        close(name, got[2], want[2], rtol, record)
+        if not (torch.equal(got[1], want[1])
+                and int(got[3]) == int(want[3])):
+            raise AssertionError(f"{name}: dist' or any_new differ")
+        if not all(torch.equal(a, b) for a, b in zip(got, mirror)):
+            raise AssertionError(f"{name}: not bit for bit the tiled mirror")
+
+    def check_backward(name, args, rtol, record):
+        got = MG.backward_step(*args)
+        want = backward_step_ref(*args)
+        mirror = backward_step_tiled_ref(*args,
+                                         chunk=MG._plan_for(args[0])[1])
+        torch.cuda.synchronize()
+        close(name, got, want, rtol, record)
+        if not torch.equal(got, mirror):
+            raise AssertionError(f"{name}: not bit for bit the tiled mirror")
+
     for label, q, rows in (("PN(27)", 27, None), ("PN(64) block", 64, 756)):
         g = pn_graph(q)
         rows = g.n if rows is None else min(rows, g.n)
@@ -400,61 +480,115 @@ def check_mask_gemm(dev, bw):
                * (torch.rand((rows, n), generator=gen, device=dev) < 0.3))
         rdist = torch.randint(-1, 3, (rows, n), generator=gen, device=dev,
                               dtype=torch.int32)
-        fwd = fwd + [(rnd, rdist, fwd[-1][2], 3)]
+        cases = fwd + [(rnd, rdist, fwd[-1][2], 3)]
         for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-6)):
             csr = adjacency_csr(g, dtype, dev)
             record = dtype == torch.float64
-            for front, dist, sigma, lvl in fwd:
-                args = (front.to(dtype), csr, dist, sigma.to(dtype), lvl)
-                got = MG.frontier_step(*args)
-                want = frontier_step_ref(*args)
-                torch.cuda.synchronize()
-                name = f"frontier_step {label} lvl={lvl} {dtype}"
-                close(name, got[0], want[0], rtol, record)
-                close(name, got[2], want[2], rtol, record)
-                if not (torch.equal(got[1], want[1])
-                        and int(got[3]) == int(want[3])):
-                    raise AssertionError(f"{name}: dist' or any_new differ")
+            for front, dist, sigma, lvl in cases:
+                check_frontier(f"frontier_step {label} lvl={lvl} {dtype}",
+                               (front.to(dtype), csr, dist, sigma.to(dtype),
+                                lvl), rtol, record)
             for coeff, dist, sigma, delta, lvl in bwd:
-                args = (coeff.to(dtype), csr, dist, sigma.to(dtype),
-                        delta.to(dtype), lvl)
-                close(f"backward_step {label} lvl={lvl} {dtype}",
-                      MG.backward_step(*args), backward_step_ref(*args),
-                      rtol, record)
+                check_backward(f"backward_step {label} lvl={lvl} {dtype}",
+                               (coeff.to(dtype), csr, dist, sigma.to(dtype),
+                                delta.to(dtype), lvl), rtol, record)
             log(f"mask_gemm {label} S={rows} N={n} {dtype}: "
-                f"{len(fwd)} frontier and {len(bwd)} backward levels ok")
+                f"{len(cases)} frontier and {len(bwd)} backward levels ok, "
+                f"plan (rows, chunk, col_splits) "
+                f"{MG._plan_for(fwd[0][0].to(dtype))}, bit for bit the "
+                f"tiled mirror")
 
         # times at this shape, float64: the widest forward level (2) and
-        # the dependency level with the most masked cells (lvl 2 -> 1)
+        # the deepest dependency level (lvl 3 -> 2, dist == 2 masks half
+        # the cells), beside the plain version, the dense product and
+        # cuSPARSE's product on the same compressed storage (A^T in CSR
+        # is A by column); none of the three yardsticks has the epilogue
         csr = adjacency_csr(g, torch.float64, dev)
+        at = sparse_transpose(csr, n)
+        nnz = len(g.indices)
+        csr_bytes = nnz * 12 + (n + 1) * 4
         front, dist, sigma, lvl = fwd[1]
         coeff, bdist, bsigma, delta, blvl = bwd[0]
+        close(f"torch.sparse.mm {label}",
+              torch.sparse.mm(at, front.t()).t(), front @ a, 1e-12, False)
         cells = rows * n
         rows_t = {}
         for name, kern, ref, args, x, nbytes in (
                 ("frontier_step", MG.frontier_step, frontier_step_ref,
-                 (front, csr, dist, sigma, lvl), front, cells * 40),
+                 (front, csr, dist, sigma, lvl), front,
+                 cells * 40 + csr_bytes),
                 ("backward_step", MG.backward_step, backward_step_ref,
                  (coeff, csr, bdist, bsigma, delta, blvl), coeff,
-                 cells * 36)):
+                 cells * 36 + csr_bytes)):
             flops = 2.0 * rows * n * n
+            first, again = kern(*args), kern(*args)
+            torch.cuda.synchronize()
+            same = (all(torch.equal(u, v) for u, v in zip(first, again))
+                    if isinstance(first, tuple) else torch.equal(first, again))
+            if not same:
+                raise AssertionError(f"{name} {label}: a repeated launch "
+                                     f"differs")
             rows_t[name] = dict(
                 ms=cuda_ms(lambda: kern(*args), 20),
                 plain_ms=cuda_ms(lambda: ref(*args), 5),
                 library_ms=cuda_ms(lambda: torch.matmul(x, a), 5),
+                sparse_mm_ms=cuda_ms(lambda: torch.sparse.mm(at, x.t()), 5),
                 bound_ms=nbytes / bw * 1e3, nbytes=nbytes,
                 dense_flop_ms=flops / 67e12 * 1e3, flops=flops,
-                shape=f"{label} S={rows} N={n} nnz={len(g.indices)} "
-                      f"float64")
+                shape=f"{label} S={rows} N={n} nnz={nnz} float64")
             r = rows_t[name]
             log(f"{name} [{r['shape']}]: {r['ms']:.4f} ms, plain "
                 f"{r['plain_ms']:.4f} ms, torch.matmul {r['library_ms']:.4f}"
-                f" ms, bound {r['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB); "
-                f"dense product {flops / 1e9:.1f} GFLOP = "
-                f"{r['dense_flop_ms']:.3f} ms at 67 TFLOP/s")
+                f" ms, torch.sparse.mm {r['sparse_mm_ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB); dense "
+                f"product {flops / 1e9:.1f} GFLOP = "
+                f"{r['dense_flop_ms']:.3f} ms at 67 TFLOP/s; a repeated "
+                f"launch bit for bit")
+        if label == "PN(64) block":
+            # every level of the block, as phase 5's sweep launches them;
+            # a level that sums nothing moves no front/coeff and no A
+            for name, kern, levels, width, idle in (
+                    ("frontier_step", MG.frontier_step,
+                     [((f, csr, d, sg, lv), bool((d < 0).any()))
+                      for f, d, sg, lv in fwd], 40, 32),
+                    ("backward_step", MG.backward_step,
+                     [((c, csr, d, sg, dl, lv), bool((d == lv).any()))
+                      for c, d, sg, dl, lv in bwd], 36, 28)):
+                per = []
+                for args, busy in levels:
+                    ms = cuda_ms(lambda args=args: kern(*args), 20)
+                    nb = cells * width + csr_bytes if busy else cells * idle
+                    per.append((args[-1], ms, nb / bw * 1e3))
+                r = rows_t[name]
+                r["level_ms"] = [ms for _, ms, _ in per]
+                r["block_ms"] = sum(r["level_ms"])
+                r["block_bound_ms"] = sum(b for _, _, b in per)
+                r["block_launches"] = len(per)
+                log(f"{name} {label} by level: " + ", ".join(
+                    f"lvl={lv} {ms:.4f} ms (bound {b:.4f})"
+                    for lv, ms, b in per)
+                    + f"; per source block {r['block_ms']:.4f} ms in "
+                      f"{len(per)} launches (bound "
+                      f"{r['block_bound_ms']:.4f} ms)")
         timing[label] = rows_t
-        del fwd, bwd, a, rnd, rdist, csr
+        del fwd, bwd, a, rnd, rdist, csr, at, cases
         torch.cuda.empty_cache()
+
+    # rows too long for a block's shared memory: the chunked route
+    s_w, n_w = WIDE_SHAPE
+    csr, front, dist, sigma, delta, coeff = _wide_level(gen, dev, s_w, n_w)
+    plan = MG._plan_for(front)
+    if not plan[1] < n_w:
+        raise AssertionError(f"plan {plan} does not chunk N={n_w}")
+    check_frontier(f"frontier_step S={s_w} N={n_w} float64",
+                   (front, csr, dist, sigma, 3), 1e-12, True)
+    check_backward(f"backward_step S={s_w} N={n_w} float64",
+                   (coeff, csr, dist, sigma, delta, 1), 1e-12, True)
+    log(f"mask_gemm S={s_w} N={n_w} float64, rows that do not fit a "
+        f"block: plan (rows, chunk, col_splits) {plan}, both steps ok, "
+        f"bit for bit the tiled mirror")
+    del csr, front, dist, sigma, delta, coeff
+    torch.cuda.empty_cache()
     return errs, timing["PN(64) block"]
 
 
@@ -497,10 +631,12 @@ def check_analytic(dev):
     return thetas, launches
 
 
-def check_pn64(dev, q: int = 64):
+def check_pn64(dev, block_ms: dict, q: int = 64):
     """Phase 5: the analytic engines at full width, PN(64).  From a point
     of PN(q), its q + 1 lines lie at 1 hop, the other points at 2 and
-    the remaining lines at 3: kbar = 20673/8321 at q = 64."""
+    the remaining lines at 3: kbar = 20673/8321 at q = 64.  ``block_ms``:
+    phase 3's per-source-block sums of each mask+GEMM kernel by CUDA
+    events, printed beside the profile's."""
     from repro_torch.core import pn_graph, saturation_report, utilization
     from repro_torch.kernels import mask_gemm as MG
 
@@ -529,6 +665,9 @@ def check_pn64(dev, q: int = 64):
     blocks = MG.LAUNCHES["backward_step"] // 3
     profile_device(lambda: utilization(g, engine="fused", device=dev),
                    blocks, "source block", "profile pn64")
+    log("profile pn64: phase 3's first source block by CUDA events: "
+        + ", ".join(f"{name} {ms:.4f} ms in {launches} launches"
+                    for name, (ms, launches) in block_ms.items()))
     reps = {}
     for engine in ("fused", "dense"):
         torch.cuda.reset_peak_memory_stats()
@@ -1645,7 +1784,9 @@ def main() -> int:
     errs, timing = check_kernels(dev, bw)
     mg_errs, mg_timing = check_mask_gemm(dev, bw)
     thetas, mg_launches = check_analytic(dev)
-    check_pn64(dev)
+    check_pn64(dev, {name: (mg_timing[name]["block_ms"],
+                            mg_timing[name]["block_launches"])
+                     for name in ("frontier_step", "backward_step")})
     check_pn16(dev, thetas["pn16 uniform"])
     launches = check_pn27(dev, thetas["pn27 points"])
     done("2-8")
@@ -1698,7 +1839,9 @@ def main() -> int:
                 **{key: timing[kname][key]
                    for key in ("device_ms", "library_device_ms", "train_ms",
                                "train_device_ms", "train_library_ms",
-                               "train_library_device_ms", "train_bound_ms")
+                               "train_library_device_ms", "train_bound_ms",
+                               "sparse_mm_ms", "level_ms", "block_ms",
+                               "block_launches", "block_bound_ms")
                    if key in timing[kname]}}
                for kname in replaces]
     print(json.dumps({"kernels": kernels}), flush=True)

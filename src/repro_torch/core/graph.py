@@ -5,13 +5,16 @@ The port's counterpart of ``repro.core.graph``: the same edge-list + CSR
 BFS level at a time as boolean frontier products in torch, on whatever
 device the caller names.  Graphs up to :data:`DENSE_MAX_N` vertices use a
 dense (N, N) adjacency; larger ones a sparse CSR adjacency, so memory
-stays O(E + S*N).  :func:`adjacency_dense` and :func:`adjacency_csr`
-build the adjacency in any dtype on any device, for the BFS and for the
-arc-load engines of :mod:`repro_torch.core.utilization`.
+stays O(E + S*N).  :func:`adjacency_dense` builds the dense
+adjacency in any dtype on any device, for the BFS and the ``dense``
+arc-load engine of :mod:`repro_torch.core.utilization`;
+:func:`adjacency_csr` the mask+GEMM kernels' sparse copy, for its
+``fused`` engine.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
@@ -21,7 +24,7 @@ import torch
 from .._device import resolve_device
 
 __all__ = ["Graph", "CsrAdjacency", "adjacency_csr", "adjacency_dense",
-           "bfs_distances_batched", "DENSE_MAX_N"]
+           "bank_order", "bfs_distances_batched", "DENSE_MAX_N"]
 
 # largest vertex count whose BFS runs on a dense (N, N) adjacency (the
 # reference's util_dense_max perf-flag default)
@@ -71,6 +74,12 @@ class Graph:
         self.arc_src = src
         self.arc_edge_id = eid
 
+    @functools.cached_property
+    def kernel_indices(self) -> np.ndarray:
+        """``indices`` in :func:`bank_order`, the mask+GEMM kernels' copy
+        (computed once; ``indices`` keeps its arc order)."""
+        return bank_order(self.indptr, self.indices)
+
     @property
     def num_edges(self) -> int:
         return self.edges.shape[0]
@@ -110,16 +119,46 @@ def adjacency_dense(g: Graph, dtype=torch.float64,
     return a
 
 
+# shared-memory banks a row of the mask+GEMM kernels' float64 operand
+# spreads over (32 banks of 4 bytes, two a float64)
+KERNEL_BANKS = 16
+
+
+def bank_order(indptr: np.ndarray, indices: np.ndarray,
+               banks: int = KERNEL_BANKS) -> np.ndarray:
+    """``indices`` with each row's entries dealt round-robin over the
+    residues ``u mod banks``: the first entry of each residue in turn,
+    then the second, each residue in first-seen order.  Sixteen lanes of
+    the mask+GEMM kernels read sixteen consecutive entries of a column at
+    once, from a row of x in shared memory; dealt this way they fall on
+    different banks wherever the column's rows allow."""
+    n, m = len(indptr) - 1, len(indices)
+    if m == 0:
+        return indices.copy()
+    row = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+    res = indices.astype(np.int64) % banks
+    key = row * banks + res
+    grouped = np.argsort(key, kind="stable")       # by (row, residue, pos)
+    key = key[grouped]
+    first = np.r_[0, np.flatnonzero(np.diff(key)) + 1]
+    rank = np.arange(m) - np.repeat(first, np.diff(np.r_[first, m]))
+    turn = np.empty(m, dtype=np.int64)
+    turn[grouped] = rank * banks + key % banks
+    span = int(turn.max()) + 1
+    return indices[np.argsort(row * span + turn, kind="stable")]
+
+
 def adjacency_csr(g: Graph, dtype=torch.float64,
                   device=None) -> CsrAdjacency:
-    """The graph's CSR adjacency (its own ``indptr``/``indices``) with
-    unit values in ``dtype`` on ``device``.  The adjacency is symmetric,
-    so this is also its compressed-column form, which the mask+GEMM
-    kernels take."""
+    """The graph's CSR adjacency (its ``indptr``; each row's neighbours
+    in :func:`bank_order`, ``g.kernel_indices``)
+    with unit values in ``dtype`` on ``device``.  The adjacency is
+    symmetric, so this is also its compressed-column form, which the
+    mask+GEMM kernels take."""
     device = resolve_device(device)
     return CsrAdjacency(
         torch.as_tensor(g.indptr, dtype=torch.int32, device=device),
-        torch.as_tensor(g.indices, dtype=torch.int32, device=device),
+        torch.as_tensor(g.kernel_indices, dtype=torch.int32, device=device),
         torch.ones(len(g.indices), dtype=dtype, device=device))
 
 
@@ -128,9 +167,13 @@ def _adjacency(g: Graph, device: torch.device) -> torch.Tensor:
     DENSE_MAX_N vertices, a sparse CSR tensor above."""
     if g.n <= DENSE_MAX_N:
         return adjacency_dense(g, torch.float32, device)
-    csr = adjacency_csr(g, torch.float32, device)
-    return torch.sparse_csr_tensor(csr.indptr.long(), csr.indices.long(),
-                                   csr.data, size=(g.n, g.n))
+    # the graph's own order (not the kernels' bank order): torch's sparse
+    # CSR products take each row's columns in the order the graph builds
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(g.indptr, dtype=torch.int64, device=device),
+        torch.as_tensor(g.indices, dtype=torch.int64, device=device),
+        torch.ones(len(g.indices), dtype=torch.float32, device=device),
+        size=(g.n, g.n))
 
 
 def bfs_distances_batched(g: Graph, sources, device=None) -> torch.Tensor:

@@ -46,14 +46,16 @@ SIM_STEP_DECLARE(double, f64)
       const T* front, const int32_t* indptr, const int32_t* indices,        \
       const T* data, const int32_t* dist, const T* sigma, T* nxt,           \
       int32_t* dist_out, T* sigma_out, int32_t* any_new, int64_t s, int n,  \
-      int lvl, cudaStream_t stream);                                        \
+      int lvl, int rows, int chunk, int col_splits, cudaStream_t stream);   \
   cudaError_t mask_backward_##SUFFIX(                                       \
       const T* coeff, const int32_t* indptr, const int32_t* indices,        \
       const T* data, const int32_t* dist, const T* sigma, const T* delta,   \
-      T* out, int64_t s, int n, int lvl, cudaStream_t stream);
+      T* out, int64_t s, int n, int lvl, int rows, int chunk,               \
+      int col_splits, cudaStream_t stream);
 
 MASK_GEMM_DECLARE(float, f32)
 MASK_GEMM_DECLARE(double, f64)
+cudaError_t mask_gemm_smem_limit(int* bytes);
 
 // bfloat16 operands: the tensor-core kernel of flash_attention.cu.
 cudaError_t flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -248,12 +250,34 @@ void check_level(const at::Tensor& x, const at::Tensor& indptr,
               "in length");
 }
 
+// The wrapper's tiling of one mask+GEMM launch (kernels/mask_gemm.py::
+// plan): rows per block, the contraction chunk, column splits.  The
+// launcher refuses a rows value it has no instantiation for and the
+// runtime a chunk whose rows exceed the block's shared memory.
+void check_plan(int64_t rows, int64_t chunk, int64_t col_splits) {
+  TORCH_CHECK(rows >= 1 && rows <= 8 && chunk >= 1 && chunk <= (1 << 30) &&
+                  col_splits >= 1 && col_splits <= (1 << 20),
+              "bad mask+GEMM plan: rows ", rows, ", chunk ", chunk,
+              ", col_splits ", col_splits);
+}
+
+int64_t mask_smem_limit(int64_t device) {
+  const c10::cuda::CUDAGuard guard(static_cast<c10::DeviceIndex>(device));
+  int bytes = 0;
+  const cudaError_t err = mask_gemm_smem_limit(&bytes);
+  TORCH_CHECK(err == cudaSuccess, "shared-memory query failed: ",
+              cudaGetErrorString(err));
+  return bytes;
+}
+
 void mask_frontier(const at::Tensor& front, const at::Tensor& indptr,
                    const at::Tensor& indices, const at::Tensor& data,
                    const at::Tensor& dist, const at::Tensor& sigma,
-                   int64_t lvl, at::Tensor& nxt, at::Tensor& dist_out,
+                   int64_t lvl, int64_t rows, int64_t chunk,
+                   int64_t col_splits, at::Tensor& nxt, at::Tensor& dist_out,
                    at::Tensor& sigma_out, at::Tensor& any_new) {
   check_level(front, indptr, indices, data, dist);
+  check_plan(rows, chunk, col_splits);
   const auto dt = front.scalar_type();
   check_like(sigma, "sigma", front, dt);
   check_like(nxt, "nxt", front, dt);
@@ -273,7 +297,8 @@ void mask_frontier(const at::Tensor& front, const at::Tensor& indptr,
         dist.data_ptr<int32_t>(), sigma.data_ptr<float>(),
         nxt.data_ptr<float>(), dist_out.data_ptr<int32_t>(),
         sigma_out.data_ptr<float>(), any_new.data_ptr<int32_t>(), s,
-        static_cast<int>(n), static_cast<int>(lvl), stream);
+        static_cast<int>(n), static_cast<int>(lvl), static_cast<int>(rows),
+        static_cast<int>(chunk), static_cast<int>(col_splits), stream);
   } else {
     err = mask_frontier_f64(
         front.data_ptr<double>(), indptr.data_ptr<int32_t>(),
@@ -281,7 +306,8 @@ void mask_frontier(const at::Tensor& front, const at::Tensor& indptr,
         dist.data_ptr<int32_t>(), sigma.data_ptr<double>(),
         nxt.data_ptr<double>(), dist_out.data_ptr<int32_t>(),
         sigma_out.data_ptr<double>(), any_new.data_ptr<int32_t>(), s,
-        static_cast<int>(n), static_cast<int>(lvl), stream);
+        static_cast<int>(n), static_cast<int>(lvl), static_cast<int>(rows),
+        static_cast<int>(chunk), static_cast<int>(col_splits), stream);
   }
   TORCH_CHECK(err == cudaSuccess, "frontier_step launch failed: ",
               cudaGetErrorString(err));
@@ -291,8 +317,10 @@ void mask_frontier(const at::Tensor& front, const at::Tensor& indptr,
 void mask_backward(const at::Tensor& coeff, const at::Tensor& indptr,
                    const at::Tensor& indices, const at::Tensor& data,
                    const at::Tensor& dist, const at::Tensor& sigma,
-                   const at::Tensor& delta, int64_t lvl, at::Tensor& out) {
+                   const at::Tensor& delta, int64_t lvl, int64_t rows,
+                   int64_t chunk, int64_t col_splits, at::Tensor& out) {
   check_level(coeff, indptr, indices, data, dist);
+  check_plan(rows, chunk, col_splits);
   const auto dt = coeff.scalar_type();
   check_like(sigma, "sigma", coeff, dt);
   check_like(delta, "delta", coeff, dt);
@@ -308,14 +336,16 @@ void mask_backward(const at::Tensor& coeff, const at::Tensor& indptr,
         indices.data_ptr<int32_t>(), data.data_ptr<float>(),
         dist.data_ptr<int32_t>(), sigma.data_ptr<float>(),
         delta.data_ptr<float>(), out.data_ptr<float>(), s,
-        static_cast<int>(n), static_cast<int>(lvl), stream);
+        static_cast<int>(n), static_cast<int>(lvl), static_cast<int>(rows),
+        static_cast<int>(chunk), static_cast<int>(col_splits), stream);
   } else {
     err = mask_backward_f64(
         coeff.data_ptr<double>(), indptr.data_ptr<int32_t>(),
         indices.data_ptr<int32_t>(), data.data_ptr<double>(),
         dist.data_ptr<int32_t>(), sigma.data_ptr<double>(),
         delta.data_ptr<double>(), out.data_ptr<double>(), s,
-        static_cast<int>(n), static_cast<int>(lvl), stream);
+        static_cast<int>(n), static_cast<int>(lvl), static_cast<int>(rows),
+        static_cast<int>(chunk), static_cast<int>(col_splits), stream);
   }
   TORCH_CHECK(err == cudaSuccess, "backward_step launch failed: ",
               cudaGetErrorString(err));
@@ -555,6 +585,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "forward BFS level, sparse product + mask epilogue (CUDA)");
   m.def("mask_backward", &mask_backward,
         "backward dependency level, sparse product + mask epilogue (CUDA)");
+  m.def("mask_smem_limit", &mask_smem_limit,
+        "shared memory one block may hold on a device, in bytes");
   m.def("flash_fwd", &flash_fwd,
         "flash-attention forward with the row log-sum-exp (CUDA)");
   m.def("flash_dq", &flash_dq, "flash-attention backward, dq (CUDA)");

@@ -7,10 +7,12 @@ replace (``_fwd_kernel`` behind ``frontier_step`` and ``_bwd_kernel``
 behind ``backward_step``).  A comes compressed by column: a triple
 ``(indptr, indices, data)`` (int32, int32, the level state's dtype)
 whose column v holds ``data[indptr[v]:indptr[v+1]]`` at rows
-``indices[...]``, so that ``(x @ A)[s, v]`` is one walk down column v:
-the same product on a sparse storage of A, general for any weighted A.
-A graph adjacency is symmetric, so its CSR (see
-:func:`repro_torch.core.graph.adjacency_csr`) is that triple.  On CUDA
+``indices[...]``, in any order, so that ``(x @ A)[s, v]`` is one walk
+down column v: the same product on a sparse storage of A, general for
+any weighted A.  A graph adjacency is symmetric, so its CSR (see
+:func:`repro_torch.core.graph.adjacency_csr`, which deals each column's
+entries round-robin over the shared-memory banks of their rows, the
+order the kernels read fastest) is that triple.  On CUDA
 tensors each wrapper launches the hand-written Hopper kernel of
 ``csrc/mask_gemm.cu`` (built at first use by
 :mod:`repro_torch.kernels._build`) and counts the launch in
@@ -18,20 +20,29 @@ tensors each wrapper launches the hand-written Hopper kernel of
 :mod:`repro_torch.kernels.ref`.  There is no fallback from one to the
 other: any other device raises, and so does a failed build or launch.
 
-Both kernels are bound by HBM bytes: frontier_step reads front, dist and
-sigma and writes nxt, dist' and sigma' (40 B per (s, v) cell in
-float64), backward_step reads coeff, dist, sigma and delta and writes
-delta' (36 B).  ``lvl`` is a runtime argument, so one build serves every
-level.  The caller must pass a triple whose indices lie in [0, N).
+The kernels are bound by their gathers ``x[s, indices[j]]``, S * nnz(A)
+of them, not by the bytes of the (S, N) operands: a block stages R rows
+of ``x`` (``front`` or ``coeff``) in shared memory and reads each column
+of A once for all R rows, and only the outputs whose product the
+epilogue keeps are summed (see the source's header).  :func:`plan` picks
+R, and the contraction chunk where R whole rows do not fit the block's
+shared memory, from the card's shared memory and SM count; the kernels
+sum in the order that :func:`repro_torch.kernels.ref.
+masked_product_tiled` mirrors.  ``lvl`` is a runtime argument, so one
+build serves every level.  The caller must pass a triple whose indices
+lie in [0, N); the kernels skip an entry outside it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from .ref import backward_step_ref, frontier_step_ref
 
-__all__ = ["frontier_step", "backward_step", "LAUNCHES", "reset_launches"]
+__all__ = ["frontier_step", "backward_step", "plan", "LAUNCHES",
+           "reset_launches"]
 
 # kernel launches on the card since the last reset_launches()
 LAUNCHES = {"frontier_step": 0, "backward_step": 0}
@@ -42,6 +53,64 @@ _FLOATS = (torch.float32, torch.float64)
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+
+
+# rows per block that csrc/mask_gemm.cu is instantiated for, largest first
+ROW_TILES = (8, 6, 4, 3, 2, 1)
+# rows per block where a whole row does not fit the block's shared memory
+CHUNK_ROWS = 4
+# columns a warp takes at a time
+GROUP = 32
+# shared memory kept back from the device's per-block limit for the
+# kernel's static shared memory
+SMEM_RESERVE = 256
+
+
+def plan(s: int, n: int, itemsize: int, smem_bytes: int,
+         sms: int) -> tuple[int, int, int]:
+    """Tiling of one launch on (S, N) operands of ``itemsize`` bytes, for
+    a card whose blocks hold ``smem_bytes`` of shared memory and which
+    has ``sms`` SMs: ``(rows, chunk, col_splits)``.
+
+    A block stages ``rows`` rows of x, ``chunk`` entries of each at a
+    time (``chunk == n``: whole rows, one pass), so ``rows * chunk *
+    itemsize <= smem_bytes``; the grid holds ``ceil(s / rows) *
+    col_splits`` blocks, each row group's 32-column groups cut into
+    ``col_splits`` ranges where there are fewer row groups than half the
+    SMs, so that a few row groups still fill the card.
+    """
+    if min(s, n, itemsize, smem_bytes, sms) < 1:
+        raise ValueError("plan needs positive sizes")
+    fit = smem_bytes // (n * itemsize)
+    cap = min(fit if fit >= 1 else CHUNK_ROWS, s)
+    rows = next(r for r in ROW_TILES if r <= max(cap, 1))
+    if rows * n * itemsize <= smem_bytes:
+        chunk = n
+    else:
+        chunk = smem_bytes // (rows * itemsize)
+        if chunk < 1:
+            raise ValueError(f"{smem_bytes} bytes of shared memory hold "
+                             f"no row segment")
+        if chunk >= GROUP:
+            chunk -= chunk % GROUP
+    groups = -(-n // GROUP)
+    row_groups = -(-s // rows)
+    col_splits = max(1, min(groups, sms // row_groups))
+    return rows, chunk, col_splits
+
+
+@functools.cache
+def _card(index: int) -> tuple[int, int]:
+    """(shared memory per block less the reserve, SM count) of a card."""
+    from ._build import extension
+    smem = int(extension().mask_smem_limit(index)) - SMEM_RESERVE
+    return smem, torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _plan_for(x) -> tuple[int, int, int]:
+    smem, sms = _card(x.device.index if x.device.index is not None
+                      else torch.cuda.current_device())
+    return plan(x.shape[0], x.shape[1], x.element_size(), smem, sms)
 
 
 def _check(name, t, shape, dtype, device):
@@ -109,9 +178,10 @@ def frontier_step(front, adj, dist, sigma, lvl: int):
     dist_out = torch.empty_like(dist)
     sigma_out = torch.empty_like(sigma)
     any_new = torch.zeros((), dtype=torch.int32, device=front.device)
-    ext.mask_frontier(front, *adj, dist, sigma, lvl, nxt, dist_out,
-                      sigma_out, any_new)
-    LAUNCHES["frontier_step"] += 1
+    if front.numel():
+        ext.mask_frontier(front, *adj, dist, sigma, lvl, *_plan_for(front),
+                          nxt, dist_out, sigma_out, any_new)
+        LAUNCHES["frontier_step"] += 1
     return nxt, dist_out, sigma_out, any_new
 
 
@@ -129,6 +199,8 @@ def backward_step(coeff, adj, dist, sigma, delta, lvl: int):
     from ._build import extension
     ext = extension()
     out = torch.empty_like(delta)
-    ext.mask_backward(coeff, *adj, dist, sigma, delta, lvl, out)
-    LAUNCHES["backward_step"] += 1
+    if coeff.numel():
+        ext.mask_backward(coeff, *adj, dist, sigma, delta, lvl,
+                          *_plan_for(coeff), out)
+        LAUNCHES["backward_step"] += 1
     return out

@@ -23,7 +23,9 @@ import torch
 
 __all__ = ["fused_step_update_ref", "fused_decision_ref", "tile_live",
            "dense_from_csc", "frontier_epilogue", "backward_epilogue",
-           "frontier_step_ref", "backward_step_ref", "flash_attention_ref",
+           "frontier_step_ref", "backward_step_ref", "masked_product_tiled",
+           "frontier_step_tiled_ref", "backward_step_tiled_ref",
+           "flash_attention_ref",
            "flash_attention_dq_ref", "flash_attention_dkv_ref",
            "flash_attention_bwd_ref", "bf16_split3", "split_matmul",
            "ssd_scan_ref", "ssd_scan_chunked_ref", "attention_ref",
@@ -110,6 +112,60 @@ def backward_step_ref(coeff, adj, dist, sigma, delta, lvl: int):
     :func:`backward_epilogue`."""
     return backward_epilogue(coeff @ dense_from_csc(*adj), dist, sigma,
                              delta, lvl)
+
+
+def masked_product_tiled(x, adj, need, *, chunk: int, lanes: int = 16):
+    """``where(need, x @ A, 0)`` with A the compressed-column triple
+    ``adj``, summed as the kernels of ``csrc/mask_gemm.cu`` sum it, bit
+    for bit: the contraction in chunks of ``chunk`` consecutive rows u of
+    A (``chunk >= N``: one chunk); in each chunk lane l of a column's
+    ``lanes`` takes the column's entries beg + l, beg + l + lanes, ...
+    whose row lies in the chunk, in turn, each product and sum rounded by
+    itself; an xor tree closes the lanes' sums (lane l adds lane
+    l ^ lanes/2, then l ^ lanes/4, ..., l ^ 1: halves added pairwise in
+    turn), and the chunks' sums add in chunk order.
+    Outputs outside ``need`` are never summed (0 here)."""
+    indptr, indices, data = adj
+    s, n = x.shape
+    beg, end = indptr[:-1].long(), indptr[1:].long()
+    steps = -(-int((end - beg).max()) // lanes) if n else 0
+    lane = torch.arange(lanes, device=x.device)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    t = torch.zeros((s, n), dtype=x.dtype, device=x.device)
+    for k0 in range(0, n, chunk):
+        part = torch.zeros((s, n, lanes), dtype=x.dtype, device=x.device)
+        for step in range(steps):
+            j = beg[:, None] + step * lanes + lane            # (N, lanes)
+            valid = j < end[:, None]
+            j = torch.where(valid, j, 0)
+            u = indices[j].long()
+            ok = valid & (u >= k0) & (u < min(k0 + chunk, n))
+            prod = x[:, u.clamp(0, n - 1)] * data[j]          # no FMA
+            part = torch.where(ok, part + prod, part)
+        while part.shape[-1] > 1:
+            half = part.shape[-1] // 2
+            part = part[..., :half] + part[..., half:]
+        t = part[..., 0] if k0 == 0 else t + part[..., 0]
+    return torch.where(need, t, zero)
+
+
+def frontier_step_tiled_ref(front, adj, dist, sigma, lvl: int, *,
+                            chunk: int, lanes: int = 16):
+    """The forward mask+GEMM kernel's outputs bit for bit: the product
+    of :func:`masked_product_tiled` where ``dist < 0``, then
+    :func:`frontier_epilogue`."""
+    t = masked_product_tiled(front, adj, dist < 0, chunk=chunk, lanes=lanes)
+    return frontier_epilogue(t, dist, sigma, lvl)
+
+
+def backward_step_tiled_ref(coeff, adj, dist, sigma, delta, lvl: int, *,
+                            chunk: int, lanes: int = 16):
+    """The backward mask+GEMM kernel's output bit for bit: the product of
+    :func:`masked_product_tiled` where ``dist == lvl``, then
+    :func:`backward_epilogue`."""
+    t = masked_product_tiled(coeff, adj, dist == lvl, chunk=chunk,
+                             lanes=lanes)
+    return backward_epilogue(t, dist, sigma, delta, lvl)
 
 
 # ---------------------------------------------------------------------------

@@ -207,7 +207,10 @@ def test_cuda_kernels_match_plain_versions(dtype):
 
 from repro_torch.kernels import mask_gemm as MG                 # noqa: E402
 from repro_torch.kernels.ref import (backward_step_ref,         # noqa: E402
-                                     dense_from_csc, frontier_step_ref)
+                                     backward_step_tiled_ref,
+                                     dense_from_csc, frontier_step_ref,
+                                     frontier_step_tiled_ref,
+                                     masked_product_tiled)
 
 MS, MN = 77, 203
 
@@ -308,6 +311,33 @@ def test_dense_from_csc_rebuilds_the_matrix():
                                   x["a"])
 
 
+def test_kernel_csr_is_the_graph_in_bank_order():
+    """The kernels' copy of a graph's adjacency holds each row's
+    neighbours dealt round-robin over u mod 16 (each residue's entries in
+    arc order), the same matrix as the dense adjacency, and leaves the
+    graph's own arc order alone."""
+    from repro_torch.core import pn_graph
+    from repro_torch.core.graph import (KERNEL_BANKS, adjacency_csr,
+                                        adjacency_dense)
+    g = pn_graph(5)
+    arcs = g.indices.copy()
+    csr = adjacency_csr(g, torch.float64, "cpu")
+    assert np.array_equal(g.indices, arcs)
+    got = csr.indices.numpy()
+    for v in range(g.n):
+        own = arcs[g.indptr[v]:g.indptr[v + 1]]
+        buckets = [list(own[own % KERNEL_BANKS == b])
+                   for b in range(KERNEL_BANKS)]
+        dealt = []
+        while any(buckets):
+            for bucket in buckets:
+                if bucket:
+                    dealt.append(bucket.pop(0))
+        assert got[g.indptr[v]:g.indptr[v + 1]].tolist() == dealt
+    assert torch.equal(dense_from_csc(*csr),
+                       adjacency_dense(g, torch.float64, "cpu"))
+
+
 def test_mask_wrappers_route_cpu_tensors_to_plain_versions():
     MG.reset_launches()
     x = _mask_inputs(32, np.float64)
@@ -350,33 +380,191 @@ def test_mask_wrappers_reject_bad_inputs():
                          t["sigma"], t["delta"], 1)
 
 
+# The kernels' tiling, mirrored by ref.masked_product_tiled: chunks of
+# the contraction (203 = whole rows; 64 and 37 leave a ragged last chunk;
+# 1 is one row of A per chunk) and the outputs that are never summed.
+
+@pytest.mark.parametrize("dtype,rtol", [(np.float64, 1e-12),
+                                        (np.float32, 1e-6)])
+@pytest.mark.parametrize("chunk", [MN, 64, 37, 1])
+def test_tiled_mirror_matches_plain_and_pallas(dtype, rtol, chunk):
+    """The mirror of the kernels' summation order against the plain
+    versions and the Pallas kernels (interpret mode), both steps."""
+    x = _mask_inputs(40, dtype)
+    t = {k: torch.from_numpy(v) for k, v in x.items()
+         if isinstance(v, np.ndarray)}
+    csr = _tcsr(x["csr"])
+    lvl = x["lvl"]
+    got = frontier_step_tiled_ref(t["front"], csr, t["dist"], t["sigma"],
+                                  lvl, chunk=chunk)
+    plain = frontier_step_ref(t["front"], csr, t["dist"], t["sigma"], lvl)
+    pallas = _jax_mask_gemm("frontier_step", x["front"], x["a"], x["dist"],
+                            x["sigma"], lvl)
+    for want in (plain, pallas):
+        want = [np.asarray(w) for w in want]
+        _close(got[0].numpy(), want[0], rtol)
+        np.testing.assert_array_equal(got[1].numpy(), want[1])
+        _close(got[2].numpy(), want[2], rtol)
+        assert int(got[3]) == int((want[0] > 0).any()) == 1
+    blvl = lvl - 2
+    got = backward_step_tiled_ref(t["coeff"], csr, t["dist"], t["sigma"],
+                                  t["delta"], blvl, chunk=chunk)
+    want = _jax_mask_gemm("backward_step", x["coeff"], x["a"], x["dist"],
+                          x["sigma"], x["delta"], blvl)[0]
+    _close(got.numpy(), want, rtol)
+    _close(got.numpy(), backward_step_ref(t["coeff"], csr, t["dist"],
+                                          t["sigma"], t["delta"],
+                                          blvl).numpy(), rtol)
+
+
+@pytest.mark.parametrize("chunk", [MN, 50])
+def test_tiled_mirror_exact_on_integer_counts(chunk):
+    """Path counts and 0/1..3 weights sum exactly in float64, so every
+    chunking gives the plain version's outputs bit for bit."""
+    x = _mask_inputs(41, np.float64)
+    t = {k: torch.from_numpy(v) for k, v in x.items()
+         if isinstance(v, np.ndarray)}
+    csr = _tcsr(x["csr"])
+    got = frontier_step_tiled_ref(t["front"], csr, t["dist"], t["sigma"], 3,
+                                  chunk=chunk)
+    want = frontier_step_ref(t["front"], csr, t["dist"], t["sigma"], 3)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_tiled_mirror_sums_only_kept_outputs():
+    """The skip rules: an all-reached level sums nothing (nxt zero, no
+    new vertex, dist and sigma unchanged); the backward step leaves delta
+    as it is wherever dist != lvl; the masked product is zero outside
+    the mask and the full product inside it."""
+    x = _mask_inputs(42, np.float64)
+    t = {k: torch.from_numpy(v) for k, v in x.items()
+         if isinstance(v, np.ndarray)}
+    csr = _tcsr(x["csr"])
+    reached = torch.zeros_like(t["dist"])
+    nxt, dist, sigma, any_new = frontier_step_tiled_ref(
+        t["front"], csr, reached, t["sigma"], 4, chunk=64)
+    assert not nxt.any() and int(any_new) == 0
+    assert torch.equal(dist, reached) and torch.equal(sigma, t["sigma"])
+    out = backward_step_tiled_ref(t["coeff"], csr, t["dist"], t["sigma"],
+                                  t["delta"], 1, chunk=37)
+    off = t["dist"] != 1
+    assert torch.equal(out[off], t["delta"][off])
+    need = t["dist"] < 0
+    prod = masked_product_tiled(t["front"], csr, need, chunk=37)
+    assert not prod[~need].any()
+    full = t["front"] @ dense_from_csc(*csr)
+    assert torch.equal(prod[need], full[need])
+
+
+@pytest.mark.parametrize("s,n,itemsize,want", [
+    (756, 8322, 8, (3, 8322, 1)),        # first PN(64) block, float64
+    (756, 8322, 4, (6, 8322, 1)),        # the same in float32
+    (1514, 1514, 8, (8, 1514, 1)),       # PN(27)
+    (37, 30011, 8, (4, 7232, 13)),       # a float64 row does not fit
+    (3, 20, 8, (3, 20, 1)),              # fewer rows than a tile
+])
+def test_plan_tiles_fit_shared_memory(s, n, itemsize, want):
+    """The kernels' tiling on an H100's 232,448 bytes per block (less the
+    reserve) and 132 SMs: the rows of a block fit its shared memory,
+    whole rows where they fit, chunks of whole 32-column groups where
+    they do not, column splits only where few row groups leave SMs
+    idle."""
+    smem = 232448 - MG.SMEM_RESERVE
+    rows, chunk, splits = MG.plan(s, n, itemsize, smem, 132)
+    assert (rows, chunk, splits) == want
+    assert rows in MG.ROW_TILES and rows * chunk * itemsize <= smem
+    assert (chunk == n) == (n * itemsize * min(rows, s) <= smem)
+    assert chunk == n or chunk % MG.GROUP == 0
+    assert 1 <= splits <= -(-n // MG.GROUP)
+
+
+def test_plan_rejects_what_no_block_holds():
+    with pytest.raises(ValueError, match="no row segment"):
+        MG.plan(4, 100, 8, 7, 132)
+    with pytest.raises(ValueError, match="positive"):
+        MG.plan(0, 100, 8, 1024, 132)
+
+
+def _wide_inputs(seed, dtype, s, n, degree=12):
+    """A random weighted A given by column (no dense copy), with ``s``
+    rows of level state, for shapes whose rows do not fit a block."""
+    rng = np.random.default_rng(seed)
+    nnz = n * degree
+    cols = np.sort(rng.integers(0, n, nnz))
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(indptr, cols + 1, 1)
+    csr = (np.cumsum(indptr).astype(np.int32),
+           rng.integers(0, n, nnz).astype(np.int32),
+           rng.integers(1, 4, nnz).astype(dtype))
+    dist = rng.integers(-1, 3, (s, n)).astype(np.int32)
+    return dict(csr=csr, dist=dist,
+                front=((rng.integers(0, 2**14, (s, n))
+                        * (rng.random((s, n)) < 0.3)).astype(dtype)),
+                sigma=rng.integers(1, 2**12, (s, n)).astype(dtype),
+                delta=rng.random((s, n)).astype(dtype),
+                coeff=(rng.random((s, n)) * (dist == 2)).astype(dtype))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_cuda_mask_gemm_matches_plain_versions(dtype):
     """Both mask+GEMM kernels against their plain versions on the card:
     float64 at rtol 1e-12, float32 at rtol 1e-6 of the max; dist' and
-    the any-new flag exactly; one launch counted per call."""
+    the any-new flag exactly; one launch counted per call; bit for bit
+    against the mirror of their summation order (the tiled plain
+    versions at the plan's chunk) and against a second launch.  Cases:
+    S = 77, N = 203 (no multiple of a row tile or of 32), the same with
+    every vertex reached (nothing summed: nxt zero, no new vertex, dist
+    and sigma unchanged), and S = 37 rows too long for a block's shared
+    memory (N = 30,011 in float64, 58,111 in float32): the chunked
+    route."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels cannot run "
                     "on the CPU")
     npdt = np.float64 if dtype == torch.float64 else np.float32
     rtol = 1e-12 if dtype == torch.float64 else 1e-6
     x = _mask_inputs(34, npdt)
-    t = {k: torch.from_numpy(v).cuda() for k, v in x.items()
-         if isinstance(v, np.ndarray)}
-    csr = tuple(c.cuda() for c in _tcsr(x["csr"]))
-    before = dict(MG.LAUNCHES)
-    got = MG.frontier_step(t["front"], csr, t["dist"], t["sigma"], 3)
-    want = frontier_step_ref(t["front"], csr, t["dist"], t["sigma"], 3)
-    torch.cuda.synchronize()
-    assert MG.LAUNCHES["frontier_step"] == before["frontier_step"] + 1
-    for g_, w_ in ((got[0], want[0]), (got[2], want[2])):
-        _close(g_.cpu().numpy(), w_.cpu().numpy(), rtol)
-    assert torch.equal(got[1], want[1]) and int(got[3]) == int(want[3])
-    got = MG.backward_step(t["coeff"], csr, t["dist"], t["sigma"],
-                           t["delta"], 1)
-    want = backward_step_ref(t["coeff"], csr, t["dist"], t["sigma"],
-                             t["delta"], 1)
-    torch.cuda.synchronize()
-    assert MG.LAUNCHES["backward_step"] == before["backward_step"] + 1
-    _close(got.cpu().numpy(), want.cpu().numpy(), rtol)
+    reached = dict(x, dist=np.zeros_like(x["dist"]))
+    wide = _wide_inputs(35, npdt, 37, 30011 if npdt == np.float64 else 58111)
+    for case, lvl, blvl in ((x, 3, 1), (reached, 4, 0), (wide, 3, 1)):
+        t = {k: torch.from_numpy(v).cuda() for k, v in case.items()
+             if isinstance(v, np.ndarray)}
+        csr = tuple(c.cuda() for c in _tcsr(case["csr"]))
+        n = t["front"].shape[1]
+        chunk = MG._plan_for(t["front"])[1]
+        assert (chunk < n) == (case is wide)
+        before = dict(MG.LAUNCHES)
+        got = MG.frontier_step(t["front"], csr, t["dist"], t["sigma"], lvl)
+        again = MG.frontier_step(t["front"], csr, t["dist"], t["sigma"],
+                                 lvl)
+        want = frontier_step_ref(t["front"], csr, t["dist"], t["sigma"], lvl)
+        mirror = frontier_step_tiled_ref(t["front"], csr, t["dist"],
+                                         t["sigma"], lvl, chunk=chunk)
+        torch.cuda.synchronize()
+        assert MG.LAUNCHES["frontier_step"] == before["frontier_step"] + 2
+        for g_, w_ in ((got[0], want[0]), (got[2], want[2])):
+            _close(g_.cpu().numpy(), w_.cpu().numpy(), rtol)
+        assert torch.equal(got[1], want[1]) and int(got[3]) == int(want[3])
+        assert all(torch.equal(a, b) for a, b in zip(got, mirror))
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        if case is reached:
+            assert not got[0].any() and int(got[3]) == 0
+            assert torch.equal(got[1], t["dist"])
+            assert torch.equal(got[2], t["sigma"])
+        else:
+            assert int(got[3]) == 1
+        got = MG.backward_step(t["coeff"], csr, t["dist"], t["sigma"],
+                               t["delta"], blvl)
+        again = MG.backward_step(t["coeff"], csr, t["dist"], t["sigma"],
+                                 t["delta"], blvl)
+        want = backward_step_ref(t["coeff"], csr, t["dist"], t["sigma"],
+                                 t["delta"], blvl)
+        mirror = backward_step_tiled_ref(t["coeff"], csr, t["dist"],
+                                         t["sigma"], t["delta"], blvl,
+                                         chunk=chunk)
+        torch.cuda.synchronize()
+        assert MG.LAUNCHES["backward_step"] == before["backward_step"] + 2
+        _close(got.cpu().numpy(), want.cpu().numpy(), rtol)
+        assert torch.equal(got, mirror) and torch.equal(got, again)
+        del t, csr, got, again, want, mirror
+        torch.cuda.empty_cache()
