@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card, end to end, and check
 it: the flow-level simulator, the analytic arc-load engines behind its
-reference theta, and the serving path of smollm-135m and mamba2-130m.
+reference theta, the serving and training paths of smollm-135m and
+mamba2-130m, and the paper's topology families and fault model.
 
     python3 chip_smoke.py
 
@@ -143,6 +144,38 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     1e-2 relative.  Prints ms per warm step, tokens/s, peak memory, and
     one step under torch.profiler: the idle share and the shares of #5,
     #6 and #7.
+
+16. The paper's comparison on the card, every graph built by the port
+    itself (no ``convert``): ``saturation_report`` of ``uniform`` under
+    ``minimal`` and ``ugal`` on demi-PN(16), OFT(4), the 8 x 16 torus
+    and dragonfly(3), each theta within rtol 1e-9 of the reference's
+    value recorded below, #3 / #4 launched in whole sweeps of the
+    graph's depth (its sources' largest BFS distance); at full width,
+    demi-PN(64) (4161 routers), OFT(27) (2271) and the 16^3 torus (4096,
+    diameter 24), fused against dense on the card, loads within rtol
+    1e-9, OFT's u = 1 and kbar = 2; then the simulator on three rows of
+    ``benchmarks/sim_bench.py::SIM_CASES`` with their own parameters on
+    the fused step, each knee within 0.025 of the analytic theta, 3
+    launches of #1 and one of #2 (ugal) a step.
+17. The fault model, analytic, on the card: the ten degradation rows of
+    ``BENCH_6.json`` (five graphs x minimal / ugal, k = 0, 1, 2, 5 dead
+    links, 4 trials, seed 0), every mean, worst, best, p10, p50 and p90
+    within 1e-6 of the recorded six digits, the curves non-increasing,
+    #3 / #4 launched for every sweep at least as deep as the pristine
+    graph's;
+    ``degraded_report`` of PN(64) with ``random_faults(k_links=5,
+    seed=0)``, minimal and ugal, fused against dense within rtol 1e-9 and
+    below the pristine theta; one ``targeted_faults`` round on PN(27) at
+    least as damaging as the random mean.
+18. Faults in the simulator, on the fused step: BENCH_6's live row
+    (the 8 x 16 torus, minimal, two dead links) as a static knee (event
+    at step 0) and a mid-run knee (event at step 259 of 648), within
+    0.025 of each other and of BENCH_6's static knee; phase 7's PN(27)
+    instance with five dead links, static and mid-run (event at step 16
+    of 40), knee gap at most 0.025, every probe's residual at most 1e-4
+    with the dropped fluid counted, #1 and #2 launched 3 and 1 times a
+    step; a faulted probe repeated bitwise; a point router of PN(27)
+    dying mid-run, its fluid dropped, counted and conserved.
 
 Output: the card's name and power limit, then a ``kernels`` JSON line,
 then ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -1754,6 +1787,507 @@ def train_smollm(dev):
                           peak=peak)
 
 
+# ---------------------------------------------------------------------------
+# The paper's topology families and the fault model: phases 16-18
+# ---------------------------------------------------------------------------
+
+# the reference's analytic thetas (repro.core.traffic.saturation_report,
+# engine "numpy"), the expected values of phase 16
+FAMILY_THETAS = {
+    ("demi_pn16", "uniform", "minimal"): 8.5,
+    ("demi_pn16", "uniform", "ugal"): 8.5,
+    ("oft4", "uniform", "minimal"): 5.0,
+    ("oft4", "uniform", "ugal"): 5.0,
+    ("torus2d_8x16", "uniform", "minimal"): 0.49609375,
+    ("torus2d_8x16", "uniform", "ugal"): 0.49609375,
+    ("dragonfly3", "uniform", "minimal"): 2.2773512476007673,
+    ("dragonfly3", "uniform", "ugal"): 2.2773512476007673,
+    ("torus2d_8x16", "tornado", "ugal"): 0.41471354166666663,
+}
+# three rows of benchmarks/sim_bench.py::SIM_CASES with their own
+# parameters: (graph, pattern, sim routing, load grid, steps, refine)
+SIM_ROWS = (("demi_pn16", "uniform", "minimal", (0.90, 1.06), 64, 2),
+            ("oft4", "uniform", "ugal_threshold(0)", (0.90, 1.06), 96, 2),
+            ("torus2d_8x16", "tornado", "ugal_threshold(0)", (0.90, 1.06),
+             320, 3))
+# BENCH_6.json's degradation rows (benchmarks/fault_bench.py: uniform,
+# k = 0, 1, 2, 5 link failures, 4 trials, seed 0), rounded there to six
+# digits; it records the same curves under minimal and ugal for every
+# graph (uniform traffic: the ugal blend is pure minimal)
+BENCH6_K = (0, 1, 2, 5)
+BENCH6_ROWS = {
+    "pn16": {
+        "mean_theta": [6.971407, 6.954706, 6.937996, 6.903575],
+        "worst_theta": [6.971407, 6.954706, 6.937996, 6.902914],
+        "best_theta": [6.971407, 6.954706, 6.937996, 6.905339],
+        "p10": [6.971407, 6.954706, 6.937996, 6.90294],
+        "p50": [6.971407, 6.954706, 6.937996, 6.903024],
+        "p90": [6.971407, 6.954706, 6.937996, 6.904651],
+    },
+    "demi_pn16": {
+        "mean_theta": [8.5, 8.02952, 8.013534, 7.982969],
+        "worst_theta": [8.5, 8.02952, 7.995097, 7.965829],
+        "best_theta": [8.5, 8.02952, 8.02952, 8.02952],
+        "p10": [8.5, 8.02952, 7.996568, 7.966413],
+        "p50": [8.5, 8.02952, 8.01476, 7.968264],
+        "p90": [8.5, 8.02952, 8.02952, 8.011289],
+    },
+    "oft4": {
+        "mean_theta": [5.0, 4.0, 3.911397, 3.33186],
+        "worst_theta": [5.0, 4.0, 3.870533, 2.87797],
+        "best_theta": [5.0, 4.0, 3.952261, 3.762317],
+        "p10": [5.0, 4.0, 3.870533, 2.914579],
+        "p50": [5.0, 4.0, 3.911397, 3.343577],
+        "p90": [5.0, 4.0, 3.952261, 3.739768],
+    },
+    "torus2d_8x16": {
+        "mean_theta": [0.496094, 0.428256, 0.392447, 0.353193],
+        "worst_theta": [0.496094, 0.364706, 0.35244, 0.341207],
+        "best_theta": [0.496094, 0.491807, 0.489407, 0.361721],
+        "p10": [0.496094, 0.364706, 0.355761, 0.344184],
+        "p50": [0.496094, 0.428256, 0.36397, 0.354923],
+        "p90": [0.496094, 0.491807, 0.451915, 0.360819],
+    },
+    "dragonfly3": {
+        "mean_theta": [2.277351, 2.142933, 2.11705, 2.041241],
+        "worst_theta": [2.277351, 2.052739, 2.052739, 1.955211],
+        "best_theta": [2.277351, 2.226016, 2.223527, 2.196189],
+        "p10": [2.277351, 2.06057, 2.06057, 1.965475],
+        "p50": [2.277351, 2.14649, 2.095967, 2.006781],
+        "p90": [2.277351, 2.222452, 2.190396, 2.144574],
+    },
+}
+BENCH6_TOL = 1e-6
+# BENCH_6.json's live row: torus2d_8x16, minimal, random_faults(k_links=2,
+# seed=0); its fault set, analytic degraded theta and static knee
+BENCH6_LIVE = dict(faults="links[15-127,46-62]", theta_analytic=0.487234,
+                   theta_static=0.500633, steps=648)
+
+
+def build_family(name: str):
+    """The port's own graph of each family name of phases 16-18."""
+    from repro_torch.core import demi_pn_graph, dragonfly_graph, oft_graph
+    from repro_torch.core import pn_graph
+    from repro_torch.fabric import torus3d_graph
+    return {"pn16": lambda: pn_graph(16),
+            "demi_pn16": lambda: demi_pn_graph(16),
+            "oft4": lambda: oft_graph(4),
+            "torus2d_8x16": lambda: torus3d_graph(8, 16, 1),
+            "dragonfly3": lambda: dragonfly_graph(3),
+            "demi_pn64": lambda: demi_pn_graph(64),
+            "oft27": lambda: oft_graph(27),
+            "torus3d_16": lambda: torus3d_graph(16, 16, 16)}[name]()
+
+
+def _sources_ecc(g, dev) -> int:
+    """The largest BFS distance from the graph's active sources (the leaf
+    set of an indirect network): the depth of every sweep over them."""
+    from repro_torch.core import bfs_distances_batched
+    leaf = g.meta.get("leaf_mask")
+    src = np.arange(g.n) if leaf is None else np.nonzero(leaf)[0]
+    return int(bfs_distances_batched(g, src, dev).max())
+
+
+def _mask_gemm_sweeps(name, launches: dict, ecc: int, blocks: int) -> int:
+    """The arc-load sweeps behind ``launches`` of #3 / #4: each source
+    block launches #3 once per BFS level (ecc + 1) and #4 once per
+    dependency level (ecc)."""
+    fwd, bwd = launches["frontier_step"], launches["backward_step"]
+    per_fwd, per_bwd = blocks * (ecc + 1), blocks * ecc
+    sweeps = fwd // per_fwd
+    if sweeps < 1 or fwd != sweeps * per_fwd or bwd != sweeps * per_bwd:
+        raise AssertionError(
+            f"{name}: launches {launches} are not whole sweeps of "
+            f"{blocks} source block(s) at depth {ecc}")
+    return sweeps
+
+
+def _source_blocks(g) -> int:
+    from repro_torch.core.utilization import _source_block_rows
+    leaf = g.meta.get("leaf_mask")
+    n_src = g.n if leaf is None else int(np.count_nonzero(leaf))
+    return -(-n_src // _source_block_rows(g.n))
+
+
+def check_families(dev):
+    """Phase 16: the paper's comparison on the card, every family built
+    by the port itself."""
+    from repro_torch.core import saturation_report
+    from repro_torch.kernels import mask_gemm as MG
+    from repro_torch.kernels import sim_step as K
+    from repro_torch.sim import SimConfig, saturation_sweep
+
+    launches = {"frontier_step": 0, "backward_step": 0}
+    for name in ("demi_pn16", "oft4", "torus2d_8x16", "dragonfly3"):
+        g = build_family(name)
+        ecc = _sources_ecc(g, dev)
+        for routing in ("minimal", "ugal"):
+            want = FAMILY_THETAS[(name, "uniform", routing)]
+            MG.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = saturation_report(g, "uniform", routing=routing,
+                                    device=dev)
+            seconds = time.perf_counter() - t0
+            got = dict(MG.LAUNCHES)
+            sweeps = _mask_gemm_sweeps(f"{name} {routing}", got, ecc,
+                                       _source_blocks(g))
+            rel = abs(rep.theta - want) / want
+            log(f"{name} ({g.n} routers, {2 * g.num_edges} arcs) uniform "
+                f"{routing}: theta {rep.theta!r} vs reference {want!r}, "
+                f"rel err {rel:.3e}; {seconds:.3f} s; launches {got} "
+                f"({sweeps} sweeps of depth {ecc})")
+            if not rel <= THETA_RTOL:
+                raise AssertionError(f"{name} {routing} theta rel err {rel}")
+            for key in launches:
+                launches[key] += got[key]
+
+    # full width: fused against dense on the card
+    for name in ("demi_pn64", "oft27", "torus3d_16"):
+        g = build_family(name)
+        ecc = _sources_ecc(g, dev)
+        blocks = _source_blocks(g)
+        for routing in ("minimal", "ugal"):
+            reps = {}
+            for engine in ("fused", "dense"):
+                MG.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                reps[engine] = saturation_report(g, "uniform",
+                                                 routing=routing,
+                                                 engine=engine, device=dev)
+                seconds = time.perf_counter() - t0
+                got = dict(MG.LAUNCHES)
+                r = reps[engine]
+                log(f"{name} ({g.n} routers, {2 * g.num_edges} arcs) "
+                    f"uniform {routing} {engine}: theta {r.theta!r}, u "
+                    f"{r.u!r}, kbar {r.kbar_eff!r}, diameter {r.diameter}; "
+                    f"{seconds:.3f} s; launches {got}")
+                if engine == "fused":
+                    sweeps = _mask_gemm_sweeps(f"{name} {routing}", got,
+                                               ecc, blocks)
+                    log(f"{name} {routing}: {sweeps} sweeps of {blocks} "
+                        f"source blocks at depth {ecc}")
+                    for key in launches:
+                        launches[key] += got[key]
+                elif any(got.values()):
+                    raise AssertionError("the dense engine launched the "
+                                         "mask+GEMM kernels")
+            want = reps["dense"].loads
+            err = float(np.abs(reps["fused"].loads - want).max())
+            if not err <= THETA_RTOL * float(np.abs(want).max()):
+                raise AssertionError(f"{name} {routing} fused vs dense "
+                                     f"loads: max error {err}")
+            log(f"{name} {routing}: fused vs dense loads max abs error "
+                f"{err:.3e}")
+            if name == "oft27" and routing == "minimal":
+                r = reps["fused"]
+                if not (abs(r.u - 1.0) <= 1e-12
+                        and abs(r.kbar_eff - 2.0) <= 1e-12):
+                    raise AssertionError(f"oft27: u {r.u!r}, kbar "
+                                         f"{r.kbar_eff!r}, not 1 and 2")
+
+    # the simulator on three SIM_CASES rows, on the fused step
+    sim_launches = {"fused_step_update": 0, "fused_decision": 0}
+    for name, pattern, routing, grid, steps, refine in SIM_ROWS:
+        g = build_family(name)
+        th = FAMILY_THETAS[(name, pattern,
+                            "minimal" if routing == "minimal" else "ugal")]
+        K.reset_launches()
+        MG.reset_launches()
+        t0 = time.perf_counter()
+        sw = saturation_sweep(g, pattern, routing=routing,
+                              loads=np.asarray(grid) * th, steps=steps,
+                              refine=refine, theta_analytic=th,
+                              config=SimConfig(backend="fused"), device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = dict(K.LAUNCHES)
+        total_steps = sum(r.steps for r in sw.runs)
+        rel = abs(sw.theta - th) / th
+        log(f"sim {name}:{pattern}:{routing}: knee {sw.theta:.5f} vs "
+            f"analytic {th:.5f} (err {rel:.4f}), bracket "
+            f"[{sw.theta:.5f}, {sw.theta_unstable:.5f}], {len(sw.runs)} "
+            f"probes x {steps} steps in {seconds:.2f} s "
+            f"({1e3 * seconds / total_steps:.2f} ms/step); launches {got}")
+        if any(r.backend != "fused" for r in sw.runs):
+            raise AssertionError(f"sim {name} fell back to the dense step")
+        if any(MG.LAUNCHES.values()):
+            raise AssertionError("a sweep given its theta launched #3/#4")
+        if not rel <= KNEE_BUDGET:
+            raise AssertionError(f"sim {name} knee error {rel}")
+        want = {"fused_step_update": 3 * total_steps,
+                "fused_decision": total_steps if routing != "minimal" else 0}
+        if got != want:
+            raise AssertionError(f"sim {name}: launches {got}, expected "
+                                 f"{want} (3 of #1 and one of #2 a step)")
+        for r in sw.runs:
+            if not r.residual <= 1e-4:
+                raise AssertionError(f"sim {name} residual {r.residual}")
+        for key in sim_launches:
+            sim_launches[key] += got[key]
+    return {**launches, **sim_launches}
+
+
+def check_faults_analytic(dev):
+    """Phase 17: the fault model's analytic side on the card."""
+    from repro_torch.core import (degradation_sweep, degraded_report,
+                                  pn_graph, random_faults, targeted_faults)
+    from repro_torch.kernels import mask_gemm as MG
+
+    launches = {"frontier_step": 0, "backward_step": 0}
+    for name, want in BENCH6_ROWS.items():
+        g = build_family(name)
+        # dead links only lengthen routes: every sweep of a row is at
+        # least as deep as the pristine graph's
+        ecc, blocks = _sources_ecc(g, dev), _source_blocks(g)
+        for routing in ("minimal", "ugal"):
+            MG.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sw = degradation_sweep(g, k_failures=BENCH6_K, trials=4,
+                                   pattern="uniform", routing=routing,
+                                   kind="links", seed=0, device=dev)
+            seconds = time.perf_counter() - t0
+            got = dict(MG.LAUNCHES)
+            curves = {"mean_theta": sw.mean, "worst_theta": sw.worst,
+                      "best_theta": sw.best, "p10": sw.bands[10],
+                      "p50": sw.bands[50], "p90": sw.bands[90]}
+            err = max(float(np.abs(np.asarray(curves[key])
+                                   - np.asarray(want[key])).max())
+                      for key in want)
+            log(f"faults[{name}:{routing}]: mean "
+                f"{np.round(sw.mean, 6).tolist()}, worst "
+                f"{np.round(sw.worst, 6).tolist()}; max |err| against "
+                f"BENCH_6 {err:.2e}; {seconds:.2f} s for 13 reports; "
+                f"launches {got}")
+            if not err <= BENCH6_TOL:
+                raise AssertionError(f"faults[{name}:{routing}] off "
+                                     f"BENCH_6 by {err}")
+            for curve in (sw.mean, sw.worst):
+                if (np.diff(curve) > 1e-12 * curve[0]).any():
+                    raise AssertionError(f"faults[{name}:{routing}] curve "
+                                         f"rises: {curve}")
+            # the pristine report and 12 degraded ones, 1 or 3 sweeps each
+            sweeps = 13 * (1 if routing == "minimal" else 3)
+            if not (got["frontier_step"] >= sweeps * blocks * (ecc + 1)
+                    and got["backward_step"] >= sweeps * blocks * ecc):
+                raise AssertionError(f"faults[{name}:{routing}]: launches "
+                                     f"{got} short of {sweeps} sweeps at "
+                                     f"depth {ecc} or more")
+            for key in launches:
+                launches[key] += got[key]
+
+    # full width: PN(64) with five dead links, fused against dense
+    g = pn_graph(64)
+    q = g.meta["q"]
+    npts = q * q + q + 1
+    kbar = ((q + 1) + 2 * (npts - 1) + 3 * (npts - q - 1)) / (g.n - 1)
+    pristine = (q + 1) / kbar       # uniform theta of PN(q): u = 1
+    t0 = time.perf_counter()
+    fs = random_faults(g, k_links=5, seed=0)
+    log(f"pn64 random_faults(k_links=5, seed=0): {fs.label} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for routing in ("minimal", "ugal"):
+        reps = {}
+        for engine in ("fused", "dense"):
+            MG.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reps[engine] = degraded_report(g, "uniform", fs, routing=routing,
+                                           engine=engine, device=dev)
+            seconds = time.perf_counter() - t0
+            got = dict(MG.LAUNCHES)
+            r = reps[engine]
+            log(f"pn64 degraded {routing} {engine}: theta {r.theta!r} "
+                f"(pristine {pristine!r}, {r.theta / pristine:.6f}x), "
+                f"kbar {r.kbar_eff!r}, diameter {r.diameter}; "
+                f"{seconds:.2f} s; launches {got}")
+            if engine == "fused":
+                if not (got["frontier_step"] > 0
+                        and got["backward_step"] > 0):
+                    raise AssertionError("pn64 degraded report never "
+                                         "launched #3 / #4")
+                for key in launches:
+                    launches[key] += got[key]
+        want = reps["dense"].loads
+        err = float(np.abs(reps["fused"].loads - want).max())
+        if not err <= THETA_RTOL * float(np.abs(want).max()):
+            raise AssertionError(f"pn64 degraded {routing}: fused vs dense "
+                                 f"max error {err}")
+        if not reps["fused"].theta < pristine:
+            raise AssertionError(f"pn64 degraded {routing} theta "
+                                 f"{reps['fused'].theta} not below "
+                                 f"{pristine}")
+        log(f"pn64 degraded {routing}: fused vs dense loads max abs error "
+            f"{err:.3e}")
+    # where a degraded report's time goes: a weighted sweep
+    profile_device(lambda: degraded_report(g, "uniform", fs, device=dev),
+                   1, "report", "profile pn64 degraded minimal")
+
+    # one targeted round on PN(27) against the random mean
+    g = pn_graph(27)
+    MG.reset_launches()
+    t0 = time.perf_counter()
+    fs = targeted_faults(g, k=1, kind="links", device=dev)
+    th_t = degraded_report(g, "uniform", fs, device=dev).theta
+    th_r = [degraded_report(g, "uniform", random_faults(g, k_links=1,
+                                                        seed=s),
+                            device=dev).theta for s in range(4)]
+    got = dict(MG.LAUNCHES)
+    log(f"pn27 targeted_faults(k=1): {fs.label}, theta {th_t!r} against "
+        f"the random mean {np.mean(th_r)!r} ({th_r}); "
+        f"{time.perf_counter() - t0:.2f} s; launches {got}")
+    if not th_t <= float(np.mean(th_r)) * (1 + 1e-9):
+        raise AssertionError("the targeted cut is less damaging than the "
+                             "random mean")
+    for key in launches:
+        launches[key] += got[key]
+    return launches
+
+
+def _uniform_demand(g) -> np.ndarray:
+    from repro_torch.core import make_pattern, normalize_demand
+    return normalize_demand(make_pattern("uniform").demand(g))
+
+
+def check_faults_sim(dev, th_pn27: float):
+    """Phase 18: faults in the simulator, on the fused step."""
+    from repro_torch.core import FaultSet, degraded_report, pn_graph
+    from repro_torch.core import random_faults
+    from repro_torch.kernels import sim_step as K
+    from repro_torch.sim import SimConfig, Simulator, saturation_sweep
+
+    launches = {"fused_step_update": 0, "fused_decision": 0}
+
+    def count(label, sw, per_decision):
+        got = dict(K.LAUNCHES)
+        steps = sum(r.steps for r in sw.runs)
+        want = {"fused_step_update": 3 * steps,
+                "fused_decision": per_decision * steps}
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+        for r in sw.runs:
+            if r.backend != "fused":
+                raise AssertionError(f"{label} fell back to {r.backend}")
+            if not r.residual <= 1e-4:
+                raise AssertionError(f"{label} residual {r.residual}")
+        for key in launches:
+            launches[key] += got[key]
+        return steps
+
+    # BENCH_6's live row: torus2d_8x16, minimal, two dead links
+    g = build_family("torus2d_8x16")
+    fs = random_faults(g, k_links=2, seed=0)
+    ref = degraded_report(g, "uniform", fs, routing="minimal",
+                          device=dev).theta
+    if fs.label != BENCH6_LIVE["faults"] or not abs(
+            ref - BENCH6_LIVE["theta_analytic"]) <= BENCH6_TOL:
+        raise AssertionError(f"torus2d_8x16 faults {fs.label}, theta "
+                             f"{ref} are not BENCH_6's")
+    cfg = SimConfig(backend="fused")
+    knees = {}
+    for label, steps, at in (("static", None, 0),
+                             ("mid-run", BENCH6_LIVE["steps"],
+                              int(0.4 * BENCH6_LIVE["steps"]))):
+        K.reset_launches()
+        t0 = time.perf_counter()
+        sw = saturation_sweep(g, "uniform", "minimal",
+                              loads=np.array([0.96, 1.05]) * ref, refine=2,
+                              theta_analytic=ref, steps=steps,
+                              events=[(at, fs)], config=cfg, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n_steps = count(f"torus2d_8x16 {label}", sw, 0)
+        knees[label] = sw.theta
+        log(f"torus2d_8x16 {label} (event at step {at}): knee "
+            f"{sw.theta:.6f}, {len(sw.runs)} probes of {sw.runs[0].steps} "
+            f"steps, {seconds:.2f} s ({1e3 * seconds / n_steps:.2f} "
+            f"ms/step); dropped {[r.dropped for r in sw.runs]}")
+    tsim = Simulator(g, cfg, device=dev)
+    profile_device(lambda: tsim.run(_uniform_demand(g), ref, 24,
+                                    events=[(8, fs)]),
+                   24, "step", "profile torus2d_8x16 faulted")
+    gap = abs(knees["static"] - knees["mid-run"]) / knees["static"]
+    off = max(abs(k - BENCH6_LIVE["theta_static"])
+              / BENCH6_LIVE["theta_static"] for k in knees.values())
+    log(f"torus2d_8x16: static vs mid-run knee gap {gap:.4f}, largest "
+        f"gap to BENCH_6's {BENCH6_LIVE['theta_static']} {off:.4f}")
+    if not (gap <= KNEE_BUDGET and off <= KNEE_BUDGET):
+        raise AssertionError(f"torus2d_8x16 knee gaps {gap}, {off}")
+
+    # full width: phase 7's PN(27) instance with five dead links
+    g = pn_graph(27)
+    dem = points_demand(g, 27)
+    fs = random_faults(g, k_links=5, seed=0)
+    t0 = time.perf_counter()
+    th = degraded_report(g, dem, fs, routing="ugal", device=dev).theta
+    log(f"pn27 points {fs.label}: degraded ugal theta {th!r} (pristine "
+        f"{th_pn27!r}) in {time.perf_counter() - t0:.2f} s")
+    if not th <= th_pn27 * (1 + 1e-12):
+        raise AssertionError("pn27 degraded theta above the pristine one")
+    cfg = SimConfig(routing="ugal_threshold(0)", backend="fused")
+    steps, at = 40, 16
+    knees = {}
+    for label, event in (("static", 0), ("mid-run", at)):
+        K.reset_launches()
+        t0 = time.perf_counter()
+        sw = saturation_sweep(g, dem, routing="ugal_threshold(0)",
+                              config=cfg, loads=np.array([0.96, 1.05]) * th,
+                              steps=steps, refine=3, theta_analytic=th,
+                              events=[(event, fs)], device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n_steps = count(f"pn27 {label}", sw, 1)
+        knees[label] = sw.theta
+        for r in sw.runs:
+            log(f"pn27 {label} probe offered {r.offered:.4f}: theta "
+                f"{r.theta:.4f} residual {r.residual:.2e} dropped "
+                f"{r.dropped:.3e}")
+        log(f"pn27 {label} (event at step {event}): knee {sw.theta:.4f} vs "
+            f"degraded analytic {th:.4f} ({sw.theta / th:.4f}x), "
+            f"{seconds:.2f} s for {n_steps} steps "
+            f"({1e3 * seconds / n_steps:.2f} ms/step, tables included); "
+            f"launches {dict(K.LAUNCHES)}")
+    gap = abs(knees["static"] - knees["mid-run"]) / knees["static"]
+    log(f"pn27: static vs mid-run knee gap {gap:.4f}")
+    if not gap <= KNEE_BUDGET:
+        raise AssertionError(f"pn27 static vs mid-run knee gap {gap}")
+
+    sim = Simulator(g, cfg, demand=dem, device=dev)
+    q = g.meta["q"]
+    if sim.dest_cols is None or len(sim.dest_cols) != q * q + q + 1:
+        raise AssertionError("pn27 does not run on the points' compacted "
+                             "columns")
+    a = sim.run(dem, th, steps, events=[(at, fs)])
+    b = sim.run(dem, th, steps, events=[(at, fs)])
+    for key, va in a.history.items():
+        if not np.array_equal(va, b.history[key]):
+            raise AssertionError(f"pn27 faulted history[{key!r}] not "
+                                 f"bitwise reproducible")
+    profile_device(lambda: sim.run(dem, th, 8, events=[(2, fs)]), 8,
+                   "step", "profile pn27 faulted")
+    # a point router dies mid-run: its column stays, its fluid is dropped
+    dead = FaultSet(routers=(5,))
+    K.reset_launches()
+    r = sim.run(dem, 0.9 * th, steps, events=[(at, dead)])
+    got = dict(K.LAUNCHES)
+    log(f"pn27 faulted probe repeated bitwise; router 5 dies at step {at}: "
+        f"dropped {r.dropped!r}, residual {r.residual:.2e}, theta "
+        f"{r.theta:.4f} of {r.offered:.4f} offered, live links "
+        f"{len(r.link_util)} (max utilization {r.link_util.max():.3f}); "
+        f"launches {got}")
+    if not (r.dropped > 0 and r.residual <= 1e-4
+            and r.faults == dead.label):
+        raise AssertionError("pn27 router fault: no drop counted or not "
+                             "conserved")
+    if got != {"fused_step_update": 3 * steps, "fused_decision": steps}:
+        raise AssertionError(f"pn27 router fault run: launches {got}")
+    for key in launches:
+        launches[key] += got[key]
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA "
@@ -1808,6 +2342,18 @@ def main() -> int:
     for kname in bwd_errs:
         launches[kname] = train_launches[kname]
     done("15")
+    # phases 16-18 run kernels #1-#4 on new paths: their launches there
+    # go beside each kernel's main-path count
+    phase_launches = {}
+    for phase, fn in (("16", lambda: check_families(dev)),
+                      ("17", lambda: check_faults_analytic(dev)),
+                      ("18", lambda: check_faults_sim(
+                          dev, thetas["pn27 points"]))):
+        t0 = time.perf_counter()
+        for kname, count in fn().items():
+            phase_launches.setdefault(kname, {})[phase] = count
+        log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+        done(phase)
 
     errs.update(mg_errs)
     timing.update(mg_timing)
@@ -1836,6 +2382,8 @@ def main() -> int:
                 "bound_ms": timing[kname]["bound_ms"],
                 "bound_by": timing[kname].get("bound_by", "bytes"),
                 "library_ms": timing[kname].get("library_ms"),
+                **({"phase_launches": phase_launches[kname]}
+                   if kname in phase_launches else {}),
                 **{key: timing[kname][key]
                    for key in ("device_ms", "library_device_ms", "train_ms",
                                "train_device_ms", "train_library_ms",

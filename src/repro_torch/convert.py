@@ -1,12 +1,12 @@
-"""Carry topology, route tables, fluid state, model weights and serve
-caches across from plain arrays.
+"""Carry topology, fault sets, route tables, fluid state, model weights
+and serve caches across from plain arrays.
 
-The reference package builds graph families this slice does not port yet
-(tori, fat trees, placement graphs) and keeps its tables, state, weights
-and caches as arrays.  These helpers build the port's objects from such
-arrays (and caches back), so both packages compute the same thing on the
-same inputs.  They take arrays, never objects of the reference, and
-import nothing of it.
+The reference package builds graphs the port has no constructor for yet
+(placement graphs) and keeps its fault sets, tables, state, weights and
+caches as plain values and arrays.  These helpers build the port's
+objects from such values (and caches back), so both packages compute
+the same thing on the same inputs.  They take arrays and tuples, never
+objects of the reference, and import nothing of it.
 """
 
 from __future__ import annotations
@@ -16,13 +16,15 @@ import torch
 
 from ._device import resolve_device
 from .configs.base import ArchConfig
+from .core.faults import FaultSet
 from .core.graph import Graph
 from .models.model import build
 from .models.transformer import Model, layer_plan
 from .sim.engine import SimState
 from .sim.tables import RouteTables
 
-__all__ = ["graph_from_arrays", "tables_from_numpy", "state_from_numpy",
+__all__ = ["graph_from_arrays", "fault_set_from_arrays",
+           "tables_from_numpy", "state_from_numpy",
            "state_to_numpy", "params_from_numpy", "params_to_numpy",
            "cache_from_numpy", "cache_to_numpy"]
 
@@ -40,16 +42,21 @@ def graph_from_arrays(n: int, edges, meta: dict | None = None,
                  meta=meta)
 
 
+def fault_set_from_arrays(links=(), routers=()) -> FaultSet:
+    """The port's FaultSet from endpoint pairs of down links and ids of
+    down routers (a reference FaultSet's ``links`` and ``routers``)."""
+    return FaultSet(links=tuple(map(tuple, links)), routers=tuple(routers))
+
+
 def tables_from_numpy(device=None, **fields) -> RouteTables:
     """RouteTables from numpy fields named as the dataclass's (``n``,
-    ``k``, ``m``, ``active``, ``head``, ``split``, ...), as tensors on
-    ``device`` with the arrays' dtypes.  Faulted tables are not supported
-    yet."""
-    if fields.get("faulted", False):
-        raise NotImplementedError("fault-aware tables are not ported yet")
+    ``k``, ``m``, ``active``, ``head``, ``split``, ..., the fault masks
+    ``slot_ok``, ``router_ok``, ``dest_ok``, ``routable`` and
+    ``faulted``), as tensors on ``device`` with the arrays' dtypes."""
     device = resolve_device(device)
     kw = {"n": int(fields["n"]), "k": int(fields["k"]),
-          "m": int(fields["m"]), "faulted": False}
+          "m": int(fields["m"]),
+          "faulted": bool(fields.get("faulted", False))}
     for key in _TABLE_ARRAYS:
         arr = fields.get(key)
         if arr is None:

@@ -1,12 +1,29 @@
 """Topology construction and the analytic cost model for the port: GF(q),
-the Graph container with batched BFS, PN graphs, the traffic-pattern
-registry, the arc-load engines and the routing models."""
+the Graph container with batched BFS, the paper's topology families (PN,
+demi-PN, OFT, MLFM, MMS) and the reference topologies, the Moore bounds,
+the traffic-pattern registry, the arc-load engines, the routing models
+and the fault model."""
 
-from .gf import GF, get_field, is_prime_power
+from .faults import (DegradationSweep, FaultReport, FaultSet,
+                     degradation_sweep, degraded_report, fault_report,
+                     random_faults, targeted_faults)
+from .gf import GF, get_field, is_prime_power, prime_power_decompose
 from .graph import (CsrAdjacency, Graph, adjacency_csr, adjacency_dense,
-                    bfs_distances_batched)
-from .projective import (incidence_lists, normalize_points, num_points,
-                         pn_graph, point_index, points)
+                    bfs_distances, bfs_distances_batched,
+                    distance_distribution)
+from .mms import mms_eps, mms_generator_sets, mms_graph
+from .moore import (generalized_moore_distribution, generalized_moore_kbar,
+                    kbar_approx, min_kbar, moore_bound,
+                    moore_distance_distribution, terminals_bound)
+from .projective import (demi_pn_graph, incidence_lists, mlfm_graph,
+                         normalize_points, num_points, oft_graph, pn_graph,
+                         point_index, points, self_orthogonal_points,
+                         subplane_classes, subplane_line_classes)
+from .reference import (complete_bipartite_graph, complete_graph,
+                        dragonfly_canonical_stats, dragonfly_graph,
+                        hamming_graph, hypercube_graph, paley_graph,
+                        random_regular_graph, turan_graph)
+from .registry import TOPOLOGIES, build_topology
 from .routing import (ROUTINGS, RoutingModel, RoutingResult, blend_optimum,
                       evaluate_models, make_routing, register_routing)
 from .traffic import (DEFAULT_SWEEP, PATTERNS, SaturationReport,

@@ -1,8 +1,7 @@
 """Finite-field arithmetic GF(q) for q = p^m, vectorized over numpy arrays.
 
 The port's own copy of ``repro.core.gf`` (numpy only, unchanged in
-behaviour; only the operations the PN construction uses), so that
-``repro_torch`` imports nothing of ``repro``.
+behaviour), so that ``repro_torch`` imports nothing of ``repro``.
 
 Elements of GF(p^m) are encoded as integers in [0, q): the integer's base-p
 digits are the coefficients of the element's polynomial representation over
@@ -218,6 +217,9 @@ class GF:
     def neg(self, a):
         return self._neg[np.asarray(a)]
 
+    def sub(self, a, b):
+        return self._add_hi[np.asarray(a), self._neg[np.asarray(b)]]
+
     def mul(self, a, b):
         a = np.asarray(a)
         b = np.asarray(b)
@@ -229,6 +231,31 @@ class GF:
         if np.any(a == 0):
             raise ZeroDivisionError("inverse of 0 in GF(q)")
         return self._inv[a]
+
+    def div(self, a, b):
+        return self.mul(a, self.inv(b))
+
+    def pow(self, a, k: int):
+        a = np.asarray(a)
+        if k == 0:
+            return np.ones_like(a)
+        out = self.exp[(self.log[a] * (k % (self.q - 1))) % (self.q - 1)]
+        return np.where(a == 0, 0, out)
+
+    def primitive_element(self) -> int:
+        return int(self.exp[1]) if self.q > 2 else 1
+
+    def squares(self) -> np.ndarray:
+        """The set of nonzero squares of GF(q)."""
+        e = np.arange(0, self.q - 1, 2)
+        return np.unique(self.exp[e])
+
+    def dot3(self, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+        """Scalar product of 3-vectors over GF(q); u, v shaped (..., 3)."""
+        t0 = self.mul(u[..., 0], v[..., 0])
+        t1 = self.mul(u[..., 1], v[..., 1])
+        t2 = self.mul(u[..., 2], v[..., 2])
+        return self.add(self.add(t0, t1), t2)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,9 +1,13 @@
 """Graph container and batched BFS distances.
 
 The port's counterpart of ``repro.core.graph``: the same edge-list + CSR
-``Graph`` (numpy, host side), and ``bfs_distances_batched`` advanced one
-BFS level at a time as boolean frontier products in torch, on whatever
-device the caller names.  Graphs up to :data:`DENSE_MAX_N` vertices use a
+``Graph`` (numpy, host side) with its cached structure (bipartition, arc
+sorts) and derived graphs (:meth:`Graph.subgraph`, which the fault model
+compiles degraded graphs through), the one-source host BFS
+:func:`bfs_distances`, and ``bfs_distances_batched`` advanced one BFS
+level at a time as boolean frontier products in torch, on whatever
+device the caller names (:func:`distance_distribution` and the route
+tables run on it).  Graphs up to :data:`DENSE_MAX_N` vertices use a
 dense (N, N) adjacency; larger ones a sparse CSR adjacency, so memory
 stays O(E + S*N).  :func:`adjacency_dense` builds the dense
 adjacency in any dtype on any device, for the BFS and the ``dense``
@@ -24,7 +28,8 @@ import torch
 from .._device import resolve_device
 
 __all__ = ["Graph", "CsrAdjacency", "adjacency_csr", "adjacency_dense",
-           "bank_order", "bfs_distances_batched", "DENSE_MAX_N"]
+           "bank_order", "bfs_distances", "bfs_distances_batched",
+           "distance_distribution", "DENSE_MAX_N"]
 
 # largest vertex count whose BFS runs on a dense (N, N) adjacency (the
 # reference's util_dense_max perf-flag default)
@@ -73,6 +78,7 @@ class Graph:
         self.indices = dst
         self.arc_src = src
         self.arc_edge_id = eid
+        self._struct_cache: dict = {"__sig__": self._structure_signature()}
 
     @functools.cached_property
     def kernel_indices(self) -> np.ndarray:
@@ -92,8 +98,123 @@ class Graph:
     def max_degree(self) -> int:
         return int(self.degrees.max()) if self.n else 0
 
+    def is_regular(self) -> bool:
+        d = self.degrees
+        return bool(d.size == 0 or (d == d[0]).all())
+
     def neighbors(self, v: int) -> np.ndarray:
         return self.indices[self.indptr[v]: self.indptr[v + 1]]
+
+    # ---- cached structure: stamped with a structure signature, so a
+    # graph whose edges were changed in place never serves stale arrays;
+    # derived graphs go through the constructor (subgraph) ----
+    def _structure_signature(self) -> tuple:
+        e = self.edges
+        return (self.n, e.shape[0],
+                int(e[:, 0].sum()) if e.size else 0,
+                int(e[:, 1].sum()) if e.size else 0)
+
+    def _struct(self, key, build):
+        sig = self._structure_signature()
+        cache = getattr(self, "_struct_cache", None)
+        if cache is None or cache.get("__sig__") != sig:
+            cache = {"__sig__": sig}
+            self._struct_cache = cache
+        if key not in cache:
+            cache[key] = build()
+        return cache[key]
+
+    def bipartition(self) -> np.ndarray | None:
+        """2-colouring ``side[v]`` in {0, 1} if the graph is bipartite,
+        else None (BFS parity per connected component)."""
+
+        def build():
+            side = np.full(self.n, -1, dtype=np.int8)
+            for start in range(self.n):
+                if side[start] >= 0:
+                    continue
+                dist = bfs_distances(self, start)
+                comp = dist >= 0
+                side[comp] = (dist[comp] % 2).astype(np.int8)
+            u, v = self.edges[:, 0], self.edges[:, 1]
+            ok = bool((side[u] != side[v]).all()) if self.num_edges else True
+            return side if ok else None
+
+        return self._struct("bip", build)
+
+    def arc_sort_by_pair(self) -> tuple[np.ndarray, np.ndarray]:
+        """(order, keys): arc ids sorted by (src, dst) and the sorted
+        packed keys ``src * n + dst``, a vectorized arc-id lookup."""
+
+        def build():
+            keys = self.arc_src * np.int64(self.n) + self.indices
+            order = np.argsort(keys, kind="stable")
+            return order, keys[order]
+
+        return self._struct("pairsort", build)
+
+    def reverse_arcs(self) -> np.ndarray:
+        """rev[k] = arc id of (v -> u) for arc k = (u -> v)."""
+
+        def build():
+            order, keys = self.arc_sort_by_pair()
+            qkeys = self.indices * np.int64(self.n) + self.arc_src
+            return order[np.searchsorted(keys, qkeys)]
+
+        return self._struct("revarc", build)
+
+    def arcs_by_dst(self) -> np.ndarray:
+        """Arc ids sorted by destination; group v occupies
+        ``indptr[v]:indptr[v+1]`` (the graph is undirected)."""
+        return self._struct("dstsort",
+                            lambda: np.argsort(self.indices, kind="stable"))
+
+    # ---- derived graphs ----
+    def subgraph(self, edge_mask=None, vertex_mask=None, name: str = "",
+                 meta: dict | None = None) -> "Graph":
+        """Derived graph built through the constructor, so every cache is
+        rebuilt.  ``edge_mask`` is an (E,) bool keep-mask over
+        ``self.edges``; ``vertex_mask`` an (N,) bool keep-mask: dropped
+        vertices take their edges with them and survivors are relabelled
+        compactly in index order.  ``meta`` is not inherited: the caller
+        states what still holds."""
+        e = self.edges
+        keep = (np.ones(e.shape[0], dtype=bool) if edge_mask is None
+                else np.asarray(edge_mask, dtype=bool).copy())
+        if keep.shape != (e.shape[0],):
+            raise ValueError(f"edge_mask is {keep.shape}, graph has "
+                             f"{e.shape[0]} edges")
+        if vertex_mask is None:
+            return Graph(self.n, e[keep], name=name, meta=dict(meta or {}))
+        vm = np.asarray(vertex_mask, dtype=bool)
+        if vm.shape != (self.n,):
+            raise ValueError(f"vertex_mask is {vm.shape}, graph has "
+                             f"N={self.n}")
+        keep &= vm[e[:, 0]] & vm[e[:, 1]]
+        new_id = np.cumsum(vm) - 1
+        return Graph(int(vm.sum()), new_id[e[keep]], name=name,
+                     meta=dict(meta or {}))
+
+    # ---- distances (the distribution runs on ``device``) ----
+    def distances_from(self, source: int) -> np.ndarray:
+        return bfs_distances(self, source)
+
+    def distance_distribution(self, sources=None, device=None) -> np.ndarray:
+        return distance_distribution(self, sources, device)
+
+    def diameter(self, sources=None, device=None) -> int:
+        return len(self.distance_distribution(sources, device)) - 1
+
+    def average_distance(self, sources=None, device=None) -> float:
+        """Mean distance over ordered pairs of distinct vertices (k̄)."""
+        w = self.distance_distribution(sources, device).astype(np.float64)
+        total_pairs = w[1:].sum()
+        return float((np.arange(len(w)) * w).sum() / total_pairs)
+
+    def is_connected(self) -> bool:
+        if self.n == 0:
+            return True
+        return bool((bfs_distances(self, 0) >= 0).all())
 
 
 class CsrAdjacency(NamedTuple):
@@ -211,3 +332,61 @@ def bfs_distances_batched(g: Graph, sources, device=None) -> torch.Tensor:
             frontier = new.to(torch.float32)
         out[lo: lo + s] = dist
     return out
+
+
+def bfs_distances(g: Graph, source: int) -> np.ndarray:
+    """BFS distances from one source on the host (numpy); -1 for
+    unreachable."""
+    dist = np.full(g.n, -1, dtype=np.int64)
+    dist[source] = 0
+    frontier = np.array([source], dtype=np.int64)
+    d = 0
+    while frontier.size:
+        nbrs = _gather_neighbors(g, frontier)
+        nbrs = nbrs[dist[nbrs] < 0]
+        if nbrs.size == 0:
+            break
+        frontier = np.unique(nbrs)
+        d += 1
+        dist[frontier] = d
+    return dist
+
+
+def _gather_neighbors(g: Graph, frontier: np.ndarray) -> np.ndarray:
+    """The neighbour lists of all frontier vertices, concatenated."""
+    starts = g.indptr[frontier]
+    counts = g.indptr[frontier + 1] - starts
+    total = int(counts.sum())
+    if total == 0:
+        return np.empty(0, dtype=np.int64)
+    idx = np.ones(total, dtype=np.int64)
+    cum = np.cumsum(counts)
+    idx[0] = starts[0]
+    idx[cum[:-1]] = starts[1:] - (starts[:-1] + counts[:-1]) + 1
+    idx = np.cumsum(idx)
+    return g.indices[idx]
+
+
+def distance_distribution(g: Graph, sources=None, device=None) -> np.ndarray:
+    """W(t): the number of ordered (s, t != s) pairs at distance t,
+    averaged over the chosen sources (all vertices by default), so W(t)
+    is per vertex, the paper's convention.  The BFS runs a block of
+    sources at a time on ``device``; the integer counts are summed
+    exactly, so the result equals the reference's."""
+    device = resolve_device(device)
+    if sources is None:
+        sources = np.arange(g.n)
+    sources = np.asarray(sources, dtype=np.int64)
+    block = max(32, _BLOCK_BYTES // max(4 * g.n, 1))
+    acc = np.zeros(1, dtype=np.float64)
+    for lo in range(0, len(sources), block):
+        dist = bfs_distances_batched(g, sources[lo: lo + block], device)
+        if bool((dist < 0).any()):
+            raise ValueError("graph is disconnected")
+        w = torch.bincount(dist.reshape(-1).to(torch.int64)).cpu().numpy()
+        if len(w) > len(acc):
+            acc = np.pad(acc, (0, len(w) - len(acc)))
+        acc[: len(w)] += w
+    acc /= len(sources)
+    acc[0] = 1.0
+    return acc

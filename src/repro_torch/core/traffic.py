@@ -298,6 +298,7 @@ class SaturationReport:
     total_demand: float
     loads: np.ndarray = field(repr=False)
     alpha: float | None = None  # blend weight on minimal (ugal models)
+    faults: str | None = None   # FaultSet label when evaluated degraded
 
 
 def saturation_report(g: Graph, pattern, routing: str = "minimal",
@@ -312,12 +313,17 @@ def saturation_report(g: Graph, pattern, routing: str = "minimal",
     "ugal", "ugal(source)", "ugal_threshold(T)", or a RoutingModel);
     ``engine`` the arc-load engine (``auto``, ``dense``, ``fused``);
     ``targets_mask`` defaults to the graph's leaf mask for indirect
-    networks.  Runs on the card unless ``device="cpu"``."""
-    if faults is not None:
-        raise NotImplementedError(
-            "saturation_report(faults=...) waits for the port of "
-            "core/faults.py (ROADMAP.md, queue 1: faults)")
+    networks.  With ``faults`` (a :class:`repro_torch.core.faults.FaultSet`)
+    the pattern is built and normalized on the pristine graph, restricted
+    to the survivors and evaluated on the degraded graph: see
+    :func:`repro_torch.core.faults.degraded_report`.  Runs on the card
+    unless ``device="cpu"``."""
     device = resolve_device(device)
+    if faults is not None and not faults.empty:
+        from .faults import degraded_report
+        return degraded_report(g, pattern, faults, routing=routing,
+                               engine=engine, targets_mask=targets_mask,
+                               device=device)
     model = make_routing(routing)
     pat = make_pattern(pattern)
     if targets_mask is None:

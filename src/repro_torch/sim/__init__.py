@@ -11,8 +11,11 @@ Entry points: ``simulate(g, pattern, routing=..., offered=...)`` runs one
 offered load; ``saturation_sweep`` ramps offered load and measures the
 saturation knee ``theta``, comparable to the analytic theta in the
 zero-threshold / infinite-buffer limit.  Both run on the card unless
-``device="cpu"`` is passed.  Fault schedules (``events=``), the
-observability hooks and ``simulate_placement`` are not ported yet.
+``device="cpu"`` is passed, and both take a fault schedule
+(``events=``, :mod:`repro_torch.sim.faults`): at each event the run
+swaps in route tables compiled for the new fault state and passes the
+live state through the surgery.  The observability hooks and
+``simulate_placement`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,13 +30,15 @@ from ..core.graph import Graph
 from ..core.traffic import make_pattern, normalize_demand, saturation_report
 from .engine import (SIM_MAX_CELLS, SimConfig, SimState, init_state,
                      make_step, parse_sim_routing, pick_backend)
+from .faults import FaultEvent, apply_fault_surgery, normalize_events
 from .kernel import make_step_sparse, resolve_dtype
 from .tables import RouteTables, build_tables
 
 __all__ = [
     "SimConfig", "SimRun", "SimSweep", "Simulator", "simulate",
     "saturation_sweep", "fluid_routing_spec", "DEFAULT_LOAD_GRID",
-    "SIM_MAX_CELLS", "RouteTables", "build_tables",
+    "SIM_MAX_CELLS", "RouteTables", "build_tables", "FaultEvent",
+    "apply_fault_surgery", "normalize_events",
 ]
 
 # offered-load grid of a sweep, as fractions of the analytic fluid theta
@@ -61,7 +66,11 @@ class SimRun:
     ``residual`` the relative flow-conservation defect.
     ``dest_stability_min`` / ``_mean`` are the per-dest-column
     delivered/offered ratios over the trailing window (NaN unless the
-    run asked for ``per_dest=True``).  ``device`` names where it ran."""
+    run asked for ``per_dest=True``).  ``device`` names where it ran.
+    ``dropped`` is the fluid lost to fault surgery, ``faults`` the final
+    fault state's label, and ``link_util`` the final state's occupancy
+    of every live out-slot clipped at capacity, over capacity (below
+    saturation the per-link flit rate)."""
 
     routing: str
     offered: float
@@ -77,9 +86,12 @@ class SimRun:
     window: int
     backend: str
     device: str
+    dropped: float = 0.0
+    faults: str | None = None
     dest_stability_min: float = float("nan")
     dest_stability_mean: float = float("nan")
     history: dict = field(repr=False, default_factory=dict)
+    link_util: np.ndarray | None = field(repr=False, default=None)
 
 
 @dataclass
@@ -149,26 +161,60 @@ class Simulator:
         self.dtype = resolve_dtype(config.dtype, self.backend)
         self.tables = build_tables(g, self.active, dtype=self.dtype,
                                    device=self.device)
-        if self.backend == "fused":
-            self._step = make_step_sparse(self.tables, config, self.dtype,
-                                          dest_cols=self.dest_cols)
-        else:
-            self._step = make_step(self.tables, config, self.dtype)
+        self._step = self._make_step(self.tables)
+        # fault-state label -> (tables, step): one build per fault state
+        # serves every run and every probe of a sweep
+        self._fault_cache: dict = {}
 
-    def default_steps(self) -> int:
+    def _make_step(self, tb: RouteTables):
+        if self.backend == "fused":
+            return make_step_sparse(tb, self.config, self.dtype,
+                                    dest_cols=self.dest_cols)
+        return make_step(tb, self.config, self.dtype)
+
+    def _tables_for(self, fs):
+        """Route tables and step for one fault state (None or an empty
+        FaultSet: the pristine pair)."""
+        if fs is None or fs.empty:
+            return self.tables, self._step
+        key = fs.label
+        if key not in self._fault_cache:
+            tb = build_tables(self.g, self.active, dtype=self.dtype,
+                              faults=fs, device=self.device)
+            self._fault_cache[key] = (tb, self._make_step(tb))
+        return self._fault_cache[key]
+
+    def default_steps(self, events=None) -> int:
         """Enough steps for the slowest feedback loop to settle: several
-        two-leg traversals plus a fixed transient allowance."""
+        two-leg traversals plus a fixed transient allowance.  Faults can
+        lengthen routes, so the sizing takes the largest distance over
+        every fault segment's tables."""
         dmax = int(self.tables.dist_act.max())
+        for e in normalize_events(events):
+            if not e.faults.empty:
+                tb, _ = self._tables_for(e.faults)
+                dmax = max(dmax, int(tb.dist_act.max()))
         return 48 + 16 * 2 * dmax
 
     def run(self, demand: np.ndarray, offered: float,
             steps: int | None = None, window: int | None = None,
-            per_dest: bool = False) -> SimRun:
+            events=None, per_dest: bool = False) -> SimRun:
         """Open-loop run: every source offers ``offered * demand[s, :]``
         per step; measurements average the trailing ``window`` steps.
         ``demand`` is a dense (N, N) matrix (diagonal and inactive
-        columns zero).  ``per_dest=True`` also tracks per-dest-column
-        mass conservation over the window (``dest_stability_*``)."""
+        columns zero).
+
+        ``events`` is a fault schedule: FaultEvents or ``(step,
+        FaultSet)`` pairs, each the cumulative fault state from that step
+        on.  At each boundary the run swaps in tables compiled for the
+        new fault state and passes the live fluid through
+        :func:`repro_torch.sim.faults.apply_fault_surgery`; sources stop
+        being offered fluid toward unroutable dests.  theta is measured
+        against the final fault state's surviving demand, so one event at
+        step 0 is comparable to the analytic ``degraded_report`` theta.
+
+        ``per_dest=True`` also tracks per-dest-column mass conservation
+        over the window (``dest_stability_*``)."""
         t = self.tables
         demand = np.asarray(demand, dtype=np.float64)
         if demand.shape != (t.n, t.n):
@@ -197,19 +243,24 @@ class Simulator:
             inj_norm_run = inj_norm[:, cols]
         else:
             inj_norm_run = inj_norm
-        steps = self.default_steps() if steps is None else int(steps)
+        evs = normalize_events(events)
+        steps = (self.default_steps(events=evs) if steps is None
+                 else int(steps))
         window = max(steps // 3, 8) if window is None else int(window)
         window = min(window, steps)
+        if evs and evs[-1].step >= steps:
+            raise ValueError(f"fault event at step {evs[-1].step} is past "
+                             f"the run's {steps} steps")
+        # segments of constant fault state: (start, end, FaultSet | None)
+        marks = [] if evs and evs[0].step == 0 else [(0, None)]
+        marks += [(e.step, e.faults) for e in evs]
+        segs = [(s0, (marks[i + 1][0] if i + 1 < len(marks) else steps), fs)
+                for i, (s0, fs) in enumerate(marks)]
 
         # the per-step quanta are formed on the host exactly as the
-        # reference forms them, then moved to the device once
+        # reference forms them, then moved to the device once a segment
         npdt = _NP_DTYPE[self.dtype]
         inj_np = (offered * inj_norm_run).astype(npdt)
-        inj_cap_np = (self.config.inj_factor
-                      * inj_np.sum(axis=1)).astype(npdt)
-        inj = torch.from_numpy(inj_np).to(self.device)
-        inj_cap = torch.from_numpy(inj_cap_np).to(self.device)
-        total = float(inj_norm.sum())
 
         st = init_state(t, self.dtype, dest_cols=cols).as_tuple()
         # hazard: the reference reads each step's stats back to the host
@@ -217,24 +268,57 @@ class Simulator:
         # on the device here and is read once after the loop
         hist = torch.empty((steps, 6), dtype=torch.float64,
                            device=self.device)
+        # each segment's history is normalized by its own fault state's
+        # surviving demand
+        seg_total = np.empty(steps, dtype=np.float64)
+        dropped_total = 0.0
+        tb = t
         win_start = steps - window
-        off_dest = (torch.from_numpy(inj_np.astype(np.float64).sum(axis=0))
-                    .to(self.device) if per_dest else None)
         pd_mass0 = pd_off = pd_last = None
-        for i in range(steps):
-            st, stats = self._step(st, inj, inj_cap)
-            hist[i] = stats
-            if per_dest and i >= win_start:
-                dm = _dest_mass(st)
-                if pd_mass0 is None:
-                    pd_mass0 = dm
-                    pd_off = torch.zeros_like(dm)
-                else:
-                    pd_off = pd_off + off_dest
-                pd_last = dm
+        for s0, s1, fs in segs:
+            tb, step_fn = self._tables_for(fs)
+            if fs is not None:
+                st, dropped = apply_fault_surgery(st, tb, dest_cols=cols)
+                dropped_total += dropped
+            if tb.faulted:
+                rt_full = tb.routable.cpu().numpy()
+                rt = rt_full if cols is None else rt_full[:, cols]
+                inj_seg = (inj_np * rt).astype(npdt)
+                seg_total[s0:s1] = float((inj_norm * rt_full).sum())
+            else:
+                inj_seg = inj_np
+                seg_total[s0:s1] = float(inj_norm.sum())
+            inj_cap_np = (self.config.inj_factor
+                          * inj_seg.sum(axis=1)).astype(npdt)
+            inj = torch.from_numpy(inj_seg).to(self.device)
+            inj_cap = torch.from_numpy(inj_cap_np).to(self.device)
+            off_dest = (torch.from_numpy(inj_seg.astype(np.float64)
+                                         .sum(axis=0)).to(self.device)
+                        if per_dest else None)
+            for i in range(s0, s1):
+                st, stats = step_fn(st, inj, inj_cap)
+                hist[i] = stats
+                if per_dest and i >= win_start:
+                    dm = _dest_mass(st)
+                    if pd_mass0 is None:
+                        pd_mass0 = dm
+                        pd_off = torch.zeros_like(dm)
+                    else:
+                        pd_off = pd_off + off_dest
+                    pd_last = dm
         self.last_state = SimState(*st)
-        hist = hist.cpu().numpy()        # the run's one device->host read
+        # the final state's per-slot occupancy clipped at capacity, over
+        # the live slots
+        cap = float(self.config.capacity)
+        o_tot = sum(q.sum(dim=-1, dtype=torch.float64) for q in st[:3])
+        link_util = (o_tot[tb.slot_ok].clamp(max=cap) / cap).cpu().numpy()
+        hist = hist.cpu().numpy()        # the run's one history read
 
+        # theta in the final fault state's surviving demand units
+        total = float(seg_total[-1])
+        if total <= 0:
+            raise ValueError("faults removed every offered demand")
+        norm = np.where(seg_total > 0, seg_total, np.inf)
         w = hist[-window:]
         delivered_rate = float(w[:, 0].mean())
         accepted_rate = float(w[:, 1].mean())
@@ -243,7 +327,8 @@ class Simulator:
         injected_cum = float(hist[:, 2].sum())
         delivered_cum = float(hist[:, 0].sum())
         residual = abs(injected_cum - delivered_cum - float(hist[-1, 3])
-                       - src_backlog) / max(injected_cum, 1e-30)
+                       - src_backlog - dropped_total) \
+            / max(injected_cum, 1e-30)
         acc_cum = float(hist[:, 1].sum())
         div_cum = float(hist[:, 5].sum())
         alpha = 1.0 - div_cum / max(acc_cum, 1e-30)
@@ -257,20 +342,26 @@ class Simulator:
                 stab = np.clip(delivered_d[sel] / pd_off[sel], 0.0, None)
                 dest_stab_min = float(stab.min())
                 dest_stab_mean = float(stab.mean())
+        final_fs = segs[-1][2]
         return SimRun(
             routing=self.config.routing, offered=float(offered),
             theta=delivered_rate / total, delivered_rate=delivered_rate,
             accepted_rate=accepted_rate, latency=latency, alpha=alpha,
             occupancy=occupancy, src_backlog=src_backlog, residual=residual,
             steps=steps, window=window, backend=self.backend,
-            device=str(self.device),
+            device=str(self.device), dropped=dropped_total,
+            faults=(None if final_fs is None or final_fs.empty
+                    else final_fs.label),
             dest_stability_min=dest_stab_min,
             dest_stability_mean=dest_stab_mean,
-            history={"delivered": hist[:, 0] / total,
-                     "accepted": hist[:, 1] / total,
-                     "offered": hist[:, 2] / total,
+            history={"delivered": hist[:, 0] / norm,
+                     "accepted": hist[:, 1] / norm,
+                     "offered": hist[:, 2] / norm,
                      "occupancy": hist[:, 3], "src_backlog": hist[:, 4],
-                     "diverted": hist[:, 5]})
+                     "diverted": hist[:, 5],
+                     "fault_events": np.array([e.step for e in evs],
+                                              dtype=np.int64)},
+            link_util=link_util)
 
 
 def _dest_mass(st) -> torch.Tensor:
@@ -308,16 +399,18 @@ def simulate(g: Graph, pattern, routing: str = "minimal",
              offered: float = 0.5, steps: int | None = None,
              config: SimConfig | None = None,
              targets_mask: np.ndarray | None = None,
-             normalize: bool = True, device=None) -> SimRun:
+             normalize: bool = True, events=None, device=None) -> SimRun:
     """Simulate one (pattern, routing, offered load) point.  ``pattern``
     is any traffic spec (registry name, TrafficPattern, or raw (N, N)
     matrix); ``offered`` is the injection rate of the busiest source in
     link-equivalents.  ``config``'s routing field is superseded by
-    ``routing``."""
+    ``routing``.  ``events`` is a mid-run fault schedule (see
+    :meth:`Simulator.run`)."""
     cfg = _config_with(config, routing)
     _, demand, targets_mask = _demand_for(g, pattern, targets_mask, normalize)
     return Simulator(g, cfg, targets_mask, demand=demand,
-                     device=device).run(demand, offered, steps)
+                     device=device).run(demand, offered, steps,
+                                        events=events)
 
 
 def saturation_sweep(g: Graph, pattern, routing: str = "minimal",
@@ -326,7 +419,8 @@ def saturation_sweep(g: Graph, pattern, routing: str = "minimal",
                      targets_mask: np.ndarray | None = None,
                      refine: int = 3, stable_ratio: float = 0.98,
                      theta_analytic: float | None = None,
-                     knee: str = "aggregate", device=None) -> SimSweep:
+                     events=None, knee: str = "aggregate",
+                     device=None) -> SimSweep:
     """Latency-vs-offered-load curve and measured saturation throughput
     for one (topology, pattern, routing).
 
@@ -336,8 +430,12 @@ def saturation_sweep(g: Graph, pattern, routing: str = "minimal",
     same device.  ``loads`` defaults to :data:`DEFAULT_LOAD_GRID` times
     it, and the grid is extended when every probe lands on one side.  ``theta`` is the largest offered load
     whose delivered/offered ratio stays >= ``stable_ratio``, sharpened by
-    ``refine`` bisection probes.  ``knee="per_dest"`` judges stability by
-    the minimum per-dest-column ratio instead."""
+    ``refine`` bisection probes.  ``events`` applies one fault schedule
+    to every probe (see :meth:`Simulator.run`): the knee is then the
+    degraded saturation throughput, comparable to the analytic
+    ``degraded_report`` theta of the final fault state; pass a ``loads``
+    grid scaled to it.  ``knee="per_dest"`` judges stability by the
+    minimum per-dest-column ratio instead."""
     if knee not in ("aggregate", "per_dest"):
         raise ValueError(f"unknown knee criterion {knee!r}; options: "
                          f"aggregate, per_dest")
@@ -360,7 +458,8 @@ def saturation_sweep(g: Graph, pattern, routing: str = "minimal",
         return r.theta >= stable_ratio * r.offered
 
     def probe(lam):
-        return simr.run(demand, lam, steps, per_dest=per_dest)
+        return simr.run(demand, lam, steps, events=events,
+                        per_dest=per_dest)
 
     runs = [probe(lam) for lam in loads]
     # extend the bracket when the grid missed the knee entirely

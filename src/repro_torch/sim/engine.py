@@ -204,6 +204,10 @@ def make_step(t: RouteTables, cfg: SimConfig, dtype):
     in_active = torch.zeros(n, dtype=torch.bool, device=dev)
     in_active[active] = True
     n_mids = (m - in_active.to(torch.int64)).to(dtype)
+    # faulted tables break the uniform spread that the cheap pend update
+    # below relies on; they take the general contraction
+    faulted = t.faulted
+    spread_T = spread.T.contiguous() if faulted else None   # (M, N)
     mode, thr = cfg.mode, cfg.threshold
     cap = float(cfg.capacity)
     cap_t = torch.tensor(cap, dtype=dtype, device=dev)
@@ -303,9 +307,13 @@ def make_step(t: RouteTables, cfg: SimConfig, dtype):
             s1d = (space1 / desire1.clamp(min=_TINY)).clamp(max=1.0)
             div_eff = div_cand * s1d[:, None]         # blocked stays vc0
             # pend += spread.T @ div_eff, expanded to O(N * M) via the
-            # uniform spread[r, m] = (1 - [active[m] == r]) / n_mids[r]
-            scaled = div_eff / n_mids[:, None]
-            pend = pend + scaled.sum(0)[None, :] - scaled[active, :]
+            # uniform spread[r, m] = (1 - [active[m] == r]) / n_mids[r];
+            # a faulted spread is not uniform: the product itself
+            if faulted:
+                pend = pend + spread_T @ div_eff
+            else:
+                scaled = div_eff / n_mids[:, None]
+                pend = pend + scaled.sum(0)[None, :] - scaled[active, :]
 
         keep = cand - div_eff
         keep_frac = keep / cand.clamp(min=_TINY)

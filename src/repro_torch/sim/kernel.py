@@ -167,8 +167,6 @@ def make_step_sparse(t: RouteTables, cfg: SimConfig, dtype,
     :func:`repro_torch.sim.engine.make_step`; ``dest_cols`` carries the
     per-VC compacted dest axis (q0/q2/src/pend-dest on those columns,
     q1/stage2 on the full mid axis)."""
-    if t.faulted:
-        raise NotImplementedError("fault-aware tables are not ported yet")
     aux = step_aux(t)
     dev = t.device
     n, k, m = t.n, t.k, t.m
@@ -202,6 +200,11 @@ def make_step_sparse(t: RouteTables, cfg: SimConfig, dtype,
     diag_mid, diag_col = (torch.as_tensor(x, device=dev)
                           for x in _pool_diag(t, dest_cols))
     spread = asd(t.spread)
+    # faulted tables (dead slots: split 0; unroutable pairs: dist and
+    # hval 0) run the same kernels; only the pend update changes, since
+    # a faulted spread is not uniform
+    faulted = t.faulted
+    spread_T = spread.T.contiguous() if faulted else None   # (M, N)
     w_val = torch.einsum("nm,nkm->nk", spread, split3F).reshape(nk)
     in_active = torch.zeros(n, dtype=torch.bool, device=dev)
     in_active[t.active] = True
@@ -305,8 +308,12 @@ def make_step_sparse(t: RouteTables, cfg: SimConfig, dtype,
             desire1 = div_cand.sum(dim=1)
             s1d = (space1 / desire1.clamp(min=_TINY)).clamp(max=1.0)
             div_eff = div_cand * s1d[:, None]
-            scaled = div_eff / n_mids[:, None]
-            pend = pend + scaled.sum(0)[None, :] - scaled[active, :]
+            if faulted:
+                # the reference forms this product outside its kernels
+                pend = pend + spread_T @ div_eff
+            else:
+                scaled = div_eff / n_mids[:, None]
+                pend = pend + scaled.sum(0)[None, :] - scaled[active, :]
 
         keep = cand - div_eff
         keep_frac = keep / cand.clamp(min=_TINY)

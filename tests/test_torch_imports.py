@@ -51,7 +51,11 @@ def test_port_imports_neither_jax_nor_repro():
                 "repro_torch.optim.adamw", "repro_torch.optim.compress",
                 "repro_torch.data.pipeline", "repro_torch.train.train_step",
                 "repro_torch.train.checkpoint", "repro_torch.train.trainer",
-                "repro_torch.launch.train"}
+                "repro_torch.launch.train", "repro_torch.core.faults",
+                "repro_torch.core.mms", "repro_torch.core.moore",
+                "repro_torch.core.reference", "repro_torch.core.registry",
+                "repro_torch.core.projective", "repro_torch.fabric",
+                "repro_torch.fabric.model", "repro_torch.sim.faults"}
     assert expected <= set(res["modules"])
 
 
@@ -91,6 +95,38 @@ def test_analytic_entry_points_without_device_need_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         saturation_report(g, "uniform", routing="ugal")
     assert utilization(g, device="cpu").u == pytest.approx(1.0, abs=1e-12)
+
+
+def test_fault_entry_points_without_device_need_cuda():
+    """The fault model's entry points default to the card and raise
+    where there is none; device='cpu' is the way onto the CPU."""
+    from repro_torch.core import (FaultSet, degradation_sweep,
+                                  degraded_report, distance_distribution,
+                                  pn_graph, random_faults, targeted_faults)
+    from repro_torch.sim import SimConfig, Simulator
+    from repro_torch.sim.tables import build_tables
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    g = pn_graph(2)
+    fs = random_faults(g, k_links=1, seed=0)
+    for call in (lambda: degraded_report(g, "uniform", fs),
+                 lambda: degradation_sweep(g, k_failures=(0, 1), trials=1),
+                 lambda: targeted_faults(g, k=1),
+                 lambda: distance_distribution(g),
+                 lambda: build_tables(g, range(g.n), faults=fs)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    sim = Simulator(g, SimConfig(), device="cpu")
+    run = sim.run(_uniform(g), 0.1, 8, events=[(4, fs)])
+    assert run.faults == fs.label and run.device == "cpu"
+    assert sim._tables_for(fs)[0].split.device.type == "cpu"
+    assert degraded_report(g, "uniform", FaultSet(routers=[0]),
+                           device="cpu").faults == "routers[0]"
+
+
+def _uniform(g):
+    from repro_torch.core import make_pattern, normalize_demand
+    return normalize_demand(make_pattern("uniform").demand(g, None))
 
 
 def test_mask_gemm_kernels_are_in_the_one_build():

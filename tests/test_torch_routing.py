@@ -190,8 +190,26 @@ def test_custom_model_routes_through_saturation_report():
 
 
 def test_faults_wait_for_their_port():
-    with pytest.raises(NotImplementedError, match="faults"):
-        saturation_report(PN5, "uniform", faults=object(), device="cpu")
+    """The fault model is ported now: ``saturation_report(faults=)``
+    delegates to the port's ``degraded_report`` and equals the
+    reference's degraded theta; an empty fault set is the pristine
+    report."""
+    from repro.core import FaultSet as RefFaultSet
+    from repro_torch.convert import fault_set_from_arrays
+    from repro_torch.core import FaultSet
+    ref_fs = RefFaultSet(links=[tuple(map(int, PN5_REF.edges[3]))],
+                         routers=[7])
+    fs = fault_set_from_arrays(ref_fs.links, ref_fs.routers)
+    want = ref_report(PN5_REF, "uniform", routing="ugal", engine="numpy",
+                      faults=ref_fs)
+    for engine in ("dense", "fused"):
+        got = saturation_report(PN5, "uniform", routing="ugal",
+                                engine=engine, faults=fs, device="cpu")
+        _assert_report(got, want)
+        assert got.faults == want.faults == fs.label
+    pristine = saturation_report(PN5, "uniform", faults=FaultSet(),
+                                 device="cpu")
+    assert pristine.faults is None
 
 
 def test_saturation_sweep_battery_matches_reference():

@@ -82,7 +82,22 @@ def test_tables_from_numpy_and_reverse_arcs():
 
 
 def test_faulted_tables_not_ported():
+    """Faulted tables are ported now: a link and a router fault of PN(3)
+    compile to the reference's tables (masks exact, values equal), and
+    a fault set that cuts a router off raises as the reference does."""
+    from repro.core import FaultSet as RefFaultSet
+    from repro_torch.convert import fault_set_from_arrays
     g = pn_graph(3)
     port = graph_from_arrays(g.n, g.edges, g.meta)
-    with pytest.raises(NotImplementedError, match="faults"):
-        build_tables(port, np.arange(g.n), faults=object(), device="cpu")
+    ref_fs = RefFaultSet(links=[tuple(map(int, g.edges[0]))], routers=[20])
+    fs = fault_set_from_arrays(ref_fs.links, ref_fs.routers)
+    want = ref_build_tables(g, np.arange(g.n), faults=ref_fs)
+    have = build_tables(port, np.arange(g.n), faults=fs, device="cpu")
+    assert have.faulted and want.faulted
+    for key in FIELDS + ("slot_ok", "router_ok", "dest_ok", "routable"):
+        np.testing.assert_array_equal(getattr(have, key).numpy(),
+                                      getattr(want, key), err_msg=key)
+    cut = fault_set_from_arrays(
+        [tuple(map(int, e)) for e in g.edges if 0 in e])
+    with pytest.raises(ValueError, match="disconnect"):
+        build_tables(port, np.arange(g.n), faults=cut, device="cpu")
