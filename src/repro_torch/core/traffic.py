@@ -311,9 +311,9 @@ def saturation_report(g: Graph, pattern, routing: str = "minimal",
     TrafficPattern, or a raw (N, N) demand matrix); ``routing`` a spec for
     :func:`repro_torch.core.routing.make_routing` ("minimal", "valiant",
     "ugal", "ugal(source)", "ugal_threshold(T)", or a RoutingModel);
-    ``engine`` the arc-load engine (``auto``, ``dense``, ``fused``);
-    ``targets_mask`` defaults to the graph's leaf mask for indirect
-    networks.  With ``faults`` (a :class:`repro_torch.core.faults.FaultSet`)
+    ``engine`` the arc-load engine (``auto``, ``dense``, ``fused``,
+    ``orbit``); ``targets_mask`` defaults to the graph's leaf mask for
+    indirect networks.  With ``faults`` (a :class:`repro_torch.core.faults.FaultSet`)
     the pattern is built and normalized on the pristine graph, restricted
     to the survivors and evaluated on the degraded graph: see
     :func:`repro_torch.core.faults.degraded_report`.  Runs on the card

@@ -22,11 +22,19 @@ names.  Engines:
            mask+GEMM kernels of :mod:`repro_torch.kernels.mask_gemm`
            (sparse adjacency, mask epilogue in the kernel), float64 on the
            card; on CPU tensors the kernels' plain versions run.
-  auto   — ``fused`` on a CUDA device, ``dense`` on the CPU.
+  orbit  — the reference's automorphism shortcut (:mod:`.orbits`): one
+           sweep from one representative per vertex orbit that the
+           targets use, on the exact engine below, its loads summed per
+           arc orbit and spread over the orbit; raises where the graph's
+           family has no known generators (or is degraded).
+  auto   — the orbit shortcut where it applies (default sources, a
+           family with generators), else the exact engine: ``fused`` on
+           a CUDA device, ``dense`` on the CPU.
 
-The reference's numpy-only engines (``naive``, ``numpy``, ``csr``,
-``orbit``) are not ported yet and raise ``ValueError``.  Every entry
-point runs on the card unless ``device="cpu"`` is passed.
+The reference's numpy-only engines (``naive``, ``numpy``, ``csr``) are
+not ported and raise ``ValueError``: the ``dense`` and ``fused`` engines
+compute what they compute.  Every entry point runs on the card unless
+``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
@@ -40,14 +48,15 @@ from .._device import resolve_device
 from ..kernels.mask_gemm import backward_step, frontier_step
 from ..kernels.ref import backward_epilogue, frontier_epilogue
 from .graph import Graph, adjacency_csr, adjacency_dense
+from .orbits import orbit_info
 
 __all__ = ["arc_loads", "arc_loads_weighted", "utilization",
            "UtilizationReport", "valiant_report", "resolve_engine",
            "ENGINES"]
 
-ENGINES = ("auto", "dense", "fused")
-# the reference's engines that this port has not carried over yet
-_NOT_PORTED = ("naive", "numpy", "csr", "orbit")
+ENGINES = ("auto", "dense", "fused", "orbit")
+# the reference's numpy-only engines, which the port does not carry over
+_NOT_PORTED = ("naive", "numpy", "csr")
 _PORT_NAME = {"jax": "dense", "pallas": "fused"}
 
 # ~256 MB per (S, arc-chunk) float64 gather in the per-arc reduction
@@ -64,23 +73,32 @@ class UtilizationReport:
     diameter: int
 
 
-def resolve_engine(engine, device: torch.device) -> str:
-    """The engine that runs: ``auto`` is ``fused`` on a CUDA device and
-    ``dense`` elsewhere; unknown and not-yet-ported names raise."""
+def _engine_name(engine) -> str:
+    """The engine's name, lower case; unknown and not-ported names
+    raise."""
     eng = "auto" if engine is None else str(engine).lower()
     if eng in _NOT_PORTED:
         raise ValueError(
             f"engine {eng!r} is one of the reference's numpy-only engines, "
-            f"not ported yet (ROADMAP.md, queue 1: the numpy-only engines "
-            f"naive/numpy/csr/orbit with core/orbits.py); options: "
-            f"{ENGINES}")
+            f"which the port does not carry over (ROADMAP.md, queue 1; "
+            f"the dense and fused engines compute the same loads); "
+            f"options: {ENGINES}")
     if eng in _PORT_NAME:
         raise ValueError(f"unknown engine {eng!r}; the port names the "
                          f"reference's {eng!r} engine "
                          f"{_PORT_NAME[eng]!r}; options: {ENGINES}")
     if eng not in ENGINES:
         raise ValueError(f"unknown engine {eng!r}; options: {ENGINES}")
-    if eng == "auto":
+    return eng
+
+
+def resolve_engine(engine, device: torch.device) -> str:
+    """The exact engine that runs the sweeps: ``auto`` and ``orbit`` run
+    ``fused`` on a CUDA device and ``dense`` elsewhere (the orbit
+    shortcut sits above this choice); unknown and not-ported names
+    raise."""
+    eng = _engine_name(engine)
+    if eng in ("auto", "orbit"):
         return "fused" if device.type == "cuda" else "dense"
     return eng
 
@@ -192,9 +210,38 @@ def _loads(g: Graph, sources: np.ndarray, targets_mask: np.ndarray,
     return loads.cpu().numpy(), dist_sum, pair_count, diam
 
 
+def _loads_orbit(g: Graph, targets_mask: np.ndarray, engine: str,
+                 device: torch.device):
+    """One sweep per vertex orbit that the targets use, on the exact
+    ``engine``; None when no known automorphism subgroup applies (the
+    caller falls back to the exact engine)."""
+    full = bool(targets_mask.all())
+    info = orbit_info(g, None if full else targets_mask)
+    if info is None:
+        return None
+    t_count = int(targets_mask.sum())
+    used = np.unique(info.vertex_orbit[targets_mask])
+    n_aorb = len(info.arc_sizes)
+    orbit_sums = np.zeros(n_aorb, dtype=np.float64)
+    dist_sum = 0.0
+    diam = 0
+    for orb in used:
+        rep = int(info.vertex_reps[orb])
+        size = float(info.vertex_sizes[orb])
+        loads_r, dsum_r, _, diam_r = _loads(g, np.array([rep]), targets_mask,
+                                            None, engine, device)
+        orbit_sums += size * np.bincount(info.arc_orbit, weights=loads_r,
+                                         minlength=n_aorb)
+        dist_sum += size * dsum_r
+        diam = max(diam, diam_r)
+    loads = orbit_sums[info.arc_orbit] / info.arc_sizes[info.arc_orbit]
+    pair_count = t_count * (t_count - 1)
+    return loads, dist_sum, pair_count, diam
+
+
 def _prepare(engine, device):
     device = resolve_device(device)
-    return resolve_engine(engine, device), device
+    return _engine_name(engine), resolve_engine(engine, device), device
 
 
 def arc_loads(g: Graph, sources=None, targets_mask: np.ndarray | None = None,
@@ -206,20 +253,56 @@ def arc_loads(g: Graph, sources=None, targets_mask: np.ndarray | None = None,
     ``sources`` defaults to every vertex (or every target if
     ``targets_mask`` is given); traffic flows from each source to every
     other target vertex, 1 unit per ordered pair, split across shortest
-    paths.  ``engine`` is ``auto``, ``dense`` or ``fused`` (see the module
-    docstring)."""
-    eng, device = _prepare(engine, device)
+    paths.  ``engine`` is ``auto``, ``dense``, ``fused`` or ``orbit`` (see
+    the module docstring); ``orbit`` raises where the shortcut does not
+    apply, ``auto`` takes it only with the default sources."""
+    name, eng, device = _prepare(engine, device)
     n = g.n
     if targets_mask is None:
         targets_mask = np.ones(n, dtype=bool)
     else:
         targets_mask = np.asarray(targets_mask, dtype=bool)
+    default_sources = sources is None
     if sources is None:
         sources = np.nonzero(targets_mask)[0]
     sources = np.asarray(sources, dtype=np.int64)
-    loads, dist_sum, pair_count, diam = _loads(g, sources, targets_mask,
-                                               None, eng, device)
+    res = None
+    if name in ("auto", "orbit") and default_sources:
+        res = _loads_orbit(g, targets_mask, eng, device)
+    if res is None:
+        if name == "orbit":
+            raise ValueError(
+                f"no known automorphism generators for "
+                f"{g.name or g.meta.get('family')!r}"
+                " (or sources/targets not orbit-compatible)")
+        res = _loads(g, sources, targets_mask, None, eng, device)
+    loads, dist_sum, pair_count, diam = res
     return loads, dist_sum / pair_count, diam
+
+
+def _uniform_demand_split(demand: np.ndarray):
+    """Detect a uniform-shaped demand: ``w * (ones - I)`` on some active
+    vertex set, zero elsewhere.  Returns ``(w, active_mask)`` or None.
+
+    Such a matrix commutes with the graph's full automorphism group (any
+    subgroup preserving the active set), so the orbit shortcut of
+    :func:`arc_loads` applies: the weighted sweep reduces to the uniform
+    one scaled by w."""
+    rows = demand.any(axis=1)
+    if not np.array_equal(rows, demand.any(axis=0)):
+        return None
+    active = np.nonzero(rows)[0]
+    if len(active) < 2:
+        return None
+    block = demand[np.ix_(active, active)]
+    w = block[0, 1]
+    if w <= 0.0:
+        return None
+    expect = np.full(block.shape, w)
+    np.fill_diagonal(expect, 0.0)
+    if not np.array_equal(block, expect):
+        return None
+    return w, rows
 
 
 def arc_loads_weighted(g: Graph, demand, engine: str | None = "auto",
@@ -233,8 +316,12 @@ def arc_loads_weighted(g: Graph, demand, engine: str | None = "auto",
     kbar, diameter)`` where ``kbar`` is the demand-weighted mean hop
     count ``sum(D * dist) / sum(D)`` and ``diameter`` the longest hop
     count any demand travels.  The uniform case ``D = ones - I``
-    reproduces :func:`arc_loads`."""
-    eng, device = _prepare(engine, device)
+    reproduces :func:`arc_loads`.  Under ``auto`` / ``orbit`` a
+    uniform-shaped demand (``w * (ones - I)`` over an active set, the
+    only matrices the automorphism shortcut is exact for) goes through
+    the orbit path of :func:`arc_loads` scaled by w; anything else, and
+    a family without generators, runs the exact engine."""
+    name, eng, device = _prepare(engine, device)
     n = g.n
     if hasattr(demand, "demand") and callable(demand.demand):
         demand = demand.demand(g)  # TrafficPattern duck-type
@@ -248,6 +335,19 @@ def arc_loads_weighted(g: Graph, demand, engine: str | None = "auto",
     np.fill_diagonal(demand, 0.0)
     if float(demand.sum()) == 0.0:
         raise ValueError("demand matrix is all zero")
+    if name in ("auto", "orbit"):
+        uni = _uniform_demand_split(demand)
+        if uni is not None:
+            w, mask = uni
+            try:
+                loads, kbar, diam = arc_loads(g, targets_mask=mask,
+                                              engine=name, device=device)
+            except ValueError:
+                # engine="orbit" on a family without known generators:
+                # the exact engine runs instead of raising
+                pass
+            else:
+                return loads * w, kbar, diam
     sources = np.nonzero(demand.any(axis=1))[0]
     targets_mask = np.ones(n, dtype=bool)
     loads, dist_sum, total_demand, diam = _loads(g, sources, targets_mask,

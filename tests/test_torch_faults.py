@@ -8,19 +8,20 @@ and degraded graphs must equal the reference's exactly (the same numpy
 draws from the same seeds); degraded thetas lie within rtol 1e-9 of the
 reference's ``numpy`` engine through both port engines (``dense`` and
 ``fused``; the sweeps sum in different orders), and the Brandes
-conservation identity holds on the surviving topology.
+conservation identity holds on the surviving topology.  ``worst_case``
+on degraded graphs equals the reference's, and a fault set turns the
+orbit shortcut off: a degraded graph has no generators, so ``auto``
+runs the exact engine and ``orbit`` raises.
 
-Left out, with the code they test, none of it ported yet (ROADMAP.md,
-queue 1): the placement and planner cases (``placement_report(faults=)``,
-``plan(resilience_k=)``; ``fabric/``), ``worst_case`` on degraded graphs
-(the paper's analytic tools, ``core/adversary.py``) and the orbit
-shortcut that a fault set disables (the remaining arc-load engines,
-``core/orbits.py``).
+Left out, with the code they test, not ported yet (ROADMAP.md, queue
+1): the placement and planner cases (``placement_report(faults=)``,
+``plan(resilience_k=)``; ``fabric/``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -290,6 +291,94 @@ def test_targeted_cut_at_least_as_damaging_as_random_mean():
     want = R.targeted_faults(ref, k=1, kind="links")
     _close(P.degraded_report(g, "uniform", one, device="cpu").theta,
            R.degraded_report(ref, "uniform", want).theta)
+
+
+def _same_worst(got, want):
+    """Every candidate's theta within rtol 1e-9 of the reference's and
+    the same worst pattern by name; where the reference's smallest
+    thetas tie within 1e-9 (tornado and shift(1) on a wounded PN(4)),
+    rounding picks among them, so the port's pick must be one of the
+    tied ones."""
+    assert got.routing == want.routing
+    assert list(got.thetas) == list(want.thetas)
+    for spec, theta in want.thetas.items():
+        _close(got.thetas[spec], theta)
+    _close(got.worst_theta, want.worst_theta)
+    tied = [spec for spec, theta in want.thetas.items()
+            if theta <= want.worst_theta * (1 + 1e-9)]
+    assert got.worst_pattern in tied
+    if len(tied) == 1:
+        assert got.worst_pattern == want.worst_pattern
+
+
+def test_degraded_graph_disables_orbit_shortcut(monkeypatch):
+    g, ref = P.pn_graph(5), R.pn_graph(5)
+    assert P.automorphism_generators(g) is not None
+    fs = P.random_faults(g, k_links=1, seed=0)
+    assert fs == _port_fs(R.random_faults(ref, k_links=1, seed=0))
+    gd = fs.apply(g)
+    assert P.automorphism_generators(gd) is None
+    assert R.automorphism_generators(_port_fs(fs).apply(ref)) is None
+    assert P.orbit_info(gd) is None
+    with pytest.raises(ValueError, match="no known automorphism"):
+        P.arc_loads(gd, engine="orbit", device="cpu")
+    # auto and a degraded report fall back to the exact engine, whose
+    # sweeps run from every source
+    U = importlib.import_module("repro_torch.core.utilization")
+    sources = []
+    real = U._loads
+
+    def spy(g_, src, targets_mask, demand, engine, device):
+        sources.append(len(src))
+        return real(g_, src, targets_mask, demand, engine, device)
+
+    monkeypatch.setattr(U, "_loads", spy)
+    got = P.arc_loads(gd, device="cpu")
+    assert sources == [gd.n]
+    want = R.arc_loads(_port_fs(fs).apply(ref), engine="numpy")
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-9, atol=1e-12)
+    assert got[1:] == want[1:]
+    sources.clear()
+    rep = P.degraded_report(g, "uniform", fs, device="cpu")
+    assert sources == [gd.n]
+    _close(rep.theta, R.degraded_report(ref, "uniform", _port_fs(fs)).theta)
+
+
+@pytest.mark.parametrize("engine", ENGINES + ["auto"])
+def test_worst_case_on_degraded_graph(engine):
+    g, ref = torus3d_graph(4, 4, 1), ref_torus3d_graph(4, 4, 1)
+    fs = P.random_faults(g, k_links=2, seed=0)
+    pristine = P.worst_case(g, model="minimal", n_random=2, engine=engine,
+                            device="cpu")
+    degraded = P.worst_case(g, model="minimal", n_random=2, faults=fs,
+                            engine=engine, device="cpu")
+    assert degraded.worst_theta <= pristine.worst_theta + 1e-12
+    want = R.worst_case(ref, model="minimal", n_random=2,
+                        faults=_port_fs(fs), engine="numpy")
+    _same_worst(degraded, want)
+
+
+def test_worst_case_faulted_pn_skips_orbit_path(monkeypatch):
+    """A fault set on PN, whose pristine graph takes the shortcut: the
+    degraded candidates never reach it, and the thetas are the
+    reference's under ugal."""
+    g, ref = P.pn_graph(4), R.pn_graph(4)
+    fs = P.random_faults(g, k_links=2, seed=0)
+    U = importlib.import_module("repro_torch.core.utilization")
+    hits = []
+    real = U._loads_orbit
+
+    def spy(g_, targets_mask, engine, device):
+        res = real(g_, targets_mask, engine, device)
+        hits.append(res is not None)
+        return res
+
+    monkeypatch.setattr(U, "_loads_orbit", spy)
+    got = P.worst_case(g, "ugal", n_random=2, faults=fs, device="cpu")
+    assert not any(hits)
+    want = R.worst_case(ref, "ugal", n_random=2, faults=_port_fs(fs),
+                        engine="numpy")
+    _same_worst(got, want)
 
 
 def test_targeted_router_cut():

@@ -55,7 +55,10 @@ def test_port_imports_neither_jax_nor_repro():
                 "repro_torch.core.mms", "repro_torch.core.moore",
                 "repro_torch.core.reference", "repro_torch.core.registry",
                 "repro_torch.core.projective", "repro_torch.fabric",
-                "repro_torch.fabric.model", "repro_torch.sim.faults"}
+                "repro_torch.fabric.model", "repro_torch.sim.faults",
+                "repro_torch.core.orbits", "repro_torch.core.cost",
+                "repro_torch.core.layout", "repro_torch.core.select",
+                "repro_torch.core.adversary", "repro_torch.paper_tables"}
     assert expected <= set(res["modules"])
 
 

@@ -206,9 +206,12 @@ def test_engine_names():
     assert U.resolve_engine(None, cpu) == "dense"
     assert U.resolve_engine("auto", cuda) == "fused"
     assert U.resolve_engine("FUSED", cpu) == "fused"
-    for eng in ("naive", "numpy", "csr", "orbit"):
+    for eng in ("naive", "numpy", "csr"):
         with pytest.raises(ValueError, match="ROADMAP"):
             U.resolve_engine(eng, cpu)
+    # the orbit shortcut sits above the exact engine that runs its sweeps
+    assert U.resolve_engine("orbit", cpu) == "dense"
+    assert U.resolve_engine("orbit", cuda) == "fused"
     with pytest.raises(ValueError, match="'dense'"):
         U.resolve_engine("jax", cpu)
     with pytest.raises(ValueError, match="'fused'"):
