@@ -2,9 +2,10 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card, end to end, and check
 it: the flow-level simulator, the analytic arc-load engines behind its
 reference theta, the serving and training paths of smollm-135m and
-mamba2-130m, the paper's topology families and fault model, and its
-cost model and analytic tools (the orbit shortcut, Tables 2-6, the
-adversarial table).
+mamba2-130m, the paper's topology families and fault model, its cost
+model and analytic tools (the orbit shortcut, Tables 2-6, the
+adversarial table), and the fabric layer (placement, the planner, a
+placed job's simulation).
 
     python3 chip_smoke.py
 
@@ -209,6 +210,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     ``worst_case(PN(31), "ugal", faults=random_faults(k_links=5,
     seed=0))`` under auto, fused and dense within 1e-9, never taking the
     orbit path.
+21. The fabric layer (``repro_torch.fabric``, ``sim.simulate_placement``,
+    ``placement_tables``): BENCH_4's four cases through
+    ``placement_one`` on the fused engine, every row held against
+    ``BENCH_4.json`` (theta and u within 1e-6 of the six recorded digits,
+    max_bytes and alpha at rtol 1e-9, best, beats_linear and max_rel_err
+    as recorded; a greedy_swap(30) row that differs passes only if its
+    descent parts from the reference's on a tie within 1e-9).  At full
+    width, PN(31) as the planner sizes it for Table 5 (1,986 routers,
+    delta0 13, 25,818 terminals) with an 8,192-chip (16, 512) job under
+    both profiles: ``placement_search`` fused, the geometric strategies'
+    theta, u and kbar_eff within 1e-9 of the dense engine and of the
+    reference's values recorded below, greedy_swap(30) never below
+    group; ``fragmentation_sweep`` of two such jobs under tornado within
+    1e-9 of the reference, packed >= interleaved; ``plan`` at 25,000
+    terminals with its placement and resilience columns, every row
+    printed and equal to the reference's (before rounding within 1e-9;
+    a greedy-layout row's dollars by the seed-order fingerprint),
+    ranking equal; ``simulate_placement`` of the group placement on the
+    fused step (every residual <= 1e-4; #1 3 launches a step, #2 one
+    under ugal) sustaining 0.9x the analytic theta (delivered / offered
+    > 0.99) under minimal routing and under ``ugal_threshold(0)``
+    (float32 against float64 within 1e-4), and under
+    ``ugal_threshold(0)`` at the default 1.2x delivering at most what is
+    offered; and one greedy_swap(30) descent
+    under the profiler (wall, device time, idle share, host-to-device
+    copies, #3 / #4 per objective evaluation).
 
 Output: the card's name and power limit, then a ``kernels`` JSON line,
 then ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -2898,6 +2925,573 @@ def check_adversary(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The fabric layer: phase 21
+# ---------------------------------------------------------------------------
+
+# the paper's Table 5 machine as the planner sizes it (fabric/planner.py::
+# candidate_fabrics): PN(31), 1,986 routers of degree 32, delta0 =
+# round(2 * 32 / 5) = 13, 25,818 terminals; on it an 8,192-chip job
+FABRIC_Q = 31
+FABRIC_ROUTERS = 1986
+FABRIC_DEGREE = 32
+FABRIC_DELTA0 = 13
+FABRIC_TERMINALS = 25_818
+FABRIC_MESH = (16, 512)
+FABRIC_AXES = ("model", "data")
+GEOMETRIC = ("linear", "group", "random", "orbit")
+GREEDY = "greedy_swap(30,group)"
+# the reference's rows of that job on the CPU (repro.fabric, engine
+# "numpy", benchmarks/placement_bench.py's PROFILES, ugal): (theta, u,
+# kbar_eff) of placement_search's geometric strategies
+FULL_SEARCH = {
+    "ep_heavy": {
+        "linear": (1.3886646029432, 0.6930225104156182, 4.8013829732510365),
+        "group": (1.755844346282704, 0.6170548261611359, 4.936020151133501),
+        "random": (1.1202461720831214, 0.6633232147989924,
+                   4.595703372336105),
+        "orbit": (1.755844346282704, 0.6170548261611359, 4.936020151133501),
+    },
+    "dp_heavy": {
+        "linear": (7.544005423415833, 0.544484001843014, 4.936020151133503),
+        "group": (1.1121338451898313, 0.6925044904202795, 4.9360201511335),
+        "random": (1.073107618801108, 0.670120085578353, 4.845729921297629),
+        "orbit": (1.1121338451898313, 0.6925044904202795, 4.9360201511335),
+    },
+}
+# fragmentation_sweep of two such ep_heavy jobs under tornado, ugal
+FULL_FRAG = {"packed": (0.7676226572233565, 0.6580115227770764,
+                        4.936020151133503),
+             "interleaved": (0.6075992958610469, 0.6770423162455099,
+                             4.936020151133503),
+             "linear": (0.6075622524990484, 0.7152932101610964,
+                        4.923324477510332)}
+# plan(ep_heavy, min_terminals=25_000, max_radix=64, mesh_shape=(16, 512),
+# placement_strategy="group", routing="ugal", resilience_k=5,
+# resilience_trials=4): the reference's rows in its order, and each
+# candidate's columns before the planner's rounding
+PLAN_KW = dict(min_terminals=25_000, max_radix=64, mesh_shape=FABRIC_MESH,
+               placement_strategy="group", routing="ugal", resilience_k=5,
+               resilience_trials=4)
+PLAN_ROWS = [
+    {"fabric": "SF-MMS(27)", "terminals": 26244, "radix": 59, "kbar": 1.972,
+     "u": 0.887, "kbar_over_u": 2.223, "step_comm_ms": 195.191,
+     "usd_per_node": 1344.11, "watts_per_node": 9.18, "resilience_k": 5,
+     "resilience_theta": 17.989, "resilience_frac": 0.9754,
+     "placed_comm_ms": 86.419, "placement_strategy": "group",
+     "placement_routing": "ugal"},
+    {"fabric": "PN(31)", "terminals": 25818, "radix": 45, "kbar": 2.468,
+     "u": 1.0, "kbar_over_u": 2.468, "step_comm_ms": 200.522,
+     "usd_per_node": 1513.79, "watts_per_node": 9.69, "resilience_k": 5,
+     "resilience_theta": 12.9327, "resilience_frac": 0.9974,
+     "placed_comm_ms": 108.17, "placement_strategy": "group",
+     "placement_routing": "ugal"},
+    {"fabric": "demi-PN(37)", "terminals": 26733, "radix": 57,
+     "kbar": 1.973, "u": 0.987, "kbar_over_u": 1.999,
+     "step_comm_ms": 199.853, "usd_per_node": 1293.52,
+     "watts_per_node": 8.4, "resilience_k": 5, "resilience_theta": 18.4854,
+     "resilience_frac": 0.9729, "placed_comm_ms": 160.184,
+     "placement_strategy": "group", "placement_routing": "ugal"},
+    {"fabric": "dragonfly(9)", "terminals": 26406, "radix": 35,
+     "kbar": 2.878, "u": 1.0, "kbar_over_u": 2.878, "step_comm_ms": 199.239,
+     "usd_per_node": 1457.39, "watts_per_node": 10.89},
+]
+PLAN_RAW = {
+    "demi-PN(37)": {"kbar": 1.9729921819474059, "u": 0.9871977240398293,
+                    "step_comm_ms": 199.8533370046912,
+                    "usd_per_node": 1293.5246999588524,
+                    "watts_per_node": 8.399999999999999,
+                    "resilience_theta": 18.485391661402396,
+                    "pristine_theta": 18.999999999999996,
+                    "placed_comm_ms": 160.18425581897},
+    "PN(31)": {"kbar": 2.4680100755667507, "u": 1.0,
+               "step_comm_ms": 200.5217537551272,
+               "usd_per_node": 1513.7941879309008,
+               "watts_per_node": 9.692307692307692,
+               "resilience_theta": 12.93270186294129,
+               "pristine_theta": 12.965911410491938,
+               "placed_comm_ms": 108.17048919238036},
+    "SF-MMS(27)": {"kbar": 1.971859986273164, "u": 0.8870021611608522,
+                   "step_comm_ms": 195.1911274792803,
+                   "usd_per_node": 1344.1142222222222,
+                   "watts_per_node": 9.177777777777777,
+                   "resilience_theta": 17.988989160162657,
+                   "pristine_theta": 18.44303797468354,
+                   "placed_comm_ms": 86.41936649252018},
+    "dragonfly(9)": {"kbar": 2.8779406750767134, "u": 1.0,
+                     "step_comm_ms": 199.23881831471618,
+                     "usd_per_node": 1457.3880327198365,
+                     "watts_per_node": 10.888888888888888},
+}
+# BENCH_4's greedy_swap(30) descents (placement_bench.py: from group,
+# seed 0, ugal) on the reference's numpy engine, by case and profile: the
+# start's objective and each accepted step with its new objective, which
+# together give the whole history
+BENCH4_DESCENTS = {
+    "pn16/ep_heavy": (5356934700.4857, ()),
+    "pn16/dp_heavy": (10485914732.865625, ((4, 10483580679.978416),
+                                           (20, 10406556934.700487),
+                                           (24, 10404222881.813276))),
+    "demi_pn9/ep_heavy": (5111111111.111111, ()),
+    "demi_pn9/dp_heavy": (9555555555.555557, ((3, 9401894107.926016),
+                                              (6, 9253096459.401978),
+                                              (28, 9248179061.55241))),
+    "torus3d_444/ep_heavy": (13629629629.629631, ()),
+    "torus3d_444/dp_heavy": (25481481481.48148, ((3, 25310052910.05291),
+                                                 (6, 25085052910.05291),
+                                                 (9, 24982473544.97354))),
+    "dragonfly3/ep_heavy": (8183734372.055037, ()),
+    "dragonfly3/dp_heavy": (15968115957.566565, ((3, 15637320968.199957),
+                                                 (6, 15603882475.983097))),
+}
+GREEDY_ITERS = 30
+# steps of the 0.9x ugal_threshold(0) runs of phase 21: three times the
+# simulator's default for PN(31) (48 + 32 x its 3 hops), the default
+# length still in the transient there (delivered / offered 0.9889 after
+# 144 steps, 0.9941 after 432 on the H100)
+SETTLE_STEPS = 432
+# BENCH_4 rounds theta and u to six digits
+BENCH4_DIGITS = 1e-6
+FABRIC_KERNELS = ("fused_step_update", "fused_decision", "frontier_step",
+                  "backward_step")
+MASK_KERNEL = re.compile(r"mask_gemm_kernel<.*,\s*(true|false)>")
+
+
+def _launch_counts() -> dict:
+    from repro_torch.kernels import mask_gemm as MG
+    from repro_torch.kernels import sim_step as K
+    return {**K.LAUNCHES, **MG.LAUNCHES}
+
+
+def _timed(fn):
+    """(result, seconds, launches of #1-#4) of one call, the card
+    synchronised on both sides."""
+    before = _launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    after = _launch_counts()
+    return out, seconds, {k: after[k] - before[k] for k in FABRIC_KERNELS}
+
+
+def _need_mask_gemm(label, got):
+    if not (got["frontier_step"] > 0 and got["backward_step"] > 0):
+        raise AssertionError(f"{label} never launched #3 / #4: {got}")
+
+
+def _rel(got, want) -> float:
+    return abs(got - want) / max(abs(want), 1e-300)
+
+
+def _descent_history(start, accepted, iters=GREEDY_ITERS) -> list:
+    hist = [start] * (iters + 1)
+    for step, val in accepted:
+        hist[step:] = [val] * (iters + 1 - step)
+    return hist
+
+
+def _parting_step(hist, ref_hist):
+    """The first step at which two greedy descents decide otherwise (a
+    swap is kept exactly when the history strictly drops), or None; the
+    histories must agree within THETA_RTOL before it, and there the side
+    that kept its swap must tie its incumbent within THETA_RTOL."""
+    if not _rel(hist[0], ref_hist[0]) <= THETA_RTOL:
+        raise AssertionError(f"descent starts {hist[0]} / {ref_hist[0]}")
+    for i in range(1, len(ref_hist)):
+        took, ref_took = hist[i] < hist[i - 1], ref_hist[i] < ref_hist[i - 1]
+        if took != ref_took:
+            h = hist if took else ref_hist
+            if not h[i] >= h[i - 1] * (1 - THETA_RTOL):
+                raise AssertionError(f"the descents part at step {i} on a "
+                                     f"non-tie: {h[i - 1]!r} -> {h[i]!r}")
+            return i
+        if not _rel(hist[i], ref_hist[i]) <= THETA_RTOL:
+            raise AssertionError(f"descent step {i}: {hist[i]} against "
+                                 f"{ref_hist[i]}")
+    return None
+
+
+def _bench4_descent(name, pname, g, mesh, axes, delta0, dev):
+    """A greedy_swap(30) row that differs from BENCH_4's: replay the
+    port's descent and hold it against the reference's by the tie rule;
+    returns the step at which they part."""
+    from repro_torch import placement_tables as PT
+    from repro_torch.fabric import (collective_traffic, greedy_improve,
+                                    place_mesh, schedule_from_profile)
+    sched = schedule_from_profile(PT.PROFILES[pname], axes)
+    p0 = place_mesh(g, mesh, axes, delta0, "group", device=dev)
+    _, _, hist = greedy_improve(p0, collective_traffic(mesh, axes, sched),
+                                iters=GREEDY_ITERS, seed=0, routing="ugal",
+                                engine="fused", return_history=True,
+                                device=dev)
+    start, accepted = BENCH4_DESCENTS[f"{name}/{pname}"]
+    step = _parting_step(hist, _descent_history(start, accepted))
+    if step is None:
+        raise AssertionError(f"{name} {pname}: the greedy row differs from "
+                             f"BENCH_4's, yet the descents agree")
+    return step
+
+
+def _hold_bench4(name, g, mesh, axes, delta0, out, entry, dev) -> dict:
+    """placement_one's (rows, summary, max_rel_err) against BENCH_4's
+    entry: theta and u within 1e-6 of the six recorded digits, max_bytes
+    and alpha at rtol 1e-9, the summary's best and beats_linear and
+    max_rel_err as recorded; a greedy row that differs passes only under
+    the tie rule.  Returns {profile: parting step} of such rows."""
+    rows, summary, err = out
+    want = entry["rows"]
+    if [(r["profile"], r["strategy"]) for r in rows] != \
+            [(r["profile"], r["strategy"]) for r in want]:
+        raise AssertionError(f"{name}: rows {[r['strategy'] for r in rows]}")
+    ties = {}
+    for row, ref in zip(rows, want):
+        bad = [k for k in ("theta", "u")
+               if not abs(row[k] - ref[k]) <= BENCH4_DIGITS * (1 + 1e-9)]
+        bad += [k for k in ("max_bytes", "alpha")
+                if k in ref and not (
+                    (row[k] is None and ref[k] is None)
+                    or (row[k] is not None and ref[k] is not None
+                        and abs(row[k] - ref[k])
+                        <= THETA_RTOL * max(abs(ref[k]), 1.0)))]
+        if not bad:
+            continue
+        if row["strategy"] != GREEDY:
+            raise AssertionError(f"{name} {row['profile']} "
+                                 f"{row['strategy']}: {bad} {row} against "
+                                 f"BENCH_4's {ref}")
+        ties[row["profile"]] = _bench4_descent(name, row["profile"], g, mesh,
+                                               axes, delta0, dev)
+        log(f"{name} {row['profile']}: the greedy descent parts from the "
+            f"reference's at step {ties[row['profile']]} on a tie; row "
+            f"{row} against BENCH_4's {ref}")
+    for key, s in entry["summary"].items():
+        fields = ("best", "beats_linear") if "beats_linear" in s else ("best",)
+        for f in fields:
+            if summary[key][f] != s[f] and key not in ties:
+                raise AssertionError(f"{name} {key} {f}: {summary[key][f]} "
+                                     f"against BENCH_4's {s[f]}")
+    if not ties and not abs(err - entry["max_rel_err"]) <= 1e-12:
+        raise AssertionError(f"{name}: max_rel_err {err} against "
+                             f"{entry['max_rel_err']}")
+    return ties
+
+
+def _hold_rows(label, got: dict, want: dict):
+    """(theta, u, kbar_eff) rows within THETA_RTOL; the largest error."""
+    worst = 0.0
+    for strat, ref in want.items():
+        row = got[strat]
+        for key, val in zip(("theta", "u", "kbar_eff"), ref):
+            e = _rel(row[key], val)
+            worst = max(worst, e)
+            if not e <= THETA_RTOL:
+                raise AssertionError(f"{label} {strat} {key}: {row[key]!r} "
+                                     f"against {val!r}")
+    return worst
+
+
+def _row_tuple(row) -> tuple:
+    return tuple(row[k] for k in ("theta", "u", "kbar_eff"))
+
+
+def _check_plan(dev):
+    """plan() at 25,000 terminals against the reference's rows (equal
+    after the planner's rounding, rtol 1e-9 before it; a greedy-layout
+    row whose seed order differs on this host keeps its dollars apart),
+    and the ranking equal."""
+    from repro_torch import placement_tables as PT
+    from repro_torch.core import degradation_sweep
+    from repro_torch.fabric import (candidate_fabrics, placement_step_seconds,
+                                    plan, schedule_from_profile)
+    prof = PT.PROFILES["ep_heavy"]
+    rows, seconds, got = _timed(lambda: plan(prof, device=dev, **PLAN_KW))
+    _need_mask_gemm("plan", got)
+    for row in rows:
+        log(f"plan row: {json.dumps(row)}")
+    log(f"plan: {len(rows)} candidates in {seconds:.2f} s; launches {got}")
+    reordered = _greedy_order_differs()
+    if [r["fabric"] for r in rows] != [r["fabric"] for r in PLAN_ROWS]:
+        raise AssertionError(f"plan ranks {[r['fabric'] for r in rows]}")
+    for row, ref in zip(rows, PLAN_ROWS):
+        if set(row) != set(ref):
+            raise AssertionError(f"plan {row['fabric']}: columns {set(row)}")
+        for key, val in ref.items():
+            if key == "usd_per_node" and row["fabric"] in reordered:
+                log(f"plan {row['fabric']}: this host's numpy orders equal "
+                    f"degrees another way (seed order "
+                    f"{reordered[row['fabric']]}, reference "
+                    f"{GREEDY_ROWS[row['fabric']][2]}): $/node "
+                    f"{row[key]} here, {val} on the reference's host")
+            elif row[key] != val:
+                raise AssertionError(f"plan {row['fabric']} {key}: "
+                                     f"{row[key]!r} against {val!r}")
+    # the columns before the planner's rounding
+    worst = 0.0
+    sched = schedule_from_profile(prof, FABRIC_AXES)
+    t0 = time.perf_counter()
+    for cand in candidate_fabrics(PLAN_KW["min_terminals"],
+                                  PLAN_KW["max_radix"], device=dev):
+        name = cand.fabric.name
+        vals = {"kbar": cand.fabric.kbar, "u": cand.fabric.u,
+                "step_comm_ms": cand.step_comm_seconds(prof) * 1e3,
+                "watts_per_node": cand.watts_per_node}
+        if name not in reordered:
+            vals["usd_per_node"] = cand.dollars_per_node
+        if "resilience_theta" in PLAN_RAW[name]:
+            sw = degradation_sweep(
+                cand.fabric.graph, k_failures=(PLAN_KW["resilience_k"],),
+                trials=PLAN_KW["resilience_trials"], pattern="uniform",
+                routing="ugal", kind="links", seed=0, device=dev)
+            vals["resilience_theta"] = float(sw.worst[0])
+            vals["pristine_theta"] = sw.pristine_theta
+            p = cand.fabric.place(FABRIC_MESH, FABRIC_AXES, strategy="group",
+                                  schedule=sched, routing="ugal")
+            vals["placed_comm_ms"] = placement_step_seconds(
+                cand.fabric, prof, p, routing="ugal") * 1e3
+        for key, val in vals.items():
+            e = _rel(val, PLAN_RAW[name][key])
+            worst = max(worst, e)
+            if not e <= THETA_RTOL:
+                raise AssertionError(f"plan {name} {key} before rounding: "
+                                     f"{val!r} against "
+                                     f"{PLAN_RAW[name][key]!r}")
+    log(f"plan: every column before rounding within {worst:.3e} of the "
+        f"reference's ({time.perf_counter() - t0:.2f} s); rows and ranking "
+        f"equal after it")
+
+
+def _profile_descent(dev, g, prof):
+    """One greedy_swap(30) descent of the full-width job under the
+    profiler: wall and device time, idle share, host-to-device copies,
+    #3 / #4 per objective evaluation."""
+    import importlib
+    from repro_torch.fabric import (collective_traffic, greedy_improve,
+                                    place_mesh, schedule_from_profile)
+    PL = importlib.import_module("repro_torch.fabric.placement")
+    sched = schedule_from_profile(prof, FABRIC_AXES)
+    traffic = collective_traffic(FABRIC_MESH, FABRIC_AXES, sched)
+    p0 = place_mesh(g, FABRIC_MESH, FABRIC_AXES, FABRIC_DELTA0, "group",
+                    device=dev)
+    real, seen = PL._router_demand, {}
+
+    def spy(*args):
+        seen["evals"] += 1
+        return real(*args)
+
+    def descent():
+        seen["evals"], seen["before"] = 0, _launch_counts()
+        greedy_improve(p0, traffic, iters=GREEDY_ITERS, seed=0,
+                       routing="ugal", engine="fused", device=dev)
+        seen["after"] = _launch_counts()
+
+    PL._router_demand = spy
+    try:
+        rows, wall_ms, busy_ms, _ = device_rows(descent)
+    finally:
+        PL._router_demand = real
+    evals = seen["evals"]
+    got = {k: seen["after"][k] - seen["before"][k] for k in FABRIC_KERNELS}
+    _need_mask_gemm("the profiled descent", got)
+    copies = [r for r in rows if "Memcpy HtoD" in r[2]]
+    kern = {"true": [0.0, 0], "false": [0.0, 0]}
+    for ms, count, name in rows:
+        m = MASK_KERNEL.search(name)
+        if m:
+            kern[m[1]][0] += ms
+            kern[m[1]][1] += count
+    log(f"profile greedy_swap(30) descent (PN({FABRIC_Q}), "
+        f"{int(np.prod(FABRIC_MESH)):,} chips, ugal, fused): {evals} "
+        f"objective evaluations, wall {wall_ms:.1f} ms "
+        f"({wall_ms / evals:.2f} ms an evaluation), device busy "
+        f"{busy_ms:.1f} ms, idle share {1.0 - busy_ms / wall_ms:.3f}; "
+        f"{sum(r[1] for r in copies)} host-to-device copies "
+        f"{sum(r[0] for r in copies):.1f} ms; per evaluation #3 "
+        f"{kern['true'][1] / evals:.1f} launches {kern['true'][0] / evals:.3f}"
+        f" ms, #4 {kern['false'][1] / evals:.1f} launches "
+        f"{kern['false'][0] / evals:.3f} ms (counters {got})")
+    for ms, count, key in rows[:12]:
+        log(f"profile descent:   {ms:9.3f} ms {count:6d} launches  "
+            f"{key[:90]}")
+    return {"evals": evals, "wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle": 1.0 - busy_ms / wall_ms}
+
+
+def _check_simulation(dev, g, prof):
+    """simulate_placement of the group placement on the fused step: 0.9x
+    the analytic theta sustained (delivered / offered > 0.99) under
+    minimal routing, whose fluid theta is the simulator's exact knee (the
+    reference's own test of simulate_placement), and under
+    ugal_threshold(0), float32 against float64 within 1e-4; at the
+    default 1.2x delivering at most what is offered.  Per-hop UGAL's
+    queues settle slowly at this load (most fluid takes two-phase
+    Valiant paths), so its 0.9x runs take SETTLE_STEPS, and the run of
+    the default length is printed beside them."""
+    from repro_torch.fabric import place_mesh, placement_report
+    from repro_torch.sim import SimConfig, simulate_placement
+    p = place_mesh(g, FABRIC_MESH, FABRIC_AXES, FABRIC_DELTA0, "group",
+                   device=dev)
+    th = {r: placement_report(p, prof, routing=r, engine="fused",
+                              device=dev).theta for r in ("minimal", "ugal")}
+
+    def run(label, routing, offered, dtype="float32", steps=None):
+        cfg = SimConfig(backend="fused", dtype=dtype)
+        r, seconds, got = _timed(lambda: simulate_placement(
+            p, prof, routing=routing, offered=offered, steps=steps,
+            config=cfg, device=dev))
+        want = {"fused_step_update": 3 * r.steps,
+                "fused_decision": 0 if routing == "minimal" else r.steps}
+        for k, n in want.items():
+            if got[k] != n:
+                raise AssertionError(f"simulate_placement {label}: {k} "
+                                     f"launched {got[k]} times in "
+                                     f"{r.steps} steps, expected {n}")
+        if r.backend != "fused" or not r.residual <= 1e-4:
+            raise AssertionError(f"simulate_placement {label}: backend "
+                                 f"{r.backend}, residual {r.residual}")
+        log(f"simulate_placement {label}: offered {r.offered:.6f}, "
+            f"delivered {r.theta:.6f} ({r.theta / r.offered:.4f} of "
+            f"offered), alpha {r.alpha:.4f}, latency {r.latency:.2f} steps, "
+            f"occupancy {r.occupancy:.1f}, residual {r.residual:.2e}; "
+            f"{r.steps} steps in {seconds:.2f} s "
+            f"({1e3 * seconds / r.steps:.2f} ms/step); launches {got}")
+        return r
+
+    m = run("minimal 0.9x", "minimal", 0.9 * th["minimal"])
+    ugal = "ugal_threshold(0)"
+    short = run("ugal_threshold(0) 0.9x float32, default length", ugal,
+                0.9 * th["ugal"])
+    u32 = run("ugal_threshold(0) 0.9x float32", ugal, 0.9 * th["ugal"],
+              steps=SETTLE_STEPS)
+    u64 = run("ugal_threshold(0) 0.9x float64", ugal, 0.9 * th["ugal"],
+              dtype="float64", steps=SETTLE_STEPS)
+    for label, r in (("minimal", m), (ugal, u32)):
+        if not r.theta / r.offered > 0.99:
+            raise AssertionError(f"{label}: 0.9x the analytic theta is not "
+                                 f"sustained: {r.theta / r.offered}")
+    gap = abs(u32.theta / u32.offered - u64.theta / u64.offered)
+    if not gap <= 1e-4:
+        raise AssertionError(f"ugal_threshold(0) 0.9x: float32 and float64 "
+                             f"delivered / offered {gap} apart")
+    over = run("ugal_threshold(0) default (1.2x)", ugal, None)
+    if not _rel(over.offered, 1.2 * th["ugal"]) <= THETA_RTOL:
+        raise AssertionError(f"default offered {over.offered} is not "
+                             f"1.2 x {th['ugal']}")
+    # float32 fluid: delivered may exceed offered by float32 roundings
+    if not over.theta <= over.offered * (1 + 1e-5):
+        raise AssertionError(f"delivered {over.theta} above offered "
+                             f"{over.offered}")
+    log(f"simulate_placement: minimal sustains 0.9x its analytic theta "
+        f"{th['minimal']:.6f} ({m.theta / m.offered:.6f}); per-hop "
+        f"ugal_threshold(0) at 0.9x the fluid ugal theta {th['ugal']:.6f} "
+        f"delivers {u32.theta / u32.offered:.6f} of offered over "
+        f"{u32.steps} steps (float64 {u64.theta / u64.offered:.6f}; "
+        f"{short.theta / short.offered:.6f} over {short.steps}); plateau "
+        f"at 1.2x {over.theta:.6f} = {over.theta / th['ugal']:.4f} of the "
+        f"fluid theta")
+
+
+def check_fabric(dev):
+    """Phase 21: the fabric layer on the card."""
+    from repro_torch import placement_tables as PT
+    from repro_torch.core import pn_graph
+    from repro_torch.fabric import (evaluate_placements, fragmentation_sweep,
+                                    placement_search)
+    from repro_torch.kernels import mask_gemm as MG
+    from repro_torch.kernels import sim_step as K
+
+    MG.reset_launches()
+    K.reset_launches()
+
+    # BENCH_4's four cases at their recorded sizes, fused
+    bench4 = {e["name"]: e for e in
+              json.loads((ROOT / "BENCH_4.json").read_text())["entries"]}
+    for name, g, mesh, axes, delta0, expect in PT.placement_cases():
+        out, seconds, got = _timed(lambda: PT.placement_one(
+            g, mesh, axes, delta0, expect, engine="fused", device=dev))
+        _need_mask_gemm(name, got)
+        ties = _hold_bench4(name, g, mesh, axes, delta0, out,
+                            bench4[f"placement[{name}]"], dev)
+        s = out[1]
+        log(f"placement[{name}] ({g.n} routers, mesh {mesh}, delta0 "
+            f"{delta0}): {seconds:.2f} s, launches {got}; ep best "
+            f"{s['ep_heavy']['best']}@{s['ep_heavy']['best_theta']:.4f}, "
+            f"dp best {s['dp_heavy']['best']}, fragmentation best "
+            f"{s['fragmentation']['best']}, max_rel_err {out[2]}; rows "
+            f"{'equal to' if not ties else 'tied with'} BENCH_4's "
+            f"(BENCH_4's CPU record {bench4[f'placement[{name}]']['seconds']}"
+            f" s)")
+
+    # full width: PN(31) as the planner sizes it, an 8,192-chip job
+    g = pn_graph(FABRIC_Q)
+    if (g.n, g.max_degree, round(2 * (FABRIC_Q + 1) / 5),
+            g.n * FABRIC_DELTA0) != (FABRIC_ROUTERS, FABRIC_DEGREE,
+                                     FABRIC_DELTA0, FABRIC_TERMINALS):
+        raise AssertionError(f"PN({FABRIC_Q}): {g.n} routers of degree "
+                             f"{g.max_degree}")
+    args = (g, FABRIC_MESH, FABRIC_AXES, FABRIC_DELTA0)
+    for pname, prof in PT.PROFILES.items():
+        out, seconds, got = _timed(lambda: placement_search(
+            *args, prof, strategies=PT.STRATEGIES, routing="ugal",
+            engine="fused", device=dev))
+        _need_mask_gemm(f"search {pname}", got)
+        dense, dense_s, dense_got = _timed(lambda: evaluate_placements(
+            *args, prof, strategies=GEOMETRIC, routing="ugal",
+            engine="dense", device=dev))
+        if dense_got["frontier_step"] or dense_got["backward_step"]:
+            raise AssertionError("the dense engine launched #3 / #4")
+        rows = out["rows"]
+        geo = {s: rows[s] for s in GEOMETRIC}
+        e_dense = _hold_rows(f"search {pname} fused vs dense", geo,
+                             {s: _row_tuple(r) for s, r in dense.items()})
+        e_ref = _hold_rows(f"search {pname} vs the reference", geo,
+                           FULL_SEARCH[pname])
+        greedy, group = rows[GREEDY]["theta"], rows["group"]["theta"]
+        # a swap is kept only on a strictly lower max load; normalised by
+        # the same per-chip bytes, it can round one ulp either way
+        if not greedy >= group * (1 - 1e-12):
+            raise AssertionError(f"search {pname}: greedy {greedy} below "
+                                 f"group {group}")
+        log(f"search {pname} (PN({FABRIC_Q}), mesh {FABRIC_MESH}, delta0 "
+            f"{FABRIC_DELTA0}, ugal, fused): {seconds:.2f} s, launches "
+            f"{got}; dense {dense_s:.2f} s; best {out['best']}; "
+            + ", ".join(f"{s} {r['theta']:.6f} (u {r['u']:.4f}, kbar_eff "
+                        f"{r['kbar_eff']:.4f}, alpha {r['alpha']})"
+                        for s, r in rows.items())
+            + f"; geometric rows within {e_dense:.3e} of dense, "
+              f"{e_ref:.3e} of the reference")
+
+    jobs = [(FABRIC_MESH, FABRIC_AXES, PT.PROFILES["ep_heavy"])] * 2
+    frag, seconds, got = _timed(lambda: fragmentation_sweep(
+        g, jobs, FABRIC_DELTA0, routing="ugal", background="tornado",
+        engine="fused", device=dev))
+    _need_mask_gemm("fragmentation", got)
+    lay = frag["layouts"]
+    e_frag = _hold_rows("fragmentation", lay, FULL_FRAG)
+    if not lay["packed"]["theta"] >= lay["interleaved"]["theta"]:
+        raise AssertionError(f"fragmentation: interleaved beats packed "
+                             f"{lay}")
+    chips = int(np.prod(FABRIC_MESH))
+    log(f"fragmentation (two {chips:,}-chip ep_heavy jobs, {2 * chips:,} "
+        f"of {FABRIC_TERMINALS:,} terminals, tornado, ugal): {seconds:.2f} s, "
+        f"launches {got}; "
+        + ", ".join(f"{k} {r['theta']:.6f}" for k, r in lay.items())
+        + f"; best {frag['best']}; within {e_frag:.3e} of the reference")
+
+    _check_plan(dev)
+    _check_simulation(dev, g, PT.PROFILES["ep_heavy"])
+    _profile_descent(dev, g, PT.PROFILES["ep_heavy"])
+
+    # the counters were zeroed at the phase's start
+    launches = {k: v for k, v in _launch_counts().items()
+                if k in FABRIC_KERNELS}
+    if not all(launches[k] > 0 for k in FABRIC_KERNELS):
+        raise AssertionError(f"phase 21 never launched a kernel: {launches}")
+    log(f"phase 21: launches {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA "
@@ -2952,7 +3546,7 @@ def main() -> int:
     for kname in bwd_errs:
         launches[kname] = train_launches[kname]
     done("15")
-    # phases 16-20 run kernels #1-#4 on new paths: their launches there
+    # phases 16-21 run kernels #1-#4 on new paths: their launches there
     # go beside each kernel's main-path count
     phase_launches = {}
     for phase, fn in (("16", lambda: check_families(dev)),
@@ -2960,7 +3554,8 @@ def main() -> int:
                       ("18", lambda: check_faults_sim(
                           dev, thetas["pn27 points"])),
                       ("19", lambda: check_orbits(dev, pn64)),
-                      ("20", lambda: check_adversary(dev))):
+                      ("20", lambda: check_adversary(dev)),
+                      ("21", lambda: check_fabric(dev))):
         t0 = time.perf_counter()
         for kname, count in fn().items():
             phase_launches.setdefault(kname, {})[phase] = count

@@ -1,10 +1,10 @@
-"""Carry topology, fault sets, route tables, fluid state, model weights
-and serve caches across from plain arrays.
+"""Carry topology, fault sets, placements, route tables, fluid state,
+model weights and serve caches across from plain arrays.
 
 The reference package builds graphs the port has no constructor for yet
-(placement graphs) and keeps its fault sets, tables, state, weights and
-caches as plain values and arrays.  These helpers build the port's
-objects from such values (and caches back), so both packages compute
+(placement graphs) and keeps its fault sets, placements, tables, state,
+weights and caches as plain values and arrays.  These helpers build the
+port's objects from such values (and caches back), so both packages compute
 the same thing on the same inputs.  They take arrays and tuples, never
 objects of the reference, and import nothing of it.
 """
@@ -18,12 +18,14 @@ from ._device import resolve_device
 from .configs.base import ArchConfig
 from .core.faults import FaultSet
 from .core.graph import Graph
+from .fabric.placement import Placement
 from .models.model import build
 from .models.transformer import Model, layer_plan
 from .sim.engine import SimState
 from .sim.tables import RouteTables
 
 __all__ = ["graph_from_arrays", "fault_set_from_arrays",
+           "placement_from_arrays",
            "tables_from_numpy", "state_from_numpy",
            "state_to_numpy", "params_from_numpy", "params_to_numpy",
            "cache_from_numpy", "cache_to_numpy"]
@@ -46,6 +48,23 @@ def fault_set_from_arrays(links=(), routers=()) -> FaultSet:
     """The port's FaultSet from endpoint pairs of down links and ids of
     down routers (a reference FaultSet's ``links`` and ``routers``)."""
     return FaultSet(links=tuple(map(tuple, links)), routers=tuple(routers))
+
+
+def placement_from_arrays(graph: Graph, mesh_shape, axis_names,
+                          router_of) -> Placement:
+    """The port's Placement of a mesh on the port's ``graph`` from its
+    shape, axis names and chip -> router array (a reference Placement's
+    ``mesh_shape``, ``axis_names`` and ``router_of``)."""
+    router_of = np.array(router_of, dtype=np.int64)
+    if router_of.shape != (int(np.prod(mesh_shape)),):
+        raise ValueError(f"router_of has shape {router_of.shape}, the mesh "
+                         f"{tuple(mesh_shape)} has {int(np.prod(mesh_shape))}"
+                         f" chips")
+    if router_of.size and not (0 <= router_of.min()
+                               and router_of.max() < graph.n):
+        raise ValueError(f"router_of names routers outside 0..{graph.n - 1}")
+    return Placement(graph, tuple(int(m) for m in mesh_shape),
+                     tuple(axis_names), router_of)
 
 
 def tables_from_numpy(device=None, **fields) -> RouteTables:

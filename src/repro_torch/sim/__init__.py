@@ -14,8 +14,9 @@ zero-threshold / infinite-buffer limit.  Both run on the card unless
 ``device="cpu"`` is passed, and both take a fault schedule
 (``events=``, :mod:`repro_torch.sim.faults`): at each event the run
 swaps in route tables compiled for the new fault state and passes the
-live state through the surgery.  The observability hooks and
-``simulate_placement`` are not ported yet.
+live state through the surgery.  ``simulate_placement`` replays a
+placed training job's step (:mod:`repro_torch.fabric.placement`).  The
+observability hooks are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ __all__ = [
     "SimConfig", "SimRun", "SimSweep", "Simulator", "simulate",
     "saturation_sweep", "fluid_routing_spec", "DEFAULT_LOAD_GRID",
     "SIM_MAX_CELLS", "RouteTables", "build_tables", "FaultEvent",
-    "apply_fault_surgery", "normalize_events",
+    "apply_fault_surgery", "normalize_events", "simulate_placement",
 ]
 
 # offered-load grid of a sweep, as fractions of the analytic fluid theta
@@ -491,3 +492,34 @@ def saturation_sweep(g: Graph, pattern, routing: str = "minimal",
         delivered=np.array([r.theta for r in curve]),
         latency=np.array([r.latency for r in curve]),
         alpha=np.array([r.alpha for r in curve]), knee=knee, runs=runs)
+
+
+def simulate_placement(placement, profile, routing: str = "ugal_threshold(0)",
+                       offered: float | None = None,
+                       steps: int | None = None,
+                       config: SimConfig | None = None,
+                       axis_of=None, device=None) -> SimRun:
+    """Replay a (StepProfile, Placement) byte matrix through the
+    simulator in fabric.placement's normalization: demand is scaled so
+    the busiest CHIP injects one unit (``chip_wire_bytes``), making the
+    measured theta directly comparable to ``placement_report``'s.
+    ``offered`` defaults to 1.2x the analytic theta so the run reports
+    the saturation plateau.  Both run on ``device``."""
+    from ..fabric.placement import (chip_wire_bytes, placement_demand,
+                                    placement_report)
+    device = resolve_device(device)
+    cfg = _config_with(config, routing)
+    demand = placement_demand(profile, placement, axis_of)
+    per_chip = chip_wire_bytes(profile, placement.mesh_shape,
+                               placement.axis_names, axis_of)
+    if per_chip == 0.0 or not demand.any():
+        raise ValueError("placement demand is all router-local; "
+                         "nothing to simulate")
+    norm = demand / per_chip
+    if offered is None:
+        ref = placement_report(placement, profile,
+                               routing=fluid_routing_spec(routing),
+                               axis_of=axis_of, device=device).theta
+        offered = 1.2 * ref
+    return Simulator(placement.graph, cfg, demand=norm,
+                     device=device).run(norm, offered, steps)

@@ -11,11 +11,10 @@ reference's ``numpy`` engine through both port engines (``dense`` and
 conservation identity holds on the surviving topology.  ``worst_case``
 on degraded graphs equals the reference's, and a fault set turns the
 orbit shortcut off: a degraded graph has no generators, so ``auto``
-runs the exact engine and ``orbit`` raises.
-
-Left out, with the code they test, not ported yet (ROADMAP.md, queue
-1): the placement and planner cases (``placement_report(faults=)``,
-``plan(resilience_k=)``; ``fabric/``).
+runs the exact engine and ``orbit`` raises.  The fabric layer's fault
+cases, ``placement_report(faults=)`` and the planner's resilience
+columns (``plan(resilience_k=)``), are held against the reference the
+same way.
 """
 
 from __future__ import annotations
@@ -440,6 +439,89 @@ def test_degradation_sweep_indirect_network():
     want = R.degradation_sweep(ref, engine="numpy", **kw)
     np.testing.assert_allclose(sw.thetas, want.thetas, rtol=1e-9)
 
+
+
+# ---------------------------------------------------------------------------
+# The fabric layer under faults: placement theta and the planner
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_placement_report_faults(engine):
+    import repro.fabric as RF
+    import repro_torch.fabric as PF
+    g, ref = P.demi_pn_graph(9), R.demi_pn_graph(9)
+    p = PF.place_mesh(g, (8, 8), ("data", "model"), 4, "group",
+                      device="cpu")
+    rp = RF.place_mesh(ref, (8, 8), ("data", "model"), 4, "group")
+    np.testing.assert_array_equal(p.router_of, rp.router_of)
+    kinds = {"all-to-all": 8e9, "all-reduce": 1e9}
+    prof, ref_prof = PF.StepProfile(kinds), RF.StepProfile(kinds)
+    pristine = PF.placement_report(p, prof, routing="minimal",
+                                   engine=engine, device="cpu")
+    ref_fs = R.random_faults(ref, k_links=2, seed=0)
+    fs = P.random_faults(g, k_links=2, seed=0)
+    assert fs == _port_fs(ref_fs)
+    degraded = PF.placement_report(p, prof, routing="minimal", faults=fs,
+                                   engine=engine, device="cpu")
+    assert degraded.faults == fs.label and pristine.faults is None
+    assert degraded.theta <= pristine.theta * (1 + 1e-9)
+    # a dead occupied router takes its chips' demand with it
+    dead = _port_fs(R.FaultSet(routers=[int(rp.router_of[0])]))
+    for port_fs, want_fs in ((None, None), (fs, ref_fs),
+                             (dead, R.FaultSet(routers=dead.routers))):
+        for routing in ("minimal", "ugal"):
+            got = PF.placement_report(p, prof, routing=routing,
+                                      faults=port_fs, engine=engine,
+                                      device="cpu")
+            want = RF.placement_report(rp, ref_prof, routing=routing,
+                                       faults=want_fs, engine="numpy")
+            assert (got.faults, got.diameter) == (want.faults,
+                                                  want.diameter)
+            for key in ("theta", "u", "kbar_eff", "total_demand"):
+                _close(getattr(got, key), getattr(want, key))
+            np.testing.assert_allclose(got.loads, want.loads, rtol=1e-9,
+                                       atol=1e-9 * want.loads.max())
+
+
+def test_planner_resilience_columns():
+    import repro.fabric as RF
+    import repro_torch.fabric as PF
+    from repro.perf import flags, set_flags
+    kinds = {"all-reduce": 1e9, "all-to-all": 1e8}
+    rows = PF.plan(PF.StepProfile(kinds), min_terminals=100, resilience_k=1,
+                   resilience_trials=2, device="cpu")
+    old = flags().util_engine
+    set_flags(util_engine="numpy")  # the reference's plan takes no engine
+    try:
+        want = RF.plan(RF.StepProfile(kinds), min_terminals=100,
+                       resilience_k=1, resilience_trials=2)
+    finally:
+        set_flags(util_engine=old)
+    assert [r["fabric"] for r in rows] == [r["fabric"] for r in want]
+    for row, ref_row in zip(rows, want):
+        assert row == ref_row, row["fabric"]
+    small = [r for r in rows if "resilience_theta" in r]
+    assert small, "no candidate got resilience columns"
+    for r in small:
+        assert r["resilience_k"] == 1
+        assert 0 < r["resilience_frac"] <= 1.0 + 1e-9
+        assert r["resilience_theta"] > 0
+    # the columns before the planner's rounding, at rtol 1e-9
+    for cand in PF.candidate_fabrics(100, 64, device="cpu"):
+        if cand.fabric.graph.n > PF.planner.PLACEMENT_MAX_N:
+            continue
+        kw = dict(k_failures=(1,), trials=2, pattern="uniform",
+                  routing="ugal", kind="links", seed=0)
+        sw = P.degradation_sweep(cand.fabric.graph, device="cpu", **kw)
+        ref_sw = R.degradation_sweep(_ref_graph(cand.fabric.graph),
+                                     engine="numpy", **kw)
+        _close(float(sw.worst[0]), float(ref_sw.worst[0]))
+        _close(sw.pristine_theta, ref_sw.pristine_theta)
+
+
+def _ref_graph(g):
+    return R.Graph(g.n, g.edges, name=g.name, meta=dict(g.meta))
 
 # ---------------------------------------------------------------------------
 # Property: degraded theta <= pristine and conservation, random fault sets

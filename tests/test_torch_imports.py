@@ -58,7 +58,11 @@ def test_port_imports_neither_jax_nor_repro():
                 "repro_torch.fabric.model", "repro_torch.sim.faults",
                 "repro_torch.core.orbits", "repro_torch.core.cost",
                 "repro_torch.core.layout", "repro_torch.core.select",
-                "repro_torch.core.adversary", "repro_torch.paper_tables"}
+                "repro_torch.core.adversary", "repro_torch.paper_tables",
+                "repro_torch.fabric.collectives",
+                "repro_torch.fabric.placement",
+                "repro_torch.fabric.planner",
+                "repro_torch.placement_tables"}
     assert expected <= set(res["modules"])
 
 
@@ -126,6 +130,44 @@ def test_fault_entry_points_without_device_need_cuda():
     assert degraded_report(g, "uniform", FaultSet(routers=[0]),
                            device="cpu").faults == "routers[0]"
 
+
+def test_fabric_entry_points_without_device_need_cuda():
+    """The fabric layer's entry points default to the card and raise
+    where there is none; device='cpu' is the way onto the CPU."""
+    from repro_torch.core import pn_graph
+    from repro_torch.fabric import (FabricModel, StepProfile,
+                                    evaluate_placements,
+                                    fragmentation_sweep, link_loads,
+                                    make_fabric, place_mesh,
+                                    placement_report, placement_search,
+                                    plan)
+    from repro_torch.placement_tables import placement_one
+    from repro_torch.sim import simulate_placement
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    g = pn_graph(2)
+    prof = StepProfile({"all-to-all": 1.0, "all-reduce": 1.0})
+    p = place_mesh(g, (2, 2), ("data", "model"), 1, device="cpu")
+    for call in (lambda: FabricModel(g),
+                 lambda: make_fabric("pn", args=(2,)),
+                 lambda: place_mesh(g, (2, 2), ("data", "model"), 1),
+                 lambda: placement_report(p, prof),
+                 lambda: link_loads(p, ([0], [1], [1.0])),
+                 lambda: evaluate_placements(g, (2, 2), ("data", "model"),
+                                             1, prof),
+                 lambda: placement_search(g, (2, 2), ("data", "model"), 1,
+                                          prof),
+                 lambda: fragmentation_sweep(
+                     g, [((2, 2), ("data", "model"), prof)], 1),
+                 lambda: plan(prof, min_terminals=10),
+                 lambda: simulate_placement(p, prof),
+                 lambda: placement_one(g, (2, 2), ("model", "data"), 1)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    fab = FabricModel(g, device="cpu")
+    assert fab.device.type == "cpu"
+    assert fab.placement_report(prof, p).theta > 0
+    assert simulate_placement(p, prof, steps=8, device="cpu").device == "cpu"
 
 def _uniform(g):
     from repro_torch.core import make_pattern, normalize_demand
