@@ -320,29 +320,20 @@ def points_demand(g, q: int) -> np.ndarray:
     return normalize_demand(dem)
 
 
-def check_kernels(dev, bw):
-    """Phase 2: kernels against plain versions on the PN(27) tables, and
-    their times at the main path's shapes."""
-    from repro_torch.core import pn_graph
+def hold_sim_kernels(label, t, cols, rand) -> dict:
+    """#1 at the tables' full width and at the compacted width ``cols``
+    (float64 and float32) and #2 at the compacted width (float64, thr 0
+    and 16), each against its plain version on random queues over the
+    real route tables ``t``; returns the largest float32 errors."""
     from repro_torch.kernels import sim_step as K
     from repro_torch.kernels.ref import (fused_decision_ref,
                                          fused_step_update_ref)
-    from repro_torch.sim.tables import build_tables
-
-    g = pn_graph(27)
-    t = build_tables(g, np.arange(g.n), dtype=torch.float64, device=dev)
     n, k, m = t.n, t.k, t.m
-    cols = torch.arange(757, device=dev)            # the 757 points
-    gen = torch.Generator(device=dev).manual_seed(0)
     errs = {"fused_step_update": 0.0, "fused_decision": 0.0}
-
-    def rand(*shape, dtype=torch.float64):
-        return torch.rand(shape, generator=gen, device=dev, dtype=dtype)
-
-    for width, split_w, deliver_w in (
+    for compact, (width, split_w, deliver_w) in enumerate((
             (m, t.split, t.deliver),
-            (757, t.split[:, :, cols].contiguous(),
-             t.deliver[:, :, cols].contiguous())):
+            (len(cols), t.split[:, :, cols].contiguous(),
+             t.deliver[:, :, cols].contiguous()))):
         nt = K.n_tiles(width)
         mask = (rand(nt) < 0.7).to(torch.int32)
         mask[0], mask[-1] = 1, 0                    # live and dead tiles
@@ -359,14 +350,14 @@ def check_kernels(dev, bw):
                 scale = float(want.abs().max())
                 if not err <= rtol * scale:
                     raise AssertionError(
-                        f"fused_step_update W={width} {dtype}: max error "
-                        f"{err} > {rtol} * {scale}")
+                        f"{label}fused_step_update W={width} {dtype}: max "
+                        f"error {err} > {rtol} * {scale}")
                 if dtype == torch.float32:
                     errs["fused_step_update"] = max(
                         errs["fused_step_update"], err)
-            log(f"fused_step_update W={width} {dtype}: ok")
+            log(f"{label}fused_step_update W={width} {dtype}: ok")
         # the decision at the compacted vc0 width, float64
-        if width == 757:
+        if compact:
             b0 = rand(n, k) * (rand(n, k) < 0.5)
             dist = t.dist_act[:, cols].contiguous()
             hval = t.hval_rem[:, cols].contiguous()
@@ -387,13 +378,35 @@ def check_kernels(dev, bw):
                 live = float((want != 0).double().mean())
                 if bad or not 0.0 < live < 1.0:
                     raise AssertionError(
-                        f"fused_decision thr={thr}: {bad} clear cells "
-                        f"differ (diverting share {live})")
+                        f"{label}fused_decision thr={thr}: {bad} clear "
+                        f"cells differ (diverting share {live})")
                 errs["fused_decision"] = max(
                     errs["fused_decision"],
                     float(((got - want).abs() * clear).max()))
-                log(f"fused_decision thr={thr} float64: ok "
+                log(f"{label}fused_decision thr={thr} float64: ok "
                     f"(diverting share {live:.3f})")
+    return errs
+
+
+def check_kernels(dev, bw):
+    """Phase 2: kernels against plain versions on the PN(27) tables, and
+    their times at the main path's shapes."""
+    from repro_torch.core import pn_graph
+    from repro_torch.kernels import sim_step as K
+    from repro_torch.kernels.ref import (fused_decision_ref,
+                                         fused_step_update_ref)
+    from repro_torch.sim.tables import build_tables
+
+    g = pn_graph(27)
+    t = build_tables(g, np.arange(g.n), dtype=torch.float64, device=dev)
+    n, k, m = t.n, t.k, t.m
+    cols = torch.arange(757, device=dev)            # the 757 points
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape, dtype=torch.float64):
+        return torch.rand(shape, generator=gen, device=dev, dtype=dtype)
+
+    errs = hold_sim_kernels("", t, cols, rand)
 
     # times at the main path's shapes (float32; every tile live, as the
     # vc1 plane at PN(27) is once phase-1 fluid reaches every mid)
@@ -3197,16 +3210,20 @@ def _row_tuple(row) -> tuple:
 
 
 def _check_plan(dev):
-    """plan() at 25,000 terminals against the reference's rows (equal
-    after the planner's rounding, rtol 1e-9 before it; a greedy-layout
-    row whose seed order differs on this host keeps its dollars apart),
-    and the ranking equal."""
+    """plan() at 25,000 terminals against the reference's rows: each
+    candidate's columns before the planner's rounding within 1e-9, the
+    rounded rows and the ranking equal (a greedy-layout row whose seed
+    order differs on this host keeps its dollars apart).  plan() is
+    _ranked(_plan_rows(...)); the two halves are called apart here to
+    read the columns before the rounding."""
+    import importlib
     from repro_torch import placement_tables as PT
-    from repro_torch.core import degradation_sweep
-    from repro_torch.fabric import (candidate_fabrics, placement_step_seconds,
-                                    plan, schedule_from_profile)
-    prof = PT.PROFILES["ep_heavy"]
-    rows, seconds, got = _timed(lambda: plan(prof, device=dev, **PLAN_KW))
+    PL = importlib.import_module("repro_torch.fabric.planner")
+    kw = dict(PLAN_KW, axis_names=FABRIC_AXES, seed=0, resilience_seed=0,
+              device=dev)
+    raw, seconds, got = _timed(lambda: PL._plan_rows(
+        PT.PROFILES["ep_heavy"], **kw))
+    rows = PL._ranked(raw, placed=True)
     _need_mask_gemm("plan", got)
     for row in rows:
         log(f"plan row: {json.dumps(row)}")
@@ -3229,69 +3246,62 @@ def _check_plan(dev):
                                      f"{row[key]!r} against {val!r}")
     # the columns before the planner's rounding
     worst = 0.0
-    sched = schedule_from_profile(prof, FABRIC_AXES)
-    t0 = time.perf_counter()
-    for cand in candidate_fabrics(PLAN_KW["min_terminals"],
-                                  PLAN_KW["max_radix"], device=dev):
-        name = cand.fabric.name
-        vals = {"kbar": cand.fabric.kbar, "u": cand.fabric.u,
-                "step_comm_ms": cand.step_comm_seconds(prof) * 1e3,
-                "watts_per_node": cand.watts_per_node}
-        if name not in reordered:
-            vals["usd_per_node"] = cand.dollars_per_node
-        if "resilience_theta" in PLAN_RAW[name]:
-            sw = degradation_sweep(
-                cand.fabric.graph, k_failures=(PLAN_KW["resilience_k"],),
-                trials=PLAN_KW["resilience_trials"], pattern="uniform",
-                routing="ugal", kind="links", seed=0, device=dev)
-            vals["resilience_theta"] = float(sw.worst[0])
-            vals["pristine_theta"] = sw.pristine_theta
-            p = cand.fabric.place(FABRIC_MESH, FABRIC_AXES, strategy="group",
-                                  schedule=sched, routing="ugal")
-            vals["placed_comm_ms"] = placement_step_seconds(
-                cand.fabric, prof, p, routing="ugal") * 1e3
-        for key, val in vals.items():
-            e = _rel(val, PLAN_RAW[name][key])
+    for row in raw:
+        name = row["fabric"]
+        want = dict(PLAN_RAW[name])
+        want["kbar_over_u"] = want["kbar"] / want["u"]
+        if "pristine_theta" in want:
+            want["resilience_frac"] = (want["resilience_theta"]
+                                       / want.pop("pristine_theta"))
+        if name in reordered:
+            del want["usd_per_node"]
+        for key, val in want.items():
+            e = _rel(row[key], val)
             worst = max(worst, e)
             if not e <= THETA_RTOL:
                 raise AssertionError(f"plan {name} {key} before rounding: "
-                                     f"{val!r} against "
-                                     f"{PLAN_RAW[name][key]!r}")
+                                     f"{row[key]!r} against {val!r}")
     log(f"plan: every column before rounding within {worst:.3e} of the "
-        f"reference's ({time.perf_counter() - t0:.2f} s); rows and ranking "
-        f"equal after it")
+        f"reference's; rows and ranking equal after it")
+
+
+def _descent_evals(p0, history, seed=0) -> int:
+    """Objective evaluations of a greedy_swap descent from its history:
+    the start, and each drawn pair whose chips sat on two routers (the
+    descent skips a same-router pair, and keeps a swap exactly where the
+    history drops)."""
+    pairs = np.random.default_rng(seed).integers(
+        0, p0.n_chips, (len(history) - 1, 2))
+    cur, evals = p0.router_of.copy(), 1
+    for (i, j), before, after in zip(pairs, history, history[1:]):
+        if cur[i] != cur[j]:
+            evals += 1
+        if after < before:
+            cur[i], cur[j] = cur[j], cur[i]
+    return evals
 
 
 def _profile_descent(dev, g, prof):
     """One greedy_swap(30) descent of the full-width job under the
     profiler: wall and device time, idle share, host-to-device copies,
     #3 / #4 per objective evaluation."""
-    import importlib
     from repro_torch.fabric import (collective_traffic, greedy_improve,
                                     place_mesh, schedule_from_profile)
-    PL = importlib.import_module("repro_torch.fabric.placement")
     sched = schedule_from_profile(prof, FABRIC_AXES)
     traffic = collective_traffic(FABRIC_MESH, FABRIC_AXES, sched)
     p0 = place_mesh(g, FABRIC_MESH, FABRIC_AXES, FABRIC_DELTA0, "group",
                     device=dev)
-    real, seen = PL._router_demand, {}
-
-    def spy(*args):
-        seen["evals"] += 1
-        return real(*args)
+    seen = {}
 
     def descent():
-        seen["evals"], seen["before"] = 0, _launch_counts()
-        greedy_improve(p0, traffic, iters=GREEDY_ITERS, seed=0,
-                       routing="ugal", engine="fused", device=dev)
+        seen["before"] = _launch_counts()
+        seen["history"] = greedy_improve(
+            p0, traffic, iters=GREEDY_ITERS, seed=0, routing="ugal",
+            engine="fused", return_history=True, device=dev)[2]
         seen["after"] = _launch_counts()
 
-    PL._router_demand = spy
-    try:
-        rows, wall_ms, busy_ms, _ = device_rows(descent)
-    finally:
-        PL._router_demand = real
-    evals = seen["evals"]
+    rows, wall_ms, busy_ms, _ = device_rows(descent)
+    evals = _descent_evals(p0, seen["history"])
     got = {k: seen["after"][k] - seen["before"][k] for k in FABRIC_KERNELS}
     _need_mask_gemm("the profiled descent", got)
     copies = [r for r in rows if "Memcpy HtoD" in r[2]]
@@ -3318,6 +3328,31 @@ def _profile_descent(dev, g, prof):
             "idle": 1.0 - busy_ms / wall_ms}
 
 
+def _hold_placement_kernels(dev, g, prof):
+    """#1 and #2 against their plain versions at the shapes
+    simulate_placement gives them on the full-width job: PN(31)'s route
+    tables over all 1,986 routers, compacted to the group placement's
+    demanded columns (random queues, as phase 2)."""
+    from repro_torch.fabric import place_mesh, placement_demand
+    from repro_torch.sim.tables import build_tables
+    p = place_mesh(g, FABRIC_MESH, FABRIC_AXES, FABRIC_DELTA0, "group",
+                   device=dev)
+    used = np.nonzero(placement_demand(prof, p).sum(axis=0) > 0)[0]
+    t = build_tables(g, np.arange(g.n), dtype=torch.float64, device=dev)
+    cols = torch.as_tensor(used, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def rand(*shape, dtype=torch.float64):
+        return torch.rand(shape, generator=gen, device=dev, dtype=dtype)
+
+    errs = hold_sim_kernels(f"PN({FABRIC_Q}) placement: ", t, cols, rand)
+    log(f"PN({FABRIC_Q}) placement: #1 and #2 equal their plain versions "
+        f"at N={t.n} K={t.k} W={t.m} and C={len(used)} (float32 max "
+        f"errors {errs})")
+    del t, cols
+    torch.cuda.empty_cache()
+
+
 def _check_simulation(dev, g, prof):
     """simulate_placement of the group placement on the fused step: 0.9x
     the analytic theta sustained (delivered / offered > 0.99) under
@@ -3328,6 +3363,7 @@ def _check_simulation(dev, g, prof):
     queues settle slowly at this load (most fluid takes two-phase
     Valiant paths), so its 0.9x runs take SETTLE_STEPS, and the run of
     the default length is printed beside them."""
+    import repro_torch.sim as S
     from repro_torch.fabric import place_mesh, placement_report
     from repro_torch.sim import SimConfig, simulate_placement
     p = place_mesh(g, FABRIC_MESH, FABRIC_AXES, FABRIC_DELTA0, "group",
@@ -3362,6 +3398,39 @@ def _check_simulation(dev, g, prof):
     ugal = "ugal_threshold(0)"
     short = run("ugal_threshold(0) 0.9x float32, default length", ugal,
                 0.9 * th["ugal"])
+    f64 = run("ugal_threshold(0) 0.9x float64, default length", ugal,
+              0.9 * th["ugal"], dtype="float64")
+    # the plain witness of #1 / #2: the dense step (torch operations, no
+    # kernel) on the same inputs.  Its (router, slot, dest) state is
+    # 1,986 x 32 x 1,986 = 126M cells, above SIM_MAX_CELLS (the cap sized
+    # for a host's memory) and about 1 GB a float64 tensor on the card
+    cap, S.SIM_MAX_CELLS = S.SIM_MAX_CELLS, g.n * g.max_degree * g.n
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        dense, seconds, got = _timed(lambda: simulate_placement(
+            p, prof, routing=ugal, offered=0.9 * th["ugal"],
+            config=SimConfig(backend="dense", dtype="float64"), device=dev))
+    finally:
+        S.SIM_MAX_CELLS = cap
+    if got["fused_step_update"] or got["fused_decision"] \
+            or dense.backend != "dense" or dense.steps != f64.steps:
+        raise AssertionError(f"dense witness: backend {dense.backend}, "
+                             f"{dense.steps} steps, launches {got}")
+    worst = 0.0
+    for key in ("offered", "theta", "alpha", "latency", "delivered_rate",
+                "accepted_rate", "occupancy"):
+        e = _rel(getattr(f64, key), getattr(dense, key))
+        worst = max(worst, e)
+        if not e <= THETA_RTOL:
+            raise AssertionError(f"simulate_placement {ugal} 0.9x float64 "
+                                 f"{key}: fused {getattr(f64, key)!r} "
+                                 f"against dense {getattr(dense, key)!r}")
+    log(f"simulate_placement {ugal} 0.9x float64: the fused run within "
+        f"{worst:.3e} of the dense step's (theta, alpha, latency, "
+        f"occupancy, rates) over {dense.steps} steps; dense "
+        f"{seconds:.2f} s, {torch.cuda.max_memory_allocated() / 2**30:.1f}"
+        f" GiB allocated at its peak")
+    torch.cuda.empty_cache()
     u32 = run("ugal_threshold(0) 0.9x float32", ugal, 0.9 * th["ugal"],
               steps=SETTLE_STEPS)
     u64 = run("ugal_threshold(0) 0.9x float64", ugal, 0.9 * th["ugal"],
@@ -3401,20 +3470,29 @@ def check_fabric(dev):
     from repro_torch.kernels import mask_gemm as MG
     from repro_torch.kernels import sim_step as K
 
+    g = pn_graph(FABRIC_Q)
+    if (g.n, g.max_degree, round(2 * (FABRIC_Q + 1) / 5),
+            g.n * FABRIC_DELTA0) != (FABRIC_ROUTERS, FABRIC_DEGREE,
+                                     FABRIC_DELTA0, FABRIC_TERMINALS):
+        raise AssertionError(f"PN({FABRIC_Q}): {g.n} routers of degree "
+                             f"{g.max_degree}")
+    # the comparisons with the plain versions launch #1 / #2 before the
+    # counters are zeroed
+    _hold_placement_kernels(dev, g, PT.PROFILES["ep_heavy"])
     MG.reset_launches()
     K.reset_launches()
 
     # BENCH_4's four cases at their recorded sizes, fused
     bench4 = {e["name"]: e for e in
               json.loads((ROOT / "BENCH_4.json").read_text())["entries"]}
-    for name, g, mesh, axes, delta0, expect in PT.placement_cases():
+    for name, case_g, mesh, axes, delta0, expect in PT.placement_cases():
         out, seconds, got = _timed(lambda: PT.placement_one(
-            g, mesh, axes, delta0, expect, engine="fused", device=dev))
+            case_g, mesh, axes, delta0, expect, engine="fused", device=dev))
         _need_mask_gemm(name, got)
-        ties = _hold_bench4(name, g, mesh, axes, delta0, out,
+        ties = _hold_bench4(name, case_g, mesh, axes, delta0, out,
                             bench4[f"placement[{name}]"], dev)
         s = out[1]
-        log(f"placement[{name}] ({g.n} routers, mesh {mesh}, delta0 "
+        log(f"placement[{name}] ({case_g.n} routers, mesh {mesh}, delta0 "
             f"{delta0}): {seconds:.2f} s, launches {got}; ep best "
             f"{s['ep_heavy']['best']}@{s['ep_heavy']['best_theta']:.4f}, "
             f"dp best {s['dp_heavy']['best']}, fragmentation best "
@@ -3424,12 +3502,6 @@ def check_fabric(dev):
             f" s)")
 
     # full width: PN(31) as the planner sizes it, an 8,192-chip job
-    g = pn_graph(FABRIC_Q)
-    if (g.n, g.max_degree, round(2 * (FABRIC_Q + 1) / 5),
-            g.n * FABRIC_DELTA0) != (FABRIC_ROUTERS, FABRIC_DEGREE,
-                                     FABRIC_DELTA0, FABRIC_TERMINALS):
-        raise AssertionError(f"PN({FABRIC_Q}): {g.n} routers of degree "
-                             f"{g.max_degree}")
     args = (g, FABRIC_MESH, FABRIC_AXES, FABRIC_DELTA0)
     for pname, prof in PT.PROFILES.items():
         out, seconds, got = _timed(lambda: placement_search(

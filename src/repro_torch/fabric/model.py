@@ -7,8 +7,7 @@ point.
 The port's counterpart of ``repro.fabric.model``.  A :class:`FabricModel`
 routes on one device, the card unless it is made with ``device="cpu"``:
 its k̄ and u (when not given), its pattern reports, placements and
-simulations all run there, and each method that routes or simulates
-takes ``device=`` to run elsewhere.
+simulations all run there.
 """
 
 from __future__ import annotations
@@ -77,9 +76,6 @@ class FabricModel:
         if not self.name:
             self.name = self.graph.name
 
-    def _device(self, device):
-        return self.device if device is None else resolve_device(device)
-
     @property
     def link_bytes_per_s(self) -> float:
         return self.link_gbps * 1e9 / 8
@@ -100,7 +96,7 @@ class FabricModel:
     # evaluate patterns on a representative smaller instance instead.
     PATTERN_MAX_N = 8192
 
-    def pattern_report(self, pattern, routing: str = "minimal", device=None):
+    def pattern_report(self, pattern, routing: str = "minimal"):
         """Saturation analysis of one traffic pattern on this fabric
         (repro_torch.core.traffic), cached per (spec, routing) for
         registry-spec strings (ad-hoc TrafficPattern objects are cached
@@ -118,7 +114,6 @@ class FabricModel:
                 f"pattern saturation needs dense (N, N) demand matrices; "
                 f"N={self.graph.n} > {self.PATTERN_MAX_N}.  Evaluate the "
                 f"pattern on a smaller instance of the same family.")
-        device = self._device(device)
         pat = make_pattern(pattern)
         # spec strings key by value; ad-hoc TrafficPattern objects by
         # identity (the cached entry keeps the object alive, so its id is
@@ -131,7 +126,7 @@ class FabricModel:
         if key not in cache:
             cache[key] = (pat, saturation_report(self.graph, pat,
                                                  routing=routing,
-                                                 device=device))
+                                                 device=self.device))
         return cache[key][1]
 
     def _is_uniform(self, pattern) -> bool:
@@ -156,8 +151,7 @@ class FabricModel:
             return "minimal"
         return "other"
 
-    def pattern_node_bw(self, pattern, routing: str = "minimal",
-                        device=None) -> float:
+    def pattern_node_bw(self, pattern, routing: str = "minimal") -> float:
         """bytes/s each TERMINAL can inject at saturation under an arbitrary
         traffic pattern — the generalized Eq. (1): theta replaces Δ·u/k̄.
 
@@ -172,21 +166,21 @@ class FabricModel:
             if kind != "other":
                 bw = self.node_uniform_bw
                 return bw / 2.0 if kind == "valiant" else bw
-        rep = self.pattern_report(pattern, routing, device)
+        rep = self.pattern_report(pattern, routing)
         return rep.theta * self.link_bytes_per_s / self.terminals_per_router
 
     def place(self, mesh_shape, axis_names, strategy="group", seed: int = 0,
-              schedule=None, routing="minimal", device=None):
+              schedule=None, routing="minimal"):
         """Place a (pod, data, model)-shaped chip mesh on this fabric via
         a registered placement strategy (fabric.placement)."""
         from .placement import place_mesh
         return place_mesh(self.graph, mesh_shape, axis_names,
                           int(self.terminals_per_router), strategy,
                           seed=seed, schedule=schedule, routing=routing,
-                          device=self._device(device))
+                          device=self.device)
 
     def placement_report(self, profile, placement, routing: str = "ugal",
-                         engine: str | None = "auto", device=None):
+                         engine: str | None = "auto"):
         """Saturation analysis of one (StepProfile, Placement) pair under
         a routing model: theta of the placement's router-level demand
         matrix in Eq. 1's link-equivalent units (fabric.placement)."""
@@ -196,12 +190,11 @@ class FabricModel:
                 f"placement saturation needs dense (N, N) demand matrices; "
                 f"N={self.graph.n} > {self.PATTERN_MAX_N}.")
         return placement_report(placement, profile, routing=routing,
-                                engine=engine, device=self._device(device))
+                                engine=engine, device=self.device)
 
     def simulate_pattern(self, pattern, routing: str = "ugal_threshold(0)",
                          offered: float | None = None,
-                         steps: int | None = None, config=None,
-                         device=None):
+                         steps: int | None = None, config=None):
         """Replay a traffic pattern through the flow-level simulator
         (repro_torch.sim) on this fabric: the measured counterpart of
         ``pattern_report`` — per-hop threshold-UGAL, finite buffers, and
@@ -214,16 +207,14 @@ class FabricModel:
             raise ValueError(
                 f"simulation needs dense (router, slot, dest) tensors; "
                 f"N={self.graph.n} > {self.PATTERN_MAX_N}.")
-        device = self._device(device)
         if offered is None:
             offered = 0.9 * self.pattern_report(
-                pattern, fluid_routing_spec(routing), device).theta
+                pattern, fluid_routing_spec(routing)).theta
         return simulate(self.graph, pattern, routing=routing,
                         offered=offered, steps=steps, config=config,
-                        device=device)
+                        device=self.device)
 
-    def pattern_kbar(self, pattern, routing: str = "minimal",
-                     device=None) -> float:
+    def pattern_kbar(self, pattern, routing: str = "minimal") -> float:
         """Demand-weighted mean hop count under the pattern (2 phases under
         Valiant); prices the latency term of small-message collectives.
         Uniform keeps the fabric's own k̄ convention (see pattern_node_bw)."""
@@ -231,7 +222,7 @@ class FabricModel:
             kind = self._uniform_routing_kind(routing)
             if kind != "other":
                 return 2.0 * self.kbar if kind == "valiant" else self.kbar
-        return self.pattern_report(pattern, routing, device).kbar_eff
+        return self.pattern_report(pattern, routing).kbar_eff
 
 
 def make_fabric(kind: str, link_gbps: float = 400.0, device=None,

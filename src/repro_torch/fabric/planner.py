@@ -54,16 +54,15 @@ class StepProfile:
 
 
 def placement_step_seconds(fabric: FabricModel, profile, placement: Placement,
-                           routing="ugal", engine: str | None = "auto",
-                           device=None) -> float:
+                           routing="ugal", engine: str | None = "auto"
+                           ) -> float:
     """Per-step collective seconds of a PLACED job: the (profile,
     placement) demand matrix is routed under ``routing`` and the busiest
     link's bytes serialize the step (per-arc capacity =
     ``link_bytes_per_s``), plus one demand-weighted hop-latency term per
     collective phase — the placement-aware replacement for the uniform
     Eq. 1 pricing of ``FabricCandidate.step_comm_seconds``.  Runs on the
-    fabric's device unless ``device`` is given."""
-    device = fabric._device(device)
+    fabric's device."""
     demand = placement_demand(profile, placement)
     by_kind = getattr(profile, "bytes_by_kind", profile)
     n_ops = sum(1 for b in by_kind.values()
@@ -71,7 +70,8 @@ def placement_step_seconds(fabric: FabricModel, profile, placement: Placement,
     if not demand.any():  # every byte stays router-local
         return 0.0
     res = make_routing(routing).evaluate(
-        placement.graph, demand, np.arange(placement.graph.n), engine, device)
+        placement.graph, demand, np.arange(placement.graph.n), engine,
+        fabric.device)
     return (float(res.loads.max()) / fabric.link_bytes_per_s
             + n_ops * res.kbar_eff * PER_HOP_LATENCY_S)
 
@@ -85,13 +85,13 @@ class FabricCandidate:
     watts_per_node: float
 
     def step_comm_seconds(self, profile: StepProfile, placement=None,
-                          routing="minimal", device=None) -> float:
+                          routing="minimal") -> float:
         """Uniform Eq. 1 pricing by default; with a Placement, the
         placement-aware busiest-link pricing of
         :func:`placement_step_seconds` under ``routing``."""
         if placement is not None:
             return placement_step_seconds(self.fabric, profile, placement,
-                                          routing=routing, device=device)
+                                          routing=routing)
         n = self.terminals
         return sum(collective_time(self.fabric, kind, b, n).total_s
                    for kind, b in profile.bytes_by_kind.items())
@@ -188,6 +188,37 @@ def plan(profile: StepProfile, min_terminals: int, max_radix: int = 64,
     value — how much of the fabric's throughput guarantee survives the
     failure scenario.  Ranking stays by comm time; resilience is a
     reported trade-off column.  Every sweep runs on ``device``."""
+    return _ranked(_plan_rows(
+        profile, min_terminals, max_radix, mesh_shape, axis_names,
+        placement_strategy, routing, seed, resilience_k, resilience_trials,
+        resilience_seed, device), placed=mesh_shape is not None)
+
+
+# plan's columns and the digits it rounds them to
+_DIGITS = {"kbar": 3, "u": 3, "kbar_over_u": 3, "step_comm_ms": 3,
+           "usd_per_node": 2, "watts_per_node": 2, "resilience_theta": 4,
+           "resilience_frac": 4, "placed_comm_ms": 3}
+
+
+def _ranked(raw_rows, placed: bool) -> list[dict]:
+    """plan's rows from :func:`_plan_rows`: rounded, and sorted by step
+    time."""
+    rows = [{k: round(v, _DIGITS[k]) if k in _DIGITS else v
+             for k, v in raw.items()} for raw in raw_rows]
+    # placed (congestion-aware) and uniform step times are differently
+    # modeled quantities: rank placeable candidates first among
+    # themselves, un-placeable ones after (by their uniform figure)
+    return sorted(rows, key=lambda r: (("placed_comm_ms" not in r)
+                                       if placed else False,
+                                       r.get("placed_comm_ms",
+                                             r["step_comm_ms"])))
+
+
+def _plan_rows(profile, min_terminals, max_radix, mesh_shape, axis_names,
+               placement_strategy, routing, seed, resilience_k,
+               resilience_trials, resilience_seed, device) -> list[dict]:
+    """plan's row of each candidate, in candidate order, before its
+    rounding (every sweep runs on ``device``)."""
     device = resolve_device(device)
     rows = []
     for cand in candidate_fabrics(min_terminals, max_radix, device=device):
@@ -196,12 +227,12 @@ def plan(profile: StepProfile, min_terminals: int, max_radix: int = 64,
             "fabric": cand.fabric.name,
             "terminals": cand.terminals,
             "radix": cand.radix,
-            "kbar": round(cand.fabric.kbar, 3),
-            "u": round(cand.fabric.u, 3),
-            "kbar_over_u": round(cand.fabric.kbar / cand.fabric.u, 3),
-            "step_comm_ms": round(t * 1e3, 3),
-            "usd_per_node": round(cand.dollars_per_node, 2),
-            "watts_per_node": round(cand.watts_per_node, 2),
+            "kbar": cand.fabric.kbar,
+            "u": cand.fabric.u,
+            "kbar_over_u": cand.fabric.kbar / cand.fabric.u,
+            "step_comm_ms": t * 1e3,
+            "usd_per_node": cand.dollars_per_node,
+            "watts_per_node": cand.watts_per_node,
         }
         if resilience_k > 0 and cand.fabric.graph.n <= PLACEMENT_MAX_N:
             from ..core.faults import degradation_sweep
@@ -212,8 +243,8 @@ def plan(profile: StepProfile, min_terminals: int, max_radix: int = 64,
                 device=device)
             worst = float(sweep.worst[0])
             row["resilience_k"] = int(resilience_k)
-            row["resilience_theta"] = round(worst, 4)
-            row["resilience_frac"] = round(worst / sweep.pristine_theta, 4)
+            row["resilience_theta"] = worst
+            row["resilience_frac"] = worst / sweep.pristine_theta
         if mesh_shape is not None:
             n_chips = int(np.prod(mesh_shape))
             g = cand.fabric.graph
@@ -225,17 +256,11 @@ def plan(profile: StepProfile, min_terminals: int, max_radix: int = 64,
                                       schedule=schedule, routing=routing)
                 placed = placement_step_seconds(cand.fabric, profile, p,
                                                 routing=routing)
-                row["placed_comm_ms"] = round(placed * 1e3, 3)
+                row["placed_comm_ms"] = placed * 1e3
                 row["placement_strategy"] = placement_strategy
                 row["placement_routing"] = routing
         rows.append(row)
-    # placed (congestion-aware) and uniform step times are differently
-    # modeled quantities: rank placeable candidates first among
-    # themselves, un-placeable ones after (by their uniform figure)
-    return sorted(rows, key=lambda r: (("placed_comm_ms" not in r)
-                                       if mesh_shape is not None else False,
-                                       r.get("placed_comm_ms",
-                                             r["step_comm_ms"])))
+    return rows
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,10 @@ cases.  The same inputs go through both packages (the port on
   ``numpy`` engine; the planner's rounded rows equal;
 * ``simulate_placement``: against the reference's ``backend="numpy"``
   (the port's dense step) and ``backend="pallas", dtype="float64"`` (the
-  port's fused step) at rtol 1e-9;
+  port's fused step) at rtol 1e-9; per-hop ugal_threshold(0) at 0.9x the
+  fluid theta of an EP-heavy placement on PN(7) and PN(8), both steps
+  against the reference's ``numpy`` run at 144 and 432 steps, whose
+  readings are recorded;
 * BENCH_4's rows: equal to the reference's ``placement_one`` rows
   (thetas and u to the recorded six digits, ``max_bytes`` and ``alpha``
   at rtol 1e-9), and within 1e-6 of ``BENCH_4.json``.
@@ -296,6 +299,49 @@ def test_simulate_placement(backend, ref_backend, routing):
         simulate_placement(placement_from_arrays(g, (1, 1), ("data",
                                                              "model"), [0]),
                            schedule, device="cpu")
+
+
+# The reference's delivered / offered of per-hop ugal_threshold(0) at 0.9x
+# the fluid ugal theta of an EP-heavy (benchmarks/placement_bench.py)
+# group placement on PN(q), after the simulator's default 144 steps and
+# after 432: short of 0.99 and still rising, the same transient that
+# the full-width PN(31) job shows on the card.
+SETTLING = {
+    (7, 3, (8, 16)): {144: 0.9799485559468781, 432: 0.9807532944740639},
+    (8, 4, (16, 16)): {144: 0.9530283763402959, 432: 0.9642242145226848},
+}
+
+
+@pytest.mark.parametrize("steps", [144, 432])
+@pytest.mark.parametrize("q,delta0,mesh", list(SETTLING))
+def test_simulate_placement_settling(q, delta0, mesh, steps):
+    """The port's dense and fused float64 runs equal the reference's
+    ``numpy`` run at rtol 1e-9, and the reference's reading is the one
+    recorded above."""
+    from repro.core import pn_graph as ref_pn_graph
+    axes = ("model", "data")
+    rp = RF.place_mesh(ref_pn_graph(q), mesh, axes, delta0, "group")
+    p = placement_from_arrays(P.pn_graph(q), mesh, axes, rp.router_of)
+    prof = ref_bench.PROFILES["ep_heavy"]
+    th = RF.placement_report(rp, prof, routing="ugal",
+                             engine="numpy").theta
+    _close(PF.placement_report(p, prof, routing="ugal",
+                               device="cpu").theta, th)
+    kw = dict(routing="ugal_threshold(0)", offered=0.9 * th, steps=steps)
+    want = ref_simulate_placement(
+        rp, prof, config=RefConfig(backend="numpy", dtype="float64"), **kw)
+    _close(want.theta / want.offered, SETTLING[q, delta0, mesh][steps])
+    assert want.theta / want.offered < 0.99
+    for backend in ("dense", "fused"):
+        got = simulate_placement(
+            p, prof, config=SimConfig(backend=backend, dtype="float64"),
+            device="cpu", **kw)
+        for key in ("offered", "theta", "alpha", "latency",
+                    "delivered_rate", "occupancy"):
+            _close(getattr(got, key), getattr(want, key))
+    if steps > 144:
+        short = SETTLING[q, delta0, mesh][144]
+        assert want.theta / want.offered > short
 
 
 # ---------------------------------------------------------------------------
