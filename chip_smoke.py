@@ -236,6 +236,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     offered; and one greedy_swap(30) descent
     under the profiler (wall, device time, idle share, host-to-device
     copies, #3 / #4 per objective evaluation).
+22. Observability on the card (``repro_torch.obs``): phase 7's PN(27)
+    sweep with no session, under ``session("metrics")`` and under
+    ``session("trace")`` with series, a flight recorder and a
+    ``continue`` watchdog (residual, nonfinite, step_time): every SimRun
+    field and history bit for bit equal across the three, the
+    ``sim.injected`` / ``delivered`` / ``accepted`` / ``diverted`` /
+    ``dropped`` counters equal to the runs' own sums bit for bit, #1 / #2
+    3 and 1 launches a step in all three, and one 30-step run profiled
+    each way: no session and ``metrics`` make the same host copies, the
+    monitor one more read a step; wall per step of each way.  A PN(27)
+    run at twice the analytic theta halted by a ``dest_stability``
+    watchdog: its bundle, written under ``build/obs_smoke/`` and
+    reloaded, holds a recorder window equal to the run's history bit for
+    bit.  Phase 21's full-width greedy_swap(30) descent under
+    ``metrics``: ``placement.swap_evals`` equal to the history's
+    evaluations less the start, ``util.dispatch[fused]`` equal to the
+    #3 / #4 source blocks (#3 less #4 launches), three an evaluation.
+    Then three smollm-135m train steps (phase 15's shape) and a full-width
+    ``launch.serve.serve`` under ``session("trace")``: one
+    ``train.step`` span a step and one ``serve.run`` span, each at least
+    the CUDA-event time of its own work; a Chrome trace and an HTML
+    report written to ``build/obs_smoke/``, their sizes printed.
 
 Output: the card's name and power limit, then a ``kernels`` JSON line,
 then ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -3564,6 +3586,366 @@ def check_fabric(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Observability on the card: phase 22
+# ---------------------------------------------------------------------------
+
+OBS_DIR = ROOT / "build" / "obs_smoke"
+# phase 22's halting run: PN(27) points at twice the analytic theta, the
+# dest-stability watchdog of the reference's postmortem test over a
+# shorter window
+OBS_HALT = dict(factor=2.0, steps=120, ratio=0.8, window=8, warmup=8,
+                recorder=64)
+
+
+def _same_run(label, a, b):
+    """Every SimRun field of ``b`` equal to ``a``'s, bit for bit."""
+    for key, va in vars(a).items():
+        vb = getattr(b, key)
+        if isinstance(va, dict):
+            same = va.keys() == vb.keys() and all(
+                np.array_equal(np.asarray(va[k]), np.asarray(vb[k]),
+                               equal_nan=True) for k in va)
+        elif isinstance(va, np.ndarray):
+            same = np.array_equal(va, vb, equal_nan=True)
+        elif isinstance(va, float) and np.isnan(va):
+            same = isinstance(vb, float) and np.isnan(vb)
+        else:
+            same = va == vb
+        if not same:
+            raise AssertionError(f"{label}: SimRun.{key} differs: {vb!r} "
+                                 f"against {va!r}")
+
+
+def _copies(rows) -> dict:
+    """Host-to-device and device-to-host copies among device_rows' rows."""
+    return {way: sum(r[1] for r in rows if f"Memcpy {way}" in r[2])
+            for way in ("HtoD", "DtoH")}
+
+
+def _obs_sweeps(dev, g, dem, th):
+    """Phase 22 A: phase 7's PN(27) sweep with no session, under
+    ``metrics`` and under ``trace`` with the monitor armed."""
+    from repro_torch import obs
+    from repro_torch.kernels import sim_step as K
+    from repro_torch.sim import SimConfig, Simulator, saturation_sweep
+
+    cfg = SimConfig(routing="ugal_threshold(0)")
+    ways = {}
+    # the first sweep of the phase pays first-call costs: a warm-up
+    # sweep with no session goes first and is not compared
+    for way in ("warm-up", "off", "metrics", "trace+monitor"):
+        if way in ("warm-up", "off"):
+            ctx = obs.session(None)
+        elif way == "metrics":
+            ctx = obs.session("metrics")
+        else:
+            wd = obs.Watchdog([obs.residual(tol=1e-4), obs.nonfinite(),
+                               obs.step_time()], action="continue",
+                              dir=str(OBS_DIR / "sweep"))
+            ctx = obs.session("trace", series=True,
+                              recorder=obs.FlightRecorder(64), watchdog=wd)
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctx as sess:
+            sw = saturation_sweep(g, dem, routing="ugal_threshold(0)",
+                                  config=cfg,
+                                  loads=np.array([0.95, 1.08]) * th,
+                                  steps=30, refine=2, theta_analytic=th,
+                                  device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        steps = sum(r.steps for r in sw.runs)
+        per = {k: v / steps for k, v in K.LAUNCHES.items()}
+        if per != {"fused_step_update": 3.0, "fused_decision": 1.0}:
+            raise AssertionError(f"obs {way}: launches {K.LAUNCHES} in "
+                                 f"{steps} steps")
+        ways[way] = dict(sweep=sw, sess=sess, seconds=seconds, steps=steps)
+        log(f"obs {way}: pn27 sweep of {len(sw.runs)} probes, {steps} "
+            f"steps in {seconds:.3f} s ({1e3 * seconds / steps:.2f} ms a "
+            f"step of wall); knee {sw.theta:.6f}; launches a step {per}")
+    del ways["warm-up"]
+    base = ways["off"]["sweep"]
+    for way in ("metrics", "trace+monitor"):
+        sw = ways[way]["sweep"]
+        if (sw.theta, sw.theta_unstable, len(sw.runs)) != \
+                (base.theta, base.theta_unstable, len(base.runs)):
+            raise AssertionError(f"obs {way}: knee {sw.theta} / "
+                                 f"{sw.theta_unstable} against {base.theta}")
+        for i, (a, b) in enumerate(zip(base.runs, sw.runs)):
+            _same_run(f"obs {way} probe {i}", a, b)
+        m = ways[way]["sess"].metrics
+        for key in ("injected", "delivered", "accepted", "diverted",
+                    "dropped"):
+            want = 0.0
+            for r in sw.runs:
+                want += r.dropped if key == "dropped" else r.totals[key]
+            got = m.counter(f"sim.{key}").value
+            if got != want:
+                raise AssertionError(f"obs {way}: sim.{key} {got!r} against "
+                                     f"the runs' own {want!r}")
+        if m.counter("sim.steps").value != ways[way]["steps"] or \
+                m.counter("sim.runs").value != len(sw.runs):
+            raise AssertionError(f"obs {way}: sim.steps / sim.runs")
+    sess = ways["trace+monitor"]["sess"]
+    rec, wd = sess.recorder, sess.watchdog
+    # the window's last entries are the last probe's steps (earlier
+    # probes' steps sit before them, numbered from 0 again)
+    last = base.runs[-1]
+    win = {k: v[-last.steps:] for k, v in rec.window_arrays().items()}
+    if not np.array_equal(win["step"], np.arange(last.steps)):
+        raise AssertionError(f"obs recorder steps {win['step']}")
+    for key in ("delivered", "accepted", "offered", "occupancy",
+                "src_backlog", "diverted"):
+        if not np.array_equal(win[key], last.history[key]):
+            raise AssertionError(f"obs recorder channel {key} differs from "
+                                 f"the last probe's history")
+    if len(sess.metrics.series("sim.occ_vc0")) != ways["trace+monitor"][
+            "steps"]:
+        raise AssertionError("obs: the occupancy series missed steps")
+    log(f"obs: the three sweeps agree bit for bit (every SimRun field and "
+        f"history); sim.injected / delivered / accepted / diverted / "
+        f"dropped equal the runs' own sums bit for bit under metrics and "
+        f"trace; the recorder's window equals the last probe's history; "
+        f"watchdog fired {wd.fired}; spans "
+        f"{ {k: v['count'] for k, v in sess.span_summary().items()} }")
+
+    # host copies of one 30-step run: none added with no session or
+    # metrics; the monitor reads one digest a step
+    sim = Simulator(g, cfg, demand=dem, device=dev)
+    sim.run(dem, th, 30)
+    copies = {}
+    for way in ("off", "metrics", "trace+monitor"):
+        def one():
+            if way == "off":
+                sim.run(dem, th, 30)
+                return
+            kw = ({} if way == "metrics" else dict(
+                series=True, recorder=obs.FlightRecorder(64),
+                watchdog=obs.Watchdog([obs.residual(tol=1e-4),
+                                       obs.nonfinite(), obs.step_time()],
+                                      dir=str(OBS_DIR / "copies"))))
+            with obs.session("metrics" if way == "metrics" else "trace",
+                             **kw):
+                sim.run(dem, th, 30)
+        rows, wall_ms, busy_ms, _ = device_rows(one)
+        copies[way] = _copies(rows)
+        log(f"obs {way}: one 30-step pn27 run: {copies[way]} copies, wall "
+            f"{wall_ms / 30:.3f} ms a step, device busy {busy_ms / 30:.3f} "
+            f"ms a step (idle share {1.0 - busy_ms / wall_ms:.3f})")
+    if copies["metrics"] != copies["off"]:
+        raise AssertionError(f"obs metrics copies {copies['metrics']} "
+                             f"against {copies['off']} with no session")
+    if not copies["trace+monitor"]["DtoH"] >= copies["off"]["DtoH"] + 30:
+        raise AssertionError(f"obs trace+monitor: {copies['trace+monitor']}"
+                             f" copies, expected a read a step")
+    return {way: 1e3 * w["seconds"] / w["steps"] for way, w in ways.items()}
+
+
+def _obs_halt(dev, g, dem, th):
+    """Phase 22 B: a past-knee PN(27) run halted by the dest-stability
+    watchdog; the bundle's recorder window against the run's history."""
+    from repro_torch import obs
+    from repro_torch.sim import SimConfig, Simulator
+
+    h = OBS_HALT
+    sim = Simulator(g, SimConfig(routing="ugal_threshold(0)"), demand=dem,
+                    device=dev)
+    offered = h["factor"] * th
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = sim.run(dem, offered, h["steps"])
+    off_s = time.perf_counter() - t0
+    wd = obs.Watchdog([obs.dest_stability(ratio=h["ratio"],
+                                          window=h["window"],
+                                          warmup=h["warmup"])],
+                      action="halt", dir=str(OBS_DIR / "postmortem"))
+    fired = None
+    t0 = time.perf_counter()
+    try:
+        with obs.session("metrics", recorder=obs.FlightRecorder(
+                h["recorder"]), watchdog=wd):
+            sim.run(dem, offered, h["steps"])
+    except obs.WatchdogFired as e:
+        fired = e
+    torch.cuda.synchronize()
+    halt_s = time.perf_counter() - t0
+    if fired is None:
+        raise AssertionError(f"pn27 at {h['factor']}x theta: the "
+                             f"dest-stability watchdog did not halt the run")
+    bundle = obs.load_bundle(fired.path)
+    idx = np.asarray(bundle["recorder"]["steps"], dtype=np.int64)
+    step = bundle["sample"]["step"]
+    if idx[-1] != step or len(idx) != min(h["recorder"], step + 1):
+        raise AssertionError(f"bundle window {idx[0]}..{idx[-1]}, fired at "
+                             f"{step}")
+    for key in ("delivered", "accepted", "offered", "occupancy",
+                "src_backlog", "diverted"):
+        got = np.asarray(bundle["recorder"]["channels"][key])
+        if not np.array_equal(got, full.history[key][idx]):
+            raise AssertionError(f"bundle channel {key} differs from the "
+                                 f"run's history")
+    log(f"obs halt: pn27 at {h['factor']}x theta halted at step {step} of "
+        f"{h['steps']} ({fired.reason}); bundle {fired.path} reloaded, its "
+        f"recorder window (steps {idx[0]}..{idx[-1]}) equal to the run's "
+        f"history bit for bit; wall {1e3 * off_s / h['steps']:.2f} ms a "
+        f"step with obs off, {1e3 * halt_s / (step + 1):.2f} ms with the "
+        f"monitor and its per-dest digest")
+    return bundle
+
+
+def _obs_descent(dev):
+    """Phase 22 C: phase 21's full-width greedy_swap(30) descent under
+    ``metrics``."""
+    from repro_torch import obs
+    from repro_torch import placement_tables as PT
+    from repro_torch.core import pn_graph
+    from repro_torch.fabric import (collective_traffic, greedy_improve,
+                                    place_mesh, schedule_from_profile)
+
+    g = pn_graph(FABRIC_Q)
+    sched = schedule_from_profile(PT.PROFILES["ep_heavy"], FABRIC_AXES)
+    traffic = collective_traffic(FABRIC_MESH, FABRIC_AXES, sched)
+    p0 = place_mesh(g, FABRIC_MESH, FABRIC_AXES, FABRIC_DELTA0, "group",
+                    device=dev)
+    with obs.session("metrics") as sess:
+        (_, _, hist), seconds, got = _timed(lambda: greedy_improve(
+            p0, traffic, iters=GREEDY_ITERS, seed=0, routing="ugal",
+            engine="fused", return_history=True, device=dev))
+    evals = _descent_evals(p0, hist)
+    m = sess.metrics
+    swaps = m.counter("placement.swap_evals").value
+    # a source block launches #3 once more than #4 (depth + 1 against
+    # depth), so the blocks are the difference
+    blocks = got["frontier_step"] - got["backward_step"]
+    dispatch = m.counter("util.dispatch[fused]").value
+    if swaps != evals - 1:
+        raise AssertionError(f"placement.swap_evals {swaps} against the "
+                             f"history's {evals} evaluations less the start")
+    if not dispatch == blocks == 3 * evals:
+        raise AssertionError(f"util.dispatch[fused] {dispatch}, source "
+                             f"blocks {blocks}, evaluations {evals}")
+    log(f"obs descent (PN({FABRIC_Q}), {int(np.prod(FABRIC_MESH)):,} chips, "
+        f"ugal, fused, metrics): {seconds:.2f} s; placement.swap_evals "
+        f"{swaps:.0f} (+1 start = the history's {evals}), swap_accepted "
+        f"{m.counter('placement.swap_accepted').value:.0f}; "
+        f"util.dispatch[fused] {dispatch:.0f} = #3 - #4 source blocks "
+        f"{blocks} = 3 a evaluation; routing.blend.solves "
+        f"{m.counter('routing.blend.solves').value:.0f}; launches {got}")
+
+
+def _obs_model_spans(dev):
+    """Phase 22 D: smollm-135m's train.step and serve.run spans under
+    ``trace``, each against the CUDA-event time of its own work."""
+    import repro_torch.launch.serve as LS
+    from repro_torch import obs
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = get_arch("smollm-135m")
+    events = {"train": [], "serve": []}
+
+    def bracket(kind, fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        events[kind].append((start, end))
+        return out
+
+    steps = 3
+    tr = Trainer(cfg, DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"],
+                                 global_batch=TRAIN["batch"]),
+                 TrainerConfig(total_steps=steps, checkpoint_every=100,
+                               checkpoint_dir=str(OBS_DIR / "ckpt"),
+                               log_every=steps),
+                 device=dev)
+    inner = tr.step_fn
+    tr.step_fn = lambda state, batch: bracket(
+        "train", lambda: inner(state, batch))
+
+    class TimedEngine(LS.Engine):
+        def run(self):
+            return bracket("serve", super().run)
+
+    base = LS.Engine
+    LS.Engine = TimedEngine
+    try:
+        with obs.session("trace") as sess:
+            tr.run()
+            results, serve_s, _ = LS.serve(
+                "smollm-135m", full=True, requests=SERVE["requests"],
+                max_new=SERVE["max_new"], max_batch=SERVE["max_batch"],
+                max_len=SERVE["max_len"], device=dev)
+    finally:
+        LS.Engine = base
+    torch.cuda.synchronize()
+    spans = {name: [e for e in sess.events if e[0] == name]
+             for name in ("train.step", "serve.run")}
+    if len(spans["train.step"]) != steps or len(spans["serve.run"]) != 1:
+        raise AssertionError(f"spans { {k: len(v) for k, v in spans.items()} }")
+    rows = []
+    for name, kind in (("train.step", "train"), ("serve.run", "serve")):
+        for ev, (start, end) in zip(spans[name], events[kind]):
+            span_ms, work_ms = ev[2] / 1e6, start.elapsed_time(end)
+            if not span_ms >= work_ms:
+                raise AssertionError(f"{name}: span {span_ms:.3f} ms "
+                                     f"shorter than its work's {work_ms:.3f}"
+                                     f" ms by CUDA events")
+            rows.append(f"{name} {span_ms:.2f} >= {work_ms:.2f}")
+    n_tok = sum(len(v) for v in results.values())
+    if spans["serve.run"][0][2] / 1e9 != serve_s:
+        raise AssertionError("serve.run: the launcher's seconds are not "
+                             "the span's")
+    log(f"obs spans (ms, span >= CUDA events of its work): {rows}; serve "
+        f"{n_tok} tokens, {n_tok / serve_s:.1f} tok/s")
+    return sess
+
+
+def check_obs(dev):
+    """Phase 22: obs on the card."""
+    from repro_torch.core import pn_graph
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import mask_gemm as MG
+    from repro_torch.kernels import sim_step as K
+    from repro_torch.obs import report
+
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    OBS_DIR.mkdir(parents=True)
+    K.reset_launches()
+    MG.reset_launches()
+    FA.reset_launches()
+    g = pn_graph(27)
+    dem = points_demand(g, 27)
+    th = THETA_PN27_POINTS_UGAL
+    wall = _obs_sweeps(dev, g, dem, th)
+    bundle = _obs_halt(dev, g, dem, th)
+    _obs_descent(dev)
+    sess = _obs_model_spans(dev)
+    trace = OBS_DIR / "trace.json"
+    sess.write_chrome(str(trace))
+    page = OBS_DIR / "report.html"
+    report.render_report(str(page), sessions=[
+        ("phase 22", sess.snapshot(), report.session_series(sess))],
+        bundles=[bundle], title="chip_smoke.py phase 22")
+    log(f"obs: Chrome trace {trace.relative_to(ROOT)} "
+        f"{trace.stat().st_size} bytes, report {page.relative_to(ROOT)} "
+        f"{page.stat().st_size} bytes; wall per pn27 step "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in wall.items()))
+    launches = {**K.LAUNCHES, **MG.LAUNCHES,
+                **{k: FA.LAUNCHES[k] for k in ("flash_attention_fwd",
+                                               "flash_attention_dq",
+                                               "flash_attention_dkv")}}
+    if not all(launches[k] > 0 for k in launches):
+        raise AssertionError(f"phase 22 never launched a kernel: "
+                             f"{launches}")
+    log(f"phase 22: launches {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA "
@@ -3618,8 +4000,8 @@ def main() -> int:
     for kname in bwd_errs:
         launches[kname] = train_launches[kname]
     done("15")
-    # phases 16-21 run kernels #1-#4 on new paths: their launches there
-    # go beside each kernel's main-path count
+    # phases 16-22 run kernels #1-#4 (and 22 #5-#7) on new paths: their
+    # launches there go beside each kernel's main-path count
     phase_launches = {}
     for phase, fn in (("16", lambda: check_families(dev)),
                       ("17", lambda: check_faults_analytic(dev)),
@@ -3627,7 +4009,8 @@ def main() -> int:
                           dev, thetas["pn27 points"])),
                       ("19", lambda: check_orbits(dev, pn64)),
                       ("20", lambda: check_adversary(dev)),
-                      ("21", lambda: check_fabric(dev))):
+                      ("21", lambda: check_fabric(dev)),
+                      ("22", lambda: check_obs(dev))):
         t0 = time.perf_counter()
         for kname, count in fn().items():
             phase_launches.setdefault(kname, {})[phase] = count

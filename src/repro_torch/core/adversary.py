@@ -32,9 +32,11 @@ barely moves across permutations — while torus/dragonfly collapse.
 
 The port's counterpart of ``repro.core.adversary``: every sweep runs on
 the port's arc-load engines (``engine`` ``auto`` / ``fused`` / ``dense``
-/ ``orbit``), on the card unless ``device="cpu"`` is passed.  The
-reference's ``obs`` spans, counters and progress are left out until the
-port has ``obs``.
+/ ``orbit``), on the card unless ``device="cpu"`` is passed.  Under an
+obs session, as in the reference: ``worst_case`` is an
+``adversary.search`` span, and each candidate an ``adversary.candidate``
+span counted in ``adversary.candidates`` and streamed as a
+``Progress("adversary.candidates")`` record.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from .. import obs
 from .._device import resolve_device
 from .graph import Graph
 from .routing import evaluate_models, make_routing
@@ -115,19 +118,29 @@ def _evaluate_specs(g, specs, models, engine, targets_mask, faults=None,
             raise ValueError("fewer than 2 active vertices survive the "
                              "faults")
         out = {}
+        prog = obs.Progress("adversary.candidates", total=len(specs))
         for spec in specs:
-            demand = normalize_demand(make_pattern(spec).demand(g, mask))
-            dem = faults.restrict_demand(g, demand)
-            if dem.sum() <= 0:
-                raise ValueError(f"faults removed every demand of {spec!r}")
-            out[spec] = evaluate_models(gd, dem, act_d, models, engine,
-                                        device)
+            obs.counter("adversary.candidates").add(1.0)
+            with obs.span("adversary.candidate", pattern=str(spec),
+                          faulted=True):
+                demand = normalize_demand(make_pattern(spec).demand(g, mask))
+                dem = faults.restrict_demand(g, demand)
+                if dem.sum() <= 0:
+                    raise ValueError(
+                        f"faults removed every demand of {spec!r}")
+                out[spec] = evaluate_models(gd, dem, act_d, models, engine,
+                                            device)
+            prog.step(pattern=str(spec), faulted=True)
         return out
     out = {}
+    prog = obs.Progress("adversary.candidates", total=len(specs))
     for spec in specs:
-        demand = normalize_demand(make_pattern(spec).demand(g, mask))
-        out[spec] = evaluate_models(g, demand, active, models, engine,
-                                    device)
+        obs.counter("adversary.candidates").add(1.0)
+        with obs.span("adversary.candidate", pattern=str(spec)):
+            demand = normalize_demand(make_pattern(spec).demand(g, mask))
+            out[spec] = evaluate_models(g, demand, active, models, engine,
+                                        device)
+        prog.step(pattern=str(spec))
     return out
 
 
@@ -143,8 +156,10 @@ def worst_case(g: Graph, model="minimal",
     device = resolve_device(device)
     named, randoms = _candidate_specs(patterns, n_random, seed)
     spec = make_routing(model)  # validate before paying for sweeps
-    results = _evaluate_specs(g, named + randoms, [model], engine,
-                              targets_mask, faults=faults, device=device)
+    with obs.span("adversary.search", routing=spec.name,
+                  candidates=len(named) + len(randoms)):
+        results = _evaluate_specs(g, named + randoms, [model], engine,
+                                  targets_mask, faults=faults, device=device)
     thetas = {s: 1.0 / r[model].max_load for s, r in results.items()}
     alphas = {s: r[model].alpha for s, r in results.items()}
     worst = min(thetas, key=thetas.get)

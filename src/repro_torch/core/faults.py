@@ -41,9 +41,10 @@ caller passes ``device="cpu"``.
     failure ORDER, each k a prefix of it (nested faults), so every
     trial's curve is monotone whenever theta is.
 
-The reference's ``obs`` spans, counters and progress events around
-``targeted_faults`` and ``degradation_sweep`` are not carried over: they
-wait for the port of ``repro.obs``.
+Under an obs session, as in the reference: ``targeted_faults`` is a
+``faults.targeted`` span counting ``faults.targeted_rounds``, and
+``degradation_sweep`` a ``faults.degradation_sweep`` span streaming
+``Progress("faults.trials")`` records.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from .. import obs
 from .._device import resolve_device
 from .graph import Graph, bfs_distances
 from .routing import make_routing
@@ -314,16 +316,19 @@ def targeted_faults(g: Graph, k: int, kind: str = "links",
     model = make_routing(routing)
     links: list = []
     routers: list = []
-    _targeted_rounds(g, k, kind, demand, mask, model, engine,
-                     require_connected, links, routers, device)
+    with obs.span("faults.targeted", kind=kind, k=k, routing=routing):
+        _targeted_rounds(g, k, kind, demand, mask, model, engine,
+                         require_connected, links, routers, device)
     return FaultSet(links=tuple(links), routers=tuple(routers))
 
 
 def _targeted_rounds(g, k, kind, demand, mask, model, engine,
                      require_connected, links, routers, device):
     """The greedy kill-the-busiest rounds of :func:`targeted_faults`,
-    mutating ``links``/``routers`` in place."""
+    mutating ``links``/``routers`` in place (one round per counter
+    tick)."""
     for _ in range(k):
+        obs.counter("faults.targeted_rounds").add(1.0)
         fs = FaultSet(links=tuple(links), routers=tuple(routers))
         gd = fs.apply(g) if not fs.empty else g
         dem = fs.restrict_demand(g, demand)
@@ -473,24 +478,31 @@ def degradation_sweep(g: Graph, k_failures=(0, 1, 2, 5), trials: int = 8,
         targets_mask = g.meta.get("leaf_mask")
     device = resolve_device(device)
     from .traffic import saturation_report
-    pristine = saturation_report(g, pattern, routing=routing, engine=engine,
-                                 targets_mask=targets_mask,
-                                 device=device).theta
-    thetas = np.empty((int(trials), len(ks)), dtype=np.float64)
-    for t in range(int(trials)):
-        rng = np.random.default_rng(np.random.SeedSequence([int(seed), t]))
-        perm = _nested_draw(g, ks, kind, rng, max_tries)
-        for j, k in enumerate(ks):
-            if k == 0:
-                thetas[t, j] = pristine
-                continue
-            if kind == "links":
-                fs = FaultSet(links=_links_from_edges(g, perm[:k]))
-            else:
-                fs = FaultSet(routers=tuple(int(v) for v in perm[:k]))
-            thetas[t, j] = degraded_report(
-                g, pattern, fs, routing=routing, engine=engine,
-                targets_mask=targets_mask, device=device).theta
+    with obs.span("faults.degradation_sweep", kind=kind,
+                  routing=routing, trials=int(trials), k_max=ks[-1]):
+        pristine = saturation_report(g, pattern, routing=routing,
+                                     engine=engine,
+                                     targets_mask=targets_mask,
+                                     device=device).theta
+        thetas = np.empty((int(trials), len(ks)), dtype=np.float64)
+        prog = obs.Progress("faults.trials", total=int(trials) * len(ks))
+        for t in range(int(trials)):
+            rng = np.random.default_rng(
+                np.random.SeedSequence([int(seed), t]))
+            perm = _nested_draw(g, ks, kind, rng, max_tries)
+            for j, k in enumerate(ks):
+                if k == 0:
+                    thetas[t, j] = pristine
+                    prog.step(trial=t, k=int(k))
+                    continue
+                if kind == "links":
+                    fs = FaultSet(links=_links_from_edges(g, perm[:k]))
+                else:
+                    fs = FaultSet(routers=tuple(int(v) for v in perm[:k]))
+                thetas[t, j] = degraded_report(
+                    g, pattern, fs, routing=routing, engine=engine,
+                    targets_mask=targets_mask, device=device).theta
+                prog.step(trial=t, k=int(k), theta=float(thetas[t, j]))
     bands = {int(p): np.percentile(thetas, p, axis=0) for p in percentiles}
     return DegradationSweep(
         pattern=str(pattern), routing=str(routing), kind=kind, k_failures=ks,

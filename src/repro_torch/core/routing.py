@@ -38,7 +38,10 @@ Shipped models
     The fluid limit of per-hop threshold-UGAL: the ugal blend for any
     finite T, minimal for T = inf.
 
-The reference's ``obs`` spans and counters are not carried over yet.
+Under an obs session the shared sweeps are ``routing.sweep[minimal]`` /
+``routing.sweep[valiant]`` spans inside ``routing.evaluate_models``, and
+every blend solve counts ``routing.blend.solves`` and its breakpoint
+probes ``routing.blend.probes``, as in the reference.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from typing import Callable
 
 import numpy as np
 
+from .. import obs
 from .graph import Graph
 from .utilization import arc_loads_weighted
 
@@ -170,17 +174,21 @@ def valiant_demands(demand: np.ndarray, active: np.ndarray):
 
 
 def _minimal_parts(g: Graph, demand: np.ndarray, engine, device):
-    return arc_loads_weighted(g, demand, engine=engine, device=device)
+    with obs.span("routing.sweep[minimal]", n=g.n):
+        return arc_loads_weighted(g, demand, engine=engine, device=device)
 
 
 def _valiant_parts(g: Graph, demand: np.ndarray, active: np.ndarray, engine,
                    device):
-    d1, d2 = valiant_demands(demand, active)
-    l1, k1, dm1 = arc_loads_weighted(g, d1, engine=engine, device=device)
-    if np.array_equal(d1, d2):  # e.g. uniform: both phases identical
-        l2, k2, dm2 = l1, k1, dm1
-    else:
-        l2, k2, dm2 = arc_loads_weighted(g, d2, engine=engine, device=device)
+    with obs.span("routing.sweep[valiant]", n=g.n):
+        d1, d2 = valiant_demands(demand, active)
+        l1, k1, dm1 = arc_loads_weighted(g, d1, engine=engine,
+                                         device=device)
+        if np.array_equal(d1, d2):  # e.g. uniform: both phases identical
+            l2, k2, dm2 = l1, k1, dm1
+        else:
+            l2, k2, dm2 = arc_loads_weighted(g, d2, engine=engine,
+                                             device=device)
     # upper bound on the longest two-leg route: the worst phase-1 and
     # phase-2 legs need not share an intermediate (tight on the
     # vertex-transitive families)
@@ -270,6 +278,10 @@ def _blend_result(min_parts, val_parts) -> RoutingResult:
     l_min, k_min, d_min = min_parts
     l_val, k_val, d_val = val_parts
     alpha, _, visited = blend_optimum(l_min, l_val)
+    # breakpoint-probe telemetry: each visited point is one O(arcs)
+    # envelope max, the blend solver's entire marginal cost
+    obs.counter("routing.blend.solves").add(1.0)
+    obs.counter("routing.blend.probes").add(float(visited))
     if alpha == 1.0:
         # pure minimal: reuse the exact sweep output bitwise (the balanced
         # case, e.g. any uniform demand where l_val == 2*l_min)
@@ -449,21 +461,23 @@ def evaluate_models(g: Graph, demand: np.ndarray, active: np.ndarray,
     through its own ``evaluate``."""
     out: dict = {}
     min_parts = val_parts = None
-    for spec in models:
-        kind = _shared_kind(spec)
-        if kind in ("minimal", "ugal") and min_parts is None:
-            min_parts = _minimal_parts(g, demand, engine, device)
-        if kind in ("valiant", "ugal") and val_parts is None:
-            val_parts = _valiant_parts(g, demand, active, engine, device)
-        if kind == "minimal":
-            loads, kbar, diam = min_parts
-            out[spec] = RoutingResult("minimal", loads, kbar, int(diam))
-        elif kind == "valiant":
-            loads, kbar, diam = val_parts
-            out[spec] = RoutingResult("valiant", loads, kbar, int(diam))
-        elif kind == "ugal":
-            out[spec] = _blend_result(min_parts, val_parts)
-        else:
-            out[spec] = make_routing(spec).evaluate(g, demand, active,
-                                                    engine, device)
+    with obs.span("routing.evaluate_models", n=g.n, models=len(models)):
+        for spec in models:
+            kind = _shared_kind(spec)
+            if kind in ("minimal", "ugal") and min_parts is None:
+                min_parts = _minimal_parts(g, demand, engine, device)
+            if kind in ("valiant", "ugal") and val_parts is None:
+                val_parts = _valiant_parts(g, demand, active, engine,
+                                           device)
+            if kind == "minimal":
+                loads, kbar, diam = min_parts
+                out[spec] = RoutingResult("minimal", loads, kbar, int(diam))
+            elif kind == "valiant":
+                loads, kbar, diam = val_parts
+                out[spec] = RoutingResult("valiant", loads, kbar, int(diam))
+            elif kind == "ugal":
+                out[spec] = _blend_result(min_parts, val_parts)
+            else:
+                out[spec] = make_routing(spec).evaluate(g, demand, active,
+                                                        engine, device)
     return out

@@ -35,6 +35,12 @@ The reference's numpy-only engines (``naive``, ``numpy``, ``csr``) are
 not ported and raise ``ValueError``: the ``dense`` and ``fused`` engines
 compute what they compute.  Every entry point runs on the card unless
 ``device="cpu"`` is passed.
+
+Under an obs session each call is a ``util.arc_loads`` /
+``util.arc_loads_weighted`` span, counted as ``util.dispatch[<engine
+asked for>]``; where ``auto`` or ``orbit`` resolves, ``util.engine
+[dense|fused]`` names the exact engine that ran the sweeps and
+``util.engine[orbit]`` counts the shortcut taken.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import obs
 from .._device import resolve_device
 from ..kernels.mask_gemm import backward_step, frontier_step
 from ..kernels.ref import backward_epilogue, frontier_epilogue
@@ -267,15 +274,21 @@ def arc_loads(g: Graph, sources=None, targets_mask: np.ndarray | None = None,
         sources = np.nonzero(targets_mask)[0]
     sources = np.asarray(sources, dtype=np.int64)
     res = None
-    if name in ("auto", "orbit") and default_sources:
-        res = _loads_orbit(g, targets_mask, eng, device)
-    if res is None:
-        if name == "orbit":
-            raise ValueError(
-                f"no known automorphism generators for "
-                f"{g.name or g.meta.get('family')!r}"
-                " (or sources/targets not orbit-compatible)")
-        res = _loads(g, sources, targets_mask, None, eng, device)
+    with obs.span("util.arc_loads", engine=name, n=g.n):
+        obs.counter(f"util.dispatch[{name}]").add(1.0)
+        if name in ("auto", "orbit"):
+            obs.counter(f"util.engine[{eng}]").add(1.0)
+            if default_sources:
+                res = _loads_orbit(g, targets_mask, eng, device)
+                if res is not None:
+                    obs.counter("util.engine[orbit]").add(1.0)
+        if res is None:
+            if name == "orbit":
+                raise ValueError(
+                    f"no known automorphism generators for "
+                    f"{g.name or g.meta.get('family')!r}"
+                    " (or sources/targets not orbit-compatible)")
+            res = _loads(g, sources, targets_mask, None, eng, device)
     loads, dist_sum, pair_count, diam = res
     return loads, dist_sum / pair_count, diam
 
@@ -350,8 +363,12 @@ def arc_loads_weighted(g: Graph, demand, engine: str | None = "auto",
                 return loads * w, kbar, diam
     sources = np.nonzero(demand.any(axis=1))[0]
     targets_mask = np.ones(n, dtype=bool)
-    loads, dist_sum, total_demand, diam = _loads(g, sources, targets_mask,
-                                                 demand, eng, device)
+    with obs.span("util.arc_loads_weighted", engine=name, n=g.n):
+        obs.counter(f"util.dispatch[{name}]").add(1.0)
+        if name in ("auto", "orbit"):
+            obs.counter(f"util.engine[{eng}]").add(1.0)
+        loads, dist_sum, total_demand, diam = _loads(
+            g, sources, targets_mask, demand, eng, device)
     return loads, dist_sum / total_demand, diam
 
 

@@ -42,10 +42,12 @@ built in numpy on the host, as the reference builds it (bit for bit the
 same matrix); every routing evaluation runs on ``device``, the card
 unless ``device="cpu"`` is passed, through the port's arc-load engines
 (``engine`` ``auto`` / ``fused`` / ``dense`` / ``orbit``; ``None`` means
-``auto``).  The reference's ``placement.greedy_swap`` span and its
-``placement.swap_evals`` / ``placement.swap_accepted`` counters are left
-out until the port has ``obs``; ``greedy_improve(return_history=True)``
-carries the descent's trajectory.
+``auto``).  Under an obs session the pairwise-swap descent is a
+``placement.greedy_swap`` span counting ``placement.swap_evals`` (each
+swap it evaluates; the start's evaluation is not a swap) and
+``placement.swap_accepted``, as in the reference;
+``greedy_improve(return_history=True)`` carries the descent's
+trajectory.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from typing import Callable
 
 import numpy as np
 
+from .. import obs
 from .._device import resolve_device
 from ..core.graph import Graph
 from ..core.routing import make_routing, parse_spec
@@ -449,19 +452,27 @@ def _swap_descent(p: Placement, traffic, iters: int, seed: int,
                                     device).loads.max())
 
     cur = p.router_of.copy()
-    best = objective(cur)
-    history = [best]
-    pairs = np.random.default_rng(seed).integers(0, p.n_chips, (iters, 2))
-    for i, j in pairs:
-        if cur[i] == cur[j] or best == 0.0:
+    with obs.span("placement.greedy_swap", iters=int(iters),
+                  chips=int(p.n_chips), routing=str(routing)) as sp:
+        evals = obs.counter("placement.swap_evals")
+        accepts = obs.counter("placement.swap_accepted")
+        best = objective(cur)
+        history = [best]
+        pairs = np.random.default_rng(seed).integers(0, p.n_chips,
+                                                     (iters, 2))
+        for i, j in pairs:
+            if cur[i] == cur[j] or best == 0.0:
+                history.append(best)
+                continue
+            cand = cur.copy()
+            cand[i], cand[j] = cand[j], cand[i]
+            evals.add(1.0)
+            m = objective(cand)
+            if m < best:
+                accepts.add(1.0)
+                best, cur = m, cand
             history.append(best)
-            continue
-        cand = cur.copy()
-        cand[i], cand[j] = cand[j], cand[i]
-        m = objective(cand)
-        if m < best:
-            best, cur = m, cand
-        history.append(best)
+        sp.set(best=best)
     return (Placement(g, p.mesh_shape, p.axis_names, cur), best, history)
 
 

@@ -7,19 +7,20 @@ Engine with synthetic prompts, on the card unless ``--device cpu``.
 
 Weights are random, drawn from ``--seed``: this exercises the serving
 path (per-request unpadded prefill through the kernels, one batched
-decode step per token).  The time is a host clock around ``Engine.run``,
-ending in ``torch.cuda.synchronize()`` on the card; the kernels are
-built before it.
+decode step per token).  The time is the ``obs.timed("serve.run")``
+span around ``Engine.run``, which closes only after the card has
+finished (``Span.sync`` on the device); the kernels are built before
+it.  Under a tracing session the span is recorded.
 """
 
 from __future__ import annotations
 
 import argparse
-import time
 
 import numpy as np
 import torch
 
+from .. import obs
 from .._device import resolve_device
 from ..configs import ARCHS, get_arch
 from ..models import build
@@ -47,11 +48,10 @@ def serve(arch: str, *, full: bool = False, requests: int = 8,
         from ..kernels._build import extension
         extension()                     # the kernels' build is set-up
         torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    results = eng.run()
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    return results, time.perf_counter() - t0, device
+    with obs.timed("serve.run", requests=requests) as sp:
+        results = eng.run()
+        sp.sync(device)
+    return results, sp.seconds, device
 
 
 def main(argv=None):

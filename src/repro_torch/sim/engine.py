@@ -180,8 +180,11 @@ def make_step(t: RouteTables, cfg: SimConfig, dtype):
     """Build the dense ``step(state, inj, inj_cap) -> (state, stats)``.
     ``inj`` is the (N, M) per-step offered quantum and ``inj_cap`` the
     (N,) per-source drain limit, both tensors on the tables' device;
-    ``stats`` is a (6,) tensor laid out as :data:`STAT_NAMES`."""
+    ``stats`` is a (6,) tensor laid out as :data:`STAT_NAMES`.  Counted
+    as ``sim.step_build[dense]`` under an obs session."""
+    from .. import obs
     from .kernel import step_aux
+    obs.counter("sim.step_build[dense]").add(1.0)
     aux = step_aux(t)
     dev = t.device
     n, k, m = t.n, t.k, t.m

@@ -166,7 +166,21 @@ def make_step_sparse(t: RouteTables, cfg: SimConfig, dtype,
     """Build the fused ``step(state, inj, inj_cap)``.  Same contract as
     :func:`repro_torch.sim.engine.make_step`; ``dest_cols`` carries the
     per-VC compacted dest axis (q0/q2/src/pend-dest on those columns,
-    q1/stage2 on the full mid axis)."""
+    q1/stage2 on the full mid axis).
+
+    Under an obs session the build is counted by route, as the
+    reference counts its pallas-vs-numpy dispatch:
+    ``sim.step_build[fused_cuda]`` where the tables lie on the card (the
+    step launches the CUDA kernels), ``sim.step_build[fused_plain]`` on
+    the CPU (their plain versions), and ``sim.step_build[fused_decision]``
+    for a ugal step, whose decision runs fused.  The reference's
+    ``sim.slab_waves`` / ``sim.slab_wave_seconds`` have no counterpart:
+    the port has no threaded host slabs."""
+    from .. import obs
+    if cfg.mode == "ugal":
+        obs.counter("sim.step_build[fused_decision]").add(1.0)
+    obs.counter("sim.step_build[fused_cuda]" if t.device.type == "cuda"
+                else "sim.step_build[fused_plain]").add(1.0)
     aux = step_aux(t)
     dev = t.device
     n, k, m = t.n, t.k, t.m

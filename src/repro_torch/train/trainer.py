@@ -9,17 +9,16 @@
 * straggler detection: a step longer than ``straggler_factor`` times the
   median of the last 20 (once 5 are known) is recorded.
 
-Each step is timed on the host clock from before the fault hook to after
-``torch.cuda.synchronize()`` on the card (the reference closes its span
-after the new state is ready), so the time covers the input batch, the
-whole step and any stall.  The reference's ``obs`` spans are not ported
-yet; a plain timer stands in.  Elastic re-meshing belongs to the
-multi-device slice.
+Each step is an ``obs.timed("train.step")`` span, as in the reference:
+it opens before the fault hook and closes only after the new state's
+work is done on the card (``Span.sync`` on the state's tensors), so the
+time covers the input batch, the whole step and any stall.  It measures
+with obs off and is recorded under a tracing session.  Elastic
+re-meshing belongs to the multi-device slice.
 """
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable
@@ -27,6 +26,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import obs
 from .._device import resolve_device
 from ..configs.base import ArchConfig
 from ..data import DataConfig, synthetic_batch
@@ -90,30 +90,31 @@ class Trainer:
         return state
 
     # -- loop ----------------------------------------------------------
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def run(self, state=None, seed: int = 0) -> dict:
         state = state if state is not None else self.resume_or_init(seed)
         step = int(state["step"])
         durations: list[float] = []
         while step < self.tcfg.total_steps:
-            t0 = time.perf_counter()
-            if self.fault_hook is not None:
-                if self.fault_hook(step) == "crash":
-                    # process death: the in-memory state is lost; the
-                    # restart resumes from the newest checkpoint and
-                    # replays from there (the data is a function of step)
-                    self.ckpt.join()
-                    self.restarts += 1
-                    state = None        # freed before the new one is built
-                    state = self.resume_or_init(seed)
-                    step = int(state["step"])
-                    continue
-            state, metrics = self.step_fn(state, self._device_batch(step))
-            self._sync()
-            dt = time.perf_counter() - t0
+            # the span closes after the card has finished the new state:
+            # the step runs asynchronously there
+            sp = obs.timed("train.step", step=step)
+            with sp:
+                if self.fault_hook is not None:
+                    if self.fault_hook(step) == "crash":
+                        # process death: the in-memory state is lost; the
+                        # restart resumes from the newest checkpoint and
+                        # replays from there (the data is a function of
+                        # step)
+                        self.ckpt.join()
+                        self.restarts += 1
+                        state = None    # freed before the new one is built
+                        state = self.resume_or_init(seed)
+                        step = int(state["step"])
+                        continue
+                state, metrics = self.step_fn(state,
+                                              self._device_batch(step))
+                sp.sync(state)
+            dt = sp.seconds
             loss = float(metrics["loss"])
             straggler = False
             if len(durations) >= 5:

@@ -62,7 +62,10 @@ def test_port_imports_neither_jax_nor_repro():
                 "repro_torch.fabric.collectives",
                 "repro_torch.fabric.placement",
                 "repro_torch.fabric.planner",
-                "repro_torch.placement_tables"}
+                "repro_torch.placement_tables", "repro_torch.obs",
+                "repro_torch.obs.metrics", "repro_torch.obs.trace",
+                "repro_torch.obs.recorder", "repro_torch.obs.watchdog",
+                "repro_torch.obs.export", "repro_torch.obs.report"}
     assert expected <= set(res["modules"])
 
 
