@@ -4,8 +4,9 @@ it: the flow-level simulator, the analytic arc-load engines behind its
 reference theta, the serving and training paths of smollm-135m and
 mamba2-130m, the paper's topology families and fault model, its cost
 model and analytic tools (the orbit shortcut, Tables 2-6, the
-adversarial table), and the fabric layer (placement, the planner, a
-placed job's simulation).
+adversarial table), the fabric layer (placement, the planner, a placed
+job's simulation), observability, and the serving path of the MoE, MLA
+and RG-LRU families (granite-moe-3b-a800m at full width).
 
     python3 chip_smoke.py
 
@@ -258,6 +259,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     ``train.step`` span a step and one ``serve.run`` span, each at least
     the CUDA-event time of its own work; a Chrome trace and an HTML
     report written to ``build/obs_smoke/``, their sizes printed.
+23. The MoE, MLA and RG-LRU families on the serving path.  First #5 at
+    their shapes against its plain version, bf16 at S = 1536 within phase
+    9's 1e-4 + 2^-7 |o| and SAME_SHARE: granite-moe's full-width layer
+    (Hq 24, Hkv 8, D 64), and deepseek reduced's MLA (Hq = Hkv = 4, q/k
+    32, v 16) through ``ops.attention``, held against the plain version
+    on the zero-padded v cut back to 16.  A: one
+    full-width granite-moe-3b-a800m MoE layer (40 experts top-8, d_model
+    1536, expert width 512) on random bf16 inputs at T = 1536 and T = 4:
+    the port's route (bins of T rows per expert, three batched products,
+    the k picks weighted and summed in float32) within one bf16 rounding
+    (1e-4 + 2^-7 |y|) of ``ref.moe_dense_ref`` (the reference's dense
+    path) weighting and summing in float32, a repeated call bit for bit,
+    both timed by CUDA events.  B:
+    granite-moe-3b-a800m at full width (32 x 1536, 24 q / 8 kv heads of
+    64, vocab 49155, 3.37B float32 parameters from a seeded generator)
+    served as phase 11 serves smollm: #5 exactly 32 times per request
+    (256) inside ``Engine.run``, every emitted token within 0.05 of the
+    solo teacher-forced max logit, tok/s, prefill ms, decode ms per
+    step, peak memory, a warm run, and the device idle share of one
+    1536-token prefill and of a batch-4 decode step.  C: deepseek-v3-671b
+    (MLA through #5 with v zero-padded from 16 to 32, a shared expert, a
+    dense first layer) and recurrentgemma-9b (two RG-LRU layers and one
+    MQA layer of window 64 on a 64-slot ring cache) at ``reduced()``,
+    served the same way: #5 3 and 1 times per request.  #5's launches in
+    the three ``Engine.run`` calls go under its ``phase_launches``.
 
 Output: the card's name and power limit, then a ``kernels`` JSON line,
 then ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -1384,18 +1410,24 @@ def check_ssd(dev, bw, chunk: int = 256):
     return err, row
 
 
-def serve_arch(dev, arch: str, kernel: str, seed: int = 0):
-    """Serve ``arch`` at full width through Engine.run: 8 requests of
-    256-1536 prompt tokens, 32 new tokens each, batches of 4.  Counts
-    the kernels' launches around Engine.run alone, then holds every
-    emitted token against a solo teacher-forced run on the card."""
+def serve_arch(dev, arch: str, kernel: str, seed: int = 0, *,
+               reduced: bool = False, max_len: int = SERVE["max_len"]):
+    """Serve ``arch`` (at full width, or its ``reduced()`` config) through
+    Engine.run with ``max_len`` cache slots: 8 requests of 256-1536 prompt
+    tokens, 32 new tokens each, batches of 4.  Counts the kernels'
+    launches around Engine.run alone (one of ``kernel`` per request and
+    layer of its kind), then holds every emitted token against a solo
+    teacher-forced run on the card.  Returns ``(model, launches of
+    kernel, times)``."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ssd_scan as SS
-    from repro_torch.models import build
+    from repro_torch.models import build, layer_plan
     from repro_torch.serve import Engine, ServeConfig
 
-    cfg = get_arch(arch)
+    cfg = get_arch(arch).reduced() if reduced else get_arch(arch)
+    if reduced:
+        arch = f"{arch} reduced"
     bundle = build(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1410,7 +1442,7 @@ def serve_arch(dev, arch: str, kernel: str, seed: int = 0):
     prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
                for n in lens]
     eng = Engine(cfg, model, ServeConfig(max_batch=SERVE["max_batch"],
-                                         max_len=SERVE["max_len"]),
+                                         max_len=max_len),
                  device=dev)
     rids = [eng.submit(pr, max_new=SERVE["max_new"]) for pr in prompts]
     FA.reset_launches()
@@ -1422,7 +1454,8 @@ def serve_arch(dev, arch: str, kernel: str, seed: int = 0):
     seconds = time.perf_counter() - t0
     launches = {**FA.LAUNCHES, **SS.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
-    per_req = cfg.n_layers
+    kind = "ssd" if kernel == "ssd_scan" else "attn"
+    per_req = sum(k == kind for k in layer_plan(cfg).kinds)
     want = {k: (per_req * len(prompts) if k == kernel else 0)
             for k in launches}
     if launches != want:
@@ -1445,7 +1478,7 @@ def serve_arch(dev, arch: str, kernel: str, seed: int = 0):
 
     # the same requests again through a new Engine: a warm run
     eng2 = Engine(cfg, model, ServeConfig(max_batch=SERVE["max_batch"],
-                                          max_len=SERVE["max_len"]),
+                                          max_len=max_len),
                   device=dev)
     for pr in prompts:
         eng2.submit(pr, max_new=SERVE["max_new"])
@@ -1471,12 +1504,11 @@ def serve_arch(dev, arch: str, kernel: str, seed: int = 0):
         tok_t = torch.tensor(toks, device=dev)
         logits, cache = bundle.prefill(
             model, torch.as_tensor(prompt[None], device=dev).long(),
-            cache_slots=SERVE["max_len"])
+            cache_slots=max_len)
         lg = [logits[0, -1]]
         finite = [torch.isfinite(logits).all()]
-        if kernel == "ssd_scan":
-            finite += [torch.isfinite(c["mixer"]["state"]).all()
-                       for c in cache]
+        finite += [torch.isfinite(c["mixer"]["state"]).all()
+                   for c in cache if "state" in c["mixer"]]
         for i in range(len(toks) - 1):
             pos = torch.full((1, 1), len(prompt) + i, device=dev)
             logits, cache = bundle.decode_step(model, cache,
@@ -1488,15 +1520,18 @@ def serve_arch(dev, arch: str, kernel: str, seed: int = 0):
         gaps = lg.max(-1).values - lg.gather(1, tok_t[:, None].long())[:, 0]
         if not bool(torch.stack(finite).all()):
             raise AssertionError(f"{arch} req {rid}: non-finite logits or "
-                                 f"SSD state")
+                                 f"recurrent state")
         g = float(gaps.max())
         worst = max(worst, g)
         if not g <= SERVE["gap"]:
             raise AssertionError(f"{arch} req {rid}: an emitted token is "
                                  f"{g:.4f} below the solo max logit")
+    states = {k: "SSD" if k == "ssd" else "RG-LRU"
+              for k in layer_plan(cfg).kinds if k in ("ssd", "rglru")}
     log(f"{arch}: every emitted token within {worst:.4f} of the solo "
         f"teacher-forced max logit (limit {SERVE['gap']}); logits"
-        f"{' and SSD states' if kernel == 'ssd_scan' else ''} finite")
+        f"{''.join(f' and {v} states' for v in states.values())} finite; "
+        f"{per_req} launches of {kernel} per request")
     return model, launches[kernel], dict(
         seconds=seconds, tok_s=n_tok / seconds, decode_ms=decode_ms,
         prefill_ms=float(np.mean(st["prefill_ms"])), peak=peak)
@@ -3946,6 +3981,161 @@ def check_obs(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the MoE, MLA and RG-LRU families on the serving path
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_TOKENS = (1536, 4)     # a 1536-token prefill, a batch-4 decode step
+RING_SLOTS = 64            # recurrentgemma reduced's window: a ring cache
+
+
+def _hold_arch_attention(dev):
+    """Phase 23's shapes of #5 against its plain version, on random bf16
+    inputs: granite-moe's full-width layer (Hq 24, Hkv 8, D 64, causal)
+    at the longest prompt, S = 1536, through the kernel's wrapper; and
+    deepseek reduced's MLA (Hq = Hkv = 4, q/k head 32, v head 16, scale
+    32^-0.5, causal) at S = 1536 through ``ops.attention``, which pads v
+    with zeros to 32 for the kernel, launches it once and cuts the output
+    back to 16.  The plain version runs on the same q, k and the
+    zero-padded v, its output cut the same way.  o within phase 9's
+    1e-4 + 2^-7 |o| and equal to the plain float32 o rounded to bf16 in
+    at least SAME_SHARE of the entries; granite's lse at 3e-5."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(230)
+    s = SERVE["max_len_prompt"]
+
+    def rand(h, d):
+        return torch.randn((1, h, s, d), generator=gen,
+                           device=dev).bfloat16()
+
+    cfg = get_arch(MOE_ARCH)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q, k, v = rand(hq, d), rand(hkv, d), rand(hkv, d)
+    o, lse = FA.flash_attention(q, k, v)
+    w_o, w_lse = flash_attention_ref(q, k, v)
+    name = f"flash_attention {MOE_ARCH} Hq={hq} Hkv={hkv} S={s} D={d} bf16"
+    e, rel = _close_or_raise(name, o, w_o, 1e-4, 2.0 ** -7)
+    _close_or_raise(name + " lse", lse, w_lse, 3e-5, 3e-5)
+    log(f"{name}: ok (max abs err {e:.3e}, max rel err {rel:.3e}; "
+        f"{_check_same_share(name, o, w_o):.5f} of o equal to the plain o "
+        f"in bf16)")
+
+    mla_cfg = get_arch("deepseek-v3-671b").reduced()
+    mla = mla_cfg.mla
+    h, dqk = mla_cfg.n_heads, mla.qk_nope + mla.qk_rope
+    q, k, v = rand(h, dqk), rand(h, dqk), rand(h, mla.v_head)
+    scale = dqk ** -0.5
+    before = FA.LAUNCHES["flash_attention_fwd"]
+    with torch.no_grad():
+        o = ops.attention(q, k, v, causal=True, scale=scale)
+    if FA.LAUNCHES["flash_attention_fwd"] != before + 1:
+        raise AssertionError("ops.attention with a narrow v did not launch "
+                             "#5 once")
+    v_pad = torch.nn.functional.pad(v, (0, dqk - mla.v_head))
+    w_o = flash_attention_ref(q, k, v_pad, scale=scale)[0][..., :mla.v_head]
+    name = (f"ops.attention deepseek-v3-671b reduced MLA Hq=Hkv={h} S={s} "
+            f"q/k {dqk} v {mla.v_head} bf16")
+    if o.shape != w_o.shape:
+        raise AssertionError(f"{name}: shape {tuple(o.shape)}, want "
+                             f"{tuple(w_o.shape)}")
+    e, rel = _close_or_raise(name, o, w_o, 1e-4, 2.0 ** -7)
+    log(f"{name}: ok (max abs err {e:.3e}, max rel err {rel:.3e}; "
+        f"{_check_same_share(name, o, w_o):.5f} of o equal to the plain o "
+        f"in bf16)")
+
+
+def _hold_moe_route(dev, bw):
+    """Phase 23 A: one full-width granite-moe MoE layer (40 experts top-8,
+    d_model 1536, width 512, random weights from a seed) on random bf16
+    inputs at T = 1536 and T = 4: the port's route (bins of T rows, three
+    batched products, the k picks weighted and summed in float32) against
+    ``moe_dense_ref`` (the reference's dense path, every expert on every
+    token) weighting and summing in float32, within one bf16 rounding
+    (phase 9's 1e-4 + 2^-7 |y|), and a repeated call bit for bit.  Prints
+    the share of entries equal to the oracle's, the difference from the
+    oracle in bf16 throughout (the reference's rounding of the weights
+    and sums), both times by CUDA events and the bound of the routed
+    work (T k products of the expert MLP on the bf16 tensor cores, or
+    the bytes of x, y and the bf16 expert weights)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ref import moe_dense_ref
+    from repro_torch.models.layers import cast_weight
+    from repro_torch.models.moe import MoE, router_topk
+
+    cfg = get_arch(MOE_ARCH)
+    moe = cfg.moe
+    m, f, e, k = cfg.d_model, moe.d_ff_expert, moe.n_experts, moe.top_k
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(23)
+    block = MoE(cfg, device=dev, generator=gen)
+    rows = {}
+    with torch.no_grad():
+        for t in MOE_TOKENS:
+            x2d = torch.randn((t, m), device=dev, generator=gen).to(bf)
+            _, top_w, top_idx = router_topk(
+                cfg, x2d @ cast_weight(block, "router", bf))
+
+            def route():
+                return block.route(x2d, top_w, top_idx)
+
+            def plain(acc=torch.float32):
+                return moe_dense_ref(x2d, block.w_gate, block.w_up,
+                                     block.w_down, top_w, top_idx,
+                                     acc_dtype=acc)
+
+            got, again = route(), route()
+            if not torch.equal(got, again):
+                raise AssertionError(f"moe route T={t}: a repeated call "
+                                     f"differs")
+            want = plain()
+            err, rel = _close_or_raise(f"moe route T={t}", got, want, 1e-4,
+                                       2 ** -7)
+            same = float((got == want).float().mean())
+            err_bf = float((got.float() - plain(None).float()).abs().max())
+            reps = 5 if t > 64 else 50
+            ms, plain_ms = cuda_ms(route, reps), cuda_ms(plain, reps)
+            nbytes = 2 * (2 * t * m + 3 * e * m * f) + 4 * t * k
+            bound = _bound(nbytes, bw=bw, bf16_flops=6.0 * t * k * m * f)
+            rows[t] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                           bound_ms=bound["bound_ms"])
+            log(f"moe route T={t} (E={e}, k={k}, M={m}, F={f}, bf16): max "
+                f"abs err {err:.3e} (max rel {rel:.3e}) against the dense "
+                f"oracle summed in float32, {same:.4f} of the entries "
+                f"equal; {err_bf:.3e} against the oracle in bf16 (the "
+                f"reference's rounding); a repeat bit for bit; {ms:.4f} ms "
+                f"(the dense oracle {plain_ms:.4f} ms), bound "
+                f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (the "
+                f"routed {6.0 * t * k * m * f / 1e9:.3f} GFLOP; the bins "
+                f"compute {e / k:.0f}x that)")
+    return rows
+
+
+def check_archs(dev, bw):
+    """Phase 23: the MoE route at full width (A), granite-moe-3b-a800m
+    served at full width (B), deepseek-v3-671b and recurrentgemma-9b
+    served at ``reduced()`` (C); #5's launches inside the three
+    Engine.run calls.  First #5 at granite's and deepseek's MLA shapes
+    against its plain version."""
+    _hold_arch_attention(dev)
+    _hold_moe_route(dev, bw)
+    model, n_moe, _ = serve_arch(dev, MOE_ARCH, "flash_attention_fwd")
+    profile_serve(dev, model, MOE_ARCH)
+    del model
+    torch.cuda.empty_cache()
+    _, n_mla, _ = serve_arch(dev, "deepseek-v3-671b", "flash_attention_fwd",
+                             reduced=True)
+    _, n_lru, _ = serve_arch(dev, "recurrentgemma-9b", "flash_attention_fwd",
+                             reduced=True, max_len=RING_SLOTS)
+    log(f"phase 23: #5 launched {n_moe} + {n_mla} + {n_lru} times in "
+        f"Engine.run")
+    return {"flash_attention_fwd": n_moe + n_mla + n_lru}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA "
@@ -4000,7 +4190,7 @@ def main() -> int:
     for kname in bwd_errs:
         launches[kname] = train_launches[kname]
     done("15")
-    # phases 16-22 run kernels #1-#4 (and 22 #5-#7) on new paths: their
+    # phases 16-23 run kernels #1-#4 (22 #5-#7, 23 #5) on new paths: their
     # launches there go beside each kernel's main-path count
     phase_launches = {}
     for phase, fn in (("16", lambda: check_families(dev)),
@@ -4010,7 +4200,8 @@ def main() -> int:
                       ("19", lambda: check_orbits(dev, pn64)),
                       ("20", lambda: check_adversary(dev)),
                       ("21", lambda: check_fabric(dev)),
-                      ("22", lambda: check_obs(dev))):
+                      ("22", lambda: check_obs(dev)),
+                      ("23", lambda: check_archs(dev, bw))):
         t0 = time.perf_counter()
         for kname, count in fn().items():
             phase_launches.setdefault(kname, {})[phase] = count

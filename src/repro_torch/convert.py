@@ -148,13 +148,16 @@ def params_from_numpy(cfg: ArchConfig, tree, device=None) -> Model:
     """The port's model holding the reference's weights: ``tree`` is the
     reference's unboxed parameter pytree as arrays (``embed``,
     ``lm_head`` unless tied, ``prefix``/``body``/``suffix`` with the
-    stacked layer axis, ``final_norm``).  Every weight must be there."""
+    stacked layer axis, ``final_norm``, ``mtp`` for an MTP config).
+    Every weight must be there."""
     device = resolve_device(device)
     build(cfg)                                # raises for unported configs
     model = Model(cfg, device=device, generator=None)
     flat = {"embed": tree["embed"], "final_norm": tree["final_norm"]}
     if not cfg.tie_embeddings:
         flat["lm_head"] = tree["lm_head"]
+    if cfg.mtp:
+        _flatten("mtp.", tree["mtp"], flat)
     for i, layer in enumerate(_per_layer(cfg, tree)):
         _flatten(f"blocks.{i}.", layer, flat)
     model.load_state_dict({k: _tensor(v, device) for k, v in flat.items()},
@@ -165,9 +168,10 @@ def params_from_numpy(cfg: ArchConfig, tree, device=None) -> Model:
 def params_to_numpy(cfg: ArchConfig, params) -> dict:
     """The reference's parameter tree of numpy arrays (``embed``,
     ``lm_head`` unless tied, ``prefix``/``body``/``suffix`` with the
-    stacked layer axis, ``final_norm``; bfloat16 leaves as float32) from
-    the port's :class:`Model` or a dict of tensors under its parameter
-    names (a train state's ``params``, or gradients)."""
+    stacked layer axis, ``final_norm``, ``mtp`` for an MTP config;
+    bfloat16 leaves as float32) from the port's :class:`Model` or a dict
+    of tensors under its parameter names (a train state's ``params``, or
+    gradients)."""
     if isinstance(params, Model):
         params = dict(params.named_parameters())
     host = {k: (t.detach().float() if t.dtype == torch.bfloat16
@@ -175,11 +179,10 @@ def params_to_numpy(cfg: ArchConfig, params) -> dict:
     layers = [dict() for _ in range(cfg.n_layers)]
     tree = {}
     for name, arr in host.items():
-        if not name.startswith("blocks."):
-            tree[name] = arr
-            continue
-        _, i, rest = name.split(".", 2)
-        node = layers[int(i)]
+        node, rest = tree, name
+        if name.startswith("blocks."):
+            _, i, rest = name.split(".", 2)
+            node = layers[int(i)]
         *path, leaf = rest.split(".")
         for key in path:
             node = node.setdefault(key, {})
@@ -210,12 +213,12 @@ def cache_to_numpy(cfg: ArchConfig, cache: list) -> dict:
                       if t.is_floating_point() else t.detach().cpu().numpy(),
                       layer) for layer in cache]
     body_end = plan.prefix + plan.reps * plan.period
-    body = {}
-    for j in range(plan.period if plan.reps else 0):
-        reps = host[plan.prefix + j:body_end:plan.period]
-        body[f"pos{j}"] = _stack(reps)
-    return {"prefix": host[:plan.prefix], "body": body,
-            "suffix": host[body_end:]}
+    tree = {"prefix": host[:plan.prefix], "suffix": host[body_end:]}
+    if plan.reps:                   # the reference has no body otherwise
+        tree["body"] = {f"pos{j}": _stack(host[plan.prefix + j:body_end:
+                                               plan.period])
+                        for j in range(plan.period)}
+    return tree
 
 
 def _stack(trees: list):

@@ -14,7 +14,9 @@ as in the reference: masked softmax attention in one piece, and the SSD
 as its exact sequential recurrence.  ``ssd_scan_chunked_ref`` mirrors the
 three phases of the bf16 SSD kernels, and the ``terms`` options of it and
 of ``flash_attention_ref`` emulate how the tensor-core kernels multiply a
-float32 operand (tests and ``chip_smoke.py`` only).
+float32 operand (tests and ``chip_smoke.py`` only).  ``moe_dense_ref``
+is the oracle of the MoE block's route (the reference's ``_dense_path``),
+which has no kernel.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ __all__ = ["fused_step_update_ref", "fused_decision_ref", "tile_live",
            "flash_attention_dq_ref", "flash_attention_dkv_ref",
            "flash_attention_bwd_ref", "bf16_split3", "split_matmul",
            "ssd_scan_ref", "ssd_scan_chunked_ref", "attention_ref",
-           "ssd_ref", "NEG_INF"]
+           "ssd_ref", "moe_dense_ref", "NEG_INF"]
 
 DEST_TILE = 128
 
@@ -509,3 +511,25 @@ def ssd_ref(x, dt, a_log, b_mat, c_mat, d_skip, *, state=None):
         ys.append(torch.einsum("bhn,bhnp->bhp", cf[:, t], s))
     y = torch.stack(ys, dim=1) + xf * d_skip.float()[None, None, :, None]
     return y.to(x.dtype), s
+
+
+def moe_dense_ref(x2d, w_gate, w_up, w_down, top_w, top_idx, *,
+                  acc_dtype=None):
+    """The reference's ``_dense_path``: every expert's SiLU-GLU MLP on
+    every token, weighted by the token's renormalised top-k weight for
+    that expert (0 where it did not pick it) and summed over the experts
+    in expert order.  x2d (T, M); w_gate, w_up (E, M, F); w_down (E, F,
+    M); top_w, top_idx (T, k).  The expert MLPs run in x2d's dtype; the
+    weighting and the running sum run in ``acc_dtype``, by default x2d's
+    dtype too (the reference rounds the weights and every partial sum to
+    the activation dtype; float32 keeps the weights as the router gives
+    them, as the port's route does)."""
+    dt = x2d.dtype
+    acc = acc_dtype or dt
+    out = torch.zeros(x2d.shape, dtype=acc, device=x2d.device)
+    for e in range(w_gate.shape[0]):
+        w = ((top_idx == e).to(acc) * top_w.to(acc)).sum(-1)
+        h = torch.nn.functional.silu(x2d @ w_gate[e].to(dt)) \
+            * (x2d @ w_up[e].to(dt))
+        out = out + (h @ w_down[e].to(dt)).to(acc) * w[:, None]
+    return out.to(dt)

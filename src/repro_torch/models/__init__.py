@@ -1,5 +1,6 @@
-"""The model substrate of the port: GQA attention and Mamba-2 SSD
-blocks, the decoder, the loss and the bundle."""
+"""The model substrate of the port: GQA attention, MLA, Mamba-2 SSD and
+RG-LRU blocks, dense MLPs and MoE, the decoder, the loss and the
+bundle."""
 
 from .model import ModelBundle, build, loss_fn, unsupported
 from .transformer import Model, forward, layer_plan

@@ -1,8 +1,9 @@
 """Neural building blocks of the port: RMSNorm, rotary embeddings, GQA
-attention with its serve caches, the dense MLP and the initialisers.
+attention and DeepSeek's multi-head latent attention (MLA) with their
+serve caches, the dense MLP and the initialisers.
 
-Counterpart of ``repro/models/layers.py`` (GQA only; MLA and the
-cross-attention kinds are not ported yet).  Blocks are ``nn.Module``s
+Counterpart of ``repro/models/layers.py`` (the cross-attention kinds are
+not ported yet).  Blocks are ``nn.Module``s
 whose parameters keep the reference's names, shapes and dtype
 (``cfg.param_dtype``) and are trainable; serving runs under
 ``torch.no_grad``.  Matrices are cast to the activation dtype at use, as
@@ -26,7 +27,8 @@ from ..configs.base import ArchConfig
 from ..kernels import ops
 
 __all__ = ["rms_norm", "rope", "rope_table", "apply_rope", "cast_weight",
-           "truncated_normal", "constant", "Attention", "MLP", "KPOS_PAD"]
+           "gelu", "truncated_normal", "constant", "Attention", "MLA",
+           "MLP", "KPOS_PAD"]
 
 KPOS_PAD = 2 ** 30   # position of an empty slot of a linear cache
 
@@ -217,18 +219,126 @@ class Attention(nn.Module):
         return out, {"k": ck, "v": cv, "kpos": kpos}
 
 
-_ACTS = {"silu_glu": F.silu,
-         "gelu_glu": functools.partial(F.gelu, approximate="tanh"),
-         "gelu": functools.partial(F.gelu, approximate="tanh")}
+class MLA(nn.Module):
+    """DeepSeek's multi-head latent attention with the compressed cache:
+    ``wq_a`` (M, q_lora), ``q_norm``, ``wq_b`` (q_lora, H, qk_nope +
+    qk_rope), ``wkv_a`` (M, kv_lora + qk_rope), ``kv_norm``, ``wkv_b``
+    (kv_lora, H, qk_nope + v_head), ``wo`` (H, v_head, M), pre-norm
+    ``norm``.  A serve cache holds per position only the normed latent
+    ``ckv`` (B, slots, kv_lora) and the rotated shared key ``krope`` (B,
+    slots, qk_rope); every step expands K and V from it."""
+
+    def __init__(self, cfg: ArchConfig, *, device=None, generator=None):
+        super().__init__()
+        mla = cfg.mla
+        m, h = cfg.d_model, cfg.n_heads
+        dt = cfg.param_dtype
+        self.cfg = cfg
+        tn = functools.partial(truncated_normal, dtype=dt, device=device,
+                               generator=generator)
+        self.wq_a = tn((m, mla.q_lora))
+        self.q_norm = constant((mla.q_lora,), 1.0, dt, device)
+        self.wq_b = tn((mla.q_lora, h, mla.qk_nope + mla.qk_rope))
+        self.wkv_a = tn((m, mla.kv_lora + mla.qk_rope))
+        self.kv_norm = constant((mla.kv_lora,), 1.0, dt, device)
+        self.wkv_b = tn((mla.kv_lora, h, mla.qk_nope + mla.v_head))
+        self.wo = tn((h, mla.v_head, m), fan_in_dims=(0, 1))
+        self.norm = constant((m,), 1.0, dt, device)
+
+    def forward(self, x, *, positions, mode: str, cache=None,
+                cache_slots=None, rope_tab=None):
+        """mode 'train', 'prefill' (the cache padded to ``cache_slots``
+        where that is longer than S) or 'decode' (S = 1, positions (B, 1);
+        the cache written at slot = position in place, which must be below
+        the slots).  ``rope_tab``: the positions' :func:`rope_table` at
+        qk_rope.  Prefill and training attend through the flash-attention
+        kernel, the value head zero-padded to the q/k head; decode attends
+        the cache in plain torch, masked to ``kv_len = pos + 1``.  Returns
+        ``(y (B, S, M), cache)``, the cache None in training."""
+        cfg, mla = self.cfg, self.cfg.mla
+        b, s, _ = x.shape
+        nope, r = mla.qk_nope, mla.qk_rope
+        hidden = rms_norm(x, self.norm, cfg.norm_eps)
+        dt = hidden.dtype
+        if rope_tab is None:
+            rope_tab = rope_table(positions, r, cfg.rope_theta, x.device)
+        q_lat = rms_norm(hidden @ cast_weight(self, "wq_a", dt), self.q_norm,
+                         cfg.norm_eps)
+        q = _project(q_lat, cast_weight(self, "wq_b", dt))
+        q = torch.cat([q[..., :nope], apply_rope(q[..., nope:], rope_tab)],
+                      dim=-1)
+        kv_a = hidden @ cast_weight(self, "wkv_a", dt)
+        c_kv = rms_norm(kv_a[..., :mla.kv_lora], self.kv_norm, cfg.norm_eps)
+        k_rope = apply_rope(kv_a[:, None, :, mla.kv_lora:], rope_tab)
+        scale = (nope + r) ** -0.5
+        if mode == "decode":
+            pos = positions.reshape(b).to(torch.int64)
+            rows = torch.arange(b, device=x.device)
+            ckv, krope = cache["ckv"], cache["krope"]
+            ckv[rows, pos] = c_kv[:, 0]
+            krope[rows, pos] = k_rope[:, 0, 0]
+            new_cache = {"ckv": ckv, "krope": krope}
+            k, v = self._expand(ckv, krope[:, None])
+            live = torch.arange(ckv.shape[1], device=x.device)[None, :] \
+                <= pos[:, None]
+            logits = (q.float() @ k.float().transpose(-1, -2)) * scale
+            logits = torch.where(live[:, None, None, :], logits, -1e30)
+            out = (torch.softmax(logits, dim=-1) @ v.float()).to(dt)
+        elif mode in ("train", "prefill"):
+            k, v = self._expand(c_kv, k_rope)
+            out = ops.attention(q, k, v, causal=True, scale=scale)
+            new_cache = None
+            if mode == "prefill":
+                pad = max(0, (cache_slots or s) - s)
+                new_cache = {"ckv": F.pad(c_kv, (0, 0, 0, pad)).contiguous(),
+                             "krope": F.pad(k_rope[:, 0],
+                                            (0, 0, 0, pad)).contiguous()}
+        else:
+            raise ValueError(f"mode {mode!r}: 'train', 'prefill' or "
+                             f"'decode'")
+        hv = out.shape[1] * out.shape[3]
+        y = out.transpose(1, 2).reshape(b, s, hv) \
+            @ cast_weight(self, "wo", out.dtype).reshape(hv, -1)
+        return y, new_cache
+
+    def _expand(self, c_kv, k_rope):
+        """K (B, H, T, qk_nope + qk_rope) and V (B, H, T, v_head) from the
+        latents (B, T, kv_lora) and the shared rotated key (B, 1, T,
+        qk_rope)."""
+        nope = self.cfg.mla.qk_nope
+        kv = _project(c_kv, cast_weight(self, "wkv_b", c_kv.dtype))
+        k_nope = kv[..., :nope]
+        k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:-1], -1)
+                       .to(k_nope.dtype)], dim=-1)
+        return k, kv[..., nope:]
+
+
+def gelu(x):
+    """The tanh GELU as the reference evaluates it (``jax.nn.gelu``,
+    approximate): x/2 (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3))), every
+    step rounded to x's dtype and the constants too.  In bf16 that gives
+    other bits than ``F.gelu``, which rounds once, in some 45 % of the
+    entries (one bf16 step each), and the difference grows through the
+    layers."""
+    c = x.new_tensor(float(np.sqrt(2.0 / np.pi)))
+    cube = x * x
+    cube = cube * x
+    inner = c * (x + x.new_tensor(0.044715) * cube)
+    return x * (x.new_tensor(0.5) * (1.0 + torch.tanh(inner)))
+
+
+_ACTS = {"silu_glu": F.silu, "gelu_glu": gelu, "gelu": gelu}
 
 
 class MLP(nn.Module):
     """Dense MLP with pre-norm: GLU (``w_gate``, ``w_up``) or plain
-    (``w_up``), then ``w_down``."""
+    (``w_up``), then ``w_down``; of width ``d_ff`` (default the
+    config's)."""
 
-    def __init__(self, cfg: ArchConfig, *, device=None, generator=None):
+    def __init__(self, cfg: ArchConfig, *, d_ff=None, device=None,
+                 generator=None):
         super().__init__()
-        m, f = cfg.d_model, cfg.d_ff
+        m, f = cfg.d_model, (d_ff if d_ff is not None else cfg.d_ff)
         dt = cfg.param_dtype
         self.cfg = cfg
         tn = functools.partial(truncated_normal, dtype=dt, device=device,
@@ -239,9 +349,11 @@ class MLP(nn.Module):
         self.w_up = tn((m, f))
         self.w_down = tn((f, m))
 
-    def forward(self, x):
+    def forward(self, x, *, skip_norm: bool = False):
+        """x (B, S, M); ``skip_norm`` takes x as already normed (MoE's
+        shared expert)."""
         cfg = self.cfg
-        h = rms_norm(x, self.norm, cfg.norm_eps)
+        h = x if skip_norm else rms_norm(x, self.norm, cfg.norm_eps)
         act = _ACTS[cfg.mlp_act]
         up = h @ cast_weight(self, "w_up", h.dtype)
         if cfg.mlp_act.endswith("_glu"):

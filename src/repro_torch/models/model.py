@@ -1,8 +1,9 @@
 """Public model API of the port: ``build(cfg)`` -> ModelBundle with init,
 loss, prefill, decode_step and concat_caches, and ``loss_fn``.
 
-Counterpart of ``repro/models/model.py`` (no MTP head or memory inputs:
-their families are not ported).  ``params`` is the
+Counterpart of ``repro/models/model.py`` for the decoder-only families
+(no memory inputs: the encoder and vision families are not ported; an
+MTP config is built and served, but not trained).  ``params`` is the
 :class:`~repro_torch.models.transformer.Model` (an ``nn.Module``).  The
 batch is axis 0 of every cache leaf, so ``concat_caches`` concatenates
 there (the reference needs ``cache_logical_axes`` to find it under its
@@ -25,23 +26,27 @@ __all__ = ["ModelBundle", "build", "loss_fn", "unsupported"]
 def unsupported(cfg: ArchConfig) -> list[str]:
     """What of ``cfg`` the port cannot run yet (empty when it can)."""
     missing = [name for name, on in (
-        ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
         ("encoder", cfg.encoder is not None),
-        ("vision", cfg.vision is not None), ("mtp", cfg.mtp)) if on]
-    missing += sorted(set(cfg.pattern) - {"attn", "ssd"})  # rglru, xattn
+        ("vision", cfg.vision is not None)) if on]
+    missing += sorted(set(cfg.pattern) - {"attn", "ssd", "rglru"})  # xattn
     if "ssd" in cfg.pattern and cfg.ssm is None:
         missing.append("ssd without an SSMConfig")
     return missing
 
 
 def loss_fn(cfg: ArchConfig, params: Model, batch) -> tuple:
-    """Next-token cross-entropy plus the aux loss (0 for dense models):
-    ``(loss, {"ce": ..., "aux": ...})``.  ``batch["tokens"]`` (B, S); the
-    target of position i is token i + 1, the last position is masked, and
-    ``ce = mean over the mask of (logsumexp(logits) - logits[target])``
-    in float32.  A gather takes the place of the reference's one-hot
-    contraction, which it equals (that form exists to keep vocab-sharded
-    logits sharded)."""
+    """Next-token cross-entropy plus the MoE layers' aux loss (0 for dense
+    models): ``(loss, {"ce": ..., "aux": ...})``.  ``batch["tokens"]``
+    (B, S); the target of position i is token i + 1, the last position is
+    masked, and ``ce = mean over the mask of (logsumexp(logits) -
+    logits[target])`` in float32.  A gather takes the place of the
+    reference's one-hot contraction, which it equals (that form exists to
+    keep vocab-sharded logits sharded).  An MTP config raises: its loss
+    is not ported."""
+    if cfg.mtp:
+        raise NotImplementedError(
+            f"{cfg.name}: the MTP loss is not ported; training the MoE and "
+            f"MTP families is ROADMAP queue 1 item 2")
     tokens = batch["tokens"]
     out = forward(params, tokens, mode="train")
     logits = out["logits"]
@@ -109,6 +114,6 @@ def build(cfg: ArchConfig) -> ModelBundle:
     missing = unsupported(cfg)
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (this slice "
-            f"serves dense GQA attention and the Mamba-2 SSD)")
+            f"{cfg.name}: {', '.join(missing)} not ported yet (the port "
+            f"serves the decoder-only families)")
     return ModelBundle(cfg)

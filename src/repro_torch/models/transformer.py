@@ -1,17 +1,19 @@
 """The block-based decoder of the port: a list of blocks, each a mixer
-(GQA attention or the Mamba-2 SSD) with an optional dense MLP, between
-the embedding and the (tied) LM head.
+(GQA attention, MLA, the Mamba-2 SSD or the RG-LRU) with an optional dense
+MLP or MoE, between the embedding and the (tied) LM head.
 
-Counterpart of ``repro/models/transformer.py`` for the modes ``train``
-(dense GQA models), ``prefill`` and ``decode``.  The reference scans a
-stacked layer axis; here the blocks are an ``nn.ModuleList`` and the
-cache a list with one ``{"mixer": ...}`` entry per layer.  With
+Counterpart of ``repro/models/transformer.py`` for the modes ``train``,
+``prefill`` and ``decode`` of the decoder-only families.  The reference
+scans a stacked layer axis; here the blocks are an ``nn.ModuleList`` and
+the cache a list with one ``{"mixer": ...}`` entry per layer.  With
 ``cfg.remat`` each block trains under activation checkpointing
 (``torch.utils.checkpoint``, non-reentrant), the reference's
 ``jax.checkpoint`` of its scanned body: only block inputs are kept, and
 the backward recomputes each block's forward.  ``layer_plan`` is kept so
 that the reference's (prefix | scanned body | suffix) parameter trees
-can be mapped onto the list (see :mod:`repro_torch.convert`).
+can be mapped onto the list (see :mod:`repro_torch.convert`).  A config
+with ``mtp`` carries the multi-token-prediction head's weights
+(``Model.mtp``); serving never runs that head, as in the reference.
 """
 
 from __future__ import annotations
@@ -24,11 +26,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
-from .layers import (MLP, Attention, cast_weight, rms_norm, rope_table,
+from .layers import (MLA, MLP, Attention, cast_weight, rms_norm, rope_table,
                      truncated_normal)
+from .moe import MoE
+from .rglru import RGLRUBlock
 from .ssm import SSDBlock
 
-__all__ = ["LayerPlan", "layer_plan", "Block", "Model", "forward"]
+__all__ = ["LayerPlan", "layer_plan", "Block", "MTPHead", "Model",
+           "forward"]
 
 
 @dataclass(frozen=True)
@@ -62,40 +67,78 @@ def layer_plan(cfg: ArchConfig) -> LayerPlan:
 
 
 class Block(nn.Module):
-    """One layer: ``mixer`` (Attention or SSDBlock) and, for attention
-    layers with d_ff > 0, ``mlp``; both residual."""
+    """One layer: ``mixer`` (Attention, MLA where the config has one,
+    SSDBlock or RGLRUBlock) and, for every kind but ``ssd`` where the
+    config has a feed-forward width, ``mlp`` (a MoE where ``use_moe``, else
+    a dense MLP of ``cfg.d_ff``); both residual."""
 
-    def __init__(self, cfg: ArchConfig, kind: str, *, device=None,
-                 generator=None):
+    def __init__(self, cfg: ArchConfig, kind: str, use_moe: bool = False, *,
+                 device=None, generator=None):
         super().__init__()
         self.cfg, self.kind = cfg, kind
+        mk = dict(device=device, generator=generator)
         if kind == "attn":
-            self.mixer = Attention(cfg, device=device, generator=generator)
+            self.mixer = (MLA(cfg, **mk) if cfg.mla is not None
+                          else Attention(cfg, **mk))
         elif kind == "ssd":
-            self.mixer = SSDBlock(cfg, device=device, generator=generator)
+            self.mixer = SSDBlock(cfg, **mk)
+        elif kind == "rglru":
+            self.mixer = RGLRUBlock(cfg, **mk)
         else:
             raise NotImplementedError(f"block kind {kind!r} is not ported")
-        self.mlp = (MLP(cfg, device=device, generator=generator)
-                    if kind != "ssd" and cfg.d_ff > 0 else None)
+        d_ff = cfg.d_ff + (cfg.moe.d_ff_expert if cfg.moe else 0)
+        self.mlp = None
+        if kind != "ssd" and d_ff > 0:
+            self.mlp = MoE(cfg, **mk) if use_moe else MLP(cfg, **mk)
 
     def forward(self, h, *, mode, positions, cache, cache_slots,
                 rope_tab=None):
+        """Returns ``(h, {"mixer": cache}, aux)``, aux the MoE's weighted
+        load-balancing loss in training, else None (and None without a
+        MoE): serving reads no aux, so it computes none."""
         c_in = (cache or {}).get("mixer")
-        if self.kind == "attn":
+        if isinstance(self.mixer, Attention):
             out, c = self.mixer(h, positions=positions, mode=mode, cache=c_in,
                                 window=self.cfg.window,
+                                cache_slots=cache_slots, rope_tab=rope_tab)
+        elif isinstance(self.mixer, MLA):
+            out, c = self.mixer(h, positions=positions, mode=mode, cache=c_in,
                                 cache_slots=cache_slots, rope_tab=rope_tab)
         else:
             out, c = self.mixer(h, mode=mode, cache=c_in)
         h = h + out
-        if self.mlp is not None:
+        aux = None
+        if isinstance(self.mlp, MoE):
+            out, aux = self.mlp(h, with_aux=mode == "train")
+            h = h + out
+        elif self.mlp is not None:
             h = h + self.mlp(h)
-        return h, {"mixer": c}
+        return h, {"mixer": c}, aux
+
+
+class MTPHead(nn.Module):
+    """The multi-token-prediction head's weights (reference
+    ``init_model``'s ``mtp``): ``proj`` (2 M, M) and ``norm`` (M,) float32
+    and ``block``, an attention layer with a dense MLP.  Carried so that
+    the weights load; only training reads them, and the port does not
+    train an MTP config yet."""
+
+    def __init__(self, cfg: ArchConfig, *, device=None, generator=None):
+        super().__init__()
+        m = cfg.d_model
+        self.proj = truncated_normal((2 * m, m), torch.float32, device,
+                                     generator)
+        self.block = Block(cfg.replace(moe=None), "attn", device=device,
+                           generator=generator)
+        self.norm = nn.Parameter(
+            torch.ones((m,), dtype=torch.float32, device=device))
 
 
 class Model(nn.Module):
     """Embedding (``embed`` (V, M), ``lm_head`` (M, V) unless tied), the
-    blocks and ``final_norm`` (float32, as the reference's)."""
+    blocks (the MoE flags of :func:`layer_plan`: a leading ``first_dense``
+    run of dense MLPs), ``final_norm`` (float32, as the reference's) and,
+    for an ``mtp`` config, ``mtp`` (:class:`MTPHead`)."""
 
     def __init__(self, cfg: ArchConfig, *, device=None, generator=None):
         super().__init__()
@@ -108,10 +151,12 @@ class Model(nn.Module):
                                          generator))
         plan = layer_plan(cfg)
         self.blocks = nn.ModuleList(
-            Block(cfg, kind, device=device, generator=generator)
-            for kind in plan.kinds)
+            Block(cfg, kind, use_moe, device=device, generator=generator)
+            for kind, use_moe in zip(plan.kinds, plan.has_moe))
         self.final_norm = nn.Parameter(
             torch.ones((cfg.d_model,), dtype=torch.float32, device=device))
+        self.mtp = (MTPHead(cfg, device=device, generator=generator)
+                    if cfg.mtp else None)
 
     @property
     def device(self) -> torch.device:
@@ -119,8 +164,9 @@ class Model(nn.Module):
 
 
 def _train_block(block: Block, h, positions, rope_tab):
-    return block(h, mode="train", positions=positions, cache=None,
-                 cache_slots=None, rope_tab=rope_tab)[0]
+    h, _, aux = block(h, mode="train", positions=positions, cache=None,
+                      cache_slots=None, rope_tab=rope_tab)
+    return h, aux
 
 
 def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
@@ -128,9 +174,11 @@ def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
     """tokens: (B, S) integer tensor on the model's device.  mode
     'train', 'prefill' or 'decode' (then ``positions`` (B, 1) and the
     cache list are required).  Returns ``{"logits": (B, S, V) float32,
-    "aux": 0.0 (no MoE is ported)}`` plus ``"cache": [per-layer {"mixer":
-    ...}]`` outside training.  Training a model with SSD blocks raises
-    ``NotImplementedError``: the SSD has no backward kernel."""
+    "aux": the MoE layers' summed load-balancing loss in training (0
+    without MoE, and outside training)}``
+    plus ``"cache": [per-layer {"mixer": ...}]`` outside training.
+    Training a model with SSD blocks raises ``NotImplementedError``: the
+    SSD has no backward kernel."""
     cfg = model.cfg
     _, s = tokens.shape
     if mode == "train" and any(b.kind == "ssd" for b in model.blocks):
@@ -140,26 +188,31 @@ def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
     h = F.embedding(tokens, model.embed).to(torch.bfloat16)
     if positions is None:
         positions = torch.arange(s, device=tokens.device)
-    tab = (rope_table(positions, cfg.resolved_head_dim, cfg.rope_theta,
-                      tokens.device) if "attn" in cfg.pattern else None)
+    # one rotary table serves every attention layer: at the head size, or
+    # at MLA's rotated slice
+    rope_d = cfg.mla.qk_rope if cfg.mla is not None else \
+        cfg.resolved_head_dim
+    tab = (rope_table(positions, rope_d, cfg.rope_theta, tokens.device)
+           if "attn" in cfg.pattern else None)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     new_cache = []
     for i, block in enumerate(model.blocks):
         if mode == "train":
-            h = (checkpoint(_train_block, block, h, positions, tab,
-                            use_reentrant=False) if cfg.remat
-                 else _train_block(block, h, positions, tab))
+            h, a = (checkpoint(_train_block, block, h, positions, tab,
+                               use_reentrant=False) if cfg.remat
+                    else _train_block(block, h, positions, tab))
+            if a is not None:
+                aux = aux + a
             continue
-        h, c = block(h, mode=mode, positions=positions,
-                     cache=cache[i] if cache is not None else None,
-                     cache_slots=cache_slots, rope_tab=tab)
+        h, c, _ = block(h, mode=mode, positions=positions,
+                        cache=cache[i] if cache is not None else None,
+                        cache_slots=cache_slots, rope_tab=tab)
         new_cache.append(c)
     hf = rms_norm(h, model.final_norm, cfg.norm_eps)
     head = (cast_weight(model, "embed", hf.dtype).T if cfg.tie_embeddings
             else cast_weight(model, "lm_head", hf.dtype))
     logits = (hf @ head).float()
-    out = {"logits": logits,
-           "aux": torch.zeros((), dtype=torch.float32, device=h.device)}
+    out = {"logits": logits, "aux": aux}
     if mode != "train":
         out["cache"] = new_cache
     return out
-

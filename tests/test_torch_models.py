@@ -30,6 +30,16 @@ from repro_torch.models import build
 
 TOL = 3e-2
 
+# archs held against the reference run op by op: its unrolled layers
+# (``scan_layers=False``, the same weights and function) and its decode
+# step not jitted.  recurrentgemma's scanned forward differs from its own
+# unrolled forward by 0.0586 in the reduced prefill logits (seed 0, tokens
+# of seed 7), and its jitted decode step from the eager one by up to 0.038,
+# beyond 3e-2: XLA compiles those and rounds their bf16 steps otherwise
+# than op-by-op dispatch.  The port's prefill equals the unrolled forward
+# bit for bit there.
+UNROLLED = {"recurrentgemma-9b"}
+
 
 @pytest.fixture(autouse=True)
 def _one_torch_thread():
@@ -42,7 +52,8 @@ def _one_torch_thread():
 
 @functools.cache
 def _reference(name: str, seed: int = 0, window=None):
-    """(reference cfg, bundle, params, jitted decode_step, numpy params)."""
+    """(reference cfg, bundle, params, decode_step (jitted unless the arch
+    is in UNROLLED), numpy params)."""
     import jax
     from repro.configs import get_arch
     from repro.models import build as jbuild
@@ -50,16 +61,21 @@ def _reference(name: str, seed: int = 0, window=None):
     cfg = get_arch(name).reduced()
     if window is not None:
         cfg = cfg.replace(window=window)
+    if name in UNROLLED:
+        cfg = cfg.replace(scan_layers=False)
     bundle = jbuild(cfg)
     params = unbox(bundle.init(jax.random.key(seed)))
-    return (cfg, bundle, params, jax.jit(bundle.decode_step),
-            jax.tree.map(np.asarray, params))
+    decode = (bundle.decode_step if name in UNROLLED
+              else jax.jit(bundle.decode_step))
+    return cfg, bundle, params, decode, jax.tree.map(np.asarray, params)
 
 
 def _port(name: str, seed: int = 0, window=None):
     cfg = tcfg.get_arch(name).reduced()
     if window is not None:
         cfg = cfg.replace(window=window)
+    if name in UNROLLED:
+        cfg = cfg.replace(scan_layers=False)
     return cfg, params_from_numpy(cfg, _reference(name, seed, window)[4],
                                   device="cpu")
 
@@ -115,15 +131,13 @@ def test_configs_are_the_references():
 
 
 def test_build_refuses_what_is_not_ported():
-    for name, missing in (("deepseek-v3-671b", "moe"),
-                          ("granite-moe-3b-a800m", "moe"),
-                          ("recurrentgemma-9b", "rglru"),
-                          ("seamless-m4t-large-v2", "encoder"),
+    for name, missing in (("seamless-m4t-large-v2", "encoder"),
                           ("llama-3.2-vision-90b", "xattn")):
         with pytest.raises(NotImplementedError, match=missing):
             build(tcfg.get_arch(name))
     for name in ("smollm-135m", "mamba2-130m", "h2o-danube-3-4b",
-                 "codeqwen1.5-7b", "granite-20b"):
+                 "codeqwen1.5-7b", "granite-20b", "granite-moe-3b-a800m",
+                 "deepseek-v3-671b", "recurrentgemma-9b"):
         build(tcfg.get_arch(name))
 
 
@@ -272,12 +286,15 @@ def _prefill_and_decode(name, impl, n_dec=4, window=None, slots=16, s=12):
     return ct
 
 
-@pytest.mark.parametrize("name", ["smollm-135m", "mamba2-130m"])
+@pytest.mark.parametrize("name", ["smollm-135m", "mamba2-130m",
+                                  "granite-moe-3b-a800m", "deepseek-v3-671b",
+                                  "recurrentgemma-9b"])
 def test_prefill_and_decode_match_reference(name):
     _prefill_and_decode(name, "auto")
 
 
-@pytest.mark.parametrize("name", ["smollm-135m", "mamba2-130m"])
+@pytest.mark.parametrize("name", ["smollm-135m", "mamba2-130m",
+                                  "granite-moe-3b-a800m"])
 def test_prefill_matches_reference_pallas_kernels(name):
     """The reference's side through its Pallas kernels (interpreter)."""
     _prefill_and_decode(name, "pallas_interpret", n_dec=1)

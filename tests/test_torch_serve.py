@@ -8,8 +8,9 @@ forced run (prefill, then one decode step per emitted token at batch 1).
 Exact token identity would flip on bf16 ties.  The port engine's tokens
 are held against the port's solo run (itself held against the
 reference's by ``test_torch_models.py``) and against the reference's
-solo run, for both families: the batched SSD decode (merged caches,
-per-row positions, conv tails) as well as the attention one.  The
+solo run, for every family: the batched SSD and RG-LRU decodes (merged
+caches, per-row positions, conv tails), the attention one, MLA's
+compressed cache and the MoE layers.  The
 reference engine serves the same queue alongside; its greedy trajectory
 is not reproducible from one call to the next on the CPU (seen: a token
 flips at step 5 between two runs in one process), so its tokens are
@@ -71,7 +72,9 @@ def _near_argmax(toks, solo, what):
         assert gap <= GAP, f"{what} step {i}: token {t} gap {gap:.4f}"
 
 
-@pytest.mark.parametrize("name", ["smollm-135m", "mamba2-130m"])
+@pytest.mark.parametrize("name", ["smollm-135m", "mamba2-130m",
+                                  "granite-moe-3b-a800m", "deepseek-v3-671b",
+                                  "recurrentgemma-9b"])
 def test_engine_matches_reference_engine(name):
     import jax
     from repro.configs import get_arch
