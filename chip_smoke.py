@@ -5,8 +5,9 @@ reference theta, the serving and training paths of smollm-135m and
 mamba2-130m, the paper's topology families and fault model, its cost
 model and analytic tools (the orbit shortcut, Tables 2-6, the
 adversarial table), the fabric layer (placement, the planner, a placed
-job's simulation), observability, and the serving path of the MoE, MLA
-and RG-LRU families (granite-moe-3b-a800m at full width).
+job's simulation), observability, the serving path of the MoE, MLA
+and RG-LRU families (granite-moe-3b-a800m at full width), and that of
+the memory-input families (seamless-m4t-large-v2 at full width).
 
     python3 chip_smoke.py
 
@@ -284,6 +285,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     MQA layer of window 64 on a 64-slot ring cache) at ``reduced()``,
     served the same way: #5 3 and 1 times per request.  #5's launches in
     the three ``Engine.run`` calls go under its ``phase_launches``.
+24. The memory-input families on the serving path.  A: #5 in bf16,
+    non-causal, against its plain version (phase 9's 1e-4 + 2^-7 |o|,
+    SAME_SHARE, lse at 3e-5) at seamless-m4t-large-v2's encoder shape
+    (B=1, 16 / 16 heads of 64, Sq = Skv = 384 frames), its cross prefill
+    (Sq 1536, Skv 384), its cross decode step (B=4, Sq = 1) and one
+    full-width llama-3.2-vision-90b cross layer (64 / 8 heads of 128, Sq
+    1536, Skv 1600), each timed by CUDA events beside its plain version,
+    SDPA's forward and its bound.  B: seamless-m4t-large-v2 at full
+    width (24 encoder and 24 decoder layers x 1024, vocab 256,206, 1.63B
+    float32 parameters from a seeded generator, every cross gate set to
+    1.0: zero, as initialised, would shut the memory out) served with
+    phase 11's traffic and one memory of 384 frames drawn by
+    ``data.pipeline.synthetic_batch``: #5 exactly 2064 times inside
+    ``Engine.run`` (72 a request: 24 encoder, 24 self, 24 cross; 24 a
+    decode step), every emitted token within 0.05 of the solo
+    teacher-forced max logit, a second memory draw moving the first
+    request's last prefill logits by more than 0.05, tok/s, prefill ms,
+    decode ms per step, peak memory, a warm run, and the idle share of a
+    1536-token prefill and of a batch-4 decode step.  C:
+    llama-3.2-vision-90b at ``reduced()`` with 10 layers (cross layers 4
+    and 9) and 16 image tokens, gates at 1.0, served the same way: #5
+    exactly 204 times (10 a request, 2 a decode step).  #5's launches in
+    the two ``Engine.run`` calls go under its ``phase_launches``.
 
 Output: the card's name and power limit, then a ``kernels`` JSON line,
 then ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -1411,27 +1435,41 @@ def check_ssd(dev, bw, chunk: int = 256):
 
 
 def serve_arch(dev, arch: str, kernel: str, seed: int = 0, *,
-               reduced: bool = False, max_len: int = SERVE["max_len"]):
-    """Serve ``arch`` (at full width, or its ``reduced()`` config) through
-    Engine.run with ``max_len`` cache slots: 8 requests of 256-1536 prompt
-    tokens, 32 new tokens each, batches of 4.  Counts the kernels'
-    launches around Engine.run alone (one of ``kernel`` per request and
-    layer of its kind), then holds every emitted token against a solo
-    teacher-forced run on the card.  Returns ``(model, launches of
-    kernel, times)``."""
+               reduced: bool = False, max_len: int = SERVE["max_len"],
+               n_layers=None, memory=None):
+    """Serve ``arch`` (at full width, or its ``reduced()`` config, with
+    ``n_layers`` layers where given) through Engine.run with ``max_len``
+    cache slots: 8 requests of 256-1536 prompt tokens, 32 new tokens
+    each, batches of 4; with ``memory`` (1, T, M), the frame or image
+    embeddings that every prefill takes, and every cross layer's gate set
+    to 1.0 (seeded weights leave it at zero, which would shut the memory
+    out).  Counts the kernels' launches around Engine.run alone: one of
+    ``kernel`` a request per layer of its kind, or with a memory the
+    counts of :func:`_memory_launches` a request and a batched decode
+    step.  Then holds every
+    emitted token against a solo teacher-forced run on the card.  Returns
+    ``(model, launches of kernel, times)``, times with the prompts."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ssd_scan as SS
-    from repro_torch.models import build, layer_plan
+    from repro_torch.models import build, layer_plan, layers_of
     from repro_torch.serve import Engine, ServeConfig
 
     cfg = get_arch(arch).reduced() if reduced else get_arch(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+        arch = f"{arch} ({n_layers} layers)"
     if reduced:
         arch = f"{arch} reduced"
     bundle = build(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = bundle.init(seed, dev)
+    if memory is not None:
+        with torch.no_grad():
+            for pname, prm in model.named_parameters():
+                if pname.endswith(".gate"):
+                    prm.fill_(1.0)
     torch.cuda.synchronize()
     log(f"{arch}: {cfg.n_layers} layers x d_model {cfg.d_model}, vocab "
         f"{cfg.vocab}, {bundle.num_params(model) / 1e6:.2f}M parameters, "
@@ -1445,18 +1483,24 @@ def serve_arch(dev, arch: str, kernel: str, seed: int = 0, *,
                                          max_len=max_len),
                  device=dev)
     rids = [eng.submit(pr, max_new=SERVE["max_new"]) for pr in prompts]
+    mem = None if memory is None else torch.as_tensor(memory, device=dev)
     FA.reset_launches()
     SS.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = eng.run()
+    out = eng.run(memory=mem)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {**FA.LAUNCHES, **SS.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     kind = "ssd" if kernel == "ssd_scan" else "attn"
-    per_req = sum(k == kind for k in layer_plan(cfg).kinds)
-    want = {k: (per_req * len(prompts) if k == kernel else 0)
+    per_req, per_step = (
+        _memory_launches(cfg) if memory is not None
+        else (sum(k == kind for k in layer_plan(cfg).kinds), 0))
+    n_batches = -(-len(prompts) // SERVE["max_batch"])
+    want = {k: (per_req * len(prompts)
+                + per_step * n_batches * (SERVE["max_new"] - 1)
+                if k == kernel else 0)
             for k in launches}
     if launches != want:
         raise AssertionError(f"{arch}: launches {launches} in Engine.run, "
@@ -1484,7 +1528,7 @@ def serve_arch(dev, arch: str, kernel: str, seed: int = 0, *,
         eng2.submit(pr, max_new=SERVE["max_new"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng2.run()
+    eng2.run(memory=mem)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     st2 = eng2.stats
@@ -1504,11 +1548,11 @@ def serve_arch(dev, arch: str, kernel: str, seed: int = 0, *,
         tok_t = torch.tensor(toks, device=dev)
         logits, cache = bundle.prefill(
             model, torch.as_tensor(prompt[None], device=dev).long(),
-            cache_slots=max_len)
+            memory=mem, cache_slots=max_len)
         lg = [logits[0, -1]]
         finite = [torch.isfinite(logits).all()]
         finite += [torch.isfinite(c["mixer"]["state"]).all()
-                   for c in cache if "state" in c["mixer"]]
+                   for c in layers_of(cache) if "state" in c["mixer"]]
         for i in range(len(toks) - 1):
             pos = torch.full((1, 1), len(prompt) + i, device=dev)
             logits, cache = bundle.decode_step(model, cache,
@@ -1531,25 +1575,30 @@ def serve_arch(dev, arch: str, kernel: str, seed: int = 0, *,
     log(f"{arch}: every emitted token within {worst:.4f} of the solo "
         f"teacher-forced max logit (limit {SERVE['gap']}); logits"
         f"{''.join(f' and {v} states' for v in states.values())} finite; "
-        f"{per_req} launches of {kernel} per request")
+        f"{per_req} launches of {kernel} per request"
+        f"{f' and {per_step} per decode step' if per_step else ''}")
     return model, launches[kernel], dict(
         seconds=seconds, tok_s=n_tok / seconds, decode_ms=decode_ms,
-        prefill_ms=float(np.mean(st["prefill_ms"])), peak=peak)
+        prefill_ms=float(np.mean(st["prefill_ms"])), peak=peak,
+        prompts=prompts)
 
 
-def profile_serve(dev, model, arch: str, seed: int = 1):
+def profile_serve(dev, model, arch: str, seed: int = 1, memory=None):
     """Where a full-width prefill's and a batched decode step's device
-    time goes (torch.profiler, by kernel, and the idle share)."""
+    time goes (torch.profiler, by kernel, and the idle share); every
+    prefill takes ``memory`` where given."""
     from repro_torch.models import build
     cfg = model.cfg
     bundle = build(cfg)
+    mem = None if memory is None else torch.as_tensor(memory, device=dev)
     rng = np.random.default_rng(seed)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 1536)),
                              device=dev)
-    profile_device(lambda: bundle.prefill(model, prompt,
+    profile_device(lambda: bundle.prefill(model, prompt, memory=mem,
                                           cache_slots=SERVE["max_len"]),
                    1, "prefill", f"profile {arch} prefill S=1536")
-    caches = [bundle.prefill(model, prompt[:, :n], cache_slots=2048)[1]
+    caches = [bundle.prefill(model, prompt[:, :n], memory=mem,
+                             cache_slots=2048)[1]
               for n in (256, 700, 1100, 1536)]
     cache = bundle.concat_caches(caches)
     tok = torch.zeros((4, 1), dtype=torch.long, device=dev)
@@ -4136,6 +4185,159 @@ def check_archs(dev, bw):
     return {"flash_attention_fwd": n_moe + n_mla + n_lru}
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the memory-input families on the serving path
+# ---------------------------------------------------------------------------
+
+ENC_ARCH = "seamless-m4t-large-v2"
+VISION_ARCH = "llama-3.2-vision-90b"
+VISION_LAYERS = 10         # reduced() keeps 4 layers: no xattn among them
+MEMORY_SEEDS = (24, 25)    # the served memory, and a second draw
+
+
+def _memory_draw(cfg, tokens: int, seed: int) -> np.ndarray:
+    """One (1, tokens, d_model) float32 memory from the data pipeline's
+    stub frontend (``synthetic_batch``'s ``memory``, uniform in [-1,
+    1))."""
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    return synthetic_batch(DataConfig(
+        vocab=cfg.vocab, seq_len=SERVE["max_len_prompt"], global_batch=1,
+        seed=seed, memory_tokens=tokens, d_model=cfg.d_model), 0)["memory"]
+
+
+def _memory_launches(cfg) -> tuple[int, int]:
+    """#5 launches a request's prefill makes (encoder layers, then one per
+    self- and one per cross-attention) and a decode step makes (one per
+    cross layer: the decoder's self-attention decodes in plain torch)."""
+    from repro_torch.models import layer_plan
+    kinds = layer_plan(cfg).kinds
+    n_self = sum(k in ("attn", "dec_xattn") for k in kinds)
+    n_cross = sum(k in ("xattn", "dec_xattn") for k in kinds)
+    n_enc = cfg.encoder.n_layers if cfg.encoder is not None else 0
+    return n_enc + n_self + n_cross, n_cross
+
+
+def _hold_memory_attention(dev, bw) -> dict:
+    """Phase 24 A: #5 in bf16, non-causal, at the memory families' shapes
+    against its plain version: seamless's encoder (Sq = Skv = 384 frames,
+    16 / 16 heads of 64), its cross prefill (Sq 1536, Skv 384), its cross
+    decode step (B = 4, Sq = 1) and one full-width llama-3.2-vision cross
+    layer (64 / 8 heads of 128, Sq 1536, Skv 1600).  o within phase 9's
+    1e-4 + 2^-7 |o| and equal to the plain float32 o rounded to bf16 in at
+    least SAME_SHARE of the entries, lse at 3e-5.  Each timed by CUDA
+    events beside its plain version and SDPA's forward (``enable_gqa``,
+    no mask; the yardstick, which the port never calls), with its bound:
+    the bytes of q, k, v, o and lse at the HBM rate against Q K^T (bf16
+    operands) and P.V (p float32, three times) on the tensor cores, over
+    all Sq x Skv pairs.  #5 and SDPA are also timed by their device time
+    alone (:func:`device_rows`)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    enc, vis = get_arch(ENC_ARCH), get_arch(VISION_ARCH)
+    frames = SERVE["max_len_prompt"] // enc.encoder.frame_ratio
+    s = SERVE["max_len_prompt"]
+    he, de = enc.n_heads, enc.resolved_head_dim
+    shapes = {  # name: (b, hq, hkv, sq, skv, d)
+        "seamless encoder": (1, he, enc.n_kv_heads, frames, frames, de),
+        "seamless cross prefill": (1, he, enc.n_kv_heads, s, frames, de),
+        "seamless cross decode": (SERVE["max_batch"], he, enc.n_kv_heads,
+                                  1, frames, de),
+        "llama-3.2-vision cross": (1, vis.n_heads, vis.n_kv_heads, s,
+                                   vis.vision.n_image_tokens,
+                                   vis.resolved_head_dim)}
+    gen = torch.Generator(device=dev).manual_seed(24)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows, err = {}, 0.0
+    for label, (b, hq, hkv, sq, skv, d) in shapes.items():
+        q = torch.randn((b, hq, sq, d), generator=gen, device=dev).bfloat16()
+        k = torch.randn((b, hkv, skv, d), generator=gen,
+                        device=dev).bfloat16()
+        v = torch.randn((b, hkv, skv, d), generator=gen,
+                        device=dev).bfloat16()
+        o, lse = FA.flash_attention(q, k, v, causal=False)
+        w_o, w_lse = flash_attention_ref(q, k, v, causal=False)
+        name = (f"flash_attention {label} B={b} Hq={hq} Hkv={hkv} Sq={sq} "
+                f"Skv={skv} D={d} bf16 non-causal")
+        e, rel = _close_or_raise(name, o, w_o, 1e-4, 2.0 ** -7)
+        _close_or_raise(name + " lse", lse, w_lse, 3e-5, 3e-5)
+        share = _check_same_share(name, o, w_o)
+        err = max(err, e)
+        reps = 50 if sq == 1 else 20
+        flops = 2.0 * d * b * hq * sq * skv     # Q K^T, and P.V alike
+        nbytes = 2 * (2 * b * hq * sq * d + 2 * b * hkv * skv * d) \
+            + 4 * b * hq * sq
+        fwd = lambda: FA.flash_attention(q, k, v, causal=False)
+        lib = lambda: sdpa(q, k, v, enable_gqa=True)
+        # CUDA events over back-to-back calls read the host's launch work
+        # at the small shapes; the device time reads the kernels alone
+        row = dict(
+            ms=cuda_ms(fwd, reps), device_ms=device_rows(fwd, reps)[2] / reps,
+            plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v,
+                                                         causal=False), 3),
+            library_ms=cuda_ms(lib, reps),
+            library_device_ms=device_rows(lib, reps)[2] / reps,
+            max_abs_err=e,
+            **_bound(nbytes, bw=bw, bf16_flops=flops, f32_bf16_flops=flops))
+        rows[label] = row
+        log(f"{name}: ok (max abs err {e:.3e}, max rel err {rel:.3e}; "
+            f"{share:.5f} of o equal to the plain o in bf16); "
+            f"{row['ms']:.4f} ms by CUDA events, {row['device_ms']:.4f} ms "
+            f"of device time, plain {row['plain_ms']:.4f} ms, SDPA "
+            f"{row['library_ms']:.4f} / {row['library_device_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+            f"({row['tc_flops'] / 1e9:.3f} GFLOP on the tensor cores = "
+            f"{row['ops_ms']:.4f} ms; {nbytes / 1e6:.2f} MB = "
+            f"{row['bytes_ms']:.4f} ms)")
+    return rows
+
+
+def check_memory(dev, bw):
+    """Phase 24: #5 at the memory families' shapes (A);
+    seamless-m4t-large-v2 at full width served with one memory of 384
+    frames, its gates at 1.0 (B): #5 exactly 72 times a request and 24 a
+    decode step inside Engine.run, tokens within 0.05 of the solo max
+    logit, a second memory draw moving the first request's last prefill
+    logits by more than 0.05, and the idle share of a prefill and a
+    decode step; llama-3.2-vision-90b at ``reduced()`` with 10 layers and
+    16 image tokens (C): #5 10 times a request and 2 a decode step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build
+
+    _hold_memory_attention(dev, bw)
+
+    cfg = get_arch(ENC_ARCH)
+    frames = SERVE["max_len_prompt"] // cfg.encoder.frame_ratio
+    memory = _memory_draw(cfg, frames, MEMORY_SEEDS[0])
+    model, n_enc, info = serve_arch(dev, ENC_ARCH, "flash_attention_fwd",
+                                    memory=memory)
+    bundle = build(cfg)
+    prompt = torch.as_tensor(info["prompts"][0][None], device=dev).long()
+    last = [bundle.prefill(model, prompt, memory=torch.as_tensor(
+        _memory_draw(cfg, frames, seed), device=dev))[0][0, -1]
+            for seed in MEMORY_SEEDS]
+    moved = float((last[0] - last[1]).abs().max())
+    log(f"{ENC_ARCH}: a second memory draw moves the first request's last "
+        f"prefill logits by {moved:.4f} (max abs; must exceed "
+        f"{SERVE['gap']})")
+    if not moved > SERVE["gap"]:
+        raise AssertionError(f"{ENC_ARCH}: the memory does not reach the "
+                             f"logits (moved {moved:.4f})")
+    profile_serve(dev, model, ENC_ARCH, memory=memory)
+    del model, last
+    torch.cuda.empty_cache()
+
+    vcfg = get_arch(VISION_ARCH).reduced().replace(n_layers=VISION_LAYERS)
+    _, n_vis, _ = serve_arch(
+        dev, VISION_ARCH, "flash_attention_fwd", reduced=True,
+        n_layers=VISION_LAYERS,
+        memory=_memory_draw(vcfg, vcfg.vision.n_image_tokens,
+                            MEMORY_SEEDS[0]))
+    log(f"phase 24: #5 launched {n_enc} + {n_vis} times in Engine.run")
+    return {"flash_attention_fwd": n_enc + n_vis}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA "
@@ -4190,8 +4392,8 @@ def main() -> int:
     for kname in bwd_errs:
         launches[kname] = train_launches[kname]
     done("15")
-    # phases 16-23 run kernels #1-#4 (22 #5-#7, 23 #5) on new paths: their
-    # launches there go beside each kernel's main-path count
+    # phases 16-24 run kernels #1-#4 (22 #5-#7, 23 and 24 #5) on new paths:
+    # their launches there go beside each kernel's main-path count
     phase_launches = {}
     for phase, fn in (("16", lambda: check_families(dev)),
                       ("17", lambda: check_faults_analytic(dev)),
@@ -4201,7 +4403,8 @@ def main() -> int:
                       ("20", lambda: check_adversary(dev)),
                       ("21", lambda: check_fabric(dev)),
                       ("22", lambda: check_obs(dev)),
-                      ("23", lambda: check_archs(dev, bw))):
+                      ("23", lambda: check_archs(dev, bw)),
+                      ("24", lambda: check_memory(dev, bw))):
         t0 = time.perf_counter()
         for kname, count in fn().items():
             phase_launches.setdefault(kname, {})[phase] = count

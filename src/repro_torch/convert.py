@@ -20,7 +20,7 @@ from .core.faults import FaultSet
 from .core.graph import Graph
 from .fabric.placement import Placement
 from .models.model import build
-from .models.transformer import Model, layer_plan
+from .models.transformer import Model, layer_plan, layers_of
 from .sim.engine import SimState
 from .sim.tables import RouteTables
 
@@ -148,16 +148,26 @@ def params_from_numpy(cfg: ArchConfig, tree, device=None) -> Model:
     """The port's model holding the reference's weights: ``tree`` is the
     reference's unboxed parameter pytree as arrays (``embed``,
     ``lm_head`` unless tied, ``prefix``/``body``/``suffix`` with the
-    stacked layer axis, ``final_norm``, ``mtp`` for an MTP config).
-    Every weight must be there."""
+    stacked layer axis, ``final_norm``, ``mtp`` for an MTP config,
+    ``encoder`` for an encoder config: ``body.pos0`` stacked over the
+    encoder's layers, ``adapter``, ``final_norm``; a cross layer's
+    ``gate`` among its weights).  Every weight must be there."""
     device = resolve_device(device)
-    build(cfg)                                # raises for unported configs
+    build(cfg)                                # raises for unknown kinds
     model = Model(cfg, device=device, generator=None)
     flat = {"embed": tree["embed"], "final_norm": tree["final_norm"]}
     if not cfg.tie_embeddings:
         flat["lm_head"] = tree["lm_head"]
     if cfg.mtp:
         _flatten("mtp.", tree["mtp"], flat)
+    if cfg.encoder is not None:
+        enc = tree["encoder"]
+        flat["encoder.adapter"] = enc["adapter"]
+        flat["encoder.final_norm"] = enc["final_norm"]
+        for i in range(cfg.encoder.n_layers):
+            _flatten(f"encoder.blocks.{i}.",
+                     _tree_map(lambda a, i=i: np.asarray(a)[i],
+                               enc["body"]["pos0"]), flat)
     for i, layer in enumerate(_per_layer(cfg, tree)):
         _flatten(f"blocks.{i}.", layer, flat)
     model.load_state_dict({k: _tensor(v, device) for k, v in flat.items()},
@@ -168,21 +178,26 @@ def params_from_numpy(cfg: ArchConfig, tree, device=None) -> Model:
 def params_to_numpy(cfg: ArchConfig, params) -> dict:
     """The reference's parameter tree of numpy arrays (``embed``,
     ``lm_head`` unless tied, ``prefix``/``body``/``suffix`` with the
-    stacked layer axis, ``final_norm``, ``mtp`` for an MTP config;
-    bfloat16 leaves as float32) from the port's :class:`Model` or a dict
-    of tensors under its parameter names (a train state's ``params``, or
-    gradients)."""
+    stacked layer axis, ``final_norm``, ``mtp`` for an MTP config,
+    ``encoder`` for an encoder config; bfloat16 leaves as float32) from
+    the port's :class:`Model` or a dict of tensors under its parameter
+    names (a train state's ``params``, or gradients)."""
     if isinstance(params, Model):
         params = dict(params.named_parameters())
     host = {k: (t.detach().float() if t.dtype == torch.bfloat16
                 else t.detach()).cpu().numpy() for k, t in params.items()}
     layers = [dict() for _ in range(cfg.n_layers)]
+    enc_layers = [dict() for _ in range(
+        cfg.encoder.n_layers if cfg.encoder is not None else 0)]
     tree = {}
     for name, arr in host.items():
         node, rest = tree, name
         if name.startswith("blocks."):
             _, i, rest = name.split(".", 2)
             node = layers[int(i)]
+        elif name.startswith("encoder.blocks."):
+            _, _, i, rest = name.split(".", 3)
+            node = enc_layers[int(i)]
         *path, leaf = rest.split(".")
         for key in path:
             node = node.setdefault(key, {})
@@ -194,30 +209,44 @@ def params_to_numpy(cfg: ArchConfig, params) -> dict:
                                              plan.period])
                     for j in range(plan.period if plan.reps else 0)}
     tree["suffix"] = layers[body_end:]
+    if enc_layers:
+        tree["encoder"]["body"] = {"pos0": _stack(enc_layers)}
     return tree
 
 
-def cache_from_numpy(cfg: ArchConfig, tree, device=None) -> list:
-    """The port's per-layer cache list from a reference cache tree of
-    arrays (``prefix``/``body``/``suffix``, body leaves stacked)."""
+def cache_from_numpy(cfg: ArchConfig, tree, device=None):
+    """The port's cache from a reference cache tree of arrays
+    (``prefix``/``body``/``suffix``, body leaves stacked): the per-layer
+    list, or ``{"layers": [...], "enc_memory": ...}`` where the tree has
+    an ``enc_memory``."""
     device = resolve_device(device)
-    return [_tree_map(lambda a: _tensor(a, device), layer)
-            for layer in _per_layer(cfg, tree)]
+    layers = [_tree_map(lambda a: _tensor(a, device), layer)
+              for layer in _per_layer(cfg, tree)]
+    if "enc_memory" not in tree:
+        return layers
+    return {"layers": layers,
+            "enc_memory": _tensor(tree["enc_memory"], device)}
 
 
-def cache_to_numpy(cfg: ArchConfig, cache: list) -> dict:
+def _host(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    return (t.float() if t.is_floating_point() else t).cpu().numpy()
+
+
+def cache_to_numpy(cfg: ArchConfig, cache) -> dict:
     """The reference's cache tree of numpy arrays (bfloat16 leaves as
-    float32) from the port's per-layer cache list."""
+    float32) from the port's cache (the per-layer list, or ``{"layers":
+    [...], "enc_memory": ...}``)."""
     plan = layer_plan(cfg)
-    host = [_tree_map(lambda t: t.detach().float().cpu().numpy()
-                      if t.is_floating_point() else t.detach().cpu().numpy(),
-                      layer) for layer in cache]
+    host = [_tree_map(_host, layer) for layer in layers_of(cache)]
     body_end = plan.prefix + plan.reps * plan.period
     tree = {"prefix": host[:plan.prefix], "suffix": host[body_end:]}
     if plan.reps:                   # the reference has no body otherwise
         tree["body"] = {f"pos{j}": _stack(host[plan.prefix + j:body_end:
                                                plan.period])
                         for j in range(plan.period)}
+    if isinstance(cache, dict):
+        tree["enc_memory"] = _host(cache["enc_memory"])
     return tree
 
 

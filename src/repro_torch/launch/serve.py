@@ -7,7 +7,10 @@ Engine with synthetic prompts, on the card unless ``--device cpu``.
 
 Weights are random, drawn from ``--seed``: this exercises the serving
 path (per-request unpadded prefill through the kernels, one batched
-decode step per token).  The time is the ``obs.timed("serve.run")``
+decode step per token).  A vision arch is served with no image
+embeddings, as the reference's launcher serves it; an encoder arch
+(seamless-m4t-large-v2) needs frame embeddings, which the launcher does
+not make: serve it through ``Engine.run(memory=...)``.  The time is the ``obs.timed("serve.run")``
 span around ``Engine.run``, which closes only after the card has
 finished (``Span.sync`` on the device); the kernels are built before
 it.  Under a tracing session the span is recorded.
@@ -33,9 +36,15 @@ def serve(arch: str, *, full: bool = False, requests: int = 8,
           max_new: int = 16, max_batch: int = 4, max_len: int = 128,
           seed: int = 0, device=None):
     """Build the model, serve ``requests`` random prompts; returns
-    ``(results, seconds, device)``."""
-    device = resolve_device(device)
+    ``(results, seconds, device)``.  Raises ``ValueError`` for an encoder
+    arch, whose stub frontend needs memory inputs."""
     cfg = get_arch(arch) if full else get_arch(arch).reduced()
+    if cfg.encoder is not None:
+        raise ValueError(
+            f"{arch}: the stub frontend needs memory inputs (frame "
+            f"embeddings), which this launcher does not make; serve it "
+            f"through Engine.run(memory=...)")
+    device = resolve_device(device)
     params = build(cfg).init(seed, device)
     eng = Engine(cfg, params, ServeConfig(max_batch=max_batch,
                                           max_len=max_len), device=device)

@@ -2,8 +2,7 @@
 attention and DeepSeek's multi-head latent attention (MLA) with their
 serve caches, the dense MLP and the initialisers.
 
-Counterpart of ``repro/models/layers.py`` (the cross-attention kinds are
-not ported yet).  Blocks are ``nn.Module``s
+Counterpart of ``repro/models/layers.py``.  Blocks are ``nn.Module``s
 whose parameters keep the reference's names, shapes and dtype
 (``cfg.param_dtype``) and are trainable; serving runs under
 ``torch.no_grad``.  Matrices are cast to the activation dtype at use, as
@@ -11,7 +10,9 @@ there.  Attention runs training and prefill through the flash-attention
 kernels (:func:`repro_torch.kernels.ops.attention`, differentiable), and
 prefill writes the cache; decode attends the cache in plain torch, as
 the reference does outside any kernel, and updates the cache tensors in
-place.
+place.  Cross-attention (an ``Attention`` built with ``cross=True`` and
+given a memory) attends the memory through the kernel in every mode,
+decode included, as the reference does.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from ..configs.base import ArchConfig
 from ..kernels import ops
 
 __all__ = ["rms_norm", "rope", "rope_table", "apply_rope", "cast_weight",
-           "gelu", "truncated_normal", "constant", "Attention", "MLA",
+           "gelu", "silu", "truncated_normal", "constant", "Attention", "MLA",
            "MLP", "KPOS_PAD"]
 
 KPOS_PAD = 2 ** 30   # position of an empty slot of a linear cache
@@ -122,12 +123,18 @@ def _project(h, w):
 
 
 class Attention(nn.Module):
-    """GQA self-attention: ``wq`` (M, Hq, D), ``wk``/``wv`` (M, Hkv, D),
-    ``wo`` (Hq, D, M), pre-norm ``norm`` (M,)."""
+    """GQA attention: ``wq`` (M, Hq, D), ``wk``/``wv`` (M, Hkv, D),
+    ``wo`` (Hq, D, M), pre-norm ``norm`` (M,).  With ``cross=True`` it
+    also has ``gate``, a 0-d parameter initialised to zero as in the
+    reference (so a fresh cross layer adds nothing), and at least one kv
+    head."""
 
-    def __init__(self, cfg: ArchConfig, *, device=None, generator=None):
+    def __init__(self, cfg: ArchConfig, *, cross: bool = False, device=None,
+                 generator=None):
         super().__init__()
         m, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+        if cross:
+            hkv = max(1, hkv)
         dh = cfg.resolved_head_dim
         dt = cfg.param_dtype
         self.cfg = cfg
@@ -138,14 +145,20 @@ class Attention(nn.Module):
         self.wv = tn((m, hkv, dh))
         self.wo = tn((hq, dh, m), fan_in_dims=(0, 1))
         self.norm = constant((m,), 1.0, dt, device)
+        if cross:
+            self.gate = constant((), 0.0, dt, device)
 
     def forward(self, x, *, positions, mode: str, cache=None, window=None,
-                cache_slots=None, rope_tab=None):
+                cache_slots=None, rope_tab=None, memory=None):
         """mode 'train' (positions (S,); causal, the config's window, no
         cache), 'prefill' (positions (S,); returns the cache) or 'decode'
         (S = 1, positions (B, 1); cache updated in place); ``rope_tab``
-        the positions' :func:`rope_table` where the caller has it.
-        Returns ``(y (B, S, M), cache)``, the cache None in training."""
+        the positions' :func:`rope_table` where the caller has it.  With
+        a ``memory`` (B, T, M), the layer cross-attends it instead (see
+        :meth:`_cross`).  Returns ``(y (B, S, M), cache)``, the cache
+        None in training."""
+        if memory is not None:
+            return self._cross(x, mode, cache, memory)
         cfg = self.cfg
         b, s, _ = x.shape
         hq, dh = self.wq.shape[1], self.wq.shape[2]
@@ -168,9 +181,46 @@ class Attention(nn.Module):
         else:
             raise ValueError(f"mode {mode!r}: 'train', 'prefill' or "
                              f"'decode'")
-        y = out.transpose(1, 2).reshape(b, s, hq * dh) \
+        return self._out(out), new_cache
+
+    def _out(self, out):
+        """``einsum('bhsd,hdm->bsm', out, wo)``."""
+        b, hq, s, dh = out.shape
+        return out.transpose(1, 2).reshape(b, s, hq * dh) \
             @ cast_weight(self, "wo", out.dtype).reshape(hq * dh, -1)
-        return y, new_cache
+
+    def _cross(self, x, mode, cache, memory):
+        """Gated cross-attention to ``memory`` (the reference's
+        ``apply_attention`` with a memory): only x is normed, no rope, no
+        mask.  K and V are projected from the memory as given in
+        training and prefill, and in decode where the cache holds no
+        ``k``; otherwise they are the cache's.  Every mode attends through
+        the kernel (``causal=False``; Sq = 1 in decode).  The cache is
+        ``{"k", "v"}`` at the memory's length; y is scaled by
+        tanh(gate)."""
+        if mode not in ("train", "prefill", "decode"):
+            raise ValueError(f"mode {mode!r}: 'train', 'prefill' or "
+                             f"'decode'")
+        h = rms_norm(x, self.norm, self.cfg.norm_eps)
+        q = _project(h, cast_weight(self, "wq", h.dtype))
+        if mode == "decode" and cache is not None \
+                and cache.get("k") is not None:
+            k, v = cache["k"], cache["v"]
+        else:
+            hm = memory.to(h.dtype)
+            k = _project(hm, cast_weight(self, "wk", h.dtype)).contiguous()
+            v = _project(hm, cast_weight(self, "wv", h.dtype)).contiguous()
+        y = self._out(ops.attention(q, k, v, causal=False))
+        y = y * torch.tanh(self.gate).to(y.dtype)
+        return y, ({"k": k, "v": v} if mode != "train" else None)
+
+    def encode(self, x):
+        """Bidirectional self-attention of the encoder (the reference's
+        ``_run_encoder`` body): normed x, no rope, no mask, no cache."""
+        h = rms_norm(x, self.norm, self.cfg.norm_eps)
+        q, k, v = (_project(h, cast_weight(self, name, h.dtype))
+                   for name in ("wq", "wk", "wv"))
+        return self._out(ops.attention(q, k, v, causal=False))
 
     @staticmethod
     def _prefill_cache(k, v, s, window, cache_slots):
@@ -319,15 +369,47 @@ def gelu(x):
     step rounded to x's dtype and the constants too.  In bf16 that gives
     other bits than ``F.gelu``, which rounds once, in some 45 % of the
     entries (one bf16 step each), and the difference grows through the
-    layers."""
-    c = x.new_tensor(float(np.sqrt(2.0 / np.pi)))
+    layers.  The constants are Python floats already rounded to x's
+    dtype: a scalar tensor on the card would cost a copy from the host
+    and a wait at every call."""
+    c = _rounded(float(np.sqrt(2.0 / np.pi)), x.dtype)
     cube = x * x
     cube = cube * x
-    inner = c * (x + x.new_tensor(0.044715) * cube)
-    return x * (x.new_tensor(0.5) * (1.0 + torch.tanh(inner)))
+    inner = c * (x + _rounded(0.044715, x.dtype) * cube)
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
 
 
-_ACTS = {"silu_glu": F.silu, "gelu_glu": gelu, "gelu": gelu}
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+class _Silu(torch.autograd.Function):
+    """:func:`silu`'s steps forward, ``F.silu``'s backward (one kernel
+    on x) in place of autograd through the five steps."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x * torch.reciprocal(1.0 + torch.exp(-x))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return torch.ops.aten.silu_backward(grad, x)
+
+
+def silu(x):
+    """SiLU as the reference evaluates it (``jax.nn.silu``): x (1 / (1 +
+    exp(-x))), every step rounded to x's dtype.  In bf16 ``F.silu``, which
+    rounds once, gives other bits in some 39 % of the entries, and over
+    ten bf16-weight layers (llama-3.2-vision reduced) the logits drift
+    0.04 from the reference's.  Its gradient is ``F.silu``'s."""
+    return _Silu.apply(x)
+
+
+_ACTS = {"silu_glu": silu, "gelu_glu": gelu, "gelu": gelu}
 
 
 class MLP(nn.Module):

@@ -1,13 +1,15 @@
 """Public model API of the port: ``build(cfg)`` -> ModelBundle with init,
 loss, prefill, decode_step and concat_caches, and ``loss_fn``.
 
-Counterpart of ``repro/models/model.py`` for the decoder-only families
-(no memory inputs: the encoder and vision families are not ported; an
-MTP config is built and served, but not trained).  ``params`` is the
-:class:`~repro_torch.models.transformer.Model` (an ``nn.Module``).  The
-batch is axis 0 of every cache leaf, so ``concat_caches`` concatenates
-there (the reference needs ``cache_logical_axes`` to find it under its
-stacked layer axis).
+Counterpart of ``repro/models/model.py`` for all ten configs, the
+memory-input families included: an encoder-decoder config (seamless)
+takes frame embeddings and a vision config (llama-3.2-vision) image
+embeddings as ``memory``.  An MTP config is built and served, but not
+trained.  ``params`` is the :class:`~repro_torch.models.transformer.
+Model` (an ``nn.Module``).  The batch is axis 0 of every cache leaf
+(the cross layers' ``k``, ``v`` and ``enc_memory`` too), so
+``concat_caches`` concatenates there (the reference needs
+``cache_logical_axes`` to find it under its stacked layer axis).
 """
 
 from __future__ import annotations
@@ -20,18 +22,7 @@ from .._device import resolve_device
 from ..configs.base import ArchConfig
 from .transformer import Model, forward
 
-__all__ = ["ModelBundle", "build", "loss_fn", "unsupported"]
-
-
-def unsupported(cfg: ArchConfig) -> list[str]:
-    """What of ``cfg`` the port cannot run yet (empty when it can)."""
-    missing = [name for name, on in (
-        ("encoder", cfg.encoder is not None),
-        ("vision", cfg.vision is not None)) if on]
-    missing += sorted(set(cfg.pattern) - {"attn", "ssd", "rglru"})  # xattn
-    if "ssd" in cfg.pattern and cfg.ssm is None:
-        missing.append("ssd without an SSMConfig")
-    return missing
+__all__ = ["ModelBundle", "build", "loss_fn"]
 
 
 def loss_fn(cfg: ArchConfig, params: Model, batch) -> tuple:
@@ -41,14 +32,16 @@ def loss_fn(cfg: ArchConfig, params: Model, batch) -> tuple:
     masked, and ``ce = mean over the mask of (logsumexp(logits) -
     logits[target])`` in float32.  A gather takes the place of the
     reference's one-hot contraction, which it equals (that form exists to
-    keep vocab-sharded logits sharded).  An MTP config raises: its loss
-    is not ported."""
+    keep vocab-sharded logits sharded).  ``batch["memory"]`` (B, T, M),
+    where the config takes one, goes to the forward as its memory
+    inputs.  An MTP config raises: its loss is not ported."""
     if cfg.mtp:
         raise NotImplementedError(
             f"{cfg.name}: the MTP loss is not ported; training the MoE and "
-            f"MTP families is ROADMAP queue 1 item 2")
+            f"MTP families is ROADMAP queue 1 item 1")
     tokens = batch["tokens"]
-    out = forward(params, tokens, mode="train")
+    out = forward(params, tokens, mode="train",
+                  memory_inputs=batch.get("memory"))
     logits = out["logits"]
     targets = torch.roll(tokens, -1, dims=1).long()
     mask = torch.ones(tokens.shape, dtype=torch.float32,
@@ -76,9 +69,13 @@ class ModelBundle:
         return loss_fn(self.cfg, params, batch)
 
     @torch.no_grad()
-    def prefill(self, params: Model, tokens, *, cache_slots=None):
-        """tokens (B, S) -> (logits (B, S, V) float32, cache)."""
-        out = forward(params, tokens, mode="prefill", cache_slots=cache_slots)
+    def prefill(self, params: Model, tokens, *, memory=None,
+                cache_slots=None):
+        """tokens (B, S), ``memory`` (B, T, M) frame or image embeddings
+        where the config takes them -> (logits (B, S, V) float32,
+        cache)."""
+        out = forward(params, tokens, mode="prefill", cache_slots=cache_slots,
+                      memory_inputs=memory)
         return out["logits"], out["cache"]
 
     @torch.no_grad()
@@ -91,7 +88,9 @@ class ModelBundle:
 
     @staticmethod
     def concat_caches(caches: list):
-        """Merge per-request caches along the batch axis (axis 0)."""
+        """Merge per-request caches along the batch axis (axis 0): every
+        leaf, the cross layers' ``k`` / ``v`` and ``enc_memory``
+        included."""
         if len(caches) == 1:
             return caches[0]
 
@@ -111,9 +110,7 @@ class ModelBundle:
 
 
 def build(cfg: ArchConfig) -> ModelBundle:
-    missing = unsupported(cfg)
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (the port "
-            f"serves the decoder-only families)")
+    """The bundle of ``cfg``; an SSD pattern needs ``cfg.ssm``."""
+    if "ssd" in cfg.pattern and cfg.ssm is None:
+        raise ValueError(f"{cfg.name}: an 'ssd' layer needs an SSMConfig")
     return ModelBundle(cfg)

@@ -1,19 +1,24 @@
-"""The block-based decoder of the port: a list of blocks, each a mixer
-(GQA attention, MLA, the Mamba-2 SSD or the RG-LRU) with an optional dense
-MLP or MoE, between the embedding and the (tied) LM head.
+"""The block-based model of the port: a list of blocks, each a mixer
+(GQA attention, MLA, the Mamba-2 SSD, the RG-LRU or gated
+cross-attention) with an optional dense MLP or MoE, between the
+embedding and the (tied) LM head; for an encoder-decoder config, the
+bidirectional encoder over stub frame embeddings.
 
 Counterpart of ``repro/models/transformer.py`` for the modes ``train``,
-``prefill`` and ``decode`` of the decoder-only families.  The reference
-scans a stacked layer axis; here the blocks are an ``nn.ModuleList`` and
-the cache a list with one ``{"mixer": ...}`` entry per layer.  With
-``cfg.remat`` each block trains under activation checkpointing
-(``torch.utils.checkpoint``, non-reentrant), the reference's
-``jax.checkpoint`` of its scanned body: only block inputs are kept, and
-the backward recomputes each block's forward.  ``layer_plan`` is kept so
-that the reference's (prefix | scanned body | suffix) parameter trees
-can be mapped onto the list (see :mod:`repro_torch.convert`).  A config
-with ``mtp`` carries the multi-token-prediction head's weights
-(``Model.mtp``); serving never runs that head, as in the reference.
+``prefill`` and ``decode``.  The reference scans a stacked layer axis;
+here the blocks are an ``nn.ModuleList`` and the cache a list with one
+``{"mixer": ...}`` entry per layer (``{"mixer", "cross"}`` for a decoder
+layer with cross-attention), wrapped as ``{"layers": [...],
+"enc_memory": ...}`` wherever a memory was attended.  With ``cfg.remat``
+each block (and each encoder layer) trains under activation
+checkpointing (``torch.utils.checkpoint``, non-reentrant), the
+reference's ``jax.checkpoint`` of its scanned body: only block inputs
+are kept, and the backward recomputes each block's forward.
+``layer_plan`` is kept so that the reference's (prefix | scanned body |
+suffix) parameter trees can be mapped onto the list (see
+:mod:`repro_torch.convert`).  A config with ``mtp`` carries the
+multi-token-prediction head's weights (``Model.mtp``); serving never
+runs that head, as in the reference.
 """
 
 from __future__ import annotations
@@ -32,8 +37,8 @@ from .moe import MoE
 from .rglru import RGLRUBlock
 from .ssm import SSDBlock
 
-__all__ = ["LayerPlan", "layer_plan", "Block", "MTPHead", "Model",
-           "forward"]
+__all__ = ["LayerPlan", "layer_plan", "Block", "Encoder", "MTPHead",
+           "Model", "forward", "layers_of"]
 
 
 @dataclass(frozen=True)
@@ -68,9 +73,11 @@ def layer_plan(cfg: ArchConfig) -> LayerPlan:
 
 class Block(nn.Module):
     """One layer: ``mixer`` (Attention, MLA where the config has one,
-    SSDBlock or RGLRUBlock) and, for every kind but ``ssd`` where the
-    config has a feed-forward width, ``mlp`` (a MoE where ``use_moe``, else
-    a dense MLP of ``cfg.d_ff``); both residual."""
+    SSDBlock or RGLRUBlock; a cross Attention for ``xattn``), for
+    ``dec_xattn`` a self-attention ``mixer`` followed by a cross
+    Attention ``cross``, and, for every kind but ``ssd`` where the config
+    has a feed-forward width, ``mlp`` (a MoE where ``use_moe``, else a
+    dense MLP of ``cfg.d_ff``); all residual."""
 
     def __init__(self, cfg: ArchConfig, kind: str, use_moe: bool = False, *,
                  device=None, generator=None):
@@ -80,24 +87,37 @@ class Block(nn.Module):
         if kind == "attn":
             self.mixer = (MLA(cfg, **mk) if cfg.mla is not None
                           else Attention(cfg, **mk))
+        elif kind == "xattn":
+            self.mixer = Attention(cfg, cross=True, **mk)
+        elif kind == "dec_xattn":
+            self.mixer = Attention(cfg, **mk)
+            self.cross = Attention(cfg, cross=True, **mk)
         elif kind == "ssd":
             self.mixer = SSDBlock(cfg, **mk)
         elif kind == "rglru":
             self.mixer = RGLRUBlock(cfg, **mk)
         else:
-            raise NotImplementedError(f"block kind {kind!r} is not ported")
+            raise ValueError(f"block kind {kind!r}")
         d_ff = cfg.d_ff + (cfg.moe.d_ff_expert if cfg.moe else 0)
         self.mlp = None
         if kind != "ssd" and d_ff > 0:
             self.mlp = MoE(cfg, **mk) if use_moe else MLP(cfg, **mk)
 
     def forward(self, h, *, mode, positions, cache, cache_slots,
-                rope_tab=None):
-        """Returns ``(h, {"mixer": cache}, aux)``, aux the MoE's weighted
+                rope_tab=None, memory=None):
+        """Returns ``(h, cache, aux)``: the cache ``{"mixer": ...}``
+        (plus ``"cross"`` for ``dec_xattn``), aux the MoE's weighted
         load-balancing loss in training, else None (and None without a
-        MoE): serving reads no aux, so it computes none."""
-        c_in = (cache or {}).get("mixer")
-        if isinstance(self.mixer, Attention):
+        MoE): serving reads no aux, so it computes none.  An ``xattn``
+        layer given no memory runs as causal self-attention, with no
+        window and a cache of the prompt's length, as the reference's
+        does."""
+        cache = cache or {}
+        c_in = cache.get("mixer")
+        if self.kind == "xattn":
+            out, c = self.mixer(h, positions=positions, mode=mode, cache=c_in,
+                                rope_tab=rope_tab, memory=memory)
+        elif isinstance(self.mixer, Attention):
             out, c = self.mixer(h, positions=positions, mode=mode, cache=c_in,
                                 window=self.cfg.window,
                                 cache_slots=cache_slots, rope_tab=rope_tab)
@@ -107,13 +127,56 @@ class Block(nn.Module):
         else:
             out, c = self.mixer(h, mode=mode, cache=c_in)
         h = h + out
+        new_cache = {"mixer": c}
+        if self.kind == "dec_xattn":
+            out, new_cache["cross"] = self.cross(
+                h, positions=positions, mode=mode, cache=cache.get("cross"),
+                rope_tab=rope_tab, memory=memory)
+            h = h + out
         aux = None
         if isinstance(self.mlp, MoE):
             out, aux = self.mlp(h, with_aux=mode == "train")
             h = h + out
         elif self.mlp is not None:
             h = h + self.mlp(h)
-        return h, {"mixer": c}, aux
+        return h, new_cache, aux
+
+
+def _encoder_layer(block: Block, h):
+    """One encoder layer: bidirectional attention, then the dense MLP."""
+    h = h + block.mixer.encode(h)
+    return h + block.mlp(h)
+
+
+class Encoder(nn.Module):
+    """The bidirectional encoder of an encoder-decoder config (the
+    reference's ``init_model`` ``encoder`` tree and ``_run_encoder``):
+    ``adapter`` (M, M) float32, ``cfg.encoder.n_layers`` blocks of
+    attention (its weights' layout, without rope or mask) and the dense
+    MLP, and ``final_norm`` (M,) float32."""
+
+    def __init__(self, cfg: ArchConfig, *, device=None, generator=None):
+        super().__init__()
+        enc_cfg = cfg.replace(pattern=("attn",), moe=None, mla=None,
+                              encoder=None, n_layers=cfg.encoder.n_layers)
+        self.cfg = enc_cfg
+        self.blocks = nn.ModuleList(
+            Block(enc_cfg, "attn", device=device, generator=generator)
+            for _ in range(enc_cfg.n_layers))
+        m = cfg.d_model
+        self.adapter = truncated_normal((m, m), torch.float32, device,
+                                        generator)
+        self.final_norm = nn.Parameter(
+            torch.ones((m,), dtype=torch.float32, device=device))
+
+    def forward(self, frames, *, remat: bool = False):
+        """frames (B, Sf, M) bf16 -> the memory (B, Sf, M) bf16; each
+        layer under activation checkpointing where ``remat``."""
+        h = frames @ cast_weight(self, "adapter", frames.dtype)
+        for block in self.blocks:
+            h = (checkpoint(_encoder_layer, block, h, use_reentrant=False)
+                 if remat else _encoder_layer(block, h))
+        return rms_norm(h, self.final_norm, self.cfg.norm_eps)
 
 
 class MTPHead(nn.Module):
@@ -137,8 +200,9 @@ class MTPHead(nn.Module):
 class Model(nn.Module):
     """Embedding (``embed`` (V, M), ``lm_head`` (M, V) unless tied), the
     blocks (the MoE flags of :func:`layer_plan`: a leading ``first_dense``
-    run of dense MLPs), ``final_norm`` (float32, as the reference's) and,
-    for an ``mtp`` config, ``mtp`` (:class:`MTPHead`)."""
+    run of dense MLPs), ``final_norm`` (float32, as the reference's),
+    for an encoder config ``encoder`` (:class:`Encoder`) and, for an
+    ``mtp`` config, ``mtp`` (:class:`MTPHead`)."""
 
     def __init__(self, cfg: ArchConfig, *, device=None, generator=None):
         super().__init__()
@@ -155,6 +219,8 @@ class Model(nn.Module):
             for kind, use_moe in zip(plan.kinds, plan.has_moe))
         self.final_norm = nn.Parameter(
             torch.ones((cfg.d_model,), dtype=torch.float32, device=device))
+        self.encoder = (Encoder(cfg, device=device, generator=generator)
+                        if cfg.encoder is not None else None)
         self.mtp = (MTPHead(cfg, device=device, generator=generator)
                     if cfg.mtp else None)
 
@@ -163,28 +229,59 @@ class Model(nn.Module):
         return self.embed.device
 
 
-def _train_block(block: Block, h, positions, rope_tab):
+def _train_block(block: Block, h, positions, rope_tab, memory):
     h, _, aux = block(h, mode="train", positions=positions, cache=None,
-                      cache_slots=None, rope_tab=rope_tab)
+                      cache_slots=None, rope_tab=rope_tab, memory=memory)
     return h, aux
 
 
+def layers_of(cache) -> list:
+    """The per-layer entries of a cache (a list, or ``{"layers": [...],
+    "enc_memory": ...}``)."""
+    return cache["layers"] if isinstance(cache, dict) else cache
+
+
+def _memory(model: Model, mode, cache, memory_inputs):
+    """What the cross layers attend: the encoder's output over the frames
+    (an encoder config), the image embeddings in bf16 or None (a vision
+    config), or None; in decode the cache's ``enc_memory`` where it has
+    one."""
+    cfg = model.cfg
+    if cfg.encoder is None and cfg.vision is None:
+        return None
+    if mode == "decode" and isinstance(cache, dict):
+        return cache["enc_memory"]
+    if memory_inputs is not None:
+        memory_inputs = memory_inputs.to(torch.bfloat16)
+    if cfg.encoder is None:
+        return memory_inputs
+    if memory_inputs is None:
+        raise ValueError(
+            f"{cfg.name}: the encoder's stub frontend needs memory inputs "
+            f"(B, frames, d_model): pass memory_inputs")
+    return model.encoder(memory_inputs, remat=cfg.remat and mode == "train")
+
+
 def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
-            cache=None, cache_slots=None):
+            cache=None, cache_slots=None, memory_inputs=None):
     """tokens: (B, S) integer tensor on the model's device.  mode
     'train', 'prefill' or 'decode' (then ``positions`` (B, 1) and the
-    cache list are required).  Returns ``{"logits": (B, S, V) float32,
-    "aux": the MoE layers' summed load-balancing loss in training (0
-    without MoE, and outside training)}``
-    plus ``"cache": [per-layer {"mixer": ...}]`` outside training.
-    Training a model with SSD blocks raises ``NotImplementedError``: the
-    SSD has no backward kernel."""
+    cache are required).  ``memory_inputs``: the stub frontend's frame
+    (encoder configs, required outside decode) or image (vision configs,
+    optional) embeddings (B, T, M), cast to bf16; decode reads the memory
+    from the cache.  Returns ``{"logits": (B, S, V) float32, "aux": the
+    MoE layers' summed load-balancing loss in training (0 without MoE,
+    and outside training)}`` plus ``"cache"`` outside training: the list
+    of per-layer caches, or ``{"layers": [...], "enc_memory": (B, T, M)}``
+    where a memory was attended.  Training a model with SSD blocks raises
+    ``NotImplementedError``: the SSD has no backward kernel."""
     cfg = model.cfg
     _, s = tokens.shape
     if mode == "train" and any(b.kind == "ssd" for b in model.blocks):
         raise NotImplementedError(
             f"{cfg.name}: training through the SSD has no backward kernel "
             f"(the reference has none either); see ROADMAP queue 1")
+    memory = _memory(model, mode, cache, memory_inputs)
     h = F.embedding(tokens, model.embed).to(torch.bfloat16)
     if positions is None:
         positions = torch.arange(s, device=tokens.device)
@@ -195,18 +292,19 @@ def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
     tab = (rope_table(positions, rope_d, cfg.rope_theta, tokens.device)
            if "attn" in cfg.pattern else None)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    layers_in = layers_of(cache) if cache is not None else None
     new_cache = []
     for i, block in enumerate(model.blocks):
         if mode == "train":
             h, a = (checkpoint(_train_block, block, h, positions, tab,
-                               use_reentrant=False) if cfg.remat
-                    else _train_block(block, h, positions, tab))
+                               memory, use_reentrant=False) if cfg.remat
+                    else _train_block(block, h, positions, tab, memory))
             if a is not None:
                 aux = aux + a
             continue
         h, c, _ = block(h, mode=mode, positions=positions,
-                        cache=cache[i] if cache is not None else None,
-                        cache_slots=cache_slots, rope_tab=tab)
+                        cache=layers_in[i] if layers_in is not None else None,
+                        cache_slots=cache_slots, rope_tab=tab, memory=memory)
         new_cache.append(c)
     hf = rms_norm(h, model.final_norm, cfg.norm_eps)
     head = (cast_weight(model, "embed", hf.dtype).T if cfg.tie_embeddings
@@ -214,5 +312,6 @@ def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
     logits = (hf @ head).float()
     out = {"logits": logits, "aux": aux}
     if mode != "train":
-        out["cache"] = new_cache
+        out["cache"] = (new_cache if memory is None else
+                        {"layers": new_cache, "enc_memory": memory})
     return out

@@ -81,9 +81,14 @@ class Engine:
         self.queue.append(Request(rid, np.asarray(prompt, np.int32), max_new))
         return rid
 
-    def run(self) -> dict[int, list[int]]:
-        """Serve everything in the queue; returns {rid: generated tokens}."""
+    def run(self, memory=None) -> dict[int, list[int]]:
+        """Serve everything in the queue; returns {rid: generated tokens}.
+        ``memory`` (1, T, M), a tensor or an array: the frame or image
+        embeddings that every request's prefill takes, as in the
+        reference (an encoder config needs them)."""
         bundle, dev = self.bundle, self.device
+        if memory is not None:
+            memory = torch.as_tensor(memory, device=dev)
         results: dict[int, list[int]] = {}
         while self.queue:
             active = [self.queue.pop(0) for _ in
@@ -94,6 +99,7 @@ class Engine:
                                          device=dev)
                 marks.append(self._mark())
                 logits, c = bundle.prefill(self.params, tokens,
+                                           memory=memory,
                                            cache_slots=self.scfg.max_len)
                 caches.append(c)
                 first.append(greedy_sample(logits))

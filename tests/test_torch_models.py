@@ -131,14 +131,40 @@ def test_configs_are_the_references():
 
 
 def test_build_refuses_what_is_not_ported():
-    for name, missing in (("seamless-m4t-large-v2", "encoder"),
-                          ("llama-3.2-vision-90b", "xattn")):
-        with pytest.raises(NotImplementedError, match=missing):
-            build(tcfg.get_arch(name))
-    for name in ("smollm-135m", "mamba2-130m", "h2o-danube-3-4b",
-                 "codeqwen1.5-7b", "granite-20b", "granite-moe-3b-a800m",
-                 "deepseek-v3-671b", "recurrentgemma-9b"):
-        build(tcfg.get_arch(name))
+    """Every config of the reference builds, the memory-input families
+    (seamless's encoder, llama-3.2-vision's cross layers) included; an
+    SSD layer without its SSMConfig is refused."""
+    assert len(tcfg.ARCHS) == 10
+    for name in tcfg.ARCHS:
+        for cfg in (tcfg.get_arch(name), tcfg.get_arch(name).reduced()):
+            assert build(cfg).cfg is cfg
+    with pytest.raises(ValueError, match="SSMConfig"):
+        build(tcfg.get_arch("mamba2-130m").replace(ssm=None))
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_activation_rounds_as_the_reference(act):
+    """The MLP's SiLU and GELU equal ``jax.nn.silu`` / ``jax.nn.gelu`` bit
+    for bit on every bf16 input whose steps stay clear of the subnormals
+    (XLA flushes those to zero, torch keeps them), and SiLU's gradient is
+    ``F.silu``'s."""
+    import jax
+    import jax.numpy as jnp
+    from repro_torch.models import layers
+    x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16)
+    x = x[(x.float().abs() > 1e-30) & (x.float().abs() < 80)]
+    mine = getattr(layers, act)(x).float().numpy()
+    want = getattr(jax.nn, act)(
+        jnp.asarray(x.float().numpy()).astype(jnp.bfloat16))
+    np.testing.assert_array_equal(mine, np.asarray(want, np.float32))
+    if act == "silu":
+        xg = x[:4096].clone().requires_grad_(True)
+        g = torch.randn(xg.shape, generator=torch.Generator().manual_seed(0)
+                        ).bfloat16()
+        (got,) = torch.autograd.grad(layers.silu(xg), xg, g)
+        (ref,) = torch.autograd.grad(torch.nn.functional.silu(xg), xg, g)
+        assert torch.equal(got, ref)
 
 
 def test_params_from_numpy_keeps_every_weight():
