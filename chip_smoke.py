@@ -6,8 +6,9 @@ mamba2-130m, the paper's topology families and fault model, its cost
 model and analytic tools (the orbit shortcut, Tables 2-6, the
 adversarial table), the fabric layer (placement, the planner, a placed
 job's simulation), observability, the serving path of the MoE, MLA
-and RG-LRU families (granite-moe-3b-a800m at full width), and that of
-the memory-input families (seamless-m4t-large-v2 at full width).
+and RG-LRU families (granite-moe-3b-a800m at full width), that of
+the memory-input families (seamless-m4t-large-v2 at full width), and
+the training of both (granite and seamless at full width).
 
     python3 chip_smoke.py
 
@@ -308,6 +309,38 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     and 9) and 16 image tokens, gates at 1.0, served the same way: #5
     exactly 204 times (10 a request, 2 a decode step).  #5's launches in
     the two ``Engine.run`` calls go under its ``phase_launches``.
+
+25. Training of the MoE, MLA + MTP, RG-LRU and memory-input families.
+    A: #6 and #7 in bf16 against their plain versions at the new training
+    shapes, to phase 14's limits, each timed by CUDA events and by device
+    time beside its plain version, SDPA's backward and its bound:
+    seamless-m4t-large-v2's cross layer with a ragged memory (16 / 16
+    heads of 64, Sq 1500, Skv 375), its encoder (384 x 384), one
+    full-width llama-3.2-vision-90b cross layer (64 / 8 heads of 128,
+    1536 x 1600), all non-causal, and deepseek-v3 reduced's MLA (q/k 32,
+    v 16 zero-padded to 32, causal), whose backward through
+    ``ops.attention`` must give the kernels' dq, dk and dv cut to 16 bit
+    for bit.  B: granite-moe-3b-a800m at full width (3.37B float32
+    parameters, a 54 GB train state) through ``launch.train.train``: a
+    donating step, B=2, S=2048, 6 steps of AdamW with the cosine
+    schedule, #5 / #6 / #7 exactly 64 / 32 / 32 times a step, finite
+    losses (the first within 0.5 of ln 49155, the last below it), peak
+    memory under 80 GB; ms a step, tokens/s, model FLOP/s (6 N_active
+    D), the idle share and leading device operations of one profiled
+    step.  At 2 layers: a step on the card against the CPU (B=1, S=256;
+    loss within 5e-3, grad norm within 1e-2) and a donated step against
+    a non-donated one, bit for bit.  C: seamless-m4t-large-v2 at full
+    width through the ``Trainer`` with the pipeline's frame embeddings
+    (B=2, S=1536, 384 frames, gates at 1.0), 6 steps, #5 / #6 / #7
+    exactly 144 / 72 / 72 a step, the loss rule, a second memory draw
+    moving the first step's loss by more than 1e-3, the same records as
+    B.  D: deepseek-v3 (MLA, MoE, MTP; bf16 weights and moments),
+    recurrentgemma (window 64) and llama-3.2-vision (10 layers, 16 image
+    tokens, gates at 1.0, through the ``Trainer``) at ``reduced()``, B=8,
+    S=256, 4 steps each with exact launches and the loss rule; granite
+    reduced crashed at step 6 and resumed, its last loss within rtol
+    1e-4 of an uncrashed run's.  #5-#7's launches in B-D go under their
+    ``phase_launches``.
 
 Output: the card's name and power limit, then a ``kernels`` JSON line,
 then ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -4338,6 +4371,556 @@ def check_memory(dev, bw):
     return {"flash_attention_fwd": n_enc + n_vis}
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: training of the MoE, MLA + MTP, RG-LRU and memory-input families
+# ---------------------------------------------------------------------------
+
+# granite-moe-3b-a800m at full width: 4096 tokens a step
+MOE_TRAIN = dict(batch=2, seq=2048, steps=6, lr=1e-3)
+# seamless-m4t-large-v2 at full width: 3072 tokens and 768 frames a step
+ENC_TRAIN = dict(batch=2, seq=1536, steps=6, lr=1e-3)
+# the reduced families (and granite reduced's crash and resume): 2048
+# tokens a step (at 512, one batch's loss stands some 0.1 from the next,
+# as much as four steps learn: vision's went 6.599 -> 6.616)
+SMALL_TRAIN = dict(batch=8, seq=256, steps=4, lr=1e-3, crash_steps=8,
+                   ckpt_every=4, crash_at=6)
+TRAIN25_DIR = ROOT / "build" / "train_smoke25"
+PEAK_LIMIT = 80e9          # bytes: the 80 GB card's capacity
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv")
+
+
+def _train_launches(cfg) -> dict:
+    """#5, #6 and #7 launches of one train step, read from the model's
+    layer plan: one forward per attention (each self or cross layer, each
+    encoder layer) and, under remat, its recompute in the backward, one
+    dq and one dk/dv each; the MTP head's block (not under remat) adds
+    one of each."""
+    from repro_torch.models import layer_plan
+    kinds = layer_plan(cfg).kinds
+    n = (sum(k in ("attn", "xattn") for k in kinds)
+         + 2 * sum(k == "dec_xattn" for k in kinds)
+         + (cfg.encoder.n_layers if cfg.encoder is not None else 0))
+    fwd, bwd = n * (2 if cfg.remat else 1), n
+    if cfg.mtp:
+        fwd, bwd = fwd + 1, bwd + 1
+    return {"flash_attention_fwd": fwd, "flash_attention_dq": bwd,
+            "flash_attention_dkv": bwd}
+
+
+def _counted(total: dict, label: str, per_step: dict, steps: int, fn):
+    """Runs ``fn`` with #5-#7's counts at 0, requires exactly ``steps``
+    times ``per_step`` launches of each, adds them to ``total``; returns
+    ``fn``'s result."""
+    from repro_torch.kernels import flash_attention as FA
+    FA.reset_launches()
+    out = fn()
+    got = {k: FA.LAUNCHES[k] for k in FLASH_KERNELS}
+    want = {k: per_step[k] * steps for k in FLASH_KERNELS}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want} "
+                             f"({per_step} a step, {steps} steps)")
+    for k in FLASH_KERNELS:
+        total[k] = total.get(k, 0) + got[k]
+    log(f"{label}: #5 / #6 / #7 launched {got['flash_attention_fwd']} / "
+        f"{got['flash_attention_dq']} / {got['flash_attention_dkv']} times "
+        f"({per_step['flash_attention_fwd']} / "
+        f"{per_step['flash_attention_dq']} / "
+        f"{per_step['flash_attention_dkv']} a step, as the layer plan "
+        f"says)")
+    return out
+
+
+def _loss_rule(label, losses, vocab):
+    """Finite losses, the first within 0.5 of ln V, the last below the
+    first."""
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: non-finite loss in {losses}")
+    if abs(losses[0] - np.log(vocab)) > 0.5:
+        raise AssertionError(f"{label}: first loss {losses[0]:.4f} is not "
+                             f"within 0.5 of ln {vocab} = "
+                             f"{np.log(vocab):.4f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: loss did not fall: {losses}")
+
+
+def _gates_to_one(params: dict) -> int:
+    """Sets every cross layer's gate to 1.0 (zero, as initialised, shuts
+    the memory out); returns how many."""
+    gates = [t for name, t in params.items() if name.endswith(".gate")]
+    with torch.no_grad():
+        for t in gates:
+            t.fill_(1.0)
+    return len(gates)
+
+
+def _hold_train_attention(dev, bw):
+    """Phase 25 A: #6 and #7 in bf16 at the new training shapes against
+    their plain versions, to phase 14's limits (dq within 1e-4 + 2^-7
+    |dq| of the plain float32 dq in bf16 and equal to it in SAME_SHARE of
+    the entries; dk and dv per q head within 2e-4 + 2e-5 |d|): seamless's
+    cross layer with a ragged memory (Sq 1500, Skv 375: edge tiles on
+    both axes), its encoder (384 x 384), one full-width llama-3.2-vision
+    cross layer (64 / 8 heads of 128, Sq 1536, Skv 1600), all
+    non-causal, and deepseek reduced's MLA (q/k 32, causal) with its
+    value head of 16 zero-padded to 32 as ``ops.attention`` pads it;
+    there the backward also runs through ``ops.attention`` (autograd
+    through ``F.pad``) and must give the kernels' dq, dk and dv cut to 16
+    to the bit.  Each kernel is timed by CUDA events and by device time
+    beside its plain version, SDPA's backward (dq, dk, dv together, on
+    the same inputs) and its bound (phase 14's rule)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops, ref
+
+    enc, vis = get_arch(ENC_ARCH), get_arch(VISION_ARCH)
+    mla_cfg = get_arch("deepseek-v3-671b").reduced()
+    mla = mla_cfg.mla
+    b = ENC_TRAIN["batch"]
+    frames = ENC_TRAIN["seq"] // enc.encoder.frame_ratio
+    he, hke, de = enc.n_heads, enc.n_kv_heads, enc.resolved_head_dim
+    dqk = mla.qk_nope + mla.qk_rope
+    shapes = {  # label: (b, hq, hkv, sq, skv, d, causal)
+        "seamless cross, ragged": (b, he, hke, 1500, 375, de, False),
+        "seamless encoder": (b, he, hke, frames, frames, de, False),
+        "llama-3.2-vision cross": (1, vis.n_heads, vis.n_kv_heads,
+                                   ENC_TRAIN["seq"],
+                                   vis.vision.n_image_tokens,
+                                   vis.resolved_head_dim, False),
+        "deepseek-v3 reduced MLA, v 16 padded": (
+            b, mla_cfg.n_heads, mla_cfg.n_heads, SERVE["max_len_prompt"],
+            SERVE["max_len_prompt"], dqk, True)}
+    gen = torch.Generator(device=dev).manual_seed(25)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, (b_, hq, hkv, sq, skv, d, causal) in shapes.items():
+        q, do = (torch.randn((b_, hq, sq, d), generator=gen,
+                             device=dev).bfloat16() for _ in range(2))
+        k, v = (torch.randn((b_, hkv, skv, d), generator=gen,
+                            device=dev).bfloat16() for _ in range(2))
+        narrow = label.startswith("deepseek")
+        if narrow:
+            # the zero-padded value head, and the cotangent of the padded
+            # columns, which the cut after the kernel makes zero
+            v[..., mla.v_head:] = 0
+            do[..., mla.v_head:] = 0
+        kw = dict(causal=causal, window=None, q_offset=0)
+        o, lse = FA.flash_attention(q, k, v, causal=causal)
+        dsum = (do.float() * o.float()).sum(-1, keepdim=True)
+        args = (q, k, v, do, lse, dsum)
+        dq = FA.flash_attention_dq(*args, **kw)
+        dkh, dvh = FA.flash_attention_dkv(*args, **kw)
+        torch.cuda.synchronize()
+        w_dq32 = ref.flash_attention_dq_ref(
+            *(t.float() for t in (q, k, v, do)), lse, dsum, **kw)
+        w_dk, w_dv = ref.flash_attention_dkv_ref(*args, **kw)
+        name = (f"flash_attention bwd {label} B={b_} Hq={hq} Hkv={hkv} "
+                f"Sq={sq} Skv={skv} D={d} bf16 "
+                f"{'causal' if causal else 'non-causal'}")
+        e_dq, rel = _close_or_raise(name + " dq", dq, w_dq32.to(q.dtype),
+                                    1e-4, 2.0 ** -7)
+        e_kv = max(_close_or_raise(name + " dk", dkh, w_dk, 2e-4, 2e-5)[0],
+                   _close_or_raise(name + " dv", dvh, w_dv, 2e-4, 2e-5)[0])
+        share = _check_same_share(name + " dq", dq, w_dq32)
+        log(f"{name}: ok (dq max abs err {e_dq:.3e}, max rel err "
+            f"{rel:.3e}, {share:.5f} of dq equal to the plain dq in bf16; "
+            f"dk, dv max abs err {e_kv:.3e})")
+        if narrow:
+            qg, kg = (t.detach().requires_grad_() for t in (q, k))
+            vg = v[..., :mla.v_head].detach().requires_grad_()
+            out = ops.attention(qg, kg, vg, causal=True, scale=dqk ** -0.5)
+            gq, gk, gv = torch.autograd.grad(
+                out, (qg, kg, vg), do[..., :mla.v_head].contiguous())
+            dk = dkh.to(k.dtype)            # Hq = Hkv: one q head a group
+            dv = dvh[..., :mla.v_head].to(v.dtype)
+            if not (torch.equal(gq, dq) and torch.equal(gk, dk)
+                    and torch.equal(gv, dv)):
+                raise AssertionError(f"{name}: ops.attention's backward "
+                                     f"through the padded v differs from "
+                                     f"the kernels'")
+            log(f"{name}: ops.attention's backward (v {mla.v_head} padded "
+                f"to {dqk}, autograd through F.pad) gives the kernels' dq, "
+                f"dk and dv cut to {mla.v_head}, bit for bit")
+        pairs = sq * (sq + 1) // 2 if causal else sq * skv
+        mm = 2.0 * d * hq * b_ * pairs
+        in_bytes = 2 * (2 * b_ * hq * sq * d + 2 * b_ * hkv * skv * d) \
+            + 8 * b_ * hq * sq
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        o_sdpa = sdpa(qs, ks, vs, is_causal=causal, enable_gqa=True)
+        lib = lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), do,
+                                          retain_graph=True)
+        reps = 10
+        lib_ms = cuda_ms(lib, reps)
+        lib_dev = device_rows(lib, reps)[2] / reps
+        pair = 0.0
+        for kname, fn, plain, split, out_bytes in (
+                ("flash_attention_dq", FA.flash_attention_dq,
+                 ref.flash_attention_dq_ref, 1, 2 * b_ * hq * sq * d),
+                ("flash_attention_dkv", FA.flash_attention_dkv,
+                 ref.flash_attention_dkv_ref, 2,
+                 2 * 4 * b_ * hq * skv * d)):
+            call = lambda fn=fn: fn(*args, **kw)
+            r = dict(ms=cuda_ms(call, reps),
+                     device_ms=device_rows(call, reps)[2] / reps,
+                     plain_ms=cuda_ms(lambda p=plain: p(*args, **kw), 3),
+                     library_ms=lib_ms, library_device_ms=lib_dev,
+                     **_bound(in_bytes + out_bytes, bw=bw,
+                              bf16_flops=2 * mm, f32_bf16_flops=split * mm))
+            pair += r["device_ms"]
+            log(f"{kname} [{label}]: {r['ms']:.4f} ms by CUDA events, "
+                f"{r['device_ms']:.4f} ms of device time, plain "
+                f"{r['plain_ms']:.4f} ms; SDPA backward "
+                f"(dq, dk, dv together) {lib_ms:.4f} / {lib_dev:.4f} ms; "
+                f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+                f"({r['tc_flops'] / 1e9:.3f} GFLOP on the tensor cores = "
+                f"{r['ops_ms']:.4f} ms; "
+                f"{(in_bytes + out_bytes) / 1e6:.2f} MB = "
+                f"{r['bytes_ms']:.4f} ms); "
+                f"{r['tc_flops'] / r['device_ms'] / 1e9:.1f} TFLOP/s of "
+                f"tensor-core work achieved")
+        log(f"flash-attention backward [{label}], #6 and #7 together: "
+            f"{pair:.4f} ms of device time against SDPA backward's "
+            f"{lib_dev:.4f} ms ({pair / lib_dev:.2f}x)")
+        del o_sdpa, lib
+
+
+def _step_profile(label, trainer, state, tokens: int, flops: float):
+    """Prints one more train step of ``trainer`` on ``state`` under the
+    profiler: the device's busy time and idle share, the leading device
+    operations, and model FLOP/s by wall and by device time."""
+    batch = trainer._device_batch(trainer.tcfg.total_steps)
+    rows, wall_ms, busy_ms = profile_device(
+        lambda: trainer.step_fn(state, batch), 1, "step", label)
+    if busy_ms > 0:
+        log(f"{label}: {tokens} tokens, model {flops / 1e12:.2f} TFLOP "
+            f"(6 N_active D) a step: {flops / wall_ms / 1e9:.1f} TFLOP/s by "
+            f"the profiled step's wall, {flops / busy_ms / 1e9:.1f} TFLOP/s "
+            f"by its device time; idle share {1.0 - busy_ms / wall_ms:.3f}; "
+            f"{sum(count for _, count, _ in rows)} device operations "
+            f"(kernels and copies)")
+
+
+def _report_run(label, trainer, seconds, tokens, flops, peak):
+    """Prints a trainer run's losses, step times, tokens/s, model FLOP/s
+    and peak memory, which must stay under PEAK_LIMIT."""
+    hist = trainer.history
+    warm = sorted(h.seconds for h in hist[1:])
+    warm_ms = warm[len(warm) // 2] * 1e3
+    log(f"{label}: {len(hist)} steps of {tokens} tokens in {seconds:.2f} s "
+        f"(the first step's set-up included); losses "
+        f"{[round(h.loss, 4) for h in hist]}; step ms "
+        f"{[round(h.seconds * 1e3, 1) for h in hist]}; warm step (median "
+        f"of steps 1-{len(hist) - 1}) {warm_ms:.1f} ms, "
+        f"{tokens / warm_ms * 1e3:.0f} tokens/s, model "
+        f"{flops / warm_ms / 1e9:.1f} TFLOP/s (6 N_active D = "
+        f"{flops / 1e12:.2f} TFLOP a step); peak memory "
+        f"{peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB), limit "
+        f"{PEAK_LIMIT / 1e9:.0f} GB")
+    if not peak < PEAK_LIMIT:
+        raise AssertionError(f"{label}: peak memory {peak / 1e9:.2f} GB")
+
+
+def _train_moe_full(dev, total: dict):
+    """Phase 25 B: granite-moe-3b-a800m at full width through the
+    launcher's ``train`` (a donating step, AdamW with the cosine
+    schedule, B=2, S=2048, 6 steps, no checkpoint), the exact launches,
+    the loss rule, peak memory under 80 GB, a profiled step; then at
+    ``n_layers=2`` a step on the card against the CPU (B=1, S=256) and a
+    donated step against a non-donated one, bit for bit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train
+    from repro_torch.models import build, count_params
+    from repro_torch.train import (TrainStepConfig, init_train_state,
+                                   make_train_step)
+
+    cfg = get_arch(MOE_ARCH)
+    bundle = build(cfg)
+    tokens = MOE_TRAIN["batch"] * MOE_TRAIN["seq"]
+    flops = bundle.flops(tokens)
+    log(f"{MOE_ARCH}: {bundle.num_active_params():,} active of "
+        f"{count_params(cfg):,} parameters (count_params)")
+    shutil.rmtree(TRAIN25_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer, state = _counted(
+        total, f"{MOE_ARCH} train", _train_launches(cfg),
+        MOE_TRAIN["steps"], lambda: train(
+            MOE_ARCH, full=True, steps=MOE_TRAIN["steps"],
+            seq=MOE_TRAIN["seq"], batch=MOE_TRAIN["batch"],
+            lr=MOE_TRAIN["lr"], ckpt_dir=str(TRAIN25_DIR / "granite"),
+            ckpt_every=MOE_TRAIN["steps"] + 1, log_every=1, device=dev))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    _loss_rule(MOE_ARCH, [h.loss for h in trainer.history], cfg.vocab)
+    _report_run(f"{MOE_ARCH} train", trainer, seconds, tokens, flops, peak)
+    _counted(total, f"{MOE_ARCH} profiled step", _train_launches(cfg), 1,
+             lambda: _step_profile(f"profile {MOE_ARCH} train step",
+                                   trainer, state, tokens, flops))
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    # full width cut to 2 layers: the card against the CPU, and a donated
+    # step against a non-donated one on the card
+    cfg2 = cfg.replace(n_layers=2)
+    ts = TrainStepConfig()
+    tok = np.random.default_rng(25).integers(0, cfg.vocab, (1, 256))
+    batch = {"tokens": tok.astype(np.int32)}
+    kept = init_train_state(cfg2, 0, ts, dev)
+    given = init_train_state(cfg2, 0, ts, dev)
+    cpu_state = _tree_to(kept, "cpu")
+    old = {k: t for k, t in given["params"].items()}
+
+    def two_steps():
+        return (make_train_step(cfg2, dev, ts, donate=False)(kept, batch),
+                make_train_step(cfg2, dev, ts)(given, batch))
+
+    (new_k, m_k), (new_g, m_g) = _counted(
+        total, f"{MOE_ARCH} (2 layers) donated and kept steps",
+        _train_launches(cfg2), 2, two_steps)
+    leaves = 0
+    for part in ("params", "m", "v"):
+        a = new_k[part] if part == "params" else new_k["opt"][part]
+        g = new_g[part] if part == "params" else new_g["opt"][part]
+        for key in a:
+            leaves += 1
+            if not torch.equal(a[key], g[key]):
+                raise AssertionError(f"donated step: {part} {key} differs "
+                                     f"from the non-donated step's")
+    same_metrics = all(torch.equal(m_k[key], m_g[key]) for key in m_k)
+    if not (same_metrics and all(new_g["params"][k] is old[k] for k in old)
+            and int(new_g["step"]) == int(new_k["step"]) == 1):
+        raise AssertionError("donated step: metrics, step or storage differ")
+    log(f"{MOE_ARCH} (2 layers, B=1, S=256) donated step against a "
+        f"non-donated one on the card: {leaves} params / m / v leaves and "
+        f"every metric equal bit for bit; the donated state is the old "
+        f"tensors")
+    _, m_cpu = make_train_step(cfg2, "cpu", ts)(cpu_state, batch)
+    lg, lc = float(m_k["loss"]), float(m_cpu["loss"])
+    ng, nc = float(m_k["grad_norm"]), float(m_cpu["grad_norm"])
+    if not (abs(lg - lc) <= 5e-3 and abs(ng - nc) <= 1e-2 * nc):
+        raise AssertionError(f"card vs CPU step: loss {lg} vs {lc}, grad "
+                             f"norm {ng} vs {nc}")
+    log(f"{MOE_ARCH} (2 layers, B=1, S=256) one step, card vs CPU: loss "
+        f"{lg:.6f} vs {lc:.6f} (limit 5e-3), grad norm {ng:.6f} vs "
+        f"{nc:.6f} (rel {abs(ng - nc) / nc:.2e}, limit 1e-2)")
+    del kept, given, new_k, new_g, cpu_state
+    torch.cuda.empty_cache()
+
+
+def _train_memory_full(dev, total: dict):
+    """Phase 25 C: seamless-m4t-large-v2 at full width through the
+    ``Trainer`` with the pipeline's frame embeddings (B=2, S=1536, 384
+    frames a sequence, bf16), every cross gate at 1.0, 6 donated steps:
+    the exact launches, the loss rule, peak memory, a profiled step, and
+    a second memory draw moving the first step's loss."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.models import build, loss_fn
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+    from repro_torch.train import (TrainStepConfig, Trainer, TrainerConfig,
+                                   train_state_from_model)
+
+    cfg = get_arch(ENC_ARCH)
+    bundle = build(cfg)
+    steps, seq, b = ENC_TRAIN["steps"], ENC_TRAIN["seq"], ENC_TRAIN["batch"]
+    frames = seq // cfg.encoder.frame_ratio
+    tokens = b * seq
+    flops = bundle.flops(tokens)
+    data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=b,
+                      memory_tokens=frames, d_model=cfg.d_model)
+    ts = TrainStepConfig(optimizer=AdamWConfig(lr=cosine_schedule(
+        ENC_TRAIN["lr"], warmup=min(20, steps // 10 + 1), total=steps)))
+    trainer = Trainer(cfg, data, TrainerConfig(
+        total_steps=steps, checkpoint_every=steps + 1,
+        checkpoint_dir=str(TRAIN25_DIR / "seamless"), log_every=1), ts,
+        device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    model = bundle.init(0, dev)
+    batch = trainer._device_batch(0)
+    n_gates = _gates_to_one(dict(model.named_parameters()))
+    state = train_state_from_model(cfg, model, ts)
+    other = synthetic_batch(DataConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=b, seed=1,
+        memory_tokens=frames, d_model=cfg.d_model), 0)["memory"]
+    with torch.no_grad():
+        first = float(loss_fn(cfg, model, batch)[0])
+        moved = float(loss_fn(cfg, model, {
+            "tokens": batch["tokens"], "memory": torch.as_tensor(
+                other, device=dev).bfloat16()})[0])
+    log(f"{ENC_ARCH}: {n_gates} cross gates at 1.0; a second memory draw "
+        f"moves the first step's loss from {first:.6f} to {moved:.6f} "
+        f"({abs(moved - first):.2e}; must exceed 1e-3)")
+    if not abs(moved - first) > 1e-3:
+        raise AssertionError(f"{ENC_ARCH}: the memory does not reach the "
+                             f"loss")
+    del model
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = _counted(total, f"{ENC_ARCH} train", _train_launches(cfg),
+                     steps, lambda: trainer.run(state=state))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h.loss for h in trainer.history]
+    if abs(losses[0] - first) > 1e-3:
+        raise AssertionError(f"{ENC_ARCH}: the trainer's first loss "
+                             f"{losses[0]} is not the memory's {first}")
+    _loss_rule(ENC_ARCH, losses, cfg.vocab)
+    _report_run(f"{ENC_ARCH} train", trainer, seconds, tokens, flops, peak)
+    _counted(total, f"{ENC_ARCH} profiled step", _train_launches(cfg), 1,
+             lambda: _step_profile(f"profile {ENC_ARCH} train step",
+                                   trainer, state, tokens, flops))
+    del trainer, state
+    torch.cuda.empty_cache()
+
+
+def _train_reduced(dev, total: dict):
+    """Phase 25 D: deepseek-v3-671b reduced (MLA, a shared expert, MTP;
+    bf16 weights and moments) through ``make_train_step``,
+    recurrentgemma-9b reduced (window 64) through the launcher, and
+    llama-3.2-vision-90b reduced at 10 layers with 16 image tokens and
+    its gates at 1.0 through the ``Trainer`` as the launcher builds it
+    (the launcher's own reduced config keeps 4 layers, none of them a
+    cross layer): 4 steps each, exact launches, the loss rule; then
+    granite reduced crashed at step 6 and resumed from its step-4
+    checkpoint, its last loss against an uncrashed run's at rtol 1e-4."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.launch.train import train
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+    from repro_torch.train import (TrainStepConfig, Trainer, TrainerConfig,
+                                   init_train_state, make_train_step)
+
+    steps, seq, b = (SMALL_TRAIN["steps"], SMALL_TRAIN["seq"],
+                     SMALL_TRAIN["batch"])
+    ts = TrainStepConfig(optimizer=AdamWConfig(lr=cosine_schedule(
+        SMALL_TRAIN["lr"], warmup=min(20, steps // 10 + 1), total=steps)))
+
+    cfg = get_arch("deepseek-v3-671b").reduced()
+    data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=b)
+    state = init_train_state(cfg, 0, ts, dev)
+    if not all(t.dtype == torch.bfloat16 for part in ("m", "v")
+               for t in state["opt"][part].values()):
+        raise AssertionError("deepseek: the moments must be bf16")
+    step_fn = make_train_step(cfg, dev, ts)
+
+    def deepseek_steps():
+        out = []
+        for step in range(steps):
+            _, m = step_fn(state, synthetic_batch(data, step))
+            out.append({k: float(v) for k, v in m.items()})
+        return out
+
+    metrics = _counted(total, "deepseek-v3-671b reduced train",
+                       _train_launches(cfg), steps, deepseek_steps)
+    # the loss rule on ce; the whole loss (ce + aux + 0.3 mtp) must fall
+    # too, and the MTP term start finite within 0.5 of ln V
+    _loss_rule("deepseek-v3-671b reduced ce", [m["ce"] for m in metrics],
+               cfg.vocab)
+    loss, mtp = [m["loss"] for m in metrics], [m["mtp"] for m in metrics]
+    if not (np.all(np.isfinite(loss + mtp)) and loss[-1] < loss[0]
+            and abs(mtp[0] - np.log(cfg.vocab)) <= 0.5):
+        raise AssertionError(f"deepseek-v3-671b reduced: loss {loss}, mtp "
+                             f"{mtp}")
+    log(f"deepseek-v3-671b reduced (MLA, MoE, MTP; bf16 weights and "
+        f"moments): {steps} steps of {b} x {seq}; loss "
+        f"{[round(m['loss'], 4) for m in metrics]}, ce "
+        f"{[round(m['ce'], 4) for m in metrics]}, mtp "
+        f"{[round(m['mtp'], 4) for m in metrics]}, aux "
+        f"{[round(m['aux'], 6) for m in metrics]}")
+    del state, step_fn
+
+    cfg = get_arch("recurrentgemma-9b").reduced()
+    trainer, _ = _counted(
+        total, "recurrentgemma-9b reduced train", _train_launches(cfg),
+        steps, lambda: train("recurrentgemma-9b", steps=steps, seq=seq,
+                             batch=b, lr=SMALL_TRAIN["lr"],
+                             ckpt_dir=str(TRAIN25_DIR / "rgemma"),
+                             ckpt_every=steps + 1, log_every=1,
+                             device=dev))
+    losses = [h.loss for h in trainer.history]
+    _loss_rule("recurrentgemma-9b reduced", losses, cfg.vocab)
+    log(f"recurrentgemma-9b reduced (window {cfg.window}, S {seq}): losses "
+        f"{[round(x, 4) for x in losses]}")
+
+    cfg = get_arch(VISION_ARCH).reduced().replace(n_layers=VISION_LAYERS)
+    data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=b,
+                      memory_tokens=cfg.vision.n_image_tokens,
+                      d_model=cfg.d_model)
+    trainer = Trainer(cfg, data, TrainerConfig(
+        total_steps=steps, checkpoint_every=steps + 1,
+        checkpoint_dir=str(TRAIN25_DIR / "vision"), log_every=1), ts,
+        device=dev)
+    state = trainer.fresh_state(0)
+    n_gates = _gates_to_one(state["params"])
+    if trainer._device_batch(0)["memory"].dtype != torch.bfloat16:
+        raise AssertionError("the trainer's memory must be bf16")
+    _counted(total, f"{VISION_ARCH} reduced ({VISION_LAYERS} layers) train",
+             _train_launches(cfg), steps, lambda: trainer.run(state=state))
+    losses = [h.loss for h in trainer.history]
+    _loss_rule(f"{VISION_ARCH} reduced", losses, cfg.vocab)
+    log(f"{VISION_ARCH} reduced ({VISION_LAYERS} layers, {n_gates} cross "
+        f"gates at 1.0, {cfg.vision.n_image_tokens} image tokens of bf16 "
+        f"memory a sequence): losses {[round(x, 4) for x in losses]}")
+    del state, trainer
+
+    # crash at step 6, resume from the step-4 checkpoint, replay
+    cfg = get_arch(MOE_ARCH).reduced()
+    crashed = []
+
+    def fault(step):
+        if step == SMALL_TRAIN["crash_at"] and not crashed:
+            crashed.append(step)
+            return "crash"
+        return None
+
+    kw = dict(steps=SMALL_TRAIN["crash_steps"], seq=seq, batch=b,
+              lr=SMALL_TRAIN["lr"], ckpt_every=SMALL_TRAIN["ckpt_every"],
+              log_every=100, device=dev)
+    n_steps = SMALL_TRAIN["crash_steps"]
+    plain, _ = _counted(total, f"{MOE_ARCH} reduced uncrashed",
+                        _train_launches(cfg), n_steps,
+                        lambda: train(MOE_ARCH,
+                                      ckpt_dir=str(TRAIN25_DIR / "a"), **kw))
+    replayed = n_steps + SMALL_TRAIN["crash_at"] - SMALL_TRAIN["ckpt_every"]
+    tr2, state2 = _counted(total, f"{MOE_ARCH} reduced crashed",
+                           _train_launches(cfg), replayed,
+                           lambda: train(MOE_ARCH, fault_hook=fault,
+                                         ckpt_dir=str(TRAIN25_DIR / "b"),
+                                         **kw))
+    last, want = tr2.history[-1].loss, plain.history[-1].loss
+    if (tr2.restarts != 1 or int(state2["step"]) != n_steps
+            or not np.isclose(last, want, rtol=1e-4, atol=0.0)):
+        raise AssertionError(f"crash run: restarts {tr2.restarts}, last "
+                             f"loss {last} vs uncrashed {want}")
+    _loss_rule(f"{MOE_ARCH} reduced", [h.loss for h in plain.history],
+               cfg.vocab)
+    log(f"{MOE_ARCH} reduced crash at step {SMALL_TRAIN['crash_at']} and "
+        f"resume: steps {[h.step for h in tr2.history]}; last loss "
+        f"{last:.6f} vs uncrashed {want:.6f} (rel "
+        f"{abs(last - want) / abs(want):.2e}, limit 1e-4)")
+    shutil.rmtree(TRAIN25_DIR, ignore_errors=True)
+
+
+def check_train_archs(dev, bw):
+    """Phase 25: #6 and #7 at the new training shapes (A), then training
+    of granite-moe-3b-a800m (B) and seamless-m4t-large-v2 (C) at full
+    width, and of deepseek-v3, recurrentgemma and llama-3.2-vision at
+    ``reduced()`` plus granite's crash and resume (D).  #5-#7's launches
+    in B-D go under their ``phase_launches``."""
+    _hold_train_attention(dev, bw)
+    total = {}
+    _train_moe_full(dev, total)
+    _train_memory_full(dev, total)
+    _train_reduced(dev, total)
+    log(f"phase 25: #5 / #6 / #7 launched {total['flash_attention_fwd']} / "
+        f"{total['flash_attention_dq']} / {total['flash_attention_dkv']} "
+        f"times in training")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA "
@@ -4392,8 +4975,8 @@ def main() -> int:
     for kname in bwd_errs:
         launches[kname] = train_launches[kname]
     done("15")
-    # phases 16-24 run kernels #1-#4 (22 #5-#7, 23 and 24 #5) on new paths:
-    # their launches there go beside each kernel's main-path count
+    # phases 16-25 run kernels #1-#4 (22 and 25 #5-#7, 23 and 24 #5) on new
+    # paths: their launches there go beside each kernel's main-path count
     phase_launches = {}
     for phase, fn in (("16", lambda: check_families(dev)),
                       ("17", lambda: check_faults_analytic(dev)),
@@ -4404,7 +4987,8 @@ def main() -> int:
                       ("21", lambda: check_fabric(dev)),
                       ("22", lambda: check_obs(dev)),
                       ("23", lambda: check_archs(dev, bw)),
-                      ("24", lambda: check_memory(dev, bw))):
+                      ("24", lambda: check_memory(dev, bw)),
+                      ("25", lambda: check_train_archs(dev, bw))):
         t0 = time.perf_counter()
         for kname, count in fn().items():
             phase_launches.setdefault(kname, {})[phase] = count

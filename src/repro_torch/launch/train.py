@@ -7,11 +7,15 @@
       --full --seq 2048 --batch 8 --steps 20
 
 The data is the reference's synthetic LM stream and the weights are
-random, drawn from ``--seed``.  Checkpoints land in ``--ckpt-dir``;
-running again resumes exactly (the step, the data and the weights' seed
-are functions of the saved step).  The learning rate follows the
-reference launcher's cosine schedule (warmup ``min(20, steps // 10 +
-1)``).  The kernels are built before the first step.
+random, drawn from ``--seed``; a vision arch gets the pipeline's stub
+image embeddings, and an encoder arch (seamless) is refused: train it
+through :class:`~repro_torch.train.Trainer` with ``DataConfig(
+memory_tokens=seq // frame_ratio, d_model=...)``.  Checkpoints land
+in ``--ckpt-dir``; running again resumes exactly (the step, the data
+and the weights' seed are functions of the saved step).  The learning
+rate follows the reference launcher's cosine schedule (warmup
+``min(20, steps // 10 + 1)``).  The kernels are built before the first
+step.
 """
 
 from __future__ import annotations
@@ -34,9 +38,18 @@ def train(arch: str, *, full: bool = False, steps: int = 200, seq: int = 128,
           grad_compress: bool = False, seed: int = 0, log_every: int = 10,
           device=None, fault_hook=None):
     """Build the trainer and run it to ``steps``; returns ``(trainer,
-    state)``."""
-    device = resolve_device(device)
+    state)``.  A vision arch trains with ``n_image_tokens`` stub image
+    embeddings a sequence, as the reference's launcher gives it.  An
+    encoder arch raises ``ValueError``: its frame count is a choice of
+    the caller's."""
     cfg = get_arch(arch) if full else get_arch(arch).reduced()
+    if cfg.encoder is not None:
+        raise ValueError(
+            f"{arch}: the encoder's stub frontend needs frame embeddings, "
+            f"which this launcher does not make; train it through Trainer "
+            f"with DataConfig(memory_tokens=seq // "
+            f"{cfg.encoder.frame_ratio}, d_model={cfg.d_model})")
+    device = resolve_device(device)
     data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
                       memory_tokens=(cfg.vision.n_image_tokens
                                      if cfg.vision else 0),

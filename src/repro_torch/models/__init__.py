@@ -3,7 +3,8 @@ cross-attention, MLA, Mamba-2 SSD and RG-LRU blocks, dense MLPs and MoE,
 the encoder, the decoder, the loss and the bundle."""
 
 from .model import ModelBundle, build, loss_fn
-from .transformer import Model, forward, layer_plan, layers_of
+from .transformer import (Model, count_params, forward, layer_plan,
+                          layers_of, model_flops)
 
-__all__ = ["Model", "ModelBundle", "build", "forward", "layer_plan",
-           "layers_of", "loss_fn"]
+__all__ = ["Model", "ModelBundle", "build", "count_params", "forward",
+           "layer_plan", "layers_of", "loss_fn", "model_flops"]

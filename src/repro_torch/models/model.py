@@ -4,8 +4,9 @@ loss, prefill, decode_step and concat_caches, and ``loss_fn``.
 Counterpart of ``repro/models/model.py`` for all ten configs, the
 memory-input families included: an encoder-decoder config (seamless)
 takes frame embeddings and a vision config (llama-3.2-vision) image
-embeddings as ``memory``.  An MTP config is built and served, but not
-trained.  ``params`` is the :class:`~repro_torch.models.transformer.
+embeddings as ``memory``; an MTP config (deepseek-v3) trains its MTP
+head, whose cross-entropy two tokens ahead enters the loss at 0.3.
+``params`` is the :class:`~repro_torch.models.transformer.
 Model` (an ``nn.Module``).  The batch is axis 0 of every cache leaf
 (the cross layers' ``k``, ``v`` and ``enc_memory`` too), so
 ``concat_caches`` concatenates there (the reference needs
@@ -20,37 +21,48 @@ import torch
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
-from .transformer import Model, forward
+from .transformer import Model, count_params, forward, model_flops
 
 __all__ = ["ModelBundle", "build", "loss_fn"]
 
 
+def _cross_entropy(logits, targets, mask):
+    """mean over the mask of (logsumexp(logits) - logits[target]), in
+    float32."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets[..., None])[..., 0]
+    return ((lse - gold) * mask).sum() / mask.sum().clamp(min=1.0)
+
+
 def loss_fn(cfg: ArchConfig, params: Model, batch) -> tuple:
     """Next-token cross-entropy plus the MoE layers' aux loss (0 for dense
-    models): ``(loss, {"ce": ..., "aux": ...})``.  ``batch["tokens"]``
-    (B, S); the target of position i is token i + 1, the last position is
-    masked, and ``ce = mean over the mask of (logsumexp(logits) -
-    logits[target])`` in float32.  A gather takes the place of the
-    reference's one-hot contraction, which it equals (that form exists to
-    keep vocab-sharded logits sharded).  ``batch["memory"]`` (B, T, M),
-    where the config takes one, goes to the forward as its memory
-    inputs.  An MTP config raises: its loss is not ported."""
-    if cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.name}: the MTP loss is not ported; training the MoE and "
-            f"MTP families is ROADMAP queue 1 item 1")
+    models) plus, for an MTP config, 0.3 times the MTP head's
+    cross-entropy two tokens ahead: ``(loss, {"ce", "aux"[, "mtp"]})``.
+    ``batch["tokens"]`` (B, S); the target of position i is token i + 1,
+    the last position is masked (the last two for the MTP term), and
+    ``ce = mean over the mask of (logsumexp(logits) - logits[target])``
+    in float32.  A gather takes the place of the reference's one-hot
+    contraction, which it equals (that form exists to keep vocab-sharded
+    logits sharded).  ``batch["memory"]`` (B, T, M), where the config
+    takes one, goes to the forward as its memory inputs."""
     tokens = batch["tokens"]
     out = forward(params, tokens, mode="train",
                   memory_inputs=batch.get("memory"))
     logits = out["logits"]
-    targets = torch.roll(tokens, -1, dims=1).long()
     mask = torch.ones(tokens.shape, dtype=torch.float32,
                       device=logits.device)
     mask[:, -1] = 0.0
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets[..., None])[..., 0]
-    ce = ((lse - gold) * mask).sum() / mask.sum().clamp(min=1.0)
-    return ce + out["aux"], {"ce": ce, "aux": out["aux"]}
+    ce = _cross_entropy(logits, torch.roll(tokens, -1, dims=1).long(), mask)
+    metrics = {"ce": ce, "aux": out["aux"]}
+    loss = ce + out["aux"]
+    if "mtp_logits" in out:
+        mask2 = torch.ones_like(mask)
+        mask2[:, -2:] = 0.0
+        mtp = _cross_entropy(out["mtp_logits"],
+                             torch.roll(tokens, -2, dims=1).long(), mask2)
+        metrics["mtp"] = mtp
+        loss = loss + 0.3 * mtp
+    return loss, metrics
 
 
 @dataclass
@@ -106,7 +118,16 @@ class ModelBundle:
 
     @staticmethod
     def num_params(params: Model) -> int:
+        """The parameters counted from the model's tensors."""
         return sum(p.numel() for p in params.parameters())
+
+    def num_active_params(self) -> int:
+        """:func:`count_params` with top_k routed experts a MoE layer."""
+        return count_params(self.cfg, active_only=True)
+
+    def flops(self, tokens: int, mode: str = "train") -> float:
+        """:func:`model_flops`: 6 N_active D a training step."""
+        return model_flops(self.cfg, tokens, mode)
 
 
 def build(cfg: ArchConfig) -> ModelBundle:

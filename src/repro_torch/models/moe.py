@@ -103,8 +103,13 @@ class MoE(nn.Module):
         k = top_idx.shape[1]
         flat_e = top_idx.reshape(-1)
         flat_t = torch.arange(t, device=x2d.device).repeat_interleave(k)
+        # each row repeated k times by a broadcast, not a gather: the
+        # gradient sums the k copies as a reduction in a fixed order (a
+        # gather's backward adds them with atomics, in any order on the
+        # card), so a train step gives the same bits every time
+        rows = x2d[:, None, :].expand(t, k, m).reshape(t * k, m)
         bins = x2d.new_zeros((self.cfg.moe.n_experts, t, m)).index_put_(
-            (flat_e, flat_t), x2d[flat_t])
+            (flat_e, flat_t), rows)
         dt = x2d.dtype
         # F.silu rounds once, where layers.silu rounds every step as the
         # reference does: its four more passes would run over bins of

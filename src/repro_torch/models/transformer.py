@@ -16,9 +16,12 @@ reference's ``jax.checkpoint`` of its scanned body: only block inputs
 are kept, and the backward recomputes each block's forward.
 ``layer_plan`` is kept so that the reference's (prefix | scanned body |
 suffix) parameter trees can be mapped onto the list (see
-:mod:`repro_torch.convert`).  A config with ``mtp`` carries the
-multi-token-prediction head's weights (``Model.mtp``); serving never
-runs that head, as in the reference.
+:mod:`repro_torch.convert`).  A config with ``mtp`` has the
+multi-token-prediction head (``Model.mtp``): training runs it on the
+last block's output and returns ``mtp_logits``, the prediction two
+tokens ahead; serving never runs it, as in the reference.
+``count_params`` and ``model_flops`` are the reference's config algebra
+(6 N_active D a training step).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from .rglru import RGLRUBlock
 from .ssm import SSDBlock
 
 __all__ = ["LayerPlan", "layer_plan", "Block", "Encoder", "MTPHead",
-           "Model", "forward", "layers_of"]
+           "Model", "forward", "layers_of", "count_params", "model_flops"]
 
 
 @dataclass(frozen=True)
@@ -180,11 +183,10 @@ class Encoder(nn.Module):
 
 
 class MTPHead(nn.Module):
-    """The multi-token-prediction head's weights (reference
-    ``init_model``'s ``mtp``): ``proj`` (2 M, M) and ``norm`` (M,) float32
-    and ``block``, an attention layer with a dense MLP.  Carried so that
-    the weights load; only training reads them, and the port does not
-    train an MTP config yet."""
+    """The multi-token-prediction head (reference ``init_model``'s
+    ``mtp``): ``proj`` (2 M, M) and ``norm`` (M,) float32 and ``block``,
+    an attention layer (MLA where the config has it) with a dense MLP.
+    Only training runs it."""
 
     def __init__(self, cfg: ArchConfig, *, device=None, generator=None):
         super().__init__()
@@ -195,6 +197,22 @@ class MTPHead(nn.Module):
                            generator=generator)
         self.norm = nn.Parameter(
             torch.ones((m,), dtype=torch.float32, device=device))
+
+    def forward(self, h, tokens, embed, *, positions, rope_tab=None):
+        """h (B, S, M): the last block's output before the final norm;
+        tokens (B, S); ``embed`` the model's embedding.  Returns the
+        block's output over ``[rms_norm(h, norm), embed[tokens shifted by
+        one]] @ proj``, before the final norm (the reference's
+        ``forward`` in training)."""
+        emb_next = F.embedding(torch.roll(tokens, -1, dims=1),
+                               embed).to(h.dtype)
+        x = torch.cat([rms_norm(h, self.norm, self.block.cfg.norm_eps),
+                       emb_next], dim=-1) @ cast_weight(self, "proj",
+                                                        h.dtype)
+        out, _, _ = self.block(x, mode="train", positions=positions,
+                               cache=None, cache_slots=None,
+                               rope_tab=rope_tab)
+        return out
 
 
 class Model(nn.Module):
@@ -274,7 +292,10 @@ def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
     and outside training)}`` plus ``"cache"`` outside training: the list
     of per-layer caches, or ``{"layers": [...], "enc_memory": (B, T, M)}``
     where a memory was attended.  Training a model with SSD blocks raises
-    ``NotImplementedError``: the SSD has no backward kernel."""
+    ``NotImplementedError``: the SSD has no backward kernel.  Training
+    an ``mtp`` config adds ``"mtp_logits"`` (B, S, V) float32: the MTP
+    head's prediction of token i + 2, through the final norm and the
+    head."""
     cfg = model.cfg
     _, s = tokens.shape
     if mode == "train" and any(b.kind == "ssd" for b in model.blocks):
@@ -311,7 +332,72 @@ def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
             else cast_weight(model, "lm_head", hf.dtype))
     logits = (hf @ head).float()
     out = {"logits": logits, "aux": aux}
+    if mode == "train" and model.mtp is not None:
+        mtp_h = model.mtp(h, tokens, model.embed, positions=positions,
+                          rope_tab=tab)
+        out["mtp_logits"] = (rms_norm(mtp_h, model.final_norm,
+                                      cfg.norm_eps) @ head).float()
     if mode != "train":
         out["cache"] = (new_cache if memory is None else
                         {"layers": new_cache, "enc_memory": memory})
     return out
+
+
+# ---------------------------------------------------------------------------
+# Analytic parameters and FLOPs (6 N D dense, 6 N_active D MoE)
+# ---------------------------------------------------------------------------
+
+
+def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
+    """The reference's parameter count from the config alone (no
+    allocation): the embedding and head, every mixer's and MLP's
+    matrices, the routers and the encoder's layers; norms, gates, the
+    encoder's adapter and the MTP head are not counted.  ``active_only``
+    counts top_k routed experts a MoE layer instead of all of them."""
+    m, f, v = cfg.d_model, cfg.d_ff, cfg.vocab
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    glu = 3 if cfg.mlp_act.endswith("_glu") else 2
+    attn = m * h * dh + 2 * m * hkv * dh + h * dh * m
+    plan = layer_plan(cfg)
+    total = v * m + (0 if cfg.tie_embeddings else m * v)
+    for i, kind in enumerate(plan.kinds):
+        if kind in ("attn", "dec_xattn"):
+            if cfg.mla is not None:
+                mla = cfg.mla
+                qk = mla.qk_nope + mla.qk_rope
+                total += (m * mla.q_lora + mla.q_lora * h * qk
+                          + m * (mla.kv_lora + mla.qk_rope)
+                          + mla.kv_lora * h * (mla.qk_nope + mla.v_head)
+                          + h * mla.v_head * m)
+            else:
+                total += attn
+            if kind == "dec_xattn":
+                total += attn
+        elif kind == "xattn":
+            total += attn
+        elif kind == "ssd":
+            ssm = cfg.ssm
+            d_inner = ssm.expand * m
+            gn = ssm.n_groups * ssm.d_state
+            nh = d_inner // ssm.head_dim
+            total += m * (2 * d_inner + 2 * gn + nh) + d_inner * m
+        elif kind == "rglru":
+            w = cfg.rglru.lru_width or m
+            total += 2 * m * w + 2 * w * w + w * m
+        if plan.has_moe[i]:
+            moe = cfg.moe
+            n_e = moe.top_k if active_only else moe.n_experts
+            total += 3 * moe.d_ff_expert * m * n_e + m * moe.n_experts
+            total += 3 * moe.d_ff_expert * moe.n_shared * m
+        elif kind in ("attn", "xattn", "dec_xattn", "rglru") and f > 0:
+            total += glu * m * f
+    if cfg.encoder is not None:
+        total += cfg.encoder.n_layers * (attn + glu * m * f)
+    return int(total)
+
+
+def model_flops(cfg: ArchConfig, tokens: int, mode: str = "train") -> float:
+    """6 N_active D for a training step over ``tokens`` tokens, 2
+    N_active D for inference."""
+    mult = 6.0 if mode == "train" else 2.0
+    return mult * count_params(cfg, active_only=True) * tokens

@@ -2,9 +2,9 @@
 compression, as plain functions on dicts of tensors."""
 
 from .adamw import (AdamWConfig, AdamWState, adamw_init, adamw_update,
-                    cosine_schedule, global_norm)
+                    adamw_update_, cosine_schedule, global_norm)
 from .compress import compress, decompress, ef_compress_grads, ef_init
 
 __all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update",
-           "cosine_schedule", "global_norm", "compress", "decompress",
-           "ef_compress_grads", "ef_init"]
+           "adamw_update_", "cosine_schedule", "global_norm", "compress",
+           "decompress", "ef_compress_grads", "ef_init"]

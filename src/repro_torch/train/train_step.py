@@ -6,9 +6,15 @@ Counterpart of ``repro/train/train_step.py`` on one device.  The train
 state is a dict ``{"params": {name: tensor}, "opt": {"m": {...}, "v":
 {...}, "count": int32}, "step": int32[, "ef": {...}]}``, the parameter
 names those of :class:`~repro_torch.models.Model`.  ``step_fn(state,
-batch) -> (state, metrics)`` returns a new state and leaves the old one
-as it was, as the reference's jitted step does (it donates the old one).
-The mesh, ``zero1`` and the ``REPRO_PERF`` microbatching belong to the
+batch) -> (state, metrics)`` donates the old state by default, as the
+reference's jitted step does: params, moments, count and step are
+updated in place (:func:`~repro_torch.optim.adamw_update_`), leaf by
+leaf, and the returned state holds the same tensors.  With
+``donate=False`` it returns new tensors and leaves the old state as it
+was; both give the same bits.  Donation is what lets a 3.4B-parameter
+float32 state (params, gradients and two moments: 54 GB) train on one
+80 GB card, where a second params, m and v would not fit.  The mesh,
+``zero1`` and the ``REPRO_PERF`` microbatching belong to the
 multi-device slice: ``zero1=True`` raises.
 """
 
@@ -24,7 +30,7 @@ from .._device import resolve_device
 from ..configs.base import ArchConfig
 from ..models import Model, build
 from ..optim import (AdamWConfig, AdamWState, adamw_init, adamw_update,
-                     ef_compress_grads, ef_init)
+                     adamw_update_, ef_compress_grads, ef_init)
 
 __all__ = ["TrainStepConfig", "init_train_state", "train_state_from_model",
            "make_train_step"]
@@ -78,12 +84,24 @@ def _bind(model: Model, params: dict) -> dict:
     return bound
 
 
+def _device_batch(batch, device) -> dict:
+    """The batch on ``device``: ``tokens`` and, where given, ``memory``
+    (the frame or image embeddings of a memory-input config)."""
+    out = {"tokens": torch.as_tensor(batch["tokens"], device=device)}
+    if batch.get("memory") is not None:
+        out["memory"] = torch.as_tensor(batch["memory"], device=device)
+    return out
+
+
 def make_train_step(cfg: ArchConfig, device=None,
-                    ts: TrainStepConfig = TrainStepConfig()):
+                    ts: TrainStepConfig = TrainStepConfig(),
+                    donate: bool = True):
     """``step_fn(state, batch) -> (new_state, metrics)`` on ``device``
     (default: the card).  ``batch["tokens"]`` (B, S) integer tensor or
-    array; metrics ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr``,
-    scalar tensors on the device."""
+    array, plus ``batch["memory"]`` (B, T, M) for a memory-input config;
+    metrics ``loss``, ``ce``, ``aux`` (and ``mtp`` for an MTP config),
+    ``grad_norm`` and ``lr``, scalar tensors on the device.  ``donate``:
+    update the old state in place (see the module's docstring)."""
     if ts.zero1:
         raise NotImplementedError("zero1 shards the optimizer over a "
                                   "mesh: the multi-device slice (ROADMAP "
@@ -95,24 +113,37 @@ def make_train_step(cfg: ArchConfig, device=None,
 
     def step_fn(state, batch):
         params = _bind(model, state["params"])
-        tokens = torch.as_tensor(batch["tokens"], device=device)
-        loss, metrics = bundle.loss(model, {"tokens": tokens})
+        loss, metrics = bundle.loss(model, _device_batch(batch, device))
         names = list(params)
+        # a weight the loss never reads (a MoE's shared-expert norm, which
+        # the reference carries unused too) gets a zero gradient
         grads = dict(zip(names, torch.autograd.grad(
-            loss, [params[n] for n in names])))
+            loss, [params[n] for n in names], allow_unused=True,
+            materialize_grads=True)))
         if ts.grad_compress:
             grads, new_ef = ef_compress_grads(grads, state["ef"])
         opt = AdamWState(state["opt"]["m"], state["opt"]["v"],
                          state["opt"]["count"])
-        new_params, new_opt, opt_metrics = adamw_update(
-            grads, opt, state["params"], opt_cfg)
-        _bind(model, new_params)           # drop the old weights
+        if donate:
+            new_params, new_opt, opt_metrics = adamw_update_(
+                grads, opt, state["params"], opt_cfg)
+            step = state["step"].add_(1)
+            if ts.grad_compress:
+                for key, e in new_ef.items():
+                    state["ef"][key].copy_(e)
+                new_ef = state["ef"]
+        else:
+            new_params, new_opt, opt_metrics = adamw_update(
+                grads, opt, state["params"], opt_cfg)
+            _bind(model, new_params)       # drop the old weights
+            step = state["step"] + 1
         new_state = {"params": new_params, "opt": new_opt._asdict(),
-                     "step": state["step"] + 1}
+                     "step": step}
         if ts.grad_compress:
             new_state["ef"] = new_ef
-        metrics = {"loss": loss.detach(), "ce": metrics["ce"].detach(),
-                   "aux": metrics["aux"], **opt_metrics}
+        metrics = {"loss": loss.detach(),
+                   **{k: v.detach() for k, v in metrics.items()},
+                   **opt_metrics}
         return new_state, metrics
 
     return step_fn

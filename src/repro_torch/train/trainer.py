@@ -12,9 +12,12 @@
 Each step is an ``obs.timed("train.step")`` span, as in the reference:
 it opens before the fault hook and closes only after the new state's
 work is done on the card (``Span.sync`` on the state's tensors), so the
-time covers the input batch, the whole step and any stall.  It measures
-with obs off and is recorded under a tracing session.  Elastic
-re-meshing belongs to the multi-device slice.
+time covers the input batch, the whole step and any stall.  It
+measures with obs off and is recorded under a tracing session.  The
+step donates the old state (updates it in place), as the reference's
+trainer's does; a checkpoint copies every leaf to the host before
+``save_async`` returns, so the next step cannot change what is saved.
+Elastic re-meshing belongs to the multi-device slice.
 """
 
 from __future__ import annotations
@@ -137,6 +140,13 @@ class Trainer:
         return state
 
     def _device_batch(self, step: int) -> dict:
+        """Step ``step``'s batch on the device: the tokens and, where the
+        data has ``memory_tokens``, the memory in bf16, as the reference
+        casts it."""
         host = synthetic_batch(self.data, step)
-        return {"tokens": torch.as_tensor(host["tokens"],
-                                          device=self.device)}
+        batch = {"tokens": torch.as_tensor(host["tokens"],
+                                           device=self.device)}
+        if "memory" in host:
+            batch["memory"] = torch.as_tensor(
+                host["memory"], device=self.device).to(torch.bfloat16)
+        return batch

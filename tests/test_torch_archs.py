@@ -471,7 +471,8 @@ def test_params_round_trip_every_weight(name):
 
 def test_loss_adds_the_aux_loss():
     """granite reduced trains: ce and the aux loss against the reference's
-    ``loss_fn`` at 3e-2; an MTP config refuses to train."""
+    ``loss_fn`` at 3e-2; an MTP config adds its ``mtp`` term (held
+    against the reference in ``test_torch_train_archs.py``)."""
     import jax.numpy as jnp
     from repro.models.model import loss_fn as jloss
     from repro_torch.models import build, loss_fn
@@ -485,5 +486,8 @@ def test_loss_adds_the_aux_loss():
     _close(lt, lj, "loss")
     assert float(mt["aux"].detach()) > 0
     dcfg, dmodel = _port("deepseek-v3-671b")
-    with pytest.raises(NotImplementedError, match="MTP"):
-        build(dcfg).loss(dmodel, {"tokens": torch.from_numpy(tokens)})
+    ld, md = build(dcfg).loss(dmodel, {"tokens": torch.from_numpy(tokens)})
+    assert set(md) == {"ce", "aux", "mtp"}
+    assert float(ld.detach()) == pytest.approx(
+        float(md["ce"].detach() + md["aux"].detach()
+              + 0.3 * md["mtp"].detach()), rel=1e-6)

@@ -195,7 +195,7 @@ def test_train_step_matches_reference_step():
     state = train_state_from_model(
         cfg, params_from_numpy(cfg, npp, device="cpu"), ts)
     old = {k: v.clone() for k, v in state["params"].items()}
-    step_fn = make_train_step(cfg, "cpu", ts)
+    step_fn = make_train_step(cfg, "cpu", ts, donate=False)
     new, m = step_fn(state, {"tokens": torch.from_numpy(tok)})
     for k, v in state["params"].items():          # the old state stays
         assert torch.equal(v, old[k])

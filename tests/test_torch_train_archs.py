@@ -1,0 +1,600 @@
+"""Training of the MoE, MLA + MTP, RG-LRU and memory-input families of
+repro_torch against the reference, on the CPU: loss and gradients, one
+train step, the donated (in-place) step, the trainer's memory batch, the
+config algebra (``count_params``, ``model_flops``) and the launcher.
+
+The archs are the reduced configs of granite-moe-3b-a800m (MoE),
+deepseek-v3-671b (MLA, MoE with a shared expert, a dense first layer,
+MTP, bf16 weights and moments), recurrentgemma-9b (RG-LRU and local
+attention), seamless-m4t-large-v2 (the encoder and cross layers) and
+llama-3.2-vision-90b at 10 layers (``reduced()`` keeps 4 and so no
+``xattn``).  The reference's weights go into the port through
+``convert.params_from_numpy``; tokens and memories come from numpy
+seeds.  Every cross layer's ``gate`` is set to 1.0 on both sides: the
+init leaves it at zero, and tanh(0) = 0 would give the cross layers'
+wq, wk, wv and wo a zero gradient.
+
+The reference runs op by op (``scan_layers=False``, not jitted): under
+``jax.jit`` XLA rounds the bf16 steps otherwise (recurrentgemma's logits
+move by 0.059, a MoE route flips on a tie), as ``test_torch_archs.py``
+and ``test_torch_memory.py`` found.
+
+Tolerances are ``test_torch_train.py``'s: the loss within 1e-3, each
+gradient leaf within 3e-2 of its largest magnitude and the whole
+gradient at cosine >= 0.9999 (``_close_grads``).  Two kinds of leaf need
+their own rule.  A weight the loss never reads (a MoE's shared-expert
+``norm``, carried unused as in the reference) has a zero gradient on
+both sides, exactly.  A cross layer's 0-d ``gate`` has no largest
+magnitude apart from its own value, and its gradient is a sum with heavy
+cancellation: dL/dgate = sech^2(g) / tanh(g) <wo, dL/dwo> exactly, and
+at the sizes here the terms of that inner product have some 500 times
+the mass of their sum (seamless, measured), so bf16 differences of 1 %
+in the terms move the sum by several times its size.  Its scale is that
+mass, sech^2(g) / tanh(g) sum |wo * dL/dwo| from the reference, and the
+port's gate gradient is held within 3e-2 of it and to the identity
+within 1e-3 of it.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import configs as tcfg
+from repro_torch.convert import params_from_numpy, params_to_numpy
+from repro_torch.data import DataConfig
+from repro_torch.kernels.ref import moe_dense_ref
+from repro_torch.models import (build, count_params, forward, layer_plan,
+                                loss_fn, model_flops)
+from repro_torch.models import moe as tmoe
+from repro_torch.models.transformer import Model
+from repro_torch.optim import AdamWConfig, cosine_schedule
+from repro_torch.train import (TrainStepConfig, Trainer, TrainerConfig,
+                               make_train_step, train_state_from_model)
+from test_torch_memory import _gates_at_one
+from test_torch_train import _close_grads, _leaves
+
+LR = 1e-3
+GRANITE = "granite-moe-3b-a800m"
+DEEPSEEK = "deepseek-v3-671b"
+RGEMMA = "recurrentgemma-9b"
+SEAMLESS = "seamless-m4t-large-v2"
+VISION = "llama-3.2-vision-90b"
+FAMILIES = [GRANITE, DEEPSEEK, RGEMMA, SEAMLESS, VISION]
+VISION_LAYERS = 10
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Tiny CPU products: torch's thread pool only adds latency here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cfg(mod, name):
+    """The reduced config of ``name`` from the configs module ``mod``
+    (the reference's or the port's), unrolled; vision at ten layers."""
+    cfg = mod.get_arch(name).reduced().replace(scan_layers=False)
+    if name == VISION:
+        cfg = cfg.replace(n_layers=VISION_LAYERS)
+    return cfg
+
+
+@functools.cache
+def _reference(name: str):
+    """(reference cfg, numpy params with every gate at 1.0)."""
+    import jax
+    from repro import configs as rcfgs
+    from repro.models import build as jbuild
+    from repro.models import unbox
+    cfg = _cfg(rcfgs, name)
+    params = unbox(jbuild(cfg).init(jax.random.key(0)))
+    return cfg, _gates_at_one(jax.tree.map(np.asarray, params))
+
+
+def _memory_tokens(cfg) -> int:
+    if cfg.encoder is not None:
+        return 4                        # S // frame_ratio at S = 16
+    return cfg.vision.n_image_tokens if cfg.vision is not None else 0
+
+
+def _batch(cfg, b=2, s=16, seed=1) -> dict:
+    """numpy tokens (B, S) int32 and, for a memory arch, a float32 memory
+    (B, T, M) uniform in [-1, 1) as the data pipeline's stub."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+    t = _memory_tokens(cfg)
+    if t:
+        out["memory"] = rng.uniform(-1.0, 1.0,
+                                    (b, t, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _jax_batch(batch):
+    import jax.numpy as jnp
+    out = {"tokens": jnp.asarray(batch["tokens"])}
+    if "memory" in batch:
+        out["memory"] = jnp.asarray(batch["memory"], jnp.bfloat16)
+    return out
+
+
+def _torch_batch(batch):
+    out = {"tokens": torch.from_numpy(batch["tokens"])}
+    if "memory" in batch:
+        out["memory"] = torch.from_numpy(batch["memory"]).bfloat16()
+    return out
+
+
+def _grads(cfg, model, batch):
+    loss, metrics = loss_fn(cfg, model, _torch_batch(batch))
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, [p for _, p in
+                                       model.named_parameters()],
+                                allow_unused=True, materialize_grads=True)
+    return loss.detach(), metrics, dict(zip(names, grads))
+
+
+def _gate_scale(wo, g_wo, gate) -> float:
+    """The mass of the terms whose sum is dL/dgate: sech^2(g) / tanh(g)
+    sum |wo * dL/dwo|."""
+    t = np.tanh(np.float64(gate))
+    return float((1 - t * t) / t * np.abs(wo.astype(np.float64)
+                                          * g_wo).sum())
+
+
+def _hold_grads(got: dict, want: dict, weights: dict, what: str):
+    """``_close_grads`` over every leaf but the unused ones (exactly zero
+    on both sides) and the gates (held within 3e-2 of their scale, and
+    the port's to the wo identity)."""
+    unused = [k for k, w in want.items() if not np.any(w)]
+    gates = [k for k in want if k.endswith("/gate")]
+    for key in unused:
+        assert not np.any(got[key]), f"{what} {key}"
+    for key in gates:
+        wo = key[:-len("gate")] + "wo"
+        scale = _gate_scale(weights[wo], want[wo], weights[key])
+        ident = (1 - np.tanh(1.0) ** 2) / np.tanh(1.0) * float(
+            (weights[wo].astype(np.float64) * got[wo]).sum())
+        assert abs(float(got[key]) - float(want[key])) <= 3e-2 * scale, \
+            f"{what} {key}: {float(got[key])} vs {float(want[key])}, " \
+            f"scale {scale}"
+        assert abs(float(got[key]) - ident) <= 1e-3 * scale, \
+            f"{what} {key}: {float(got[key])} vs the identity {ident}"
+    rest = [k for k in want if k not in unused and k not in gates]
+    _close_grads({k: got[k] for k in rest}, {k: want[k] for k in rest},
+                 what)
+    return unused, gates
+
+
+# ---------------------------------------------------------------------------
+# Loss and gradients
+# ---------------------------------------------------------------------------
+
+
+def _reference_rounding_route(self, x2d, top_w, top_idx):
+    """``MoE.route`` with the reference's combine: ``moe_dense_ref`` with
+    the weights and every partial sum in the activation dtype."""
+    return moe_dense_ref(x2d, self.w_gate, self.w_up, self.w_down, top_w,
+                         top_idx)
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_loss_and_grads_match_reference(name, monkeypatch):
+    """``loss_fn`` and its gradients against ``jax.value_and_grad`` of the
+    reference's ``loss_fn``, run op by op: the router, the experts and
+    the aux loss (granite), MLA with its zero-padded value head, the
+    shared expert and the MTP term (deepseek, bf16 weights), the RG-LRU
+    scan and local attention (recurrentgemma), the encoder and cross
+    layers under remat (seamless), gated cross layers over image
+    embeddings (vision).
+
+    The MoE archs run their experts through the reference's combine
+    (:func:`_reference_rounding_route`).  The port's route weights and
+    sums the k picks in float32 where the reference rounds the weights
+    and each partial sum to bf16; that deliberate difference alone puts
+    deepseek's whole-gradient cosine at 0.999898, below the 0.9999 rule
+    (0.999926 with the reference's combine; the reference's own jitted
+    gradient lies at cosine 0.9917 from its eager one on this batch).
+    The route itself is held against that combine with the port's
+    float32 weights, forward and backward, in
+    :func:`test_moe_route_gradients_match_the_oracle`, and the whole
+    train step, real route included, in
+    :func:`test_train_step_matches_reference_step`."""
+    import jax
+    from repro.models.model import loss_fn as jloss
+    rcfg, npp = _reference(name)
+    cfg = _cfg(tcfg, name)
+    batch = _batch(cfg)
+    params = jax.tree.map(jax.numpy.asarray, npp)
+    (jl, jm), jg = jax.value_and_grad(
+        lambda p, b: jloss(rcfg, p, b), has_aux=True)(params,
+                                                      _jax_batch(batch))
+    if cfg.moe is not None:
+        monkeypatch.setattr(tmoe.MoE, "route", _reference_rounding_route)
+    model = params_from_numpy(cfg, npp, device="cpu")
+    loss, metrics, grads = _grads(cfg, model, batch)
+    assert set(metrics) == set(jm)
+    assert ("mtp" in metrics) == cfg.mtp
+    assert abs(float(loss) - float(jl)) < 1e-3
+    for key in ("ce", "mtp"):
+        if key in jm:
+            assert abs(float(metrics[key].detach()) - float(jm[key])) < 1e-3, \
+                key
+    aux = float(metrics["aux"].detach())
+    assert aux == pytest.approx(float(jm["aux"]), rel=1e-4, abs=1e-9)
+    assert (aux > 0) == (cfg.moe is not None)
+    got = _leaves(params_to_numpy(cfg, grads))
+    want = _leaves(jax.tree.map(np.asarray, jg))
+    unused, gates = _hold_grads(got, want, _leaves(npp), name)
+    assert unused == ([f"/prefix/{i}/mlp/shared/norm" for i in (1, 2)]
+                      if name == DEEPSEEK else [])
+    n_cross = sum(k in ("xattn", "dec_xattn")
+                  for k in layer_plan(cfg).kinds)
+    assert len(gates) == n_cross
+    for key in want:       # the cross layers take part in the comparison
+        if "cross" in key or key.endswith(("/mixer/wq", "/mixer/wo")):
+            assert np.any(want[key]), key
+
+
+@pytest.mark.parametrize("name", [GRANITE, DEEPSEEK])
+def test_moe_route_gradients_match_the_oracle(name):
+    """The port's route (bins of T rows, three batched products, the k
+    picks weighted and summed in float32) against ``moe_dense_ref``
+    weighting and summing in float32, on bf16 inputs with the arch's
+    weights: the output within one bf16 rounding (1e-4 + 2^-7 |y|), and
+    the gradients of the input, the three expert weights and the top-k
+    weights by ``_close_grads``."""
+    cfg = _cfg(tcfg, name)
+    block = build(cfg).init(2, device="cpu").blocks[-1].mlp
+    assert isinstance(block, tmoe.MoE)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(32, cfg.d_model)).astype(
+        np.float32)).bfloat16().requires_grad_()
+    logits = torch.from_numpy(rng.normal(size=(32, cfg.moe.n_experts))
+                              .astype(np.float32))
+    _, top_w, top_idx = tmoe.router_topk(cfg, logits)
+    top_w = top_w.detach().requires_grad_()
+    dy = torch.from_numpy(rng.normal(size=(32, cfg.d_model)).astype(
+        np.float32)).bfloat16()
+    leaves = [x, block.w_gate, block.w_up, block.w_down, top_w]
+    names = ["x", "w_gate", "w_up", "w_down", "top_w"]
+    y = block.route(x, top_w, top_idx)
+    got = torch.autograd.grad(y, leaves, dy)
+    want_y = moe_dense_ref(x, block.w_gate, block.w_up, block.w_down,
+                           top_w, top_idx, acc_dtype=torch.float32)
+    want = torch.autograd.grad(want_y, leaves, dy)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=1e-4,
+                               rtol=2.0 ** -7)
+    _close_grads({n: g.float().numpy() for n, g in zip(names, got)},
+                 {n: w.float().numpy() for n, w in zip(names, want)}, name)
+
+
+def test_mtp_head_reads_the_last_hidden_state():
+    """Training adds ``mtp_logits`` (float32, the logits' shape) and
+    prefill does not; the MTP head is a branch off the last hidden
+    state: scaling its ``proj`` moves the MTP logits and leaves the main
+    logits as they were."""
+    cfg = _cfg(tcfg, DEEPSEEK)
+    model = build(cfg).init(0, device="cpu")
+    tok = torch.from_numpy(_batch(cfg)["tokens"])
+    with torch.no_grad():
+        out = forward(model, tok, mode="train")
+        assert out["mtp_logits"].shape == out["logits"].shape
+        assert out["mtp_logits"].dtype == torch.float32
+        pre = forward(model, tok, mode="prefill")
+        assert "mtp_logits" not in pre
+        torch.testing.assert_close(pre["logits"], out["logits"], atol=0,
+                                   rtol=0)
+        model.mtp.proj.mul_(2.0)
+        out2 = forward(model, tok, mode="train")
+        torch.testing.assert_close(out2["logits"], out["logits"], atol=0,
+                                   rtol=0)
+        assert not torch.equal(out2["mtp_logits"], out["mtp_logits"])
+
+
+# ---------------------------------------------------------------------------
+# One train step against the reference's
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", [VISION, DEEPSEEK])
+def test_train_step_matches_reference_step(name):
+    """One full step (loss, gradients, clipping, AdamW with the cosine
+    schedule) against the reference's ``make_train_step`` on a (1, 1)
+    host mesh, run op by op: vision with its image embeddings (the batch
+    carries ``memory`` through the step), deepseek with bf16 weights and
+    moments and the MTP term.  Weights whose gradient is clear of the
+    bf16 noise (|g| > 0.1 of the leaf's largest) agree within 1e-6; the
+    others differ by at most 2 lr."""
+    import jax
+    import jax.numpy as jnp
+    from repro.launch.mesh import make_host_mesh
+    from repro.optim import AdamWConfig as JAdamW
+    from repro.optim import cosine_schedule as jcos
+    from repro.train import TrainStepConfig as JTS
+    from repro.optim import adamw_init as jinit
+    from repro.train import make_train_step as jmake
+    from repro.train.train_step import _opt_cfg
+    rcfg, npp = _reference(name)
+    cfg = _cfg(tcfg, name)
+    batch = _batch(cfg)
+    jts = JTS(optimizer=JAdamW(lr=jcos(LR, warmup=2, total=10)))
+    # the reference's init_train_state, on the weights with gates at 1.0
+    jparams = jax.tree.map(jnp.asarray, npp)
+    jstate = {"params": jparams,
+              "opt": jinit(jparams, _opt_cfg(rcfg, jts))._asdict(),
+              "step": jnp.zeros((), jnp.int32)}
+    jstep, _ = jmake(rcfg, make_host_mesh(1, 1), jts, donate=False)
+    with jax.disable_jit():
+        jnew, jm = jstep(jstate, _jax_batch(batch))
+    want = _leaves(jax.tree.map(np.asarray, jnew["params"]))
+
+    ts = TrainStepConfig(optimizer=AdamWConfig(lr=cosine_schedule(
+        LR, warmup=2, total=10)))
+    model = params_from_numpy(cfg, npp, device="cpu")
+    state = train_state_from_model(cfg, model, ts)
+    if cfg.bf16_params:
+        assert all(m.dtype == torch.bfloat16
+                   for m in state["opt"]["m"].values())
+    new, m = make_train_step(cfg, "cpu", ts)(state, batch)
+    assert int(new["step"]) == int(jnew["step"]) == 1
+    assert set(m) == set(jm)
+    assert abs(float(m["loss"]) - float(jm["loss"])) < 1e-3
+    if cfg.mtp:
+        assert abs(float(m["mtp"]) - float(jm["mtp"])) < 1e-3
+    assert float(m["lr"]) == pytest.approx(float(jm["lr"]), rel=1e-6)
+    assert float(m["grad_norm"]) == pytest.approx(float(jm["grad_norm"]),
+                                                  rel=3e-2)
+    _, _, grads = _grads(cfg, params_from_numpy(cfg, npp, device="cpu"),
+                         batch)
+    gmag = _leaves(params_to_numpy(cfg, grads))
+    got = _leaves(params_to_numpy(cfg, new["params"]))
+    p0 = _leaves(npp)
+    moved = []
+    for key in want:
+        # an unused weight only decays, all of it held
+        clear = (np.abs(gmag[key]) > 0.1 * np.abs(gmag[key]).max()
+                 if np.any(gmag[key]) else np.ones(gmag[key].shape, bool))
+        assert clear.any(), key
+        np.testing.assert_allclose(got[key][clear], want[key][clear],
+                                   atol=1e-6, rtol=0, err_msg=key)
+        assert np.abs(got[key] - want[key]).max() <= 2 * LR + 1e-6, key
+        moved.append(bool(np.any(got[key] != p0[key])))
+    # a bf16 norm gain of 1.0 keeps its value: its update of about lr is
+    # below half a bf16 step there (2^-8)
+    assert all(moved) if not cfg.bf16_params else sum(moved) > len(moved) // 2
+
+
+# ---------------------------------------------------------------------------
+# Donation
+# ---------------------------------------------------------------------------
+
+
+def _flat_state(state) -> dict:
+    out = {"step": state["step"], "count": state["opt"]["count"]}
+    for part, tree in (("p", state["params"]), ("m", state["opt"]["m"]),
+                       ("v", state["opt"]["v"]), ("ef", state.get("ef", {}))):
+        out.update({f"{part}.{k}": t for k, t in tree.items()})
+    return out
+
+
+@pytest.mark.parametrize("name,compress", [
+    ("smollm-135m", False), ("smollm-135m", True), (GRANITE, False),
+    (DEEPSEEK, False), (SEAMLESS, False)])
+def test_donated_step_equals_non_donated(name, compress):
+    """Two steps of the donating step give, bit for bit, the params,
+    moments, count, step (and error accumulators) of the non-donating
+    one, the metrics too; the donated state's tensors are the caller's
+    old ones, now holding the new values."""
+    cfg = (tcfg.get_arch(name).reduced() if name == "smollm-135m"
+           else _cfg(tcfg, name))
+    if cfg.encoder is not None or cfg.vision is not None:
+        model0 = params_from_numpy(cfg, _reference(name)[1], device="cpu")
+    else:
+        model0 = build(cfg).init(5, device="cpu")
+    ts = TrainStepConfig(optimizer=AdamWConfig(lr=cosine_schedule(
+        LR, warmup=1, total=4)), grad_compress=compress)
+    keep = train_state_from_model(cfg, model0, ts)
+    keep = {"params": {k: v.clone() for k, v in keep["params"].items()},
+            "opt": keep["opt"], "step": keep["step"].clone(),
+            **({"ef": keep["ef"]} if compress else {})}
+    give = train_state_from_model(
+        cfg, params_from_numpy(cfg, params_to_numpy(cfg, model0),
+                               device="cpu"), ts)
+    before = {k: t for k, t in _flat_state(give).items()}
+    plain = make_train_step(cfg, "cpu", ts, donate=False)
+    donating = make_train_step(cfg, "cpu", ts)
+    for i in range(2):
+        batch = _batch(cfg, seed=20 + i)
+        keep, m_keep = plain(keep, batch)
+        give, m_give = donating(give, batch)
+        for key in m_keep:
+            assert torch.equal(m_keep[key], m_give[key]), key
+    got, want = _flat_state(give), _flat_state(keep)
+    assert got.keys() == want.keys() == before.keys()
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        assert torch.equal(got[key], want[key]), key
+        assert got[key] is before[key], key       # the old tensors
+    assert int(give["step"]) == 2
+
+
+@pytest.mark.parametrize("state_dtype", [torch.float32, torch.bfloat16])
+def test_adamw_update_in_place_is_bit_identical(state_dtype):
+    """Five AdamW steps in place (``adamw_update_``) against five that
+    return new tensors, with clipping and the cosine schedule, float32
+    and bf16 leaves: the same bits, in the caller's tensors, and the
+    gradients consumed."""
+    from repro_torch.optim import adamw_init, adamw_update, adamw_update_
+    g = torch.Generator().manual_seed(3)
+    params = {"w": torch.randn(7, 5, generator=g),
+              "b": torch.randn(9, generator=g).bfloat16()}
+    cfg = AdamWConfig(lr=cosine_schedule(1e-2, warmup=2, total=5),
+                      grad_clip=0.5, state_dtype=state_dtype)
+    ref_p = {k: v.clone() for k, v in params.items()}
+    ref_s = adamw_init(ref_p, cfg)
+    state = adamw_init(params, cfg)
+    ids = {k: id(v) for k, v in params.items()}
+    for _ in range(5):
+        grads = {k: torch.randn(v.shape, generator=g).to(v.dtype)
+                 for k, v in params.items()}
+        ref_p, ref_s, m_ref = adamw_update(dict(grads), ref_s, ref_p, cfg)
+        params, state, m_in = adamw_update_(grads, state, params, cfg)
+        assert grads == {}
+        for key in m_ref:
+            assert torch.equal(m_ref[key], m_in[key]), key
+    assert {k: id(v) for k, v in params.items()} == ids
+    assert int(state.count) == int(ref_s.count) == 5
+    for key in params:
+        for got, want in ((params[key], ref_p[key]), (state.m[key],
+                          ref_s.m[key]), (state.v[key], ref_s.v[key])):
+            assert got.dtype == want.dtype and torch.equal(got, want), key
+
+
+def test_no_grad_casts_follow_a_donated_step():
+    """``cast_weight`` caches its bf16 casts under ``no_grad``; a donated
+    step updates the weights in place, and the next no-grad forward casts
+    them anew: a model that shares the state's tensors serves the trained
+    weights, as a fresh model holding them does."""
+    cfg = tcfg.get_arch("smollm-135m").reduced()
+    model = build(cfg).init(1, device="cpu")
+    state = train_state_from_model(cfg, model)
+    tok = torch.from_numpy(_batch(cfg, b=1, s=8)["tokens"])
+    bundle = build(cfg)
+    first, _ = bundle.prefill(model, tok)            # fills the cast cache
+    assert any("_casts" in m.__dict__ for m in model.modules())
+    make_train_step(cfg, "cpu")(state, _batch(cfg, seed=4))
+    after, _ = bundle.prefill(model, tok)
+    fresh = params_from_numpy(cfg, params_to_numpy(cfg, model),
+                              device="cpu")
+    want, _ = bundle.prefill(fresh, tok)
+    assert not torch.equal(after, first)
+    torch.testing.assert_close(after, want, atol=0, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The trainer, the launcher, the config algebra
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", [SEAMLESS, VISION])
+def test_trainer_batch_carries_bf16_memory(name, tmp_path):
+    """``Trainer._device_batch`` carries the pipeline's memory, cast to
+    bf16 as the reference's trainer casts it, and the trainer trains a
+    memory arch on it (finite losses; the step counts)."""
+    from repro_torch.data import synthetic_batch
+    cfg = _cfg(tcfg, name)
+    t = 4 if cfg.encoder is not None else cfg.vision.n_image_tokens
+    data = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2,
+                      memory_tokens=t, d_model=cfg.d_model)
+    tr = Trainer(cfg, data, TrainerConfig(total_steps=2,
+                                          checkpoint_every=100,
+                                          checkpoint_dir=str(tmp_path),
+                                          log_every=100), device="cpu")
+    batch = tr._device_batch(3)
+    host = synthetic_batch(data, 3)
+    assert set(batch) == {"tokens", "memory"}
+    assert batch["memory"].dtype == torch.bfloat16
+    assert batch["memory"].shape == (2, t, cfg.d_model)
+    torch.testing.assert_close(batch["memory"], torch.from_numpy(
+        host["memory"]).bfloat16(), atol=0, rtol=0)
+    state = tr.run()
+    assert int(state["step"]) == 2
+    assert all(np.isfinite(h.loss) for h in tr.history)
+
+
+def test_trainer_memory_reaches_the_loss(tmp_path):
+    """The memory is not dropped on the way to the loss: the trainer's
+    first step on a memory arch gives the loss of ``loss_fn`` with the
+    memory, not without it."""
+    cfg = _cfg(tcfg, VISION)
+    data = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2,
+                      memory_tokens=cfg.vision.n_image_tokens,
+                      d_model=cfg.d_model)
+    tr = Trainer(cfg, data, TrainerConfig(total_steps=1,
+                                          checkpoint_every=100,
+                                          checkpoint_dir=str(tmp_path),
+                                          log_every=100), device="cpu")
+    model = params_from_numpy(cfg, _reference(VISION)[1], device="cpu")
+    state = train_state_from_model(cfg, model, tr.scfg)
+    batch = tr._device_batch(0)
+    with torch.no_grad():
+        with_mem = float(loss_fn(cfg, model, batch)[0])
+        without = float(loss_fn(cfg, model, {"tokens": batch["tokens"]})[0])
+    assert abs(with_mem - without) > 1e-3
+    _, metrics = tr.step_fn(state, batch)
+    assert float(metrics["loss"]) == pytest.approx(with_mem, abs=1e-6)
+
+
+def test_train_launcher_refuses_an_encoder_arch(tmp_path):
+    """The train launcher makes no frame embeddings: an encoder arch
+    raises ``ValueError`` naming the Trainer route (the reference's
+    launcher fails with an ``AttributeError`` on ``None.astype``)."""
+    from repro_torch.launch.train import main, train
+    with pytest.raises(ValueError, match="memory_tokens=seq // 4"):
+        train(SEAMLESS, steps=1, device="cpu", ckpt_dir=str(tmp_path))
+    with pytest.raises(ValueError, match="Trainer"):
+        main(["--arch", SEAMLESS, "--device", "cpu", "--steps", "1",
+              "--ckpt-dir", str(tmp_path)])
+
+
+def test_train_launcher_gives_vision_its_image_tokens(tmp_path):
+    """A vision arch trains through the launcher with ``n_image_tokens``
+    stub embeddings a sequence, as the reference's launcher gives it."""
+    from repro_torch.launch.train import train
+    trainer, state = train(VISION, steps=1, seq=16, batch=1, device="cpu",
+                           ckpt_dir=str(tmp_path), log_every=100)
+    assert trainer.data.memory_tokens == \
+        tcfg.get_arch(VISION).reduced().vision.n_image_tokens
+    assert int(state["step"]) == 1
+    assert np.isfinite(trainer.history[0].loss)
+
+
+@pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
+@pytest.mark.parametrize("name", sorted(tcfg.ARCHS))
+def test_count_params_and_flops_match_reference(name, reduced):
+    """``count_params`` (all and active) and ``model_flops`` (train and
+    inference) equal the reference's config algebra for every config."""
+    from repro import configs as rcfgs
+    from repro.models.transformer import count_params as jcount
+    from repro.models.transformer import model_flops as jflops
+    cfg, rcfg = tcfg.get_arch(name), rcfgs.get_arch(name)
+    if reduced:
+        cfg, rcfg = cfg.reduced(), rcfg.reduced()
+    for active in (False, True):
+        assert count_params(cfg, active) == jcount(rcfg, active)
+    for mode in ("train", "decode"):
+        assert model_flops(cfg, 4096, mode) == jflops(rcfg, 4096, mode)
+    bundle = build(cfg)
+    assert bundle.num_active_params() == count_params(cfg, True)
+    assert bundle.flops(4096) == 6.0 * count_params(cfg, True) * 4096
+    if name == GRANITE and not reduced:
+        assert count_params(cfg) == 3_374_195_712
+        assert count_params(cfg, True) == 958_276_608
+
+
+def _left_out(name: str, p: torch.Tensor) -> bool:
+    """A weight the reference's ``count_params`` does not count: norm
+    gains, biases, gates and the RG-LRU's ``a_param`` (at most 1-d),
+    depthwise conv kernels, the encoder's adapter and the MTP head."""
+    return (p.dim() <= 1 or name.endswith("conv_w")
+            or name == "encoder.adapter" or name.startswith("mtp."))
+
+
+@pytest.mark.parametrize("name", sorted(tcfg.ARCHS))
+def test_num_params_from_tensors(name):
+    """``ModelBundle.num_params`` counts the model's tensors, which are
+    the reference's weights leaf for leaf: ``count_params`` plus the
+    weights its algebra leaves out."""
+    cfg = tcfg.get_arch(name).reduced()
+    model = Model(cfg, device="meta")
+    n = build(cfg).num_params(model)
+    left = sum(p.numel() for k, p in model.named_parameters()
+               if _left_out(k, p))
+    assert n - left == count_params(cfg)
+    assert left < 0.25 * n
