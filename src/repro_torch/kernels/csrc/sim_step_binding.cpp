@@ -4,7 +4,8 @@
 // cores; float32: CUDA cores): the flash-attention forward in
 // flash_attention.cu and flash_attention_fma.cu, its backward in
 // flash_attention_bwd.cu and flash_attention_bwd_fma.cu, and the SSD
-// chunked scan in ssd_scan.cu and ssd_scan_fma.cu.
+// chunked scan in ssd_scan.cu and ssd_scan_fma.cu; the SSD scan's
+// backward (ssd_scan_bwd.cu) takes either dtype.
 //
 // The only file of the extension that includes PyTorch's headers, and
 // only the few it needs (the tensor, the pybind11 tensor caster and the
@@ -118,6 +119,19 @@ cudaError_t ssd_scan_fwd_fma(const float* x, const float* dt,
                              const float* state_in, float* y,
                              float* state_out, int b, int len, int h, int p,
                              int g, int n, int q, cudaStream_t stream);
+
+// The SSD scan's backward, bfloat16 or float32 operands (bf16 != 0): the
+// CUDA-core kernels of ssd_scan_bwd.cu.
+cudaError_t ssd_scan_backward(const void* x, const float* dt,
+                              const float* a_log, const void* bm,
+                              const void* cm, const float* d_skip,
+                              const float* state_in, const void* dy,
+                              const float* dfinal, int bf16, float* dx,
+                              float* ddt, float* db, float* dc,
+                              float* dstate, float* parts, double* cum,
+                              float* states, float* pulls, float* sdot,
+                              double* rows, int b, int len, int h, int p,
+                              int g, int n, int q, cudaStream_t stream);
 
 namespace {
 
@@ -574,6 +588,96 @@ void ssd_scan(const at::Tensor& x, const at::Tensor& dt,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// The backward of ssd_scan: x, dy (B, L, H, P), b_mat and c_mat (B, L,
+// G, N) bfloat16 or float32; dt (B, L, H), a_log and d_skip (H,) float32;
+// state_in and dfinal (B, H, N, P) float32, empty for zero.  Outputs,
+// float32: dx like x, ddt like dt, db and dc (B, L, H, N) per head, dstate
+// (B, H, N, P) (empty without state_in), parts (2, B, H, n_chunks).
+// Scratch: cum (B, H, L) float64, states and pulls (B, H, n_chunks, N, P)
+// float32, sdot (B, H, n_chunks) float32, rows (5, B, H, L) float64.
+void ssd_scan_bwd(const at::Tensor& x, const at::Tensor& dt,
+                  const at::Tensor& a_log, const at::Tensor& b_mat,
+                  const at::Tensor& c_mat, const at::Tensor& d_skip,
+                  const at::Tensor& state_in, const at::Tensor& dy,
+                  const at::Tensor& dfinal, int64_t chunk, at::Tensor& dx,
+                  at::Tensor& ddt, at::Tensor& db, at::Tensor& dc,
+                  at::Tensor& dstate, at::Tensor& parts, at::Tensor& cum,
+                  at::Tensor& states, at::Tensor& pulls, at::Tensor& sdot,
+                  at::Tensor& rows) {
+  const auto xt = x.scalar_type();
+  TORCH_CHECK(xt == at::kFloat || xt == at::kBFloat16,
+              "ssd_scan_bwd takes float32 or bfloat16 x");
+  check_cuda(x, "x", xt);
+  check_cuda(dy, "dy", xt);
+  check_cuda(b_mat, "b_mat", xt);
+  check_cuda(c_mat, "c_mat", xt);
+  check_cuda(dt, "dt", at::kFloat);
+  check_cuda(a_log, "a_log", at::kFloat);
+  check_cuda(d_skip, "d_skip", at::kFloat);
+  for (const at::Tensor* t : {&dx, &ddt, &db, &dc, &parts, &states, &pulls,
+                              &sdot})
+    check_cuda(*t, "an output or scratch", at::kFloat);
+  check_cuda(cum, "cum", at::kDouble);
+  check_cuda(rows, "rows", at::kDouble);
+  TORCH_CHECK(x.dim() == 4 && b_mat.dim() == 4 &&
+                  b_mat.sizes() == c_mat.sizes() && dy.sizes() == x.sizes(),
+              "x and dy must be (B, L, H, P) and b_mat, c_mat (B, L, G, N)");
+  const int64_t b = x.size(0), len = x.size(1), h = x.size(2), p = x.size(3);
+  const int64_t g = b_mat.size(2), n = b_mat.size(3);
+  TORCH_CHECK(chunk >= 1, "chunk must be >= 1");
+  const int64_t nc = (len + chunk - 1) / chunk;
+  TORCH_CHECK(dt.dim() == 3 && dt.size(0) == b && dt.size(1) == len &&
+                  dt.size(2) == h, "dt must be (B, L, H)");
+  TORCH_CHECK(b_mat.size(0) == b && b_mat.size(1) == len && h % g == 0,
+              "b_mat does not match x");
+  TORCH_CHECK(a_log.numel() == h && d_skip.numel() == h,
+              "a_log and d_skip must hold H values");
+  TORCH_CHECK(dx.numel() == b * len * h * p && ddt.numel() == b * len * h &&
+                  db.numel() == b * len * h * n && dc.numel() == db.numel() &&
+                  parts.numel() == 2 * b * h * nc,
+              "dx, ddt, db, dc or parts has the wrong size");
+  TORCH_CHECK(cum.numel() == b * h * len &&
+                  states.numel() == b * h * nc * n * p &&
+                  pulls.numel() == states.numel() &&
+                  sdot.numel() == b * h * nc && rows.numel() == 5 * b * h * len,
+              "the scratch has the wrong size");
+  const float* s_in = nullptr;
+  float* ds_out = nullptr;
+  if (state_in.numel() != 0) {
+    check_cuda(state_in, "state_in", at::kFloat);
+    check_cuda(dstate, "dstate", at::kFloat);
+    TORCH_CHECK(state_in.numel() == b * h * n * p &&
+                    dstate.numel() == state_in.numel(),
+                "state_in and dstate must be (B, H, N, P)");
+    s_in = state_in.data_ptr<float>();
+    ds_out = dstate.data_ptr<float>();
+  }
+  const float* df = nullptr;
+  if (dfinal.numel() != 0) {
+    check_cuda(dfinal, "dfinal", at::kFloat);
+    TORCH_CHECK(dfinal.numel() == b * h * n * p, "dfinal must be "
+                "(B, H, N, P)");
+    df = dfinal.data_ptr<float>();
+  }
+  const c10::cuda::CUDAGuard guard(x.device());
+  const cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
+  if (b * len * h * p == 0) return;
+  const cudaError_t err = ssd_scan_backward(
+      x.data_ptr(), dt.data_ptr<float>(), a_log.data_ptr<float>(),
+      b_mat.data_ptr(), c_mat.data_ptr(), d_skip.data_ptr<float>(), s_in,
+      dy.data_ptr(), df, xt == at::kBFloat16 ? 1 : 0, dx.data_ptr<float>(),
+      ddt.data_ptr<float>(), db.data_ptr<float>(), dc.data_ptr<float>(),
+      ds_out, parts.data_ptr<float>(), cum.data_ptr<double>(),
+      states.data_ptr<float>(), pulls.data_ptr<float>(),
+      sdot.data_ptr<float>(), rows.data_ptr<double>(), static_cast<int>(b),
+      static_cast<int>(len), static_cast<int>(h), static_cast<int>(p),
+      static_cast<int>(g), static_cast<int>(n), static_cast<int>(chunk),
+      stream);
+  TORCH_CHECK(err == cudaSuccess, "ssd_scan_bwd launch failed: ",
+              cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -593,4 +697,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_dkv", &flash_dkv,
         "flash-attention backward, dk and dv per q head (CUDA)");
   m.def("ssd_scan", &ssd_scan, "Mamba-2 SSD chunked scan (CUDA)");
+  m.def("ssd_scan_bwd", &ssd_scan_bwd,
+        "backward of the Mamba-2 SSD chunked scan (CUDA)");
 }

@@ -5,7 +5,10 @@ Counterpart of ``repro/kernels/ops.py``.  The reference picks between
 its Pallas kernels and a blocked jnp path (``impl``); the port has one
 route per device: on CUDA tensors ``attention`` and ``ssd`` launch the
 hand-written kernels, on CPU tensors they run the kernels' plain
-versions, and nothing falls from one to the other.  The reference's
+versions, and nothing falls from one to the other.  Both are
+differentiable through backward kernels; the reference trains the SSD by
+autodiff of its jnp path, the port through a backward kernel of its own
+(``csrc/ssd_scan_bwd.cu``).  The reference's
 ``REPRO_PERF`` variants (grouped GQA, bfloat16 probabilities, another SSD
 chunk) are not ported: K/V and the probabilities are float32 and the
 chunk is the config's.  The RG-LRU has no kernel in the reference
@@ -19,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from .flash_attention import FlashAttention
-from .ssd_scan import ssd_scan
+from .ssd_scan import SSDScan
 
 __all__ = ["attention", "ssd", "ssd_decode_step", "rglru",
            "rglru_decode_step"]
@@ -54,11 +57,14 @@ def attention(q, k, v, *, causal: bool = True, window=None,
 def ssd(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int = 256,
         state=None):
     """Mamba-2 SSD over a full sequence; returns ``(y, final_state)``,
-    both from the chunked-scan kernel (its plain version on the CPU)."""
-    return ssd_scan(x.contiguous(), dt.float().contiguous(),
-                    a_log.float().contiguous(), b_mat.contiguous(),
-                    c_mat.contiguous(), d_skip.float().contiguous(),
-                    chunk=chunk, state=state)
+    both from the chunked-scan kernel (its plain version on the CPU),
+    differentiable in every operand through the backward kernel
+    (:class:`~repro_torch.kernels.ssd_scan.SSDScan`); under ``no_grad``
+    one forward launch."""
+    return SSDScan.apply(x.contiguous(), dt.float().contiguous(),
+                         a_log.float().contiguous(), b_mat.contiguous(),
+                         c_mat.contiguous(), d_skip.float().contiguous(),
+                         state, chunk)
 
 
 def ssd_decode_step(state, x_t, dt_t, a_log, b_t, c_t, d_skip):

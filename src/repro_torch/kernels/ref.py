@@ -12,8 +12,9 @@ the mask epilogues, which the analytic ``dense`` engine shares.
 ``attention_ref`` and ``ssd_ref`` are the oracles of the model kernels,
 as in the reference: masked softmax attention in one piece, and the SSD
 as its exact sequential recurrence.  ``ssd_scan_chunked_ref`` mirrors the
-three phases of the bf16 SSD kernels, and the ``terms`` options of it and
-of ``flash_attention_ref`` emulate how the tensor-core kernels multiply a
+three phases of the bf16 SSD kernels, and ``ssd_scan_bwd_ref`` is its
+backward, written by hand.  The ``terms`` options of
+``ssd_scan_chunked_ref`` and of ``flash_attention_ref`` emulate how the tensor-core kernels multiply a
 float32 operand (tests and ``chip_smoke.py`` only).  ``moe_dense_ref``
 is the oracle of the MoE block's route (the reference's ``_dense_path``),
 which has no kernel.
@@ -30,7 +31,8 @@ __all__ = ["fused_step_update_ref", "fused_decision_ref", "tile_live",
            "flash_attention_ref",
            "flash_attention_dq_ref", "flash_attention_dkv_ref",
            "flash_attention_bwd_ref", "bf16_split3", "split_matmul",
-           "ssd_scan_ref", "ssd_scan_chunked_ref", "attention_ref",
+           "ssd_scan_ref", "ssd_scan_chunked_ref", "ssd_scan_bwd_ref",
+           "attention_ref",
            "ssd_ref", "moe_dense_ref", "NEG_INF"]
 
 DEST_TILE = 128
@@ -460,6 +462,118 @@ def ssd_scan_chunked_ref(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int,
         y = y + xc * d_skip.float()[None, :, None, None]
         ys.append(y.transpose(1, 2))
     return torch.cat(ys, dim=1).to(x.dtype), s
+
+
+def ssd_scan_bwd_ref(x, dt, a_log, b_mat, c_mat, d_skip, dy, *, chunk: int,
+                     state=None, dfinal=None):
+    """Gradients of :func:`ssd_scan_chunked_ref`'s ``(y, final_state)``
+    given ``dy`` (like y) and ``dfinal`` (like the final state, or None
+    for zero): ``(dx, ddt, da_log, db, dc, dd_skip, dstate)``, float32 in
+    the inputs' shapes, ``dstate`` None without an initial state.
+
+    Written by hand from the three phases of the chunked form, in the
+    order of the backward kernels (``csrc/ssd_scan_bwd.cu``).  Per (b, h)
+    and chunk, with ``cum`` the in-chunk cumsum of dt a (float64),
+    ``L_ij = exp(cum_i - cum_j)`` on and below the diagonal, ``w_j =
+    exp(cum[-1] - cum_j)``, ``S_in`` the state entering the chunk and
+    ``dS`` the gradient of the state leaving it:
+
+    1. each chunk's own state ``B^T (x dt w)`` and the pull of its output
+       on its entering state, ``C^T (exp(cum) dy)``;
+    2. state passing, forward to give every ``S_in``, then in reverse
+       from ``dfinal``: ``dS_in = exp(cum[-1]) dS + C^T (exp(cum) dy)``;
+    3. per chunk, with ``G_ij = dy_i . x_j`` and ``Z = G L dt_j``:
+       ``dx = dt ((C B^T L)^T dy + w (B dS)) + D dy``, ``dC = Z B +
+       exp(cum) (dy S_in^T)``, ``dB = Z^T C + w dt (x dS^T)``, the direct
+       ``ddt = sum_i (C_i.B_j) L_ij G_ij + w x.(B dS)``, and ``dcum``
+       (row sums less column sums of ``M = (C B^T) L dt_j G``, the
+       ``exp(cum) dy.(C S_in)`` term, the two terms of the leaving state
+       on the last row and ``-w dt x.(B dS)``), whose reverse cumsum is
+       the gradient of dt a.
+
+    Float32 throughout; the cumsums (forward and reverse) and the terms
+    of ``dcum`` in float64: its row and column sums of ``M`` cancel in
+    the reverse cumsum, and summed in float32 they put 2e-4 of d a_log's
+    size into it at a real layer's decay."""
+    bsz, length, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    rep = h // g
+    f32 = torch.float32
+    a = -torch.exp(a_log.float())
+    xf, dtf, dyf = x.float(), dt.float(), dy.float()
+    bf = b_mat.float().repeat_interleave(rep, dim=2)
+    cf = c_mat.float().repeat_interleave(rep, dim=2)
+    dsk = d_skip.float()[None, :, None, None]
+    chunks = []
+    for c0 in range(0, length, chunk):
+        dtc = dtf[:, c0:c0 + chunk].transpose(1, 2)          # (B, H, Q)
+        cum = torch.cumsum((dtc * a[None, :, None]).double(), -1)
+        chunks.append((xf[:, c0:c0 + chunk].transpose(1, 2), dtc,
+                       bf[:, c0:c0 + chunk].transpose(1, 2),
+                       cf[:, c0:c0 + chunk].transpose(1, 2),
+                       dyf[:, c0:c0 + chunk].transpose(1, 2), cum,
+                       torch.exp((cum[..., -1:] - cum).float()),
+                       torch.exp(cum.float())))
+    own, pull = [], []                                       # 1.
+    for xc, dtc, bc, cc, dyc, _, w, ecum in chunks:
+        own.append(bc.transpose(-1, -2) @ (xc * (dtc * w)[..., None]))
+        pull.append(cc.transpose(-1, -2) @ (dyc * ecum[..., None]))
+    s = (torch.zeros((bsz, h, n, p), dtype=f32, device=x.device)
+         if state is None else state.float())
+    s_in = []                                                # 2.
+    for ch, lc in zip(chunks, own):
+        s_in.append(s)
+        s = torch.exp(ch[5][..., -1:].float())[..., None] * s + lc
+    ds = (torch.zeros((bsz, h, n, p), dtype=f32, device=x.device)
+          if dfinal is None else dfinal.float())
+    ds_out = [None] * len(chunks)
+    for c in reversed(range(len(chunks))):
+        ds_out[c] = ds
+        ds = torch.exp(chunks[c][5][..., -1:].float())[..., None] * ds \
+            + pull[c]
+    dxs, ddts, dbs, dcs = [], [], [], []                     # 3.
+    da = torch.zeros((bsz, h), dtype=torch.float64, device=x.device)
+    for (xc, dtc, bc, cc, dyc, cum, w, ecum), si, so in zip(chunks, s_in,
+                                                             ds_out):
+        q = xc.shape[2]
+        causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+        seg = torch.where(causal,
+                          (cum[..., :, None] - cum[..., None, :]).float(),
+                          float("-inf"))
+        lmat = torch.exp(seg)
+        sl = (cc @ bc.transpose(-1, -2)) * lmat              # C B^T L
+        gm = dyc @ xc.transpose(-1, -2)                      # G_ij
+        y_ = gm * lmat                                       # G L
+        z = y_ * dtc[..., None, :]                           # G L dt_j
+        bds = bc @ so                                        # B dS
+        dys = dyc @ si.transpose(-1, -2)                     # dy S_in^T
+        xbds = (xc * bds).sum(-1)                            # x.(B dS)
+        dxs.append((dtc[..., None] * (sl.transpose(-1, -2) @ dyc
+                                      + w[..., None] * bds)
+                    + dsk * dyc).transpose(1, 2))
+        dcs.append((z @ bc + ecum[..., None] * dys).transpose(1, 2))
+        dbs.append((dtc[..., None] * (y_.transpose(-1, -2) @ cc
+                                      + w[..., None] * (xc @ so.transpose(
+                                          -1, -2)))).transpose(1, 2))
+        qdir = (sl * gm).sum(-2)                 # sum_i (C_i.B_j) L_ij G_ij
+        t = w * dtc * xbds
+        m = (sl * gm * dtc[..., None, :]).double()   # M_ij
+        dcum = m.sum(-1) - m.sum(-2) - t.double() \
+            + (ecum * (cc * dys).sum(-1)).double()
+        dcum[..., -1] += (torch.exp(cum[..., -1].float())
+                          * (si * so).sum((-1, -2))).double() \
+            + t.double().sum(-1)
+        dda = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+        ddts.append((qdir + w * xbds + a[None, :, None] * dda.float())
+                    .transpose(1, 2))
+        da += (dtc.double() * dda).sum(-1)
+    dx = torch.cat(dxs, dim=1)
+    db = torch.cat(dbs, dim=1).reshape(bsz, length, g, rep, n).sum(3)
+    dc = torch.cat(dcs, dim=1).reshape(bsz, length, g, rep, n).sum(3)
+    da_log = a * da.sum(0).float()
+    dd = (dyf * xf).sum((0, 1, 3))
+    return (dx, torch.cat(ddts, dim=1), da_log, db, dc, dd,
+            ds if state is not None else None)
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window=None,

@@ -21,6 +21,16 @@ tensor-core kernels take d_state 64, 128 or 256 and a head size that is
 a multiple of 64: the wrapper zero-pads any other d_state up to 256 and
 head size (the padded rows and columns of B, C, x and the state add
 nothing to y or to the state), and cuts y and the state back.
+
+The backward, :func:`ssd_scan_bwd`, has no counterpart among the Pallas
+kernels: the reference trains the SSD by autodiff of its jnp path
+(``_ssd_jnp_chunked``, ``repro/kernels/ops.py:145``).  On CUDA tensors it
+launches the hand-written kernels of ``csrc/ssd_scan_bwd.cu`` (float32
+arithmetic on the CUDA cores, bf16 or float32 operands, any d_state and
+head size: the padding of the forward's wrapper never reaches it), on CPU
+tensors its plain version :func:`repro_torch.kernels.ref.
+ssd_scan_bwd_ref`, and raises elsewhere; each call counts one launch.
+:class:`SSDScan` is the autograd Function over both.
 """
 
 from __future__ import annotations
@@ -29,12 +39,13 @@ import torch
 import torch.nn.functional as F
 
 from .flash_attention import _aligned
-from .ref import ssd_scan_ref
+from .ref import ssd_scan_bwd_ref, ssd_scan_ref
 
-__all__ = ["ssd_scan", "LAUNCHES", "reset_launches", "MAX_CHUNK"]
+__all__ = ["ssd_scan", "ssd_scan_bwd", "SSDScan", "LAUNCHES",
+           "reset_launches", "MAX_CHUNK"]
 
 # kernel launches on the card since the last reset_launches()
-LAUNCHES = {"ssd_scan": 0}
+LAUNCHES = {"ssd_scan": 0, "ssd_scan_bwd": 0}
 
 MAX_CHUNK = 256          # chunk rows one block handles
 MAX_STATE = 256          # d_state the kernels take
@@ -62,16 +73,9 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int,
-             state=None):
-    """``(y, final_state)`` of the SSD over a sequence.
-
-    x: (B, L, H, P) float32 or bfloat16; dt: (B, L, H) float32 positive
-    step sizes; a_log, d_skip: (H,) float32; b_mat, c_mat: (B, L, G, N) in
-    x's dtype, H % G == 0; state: optional (B, H, N, P) float32 initial
-    state.  ``y`` in x's dtype, ``final_state`` (B, H, N, P) float32.
-    The chunk is ``min(chunk, L)``.
-    """
+def _check_inputs(x, dt, a_log, b_mat, c_mat, d_skip, chunk, state):
+    """Checks the operands of the scan and its backward; returns ``(g, n,
+    chunk)`` with the chunk cut to the length."""
     if not isinstance(x, torch.Tensor) or x.dim() != 4:
         raise ValueError("x must be a 4-d tensor (B, L, H, P)")
     if x.dtype not in _DTYPES:
@@ -95,6 +99,23 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int,
     chunk = min(int(chunk), length)
     if chunk < 1:
         raise ValueError("ssd_scan needs a chunk and a length >= 1")
+    return g, n, chunk
+
+
+def ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int,
+             state=None):
+    """``(y, final_state)`` of the SSD over a sequence.
+
+    x: (B, L, H, P) float32 or bfloat16; dt: (B, L, H) float32 positive
+    step sizes; a_log, d_skip: (H,) float32; b_mat, c_mat: (B, L, G, N) in
+    x's dtype, H % G == 0; state: optional (B, H, N, P) float32 initial
+    state.  ``y`` in x's dtype, ``final_state`` (B, H, N, P) float32.
+    The chunk is ``min(chunk, L)``.
+    """
+    g, n, chunk = _check_inputs(x, dt, a_log, b_mat, c_mat, d_skip, chunk,
+                                state)
+    bsz, length, h, p = x.shape
+    dev, f32 = x.device, torch.float32
     if dev.type == "cpu":
         return ssd_scan_ref(x, dt, a_log, b_mat, c_mat, d_skip, chunk=chunk,
                             state=state)
@@ -135,3 +156,90 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int,
         y = y[..., :p].contiguous()
         final = final[:, :, :n, :p].contiguous()
     return y, final
+
+
+def ssd_scan_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, *, chunk: int,
+                 state=None, dfinal=None):
+    """Gradients of :func:`ssd_scan`'s ``(y, final_state)``: ``(dx, ddt,
+    da_log, db, dc, dd_skip, dstate)``, float32 in the inputs' shapes,
+    ``dstate`` None without an initial state.  Operands as
+    :func:`ssd_scan`; ``dy`` like x, ``dfinal`` (B, H, N, P) float32 or
+    None (zero).  The chunk is ``min(chunk, L)``, as in the forward."""
+    g, n, chunk = _check_inputs(x, dt, a_log, b_mat, c_mat, d_skip, chunk,
+                                state)
+    bsz, length, h, p = x.shape
+    dev, f32 = x.device, torch.float32
+    _check("dy", dy, x.shape, x.dtype, dev)
+    if dfinal is not None:
+        _check("dfinal", dfinal, (bsz, h, n, p), f32, dev)
+    if dev.type == "cpu":
+        return ssd_scan_bwd_ref(x, dt, a_log, b_mat, c_mat, d_skip, dy,
+                                chunk=chunk, state=state, dfinal=dfinal)
+    if dev.type != "cuda":
+        raise ValueError(f"no ssd_scan_bwd kernel for device {dev}")
+    if chunk > MAX_CHUNK or n > MAX_STATE:
+        raise ValueError(f"the kernels take chunk <= {MAX_CHUNK} and "
+                         f"d_state <= {MAX_STATE}, got {chunk} and {n}")
+    from ._build import extension
+    ext = extension()
+    n_chunks = -(-length // chunk)
+    empty = torch.empty(0, dtype=f32, device=dev)
+    dx = torch.empty((bsz, length, h, p), dtype=f32, device=dev)
+    ddt = torch.empty((bsz, length, h), dtype=f32, device=dev)
+    db_h, dc_h = (torch.empty((bsz, length, h, n), dtype=f32, device=dev)
+                  for _ in range(2))
+    dstate = (torch.empty((bsz, h, n, p), dtype=f32, device=dev)
+              if state is not None else empty)
+    # per (b, h, chunk) partials of d a_log and d d_skip
+    parts = torch.empty((2, bsz, h, n_chunks), dtype=f32, device=dev)
+    # scratch: the cumsum, each chunk's state and pull, then S_in and the
+    # leaving state's gradient in their place, and per-row dcum terms
+    cum = torch.empty((bsz, h, length), dtype=torch.float64, device=dev)
+    states, pulls = (torch.empty((bsz, h, n_chunks, n, p), dtype=f32,
+                                 device=dev) for _ in range(2))
+    sdot = torch.empty((bsz, h, n_chunks), dtype=f32, device=dev)
+    rows = torch.empty((5, bsz, h, length), dtype=torch.float64, device=dev)
+    ext.ssd_scan_bwd(x, dt, a_log, b_mat, c_mat, d_skip,
+                     state if state is not None else empty, dy,
+                     dfinal if dfinal is not None else empty, chunk, dx, ddt,
+                     db_h, dc_h, dstate, parts, cum, states, pulls, sdot,
+                     rows)
+    LAUNCHES["ssd_scan_bwd"] += 1
+    rep = h // g
+    # the fixed-axis sums: heads of a group, and (batch, chunk) partials
+    db = db_h.view(bsz, length, g, rep, n).sum(3)
+    dc = dc_h.view(bsz, length, g, rep, n).sum(3)
+    da_log, dd = parts.sum((1, 3))
+    return (dx, ddt, da_log, db, dc, dd,
+            dstate if state is not None else None)
+
+
+class SSDScan(torch.autograd.Function):
+    """Differentiable :func:`ssd_scan`: the forward kernel, and
+    :func:`ssd_scan_bwd` for the gradients of all its operands (the
+    state's too, where one is given).  Saves the operands, not the
+    forward's scratch: the backward recomputes the chunk states.  An
+    unused output gives its gradient as None (zero) to the backward.
+    Under ``no_grad`` it is one forward launch and saves nothing."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b_mat, c_mat, d_skip, state, chunk):
+        y, final = ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, chunk=chunk,
+                            state=state)
+        ctx.save_for_backward(x, dt, a_log, b_mat, c_mat, d_skip, state)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, a_log, b_mat, c_mat, d_skip, state = ctx.saved_tensors
+        dy = (torch.zeros_like(x) if dy is None
+              else dy.to(x.dtype).contiguous())
+        if dfinal is not None:
+            dfinal = dfinal.float().contiguous()
+        dx, ddt, da_log, db, dc, dd, ds = ssd_scan_bwd(
+            x, dt, a_log, b_mat, c_mat, d_skip, dy, chunk=ctx.chunk,
+            state=state, dfinal=dfinal)
+        return (dx.to(x.dtype), ddt, da_log, db.to(b_mat.dtype),
+                dc.to(c_mat.dtype), dd, ds, None)

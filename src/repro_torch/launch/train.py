@@ -4,13 +4,16 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --reduced --device cpu --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
-      --full --seq 2048 --batch 8 --steps 20
+      --seq 2048 --batch 8 --steps 20
 
-The data is the reference's synthetic LM stream and the weights are
-random, drawn from ``--seed``; a vision arch gets the pipeline's stub
-image embeddings, and an encoder arch (seamless) is refused: train it
-through :class:`~repro_torch.train.Trainer` with ``DataConfig(
-memory_tokens=seq // frame_ratio, d_model=...)``.  Checkpoints land
+With no size flag it trains the published config, as the reference's
+launcher does; ``--reduced`` picks the CPU-sized variant of the same
+family (``--full`` names the default).  The data is the reference's
+synthetic LM stream and the weights are random, drawn from ``--seed``;
+a vision arch gets the pipeline's stub image embeddings, and an encoder
+arch (seamless) is refused: train it through
+:class:`~repro_torch.train.Trainer` with ``DataConfig(memory_tokens=seq
+// frame_ratio, d_model=...)``.  Checkpoints land
 in ``--ckpt-dir``; running again resumes exactly (the step, the data
 and the weights' seed are functions of the saved step).  The learning
 rate follows the reference launcher's cosine schedule (warmup
@@ -32,17 +35,18 @@ from ..train.trainer import DEFAULT_CKPT_DIR, Trainer, TrainerConfig
 __all__ = ["main", "train"]
 
 
-def train(arch: str, *, full: bool = False, steps: int = 200, seq: int = 128,
-          batch: int = 4, lr: float = 1e-3,
+def train(arch: str, *, reduced: bool = False, steps: int = 200,
+          seq: int = 128, batch: int = 4, lr: float = 1e-3,
           ckpt_dir: str = str(DEFAULT_CKPT_DIR), ckpt_every: int = 100,
           grad_compress: bool = False, seed: int = 0, log_every: int = 10,
           device=None, fault_hook=None):
     """Build the trainer and run it to ``steps``; returns ``(trainer,
-    state)``.  A vision arch trains with ``n_image_tokens`` stub image
-    embeddings a sequence, as the reference's launcher gives it.  An
-    encoder arch raises ``ValueError``: its frame count is a choice of
-    the caller's."""
-    cfg = get_arch(arch) if full else get_arch(arch).reduced()
+    state)``.  The published config of ``arch``, or its ``reduced()``
+    variant with ``reduced=True``.  A vision arch trains with
+    ``n_image_tokens`` stub image embeddings a sequence, as the
+    reference's launcher gives it.  An encoder arch raises
+    ``ValueError``: its frame count is a choice of the caller's."""
+    cfg = get_arch(arch).reduced() if reduced else get_arch(arch)
     if cfg.encoder is not None:
         raise ValueError(
             f"{arch}: the encoder's stub frontend needs frame embeddings, "
@@ -74,9 +78,9 @@ def main(argv=None):
     ap.add_argument("--arch", choices=sorted(ARCHS), required=True)
     size = ap.add_mutually_exclusive_group()
     size.add_argument("--full", action="store_true",
-                      help="the published config")
+                      help="the published config (the default)")
     size.add_argument("--reduced", action="store_true",
-                      help="CPU-sized variant of the same family (default)")
+                      help="CPU-sized variant of the same family")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--batch", type=int, default=4)
@@ -91,7 +95,7 @@ def main(argv=None):
                          "the kernels' plain versions on the CPU)")
     args = ap.parse_args(argv)
     trainer, state = train(
-        args.arch, full=args.full, steps=args.steps, seq=args.seq,
+        args.arch, reduced=args.reduced, steps=args.steps, seq=args.seq,
         batch=args.batch, lr=args.lr, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, grad_compress=args.grad_compress,
         seed=args.seed, device=args.device)

@@ -1,9 +1,10 @@
 """Mamba-2 (SSD) mixer block of the port: in_proj -> causal depthwise conv
 -> SiLU -> SSD -> gated RMSNorm -> out_proj.
 
-Counterpart of ``repro/models/ssm.py``.  Prefill runs the SSD through the
-chunked-scan kernel (:func:`repro_torch.kernels.ops.ssd`), which also
-returns the final state; decode keeps ``{"conv": (B, d_conv - 1,
+Counterpart of ``repro/models/ssm.py``.  Prefill and training run the
+SSD through the chunked-scan kernel (:func:`repro_torch.kernels.ops.ssd`),
+which also returns the final state and is differentiable through its
+backward kernel; decode keeps ``{"conv": (B, d_conv - 1,
 conv_dim), "state": (B, H, N, P)}`` and advances it one token in plain
 torch, O(1) per token.
 """
@@ -80,8 +81,10 @@ class SSDBlock(nn.Module):
 
     def forward(self, x, *, mode: str, cache=None):
         """mode 'prefill' (returns the cache; a given ``cache["state"]``
-        is the scan's initial state) or 'decode' (S = 1, advances
-        ``cache``).  Returns ``(y (B, S, M), cache)``."""
+        is the scan's initial state), 'train' (the prefill's branch with
+        no cache in or out, as in the reference) or 'decode' (S = 1,
+        advances ``cache``).  Returns ``(y (B, S, M), cache)``, the cache
+        None in training."""
         cfg, ssm = self.cfg, self.cfg.ssm
         b, s, _ = x.shape
         d_inner, h, conv_dim = _dims(cfg)
@@ -96,17 +99,15 @@ class SSDBlock(nn.Module):
                 + self.conv_b.float()
             xbc_act = F.silu(conv_out).to(x.dtype)[:, None]
             new_conv = window[:, 1:]
-        elif mode == "prefill":
+        elif mode in ("prefill", "train"):
             xbc_act = F.silu(_causal_conv(xbc, self.conv_w, self.conv_b)
                              .float()).to(x.dtype)
-            pad = max(0, ssm.d_conv - 1 - s)
-            new_conv = F.pad(xbc, (0, 0, pad, 0))[:, -(ssm.d_conv - 1):]
-        elif mode == "train":
-            raise NotImplementedError(
-                "training through the SSD has no backward kernel (the "
-                "reference has none either); see ROADMAP queue 1")
+            if mode == "prefill":
+                pad = max(0, ssm.d_conv - 1 - s)
+                new_conv = F.pad(xbc, (0, 0, pad, 0))[:, -(ssm.d_conv - 1):]
         else:
-            raise ValueError(f"mode {mode!r}: 'prefill' or 'decode'")
+            raise ValueError(f"mode {mode!r}: 'prefill', 'train' or "
+                             f"'decode'")
 
         xs, bmat, cmat = torch.split(xbc_act, [d_inner, gn, gn], dim=-1)
         xs = xs.reshape(b, -1, h, ssm.head_dim)
@@ -126,7 +127,8 @@ class SSDBlock(nn.Module):
             y, new_state = ops.ssd(xs, dt, self.a_log, bmat, cmat,
                                    self.d_skip, chunk=ssm.chunk,
                                    state=state_in)
-        new_cache = {"conv": new_conv.contiguous(), "state": new_state}
+        new_cache = (None if mode == "train" else
+                     {"conv": new_conv.contiguous(), "state": new_state})
 
         y = y.reshape(b, -1, d_inner)
         y = rms_norm(y * F.silu(z.float()).to(y.dtype), self.gate_norm,

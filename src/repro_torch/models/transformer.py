@@ -291,17 +291,11 @@ def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
     MoE layers' summed load-balancing loss in training (0 without MoE,
     and outside training)}`` plus ``"cache"`` outside training: the list
     of per-layer caches, or ``{"layers": [...], "enc_memory": (B, T, M)}``
-    where a memory was attended.  Training a model with SSD blocks raises
-    ``NotImplementedError``: the SSD has no backward kernel.  Training
-    an ``mtp`` config adds ``"mtp_logits"`` (B, S, V) float32: the MTP
-    head's prediction of token i + 2, through the final norm and the
-    head."""
+    where a memory was attended.  Training an ``mtp`` config adds
+    ``"mtp_logits"`` (B, S, V) float32: the MTP head's prediction of
+    token i + 2, through the final norm and the head."""
     cfg = model.cfg
     _, s = tokens.shape
-    if mode == "train" and any(b.kind == "ssd" for b in model.blocks):
-        raise NotImplementedError(
-            f"{cfg.name}: training through the SSD has no backward kernel "
-            f"(the reference has none either); see ROADMAP queue 1")
     memory = _memory(model, mode, cache, memory_inputs)
     h = F.embedding(tokens, model.embed).to(torch.bfloat16)
     if positions is None:

@@ -53,9 +53,14 @@ def adamw_init(params: dict, cfg: AdamWConfig = AdamWConfig()) -> AdamWState:
 
 
 def global_norm(tree: dict) -> torch.Tensor:
-    """sqrt of the sum over leaves of the float32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                          for t in tree.values()))
+    """sqrt of the sum over leaves of the float32 sum of squares, the
+    leaves added in the order of their sorted names, as
+    ``jax.tree.leaves`` orders a dict.  The sum's rounding, and so a
+    clipped step, must not depend on the dict's order: a state restored
+    from a checkpoint lists its leaves sorted, one in memory in the
+    model's order."""
+    return torch.sqrt(sum(torch.sum(torch.square(tree[k].float()))
+                          for k in sorted(tree)))
 
 
 def _prologue(grads: dict, count, cfg: AdamWConfig):

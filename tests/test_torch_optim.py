@@ -125,6 +125,22 @@ def test_global_norm_matches_reference():
                                                                rel=1e-6)
 
 
+def test_global_norm_does_not_depend_on_the_leaf_order():
+    """The leaves' sums of squares add in the order of their sorted names,
+    as ``jax.tree.leaves`` orders a dict: a state restored from a
+    checkpoint (its dicts sorted) steps as the state in memory (the
+    model's order) did, bit for bit, also where the norm clips."""
+    rng = np.random.default_rng(7)
+    g = {f"blocks.{i}.w{j}": torch.from_numpy(
+        (rng.normal(size=(rng.integers(1, 40), 7))
+         * 10.0 ** rng.integers(-3, 3)).astype(np.float32))
+        for i in range(12) for j in range(3)}
+    want = topt.global_norm(dict(sorted(g.items())))
+    for order in (list(g), list(reversed(g)),
+                  [k for k in rng.permutation(list(g))]):
+        assert torch.equal(topt.global_norm({k: g[k] for k in order}), want)
+
+
 @pytest.mark.parametrize("shape,scale", [((37, 13), 1e-3), ((256,), 10.0),
                                          ((5, 300), 1.0), ((4, 4), 0.0)])
 def test_compress_codes_identical_to_reference(shape, scale):

@@ -1,0 +1,251 @@
+"""The backward of the Mamba-2 SSD chunked scan in repro_torch.
+
+The reference has no backward kernel: it trains the SSD by autodiff of
+its jnp chunked path (``repro.kernels.ops.ssd(impl="jnp")``).  The port
+differentiates the scan through a kernel of its own
+(``csrc/ssd_scan_bwd.cu``) whose plain version, ``ssd_scan_bwd_ref``, is
+written by hand from the three phases of ``ssd_scan_chunked_ref``.  On
+the CPU the wrapper and the autograd Function run that plain version; it
+is held against:
+
+* autograd of ``ssd_scan_chunked_ref``, every leaf within 1e-5 of its
+  largest magnitude (float32 on both sides; measured at most 1e-6), with
+  and without an initial state and a final-state gradient, with G < H,
+  over ``test_torch_ssd.py``'s shapes, ragged lengths and both decays;
+* ``jax.grad`` of the reference's jnp path, within 3e-4 of each leaf's
+  largest magnitude (the reference's own SSD tolerance; its autodiff of
+  a float32 cumsum puts up to 5e-5 into d a_log at a real layer's decay).
+  Where the length is no multiple of the chunk the reference takes the
+  whole length as one chunk and the port a short last one: the same
+  function, decomposed otherwise.
+
+At a real layer's decay with chunk 256 the cumsum within a chunk reaches
+the thousands; every gradient stays finite (no exp is formed above the
+diagonal).  A repeat gives the same bits, and no kernel launches on the
+CPU.  The kernel itself is held against the plain version by the
+``cuda``-marked test, which skips without a card.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as SS
+from test_torch_ssd import RAGGED, SSD_SHAPES, _inputs
+
+CASES = SSD_SHAPES + RAGGED
+NAMES = ("dx", "ddt", "da_log", "db", "dc", "dd_skip", "dstate")
+AUTOGRAD_TOL = 1e-5
+REFERENCE_TOL = 3e-4
+# the serve decay at the model's chunk: cum reaches about -1.5e3
+SERVE_CASE = (1, 300, 4, 16, 1, 32, 256)
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Tiny CPU products: torch's thread pool only adds latency here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cotangents(case, seed=9):
+    """numpy dy (B, L, H, P), dfinal and an initial state (B, H, N, P)."""
+    b, l, h, p, _, n = case[:6]
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(np.float32)
+            for shape in ((b, l, h, p), (b, h, n, p), (b, h, n, p))]
+
+
+def _t(arrs):
+    return [torch.from_numpy(a) for a in arrs]
+
+
+def _hold(got, want, tol, what):
+    """Every leaf within ``tol`` of its largest magnitude; a leaf that is
+    zero throughout (d a_log at L = 1 with no state: a moves no
+    difference of the cumsum) exactly."""
+    assert len(got) == len(want), what
+    for name, g, w in zip(NAMES, got, want):
+        g = np.asarray(g, np.float64)
+        w = np.asarray(w, np.float64)
+        assert g.shape == w.shape, f"{what} {name}"
+        scale = np.abs(w).max()
+        np.testing.assert_allclose(g, w, rtol=0, atol=tol * scale,
+                                   err_msg=f"{what} {name}")
+
+
+def _plain(arrs, dy, chunk, state=None, dfinal=None):
+    out = ref.ssd_scan_bwd_ref(*_t(arrs), torch.from_numpy(dy), chunk=chunk,
+                               state=state, dfinal=dfinal)
+    return [t for t in out if t is not None]
+
+
+def _autograd(arrs, dy, chunk, state=None, dfinal=None):
+    leaves = [t.requires_grad_() for t in _t(arrs)]
+    if state is not None:
+        state = state.clone().requires_grad_()
+        leaves.append(state)
+    y, s = ref.ssd_scan_chunked_ref(*leaves[:6], chunk=chunk, state=state)
+    loss = (y * torch.from_numpy(dy)).sum()
+    if dfinal is not None:
+        loss = loss + (s * dfinal).sum()
+    return torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("with_dfinal", [False, True],
+                         ids=["no_dfinal", "dfinal"])
+@pytest.mark.parametrize("with_state", [False, True],
+                         ids=["no_state", "state"])
+@pytest.mark.parametrize("decay", ["test", "serve"])
+@pytest.mark.parametrize("case", CASES)
+def test_plain_backward_matches_autograd(case, decay, with_state,
+                                         with_dfinal):
+    chunk = case[-1]
+    arrs = _inputs(case, seed=3, decay=decay)
+    dy, df, s0 = _cotangents(case)
+    state = torch.from_numpy(s0) if with_state else None
+    dfinal = torch.from_numpy(df) if with_dfinal else None
+    got = _plain(arrs, dy, chunk, state, dfinal)
+    assert len(got) == 6 + with_state
+    _hold(got, _autograd(arrs, dy, chunk, state, dfinal), AUTOGRAD_TOL,
+          f"{case} {decay}")
+
+
+@functools.cache
+def _reference_grad(with_state: bool):
+    """``jax.grad`` of the reference's jnp SSD against a cotangent on y
+    and one on the final state, jitted per shape."""
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+
+    def f(x, dt, a_log, bm, cm, ds, state, dy, dfinal, chunk):
+        y, s = jops.ssd(x, dt, a_log, bm, cm, ds, chunk=chunk, impl="jnp",
+                        state=state if with_state else None)
+        return jnp.sum(y * dy) + jnp.sum(s * dfinal)
+
+    argnums = tuple(range(7 if with_state else 6))
+    return jax.jit(jax.grad(f, argnums=argnums), static_argnames=("chunk",))
+
+
+@pytest.mark.parametrize("decay", ["test", "serve"])
+@pytest.mark.parametrize("case,with_state",
+                         [(c, True) for c in CASES]
+                         + [(c, False) for c in RAGGED])
+def test_plain_backward_matches_reference_grad(case, with_state, decay):
+    chunk = case[-1]
+    arrs = _inputs(case, seed=4, decay=decay)
+    dy, df, s0 = _cotangents(case, seed=10)
+    want = _reference_grad(with_state)(*arrs, s0, dy, df, chunk=chunk)
+    got = _plain(arrs, dy, chunk, torch.from_numpy(s0) if with_state
+                 else None, torch.from_numpy(df))
+    _hold(got, want, REFERENCE_TOL, f"{case} {decay}")
+
+
+def test_serve_decay_at_chunk_256_gives_finite_gradients():
+    """A real layer's decay (a from -1 to -16, dt near 0.7) over a chunk
+    of 256: the cumsum reaches the thousands, and every gradient is
+    finite and holds against autograd."""
+    arrs = _inputs(SERVE_CASE, seed=6, decay="serve")
+    dy, df, s0 = _cotangents(SERVE_CASE, seed=11)
+    a = -np.exp(arrs[2].astype(np.float64))
+    cum = np.cumsum(arrs[1].astype(np.float64)[0, :256] * a, axis=0)
+    assert cum.min() < -1e3
+    state, dfinal = torch.from_numpy(s0), torch.from_numpy(df)
+    got = _plain(arrs, dy, 256, state, dfinal)
+    for name, g in zip(NAMES, got):
+        assert torch.isfinite(g).all(), name
+    _hold(got, _autograd(arrs, dy, 256, state, dfinal), AUTOGRAD_TOL,
+          "serve decay, chunk 256")
+
+
+def test_plain_backward_repeats_bit_for_bit():
+    case = RAGGED[1]
+    arrs = _inputs(case, seed=7, decay="serve")
+    dy, df, s0 = _cotangents(case)
+    runs = [_plain(arrs, dy, case[-1], torch.from_numpy(s0),
+                   torch.from_numpy(df)) for _ in range(2)]
+    for name, a, b in zip(NAMES, *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_function_runs_the_plain_backward_on_the_cpu(dtype):
+    """``ops.ssd`` differentiates through ``SSDScan``: on CPU tensors its
+    gradients are the plain backward's, in the operands' dtypes, with no
+    kernel launched; an unused final state gives no dfinal, and under
+    ``no_grad`` the call saves nothing."""
+    case = (1, 96, 6, 8, 2, 16, 32)
+    x, dt, a_log, bm, cm, ds = _t(_inputs(case, seed=8, decay="serve"))
+    dy, _, s0 = _cotangents(case)
+    x, bm, cm = (t.to(dtype) for t in (x, bm, cm))
+    state = torch.from_numpy(s0)
+    dy_t = torch.from_numpy(dy).to(dtype)
+    SS.reset_launches()
+    leaves = [t.clone().requires_grad_() for t in (x, dt, a_log, bm, cm, ds,
+                                                   state)]
+    y, _ = ops.ssd(*leaves[:6], chunk=case[-1], state=leaves[6])
+    got = torch.autograd.grad(y, leaves, grad_outputs=dy_t)
+    want = SS.ssd_scan_bwd(x, dt, a_log, bm, cm, ds, dy_t, chunk=case[-1],
+                           state=state)
+    for name, g, w, leaf in zip(NAMES, got, want, leaves):
+        assert g.dtype == leaf.dtype, name
+        assert torch.equal(g, w.to(leaf.dtype)), name
+    assert SS.LAUNCHES == {"ssd_scan": 0, "ssd_scan_bwd": 0}
+    with torch.no_grad():
+        y, s = ops.ssd(*leaves[:6], chunk=case[-1])
+    assert y.grad_fn is None and s.grad_fn is None
+
+
+def test_backward_raises_on_another_device():
+    case = RAGGED[0]
+    arrs = [t.to("meta") for t in _t(_inputs(case))]
+    dy = torch.empty(arrs[0].shape, device="meta")
+    with pytest.raises(ValueError, match="no ssd_scan_bwd kernel"):
+        SS.ssd_scan_bwd(*arrs, dy, chunk=case[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_scan_bwd_matches_plain_version(dtype):
+    """On the card: the backward kernel against its plain version over
+    the shape lists, ragged lengths, the serve shape, d_state 256 and a
+    head size of 160, with an initial state and a final-state gradient:
+    every leaf within 3e-4 (float32 operands) or 2^-7 (bf16) of its
+    largest magnitude, and a repeat bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    cases = [(c, "test") for c in CASES] + [(c, "serve") for c in CASES]
+    cases += [((1, 1000, 24, 64, 1, 128, 256), "serve"),
+              ((1, 300, 4, 64, 1, 256, 128), "serve"),
+              ((2, 130, 2, 160, 2, 100, 64), "serve"),
+              ((1, 1, 4, 16, 1, 32, 16), "test")]
+    tol = 3e-4 if dtype == torch.float32 else 2.0 ** -7
+    before = SS.LAUNCHES["ssd_scan_bwd"]
+    for case, decay in cases:
+        x, dt, a_log, bm, cm, ds = [t.cuda() for t in
+                                    _t(_inputs(case, seed=5, decay=decay))]
+        dy, df, s0 = [torch.from_numpy(a).cuda() for a in _cotangents(case)]
+        args = (x.to(dtype), dt, a_log, bm.to(dtype), cm.to(dtype), ds,
+                dy.to(dtype))
+        for state, dfinal in ((None, None), (s0, df)):
+            got = SS.ssd_scan_bwd(*args, chunk=case[-1], state=state,
+                                  dfinal=dfinal)
+            again = SS.ssd_scan_bwd(*args, chunk=case[-1], state=state,
+                                    dfinal=dfinal)
+            torch.cuda.synchronize()
+            want = ref.ssd_scan_bwd_ref(*args, chunk=case[-1], state=state,
+                                        dfinal=dfinal)
+            got, again, want = ([t.cpu() for t in out if t is not None]
+                                for out in (got, again, want))
+            _hold(got, want, tol, f"{case} {decay} {dtype}")
+            for name, a, b in zip(NAMES, got, again):
+                assert torch.equal(a, b), f"{case} {name} repeat"
+    assert SS.LAUNCHES["ssd_scan_bwd"] - before == 4 * len(cases)

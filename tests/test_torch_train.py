@@ -232,14 +232,36 @@ def test_grad_compress_step_runs_and_carries_errors():
         make_train_step(cfg, "cpu", TrainStepConfig(zero1=True))
 
 
-def test_mamba2_training_raises():
+def test_mamba2_reduced_trains_on_cpu(tmp_path):
+    """mamba2 trains through the SSD's backward: ``forward(mode="train")``
+    returns no cache, every weight gets a finite gradient, the loss falls
+    over a few steps, and the launcher trains it and resumes from its
+    checkpoint (the first resumed step repeats the first run's loss)."""
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.launch.train import main
     cfg = get_arch("mamba2-130m").reduced()
     model = build(cfg).init(0, device="cpu")
-    tok = torch.from_numpy(_tokens(b=1, s=16))
-    with pytest.raises(NotImplementedError, match="SSD"):
-        forward(model, tok, mode="train")
-    with pytest.raises(NotImplementedError, match="SSD"):
-        loss_fn(cfg, model, {"tokens": tok})
+    tok = torch.from_numpy(_tokens(b=2, s=48))
+    out = forward(model, tok, mode="train")
+    assert "cache" not in out and out["logits"].shape == (2, 48, cfg.vocab)
+    loss, _ = loss_fn(cfg, model, {"tokens": tok})
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    assert all(torch.isfinite(g).all() and g.abs().max() > 0 for g in grads)
+    assert SS.LAUNCHES == {"ssd_scan": 0, "ssd_scan_bwd": 0}
+    args = ["--arch", "mamba2-130m", "--reduced", "--device", "cpu",
+            "--seq", "48", "--batch", "2", "--lr", "3e-3", "--ckpt-dir",
+            str(tmp_path), "--ckpt-every", "4"]
+    trainer, state = main(args + ["--steps", "6"])
+    losses = [h.loss for h in trainer.history]
+    assert trainer.cfg == cfg and len(losses) == 6
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert latest_step(str(tmp_path)) == 4
+    trainer, state = main(args + ["--steps", "8"])
+    assert [h.step for h in trainer.history] == [4, 5, 6, 7]
+    # the resumed step 4 runs on the checkpoint's weights and batch (the
+    # schedule's length differs from here on)
+    assert trainer.history[0].loss == pytest.approx(losses[4], rel=1e-6)
+    assert int(state["step"]) == 8
 
 
 # ---------------------------------------------------------------------------
@@ -408,6 +430,32 @@ def test_launcher_trains_on_cpu_and_resumes(tmp_path):
     trainer, state = main(args + ["--steps", "4"])
     assert [h.step for h in trainer.history] == [2, 3]
     assert int(state["step"]) == 4
+
+
+@pytest.mark.parametrize("flags,reduced", [([], False), (["--full"], False),
+                                           (["--reduced"], True)],
+                         ids=["default", "full", "reduced"])
+def test_launcher_trains_the_published_config_by_default(flags, reduced,
+                                                         monkeypatch):
+    """As the reference's launcher: no size flag trains the published
+    config, ``--reduced`` its ``reduced()`` variant, ``--full`` names the
+    default.  The trainer is stopped as it is built."""
+    from repro_torch.launch import train as launch
+
+    class Built(Exception):
+        pass
+
+    seen = []
+
+    def trainer(cfg, *args, **kwargs):
+        seen.append(cfg)
+        raise Built
+
+    monkeypatch.setattr(launch, "Trainer", trainer)
+    with pytest.raises(Built):
+        launch.main(["--arch", "mamba2-130m", "--device", "cpu"] + flags)
+    want = get_arch("mamba2-130m")
+    assert seen == [want.reduced() if reduced else want]
 
 
 def test_trainer_without_device_needs_cuda(tmp_path):

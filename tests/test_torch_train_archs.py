@@ -63,6 +63,7 @@ DEEPSEEK = "deepseek-v3-671b"
 RGEMMA = "recurrentgemma-9b"
 SEAMLESS = "seamless-m4t-large-v2"
 VISION = "llama-3.2-vision-90b"
+MAMBA2 = "mamba2-130m"
 FAMILIES = [GRANITE, DEEPSEEK, RGEMMA, SEAMLESS, VISION]
 VISION_LAYERS = 10
 
@@ -183,7 +184,7 @@ def _reference_rounding_route(self, x2d, top_w, top_idx):
                          top_idx)
 
 
-@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("name", FAMILIES + [MAMBA2])
 def test_loss_and_grads_match_reference(name, monkeypatch):
     """``loss_fn`` and its gradients against ``jax.value_and_grad`` of the
     reference's ``loss_fn``, run op by op: the router, the experts and
@@ -191,7 +192,8 @@ def test_loss_and_grads_match_reference(name, monkeypatch):
     shared expert and the MTP term (deepseek, bf16 weights), the RG-LRU
     scan and local attention (recurrentgemma), the encoder and cross
     layers under remat (seamless), gated cross layers over image
-    embeddings (vision).
+    embeddings (vision), the SSD blocks through the SSD's backward
+    (mamba2, whose reference differentiates its jnp chunked scan).
 
     The MoE archs run their experts through the reference's combine
     (:func:`_reference_rounding_route`).  The port's route weights and
@@ -385,7 +387,7 @@ def _flat_state(state) -> dict:
 
 @pytest.mark.parametrize("name,compress", [
     ("smollm-135m", False), ("smollm-135m", True), (GRANITE, False),
-    (DEEPSEEK, False), (SEAMLESS, False)])
+    (DEEPSEEK, False), (SEAMLESS, False), (MAMBA2, False)])
 def test_donated_step_equals_non_donated(name, compress):
     """Two steps of the donating step give, bit for bit, the params,
     moments, count, step (and error accumulators) of the non-donating
@@ -537,18 +539,20 @@ def test_train_launcher_refuses_an_encoder_arch(tmp_path):
     launcher fails with an ``AttributeError`` on ``None.astype``)."""
     from repro_torch.launch.train import main, train
     with pytest.raises(ValueError, match="memory_tokens=seq // 4"):
-        train(SEAMLESS, steps=1, device="cpu", ckpt_dir=str(tmp_path))
+        train(SEAMLESS, reduced=True, steps=1, device="cpu",
+              ckpt_dir=str(tmp_path))
     with pytest.raises(ValueError, match="Trainer"):
-        main(["--arch", SEAMLESS, "--device", "cpu", "--steps", "1",
-              "--ckpt-dir", str(tmp_path)])
+        main(["--arch", SEAMLESS, "--reduced", "--device", "cpu",
+              "--steps", "1", "--ckpt-dir", str(tmp_path)])
 
 
 def test_train_launcher_gives_vision_its_image_tokens(tmp_path):
     """A vision arch trains through the launcher with ``n_image_tokens``
     stub embeddings a sequence, as the reference's launcher gives it."""
     from repro_torch.launch.train import train
-    trainer, state = train(VISION, steps=1, seq=16, batch=1, device="cpu",
-                           ckpt_dir=str(tmp_path), log_every=100)
+    trainer, state = train(VISION, reduced=True, steps=1, seq=16, batch=1,
+                           device="cpu", ckpt_dir=str(tmp_path),
+                           log_every=100)
     assert trainer.data.memory_tokens == \
         tcfg.get_arch(VISION).reduced().vision.n_image_tokens
     assert int(state["step"]) == 1
