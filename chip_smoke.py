@@ -342,14 +342,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     reduced crashed at step 6 and resumed, its last loss within rtol
     1e-4 of an uncrashed run's.  #5-#7's launches in B-D go under their
     ``phase_launches``.
-26. Training through the SSD.  A: the SSD scan's backward kernel
-    (``ssd_scan_bwd``) against its plain version at phase 10's shapes (H
-    24, P 64, G 1, N 128, chunk 256, L = 1000, 2048 and 300, B = 1, and
-    B = 8 at L = 2048), float32 and bf16 operands, a given initial state
-    and final-state gradient: every gradient within 3e-4 (float32) or
-    2^-7 (bf16) of its leaf's largest magnitude, a repeat bit for bit;
-    its time by CUDA events and by device time at B = 8, L = 2048 beside
-    its plain version's and its bound (no PyTorch call computes it).  B:
+26. Training through the SSD.  A: the SSD scan's backward
+    (``ssd_scan_bwd``; bf16 operands: the tensor-core kernels of
+    ``ssd_scan_bwd.cu``, float32: the CUDA-core kernels of
+    ``ssd_scan_bwd_fma.cu``) against its plain version at phase 10's
+    shapes (H 24, P 64, G 1, N 128, chunk 256, L = 1000, 2048 and 300, B
+    = 1, and B = 8 at L = 2048) and at mamba2's reduced widths (P, N 16,
+    chunk 32, padded by the bf16 route), both dtypes, with and without an
+    initial state and final-state gradient: every gradient within 3e-4
+    (float32) or 2^-7 (bf16) of its leaf's largest magnitude, d a_log and
+    ddt within 1e-5, the bf16 route within 1e-5 of
+    ``ssd_scan_bwd_ref(terms=3)``, a repeat bit for bit; the bf16 route's
+    time by CUDA events and by device time, launch by launch, at B = 1
+    and 8, L = 2048, beside its plain version's and its bound (no
+    PyTorch call computes it), and the float32 route's device time.  B:
     mamba2-130m at full width through ``launch.train.train`` in phase
     15's cell (8 steps of 8 x 2048 tokens, a checkpoint every 4): #8 and
     its backward exactly 48 and 24 times a step, phase 15's loss rule,
@@ -392,6 +398,7 @@ FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 FLASH_BWD_SRC = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 SSD_BWD_SRC = "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"
+SSD_BWD_FMA_SRC = "src/repro_torch/kernels/csrc/ssd_scan_bwd_fma.cu"
 # phase 3's (S, N) whose float64 rows do not fit a block's shared memory
 WIDE_SHAPE = (37, 30011)
 
@@ -1688,13 +1695,17 @@ TRAIN_DIR = ROOT / "build" / "train_smoke"
 # the bf16 instantiations of the tensor-core kernels: #5, #6, #7 at
 # D = 32 / 64 / 128, #8's two product kernels at N = 64 / 128 / 256
 TC_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
-              "ssd_states_kernel", "ssd_output_kernel")
+              "ssd_states_kernel", "ssd_output_kernel", "ssd_bwd_sums_kernel",
+              "ssd_bwd_rows_kernel", "ssd_bwd_cols_kernel")
+# bf16 instantiations: three head sizes or d_state each, and the rows and
+# columns kernels of 8' at three d_state times four head sizes
+TC_INSTANCES = 3 * 6 + 2 * 3 * 4
 
 
 def check_tensor_cores():
     """The wgmma instructions (HGMMA in the SASS), all SASS instructions,
-    and the registers and stack of each bf16 instantiation of #5, #6, #7
-    and #8's product kernels in the built library, from the CUDA
+    and the registers and stack of each bf16 instantiation of the product
+    kernels of #5, #6, #7, #8 and 8' in the built library, from the CUDA
     toolkit's cuobjdump where it has one; raises if an instantiation has
     no HGMMA."""
     from torch.utils.cpp_extension import CUDA_HOME
@@ -1711,28 +1722,30 @@ def check_tensor_cores():
         return subprocess.run([tool, flag, lib], capture_output=True,
                               text=True, timeout=300, check=True).stdout
 
-    kernel = re.compile(rf"({'|'.join(TC_KERNELS)})ILi(\d+)E")
+    kernel = re.compile(rf"({'|'.join(TC_KERNELS)})ILi(\d+)E(?:Li(\d+)E)?")
+
+    def instance(m):
+        return f"{m.group(1)}<{', '.join(filter(None, m.groups()[1:]))}>"
+
     instruction = re.compile(r"/\*[0-9a-f]{4,}\*/\s+\S")
     hgmma, total = {}, {}
     for part in dump("-sass").split("Function : ")[1:]:
         m = kernel.search(part.split(None, 1)[0])
         if m:
-            name = f"{m.group(1)}<{m.group(2)}>"
-            hgmma[name] = part.count("HGMMA")
-            total[name] = len(instruction.findall(part))
+            hgmma[instance(m)] = part.count("HGMMA")
+            total[instance(m)] = len(instruction.findall(part))
     usage = {}
     for m in re.finditer(r"Function (\S+):\s+REG:(\d+) STACK:(\d+)",
                          dump("-res-usage")):
         k = kernel.search(m.group(1))
         if k:
-            usage[f"{k.group(1)}<{k.group(2)}>"] = (int(m.group(2)),
-                                                    int(m.group(3)))
+            usage[instance(k)] = (int(m.group(2)), int(m.group(3)))
     for name in sorted(hgmma):
         regs, stack = usage.get(name, (None, None))
         log(f"tensor cores: {name}: {hgmma[name]} HGMMA among "
             f"{total[name]} SASS instructions, {regs} registers, {stack} "
             f"bytes of stack")
-    if len(hgmma) != 3 * len(TC_KERNELS) or not all(hgmma.values()):
+    if len(hgmma) != TC_INSTANCES or not all(hgmma.values()):
         raise AssertionError(f"the bf16 kernels must run on the tensor "
                              f"cores: HGMMA counts {hgmma}")
 
@@ -4968,11 +4981,23 @@ def check_train_archs(dev, bw):
 
 SSD_ARCH = "mamba2-130m"
 TRAIN26_DIR = ROOT / "build" / "train_smoke26"
-# the backward kernel against its plain version: every gradient within
-# this share of its leaf's largest magnitude
+# the backward kernels against their plain version: every gradient within
+# this share of its leaf's largest magnitude; d a_log and ddt (at this
+# phase's serve decay) within SSD_BWD_CANCEL in both dtypes, which a lost
+# cancellation of M's row and column sums (some 2e-4) fails
 SSD_BWD_TOL = {torch.float32: 3e-4, torch.bfloat16: 2.0 ** -7}
+SSD_BWD_CANCEL = 1e-5
+# the bf16 route against the plain version with its split products
+# emulated (ssd_scan_bwd_ref(terms=3)): every leaf within this share of its
+# largest magnitude, which one bf16 cast of each float32 operand
+# (terms=1, some 1e-3) fails
+SSD_BWD_SPLIT = 1e-5
 SSD_BWD_NAMES = ("dx", "ddt", "da_log", "db", "dc", "dd_skip", "dstate")
-SSD_BWD_SHAPES = ((1, 1000), (1, 2048), (1, 300), (8, 2048))   # (B, L)
+# (B, L, H, P, N, chunk): phase 10's shapes and B 8 at mamba2-130m's
+# widths; its reduced widths, which the bf16 route pads to N 64, P 64
+SSD_BWD_SHAPES = ((1, 1000, 24, 64, 128, 256), (1, 2048, 24, 64, 128, 256),
+                  (1, 300, 24, 64, 128, 256), (8, 2048, 24, 64, 128, 256),
+                  (2, 1000, 16, 16, 16, 32))
 
 
 def _ssd_bwd_bound(bsz, length, bw, h=24, p=64, g=1, n=128, chunk=256):
@@ -4998,49 +5023,84 @@ def _ssd_bwd_bound(bsz, length, bw, h=24, p=64, g=1, n=128, chunk=256):
 
 
 def _kernel_short(key: str) -> str:
-    """A profiler kernel name without its namespace and arguments."""
-    m = re.search(r"::(\w+(?:<[\w ]+>)?)\(", key)
+    """A profiler kernel name without its namespace and arguments: the
+    port's kernels with their template arguments, PyTorch's by the
+    kernel template's name (``reduce_kernel``)."""
+    m = re.search(r"(?:^|::)(\w+(?:<[\w ,]+>)?)\(", key)
+    if m and m[1] != "operator":
+        return m[1]
+    m = re.search(r"(?:^|\s)(?:\w+::)*(\w+)<", key)
     return m[1] if m else key[:40]
 
 
 def _hold_ssd_bwd(dev, bw):
-    """Phase 26 A: the backward kernel against its plain version, then its
-    time at the training shape.  Returns ``(max abs err, row)``."""
+    """Phase 26 A: the backward kernels (bf16: tensor cores; float32: CUDA
+    cores) against their plain version, then their time at the training
+    shape.  Returns ``(max abs err, row)``."""
     from repro_torch.kernels import ssd_scan as SS
     from repro_torch.kernels.ref import ssd_scan_bwd_ref
 
     gen = torch.Generator(device=dev).manual_seed(26)
     err = 0.0
-    for bsz, length in SSD_BWD_SHAPES:
-        x, dt, a_log, b, c, ds = _ssd_inputs(gen, dev, length, batch=bsz)
+    for bsz, length, h, p, n, chunk in SSD_BWD_SHAPES:
+        x, dt, a_log, b, c, ds = _ssd_inputs(gen, dev, length, h=h, p=p, n=n,
+                                             batch=bsz)
         dy = torch.randn(x.shape, generator=gen, device=dev)
-        s0, dfinal = (torch.randn((bsz, 24, 128, 64), generator=gen,
-                                  device=dev) for _ in range(2))
+        s0, dfinal = (torch.randn((bsz, h, n, p), generator=gen, device=dev)
+                      for _ in range(2))
         for dtype in (torch.float32, torch.bfloat16):
             args = (x.to(dtype), dt, a_log, b.to(dtype), c.to(dtype), ds,
                     dy.to(dtype))
-            kw = dict(chunk=256, state=s0, dfinal=dfinal)
-            got = SS.ssd_scan_bwd(*args, **kw)
-            again = SS.ssd_scan_bwd(*args, **kw)
-            torch.cuda.synchronize()
-            want = ssd_scan_bwd_ref(*args, **kw)
-            name = (f"ssd_scan_bwd B={bsz} L={length} H=24 P=64 N=128 "
-                    f"chunk=256 {str(dtype)[6:]}")
             tol = SSD_BWD_TOL[dtype]
-            worst = []
-            for leaf, gv, av, wv in zip(SSD_BWD_NAMES, got, again, want):
-                scale = float(wv.abs().max())
-                e = float((gv - wv).abs().max())
-                if not (torch.isfinite(gv).all() and e <= tol * scale):
-                    raise AssertionError(f"{name} {leaf}: max abs err {e} "
-                                         f"against {tol} x {scale}")
-                if not torch.equal(gv, av):
-                    raise AssertionError(f"{name} {leaf}: a repeat differs")
-                worst.append(f"{leaf} {e / scale:.2e}")
-                err = max(err, e)
-            log(f"{name}, state and dfinal given: ok, a repeat bit for bit; "
-                f"max abs err over each leaf's largest magnitude: "
-                f"{', '.join(worst)} (limit {tol:.3g})")
+            for given in (True, False):
+                kw = dict(chunk=chunk, state=s0 if given else None,
+                          dfinal=dfinal if given else None)
+                got = SS.ssd_scan_bwd(*args, **kw)
+                again = SS.ssd_scan_bwd(*args, **kw)
+                torch.cuda.synchronize()
+                want = ssd_scan_bwd_ref(*args, **kw)
+                name = (f"ssd_scan_bwd B={bsz} L={length} H={h} P={p} N={n} "
+                        f"chunk={chunk} {str(dtype)[6:]}")
+                worst = []
+                for leaf, gv, av, wv in zip(SSD_BWD_NAMES, got, again, want):
+                    if wv is None:
+                        continue
+                    scale = float(wv.abs().max())
+                    e = float((gv - wv).abs().max())
+                    limit = (SSD_BWD_CANCEL if leaf in ("ddt", "da_log")
+                             else tol)
+                    if not (torch.isfinite(gv).all() and e <= limit * scale):
+                        raise AssertionError(f"{name} {leaf}: max abs err {e}"
+                                             f" against {limit} x {scale}")
+                    if not torch.equal(gv, av):
+                        raise AssertionError(f"{name} {leaf}: a repeat "
+                                             f"differs")
+                    worst.append(f"{leaf} {e / scale:.2e}")
+                    err = max(err, e)
+                log(f"{name}, state and dfinal "
+                    f"{'given' if given else 'zero'}: ok, a repeat bit for "
+                    f"bit; max abs err over each leaf's largest magnitude: "
+                    f"{', '.join(worst)} (limits {tol:.3g}; ddt, da_log "
+                    f"{SSD_BWD_CANCEL:.0e})")
+                if dtype != torch.bfloat16:
+                    continue
+                split = ssd_scan_bwd_ref(*args, terms=3, **kw)
+                worst = []
+                for leaf, gv, sv in zip(SSD_BWD_NAMES, got, split):
+                    if sv is None:
+                        continue
+                    scale = float(sv.abs().max())
+                    e = float((gv - sv).abs().max())
+                    if e > SSD_BWD_SPLIT * scale:
+                        raise AssertionError(f"{name} {leaf}: max abs err "
+                                             f"{e} against terms=3, limit "
+                                             f"{SSD_BWD_SPLIT} x {scale}")
+                    worst.append(f"{leaf} {e / scale:.2e}")
+                log(f"{name}, state and dfinal "
+                    f"{'given' if given else 'zero'}: against "
+                    f"ssd_scan_bwd_ref(terms=3): {', '.join(worst)} (limit "
+                    f"{SSD_BWD_SPLIT:.0e})")
+                del split
         del x, dt, b, c, dy, s0, dfinal, got, again, want
 
     for bsz in (1, 8):
@@ -5063,6 +5123,19 @@ def _hold_ssd_bwd(dev, bw):
             f"{row['bound_by']} ({row['tc_flops'] / 1e9:.3f} GFLOP at 989 "
             f"TFLOP/s = {row['ops_ms']:.4f} ms; {row['bytes_ms']:.4f} ms of "
             f"bytes); no PyTorch call computes it")
+        row["launch_ms"] = {}
+        for ms, _, key in rows:
+            short = _kernel_short(key)
+            row["launch_ms"][short] = (row["launch_ms"].get(short, 0.0)
+                                       + ms / 10)
+        if bsz == 8:
+            f32 = [t.float() for t in args]
+            fma = lambda: SS.ssd_scan_bwd(*f32, chunk=256)
+            _, _, fma_ms, _ = device_rows(fma, 3)
+            row["fma_device_ms"] = fma_ms / 3
+            log(f"ssd_scan_bwd [B=8, float32 operands, CUDA cores]: "
+                f"{row['fma_device_ms']:.4f} ms of device time")
+            del f32
         del x, dt, b, c, dy, args
     return err, row
 
@@ -5257,6 +5330,12 @@ def main() -> int:
                "flash_attention_dq": FLASH_BWD_SRC,
                "flash_attention_dkv": FLASH_BWD_SRC,
                "ssd_scan_bwd": SSD_BWD_SRC}
+    # the two routes of 8', by operand dtype ("source" is the main path's)
+    routes = {"ssd_scan_bwd": {
+        "bfloat16": {"source": SSD_BWD_SRC, "cores": "tensor",
+                     "device_ms": timing["ssd_scan_bwd"]["device_ms"]},
+        "float32": {"source": SSD_BWD_FMA_SRC, "cores": "cuda",
+                    "device_ms": timing["ssd_scan_bwd"]["fma_device_ms"]}}}
     kernels = [{"name": kname, "route": "cuda", "source": sources[kname],
                 "replaces": replaces[kname], "launches": launches[kname],
                 "max_abs_err": errs[kname],
@@ -5267,9 +5346,11 @@ def main() -> int:
                 "library_ms": timing[kname].get("library_ms"),
                 **({"phase_launches": phase_launches[kname]}
                    if kname in phase_launches else {}),
+                **({"routes": routes[kname]} if kname in routes else {}),
                 **{key: timing[kname][key]
-                   for key in ("device_ms", "library_device_ms", "train_ms",
-                               "train_device_ms", "train_library_ms",
+                   for key in ("device_ms", "launch_ms", "library_device_ms",
+                               "train_ms", "train_device_ms",
+                               "train_library_ms",
                                "train_library_device_ms", "train_bound_ms",
                                "sparse_mm_ms", "level_ms", "block_ms",
                                "block_launches", "block_bound_ms")

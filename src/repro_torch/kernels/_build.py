@@ -7,9 +7,10 @@ file, the only one that includes PyTorch headers.  The kernels are
 compiled with ``nvcc`` for ``sm_90a`` (Hopper) into ``build/torch_ext/``
 at the repository root, which ``.gitignore`` lists; ninja compiles the
 sources in parallel.
-The first build in a fresh checkout took 16.6 s for the nine
-sources before ``ssd_scan_bwd.cu`` (Python 3.12, torch 2.11, CUDA 12.8, on the host of an H100,
-``chip_smoke.py``); later builds in the same checkout reuse the cache.
+The first build in a fresh checkout took 62.0 s for the ten kernel
+sources and the binding (Python 3.12, torch 2.11, CUDA 12.8, on the
+host of an H100), paced by ``ssd_scan_bwd.cu`` and its 27
+instantiations; later builds in the same checkout reuse the cache.
 The extension links against nothing beyond PyTorch and the CUDA
 runtime: the tensor-core kernels copy with ``cp.async``, not TMA, so
 they need no tensor-map descriptors from ``libcuda`` (``-lcuda``).
@@ -33,7 +34,7 @@ SOURCES = (_CSRC / "sim_step.cu", _CSRC / "mask_gemm.cu",
            _CSRC / "flash_attention_bwd.cu",
            _CSRC / "flash_attention_bwd_fma.cu", _CSRC / "ssd_scan.cu",
            _CSRC / "ssd_scan_fma.cu", _CSRC / "ssd_scan_bwd.cu",
-           _CSRC / "sim_step_binding.cpp")
+           _CSRC / "ssd_scan_bwd_fma.cu", _CSRC / "sim_step_binding.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 

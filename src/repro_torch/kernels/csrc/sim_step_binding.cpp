@@ -3,9 +3,9 @@
 // kernels, each in two sources chosen here by dtype (bfloat16: tensor
 // cores; float32: CUDA cores): the flash-attention forward in
 // flash_attention.cu and flash_attention_fma.cu, its backward in
-// flash_attention_bwd.cu and flash_attention_bwd_fma.cu, and the SSD
-// chunked scan in ssd_scan.cu and ssd_scan_fma.cu; the SSD scan's
-// backward (ssd_scan_bwd.cu) takes either dtype.
+// flash_attention_bwd.cu and flash_attention_bwd_fma.cu, the SSD chunked
+// scan in ssd_scan.cu and ssd_scan_fma.cu, and its backward in
+// ssd_scan_bwd.cu and ssd_scan_bwd_fma.cu.
 //
 // The only file of the extension that includes PyTorch's headers, and
 // only the few it needs (the tensor, the pybind11 tensor caster and the
@@ -120,18 +120,30 @@ cudaError_t ssd_scan_fwd_fma(const float* x, const float* dt,
                              float* state_out, int b, int len, int h, int p,
                              int g, int n, int q, cudaStream_t stream);
 
-// The SSD scan's backward, bfloat16 or float32 operands (bf16 != 0): the
-// CUDA-core kernels of ssd_scan_bwd.cu.
+// The SSD scan's backward.  bfloat16 operands: the tensor-core kernels of
+// ssd_scan_bwd.cu.
 cudaError_t ssd_scan_backward(const void* x, const float* dt,
                               const float* a_log, const void* bm,
                               const void* cm, const float* d_skip,
                               const float* state_in, const void* dy,
-                              const float* dfinal, int bf16, float* dx,
-                              float* ddt, float* db, float* dc,
-                              float* dstate, float* parts, double* cum,
-                              float* states, float* pulls, float* sdot,
-                              double* rows, int b, int len, int h, int p,
-                              int g, int n, int q, cudaStream_t stream);
+                              const float* dfinal, float* dx, float* ddt,
+                              float* db, float* dc, float* dstate,
+                              float* parts, double* cum, float* states,
+                              float* pulls, double* sdot, double* rows,
+                              int b, int len, int h, int p, int g, int n,
+                              int q, cudaStream_t stream);
+
+// float32 operands: the CUDA-core kernels of ssd_scan_bwd_fma.cu.
+cudaError_t ssd_scan_backward_fma(const float* x, const float* dt,
+                                  const float* a_log, const float* bm,
+                                  const float* cm, const float* d_skip,
+                                  const float* state_in, const float* dy,
+                                  const float* dfinal, float* dx, float* ddt,
+                                  float* db, float* dc, float* dstate,
+                                  float* parts, double* cum, float* states,
+                                  float* pulls, float* sdot, double* rows,
+                                  int b, int len, int h, int p, int g, int n,
+                                  int q, cudaStream_t stream);
 
 namespace {
 
@@ -594,7 +606,10 @@ void ssd_scan(const at::Tensor& x, const at::Tensor& dt,
 // float32: dx like x, ddt like dt, db and dc (B, L, H, N) per head, dstate
 // (B, H, N, P) (empty without state_in), parts (2, B, H, n_chunks).
 // Scratch: cum (B, H, L) float64, states and pulls (B, H, n_chunks, N, P)
-// float32, sdot (B, H, n_chunks) float32, rows (5, B, H, L) float64.
+// float32; float32 operands: sdot (B, H, n_chunks) float32 and rows (5,
+// B, H, L) float64; bfloat16: sdot (B, H, n_chunks, N P / 128) float64 (a
+// partial of <S_in, dS> per 128 state entries) and rows (5 + ceil(chunk /
+// 64), B, H, L) float64.
 void ssd_scan_bwd(const at::Tensor& x, const at::Tensor& dt,
                   const at::Tensor& a_log, const at::Tensor& b_mat,
                   const at::Tensor& c_mat, const at::Tensor& d_skip,
@@ -607,6 +622,7 @@ void ssd_scan_bwd(const at::Tensor& x, const at::Tensor& dt,
   const auto xt = x.scalar_type();
   TORCH_CHECK(xt == at::kFloat || xt == at::kBFloat16,
               "ssd_scan_bwd takes float32 or bfloat16 x");
+  const bool bf = xt == at::kBFloat16;
   check_cuda(x, "x", xt);
   check_cuda(dy, "dy", xt);
   check_cuda(b_mat, "b_mat", xt);
@@ -614,9 +630,9 @@ void ssd_scan_bwd(const at::Tensor& x, const at::Tensor& dt,
   check_cuda(dt, "dt", at::kFloat);
   check_cuda(a_log, "a_log", at::kFloat);
   check_cuda(d_skip, "d_skip", at::kFloat);
-  for (const at::Tensor* t : {&dx, &ddt, &db, &dc, &parts, &states, &pulls,
-                              &sdot})
+  for (const at::Tensor* t : {&dx, &ddt, &db, &dc, &parts, &states, &pulls})
     check_cuda(*t, "an output or scratch", at::kFloat);
+  check_cuda(sdot, "sdot", bf ? at::kDouble : at::kFloat);
   check_cuda(cum, "cum", at::kDouble);
   check_cuda(rows, "rows", at::kDouble);
   TORCH_CHECK(x.dim() == 4 && b_mat.dim() == 4 &&
@@ -636,10 +652,12 @@ void ssd_scan_bwd(const at::Tensor& x, const at::Tensor& dt,
                   db.numel() == b * len * h * n && dc.numel() == db.numel() &&
                   parts.numel() == 2 * b * h * nc,
               "dx, ddt, db, dc or parts has the wrong size");
+  const int64_t planes = bf ? 5 + (chunk + 63) / 64 : 5;
   TORCH_CHECK(cum.numel() == b * h * len &&
                   states.numel() == b * h * nc * n * p &&
                   pulls.numel() == states.numel() &&
-                  sdot.numel() == b * h * nc && rows.numel() == 5 * b * h * len,
+                  sdot.numel() == b * h * nc * (bf ? n * p / 128 : 1) &&
+                  rows.numel() == planes * b * h * len,
               "the scratch has the wrong size");
   const float* s_in = nullptr;
   float* ds_out = nullptr;
@@ -662,17 +680,30 @@ void ssd_scan_bwd(const at::Tensor& x, const at::Tensor& dt,
   const c10::cuda::CUDAGuard guard(x.device());
   const cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
   if (b * len * h * p == 0) return;
-  const cudaError_t err = ssd_scan_backward(
-      x.data_ptr(), dt.data_ptr<float>(), a_log.data_ptr<float>(),
-      b_mat.data_ptr(), c_mat.data_ptr(), d_skip.data_ptr<float>(), s_in,
-      dy.data_ptr(), df, xt == at::kBFloat16 ? 1 : 0, dx.data_ptr<float>(),
-      ddt.data_ptr<float>(), db.data_ptr<float>(), dc.data_ptr<float>(),
-      ds_out, parts.data_ptr<float>(), cum.data_ptr<double>(),
-      states.data_ptr<float>(), pulls.data_ptr<float>(),
-      sdot.data_ptr<float>(), rows.data_ptr<double>(), static_cast<int>(b),
-      static_cast<int>(len), static_cast<int>(h), static_cast<int>(p),
-      static_cast<int>(g), static_cast<int>(n), static_cast<int>(chunk),
-      stream);
+  const int ib = static_cast<int>(b), il = static_cast<int>(len),
+            ih = static_cast<int>(h), ip = static_cast<int>(p),
+            ig = static_cast<int>(g), in = static_cast<int>(n),
+            iq = static_cast<int>(chunk);
+  const cudaError_t err =
+      bf ? ssd_scan_backward(
+               x.data_ptr(), dt.data_ptr<float>(), a_log.data_ptr<float>(),
+               b_mat.data_ptr(), c_mat.data_ptr(), d_skip.data_ptr<float>(),
+               s_in, dy.data_ptr(), df, dx.data_ptr<float>(),
+               ddt.data_ptr<float>(), db.data_ptr<float>(),
+               dc.data_ptr<float>(), ds_out, parts.data_ptr<float>(),
+               cum.data_ptr<double>(), states.data_ptr<float>(),
+               pulls.data_ptr<float>(), sdot.data_ptr<double>(),
+               rows.data_ptr<double>(), ib, il, ih, ip, ig, in, iq, stream)
+         : ssd_scan_backward_fma(
+               x.data_ptr<float>(), dt.data_ptr<float>(),
+               a_log.data_ptr<float>(), b_mat.data_ptr<float>(),
+               c_mat.data_ptr<float>(), d_skip.data_ptr<float>(), s_in,
+               dy.data_ptr<float>(), df, dx.data_ptr<float>(),
+               ddt.data_ptr<float>(), db.data_ptr<float>(),
+               dc.data_ptr<float>(), ds_out, parts.data_ptr<float>(),
+               cum.data_ptr<double>(), states.data_ptr<float>(),
+               pulls.data_ptr<float>(), sdot.data_ptr<float>(),
+               rows.data_ptr<double>(), ib, il, ih, ip, ig, in, iq, stream);
   TORCH_CHECK(err == cudaSuccess, "ssd_scan_bwd launch failed: ",
               cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();

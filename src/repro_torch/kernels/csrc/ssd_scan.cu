@@ -81,51 +81,6 @@ constexpr int kPB = 64;       // columns of P a block takes
 constexpr int kMaxQ = 256;    // chunk rows
 constexpr int kStages = 2;    // depth of the rings
 constexpr int kPassThreads = 256;
-constexpr int kSplitTile = kBQ * kPB * 2;  // one bf16 term of a 64 x 64 slab
-
-// The inclusive float64 cumsum of (float) dt a over the chunk's qc rows
-// into cum[], and dt into dts[], by one warp; dt_row is the chunk's first
-// dt, its rows stride apart.
-__device__ __forceinline__ void chunk_cumsum(double* cum, float* dts,
-                                             const float* __restrict__ dt_row,
-                                             int stride, float a, int qc,
-                                             int lane) {
-  double carry = 0.0;
-  for (int r0 = 0; r0 < qc; r0 += 32) {
-    const int j = r0 + lane;
-    const float d = j < qc ? dt_row[static_cast<int64_t>(j) * stride] : 0.f;
-    double v = static_cast<double>(d * a);
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const double t = __shfl_up_sync(0xffffffffu, v, off);
-      if (lane >= off) v += t;
-    }
-    v += carry;
-    if (j < qc) {
-      cum[j] = v;
-      dts[j] = d;
-    }
-    carry = __shfl_sync(0xffffffffu, v, 31);
-  }
-}
-
-// Eight consecutive float32 values x0..x7 split into their three bf16
-// terms, 16 bytes each, stored at chunk offset off of the three tiles
-// part 0, 1, 2 (kSplitTile bytes apart) from tile.
-__device__ __forceinline__ void store_split8(uint32_t tile, uint32_t off,
-                                             const float (&x)[8]) {
-  uint32_t t[3][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    split3(x[2 * i], x[2 * i + 1], t[0][i], t[1][i], t[2][i]);
-#pragma unroll
-  for (int part = 0; part < 3; ++part)
-    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                     tile + part * kSplitTile + off),
-                 "r"(t[part][0]), "r"(t[part][1]), "r"(t[part][2]),
-                 "r"(t[part][3])
-                 : "memory");
-}
 
 // ---------------------------------------------------------------------
 // Phase 1: the chunk states.  Block (chunk, head, batch x P block), N / 64

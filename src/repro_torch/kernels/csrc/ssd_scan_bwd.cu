@@ -1,163 +1,997 @@
-// Backward of the Mamba-2 SSD chunked scan (#8) on the CUDA cores: the
-// gradients of x, dt, a_log, B, C, d_skip and the initial state, given
-// dy and the final state's gradient, for bf16 or float32 operands.
+// Backward of the Mamba-2 SSD chunked scan (#8) for Hopper (sm_90a) on the
+// tensor cores: the gradients of x, dt, a_log, B, C, d_skip and the
+// initial state, given dy and the final state's gradient, for bf16 x, B,
+// C and dy.  (float32 operands go to the CUDA-core kernels of
+// ssd_scan_bwd_fma.cu; the binding chooses by dtype.)
 //
 // It replaces no Pallas kernel: the reference's ssd_scan
 // (repro/kernels/ssd_scan.py:31) has no custom_vjp, and the reference
 // trains the SSD by autodiff of its jnp path (_ssd_jnp_chunked,
-// repro/kernels/ops.py:145).  The port's kernels launch or raise on the
-// card, so its backward is a kernel of its own, mirrored by
-// repro_torch.kernels.ref.ssd_scan_bwd_ref.  Per (batch, head) and chunk
-// of Q rows, with cum the in-chunk cumsum of dt a (float64), L_ij =
-// exp(cum_i - cum_j) for i >= j, w_j = exp(cum[Q-1] - cum_j), S_in the
-// state entering the chunk and dS the gradient of the state leaving it:
+// repro/kernels/ops.py:145).  It computes what ssd_scan_bwd_fma.cu
+// computes, mirrored by repro_torch.kernels.ref.ssd_scan_bwd_ref (terms=3
+// emulates its split products).  Per (batch, head) and chunk, with cum
+// the in-chunk cumsum of dt a (float64), L_ij = exp(cum_i - cum_j) for i
+// >= j, w_j = exp(cum[Q-1] - cum_j), S_in the state entering the chunk, dS
+// the gradient of the state leaving it, S = C B^T, G = dy x^T and M_ij =
+// S_ij L_ij dt_j G_ij:
 //     dS_in = exp(cum[Q-1]) dS + C^T (exp(cum) dy)
-//     dx    = dt ((C B^T L)^T dy + w (B dS)) + D dy
-//     dC    = (G L dt_j) B + exp(cum) (dy S_in^T),   G_ij = dy_i . x_j
+//     dx    = dt ((S L)^T dy + w (B dS)) + D dy
+//     dC    = (G L dt_j) B + exp(cum) (dy S_in^T)
 //     dB    = dt ((G L)^T C + w (x dS^T))
 //     dcum  = rows of M less columns of M + exp(cum) dy.(C S_in)
 //             - w dt x.(B dS) (+ exp(cum[Q-1]) <S_in, dS> + sum of the
-//             last term, on row Q-1),   M_ij = (C_i.B_j) L_ij dt_j G_ij
-//     d(dt a) = reverse cumsum of dcum;  ddt = sum_i (C B^T L G)_ij +
+//             last term, on row Q-1)
+//     d(dt a) = reverse cumsum of dcum;  ddt = sum_i (S L G)_ij +
 //             w x.(B dS) + a d(dt a);  d a_log = a sum dt d(dt a)
 // Five launches on one stream (the wrapper counts them as one):
-//   1. ssd_bwd_chunk_kernel, per (batch, head, chunk): the cumsum (into a
-//      float64 scratch), the chunk's own state B^T (x dt w) and the pull
-//      of its output on its entering state, C^T (exp(cum) dy);
-//   2. ssd_bwd_pass_kernel, per (batch, head): the state passing forward
-//      (each chunk's S_in in place of its own state) and in reverse from
-//      the final state's gradient (each chunk's dS in place of its pull),
-//      the initial state's gradient, and <S_in, dS> per chunk;
-//   3. ssd_bwd_rows_kernel, per (batch, head, chunk, slab of R rows i):
-//      dC of the slab's rows (per head) and their dcum terms, over the
-//      key slabs j <= i;
-//   4. ssd_bwd_cols_kernel, per (batch, head, chunk, slab of R rows j):
-//      dx and dB (per head) of the slab's rows and their dcum and direct
-//      ddt terms, over the slabs i >= j;
-//   5. ssd_bwd_close_kernel, per (batch, head, chunk): dcum's reverse
-//      cumsum, ddt, and the chunk's partials of d a_log and d d_skip.
+//   1. ssd_bwd_sums_kernel, per (batch, head, chunk, 64 columns of P,
+//      product): the cumsum (into a float64 scratch), the chunk's own
+//      state B^T (x dt w) or the pull of its output on its entering
+//      state, C^T (exp(cum) dy): #8's phase 1 (ssd_states_kernel);
+//   2. ssd_bwd_pass_kernel, one thread per (batch, head, 4 state entries):
+//      the state passing in reverse from the final state's gradient (each
+//      chunk's dS in place of its pull) and forward (each chunk's S_in in
+//      place of its own state), the initial state's gradient, and <S_in,
+//      dS> of every chunk as float64 partials, one per warp's 128 entries;
+//   3. ssd_bwd_rows_kernel, per (batch, head, chunk, 64-row slab of i),
+//      after #6 (flash_attention_bwd.cu, flash_dq_kernel): dC of the rows
+//      (per head), their dcum term exp(cum_i) C_i.(dy S_in^T)_i, and M,
+//      formed here and nowhere else: its row sums, and the column sums of
+//      each 64 x 64 tile of it, over the key blocks j <= i;
+//   4. ssd_bwd_cols_kernel, per (batch, head, chunk, 64-row slab of j),
+//      after #7 (flash_dkv_kernel): dx, dB (per head) and the direct ddt
+//      terms of the rows, over the slabs i >= j;
+//   5. ssd_bwd_close_kernel, per (batch, head, chunk): <S_in, dS> from its
+//      partials, the column sums of M from their slab partials, dcum's
+//      reverse cumsum, ddt, and the chunk's partials of d a_log and
+//      d d_skip.
 // The group sums of dB and dC over heads and the (H,) parameter sums over
 // batch and chunks are left to the wrapper (fixed-axis torch.sum).
 //
-// What bounds it on the H100: operations.  At one mamba2-130m layer
-// (B = 8, L = 2048, H = 24, P = 64, G = 1, N = 128, chunk 256) it does
-// some 85 GFLOP of float32 products (C B^T and dy x^T twice, once for the
-// rows and once for the columns), against some 25 GFLOP of minimal work
-// at the table's convention.  This first kernel is simple, not fast:
-//   * Every product is one block-wide helper (block_mm): 256 threads,
-//     each a 4 x 4 tile of the output, float32 FMAs from shared memory in
-//     a fixed order.  No tensor cores, no TMA.
-//   * Slabs of 64 rows (32 where 64 would not fit a block's shared
-//     memory, e.g. d_state 256); shared-memory rows padded to an odd
-//     length, so that reads along either axis spread over the banks.
-//   * Overflow.  Every exp takes a float32 difference of the float64
-//     cumsum that is <= 0: L only on and below the diagonal (masked
-//     before the exp), w, exp(cum) and exp(cum[Q-1]); nothing is ever
-//     factored as exp(cum_i) exp(-cum_j).
-//   * Precision.  The rows and columns of M cancel in the reverse cumsum
-//     (pairs i, j >= k), so both sums are taken in float64 of the same
-//     float32 products (the rows and the columns kernels form S, G, L and
-//     M by the same operations, bit for bit), and so is the cumsum.
+// Precision.  S = C B^T and G = dy x^T have bf16 operands: wgmma forms
+// the products exactly and sums them in float32.  Every other product has
+// a float32 operand (x dt w, exp(cum) dy, S L, G L dt_j, G L, S_in, dS),
+// and split3 (wgmma.cuh) cuts that operand exactly into three bf16 terms,
+// so that three wgmma products are the float32 product's exact parts: as
+// in #8 and #6 / #7, no TF32, and no float32 operand is ever cast to a
+// single bf16.  A row scalar on the M or N axis (w, dt, exp(cum)) is
+// applied to the product's float32 sum, so that the other operand stays
+// bf16; one on the K axis is folded into the float32 operand before the
+// split.  The cumsum is float64; every exp takes a float32 difference of
+// it that is <= 0 (L masked before the exp, so no exp is formed above the
+// diagonal).  The rows and the columns of M cancel in dcum's reverse
+// cumsum (every pair i, j >= k): summed in float32 they leave 2e-4 of
+// d a_log's size at a real layer's decay.  So M is formed once, in the
+// rows kernel, written as float32 into a shared-memory tile, and both of
+// its sums are float64 sums of those same float32 bits: the row sums per
+// row i, the column sums per (row j, slab of i), which the close kernel
+// adds in slab order.  The columns kernel forms S L and G L, never M.
+//
+// What bounds it on the H100: operations.  At one mamba2-130m training
+// layer (B = 8, L = 2048, H = 24, P = 64, G = 1, N = 128, chunk 256) S and
+// G over each chunk's lower triangle are 7.0 GFLOP of bf16 products; (S
+// L)^T dy, (G L dt) B and (G L)^T C over the triangle and the five (N, P)
+// products per chunk 64.6 GFLOP with a float32 operand, three tensor-core
+// products each: 200.7 GFLOP, 0.203 ms at 989 TFLOP/s, against 0.07 ms of
+// bytes.  Here S and G are formed twice (rows and columns), for the
+// whole 64 x 64 diagonal tiles, and the (N, P) scratch (own, pull, 25 MB
+// each at that shape) is written twice and read three times.  Measured
+// there (chip_smoke.py phase 26, H100 80GB HBM3 at 700 W; PERF.md §6),
+// the five launches take about 1.7 ms of device time, some 8x the bound:
+// the columns kernel about 0.73 ms, the rows 0.63, the chunk sums 0.20,
+// the state passing 0.08, the close 0.02.  The rows and the columns
+// kernels reach some 15-19 % of the tensor cores' rate, bound by
+// latency: one warpgroup a block, two blocks an SM at 255 registers a
+// thread (a few bytes of spills), and within a block the loads, the
+// products and the elementwise work (the decay's float64 difference and
+// expf, the split) take turns.  dx and dB in separate blocks, one set of
+// accumulators each and no spills, were slower: each block formed G^T
+// and the decays again.  What the design does:
+//   * Every product is a wgmma m64n64k16 with float32 accumulators: S, G
+//     (rows), S^T, G^T (columns) and the state products with both
+//     operands in shared memory; the products with S L, G L or G L dt_j
+//     from registers, where the accumulator of S^T, G^T or G already lies
+//     in the A-fragment layout, against C, dy or B read transposed from
+//     the same tile through an MN-major descriptor; S_in and dS split 64 x
+//     64 at a time into shared memory.
+//   * Grid width.  The rows and the columns kernels take each (batch,
+//     head, chunk, slab) at once, 6,144 blocks of one warpgroup each at
+//     the layer above; the heaviest slabs are launched first.  The
+//     tile that a block walks (B and x in the rows kernel, C and dy in
+//     the columns kernel) arrives through a ring of two stages (cp.async,
+//     one mbarrier a stage); the slab's own tiles stay resident.  The
+//     state passing is one thread per 4 state entries (393k threads at B
+//     = 8), serial only over the chunks, each with 8 chunks' loads in
+//     flight at once.
 //   * Determinism.  No atomics: every output element is written by one
 //     thread, every sum runs in a fixed order, so a repeat gives the same
 //     bits.
 //   * Ragged lengths.  The last chunk may be short: rows past the end
 //     load as zeros and are never stored.
-// Shapes: any N <= 256 and P whose slabs fit a block's shared memory,
-// chunk <= 256, H % G == 0.
+// Shapes: N in {64, 128, 256}, P in {64, 128, 192, 256} (the Python
+// wrapper zero-pads other N <= 256 and P <= 256), chunk <= 256, H % G == 0.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxQ = 256;     // chunk rows (one per thread in the scans)
-constexpr int kChunkR = 32;    // rows of a slab in the chunk-sums kernel
+constexpr int kBQ = 64;        // rows of a slab (chunk rows, K-slabs)
+constexpr int kMaxQ = 256;     // chunk rows
+constexpr int kStages = 2;     // depth of the rings
+constexpr int kPassThreads = 256;
+constexpr int kCloseThreads = kMaxQ;  // one thread per chunk row
+constexpr int kCloseWarps = kCloseThreads / 32;
+constexpr int kMLd = 68;       // row stride (floats) of the M tile
+// planes of the float64 row scratch: 0 the rows kernel's state term of
+// dcum, 1 its row sums of M; 2-4 the columns kernel's sums of S L G, x.(B
+// dS) and dy.x; from kColPlane on, the column sums of M by 64-row slab of
+// i (the rows kernel)
+constexpr int kColPlane = 5;
+// state entries of one <S_in, dS> partial: a warp's, 4 a thread
+constexpr int kTileEntries = 4 * 32;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+
+// The three bf16 terms of the 64 x 64 float32 tile at src (rows ld floats
+// apart) stored at tile by the block's Threads threads, then made visible
+// to wgmma.
+template <int Threads>
+__device__ __forceinline__ void split_tile(uint32_t tile,
+                                           const float* __restrict__ src,
+                                           int64_t ld, int tid) {
+  for (int e = tid; e < kBQ * 8; e += Threads) {
+    const int r = e / 8, ch = e % 8;
+    const float* row = src + r * ld + 8 * ch;
+    const float4 lo4 = *reinterpret_cast<const float4*>(row);
+    const float4 hi4 = *reinterpret_cast<const float4*>(row + 4);
+    const float v[8] = {lo4.x, lo4.y, lo4.z, lo4.w,
+                        hi4.x, hi4.y, hi4.z, hi4.w};
+    store_split8(tile, chunk_off<64, kBQ>(r, ch), v);
+  }
+  fence_proxy_async();
 }
 
-// out(m, n) (+)= sum_k A(m, k) B(k, n) for m < M, n < N, with A(m, k) at
-// a[m * a_rs + k * a_cs] and B(k, n) at b[k * b_rs + n * b_cs], all in
-// shared memory.  Thread e of the block takes the 4 x 4 tile of rows
-// e / nq + {0, 1, 2, 3} mq and columns e % nq + {0, 1, 2, 3} nq (mq, nq =
-// M / 4, N / 4 rounded up), the k in ascending order, one FMA each.
-template <bool kAcc>
-__device__ void block_mm(float* out, int ldo, const float* a, int a_rs,
-                         int a_cs, const float* b, int b_rs, int b_cs, int m,
-                         int n, int k) {
-  const int mq = (m + 3) / 4, nq = (n + 3) / 4;
-  for (int e = threadIdx.x; e < mq * nq; e += kThreads) {
-    const int r0 = e / nq, c0 = e % nq;
-    float acc[4][4];
+// ---------------------------------------------------------------------
+// 1. The chunk sums.  Block (chunk, head, (batch x P block) x 2), N / 64
+// warpgroups, warpgroup w owning state rows 64 w .. 64 w + 63; product 0
+// is own = B^T (x dt w), product 1 pull = C^T (exp(cum) dy).  Shared
+// memory: per stage the B or C slab (64 x N) and the three bf16 terms of
+// the row-scaled x or dy (3 x 64 x 64), then one mbarrier per stage, cum
+// (double) and the row factors.
+
+template <int N>
+__host__ __device__ constexpr int sums_smem_bytes() {
+  return 1024 + kStages * (kBQ * N * 2 + 3 * kSplitTile) + 8 * kStages +
+         kMaxQ * (8 + 4);
+}
+
+template <int N>
+__global__ void __launch_bounds__(2 * N)
+ssd_bwd_sums_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ a_log,
+                    const bf16* __restrict__ bm, const bf16* __restrict__ cm,
+                    const bf16* __restrict__ dy, double* __restrict__ cum_out,
+                    float* __restrict__ own, float* __restrict__ pull,
+                    int len, int h_count, int p, int g_count, int q,
+                    int n_chunks) {
+  constexpr int kThreads = 2 * N;
+  constexpr int kStage = kBQ * N * 2 + 3 * kSplitTile;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t bars = base + kStages * kStage;
+  double* cum = reinterpret_cast<double*>(smem_raw + (bars + 8 * kStages -
+                                                      raw));
+  float* f = reinterpret_cast<float*>(cum + kMaxQ);
+  auto s_m = [&](int st) { return base + st * kStage; };
+  auto s_v = [&](int st) { return base + st * kStage + kBQ * N * 2; };
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wg = tid / kWarpgroup;
+  const int c = blockIdx.x, h = blockIdx.y;
+  const int npb = p / 64;
+  const int prod = blockIdx.z % 2;
+  const int b = blockIdx.z / 2 / npb, pb = blockIdx.z / 2 % npb;
+  const int c0 = c * q, qc = min(q, len - c0);
+  const int g = h / (h_count / g_count);
+  const int64_t bh = static_cast<int64_t>(b) * h_count + h;
+
+  if (warp == 0)
+    chunk_cumsum(cum, f, dt + (static_cast<int64_t>(b) * len + c0) * h_count
+                             + h, h_count, -expf(a_log[h]), qc, lane);
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) mbar_init(bars + 8 * st, kThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // f = dt w (own) or exp(cum) (pull); one block writes the cumsum out
+  const double last = cum[qc - 1];
+  for (int j = tid; j < qc; j += kThreads) {
+    f[j] = prod == 0 ? f[j] * expf(static_cast<float>(last - cum[j]))
+                     : expf(static_cast<float>(cum[j]));
+    if (prod == 0 && pb == 0) cum_out[bh * len + c0 + j] = cum[j];
+  }
+  __syncthreads();
+
+  const bf16* msrc = (prod == 0 ? bm : cm) +
+                     (static_cast<int64_t>(b) * len * g_count + g) * N;
+  const bf16* vsrc = (prod == 0 ? x : dy) +
+                     (static_cast<int64_t>(b) * len * h_count + h) * p +
+                     pb * 64;
+  const int64_t vld = static_cast<int64_t>(h_count) * p;
+  const int n_slabs = (qc + kBQ - 1) / kBQ;
+
+  // K-slab s (chunk rows 64 s ..) into stage st: B or C by cp.async, the
+  // three bf16 terms of the row-scaled x or dy by the threads
+  auto fill = [&](int s, int st) {
+    load_tile<N, kBQ, kThreads>(s_m(st), msrc, c0 + s * kBQ, c0 + qc, tid,
+                                static_cast<int64_t>(g_count) * N);
+    cp_async_arrive(bars + 8 * st);
+    for (int e = tid; e < kBQ * 8; e += kThreads) {
+      const int r = e / 8, ch = e % 8, j = s * kBQ + r;
+      float v[8];
+      if (j < qc) {
+        const uint4 raw8 = *reinterpret_cast<const uint4*>(
+            vsrc + (c0 + j) * vld + 8 * ch);
+        const uint32_t w4[4] = {raw8.x, raw8.y, raw8.z, raw8.w};
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+        for (int i = 0; i < 4; ++i) {
+          const float2 t = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&w4[i]));
+          v[2 * i] = t.x * f[j];
+          v[2 * i + 1] = t.y * f[j];
+        }
+      } else {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-    const float* ap[4];
-    const float* bp[4];
-    bool am[4], bm[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      am[r] = r0 + r * mq < m;
-      ap[r] = a + (am[r] ? r0 + r * mq : 0) * a_rs;
-      bm[r] = c0 + r * nq < n;
-      bp[r] = b + (bm[r] ? c0 + r * nq : 0) * b_cs;
+        for (int i = 0; i < 8; ++i) v[i] = 0.f;
+      }
+      store_split8(s_v(st), chunk_off<64, kBQ>(r, ch), v);
     }
-    for (int kk = 0; kk < k; ++kk) {
-      float av[4], bv[4];
+    fence_proxy_async();
+  };
+
+  float acc[32];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        av[r] = am[r] ? ap[r][kk * a_cs] : 0.f;
-        bv[r] = bm[r] ? bp[r][kk * b_rs] : 0.f;
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  fill(0, 0);
+  for (int s = 0; s < n_slabs; ++s) {
+    const int st = s % kStages;
+    // slab s's terms are written by every thread, and slab s - 1's
+    // products (the other stage) are done in every warpgroup
+    __syncthreads();
+    mbar_wait(bars + 8 * st, (s / kStages) & 1);
+    fence_proxy_async();
+    // acc += B^T (f x): A = B^T (MN-major), B = the terms (MN-major)
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < kBQ / 16; ++kc)
+#pragma unroll
+      for (int part = 0; part < 3; ++part)
+        mma_ss_n64<1, 1>(acc, desc_mn<N, kBQ>(s_m(st), kc, wg),
+                         desc_mn<64, kBQ>(s_v(st) + part * kSplitTile, kc,
+                                          0),
+                         1);
+    wg_commit();
+    if (s + 1 < n_slabs) fill(s + 1, (s + 1) % kStages);
+    wg_wait();
+    fence_regs(acc);
+  }
+
+  // rows 64 wg + r_lo (+ 8), columns 8 n8 + 2 (lane % 4) + j
+  const int r_lo = 64 * wg + 16 * (warp % 4) + lane / 4;
+  float* dst = (prod == 0 ? own : pull) +
+               ((bh * n_chunks + c) * N + r_lo) * p + pb * 64 +
+               2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n8 = 0; n8 < 8; ++n8)
+      *reinterpret_cast<float2*>(dst + 8 * i * p + 8 * n8) =
+          make_float2(acc[4 * n8 + 2 * i], acc[4 * n8 + 2 * i + 1]);
+}
+
+// ---------------------------------------------------------------------
+// 2. The state passing both ways, in place, one thread per (batch, head,
+// 4 state entries): pull becomes each chunk's dS, own each chunk's S_in,
+// and each warp's 128 entries give one float64 partial of <S_in, dS> a
+// chunk.  A thread issues the loads of kPassGroup chunks before it walks
+// them, so that they are in flight together.
+
+constexpr int kPassGroup = 8;
+
+__device__ __forceinline__ float chunk_decay(const double* cum, int64_t bh,
+                                             int len, int q, int c) {
+  const int last = min(q * (c + 1), len) - 1;
+  return expf(static_cast<float>(cum[bh * len + last]));
+}
+
+__device__ __forceinline__ float4 step4(float d, float4 s, float4 l) {
+  return make_float4(d * s.x + l.x, d * s.y + l.y, d * s.z + l.z,
+                     d * s.w + l.w);
+}
+
+// The grid covers np exactly (np is a multiple of 4 kPassThreads), so
+// every lane of every warp is live for the warp sums.
+__global__ void __launch_bounds__(kPassThreads)
+ssd_bwd_pass_kernel(const double* __restrict__ cum,
+                    const float* __restrict__ state_in,
+                    const float* __restrict__ dfinal, float* __restrict__ own,
+                    float* __restrict__ pull, float* __restrict__ dstate,
+                    double* __restrict__ sdot, int len, int h_count, int np,
+                    int q, int n_chunks) {
+  const int e = 4 * (blockIdx.x * kPassThreads + threadIdx.x);
+  const int n_tiles = np / kTileEntries, tile = e / kTileEntries;
+  const int lane = threadIdx.x % 32;
+  const int64_t bh = static_cast<int64_t>(blockIdx.z) * h_count + blockIdx.y;
+  auto at = [&](float* base, int c) {
+    return reinterpret_cast<float4*>(base + (bh * n_chunks + c) * np + e);
+  };
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 ds = dfinal != nullptr
+                  ? *reinterpret_cast<const float4*>(dfinal + bh * np + e)
+                  : zero;
+  for (int c0 = n_chunks - 1; c0 >= 0; c0 -= kPassGroup) {
+    float4 pc[kPassGroup];
+#pragma unroll
+    for (int k = 0; k < kPassGroup; ++k)
+      if (c0 - k >= 0) pc[k] = *at(pull, c0 - k);
+#pragma unroll
+    for (int k = 0; k < kPassGroup; ++k)
+      if (c0 - k >= 0) {
+        *at(pull, c0 - k) = ds;                      // dS leaving the chunk
+        ds = step4(chunk_decay(cum, bh, len, q, c0 - k), ds, pc[k]);
+      }
+  }
+  if (dstate != nullptr)
+    *reinterpret_cast<float4*>(dstate + bh * np + e) = ds;
+
+  float4 s = state_in != nullptr
+                 ? *reinterpret_cast<const float4*>(state_in + bh * np + e)
+                 : zero;
+  for (int c0 = 0; c0 < n_chunks; c0 += kPassGroup) {
+    float4 lc[kPassGroup], dv[kPassGroup];
+#pragma unroll
+    for (int k = 0; k < kPassGroup; ++k)
+      if (c0 + k < n_chunks) {
+        lc[k] = *at(own, c0 + k);
+        dv[k] = *at(pull, c0 + k);
       }
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+    for (int k = 0; k < kPassGroup; ++k)
+      if (c0 + k < n_chunks) {               // the same in every lane
+        *at(own, c0 + k) = s;                        // S_in of the chunk
+        // <S_in, dS> over the warp's entries: float32 products, float64
+        // sums in a fixed order
+        double part = static_cast<double>(s.x * dv[k].x);
+        part += static_cast<double>(s.y * dv[k].y);
+        part += static_cast<double>(s.z * dv[k].z);
+        part += static_cast<double>(s.w * dv[k].w);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      if (!am[r]) continue;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (!bm[c]) continue;
-        float* o = out + (r0 + r * mq) * ldo + c0 + c * nq;
-        *o = kAcc ? *o + acc[r][c] : acc[r][c];
+        for (int off = 16; off > 0; off >>= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, off);
+        if (lane == 0) sdot[(bh * n_chunks + c0 + k) * n_tiles + tile] = part;
+        s = step4(chunk_decay(cum, bh, len, q, c0 + k), s, lc[k]);
       }
-    }
   }
 }
 
-// Sum of v over the tpr consecutive lanes of a row group (tpr a power of
-// two dividing 32), by the same xor tree in every lane.
-template <typename V>
-__device__ __forceinline__ V group_sum(V v, int tpr) {
-  for (int off = tpr / 2; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// ---------------------------------------------------------------------
+// Shared by the rows and the columns kernels: the block's (chunk, head,
+// batch) from blockIdx.x, and the chunk's cum and dt in shared memory.
+
+struct Slab {
+  int c, h, b, c0, qc, g;
+  int64_t bh;
+};
+
+__device__ __forceinline__ Slab slab_of(int len, int h_count, int g_count,
+                                        int q, int n_chunks) {
+  int lin = blockIdx.x;
+  Slab s;
+  s.c = lin % n_chunks;
+  lin /= n_chunks;
+  s.h = lin % h_count;
+  s.b = lin / h_count;
+  s.c0 = s.c * q;
+  s.qc = min(q, len - s.c0);
+  s.g = s.h / (h_count / g_count);
+  s.bh = static_cast<int64_t>(s.b) * h_count + s.h;
+  return s;
 }
 
+// rows [0, rows) of the chunk's cum and dt; 0 past its end
+__device__ __forceinline__ void load_chunk(double* cum, float* dts,
+                                           const double* __restrict__ cum_in,
+                                           const float* __restrict__ dt,
+                                           const Slab& s, int rows, int len,
+                                           int h_count) {
+  for (int j = threadIdx.x; j < rows; j += kWarpgroup) {
+    const bool ok = j < s.qc;
+    cum[j] = ok ? cum_in[s.bh * len + s.c0 + j] : 0.0;
+    dts[j] = ok ? dt[(static_cast<int64_t>(s.b) * len + s.c0 + j) * h_count +
+                     s.h]
+                : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------
+// 3. dC and M.  Block (chunk x head x batch, slab rank), one warpgroup.
+// Shared memory: the dy (64 x P) and C (64 x N) slabs, the three bf16
+// terms of a 64 x 64 tile of S_in (then the M tile: 64 x 64 floats, rows
+// i, kMLd apart), then per stage a key block's B (64 x N) and x (64 x P),
+// then one mbarrier per stage, cum (double) and dt of the chunk's rows.
+
+template <int N, int P>
+__host__ __device__ constexpr int rows_smem_bytes() {
+  return 1024 + kBQ * P * 2 + kBQ * N * 2 + 3 * kSplitTile +
+         kStages * (kBQ * N * 2 + kBQ * P * 2) + 8 * kStages +
+         kMaxQ * (8 + 4);
+}
+
+static_assert(kBQ * kMLd * 4 <= 3 * kSplitTile,
+              "the M tile does not fit the split tile's place");
+
+template <int N, int P>
+__global__ void __launch_bounds__(kWarpgroup)
+ssd_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+                    const bf16* __restrict__ bm, const bf16* __restrict__ cm,
+                    const bf16* __restrict__ dy,
+                    const double* __restrict__ cum_in,
+                    const float* __restrict__ s_in, float* __restrict__ dc,
+                    double* __restrict__ rows, int len, int h_count,
+                    int g_count, int q, int n_chunks) {
+  constexpr int kTileB = kBQ * N * 2, kTileX = kBQ * P * 2;
+  constexpr int NB = N / 64;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t s_dy = base, s_ci = base + kTileX;
+  const uint32_t s_s = s_ci + kTileB;
+  const uint32_t ring = s_s + 3 * kSplitTile;
+  const uint32_t bars = ring + kStages * (kTileB + kTileX);
+  float* mt = reinterpret_cast<float*>(smem_raw + (s_s - raw));
+  double* cum = reinterpret_cast<double*>(smem_raw + (bars + 8 * kStages -
+                                                      raw));
+  float* dts = reinterpret_cast<float*>(cum + kMaxQ);
+  auto s_b = [&](int st) { return ring + st * (kTileB + kTileX); };
+  auto s_x = [&](int st) { return s_b(st) + kTileB; };
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const Slab sl = slab_of(len, h_count, g_count, q, n_chunks);
+  const int spc = (q + kBQ - 1) / kBQ;
+  const int si = spc - 1 - blockIdx.y;  // the heaviest slabs first
+  const int i0 = si * kBQ;
+  if (i0 >= sl.qc) return;  // past the end of a short last chunk
+  const int nblk = si + 1;  // the key blocks left of the diagonal
+
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) mbar_init(bars + 8 * st, kWarpgroup);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  load_chunk(cum, dts, cum_in, dt, sl, nblk * kBQ, len, h_count);
+  __syncthreads();
+
+  const int64_t gld = static_cast<int64_t>(g_count) * N;
+  const int64_t xld = static_cast<int64_t>(h_count) * P;
+  const int64_t bg = static_cast<int64_t>(sl.b) * len * g_count + sl.g;
+  const int64_t bhx = (static_cast<int64_t>(sl.b) * len * h_count + sl.h);
+  const bf16* bsrc = bm + bg * N;
+  const bf16* csrc = cm + bg * N;
+  const bf16* xsrc = x + bhx * P;
+  const bf16* dysrc = dy + bhx * P;
+  const int end = sl.c0 + sl.qc;
+  auto fill = [&](int jb, int st) {
+    load_tile<N, kBQ>(s_b(st), bsrc, sl.c0 + jb * kBQ, end, tid, gld);
+    load_tile<P, kBQ>(s_x(st), xsrc, sl.c0 + jb * kBQ, end, tid, xld);
+    cp_async_arrive(bars + 8 * st);
+  };
+  // the dy and C slabs land with block 0
+  load_tile<P, kBQ>(s_dy, dysrc, sl.c0 + i0, end, tid, xld);
+  load_tile<N, kBQ>(s_ci, csrc, sl.c0 + i0, end, tid, gld);
+  for (int t = 0; t < kStages && t < nblk; ++t) fill(t, t);
+
+  // acc = dy S_in^T, S_in taken in 64 x 64 tiles (state rows nb, head
+  // columns ks), each split into three bf16 terms
+  const float* sin_c = s_in + (sl.bh * n_chunks + sl.c) * N *
+                                  static_cast<int64_t>(P);
+  float acc[NB][32];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll 1
+    for (int ks = 0; ks < P / 64; ++ks) {
+      if (nb + ks > 0) {
+        wg_wait();  // the previous tile's products are done with s_s
+#pragma unroll
+        for (int k = 0; k < NB; ++k) fence_regs(acc[k]);
+        __syncthreads();
+      }
+      split_tile<kWarpgroup>(s_s, sin_c + nb * 64 * P + ks * 64, P, tid);
+      __syncthreads();
+      if (nb + ks == 0) {  // the dy slab
+        mbar_wait(bars, 0);
+        fence_proxy_async();
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int part = 0; part < 3; ++part)
+          mma_ss_n64<0, 0>(acc[nb], desc_k<P, kBQ>(s_dy, ks * 4 + kk),
+                           desc_k<64, kBQ>(s_s + part * kSplitTile, kk), 1);
+      wg_commit();
+    }
+  wg_wait();
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) fence_regs(acc[nb]);
+
+  // this thread's rows of the slab: il_lo and il_lo + 8 (chunk-local);
+  // the state term of dcum, exp(cum_i) C_i.(dy S_in^T)_i, then acc =
+  // exp(cum_i) dy S_in^T
+  const int il_lo = i0 + 16 * warp + lane / 4;
+  const int64_t plane = static_cast<int64_t>(gridDim.x / n_chunks) * len;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int il = il_lo + 8 * i;
+    const bool ok = il < sl.qc;
+    const float ei = ok ? expf(static_cast<float>(cum[il])) : 0.f;
+    const bf16* crow = csrc + (ok ? (sl.c0 + il) * gld : 0) + 2 * (lane % 4);
+    float part = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int n8 = 0; n8 < 8; ++n8) {
+        const int at = 4 * n8 + 2 * i;
+        if (ok) {
+          const float2 cv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(crow + nb * 64 +
+                                                       8 * n8));
+          part += cv.x * acc[nb][at] + cv.y * acc[nb][at + 1];
+        }
+        acc[nb][at] *= ei;
+        acc[nb][at + 1] *= ei;
+      }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    if (ok && lane % 4 == 0)
+      rows[sl.bh * len + sl.c0 + il] = static_cast<double>(ei * part);
+  }
+  __syncthreads();  // every warp is past the split tile: it is the M tile
+
+  // threads 0-63: column jb 64 + tid of M over the slab's 64 rows, one
+  // float64 partial per (column, slab); threads 64-127: row i0 + tid - 64
+  // of M over every key block; both in a fixed order
+  double* colsum = rows + (kColPlane + si) * plane + sl.bh * len + sl.c0;
+  double rowsum = 0.0;
+  for (int jb = 0; jb < nblk; ++jb) {
+    const int st = jb % kStages;
+    mbar_wait(bars + 8 * st, (jb / kStages) & 1);
+    fence_proxy_async();
+
+    // sm = S = C_i B_j^T and gm = G = dy_i x_j^T: the slab's rows, the
+    // block's 64 keys
+    float sm[32], gm[32];  // the first product overwrites them
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      mma_ss(sm, desc_k<N, kBQ>(s_ci, kk), desc_k<N, kBQ>(s_b(st), kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < P / 16; ++kk)
+      mma_ss(gm, desc_k<P, kBQ>(s_dy, kk), desc_k<P, kBQ>(s_x(st), kk), kk);
+    wg_commit();
+    wg_wait();
+    fence_regs(sm);
+    fence_regs(gm);
+
+    // Z = G L dt_j in place of G, 0 above the diagonal and past the end;
+    // M = S Z into the tile
+    const bool diag = jb == si;
+#pragma unroll
+    for (int at = 0; at < 32; ++at) {  // at = 4 n8 + 2 i + j
+      const int il = il_lo + 8 * (at / 2 % 2);
+      const int jt = 8 * (at / 4) + 2 * (lane % 4) + at % 2;
+      const int jl = jb * kBQ + jt;
+      const float l = (!diag || jl <= il) && il < sl.qc
+                          ? expf(static_cast<float>(cum[il] - cum[jl]))
+                          : 0.f;
+      const float z = (gm[at] * l) * dts[jl];
+      mt[(il - i0) * kMLd + jt] = sm[at] * z;
+      gm[at] = z;
+    }
+    // acc += Z B_j: Z from registers in three bf16 terms, B_j transposed
+    uint32_t fr[3][4][4];
+    split_frags<64>(gm, fr);
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+      for (int part = 0; part < 3; ++part)
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          mma_rs(acc[nb], fr[part][kc], desc_mn<N, kBQ>(s_b(st), kc, nb));
+    wg_commit();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) fence_regs(acc[nb]);
+
+    // while it runs: M's sums, four chains each, added in a fixed order
+    __syncthreads();  // the tile is whole
+    if (tid < kBQ) {
+      double c4[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll 4
+      for (int r = 0; r < kBQ; r += 4)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          c4[k] += static_cast<double>(mt[(r + k) * kMLd + tid]);
+      const int jl = jb * kBQ + tid;
+      if (jl < sl.qc) colsum[jl] = (c4[0] + c4[1]) + (c4[2] + c4[3]);
+    } else {
+      const float4* mrow =
+          reinterpret_cast<const float4*>(mt + (tid - kBQ) * kMLd);
+      double c4[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+      for (int k = 0; k < kBQ / 4; ++k) {
+        const float4 v = mrow[k];
+        c4[0] += static_cast<double>(v.x);
+        c4[1] += static_cast<double>(v.y);
+        c4[2] += static_cast<double>(v.z);
+        c4[3] += static_cast<double>(v.w);
+      }
+      rowsum += (c4[0] + c4[1]) + (c4[2] + c4[3]);
+    }
+
+    wg_wait();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) fence_regs(acc[nb]);
+    fence_frags(fr);
+    // every warp is done with the M tile and with the stage refilled here
+    __syncthreads();
+    if (jb + kStages < nblk) fill(jb + kStages, st);
+  }
+  if (tid >= kBQ && i0 + tid - kBQ < sl.qc)
+    rows[plane + sl.bh * len + sl.c0 + i0 + tid - kBQ] = rowsum;
+
+  // dC per head, float32: columns 64 nb + 8 n8 + 2 (lane % 4) + j
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int il = il_lo + 8 * i;
+    if (il >= sl.qc) continue;
+    float* dst = dc + ((static_cast<int64_t>(sl.b) * len + sl.c0 + il) *
+                           h_count + sl.h) * N + 2 * (lane % 4);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int n8 = 0; n8 < 8; ++n8)
+        *reinterpret_cast<float2*>(dst + nb * 64 + 8 * n8) = make_float2(
+            acc[nb][4 * n8 + 2 * i], acc[nb][4 * n8 + 2 * i + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------
+// 4. dx, dB and the direct ddt terms.  Block (chunk x head x batch, slab
+// j), one warpgroup.  Shared memory: the B (64 x N) and x (64 x P) slabs,
+// then per stage an i block's C (64 x N) and dy (64 x P) (the epilogue
+// splits dS into the first stage), then one mbarrier per stage, cum
+// (double) and dt of the chunk.
+
+template <int N, int P>
+__host__ __device__ constexpr int cols_smem_bytes() {
+  return 1024 + kBQ * N * 2 + kBQ * P * 2 +
+         kStages * (kBQ * N * 2 + kBQ * P * 2) + 8 * kStages +
+         kMaxQ * (8 + 4);
+}
+
+template <int N, int P>
+__global__ void __launch_bounds__(kWarpgroup)
+ssd_bwd_cols_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+                    const bf16* __restrict__ bm, const bf16* __restrict__ cm,
+                    const bf16* __restrict__ dy,
+                    const float* __restrict__ d_skip,
+                    const double* __restrict__ cum_in,
+                    const float* __restrict__ ds_out, float* __restrict__ dx,
+                    float* __restrict__ db, double* __restrict__ rows,
+                    int len, int h_count, int g_count, int q, int n_chunks) {
+  constexpr int kTileB = kBQ * N * 2, kTileX = kBQ * P * 2;
+  constexpr int NB = N / 64, XB = P / 64;
+  static_assert(3 * kSplitTile <= kStages * (kTileB + kTileX),
+                "dS's split tile does not fit the ring");
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t s_bj = base, s_xj = base + kTileB;
+  const uint32_t ring = s_xj + kTileX;
+  const uint32_t bars = ring + kStages * (kTileB + kTileX);
+  double* cum = reinterpret_cast<double*>(smem_raw + (bars + 8 * kStages -
+                                                      raw));
+  float* dts = reinterpret_cast<float*>(cum + kMaxQ);
+  auto s_c = [&](int st) { return ring + st * (kTileB + kTileX); };
+  auto s_dy = [&](int st) { return s_c(st) + kTileB; };
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const Slab sl = slab_of(len, h_count, g_count, q, n_chunks);
+  const int sj = blockIdx.y;  // slab 0 sees the most rows: first out
+  const int j0 = sj * kBQ;
+  if (j0 >= sl.qc) return;  // past the end of a short last chunk
+  const int n_live = (sl.qc + kBQ - 1) / kBQ;
+  const int n_i = n_live - sj;  // the i slabs on or below the diagonal
+
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) mbar_init(bars + 8 * st, kWarpgroup);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  load_chunk(cum, dts, cum_in, dt, sl, n_live * kBQ, len, h_count);
+  __syncthreads();
+
+  const int64_t gld = static_cast<int64_t>(g_count) * N;
+  const int64_t xld = static_cast<int64_t>(h_count) * P;
+  const int64_t bg = static_cast<int64_t>(sl.b) * len * g_count + sl.g;
+  const int64_t bhx = (static_cast<int64_t>(sl.b) * len * h_count + sl.h);
+  const bf16* csrc = cm + bg * N;
+  const bf16* dysrc = dy + bhx * P;
+  const int end = sl.c0 + sl.qc;
+  auto fill = [&](int t, int st) {
+    const int r0 = sl.c0 + (sj + t) * kBQ;
+    load_tile<N, kBQ>(s_c(st), csrc, r0, end, tid, gld);
+    load_tile<P, kBQ>(s_dy(st), dysrc, r0, end, tid, xld);
+    cp_async_arrive(bars + 8 * st);
+  };
+  // B_j and x_j land with the first i block
+  load_tile<N, kBQ>(s_bj, bm + bg * N, sl.c0 + j0, end, tid, gld);
+  load_tile<P, kBQ>(s_xj, x + bhx * P, sl.c0 + j0, end, tid, xld);
+  for (int t = 0; t < kStages && t < n_i; ++t) fill(t, t);
+
+  // this thread's rows of the slab: jl_lo and jl_lo + 8 (chunk-local)
+  const int jl_lo = j0 + 16 * warp + lane / 4;
+  const float dtj[2] = {dts[jl_lo], dts[jl_lo + 8]};
+  double qd[2] = {0.0, 0.0};
+  float dxa[XB][32], dba[NB][32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+#pragma unroll
+    for (int k = 0; k < XB; ++k) dxa[k][i] = 0.f;
+#pragma unroll
+    for (int k = 0; k < NB; ++k) dba[k][i] = 0.f;
+  }
+
+  for (int t = 0; t < n_i; ++t) {
+    const int st = t % kStages;
+    const int i0 = (sj + t) * kBQ;
+    mbar_wait(bars + 8 * st, (t / kStages) & 1);
+    fence_proxy_async();
+
+    // s = S^T = B_j C_i^T and gt = G^T = x_j dy_i^T: the slab's rows j,
+    // the block's 64 rows i; S L in place of s and G L in place of gt
+    // (L^T masked before the exp), and the sums of S L G; then dx += (S
+    // L)^T dy_i and dB += (G L)^T C_i, S L and G L from registers in three
+    // bf16 terms in turn, dy_i and C_i transposed
+    uint32_t fr[3][4][4];
+    float s[32], gt[32];  // the first product overwrites them
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      mma_ss(s, desc_k<N, kBQ>(s_bj, kk), desc_k<N, kBQ>(s_c(st), kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < P / 16; ++kk)
+      mma_ss(gt, desc_k<P, kBQ>(s_xj, kk), desc_k<P, kBQ>(s_dy(st), kk),
+             kk);
+    wg_commit();
+    wg_wait();
+    fence_regs(s);
+    fence_regs(gt);
+#pragma unroll
+    for (int at = 0; at < 32; ++at) {  // at = 4 n8 + 2 i + j
+      const int k = at / 2 % 2;
+      const int jl = jl_lo + 8 * k;
+      const int il = i0 + 8 * (at / 4) + 2 * (lane % 4) + at % 2;
+      const float l = jl <= il && il < sl.qc
+                          ? expf(static_cast<float>(cum[il] - cum[jl]))
+                          : 0.f;
+      const float slv = s[at] * l;
+      qd[k] += static_cast<double>(slv * gt[at]);
+      s[at] = slv;
+      gt[at] *= l;
+    }
+    split_frags<64>(s, fr);
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+      for (int part = 0; part < 3; ++part)
+#pragma unroll
+        for (int k = 0; k < XB; ++k)
+          mma_rs(dxa[k], fr[part][kc], desc_mn<P, kBQ>(s_dy(st), kc, k));
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int k = 0; k < XB; ++k) fence_regs(dxa[k]);
+    fence_frags(fr);
+    split_frags<64>(gt, fr);
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+      for (int part = 0; part < 3; ++part)
+#pragma unroll
+        for (int k = 0; k < NB; ++k)
+          mma_rs(dba[k], fr[part][kc], desc_mn<N, kBQ>(s_c(st), kc, k));
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int k = 0; k < NB; ++k) fence_regs(dba[k]);
+#pragma unroll
+    for (int k = 0; k < XB; ++k) fence_regs(dxa[k]);
+    fence_frags(fr);
+    // every warp is done with the stage refilled here
+    __syncthreads();
+    if (t + kStages < n_i) fill(t + kStages, st);
+  }
+
+  // the epilogue, against dS split 64 x 64 at a time into the first stage
+  // (free now): bds = B_j dS, then xds = x_j dS^T
+  const float* dso = ds_out + (sl.bh * n_chunks + sl.c) * N *
+                                  static_cast<int64_t>(P);
+  const uint32_t s_t = ring;
+  const double last = cum[sl.qc - 1];
+  float w[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int jl = jl_lo + 8 * k;
+    w[k] = jl < sl.qc ? expf(static_cast<float>(last - cum[jl])) : 0.f;
+  }
+  {
+    float bds[XB][32];
+#pragma unroll
+    for (int k = 0; k < XB; ++k)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) bds[k][i] = 0.f;
+#pragma unroll
+    for (int pb = 0; pb < XB; ++pb)
+#pragma unroll 1
+      for (int nb = 0; nb < NB; ++nb) {
+        if (pb + nb > 0) {
+          wg_wait();
+#pragma unroll
+          for (int k = 0; k < XB; ++k) fence_regs(bds[k]);
+          __syncthreads();
+        }
+        split_tile<kWarpgroup>(s_t, dso + nb * 64 * P + pb * 64, P, tid);
+        __syncthreads();
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int part = 0; part < 3; ++part)
+            mma_ss_n64<0, 1>(bds[pb], desc_k<N, kBQ>(s_bj, nb * 4 + kk),
+                             desc_mn<64, kBQ>(s_t + part * kSplitTile, kk,
+                                              0),
+                             1);
+        wg_commit();
+      }
+    wg_wait();
+#pragma unroll
+    for (int k = 0; k < XB; ++k) fence_regs(bds[k]);
+
+    // dx = dt (dxa + w bds) + D dy; the rows' x.(B dS), dy.x and sums of
+    // S L G
+    const int64_t plane = static_cast<int64_t>(gridDim.x / n_chunks) * len;
+    const float dsk = d_skip[sl.h];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int jl = jl_lo + 8 * k;
+      const bool live = jl < sl.qc;
+      const int64_t at = (sl.c0 + (live ? jl : 0)) * xld + 2 * (lane % 4);
+      const bf16* xr = x + bhx * P + at;
+      const bf16* dyr = dysrc + at;
+      float* dxr = dx + bhx * P + at;
+      float xb = 0.f, dd = 0.f;
+#pragma unroll
+      for (int pb = 0; pb < XB; ++pb)
+#pragma unroll
+        for (int n8 = 0; n8 < 8; ++n8) {
+          if (!live) continue;
+          const int col = pb * 64 + 8 * n8, a = 4 * n8 + 2 * k;
+          const float2 xv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(xr + col));
+          const float2 dyv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(dyr + col));
+          const float b0 = bds[pb][a], b1 = bds[pb][a + 1];
+          xb += xv.x * b0 + xv.y * b1;
+          dd += dyv.x * xv.x + dyv.y * xv.y;
+          *reinterpret_cast<float2*>(dxr + col) = make_float2(
+              dtj[k] * (dxa[pb][a] + w[k] * b0) + dsk * dyv.x,
+              dtj[k] * (dxa[pb][a + 1] + w[k] * b1) + dsk * dyv.y);
+        }
+      xb += __shfl_xor_sync(0xffffffffu, xb, 1);
+      xb += __shfl_xor_sync(0xffffffffu, xb, 2);
+      dd += __shfl_xor_sync(0xffffffffu, dd, 1);
+      dd += __shfl_xor_sync(0xffffffffu, dd, 2);
+      double qd_k = qd[k];
+      qd_k += __shfl_xor_sync(0xffffffffu, qd_k, 1);
+      qd_k += __shfl_xor_sync(0xffffffffu, qd_k, 2);
+      if (live && lane % 4 == 0) {
+        const int64_t row = sl.bh * len + sl.c0 + jl;
+        rows[plane * 2 + row] = qd_k;
+        rows[plane * 3 + row] = static_cast<double>(xb);
+        rows[plane * 4 + row] = static_cast<double>(dd);
+      }
+    }
+  }
+  __syncthreads();  // s_t is free again
+
+  float xds[NB][32];
+#pragma unroll
+  for (int k = 0; k < NB; ++k)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) xds[k][i] = 0.f;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll 1
+    for (int pb = 0; pb < XB; ++pb) {
+      if (nb + pb > 0) {
+        wg_wait();
+#pragma unroll
+        for (int k = 0; k < NB; ++k) fence_regs(xds[k]);
+        __syncthreads();  // the previous tile's products are done with s_t
+      }
+      split_tile<kWarpgroup>(s_t, dso + nb * 64 * P + pb * 64, P, tid);
+      __syncthreads();
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int part = 0; part < 3; ++part)
+          mma_ss_n64<0, 0>(xds[nb], desc_k<P, kBQ>(s_xj, pb * 4 + kk),
+                           desc_k<64, kBQ>(s_t + part * kSplitTile, kk), 1);
+      wg_commit();
+    }
+  wg_wait();
+#pragma unroll
+  for (int k = 0; k < NB; ++k) fence_regs(xds[k]);
+
+  // dB per head, float32: dt (dba + w xds)
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int jl = jl_lo + 8 * k;
+    if (jl >= sl.qc) continue;
+    float* dst = db + ((static_cast<int64_t>(sl.b) * len + sl.c0 + jl) *
+                           h_count + sl.h) * N + 2 * (lane % 4);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int n8 = 0; n8 < 8; ++n8) {
+        const int a = 4 * n8 + 2 * k;
+        *reinterpret_cast<float2*>(dst + nb * 64 + 8 * n8) = make_float2(
+            dtj[k] * (dba[nb][a] + w[k] * xds[nb][a]),
+            dtj[k] * (dba[nb][a + 1] + w[k] * xds[nb][a + 1]));
+      }
+  }
+}
+
+// ---------------------------------------------------------------------
+// 5. Per (b, h, chunk): <S_in, dS>, dcum, its reverse cumsum d(dt a),
+// ddt, and the chunk's partials a sum dt d(dt a) (of d a_log) and sum
+// dy.x (of d d_skip).
+
 // Sum of v over the block, the same in every thread: a warp xor tree,
-// then the warps' sums in order.  red holds kWarps values.
+// then the warps' sums in order.  red holds kCloseWarps values.
 __device__ double block_sum(double v, double* red) {
-  v = group_sum(v, 32);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
   __syncthreads();  // red is free
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   double s = 0.0;
-  for (int w = 0; w < kWarps; ++w) s += red[w];
+  for (int w = 0; w < kCloseWarps; ++w) s += red[w];
   return s;
 }
 
-// Inclusive scan of v over the block's threads in thread order (float64),
-// as in the forward kernels: warp shuffles, then the warps' totals.
+// Inclusive scan of v over the block's threads in thread order (float64):
+// warp shuffles, then the warps' totals.
 __device__ double block_scan(double v, double* wsum) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -172,473 +1006,51 @@ __device__ double block_scan(double v, double* wsum) {
   return v;
 }
 
-// Loads rows r0 .. r0 + rows - 1 of a (len, stride) matrix slice into
-// shared memory as float, rows at or past qc (the chunk's end) as zeros:
-// dst[r * ld + col] = src[(row0 + r) * stride + col], col < width.
-template <typename T>
-__device__ void load_rows(float* dst, int ld, const T* src, int64_t stride,
-                          int row0, int rows, int qc_rel, int width) {
-  for (int e = threadIdx.x; e < rows * width; e += kThreads) {
-    const int r = e / width, col = e % width;
-    dst[r * ld + col] =
-        r < qc_rel ? to_f32(src[static_cast<int64_t>(row0 + r) * stride +
-                                col])
-                   : 0.f;
-  }
-}
-
-struct Dims {
-  int b, len, h, p, g, n, q, nc;
-  __host__ __device__ int rep() const { return h / g; }
-};
-
-// ---------------------------------------------------------------------
-// 1. Per (b, h, chunk): cum, B^T (x dt w) and C^T (exp(cum) dy).
-//    Shared memory (floats after the doubles): cum[kMaxQ] and wsum
-//    (doubles); dt, w, e (kMaxQ each); B and C slabs [kChunkR][N + 1];
-//    x dt w and exp(cum) dy slabs [kChunkR][P + 1]; the two sums [N][P + 1].
-__host__ __device__ inline int64_t chunk_smem(int n, int p) {
-  return 8 * (kMaxQ + kWarps) +
-         4 * (3 * kMaxQ + 2 * kChunkR * (n + 1) + 2 * kChunkR * (p + 1) +
-              2 * n * (p + 1));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                     const float* __restrict__ a_log, const T* __restrict__ bm,
-                     const T* __restrict__ cm, const T* __restrict__ dy,
-                     double* __restrict__ cum_out, float* __restrict__ own,
-                     float* __restrict__ pull, Dims d) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int c0 = c * d.q, qc = min(d.q, d.len - c0);
-  const int g = h / d.rep();
-  const int n = d.n, p = d.p, tid = threadIdx.x;
-  double* cum = reinterpret_cast<double*>(smem_raw);
-  double* wsum = cum + kMaxQ;
-  float* dts = reinterpret_cast<float*>(wsum + kWarps);
-  float* ws = dts + kMaxQ;
-  float* es = ws + kMaxQ;
-  float* bs = es + kMaxQ;
-  float* cs = bs + kChunkR * (n + 1);
-  float* xs = cs + kChunkR * (n + 1);
-  float* ys = xs + kChunkR * (p + 1);
-  float* lacc = ys + kChunkR * (p + 1);
-  float* eacc = lacc + n * (p + 1);
-
-  const float a = -expf(a_log[h]);
-  const int64_t bh = static_cast<int64_t>(b) * d.h + h;
-  const float dtv =
-      tid < qc ? dt[(static_cast<int64_t>(b) * d.len + c0 + tid) * d.h + h]
-               : 0.f;
-  const double v = block_scan(tid < qc ? static_cast<double>(dtv * a) : 0.0,
-                              wsum);
-  cum[tid] = v;
-  dts[tid] = dtv;
-  if (tid < qc) cum_out[bh * d.len + c0 + tid] = v;
-  __syncthreads();
-  const double last = cum[qc - 1];
-  ws[tid] = tid < qc ? expf(static_cast<float>(last - cum[tid])) : 0.f;
-  es[tid] = tid < qc ? expf(static_cast<float>(cum[tid])) : 0.f;
-  for (int e = tid; e < n * (p + 1); e += kThreads) lacc[e] = eacc[e] = 0.f;
-  __syncthreads();
-
-  const int64_t row_bn = static_cast<int64_t>(d.g) * n;    // B, C rows
-  const int64_t row_xp = static_cast<int64_t>(d.h) * p;    // x, dy rows
-  const T* b0 = bm + (static_cast<int64_t>(b) * d.len + c0) * row_bn + g * n;
-  const T* cp = cm + (static_cast<int64_t>(b) * d.len + c0) * row_bn + g * n;
-  const T* x0 = x + (static_cast<int64_t>(b) * d.len + c0) * row_xp + h * p;
-  const T* y0 = dy + (static_cast<int64_t>(b) * d.len + c0) * row_xp + h * p;
-  for (int r0 = 0; r0 < qc; r0 += kChunkR) {
-    load_rows(bs, n + 1, b0, row_bn, r0, kChunkR, qc - r0, n);
-    load_rows(cs, n + 1, cp, row_bn, r0, kChunkR, qc - r0, n);
-    load_rows(xs, p + 1, x0, row_xp, r0, kChunkR, qc - r0, p);
-    load_rows(ys, p + 1, y0, row_xp, r0, kChunkR, qc - r0, p);
-    __syncthreads();
-    for (int e = tid; e < kChunkR * p; e += kThreads) {
-      const int r = e / p, col = e % p;
-      xs[r * (p + 1) + col] *= dts[r0 + r] * ws[r0 + r];
-      ys[r * (p + 1) + col] *= es[r0 + r];
-    }
-    __syncthreads();
-    // (N x P) += (rows x N)^T (rows x P)
-    block_mm<true>(lacc, p + 1, bs, 1, n + 1, xs, p + 1, 1, n, p, kChunkR);
-    block_mm<true>(eacc, p + 1, cs, 1, n + 1, ys, p + 1, 1, n, p, kChunkR);
-    __syncthreads();
-  }
-  const int64_t base = (bh * d.nc + c) * n * p;
-  for (int e = tid; e < n * p; e += kThreads) {
-    const int nn = e / p, pp = e % p;
-    own[base + e] = lacc[nn * (p + 1) + pp];
-    pull[base + e] = eacc[nn * (p + 1) + pp];
-  }
-}
-
-// ---------------------------------------------------------------------
-// 2. Per (b, h): the state passing both ways, in place, one thread per
-//    state entry (strided); then <S_in, dS> of every chunk.
-__device__ __forceinline__ float chunk_decay(const double* cum, int64_t bh,
-                                             const Dims& d, int c) {
-  const int last = min(d.q * (c + 1), d.len) - 1;
-  return expf(static_cast<float>(cum[bh * d.len + last]));
-}
-
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_pass_kernel(const double* __restrict__ cum,
-                    const float* __restrict__ state_in,
-                    const float* __restrict__ dfinal, float* __restrict__ own,
-                    float* __restrict__ pull, float* __restrict__ dstate,
-                    float* __restrict__ sdot, Dims d) {
-  __shared__ double red[kWarps];
-  const int64_t bh = static_cast<int64_t>(blockIdx.y) * d.h + blockIdx.x;
-  const int np = d.n * d.p;
-  for (int e = threadIdx.x; e < np; e += kThreads) {
-    float s = state_in != nullptr ? state_in[bh * np + e] : 0.f;
-    for (int c = 0; c < d.nc; ++c) {
-      const int64_t at = (bh * d.nc + c) * np + e;
-      const float lc = own[at];
-      own[at] = s;                                 // S_in of chunk c
-      s = chunk_decay(cum, bh, d, c) * s + lc;
-    }
-    float ds = dfinal != nullptr ? dfinal[bh * np + e] : 0.f;
-    for (int c = d.nc - 1; c >= 0; --c) {
-      const int64_t at = (bh * d.nc + c) * np + e;
-      const float pc = pull[at];
-      pull[at] = ds;                               // dS leaving chunk c
-      ds = chunk_decay(cum, bh, d, c) * ds + pc;
-    }
-    if (dstate != nullptr) dstate[bh * np + e] = ds;
-  }
-  for (int c = 0; c < d.nc; ++c) {
-    double part = 0.0;
-    for (int e = threadIdx.x; e < np; e += kThreads) {
-      const int64_t at = (bh * d.nc + c) * np + e;
-      part += static_cast<double>(own[at] * pull[at]);
-    }
-    const double total = block_sum(part, red);
-    if (threadIdx.x == 0) sdot[bh * d.nc + c] = static_cast<float>(total);
-  }
-}
-
-// ---------------------------------------------------------------------
-// Shared-memory layout of the row and column kernels, R rows a slab:
-// doubles cum[kMaxQ] and three [R] sums, then floats dt[kMaxQ] and the
-// slabs (rows padded to odd lengths).  The union region u holds either
-// the state (N x (P + 1)) or a slab pair (R x (N + 1) + R x (P + 1)).
-struct Slab {
-  int r, n, p;
-  __host__ __device__ int ln() const { return n + 1; }
-  __host__ __device__ int lp() const { return p + 1; }
-  __host__ __device__ int lr() const { return r + 1; }
-  __host__ __device__ int pair() const { return r * ln() + r * lp(); }
-  __host__ __device__ int u() const {
-    return n * lp() > pair() ? n * lp() : pair();
-  }
-  // floats after the doubles
-  __host__ __device__ int rows_floats() const {   // kernel 3
-    return kMaxQ + r * ln() + r * lp() + u() + 2 * r * lr() + r * ln();
-  }
-  __host__ __device__ int cols_floats() const {   // kernel 4
-    return kMaxQ + 2 * r * ln() + 2 * r * lp() + u() + 2 * r * lr() +
-           r * lp();
-  }
-  __host__ __device__ int64_t doubles_bytes() const {
-    return 8 * (kMaxQ + 3 * r);
-  }
-};
-
-// the chunk's cum (from kernel 1) and dt into shared memory
-__device__ void load_chunk(double* cums, float* dts, const double* cum,
-                           const float* dt, int64_t bh, int b, int h, int c0,
-                           int qc, const Dims& d) {
-  for (int i = threadIdx.x; i < kMaxQ; i += kThreads) {
-    cums[i] = i < qc ? cum[bh * d.len + c0 + i] : 0.0;
-    dts[i] = i < qc ? dt[(static_cast<int64_t>(b) * d.len + c0 + i) * d.h +
-                         h]
-                    : 0.f;
-  }
-}
-
-// L_ij, masked before the exp: 0 above the diagonal and past the chunk
-__device__ __forceinline__ float decay_ij(const double* cums, int i, int j,
-                                          int qc) {
-  return (j <= i && i < qc) ? expf(static_cast<float>(cums[i] - cums[j]))
-                            : 0.f;
-}
-
-// ---------------------------------------------------------------------
-// 3. Per (b, h, chunk, slab of rows i): dC of the rows (per head) and
-//    their dcum terms sum_j M_ij + exp(cum_i) dy_i.(C_i S_in).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                    const T* __restrict__ bm, const T* __restrict__ cm,
-                    const T* __restrict__ dy, const double* __restrict__ cum,
-                    const float* __restrict__ s_in, float* __restrict__ dc,
-                    double* __restrict__ rowpart, Dims d, int r) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int spc = (d.q + r - 1) / r;
-  const int c = blockIdx.x / spc, s = blockIdx.x % spc;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int c0 = c * d.q, qc = min(d.q, d.len - c0), i0 = s * r;
-  if (i0 >= qc) return;
-  const int g = h / d.rep();
-  const int n = d.n, p = d.p, tid = threadIdx.x;
-  const Slab sl{r, n, p};
-  double* cums = reinterpret_cast<double*>(smem_raw);
-  double* rowm = cums + kMaxQ;
-  float* dts = reinterpret_cast<float*>(rowm + 3 * r);
-  float* ci = dts + kMaxQ;
-  float* dyi = ci + r * sl.ln();
-  float* u = dyi + r * sl.lp();
-  float* bj = u;                        // slab pair j, or S_in
-  float* xj = u + r * sl.ln();
-  float* st = u + sl.u();
-  float* gt = st + r * sl.lr();
-  float* dci = gt + r * sl.lr();
-
-  const int64_t bh = static_cast<int64_t>(b) * d.h + h;
-  const int64_t row_bn = static_cast<int64_t>(d.g) * n;
-  const int64_t row_xp = static_cast<int64_t>(d.h) * p;
-  const int64_t at_bn = (static_cast<int64_t>(b) * d.len + c0) * row_bn +
-                        g * n;
-  const int64_t at_xp = (static_cast<int64_t>(b) * d.len + c0) * row_xp +
-                        h * p;
-  load_chunk(cums, dts, cum, dt, bh, b, h, c0, qc, d);
-  load_rows(ci, sl.ln(), cm + at_bn, row_bn, i0, r, qc - i0, n);
-  load_rows(dyi, sl.lp(), dy + at_xp, row_xp, i0, r, qc - i0, p);
-  const float* s0 = s_in + (bh * d.nc + c) * n * p;
-  for (int e = tid; e < n * p; e += kThreads)
-    u[(e / p) * sl.lp() + e % p] = s0[e];
-  __syncthreads();
-
-  // dy S_in^T (r x N), and the state term of dcum
-  block_mm<false>(dci, sl.ln(), dyi, sl.lp(), 1, u, 1, sl.lp(), r, n, p);
-  __syncthreads();
-  const int tpr = kThreads / r, row = tid / tpr, sub = tid % tpr;
-  const int i = i0 + row;
-  {
-    const float ei = i < qc ? expf(static_cast<float>(cums[i])) : 0.f;
-    float part = 0.f;
-    for (int nn = sub; nn < n; nn += tpr) {
-      float* o = dci + row * sl.ln() + nn;
-      part += ci[row * sl.ln() + nn] * *o;
-      *o *= ei;
-    }
-    part = group_sum(part, tpr);
-    if (sub == 0) rowm[row] = static_cast<double>(ei * part);
-  }
-  for (int jb = 0; jb <= s; ++jb) {
-    const int j0 = jb * r;
-    __syncthreads();  // u and the tiles are free
-    load_rows(bj, sl.ln(), bm + at_bn, row_bn, j0, r, qc - j0, n);
-    load_rows(xj, sl.lp(), x + at_xp, row_xp, j0, r, qc - j0, p);
-    __syncthreads();
-    // S = C_i B_j^T and G = dy_i x_j^T (r x r)
-    block_mm<false>(st, sl.lr(), ci, sl.ln(), 1, bj, 1, sl.ln(), r, r, n);
-    block_mm<false>(gt, sl.lr(), dyi, sl.lp(), 1, xj, 1, sl.lp(), r, r, p);
-    __syncthreads();
-    double msum = 0.0;
-    for (int jj = sub; jj < r; jj += tpr) {
-      const int j = j0 + jj;
-      const float l = decay_ij(cums, i, j, qc);
-      float* gp = gt + row * sl.lr() + jj;
-      const float z = (*gp * l) * dts[j];               // G L dt_j
-      msum += static_cast<double>(st[row * sl.lr() + jj] * z);  // M_ij
-      *gp = z;
-    }
-    msum = group_sum(msum, tpr);
-    if (sub == 0) rowm[row] += msum;
-    __syncthreads();
-    block_mm<true>(dci, sl.ln(), gt, sl.lr(), 1, bj, sl.ln(), 1, r, n, r);
-  }
-  __syncthreads();
-  for (int e = tid; e < r * n; e += kThreads) {
-    const int rr = e / n, nn = e % n;
-    if (i0 + rr < qc)
-      dc[((static_cast<int64_t>(b) * d.len + c0 + i0 + rr) * d.h + h) * n +
-         nn] = dci[rr * sl.ln() + nn];
-  }
-  if (tid < r && i0 + tid < qc) rowpart[bh * d.len + c0 + i0 + tid] =
-      rowm[tid];
-}
-
-// ---------------------------------------------------------------------
-// 4. Per (b, h, chunk, slab of rows j): dx and dB (per head) of the rows,
-//    and their terms of dcum and ddt: sum_i M_ij, sum_i (C B^T L G)_ij,
-//    x_j.(B_j dS) and dy_j.x_j.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_cols_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                    const T* __restrict__ bm, const T* __restrict__ cm,
-                    const T* __restrict__ dy, const float* __restrict__ d_skip,
-                    const double* __restrict__ cum,
-                    const float* __restrict__ ds_out, float* __restrict__ dx,
-                    float* __restrict__ db, double* __restrict__ rows,
-                    Dims d, int r) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int spc = (d.q + r - 1) / r;
-  const int c = blockIdx.x / spc, s = blockIdx.x % spc;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int c0 = c * d.q, qc = min(d.q, d.len - c0), j0 = s * r;
-  if (j0 >= qc) return;
-  const int g = h / d.rep();
-  const int n = d.n, p = d.p, tid = threadIdx.x;
-  const Slab sl{r, n, p};
-  double* cums = reinterpret_cast<double*>(smem_raw);
-  double* colm = cums + kMaxQ;
-  double* qd = colm + r;
-  float* dts = reinterpret_cast<float*>(colm + 3 * r);
-  float* bj = dts + kMaxQ;
-  float* dbj = bj + r * sl.ln();
-  float* xj = dbj + r * sl.ln();
-  float* dxj = xj + r * sl.lp();
-  float* u = dxj + r * sl.lp();
-  float* ci = u;                        // slab pair i, or dS
-  float* dyi = u + r * sl.ln();
-  float* st = u + sl.u();
-  float* gt = st + r * sl.lr();
-  float* tmp = gt + r * sl.lr();
-
-  const int64_t bh = static_cast<int64_t>(b) * d.h + h;
-  const int64_t row_bn = static_cast<int64_t>(d.g) * n;
-  const int64_t row_xp = static_cast<int64_t>(d.h) * p;
-  const int64_t at_bn = (static_cast<int64_t>(b) * d.len + c0) * row_bn +
-                        g * n;
-  const int64_t at_xp = (static_cast<int64_t>(b) * d.len + c0) * row_xp +
-                        h * p;
-  load_chunk(cums, dts, cum, dt, bh, b, h, c0, qc, d);
-  load_rows(bj, sl.ln(), bm + at_bn, row_bn, j0, r, qc - j0, n);
-  load_rows(xj, sl.lp(), x + at_xp, row_xp, j0, r, qc - j0, p);
-  for (int e = tid; e < r * sl.ln(); e += kThreads) dbj[e] = 0.f;
-  for (int e = tid; e < r * sl.lp(); e += kThreads) dxj[e] = 0.f;
-  if (tid < r) colm[tid] = qd[tid] = 0.0;
-  const int tpr = kThreads / r, row = tid / tpr, sub = tid % tpr;
-  const int j = j0 + row;
-  // rows and slabs end by kMaxQ (q <= 256 and r divides 256)
-  const float dtj = dts[j];
-  for (int i0 = j0; i0 < qc; i0 += r) {
-    __syncthreads();  // u and the tiles are free
-    load_rows(ci, sl.ln(), cm + at_bn, row_bn, i0, r, qc - i0, n);
-    load_rows(dyi, sl.lp(), dy + at_xp, row_xp, i0, r, qc - i0, p);
-    __syncthreads();
-    // S^T = B_j C_i^T and G^T = x_j dy_i^T (r x r)
-    block_mm<false>(st, sl.lr(), bj, sl.ln(), 1, ci, 1, sl.ln(), r, r, n);
-    block_mm<false>(gt, sl.lr(), xj, sl.lp(), 1, dyi, 1, sl.lp(), r, r, p);
-    __syncthreads();
-    double msum = 0.0, qsum = 0.0;
-    for (int ii = sub; ii < r; ii += tpr) {
-      const float l = decay_ij(cums, i0 + ii, j, qc);
-      float* sp = st + row * sl.lr() + ii;
-      float* gp = gt + row * sl.lr() + ii;
-      const float sv = *sp, gv = *gp;
-      const float y = gv * l;                            // G L
-      const float z = y * dtj;                           // G L dt_j
-      const float slv = sv * l;                          // C B^T L
-      msum += static_cast<double>(sv * z);               // M_ij
-      qsum += static_cast<double>(slv * gv);
-      *sp = slv;
-      *gp = y;
-    }
-    msum = group_sum(msum, tpr);
-    qsum = group_sum(qsum, tpr);
-    if (sub == 0) {
-      colm[row] += msum;
-      qd[row] += qsum;
-    }
-    __syncthreads();
-    block_mm<true>(dxj, sl.lp(), st, sl.lr(), 1, dyi, sl.lp(), 1, r, p, r);
-    block_mm<true>(dbj, sl.ln(), gt, sl.lr(), 1, ci, sl.ln(), 1, r, n, r);
-  }
-  __syncthreads();
-  const float* dso = ds_out + (bh * d.nc + c) * n * p;
-  for (int e = tid; e < n * p; e += kThreads)
-    u[(e / p) * sl.lp() + e % p] = dso[e];
-  __syncthreads();
-  // B_j dS (r x P)
-  block_mm<false>(tmp, sl.lp(), bj, sl.ln(), 1, u, sl.lp(), 1, r, p, n);
-  __syncthreads();
-  {
-    const double last = cums[qc - 1];
-    const bool live = j < qc;
-    const float w = live ? expf(static_cast<float>(last - cums[j])) : 0.f;
-    const float dsk = d_skip[h];
-    float xb = 0.f, dd = 0.f;
-    for (int pp = sub; pp < p; pp += tpr) {
-      float* xp = xj + row * sl.lp() + pp;
-      const float bds = tmp[row * sl.lp() + pp];
-      xb += *xp * bds;
-      if (live) {
-        const int64_t at = at_xp + static_cast<int64_t>(j) * row_xp + pp;
-        const float dyv = to_f32(dy[at]);
-        dd += dyv * *xp;
-        dx[at] = dtj * (dxj[row * sl.lp() + pp] + w * bds) + dsk * dyv;
-      }
-      *xp *= w;
-    }
-    xb = group_sum(xb, tpr);
-    dd = group_sum(dd, tpr);
-    if (sub == 0 && live) {
-      const int64_t at = bh * d.len + c0 + j;
-      const int64_t plane = static_cast<int64_t>(d.b) * d.h * d.len;
-      rows[plane * 1 + at] = colm[row];
-      rows[plane * 2 + at] = qd[row];
-      rows[plane * 3 + at] = static_cast<double>(xb);
-      rows[plane * 4 + at] = static_cast<double>(dd);
-    }
-  }
-  __syncthreads();
-  // + (w x_j) dS^T (r x N)
-  block_mm<true>(dbj, sl.ln(), xj, sl.lp(), 1, u, 1, sl.lp(), r, n, p);
-  __syncthreads();
-  for (int e = tid; e < r * n; e += kThreads) {
-    const int rr = e / n, nn = e % n;
-    if (j0 + rr < qc)
-      db[((static_cast<int64_t>(b) * d.len + c0 + j0 + rr) * d.h + h) * n +
-         nn] = dts[j0 + rr] * dbj[rr * sl.ln() + nn];
-  }
-}
-
-// ---------------------------------------------------------------------
-// 5. Per (b, h, chunk): dcum, its reverse cumsum d(dt a), ddt, and the
-//    chunk's partials a sum dt d(dt a) (of d a_log) and sum dy.x (of
-//    d d_skip).
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kCloseThreads)
 ssd_bwd_close_kernel(const float* __restrict__ dt,
                      const float* __restrict__ a_log,
                      const double* __restrict__ cum,
                      const double* __restrict__ rows,
-                     const float* __restrict__ sdot, float* __restrict__ ddt,
-                     float* __restrict__ parts, Dims d) {
-  __shared__ double red[kWarps];
+                     const double* __restrict__ sdot_parts,
+                     float* __restrict__ ddt, float* __restrict__ parts,
+                     int len, int h_count, int n_tiles, int q, int n_chunks) {
+  __shared__ double red[kCloseWarps];
   __shared__ double dda[kMaxQ];
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int c0 = c * d.q, qc = min(d.q, d.len - c0), i = threadIdx.x;
-  const int64_t bh = static_cast<int64_t>(b) * d.h + h;
-  const int64_t plane = static_cast<int64_t>(d.b) * d.h * d.len;
-  const int64_t at = bh * d.len + c0 + i;
+  const int c0 = c * q, qc = min(q, len - c0), i = threadIdx.x;
+  const int n_live = (qc + kBQ - 1) / kBQ;
+  const int64_t bh = static_cast<int64_t>(b) * h_count + h;
+  const int64_t plane = static_cast<int64_t>(gridDim.z) * h_count * len;
+  const int64_t at = bh * len + c0 + i;
   const bool live = i < qc;
   const float a = -expf(a_log[h]);
-  const double last = cum[bh * d.len + c0 + qc - 1];
+  const double last = cum[bh * len + c0 + qc - 1];
+
+  // <S_in, dS>: the state passing's float64 partials, in a fixed order
+  const double* sp_c = sdot_parts + (bh * n_chunks + c) * n_tiles;
+  double sp = 0.0;
+  for (int t = i; t < n_tiles; t += kCloseThreads) sp += sp_c[t];
+  const float sdot = static_cast<float>(block_sum(sp, red));
+
   double cumi = 0.0, rowp = 0.0, colm = 0.0, qd = 0.0, xb = 0.0, dd = 0.0;
   float dti = 0.f;
   if (live) {
     cumi = cum[at];
-    rowp = rows[at];
-    colm = rows[plane + at];
+    rowp = rows[at] + rows[plane + at];
+    for (int s = i / kBQ; s < n_live; ++s)
+      colm += rows[(kColPlane + s) * plane + at];
     qd = rows[2 * plane + at];
     xb = rows[3 * plane + at];
     dd = rows[4 * plane + at];
-    dti = dt[(static_cast<int64_t>(b) * d.len + c0 + i) * d.h + h];
+    dti = dt[(static_cast<int64_t>(b) * len + c0 + i) * h_count + h];
   }
   const float w = live ? expf(static_cast<float>(last - cumi)) : 0.f;
   const float t = w * dti * static_cast<float>(xb);
   double dcum = live ? rowp - colm - static_cast<double>(t) : 0.0;
   const double t_sum = block_sum(static_cast<double>(t), red);
   if (i == qc - 1)
-    dcum += static_cast<double>(expf(static_cast<float>(last)) *
-                                sdot[bh * d.nc + c]) + t_sum;
+    dcum += static_cast<double>(expf(static_cast<float>(last)) * sdot) +
+            t_sum;
   // reverse inclusive cumsum: thread k scans the element qc - 1 - k
   __syncthreads();
   if (live) dda[i] = dcum;
@@ -650,111 +1062,135 @@ ssd_bwd_close_kernel(const float* __restrict__ dt,
   __syncthreads();
   const double ddai = live ? dda[i] : 0.0;
   if (live)
-    ddt[(static_cast<int64_t>(b) * d.len + c0 + i) * d.h + h] =
+    ddt[(static_cast<int64_t>(b) * len + c0 + i) * h_count + h] =
         static_cast<float>(qd) + w * static_cast<float>(xb) +
         a * static_cast<float>(ddai);
   const double da = block_sum(static_cast<double>(dti) * ddai, red);
   const double ds = block_sum(dd, red);
   if (i == 0) {
-    const int64_t nparts = static_cast<int64_t>(d.b) * d.h * d.nc;
-    parts[bh * d.nc + c] = static_cast<float>(static_cast<double>(a) * da);
-    parts[nparts + bh * d.nc + c] = static_cast<float>(ds);
+    const int64_t nparts = static_cast<int64_t>(gridDim.z) * h_count *
+                           n_chunks;
+    parts[bh * n_chunks + c] = static_cast<float>(static_cast<double>(a) * da);
+    parts[nparts + bh * n_chunks + c] = static_cast<float>(ds);
   }
 }
 
+struct Args {
+  const bf16* x;
+  const float* dt;
+  const float* a_log;
+  const bf16* bm;
+  const bf16* cm;
+  const float* d_skip;
+  const float* state_in;
+  const bf16* dy;
+  const float* dfinal;
+  float *dx, *ddt, *db, *dc, *dstate, *parts;
+  double* cum;
+  float *own, *pull;
+  double *sdot, *rows;
+  int b, len, h, g, q;
+  cudaStream_t stream;
+};
+
 template <typename Kern>
-cudaError_t allow_smem(Kern kernel, int64_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+cudaError_t allow_smem(Kern kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <typename T>
-cudaError_t launch(const T* x, const float* dt, const float* a_log,
-                   const T* bm, const T* cm, const float* d_skip,
-                   const float* state_in, const T* dy, const float* dfinal,
-                   float* dx, float* ddt, float* db, float* dc, float* dstate,
-                   float* parts, double* cum, float* states, float* pulls,
-                   float* sdot, double* rows, const Dims& d,
-                   cudaStream_t stream) {
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&limit,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  const int64_t chunk_bytes = chunk_smem(d.n, d.p);
-  auto slab_bytes = [&](int r) {
-    const Slab sl{r, d.n, d.p};
-    const int64_t rows_b = sl.doubles_bytes() + 4LL * sl.rows_floats();
-    const int64_t cols_b = sl.doubles_bytes() + 4LL * sl.cols_floats();
-    return rows_b > cols_b ? rows_b : cols_b;
-  };
-  const int r = slab_bytes(64) <= limit ? 64 : 32;
-  const Slab sl{r, d.n, d.p};
-  const int64_t rows_bytes = sl.doubles_bytes() + 4LL * sl.rows_floats();
-  const int64_t cols_bytes = sl.doubles_bytes() + 4LL * sl.cols_floats();
-  if (chunk_bytes > limit || rows_bytes > limit || cols_bytes > limit)
-    return cudaErrorInvalidValue;
-  if ((err = allow_smem(ssd_bwd_chunk_kernel<T>, chunk_bytes)) !=
-          cudaSuccess ||
-      (err = allow_smem(ssd_bwd_rows_kernel<T>, rows_bytes)) != cudaSuccess ||
-      (err = allow_smem(ssd_bwd_cols_kernel<T>, cols_bytes)) != cudaSuccess)
+template <int N, int P>
+cudaError_t launch(const Args& a) {
+  const int nc = (a.len + a.q - 1) / a.q;
+  const int spc = (a.q + kBQ - 1) / kBQ;
+  constexpr int s1 = sums_smem_bytes<N>(), s3 = rows_smem_bytes<N, P>(),
+                s4 = cols_smem_bytes<N, P>();
+  cudaError_t err;
+  if ((err = allow_smem(ssd_bwd_sums_kernel<N>, s1)) != cudaSuccess ||
+      (err = allow_smem(ssd_bwd_rows_kernel<N, P>, s3)) != cudaSuccess ||
+      (err = allow_smem(ssd_bwd_cols_kernel<N, P>, s4)) != cudaSuccess)
     return err;
-  const dim3 per_chunk(d.nc, d.h, d.b);
-  const dim3 per_slab(d.nc * ((d.q + r - 1) / r), d.h, d.b);
-  ssd_bwd_chunk_kernel<T><<<per_chunk, kThreads, chunk_bytes, stream>>>(
-      x, dt, a_log, bm, cm, dy, cum, states, pulls, d);
+  ssd_bwd_sums_kernel<N><<<dim3(nc, a.h, a.b * (P / 64) * 2), 2 * N, s1,
+                           a.stream>>>(a.x, a.dt, a.a_log, a.bm, a.cm, a.dy,
+                                       a.cum, a.own, a.pull, a.len, a.h, P,
+                                       a.g, a.q, nc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ssd_bwd_pass_kernel<<<dim3(d.h, d.b), kThreads, 0, stream>>>(
-      cum, state_in, dfinal, states, pulls, dstate, sdot, d);
+  constexpr int np = N * P;
+  static_assert(np % (4 * kPassThreads) == 0, "the pass grid is not exact");
+  ssd_bwd_pass_kernel<<<dim3(np / 4 / kPassThreads, a.h, a.b), kPassThreads,
+                        0, a.stream>>>(a.cum, a.state_in, a.dfinal, a.own,
+                                    a.pull, a.dstate, a.sdot, a.len, a.h, np,
+                                    a.q, nc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ssd_bwd_rows_kernel<T><<<per_slab, kThreads, rows_bytes, stream>>>(
-      x, dt, bm, cm, dy, cum, states, dc, rows, d, r);
+  ssd_bwd_rows_kernel<N, P><<<dim3(nc * a.h * a.b, spc), kWarpgroup, s3,
+                              a.stream>>>(a.x, a.dt, a.bm, a.cm, a.dy, a.cum,
+                                          a.own, a.dc, a.rows, a.len, a.h,
+                                          a.g, a.q, nc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ssd_bwd_cols_kernel<T><<<per_slab, kThreads, cols_bytes, stream>>>(
-      x, dt, bm, cm, dy, d_skip, cum, pulls, dx, db, rows, d, r);
+  ssd_bwd_cols_kernel<N, P><<<dim3(nc * a.h * a.b, spc), kWarpgroup, s4,
+                              a.stream>>>(a.x, a.dt, a.bm, a.cm, a.dy,
+                                          a.d_skip, a.cum, a.pull, a.dx,
+                                          a.db, a.rows, a.len, a.h, a.g, a.q,
+                                          nc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ssd_bwd_close_kernel<<<per_chunk, kThreads, 0, stream>>>(
-      dt, a_log, cum, rows, sdot, ddt, parts, d);
+  ssd_bwd_close_kernel<<<dim3(nc, a.h, a.b), kCloseThreads, 0, a.stream>>>(
+      a.dt, a.a_log, a.cum, a.rows, a.sdot, a.ddt, a.parts, a.len, a.h,
+      np / kTileEntries, a.q, nc);
   return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t launch_p(const Args& a, int p) {
+  switch (p) {
+    case 64:
+      return launch<N, 64>(a);
+    case 128:
+      return launch<N, 128>(a);
+    case 192:
+      return launch<N, 192>(a);
+    case 256:
+      return launch<N, 256>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// x, dy (B, L, H, P) and b_mat, c_mat (B, L, G, N): bfloat16 (bf16 != 0)
-// or float32; dt (B, L, H), a_log and d_skip (H,), state_in and dfinal
-// (B, H, N, P) or null: float32.  Outputs, float32: dx like x, ddt like
-// dt, db and dc (B, L, H, N) per head, dstate (B, H, N, P) or null, parts
-// (2, B, H, n_chunks): the partials of d a_log and d d_skip.  Scratch:
-// cum (B, H, L) float64, states and pulls (B, H, n_chunks, N, P) float32,
-// sdot (B, H, n_chunks) float32, rows (5, B, H, L) float64.  All
-// contiguous; 1 <= q <= 256, 1 <= N <= 256, H % G == 0.  A (N, P) whose
-// slabs exceed a block's shared memory fails the launch.
-cudaError_t ssd_scan_backward(const void* x, const float* dt, const float* a_log,
-                         const void* bm, const void* cm, const float* d_skip,
-                         const float* state_in, const void* dy,
-                         const float* dfinal, int bf16, float* dx, float* ddt,
-                         float* db, float* dc, float* dstate, float* parts,
-                         double* cum, float* states, float* pulls,
-                         float* sdot, double* rows, int b, int len, int h,
-                         int p, int g, int n, int q, cudaStream_t stream) {
-  if (b <= 0 || len <= 0 || g <= 0 || h % g != 0 || q < 1 || q > kMaxQ ||
-      n < 1 || n > 256 || p < 1)
+// x, dy (B, L, H, P) and b_mat, c_mat (B, L, G, N): bfloat16; dt (B, L,
+// H), a_log and d_skip (H,), state_in and dfinal (B, H, N, P) or null:
+// float32.  Outputs, float32: dx like x, ddt like dt, db and dc (B, L, H,
+// N) per head, dstate (B, H, N, P) or null, parts (2, B, H, n_chunks): the
+// partials of d a_log and d d_skip.  Scratch: cum (B, H, L) float64,
+// states and pulls (B, H, n_chunks, N, P) float32, sdot (B, H, n_chunks,
+// N P / 128) float64, rows (5 + ceil(q / 64), B, H, L) float64.  All
+// contiguous, rows 16-byte aligned; N in {64, 128, 256}, P in {64, 128,
+// 192, 256}, 1 <= q <= 256, H % G == 0.
+cudaError_t ssd_scan_backward(const void* x, const float* dt,
+                              const float* a_log, const void* bm,
+                              const void* cm, const float* d_skip,
+                              const float* state_in, const void* dy,
+                              const float* dfinal, float* dx, float* ddt,
+                              float* db, float* dc, float* dstate,
+                              float* parts, double* cum, float* states,
+                              float* pulls, double* sdot, double* rows,
+                              int b, int len, int h, int p, int g, int n,
+                              int q, cudaStream_t stream) {
+  if (b <= 0 || len <= 0 || g <= 0 || h % g != 0 || q < 1 || q > kMaxQ)
     return cudaErrorInvalidValue;
-  const Dims d{b, len, h, p, g, n, q, (len + q - 1) / q};
-  if (bf16) {
-    using T = __nv_bfloat16;
-    return launch<T>(static_cast<const T*>(x), dt, a_log,
-                     static_cast<const T*>(bm), static_cast<const T*>(cm),
-                     d_skip, state_in, static_cast<const T*>(dy), dfinal, dx,
-                     ddt, db, dc, dstate, parts, cum, states, pulls, sdot,
-                     rows, d, stream);
+  const Args a{static_cast<const bf16*>(x), dt, a_log,
+               static_cast<const bf16*>(bm), static_cast<const bf16*>(cm),
+               d_skip, state_in, static_cast<const bf16*>(dy), dfinal, dx,
+               ddt, db, dc, dstate, parts, cum, states, pulls, sdot, rows,
+               b, len, h, g, q, stream};
+  switch (n) {
+    case 64:
+      return launch_p<64>(a, p);
+    case 128:
+      return launch_p<128>(a, p);
+    case 256:
+      return launch_p<256>(a, p);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return launch<float>(static_cast<const float*>(x), dt, a_log,
-                       static_cast<const float*>(bm),
-                       static_cast<const float*>(cm), d_skip, state_in,
-                       static_cast<const float*>(dy), dfinal, dx, ddt, db,
-                       dc, dstate, parts, cum, states, pulls, sdot, rows, d,
-                       stream);
 }

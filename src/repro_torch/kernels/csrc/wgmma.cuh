@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels: the
 // flash-attention forward (flash_attention.cu, #5), its backward
-// (flash_attention_bwd.cu, #6 and #7) and the SSD chunked scan
-// (ssd_scan.cu, #8).  Plain CUDA C++ with no PyTorch header, included by
-// each of those sources; everything is in an anonymous namespace, so each
-// translation unit keeps its own copy.
+// (flash_attention_bwd.cu, #6 and #7), the SSD chunked scan (ssd_scan.cu,
+// #8) and its backward (ssd_scan_bwd.cu, 8').  Plain CUDA C++ with no
+// PyTorch header, included by each of those sources; everything is in an
+// anonymous namespace, so each translation unit keeps its own copy.
 //
 //   * Swizzled bf16 tiles in shared memory and the wgmma descriptors that
 //     read them, K-major or MN-major (transposed);
@@ -12,7 +12,8 @@
 //     float32 accumulators, A from shared memory or from registers;
 //   * split3 / split_frags: the exact three-way bf16 split of a float32
 //     operand, so that three bf16 products give the float32 product;
-//   * exp_p, the special-function unit's ex2.
+//   * exp_p, the special-function unit's ex2;
+//   * the SSD kernels' in-chunk float64 cumsum and their split stores.
 
 #pragma once
 
@@ -356,6 +357,55 @@ __device__ __forceinline__ bool live(int q_pos, int k_pos, int skv,
                                      int causal, int window) {
   return k_pos < skv && (!causal || q_pos >= k_pos) &&
          (window <= 0 || k_pos > q_pos - window);
+}
+
+// ---------------------------------------------------------------------
+// The SSD kernels (ssd_scan.cu, ssd_scan_bwd.cu).
+
+constexpr int kSplitTile = 64 * 64 * 2;  // one bf16 term of a 64 x 64 tile
+
+// The inclusive float64 cumsum of (float) dt a over the chunk's qc rows
+// into cum[], and dt into dts[], by one warp; dt_row is the chunk's first
+// dt, its rows stride apart.
+__device__ __forceinline__ void chunk_cumsum(double* cum, float* dts,
+                                             const float* __restrict__ dt_row,
+                                             int stride, float a, int qc,
+                                             int lane) {
+  double carry = 0.0;
+  for (int r0 = 0; r0 < qc; r0 += 32) {
+    const int j = r0 + lane;
+    const float d = j < qc ? dt_row[static_cast<int64_t>(j) * stride] : 0.f;
+    double v = static_cast<double>(d * a);
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const double t = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += t;
+    }
+    v += carry;
+    if (j < qc) {
+      cum[j] = v;
+      dts[j] = d;
+    }
+    carry = __shfl_sync(0xffffffffu, v, 31);
+  }
+}
+
+// Eight consecutive float32 values x0..x7 split into their three bf16
+// terms, 16 bytes each, stored at chunk offset off of the three tiles
+// part 0, 1, 2 (kSplitTile bytes apart) from tile.
+__device__ __forceinline__ void store_split8(uint32_t tile, uint32_t off,
+                                             const float (&x)[8]) {
+  uint32_t t[3][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    split3(x[2 * i], x[2 * i + 1], t[0][i], t[1][i], t[2][i]);
+#pragma unroll
+  for (int part = 0; part < 3; ++part)
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                     tile + part * kSplitTile + off),
+                 "r"(t[part][0]), "r"(t[part][1]), "r"(t[part][2]),
+                 "r"(t[part][3])
+                 : "memory");
 }
 
 }  // namespace

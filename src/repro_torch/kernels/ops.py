@@ -7,8 +7,8 @@ route per device: on CUDA tensors ``attention`` and ``ssd`` launch the
 hand-written kernels, on CPU tensors they run the kernels' plain
 versions, and nothing falls from one to the other.  Both are
 differentiable through backward kernels; the reference trains the SSD by
-autodiff of its jnp path, the port through a backward kernel of its own
-(``csrc/ssd_scan_bwd.cu``).  The reference's
+autodiff of its jnp path, the port through backward kernels of its own
+(``csrc/ssd_scan_bwd.cu``, ``csrc/ssd_scan_bwd_fma.cu``).  The reference's
 ``REPRO_PERF`` variants (grouped GQA, bfloat16 probabilities, another SSD
 chunk) are not ported: K/V and the probabilities are float32 and the
 chunk is the config's.  The RG-LRU has no kernel in the reference

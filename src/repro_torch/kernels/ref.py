@@ -465,7 +465,7 @@ def ssd_scan_chunked_ref(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int,
 
 
 def ssd_scan_bwd_ref(x, dt, a_log, b_mat, c_mat, d_skip, dy, *, chunk: int,
-                     state=None, dfinal=None):
+                     state=None, dfinal=None, terms=None):
     """Gradients of :func:`ssd_scan_chunked_ref`'s ``(y, final_state)``
     given ``dy`` (like y) and ``dfinal`` (like the final state, or None
     for zero): ``(dx, ddt, da_log, db, dc, dd_skip, dstate)``, float32 in
@@ -494,7 +494,16 @@ def ssd_scan_bwd_ref(x, dt, a_log, b_mat, c_mat, d_skip, dy, *, chunk: int,
     Float32 throughout; the cumsums (forward and reverse) and the terms
     of ``dcum`` in float64: its row and column sums of ``M`` cancel in
     the reverse cumsum, and summed in float32 they put 2e-4 of d a_log's
-    size into it at a real layer's decay."""
+    size into it at a real layer's decay.
+
+    ``terms`` (3 or 1) multiplies the float32 operand of each product but
+    ``C B^T`` and ``dy x^T`` (x dt w, exp(cum) dy, S L, G L dt_j, G L,
+    S_in, dS) as that many bf16 terms (:func:`split_matmul`), as the
+    tensor-core kernels of ``csrc/ssd_scan_bwd.cu`` do with 3; None in
+    float32."""
+    def mm(a, b, split_a):
+        return split_matmul(a, b, terms, split_a=split_a)
+
     bsz, length, h, p = x.shape
     g, n = b_mat.shape[2], b_mat.shape[3]
     rep = h // g
@@ -516,8 +525,9 @@ def ssd_scan_bwd_ref(x, dt, a_log, b_mat, c_mat, d_skip, dy, *, chunk: int,
                        torch.exp(cum.float())))
     own, pull = [], []                                       # 1.
     for xc, dtc, bc, cc, dyc, _, w, ecum in chunks:
-        own.append(bc.transpose(-1, -2) @ (xc * (dtc * w)[..., None]))
-        pull.append(cc.transpose(-1, -2) @ (dyc * ecum[..., None]))
+        own.append(mm(bc.transpose(-1, -2), xc * (dtc * w)[..., None],
+                      False))
+        pull.append(mm(cc.transpose(-1, -2), dyc * ecum[..., None], False))
     s = (torch.zeros((bsz, h, n, p), dtype=f32, device=x.device)
          if state is None else state.float())
     s_in = []                                                # 2.
@@ -545,16 +555,18 @@ def ssd_scan_bwd_ref(x, dt, a_log, b_mat, c_mat, d_skip, dy, *, chunk: int,
         gm = dyc @ xc.transpose(-1, -2)                      # G_ij
         y_ = gm * lmat                                       # G L
         z = y_ * dtc[..., None, :]                           # G L dt_j
-        bds = bc @ so                                        # B dS
-        dys = dyc @ si.transpose(-1, -2)                     # dy S_in^T
+        bds = mm(bc, so, False)                              # B dS
+        dys = mm(dyc, si.transpose(-1, -2), False)           # dy S_in^T
         xbds = (xc * bds).sum(-1)                            # x.(B dS)
-        dxs.append((dtc[..., None] * (sl.transpose(-1, -2) @ dyc
+        dxs.append((dtc[..., None] * (mm(sl.transpose(-1, -2), dyc, True)
                                       + w[..., None] * bds)
                     + dsk * dyc).transpose(1, 2))
-        dcs.append((z @ bc + ecum[..., None] * dys).transpose(1, 2))
-        dbs.append((dtc[..., None] * (y_.transpose(-1, -2) @ cc
-                                      + w[..., None] * (xc @ so.transpose(
-                                          -1, -2)))).transpose(1, 2))
+        dcs.append((mm(z, bc, True) + ecum[..., None] * dys)
+                   .transpose(1, 2))
+        dbs.append((dtc[..., None] * (mm(y_.transpose(-1, -2), cc, True)
+                                      + w[..., None] * mm(
+                                          xc, so.transpose(-1, -2), False)))
+                   .transpose(1, 2))
         qdir = (sl * gm).sum(-2)                 # sum_i (C_i.B_j) L_ij G_ij
         t = w * dtc * xbds
         m = (sl * gm * dtc[..., None, :]).double()   # M_ij

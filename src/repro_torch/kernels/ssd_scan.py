@@ -25,11 +25,14 @@ nothing to y or to the state), and cuts y and the state back.
 The backward, :func:`ssd_scan_bwd`, has no counterpart among the Pallas
 kernels: the reference trains the SSD by autodiff of its jnp path
 (``_ssd_jnp_chunked``, ``repro/kernels/ops.py:145``).  On CUDA tensors it
-launches the hand-written kernels of ``csrc/ssd_scan_bwd.cu`` (float32
-arithmetic on the CUDA cores, bf16 or float32 operands, any d_state and
-head size: the padding of the forward's wrapper never reaches it), on CPU
-tensors its plain version :func:`repro_torch.kernels.ref.
-ssd_scan_bwd_ref`, and raises elsewhere; each call counts one launch.
+launches hand-written kernels, five launches counted as one: for bf16
+operands the tensor-core kernels of ``csrc/ssd_scan_bwd.cu``, which take
+d_state 64, 128 or 256 and a head size of 64, 128, 192 or 256 (the
+wrapper zero-pads the operands as the forward's does, :func:`pad_bwd`,
+and cuts the gradients back, :func:`cut_bwd`), for float32 ones the
+CUDA-core kernels of ``csrc/ssd_scan_bwd_fma.cu`` (any d_state and head
+size).  On CPU tensors it runs its plain version
+:func:`repro_torch.kernels.ref.ssd_scan_bwd_ref`, and raises elsewhere.
 :class:`SSDScan` is the autograd Function over both.
 """
 
@@ -42,7 +45,7 @@ from .flash_attention import _aligned
 from .ref import ssd_scan_bwd_ref, ssd_scan_ref
 
 __all__ = ["ssd_scan", "ssd_scan_bwd", "SSDScan", "LAUNCHES",
-           "reset_launches", "MAX_CHUNK"]
+           "reset_launches", "MAX_CHUNK", "pad_bwd", "cut_bwd"]
 
 # kernel launches on the card since the last reset_launches()
 LAUNCHES = {"ssd_scan": 0, "ssd_scan_bwd": 0}
@@ -51,6 +54,7 @@ MAX_CHUNK = 256          # chunk rows one block handles
 MAX_STATE = 256          # d_state the kernels take
 _STATE_DIMS = (64, 128, 256)   # d_state of the tensor-core kernels
 _P_BLOCK = 64            # head-size multiple of the tensor-core kernels
+_MAX_HEAD_BWD = 256      # head size of the tensor-core backward
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -102,6 +106,47 @@ def _check_inputs(x, dt, a_log, b_mat, c_mat, d_skip, chunk, state):
     return g, n, chunk
 
 
+def _padded(n: int, p: int):
+    """``(d_state, head size)`` of the tensor-core kernels for ``(n, p)``:
+    d_state up to 64, 128 or 256, the head size up to a multiple of 64."""
+    n_pad = next(d for d in _STATE_DIMS if d >= n)
+    return n_pad, -(-p // _P_BLOCK) * _P_BLOCK
+
+
+def _pad(n_pad, p_pad, heads=(), mats=(), states=()):
+    """Zero-pads the last (head) axis of each of ``heads`` to ``p_pad``,
+    the last (d_state) axis of ``mats`` to ``n_pad``, and the (N, P) axes
+    of ``states`` (None stays None).  The padded rows and columns add
+    nothing to y, the state or any gradient."""
+    def widen(t, *widths):
+        pads = [w - s for w, s in zip(widths, reversed(t.shape))]
+        return F.pad(t, [a for w in pads for a in (0, w)]) if any(pads) \
+            else t
+    return ([widen(t, p_pad) for t in heads],
+            [widen(t, n_pad) for t in mats],
+            [None if t is None else widen(t, p_pad, n_pad) for t in states])
+
+
+def pad_bwd(x, b_mat, c_mat, dy, state=None, dfinal=None):
+    """The operands of :func:`ssd_scan_bwd` zero-padded to the tensor-core
+    kernels' sizes: ``(x, b_mat, c_mat, dy, state, dfinal)``, on any
+    device (a tensor that needs no padding is returned as it is)."""
+    (x, dy), (b_mat, c_mat), (state, dfinal) = _pad(
+        *_padded(b_mat.shape[3], x.shape[3]), (x, dy), (b_mat, c_mat),
+        (state, dfinal))
+    return x, b_mat, c_mat, dy, state, dfinal
+
+
+def cut_bwd(grads, n: int, p: int):
+    """:func:`ssd_scan_bwd`'s gradients of padded operands cut back to
+    d_state ``n`` and head size ``p``."""
+    dx, ddt, da_log, db, dc, dd, dstate = grads
+    if dstate is not None:
+        dstate = dstate[:, :, :n, :p].contiguous()
+    return (dx[..., :p].contiguous(), ddt, da_log, db[..., :n].contiguous(),
+            dc[..., :n].contiguous(), dd, dstate)
+
+
 def ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int,
              state=None):
     """``(y, final_state)`` of the SSD over a sequence.
@@ -133,14 +178,9 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int,
     n_pad, p_pad = n, p
     cum = states = empty
     if x.dtype == torch.bfloat16:
-        n_pad = next(d for d in _STATE_DIMS if d >= n)
-        p_pad = -(-p // _P_BLOCK) * _P_BLOCK
-        if p_pad != p:
-            x = F.pad(x, (0, p_pad - p))
-        if n_pad != n:
-            b_mat, c_mat = (F.pad(t, (0, n_pad - n)) for t in (b_mat, c_mat))
-        if state is not None and (n_pad, p_pad) != (n, p):
-            state = F.pad(state, (0, p_pad - p, 0, n_pad - n))
+        n_pad, p_pad = _padded(n, p)
+        (x,), (b_mat, c_mat), (state,) = _pad(n_pad, p_pad, (x,),
+                                              (b_mat, c_mat), (state,))
         x, b_mat, c_mat = _aligned(x, b_mat, c_mat)
         n_chunks = -(-length // chunk)
         cum = torch.empty((bsz, h, length), dtype=torch.float64, device=dev)
@@ -180,25 +220,43 @@ def ssd_scan_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, *, chunk: int,
     if chunk > MAX_CHUNK or n > MAX_STATE:
         raise ValueError(f"the kernels take chunk <= {MAX_CHUNK} and "
                          f"d_state <= {MAX_STATE}, got {chunk} and {n}")
+    bf = x.dtype == torch.bfloat16
+    if bf:
+        if p > _MAX_HEAD_BWD:
+            raise ValueError(f"the bf16 backward takes a head size <= "
+                             f"{_MAX_HEAD_BWD}, got {p}")
+        x, b_mat, c_mat, dy, state, dfinal = pad_bwd(x, b_mat, c_mat, dy,
+                                                     state, dfinal)
+        x, b_mat, c_mat, dy = _aligned(x, b_mat, c_mat, dy)
+        state, dfinal = (None if t is None else _aligned(t)[0]
+                         for t in (state, dfinal))
+    n_k, p_k = b_mat.shape[3], x.shape[3]
     from ._build import extension
     ext = extension()
     n_chunks = -(-length // chunk)
     empty = torch.empty(0, dtype=f32, device=dev)
-    dx = torch.empty((bsz, length, h, p), dtype=f32, device=dev)
+    dx = torch.empty((bsz, length, h, p_k), dtype=f32, device=dev)
     ddt = torch.empty((bsz, length, h), dtype=f32, device=dev)
-    db_h, dc_h = (torch.empty((bsz, length, h, n), dtype=f32, device=dev)
+    db_h, dc_h = (torch.empty((bsz, length, h, n_k), dtype=f32, device=dev)
                   for _ in range(2))
-    dstate = (torch.empty((bsz, h, n, p), dtype=f32, device=dev)
+    dstate = (torch.empty((bsz, h, n_k, p_k), dtype=f32, device=dev)
               if state is not None else empty)
     # per (b, h, chunk) partials of d a_log and d d_skip
     parts = torch.empty((2, bsz, h, n_chunks), dtype=f32, device=dev)
     # scratch: the cumsum, each chunk's state and pull, then S_in and the
-    # leaving state's gradient in their place, and per-row dcum terms
+    # leaving state's gradient in their place, <S_in, dS> per chunk (the
+    # tensor-core kernels: float64 partials, one per 128 state entries),
+    # and per-row dcum terms (the tensor-core kernels: also the column
+    # sums of M by 64-row slab)
     cum = torch.empty((bsz, h, length), dtype=torch.float64, device=dev)
-    states, pulls = (torch.empty((bsz, h, n_chunks, n, p), dtype=f32,
+    states, pulls = (torch.empty((bsz, h, n_chunks, n_k, p_k), dtype=f32,
                                  device=dev) for _ in range(2))
-    sdot = torch.empty((bsz, h, n_chunks), dtype=f32, device=dev)
-    rows = torch.empty((5, bsz, h, length), dtype=torch.float64, device=dev)
+    sdot = (torch.empty((bsz, h, n_chunks, n_k * p_k // 128),
+                        dtype=torch.float64, device=dev) if bf
+            else torch.empty((bsz, h, n_chunks), dtype=f32, device=dev))
+    planes = 5 + (-(-chunk // 64) if bf else 0)
+    rows = torch.empty((planes, bsz, h, length), dtype=torch.float64,
+                       device=dev)
     ext.ssd_scan_bwd(x, dt, a_log, b_mat, c_mat, d_skip,
                      state if state is not None else empty, dy,
                      dfinal if dfinal is not None else empty, chunk, dx, ddt,
@@ -207,11 +265,12 @@ def ssd_scan_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, *, chunk: int,
     LAUNCHES["ssd_scan_bwd"] += 1
     rep = h // g
     # the fixed-axis sums: heads of a group, and (batch, chunk) partials
-    db = db_h.view(bsz, length, g, rep, n).sum(3)
-    dc = dc_h.view(bsz, length, g, rep, n).sum(3)
+    db = db_h.view(bsz, length, g, rep, n_k).sum(3)
+    dc = dc_h.view(bsz, length, g, rep, n_k).sum(3)
     da_log, dd = parts.sum((1, 3))
-    return (dx, ddt, da_log, db, dc, dd,
-            dstate if state is not None else None)
+    grads = (dx, ddt, da_log, db, dc, dd,
+             dstate if state is not None else None)
+    return cut_bwd(grads, n, p) if (n_k, p_k) != (n, p) else grads
 
 
 class SSDScan(torch.autograd.Function):

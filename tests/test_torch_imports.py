@@ -187,7 +187,7 @@ def test_mask_gemm_kernels_are_in_the_one_build():
                      "flash_attention_fma.cu", "flash_attention_bwd.cu",
                      "flash_attention_bwd_fma.cu", "ssd_scan.cu",
                      "ssd_scan_fma.cu", "ssd_scan_bwd.cu",
-                     "sim_step_binding.cpp"]
+                     "ssd_scan_bwd_fma.cu", "sim_step_binding.cpp"]
     header = _build.SOURCES[0].parent / "wgmma.cuh"
     for path in (*_build.SOURCES, header):
         text = path.read_text()

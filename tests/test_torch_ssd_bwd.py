@@ -22,8 +22,26 @@ is held against:
 At a real layer's decay with chunk 256 the cumsum within a chunk reaches
 the thousands; every gradient stays finite (no exp is formed above the
 diagonal).  A repeat gives the same bits, and no kernel launches on the
-CPU.  The kernel itself is held against the plain version by the
-``cuda``-marked test, which skips without a card.
+CPU.  The bf16 kernels take d_state 64, 128 or 256 and a head size that
+is a multiple of 64: the wrapper's zero-padding (``pad_bwd``, then
+``cut_bwd``) is held here through the plain version, every leaf within
+1e-6 of its largest magnitude of the unpadded gradients.  The kernels
+themselves are held against the plain version by the ``cuda``-marked
+test, which skips without a card: every leaf within 3e-4 (float32
+operands) or 2^-7 (bf16) of its largest magnitude, and at the serve decay
+d a_log and ddt within 1e-5 in both dtypes (a lost cancellation of M's
+row and column sums leaves some 2e-4 of d a_log's size, which 2^-7 would
+let pass); the bf16 route also within 1e-5 of ``terms=3``.
+
+``ssd_scan_bwd_ref(terms=3)`` emulates the tensor-core route's products
+(each float32 operand as its three exact bf16 terms): from bf16 operands
+every leaf lies within 2^-7, and within 1e-5, of the float32 plain
+version (measured at most 6e-7).  ``terms=1`` (one bf16 cast of each
+float32 operand, a kernel without the split) lies within 2^-7 too
+(measured at most 6.3e-3: one cast errs by about 2^-9 of a leaf's size),
+so 2^-7 cannot tell the two apart; it misses 1e-5 on at least one leaf
+(measured 1e-4 to 6e-3 on every leaf but d d_skip, which no product
+reaches).
 """
 
 from __future__ import annotations
@@ -42,6 +60,16 @@ CASES = SSD_SHAPES + RAGGED
 NAMES = ("dx", "ddt", "da_log", "db", "dc", "dd_skip", "dstate")
 AUTOGRAD_TOL = 1e-5
 REFERENCE_TOL = 3e-4
+PAD_TOL = 1e-6
+# the card's rule for d a_log and ddt at the serve decay, both dtypes
+CANCEL_TOL = 1e-5
+# the bf16 route's rule against the plain version
+BF16_TOL = 2.0 ** -7
+# terms=3 against the float32 plain version, which one bf16 cast misses
+SPLIT_TOL = 1e-5
+# (case, d_state and head size as the bf16 kernels pad them)
+PAD_CASES = [((1, 96, 4, 16, 1, 16, 32), (64, 64)),     # reduced mamba2
+             ((2, 130, 2, 160, 2, 100, 64), (128, 192))]
 # the serve decay at the model's chunk: cum reaches about -1.5e3
 SERVE_CASE = (1, 300, 4, 16, 1, 32, 256)
 
@@ -67,12 +95,12 @@ def _t(arrs):
     return [torch.from_numpy(a) for a in arrs]
 
 
-def _hold(got, want, tol, what):
+def _hold(got, want, tol, what, names=NAMES):
     """Every leaf within ``tol`` of its largest magnitude; a leaf that is
     zero throughout (d a_log at L = 1 with no state: a moves no
     difference of the cumsum) exactly."""
     assert len(got) == len(want), what
-    for name, g, w in zip(NAMES, got, want):
+    for name, g, w in zip(names, got, want):
         g = np.asarray(g, np.float64)
         w = np.asarray(w, np.float64)
         assert g.shape == w.shape, f"{what} {name}"
@@ -204,6 +232,88 @@ def test_function_runs_the_plain_backward_on_the_cpu(dtype):
     assert y.grad_fn is None and s.grad_fn is None
 
 
+@pytest.mark.parametrize("with_dfinal", [False, True],
+                         ids=["no_dfinal", "dfinal"])
+@pytest.mark.parametrize("with_state", [False, True],
+                         ids=["no_state", "state"])
+@pytest.mark.parametrize("case,padded", PAD_CASES)
+def test_padding_gives_the_same_gradients(case, padded, with_state,
+                                          with_dfinal):
+    """The bf16 route's zero-padding of d_state and head size, on CPU
+    tensors through the plain version: the gradients of the padded
+    operands, cut back, are the gradients of the operands (G 2 in the
+    second case)."""
+    chunk, n, p = case[-1], case[5], case[3]
+    x, dt, a_log, bm, cm, ds = _t(_inputs(case, seed=12, decay="serve"))
+    dy, df, s0 = _t(_cotangents(case, seed=13))
+    state = s0 if with_state else None
+    dfinal = df if with_dfinal else None
+    xp, bp, cp, dyp, sp, dfp = SS.pad_bwd(x, bm, cm, dy, state, dfinal)
+    assert (bp.shape[3], xp.shape[3]) == padded
+    assert cp.shape == bp.shape and dyp.shape == xp.shape
+    for t, orig in ((sp, state), (dfp, dfinal)):
+        assert (t is None) == (orig is None)
+        if t is not None:
+            assert t.shape[2:] == padded
+            assert torch.equal(t[:, :, :n, :p], orig)
+            assert not t[:, :, n:].any() and not t[..., p:].any()
+    assert torch.equal(xp[..., :p], x) and not xp[..., p:].any()
+    assert torch.equal(bp[..., :n], bm) and not bp[..., n:].any()
+    got = SS.cut_bwd(ref.ssd_scan_bwd_ref(xp, dt, a_log, bp, cp, ds, dyp,
+                                          chunk=chunk, state=sp,
+                                          dfinal=dfp), n, p)
+    want = ref.ssd_scan_bwd_ref(x, dt, a_log, bm, cm, ds, dy, chunk=chunk,
+                                state=state, dfinal=dfinal)
+    assert (got[-1] is None) == (state is None)
+    _hold([t for t in got if t is not None],
+          [t for t in want if t is not None], PAD_TOL,
+          f"{case} padded to {padded}")
+
+
+def _bf16_operands(case, decay):
+    """bf16 x, B, C and dy (float32 dt, a_log, d_skip), with an initial
+    state and a final-state gradient, as the bf16 route takes them."""
+    x, dt, a_log, bm, cm, ds = _t(_inputs(case, seed=14, decay=decay))
+    dy, df, s0 = _t(_cotangents(case, seed=15))
+    args = (x.bfloat16(), dt, a_log, bm.bfloat16(), cm.bfloat16(), ds,
+            dy.bfloat16())
+    return args, dict(chunk=case[-1], state=s0, dfinal=df)
+
+
+SPLIT_CASES = ([(c, "test") for c in CASES] + [(c, "serve") for c in CASES]
+               + [(SERVE_CASE, "serve")])
+
+
+@pytest.mark.parametrize("case,decay", SPLIT_CASES)
+def test_plain_backward_three_term_split_holds(case, decay):
+    """``terms=3`` from bf16 operands: every leaf, d a_log included,
+    within 2^-7 and within 1e-5 of its largest magnitude of the float32
+    plain version, and a repeat bit for bit."""
+    args, kw = _bf16_operands(case, decay)
+    want = ref.ssd_scan_bwd_ref(*args, **kw)
+    got = ref.ssd_scan_bwd_ref(*args, terms=3, **kw)
+    again = ref.ssd_scan_bwd_ref(*args, terms=3, **kw)
+    what = f"{case} {decay} terms=3"
+    _hold(got, want, BF16_TOL, what)
+    _hold(got, want, SPLIT_TOL, what)
+    for name, a, b in zip(NAMES, got, again):
+        assert torch.equal(a, b), f"{what} {name} repeat"
+
+
+@pytest.mark.parametrize("case,decay", SPLIT_CASES)
+def test_plain_backward_one_bf16_cast_misses(case, decay):
+    """``terms=1`` (one bf16 cast of each float32 operand) misses 1e-5
+    of its largest magnitude on at least one leaf: the rule that holds
+    the split holds a kernel that drops it."""
+    args, kw = _bf16_operands(case, decay)
+    want = ref.ssd_scan_bwd_ref(*args, **kw)
+    got = ref.ssd_scan_bwd_ref(*args, terms=1, **kw)
+    misses = [name for name, g, w in zip(NAMES, got, want)
+              if float((g - w).abs().max()) > SPLIT_TOL
+              * float(w.abs().max())]
+    assert misses, f"{case} {decay}: terms=1 held every leaf"
+
+
 def test_backward_raises_on_another_device():
     case = RAGGED[0]
     arrs = [t.to("meta") for t in _t(_inputs(case))]
@@ -219,7 +329,10 @@ def test_cuda_ssd_scan_bwd_matches_plain_version(dtype):
     the shape lists, ragged lengths, the serve shape, d_state 256 and a
     head size of 160, with an initial state and a final-state gradient:
     every leaf within 3e-4 (float32 operands) or 2^-7 (bf16) of its
-    largest magnitude, and a repeat bit for bit."""
+    largest magnitude, d a_log and ddt at the serve decay within 1e-5 in
+    both dtypes, bf16 within 1e-5 of ``ssd_scan_bwd_ref(terms=3)``, and
+    a repeat bit for bit.  d_state 64, 128 and 256 (and smaller ones
+    padded to 64)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     cases = [(c, "test") for c in CASES] + [(c, "serve") for c in CASES]
@@ -245,7 +358,16 @@ def test_cuda_ssd_scan_bwd_matches_plain_version(dtype):
                                         dfinal=dfinal)
             got, again, want = ([t.cpu() for t in out if t is not None]
                                 for out in (got, again, want))
-            _hold(got, want, tol, f"{case} {decay} {dtype}")
+            what = f"{case} {decay} {dtype}"
+            _hold(got, want, tol, what)
+            if decay == "serve":
+                _hold(got[1:3], want[1:3], CANCEL_TOL, what, NAMES[1:3])
+            if dtype == torch.bfloat16:
+                split = ref.ssd_scan_bwd_ref(*args, chunk=case[-1],
+                                             state=state, dfinal=dfinal,
+                                             terms=3)
+                _hold(got, [t.cpu() for t in split if t is not None],
+                      SPLIT_TOL, f"{what} terms=3")
             for name, a, b in zip(NAMES, got, again):
                 assert torch.equal(a, b), f"{case} {name} repeat"
     assert SS.LAUNCHES["ssd_scan_bwd"] - before == 4 * len(cases)
