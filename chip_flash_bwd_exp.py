@@ -103,7 +103,7 @@ def main() -> int:
 
     def dkv_call(ext):
         return lambda: ext.flash_dkv(q, k, v, do, lse, dsum, True, 0, 0,
-                                     scale, dk_out, dv_out)
+                                     scale, False, dk_out, dv_out)
 
     w32 = (ref.flash_attention_dq_ref(*(t.float() for t in (q, k, v, do)),
                                       lse, dsum),

@@ -8,8 +8,9 @@ adversarial table), the fabric layer (placement, the planner, a placed
 job's simulation), observability, the serving path of the MoE, MLA
 and RG-LRU families (granite-moe-3b-a800m at full width), that of
 the memory-input families (seamless-m4t-large-v2 at full width), and
-the training of both (granite and seamless at full width), and the
-training of mamba2-130m at full width through the SSD's backward.
+the training of both (granite and seamless at full width), the
+training of mamba2-130m at full width through the SSD's backward, and
+the ``REPRO_PERF`` flags that act on one card.
 
     python3 chip_smoke.py
 
@@ -366,6 +367,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     and a donated step against a non-donated one, bit for bit.  #8's
     launches go under its ``phase_launches``; its backward's main-path
     count is B's uncrashed run.
+27. The ``REPRO_PERF`` flags (``repro_torch.perf``), each set through
+    ``set_flags`` and restored after its part.  A: #5-#7 under
+    ``prob_bf16`` (#5's and #7's variants; #6 on the variant's o and
+    lse) against their plain versions at smollm's shapes (B 1 and 8, S
+    2048, causal), a windowed case and seamless's ragged cross shape
+    (non-causal): o, dq, dk, dv within 2^-7 of each leaf's largest
+    magnitude, lse within 1e-5 of the default variant's (D = 64), a
+    repeat bit for bit; #5 at B 1 and 8 and #7 at B 8 timed by CUDA
+    events and device time beside the default variants', their bounds
+    and SDPA's forward and backward.  B: #8 and 8' at chunks 64 and 128
+    at the mamba2 layer (B 1 and 8, L 2048, bf16) under phase 10's and
+    26's rules, repeated bit for bit; device times at chunks 64, 128 and
+    256 and the bounds.  C: smollm-135m under ``prob_bf16,gqa_grouped``
+    served as in phase 11 (30 launches of #5 a request, the emitted-token
+    rule against solo runs under the same flags) and trained 3 steps of
+    8 x 2048 (60 / 30 / 30 a step, phase 15's loss rule); mamba2-130m at
+    ``ssd_chunk=128`` trained 3 steps (48 / 24 a step, every scan at
+    chunk 128, its first loss within 1e-3 relative of phase 26's at
+    chunk 256); at ``microbatch=2`` and at 1, 2 steps each at full width:
+    smollm-135m (8 x 2048) with its losses within rel 2e-4, and
+    granite-moe-3b-a800m (2 x 2048) with the first step's cross-entropy
+    within rel 2e-4 (its router aux loss is per microbatch, as in the
+    reference, so its losses differ and are logged), peak memory under
+    80 GB, ms a step.  D: ``obs=metrics`` and ``util_engine=dense``
+    as the defaults of an engine-less session and ``utilization(PN(16))``
+    (loads equal to ``engine="dense"``'s), ``sim_backend=fused`` as the
+    step a default-config PN(16) ``Simulator`` picks (bit for bit an
+    explicit one).  The launches of C and D go under ``phase_launches``;
+    the rows of A and B beside #5's, #7's, #8's and 8''s in the
+    ``kernels`` line (``prob_bf16``, ``chunks``).
 
 Output: the card's name and power limit, then a ``kernels`` JSON line,
 then ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -374,6 +405,7 @@ with no result where ``torch.cuda.is_available()`` is false.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import shutil
@@ -1115,11 +1147,13 @@ def profile_steps(sim, dem, offered, steps: int = 6):
 # read.  The device's clock, as kineto reads it, also sits up to some
 # milliseconds off the host's, either way, by an amount that changes
 # between sessions; the pads keep the calls' kernels inside the window.
-# The record of the first launch after the pad goes missing too now and
-# then (one whole run lost it in 6 sessions of phase 25, 3 in a row), so
-# the measured span opens with one small launch of its own, which is not
-# read.
+# The records of the first launches after the pad go missing too now and
+# then (one whole run lost the first in 6 sessions of phase 25, 3 in a
+# row; with one opener, a later run lost the one after it in 3 sessions
+# of phase 26 in a row), so the measured span opens with SPAN_OPENERS
+# small launches of its own, which are not read.
 WARM_LAUNCHES = 32
+SPAN_OPENERS = 8
 PROFILE_PAD_S = 0.1
 PROFILE_TRIES = 3
 RUNTIME_API = re.compile(r"^cu[A-Z]|^cuda[A-Z]")
@@ -1136,12 +1170,20 @@ def device_rows(fn, reps: int = 1):
     agree; negative where the device's reads early).  Every kernel
     launch call of the calls must have its kernel's record: a session
     that lost one is logged and run again, and the third such session
-    raises."""
+    raises.  The kernels' launch counts keep only the session that is
+    read, so a caller that counts the calls' launches counts them once."""
     from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels import flash_attention, mask_gemm, sim_step
+    from repro_torch.kernels import ssd_scan
+    counts = [m.LAUNCHES for m in (flash_attention, mask_gemm, sim_step,
+                                   ssd_scan)]
+    before = [dict(c) for c in counts]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     warm = torch.zeros(1, device="cuda")
     for _ in range(PROFILE_TRIES):
+        for c, b in zip(counts, before):    # a session run again: once
+            c.update(b)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1150,7 +1192,8 @@ def device_rows(fn, reps: int = 1):
             torch.cuda.synchronize()
             time.sleep(PROFILE_PAD_S)
             with record_function("chip_smoke: measured calls"):
-                warm.add_(1.0)          # the span's opener, not read
+                for _ in range(SPAN_OPENERS):
+                    warm.add_(1.0)      # the span's openers, not read
                 start.record()
                 for _ in range(reps):
                     fn()
@@ -1170,9 +1213,10 @@ def device_rows(fn, reps: int = 1):
         began = {e.correlation_id(): e.start_ns() for e in device}
         launched = sorted((e.start_ns(), c) for c, e in calls.items()
                           if LAUNCH_API.match(e.name()))
-        # the opener: its kernel, if recorded, is no part of the calls
-        opener = launched.pop(0)[1]
-        device = [e for e in device if e.correlation_id() != opener]
+        # the openers: their kernels, if recorded, are no part of the calls
+        openers = {c for _, c in launched[:SPAN_OPENERS]}
+        launched = launched[SPAN_OPENERS:]
+        device = [e for e in device if e.correlation_id() not in openers]
         lost = [i for i, (_, c) in enumerate(launched) if c not in began]
         if not lost:
             break
@@ -1466,25 +1510,18 @@ def check_ssd(dev, bw, chunk: int = 256):
     # (G = 1: the heads share it); the decayed scores times x dt, with dt
     # a scalar per source column folded into the float32 scores, C S_in
     # and B^T (decay dt x) each a float32 and a bf16 operand
-    cb_flops = sx_flops = state_flops = 0.0
-    g = b.shape[2]
-    for c0 in range(0, length, chunk):
-        qc = min(chunk, length - c0)
-        tri = qc * (qc + 1) / 2
-        cb_flops += 2 * tri * n * g
-        sx_flops += 2 * tri * p * h
-        state_flops += 4 * qc * n * p * h
+    bound = _ssd_fwd_bound(1, length, bw, chunk, h=h, p=p, g=b.shape[2],
+                           n=n)
+    cb_flops, sx_flops, state_flops, nbytes = (
+        bound.pop(key) for key in ("cb_flops", "sx_flops", "state_flops",
+                                   "nbytes"))
     rest_flops = sx_flops + state_flops
-    nbytes = 2 * (2 * length * h * p + 2 * length * n) + 4 * length * h \
-        + 8 * h + 4 * h * n * p
     scan = lambda: SS.ssd_scan(*args, chunk=chunk)
     rows, _, busy_ms, _ = device_rows(scan, 20)
     row = dict(
         ms=cuda_ms(scan, 20), device_ms=busy_ms / 20,
         plain_ms=cuda_ms(lambda: ssd_scan_ref(*args, chunk=chunk), 5),
-        library_ms=None,
-        **_bound(nbytes, bf16_flops=cb_flops,
-                 f32_bf16_flops=state_flops + sx_flops, bw=bw))
+        library_ms=None, **bound)
     kernel_name = re.compile(r"::(\w+(?:<\d+>)?)\(")
     phases = ", ".join(f"{kernel_name.search(key)[1]} {ms / 20:.4f} ms"
                        for ms, _, key in rows)
@@ -1697,9 +1734,10 @@ TRAIN_DIR = ROOT / "build" / "train_smoke"
 TC_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
               "ssd_states_kernel", "ssd_output_kernel", "ssd_bwd_sums_kernel",
               "ssd_bwd_rows_kernel", "ssd_bwd_cols_kernel")
-# bf16 instantiations: three head sizes or d_state each, and the rows and
-# columns kernels of 8' at three d_state times four head sizes
-TC_INSTANCES = 3 * 6 + 2 * 3 * 4
+# bf16 instantiations: three head sizes or d_state each, #5 and #7 again
+# for the prob_bf16 variant, and the rows and columns kernels of 8' at
+# three d_state times four head sizes
+TC_INSTANCES = 3 * 6 + 3 * 2 + 2 * 3 * 4
 
 
 def check_tensor_cores():
@@ -1722,7 +1760,8 @@ def check_tensor_cores():
         return subprocess.run([tool, flag, lib], capture_output=True,
                               text=True, timeout=300, check=True).stdout
 
-    kernel = re.compile(rf"({'|'.join(TC_KERNELS)})ILi(\d+)E(?:Li(\d+)E)?")
+    kernel = re.compile(rf"({'|'.join(TC_KERNELS)})ILi(\d+)E(?:Li(\d+)E)?"
+                        rf"(?:Lb([01])E)?")
 
     def instance(m):
         return f"{m.group(1)}<{', '.join(filter(None, m.groups()[1:]))}>"
@@ -5140,10 +5179,10 @@ def _hold_ssd_bwd(dev, bw):
     return err, row
 
 
-def _train_ssd_full(dev, total: dict) -> int:
+def _train_ssd_full(dev, total: dict):
     """Phase 26 B: mamba2-130m at full width through the launcher in
     phase 15's cell, then crashed and resumed.  Returns the backward's
-    launches in the uncrashed run."""
+    launches in the uncrashed run and its first loss."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.train import train
     from repro_torch.models import build
@@ -5208,22 +5247,548 @@ def _train_ssd_full(dev, total: dict) -> int:
     del tr2, state2
     shutil.rmtree(TRAIN26_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
-    return main_launches
+    return main_launches, losses[0]
 
 
 def check_train_ssd(dev, bw, out: dict):
     """Phase 26: the SSD backward kernel against its plain version and
     timed (A), mamba2-130m trained at full width and crashed and resumed
     (B), and its 2-layer step card vs CPU and donated vs kept (C).  Puts
-    the backward's max abs err, timing row and main-path launches into
-    ``out``; returns the phase's launches of #8 and its backward."""
+    the backward's max abs err, timing row, main-path launches and the
+    first loss of B into ``out``; returns the phase's launches of #8 and
+    its backward."""
     out["err"], out["row"] = _hold_ssd_bwd(dev, bw)
     total = {}
-    out["launches"] = _train_ssd_full(dev, total)
+    out["launches"], out["first_loss"] = _train_ssd_full(dev, total)
     from repro_torch.configs import get_arch
     _two_layer_step(dev, total, get_arch(SSD_ARCH), SSD_ARCH, seed=26)
     log(f"phase 26: #8 / its backward launched {total['ssd_scan']} / "
         f"{total['ssd_scan_bwd']} times in training")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# The REPRO_PERF flags: phase 27
+# ---------------------------------------------------------------------------
+
+PERF_DIR = ROOT / "build" / "train_smoke27"
+# phase 27's training runs: smollm and mamba2 in phase 15's cell cut to 3
+# steps; at microbatch 2 and 1, smollm in that cell and granite in phase
+# 25's, 2 steps each
+PERF_TRAIN = dict(steps=3, seq=2048, batch=8, lr=1e-3)
+PERF_MB = 2
+# #5-#7 under prob_bf16 against their plain versions: every output within
+# this share of its leaf's largest magnitude (one bf16 rounding)
+PB_TOL = 2.0 ** -7
+# lse under the flag against the default variant's, at D = 64 (q scale
+# exact in bf16: the cast of p does not touch lse)
+PB_LSE = 1e-5
+# microbatch 2 against microbatch 1: smollm's losses, granite's first
+# cross-entropy (the reference's own rule for the loss of a model with no
+# aux loss, tests/test_perf_flags.py)
+MB_RTOL = 2e-4
+# mamba2's first loss at ssd_chunk 128 against phase 26's at chunk 256
+CHUNK_RTOL = 1e-3
+
+
+@contextlib.contextmanager
+def perf_flags(**kw):
+    """``kw`` set through ``repro_torch.perf.set_flags`` for the block,
+    then as they were (whatever the block raises is raised)."""
+    from repro_torch import perf
+    old = {k: getattr(perf.flags(), k) for k in kw}
+    perf.set_flags(**kw)
+    try:
+        yield
+    finally:
+        perf.set_flags(**old)
+
+
+def _share_of_max(name, got, want, tol):
+    """max |got - want| / max |want|, which must stay within ``tol``;
+    got finite."""
+    scale = float(want.float().abs().max())
+    e = float((got.float() - want.float()).abs().max())
+    if not (bool(torch.isfinite(got).all()) and e <= tol * scale):
+        raise AssertionError(f"{name}: max abs err {e} against {tol} x "
+                             f"{scale}")
+    return e / scale
+
+
+def _hold_prob_bf16(dev, bw):
+    """Phase 27 A: #5, #6 and #7 under ``prob_bf16`` (the variants of #5
+    and #7; #6 on the variant's o and lse) against their plain versions
+    at phase 9 / 14's smollm shapes (B 1 and 8), a windowed case and
+    phase 25's seamless cross shape (non-causal, ragged): o, dq, dk and
+    dv within PB_TOL of each leaf's largest magnitude, lse within PB_LSE
+    of the default variant's, a repeat bit for bit.  Then the variants'
+    times by CUDA events and device time beside the default variants'
+    in this call, their bounds and SDPA's forward and backward, which
+    round p to one bf16 too.  Returns ``(fwd row, dkv row)``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+
+    enc = get_arch(ENC_ARCH)
+    shapes = {  # label: (b, hq, hkv, sq, skv, d, causal, window)
+        "smollm B=1": (1, 9, 3, 2048, 2048, 64, True, None),
+        "smollm B=8": (8, 9, 3, 2048, 2048, 64, True, None),
+        "smollm windowed": (1, 9, 3, 777, 777, 64, True, 128),
+        "seamless cross, ragged": (ENC_TRAIN["batch"], enc.n_heads,
+                                   enc.n_kv_heads, 1500, 375,
+                                   enc.resolved_head_dim, False, None)}
+    gen = torch.Generator(device=dev).manual_seed(27)
+    tensors = {}
+    for label, (b, hq, hkv, sq, skv, d, causal, window) in shapes.items():
+        q, do = (torch.randn((b, hq, sq, d), generator=gen,
+                             device=dev).bfloat16() for _ in range(2))
+        k, v = (torch.randn((b, hkv, skv, d), generator=gen,
+                            device=dev).bfloat16() for _ in range(2))
+        kw = dict(causal=causal, window=window, q_offset=0)
+        o, lse = FA.flash_attention(q, k, v, prob_bf16=True, **kw)
+        o2, lse2 = FA.flash_attention(q, k, v, prob_bf16=True, **kw)
+        _, lse0 = FA.flash_attention(q, k, v, **kw)
+        dsum = (do.float() * o.float()).sum(-1, keepdim=True)
+        args = (q, k, v, do, lse, dsum)
+        dq = FA.flash_attention_dq(*args, **kw)
+        dkh, dvh = FA.flash_attention_dkv(*args, prob_bf16=True, **kw)
+        dkh2, dvh2 = FA.flash_attention_dkv(*args, prob_bf16=True, **kw)
+        torch.cuda.synchronize()
+        name = (f"prob_bf16 {label} B={b} Hq={hq} Hkv={hkv} Sq={sq} "
+                f"Skv={skv} D={d} {'causal' if causal else 'non-causal'}"
+                f"{f' window {window}' if window else ''}")
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)
+                and torch.equal(dkh, dkh2) and torch.equal(dvh, dvh2)):
+            raise AssertionError(f"{name}: a repeat differs")
+        e_lse = float((lse - lse0).abs().max())
+        if d == 64 and e_lse > PB_LSE:
+            raise AssertionError(f"{name}: lse {e_lse} from the default "
+                                 f"variant's (limit {PB_LSE} at D = 64)")
+        w_o, _ = ref.flash_attention_ref(q, k, v, prob_bf16=True, **kw)
+        w_dq = ref.flash_attention_dq_ref(*args, **kw)
+        w_dk, w_dv = ref.flash_attention_dkv_ref(*args, prob_bf16=True,
+                                                 **kw)
+        rel = {leaf: _share_of_max(f"{name} {leaf}", got, want, PB_TOL)
+               for leaf, got, want in (("o", o, w_o), ("dq", dq, w_dq),
+                                       ("dk", dkh, w_dk), ("dv", dvh, w_dv))}
+        log(f"{name}: ok, a repeat bit for bit; max abs err over the "
+            f"leaf's largest magnitude "
+            f"{', '.join(f'{k} {v:.2e}' for k, v in rel.items())} (limit "
+            f"{PB_TOL:.3e}); lse {e_lse:.2e} from the default variant's "
+            f"(limit {PB_LSE:.0e})")
+        if label.startswith("smollm B="):
+            tensors[label] = (q, k, v, do, lse, dsum)
+        del o, o2, w_o, w_dq, w_dk, w_dv, dq, dkh, dvh, dkh2, dvh2
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    reps = 20
+    hq, hkv, s, d = 9, 3, 2048, 64
+    pairs = s * (s + 1) // 2
+    rows = {}
+    for b in (1, 8):
+        q, k, v, do, lse, dsum = tensors[f"smollm B={b}"]
+        mm = 2.0 * d * hq * b * pairs      # one product over the live pairs
+        nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d) \
+            + 4 * b * hq * s
+        fwd = lambda pb: lambda: FA.flash_attention(q, k, v, prob_bf16=pb)
+        lib = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        row = dict(ms=cuda_ms(fwd(True), reps),
+                   device_ms=device_rows(fwd(True), reps)[2] / reps,
+                   default_device_ms=device_rows(fwd(False), reps)[2] / reps,
+                   plain_ms=cuda_ms(lambda: ref.flash_attention_ref(
+                       q, k, v, prob_bf16=True), 3),
+                   library_ms=cuda_ms(lib, reps),
+                   library_device_ms=device_rows(lib, reps)[2] / reps,
+                   # Q K^T and P.V: two bf16 operands each
+                   **_bound(nbytes, bf16_flops=2 * mm, bw=bw))
+        rows[f"fwd B={b}"] = row
+        log(f"flash_attention_fwd prob_bf16 [B={b} Hq=9 Hkv=3 S=2048 D=64 "
+            f"bf16 causal]: {row['ms']:.4f} ms by CUDA events, "
+            f"{row['device_ms']:.4f} ms of device time (the default variant "
+            f"{row['default_device_ms']:.4f} ms in this call), plain "
+            f"{row['plain_ms']:.4f} ms, SDPA forward {row['library_ms']:.4f}"
+            f" / {row['library_device_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+            f"({row['tc_flops'] / 1e9:.3f} GFLOP of bf16 x bf16 products at "
+            f"989 TFLOP/s = {row['ops_ms']:.4f} ms; {nbytes / 1e6:.2f} MB = "
+            f"{row['bytes_ms']:.4f} ms)")
+    b = 8
+    q, k, v, do, lse, dsum = tensors["smollm B=8"]
+    args = (q, k, v, do, lse, dsum)
+    mm = 2.0 * d * hq * b * pairs
+    in_bytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d) + 8 * b * hq * s
+    out_bytes = 2 * 4 * b * hq * s * d
+    dkv = lambda pb: lambda: FA.flash_attention_dkv(*args, prob_bf16=pb)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    o_sdpa = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+    lib = lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), do,
+                                      retain_graph=True)
+    row = dict(ms=cuda_ms(dkv(True), reps),
+               device_ms=device_rows(dkv(True), reps)[2] / reps,
+               default_device_ms=device_rows(dkv(False), reps)[2] / reps,
+               plain_ms=cuda_ms(lambda: ref.flash_attention_dkv_ref(
+                   *args, prob_bf16=True), 3),
+               library_ms=cuda_ms(lib, reps),
+               library_device_ms=device_rows(lib, reps)[2] / reps,
+               # S^T, dP^T and dv's p^T dO: two bf16 operands; dk's ds^T Q
+               # one float32 operand, split in three
+               **_bound(in_bytes + out_bytes, bf16_flops=3 * mm,
+                        f32_bf16_flops=mm, bw=bw))
+    log(f"flash_attention_dkv prob_bf16 [B=8 Hq=9 Hkv=3 S=2048 D=64 bf16 "
+        f"causal]: {row['ms']:.4f} ms by CUDA events, "
+        f"{row['device_ms']:.4f} ms of device time (the default variant "
+        f"{row['default_device_ms']:.4f} ms in this call), plain "
+        f"{row['plain_ms']:.4f} ms, SDPA backward (dq, dk, dv together, p "
+        f"in bf16 too) {row['library_ms']:.4f} / "
+        f"{row['library_device_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"by {row['bound_by']} ({row['tc_flops'] / 1e9:.3f} GFLOP on the "
+        f"tensor cores = {row['ops_ms']:.4f} ms; "
+        f"{(in_bytes + out_bytes) / 1e6:.2f} MB = {row['bytes_ms']:.4f} ms)")
+    del o_sdpa, lib, tensors
+    return rows, row
+
+
+def _ssd_fwd_bound(bsz, length, bw, chunk, h=24, p=64, g=1, n=128):
+    """:func:`_bound` of the SSD forward with bf16 x, B, C: C B^T (two
+    bf16 operands) once per chunk's lower triangle and group, the
+    decayed scores times x dt over the triangle and C S_in and B^T (decay
+    dt x) over each chunk (a float32 and a bf16 operand); the bytes of
+    x, B, C, dt, y and the final state once.  Adds each part's GFLOP."""
+    cb_flops = sx_flops = state_flops = 0.0
+    for c0 in range(0, length, chunk):
+        qc = min(chunk, length - c0)
+        tri = qc * (qc + 1) / 2
+        cb_flops += 2 * tri * n * g
+        sx_flops += 2 * tri * p * h
+        state_flops += 4 * qc * n * p * h
+    nbytes = bsz * (2 * (2 * length * h * p + 2 * length * n)
+                    + 4 * length * h + 4 * h * n * p) + 8 * h
+    return dict(cb_flops=bsz * cb_flops, sx_flops=bsz * sx_flops,
+                state_flops=bsz * state_flops, nbytes=nbytes,
+                **_bound(nbytes, bf16_flops=bsz * cb_flops,
+                         f32_bf16_flops=bsz * (state_flops + sx_flops),
+                         bw=bw))
+
+
+def _hold_ssd_chunks(dev, bw):
+    """Phase 27 B: #8 and 8' at chunks 64 and 128 at the mamba2 layer (B
+    1 and 8, L 2048, bf16) against their plain versions under phase 10's
+    rules (state 3e-4; y 3e-4 + 2^-7 |y|, equal to the plain float32 y in
+    bf16 in SAME_SHARE of the entries) and phase 26's (every gradient
+    within 2^-7 of its leaf's largest magnitude, d a_log and ddt within
+    1e-5, within 1e-5 of ``terms=3``), each repeated bit for bit; then
+    each chunk's device time beside chunk 256's in this call, and the
+    bounds.  Returns ``(fwd rows, bwd rows)`` by chunk."""
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.kernels.ref import (ssd_scan_bwd_ref,
+                                         ssd_scan_chunked_ref, ssd_scan_ref)
+
+    gen = torch.Generator(device=dev).manual_seed(28)
+    fwd_rows, bwd_rows = {}, {}
+    for bsz in (1, 8):
+        x, dt, a_log, b, c, ds = _ssd_inputs(gen, dev, 2048, batch=bsz)
+        dy = torch.randn(x.shape, generator=gen, device=dev)
+        bargs = (x.bfloat16(), dt, a_log, b.bfloat16(), c.bfloat16(), ds)
+        gargs = bargs + (dy.bfloat16(),)
+        for chunk in (64, 128):
+            name = f"ssd_scan B={bsz} L=2048 H=24 P=64 N=128 chunk={chunk}"
+            y, st = SS.ssd_scan(*bargs, chunk=chunk)
+            y2, st2 = SS.ssd_scan(*bargs, chunk=chunk)
+            got = SS.ssd_scan_bwd(*gargs, chunk=chunk)
+            again = SS.ssd_scan_bwd(*gargs, chunk=chunk)
+            torch.cuda.synchronize()
+            if not (torch.equal(y, y2) and torch.equal(st, st2) and all(
+                    torch.equal(a, b_) for a, b_ in zip(got, again)
+                    if a is not None)):
+                raise AssertionError(f"{name}: a repeat differs")
+            w_y, w_st = ssd_scan_ref(*bargs, chunk=chunk)
+            e = _close_or_raise(name + " bf16 state", st, w_st, 3e-4,
+                                3e-4)[0]
+            ey, rel = _close_or_raise(name + " bf16 y", y, w_y, 3e-4,
+                                      2.0 ** -7)
+            share = _check_same_share(name + " bf16 y", y, w_y)
+            want = ssd_scan_bwd_ref(*gargs, chunk=chunk)
+            split = ssd_scan_bwd_ref(*gargs, chunk=chunk, terms=3)
+            worst = []
+            for leaf, gv, wv, sv in zip(SSD_BWD_NAMES, got, want, split):
+                if wv is None:
+                    continue
+                limit = (SSD_BWD_CANCEL if leaf in ("ddt", "da_log")
+                         else SSD_BWD_TOL[torch.bfloat16])
+                worst.append(f"{leaf} {_share_of_max(f'{name} {leaf}', gv, wv, limit):.2e}")
+                _share_of_max(f"{name} {leaf} against terms=3", gv, sv,
+                              SSD_BWD_SPLIT)
+            log(f"{name}: ok, forward and backward repeated bit for bit; "
+                f"state {e:.3e}, bf16 y {ey:.3e} (max rel err {rel:.3e}, "
+                f"{share:.5f} equal to the plain y in bf16); the backward's "
+                f"max abs err over each leaf's largest magnitude "
+                f"{', '.join(worst)} (limits 2^-7; ddt, da_log 1e-5), "
+                f"within {SSD_BWD_SPLIT:.0e} of terms=3")
+            del y, y2, st, st2, got, again, want, split, w_y, w_st
+        reps = 10
+        for chunk in (64, 128, 256):
+            fwd = lambda: SS.ssd_scan(*bargs, chunk=chunk)
+            bwd = lambda: SS.ssd_scan_bwd(*gargs, chunk=chunk)
+            fb = _ssd_fwd_bound(bsz, 2048, bw, chunk)
+            bb = _ssd_bwd_bound(bsz, 2048, bw, chunk=chunk)
+            frow = dict(ms=cuda_ms(fwd, reps),
+                        device_ms=device_rows(fwd, reps)[2] / reps,
+                        bound_ms=fb["bound_ms"], bound_by=fb["bound_by"])
+            brow = dict(ms=cuda_ms(bwd, reps),
+                        device_ms=device_rows(bwd, reps)[2] / reps,
+                        bound_ms=bb["bound_ms"], bound_by=bb["bound_by"])
+            fwd_rows[f"B={bsz} chunk={chunk}"] = frow
+            bwd_rows[f"B={bsz} chunk={chunk}"] = brow
+            log(f"ssd_scan / ssd_scan_bwd [B={bsz} L=2048 H=24 P=64 G=1 "
+                f"N=128 chunk {chunk}, bf16]: forward {frow['ms']:.4f} ms by "
+                f"CUDA events, {frow['device_ms']:.4f} ms of device time, "
+                f"bound {frow['bound_ms']:.4f} ms by {frow['bound_by']}; "
+                f"backward {brow['ms']:.4f} / {brow['device_ms']:.4f} ms, "
+                f"bound {brow['bound_ms']:.4f} ms by {brow['bound_by']}")
+        del x, dt, b, c, dy, bargs, gargs
+    return fwd_rows, bwd_rows
+
+
+def _perf_smollm(dev, total: dict):
+    """Phase 27 C, smollm-135m under ``prob_bf16,gqa_grouped``: phase
+    11's 8 requests served (30 launches of #5 a request, every emitted
+    token against a solo run under the same flags), then 3 steps of 8 x
+    2048 through the launcher (60 / 30 / 30 launches a step, phase 15's
+    loss rule)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train
+    cfg = get_arch("smollm-135m")
+    with perf_flags(prob_bf16=True, gqa_grouped=True):
+        model, n, _ = serve_arch(dev, "smollm-135m", "flash_attention_fwd")
+        total["flash_attention_fwd"] = (total.get("flash_attention_fwd", 0)
+                                        + n)
+        del model
+        trainer, _ = _counted(
+            total, "smollm-135m train, prob_bf16", _train_launches(cfg),
+            PERF_TRAIN["steps"],
+            lambda: train("smollm-135m", ckpt_dir=str(PERF_DIR / "smollm"),
+                          ckpt_every=PERF_TRAIN["steps"] + 1, log_every=1,
+                          device=dev, **PERF_TRAIN))
+    losses = [h.loss for h in trainer.history]
+    _loss_rule("smollm-135m prob_bf16", losses, cfg.vocab)
+    log(f"smollm-135m train under prob_bf16,gqa_grouped: losses "
+        f"{[round(x, 4) for x in losses]}; step ms "
+        f"{[round(h.seconds * 1e3, 1) for h in trainer.history]}")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def _perf_mamba2(dev, total: dict, first_256: float):
+    """Phase 27 C, mamba2-130m under ``ssd_chunk=128``: 3 steps of 8 x
+    2048 through the launcher (48 / 24 launches a step), its first loss
+    within CHUNK_RTOL of phase 26's at chunk 256 (``first_256``: the same
+    weights and batch), the loss rule."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.launch.train import train
+    cfg = get_arch(SSD_ARCH)
+    chunks = []
+    scan = SS.ssd_scan
+
+    def spy(*args, chunk, **kw):        # the chunk each launch was given
+        chunks.append(chunk)
+        return scan(*args, chunk=chunk, **kw)
+
+    SS.ssd_scan = spy
+    try:
+        with perf_flags(ssd_chunk=128):
+            trainer, _ = _counted(
+                total, f"{SSD_ARCH} train, ssd_chunk=128",
+                _train_launches(cfg), PERF_TRAIN["steps"],
+                lambda: train(SSD_ARCH, ckpt_dir=str(PERF_DIR / "mamba2"),
+                              ckpt_every=PERF_TRAIN["steps"] + 1,
+                              log_every=1, device=dev, **PERF_TRAIN))
+    finally:
+        SS.ssd_scan = scan
+    losses = [h.loss for h in trainer.history]
+    rel = abs(losses[0] - first_256) / abs(first_256)
+    if set(chunks) != {128} or rel > CHUNK_RTOL:
+        raise AssertionError(f"{SSD_ARCH} ssd_chunk=128: chunks "
+                             f"{sorted(set(chunks))}, first loss "
+                             f"{losses[0]} vs {first_256} at chunk 256")
+    _loss_rule(f"{SSD_ARCH} ssd_chunk=128", losses, cfg.vocab)
+    log(f"{SSD_ARCH} train under ssd_chunk=128: every scan at chunk 128; "
+        f"losses {[round(x, 6) for x in losses]}; first loss against phase "
+        f"26's at chunk 256 {first_256:.6f}: rel {rel:.2e} (limit "
+        f"{CHUNK_RTOL:.0e}); step ms "
+        f"{[round(h.seconds * 1e3, 1) for h in trainer.history]}")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def _microbatch_runs(dev, total: dict, arch: str, batch: int,
+                     steps: int = 2):
+    """``arch`` at full width, ``batch`` x 2048 tokens, ``steps`` donated
+    steps through ``make_train_step`` (the launcher's seed, data and
+    schedule) under ``microbatch=PERF_MB`` (#5-#8 as many times the
+    step's layer plan) and again at 1.  Returns each run's per-step
+    metrics (with its ms) and peak memory, by microbatch."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+    from repro_torch.train import (TrainStepConfig, init_train_state,
+                                   make_train_step)
+    cfg = get_arch(arch)
+    data = DataConfig(vocab=cfg.vocab, seq_len=2048, global_batch=batch)
+    ts = TrainStepConfig(optimizer=AdamWConfig(lr=cosine_schedule(
+        1e-3, warmup=min(20, steps // 10 + 1), total=steps)))
+    per = _train_launches(cfg)
+    runs = {}
+    for mb in (PERF_MB, 1):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(cfg, 0, ts, dev)
+        step_fn = make_train_step(cfg, dev, ts)
+
+        def run():
+            out = []
+            for step in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, m = step_fn(state, synthetic_batch(data, step))
+                torch.cuda.synchronize()
+                out.append({**{k: float(v) for k, v in m.items()},
+                            "ms": (time.perf_counter() - t0) * 1e3})
+            return out
+
+        with perf_flags(microbatch=mb):
+            metrics = _counted(total, f"{arch} train, microbatch={mb}",
+                               {k: v * mb for k, v in per.items()}, steps,
+                               run)
+        runs[mb] = dict(metrics=metrics,
+                        peak=torch.cuda.max_memory_allocated())
+        del state, step_fn
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _col(ms, key, nd=6):
+    return [round(m[key], nd) for m in ms]
+
+
+def _perf_microbatch(dev, total: dict) -> dict:
+    """Phase 27 C, ``microbatch=2`` at full width.  smollm-135m (8 x 2048,
+    no aux loss): each step's loss within MB_RTOL of microbatch 1's, the
+    reference's own rule.  granite-moe-3b-a800m in phase 25's cell (2 x
+    2048, two microbatches of one sequence): the first step's
+    cross-entropy within MB_RTOL of microbatch 1's (a mean over tokens,
+    which equal microbatches average exactly); its router aux loss is the
+    mean of the microbatches' own, as the reference computes it, so the
+    losses and, through the aux gradient and the clip, the second step
+    differ, and are logged; the microbatched run's peak memory under 80
+    GB and its warm step's ms.  Returns granite's numbers."""
+    runs = _microbatch_runs(dev, total, "smollm-135m", 8)
+    got, want = runs[PERF_MB]["metrics"], runs[1]["metrics"]
+    rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+              for a, b in zip(got, want))
+    log(f"smollm-135m train (B 8, S 2048, 2 steps): microbatch={PERF_MB} "
+        f"losses {_col(got, 'loss')}, microbatch=1 {_col(want, 'loss')}: "
+        f"max rel {rel:.2e} (limit {MB_RTOL:.0e}); step ms "
+        f"{_col(got, 'ms', 1)} against {_col(want, 'ms', 1)}")
+    if rel > MB_RTOL:
+        raise AssertionError(f"smollm-135m microbatch={PERF_MB}: {got} vs "
+                             f"{want}")
+    from repro_torch.configs import get_arch
+    runs = _microbatch_runs(dev, total, MOE_ARCH, MOE_TRAIN["batch"])
+    got, want = runs[PERF_MB]["metrics"], runs[1]["metrics"]
+    rel = abs(got[0]["ce"] - want[0]["ce"]) / abs(want[0]["ce"])
+    peak = runs[PERF_MB]["peak"]
+    log(f"{MOE_ARCH} train (B 2, S 2048, 2 steps): microbatch={PERF_MB} "
+        f"ce {_col(got, 'ce')}, microbatch=1 ce {_col(want, 'ce')}: first "
+        f"step rel {rel:.2e} (limit {MB_RTOL:.0e}); loss "
+        f"{_col(got, 'loss')} against {_col(want, 'loss')}, of which the "
+        f"router's aux loss {_col(got, 'aux')} against {_col(want, 'aux')} "
+        f"(per microbatch, as the reference computes it), grad norm "
+        f"{_col(got, 'grad_norm', 4)} against {_col(want, 'grad_norm', 4)}"
+        f"; step ms {_col(got, 'ms', 1)} against {_col(want, 'ms', 1)}; "
+        f"peak memory {peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB) against "
+        f"{runs[1]['peak'] / 1e9:.2f} GB at microbatch 1, limit "
+        f"{PEAK_LIMIT / 1e9:.0f} GB")
+    vocab = get_arch(MOE_ARCH).vocab
+    if (rel > MB_RTOL or not peak < PEAK_LIMIT
+            or not all(np.isfinite(_col(got, "loss")))
+            or abs(got[0]["ce"] - np.log(vocab)) > 0.5):
+        raise AssertionError(f"{MOE_ARCH} microbatch={PERF_MB}: {got} vs "
+                             f"{want}, peak {peak}")
+    return dict(peak=peak, step_ms=got[-1]["ms"], step_ms_mb1=want[-1]["ms"],
+                ce_rel=rel)
+
+
+def _perf_defaults(dev, total: dict):
+    """Phase 27 D: ``obs=metrics`` makes an engine-less ``obs.session()``
+    record; under it ``util_engine=dense`` routes an engine-less
+    ``utilization(pn_graph(16))`` to the dense engine (loads equal to
+    ``engine="dense"``'s bit for bit); ``sim_backend=fused`` gives a
+    PN(16) ``Simulator`` with the default config the fused step, its run
+    bit for bit an explicit ``backend="fused"`` run's."""
+    from repro_torch import obs
+    from repro_torch.core import (make_pattern, normalize_demand, pn_graph,
+                                  utilization)
+    from repro_torch.kernels import sim_step
+    from repro_torch.sim import SimConfig, Simulator
+    g = pn_graph(16)
+    with perf_flags(obs="metrics", util_engine="dense"):
+        with obs.session() as sess:
+            rep = utilization(g)
+        counters = {k: v["value"] for k, v in
+                    sess.snapshot()["metrics"].items()
+                    if v["type"] == "counter"}
+    want = utilization(g, engine="dense")
+    if (sess.mode != "metrics" or counters.get("util.dispatch[dense]") != 1.0
+            or not np.array_equal(rep.loads, want.loads)):
+        raise AssertionError(f"obs / util_engine defaults: mode "
+                             f"{sess.mode}, counters {counters}")
+    dem = normalize_demand(make_pattern("uniform").demand(g, None))
+    runs = []
+    sim_step.reset_launches()
+    for backend, flag in (("auto", "fused"), ("fused", "auto")):
+        with perf_flags(sim_backend=flag):
+            sim = Simulator(g, SimConfig(backend=backend), demand=dem)
+            if sim.backend != "fused":
+                raise AssertionError(f"sim_backend={flag}: backend "
+                                     f"{sim.backend}")
+            runs.append(sim.run(dem, 0.5, 12))
+    launches = dict(sim_step.LAUNCHES)
+    for key in runs[0].history:
+        if not np.array_equal(runs[0].history[key], runs[1].history[key]):
+            raise AssertionError(f"sim_backend=fused: history {key} "
+                                 f"differs from backend='fused'")
+    if not launches["fused_step_update"]:     # the minimal routing: no
+        raise AssertionError(f"sim_backend=fused launched {launches}")
+    for k, n in launches.items():               # decision kernel
+        if n:
+            total[k] = total.get(k, 0) + n
+    log(f"phase 27 defaults: obs=metrics session recorded "
+        f"{len(counters)} counters; util_engine=dense ran "
+        f"util.dispatch[dense] {counters['util.dispatch[dense]']:.0f} time, "
+        f"loads equal to engine='dense'; sim_backend=fused picked the fused "
+        f"step ({launches}), bit for bit an explicit backend='fused' run")
+
+
+def check_perf_flags(dev, bw, first_256: float, out: dict):
+    """Phase 27: the REPRO_PERF flags on one card, set through
+    ``repro_torch.perf.set_flags`` and restored after each part: #5-#7
+    under ``prob_bf16`` (A), #8 and 8' at chunks 64 and 128 (B),
+    smollm-135m served and trained under ``prob_bf16,gqa_grouped``,
+    mamba2-130m trained at ``ssd_chunk=128``, smollm-135m and
+    granite-moe-3b-a800m at ``microbatch=2`` at full width (C), and the
+    flags that set defaults (D).  Puts the timing rows into ``out``; returns the phase's
+    launches."""
+    out["attention"] = _hold_prob_bf16(dev, bw)
+    out["ssd"] = _hold_ssd_chunks(dev, bw)
+    total = {}
+    shutil.rmtree(PERF_DIR, ignore_errors=True)
+    _perf_smollm(dev, total)
+    _perf_mamba2(dev, total, first_256)
+    out["granite"] = _perf_microbatch(dev, total)
+    shutil.rmtree(PERF_DIR, ignore_errors=True)
+    _perf_defaults(dev, total)
+    log(f"phase 27: launches {total}")
     return total
 
 
@@ -5281,11 +5846,12 @@ def main() -> int:
     for kname in bwd_errs:
         launches[kname] = train_launches[kname]
     done("15")
-    # phases 16-26 run kernels #1-#4 (22 and 25 #5-#7, 23 and 24 #5, 26 #8)
-    # on new paths: their launches there go beside each kernel's main-path
-    # count; phase 26's path is the SSD backward's main path
+    # phases 16-27 run kernels #1-#4 (22 and 25 #5-#7, 23 and 24 #5, 26 #8,
+    # 27 all but #3 and #4) on new paths: their launches there go beside
+    # each kernel's main-path count; phase 26's path is the SSD backward's
+    # main path
     phase_launches = {}
-    ssd_bwd = {}
+    ssd_bwd, perf = {}, {}
     for phase, fn in (("16", lambda: check_families(dev)),
                       ("17", lambda: check_faults_analytic(dev)),
                       ("18", lambda: check_faults_sim(
@@ -5297,7 +5863,9 @@ def main() -> int:
                       ("23", lambda: check_archs(dev, bw)),
                       ("24", lambda: check_memory(dev, bw)),
                       ("25", lambda: check_train_archs(dev, bw)),
-                      ("26", lambda: check_train_ssd(dev, bw, ssd_bwd))):
+                      ("26", lambda: check_train_ssd(dev, bw, ssd_bwd)),
+                      ("27", lambda: check_perf_flags(
+                          dev, bw, ssd_bwd["first_loss"], perf))):
         t0 = time.perf_counter()
         for kname, count in fn().items():
             phase_launches.setdefault(kname, {})[phase] = count
@@ -5310,6 +5878,12 @@ def main() -> int:
     errs["ssd_scan_bwd"], timing["ssd_scan_bwd"] = ssd_bwd["err"], \
         ssd_bwd["row"]
     launches["ssd_scan_bwd"] = ssd_bwd["launches"]
+    # phase 27: the prob_bf16 variants' rows beside #5's and #7's, the
+    # chunk 64 / 128 / 256 rows beside #8's and 8''s
+    (timing["flash_attention_fwd"]["prob_bf16"],
+     timing["flash_attention_dkv"]["prob_bf16"]) = perf["attention"]
+    (timing["ssd_scan"]["chunks"],
+     timing["ssd_scan_bwd"]["chunks"]) = perf["ssd"]
     replaces = {"fused_step_update": "src/repro/kernels/sim_step.py:53",
                 "fused_decision": "src/repro/kernels/sim_step.py:129",
                 "frontier_step": "src/repro/kernels/mask_gemm.py:49",
@@ -5353,7 +5927,8 @@ def main() -> int:
                                "train_library_ms",
                                "train_library_device_ms", "train_bound_ms",
                                "sparse_mm_ms", "level_ms", "block_ms",
-                               "block_launches", "block_bound_ms")
+                               "block_launches", "block_bound_ms",
+                               "prob_bf16", "chunks")
                    if key in timing[kname]}}
                for kname in replaces]
     print(json.dumps({"kernels": kernels}), flush=True)

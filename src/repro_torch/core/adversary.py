@@ -146,7 +146,7 @@ def _evaluate_specs(g, specs, models, engine, targets_mask, faults=None,
 
 def worst_case(g: Graph, model="minimal",
                patterns=DEFAULT_ADVERSARY_PATTERNS, n_random: int = 8,
-               seed: int = 0, engine: str | None = "auto",
+               seed: int = 0, engine: str | None = None,
                targets_mask=None, faults=None,
                device=None) -> AdversaryReport:
     """theta-minimizing pattern for one routing model: the named battery
@@ -170,7 +170,7 @@ def worst_case(g: Graph, model="minimal",
 
 def adversarial_report(g: Graph, patterns=DEFAULT_ADVERSARY_PATTERNS,
                        models=DEFAULT_MODELS, n_random: int = 8,
-                       seed: int = 0, engine: str | None = "auto",
+                       seed: int = 0, engine: str | None = None,
                        targets_mask=None, faults=None, device=None):
     """One topology's slab of the PolarFly-style table.
 
@@ -215,7 +215,7 @@ def adversarial_report(g: Graph, patterns=DEFAULT_ADVERSARY_PATTERNS,
 
 def adversarial_table(cases, patterns=DEFAULT_ADVERSARY_PATTERNS,
                       models=DEFAULT_MODELS, n_random: int = 8,
-                      seed: int = 0, engine: str | None = "auto",
+                      seed: int = 0, engine: str | None = None,
                       faults=None, device=None):
     """The full adversarial comparison: ``cases`` is an iterable of
     ``(name, graph)`` pairs (the reference's benchmarks/routing_bench.py

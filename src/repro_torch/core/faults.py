@@ -295,7 +295,7 @@ def random_faults(g: Graph, k_links: int = 0, k_routers: int = 0,
 
 def targeted_faults(g: Graph, k: int, kind: str = "links",
                     pattern="uniform", routing: str = "minimal",
-                    engine: str | None = "auto",
+                    engine: str | None = None,
                     require_connected: bool = True,
                     device=None) -> FaultSet:
     """The adversarial cut: greedily remove the component carrying the
@@ -371,7 +371,7 @@ def _targeted_rounds(g, k, kind, demand, mask, model, engine,
 
 
 def degraded_report(g: Graph, pattern, faults: FaultSet,
-                    routing: str = "minimal", engine: str | None = "auto",
+                    routing: str = "minimal", engine: str | None = None,
                     targets_mask=None, device=None):
     """``saturation_report`` of a faulted fabric.
 
@@ -461,7 +461,7 @@ def _nested_draw(g: Graph, ks, kind: str, rng, max_tries: int):
 def degradation_sweep(g: Graph, k_failures=(0, 1, 2, 5), trials: int = 8,
                       pattern="uniform", routing: str = "minimal",
                       kind: str = "links", seed: int = 0,
-                      engine: str | None = "auto", targets_mask=None,
+                      engine: str | None = None, targets_mask=None,
                       percentiles=(10, 50, 90),
                       max_tries: int = 64, device=None) -> DegradationSweep:
     """theta-vs-k curves with percentile bands: ``trials`` seeded nested

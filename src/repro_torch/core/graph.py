@@ -7,9 +7,10 @@ compiles degraded graphs through), the one-source host BFS
 :func:`bfs_distances`, and ``bfs_distances_batched`` advanced one BFS
 level at a time as boolean frontier products in torch, on whatever
 device the caller names (:func:`distance_distribution` and the route
-tables run on it).  Graphs up to :data:`DENSE_MAX_N` vertices use a
-dense (N, N) adjacency; larger ones a sparse CSR adjacency, so memory
-stays O(E + S*N).  :func:`adjacency_dense` builds the dense
+tables run on it).  Graphs up to the ``util_dense_max`` perf flag's
+vertex count (:data:`DENSE_MAX_N` by default) use a dense (N, N)
+adjacency; larger ones a sparse CSR adjacency, so memory stays O(E +
+S*N).  :func:`adjacency_dense` builds the dense
 adjacency in any dtype on any device, for the BFS and the ``dense``
 arc-load engine of :mod:`repro_torch.core.utilization`;
 :func:`adjacency_csr` the mask+GEMM kernels' sparse copy, for its
@@ -26,14 +27,15 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..perf import PerfFlags, flags
 
 __all__ = ["Graph", "CsrAdjacency", "adjacency_csr", "adjacency_dense",
            "bank_order", "bfs_distances", "bfs_distances_batched",
            "distance_distribution", "DENSE_MAX_N"]
 
-# largest vertex count whose BFS runs on a dense (N, N) adjacency (the
-# reference's util_dense_max perf-flag default)
-DENSE_MAX_N = 6144
+# the default largest vertex count whose BFS runs on a dense (N, N)
+# adjacency; the util_dense_max perf flag sets it per run
+DENSE_MAX_N = PerfFlags.util_dense_max
 
 # ~64 MB of float32 frontier per source block
 _BLOCK_BYTES = 64 << 20
@@ -284,9 +286,9 @@ def adjacency_csr(g: Graph, dtype=torch.float64,
 
 
 def _adjacency(g: Graph, device: torch.device) -> torch.Tensor:
-    """float32 adjacency on ``device`` for the BFS: dense up to
-    DENSE_MAX_N vertices, a sparse CSR tensor above."""
-    if g.n <= DENSE_MAX_N:
+    """float32 adjacency on ``device`` for the BFS: dense up to the
+    ``util_dense_max`` flag's vertex count, a sparse CSR tensor above."""
+    if g.n <= flags().util_dense_max:
         return adjacency_dense(g, torch.float32, device)
     # the graph's own order (not the kernels' bank order): torch's sparse
     # CSR products take each row's columns in the order the graph builds

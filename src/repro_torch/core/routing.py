@@ -197,7 +197,7 @@ def _valiant_parts(g: Graph, demand: np.ndarray, active: np.ndarray, engine,
 
 @register_routing("minimal")
 def _minimal() -> RoutingModel:
-    def evaluate(g, demand, active, engine="auto", device=None):
+    def evaluate(g, demand, active, engine=None, device=None):
         loads, kbar, diam = _minimal_parts(g, demand, engine, device)
         return RoutingResult("minimal", loads, kbar, int(diam))
 
@@ -207,7 +207,7 @@ def _minimal() -> RoutingModel:
 
 @register_routing("valiant")
 def _valiant() -> RoutingModel:
-    def evaluate(g, demand, active, engine="auto", device=None):
+    def evaluate(g, demand, active, engine=None, device=None):
         loads, kbar, diam = _valiant_parts(g, demand, active, engine, device)
         return RoutingResult("valiant", loads, kbar, int(diam))
 
@@ -394,7 +394,7 @@ def _ugal_threshold(threshold: float = 0.0) -> RoutingModel:
         raise ValueError(f"threshold must be >= 0 or inf, got {threshold!r}")
     name = f"ugal_threshold({t:g})"
 
-    def evaluate(g, demand, active, engine="auto", device=None):
+    def evaluate(g, demand, active, engine=None, device=None):
         if np.isinf(t):
             loads, kbar, diam = _minimal_parts(g, demand, engine, device)
             return RoutingResult(name, loads, kbar, int(diam), alpha=1.0)
@@ -415,12 +415,12 @@ def _ugal(granularity: str = "global") -> RoutingModel:
     if granularity == "source":
         return RoutingModel(
             "ugal(source)",
-            lambda g, demand, active, engine="auto", device=None:
+            lambda g, demand, active, engine=None, device=None:
                 _ugal_source_lp(g, demand, active, engine, device),
             "per-source theta-maximizing blend (LP)")
     return RoutingModel(
         "ugal",
-        lambda g, demand, active, engine="auto", device=None:
+        lambda g, demand, active, engine=None, device=None:
             _ugal_blend(g, demand, active, engine, device),
         "theta-maximizing convex blend of minimal and Valiant")
 
@@ -451,7 +451,7 @@ def _shared_kind(spec) -> str | None:
 
 def evaluate_models(g: Graph, demand: np.ndarray, active: np.ndarray,
                     models=("minimal", "valiant", "ugal"),
-                    engine: str | None = "auto", device=None) -> dict:
+                    engine: str | None = None, device=None) -> dict:
     """Evaluate several routing models on one demand matrix, sharing the
     minimal and Valiant sweeps across the built-in trio (ugal adds only
     its O(arcs * breakpoints) scan).  The result dict is keyed by each

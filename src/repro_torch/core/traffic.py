@@ -302,7 +302,7 @@ class SaturationReport:
 
 
 def saturation_report(g: Graph, pattern, routing: str = "minimal",
-                      engine: str | None = "auto",
+                      engine: str | None = None,
                       targets_mask: np.ndarray | None = None,
                       faults=None, device=None) -> SaturationReport:
     """Evaluate one traffic pattern on ``g`` under one routing model.
@@ -349,7 +349,7 @@ DEFAULT_SWEEP = ("uniform", "bit_reversal", "transpose", "tornado",
 
 def saturation_sweep(g: Graph, patterns=DEFAULT_SWEEP,
                      routings=("minimal", "valiant"),
-                     engine: str | None = "auto",
+                     engine: str | None = None,
                      targets_mask: np.ndarray | None = None, device=None):
     """Run a battery of patterns; returns ``(reports, summary)`` where
     ``summary`` names the worst pattern per routing: min theta (the

@@ -31,6 +31,12 @@ names.  Engines:
            family with generators), else the exact engine: ``fused`` on
            a CUDA device, ``dense`` on the CPU.
 
+``engine=None`` (every entry point's default) takes the ``util_engine``
+perf flag (:mod:`repro_torch.perf`, ``auto`` unless ``REPRO_PERF`` sets
+it), as in the reference; ``util_orbits=0`` keeps ``auto`` off the
+orbit shortcut and off the weighted path's uniform-demand rerouting;
+a non-zero ``util_block`` sets the rows of a source block.
+
 The reference's numpy-only engines (``naive``, ``numpy``, ``csr``) are
 not ported and raise ``ValueError``: the ``dense`` and ``fused`` engines
 compute what they compute.  Every entry point runs on the card unless
@@ -52,6 +58,7 @@ import torch
 
 from .. import obs
 from .._device import resolve_device
+from ..perf import flags
 from ..kernels.mask_gemm import backward_step, frontier_step
 from ..kernels.ref import backward_epilogue, frontier_epilogue
 from .graph import Graph, adjacency_csr, adjacency_dense
@@ -81,9 +88,9 @@ class UtilizationReport:
 
 
 def _engine_name(engine) -> str:
-    """The engine's name, lower case; unknown and not-ported names
-    raise."""
-    eng = "auto" if engine is None else str(engine).lower()
+    """The engine's name, lower case (None: the ``util_engine`` perf
+    flag); unknown and not-ported names raise."""
+    eng = str(flags().util_engine if engine is None else engine).lower()
     if eng in _NOT_PORTED:
         raise ValueError(
             f"engine {eng!r} is one of the reference's numpy-only engines, "
@@ -111,6 +118,9 @@ def resolve_engine(engine, device: torch.device) -> str:
 
 
 def _source_block_rows(n: int) -> int:
+    blk = flags().util_block
+    if blk > 0:
+        return blk
     # ~48 MB per (B, N) float64 working array
     return max(32, (48 << 20) // max(8 * n, 1))
 
@@ -252,7 +262,7 @@ def _prepare(engine, device):
 
 
 def arc_loads(g: Graph, sources=None, targets_mask: np.ndarray | None = None,
-              engine: str | None = "auto", device=None
+              engine: str | None = None, device=None
               ) -> tuple[np.ndarray, float, int]:
     """Per-arc load under uniform traffic, plus (k̄, diameter) of the pairs
     used.
@@ -261,8 +271,9 @@ def arc_loads(g: Graph, sources=None, targets_mask: np.ndarray | None = None,
     ``targets_mask`` is given); traffic flows from each source to every
     other target vertex, 1 unit per ordered pair, split across shortest
     paths.  ``engine`` is ``auto``, ``dense``, ``fused`` or ``orbit`` (see
-    the module docstring); ``orbit`` raises where the shortcut does not
-    apply, ``auto`` takes it only with the default sources."""
+    the module docstring; None takes the ``util_engine`` flag); ``orbit``
+    raises where the shortcut does not apply, ``auto`` takes it only with
+    the default sources and the ``util_orbits`` flag on."""
     name, eng, device = _prepare(engine, device)
     n = g.n
     if targets_mask is None:
@@ -278,7 +289,8 @@ def arc_loads(g: Graph, sources=None, targets_mask: np.ndarray | None = None,
         obs.counter(f"util.dispatch[{name}]").add(1.0)
         if name in ("auto", "orbit"):
             obs.counter(f"util.engine[{eng}]").add(1.0)
-            if default_sources:
+            if default_sources and (name == "orbit"
+                                    or flags().util_orbits):
                 res = _loads_orbit(g, targets_mask, eng, device)
                 if res is not None:
                     obs.counter("util.engine[orbit]").add(1.0)
@@ -318,7 +330,7 @@ def _uniform_demand_split(demand: np.ndarray):
     return w, rows
 
 
-def arc_loads_weighted(g: Graph, demand, engine: str | None = "auto",
+def arc_loads_weighted(g: Graph, demand, engine: str | None = None,
                        device=None) -> tuple[np.ndarray, float, int]:
     """Per-arc load under an arbitrary traffic matrix, split across all
     shortest paths.
@@ -348,7 +360,7 @@ def arc_loads_weighted(g: Graph, demand, engine: str | None = "auto",
     np.fill_diagonal(demand, 0.0)
     if float(demand.sum()) == 0.0:
         raise ValueError("demand matrix is all zero")
-    if name in ("auto", "orbit"):
+    if name == "orbit" or (name == "auto" and flags().util_orbits):
         uni = _uniform_demand_split(demand)
         if uni is not None:
             w, mask = uni
@@ -373,7 +385,7 @@ def arc_loads_weighted(g: Graph, demand, engine: str | None = "auto",
 
 
 def utilization(g: Graph, sources=None, targets_mask: np.ndarray | None = None,
-                engine: str | None = "auto", device=None
+                engine: str | None = None, device=None
                 ) -> UtilizationReport:
     """The paper's u = mean/max arc load at saturation; traffic is
     restricted to the graph's leaf mask where it has one."""
@@ -387,7 +399,7 @@ def utilization(g: Graph, sources=None, targets_mask: np.ndarray | None = None,
                              loads=loads, kbar=kbar, diameter=diam)
 
 
-def valiant_report(g: Graph, sources=None, engine: str | None = "auto",
+def valiant_report(g: Graph, sources=None, engine: str | None = None,
                    device=None) -> UtilizationReport:
     """Valiant two-phase randomized routing: every packet goes s ->
     (uniform random intermediate) -> t via minimal paths.  Each phase is

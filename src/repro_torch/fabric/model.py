@@ -180,7 +180,7 @@ class FabricModel:
                           device=self.device)
 
     def placement_report(self, profile, placement, routing: str = "ugal",
-                         engine: str | None = "auto"):
+                         engine: str | None = None):
         """Saturation analysis of one (StepProfile, Placement) pair under
         a routing model: theta of the placement's router-level demand
         matrix in Eq. 1's link-equivalent units (fabric.placement)."""

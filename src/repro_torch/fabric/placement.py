@@ -229,7 +229,7 @@ def chip_wire_bytes(profile, mesh_shape, axis_names, axis_of=None) -> float:
 
 
 def placement_report(placement: Placement, profile, routing="ugal",
-                     engine: str | None = "auto", axis_of=None, faults=None,
+                     engine: str | None = None, axis_of=None, faults=None,
                      device=None):
     """Saturation analysis of one (profile, placement) pair under one
     routing model, as a repro_torch.core.traffic ``SaturationReport``.
@@ -283,7 +283,7 @@ def placement_report(placement: Placement, profile, routing="ugal",
 
 
 def link_loads(p: Placement, traffic, routing="minimal",
-               engine: str | None = "auto", device=None) -> dict:
+               engine: str | None = None, device=None) -> dict:
     """Per-arc load of chip-to-chip traffic under a registered routing
     model: the traffic is aggregated to a router demand matrix
     (:func:`_router_demand`) and routed by repro_torch.core.routing.
@@ -479,7 +479,7 @@ def _swap_descent(p: Placement, traffic, iters: int, seed: int,
 @register_placement("greedy_swap")
 def _greedy_swap(iters: int = 200, start: str = "group") -> PlacementStrategy:
     def assign(g, mesh_shape, axis_names, delta0, seed=0, schedule=None,
-               routing="minimal", engine="auto", device=None, **kw):
+               routing="minimal", engine=None, device=None, **kw):
         if schedule is None:
             raise ValueError("greedy_swap needs the schedule it descends "
                              "on; pass schedule= to place_mesh")
@@ -498,7 +498,7 @@ def _greedy_swap(iters: int = 200, start: str = "group") -> PlacementStrategy:
 
 def place_mesh(g: Graph, mesh_shape, axis_names, terminals_per_router: int,
                strategy="linear", seed: int = 0, schedule=None,
-               routing="minimal", engine: str | None = "auto",
+               routing="minimal", engine: str | None = None,
                device=None) -> Placement:
     """Assign a (pod, data, model)-shaped chip mesh to routers via a
     registered strategy.  ``schedule``/``routing``/``engine``/``device``
@@ -528,7 +528,7 @@ def place_mesh(g: Graph, mesh_shape, axis_names, terminals_per_router: int,
 
 
 def greedy_improve(p: Placement, traffic, iters: int = 200, seed: int = 0,
-                   routing="minimal", engine: str | None = "auto",
+                   routing="minimal", engine: str | None = None,
                    return_history: bool = False, device=None):
     """Pairwise-swap descent on max arc load under ``routing``.
     Seed-deterministic (the swap sequence is pre-drawn) with a monotone
@@ -563,7 +563,7 @@ def _strategy_row(g, placement, schedule, routing, engine, device) -> dict:
 def evaluate_placements(g: Graph, mesh_shape, axis_names, delta0: int,
                         profile, strategies=DEFAULT_STRATEGIES,
                         routing="ugal", seed: int = 0,
-                        engine: str | None = "auto", device=None) -> dict:
+                        engine: str | None = None, device=None) -> dict:
     """Compare placement strategies on one fabric; returns
     ``{strategy: {theta, u, max_load, kbar_eff, alpha, max_bytes,
     mean_bytes}}`` with theta in Eq. 1's link-equivalent units — demand
@@ -588,7 +588,7 @@ def evaluate_placements(g: Graph, mesh_shape, axis_names, delta0: int,
 def placement_search(g: Graph, mesh_shape, axis_names, delta0: int, profile,
                      strategies=DEFAULT_STRATEGIES + ("greedy_swap",),
                      routing="ugal", seed: int = 0,
-                     engine: str | None = "auto", adversary: bool = False,
+                     engine: str | None = None, adversary: bool = False,
                      n_random: int = 4, device=None) -> dict:
     """Strategy search scored by theta under ``routing`` (default ugal —
     the routing the fabric actually runs), optionally cross-checked by

@@ -54,7 +54,7 @@ class StepProfile:
 
 
 def placement_step_seconds(fabric: FabricModel, profile, placement: Placement,
-                           routing="ugal", engine: str | None = "auto"
+                           routing="ugal", engine: str | None = None
                            ) -> float:
     """Per-step collective seconds of a PLACED job: the (profile,
     placement) demand matrix is routed under ``routing`` and the busiest
@@ -311,7 +311,7 @@ def fragmentation_demand(g, jobs, delta0: int, layout: str) -> np.ndarray:
 def fragmentation_sweep(g, jobs, delta0: int,
                         layouts=FRAGMENTATION_LAYOUTS, routing="ugal",
                         background=None, background_scale: float = 1.0,
-                        engine: str | None = "auto", device=None) -> dict:
+                        engine: str | None = None, device=None) -> dict:
     """Score multi-tenant layouts at pod scale: theta of the combined
     (jobs + optional background pattern) demand per layout under one
     routing model.  ``background`` is any traffic-pattern spec (e.g.

@@ -53,6 +53,15 @@
 //     heaviest q tiles are launched first.
 //   * One warpgroup per block; several blocks share an SM, so one block's
 //     softmax overlaps another's products.
+// The prob_bf16 variant (PB, the perf flag: the reference's jnp route
+// under it) differs in two places: once Q has landed, each entry of the
+// resident tile is rounded in place to bf16(q scale), so Q K^T is the
+// scaled score and the softmax takes scale 1; and P V is one wgmma of p
+// rounded to the nearest bf16, in place of the split's three.  p is formed
+// against the running max, as in the default variant, so it is rounded
+// before the rescale by alpha that the reference's one-pass max needs
+// not: the two differ by one bf16 rounding of p.  Launches and the grid
+// do not change; the default variant's code is untouched by the switch.
 // Masking follows the reference: masked entries get p = 0; m starts at
 // -1e30, so a row with no live key gets l = 0, o = 0 and lse = -1e30 +
 // log(1e-30); o = acc / l, lse = m + log(max(l, 1e-30)).  Head sizes 32,
@@ -74,7 +83,7 @@ __host__ __device__ constexpr int fwd_smem_bytes() {
   return 1024 + (1 + 2 * kStages) * kBM * D * 2 + 8 * kStages;
 }
 
-template <int D>
+template <int D, bool PB>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -85,7 +94,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int kTile = kBM * D * 2;
   constexpr int NB = G::kBlocks, NC = G::kCols;
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
   const uint32_t s_q = base;
   const uint32_t bars = base + (1 + 2 * kStages) * kTile;
   auto s_k = [&](int st) { return base + (1 + 2 * st) * kTile; };
@@ -127,7 +137,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // this thread's rows of the tile: r_lo and r_lo + 8; m in units of the
   // scaled scores, mb = m kExpUnit
   const int r_lo = 16 * warp + lane / 4;
-  const float scale2 = scale * kExpUnit;
+  // PB: the scale is in Q once Q has been rounded, s is the scaled score
+  const float sc = PB ? 1.f : scale;
+  const float scale2 = sc * kExpUnit;
   const float masked = -__int_as_float(0x7f800000);  // -inf: p = 0
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float acc[NB][NC / 2];
@@ -148,6 +160,13 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_arrive(bars + 8 * nx);
     }
     mbar_wait(bars + 8 * st, (it / kStages) & 1);
+    if constexpr (PB) {
+      if (it == 0) {  // Q landed with the first tile: Q <- bf16(Q scale)
+        scale_tile<kBM, D>(smem_raw, raw, s_q, scale, tid);
+        fence_proxy_async();
+        __syncthreads();
+      }
+    }
     fence_proxy_async();
 
     // s = q k^T: rows of the q tile, the tile's 64 keys
@@ -181,7 +200,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < 2; ++i) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i] * scale);
+      const float m_new = fmaxf(m[i], mx[i] * sc);
       alpha[i] = exp_p((m[i] - m_new) * kExpUnit);
       mb[i] = m_new * kExpUnit;
       m[i] = m_new;
@@ -203,14 +222,19 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < NC / 2; ++c) acc[b][c] *= alpha[c / 2 % 2];
 
-    // acc += p v: p from registers in three bf16 terms, v transposed
-    uint32_t f[3][4][4];
-    split_frags<64>(s, f);
+    // acc += p v: p from registers in three bf16 terms (PB: one, p
+    // rounded to nearest), v transposed
+    constexpr int kParts = PB ? 1 : 3;
+    uint32_t f[kParts][4][4];
+    if constexpr (PB)
+      round_frags<64>(s, f);
+    else
+      split_frags<64>(s, f);
     wg_fence();
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc)
 #pragma unroll
-      for (int part = 0; part < 3; ++part)
+      for (int part = 0; part < kParts; ++part)
 #pragma unroll
         for (int b = 0; b < NB; ++b)
           mma_rs(acc[b], f[part][kc], desc_mn<D, kBM>(s_v(st), kc, b));
@@ -238,51 +262,63 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool PB>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                    float* lse, int b, int hq, int hkv, int sq, int skv,
                    int causal, int window, int q_offset, float scale,
                    cudaStream_t stream) {
   constexpr int bytes = fwd_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D, PB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
   const int n_qtiles = (sq + kBM - 1) / kBM;
   const dim3 grid(n_qtiles, hq, b);
-  flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
+  flash_fwd_kernel<D, PB><<<grid, kThreads, bytes, stream>>>(
       q, k, v, o, lse, hq, hkv, sq, skv, causal, window, q_offset, scale,
       n_qtiles);
   return cudaGetLastError();
+}
+
+template <bool PB>
+cudaError_t dispatch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                     float* lse, int b, int hq, int hkv, int sq, int skv,
+                     int d, int causal, int window, int q_offset,
+                     float scale, cudaStream_t stream) {
+  switch (d) {
+    case 32:
+      return launch<32, PB>(q, k, v, o, lse, b, hq, hkv, sq, skv, causal,
+                            window, q_offset, scale, stream);
+    case 64:
+      return launch<64, PB>(q, k, v, o, lse, b, hq, hkv, sq, skv, causal,
+                            window, q_offset, scale, stream);
+    case 128:
+      return launch<128, PB>(q, k, v, o, lse, b, hq, hkv, sq, skv, causal,
+                             window, q_offset, scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), o like q, contiguous
 // bfloat16, rows 16-byte aligned; lse (B, Hq, Sq) float32.  window <= 0
-// means none.  D in {32, 64, 128}.
+// means none.  D in {32, 64, 128}.  prob_bf16 != 0: the flag's variant.
 cudaError_t flash_attention_fwd(const void* q, const void* k, const void* v,
                                 void* o, float* lse, int b, int hq, int hkv,
                                 int sq, int skv, int d, int causal,
                                 int window, int q_offset, float scale,
-                                cudaStream_t stream) {
+                                int prob_bf16, cudaStream_t stream) {
   if (b <= 0 || sq <= 0 || hkv <= 0 || hq % hkv != 0)
     return cudaErrorInvalidValue;
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);
   bf16* ob = static_cast<bf16*>(o);
-  switch (d) {
-    case 32:
-      return launch<32>(qb, kb, vb, ob, lse, b, hq, hkv, sq, skv, causal,
-                        window, q_offset, scale, stream);
-    case 64:
-      return launch<64>(qb, kb, vb, ob, lse, b, hq, hkv, sq, skv, causal,
-                        window, q_offset, scale, stream);
-    case 128:
-      return launch<128>(qb, kb, vb, ob, lse, b, hq, hkv, sq, skv, causal,
-                         window, q_offset, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return prob_bf16
+             ? dispatch<true>(qb, kb, vb, ob, lse, b, hq, hkv, sq, skv, d,
+                              causal, window, q_offset, scale, stream)
+             : dispatch<false>(qb, kb, vb, ob, lse, b, hq, hkv, sq, skv, d,
+                               causal, window, q_offset, scale, stream);
 }

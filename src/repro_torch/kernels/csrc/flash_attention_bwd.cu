@@ -76,6 +76,12 @@
 //     first.
 //   * One warpgroup per block, 2 to 3 blocks per SM by registers (150
 //     and 212 a thread at D = 64, no spills).
+// The prob_bf16 variant of #7 (PB, the perf flag: the reference's jnp
+// route under it, differentiated with the cast passed straight through)
+// multiplies dv += p^T dO with p^T rounded to the nearest bf16, one wgmma
+// in place of three; ds, and with it dk and #6's dq, keep the float32 p.
+// Launches and grids do not change; the default variant's code is
+// untouched by the switch.
 // Masking: p is set to 0 on every masked entry.  The reference computes
 // exp(-1e30 - lse) there, which is 1 on a row with no live key (its lse
 // is -1e30) and gives that row a spurious gradient; a row that sees at
@@ -275,7 +281,7 @@ __host__ __device__ constexpr int dkv_smem_bytes() {
          8 * kStages;
 }
 
-template <int D>
+template <int D, bool PB>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -415,14 +421,19 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             fmaf(s[at], scale2, -col_lse[2 * (at / 4) + at % 2]));
     }
 
-    // dv += p^T dO: p^T from registers in three bf16 terms, dO transposed
-    uint32_t fp[3][NQ / 16][4], fs[3][NQ / 16][4];
-    split_frags<NQ>(s, fp);
+    // dv += p^T dO: p^T from registers in three bf16 terms (PB: one, p^T
+    // rounded to nearest), dO transposed
+    constexpr int kParts = PB ? 1 : 3;
+    uint32_t fp[kParts][NQ / 16][4], fs[3][NQ / 16][4];
+    if constexpr (PB)
+      round_frags<NQ>(s, fp);
+    else
+      split_frags<NQ>(s, fp);
     wg_fence();
 #pragma unroll
     for (int kc = 0; kc < NQ / 16; ++kc)
 #pragma unroll
-      for (int part = 0; part < 3; ++part)
+      for (int part = 0; part < kParts; ++part)
 #pragma unroll
         for (int b = 0; b < NB; ++b)
           mma_rs(dv_acc[b], fp[part][kc], desc_mn<D, NQ>(s_do(st), kc, b));
@@ -510,18 +521,32 @@ cudaError_t launch_dq(const Args& a, bf16* dq) {
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool PB>
 cudaError_t launch_dkv(const Args& a, float* dk, float* dv) {
   constexpr int bytes = dkv_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_dkv_kernel<D, PB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.skv + kBM - 1) / kBM, a.hq, a.b);
-  flash_dkv_kernel<D><<<grid, kThreads, bytes, a.stream>>>(
+  flash_dkv_kernel<D, PB><<<grid, kThreads, bytes, a.stream>>>(
       a.q, a.k, a.v, a.dout, a.lse, a.dsum, dk, dv, a.hq, a.hkv, a.sq,
       a.skv, a.causal, a.window, a.q_offset, a.scale);
   return cudaGetLastError();
+}
+
+template <bool PB>
+cudaError_t dispatch_dkv(const Args& a, int d, float* dk, float* dv) {
+  switch (d) {
+    case 32:
+      return launch_dkv<32, PB>(a, dk, dv);
+    case 64:
+      return launch_dkv<64, PB>(a, dk, dv);
+    case 128:
+      return launch_dkv<128, PB>(a, dk, dv);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 bool valid(int b, int hq, int hkv, int sq, int skv) {
@@ -558,26 +583,19 @@ cudaError_t flash_attention_dq(const void* q, const void* k, const void* v,
 }
 
 // Inputs as flash_attention_dq; dk and dv (B, Hq, Skv, D) float32, per q
-// head.
+// head.  prob_bf16 != 0: the flag's variant (dv from bf16 p).
 cudaError_t flash_attention_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const float* lse,
                                 const float* dsum, float* dk, float* dv,
                                 int b, int hq, int hkv, int sq, int skv,
                                 int d, int causal, int window, int q_offset,
-                                float scale, cudaStream_t stream) {
+                                float scale, int prob_bf16,
+                                cudaStream_t stream) {
   if (!valid(b, hq, hkv, sq, skv)) return cudaErrorInvalidValue;
   const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
                lse, dsum, b, hq, hkv, sq, skv, causal, window, q_offset,
                scale, stream};
-  switch (d) {
-    case 32:
-      return launch_dkv<32>(a, dk, dv);
-    case 64:
-      return launch_dkv<64>(a, dk, dv);
-    case 128:
-      return launch_dkv<128>(a, dk, dv);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return prob_bf16 ? dispatch_dkv<true>(a, d, dk, dv)
+                   : dispatch_dkv<false>(a, d, dk, dv);
 }

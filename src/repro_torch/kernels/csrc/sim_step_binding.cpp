@@ -63,7 +63,7 @@ cudaError_t flash_attention_fwd(const void* q, const void* k, const void* v,
                                 void* o, float* lse, int b, int hq, int hkv,
                                 int sq, int skv, int d, int causal,
                                 int window, int q_offset, float scale,
-                                cudaStream_t stream);
+                                int prob_bf16, cudaStream_t stream);
 
 // float32 operands: the CUDA-core kernel of flash_attention_fma.cu.
 cudaError_t flash_attention_fwd_fma(const float* q, const float* k,
@@ -86,7 +86,8 @@ cudaError_t flash_attention_dkv(const void* q, const void* k, const void* v,
                                 const float* dsum, float* dk, float* dv,
                                 int b, int hq, int hkv, int sq, int skv,
                                 int d, int causal, int window, int q_offset,
-                                float scale, cudaStream_t stream);
+                                float scale, int prob_bf16,
+                                cudaStream_t stream);
 
 // float32 operands: the CUDA-core kernels of flash_attention_bwd_fma.cu.
 cudaError_t flash_attention_dq_fma(const float* q, const float* k,
@@ -379,10 +380,11 @@ void mask_backward(const at::Tensor& coeff, const at::Tensor& indptr,
 }
 
 // q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), o like q, lse (B, Hq, Sq)
-// float32; bfloat16 or float32 operands.
+// float32; bfloat16 or float32 operands.  prob_bf16: the bf16 kernel's
+// variant for the perf flag (float32 operands have none).
 void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
                bool causal, int64_t window, int64_t q_offset, double scale,
-               at::Tensor& o, at::Tensor& lse) {
+               bool prob_bf16, at::Tensor& o, at::Tensor& lse) {
   const auto dt = q.scalar_type();
   TORCH_CHECK(dt == at::kFloat || dt == at::kBFloat16,
               "flash_attention takes float32 or bfloat16");
@@ -412,7 +414,8 @@ void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
       dt == at::kBFloat16
           ? flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 o.data_ptr(), lse.data_ptr<float>(), ib, ihq,
-                                ihkv, isq, iskv, id, ic, iw, io, sc, stream)
+                                ihkv, isq, iskv, id, ic, iw, io, sc,
+                                prob_bf16 ? 1 : 0, stream)
           : flash_attention_fwd_fma(
                 q.data_ptr<float>(), k.data_ptr<float>(),
                 v.data_ptr<float>(), o.data_ptr<float>(),
@@ -485,12 +488,13 @@ void flash_dq(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// dk and dv (B, Hq, Skv, D) float32, per q head.
+// dk and dv (B, Hq, Skv, D) float32, per q head.  prob_bf16: the bf16
+// kernel's variant for the perf flag (float32 operands have none).
 void flash_dkv(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
                const at::Tensor& dout, const at::Tensor& lse,
                const at::Tensor& dsum, bool causal, int64_t window,
-               int64_t q_offset, double scale, at::Tensor& dk,
-               at::Tensor& dv) {
+               int64_t q_offset, double scale, bool prob_bf16,
+               at::Tensor& dk, at::Tensor& dv) {
   const auto [b, hq, hkv, sq, skv, d] = check_bwd(q, k, v, dout, lse, dsum);
   check_cuda(dk, "dk", at::kFloat);
   check_cuda(dv, "dv", at::kFloat);
@@ -511,7 +515,8 @@ void flash_dkv(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
                                 dout.data_ptr(), lse.data_ptr<float>(),
                                 dsum.data_ptr<float>(), dk.data_ptr<float>(),
                                 dv.data_ptr<float>(), ib, ihq, ihkv, isq,
-                                iskv, id, ic, iw, io, sc, stream)
+                                iskv, id, ic, iw, io, sc, prob_bf16 ? 1 : 0,
+                                stream)
           : flash_attention_dkv_fma(
                 q.data_ptr<float>(), k.data_ptr<float>(),
                 v.data_ptr<float>(), dout.data_ptr<float>(),

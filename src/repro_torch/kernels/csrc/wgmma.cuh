@@ -12,6 +12,8 @@
 //     float32 accumulators, A from shared memory or from registers;
 //   * split3 / split_frags: the exact three-way bf16 split of a float32
 //     operand, so that three bf16 products give the float32 product;
+//     round_frags and scale_tile: the single bf16 roundings of the
+//     prob_bf16 variants of #5 and #7;
 //   * exp_p, the special-function unit's ex2;
 //   * the SSD kernels' in-chunk float64 cumsum and their split stores.
 
@@ -326,12 +328,53 @@ __device__ __forceinline__ void split_frags(const float (&x)[N / 2],
     }
 }
 
-template <int M>
-__device__ __forceinline__ void fence_frags(uint32_t (&f)[3][M][4]) {
+// x0 and x1 rounded to the nearest bf16, packed as a bf16x2 (x0 in the
+// low half).
+__device__ __forceinline__ uint32_t round2(float x0, float x1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The wgmma A fragments of columns 16 kc .. 16 kc + 15 of an m64nN
+// accumulator tile x, each entry rounded to one bf16: p as the
+// prob_bf16 variants of #5 and #7 multiply it (the reference's
+// p.astype(bf16) under that flag).
+template <int N>
+__device__ __forceinline__ void round_frags(const float (&x)[N / 2],
+                                            uint32_t (&f)[1][N / 16][4]) {
 #pragma unroll
-  for (int p = 0; p < 3; ++p)
+  for (int kc = 0; kc < N / 16; ++kc)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int at = 4 * (2 * kc + (r >> 1)) + 2 * (r & 1);
+      f[0][kc][r] = round2(x[at], x[at + 1]);
+    }
+}
+
+template <int P, int M>
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[P][M][4]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p)
 #pragma unroll
     for (int kc = 0; kc < M; ++kc) fence_regs(f[p][kc]);
+}
+
+// Rounds the R x D bf16 tile at shared address `tile` (`raw` the shared
+// address of `smem`) in place to bf16(x scale), each entry from its
+// float32 product, as the reference's prob_bf16 route rounds q scale.
+// Entrywise, so the swizzle does not matter; the caller has waited for
+// the tile, and afterwards fences it for the async proxy and syncs.
+template <int R, int D, int Threads = kWarpgroup>
+__device__ __forceinline__ void scale_tile(uint8_t* smem, uint32_t raw,
+                                           uint32_t tile, float scale,
+                                           int tid) {
+  __nv_bfloat162* t =
+      reinterpret_cast<__nv_bfloat162*>(smem + (tile - raw));
+#pragma unroll 4
+  for (int w = tid; w < R * D / 2; w += Threads) {
+    const float2 x = __bfloat1622float2(t[w]);
+    t[w] = __floats2bfloat162_rn(x.x * scale, x.y * scale);
+  }
 }
 
 #ifndef FLASH_BWD_EXPF

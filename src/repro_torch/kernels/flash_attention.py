@@ -26,6 +26,19 @@ kernel is built for head sizes 32, 64 and 128; a smaller head is
 zero-padded to the next of them (the scores and the output's first D
 columns do not change); the backward pads and cuts its gradients the
 same way, so they come back at the caller's D.
+
+``prob_bf16`` (the perf flag, :mod:`repro_torch.perf`; the forward and
+the dk/dv wrappers take it as an argument, :class:`FlashAttention` reads
+the flag once per forward and hands it to its backward) selects each
+kernel's variant for bf16 operands as the reference's jnp route computes
+under the flag: in the forward q scale is rounded to bf16 before Q K^T
+and P.V is one bf16 product of p rounded to nearest; in dk/dv the dv
+product takes p as one bf16 term, while ds, and so dq and dk, keep the
+float32 p.  The backward recomputes p from q scale unrounded, as it
+always does: at head sizes whose scale is a power of two (16, 64, 256)
+that is the forward's p, elsewhere it differs by the rounding of q
+scale (2^-9 of each score at most).  Float32 operands ignore the flag,
+as in the reference.  The launches per call do not change.
 """
 
 from __future__ import annotations
@@ -33,6 +46,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..perf import flags
 from .ref import (flash_attention_dkv_ref, flash_attention_dq_ref,
                   flash_attention_ref)
 
@@ -93,18 +107,22 @@ def _aligned(*ts):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
-                    q_offset: int = 0, scale=None):
+                    q_offset: int = 0, scale=None, prob_bf16: bool = False):
     """``(o, lse)``: q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) with Hq %
     Hkv == 0, contiguous, one dtype.  Query row i sits at position
     ``q_offset + i``, key j at j; masks: causal (q >= k) and sliding
     window (k > q - window).  ``o`` in q's dtype (0 on a row with no live
-    key), ``lse`` (B, Hq, Sq, 1) float32; scale defaults to D**-0.5."""
+    key), ``lse`` (B, Hq, Sq, 1) float32; scale defaults to D**-0.5.
+    ``prob_bf16``: the bf16 kernel's variant for the flag (module
+    docstring)."""
     route = _check(q, k, v, window, int(q_offset))
     b, hq, sq, d = q.shape
     scale = float(scale) if scale is not None else d ** -0.5
+    pb = bool(prob_bf16) and q.dtype == torch.bfloat16
     if route == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   q_offset=int(q_offset), scale=scale)
+                                   q_offset=int(q_offset), scale=scale,
+                                   prob_bf16=pb)
     from ._build import extension
     ext = extension()
     d_pad = _pad_head(d)
@@ -114,7 +132,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, sq, 1), dtype=torch.float32, device=q.device)
     ext.flash_fwd(q, k, v, bool(causal), 0 if window is None else int(window),
-                  int(q_offset), scale, o, lse)
+                  int(q_offset), scale, pb, o, lse)
     LAUNCHES["flash_attention_fwd"] += 1
     if d_pad != d:
         o = o[..., :d].contiguous()
@@ -163,17 +181,21 @@ def flash_attention_dq(q, k, v, do, lse, dsum, *, causal: bool = True,
 
 
 def flash_attention_dkv(q, k, v, do, lse, dsum, *, causal: bool = True,
-                        window=None, q_offset: int = 0, scale=None):
+                        window=None, q_offset: int = 0, scale=None,
+                        prob_bf16: bool = False):
     """dk and dv of the recompute backward per q head (kernel #7 on the
     card): inputs as :func:`flash_attention_dq`; returns ``(dk, dv)``,
     each (B, Hq, Skv, D) float32, for the caller to sum over each kv
-    group."""
+    group.  ``prob_bf16``: dv from p as one bf16 term (module
+    docstring)."""
     route = _check_bwd(q, k, v, do, lse, dsum, window, int(q_offset))
     scale = float(scale) if scale is not None else q.shape[3] ** -0.5
+    pb = bool(prob_bf16) and q.dtype == torch.bfloat16
     kw = dict(causal=bool(causal), window=window, q_offset=int(q_offset),
               scale=scale)
     if route == "cpu":
-        return flash_attention_dkv_ref(q, k, v, do, lse, dsum, **kw)
+        return flash_attention_dkv_ref(q, k, v, do, lse, dsum, prob_bf16=pb,
+                                       **kw)
     from ._build import extension
     ext = extension()
     q, k, v, do = _aligned(q, k, v, do)
@@ -183,19 +205,21 @@ def flash_attention_dkv(q, k, v, do, lse, dsum, *, causal: bool = True,
     dv = torch.empty_like(dk)
     ext.flash_dkv(q, k, v, do, lse, dsum, kw["causal"],
                   0 if window is None else int(window), kw["q_offset"],
-                  scale, dk, dv)
+                  scale, pb, dk, dv)
     LAUNCHES["flash_attention_dkv"] += 1
     return dk, dv
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        window=None, q_offset: int = 0, scale=None):
+                        window=None, q_offset: int = 0, scale=None,
+                        prob_bf16: bool = False):
     """``(dq, dk, dv)`` of :func:`flash_attention` at cotangent ``do``,
     the reference's ``_bwd_impl``: ``dsum = rowsum(do * o)`` in float32,
     then the dq and dk/dv kernels, dk and dv summed over each kv group in
     float32.  dq in q's dtype, dk and dv in k's.  ``o`` and ``lse`` are
     the forward's outputs.  p is exactly 0 on masked entries (see
-    :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`)."""
+    :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`).
+    ``prob_bf16`` goes to the dk/dv kernel."""
     b, hq, _, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     scale = float(scale) if scale is not None else d ** -0.5
@@ -205,7 +229,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         q, k, v, do = (F.pad(t, (0, d_pad - d)) for t in (q, k, v, do))
     kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
     dq = flash_attention_dq(q, k, v, do, lse, dsum, **kw)
-    dkh, dvh = flash_attention_dkv(q, k, v, do, lse, dsum, **kw)
+    dkh, dvh = flash_attention_dkv(q, k, v, do, lse, dsum,
+                                   prob_bf16=prob_bf16, **kw)
     dk = dkh.view(b, hkv, hq // hkv, skv, d_pad).sum(2)
     dv = dvh.view(b, hkv, hq // hkv, skv, d_pad).sum(2)
     if d_pad != d:
@@ -217,15 +242,18 @@ class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention, the reference's ``_flash``
     custom_vjp: the forward kernel saves ``(q, k, v, o, lse)``, the
     backward runs :func:`flash_attention_bwd`.  Under ``no_grad`` it is
-    one forward launch and saves nothing."""
+    one forward launch and saves nothing.  The ``prob_bf16`` perf flag
+    is read once, in the forward, and the backward takes what it read."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, scale):
+        pb = bool(flags().prob_bf16)
         o, lse = flash_attention(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset, scale=scale)
+                                 q_offset=q_offset, scale=scale,
+                                 prob_bf16=pb)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
-                        scale=scale)
+                        scale=scale, prob_bf16=pb)
         return o
 
     @staticmethod

@@ -8,12 +8,17 @@ hand-written kernels, on CPU tensors they run the kernels' plain
 versions, and nothing falls from one to the other.  Both are
 differentiable through backward kernels; the reference trains the SSD by
 autodiff of its jnp path, the port through backward kernels of its own
-(``csrc/ssd_scan_bwd.cu``, ``csrc/ssd_scan_bwd_fma.cu``).  The reference's
-``REPRO_PERF`` variants (grouped GQA, bfloat16 probabilities, another SSD
-chunk) are not ported: K/V and the probabilities are float32 and the
-chunk is the config's.  The RG-LRU has no kernel in the reference
-either: ``rglru`` and ``rglru_decode_step`` are plain torch on both
-devices.
+(``csrc/ssd_scan_bwd.cu``, ``csrc/ssd_scan_bwd_fma.cu``).  The
+reference's ``REPRO_PERF`` variants act here as there
+(:mod:`repro_torch.perf`): under ``prob_bf16`` ``attention`` runs the
+kernels' variant for bf16 probabilities in P.V (the reference's jnp
+route under the flag, which its prefills of any length that its 1024-row
+block does not divide take), float32 operands ignoring it as there; the
+SSD chunk of ``ssd_chunk`` reaches ``ssd`` through the SSD block;
+``gqa_grouped`` only changes how the reference's jnp route lays out its
+einsums, and the kernels index K and V by kv head already, so it changes
+no bit.  The RG-LRU has no kernel in the reference either: ``rglru`` and
+``rglru_decode_step`` are plain torch on both devices.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ def attention(q, k, v, *, causal: bool = True, window=None,
     backward kernels (:class:`~repro_torch.kernels.flash_attention.
     FlashAttention`); under ``no_grad`` one forward launch.  ``kv_len``
     (padded caches) has no kernel route and raises; the model's decode
-    attends its cache in plain torch instead.  A value head narrower than
+    attends its cache in plain torch instead.  The ``prob_bf16`` perf flag
+    is read by :class:`FlashAttention`.  A value head narrower than
     q's and k's (MLA) is zero-padded to their size for the kernel, and the
     output cut back to it: zero columns of V give zero columns of P.V."""
     if kv_len is not None:

@@ -15,7 +15,10 @@ as its exact sequential recurrence.  ``ssd_scan_chunked_ref`` mirrors the
 three phases of the bf16 SSD kernels, and ``ssd_scan_bwd_ref`` is its
 backward, written by hand.  The ``terms`` options of
 ``ssd_scan_chunked_ref`` and of ``flash_attention_ref`` emulate how the tensor-core kernels multiply a
-float32 operand (tests and ``chip_smoke.py`` only).  ``moe_dense_ref``
+float32 operand (tests and ``chip_smoke.py`` only).  Under the
+``prob_bf16`` perf flag the attention kernels' plain versions take p as
+one bf16 term for P.V (:func:`attention_prob_bf16_ref`, the reference's
+jnp route under that flag).  ``moe_dense_ref``
 is the oracle of the MoE block's route (the reference's ``_dense_path``),
 which has no kernel.
 """
@@ -28,7 +31,7 @@ __all__ = ["fused_step_update_ref", "fused_decision_ref", "tile_live",
            "dense_from_csc", "frontier_epilogue", "backward_epilogue",
            "frontier_step_ref", "backward_step_ref", "masked_product_tiled",
            "frontier_step_tiled_ref", "backward_step_tiled_ref",
-           "flash_attention_ref",
+           "flash_attention_ref", "attention_prob_bf16_ref",
            "flash_attention_dq_ref", "flash_attention_dkv_ref",
            "flash_attention_bwd_ref", "bf16_split3", "split_matmul",
            "ssd_scan_ref", "ssd_scan_chunked_ref", "ssd_scan_bwd_ref",
@@ -189,9 +192,44 @@ def _attention_mask(q_pos, k_pos, causal: bool, window):
     return mask
 
 
+def attention_prob_bf16_ref(q, k, v, *, causal: bool = True, window=None,
+                            q_offset: int = 0, kv_len=None, scale=None):
+    """``(o, lse)`` of the reference's jnp attention route under the
+    ``prob_bf16`` flag (``_attention_jnp_blocked``) for bf16 operands, in
+    one piece: q scale rounded to bf16; scores, the row max m, ``p =
+    exp(s - m)`` (0 where masked) and ``l = sum p`` in float32; P.V from
+    p rounded to bf16 (to nearest) with float32 sums; then ``o / l``.
+    Shapes and masks as :func:`flash_attention_ref`, ``kv_len`` (B,) as
+    :func:`attention_ref`; ``o`` in q's dtype (0 on a row with no live
+    key), ``lse = m + log(max(l, 1e-30))`` (B, Hq, Sq, 1) float32.  Under
+    autograd the two casts pass the gradient straight through, as jax's
+    VJP of ``astype`` does: ds from float32 p, dv from bf16 p."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qs = (q.float() * scale).bfloat16().float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    k_pos = torch.arange(skv, device=q.device)
+    mask = _attention_mask(q_pos, k_pos, causal, window).expand(
+        b, hq, sq, skv)
+    if kv_len is not None:
+        kl = torch.as_tensor(kv_len, device=q.device).reshape(b, 1, 1, 1)
+        mask = mask & (k_pos < kl)
+    s = torch.where(mask, qs @ kf.transpose(-1, -2), NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    o = (p.bfloat16().float() @ vf) / torch.where(l == 0.0, 1.0, l)
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    return o.to(q.dtype), lse
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
                         q_offset: int = 0, scale=None, block_k: int = 64,
-                        p_terms=None):
+                        p_terms=None, prob_bf16: bool = False):
     """``(o, lse)`` of the flash-attention forward: float32 online softmax
     over kv tiles of ``block_k`` keys, masked with -1e30.
 
@@ -201,7 +239,12 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
     ``lse`` (B, Hq, Sq, 1) float32, ``m + log(max(l, 1e-30))``.
     ``p_terms`` (3 or 1) multiplies p by V as that many bf16 terms (see
     :func:`split_matmul`); None, the plain version, in float32.
+    ``prob_bf16`` with bf16 operands: :func:`attention_prob_bf16_ref`
+    (float32 operands ignore it, as in the reference).
     """
+    if prob_bf16 and q.dtype == torch.bfloat16:
+        return attention_prob_bf16_ref(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset, scale=scale)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -271,10 +314,13 @@ def flash_attention_dq_ref(q, k, v, do, lse, dsum, *, causal: bool = True,
 
 def flash_attention_dkv_ref(q, k, v, do, lse, dsum, *, causal: bool = True,
                             window=None, q_offset: int = 0, scale=None,
-                            block_k: int = 64):
+                            block_k: int = 64, prob_bf16: bool = False):
     """Plain version of the dk/dv kernel: per q head, ``dk = ds^T Q
     scale`` and ``dv = p^T dO``, each (B, Hq, Skv, D) float32 (the caller
-    sums them over each kv group)."""
+    sums them over each kv group).  ``prob_bf16`` with bf16 operands: dv
+    from p rounded to bf16 (to nearest), ds from float32 p, as the
+    kernel's variant for the flag computes them."""
+    cast = prob_bf16 and q.dtype == torch.bfloat16
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     b, hq, _, d = q.shape
     shape = (b, hq, k.shape[2], d)
@@ -285,13 +331,15 @@ def flash_attention_dkv_ref(q, k, v, do, lse, dsum, *, causal: bool = True,
                                         window, q_offset, scale, block_k):
         n = kt.shape[2]
         dkh[:, :, k0:k0 + n] = (ds.transpose(-1, -2) @ qf) * scale
+        if cast:
+            p = p.bfloat16().float()
         dvh[:, :, k0:k0 + n] = p.transpose(-1, -2) @ dof
     return dkh, dvh
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
                             window=None, q_offset: int = 0, scale=None,
-                            block_k: int = 64):
+                            block_k: int = 64, prob_bf16: bool = False):
     """``(dq, dk, dv)`` of the flash-attention backward, the recompute
     scheme of the reference's ``_bwd_impl``: ``D = rowsum(dO o)``, then
     :func:`flash_attention_dq_ref` and :func:`flash_attention_dkv_ref`,
@@ -308,7 +356,8 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
               block_k=block_k)
     dsum = (do.float() * o.float()).sum(-1, keepdim=True)
     dq = flash_attention_dq_ref(q, k, v, do, lse, dsum, **kw)
-    dkh, dvh = flash_attention_dkv_ref(q, k, v, do, lse, dsum, **kw)
+    dkh, dvh = flash_attention_dkv_ref(q, k, v, do, lse, dsum,
+                                       prob_bf16=prob_bf16, **kw)
     dk = dkh.view(b, hkv, hq // hkv, skv, d).sum(2).to(k.dtype)
     dv = dvh.view(b, hkv, hq // hkv, skv, d).sum(2).to(v.dtype)
     return dq, dk, dv

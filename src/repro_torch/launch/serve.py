@@ -13,7 +13,11 @@ embeddings, as the reference's launcher serves it; an encoder arch
 not make: serve it through ``Engine.run(memory=...)``.  The time is the ``obs.timed("serve.run")``
 span around ``Engine.run``, which closes only after the card has
 finished (``Span.sync`` on the device); the kernels are built before
-it.  Under a tracing session the span is recorded.
+it.  Under a tracing session the span is recorded.  ``REPRO_PERF``
+(:mod:`repro_torch.perf`) applies, e.g. ``REPRO_PERF=prob_bf16`` (bf16
+probabilities in every prefill and MLA decode) or ``ssd_chunk=128``, and
+a run whose flags differ from the defaults prints them on one line
+first.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from .. import obs
 from .._device import resolve_device
 from ..configs import ARCHS, get_arch
 from ..models import build
+from ..perf import non_default
 from ..serve.engine import Engine, ServeConfig
 
 __all__ = ["main", "serve"]
@@ -45,6 +50,8 @@ def serve(arch: str, *, full: bool = False, requests: int = 8,
             f"embeddings), which this launcher does not make; serve it "
             f"through Engine.run(memory=...)")
     device = resolve_device(device)
+    if non_default():
+        print(f"[serve] REPRO_PERF flags: {non_default()}")
     params = build(cfg).init(seed, device)
     eng = Engine(cfg, params, ServeConfig(max_batch=max_batch,
                                           max_len=max_len), device=device)

@@ -18,7 +18,15 @@ in ``--ckpt-dir``; running again resumes exactly (the step, the data
 and the weights' seed are functions of the saved step).  The learning
 rate follows the reference launcher's cosine schedule (warmup
 ``min(20, steps // 10 + 1)``).  The kernels are built before the first
-step.
+step.  ``REPRO_PERF`` (:mod:`repro_torch.perf`) applies, e.g.
+
+  REPRO_PERF=prob_bf16,microbatch=2 PYTHONPATH=src \
+      python -m repro_torch.launch.train --arch granite-moe-3b-a800m \
+      --seq 2048 --batch 2 --steps 20
+
+and a run whose flags differ from the defaults prints them on one line
+first.  On one card ``prob_bf16``, ``ssd_chunk`` and ``microbatch``
+change the computation; the mesh flags change nothing.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from .._device import resolve_device
 from ..configs import ARCHS, get_arch
 from ..data import DataConfig
 from ..optim import AdamWConfig, cosine_schedule
+from ..perf import non_default
 from ..train.train_step import TrainStepConfig
 from ..train.trainer import DEFAULT_CKPT_DIR, Trainer, TrainerConfig
 
@@ -54,6 +63,8 @@ def train(arch: str, *, reduced: bool = False, steps: int = 200,
             f"with DataConfig(memory_tokens=seq // "
             f"{cfg.encoder.frame_ratio}, d_model={cfg.d_model})")
     device = resolve_device(device)
+    if non_default():
+        print(f"[train] REPRO_PERF flags: {non_default()}")
     data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
                       memory_tokens=(cfg.vision.n_image_tokens
                                      if cfg.vision else 0),

@@ -26,6 +26,8 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
+from ..kernels.ref import attention_prob_bf16_ref
+from ..perf import flags
 
 __all__ = ["rms_norm", "rope", "rope_table", "apply_rope", "cast_weight",
            "gelu", "silu", "truncated_normal", "constant", "Attention", "MLA",
@@ -303,7 +305,10 @@ class MLA(nn.Module):
         the slots).  ``rope_tab``: the positions' :func:`rope_table` at
         qk_rope.  Prefill and training attend through the flash-attention
         kernel, the value head zero-padded to the q/k head; decode attends
-        the cache in plain torch, masked to ``kv_len = pos + 1``.  Returns
+        the cache in plain torch, masked to ``kv_len = pos + 1`` (under
+        the ``prob_bf16`` perf flag with bf16 operands as the reference's
+        jnp route attends then, :func:`~repro_torch.kernels.ref.
+        attention_prob_bf16_ref`).  Returns
         ``(y (B, S, M), cache)``, the cache None in training."""
         cfg, mla = self.cfg, self.cfg.mla
         b, s, _ = x.shape
@@ -329,11 +334,16 @@ class MLA(nn.Module):
             krope[rows, pos] = k_rope[:, 0, 0]
             new_cache = {"ckv": ckv, "krope": krope}
             k, v = self._expand(ckv, krope[:, None])
-            live = torch.arange(ckv.shape[1], device=x.device)[None, :] \
-                <= pos[:, None]
-            logits = (q.float() @ k.float().transpose(-1, -2)) * scale
-            logits = torch.where(live[:, None, None, :], logits, -1e30)
-            out = (torch.softmax(logits, dim=-1) @ v.float()).to(dt)
+            if flags().prob_bf16 and q.dtype == torch.bfloat16:
+                # the reference's jnp route with kv_len under the flag
+                out = attention_prob_bf16_ref(
+                    q, k, v, causal=False, kv_len=pos + 1, scale=scale)[0]
+            else:
+                live = torch.arange(ckv.shape[1],
+                                    device=x.device)[None, :] <= pos[:, None]
+                logits = (q.float() @ k.float().transpose(-1, -2)) * scale
+                logits = torch.where(live[:, None, None, :], logits, -1e30)
+                out = (torch.softmax(logits, dim=-1) @ v.float()).to(dt)
         elif mode in ("train", "prefill"):
             k, v = self._expand(c_kv, k_rope)
             out = ops.attention(q, k, v, causal=True, scale=scale)

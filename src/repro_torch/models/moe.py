@@ -18,6 +18,13 @@ order (no float atomics, so a repeated call gives the same bits).  The
 launches per layer are fixed and nothing is read back to the host.  The
 bins hold E/k times the routed rows; a dispatch sized by the real counts
 is later work.
+
+The block reads no perf flag.  The reference reads ``bf16_experts`` in
+``_expert_mlp_any`` (``repro/models/moe.py:90-107``), which only its
+scatter and all-to-all paths call (``:155``, ``:194``), and ``moe_3d``
+in the mesh dispatch (``:238``); with one device ``apply_moe`` runs
+``_dense_path`` (``:266-270``), so neither changes a bit there, and the
+port's bins already run in the activation dtype.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@
 Counterpart of ``repro/models/ssm.py``.  Prefill and training run the
 SSD through the chunked-scan kernel (:func:`repro_torch.kernels.ops.ssd`),
 which also returns the final state and is differentiable through its
-backward kernel; decode keeps ``{"conv": (B, d_conv - 1,
+backward kernel, at the chunk of the ``ssd_chunk`` perf flag where it
+is set (else the config's; the kernels raise above 256); decode keeps ``{"conv": (B, d_conv - 1,
 conv_dim), "state": (B, H, N, P)}`` and advances it one token in plain
 torch, O(1) per token.
 """
@@ -19,6 +20,7 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
+from ..perf import flags
 from .layers import cast_weight, constant, rms_norm, truncated_normal
 
 __all__ = ["SSDBlock", "ssd_block_cache_shape"]
@@ -125,7 +127,8 @@ class SSDBlock(nn.Module):
             # reference (its conv tail is not read there either)
             state_in = cache.get("state") if cache else None
             y, new_state = ops.ssd(xs, dt, self.a_log, bmat, cmat,
-                                   self.d_skip, chunk=ssm.chunk,
+                                   self.d_skip,
+                                   chunk=flags().ssd_chunk or ssm.chunk,
                                    state=state_in)
         new_cache = (None if mode == "train" else
                      {"conv": new_conv.contiguous(), "state": new_state})

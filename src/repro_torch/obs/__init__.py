@@ -25,10 +25,10 @@ package writes load in either ``report``.  Three faces:
 
 Everything is off by default: with no active session every helper
 returns a shared no-op singleton (one module-global read per call — no
-allocation, no branches in the caller, no device work).  The port has
-no perf flags yet and reads no ``REPRO_PERF`` variable:
-``obs.session()`` with ``mode=None`` means ``"none"``, and a mode is
-always chosen by the caller:
+allocation, no branches in the caller, no device work).  A session
+opened with no mode takes the ``obs`` perf flag (``REPRO_PERF=obs=none|
+metrics|trace``, :mod:`repro_torch.perf`; ``none`` by default), or the
+caller names one:
 
     from repro_torch import obs
     with obs.session(mode="trace") as sess:
@@ -80,10 +80,10 @@ def session(mode: str | None = None, registry: MetricsRegistry | None = None,
             series: bool | None = None, recorder=None, watchdog=None,
             stream=None):
     """Enter an observability session.  ``mode`` is ``metrics`` or
-    ``trace``; ``None`` (the port has no perf flag to resolve it from)
-    and ``none`` yield the inert :data:`NULL_SESSION` without installing
-    anything.  ``series`` forces per-step series capture on/off
-    (default: on only under ``trace``).
+    ``trace``; None resolves from the ``obs`` perf flag
+    (``REPRO_PERF=obs=none|metrics|trace``); ``none`` yields the inert
+    :data:`NULL_SESSION` without installing anything.  ``series`` forces
+    per-step series capture on/off (default: on only under ``trace``).
 
     ``recorder`` arms a :class:`FlightRecorder` ring buffer,
     ``watchdog`` a :class:`Watchdog` (bound to this session so its
@@ -91,6 +91,9 @@ def session(mode: str | None = None, registry: MetricsRegistry | None = None,
     ``stream`` opens live JSONL telemetry (an :class:`ObsStreamer` or a
     path string — a string is owned and closed on session exit).  The
     session leaves the stack on exit however the block ends."""
+    if mode is None:
+        from ..perf import flags
+        mode = flags().obs
     if mode in (None, "", "none", "off", False, 0):
         yield NULL_SESSION
         return

@@ -45,7 +45,7 @@ def placement_cases():
 
 
 def placement_one(g, mesh, axes, delta0, expect_packed=True, routing="ugal",
-                  engine: str | None = "auto", device=None):
+                  engine: str | None = None, device=None):
     """(rows, summary, max_rel_err) for one fabric.
 
     rows: one dict per (profile, strategy) with theta/u/alpha plus a

@@ -134,7 +134,11 @@ class SimState:
 
 def pick_backend(backend: str, work: int) -> str:
     """Resolve ``auto`` against the dense cell cap and validate explicit
-    choices."""
+    choices.  ``auto`` first defers to the ``sim_backend`` perf flag
+    (``REPRO_PERF=sim_backend=dense|fused``), as in the reference."""
+    if backend == "auto":
+        from ..perf import flags
+        backend = flags().sim_backend
     if backend not in BACKENDS:
         raise ValueError(f"unknown sim backend {backend!r}; options: "
                          f"{', '.join(BACKENDS)}")

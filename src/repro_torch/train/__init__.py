@@ -1,6 +1,7 @@
-"""Training of the port: the train step, atomic checkpoints and the
-fault-tolerant trainer (one device; the mesh, ZeRO-1 and elastic
-re-meshing belong to the multi-device slice)."""
+"""Training of the port: the train step (with the ``microbatch`` perf
+flag's gradient accumulation), atomic checkpoints and the fault-tolerant
+trainer, on one device; the mesh, ZeRO-1 and elastic re-meshing belong
+to the multi-device slice."""
 
 from .checkpoint import (CheckpointManager, latest_step, restore_checkpoint,
                          save_checkpoint)

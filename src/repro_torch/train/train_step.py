@@ -13,9 +13,16 @@ leaf, and the returned state holds the same tensors.  With
 ``donate=False`` it returns new tensors and leaves the old state as it
 was; both give the same bits.  Donation is what lets a 3.4B-parameter
 float32 state (params, gradients and two moments: 54 GB) train on one
-80 GB card, where a second params, m and v would not fit.  The mesh,
-``zero1`` and the ``REPRO_PERF`` microbatching belong to the
-multi-device slice: ``zero1=True`` raises.
+80 GB card, where a second params, m and v would not fit.
+
+The ``microbatch`` perf flag (``REPRO_PERF=microbatch=N``) accumulates
+gradients inside the step as the reference does: where N > 1 divides
+the batch, the batch splits into N microbatches of consecutive rows,
+and ``g_acc + g / N`` runs from zeros in microbatch order, leaf by leaf
+in place (one more set of gradients beside the state, not two), loss
+and metrics averaged the same way; otherwise the plain step runs.  It
+needs no mesh.  The mesh and ``zero1`` belong to the multi-device
+slice: ``zero1=True`` raises.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from ..configs.base import ArchConfig
 from ..models import Model, build
 from ..optim import (AdamWConfig, AdamWState, adamw_init, adamw_update,
                      adamw_update_, ef_compress_grads, ef_init)
+from ..perf import flags
 
 __all__ = ["TrainStepConfig", "init_train_state", "train_state_from_model",
            "make_train_step"]
@@ -111,15 +119,43 @@ def make_train_step(cfg: ArchConfig, device=None,
     model = Model(cfg, device="meta")      # weights bound at every step
     opt_cfg = _opt_cfg(cfg, ts)
 
-    def step_fn(state, batch):
-        params = _bind(model, state["params"])
-        loss, metrics = bundle.loss(model, _device_batch(batch, device))
+    def value_and_grad(params, batch):
+        loss, metrics = bundle.loss(model, batch)
         names = list(params)
         # a weight the loss never reads (a MoE's shared-expert norm, which
         # the reference carries unused too) gets a zero gradient
         grads = dict(zip(names, torch.autograd.grad(
             loss, [params[n] for n in names], allow_unused=True,
             materialize_grads=True)))
+        return loss.detach(), {k: v.detach() for k, v in
+                               metrics.items()}, grads
+
+    def accumulated(params, batch, mb: int):
+        """The reference's microbatch scan: sums of ``x / mb`` from
+        zeros, in microbatch order."""
+        g_acc = {n: torch.zeros_like(p) for n, p in params.items()}
+        loss_acc, m_acc = None, None
+        for part in zip(*(t.chunk(mb) for t in batch.values())):
+            loss, metrics, grads = value_and_grad(
+                params, dict(zip(batch, part)))
+            for n in list(grads):
+                g_acc[n].add_(grads.pop(n) / mb)
+            if loss_acc is None:
+                loss_acc = torch.zeros_like(loss)
+                m_acc = {k: torch.zeros_like(v) for k, v in metrics.items()}
+            loss_acc += loss / mb
+            for k, v in metrics.items():
+                m_acc[k] += v / mb
+        return loss_acc, m_acc, g_acc
+
+    def step_fn(state, batch):
+        params = _bind(model, state["params"])
+        batch = _device_batch(batch, device)
+        mb = int(flags().microbatch)
+        if mb > 1 and batch["tokens"].shape[0] % mb == 0:
+            loss, metrics, grads = accumulated(params, batch, mb)
+        else:
+            loss, metrics, grads = value_and_grad(params, batch)
         if ts.grad_compress:
             grads, new_ef = ef_compress_grads(grads, state["ef"])
         opt = AdamWState(state["opt"]["m"], state["opt"]["v"],
@@ -141,9 +177,7 @@ def make_train_step(cfg: ArchConfig, device=None,
                      "step": step}
         if ts.grad_compress:
             new_state["ef"] = new_ef
-        metrics = {"loss": loss.detach(),
-                   **{k: v.detach() for k, v in metrics.items()},
-                   **opt_metrics}
+        metrics = {"loss": loss, **metrics, **opt_metrics}
         return new_state, metrics
 
     return step_fn

@@ -65,7 +65,8 @@ def test_port_imports_neither_jax_nor_repro():
                 "repro_torch.placement_tables", "repro_torch.obs",
                 "repro_torch.obs.metrics", "repro_torch.obs.trace",
                 "repro_torch.obs.recorder", "repro_torch.obs.watchdog",
-                "repro_torch.obs.export", "repro_torch.obs.report"}
+                "repro_torch.obs.export", "repro_torch.obs.report",
+                "repro_torch.perf"}
     assert expected <= set(res["modules"])
 
 

@@ -262,12 +262,14 @@ def test_backend_rule_and_validation():
 # hypothesis saved when it failed (seed 20, offered 1.0, buffer 2.0): the
 # reference's residual 1.25e-8 there against that test's 1e-12.  The
 # fifth is another such saved failing draw (seed 36, offered 1.30078125,
-# buffer 2.0).
+# buffer 2.0), and the sixth one more, drawn afresh (seed 235, offered
+# 3.0, buffer 2.0: the reference's residual is NaN there).
 CONSERVATION_CASES = [("random_permutation(913171518)", 2.9855),
                       ("random_permutation(266896303)", 1.9592),
                       ("random_permutation(689)", 1.0),
                       ("random_permutation(20)", 1.0),
-                      ("random_permutation(36)", 1.30078125)]
+                      ("random_permutation(36)", 1.30078125),
+                      ("random_permutation(235)", 3.0)]
 
 
 @pytest.mark.parametrize("backend,ref_backend", [("dense", "numpy"),
