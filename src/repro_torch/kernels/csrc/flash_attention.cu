@@ -65,7 +65,20 @@
 // Masking follows the reference: masked entries get p = 0; m starts at
 // -1e30, so a row with no live key gets l = 0, o = 0 and lse = -1e30 +
 // log(1e-30); o = acc / l, lse = m + log(max(l, 1e-30)).  Head sizes 32,
-// 64 and 128; the Python wrapper zero-pads smaller ones.
+// 64, 128 and 256; the Python wrapper zero-pads the others up to the next.
+// At D = 256 (recurrentgemma-9b; deepseek-v3's MLA 192, padded) acc is 128
+// registers a thread and s 32 more, so the three bf16 terms of p are
+// formed one 16-key slice at a time (12 registers), each slice's while
+// the previous slice's products run, in place of the whole tile's 48.
+// Shared memory is 164,880 B there (Q and two stages of K and V, 32 KB
+// each), so one block of one warpgroup holds an SM and no other block's
+// softmax fills the tensor cores' gaps: at a recurrentgemma serve layer
+// (B 1, 16 q heads, S 1536) it took 3.1-3.7x its bound and 2.5x SDPA's
+// (cuDNN) forward, at deepseek's MLA layer 5.5x its bound at the caller's
+// widths (the padding alone is 1.78x the products) and 5.3x SDPA's
+// (chip_smoke.py phase 28, H100 80GB HBM3 at 700 W).  ptxas keeps it at
+// 255 registers with 112 bytes of stack.  Two consumer warpgroups sharing
+// each K / V stage over 128 q rows is the redesign.
 
 #include "wgmma.cuh"
 
@@ -225,24 +238,50 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // acc += p v: p from registers in three bf16 terms (PB: one, p
     // rounded to nearest), v transposed
     constexpr int kParts = PB ? 1 : 3;
-    uint32_t f[kParts][4][4];
-    if constexpr (PB)
-      round_frags<64>(s, f);
-    else
-      split_frags<64>(s, f);
-    wg_fence();
+    if constexpr (D == 256) {
+      // acc holds 128 registers a thread: the terms of one 16-key slice
+      // at a time, formed while the previous slice's products run
+      uint32_t f[4][kParts][4];
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc)
+      for (int kc = 0; kc < 4; ++kc) {
+        fence_slice(s, kc);  // not hoisted above the previous slice
+        slice_frags<PB>(s, kc, f[kc]);
+        wg_fence();
 #pragma unroll
-      for (int part = 0; part < kParts; ++part)
+        for (int part = 0; part < kParts; ++part)
 #pragma unroll
-        for (int b = 0; b < NB; ++b)
-          mma_rs(acc[b], f[part][kc], desc_mn<D, kBM>(s_v(st), kc, b));
-    wg_commit();
-    wg_wait();
+          for (int b = 0; b < NB; ++b)
+            mma_rs(acc[b], f[kc][part], desc_mn<D, kBM>(s_v(st), kc, b));
+        wg_commit();
+        if (kc > 0) {
+          wg_wait<1>();  // slice kc - 1 is done with its terms
+          fence_frags(f[kc - 1]);
+        }
+      }
+      wg_wait();
 #pragma unroll
-    for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
-    fence_frags(f);
+      for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
+      fence_frags(f[3]);
+    } else {
+      uint32_t f[kParts][4][4];
+      if constexpr (PB)
+        round_frags<64>(s, f);
+      else
+        split_frags<64>(s, f);
+      wg_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+        for (int part = 0; part < kParts; ++part)
+#pragma unroll
+          for (int b = 0; b < NB; ++b)
+            mma_rs(acc[b], f[part][kc], desc_mn<D, kBM>(s_v(st), kc, b));
+      wg_commit();
+      wg_wait();
+#pragma unroll
+      for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
+      fence_frags(f);
+    }
   }
 
 #pragma unroll
@@ -295,6 +334,9 @@ cudaError_t dispatch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
     case 128:
       return launch<128, PB>(q, k, v, o, lse, b, hq, hkv, sq, skv, causal,
                              window, q_offset, scale, stream);
+    case 256:
+      return launch<256, PB>(q, k, v, o, lse, b, hq, hkv, sq, skv, causal,
+                             window, q_offset, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -304,7 +346,8 @@ cudaError_t dispatch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 
 // q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), o like q, contiguous
 // bfloat16, rows 16-byte aligned; lse (B, Hq, Sq) float32.  window <= 0
-// means none.  D in {32, 64, 128}.  prob_bf16 != 0: the flag's variant.
+// means none.  D in {32, 64, 128, 256}.  prob_bf16 != 0: the flag's
+// variant.
 cudaError_t flash_attention_fwd(const void* q, const void* k, const void* v,
                                 void* o, float* lse, int b, int hq, int hkv,
                                 int sq, int skv, int d, int causal,

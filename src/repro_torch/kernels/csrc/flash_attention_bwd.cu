@@ -86,7 +86,20 @@
 // exp(-1e30 - lse) there, which is 1 on a row with no live key (its lse
 // is -1e30) and gives that row a spurious gradient; a row that sees at
 // least one key (every row of causal training) gets the same p in both.
-// Head sizes 32, 64 and 128; the Python wrapper zero-pads smaller ones.
+// Head sizes 32, 64, 128 and 256; the Python wrapper zero-pads the others
+// up to the next.  At D = 256 one 64-row tile of dq is 128 registers a
+// thread, and dk and dv of 64 keys would be 256, so:
+//   * #6 walks 32-key tiles (KN; 64 at the smaller heads): S and dP are
+//     16 registers each beside dq's 128; Q and dO stay resident (64 KB),
+//     K and V come in two stages of 32 KB;
+//   * #7 splits the head's columns in two (NH blocks a key tile): each
+//     block keeps dk and dv of 64 keys x 128 columns (128 registers, as at
+//     D = 128), reads K and V whole, since S^T = K Q^T and dP^T = V dO^T
+//     reduce over all 256 columns, and walks 32-row q tiles.  So S^T and
+//     dP^T are formed once per half: 1.25x the tensor-core work that the
+//     bound counts (2 products once + 2 three times = 8 units; the kernel
+//     does 10).  Still one launch, no atomics: a step repeats bit for bit.
+// One block holds an SM at D = 256 (about 132 KB of shared memory).
 
 #include "wgmma.cuh"
 
@@ -97,12 +110,18 @@ constexpr int kBM = 64;        // #6: q rows and keys a tile; #7: keys
 constexpr int kStages = 2;     // depth of the ring
 
 // ---------------------------------------------------------------------
-// #6: dq.  Shared memory: Q, dO (64 x D), then per stage K, V (64 x D),
+// #6: dq.  Shared memory: Q, dO (64 x D), then per stage K, V (KN x D),
 // then one mbarrier per stage; 1024 bytes of slack align the tiles.
 
 template <int D>
+__host__ __device__ constexpr int dq_keys() {
+  return D == 256 ? 32 : 64;  // KN: dq alone is 128 registers at D = 256
+}
+
+template <int D>
 __host__ __device__ constexpr int dq_smem_bytes() {
-  return 1024 + (2 + 2 * kStages) * kBM * D * 2 + 8 * kStages;
+  return 1024 + 2 * kBM * D * 2 + 2 * kStages * dq_keys<D>() * D * 2 +
+         8 * kStages;
 }
 
 template <int D>
@@ -114,14 +133,15 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 int hq, int hkv, int sq, int skv, int causal, int window,
                 int q_offset, float scale, int n_qtiles) {
   using G = Swz<D>;
-  constexpr int kTile = kBM * D * 2;
+  constexpr int KN = dq_keys<D>();  // keys a kv tile
+  constexpr int kTile = kBM * D * 2, kTileK = KN * D * 2;
   constexpr int NB = G::kBlocks, NC = G::kCols;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t s_q = base, s_do = base + kTile;
-  const uint32_t bars = base + (2 + 2 * kStages) * kTile;
-  auto s_k = [&](int st) { return base + (2 + 2 * st) * kTile; };
-  auto s_v = [&](int st) { return base + (3 + 2 * st) * kTile; };
+  const uint32_t bars = base + 2 * kTile + 2 * kStages * kTileK;
+  auto s_k = [&](int st) { return base + 2 * kTile + 2 * st * kTileK; };
+  auto s_v = [&](int st) { return s_k(st) + kTileK; };
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -138,10 +158,9 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q_first = q_offset + q0;
   const int q_last = q_first + kBM - 1;
   const int k_end = causal ? min(skv, q_last + 1) : skv;
-  const int k_begin =
-      window > 0 ? max(0, q_first - window + 1) / kBM * kBM : 0;
-  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBM - 1) / kBM
-                                      : 0;
+  const int k_begin = window > 0 ? max(0, q_first - window + 1) / KN * KN
+                                 : 0;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + KN - 1) / KN : 0;
 
   if (tid == 0) {
     for (int st = 0; st < kStages; ++st) mbar_init(bars + 8 * st, kThreads);
@@ -153,8 +172,8 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_tile<D, kBM>(s_do, dout + q_head * D, q0, sq, tid);
   }
   for (int t = 0; t < kStages - 1 && t < n_tiles; ++t) {
-    load_tile<D, kBM>(s_k(t), kp, k_begin + t * kBM, skv, tid);
-    load_tile<D, kBM>(s_v(t), vp, k_begin + t * kBM, skv, tid);
+    load_tile<D, KN>(s_k(t), kp, k_begin + t * KN, skv, tid);
+    load_tile<D, KN>(s_v(t), vp, k_begin + t * KN, skv, tid);
     cp_async_arrive(bars + 8 * t);
   }
 
@@ -176,29 +195,29 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int c = 0; c < NC / 2; ++c) acc[b][c] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = k_begin + it * kBM;
+    const int k0 = k_begin + it * KN;
     const int st = it % kStages;
     if (it + kStages - 1 < n_tiles) {
       __syncthreads();  // every warp is done with the stage refilled here
       const int nx = (it + kStages - 1) % kStages;
-      const int kn = k0 + (kStages - 1) * kBM;
-      load_tile<D, kBM>(s_k(nx), kp, kn, skv, tid);
-      load_tile<D, kBM>(s_v(nx), vp, kn, skv, tid);
+      const int kn = k0 + (kStages - 1) * KN;
+      load_tile<D, KN>(s_k(nx), kp, kn, skv, tid);
+      load_tile<D, KN>(s_v(nx), vp, kn, skv, tid);
       cp_async_arrive(bars + 8 * nx);
     }
     mbar_wait(bars + 8 * st, (it / kStages) & 1);
     fence_proxy_async();
 
-    // s = q k^T and dp = dO v^T: rows of the q tile, the tile's 64 keys
-    float s[32], dp[32];  // the first product overwrites them
+    // s = q k^T and dp = dO v^T: rows of the q tile, the tile's KN keys
+    float s[KN / 2], dp[KN / 2];  // the first product overwrites them
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss(s, desc_k<D, kBM>(s_q, kk), desc_k<D, kBM>(s_k(st), kk), kk);
+      mma_ss(s, desc_k<D, kBM>(s_q, kk), desc_k<D, KN>(s_k(st), kk), kk);
     wg_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss(dp, desc_k<D, kBM>(s_do, kk), desc_k<D, kBM>(s_v(st), kk),
+      mma_ss(dp, desc_k<D, kBM>(s_do, kk), desc_k<D, KN>(s_v(st), kk),
              kk);
     wg_commit();
     fence_regs(dp);
@@ -207,11 +226,11 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // p on live entries, else 0, in place of s; the mask only where the
     // diagonal, the window edge or the end of the keys crosses the tile
-    const bool edge = k0 + kBM > skv || (causal && q_first < k0 + kBM - 1) ||
+    const bool edge = k0 + KN > skv || (causal && q_first < k0 + KN - 1) ||
                       (window > 0 && k0 <= q_last - window);
     if (edge) {
 #pragma unroll
-      for (int at = 0; at < 32; ++at) {  // at = 4 n8 + 2 i + j
+      for (int at = 0; at < KN / 2; ++at) {  // at = 4 n8 + 2 i + j
         const int i = at / 2 % 2;
         s[at] = live(q_first + r_lo + 8 * i,
                      k0 + 8 * (at / 4) + 2 * (lane % 4) + at % 2, skv,
@@ -221,27 +240,27 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     } else {
 #pragma unroll
-      for (int at = 0; at < 32; ++at)
+      for (int at = 0; at < KN / 2; ++at)
         s[at] = exp_p(fmaf(s[at], scale2, -row_lse[at / 2 % 2]));
     }
     wg_wait();
     fence_regs(dp);
     // ds = p (dp - D) in place of dp
 #pragma unroll
-    for (int at = 0; at < 32; ++at)
+    for (int at = 0; at < KN / 2; ++at)
       dp[at] = s[at] * (dp[at] - row_d[at / 2 % 2]);
 
     // dq += ds k: ds from registers in three bf16 terms, k transposed
-    uint32_t f[3][4][4];
-    split_frags<64>(dp, f);
+    uint32_t f[3][KN / 16][4];
+    split_frags<KN>(dp, f);
     wg_fence();
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc)
+    for (int kc = 0; kc < KN / 16; ++kc)
 #pragma unroll
       for (int part = 0; part < 3; ++part)
 #pragma unroll
         for (int b = 0; b < NB; ++b)
-          mma_rs(acc[b], f[part][kc], desc_mn<D, kBM>(s_k(st), kc, b));
+          mma_rs(acc[b], f[part][kc], desc_mn<D, KN>(s_k(st), kc, b));
     wg_commit();
     wg_wait();
 #pragma unroll
@@ -267,11 +286,18 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------
 // #7: dk, dv per q head.  Shared memory: K, V (64 x D), then per stage Q,
 // dO (NQ x D), then per stage lse, dsum (NQ floats each), then one
-// mbarrier per stage.
+// mbarrier per stage.  At D = 256 a block holds dk and dv of one half of
+// the head's columns (NH = 2 blocks a key tile, blockIdx.y = NH x q head
+// + half): 64 keys x 256 columns of both would be 256 registers a thread.
 
 template <int D>
 __host__ __device__ constexpr int dkv_rows() {
-  return D == 128 ? 32 : 64;  // NQ: 64 rows spill registers at D = 128
+  return D >= 128 ? 32 : 64;  // NQ: 64 rows spill registers at D = 128
+}
+
+template <int D>
+__host__ __device__ constexpr int dkv_parts() {
+  return D == 256 ? 2 : 1;  // NH: column halves of dk and dv
 }
 
 template <int D>
@@ -291,8 +317,10 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  int causal, int window, int q_offset, float scale) {
   using G = Swz<D>;
   constexpr int NQ = dkv_rows<D>();  // q rows a step
+  constexpr int NH = dkv_parts<D>();
   constexpr int kTileK = kBM * D * 2, kTileQ = NQ * D * 2;
-  constexpr int NB = G::kBlocks, NC = G::kCols;
+  // NB: the column blocks of dk and dv that this block holds
+  constexpr int NB = G::kBlocks / NH, NC = G::kCols;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -306,7 +334,8 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int k0 = blockIdx.x * kBM;  // under a causal mask the first key
-  const int ih = blockIdx.y;        // tiles see the most rows: first out
+  const int ih = blockIdx.y / NH;   // tiles see the most rows: first out
+  const int c0 = blockIdx.y % NH * NB;  // this block's first column block
   const int ib = blockIdx.z;
   const int ikv = ih / (hq / hkv);
   const int64_t q_head = (static_cast<int64_t>(ib) * hq + ih) * sq;
@@ -436,7 +465,8 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int part = 0; part < kParts; ++part)
 #pragma unroll
         for (int b = 0; b < NB; ++b)
-          mma_rs(dv_acc[b], fp[part][kc], desc_mn<D, NQ>(s_do(st), kc, b));
+          mma_rs(dv_acc[b], fp[part][kc],
+                 desc_mn<D, NQ>(s_do(st), kc, c0 + b));
     wg_commit();
 #pragma unroll
     for (int b = 0; b < NB; ++b) fence_regs(dv_acc[b]);
@@ -462,7 +492,8 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int part = 0; part < 3; ++part)
 #pragma unroll
         for (int b = 0; b < NB; ++b)
-          mma_rs(dk_acc[b], fs[part][kc], desc_mn<D, NQ>(s_q(st), kc, b));
+          mma_rs(dk_acc[b], fs[part][kc],
+                 desc_mn<D, NQ>(s_q(st), kc, c0 + b));
     wg_commit();
     wg_wait();
 #pragma unroll
@@ -480,7 +511,7 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int key = key_lo + 8 * i;
     if (key >= skv) continue;
-    const int64_t at = (out_head + key) * D + 2 * (lane % 4);
+    const int64_t at = (out_head + key) * D + c0 * NC + 2 * (lane % 4);
 #pragma unroll
     for (int b = 0; b < NB; ++b)
 #pragma unroll
@@ -528,7 +559,7 @@ cudaError_t launch_dkv(const Args& a, float* dk, float* dv) {
       flash_dkv_kernel<D, PB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.skv + kBM - 1) / kBM, a.hq, a.b);
+  const dim3 grid((a.skv + kBM - 1) / kBM, a.hq * dkv_parts<D>(), a.b);
   flash_dkv_kernel<D, PB><<<grid, kThreads, bytes, a.stream>>>(
       a.q, a.k, a.v, a.dout, a.lse, a.dsum, dk, dv, a.hq, a.hkv, a.sq,
       a.skv, a.causal, a.window, a.q_offset, a.scale);
@@ -544,6 +575,8 @@ cudaError_t dispatch_dkv(const Args& a, int d, float* dk, float* dv) {
       return launch_dkv<64, PB>(a, dk, dv);
     case 128:
       return launch_dkv<128, PB>(a, dk, dv);
+    case 256:
+      return launch_dkv<256, PB>(a, dk, dv);
     default:
       return cudaErrorInvalidValue;
   }
@@ -557,7 +590,7 @@ bool valid(int b, int hq, int hkv, int sq, int skv) {
 
 // q, dout (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D), contiguous bfloat16,
 // rows 16-byte aligned; lse and dsum (B, Hq, Sq) float32; dq like q.
-// window <= 0 means none.  D in {32, 64, 128}.
+// window <= 0 means none.  D in {32, 64, 128, 256}.
 cudaError_t flash_attention_dq(const void* q, const void* k, const void* v,
                                const void* dout, const float* lse,
                                const float* dsum, void* dq, int b, int hq,
@@ -577,6 +610,8 @@ cudaError_t flash_attention_dq(const void* q, const void* k, const void* v,
       return launch_dq<64>(a, out);
     case 128:
       return launch_dq<128>(a, out);
+    case 256:
+      return launch_dq<256>(a, out);
     default:
       return cudaErrorInvalidValue;
   }

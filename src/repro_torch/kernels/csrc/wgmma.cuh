@@ -13,7 +13,8 @@
 //   * split3 / split_frags: the exact three-way bf16 split of a float32
 //     operand, so that three bf16 products give the float32 product;
 //     round_frags and scale_tile: the single bf16 roundings of the
-//     prob_bf16 variants of #5 and #7;
+//     prob_bf16 variants of #5 and #7; slice_frags, either of one 16-column
+//     slice (#5 at D = 256);
 //   * exp_p, the special-function unit's ex2;
 //   * the SSD kernels' in-chunk float64 cumsum and their split stores.
 
@@ -357,6 +358,41 @@ __device__ __forceinline__ void fence_frags(uint32_t (&f)[P][M][4]) {
   for (int p = 0; p < P; ++p)
 #pragma unroll
     for (int kc = 0; kc < M; ++kc) fence_regs(f[p][kc]);
+}
+template <int P>
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[P][4]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) fence_regs(f[p]);
+}
+
+// The wgmma A fragment of columns 16 kc .. 16 kc + 15 of an m64nN
+// accumulator tile x alone: its three bf16 terms (f[0], f[1], f[2], as
+// split_frags), or with Round one term, x rounded to nearest (f[0], as
+// round_frags).  #5 at D = 256 forms one slice at a time: its
+// accumulator leaves no room for the whole tile's terms.
+template <bool Round, int P, int H>
+__device__ __forceinline__ void slice_frags(const float (&x)[H], int kc,
+                                            uint32_t (&f)[P][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int at = 4 * (2 * kc + (r >> 1)) + 2 * (r & 1);
+    if constexpr (Round)
+      f[0][r] = round2(x[at], x[at + 1]);
+    else
+      split3(x[at], x[at + 1], f[0][r], f[1][r], f[2][r]);
+  }
+}
+
+// The eight entries of x that slice_frags(x, kc) reads pass through an
+// empty asm: the compiler does not form that slice's terms ahead of
+// the wgmma issued before this point.
+template <int H>
+__device__ __forceinline__ void fence_slice(float (&x)[H], int kc) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int at = 4 * (2 * kc + (r >> 1)) + 2 * (r & 1);
+    asm volatile("" : "+f"(x[at]), "+f"(x[at + 1])::"memory");
+  }
 }
 
 // Rounds the R x D bf16 tile at shared address `tile` (`raw` the shared

@@ -26,7 +26,13 @@ step.  ``REPRO_PERF`` (:mod:`repro_torch.perf`) applies, e.g.
 
 and a run whose flags differ from the defaults prints them on one line
 first.  On one card ``prob_bf16``, ``ssd_chunk`` and ``microbatch``
-change the computation; the mesh flags change nothing.
+change the computation; the mesh flags change nothing.  ``--n-layers``
+cuts the depth and keeps the width: recurrentgemma-9b's 38 layers need
+167 GB of train state; its first 3 (one rglru, rglru, attn group) need
+44 GB, and train on one 80 GB card:
+
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch recurrentgemma-9b --n-layers 3 --seq 4096 --batch 1 --steps 4
 """
 
 from __future__ import annotations
@@ -48,14 +54,17 @@ def train(arch: str, *, reduced: bool = False, steps: int = 200,
           seq: int = 128, batch: int = 4, lr: float = 1e-3,
           ckpt_dir: str = str(DEFAULT_CKPT_DIR), ckpt_every: int = 100,
           grad_compress: bool = False, seed: int = 0, log_every: int = 10,
-          device=None, fault_hook=None):
+          device=None, fault_hook=None, n_layers=None):
     """Build the trainer and run it to ``steps``; returns ``(trainer,
     state)``.  The published config of ``arch``, or its ``reduced()``
-    variant with ``reduced=True``.  A vision arch trains with
+    variant with ``reduced=True``, cut to ``n_layers`` layers where
+    given.  A vision arch trains with
     ``n_image_tokens`` stub image embeddings a sequence, as the
     reference's launcher gives it.  An encoder arch raises
     ``ValueError``: its frame count is a choice of the caller's."""
     cfg = get_arch(arch).reduced() if reduced else get_arch(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=int(n_layers))
     if cfg.encoder is not None:
         raise ValueError(
             f"{arch}: the encoder's stub frontend needs frame embeddings, "
@@ -97,6 +106,9 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the config to this many layers (its width "
+                         "unchanged)")
     ap.add_argument("--ckpt-dir", default=str(DEFAULT_CKPT_DIR))
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--grad-compress", action="store_true",
@@ -109,7 +121,7 @@ def main(argv=None):
         args.arch, reduced=args.reduced, steps=args.steps, seq=args.seq,
         batch=args.batch, lr=args.lr, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, grad_compress=args.grad_compress,
-        seed=args.seed, device=args.device)
+        seed=args.seed, device=args.device, n_layers=args.n_layers)
     hist = trainer.history
     if hist:
         ms = sorted(h.seconds for h in hist)[len(hist) // 2] * 1e3

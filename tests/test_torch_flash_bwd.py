@@ -271,8 +271,9 @@ def test_cuda_backward_kernels_match_plain_versions(dtype):
     their plain versions over the cases above, ragged lengths that are
     no multiple of the kernels' 64-row and 64-key tiles, a q_offset,
     window edges inside a tile, groups of 1, 3 and 8 q heads per kv
-    head, a padded head and smollm's shape at S = 1000; bf16 runs the
-    tensor-core kernels, float32 the CUDA-core ones.  Both sides compute
+    head, a padded head, heads of 256 (and 192, padded to 256) and
+    smollm's shape at S = 1000; bf16 runs the tensor-core kernels,
+    float32 the CUDA-core ones, which raise above a head of 128.  Both sides compute
     in float32 from the same inputs: float32 at 2e-5; bf16 dq within one
     bf16 rounding (atol 1e-4, rtol 2^-7); dk, dv are float32 per q head
     on both sides (atol 2e-4 + rtol 2e-5 from longer sums).  Over all
@@ -292,7 +293,10 @@ def test_cuda_backward_kernels_match_plain_versions(dtype):
         (1, 3, 3, 97, 150, 64, True, 37, 53),        # group 1
         (1, 8, 1, 200, 200, 64, True, 100, 0),       # group 8
         (1, 6, 2, 129, 129, 128, False, 70, 0),      # group 3
-        (2, 8, 8, 45, 77, 32, False, 20, 0)]
+        (2, 8, 8, 45, 77, 32, False, 20, 0),
+        (1, 16, 1, 300, 300, 256, True, 128, 0),     # heads of 256
+        (2, 4, 2, 100, 180, 256, True, None, 80),
+        (1, 4, 4, 97, 150, 192, False, 37, 53)]      # 192, padded
     before = dict(FA.LAUNCHES)
     n = same = total = 0
     for case in cases:
@@ -300,6 +304,14 @@ def test_cuda_backward_kernels_match_plain_versions(dtype):
         kw = dict(causal=causal, window=window, q_offset=off)
         q, k, v, do = (torch.from_numpy(a).to(tdt).cuda()
                        for a in _arrays(case, seed=7))
+        if tdt == torch.float32 and d > FA.FMA_HEAD_MAX:
+            rows = torch.zeros(q.shape[:3] + (1,), device=q.device)
+            for call in (FA.flash_attention_dq, FA.flash_attention_dkv):
+                with pytest.raises(ValueError, match="float32"):
+                    call(q, k, v, do, rows, rows, **kw)
+            with pytest.raises(ValueError, match="float32"):
+                FA.flash_attention(q, k, v, **kw)
+            continue
         o, lse = FA.flash_attention(q, k, v, **kw)
         dsum = (do.float() * o.float()).sum(-1, keepdim=True)
         if d in FA.HEAD_DIMS:
