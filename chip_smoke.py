@@ -10,9 +10,10 @@ and RG-LRU families (granite-moe-3b-a800m at full width), that of
 the memory-input families (seamless-m4t-large-v2 at full width), and
 the training of both (granite and seamless at full width), the
 training of mamba2-130m at full width through the SSD's backward, the
-``REPRO_PERF`` flags that act on one card, and heads of 256:
+``REPRO_PERF`` flags that act on one card, heads of 256:
 recurrentgemma-9b served at full width and depth and trained at full
-width.
+width, and the mesh layer: rank 0's share of a production-mesh train
+step on the card, whose collective bytes feed the fabric planner.
 
     python3 chip_smoke.py
 
@@ -428,6 +429,41 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     5e-3, grad norm within 1e-2) and donated against kept, bit for bit.
     B-D's launches go under ``phase_launches``; A's rows beside #5-#7's
     in the ``kernels`` line (``head256``).
+29. The mesh layer: rank 0's share of a production-mesh train step on
+    the card (``repro_torch.launch.dryrun.lower_cell``: a fake process
+    group of 256 ranks, the (16, 16) ("data", "model") mesh, the local
+    blocks of the state placed directly, every collective counted and
+    none carried).  A: smollm-135m ``train_4k`` on ``pod1`` (16 rows x
+    4096 tokens a device; 9 q and 3 kv heads replicate, vocabulary and
+    ff split 16 ways): #5 (forward and recompute), #6 and #7 launched,
+    the record's bytes by kind and by (phase, axis), FLOPs, peak memory
+    and wall time; the data-parallel gradient all-reduce exactly
+    133,293,312 B (the float32 gradients of the 33,323,328 local
+    parameters).  The values of the step are garbage (the fake group
+    carries nothing), so each cell's kernels are held apart at its own
+    local problem (the record's ``kernel_problems``) on fresh seeded
+    inputs: #5-#7 through ``models.layers.attention_block`` (the
+    kernel call of ``local_attention``, with its cut of k and v) forward
+    and backward, bit for bit the kernels' own, o, lse, dq and dk / dv
+    against the plain versions on k and v picked by the global group
+    map, to phases 9 and 14's limits.  B: the same cell with ``zero1``:
+    the all-reduce, reduce-scatter and all-gather bytes and the ratio of
+    the totals (logged beside the reference's claim that the bytes
+    halve; not a gate).  C: h2o-danube-3-4b (``fsdp``, sequence parallel; 2 of 32 q
+    heads a device, the 8 kv heads replicated): the per-layer weight
+    all-gathers and gradient reduce-scatters over ``data``, the
+    data-parallel all-reduce exactly 752,640 B; #5-#7 held as in A at
+    model ranks 0, 5 and 15 (kv heads 0, 2 and 7; D 120 padded to 128).
+    D: mamba2-130m: #8 (forward and recompute) and 8' launched, the
+    data-parallel all-reduce exactly 408,820,992 B; #8 and 8' held at
+    the local problem through ``ops.ssd`` (bit for bit the kernels'),
+    y and the state to phase 10's limits, the gradients to phase 26's.
+    E: ``fabric.plan`` on A's record (``StepProfile.from_dryrun``, 256
+    terminals, the (16, 16) mesh placed), which runs #3 and #4; its top
+    rows.  F: ``train.remesh``
+    and ``reshard_state`` on a (1, 1) mesh of the card (a one-rank NCCL
+    group): a state's round trip bit for bit.  Every launch goes under
+    ``phase_launches``; the phase logs its time.
 
 Output: the card's name and power limit, then a ``kernels`` JSON line,
 then ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -1183,13 +1219,25 @@ def profile_steps(sim, dem, offered, steps: int = 6):
 # then (one whole run lost the first in 6 sessions of phase 25, 3 in a
 # row; with one opener, a later run lost the one after it in 3 sessions
 # of phase 26 in a row), so the measured span opens with SPAN_OPENERS
-# small launches of its own, which are not read.
+# small launches of its own, which are not read.  Late in a whole run the
+# loss can grow past them and stay (one run lost the first 1 to 3
+# launches after 8 openers in phase 28's kernel sessions, and the first 6
+# of recurrentgemma-9b's prefill and decode profiles in every session),
+# so a session that lost a record is run again, up to PROFILE_TRIES
+# times, each time with twice the openers.  Where every session lost
+# one, a caller whose check reads the records fails; :func:`profile_device`,
+# which only prints where the device time goes, prints its profile as
+# not measured and goes on.
 WARM_LAUNCHES = 32
 SPAN_OPENERS = 8
 PROFILE_PAD_S = 0.1
-PROFILE_TRIES = 3
+PROFILE_TRIES = 6
 RUNTIME_API = re.compile(r"^cu[A-Z]|^cuda[A-Z]")
 LAUNCH_API = re.compile(r"^cu(da)?LaunchKernel")
+
+
+class ProfilerLostRecords(AssertionError):
+    """Every profiling session lost a kernel record of the calls."""
 
 
 def device_rows(fn, reps: int = 1):
@@ -1201,9 +1249,11 @@ def device_rows(fn, reps: int = 1):
     clocks (a few microseconds where the host's and the device's clocks
     agree; negative where the device's reads early).  Every kernel
     launch call of the calls must have its kernel's record: a session
-    that lost one is logged and run again, and the third such session
-    raises.  The kernels' launch counts keep only the session that is
-    read, so a caller that counts the calls' launches counts them once."""
+    that lost one is logged and run again with twice the openers, and
+    the last of ``PROFILE_TRIES`` such sessions raises
+    :class:`ProfilerLostRecords`.  The kernels' launch counts keep only
+    the session that is read, so a caller that counts the calls'
+    launches counts them once."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.kernels import flash_attention, mask_gemm, sim_step
     from repro_torch.kernels import ssd_scan
@@ -1213,7 +1263,8 @@ def device_rows(fn, reps: int = 1):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     warm = torch.zeros(1, device="cuda")
-    for _ in range(PROFILE_TRIES):
+    for attempt in range(PROFILE_TRIES):
+        n_open = SPAN_OPENERS << attempt
         for c, b in zip(counts, before):    # a session run again: once
             c.update(b)
         torch.cuda.synchronize()
@@ -1224,7 +1275,7 @@ def device_rows(fn, reps: int = 1):
             torch.cuda.synchronize()
             time.sleep(PROFILE_PAD_S)
             with record_function("chip_smoke: measured calls"):
-                for _ in range(SPAN_OPENERS):
+                for _ in range(n_open):
                     warm.add_(1.0)      # the span's openers, not read
                 start.record()
                 for _ in range(reps):
@@ -1246,8 +1297,10 @@ def device_rows(fn, reps: int = 1):
         launched = sorted((e.start_ns(), c) for c, e in calls.items()
                           if LAUNCH_API.match(e.name()))
         # the openers: their kernels, if recorded, are no part of the calls
-        openers = {c for _, c in launched[:SPAN_OPENERS]}
-        launched = launched[SPAN_OPENERS:]
+        openers = {c for _, c in launched[:n_open]}
+        opened = len(openers & began.keys())
+        first_ns = launched[0][0] if launched else 0
+        launched = launched[n_open:]
         device = [e for e in device if e.correlation_id() not in openers]
         lost = [i for i, (_, c) in enumerate(launched) if c not in began]
         if not lost:
@@ -1255,10 +1308,13 @@ def device_rows(fn, reps: int = 1):
         # a loss of unknown cause: the session is run again, not read
         log(f"profiler: no record of the kernels of {len(lost)} of "
             f"{len(launched)} launch calls (calls {lost[:8]} in launch "
-            f"order); profiling again")
+            f"order, {[calls[launched[i][1]].name() for i in lost[:4]]}; "
+            f"{opened} of {n_open} openers recorded; the last lost call "
+            f"{(launched[lost[-1]][0] - first_ns) / 1e3:.1f} us after the "
+            f"first opener's); profiling again")
     else:
-        raise AssertionError(f"the profiler lost kernel records in "
-                             f"{PROFILE_TRIES} sessions running")
+        raise ProfilerLostRecords(f"the profiler lost kernel records in "
+                                  f"{PROFILE_TRIES} sessions running")
     by_name = {}
     for e in device:
         ms, count = by_name.get(e.name(), (0.0, 0))
@@ -1273,8 +1329,14 @@ def device_rows(fn, reps: int = 1):
 def profile_device(fn, per: int, unit: str, label: str = "profile"):
     """Prints :func:`device_rows` of one call of ``fn`` per ``unit``
     (``per`` units in the call) and the device's idle share of the
-    call's wall time; returns them."""
-    rows, wall_ms, busy_ms, lead_us = device_rows(fn)
+    call's wall time; returns them.  Where the profiler lost a kernel
+    record in every session, the profile is printed as not measured and
+    the rows are empty, with no device time."""
+    try:
+        rows, wall_ms, busy_ms, lead_us = device_rows(fn)
+    except ProfilerLostRecords as e:
+        log(f"{label}: device time not measured ({e})")
+        return [], float("nan"), 0.0
     if busy_ms <= 0:
         log(f"{label}: the profiler saw no device time (CUDA events only)")
         return rows, wall_ms, busy_ms
@@ -6236,6 +6298,366 @@ def check_head256(dev, bw, out: dict):
     return total
 
 
+# phase 29: the data-parallel gradient all-reduce of each cell, bytes a
+# device: the float32 gradients of the parameters not sharded over
+# "data" on the (16, 16) mesh (33,323,328 / 188,160 / 102,205,248 of them)
+MESH_DP_BYTES = {"smollm-135m": 133_293_312, "h2o-danube-3-4b": 752_640,
+                 "mamba2-130m": 408_820_992}
+
+
+def _mesh_cell(dev, arch: str, label: str, total: dict, *, zero1=False):
+    """One ``train_4k`` cell of phase 29 on ``pod1``: its record, its
+    launches added to ``total``, its bytes and memory logged."""
+    from repro_torch import perf
+    from repro_torch.launch.dryrun import lower_cell
+
+    saved = perf.flags().zero1
+    perf.set_flags(zero1=zero1)
+    try:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rec = lower_cell(arch, "train_4k", False, dev)
+        wall = time.perf_counter() - t0
+    finally:
+        perf.set_flags(zero1=saved)
+    if rec["status"] != "ok":
+        raise AssertionError(f"{label}: {rec}")
+    for kname, n in rec["launches"].items():
+        total[kname] = total.get(kname, 0) + n
+    coll = rec["collective_bytes_per_device"]
+    mem = rec["memory"]
+    log(f"{label}: collective bytes a device {json.dumps(coll)}")
+    log(f"{label}: by phase/axis "
+        f"{json.dumps(rec['collective_bytes_by_phase_axis'])}")
+    log(f"{label}: the largest collectives "
+        f"{json.dumps(rec['collectives'][:6])}")
+    log(f"{label}: {rec['collective_calls']} collectives; FLOPs "
+        f"{rec['flops']:.4e} (aten {rec['aten_flops']:.4e}, kernels "
+        f"{rec['kernel_flops']:.4e}); state {mem['argument_bytes'] / 2**30:.3f}"
+        f" GiB, peak {mem['peak_bytes'] / 2**30:.3f} GiB above the state "
+        f"(temp {mem['temp_bytes'] / 2**30:.3f} GiB); step "
+        f"{rec['step_seconds']:.2f} s, cell {wall:.2f} s; launches "
+        f"{rec['launches']}; rows a device {rec['per_device_batch']}")
+    if mem["peak_bytes"] + mem["argument_bytes"] > 80e9:
+        raise AssertionError(f"{label}: over 80 GB")
+    return rec
+
+
+def _check_dp_bytes(label: str, rec: dict, arch: str, zero1: bool):
+    dp = rec["dp_gradient_bytes"]
+    want = MESH_DP_BYTES[arch]
+    got = dp.get("all-reduce", 0)
+    if zero1:
+        # a ZeRO-1 leaf's gradient is reduce-scattered: its all-reduce
+        # bytes leave the total, 1/16 of them come back as reduce-scatter
+        got += dp.get("reduce-scatter", 0) * 16
+    log(f"{label}: data-parallel gradient bytes {json.dumps(dp)} "
+        f"(all-reduce{' + 16 x reduce-scatter' if zero1 else ''} {got:,} "
+        f"B, expected {want:,} B)")
+    if got != want:
+        raise AssertionError(f"{label}: data-parallel gradient bytes {got} "
+                             f"!= {want}")
+
+
+def _mesh_attention_problem(label: str, cfg, rec: dict):
+    """A cell's one local attention problem, as its step handed it to
+    the kernels: ``(B, Hq, Hkv, Sq, Skv, D, window)``."""
+    problems = rec["kernel_problems"].get("attention", [])
+    if len(problems) != 1:
+        raise AssertionError(f"{label}: local attention problems "
+                             f"{problems}")
+    *problem, calls = problems[0]
+    if calls < cfg.n_layers:
+        raise AssertionError(f"{label}: {calls} attention calls booked")
+    return tuple(problem)
+
+
+def _hold_mesh_attention(dev, label: str, cfg, rec: dict, ranks=(0,)):
+    """Phase 29: #5-#7 at a cell's own local problem, on fresh seeded
+    inputs, against their plain versions.  The q heads of a model rank
+    and every kv head go through ``models.layers.attention_block`` (the
+    kernel call of ``local_attention``, with its cut of k and v to the
+    kv heads that rank's q heads read, ``kv_heads_read``) forward and
+    backward: its output and gradients equal the kernels' own, called
+    directly on the cut, bit for bit; o and lse are held to phase 9's
+    limits (o within 1e-4 + 2^-7 |o|, lse within 3e-5 + 3e-5 |lse|, o
+    equal to the plain o in bf16 in SAME_SHARE of the entries), dq and
+    dk / dv per q head to phase 14's, all against the plain versions on
+    k and v picked by the global group map (q head h reads kv head h //
+    (Hq / Hkv)), so a wrong cut of k and v shows."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    from repro_torch.models.layers import attention_block, kv_heads_read
+
+    b, hq_l, hkv_l, sq, _, d, window = _mesh_attention_problem(label, cfg,
+                                                               rec)
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    split = hq_l != hq
+    n_model = hq // hq_l
+    group = hq // hkv
+    gen = torch.Generator(device=dev).manual_seed(29)
+    kw = dict(causal=True, window=window, q_offset=0)
+    for rank in (ranks if split else (0,)):
+        kv = kv_heads_read(hq, hkv, n_model, rank) if split else None
+        lo, hi = kv if kv is not None else (0, hkv)
+        if hi - lo != hkv_l:
+            raise AssertionError(f"{label}: the step handed the kernel "
+                                 f"{hkv_l} kv heads, rank {rank} reads "
+                                 f"{hi - lo}")
+        first = rank * hq_l if split else 0
+        q, do = (torch.randn((b, hq_l, sq, d), generator=gen,
+                             device=dev).bfloat16() for _ in range(2))
+        k, v = (torch.randn((b, hkv, sq, d), generator=gen,
+                            device=dev).bfloat16() for _ in range(2))
+        name = (f"{label} attention rank {rank}: B={b} Hq={hq_l} of {hq} "
+                f"(kv heads {lo}:{hi} of {hkv}) S={sq} D={d} "
+                f"window={window}")
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = attention_block(*leaves, kv, causal=True, window=window)
+        gq, gk, gv = torch.autograd.grad(out, leaves, do)
+        kl, vl = k[:, lo:hi].contiguous(), v[:, lo:hi].contiguous()
+        o, lse = FA.flash_attention(q, kl, vl, **kw)
+        dsum = (do.float() * o.float()).sum(-1, keepdim=True)
+        dp = FA._pad_head(d)
+        pad = (lambda t: torch.nn.functional.pad(t, (0, dp - d))) \
+            if dp != d else (lambda t: t)
+        bargs = (pad(q), pad(kl), pad(vl), pad(do), lse, dsum)
+        bkw = dict(kw, scale=d ** -0.5)
+        dq = FA.flash_attention_dq(*bargs, **bkw)[..., :d]
+        dkh, dvh = FA.flash_attention_dkv(*bargs, **bkw)
+        torch.cuda.synchronize()
+        # summed over each kv group at the padded width and cut, as
+        # flash_attention_bwd does
+        dk, dv = (t.view(b, hi - lo, hq_l // (hi - lo), sq, dp).sum(2)
+                  [..., :d].contiguous().to(k.dtype) for t in (dkh, dvh))
+        dkh, dvh = dkh[..., :d], dvh[..., :d]
+        outside = torch.ones(hkv, dtype=torch.bool, device=dev)
+        outside[lo:hi] = False
+        if not (torch.equal(out, o) and torch.equal(gq, dq)
+                and torch.equal(gk[:, lo:hi], dk)
+                and torch.equal(gv[:, lo:hi], dv)
+                and not gk[:, outside].any() and not gv[:, outside].any()):
+            raise AssertionError(f"{name}: attention_block's output or "
+                                 f"gradients differ from the kernels'")
+        idx = torch.tensor([(first + h) // group for h in range(hq_l)],
+                           device=dev)
+        kr, vr = k[:, idx], v[:, idx]
+        w_o, w_lse = ref.flash_attention_ref(q, kr, vr, **kw)
+        e_o, rel = _close_or_raise(name + " o", o, w_o, 1e-4, 2.0 ** -7)
+        _close_or_raise(name + " lse", lse, w_lse, 3e-5, 3e-5)
+        share_o = _check_same_share(name + " o", o, w_o)
+        w_dq32 = ref.flash_attention_dq_ref(
+            *(t.float() for t in (q, kr, vr, do)), lse, dsum, **kw)
+        w_dk, w_dv = ref.flash_attention_dkv_ref(q, kr, vr, do, lse, dsum,
+                                                 **kw)
+        e_dq = _close_or_raise(name + " dq", dq, w_dq32.to(q.dtype), 1e-4,
+                               2.0 ** -7)[0]
+        share_dq = _check_same_share(name + " dq", dq, w_dq32)
+        e_kv = max(_close_or_raise(name + " dk", dkh, w_dk, 2e-4, 2e-5)[0],
+                   _close_or_raise(name + " dv", dvh, w_dv, 2e-4, 2e-5)[0])
+        log(f"{name}: attention_block bit for bit the kernels' o, dq, dk, "
+            f"dv; against the plain versions on the global group map: o "
+            f"max abs err {e_o:.3e} (max rel {rel:.3e}, {share_o:.5f} equal "
+            f"in bf16), dq {e_dq:.3e} ({share_dq:.5f} equal in bf16), dk / "
+            f"dv per q head {e_kv:.3e}")
+        del (q, k, v, do, leaves, out, gq, gk, gv, o, lse, dsum, dq, dkh,
+             dvh, kr, vr, w_o, w_lse, w_dq32, w_dk, w_dv)
+
+
+def _hold_mesh_ssd(dev, label: str, rec: dict, groups: int = 4):
+    """Phase 29 D: #8 and 8' at the cell's own local SSD problem, on
+    fresh seeded inputs in bf16 (phase 10's operands), against their
+    plain versions: ``ops.ssd`` forward and backward (the kernel call of
+    the SSD's ``local_map``) equal the kernels' own y and gradients bit
+    for bit; y and the final state to phase 10's limits, each gradient
+    to phase 26's (its largest magnitude times 2^-7, d dt and d a_log
+    1e-5).  The plain versions run on ``groups`` slices of the batch
+    (the per-head gradients summed over them)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.kernels.ref import ssd_scan_bwd_ref, ssd_scan_ref
+
+    problems = rec["kernel_problems"].get("ssd", [])
+    if len(problems) != 1:
+        raise AssertionError(f"{label}: local SSD problems {problems}")
+    bsz, length, h, p, g, n, chunk, _ = problems[0]
+    gen = torch.Generator(device=dev).manual_seed(29)
+    x, dt, a_log, b, c, ds = _ssd_inputs(gen, dev, length, h=h, p=p, g=g,
+                                         n=n, batch=bsz)
+    x, b, c = x.bfloat16(), b.bfloat16(), c.bfloat16()
+    dy = torch.randn(x.shape, generator=gen, device=dev).bfloat16()
+    name = (f"{label} SSD: B={bsz} L={length} H={h} P={p} G={g} N={n} "
+            f"chunk={chunk} bf16")
+    args = (x, dt, a_log, b, c, ds)
+    leaves = [t.detach().requires_grad_() for t in args]
+    y_path, _ = ops.ssd(*leaves, chunk=chunk)
+    path_grads = torch.autograd.grad(y_path, leaves, dy)
+    y, st = SS.ssd_scan(*args, chunk=chunk)
+    got = SS.ssd_scan_bwd(*args, dy, chunk=chunk)
+    torch.cuda.synchronize()
+    casts = (x.dtype, None, None, b.dtype, c.dtype, None)
+    if not torch.equal(y_path, y) or not all(
+            torch.equal(pg, gv if dt_ is None else gv.to(dt_))
+            for pg, gv, dt_ in zip(path_grads, got, casts)):
+        raise AssertionError(f"{name}: ops.ssd's output or gradients "
+                             f"differ from the kernels'")
+    rows = -(-bsz // groups)
+    w_y, w_st, want = [], [], None
+    for r0 in range(0, bsz, rows):
+        part = [t[r0:r0 + rows] for t in (x, dt)] + [a_log] + \
+            [t[r0:r0 + rows] for t in (b, c)] + [ds]
+        wy, wst = ssd_scan_ref(*part, chunk=chunk)
+        w_y.append(wy)
+        w_st.append(wst)
+        wg = ssd_scan_bwd_ref(*part, dy[r0:r0 + rows], chunk=chunk)
+        want = list(wg) if want is None else [
+            None if a is None else
+            (a + w if i in (2, 5) else torch.cat([a, w]))
+            for i, (a, w) in enumerate(zip(want, wg))]
+    w_y, w_st = torch.cat(w_y), torch.cat(w_st)
+    e = _close_or_raise(name + " state", st, w_st, 3e-4, 3e-4)[0]
+    ey, rel = _close_or_raise(name + " y", y, w_y, 3e-4, 2.0 ** -7)
+    share = _check_same_share(name + " y", y, w_y)
+    worst = []
+    for leaf, gv, wv in zip(SSD_BWD_NAMES, got, want):
+        if wv is None:
+            continue
+        scale = float(wv.abs().max())
+        err = float((gv - wv).abs().max())
+        limit = (SSD_BWD_CANCEL if leaf in ("ddt", "da_log")
+                 else SSD_BWD_TOL[torch.bfloat16])
+        if not (torch.isfinite(gv).all() and err <= limit * scale):
+            raise AssertionError(f"{name} {leaf}: max abs err {err} "
+                                 f"against {limit} x {scale}")
+        worst.append(f"{leaf} {err / scale:.2e}")
+    log(f"{name}: ops.ssd bit for bit the kernels' y and gradients; "
+        f"against the plain versions: state max abs err {e:.3e}, y "
+        f"{ey:.3e} (max rel {rel:.3e}, {share:.5f} equal in bf16); "
+        f"gradients over each leaf's largest magnitude {', '.join(worst)}")
+
+
+def check_mesh(dev, out: dict):
+    """Phase 29 (see the module's docstring): A-F.  Puts the records of
+    A-D and E's rows into ``out``; returns the phase's launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.fabric.planner import StepProfile, plan
+    from repro_torch.kernels import mask_gemm as MG
+
+    total = {}
+    t0 = time.perf_counter()
+    rec = _mesh_cell(dev, "smollm-135m", "phase 29 A smollm-135m train_4k "
+                     "pod1", total)
+    _check_dp_bytes("phase 29 A", rec, "smollm-135m", False)
+    for kname in ("flash_attention_fwd", "flash_attention_dq",
+                  "flash_attention_dkv"):
+        if not rec["launches"].get(kname):
+            raise AssertionError(f"phase 29 A: {kname} never launched")
+    _hold_mesh_attention(dev, "phase 29 A", get_arch("smollm-135m"), rec)
+    out["smollm"] = rec
+    log(f"phase 29 A: {time.perf_counter() - t0:.1f} s")
+
+    z = _mesh_cell(dev, "smollm-135m", "phase 29 B smollm-135m train_4k "
+                   "pod1 zero1", total, zero1=True)
+    _check_dp_bytes("phase 29 B", z, "smollm-135m", True)
+    zc, pc = z["collective_bytes_per_device"], rec[
+        "collective_bytes_per_device"]
+    ratio = zc["total"] / pc["total"]
+    dp_ratio = sum(z["dp_gradient_bytes"].values()) / sum(
+        rec["dp_gradient_bytes"].values())
+    log(f"phase 29 B: zero1 all-reduce {zc.get('all-reduce', 0):,} B, "
+        f"reduce-scatter {zc.get('reduce-scatter', 0):,} B, all-gather "
+        f"{zc.get('all-gather', 0):,} B; total {zc['total']:,} B against "
+        f"{pc['total']:,} B without: ratio {ratio:.4f} (the reference's "
+        f"docstring claims the bytes halve at scale; not a gate); the "
+        f"gradient reduction alone {dp_ratio:.4f}")
+    out["smollm_zero1"] = z
+    log(f"phase 29 B: {time.perf_counter() - t0:.1f} s")
+
+    h = _mesh_cell(dev, "h2o-danube-3-4b", "phase 29 C h2o-danube-3-4b "
+                   "train_4k pod1", total)
+    _check_dp_bytes("phase 29 C", h, "h2o-danube-3-4b", False)
+    data_loss = h["collective_bytes_by_phase_axis"].get("loss/data", {})
+    if not (data_loss.get("all-gather") and data_loss.get(
+            "reduce-scatter")):
+        raise AssertionError(f"phase 29 C: no fsdp weight all-gather or "
+                             f"gradient reduce-scatter over data: "
+                             f"{data_loss}")
+    # rank 0 is the rank the step ran; ranks 5 and 15 read kv heads 2
+    # and 7
+    _hold_mesh_attention(dev, "phase 29 C", get_arch("h2o-danube-3-4b"), h,
+                         ranks=(0, 5, 15))
+    out["h2o"] = h
+    log(f"phase 29 C: {time.perf_counter() - t0:.1f} s")
+
+    m = _mesh_cell(dev, "mamba2-130m", "phase 29 D mamba2-130m train_4k "
+                   "pod1", total)
+    _check_dp_bytes("phase 29 D", m, "mamba2-130m", False)
+    for kname in ("ssd_scan", "ssd_scan_bwd"):
+        if not m["launches"].get(kname):
+            raise AssertionError(f"phase 29 D: {kname} never launched")
+    _hold_mesh_ssd(dev, "phase 29 D", m)
+    out["mamba2"] = m
+    log(f"phase 29 D: {time.perf_counter() - t0:.1f} s")
+
+    MG.reset_launches()
+    profile = StepProfile.from_dryrun(rec)
+    rows = plan(profile, min_terminals=256, mesh_shape=(16, 16),
+                axis_names=("data", "model"), device=dev)
+    mg = dict(MG.LAUNCHES)
+    for kname in ("frontier_step", "backward_step"):
+        if not mg.get(kname):
+            raise AssertionError(f"phase 29 E: {kname} never launched")
+        total[kname] = total.get(kname, 0) + mg[kname]
+    log(f"phase 29 E: plan(StepProfile.from_dryrun(A), min_terminals=256, "
+        f"mesh (16, 16)) on the card, #3 / #4 launched "
+        f"{mg['frontier_step']} / {mg['backward_step']} times; profile "
+        f"{json.dumps(profile.bytes_by_kind)}")
+    for r in rows[:5]:
+        log(f"phase 29 E:   {json.dumps(r)}")
+    out["plan"] = rows[:5]
+    log(f"phase 29 E: {time.perf_counter() - t0:.1f} s")
+
+    _check_remesh(dev)
+    log(f"phase 29 F: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 29: launches {total}")
+    return total
+
+
+def _check_remesh(dev):
+    """Phase 29 F: ``remesh`` over the one card's rank and a state's
+    round trip through ``reshard_state``, bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.train import largest_submesh_shape, remesh, \
+        reshard_state
+
+    gen = torch.Generator().manual_seed(29)
+    state = {"w": torch.randn((64, 48), generator=gen),
+             "opt": {"m": torch.randn((48,), generator=gen),
+                     "count": np.int32(7)}}
+    specs = {"w": ("model", None), "opt": {"m": ("data",), "count": ()}}
+    try:
+        mesh = remesh([0], model_axis=1, device_type="cuda")
+        if tuple(mesh.shape) != largest_submesh_shape(1, 1) \
+                or mesh.mesh_dim_names != ("data", "model"):
+            raise AssertionError(f"phase 29 F: mesh {mesh}")
+        placed = reshard_state(state, mesh, specs)
+        back = {"w": placed["w"].full_tensor().cpu(),
+                "m": placed["opt"]["m"].full_tensor().cpu(),
+                "count": placed["opt"]["count"].full_tensor().cpu()}
+        if placed["w"].to_local().device.type != "cuda":
+            raise AssertionError("phase 29 F: the state is not on the card")
+        if not (torch.equal(back["w"], state["w"])
+                and torch.equal(back["m"], state["opt"]["m"])
+                and int(back["count"]) == 7):
+            raise AssertionError("phase 29 F: the round trip changed bits")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    log(f"phase 29 F: remesh([0], 1) -> {tuple(mesh.shape)} "
+        f"{mesh.mesh_dim_names} on the card; reshard_state round trip bit "
+        f"for bit")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA "
@@ -6290,12 +6712,12 @@ def main() -> int:
     for kname in bwd_errs:
         launches[kname] = train_launches[kname]
     done("15")
-    # phases 16-28 run kernels #1-#4 (22, 25 and 28 #5-#7, 23 and 24 #5,
-    # 26 #8, 27 all but #3 and #4) on new paths: their launches there go
-    # beside each kernel's main-path count; phase 26's path is the SSD
-    # backward's main path
+    # phases 16-29 run kernels #1-#4 (22, 25 and 28 #5-#7, 23 and 24 #5,
+    # 26 #8, 27 all but #3 and #4, 29 #3-#8 and 8') on new paths: their
+    # launches there go beside each kernel's main-path count; phase 26's
+    # path is the SSD backward's main path
     phase_launches = {}
-    ssd_bwd, perf, h256 = {}, {}, {}
+    ssd_bwd, perf, h256, mesh = {}, {}, {}, {}
     for phase, fn in (("16", lambda: check_families(dev)),
                       ("17", lambda: check_faults_analytic(dev)),
                       ("18", lambda: check_faults_sim(
@@ -6310,7 +6732,8 @@ def main() -> int:
                       ("26", lambda: check_train_ssd(dev, bw, ssd_bwd)),
                       ("27", lambda: check_perf_flags(
                           dev, bw, ssd_bwd["first_loss"], perf)),
-                      ("28", lambda: check_head256(dev, bw, h256))):
+                      ("28", lambda: check_head256(dev, bw, h256)),
+                      ("29", lambda: check_mesh(dev, mesh))):
         t0 = time.perf_counter()
         for kname, count in fn().items():
             phase_launches.setdefault(kname, {})[phase] = count

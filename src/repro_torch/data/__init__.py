@@ -1,5 +1,7 @@
 """The port's data pipeline: the reference's synthetic LM batches."""
 
-from .pipeline import DataConfig, host_shard_batch, synthetic_batch
+from .pipeline import (DataConfig, batch_specs, host_shard_batch,
+                       synthetic_batch)
 
-__all__ = ["DataConfig", "host_shard_batch", "synthetic_batch"]
+__all__ = ["DataConfig", "batch_specs", "host_shard_batch",
+           "synthetic_batch"]

@@ -5,7 +5,8 @@ A numpy copy of ``repro/data/pipeline.py`` (``DataConfig``,
 for bit.  Tokens are a counter-mode hash of (seed, step, position), so
 any host materializes exactly its rows of any step and the pipeline has
 no state beyond the integer step: that is what makes checkpoint-resume
-exact.  ``batch_specs`` (the reference's dry-run shapes) is not copied.
+exact.  ``batch_specs`` gives the shapes and dtypes of a global batch
+(the reference's dry-run stand-ins) as tensors on the meta device.
 """
 
 from __future__ import annotations
@@ -13,8 +14,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
-__all__ = ["DataConfig", "synthetic_batch", "host_shard_batch"]
+__all__ = ["DataConfig", "synthetic_batch", "host_shard_batch",
+           "batch_specs"]
 
 
 @dataclass(frozen=True)
@@ -67,3 +70,16 @@ def host_shard_batch(cfg: DataConfig, step: int, host_id: int, n_hosts: int):
     per = cfg.global_batch // n_hosts
     return synthetic_batch(cfg, step,
                            slice(host_id * per, (host_id + 1) * per))
+
+
+def batch_specs(cfg: DataConfig) -> dict:
+    """The global batch's shapes and dtypes, as meta tensors (nothing
+    allocated): ``tokens`` (B, S) int32 and, with ``memory_tokens``,
+    ``memory`` (B, T, d_model) bfloat16, as the step reads them."""
+    s = {"tokens": torch.empty((cfg.global_batch, cfg.seq_len),
+                               dtype=torch.int32, device="meta")}
+    if cfg.memory_tokens:
+        s["memory"] = torch.empty(
+            (cfg.global_batch, cfg.memory_tokens, cfg.d_model),
+            dtype=torch.bfloat16, device="meta")
+    return s

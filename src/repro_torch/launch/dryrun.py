@@ -1,0 +1,536 @@
+"""Production-mesh dry run on one card: rank 0's share of a train step,
+run for real, with every collective counted and none carried.
+
+Counterpart of ``repro/launch/dryrun.py``.  The reference lowers and
+compiles each (arch x shape x mesh) cell over 512 placeholder host
+devices and reads the compiled program's costs.  The port opens a fake
+process group of 256 (``pod1``) or 512 (``pod2``) ranks in this process,
+builds the production mesh over it (:func:`~repro_torch.launch.mesh.
+make_production_mesh`), places rank 0's blocks of the train state on the
+card directly (``DTensor.from_local`` of seeded local values: the global
+model is never built; granite-20b's float32 weights alone are 81 GB),
+and runs one train step at the cell's per-device batch through the
+kernels, with ``mesh``.  The fake group carries no data, so rank 0's
+values are garbage after the first collective: the run measures shapes,
+bytes, time and memory, never values.
+
+  python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k \\
+      --mesh pod1
+  python -m repro_torch.launch.dryrun --all --mesh pod1 --device cpu
+
+The record has the reference's fields:
+
+* ``collective_bytes_per_device``: every ``c10d_functional`` collective
+  that the step issues, seen by a ``TorchDispatchMode``; each kind's
+  per-device result bytes are added (the reference's ``collective_bytes``
+  definition), plus ``total``.  ``collective_bytes_by_phase_axis``
+  splits them by the step's part (``loss``: forward and backward;
+  ``gradients``: the explicit data-parallel reduction; ``optimizer``: the
+  clip's norm and ZeRO-1's all-gathers) and mesh axis, as
+  ``"phase/axis"``; ``collectives`` lists each distinct collective
+  (phase and axis, kind, result shape) with its bytes and count.
+* ``flops``: rank 0's products: the aten ops counted by
+  ``torch.utils.flop_counter``'s formulas on the local shapes, plus the
+  hand-written kernels', which no dispatch mode sees, by the formulas of
+  ``chip_smoke.py``'s bounds (:func:`kernel_flops`) on the local
+  problems the mesh hooks handed them (``kernel_problems``) times their
+  launches in the step.  On the CPU nothing launches: the kernels'
+  plain versions run as aten ops and are counted as such.
+* ``memory``: ``argument_bytes`` the local state, ``temp_bytes`` the
+  card's peak allocation in the step less that state.
+* ``n_devices``, ``mesh``, ``perf_flags``, ``status``; keys with no
+  counterpart in an eager run (``compile_seconds``, ``hlo_chars``,
+  ``probe``, ``raw``, ``bytes_accessed``, ``transcendentals``,
+  ``alias_bytes``, ``generated_code_bytes``) are null.  The port runs its
+  layers unrolled, so every layer is counted once and there is no probe
+  correction (``scan_reps`` is 0).
+
+Cells outside this slice are ``skipped`` with the ROADMAP item that
+queues them: the prefill and decode shapes, and the moe / hybrid / vlm /
+audio families; ``long_500k`` on a full-attention arch is skipped as in
+the reference.  :func:`run_cell` writes each record as JSON under
+``REPRO_DRYRUN_DIR`` (default ``build/dryrun/`` of the checkout).
+:class:`~repro_torch.fabric.planner.StepProfile`'s ``from_dryrun``
+reads a record.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import sys
+import time
+import traceback
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..configs import ARCHS, SHAPES, get_arch
+from ..configs.base import ArchConfig, ShapeConfig
+
+__all__ = ["OUT_DIR", "CollectiveCounter", "fake_world", "kernel_flops",
+           "dp_gradient_bytes", "local_train_state", "lower_cell",
+           "cell_path", "run_cell", "main"]
+
+OUT_DIR = os.environ.get(
+    "REPRO_DRYRUN_DIR",
+    str(Path(__file__).resolve().parents[3] / "build" / "dryrun"))
+
+# c10d_functional op -> the reference's collective kind
+_KINDS = (("all_gather", "all-gather"), ("reduce_scatter", "reduce-scatter"),
+          ("all_reduce", "all-reduce"), ("all_to_all", "all-to-all"),
+          ("permute", "collective-permute"))
+
+# result dtypes as the reference's HLO writes them
+_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
+                torch.float16: "f16", torch.int32: "s32", torch.int64: "s64"}
+
+SLICE_FAMILIES = ("dense", "ssm")
+_QUEUED = ("ROADMAP queue 1: the MoE all-to-all path, then MLA, RG-LRU "
+           "and the memory-input families under a mesh")
+
+
+def _kind(op_name: str):
+    if "c10d_functional" not in op_name:
+        return None
+    for key, kind in _KINDS:
+        if key in op_name:
+            return kind
+    return None
+
+
+class CollectiveCounter:
+    """A dispatch mode that books every collective's per-device result
+    bytes by kind, by the step's phase
+    (:data:`repro_torch.train.train_step.COLLECTIVE_PHASE`) and mesh axis
+    together, and by each distinct collective (:meth:`table`), and counts
+    the products of the local aten ops with
+    ``torch.utils.flop_counter``'s formulas.  DTensor ops are let
+    through to DTensor (which then issues the local ops and collectives
+    that are counted); fake tensors of its sharding propagation are not
+    counted."""
+
+    def __init__(self, mesh=None):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils.flop_counter import flop_registry
+
+        self.bytes: dict[str, float] = {}
+        self.collectives: dict[tuple, int] = {}
+        self.by_phase_axis: dict[str, dict] = {}
+        self.calls = 0
+        self.flops = 0
+        groups = {}
+        if mesh is not None:
+            for i, name in enumerate(mesh.mesh_dim_names):
+                groups[mesh.get_group(i).group_name] = name
+        counter = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                from torch._subclasses.fake_tensor import FakeTensor
+                from torch.distributed.tensor import DTensor
+
+                kwargs = kwargs or {}
+                if any(issubclass(t, DTensor) for t in types):
+                    return NotImplemented
+                out = func(*args, **kwargs)
+                if any(issubclass(t, FakeTensor) for t in types):
+                    return out
+                kind = _kind(str(func))
+                if kind is not None:
+                    counter._book(kind, out, args, groups)
+                pkt = func._overloadpacket
+                if pkt in flop_registry:
+                    counter.flops += int(flop_registry[pkt](
+                        *args, **kwargs, out_val=out))
+                return out
+
+        self._mode = _Mode()
+
+    def _book(self, kind, out, args, groups):
+        from ..train.train_step import COLLECTIVE_PHASE
+
+        outs = [t for t in (out if isinstance(out, (list, tuple)) else [out])
+                if isinstance(t, torch.Tensor)]
+        nbytes = sum(t.numel() * t.element_size() for t in outs)
+        group = [a for a in args if isinstance(a, str)][-1:] or [None]
+        axis = groups.get(group[0], "other")
+        at = f"{COLLECTIVE_PHASE['name'] or 'other'}/{axis}"
+        self.calls += 1
+        self.bytes[kind] = self.bytes.get(kind, 0) + nbytes
+        row = self.by_phase_axis.setdefault(at, {})
+        row[kind] = row.get(kind, 0) + nbytes
+        shape = ", ".join(f"{_DTYPE_NAMES.get(t.dtype, t.dtype)}"
+                          f"[{','.join(map(str, t.shape))}]" for t in outs)
+        key = (at, kind, shape, nbytes)
+        self.collectives[key] = self.collectives.get(key, 0) + 1
+
+    def table(self) -> list:
+        """Each distinct collective (``"phase/axis"``, kind, result shape)
+        with its bytes and count, the largest total first."""
+        rows = [{"at": at, "kind": kind, "shape": shape, "bytes": nbytes,
+                 "count": n}
+                for (at, kind, shape, nbytes), n in self.collectives.items()]
+        return sorted(rows, key=lambda r: -r["bytes"] * r["count"])
+
+    def __enter__(self):
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+    def per_device(self) -> dict:
+        out = dict(self.bytes)
+        out["total"] = sum(self.bytes.values())
+        return out
+
+
+@contextlib.contextmanager
+def fake_world(n_ranks: int):
+    """A fake process group of ``n_ranks`` ranks, this process rank 0, for
+    the duration of the block: collectives return at once and carry
+    nothing.  Raises where a process group is open already."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is open already; the dry run "
+                           "opens its own fake one")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=n_ranks)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_gradient_bytes(by_phase_axis: dict) -> dict:
+    """The data-parallel gradient reduction's bytes by kind: the
+    ``gradients`` phase's collectives over the batch axes (``data``,
+    ``pod``)."""
+    out: dict[str, float] = {}
+    for axis in ("pod", "data"):
+        for kind, b in by_phase_axis.get(f"gradients/{axis}", {}).items():
+            out[kind] = out.get(kind, 0) + b
+    return out
+
+
+# ---- the kernels' products (chip_smoke.py's bound formulas) ------------
+
+
+def _live_pairs(s: int, window) -> int:
+    """Causal (q, k) pairs of a length-s sequence, within ``window``."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def _ssd_products(length: int, chunk: int, h: int, p: int, g: int, n: int):
+    """(forward, backward) products of the SSD over one sequence: C B^T
+    and the decayed scores times x dt over each chunk's lower triangle, C
+    S_in and B^T (decay dt x) over the chunk; the backward's C B^T, dy
+    x^T, (C B^T L)^T dy, (G L dt) B, (G L)^T C over the triangle and B
+    dS, dy S_in^T, x dS^T, C^T (exp(cum) dy), B^T (x dt w) over the
+    chunk."""
+    fwd = bwd = 0.0
+    for c0 in range(0, length, chunk):
+        qc = min(chunk, length - c0)
+        tri = qc * (qc + 1) / 2
+        fwd += 2 * tri * n * g + 2 * tri * p * h + 4 * qc * n * p * h
+        bwd += (2 * tri * (n * g + p * h) + 2 * tri * (p + 2 * n) * h
+                + 5 * 2 * qc * n * p * h)
+    return fwd, bwd
+
+
+def kernel_flops(problems: dict, launches: dict) -> float:
+    """The products of the step's kernel launches on one device, from the
+    local problems the mesh hooks handed the kernels (``problems``, as
+    :func:`~repro_torch.models.layers.book_local_problems` books them)
+    times each kernel's launches (``launches``: the kernels' ``LAUNCHES``
+    keys): #5 Q K^T and P.V (2 mm, mm = 2 D Hq B pairs over the live
+    causal pairs), #6 Q K^T, dO V^T and dS K (3 mm), #7 Q K^T, dO V^T,
+    P^T dO and dS^T Q (4 mm); #8 and 8' by :func:`_ssd_products`.  A
+    cell hands each kernel family one local problem (all its layers
+    alike); more than one raises, since the launches could not be
+    apportioned."""
+    total = 0.0
+    for family, seen in problems.items():
+        if len(seen) != 1:
+            raise ValueError(f"{len(seen)} local {family} problems in one "
+                             f"step: {sorted(seen)}")
+        (problem,) = seen
+        if family == "attention":
+            b, hq, _, sq, skv, d, window = problem
+            if sq != skv:
+                raise ValueError(f"attention {sq} x {skv}: a train step's "
+                                 f"problems are square")
+            mm = 2.0 * d * hq * b * _live_pairs(sq, window)
+            total += (2 * mm * launches.get("flash_attention_fwd", 0)
+                      + 3 * mm * launches.get("flash_attention_dq", 0)
+                      + 4 * mm * launches.get("flash_attention_dkv", 0))
+        elif family == "ssd":
+            b, length, h, p, g, n, chunk = problem
+            fwd, bwd = _ssd_products(length, chunk, h, p, g, n)
+            total += b * (fwd * launches.get("ssd_scan", 0)
+                          + bwd * launches.get("ssd_scan_bwd", 0))
+        else:
+            raise ValueError(f"no products for kernel family {family}")
+    return total
+
+
+# ---- rank 0's share of the state ----------------------------------------
+
+
+def _local_init(name: str, shape, dtype, gen, device):
+    """Seeded local values of a parameter block: ones for norm gains and
+    the skip, zeros for biases and gates, a standard normal cut at +-2
+    times 0.02 elsewhere (the values are not read as results)."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf.endswith("norm") or leaf == "d_skip":
+        return torch.ones(shape, dtype=dtype, device=device)
+    if leaf in ("conv_b", "dt_bias", "gate"):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t.mul_(0.02).to(dtype)
+
+
+def _from_local(local, mesh, spec, shape):
+    from torch.distributed.tensor import DTensor
+
+    from ..models.common import placements
+    stride = tuple(int(np.prod(shape[i + 1:])) for i in range(len(shape)))
+    return DTensor.from_local(local, mesh, placements(spec, mesh),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
+def local_train_state(cfg: ArchConfig, mesh, specs: dict, device,
+                      seed: int = 0) -> dict:
+    """Rank 0's blocks of a fresh train state as DTensors on ``mesh``:
+    parameters from a generator seeded with ``seed``, AdamW moments in
+    the optimizer's dtype and ``count``/``step`` zero, each placed by
+    ``specs`` (:func:`~repro_torch.train.train_step.
+    make_train_state_specs`)."""
+    from ..models.common import local_shape
+    from ..models.model import param_shapes
+    from ..train.train_step import TrainStepConfig, _opt_cfg
+
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    state_dtype = _opt_cfg(cfg, TrainStepConfig()).state_dtype
+    params, m, v = {}, {}, {}
+    for name, (shape, dt) in param_shapes(cfg).items():
+        sp = specs["params"][name]
+        params[name] = _from_local(
+            _local_init(name, local_shape(shape, sp, mesh), dt, gen, device),
+            mesh, sp, shape)
+        for moments in (m, v):
+            ms = specs["opt"]["m"][name]
+            moments[name] = _from_local(torch.zeros(
+                local_shape(shape, ms, mesh), dtype=state_dtype,
+                device=device), mesh, ms, shape)
+    zero = lambda: _from_local(torch.zeros((), dtype=torch.int32,
+                                           device=device), mesh, (), ())
+    return {"params": params, "opt": {"m": m, "v": v, "count": zero()},
+            "step": zero()}
+
+
+def _state_bytes(state) -> int:
+    if isinstance(state, dict):
+        return sum(_state_bytes(v) for v in state.values())
+    return state.to_local().numel() * state.to_local().element_size()
+
+
+def _skip_reason(cfg: ArchConfig, shape: ShapeConfig):
+    if shape.kind == "decode" and shape.name == "long_500k" \
+            and not cfg.sub_quadratic:
+        return ("long_500k requires sub-quadratic attention "
+                "(full-attention arch; see DESIGN.md)")
+    if shape.kind != "train":
+        return (f"the {shape.kind} cells are ROADMAP queue 1 (with "
+                f"cache_logical_axes)")
+    if cfg.family not in SLICE_FAMILIES:
+        return f"the {cfg.family} family under a mesh: {_QUEUED}"
+    return None
+
+
+def _step_metrics(cfg: ArchConfig, shape: ShapeConfig, mesh, device,
+                  seed: int = 0) -> dict:
+    """Run rank 0's share of one train step of ``shape`` on ``mesh`` and
+    measure it (see the module's docstring)."""
+    from ..data import DataConfig, synthetic_batch
+    from ..kernels import flash_attention as FA
+    from ..kernels import ssd_scan as SS
+    from ..models.common import DEFAULT_RULES, axis_sizes
+    from ..models.layers import book_local_problems
+    from ..perf import flags
+    from ..train.train_step import (TrainStepConfig, batch_pspec,
+                                    make_train_state_specs, make_train_step)
+
+    rules = DEFAULT_RULES.replace(ff=None) if flags().replicate_ff \
+        else DEFAULT_RULES
+    ts = TrainStepConfig(zero1=flags().zero1, rules=rules)
+    specs = make_train_state_specs(cfg, mesh, ts)
+    state = local_train_state(cfg, mesh, specs, device, seed)
+    sizes = axis_sizes(mesh)
+    n_batch = int(np.prod([sizes[a] for a in (batch_pspec(mesh)[0] or ())]))
+    rows = shape.global_batch // n_batch
+    data = DataConfig(vocab=cfg.vocab, seq_len=shape.seq_len,
+                      global_batch=shape.global_batch, seed=seed)
+    local = torch.as_tensor(synthetic_batch(data, 0, slice(0, rows))
+                            ["tokens"], device=device)
+    tokens = _from_local(local, mesh, batch_pspec(mesh),
+                         (shape.global_batch, shape.seq_len))
+    step_fn = make_train_step(cfg, device, ts, donate=True, mesh=mesh)
+    arg_bytes = _state_bytes(state)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    FA.reset_launches()
+    SS.reset_launches()
+    t0 = time.perf_counter()
+    with book_local_problems() as problems, CollectiveCounter(mesh) \
+            as counter:
+        state, metrics = step_fn(state, {"tokens": tokens})
+    if cuda:
+        torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = {**FA.LAUNCHES, **SS.LAUNCHES}
+    kflops = kernel_flops(problems, launches)
+    peak = (torch.cuda.max_memory_allocated() - base) if cuda else None
+    return {
+        "flops": float(counter.flops + kflops),
+        "aten_flops": float(counter.flops),
+        "kernel_flops": float(kflops),
+        "collective_bytes_per_device": counter.per_device(),
+        "collective_bytes_by_phase_axis": counter.by_phase_axis,
+        "collectives": counter.table(),
+        "dp_gradient_bytes": dp_gradient_bytes(counter.by_phase_axis),
+        "collective_calls": counter.calls,
+        "memory": {"argument_bytes": arg_bytes, "output_bytes": arg_bytes,
+                   "temp_bytes": (None if peak is None
+                                  else max(0, peak - arg_bytes)),
+                   "peak_bytes": peak, "alias_bytes": None,
+                   "generated_code_bytes": None},
+        "launches": {k: int(v) for k, v in launches.items() if v},
+        "kernel_problems": {family: [[*problem, calls] for problem, calls
+                                     in seen.items()]
+                            for family, seen in problems.items()},
+        "step_seconds": step_s,
+        "per_device_batch": [rows, shape.seq_len],
+    }
+
+
+def lower_cell(arch: str, shape_name: str, multi_pod: bool, device=None, *,
+               cfg: ArchConfig | None = None, shape: ShapeConfig | None = None,
+               seed: int = 0) -> dict:
+    """Run cell (arch, shape, mesh) as rank 0 of the production mesh on
+    ``device`` (default: the card; ``"cpu"`` to run the kernels' plain
+    versions on the CPU) and return its record.  ``cfg`` / ``shape``
+    override the published config and the named shape (a reduced config,
+    a small shape)."""
+    from .._device import resolve_device
+    from .mesh import make_production_mesh
+
+    cfg = cfg if cfg is not None else get_arch(arch)
+    shape = shape if shape is not None else SHAPES[shape_name]
+    mesh_name = "2x16x16" if multi_pod else "16x16"
+    reason = _skip_reason(cfg, shape)
+    if reason is not None:
+        return {"status": "skipped", "arch": arch, "shape": shape_name,
+                "mesh": mesh_name, "reason": reason}
+    device = resolve_device(device)
+    if device.type == "cuda":
+        from ..kernels._build import extension
+        extension()                     # the kernels' build is set-up
+    n = 512 if multi_pod else 256
+    with fake_world(n):
+        mesh = make_production_mesh(multi_pod=multi_pod,
+                                    device_type=device.type)
+        main = _step_metrics(cfg, shape, mesh, device, seed)
+    return {
+        "status": "ok", "arch": arch, "shape": shape_name,
+        "mesh": mesh_name,
+        "perf_flags": os.environ.get("REPRO_PERF", ""),
+        "n_devices": n, "scan_reps": 0, "device": str(device),
+        "compile_seconds": None, "hlo_chars": None, "raw": None,
+        "probe": None, "bytes_accessed": None, "transcendentals": None,
+        **main,
+    }
+
+
+def cell_path(arch, shape_name, mesh_name):
+    os.makedirs(OUT_DIR, exist_ok=True)
+    return os.path.join(OUT_DIR, f"{arch}__{shape_name}__{mesh_name}.json")
+
+
+def run_cell(arch, shape_name, multi_pod, force=False, device=None):
+    """:func:`lower_cell`, its record written under :data:`OUT_DIR`
+    (and read from there unless ``force``); a failure is recorded."""
+    mesh_name = "pod2" if multi_pod else "pod1"
+    path = cell_path(arch, shape_name, mesh_name)
+    if os.path.exists(path) and not force:
+        with open(path) as f:
+            return json.load(f)
+    t0 = time.time()
+    try:
+        result = lower_cell(arch, shape_name, multi_pod, device)
+    except Exception as e:  # record failures: they are bugs to fix
+        result = {"status": "error", "arch": arch, "shape": shape_name,
+                  "mesh": mesh_name, "error": f"{type(e).__name__}: {e}",
+                  "traceback": traceback.format_exc()[-4000:]}
+    result["wall_seconds"] = round(time.time() - t0, 1)
+    with open(path, "w") as f:
+        json.dump(result, f, indent=1)
+    return result
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None, choices=[*sorted(ARCHS), None])
+    ap.add_argument("--shape", default=None, choices=[*SHAPES, None])
+    ap.add_argument("--mesh", default="pod1", choices=["pod1", "pod2", "both"])
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card; 'cpu' to run "
+                         "the kernels' plain versions on the CPU)")
+    args = ap.parse_args(argv)
+
+    meshes = {"pod1": [False], "pod2": [True], "both": [False, True]}[
+        args.mesh]
+    archs = [args.arch] if args.arch else list(ARCHS)
+    shapes = [args.shape] if args.shape else list(SHAPES)
+    cells = [(a, s, mp) for a in archs for s in shapes for mp in meshes]
+    ok = err = skip = 0
+    for a, s, mp in cells:
+        r = run_cell(a, s, mp, force=args.force, device=args.device)
+        tag = r["status"]
+        ok += tag == "ok"
+        err += tag == "error"
+        skip += tag == "skipped"
+        msg = r.get("error", "")[:120] if tag == "error" else (
+            f"flops={r.get('flops', 0):.3e} "
+            f"coll={r['collective_bytes_per_device']['total']:.3e}B"
+            if tag == "ok" else r.get("reason", ""))
+        print(f"[{tag:7s}] {a:24s} {s:12s} {'pod2' if mp else 'pod1'}  "
+              f"{msg}", flush=True)
+        if tag == "ok":
+            mem = r["memory"]
+            temp = mem["temp_bytes"]
+            print(f"          memory/device: "
+                  f"args={mem['argument_bytes'] / 2**30:.2f}GiB "
+                  f"temp={'n/a' if temp is None else f'{temp / 2**30:.2f}'}"
+                  f"GiB step={r['step_seconds']:.2f}s", flush=True)
+    print(f"done: {ok} ok, {skip} skipped, {err} errors")
+    sys.exit(1 if err else 0)
+
+
+if __name__ == "__main__":
+    main()

@@ -26,13 +26,21 @@ step.  ``REPRO_PERF`` (:mod:`repro_torch.perf`) applies, e.g.
 
 and a run whose flags differ from the defaults prints them on one line
 first.  On one card ``prob_bf16``, ``ssd_chunk`` and ``microbatch``
-change the computation; the mesh flags change nothing.  ``--n-layers``
+change the computation; the mesh flags act on a mesh only.  ``--n-layers``
 cuts the depth and keeps the width: recurrentgemma-9b's 38 layers need
 167 GB of train state; its first 3 (one rglru, rglru, attn group) need
 44 GB, and train on one 80 GB card:
 
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch recurrentgemma-9b --n-layers 3 --seq 4096 --batch 1 --steps 4
+
+``--zero1`` takes the ZeRO-1 gradient path (reduce-scatter over the
+data axis, a sharded update, an all-gather of the parameters), which
+acts on a mesh only.  ``--production-mesh`` trains on the (16, 16)
+production mesh, which needs a process group of 256 ranks (one a card,
+under a cluster launcher); with fewer it raises and names the dry run
+(:mod:`repro_torch.launch.dryrun`), which runs one rank's share of such
+a step on one card.
 """
 
 from __future__ import annotations
@@ -54,7 +62,8 @@ def train(arch: str, *, reduced: bool = False, steps: int = 200,
           seq: int = 128, batch: int = 4, lr: float = 1e-3,
           ckpt_dir: str = str(DEFAULT_CKPT_DIR), ckpt_every: int = 100,
           grad_compress: bool = False, seed: int = 0, log_every: int = 10,
-          device=None, fault_hook=None, n_layers=None):
+          device=None, fault_hook=None, n_layers=None, zero1: bool = False,
+          production_mesh: bool = False):
     """Build the trainer and run it to ``steps``; returns ``(trainer,
     state)``.  The published config of ``arch``, or its ``reduced()``
     variant with ``reduced=True``, cut to ``n_layers`` layers where
@@ -72,6 +81,10 @@ def train(arch: str, *, reduced: bool = False, steps: int = 200,
             f"with DataConfig(memory_tokens=seq // "
             f"{cfg.encoder.frame_ratio}, d_model={cfg.d_model})")
     device = resolve_device(device)
+    mesh = None
+    if production_mesh:
+        from .mesh import make_production_mesh
+        mesh = make_production_mesh(device_type=device.type)
     if non_default():
         print(f"[train] REPRO_PERF flags: {non_default()}")
     data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
@@ -85,8 +98,8 @@ def train(arch: str, *, reduced: bool = False, steps: int = 200,
         TrainStepConfig(
             optimizer=AdamWConfig(lr=cosine_schedule(
                 lr, warmup=min(20, steps // 10 + 1), total=steps)),
-            grad_compress=grad_compress),
-        device=device, fault_hook=fault_hook)
+            grad_compress=grad_compress, zero1=zero1),
+        device=device, fault_hook=fault_hook, mesh=mesh)
     if device.type == "cuda":
         from ..kernels._build import extension
         extension()                     # the kernels' build is set-up
@@ -113,6 +126,12 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--grad-compress", action="store_true",
                     help="error-feedback int8 gradient compression")
+    ap.add_argument("--zero1", action="store_true",
+                    help="ZeRO-1: reduce-scatter the replicated gradients "
+                         "over the data axis (acts on a mesh)")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="use the (16,16) production mesh (needs 256 "
+                         "devices: a process group of 256 ranks)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' to run "
                          "the kernels' plain versions on the CPU)")
@@ -121,7 +140,8 @@ def main(argv=None):
         args.arch, reduced=args.reduced, steps=args.steps, seq=args.seq,
         batch=args.batch, lr=args.lr, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, grad_compress=args.grad_compress,
-        seed=args.seed, device=args.device, n_layers=args.n_layers)
+        seed=args.seed, device=args.device, n_layers=args.n_layers,
+        zero1=args.zero1, production_mesh=args.production_mesh)
     hist = trainer.history
     if hist:
         ms = sorted(h.seconds for h in hist)[len(hist) // 2] * 1e3

@@ -13,32 +13,67 @@ the reference does outside any kernel, and updates the cache tensors in
 place.  Cross-attention (an ``Attention`` built with ``cross=True`` and
 given a memory) attends the memory through the kernel in every mode,
 decode included, as the reference does.
+
+On a mesh (``mesh``, a ``DeviceMesh``; training of the dense GQA
+family) the weights are DTensors placed by their specs and the
+activations follow them.  The mesh hooks are the reference's:
+``batch_axes_for`` (the batch over ``("pod", "data")`` where that
+divides it, over ``model`` too under the ``dp_over_model`` perf flag)
+and ``constrain_heads`` (q, k and v sharded over ``model`` by head where
+the head count divides it).  A weight sharded over the batch axes
+(``fsdp``) is all-gathered over them at its use, after the cast
+(:func:`cast_weight`), and its gradient comes back by reduce-scatter.
+The kernels run on each device's block through ``local_map``
+(:func:`local_attention`): DTensor has no sharding rule for them.  Under
+:func:`book_local_problems` the mesh hooks book the local problem each
+kernel call is handed (the dry run's kernel products).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
 from ..kernels.ref import attention_prob_bf16_ref
 from ..perf import flags
+from .common import axis_sizes, placements
 
 __all__ = ["rms_norm", "rope", "rope_table", "apply_rope", "cast_weight",
            "gelu", "silu", "truncated_normal", "constant", "Attention", "MLA",
-           "MLP", "KPOS_PAD"]
+           "MLP", "KPOS_PAD", "batch_axes_for", "constrain",
+           "branch_out", "constrain_heads", "gather_seq", "grad_layout",
+           "relayout",
+           "replicated",
+           "gather_fsdp", "book_local_problems", "kv_heads_read",
+           "attention_block", "local_attention", "local_embedding"]
 
 KPOS_PAD = 2 ** 30   # position of an empty slot of a linear cache
 
 
 def rms_norm(x, w, eps: float = 1e-5):
+    """x normalised over its last dim, times w.  A DTensor x gets its
+    gradient at its own placements (:func:`grad_layout`)."""
+    if isinstance(x, DTensor):
+        x = grad_layout(x)
     xf = x.float()
-    var = (xf * xf).mean(-1, keepdim=True)
+    if isinstance(x, DTensor) and any(p.is_shard(x.dim() - 1)
+                                      for p in x.placements):
+        # x's last dim is sharded (a gated norm over model-sharded
+        # channels): all-reduce the (B, S, 1) sum of squares, no more
+        var = (xf * xf).sum(-1, keepdim=True)
+        var = var.redistribute(var.device_mesh, [
+            Replicate() if p.is_partial() else p
+            for p in var.placements]) / x.shape[-1]
+    else:
+        var = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
@@ -81,8 +116,12 @@ def cast_weight(module: nn.Module, name: str, dtype):
     recording a trainable weight, so is the cast here (gradients reach
     the float32 weight); otherwise the cast is made once and reused until
     the parameter changes (same values, one launch and one pass over the
-    weights less per use)."""
+    weights less per use).  A DTensor weight is cast and then
+    all-gathered over the batch axes it is sharded over
+    (:func:`gather_fsdp`)."""
     w = getattr(module, name)
+    if isinstance(w, DTensor):
+        return gather_fsdp(w if w.dtype == dtype else w.to(dtype))
     if w.dtype == dtype:
         return w
     if w.requires_grad and torch.is_grad_enabled():
@@ -94,6 +133,283 @@ def cast_weight(module: nn.Module, name: str, dtype):
         hit = (w, w._version, w.detach().to(dtype))
         cache[name] = hit
     return hit[2]
+
+
+# ---------------------------------------------------------------------------
+# Mesh hooks (DTensor)
+# ---------------------------------------------------------------------------
+
+_BATCH_AXES = ("pod", "data")
+
+
+def batch_axes_for(mesh, bsz: int, model_dim_divisible: bool) -> tuple:
+    """Mesh axes carrying the batch dim.  With the dp_over_model perf
+    flag, blocks whose model-parallel dim does NOT divide the model axis
+    spread the batch over it instead of replicating (the reference's
+    rule)."""
+    sizes = axis_sizes(mesh)
+    batch_axes = tuple(a for a in _BATCH_AXES if a in sizes)
+    nb = int(np.prod([sizes[a] for a in batch_axes])) if batch_axes else 1
+    mp = sizes.get("model", 1)
+    if (flags().dp_over_model and not model_dim_divisible and mp > 1
+            and bsz % (nb * mp) == 0):
+        return batch_axes + ("model",)
+    return batch_axes if (batch_axes and bsz % nb == 0) else ()
+
+
+def branch_out(x, w):
+    """``x @ w``, a residual branch's last product.  On DTensors the
+    product is float32 (bf16 operands multiply exactly there, and the
+    sum runs in float32 as in a bf16 GEMM): a contraction sharded over
+    ``model`` leaves float32 partial sums, reduced in float32 and
+    rounded to bf16 once, after the reduction, as the reference's
+    compiled program does."""
+    if isinstance(x, DTensor):
+        return x.float() @ w.float()
+    return x @ w
+
+
+class _GradLayout(torch.autograd.Function):
+    """Identity forward; the backward redistributes the gradient to the
+    forward input's placements, in float32 where it is reduced."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) != ctx.placements:
+            dtype = grad.dtype
+            grad = grad.float().redistribute(ctx.mesh, ctx.placements) \
+                .to(dtype)
+        return grad
+
+
+def grad_layout(x):
+    """DTensor x unchanged, its gradient reduced to x's placements where
+    it flows back (a partial sum over ``model`` from a sharded product is
+    all-reduced, or reduce-scattered where x is sequence-sharded) before
+    autograd adds it to the residual's: the layout GSPMD gives the
+    reference's gradients."""
+    return _GradLayout.apply(x)
+
+
+class _Relayout(torch.autograd.Function):
+    """``x.redistribute(mesh, want)``; the backward takes the gradient
+    to x's placements, except that a partial sum stays one where x was
+    replicated (its reduction is the train step's, in float32)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, want):
+        ctx.mesh, ctx.src = mesh, tuple(x.placements)
+        return x.redistribute(mesh, want)
+
+    @staticmethod
+    def backward(ctx, grad):
+        back = tuple(g if (s.is_replicate() and g.is_partial()) else s
+                     for s, g in zip(ctx.src, grad.placements))
+        if back != tuple(grad.placements):
+            grad = grad.redistribute(ctx.mesh, back)
+        return grad, None, None
+
+
+def relayout(w, mesh, spec):
+    """A weight redistributed to ``spec`` for its use, its gradient back
+    at the weight's placements but left a partial sum over the axes the
+    weight is replicated on (:class:`_Relayout`): an all-gather over
+    ``model`` in the forward, a reduce-scatter over ``model`` in the
+    backward, and no early data-parallel reduction."""
+    want = placements(spec, mesh)
+    return w if tuple(w.placements) == want else \
+        _Relayout.apply(w, mesh, want)
+
+
+def constrain(x, mesh, spec):
+    """``x`` redistributed to ``spec`` on ``mesh`` (the reference's
+    ``with_sharding_constraint``)."""
+    want = placements(spec, mesh)
+    return x if tuple(x.placements) == want else x.redistribute(mesh, want)
+
+
+def constrain_heads(x, mesh):
+    """(B, H, S, D) activations sharded by head over ``model`` where H
+    divides it, the batch by :func:`batch_axes_for`; replicated heads
+    otherwise (the reference's ``_constrain_heads``)."""
+    if mesh is None:
+        return x
+    sizes = axis_sizes(mesh)
+    heads_ok = "model" in sizes and x.shape[1] % sizes["model"] == 0
+    bspec = batch_axes_for(mesh, x.shape[0], heads_ok) or None
+    hspec = "model" if (heads_ok and "model" not in (bspec or ())) else None
+    return constrain(x, mesh, (bspec, hspec, None, None))
+
+
+def gather_seq(h):
+    """A DTensor h (B, S, M) whose sequence is sharded (sequence
+    parallelism) all-gathered over the sequence, the normed input of a
+    block's products (Megatron-SP: norm on the shard, gather, then
+    project); anything else unchanged."""
+    if not isinstance(h, DTensor) or not any(p.is_shard(1)
+                                             for p in h.placements):
+        return h
+    return h.redistribute(h.device_mesh, [
+        Replicate() if p.is_shard(1) else p for p in h.placements])
+
+
+def replicated(t, mesh):
+    """A plain tensor (every device holds the same values: a rotary
+    table, positions) as a replicated DTensor."""
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def gather_fsdp(w):
+    """DTensor ``w`` all-gathered over the batch axes (``pod``,
+    ``data``) it is sharded over, its model-axis sharding kept; its
+    gradient comes back by reduce-scatter (:class:`_Relayout`)."""
+    mesh = w.device_mesh
+    want = tuple(Replicate() if name in _BATCH_AXES and p.is_shard() else p
+                 for name, p in zip(mesh.mesh_dim_names, w.placements))
+    return w if want == tuple(w.placements) else \
+        _Relayout.apply(w, mesh, want)
+
+
+def _model_rank(mesh) -> int:
+    return mesh.get_local_rank("model") if "model" in \
+        mesh.mesh_dim_names else 0
+
+
+def _model_dim(mesh):
+    names = mesh.mesh_dim_names
+    return names.index("model") if "model" in names else None
+
+
+_PROBLEMS: list = []
+
+
+@contextlib.contextmanager
+def book_local_problems():
+    """Within the block, the mesh hooks book each kernel call's local
+    problem: yields ``{kernel family: {problem: calls}}``, the family
+    ``"attention"`` with problems ``(B, Hq, Hkv, Sq, Skv, D, window)``
+    (causal) as :func:`attention_block` hands them to the kernel, and
+    ``"ssd"`` with ``(B, L, H, P, G, N, chunk)``."""
+    seen: dict = {}
+    _PROBLEMS.append(seen)
+    try:
+        yield seen
+    finally:
+        _PROBLEMS.remove(seen)
+
+
+def _book(family: str, problem: tuple) -> None:
+    for seen in _PROBLEMS:
+        calls = seen.setdefault(family, {})
+        calls[problem] = calls.get(problem, 0) + 1
+
+
+def kv_heads_read(hq: int, hkv: int, n_model: int, model_rank: int):
+    """``(lo, hi)``: the kv heads that model rank ``model_rank``'s q heads
+    read where the ``hq`` q heads are split ``n_model`` ways and the
+    ``hkv`` kv heads are not, under the global group map (q head h reads
+    kv head h // (hq / hkv)).  Raises where the local q heads do not
+    read whole kv groups, as the kernel's own map on the local heads
+    needs."""
+    group = hq // hkv
+    hq_l = hq // n_model
+    first = model_rank * hq_l
+    lo, hi = first // group, (first + hq_l - 1) // group + 1
+    if hq_l % (hi - lo) or any(
+            (first + h) // group - lo != h // (hq_l // (hi - lo))
+            for h in range(hq_l)):
+        raise NotImplementedError(
+            f"{hq_l} of {hq} q heads a device over {hkv} kv heads: the "
+            f"local q heads do not read whole kv groups")
+    return lo, hi
+
+
+def attention_block(ql, kl, vl, kv=None, **opts):
+    """:func:`repro_torch.kernels.ops.attention` on one device's block,
+    k and v first cut to the kv heads ``kv = (lo, hi)`` where given
+    (:func:`kv_heads_read`); the call's problem is booked
+    (:func:`book_local_problems`)."""
+    if kv is not None:
+        kl, vl = kl[:, kv[0]:kv[1]], vl[:, kv[0]:kv[1]]
+    _book("attention", (ql.shape[0], ql.shape[1], kl.shape[1], ql.shape[2],
+                        kl.shape[2], ql.shape[3], opts.get("window")))
+    return ops.attention(ql, kl, vl, **opts)
+
+
+def local_attention(q, k, v, mesh, **opts):
+    """:func:`attention_block` on each device's block of DTensors q (B,
+    Hq, S, D) and k, v (B, Hkv, T, D), through ``local_map``; the output
+    is placed as q.  Where q is sharded by head over ``model`` and k, v
+    are not (fewer kv heads than the axis), each device hands the kernel
+    the kv heads its q heads read under the global group map
+    (:func:`kv_heads_read`), so the kernel's own map on the local heads
+    stays right; the gradients of k and v are then partial sums over
+    ``model``."""
+    from torch.distributed.tensor.experimental import local_map
+
+    md = _model_dim(mesh)
+    q_split = md is not None and q.placements[md] == Shard(1)
+    kv_split = md is not None and k.placements[md] == Shard(1)
+    kv_grad = tuple(k.placements)
+    kv = None
+    if q_split and not kv_split:
+        kv = kv_heads_read(q.shape[1], k.shape[1], mesh.size(md),
+                           _model_rank(mesh))
+        kv_grad = tuple(Partial() if i == md else p
+                        for i, p in enumerate(k.placements))
+        # the partial dk and dv are all-reduced over model right here,
+        # not left for DTensor to scatter and gather again
+        k, v = grad_layout(k), grad_layout(v)
+
+    def run(ql, kl, vl):
+        return attention_block(ql, kl, vl, kv, **opts)
+
+    fn = local_map(run, out_placements=(tuple(q.placements),),
+                   in_placements=(tuple(q.placements), tuple(k.placements),
+                                  tuple(v.placements)),
+                   in_grad_placements=(tuple(q.placements), kv_grad,
+                                       kv_grad),
+                   device_mesh=mesh)
+    return fn(q, k, v)
+
+
+def local_embedding(tokens, embed, mesh):
+    """``F.embedding(tokens, embed)`` on DTensors, the table's rows (the
+    vocabulary) sharded over ``model``, through ``local_map`` as
+    Megatron's vocab-parallel embedding: each device looks up the tokens
+    that fall in its rows, zeros elsewhere, so the output is a partial
+    sum over ``model`` (one nonzero term an entry: its sum is exact) in
+    the table's dtype, and the table's gradient stays in its rows."""
+    from torch.distributed.tensor.experimental import local_map
+
+    md = _model_dim(mesh)
+    tp, ep = tuple(tokens.placements), tuple(embed.placements)
+    if md is None or ep[md] != Shard(0):
+        return F.embedding(tokens, embed)
+    rows = embed.shape[0] // mesh.size(md)
+    lo = _model_rank(mesh) * rows
+    batch_dims = [i for i, p in enumerate(tp) if p == Shard(0)]
+
+    def run(tok, w):
+        tok = tok.long() - lo
+        live = (tok >= 0) & (tok < rows)
+        out = F.embedding(torch.where(live, tok, 0), w)
+        return out * live[..., None].to(out.dtype)
+
+    out_pl = tuple(Partial() if i == md else
+                   (Shard(0) if i in batch_dims else Replicate())
+                   for i in range(mesh.ndim))
+    grad_pl = tuple(Partial() if i in batch_dims else p
+                    for i, p in enumerate(ep))
+    fn = local_map(run, out_placements=(out_pl,), in_placements=(tp, ep),
+                   in_grad_placements=(tp, grad_pl), device_mesh=mesh)
+    return fn(tokens, embed)
 
 
 def truncated_normal(shape, dtype, device, generator, scale=None,
@@ -151,28 +467,40 @@ class Attention(nn.Module):
             self.gate = constant((), 0.0, dt, device)
 
     def forward(self, x, *, positions, mode: str, cache=None, window=None,
-                cache_slots=None, rope_tab=None, memory=None):
+                cache_slots=None, rope_tab=None, memory=None, mesh=None):
         """mode 'train' (positions (S,); causal, the config's window, no
         cache), 'prefill' (positions (S,); returns the cache) or 'decode'
         (S = 1, positions (B, 1); cache updated in place); ``rope_tab``
         the positions' :func:`rope_table` where the caller has it.  With
         a ``memory`` (B, T, M), the layer cross-attends it instead (see
-        :meth:`_cross`).  Returns ``(y (B, S, M), cache)``, the cache
-        None in training."""
+        :meth:`_cross`).  ``mesh``: training on a mesh, x and the weights
+        DTensors, ``rope_tab`` replicated DTensors (see the module's
+        docstring).  Returns ``(y (B, S, M), cache)``, the cache None in
+        training."""
         if memory is not None:
             return self._cross(x, mode, cache, memory)
+        if mesh is not None and mode != "train":
+            raise NotImplementedError(
+                "a mesh shards training only; the prefill and decode cells "
+                "are ROADMAP queue 1")
         cfg = self.cfg
         b, s, _ = x.shape
         hq, dh = self.wq.shape[1], self.wq.shape[2]
-        h = rms_norm(x, self.norm, cfg.norm_eps)
-        q = _project(h, cast_weight(self, "wq", h.dtype))
-        k = _project(h, cast_weight(self, "wk", h.dtype))
-        v = _project(h, cast_weight(self, "wv", h.dtype))
+        h = gather_seq(rms_norm(x, self.norm, cfg.norm_eps))
+        q = constrain_heads(_project(h, cast_weight(self, "wq", h.dtype)),
+                            mesh)
+        k = constrain_heads(_project(h, cast_weight(self, "wk", h.dtype)),
+                            mesh)
+        v = constrain_heads(_project(h, cast_weight(self, "wv", h.dtype)),
+                            mesh)
         if rope_tab is None:
             rope_tab = rope_table(positions, dh, cfg.rope_theta, x.device)
         q = apply_rope(q, rope_tab)
         k = apply_rope(k, rope_tab)
-        if mode == "train":
+        if mode == "train" and mesh is not None:
+            out = local_attention(q, k, v, mesh, causal=True, window=window)
+            new_cache = None
+        elif mode == "train":
             out = ops.attention(q, k, v, causal=True, window=window)
             new_cache = None
         elif mode == "prefill":
@@ -188,8 +516,9 @@ class Attention(nn.Module):
     def _out(self, out):
         """``einsum('bhsd,hdm->bsm', out, wo)``."""
         b, hq, s, dh = out.shape
-        return out.transpose(1, 2).reshape(b, s, hq * dh) \
-            @ cast_weight(self, "wo", out.dtype).reshape(hq * dh, -1)
+        return branch_out(out.transpose(1, 2).reshape(b, s, hq * dh),
+                          cast_weight(self, "wo", out.dtype)
+                          .reshape(hq * dh, -1))
 
     def _cross(self, x, mode, cache, memory):
         """Gated cross-attention to ``memory`` (the reference's
@@ -445,11 +774,12 @@ class MLP(nn.Module):
         """x (B, S, M); ``skip_norm`` takes x as already normed (MoE's
         shared expert)."""
         cfg = self.cfg
-        h = x if skip_norm else rms_norm(x, self.norm, cfg.norm_eps)
+        h = x if skip_norm else gather_seq(rms_norm(x, self.norm,
+                                                    cfg.norm_eps))
         act = _ACTS[cfg.mlp_act]
         up = h @ cast_weight(self, "w_up", h.dtype)
         if cfg.mlp_act.endswith("_glu"):
             hidden = act(h @ cast_weight(self, "w_gate", h.dtype)) * up
         else:
             hidden = act(up)
-        return hidden @ cast_weight(self, "w_down", h.dtype)
+        return branch_out(hidden, cast_weight(self, "w_down", h.dtype))

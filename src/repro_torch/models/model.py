@@ -11,19 +11,104 @@ Model` (an ``nn.Module``).  The batch is axis 0 of every cache leaf
 (the cross layers' ``k``, ``v`` and ``enc_memory`` too), so
 ``concat_caches`` concatenates there (the reference needs
 ``cache_logical_axes`` to find it under its stacked layer axis).
+
+:func:`param_axes` gives every parameter the logical axes that the
+reference's ``box(...)`` calls give its weight, and
+:meth:`ModelBundle.param_specs` resolves them onto a mesh.  The
+reference stacks its scanned layers, so its body leaves have a leading
+layer dim whose spec is ``None``; the port's layers are one module each,
+and a parameter's spec is the reference leaf's without that dim.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
-from .transformer import Model, count_params, forward, model_flops
+from .common import DEFAULT_RULES, ShardingRules, resolve_specs
+from .layers import MLA, MLP, Attention
+from .moe import MoE
+from .rglru import RGLRUBlock
+from .ssm import SSDBlock
+from .transformer import (Encoder, Model, MTPHead, count_params, forward,
+                          model_flops)
 
-__all__ = ["ModelBundle", "build", "loss_fn"]
+__all__ = ["ModelBundle", "build", "loss_fn", "param_axes",
+           "param_shapes"]
+
+
+def _leaf_axes(module, leaf: str) -> tuple:
+    """The reference's logical axes of parameter ``leaf`` of ``module``
+    (its ``init_*`` functions' ``box`` calls)."""
+    cfg = getattr(module, "cfg", None)
+    e = "fsdp" if cfg is not None and cfg.fsdp else None
+    if isinstance(module, Model):
+        table = {"embed": ("vocab", e), "lm_head": (e, "vocab"),
+                 "final_norm": (None,)}
+    elif isinstance(module, Attention):
+        table = {"wq": (e, "heads", None), "wk": (e, "kv_heads", None),
+                 "wv": (e, "kv_heads", None), "wo": ("heads", None, e),
+                 "norm": (None,), "gate": ()}
+    elif isinstance(module, MLA):
+        table = {"wq_a": (e, None), "q_norm": (None,),
+                 "wq_b": (None, "heads", None), "wkv_a": (e, None),
+                 "kv_norm": (None,), "wkv_b": (None, "heads", None),
+                 "wo": ("heads", None, e), "norm": (None,)}
+    elif isinstance(module, MLP):
+        table = {"norm": (None,), "w_gate": (e, "ff"), "w_up": (e, "ff"),
+                 "w_down": ("ff", e)}
+    elif isinstance(module, MoE):
+        table = {"norm": (None,), "router": (None, None),
+                 "w_gate": ("expert", None, "expert_ff"),
+                 "w_up": ("expert", None, "expert_ff"),
+                 "w_down": ("expert", "expert_ff", None)}
+    elif isinstance(module, SSDBlock):
+        table = {"norm": (None,), "in_proj": (e, "ff"),
+                 "conv_w": ("conv", "ff"), "conv_b": ("ff",),
+                 "a_log": (None,), "dt_bias": (None,), "d_skip": (None,),
+                 "gate_norm": ("ff",), "out_proj": ("ff", e)}
+    elif isinstance(module, RGLRUBlock):
+        table = {"norm": (None,), "w_x": (e, "ff"), "w_gate": (e, "ff"),
+                 "conv_w": ("conv", "ff"), "conv_b": ("ff",),
+                 "w_a": ("ff", None), "w_i": ("ff", None),
+                 "a_param": ("ff",), "w_out": ("ff", e)}
+    elif isinstance(module, Encoder):
+        table = {"adapter": (None, None), "final_norm": (None,)}
+    elif isinstance(module, MTPHead):
+        table = {"proj": (None, None), "norm": (None,)}
+    else:
+        raise KeyError(f"no logical axes for {type(module).__name__}")
+    return table[leaf]
+
+
+@functools.lru_cache(maxsize=None)
+def _meta_params(cfg: ArchConfig) -> tuple:
+    """``(name, shape, dtype, axes)`` of every parameter, from a model
+    on the meta device (nothing allocated)."""
+    model = Model(cfg, device="meta")
+    out = []
+    for name, p in model.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        axes = _leaf_axes(model.get_submodule(owner), leaf)
+        assert len(axes) == p.dim(), (name, tuple(p.shape), axes)
+        out.append((name, tuple(p.shape), p.dtype, axes))
+    return tuple(out)
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """``{parameter name: logical axes}``, one axis name (or None) per
+    dim, as the reference's ``box`` calls give them."""
+    return {name: axes for name, _, _, axes in _meta_params(cfg)}
+
+
+def param_shapes(cfg: ArchConfig) -> dict:
+    """``{parameter name: (shape, dtype)}`` of the global parameters."""
+    return {name: (shape, dt) for name, shape, dt, _ in _meta_params(cfg)}
 
 
 def _cross_entropy(logits, targets, mask):
@@ -34,7 +119,42 @@ def _cross_entropy(logits, targets, mask):
     return ((lse - gold) * mask).sum() / mask.sum().clamp(min=1.0)
 
 
-def loss_fn(cfg: ArchConfig, params: Model, batch) -> tuple:
+def _sharded_cross_entropy(logits, tokens, mesh, shift: int = 1):
+    """:func:`_cross_entropy` of DTensor logits (B, S, V), the last
+    ``shift`` positions masked, without gathering them: each batch block
+    sums its rows' cross-entropies, vocab-parallel over ``model``
+    through ``loss_parallel`` on the model axis (the train step runs its
+    backward under the same context) where the logits are sharded there;
+    the block sums are added over the batch axes by one all-reduce of a
+    scalar, and the sum is divided by the global count of unmasked
+    targets.  Returns a replicated 0-d DTensor."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    names = mesh.mesh_dim_names
+    pl = tuple(logits.placements)
+    local = logits.to_local(grad_placements=pl)
+    tok = tokens.to_local() if isinstance(tokens, DTensor) else tokens
+    targets = torch.roll(tok, -shift, dims=1).long()
+    targets[:, -shift:] = -100
+    md = names.index("model") if "model" in names else None
+    if md is not None and pl[md] == Shard(2):
+        lp = DTensor.from_local(local, mesh["model"], [Shard(2)],
+                                run_check=False)
+        block = F.cross_entropy(lp.flatten(0, 1), targets.flatten(),
+                                ignore_index=-100, reduction="sum")
+        block = block.to_local(grad_placements=[Replicate()])
+    else:
+        block = F.cross_entropy(local.flatten(0, 1), targets.flatten(),
+                                ignore_index=-100, reduction="sum")
+    total = DTensor.from_local(
+        block, mesh, [Partial() if p == Shard(0) else Replicate()
+                      for p in pl], run_check=False)
+    total = total.redistribute(mesh, [Replicate()] * mesh.ndim)
+    b, s = logits.shape[0], logits.shape[1]
+    return total / float(b * (s - shift))
+
+
+def loss_fn(cfg: ArchConfig, params: Model, batch, *, mesh=None) -> tuple:
     """Next-token cross-entropy plus the MoE layers' aux loss (0 for dense
     models) plus, for an MTP config, 0.3 times the MTP head's
     cross-entropy two tokens ahead: ``(loss, {"ce", "aux"[, "mtp"]})``.
@@ -44,15 +164,24 @@ def loss_fn(cfg: ArchConfig, params: Model, batch) -> tuple:
     in float32.  A gather takes the place of the reference's one-hot
     contraction, which it equals (that form exists to keep vocab-sharded
     logits sharded).  ``batch["memory"]`` (B, T, M), where the config
-    takes one, goes to the forward as its memory inputs."""
+    takes one, goes to the forward as its memory inputs.  ``mesh``:
+    training on a mesh (``batch["tokens"]`` a DTensor over the batch
+    axes, see :func:`~repro_torch.models.transformer.forward`); the
+    cross-entropy then runs on the vocab-parallel logits
+    (:func:`_sharded_cross_entropy`), and loss and metrics are
+    replicated DTensors."""
     tokens = batch["tokens"]
     out = forward(params, tokens, mode="train",
-                  memory_inputs=batch.get("memory"))
+                  memory_inputs=batch.get("memory"), mesh=mesh)
     logits = out["logits"]
-    mask = torch.ones(tokens.shape, dtype=torch.float32,
-                      device=logits.device)
-    mask[:, -1] = 0.0
-    ce = _cross_entropy(logits, torch.roll(tokens, -1, dims=1).long(), mask)
+    if mesh is not None:
+        ce = _sharded_cross_entropy(logits, tokens, mesh)
+    else:
+        mask = torch.ones(tokens.shape, dtype=torch.float32,
+                          device=logits.device)
+        mask[:, -1] = 0.0
+        ce = _cross_entropy(logits, torch.roll(tokens, -1, dims=1).long(),
+                            mask)
     metrics = {"ce": ce, "aux": out["aux"]}
     loss = ce + out["aux"]
     if "mtp_logits" in out:
@@ -76,9 +205,16 @@ class ModelBundle:
         gen = torch.Generator(device=device).manual_seed(int(seed))
         return Model(self.cfg, device=device, generator=gen)
 
-    def loss(self, params: Model, batch):
+    def loss(self, params: Model, batch, *, mesh=None):
         """:func:`loss_fn` of this bundle's config."""
-        return loss_fn(self.cfg, params, batch)
+        return loss_fn(self.cfg, params, batch, mesh=mesh)
+
+    def param_specs(self, mesh, rules: ShardingRules = DEFAULT_RULES
+                    ) -> dict:
+        """``{parameter name: spec}`` on ``mesh`` (the reference's
+        ``param_specs`` without the stacked layer dim)."""
+        return {name: resolve_specs(axes, rules, mesh, shape)
+                for name, shape, _, axes in _meta_params(self.cfg)}
 
     @torch.no_grad()
     def prefill(self, params: Model, tokens, *, memory=None,

@@ -21,7 +21,10 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..kernels import ops
 from ..perf import flags
-from .layers import cast_weight, constant, rms_norm, truncated_normal
+from .common import _names, axis_sizes
+from .layers import (_book, batch_axes_for, branch_out, cast_weight,
+                     constant, constrain, relayout, rms_norm,
+                     truncated_normal)
 
 __all__ = ["SSDBlock", "ssd_block_cache_shape"]
 
@@ -53,6 +56,71 @@ def _causal_conv(x, w, b):
     return (out + b.float()).to(x.dtype)
 
 
+def _local_conv(x, w, b, *, mesh):
+    """:func:`_causal_conv` of DTensors on each device's block through
+    ``local_map``: x's rows over the batch axes, the channels whole;
+    the weights' gradients are partial sums over the batch axes."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    x = constrain(x, mesh, (tuple(n for n, p in zip(
+        mesh.mesh_dim_names, x.placements) if p.is_shard(0)) or None,
+        None, None))
+    xp = tuple(x.placements)
+    wg = tuple(Partial() if p.is_shard(0) else p for p in xp)
+    fn = local_map(_causal_conv, out_placements=(xp,),
+                   in_placements=(xp, tuple(w.placements),
+                                  tuple(b.placements)),
+                   in_grad_placements=(xp, wg, wg), device_mesh=mesh)
+    return fn(x, w, b)
+
+
+def _local_ssd(xs, dt, a_log, bmat, cmat, d_skip, mesh, *, chunk: int):
+    """:func:`repro_torch.kernels.ops.ssd` (no initial state) on each
+    device's block of DTensors, through ``local_map``: the batch over
+    :func:`~repro_torch.models.layers.batch_axes_for`'s axes, the heads
+    over ``model`` where their count divides it, B and C (shared by the
+    heads of a group) and the per-head ``a_log`` and ``d_skip`` placed to
+    match.  Gradients of what every device of a batch block shares are
+    partial sums: B and C over ``model`` where the heads are split,
+    ``a_log`` and ``d_skip`` over the batch axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    sizes = axis_sizes(mesh)
+    n_heads = xs.shape[2]
+    heads_ok = "model" in sizes and n_heads % sizes["model"] == 0
+    bspec = batch_axes_for(mesh, xs.shape[0], heads_ok) or None
+    hspec = "model" if (heads_ok and "model" not in (bspec or ())) else None
+    xs = constrain(xs, mesh, (bspec, None, hspec, None))
+    dt = constrain(dt, mesh, (bspec, None, hspec))
+    bmat = constrain(bmat, mesh, (bspec, None, None, None))
+    cmat = constrain(cmat, mesh, (bspec, None, None, None))
+    a_log = relayout(a_log, mesh, (hspec,))
+    d_skip = relayout(d_skip, mesh, (hspec,))
+    names = mesh.mesh_dim_names
+    batch_names = set(_names(bspec))
+    bc_grad = tuple(Partial() if n == hspec else p
+                    for n, p in zip(names, bmat.placements))
+    head_grad = tuple(Partial() if n in batch_names else p
+                      for n, p in zip(names, a_log.placements))
+    state_pl = tuple(Shard(0) if n in batch_names else
+                     Shard(1) if n == hspec else Replicate() for n in names)
+
+    def run(x, t, a, bm, cm, d):
+        _book("ssd", (*x.shape, *bm.shape[2:], chunk))
+        return ops.ssd(x, t, a, bm, cm, d, chunk=chunk)
+
+    fn = local_map(
+        run, out_placements=(tuple(xs.placements), state_pl),
+        in_placements=tuple(tuple(t.placements) for t in
+                            (xs, dt, a_log, bmat, cmat, d_skip)),
+        in_grad_placements=(tuple(xs.placements), tuple(dt.placements),
+                            head_grad, bc_grad, bc_grad, head_grad),
+        device_mesh=mesh)
+    return fn(xs, dt, a_log, bmat, cmat, d_skip)
+
+
 class SSDBlock(nn.Module):
     """Parameters as the reference's ``init_ssd_block``: ``norm``,
     ``in_proj`` (M, 2 d_inner + 2 G N + H), ``conv_w`` (d_conv,
@@ -81,18 +149,33 @@ class SSDBlock(nn.Module):
         self.gate_norm = const((d_inner,), 1.0)
         self.out_proj = tn((d_inner, m))
 
-    def forward(self, x, *, mode: str, cache=None):
+    def forward(self, x, *, mode: str, cache=None, mesh=None):
         """mode 'prefill' (returns the cache; a given ``cache["state"]``
         is the scan's initial state), 'train' (the prefill's branch with
         no cache in or out, as in the reference) or 'decode' (S = 1,
-        advances ``cache``).  Returns ``(y (B, S, M), cache)``, the cache
+        advances ``cache``).  ``mesh``: training on a mesh (x and the
+        weights DTensors; the scan on each device's block, see
+        :func:`_local_ssd`).  Returns ``(y (B, S, M), cache)``, the cache
         None in training."""
+        if mesh is not None and mode != "train":
+            raise NotImplementedError(
+                "a mesh shards training only; the prefill and decode cells "
+                "are ROADMAP queue 1")
         cfg, ssm = self.cfg, self.cfg.ssm
         b, s, _ = x.shape
         d_inner, h, conv_dim = _dims(cfg)
         gn = ssm.n_groups * ssm.d_state
         hidden = rms_norm(x, self.norm, cfg.norm_eps)
-        zxbcdt = hidden @ cast_weight(self, "in_proj", hidden.dtype)
+        w_in = cast_weight(self, "in_proj", hidden.dtype)
+        conv_w, conv_b = self.conv_w, self.conv_b
+        if mesh is not None:
+            # the in_proj columns and the conv channels split z, x B C
+            # and dt at no boundary of theirs: gather the weights (a few
+            # MB) rather than the activations, which the heads then
+            # split again for free
+            w_in, conv_w, conv_b = (relayout(w, mesh, (None,) * w.dim())
+                                    for w in (w_in, conv_w, conv_b))
+        zxbcdt = hidden @ w_in
         z, xbc, dt_raw = torch.split(zxbcdt, [d_inner, conv_dim, h], dim=-1)
 
         if mode == "decode":
@@ -102,7 +185,9 @@ class SSDBlock(nn.Module):
             xbc_act = F.silu(conv_out).to(x.dtype)[:, None]
             new_conv = window[:, 1:]
         elif mode in ("prefill", "train"):
-            xbc_act = F.silu(_causal_conv(xbc, self.conv_w, self.conv_b)
+            conv = _causal_conv if mesh is None else \
+                functools.partial(_local_conv, mesh=mesh)
+            xbc_act = F.silu(conv(xbc, conv_w, conv_b)
                              .float()).to(x.dtype)
             if mode == "prefill":
                 pad = max(0, ssm.d_conv - 1 - s)
@@ -122,6 +207,10 @@ class SSDBlock(nn.Module):
                 cache["state"], xs[:, 0], dt[:, 0], self.a_log, bmat[:, 0],
                 cmat[:, 0], self.d_skip)
             y = y_t[:, None]
+        elif mesh is not None:
+            y, new_state = _local_ssd(xs, dt, self.a_log, bmat, cmat,
+                                      self.d_skip, mesh,
+                                      chunk=flags().ssd_chunk or ssm.chunk)
         else:
             # a cache given at prefill seeds the scan's state, as in the
             # reference (its conv tail is not read there either)
@@ -136,4 +225,5 @@ class SSDBlock(nn.Module):
         y = y.reshape(b, -1, d_inner)
         y = rms_norm(y * F.silu(z.float()).to(y.dtype), self.gate_norm,
                      cfg.norm_eps)
-        return y @ cast_weight(self, "out_proj", y.dtype), new_cache
+        return branch_out(y, cast_weight(self, "out_proj", y.dtype)), \
+            new_cache

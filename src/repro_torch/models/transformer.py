@@ -34,8 +34,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
-from .layers import (MLA, MLP, Attention, cast_weight, rms_norm, rope_table,
-                     truncated_normal)
+from .common import axis_sizes
+from .layers import (MLA, MLP, Attention, batch_axes_for, cast_weight,
+                     constrain, gather_fsdp, gather_seq, local_embedding,
+                     replicated, rms_norm, rope_table, truncated_normal)
 from .moe import MoE
 from .rglru import RGLRUBlock
 from .ssm import SSDBlock
@@ -107,29 +109,45 @@ class Block(nn.Module):
             self.mlp = MoE(cfg, **mk) if use_moe else MLP(cfg, **mk)
 
     def forward(self, h, *, mode, positions, cache, cache_slots,
-                rope_tab=None, memory=None):
+                rope_tab=None, memory=None, mesh=None):
         """Returns ``(h, cache, aux)``: the cache ``{"mixer": ...}``
         (plus ``"cross"`` for ``dec_xattn``), aux the MoE's weighted
         load-balancing loss in training, else None (and None without a
         MoE): serving reads no aux, so it computes none.  An ``xattn``
         layer given no memory runs as causal self-attention, with no
         window and a cache of the prompt's length, as the reference's
-        does."""
+        does.  ``mesh``: training on a mesh (the dense GQA and SSD
+        kinds); h leaves the block constrained as the reference's
+        ``_apply_block`` leaves it (:meth:`_constrain`)."""
         cache = cache or {}
         c_in = cache.get("mixer")
+        res = (lambda out: out) if mesh is None else \
+            (lambda out: self._constrain(out, mode, mesh).to(h.dtype))
+        if mesh is not None:
+            if (self.kind not in ("attn", "ssd")
+                    or isinstance(self.mixer, MLA)
+                    or isinstance(self.mlp, MoE)):
+                raise NotImplementedError(
+                    f"{self.cfg.name}: a mesh shards the dense GQA and SSD "
+                    f"blocks only; MoE, MLA, RG-LRU and the memory-input "
+                    f"blocks under a mesh are ROADMAP queue 1")
+            h = self._constrain(h, mode, mesh)
         if self.kind == "xattn":
             out, c = self.mixer(h, positions=positions, mode=mode, cache=c_in,
                                 rope_tab=rope_tab, memory=memory)
         elif isinstance(self.mixer, Attention):
             out, c = self.mixer(h, positions=positions, mode=mode, cache=c_in,
                                 window=self.cfg.window,
-                                cache_slots=cache_slots, rope_tab=rope_tab)
+                                cache_slots=cache_slots, rope_tab=rope_tab,
+                                mesh=mesh)
         elif isinstance(self.mixer, MLA):
             out, c = self.mixer(h, positions=positions, mode=mode, cache=c_in,
                                 cache_slots=cache_slots, rope_tab=rope_tab)
+        elif isinstance(self.mixer, SSDBlock):
+            out, c = self.mixer(h, mode=mode, cache=c_in, mesh=mesh)
         else:
             out, c = self.mixer(h, mode=mode, cache=c_in)
-        h = h + out
+        h = h + res(out)
         new_cache = {"mixer": c}
         if self.kind == "dec_xattn":
             out, new_cache["cross"] = self.cross(
@@ -141,8 +159,36 @@ class Block(nn.Module):
             out, aux = self.mlp(h, with_aux=mode == "train")
             h = h + out
         elif self.mlp is not None:
-            h = h + self.mlp(h)
+            h = h + res(self.mlp(h))
         return h, new_cache, aux
+
+    def _constrain(self, h, mode, mesh):
+        """h (B, S, M) over the batch axes where they divide B (the
+        model-parallel dim decides ``dp_over_model``: the SSD's heads,
+        else the attention heads) and, for a ``seq_shard`` config in
+        training, the sequence over ``model`` between attention blocks
+        (Megatron sequence parallelism: the saved h shrinks by the model
+        degree, and the all-gather / reduce-scatter pair sits at the
+        block's entry and exit), replicated over the rest.  The block
+        holds h there at its entry and each branch's output (a partial
+        sum over ``model`` where the branch's product is sharded) is
+        reduced there before the residual add: an all-reduce, or a
+        reduce-scatter under sequence parallelism."""
+        cfg = self.cfg
+        sizes = axis_sizes(mesh)
+        mp = sizes.get("model", 1)
+        if self.kind == "ssd":
+            div = ((cfg.ssm.expand * cfg.d_model)
+                   // cfg.ssm.head_dim) % mp == 0
+        else:
+            div = cfg.n_heads % mp == 0
+        batch_axes = batch_axes_for(mesh, h.shape[0], div) or None
+        seq_ax = None
+        if (cfg.seq_shard and mode == "train" and self.kind == "attn"
+                and "model" in sizes and "model" not in (batch_axes or ())
+                and h.shape[1] % sizes["model"] == 0):
+            seq_ax = "model"
+        return constrain(h, mesh, (batch_axes, seq_ax, None))
 
 
 def _encoder_layer(block: Block, h):
@@ -247,10 +293,27 @@ class Model(nn.Module):
         return self.embed.device
 
 
-def _train_block(block: Block, h, positions, rope_tab, memory):
+def _train_block(block: Block, h, positions, rope_tab, memory, mesh=None):
     h, _, aux = block(h, mode="train", positions=positions, cache=None,
-                      cache_slots=None, rope_tab=rope_tab, memory=memory)
+                      cache_slots=None, rope_tab=rope_tab, memory=memory,
+                      mesh=mesh)
     return h, aux
+
+
+def _constrain_logits(logits, mesh):
+    """Vocab-parallel logits (Megatron-style, the reference's
+    ``_constrain_logits``): (B, S, V) float32 over the batch axes where
+    they divide B and over ``model`` where it divides V."""
+    sizes = axis_sizes(mesh)
+    batch_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    nb = 1
+    for a in batch_axes:
+        nb *= sizes[a]
+    spec_b = batch_axes if (batch_axes and logits.shape[0] % nb == 0) \
+        else None
+    spec_v = "model" if ("model" in sizes
+                         and logits.shape[-1] % sizes["model"] == 0) else None
+    return constrain(logits, mesh, (spec_b, None, spec_v))
 
 
 def layers_of(cache) -> list:
@@ -281,7 +344,7 @@ def _memory(model: Model, mode, cache, memory_inputs):
 
 
 def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
-            cache=None, cache_slots=None, memory_inputs=None):
+            cache=None, cache_slots=None, memory_inputs=None, mesh=None):
     """tokens: (B, S) integer tensor on the model's device.  mode
     'train', 'prefill' or 'decode' (then ``positions`` (B, 1) and the
     cache are required).  ``memory_inputs``: the stub frontend's frame
@@ -293,11 +356,30 @@ def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
     of per-layer caches, or ``{"layers": [...], "enc_memory": (B, T, M)}``
     where a memory was attended.  Training an ``mtp`` config adds
     ``"mtp_logits"`` (B, S, V) float32: the MTP head's prediction of
-    token i + 2, through the final norm and the head."""
+    token i + 2, through the final norm and the head.
+
+    ``mesh``: training on a ``DeviceMesh``, the weights DTensors placed
+    by their specs and ``tokens`` a DTensor over the batch axes; the
+    rotary table and the aux accumulator become replicated DTensors, and
+    the logits leave vocab-parallel (sharded over ``model`` where the
+    vocabulary divides it) for :func:`~repro_torch.models.model.loss_fn`
+    to take without gathering them."""
     cfg = model.cfg
     _, s = tokens.shape
+    if mesh is not None and mode != "train":
+        raise NotImplementedError("a mesh shards training only; the "
+                                  "prefill and decode cells are ROADMAP "
+                                  "queue 1")
     memory = _memory(model, mode, cache, memory_inputs)
-    h = F.embedding(tokens, model.embed).to(torch.bfloat16)
+    if mesh is None:
+        h = F.embedding(tokens, model.embed).to(torch.bfloat16)
+    else:
+        # the vocab-parallel lookup's partial sums reduced in the table's
+        # dtype, then rounded to bf16
+        h = local_embedding(tokens, gather_fsdp(model.embed), mesh)
+        h = constrain(h, mesh, (tuple(batch_axes_for(
+            mesh, h.shape[0], True)) or None, None, None)) \
+            .to(torch.bfloat16)
     if positions is None:
         positions = torch.arange(s, device=tokens.device)
     # one rotary table serves every attention layer: at the head size, or
@@ -307,13 +389,17 @@ def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
     tab = (rope_table(positions, rope_d, cfg.rope_theta, tokens.device)
            if "attn" in cfg.pattern else None)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if mesh is not None:
+        tab = tuple(replicated(t, mesh) for t in tab) if tab else None
+        aux = replicated(aux, mesh)
     layers_in = layers_of(cache) if cache is not None else None
     new_cache = []
     for i, block in enumerate(model.blocks):
         if mode == "train":
             h, a = (checkpoint(_train_block, block, h, positions, tab,
-                               memory, use_reentrant=False) if cfg.remat
-                    else _train_block(block, h, positions, tab, memory))
+                               memory, mesh, use_reentrant=False)
+                    if cfg.remat else
+                    _train_block(block, h, positions, tab, memory, mesh))
             if a is not None:
                 aux = aux + a
             continue
@@ -321,10 +407,12 @@ def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
                         cache=layers_in[i] if layers_in is not None else None,
                         cache_slots=cache_slots, rope_tab=tab, memory=memory)
         new_cache.append(c)
-    hf = rms_norm(h, model.final_norm, cfg.norm_eps)
+    hf = gather_seq(rms_norm(h, model.final_norm, cfg.norm_eps))
     head = (cast_weight(model, "embed", hf.dtype).T if cfg.tie_embeddings
             else cast_weight(model, "lm_head", hf.dtype))
     logits = (hf @ head).float()
+    if mesh is not None:
+        logits = _constrain_logits(logits, mesh)
     out = {"logits": logits, "aux": aux}
     if mode == "train" and model.mtp is not None:
         mtp_h = model.mtp(h, tokens, model.embed, positions=positions,

@@ -20,9 +20,29 @@ gradients inside the step as the reference does: where N > 1 divides
 the batch, the batch splits into N microbatches of consecutive rows,
 and ``g_acc + g / N`` runs from zeros in microbatch order, leaf by leaf
 in place (one more set of gradients beside the state, not two), loss
-and metrics averaged the same way; otherwise the plain step runs.  It
-needs no mesh.  The mesh and ``zero1`` belong to the multi-device
-slice: ``zero1=True`` raises.
+and metrics averaged the same way; otherwise the plain step runs.
+
+On a mesh (``mesh``, a ``DeviceMesh`` of more than one device; the
+dense GQA and SSD families) the state's tensors are DTensors placed by
+:func:`make_train_state_specs` (the reference's specs: params, m and v
+by the parameter specs, ``count`` and ``step`` replicated) and the
+batch is sharded over the batch axes (:func:`batch_pspec`).  The loss
+runs with ``mesh`` and its backward under ``loss_parallel``; then each
+gradient is reduced explicitly to its parameter's placements, before the
+clip and AdamW: the data-parallel all-reduce (a weight sharded over the
+batch axes, ``fsdp``, gets its gradient by reduce-scatter already in the
+backward).  ``zero1=True`` is the reference's rule: a gradient whose
+parameter is replicated and whose first dim the ``data`` axis divides is
+reduce-scattered over ``data`` instead, its AdamW moments are kept
+sharded over ``data`` (ZeRO-1: each data rank owns a slice of the
+optimizer state; the reference keeps m and v at the parameter's spec and
+leaves the layout to GSPMD), the update runs on the slice, and the
+parameter comes back by all-gather.  A one-device mesh shards nothing:
+the step is the plain one, ``zero1`` included, bit for bit.  The
+``microbatch`` flag and ``grad_compress`` are not run on a mesh yet
+(they raise).  ``COLLECTIVE_PHASE`` names the part of the step that is
+running (``"loss"``, ``"gradients"``, ``"optimizer"``), so that the dry
+run can book each collective to it.
 """
 
 from __future__ import annotations
@@ -33,22 +53,40 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+import contextlib
+
 from .._device import resolve_device
 from ..configs.base import ArchConfig
 from ..models import Model, build
+from ..models.common import (DEFAULT_RULES, ShardingRules, axis_sizes,
+                             placements)
 from ..optim import (AdamWConfig, AdamWState, adamw_init, adamw_update,
                      adamw_update_, ef_compress_grads, ef_init)
 from ..perf import flags
 
 __all__ = ["TrainStepConfig", "init_train_state", "train_state_from_model",
-           "make_train_step"]
+           "make_train_step", "make_train_state_specs", "batch_pspec",
+           "COLLECTIVE_PHASE"]
+
+COLLECTIVE_PHASE = {"name": None}
+
+
+@contextlib.contextmanager
+def _phase(name: str):
+    prev = COLLECTIVE_PHASE["name"]
+    COLLECTIVE_PHASE["name"] = name
+    try:
+        yield
+    finally:
+        COLLECTIVE_PHASE["name"] = prev
 
 
 @dataclass(frozen=True)
 class TrainStepConfig:
     optimizer: AdamWConfig = AdamWConfig()
     grad_compress: bool = False       # error-feedback int8
-    zero1: bool = False               # multi-device slice; raises here
+    zero1: bool = False               # reduce-scatter/all-gather grad path
+    rules: ShardingRules = DEFAULT_RULES
 
 
 def _opt_cfg(cfg: ArchConfig, ts: TrainStepConfig) -> AdamWConfig:
@@ -101,19 +139,56 @@ def _device_batch(batch, device) -> dict:
     return out
 
 
+def _zero1_leaf(spec, shape, dsize: int) -> bool:
+    """The reference's ZeRO-1 rule: a replicated leaf whose first dim
+    the data axis (of size ``dsize`` > 1) divides."""
+    return (all(a is None for a in spec) and len(shape) > 0
+            and shape[0] % dsize == 0 and dsize > 1)
+
+
+def make_train_state_specs(cfg: ArchConfig, mesh,
+                           ts: TrainStepConfig = TrainStepConfig()) -> dict:
+    """The spec tree of the whole train state: params, m and v by the
+    parameter specs (m and v of a ZeRO-1 leaf over ``data`` on dim 0
+    under ``zero1``), ``count`` and ``step`` replicated."""
+    bundle = build(cfg)
+    pspecs = bundle.param_specs(mesh, ts.rules)
+    mspecs = dict(pspecs)
+    if ts.zero1:
+        from ..models.model import param_shapes
+        dsize = axis_sizes(mesh).get("data", 1)
+        for name, (shape, _) in param_shapes(cfg).items():
+            if _zero1_leaf(pspecs[name], shape, dsize):
+                mspecs[name] = ("data",) + (None,) * (len(shape) - 1)
+    specs = {"params": pspecs,
+             "opt": {"m": mspecs, "v": dict(mspecs), "count": ()},
+             "step": ()}
+    if ts.grad_compress:
+        specs["ef"] = dict(pspecs)
+    return specs
+
+
+def batch_pspec(mesh) -> tuple:
+    """The batch's spec: dim 0 over the mesh's ``("pod", "data")``
+    axes."""
+    axes = tuple(a for a in ("pod", "data") if a in axis_sizes(mesh))
+    return (axes or None,)
+
+
 def make_train_step(cfg: ArchConfig, device=None,
                     ts: TrainStepConfig = TrainStepConfig(),
-                    donate: bool = True):
+                    donate: bool = True, mesh=None):
     """``step_fn(state, batch) -> (new_state, metrics)`` on ``device``
     (default: the card).  ``batch["tokens"]`` (B, S) integer tensor or
     array, plus ``batch["memory"]`` (B, T, M) for a memory-input config;
     metrics ``loss``, ``ce``, ``aux`` (and ``mtp`` for an MTP config),
     ``grad_norm`` and ``lr``, scalar tensors on the device.  ``donate``:
-    update the old state in place (see the module's docstring)."""
-    if ts.zero1:
-        raise NotImplementedError("zero1 shards the optimizer over a "
-                                  "mesh: the multi-device slice (ROADMAP "
-                                  "queue 1)")
+    update the old state in place (see the module's docstring).
+    ``mesh``: a ``DeviceMesh``; the state's tensors are then DTensors by
+    :func:`make_train_state_specs` and ``batch["tokens"]`` a DTensor or
+    a global array that every rank holds (see the module's docstring)."""
+    if mesh is not None and mesh.size() > 1:
+        return _make_mesh_step(cfg, ts, donate, mesh)
     device = resolve_device(device)
     bundle = build(cfg)
     model = Model(cfg, device="meta")      # weights bound at every step
@@ -178,6 +253,99 @@ def make_train_step(cfg: ArchConfig, device=None,
         if ts.grad_compress:
             new_state["ef"] = new_ef
         metrics = {"loss": loss, **metrics, **opt_metrics}
+        return new_state, metrics
+
+    return step_fn
+
+
+def _mesh_batch(batch, mesh) -> dict:
+    """``batch["tokens"]`` as a DTensor over the batch axes: kept where
+    it is one, else each rank takes its rows of the global array it
+    holds."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    tok = batch["tokens"]
+    if not isinstance(tok, DTensor):
+        dev = torch.device(mesh.device_type)
+        if mesh.device_type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        tok = distribute_tensor(torch.as_tensor(tok, device=dev), mesh,
+                                placements(batch_pspec(mesh), mesh),
+                                src_data_rank=None)
+    return {"tokens": tok}
+
+
+def _reduce_grad(g, mesh, want):
+    """Gradient ``g`` (a DTensor, partial sums over the batch axes) at
+    placements ``want``: first the blocks that the gradient holds whole
+    and the parameter holds sliced are sliced (no bytes move), then the
+    partial sums are reduced, so that each device reduces its block and
+    no more."""
+    mid = tuple(w if (p.is_replicate() and w.is_shard()) else p
+                for p, w in zip(g.placements, want))
+    if mid != tuple(g.placements):
+        g = g.redistribute(mesh, mid)
+    return g if tuple(g.placements) == tuple(want) else \
+        g.redistribute(mesh, want)
+
+
+def _make_mesh_step(cfg: ArchConfig, ts: TrainStepConfig, donate: bool,
+                    mesh):
+    """The train step on a mesh (see the module's docstring)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.parallel import loss_parallel
+
+    if ts.grad_compress:
+        raise NotImplementedError("grad_compress on a mesh: ROADMAP "
+                                  "queue 1")
+    bundle = build(cfg)
+    model = Model(cfg, device="meta")      # weights bound at every step
+    opt_cfg = _opt_cfg(cfg, ts)
+    specs = make_train_state_specs(cfg, mesh, ts)
+    want = {n: placements(sp, mesh) for n, sp in specs["params"].items()}
+    grad_to = {n: placements(sp, mesh) for n, sp in specs["opt"]["m"]
+               .items()}
+
+    def step_fn(state, batch):
+        if int(flags().microbatch) > 1:
+            raise NotImplementedError("the microbatch flag on a mesh: "
+                                      "ROADMAP queue 1")
+        params = _bind(model, state["params"])
+        batch = _mesh_batch(batch, mesh)
+        names = list(params)
+        with loss_parallel(), _phase("loss"):
+            loss, metrics = bundle.loss(model, batch, mesh=mesh)
+            grads = torch.autograd.grad(
+                loss, [params[n] for n in names], allow_unused=True,
+                materialize_grads=True)
+        loss = loss.detach()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        with _phase("gradients"):
+            # the data-parallel reduction (reduce-scatter of a ZeRO-1
+            # leaf), explicit and leaf by leaf
+            grads = {n: _reduce_grad(g, mesh, grad_to[n])
+                     for n, g in zip(names, grads)}
+        opt = AdamWState(state["opt"]["m"], state["opt"]["v"],
+                         state["opt"]["count"])
+        with _phase("optimizer"):
+            if donate:
+                new_params, new_opt, opt_metrics = adamw_update_(
+                    grads, opt, state["params"], opt_cfg)
+                step = state["step"].add_(1)
+            else:
+                new_params, new_opt, opt_metrics = adamw_update(
+                    grads, opt, state["params"], opt_cfg)
+                # a ZeRO-1 leaf's slice comes back by all-gather
+                new_params = {n: p if tuple(p.placements) == want[n]
+                              else p.redistribute(mesh, want[n])
+                              for n, p in new_params.items()}
+                _bind(model, new_params)
+                step = state["step"] + 1
+        new_state = {"params": new_params, "opt": new_opt._asdict(),
+                     "step": step}
+        metrics = {"loss": loss, **metrics, **opt_metrics}
+        metrics = {k: v.to_local() if isinstance(v, DTensor) else v
+                   for k, v in metrics.items()}
         return new_state, metrics
 
     return step_fn

@@ -17,7 +17,14 @@ measures with obs off and is recorded under a tracing session.  The
 step donates the old state (updates it in place), as the reference's
 trainer's does; a checkpoint copies every leaf to the host before
 ``save_async`` returns, so the next step cannot change what is saved.
-Elastic re-meshing belongs to the multi-device slice.
+
+With a ``mesh`` (a ``DeviceMesh`` of more than one device; the
+reference's ``Trainer(..., mesh)``) the step is the sharded one
+(:func:`~repro_torch.train.train_step.make_train_step` with ``mesh``):
+every rank builds or restores the whole state on the host side and
+keeps its blocks (:func:`~repro_torch.train.elastic.reshard_state`); a
+checkpoint gathers the state on every rank and rank 0 writes it.  An
+elastic restart onto a survivor mesh is ROADMAP queue 1.
 """
 
 from __future__ import annotations
@@ -34,13 +41,20 @@ from .._device import resolve_device
 from ..configs.base import ArchConfig
 from ..data import DataConfig, synthetic_batch
 from .checkpoint import CheckpointManager, latest_step, restore_checkpoint
-from .train_step import TrainStepConfig, init_train_state, make_train_step
+from .elastic import reshard_state
+from .train_step import (TrainStepConfig, init_train_state,
+                         make_train_state_specs, make_train_step)
 
 __all__ = ["TrainerConfig", "Trainer", "StepStats", "DEFAULT_CKPT_DIR"]
 
 # inside the checkout, beside the kernels' build; .gitignore lists it
 DEFAULT_CKPT_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "train_ckpt"
+
+
+def _int(t) -> int:
+    """A 0-d tensor's value (a replicated DTensor's local copy)."""
+    return int(t.to_local() if hasattr(t, "to_local") else t)
 
 
 @dataclass
@@ -69,10 +83,14 @@ class Trainer:
     scfg: TrainStepConfig = field(default_factory=TrainStepConfig)
     device: torch.device | str | None = None
     fault_hook: Callable[[int], str | None] | None = None  # test injection
+    mesh: object | None = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        self.step_fn = make_train_step(self.cfg, self.device, self.scfg)
+        if self.mesh is not None and self.mesh.size() == 1:
+            self.mesh = None                # one device: the plain step
+        self.step_fn = make_train_step(self.cfg, self.device, self.scfg,
+                                       mesh=self.mesh)
         self.ckpt = CheckpointManager(self.tcfg.checkpoint_dir,
                                       keep=self.tcfg.keep_checkpoints)
         self.history: list[StepStats] = []
@@ -81,21 +99,52 @@ class Trainer:
 
     # -- state ---------------------------------------------------------
     def fresh_state(self, seed: int = 0) -> dict:
-        return init_train_state(self.cfg, seed, self.scfg, self.device)
+        return self._placed(init_train_state(self.cfg, seed, self.scfg,
+                                             self.device))
 
     def resume_or_init(self, seed: int = 0) -> dict:
-        state = self.fresh_state(seed)
+        state = init_train_state(self.cfg, seed, self.scfg, self.device)
         last = latest_step(self.tcfg.checkpoint_dir)
         if last is not None:
             state, _ = restore_checkpoint(self.tcfg.checkpoint_dir, state,
                                           last)
             print(f"[trainer] resumed from step {last}")
-        return state
+        return self._placed(state)
+
+    def _placed(self, state: dict) -> dict:
+        """The whole state as this rank's blocks on the mesh, if any."""
+        if self.mesh is None:
+            return state
+        return reshard_state(state, self.mesh, make_train_state_specs(
+            self.cfg, self.mesh, self.scfg))
+
+    def _join(self) -> None:
+        """Wait for the checkpoint writer; on a mesh every rank waits
+        for rank 0's, so that all of them read the same newest step."""
+        self.ckpt.join()
+        if self.mesh is not None:
+            import torch.distributed as dist
+            dist.barrier()
+
+    def _save(self, step: int, state: dict) -> None:
+        if self.mesh is not None:
+            import torch.distributed as dist
+            from torch.distributed.tensor import DTensor
+
+            def whole(tree):
+                if isinstance(tree, dict):
+                    return {k: whole(v) for k, v in tree.items()}
+                return tree.full_tensor() if isinstance(tree, DTensor) \
+                    else tree
+            state = whole(state)            # collective: every rank
+            if dist.get_rank() != 0:
+                return
+        self.ckpt.save_async(step, state, extra_meta={"arch": self.cfg.name})
 
     # -- loop ----------------------------------------------------------
     def run(self, state=None, seed: int = 0) -> dict:
         state = state if state is not None else self.resume_or_init(seed)
-        step = int(state["step"])
+        step = _int(state["step"])
         durations: list[float] = []
         while step < self.tcfg.total_steps:
             # the span closes after the card has finished the new state:
@@ -108,11 +157,11 @@ class Trainer:
                         # restart resumes from the newest checkpoint and
                         # replays from there (the data is a function of
                         # step)
-                        self.ckpt.join()
+                        self._join()
                         self.restarts += 1
                         state = None    # freed before the new one is built
                         state = self.resume_or_init(seed)
-                        step = int(state["step"])
+                        step = _int(state["step"])
                         continue
                 state, metrics = self.step_fn(state,
                                               self._device_batch(step))
@@ -133,10 +182,9 @@ class Trainer:
                       f"{dt * 1e3:7.1f} ms"
                       f"{'  STRAGGLER' if straggler else ''}")
             if (step + 1) % self.tcfg.checkpoint_every == 0:
-                self.ckpt.save_async(step + 1, state,
-                                     extra_meta={"arch": self.cfg.name})
+                self._save(step + 1, state)
             step += 1
-        self.ckpt.join()
+        self._join()
         return state
 
     def _device_batch(self, step: int) -> dict:

@@ -24,7 +24,9 @@ for name in names:
     importlib.import_module(name)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(json.dumps({"modules": names, "foreign": loaded}))
+import torch.distributed as dist
+print(json.dumps({"modules": names, "foreign": loaded,
+                  "group": dist.is_initialized()}))
 """
 
 
@@ -66,8 +68,12 @@ def test_port_imports_neither_jax_nor_repro():
                 "repro_torch.obs.metrics", "repro_torch.obs.trace",
                 "repro_torch.obs.recorder", "repro_torch.obs.watchdog",
                 "repro_torch.obs.export", "repro_torch.obs.report",
-                "repro_torch.perf"}
+                "repro_torch.perf", "repro_torch.models.common",
+                "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+                "repro_torch.train.elastic"}
     assert expected <= set(res["modules"])
+    # importing the mesh functions and the dry run opens no process group
+    assert res["group"] is False
 
 
 def test_port_sources_never_name_the_reference():

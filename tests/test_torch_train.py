@@ -228,8 +228,16 @@ def test_grad_compress_step_runs_and_carries_errors():
             _tokens(seed=10 + i))})
         assert np.isfinite(float(m["loss"]))
     assert any(float(e.abs().max()) > 0 for e in state["ef"].values())
-    with pytest.raises(NotImplementedError, match="zero1"):
-        make_train_step(cfg, "cpu", TrainStepConfig(zero1=True))
+    # zero1 shards over a mesh's data axis; with no mesh it is the plain
+    # step, bit for bit
+    batch = {"tokens": torch.from_numpy(_tokens(seed=10))}
+    outs = []
+    for zero1 in (False, True):
+        ts = TrainStepConfig(zero1=zero1)
+        st = train_state_from_model(cfg, build(cfg).init(0, "cpu"), ts)
+        outs.append(make_train_step(cfg, "cpu", ts)(st, batch)[0])
+    for name, p in outs[0]["params"].items():
+        assert torch.equal(p, outs[1]["params"][name]), name
 
 
 def test_mamba2_reduced_trains_on_cpu(tmp_path):
