@@ -13,7 +13,8 @@ training of mamba2-130m at full width through the SSD's backward, the
 ``REPRO_PERF`` flags that act on one card, heads of 256:
 recurrentgemma-9b served at full width and depth and trained at full
 width, and the mesh layer: rank 0's share of a production-mesh train
-step on the card, whose collective bytes feed the fabric planner.
+step on the card, whose collective bytes feed the fabric planner, for
+the dense, SSM and MoE families (MLA included).
 
     python3 chip_smoke.py
 
@@ -464,6 +465,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     and ``reshard_state`` on a (1, 1) mesh of the card (a one-rank NCCL
     group): a state's round trip bit for bit.  Every launch goes under
     ``phase_launches``; the phase logs its time.
+30. The MoE all-to-all dispatch and MLA under the production mesh, as
+    phase 29 runs its cells.  A: granite-moe-3b-a800m ``train_4k`` on
+    ``pod1`` at full width and depth under the default flags
+    (``moe_3d``: the tokens enter the all-to-all body in the residual's
+    layout; 16 x 256 = 4096 tokens a device, C = 1024, 40 experts padded
+    to 48): the all-to-all bytes exactly 32 x 6 x 48 x 1024 x 1536 x 2 =
+    28,991,029,248, all over ``model`` in the loss phase; the
+    data-parallel gradient all-reduce exactly the local gradients not
+    sharded over ``data``; #5-#7 held at the cell's local attention
+    problem as in phase 29; the body's local arithmetic (slots, bins,
+    both ``bf16_experts`` settings, combine) at the cell's local shape
+    against the same steps on the CPU in float64, within one bf16
+    rounding.  B: the same cell at ``moe_3d=0`` (the flattened tokens
+    over every axis): the bins' bytes equal A's, DTensor's re-layout
+    bytes logged beside A's.  C: the same cell under ``bf16_experts``:
+    bytes and FLOPs equal A's, peak and step time against A's run again
+    after it (A's first step is the phase's first).  D:
+    deepseek-v3-671b at full width (``MLA_DEPTH``: all 61 layers, or a
+    logged cut): the bins' bytes exactly 6 x 256 x 160 x 7168 x 2 a MoE
+    layer (58 at full depth), the data-parallel bytes exact, #5-#7 held
+    at the local MLA problem (8 of 128 heads, q/k 192 and v 128 padded
+    to 256) through ``models.layers.mla_block``, bit for bit the
+    kernels'.  E: ``fabric.plan`` on A's record.  Every peak under 80
+    GB; the launches go under ``phase_launches``.
 
 Output: the card's name and power limit, then a ``kernels`` JSON line,
 then ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -6305,21 +6330,19 @@ MESH_DP_BYTES = {"smollm-135m": 133_293_312, "h2o-danube-3-4b": 752_640,
                  "mamba2-130m": 408_820_992}
 
 
-def _mesh_cell(dev, arch: str, label: str, total: dict, *, zero1=False):
-    """One ``train_4k`` cell of phase 29 on ``pod1``: its record, its
-    launches added to ``total``, its bytes and memory logged."""
-    from repro_torch import perf
+def _mesh_cell(dev, arch: str, label: str, total: dict, *, cfg=None,
+               **flag_kw):
+    """One ``train_4k`` cell of phases 29 and 30 on ``pod1`` (``cfg``: the
+    published config cut, where given) under the perf flags ``flag_kw``:
+    its record, its launches added to ``total``, its bytes and memory
+    logged."""
     from repro_torch.launch.dryrun import lower_cell
 
-    saved = perf.flags().zero1
-    perf.set_flags(zero1=zero1)
-    try:
+    with perf_flags(**flag_kw):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        rec = lower_cell(arch, "train_4k", False, dev)
+        rec = lower_cell(arch, "train_4k", False, dev, cfg=cfg)
         wall = time.perf_counter() - t0
-    finally:
-        perf.set_flags(zero1=saved)
     if rec["status"] != "ok":
         raise AssertionError(f"{label}: {rec}")
     for kname, n in rec["launches"].items():
@@ -6333,7 +6356,9 @@ def _mesh_cell(dev, arch: str, label: str, total: dict, *, zero1=False):
         f"{json.dumps(rec['collectives'][:6])}")
     log(f"{label}: {rec['collective_calls']} collectives; FLOPs "
         f"{rec['flops']:.4e} (aten {rec['aten_flops']:.4e}, kernels "
-        f"{rec['kernel_flops']:.4e}); state {mem['argument_bytes'] / 2**30:.3f}"
+        f"{rec['kernel_flops']:.4e}; the kernels' head padding adds "
+        f"{rec['kernel_padding_flops']:.4e}); state "
+        f"{mem['argument_bytes'] / 2**30:.3f}"
         f" GiB, peak {mem['peak_bytes'] / 2**30:.3f} GiB above the state "
         f"(temp {mem['temp_bytes'] / 2**30:.3f} GiB); step "
         f"{rec['step_seconds']:.2f} s, cell {wall:.2f} s; launches "
@@ -6384,9 +6409,9 @@ def _hold_mesh_attention(dev, label: str, cfg, rec: dict, ranks=(0,)):
     equal to the plain o in bf16 in SAME_SHARE of the entries), dq and
     dk / dv per q head to phase 14's, all against the plain versions on
     k and v picked by the global group map (q head h reads kv head h //
-    (Hq / Hkv)), so a wrong cut of k and v shows."""
+    (Hq / Hkv)), so a wrong cut of k and v shows.  Phase 30 holds
+    granite-moe's cell likewise."""
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import ref
     from repro_torch.models.layers import attention_block, kv_heads_read
 
     b, hq_l, hkv_l, sq, _, d, window = _mesh_attention_problem(label, cfg,
@@ -6442,26 +6467,58 @@ def _hold_mesh_attention(dev, label: str, cfg, rec: dict, ranks=(0,)):
         idx = torch.tensor([(first + h) // group for h in range(hq_l)],
                            device=dev)
         kr, vr = k[:, idx], v[:, idx]
-        w_o, w_lse = ref.flash_attention_ref(q, kr, vr, **kw)
-        e_o, rel = _close_or_raise(name + " o", o, w_o, 1e-4, 2.0 ** -7)
-        _close_or_raise(name + " lse", lse, w_lse, 3e-5, 3e-5)
-        share_o = _check_same_share(name + " o", o, w_o)
-        w_dq32 = ref.flash_attention_dq_ref(
-            *(t.float() for t in (q, kr, vr, do)), lse, dsum, **kw)
-        w_dk, w_dv = ref.flash_attention_dkv_ref(q, kr, vr, do, lse, dsum,
-                                                 **kw)
-        e_dq = _close_or_raise(name + " dq", dq, w_dq32.to(q.dtype), 1e-4,
-                               2.0 ** -7)[0]
-        share_dq = _check_same_share(name + " dq", dq, w_dq32)
-        e_kv = max(_close_or_raise(name + " dk", dkh, w_dk, 2e-4, 2e-5)[0],
-                   _close_or_raise(name + " dv", dvh, w_dv, 2e-4, 2e-5)[0])
+        errs = _hold_attention_rows(name, (q, kr, vr, do), (o, lse, dq, dkh,
+                                                             dvh), dsum, kw)
         log(f"{name}: attention_block bit for bit the kernels' o, dq, dk, "
             f"dv; against the plain versions on the global group map: o "
-            f"max abs err {e_o:.3e} (max rel {rel:.3e}, {share_o:.5f} equal "
-            f"in bf16), dq {e_dq:.3e} ({share_dq:.5f} equal in bf16), dk / "
-            f"dv per q head {e_kv:.3e}")
+            f"max abs err {errs['o']:.3e} (max rel {errs['rel']:.3e}, "
+            f"{errs['share_o']:.5f} equal in bf16), dq {errs['dq']:.3e} "
+            f"({errs['share_dq']:.5f} equal in bf16), dk / dv per q head "
+            f"{errs['kv']:.3e}")
         del (q, k, v, do, leaves, out, gq, gk, gv, o, lse, dsum, dq, dkh,
-             dvh, kr, vr, w_o, w_lse, w_dq32, w_dk, w_dv)
+             dvh, kr, vr)
+
+
+def _hold_attention_rows(name, inputs, outs, dsum, kw, scores=2e9):
+    """#5-#7's outputs ``outs`` = (o, lse, dq, dk, dv per q head) on
+    ``inputs`` = (q, k, v, do), k and v at the q heads, against the
+    plain versions, a few batch rows at a time (the plain versions hold
+    float32 (rows, H, Sq, Skv) scores of at most ``scores`` bytes): o and
+    lse to phase 9's limits and dq, dk / dv to phase 14's, o and dq equal
+    to the plain output in bf16 in SAME_SHARE of each slice's entries.
+    Returns the largest errors and the least shares."""
+    from repro_torch.kernels import ref
+
+    q = inputs[0]
+    b, hq, sq, _ = q.shape
+    skv = inputs[1].shape[2]
+    step = max(1, int(scores // (hq * sq * skv * 4)))
+    worst = {"o": 0.0, "rel": 0.0, "dq": 0.0, "kv": 0.0, "share_o": 1.0,
+             "share_dq": 1.0}
+    for r0 in range(0, b, step):
+        cut = slice(r0, r0 + step)
+        qs, ks, vs, dos = (t[cut] for t in inputs)
+        o, lse, dq, dkh, dvh = (t[cut] for t in outs)
+        tag = f"{name} rows {r0}:{min(b, r0 + step)}"
+        w_o, w_lse = ref.flash_attention_ref(qs, ks, vs, **kw)
+        e_o, rel = _close_or_raise(tag + " o", o, w_o, 1e-4, 2.0 ** -7)
+        _close_or_raise(tag + " lse", lse, w_lse, 3e-5, 3e-5)
+        share_o = _check_same_share(tag + " o", o, w_o)
+        w_dq32 = ref.flash_attention_dq_ref(
+            *(t.float() for t in (qs, ks, vs, dos)), lse, dsum[cut], **kw)
+        w_dk, w_dv = ref.flash_attention_dkv_ref(qs, ks, vs, dos, lse,
+                                                 dsum[cut], **kw)
+        e_dq = _close_or_raise(tag + " dq", dq, w_dq32.to(q.dtype), 1e-4,
+                               2.0 ** -7)[0]
+        share_dq = _check_same_share(tag + " dq", dq, w_dq32)
+        e_kv = max(_close_or_raise(tag + " dk", dkh, w_dk, 2e-4, 2e-5)[0],
+                   _close_or_raise(tag + " dv", dvh, w_dv, 2e-4, 2e-5)[0])
+        worst = {"o": max(worst["o"], e_o), "rel": max(worst["rel"], rel),
+                 "dq": max(worst["dq"], e_dq), "kv": max(worst["kv"], e_kv),
+                 "share_o": min(worst["share_o"], share_o),
+                 "share_dq": min(worst["share_dq"], share_dq)}
+        del w_o, w_lse, w_dq32, w_dk, w_dv
+    return worst
 
 
 def _hold_mesh_ssd(dev, label: str, rec: dict, groups: int = 4):
@@ -6658,6 +6715,333 @@ def _check_remesh(dev):
         f"for bit")
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: the MoE all-to-all dispatch and MLA under the production mesh
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, MLA_ARCH = "granite-moe-3b-a800m", "deepseek-v3-671b"
+# granite-moe's bins: 32 MoE layers x 6 all-to-alls (forward, remat
+# recompute, backward; each both ways) of (48, 1024, 1536) bf16, 40
+# experts padded to 48 on the 16-way model axis, C = ceil(4096 x 8 / 40
+# x 1.25) for the 16 x 256 tokens a device
+MOE_BINS_BYTES = 32 * 6 * 48 * 1024 * 1536 * 2
+# deepseek-v3's depth in phase 30 D: None runs the config's 61 layers (3
+# dense, 58 MoE); a number cuts it to the 3 dense layers and the rest MoE
+MLA_DEPTH = None
+
+
+def _bins_bytes(cfg, rec: dict) -> int:
+    """The all-to-all bytes a device of a step's MoE layers: 6 exchanges
+    a layer of the (E_pad, C, M) bf16 bins, t_loc the device's tokens."""
+    from repro_torch.models.moe import capacity, expert_pad
+    from repro_torch.models.transformer import layer_plan
+
+    rows, seq = rec["per_device_batch"]
+    t_loc = rows * seq // 16
+    return (sum(layer_plan(cfg).has_moe) * 6
+            * expert_pad(cfg.moe.n_experts, 16)
+            * capacity(t_loc, cfg.moe) * cfg.d_model * 2)
+
+
+def _dp_bytes(cfg) -> int:
+    """The data-parallel gradient all-reduce a device on (16, 16): the
+    gradients, in the parameters' dtype, of the local blocks not sharded
+    over ``data``; a MoE's shared-expert norm, which the loss never
+    reads (the reference carries it unused too), gets a zero gradient
+    that nothing reduces."""
+    from repro_torch.models import build
+    from repro_torch.models.common import local_shape
+    from repro_torch.models.model import param_shapes
+
+    mesh = {"data": 16, "model": 16}
+    specs = build(cfg).param_specs(mesh)
+    total = 0
+    for name, (shape, dt) in param_shapes(cfg).items():
+        spec = specs[name]
+        axes = [a for e in spec if e for a in ((e,) if isinstance(e, str)
+                                               else e)]
+        if "data" in axes or name.endswith("mlp.shared.norm"):
+            continue
+        total += int(np.prod(local_shape(shape, spec, mesh))) \
+            * torch.empty((), dtype=dt).element_size()
+    return total
+
+
+def _check_moe_cell(label: str, cfg, rec: dict, want_bins=None):
+    """A phase 30 cell's all-to-all bytes (all over ``model`` in the
+    loss phase: the bins') against :func:`_bins_bytes` (and
+    ``want_bins``), its data-parallel gradient bytes against
+    :func:`_dp_bytes`, and #5-#7 launched."""
+    coll = rec["collective_bytes_per_device"]
+    bins = _bins_bytes(cfg, rec)
+    a2a = coll.get("all-to-all", 0)
+    at = {k: v.get("all-to-all", 0) for k, v in
+          rec["collective_bytes_by_phase_axis"].items()
+          if v.get("all-to-all")}
+    log(f"{label}: all-to-all {a2a:,} B, by phase/axis {json.dumps(at)}; "
+        f"the bins' {bins:,} B"
+        f"{'' if want_bins is None else f' (expected {want_bins:,} B)'}")
+    if a2a != bins or at != {"loss/model": bins} or (
+            want_bins is not None and bins != want_bins):
+        raise AssertionError(f"{label}: all-to-all bytes {at}, the bins' "
+                             f"{bins}")
+    dp = rec["dp_gradient_bytes"]
+    want = _dp_bytes(cfg)
+    log(f"{label}: data-parallel gradient bytes {json.dumps(dp)} "
+        f"(expected all-reduce {want:,} B)")
+    if dp != {"all-reduce": want}:
+        raise AssertionError(f"{label}: data-parallel gradient bytes {dp} "
+                             f"!= {want}")
+    for kname in ("flash_attention_fwd", "flash_attention_dq",
+                  "flash_attention_dkv"):
+        if not rec["launches"].get(kname):
+            raise AssertionError(f"{label}: {kname} never launched")
+
+
+def _hold_moe_body(dev, label: str, cfg, rec: dict):
+    """Phase 30 A: the all-to-all body's local arithmetic
+    (``models.moe.a2a_body`` without its collectives: one device's
+    tokens routed, slotted, scattered into the (E_pad, C, M) bins,
+    through the experts and combined) at the cell's local shape on the
+    card, against the same steps on the CPU in float64 from the card's
+    picks: slots, kept picks and bins exactly (the reference's cumulative
+    count over the one-hot too), the experts' output and the combined
+    output within one bf16 rounding of each leaf's largest magnitude
+    (2^-8 and 2^-7), with ``bf16_experts`` off and on; the float64 side
+    rounds where the function does (bf16 operands and ``silu(g) * u``
+    under the flag)."""
+    import torch.nn.functional as F
+    from repro_torch.models import moe as M
+
+    moe = cfg.moe
+    rows, seq = rec["per_device_batch"]
+    t, m, f, e = rows * seq // 16, cfg.d_model, moe.d_ff_expert, \
+        moe.n_experts
+    e_pad, cap = M.expert_pad(e, 16), M.capacity(rows * seq // 16, moe)
+    gen = torch.Generator(device=dev).manual_seed(30)
+    # every token shares a component u that the router turns into some
+    # +2 on the first 4 experts' logits, so their bins overflow and picks
+    # drop, as a skewed router drops them
+    u = torch.randn((m,), generator=gen, device=dev)
+    x = (torch.randn((t, m), generator=gen, device=dev) + u).bfloat16()
+    router = torch.randn((m, e), generator=gen, device=dev) * m ** -0.5
+    router[:, :4] += (2.0 * u / u.dot(u))[:, None]
+    ws = [torch.randn(shape, generator=gen, device=dev) * fan ** -0.5
+          for shape, fan in (((e, m, f), m), ((e, m, f), m), ((e, f, m), f))]
+    ex = M.Exchange()
+    wg, wu, wd = (ex.weights(w, dim, e_pad) for w, dim in zip(ws, (2, 2, 1)))
+    _, top_w, top_idx = M.router_topk(cfg, x @ router.to(x.dtype))
+    slot, keep = M.slot_rule(top_idx, e_pad, cap)
+    bins, index = M.dispatch(x, top_idx, slot, keep, e_pad, cap)
+    idx_c, w_c = top_idx.cpu(), top_w.double().cpu()
+    slot_c, keep_c = M.slot_rule(idx_c, e_pad, cap)
+    flat = idx_c.reshape(-1)
+    onehot = F.one_hot(flat, e_pad)
+    cum = ((torch.cumsum(onehot, 0) * onehot - 1) * onehot).sum(-1)
+    bins_c, index_c = M.dispatch(x.cpu().double(), idx_c, slot_c, keep_c,
+                                 e_pad, cap)
+    if not (torch.equal(slot.cpu(), slot_c) and torch.equal(slot_c, cum)
+            and torch.equal(keep.cpu(), keep_c)
+            and torch.equal(index.cpu(), index_c)
+            and torch.equal(bins.cpu().double(), bins_c)):
+        raise AssertionError(f"{label} a2a body: slots, kept picks or bins "
+                             f"differ from the CPU's")
+    dropped = int((~keep_c).sum())
+    wc = [w.cpu().double() for w in (wg, wu, wd)]
+    errs = {}
+    for on in (False, True):
+        with perf_flags(bf16_experts=on):
+            y = M.expert_mlp(bins, wg, wu, wd)
+            out = M.combine(y.to(x.dtype), index, top_w, keep)
+        rnd = (lambda t_: t_.to(torch.bfloat16).double()) if on else \
+            (lambda t_: t_)
+        xb, g_, u_, d_ = rnd(bins_c), rnd(wc[0]), rnd(wc[1]), rnd(wc[2])
+        h = F.silu(torch.bmm(xb, g_)) * torch.bmm(xb, u_)
+        y64 = torch.bmm(rnd(h), d_)
+        flat64 = torch.cat([y64.reshape(-1, m), y64.new_zeros((1, m))])
+        out64 = (flat64[index_c].view(t, moe.top_k, m)
+                 * (w_c * keep_c.view(t, -1))[..., None]).sum(1)
+        tag = f"{label} a2a body bf16_experts={int(on)}"
+        errs[on] = (_share_of_max(tag + " experts", y.cpu(), y64, 2.0 ** -8),
+                    _share_of_max(tag + " out", out.cpu(), out64,
+                                  2.0 ** -7))
+        del y, out, h, y64, flat64, out64
+    log(f"{label} a2a body at t_loc {t}, E_pad {e_pad}, C {cap}, M {m}, F "
+        f"{f}: slots, {int(keep_c.sum())} kept picks ({dropped} dropped) "
+        f"and bins equal the CPU's (and the reference's cumulative count); "
+        f"experts' output / combined output within "
+        f"{errs[False][0]:.2e} / {errs[False][1]:.2e} of their largest "
+        f"magnitude (bf16_experts off), {errs[True][0]:.2e} / "
+        f"{errs[True][1]:.2e} (on)")
+    return {"dropped": dropped, "errs": {str(k): v for k, v in errs.items()}}
+
+
+def _hold_mesh_mla(dev, label: str, cfg, rec: dict):
+    """Phase 30 D: #5-#7 at the cell's local MLA problem (the record's
+    ``kernel_problems["mla"]``) on fresh seeded bf16 inputs:
+    ``models.layers.mla_block`` (the kernel call of
+    ``local_mla_attention``: k_nope beside the shared rotated key, q/k
+    and v padded to 256) forward and backward gives the kernels' o, dq,
+    dk and dv on the padded heads cut back, bit for bit, and the shared
+    key's gradient their sum over the heads within one bf16 rounding;
+    the kernels' outputs against the plain versions to phases 9 and
+    14's limits (:func:`_hold_attention_rows`)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.layers import mla_block
+
+    problems = rec["kernel_problems"].get("mla", [])
+    if len(problems) != 1:
+        raise AssertionError(f"{label}: local MLA problems {problems}")
+    b, h, sq, _, dqk, dv, calls = problems[0]
+    nope = cfg.mla.qk_nope
+    gen = torch.Generator(device=dev).manual_seed(30)
+    rnd = lambda *shape: torch.randn(shape, generator=gen,
+                                     device=dev).bfloat16()
+    q, kv, krl, do = (rnd(b, h, sq, dqk), rnd(b, h, sq, nope + dv),
+                      rnd(b, 1, sq, dqk - nope), rnd(b, h, sq, dv))
+    scale = dqk ** -0.5
+    leaves = [t.detach().requires_grad_() for t in (q, kv, krl)]
+    out = mla_block(*leaves, nope=nope, scale=scale)
+    gq, gkv, gkr = torch.autograd.grad(out, leaves, do)
+    k = torch.cat([kv[..., :nope], krl.expand(b, h, sq, -1)], dim=-1)
+    pad = lambda t: torch.nn.functional.pad(t, (0, 256 - t.shape[-1]))
+    qp, kp, vp, dop = pad(q), pad(k), pad(kv[..., nope:]), pad(do)
+    kw = dict(causal=True, window=None, q_offset=0, scale=scale)
+    o, lse = FA.flash_attention(qp, kp, vp, **kw)
+    dsum = (dop[..., :dv].float() * o[..., :dv].float()).sum(-1,
+                                                             keepdim=True)
+    bargs = (qp, kp, vp, dop, lse, dsum)
+    dq = FA.flash_attention_dq(*bargs, **kw)
+    dkh, dvh = FA.flash_attention_dkv(*bargs, **kw)
+    torch.cuda.synchronize()
+    name = (f"{label} MLA: B={b} H={h} of {cfg.n_heads} S={sq} q/k {dqk} "
+            f"v {dv} padded to 256, {calls} calls booked")
+    if not (torch.equal(out, o[..., :dv]) and torch.equal(gq, dq[..., :dqk])
+            and torch.equal(gkv[..., :nope],
+                            dkh[..., :nope].to(kv.dtype))
+            and torch.equal(gkv[..., nope:], dvh[..., :dv].to(kv.dtype))):
+        raise AssertionError(f"{name}: mla_block's output or gradients "
+                             f"differ from the kernels'")
+    e_kr = _share_of_max(name + " shared key gradient", gkr,
+                         dkh[..., nope:dqk].to(kv.dtype).float()
+                         .sum(1, keepdim=True), 2.0 ** -7)
+    errs = _hold_attention_rows(name, (qp, kp, vp, dop),
+                                (o, lse, dq, dkh, dvh), dsum, kw)
+    log(f"{name}: mla_block bit for bit the kernels' o, dq, dk, dv cut "
+        f"back, the shared key's gradient within {e_kr:.2e} of the heads' "
+        f"sum; against the plain versions: o max abs err {errs['o']:.3e} "
+        f"(max rel {errs['rel']:.3e}, {errs['share_o']:.5f} equal in bf16), "
+        f"dq {errs['dq']:.3e} ({errs['share_dq']:.5f} equal in bf16), dk / "
+        f"dv {errs['kv']:.3e}")
+    return errs
+
+
+def _cell_line(rec: dict) -> dict:
+    """The numbers of a phase 30 cell that PERF.md keeps."""
+    mem = rec["memory"]
+    return {"collective_bytes_per_device": rec["collective_bytes_per_device"],
+            "collective_bytes_by_phase_axis":
+                rec["collective_bytes_by_phase_axis"],
+            "dp_gradient_bytes": rec["dp_gradient_bytes"],
+            "flops": rec["flops"], "aten_flops": rec["aten_flops"],
+            "kernel_flops": rec["kernel_flops"],
+            "kernel_padding_flops": rec["kernel_padding_flops"],
+            "state_bytes": mem["argument_bytes"],
+            "peak_above_state_bytes": mem["peak_bytes"],
+            "step_seconds": rec["step_seconds"], "launches": rec["launches"]}
+
+
+def check_moe_mesh(dev, out: dict):
+    """Phase 30 (see the module's docstring): A-E.  Puts each cell's
+    numbers and E's rows into ``out``; returns the phase's launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.fabric.planner import StepProfile, plan
+    from repro_torch.kernels import mask_gemm as MG
+
+    total = {}
+    t0 = time.perf_counter()
+    g = get_arch(MOE_ARCH)
+    a = _mesh_cell(dev, MOE_ARCH, f"phase 30 A {MOE_ARCH} train_4k pod1 "
+                   f"(moe_3d)", total)
+    _check_moe_cell("phase 30 A", g, a, MOE_BINS_BYTES)
+    _hold_mesh_attention(dev, "phase 30 A", g, a)
+    out["body"] = _hold_moe_body(dev, "phase 30 A", g, a)
+    out["A"] = _cell_line(a)
+    log(f"phase 30 A: {time.perf_counter() - t0:.1f} s")
+
+    b2 = _mesh_cell(dev, MOE_ARCH, f"phase 30 B {MOE_ARCH} train_4k pod1 "
+                    f"(moe_3d=0)", total, moe_3d=False)
+    _check_moe_cell("phase 30 B", g, b2, MOE_BINS_BYTES)
+    ca, cb = a["collective_bytes_per_device"], b2[
+        "collective_bytes_per_device"]
+    extra = {k: cb.get(k, 0) - ca.get(k, 0) for k in set(ca) | set(cb)}
+    log(f"phase 30 B: the 2D dispatch's re-layout bytes beside A's, by "
+        f"kind {json.dumps(extra)} (the bins' all-to-all "
+        f"{cb['all-to-all']:,} B in both)")
+    out["B"] = _cell_line(b2)
+    log(f"phase 30 B: {time.perf_counter() - t0:.1f} s")
+
+    c = _mesh_cell(dev, MOE_ARCH, f"phase 30 C {MOE_ARCH} train_4k pod1 "
+                   f"(bf16_experts)", total, bf16_experts=True)
+    _check_moe_cell("phase 30 C", g, c, MOE_BINS_BYTES)
+    if c["collective_bytes_per_device"] != ca or c["flops"] != a["flops"]:
+        raise AssertionError(f"phase 30 C: bytes or FLOPs differ from A's: "
+                             f"{c['collective_bytes_per_device']}, "
+                             f"{c['flops']} against {ca}, {a['flops']}")
+    log(f"phase 30 C: bytes and FLOPs equal A's; peak above the state "
+        f"{c['memory']['peak_bytes'] / 2**30:.3f} GiB against "
+        f"{a['memory']['peak_bytes'] / 2**30:.3f}, step "
+        f"{c['step_seconds']:.2f} s against {a['step_seconds']:.2f}")
+    # A again: its first step ran the phase's first DTensor and cuBLAS
+    # calls, so C's time is held against this one
+    a2 = _mesh_cell(dev, MOE_ARCH, f"phase 30 C {MOE_ARCH} train_4k pod1 "
+                    f"(moe_3d) again", total)
+    if a2["collective_bytes_per_device"] != ca:
+        raise AssertionError("phase 30 C: A's bytes differ when run again")
+    log(f"phase 30 C: bf16_experts step {c['step_seconds']:.2f} s against "
+        f"{a2['step_seconds']:.2f} s for A run again; peak above the state "
+        f"{c['memory']['peak_bytes'] / 2**30:.3f} GiB against "
+        f"{a2['memory']['peak_bytes'] / 2**30:.3f}")
+    out["C"] = {**_cell_line(c), "A_again_step_seconds": a2["step_seconds"],
+                "A_again_peak_above_state_bytes": a2["memory"]["peak_bytes"]}
+    log(f"phase 30 C: {time.perf_counter() - t0:.1f} s")
+
+    ds = get_arch(MLA_ARCH)
+    cut = ds if MLA_DEPTH is None else ds.replace(n_layers=MLA_DEPTH)
+    reason = "" if MLA_DEPTH is None else \
+        " (cut: phase 30 stays near 3 minutes)"
+    log(f"phase 30 D: {MLA_ARCH} at {cut.n_layers} of {ds.n_layers} layers"
+        f"{reason}")
+    d = _mesh_cell(dev, MLA_ARCH, f"phase 30 D {MLA_ARCH} train_4k pod1, "
+                   f"{cut.n_layers} layers", total, cfg=cut)
+    _check_moe_cell("phase 30 D", cut, d,
+                    58 * 6 * 256 * 160 * 7168 * 2 if MLA_DEPTH is None
+                    else None)
+    out["D_mla"] = _hold_mesh_mla(dev, "phase 30 D", cut, d)
+    out["D"] = {**_cell_line(d), "n_layers": cut.n_layers}
+    log(f"phase 30 D: {time.perf_counter() - t0:.1f} s")
+
+    MG.reset_launches()
+    profile = StepProfile.from_dryrun(a)
+    rows = plan(profile, min_terminals=256, mesh_shape=(16, 16),
+                axis_names=("data", "model"), device=dev)
+    mg = dict(MG.LAUNCHES)
+    for kname in ("frontier_step", "backward_step"):
+        if not mg.get(kname):
+            raise AssertionError(f"phase 30 E: {kname} never launched")
+        total[kname] = total.get(kname, 0) + mg[kname]
+    log(f"phase 30 E: plan(StepProfile.from_dryrun(A), min_terminals=256, "
+        f"mesh (16, 16)) on the card, #3 / #4 launched "
+        f"{mg['frontier_step']} / {mg['backward_step']} times; profile "
+        f"{json.dumps(profile.bytes_by_kind)}")
+    for r in rows[:5]:
+        log(f"phase 30 E:   {json.dumps(r)}")
+    out["plan"] = rows[:5]
+    log(f"phase 30 E: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 30: launches {total}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA "
@@ -6712,12 +7096,13 @@ def main() -> int:
     for kname in bwd_errs:
         launches[kname] = train_launches[kname]
     done("15")
-    # phases 16-29 run kernels #1-#4 (22, 25 and 28 #5-#7, 23 and 24 #5,
-    # 26 #8, 27 all but #3 and #4, 29 #3-#8 and 8') on new paths: their
+    # phases 16-30 run kernels #1-#4 (22, 25 and 28 #5-#7, 23 and 24 #5,
+    # 26 #8, 27 all but #3 and #4, 29 #3-#8 and 8', 30 #3-#7) on new
+    # paths: their
     # launches there go beside each kernel's main-path count; phase 26's
     # path is the SSD backward's main path
     phase_launches = {}
-    ssd_bwd, perf, h256, mesh = {}, {}, {}, {}
+    ssd_bwd, perf, h256, mesh, moe_mesh = {}, {}, {}, {}, {}
     for phase, fn in (("16", lambda: check_families(dev)),
                       ("17", lambda: check_faults_analytic(dev)),
                       ("18", lambda: check_faults_sim(
@@ -6733,7 +7118,8 @@ def main() -> int:
                       ("27", lambda: check_perf_flags(
                           dev, bw, ssd_bwd["first_loss"], perf)),
                       ("28", lambda: check_head256(dev, bw, h256)),
-                      ("29", lambda: check_mesh(dev, mesh))):
+                      ("29", lambda: check_mesh(dev, mesh)),
+                      ("30", lambda: check_moe_mesh(dev, moe_mesh))):
         t0 = time.perf_counter()
         for kname, count in fn().items():
             phase_launches.setdefault(kname, {})[phase] = count

@@ -28,14 +28,17 @@ The record has the reference's fields:
   ``gradients``: the explicit data-parallel reduction; ``optimizer``: the
   clip's norm and ZeRO-1's all-gathers) and mesh axis, as
   ``"phase/axis"``; ``collectives`` lists each distinct collective
-  (phase and axis, kind, result shape) with its bytes and count.
+  (phase and axis, kind, result shape) with its bytes and count.  A MoE
+  layer's all-to-all exchanges of its bins fall under ``loss/model``.
 * ``flops``: rank 0's products: the aten ops counted by
   ``torch.utils.flop_counter``'s formulas on the local shapes, plus the
   hand-written kernels', which no dispatch mode sees, by the formulas of
   ``chip_smoke.py``'s bounds (:func:`kernel_flops`) on the local
   problems the mesh hooks handed them (``kernel_problems``) times their
-  launches in the step.  On the CPU nothing launches: the kernels'
-  plain versions run as aten ops and are counted as such.
+  launches in the step (an MLA problem at its own q/k and v heads;
+  ``kernel_padding_flops``, the products the kernels add by padding
+  them to the head they run, apart).  On the CPU nothing launches: the
+  kernels' plain versions run as aten ops and are counted as such.
 * ``memory``: ``argument_bytes`` the local state, ``temp_bytes`` the
   card's peak allocation in the step less that state.
 * ``n_devices``, ``mesh``, ``perf_flags``, ``status``; keys with no
@@ -46,12 +49,12 @@ The record has the reference's fields:
   correction (``scan_reps`` is 0).
 
 Cells outside this slice are ``skipped`` with the ROADMAP item that
-queues them: the prefill and decode shapes, and the moe / hybrid / vlm /
-audio families; ``long_500k`` on a full-attention arch is skipped as in
-the reference.  :func:`run_cell` writes each record as JSON under
-``REPRO_DRYRUN_DIR`` (default ``build/dryrun/`` of the checkout).
-:class:`~repro_torch.fabric.planner.StepProfile`'s ``from_dryrun``
-reads a record.
+queues them: the prefill and decode shapes, and the hybrid / vlm / audio
+families (RG-LRU and the memory inputs); ``long_500k`` on a
+full-attention arch is skipped as in the reference.  :func:`run_cell`
+writes each record as JSON under ``REPRO_DRYRUN_DIR`` (default
+``build/dryrun/`` of the checkout).  :class:`~repro_torch.fabric.
+planner.StepProfile`'s ``from_dryrun`` reads a record.
 """
 
 from __future__ import annotations
@@ -72,6 +75,7 @@ from ..configs import ARCHS, SHAPES, get_arch
 from ..configs.base import ArchConfig, ShapeConfig
 
 __all__ = ["OUT_DIR", "CollectiveCounter", "fake_world", "kernel_flops",
+           "kernel_padding_flops",
            "dp_gradient_bytes", "local_train_state", "lower_cell",
            "cell_path", "run_cell", "main"]
 
@@ -88,9 +92,9 @@ _KINDS = (("all_gather", "all-gather"), ("reduce_scatter", "reduce-scatter"),
 _DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
                 torch.float16: "f16", torch.int32: "s32", torch.int64: "s64"}
 
-SLICE_FAMILIES = ("dense", "ssm")
-_QUEUED = ("ROADMAP queue 1: the MoE all-to-all path, then MLA, RG-LRU "
-           "and the memory-input families under a mesh")
+SLICE_FAMILIES = ("dense", "ssm", "moe")
+_QUEUED = ("ROADMAP queue 1 item 1.2: the RG-LRU and the memory-input "
+           "families under a mesh")
 
 
 def _kind(op_name: str):
@@ -144,8 +148,13 @@ class CollectiveCounter:
                     counter._book(kind, out, args, groups)
                 pkt = func._overloadpacket
                 if pkt in flop_registry:
+                    # a product's ``out_dtype`` overload (``bmm.dtype``)
+                    # carries its dtype as a positional argument, which
+                    # the formulas do not take
+                    shapes = [a for a in args
+                              if not isinstance(a, torch.dtype)]
                     counter.flops += int(flop_registry[pkt](
-                        *args, **kwargs, out_val=out))
+                        *shapes, **kwargs, out_val=out))
                 return out
 
         self._mode = _Mode()
@@ -246,6 +255,64 @@ def _ssd_products(length: int, chunk: int, h: int, p: int, g: int, n: int):
     return fwd, bwd
 
 
+def _attention_products(b, h, s, window, dqk, dv) -> tuple:
+    """Products of #5, #6 and #7 on one problem, Q K^T and dS K, dS^T Q
+    at the q/k head ``dqk``, P.V, dO V^T and P^T dO at the value head
+    ``dv``: (#5 Q K^T + P.V; #6 Q K^T + dO V^T + dS K; #7 Q K^T + dO V^T
+    + P^T dO + dS^T Q), each product 2 D H B over the live causal
+    pairs."""
+    pairs = 2.0 * h * b * _live_pairs(s, window)
+    return (pairs * (dqk + dv), pairs * (2 * dqk + dv),
+            pairs * (2 * dqk + 2 * dv))
+
+
+def _problem_flops(family: str, problem: tuple, launches: dict):
+    """(products, of them the head padding's) of one family's launches
+    on one local problem (:func:`kernel_flops`)."""
+    if family in ("attention", "mla"):
+        if family == "attention":
+            b, h, _, sq, skv, dqk, window = problem
+            dv = dqk
+        else:
+            b, h, sq, skv, dqk, dv = problem
+            window = None
+        if sq != skv:
+            raise ValueError(f"{family} {sq} x {skv}: a train step's "
+                             f"problems are square")
+        from ..kernels.flash_attention import _pad_head
+        n = (launches.get("flash_attention_fwd", 0),
+             launches.get("flash_attention_dq", 0),
+             launches.get("flash_attention_dkv", 0))
+        own = sum(c * f for c, f in zip(n, _attention_products(
+            b, h, sq, window, dqk, dv)))
+        dp = _pad_head(max(dqk, dv))
+        padded = sum(c * f for c, f in zip(n, _attention_products(
+            b, h, sq, window, dp, dp)))
+        return own, padded - own
+    if family == "ssd":
+        b, length, h, p, g, n, chunk = problem
+        fwd, bwd = _ssd_products(length, chunk, h, p, g, n)
+        return b * (fwd * launches.get("ssd_scan", 0)
+                    + bwd * launches.get("ssd_scan_bwd", 0)), 0.0
+    raise ValueError(f"no products for kernel family {family}")
+
+
+def kernel_padding_flops(problems: dict, launches: dict) -> float:
+    """The products the attention kernels add by padding a head to the
+    head they run (MLA's q/k 192 and v 128 to 256): the kernels do
+    :func:`kernel_flops` plus these."""
+    return sum(_problem_flops(family, _one_problem(family, seen),
+                              launches)[1]
+               for family, seen in problems.items())
+
+
+def _one_problem(family: str, seen: dict) -> tuple:
+    if len(seen) != 1:
+        raise ValueError(f"{len(seen)} local {family} problems in one "
+                         f"step: {sorted(seen)}")
+    return next(iter(seen))
+
+
 def kernel_flops(problems: dict, launches: dict) -> float:
     """The products of the step's kernel launches on one device, from the
     local problems the mesh hooks handed the kernels (``problems``, as
@@ -253,33 +320,19 @@ def kernel_flops(problems: dict, launches: dict) -> float:
     times each kernel's launches (``launches``: the kernels' ``LAUNCHES``
     keys): #5 Q K^T and P.V (2 mm, mm = 2 D Hq B pairs over the live
     causal pairs), #6 Q K^T, dO V^T and dS K (3 mm), #7 Q K^T, dO V^T,
-    P^T dO and dS^T Q (4 mm); #8 and 8' by :func:`_ssd_products`.  A
-    cell hands each kernel family one local problem (all its layers
-    alike); more than one raises, since the launches could not be
-    apportioned."""
-    total = 0.0
-    for family, seen in problems.items():
-        if len(seen) != 1:
-            raise ValueError(f"{len(seen)} local {family} problems in one "
-                             f"step: {sorted(seen)}")
-        (problem,) = seen
-        if family == "attention":
-            b, hq, _, sq, skv, d, window = problem
-            if sq != skv:
-                raise ValueError(f"attention {sq} x {skv}: a train step's "
-                                 f"problems are square")
-            mm = 2.0 * d * hq * b * _live_pairs(sq, window)
-            total += (2 * mm * launches.get("flash_attention_fwd", 0)
-                      + 3 * mm * launches.get("flash_attention_dq", 0)
-                      + 4 * mm * launches.get("flash_attention_dkv", 0))
-        elif family == "ssd":
-            b, length, h, p, g, n, chunk = problem
-            fwd, bwd = _ssd_products(length, chunk, h, p, g, n)
-            total += b * (fwd * launches.get("ssd_scan", 0)
-                          + bwd * launches.get("ssd_scan_bwd", 0))
-        else:
-            raise ValueError(f"no products for kernel family {family}")
-    return total
+    P^T dO and dS^T Q (4 mm); an MLA problem at its own heads, Q K^T, dS
+    K and dS^T Q at q/k, the others at v (the padding to the kernels'
+    head apart, :func:`kernel_padding_flops`); #8 and 8' by
+    :func:`_ssd_products`.  A cell hands each kernel family one local
+    problem (all its layers alike); more than one raises, since the
+    launches could not be apportioned, and so does an attention and an
+    MLA problem in one step."""
+    if "attention" in problems and "mla" in problems:
+        raise ValueError("attention and MLA problems in one step share "
+                         "the kernels' launches")
+    return sum(_problem_flops(family, _one_problem(family, seen),
+                              launches)[0]
+               for family, seen in problems.items())
 
 
 # ---- rank 0's share of the state ----------------------------------------
@@ -403,11 +456,13 @@ def _step_metrics(cfg: ArchConfig, shape: ShapeConfig, mesh, device,
     step_s = time.perf_counter() - t0
     launches = {**FA.LAUNCHES, **SS.LAUNCHES}
     kflops = kernel_flops(problems, launches)
+    pad_flops = kernel_padding_flops(problems, launches)
     peak = (torch.cuda.max_memory_allocated() - base) if cuda else None
     return {
         "flops": float(counter.flops + kflops),
         "aten_flops": float(counter.flops),
         "kernel_flops": float(kflops),
+        "kernel_padding_flops": float(pad_flops),
         "collective_bytes_per_device": counter.per_device(),
         "collective_bytes_by_phase_axis": counter.by_phase_axis,
         "collectives": counter.table(),

@@ -15,8 +15,8 @@ given a memory) attends the memory through the kernel in every mode,
 decode included, as the reference does.
 
 On a mesh (``mesh``, a ``DeviceMesh``; training of the dense GQA
-family) the weights are DTensors placed by their specs and the
-activations follow them.  The mesh hooks are the reference's:
+family and of MLA) the weights are DTensors placed by their specs and
+the activations follow them.  The mesh hooks are the reference's:
 ``batch_axes_for`` (the batch over ``("pod", "data")`` where that
 divides it, over ``model`` too under the ``dp_over_model`` perf flag)
 and ``constrain_heads`` (q, k and v sharded over ``model`` by head where
@@ -24,9 +24,10 @@ the head count divides it).  A weight sharded over the batch axes
 (``fsdp``) is all-gathered over them at its use, after the cast
 (:func:`cast_weight`), and its gradient comes back by reduce-scatter.
 The kernels run on each device's block through ``local_map``
-(:func:`local_attention`): DTensor has no sharding rule for them.  Under
-:func:`book_local_problems` the mesh hooks book the local problem each
-kernel call is handed (the dry run's kernel products).
+(:func:`local_attention`, :func:`local_mla_attention`): DTensor has no
+sharding rule for them.  Under :func:`book_local_problems` the mesh
+hooks book the local problem each kernel call is handed (the dry run's
+kernel products).
 """
 
 from __future__ import annotations
@@ -53,7 +54,8 @@ __all__ = ["rms_norm", "rope", "rope_table", "apply_rope", "cast_weight",
            "relayout",
            "replicated",
            "gather_fsdp", "book_local_problems", "kv_heads_read",
-           "attention_block", "local_attention", "local_embedding"]
+           "attention_block", "local_attention", "local_embedding",
+           "mla_block", "local_mla_attention"]
 
 KPOS_PAD = 2 ** 30   # position of an empty slot of a linear cache
 
@@ -294,7 +296,8 @@ def book_local_problems():
     """Within the block, the mesh hooks book each kernel call's local
     problem: yields ``{kernel family: {problem: calls}}``, the family
     ``"attention"`` with problems ``(B, Hq, Hkv, Sq, Skv, D, window)``
-    (causal) as :func:`attention_block` hands them to the kernel, and
+    (causal) as :func:`attention_block` hands them to the kernel,
+    ``"mla"`` with ``(B, H, Sq, Skv, Dqk, Dv)`` (:func:`mla_block`) and
     ``"ssd"`` with ``(B, L, H, P, G, N, chunk)``."""
     seen: dict = {}
     _PROBLEMS.append(seen)
@@ -377,6 +380,48 @@ def local_attention(q, k, v, mesh, **opts):
                                        kv_grad),
                    device_mesh=mesh)
     return fn(q, k, v)
+
+
+def mla_block(ql, kvl, krl, *, nope: int, scale: float):
+    """MLA's attention on one device's block: K the expanded ``k_nope``
+    (``kvl``'s first ``nope`` columns) beside the shared rotated key
+    ``krl`` (B, 1, S, qk_rope) broadcast to every head, V the rest of
+    ``kvl``, through :func:`repro_torch.kernels.ops.attention` (causal;
+    q/k and v padded to the kernels' head).  The call's problem ``(B,
+    H, Sq, Skv, Dqk, Dv)`` is booked (:func:`book_local_problems`) under
+    ``"mla"``."""
+    k_nope = kvl[..., :nope]
+    k = torch.cat([k_nope, krl.expand(*k_nope.shape[:-1], -1)
+                   .to(k_nope.dtype)], dim=-1)
+    v = kvl[..., nope:]
+    _book("mla", (ql.shape[0], ql.shape[1], ql.shape[2], k.shape[2],
+                  ql.shape[3], v.shape[3]))
+    return ops.attention(ql, k, v, causal=True, scale=scale)
+
+
+def local_mla_attention(q, kv, k_rope, mesh, *, nope: int, scale: float):
+    """:func:`mla_block` on each device's block of DTensors q (B, H, S,
+    qk_nope + qk_rope), kv (B, H, S, qk_nope + v_head) and k_rope (B, 1,
+    S, qk_rope), through ``local_map``; the output is placed as q.  The
+    shared key's gradient is the sum over the device's heads, a partial
+    sum over ``model`` where the heads are split there."""
+    from torch.distributed.tensor.experimental import local_map
+
+    md = _model_dim(mesh)
+    kr_grad = tuple(Partial() if (md is not None and i == md
+                                  and q.placements[md] == Shard(1)) else p
+                    for i, p in enumerate(k_rope.placements))
+
+    def run(ql, kvl, krl):
+        return mla_block(ql, kvl, krl, nope=nope, scale=scale)
+
+    fn = local_map(run, out_placements=(tuple(q.placements),),
+                   in_placements=(tuple(q.placements), tuple(kv.placements),
+                                  tuple(k_rope.placements)),
+                   in_grad_placements=(tuple(q.placements),
+                                       tuple(kv.placements), kr_grad),
+                   device_mesh=mesh)
+    return fn(q, kv, k_rope)
 
 
 def local_embedding(tokens, embed, mesh):
@@ -627,7 +672,7 @@ class MLA(nn.Module):
         self.norm = constant((m,), 1.0, dt, device)
 
     def forward(self, x, *, positions, mode: str, cache=None,
-                cache_slots=None, rope_tab=None):
+                cache_slots=None, rope_tab=None, mesh=None):
         """mode 'train', 'prefill' (the cache padded to ``cache_slots``
         where that is longer than S) or 'decode' (S = 1, positions (B, 1);
         the cache written at slot = position in place, which must be below
@@ -637,25 +682,40 @@ class MLA(nn.Module):
         the cache in plain torch, masked to ``kv_len = pos + 1`` (under
         the ``prob_bf16`` perf flag with bf16 operands as the reference's
         jnp route attends then, :func:`~repro_torch.kernels.ref.
-        attention_prob_bf16_ref`).  Returns
-        ``(y (B, S, M), cache)``, the cache None in training."""
+        attention_prob_bf16_ref`).  ``mesh``: training on a mesh, as the
+        reference's ``apply_mla`` runs there: q and the expanded kv
+        constrained by head (:func:`constrain_heads`), the kernels on
+        each device's heads (:func:`local_mla_attention`), ``wo``'s
+        product a partial sum over ``model`` for the block to reduce.
+        Returns ``(y (B, S, M), cache)``, the cache None in training."""
         cfg, mla = self.cfg, self.cfg.mla
         b, s, _ = x.shape
         nope, r = mla.qk_nope, mla.qk_rope
-        hidden = rms_norm(x, self.norm, cfg.norm_eps)
+        if mesh is not None and mode != "train":
+            raise NotImplementedError(
+                "a mesh shards training only; the prefill and decode cells "
+                "are ROADMAP queue 1")
+        hidden = gather_seq(rms_norm(x, self.norm, cfg.norm_eps))
         dt = hidden.dtype
         if rope_tab is None:
             rope_tab = rope_table(positions, r, cfg.rope_theta, x.device)
         q_lat = rms_norm(hidden @ cast_weight(self, "wq_a", dt), self.q_norm,
                          cfg.norm_eps)
-        q = _project(q_lat, cast_weight(self, "wq_b", dt))
+        q = constrain_heads(_project(q_lat, cast_weight(self, "wq_b", dt)),
+                            mesh)
         q = torch.cat([q[..., :nope], apply_rope(q[..., nope:], rope_tab)],
                       dim=-1)
         kv_a = hidden @ cast_weight(self, "wkv_a", dt)
         c_kv = rms_norm(kv_a[..., :mla.kv_lora], self.kv_norm, cfg.norm_eps)
         k_rope = apply_rope(kv_a[:, None, :, mla.kv_lora:], rope_tab)
         scale = (nope + r) ** -0.5
-        if mode == "decode":
+        if mesh is not None:
+            kv = constrain_heads(_project(c_kv, cast_weight(self, "wkv_b",
+                                                            dt)), mesh)
+            out = local_mla_attention(q, kv, k_rope, mesh, nope=nope,
+                                      scale=scale)
+            new_cache = None
+        elif mode == "decode":
             pos = positions.reshape(b).to(torch.int64)
             rows = torch.arange(b, device=x.device)
             ckv, krope = cache["ckv"], cache["krope"]
@@ -686,8 +746,8 @@ class MLA(nn.Module):
             raise ValueError(f"mode {mode!r}: 'train', 'prefill' or "
                              f"'decode'")
         hv = out.shape[1] * out.shape[3]
-        y = out.transpose(1, 2).reshape(b, s, hv) \
-            @ cast_weight(self, "wo", out.dtype).reshape(hv, -1)
+        y = branch_out(out.transpose(1, 2).reshape(b, s, hv),
+                       cast_weight(self, "wo", out.dtype).reshape(hv, -1))
         return y, new_cache
 
     def _expand(self, c_kv, k_rope):

@@ -168,8 +168,9 @@ def loss_fn(cfg: ArchConfig, params: Model, batch, *, mesh=None) -> tuple:
     training on a mesh (``batch["tokens"]`` a DTensor over the batch
     axes, see :func:`~repro_torch.models.transformer.forward`); the
     cross-entropy then runs on the vocab-parallel logits
-    (:func:`_sharded_cross_entropy`), and loss and metrics are
-    replicated DTensors."""
+    (:func:`_sharded_cross_entropy`, the MTP term's too), the summed
+    aux is a replicated scalar, and loss and metrics are replicated
+    DTensors."""
     tokens = batch["tokens"]
     out = forward(params, tokens, mode="train",
                   memory_inputs=batch.get("memory"), mesh=mesh)
@@ -185,10 +186,15 @@ def loss_fn(cfg: ArchConfig, params: Model, batch, *, mesh=None) -> tuple:
     metrics = {"ce": ce, "aux": out["aux"]}
     loss = ce + out["aux"]
     if "mtp_logits" in out:
-        mask2 = torch.ones_like(mask)
-        mask2[:, -2:] = 0.0
-        mtp = _cross_entropy(out["mtp_logits"],
-                             torch.roll(tokens, -2, dims=1).long(), mask2)
+        if mesh is not None:
+            mtp = _sharded_cross_entropy(out["mtp_logits"], tokens, mesh,
+                                         shift=2)
+        else:
+            mask2 = torch.ones_like(mask)
+            mask2[:, -2:] = 0.0
+            mtp = _cross_entropy(out["mtp_logits"],
+                                 torch.roll(tokens, -2, dims=1).long(),
+                                 mask2)
         metrics["mtp"] = mtp
         loss = loss + 0.3 * mtp
     return loss, metrics

@@ -116,7 +116,7 @@ class Block(nn.Module):
         MoE): serving reads no aux, so it computes none.  An ``xattn``
         layer given no memory runs as causal self-attention, with no
         window and a cache of the prompt's length, as the reference's
-        does.  ``mesh``: training on a mesh (the dense GQA and SSD
+        does.  ``mesh``: training on a mesh (the GQA, MLA, SSD and MoE
         kinds); h leaves the block constrained as the reference's
         ``_apply_block`` leaves it (:meth:`_constrain`)."""
         cache = cache or {}
@@ -124,13 +124,11 @@ class Block(nn.Module):
         res = (lambda out: out) if mesh is None else \
             (lambda out: self._constrain(out, mode, mesh).to(h.dtype))
         if mesh is not None:
-            if (self.kind not in ("attn", "ssd")
-                    or isinstance(self.mixer, MLA)
-                    or isinstance(self.mlp, MoE)):
+            if self.kind not in ("attn", "ssd"):
                 raise NotImplementedError(
-                    f"{self.cfg.name}: a mesh shards the dense GQA and SSD "
-                    f"blocks only; MoE, MLA, RG-LRU and the memory-input "
-                    f"blocks under a mesh are ROADMAP queue 1")
+                    f"{self.cfg.name}: a mesh shards the GQA, MLA, SSD and "
+                    f"MoE blocks; the RG-LRU and the memory-input blocks "
+                    f"under a mesh are ROADMAP queue 1 item 1.2")
             h = self._constrain(h, mode, mesh)
         if self.kind == "xattn":
             out, c = self.mixer(h, positions=positions, mode=mode, cache=c_in,
@@ -142,7 +140,8 @@ class Block(nn.Module):
                                 mesh=mesh)
         elif isinstance(self.mixer, MLA):
             out, c = self.mixer(h, positions=positions, mode=mode, cache=c_in,
-                                cache_slots=cache_slots, rope_tab=rope_tab)
+                                cache_slots=cache_slots, rope_tab=rope_tab,
+                                mesh=mesh)
         elif isinstance(self.mixer, SSDBlock):
             out, c = self.mixer(h, mode=mode, cache=c_in, mesh=mesh)
         else:
@@ -156,8 +155,8 @@ class Block(nn.Module):
             h = h + out
         aux = None
         if isinstance(self.mlp, MoE):
-            out, aux = self.mlp(h, with_aux=mode == "train")
-            h = h + out
+            out, aux = self.mlp(h, with_aux=mode == "train", mesh=mesh)
+            h = h + res(out)
         elif self.mlp is not None:
             h = h + res(self.mlp(h))
         return h, new_cache, aux
@@ -244,20 +243,28 @@ class MTPHead(nn.Module):
         self.norm = nn.Parameter(
             torch.ones((m,), dtype=torch.float32, device=device))
 
-    def forward(self, h, tokens, embed, *, positions, rope_tab=None):
+    def forward(self, h, tokens, embed, *, positions, rope_tab=None,
+                mesh=None):
         """h (B, S, M): the last block's output before the final norm;
         tokens (B, S); ``embed`` the model's embedding.  Returns the
         block's output over ``[rms_norm(h, norm), embed[tokens shifted by
         one]] @ proj``, before the final norm (the reference's
-        ``forward`` in training)."""
-        emb_next = F.embedding(torch.roll(tokens, -1, dims=1),
-                               embed).to(h.dtype)
-        x = torch.cat([rms_norm(h, self.norm, self.block.cfg.norm_eps),
+        ``forward`` in training).  ``mesh``: on a mesh (DTensors), the
+        next tokens' rows looked up vocab-parallel as the main
+        embedding's (:func:`local_embedding`), h gathered over the
+        sequence, and the block run with ``mesh``."""
+        shifted = _roll_tokens(tokens, -1)
+        if mesh is None:
+            emb_next = F.embedding(shifted, embed).to(h.dtype)
+        else:
+            emb_next = _embed_on_mesh(shifted, embed, mesh)
+        x = torch.cat([gather_seq(rms_norm(h, self.norm,
+                                           self.block.cfg.norm_eps)),
                        emb_next], dim=-1) @ cast_weight(self, "proj",
                                                         h.dtype)
         out, _, _ = self.block(x, mode="train", positions=positions,
                                cache=None, cache_slots=None,
-                               rope_tab=rope_tab)
+                               rope_tab=rope_tab, mesh=mesh)
         return out
 
 
@@ -291,6 +298,28 @@ class Model(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+
+def _roll_tokens(tokens, shift: int):
+    """``torch.roll(tokens, shift, dims=1)``; a DTensor's rows are rolled
+    where they lie, whole on every device (the batch is split, never the
+    sequence: DTensor has no rule for ``roll`` on torch 2.11)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(tokens, DTensor):
+        return torch.roll(tokens, shift, dims=1)
+    return DTensor.from_local(torch.roll(tokens.to_local(), shift, dims=1),
+                              tokens.device_mesh, tokens.placements,
+                              run_check=False)
+
+
+def _embed_on_mesh(tokens, embed, mesh):
+    """The embedding lookup of DTensor tokens on a mesh: vocab-parallel
+    (:func:`local_embedding`), its partial sums reduced in the table's
+    dtype to the batch layout, then rounded to bf16."""
+    h = local_embedding(tokens, gather_fsdp(embed), mesh)
+    return constrain(h, mesh, (tuple(batch_axes_for(
+        mesh, h.shape[0], True)) or None, None, None)).to(torch.bfloat16)
 
 
 def _train_block(block: Block, h, positions, rope_tab, memory, mesh=None):
@@ -374,12 +403,7 @@ def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
     if mesh is None:
         h = F.embedding(tokens, model.embed).to(torch.bfloat16)
     else:
-        # the vocab-parallel lookup's partial sums reduced in the table's
-        # dtype, then rounded to bf16
-        h = local_embedding(tokens, gather_fsdp(model.embed), mesh)
-        h = constrain(h, mesh, (tuple(batch_axes_for(
-            mesh, h.shape[0], True)) or None, None, None)) \
-            .to(torch.bfloat16)
+        h = _embed_on_mesh(tokens, model.embed, mesh)
     if positions is None:
         positions = torch.arange(s, device=tokens.device)
     # one rotary table serves every attention layer: at the head size, or
@@ -416,9 +440,11 @@ def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
     out = {"logits": logits, "aux": aux}
     if mode == "train" and model.mtp is not None:
         mtp_h = model.mtp(h, tokens, model.embed, positions=positions,
-                          rope_tab=tab)
-        out["mtp_logits"] = (rms_norm(mtp_h, model.final_norm,
-                                      cfg.norm_eps) @ head).float()
+                          rope_tab=tab, mesh=mesh)
+        mtp_logits = (gather_seq(rms_norm(mtp_h, model.final_norm,
+                                          cfg.norm_eps)) @ head).float()
+        out["mtp_logits"] = (mtp_logits if mesh is None else
+                             _constrain_logits(mtp_logits, mesh))
     if mode != "train":
         out["cache"] = (new_cache if memory is None else
                         {"layers": new_cache, "enc_memory": memory})

@@ -52,11 +52,12 @@ What each flag does on one card:
                   ``replicate_ff`` and ``zero1`` in the dry-run's step
                   (``launch/dryrun.py:94-99``).  On one card they
                   change nothing in the reference, and nothing here.
-                  On a mesh the port reads three as the reference
+                  On a mesh the port reads them all as the reference
                   does: ``dp_over_model`` in ``models.layers.
                   batch_axes_for``, ``replicate_ff`` and ``zero1`` in
-                  ``launch.dryrun``'s step; the MoE flags wait for the
-                  MoE path under a mesh (ROADMAP queue 1).
+                  ``launch.dryrun``'s step, ``bf16_experts`` in
+                  ``models.moe.expert_mlp`` and ``moe_3d`` in
+                  ``models.moe.MoE``'s mesh dispatch.
   util_engine=NAME — the arc-load engine of ``core.utilization`` calls
                   that name none: auto | dense | fused | orbit.  The
                   reference's names raise where they are used, with the

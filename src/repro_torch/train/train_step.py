@@ -23,7 +23,7 @@ in place (one more set of gradients beside the state, not two), loss
 and metrics averaged the same way; otherwise the plain step runs.
 
 On a mesh (``mesh``, a ``DeviceMesh`` of more than one device; the
-dense GQA and SSD families) the state's tensors are DTensors placed by
+GQA, MLA, SSD and MoE families) the state's tensors are DTensors placed by
 :func:`make_train_state_specs` (the reference's specs: params, m and v
 by the parameter specs, ``count`` and ``step`` replicated) and the
 batch is sharded over the batch axes (:func:`batch_pspec`).  The loss

@@ -509,8 +509,7 @@ def test_plan_from_the_port_record_matches_reference(records):
 
 
 def test_skipped_cells_name_their_queue():
-    out = dryrun.lower_cell("granite-moe-3b-a800m", "train_4k", False,
-                            "cpu")
+    out = dryrun.lower_cell("recurrentgemma-9b", "train_4k", False, "cpu")
     assert out["status"] == "skipped" and "ROADMAP" in out["reason"]
     out = dryrun.lower_cell("smollm-135m", "decode_32k", False, "cpu")
     assert out["status"] == "skipped" and "ROADMAP" in out["reason"]
