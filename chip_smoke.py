@@ -489,6 +489,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     to 256) through ``models.layers.mla_block``, bit for bit the
     kernels'.  E: ``fabric.plan`` on A's record.  Every peak under 80
     GB; the launches go under ``phase_launches``.
+31. The RG-LRU and the memory-input families under the production mesh,
+    as phase 29 runs its cells (``train_4k`` on ``pod1``, full width).
+    A: recurrentgemma-9b at 38 layers (the RG-LRU's width 4096 split
+    over ``model``, 256 columns a device; its attention layers sequence
+    parallel, its RG-LRU layers batch-only).  B: llama-3.2-vision-90b at
+    full depth (``VISION_DEPTH``: all 100 layers, 20 of them cross
+    layers, or a logged cut), its batch carrying (16, 1600, 8192) bf16
+    image embeddings a device.  C: seamless-m4t-large-v2 (24 encoder and
+    24 decoder layers) at ``AUDIO_ROWS`` = 4 rows a device, a global
+    batch of 64: its vocabulary does not divide ``model``, so its
+    float32 logits sit whole on every device, 67.2 GB at the cell's 16
+    rows; its batch carries (4, 1024, 1024) bf16 frames.  Each cell: the
+    data-parallel gradient all-reduce exactly the local gradients not
+    sharded over ``data`` (the 0-d cross gates too), every collective's
+    bytes by kind, phase and axis, FLOPs, the state and the peak split
+    into parts (``peak_parts``), the step's seconds; #5-#7 launched and
+    held at each of its local problems (non-causal ones too: vision's
+    cross layers at Sq 4096 against Skv 1600, seamless's encoder and
+    cross layers) as in phase 29.  D: ``fabric.plan`` on each record.
+    Every peak under 80 GB; the launches go under ``phase_launches``.
 
 Output: the card's name and power limit, then a ``kernels`` JSON line,
 then ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -6331,17 +6351,17 @@ MESH_DP_BYTES = {"smollm-135m": 133_293_312, "h2o-danube-3-4b": 752_640,
 
 
 def _mesh_cell(dev, arch: str, label: str, total: dict, *, cfg=None,
-               **flag_kw):
-    """One ``train_4k`` cell of phases 29 and 30 on ``pod1`` (``cfg``: the
-    published config cut, where given) under the perf flags ``flag_kw``:
-    its record, its launches added to ``total``, its bytes and memory
-    logged."""
+               shape=None, **flag_kw):
+    """One ``train_4k`` cell of phases 29-31 on ``pod1`` (``cfg``: the
+    published config cut, ``shape``: the shape's rows cut, where given)
+    under the perf flags ``flag_kw``: its record, its launches added to
+    ``total``, its bytes and memory logged."""
     from repro_torch.launch.dryrun import lower_cell
 
     with perf_flags(**flag_kw):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        rec = lower_cell(arch, "train_4k", False, dev, cfg=cfg)
+        rec = lower_cell(arch, "train_4k", False, dev, cfg=cfg, shape=shape)
         wall = time.perf_counter() - t0
     if rec["status"] != "ok":
         raise AssertionError(f"{label}: {rec}")
@@ -6363,6 +6383,9 @@ def _mesh_cell(dev, arch: str, label: str, total: dict, *, cfg=None,
         f"(temp {mem['temp_bytes'] / 2**30:.3f} GiB); step "
         f"{rec['step_seconds']:.2f} s, cell {wall:.2f} s; launches "
         f"{rec['launches']}; rows a device {rec['per_device_batch']}")
+    parts = mem.get("peak_parts") or {}
+    log(f"{label}: the state and the peak by part, GiB: " + ", ".join(
+        f"{k} {v / 2**30:.3f}" for k, v in parts.items() if v is not None))
     if mem["peak_bytes"] + mem["argument_bytes"] > 80e9:
         raise AssertionError(f"{label}: over 80 GB")
     return rec
@@ -6386,7 +6409,7 @@ def _check_dp_bytes(label: str, rec: dict, arch: str, zero1: bool):
 
 def _mesh_attention_problem(label: str, cfg, rec: dict):
     """A cell's one local attention problem, as its step handed it to
-    the kernels: ``(B, Hq, Hkv, Sq, Skv, D, window)``."""
+    the kernels: ``(B, Hq, Hkv, Sq, Skv, D, window, causal)``."""
     problems = rec["kernel_problems"].get("attention", [])
     if len(problems) != 1:
         raise AssertionError(f"{label}: local attention problems "
@@ -6397,7 +6420,8 @@ def _mesh_attention_problem(label: str, cfg, rec: dict):
     return tuple(problem)
 
 
-def _hold_mesh_attention(dev, label: str, cfg, rec: dict, ranks=(0,)):
+def _hold_mesh_attention(dev, label: str, cfg, rec: dict, ranks=(0,),
+                         problem=None):
     """Phase 29: #5-#7 at a cell's own local problem, on fresh seeded
     inputs, against their plain versions.  The q heads of a model rank
     and every kv head go through ``models.layers.attention_block`` (the
@@ -6410,18 +6434,21 @@ def _hold_mesh_attention(dev, label: str, cfg, rec: dict, ranks=(0,)):
     dk / dv per q head to phase 14's, all against the plain versions on
     k and v picked by the global group map (q head h reads kv head h //
     (Hq / Hkv)), so a wrong cut of k and v shows.  Phase 30 holds
-    granite-moe's cell likewise."""
+    granite-moe's cell likewise, phase 31 each of its cells' problems
+    (``problem``; a non-causal one, Sq against the memory's Skv, too).
+    Returns the largest errors of the last rank held."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models.layers import attention_block, kv_heads_read
 
-    b, hq_l, hkv_l, sq, _, d, window = _mesh_attention_problem(label, cfg,
-                                                               rec)
-    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    if problem is None:
+        problem = _mesh_attention_problem(label, cfg, rec)
+    b, hq_l, hkv_l, sq, skv, d, window, causal = problem
+    hq, hkv = cfg.n_heads, max(1, cfg.n_kv_heads)
     split = hq_l != hq
     n_model = hq // hq_l
     group = hq // hkv
     gen = torch.Generator(device=dev).manual_seed(29)
-    kw = dict(causal=True, window=window, q_offset=0)
+    kw = dict(causal=causal, window=window, q_offset=0)
     for rank in (ranks if split else (0,)):
         kv = kv_heads_read(hq, hkv, n_model, rank) if split else None
         lo, hi = kv if kv is not None else (0, hkv)
@@ -6432,13 +6459,13 @@ def _hold_mesh_attention(dev, label: str, cfg, rec: dict, ranks=(0,)):
         first = rank * hq_l if split else 0
         q, do = (torch.randn((b, hq_l, sq, d), generator=gen,
                              device=dev).bfloat16() for _ in range(2))
-        k, v = (torch.randn((b, hkv, sq, d), generator=gen,
+        k, v = (torch.randn((b, hkv, skv, d), generator=gen,
                             device=dev).bfloat16() for _ in range(2))
         name = (f"{label} attention rank {rank}: B={b} Hq={hq_l} of {hq} "
-                f"(kv heads {lo}:{hi} of {hkv}) S={sq} D={d} "
-                f"window={window}")
+                f"(kv heads {lo}:{hi} of {hkv}) Sq={sq} Skv={skv} D={d} "
+                f"window={window} {'causal' if causal else 'non-causal'}")
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = attention_block(*leaves, kv, causal=True, window=window)
+        out = attention_block(*leaves, kv, causal=causal, window=window)
         gq, gk, gv = torch.autograd.grad(out, leaves, do)
         kl, vl = k[:, lo:hi].contiguous(), v[:, lo:hi].contiguous()
         o, lse = FA.flash_attention(q, kl, vl, **kw)
@@ -6453,7 +6480,7 @@ def _hold_mesh_attention(dev, label: str, cfg, rec: dict, ranks=(0,)):
         torch.cuda.synchronize()
         # summed over each kv group at the padded width and cut, as
         # flash_attention_bwd does
-        dk, dv = (t.view(b, hi - lo, hq_l // (hi - lo), sq, dp).sum(2)
+        dk, dv = (t.view(b, hi - lo, hq_l // (hi - lo), skv, dp).sum(2)
                   [..., :d].contiguous().to(k.dtype) for t in (dkh, dvh))
         dkh, dvh = dkh[..., :d], dvh[..., :d]
         outside = torch.ones(hkv, dtype=torch.bool, device=dev)
@@ -6477,6 +6504,7 @@ def _hold_mesh_attention(dev, label: str, cfg, rec: dict, ranks=(0,)):
             f"{errs['kv']:.3e}")
         del (q, k, v, do, leaves, out, gq, gk, gv, o, lse, dsum, dq, dkh,
              dvh, kr, vr)
+    return errs
 
 
 def _hold_attention_rows(name, inputs, outs, dsum, kw, scores=2e9):
@@ -6726,8 +6754,10 @@ MOE_ARCH, MLA_ARCH = "granite-moe-3b-a800m", "deepseek-v3-671b"
 # x 1.25) for the 16 x 256 tokens a device
 MOE_BINS_BYTES = 32 * 6 * 48 * 1024 * 1536 * 2
 # deepseek-v3's depth in phase 30 D: None runs the config's 61 layers (3
-# dense, 58 MoE); a number cuts it to the 3 dense layers and the rest MoE
-MLA_DEPTH = None
+# dense, 58 MoE); a number cuts it to the 3 dense layers and the rest MoE.
+# 5 (2 MoE layers) keeps the whole script inside its time with phase 31:
+# the 61-layer step took 35-40 s (PR 32's runs)
+MLA_DEPTH = 5
 
 
 def _bins_bytes(cfg, rec: dict) -> int:
@@ -6948,6 +6978,7 @@ def _cell_line(rec: dict) -> dict:
             "kernel_padding_flops": rec["kernel_padding_flops"],
             "state_bytes": mem["argument_bytes"],
             "peak_above_state_bytes": mem["peak_bytes"],
+            "peak_parts": mem.get("peak_parts"),
             "step_seconds": rec["step_seconds"], "launches": rec["launches"]}
 
 
@@ -7009,7 +7040,7 @@ def check_moe_mesh(dev, out: dict):
     ds = get_arch(MLA_ARCH)
     cut = ds if MLA_DEPTH is None else ds.replace(n_layers=MLA_DEPTH)
     reason = "" if MLA_DEPTH is None else \
-        " (cut: phase 30 stays near 3 minutes)"
+        " (cut: the whole script stays inside its time with phase 31)"
     log(f"phase 30 D: {MLA_ARCH} at {cut.n_layers} of {ds.n_layers} layers"
         f"{reason}")
     d = _mesh_cell(dev, MLA_ARCH, f"phase 30 D {MLA_ARCH} train_4k pod1, "
@@ -7042,6 +7073,113 @@ def check_moe_mesh(dev, out: dict):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: the RG-LRU and the memory-input families under the production
+# mesh
+# ---------------------------------------------------------------------------
+
+# llama-3.2-vision-90b's depth in phase 31 B: None runs the config's 100
+# layers (20 of them cross layers); a number cuts it, the pattern kept
+VISION_DEPTH = None
+# seamless-m4t-large-v2's rows a device in phase 31 C: its 256,206-token
+# vocabulary does not divide the 16-way model axis, so its float32 logits
+# sit whole on every device, as in the reference's specs: (16, 4096,
+# 256206) at the cell's 16 rows, 67.2 GB, and as much again for their
+# gradient; at 4 rows (a global batch of 64) the cell fits one card
+AUDIO_ROWS = 4
+
+
+def _check_memory_cell(label: str, cfg, rec: dict, n_mem: int):
+    """A phase 31 cell: its data-parallel gradient bytes against
+    :func:`_dp_bytes` (every 0-d cross gate among them), the memory its
+    batch carried, #5-#7 launched; its local attention problems, each
+    with its calls, returned."""
+    dp = rec["dp_gradient_bytes"]
+    want = _dp_bytes(cfg)
+    log(f"{label}: data-parallel gradient bytes {json.dumps(dp)} "
+        f"(expected all-reduce {want:,} B); memory tokens a row "
+        f"{rec['memory_tokens']} (expected {n_mem})")
+    if dp != {"all-reduce": want} or rec["memory_tokens"] != n_mem:
+        raise AssertionError(f"{label}: data-parallel gradient bytes {dp} "
+                             f"!= {want}, or memory {rec['memory_tokens']}")
+    for kname in ("flash_attention_fwd", "flash_attention_dq",
+                  "flash_attention_dkv"):
+        if not rec["launches"].get(kname):
+            raise AssertionError(f"{label}: {kname} never launched")
+    problems = [(tuple(p[:-1]), p[-1])
+                for p in rec["kernel_problems"]["attention"]]
+    log(f"{label}: local attention problems (B, Hq, Hkv, Sq, Skv, D, "
+        f"window, causal) and calls {problems}")
+    return problems
+
+
+def check_memory_mesh(dev, out: dict):
+    """Phase 31 (see the module's docstring): A-D.  Puts each cell's
+    numbers, its kernel holds and D's rows into ``out``; returns the
+    phase's launches."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.fabric.planner import StepProfile, plan
+    from repro_torch.kernels import mask_gemm as MG
+
+    total = {}
+    t0 = time.perf_counter()
+    vision = get_arch(VISION_ARCH)
+    if VISION_DEPTH is not None:
+        vision = vision.replace(n_layers=VISION_DEPTH)
+        log(f"phase 31 B: {VISION_ARCH} cut to {VISION_DEPTH} of 100 "
+            f"layers")
+    cells = (("A", RGEMMA_ARCH, get_arch(RGEMMA_ARCH), None, 0),
+             ("B", VISION_ARCH, vision, None,
+              vision.vision.n_image_tokens),
+             ("C", ENC_ARCH, get_arch(ENC_ARCH),
+              ShapeConfig("train_4k", 4096, 16 * AUDIO_ROWS, "train"),
+              4096 // 4))
+    recs = {}
+    for key, arch, cfg, shape, n_mem in cells:
+        label = f"phase 31 {key}"
+        rows = "" if shape is None else \
+            f", {AUDIO_ROWS} rows a device (global batch {shape.global_batch})"
+        enc = "" if cfg.encoder is None else \
+            f" and {cfg.encoder.n_layers} encoder layers"
+        rec = _mesh_cell(dev, arch, f"{label} {arch} train_4k pod1, "
+                         f"{cfg.n_layers} layers{enc}{rows}", total,
+                         cfg=cfg if cfg.n_layers != get_arch(arch).n_layers
+                         else None, shape=shape)
+        holds = []
+        for problem, calls in _check_memory_cell(label, cfg, rec, n_mem):
+            errs = _hold_mesh_attention(dev, label, cfg, rec,
+                                        problem=problem)
+            holds.append({"problem": list(problem), "calls": calls,
+                          "errs": errs})
+        recs[key] = rec
+        out[key] = {**_cell_line(rec), "n_layers": cfg.n_layers,
+                    "per_device_batch": rec["per_device_batch"],
+                    "kernel_problems": rec["kernel_problems"],
+                    "holds": holds}
+        log(f"{label}: {time.perf_counter() - t0:.1f} s")
+
+    for key, rec in recs.items():
+        MG.reset_launches()
+        profile = StepProfile.from_dryrun(rec)
+        rows = plan(profile, min_terminals=256, mesh_shape=(16, 16),
+                    axis_names=("data", "model"), device=dev)
+        mg = dict(MG.LAUNCHES)
+        for kname in ("frontier_step", "backward_step"):
+            if not mg.get(kname):
+                raise AssertionError(f"phase 31 D: {kname} never launched")
+            total[kname] = total.get(kname, 0) + mg[kname]
+        log(f"phase 31 D: plan(StepProfile.from_dryrun({key}), "
+            f"min_terminals=256, mesh (16, 16)) on the card, #3 / #4 "
+            f"launched {mg['frontier_step']} / {mg['backward_step']} times; "
+            f"profile {json.dumps(profile.bytes_by_kind)}")
+        for r in rows[:3]:
+            log(f"phase 31 D {key}:   {json.dumps(r)}")
+        out[f"plan_{key}"] = rows[:3]
+    log(f"phase 31 D: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 31: launches {total}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA "
@@ -7065,9 +7203,13 @@ def main() -> int:
     dev = torch.device("cuda")
 
     t_start = time.perf_counter()
+    last = [t_start]
 
     def done(phases: str):
-        log(f"[{time.perf_counter() - t_start:7.1f} s] phases {phases} done")
+        now = time.perf_counter()
+        log(f"[{now - t_start:7.1f} s] phases {phases} done "
+            f"({now - last[0]:.1f} s)")
+        last[0] = now
 
     errs, timing = check_kernels(dev, bw)
     mg_errs, mg_timing = check_mask_gemm(dev, bw)
@@ -7096,13 +7238,13 @@ def main() -> int:
     for kname in bwd_errs:
         launches[kname] = train_launches[kname]
     done("15")
-    # phases 16-30 run kernels #1-#4 (22, 25 and 28 #5-#7, 23 and 24 #5,
-    # 26 #8, 27 all but #3 and #4, 29 #3-#8 and 8', 30 #3-#7) on new
-    # paths: their
+    # phases 16-31 run kernels #1-#4 (22, 25 and 28 #5-#7, 23 and 24 #5,
+    # 26 #8, 27 all but #3 and #4, 29 #3-#8 and 8', 30 and 31 #3-#7) on
+    # new paths: their
     # launches there go beside each kernel's main-path count; phase 26's
     # path is the SSD backward's main path
     phase_launches = {}
-    ssd_bwd, perf, h256, mesh, moe_mesh = {}, {}, {}, {}, {}
+    ssd_bwd, perf, h256, mesh, moe_mesh, mem_mesh = {}, {}, {}, {}, {}, {}
     for phase, fn in (("16", lambda: check_families(dev)),
                       ("17", lambda: check_faults_analytic(dev)),
                       ("18", lambda: check_faults_sim(
@@ -7119,7 +7261,8 @@ def main() -> int:
                           dev, bw, ssd_bwd["first_loss"], perf)),
                       ("28", lambda: check_head256(dev, bw, h256)),
                       ("29", lambda: check_mesh(dev, mesh)),
-                      ("30", lambda: check_moe_mesh(dev, moe_mesh))):
+                      ("30", lambda: check_moe_mesh(dev, moe_mesh)),
+                      ("31", lambda: check_memory_mesh(dev, mem_mesh))):
         t0 = time.perf_counter()
         for kname, count in fn().items():
             phase_launches.setdefault(kname, {})[phase] = count

@@ -34,13 +34,22 @@ The record has the reference's fields:
   ``torch.utils.flop_counter``'s formulas on the local shapes, plus the
   hand-written kernels', which no dispatch mode sees, by the formulas of
   ``chip_smoke.py``'s bounds (:func:`kernel_flops`) on the local
-  problems the mesh hooks handed them (``kernel_problems``) times their
+  problems the mesh hooks handed them (``kernel_problems``: causal or
+  not, a cross layer's Sq against the memory's Skv) times their
   launches in the step (an MLA problem at its own q/k and v heads;
   ``kernel_padding_flops``, the products the kernels add by padding
   them to the head they run, apart).  On the CPU nothing launches: the
   kernels' plain versions run as aten ops and are counted as such.
-* ``memory``: ``argument_bytes`` the local state, ``temp_bytes`` the
-  card's peak allocation in the step less that state.
+* ``memory``: ``argument_bytes`` the local state, ``peak_bytes`` the
+  card's peak allocation in the step above what was allocated before
+  it, ``temp_bytes`` that less the state; ``peak_parts`` splits the
+  state and the peak into the state, the saved activations (the
+  allocation at the end of the forward, less what was allocated before
+  the step and one copy of the local float32 logits), the logits and
+  their gradient (twice the local float32 logits' bytes, each head's:
+  what the loss keeps for its backward and the gradient it hands back)
+  and the rest (the peak less these); on the CPU only the state and the
+  logits' part, which are counted, not measured.
 * ``n_devices``, ``mesh``, ``perf_flags``, ``status``; keys with no
   counterpart in an eager run (``compile_seconds``, ``hlo_chars``,
   ``probe``, ``raw``, ``bytes_accessed``, ``transcendentals``,
@@ -48,10 +57,12 @@ The record has the reference's fields:
   layers unrolled, so every layer is counted once and there is no probe
   correction (``scan_reps`` is 0).
 
-Cells outside this slice are ``skipped`` with the ROADMAP item that
-queues them: the prefill and decode shapes, and the hybrid / vlm / audio
-families (RG-LRU and the memory inputs); ``long_500k`` on a
-full-attention arch is skipped as in the reference.  :func:`run_cell`
+Every family runs its ``train_4k`` cell; a memory-input config's batch
+carries its memory as the reference's ``input_specs`` give it (vision:
+(B, n_image_tokens, d_model), an encoder: (B, seq // frame_ratio,
+d_model), bf16 over the batch axes).  The prefill and decode cells are
+``skipped``, naming the ROADMAP item that queues them; ``long_500k`` on
+a full-attention arch is skipped as in the reference.  :func:`run_cell`
 writes each record as JSON under ``REPRO_DRYRUN_DIR`` (default
 ``build/dryrun/`` of the checkout).  :class:`~repro_torch.fabric.
 planner.StepProfile`'s ``from_dryrun`` reads a record.
@@ -75,7 +86,7 @@ from ..configs import ARCHS, SHAPES, get_arch
 from ..configs.base import ArchConfig, ShapeConfig
 
 __all__ = ["OUT_DIR", "CollectiveCounter", "fake_world", "kernel_flops",
-           "kernel_padding_flops",
+           "kernel_padding_flops", "memory_tokens",
            "dp_gradient_bytes", "local_train_state", "lower_cell",
            "cell_path", "run_cell", "main"]
 
@@ -92,9 +103,11 @@ _KINDS = (("all_gather", "all-gather"), ("reduce_scatter", "reduce-scatter"),
 _DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
                 torch.float16: "f16", torch.int32: "s32", torch.int64: "s64"}
 
-SLICE_FAMILIES = ("dense", "ssm", "moe")
-_QUEUED = ("ROADMAP queue 1 item 1.2: the RG-LRU and the memory-input "
-           "families under a mesh")
+# the launch counters of each kernel family's kernels
+_LAUNCH_KEYS = {"attention": ("flash_attention_fwd", "flash_attention_dq",
+                              "flash_attention_dkv"),
+                "ssd": ("ssd_scan", "ssd_scan_bwd")}
+_LAUNCH_KEYS["mla"] = _LAUNCH_KEYS["attention"]
 
 
 def _kind(op_name: str):
@@ -255,62 +268,97 @@ def _ssd_products(length: int, chunk: int, h: int, p: int, g: int, n: int):
     return fwd, bwd
 
 
-def _attention_products(b, h, s, window, dqk, dv) -> tuple:
+def _pairs(sq: int, skv: int, window, causal: bool) -> int:
+    """The (q, k) pairs a problem attends: the live causal pairs within
+    ``window`` (Sq = Skv), or every one of Sq x Skv (non-causal: the
+    encoder's self-attention, a cross layer's Sq against the memory)."""
+    if causal:
+        if sq != skv:
+            raise ValueError(f"causal {sq} x {skv}: a train step's causal "
+                             f"problems are square")
+        return _live_pairs(sq, window)
+    if window is not None:
+        raise ValueError("a non-causal problem with a window")
+    return sq * skv
+
+
+def _attention_products(b, h, pairs, dqk, dv) -> tuple:
     """Products of #5, #6 and #7 on one problem, Q K^T and dS K, dS^T Q
     at the q/k head ``dqk``, P.V, dO V^T and P^T dO at the value head
     ``dv``: (#5 Q K^T + P.V; #6 Q K^T + dO V^T + dS K; #7 Q K^T + dO V^T
-    + P^T dO + dS^T Q), each product 2 D H B over the live causal
-    pairs."""
-    pairs = 2.0 * h * b * _live_pairs(s, window)
-    return (pairs * (dqk + dv), pairs * (2 * dqk + dv),
-            pairs * (2 * dqk + 2 * dv))
+    + P^T dO + dS^T Q), each product 2 D H B over the ``pairs``
+    attended."""
+    mm = 2.0 * h * b * pairs
+    return (mm * (dqk + dv), mm * (2 * dqk + dv), mm * (2 * dqk + 2 * dv))
 
 
-def _problem_flops(family: str, problem: tuple, launches: dict):
-    """(products, of them the head padding's) of one family's launches
-    on one local problem (:func:`kernel_flops`)."""
+def _launch_shares(family: str, seen: dict, launches: dict) -> dict:
+    """``{problem: launches of each of the family's kernels}``: the
+    family's launches split over its local problems in proportion to
+    their calls.  A train step makes every call of a family alike
+    (forward and remat recompute, or forward alone, each with one
+    backward), so the split is whole; where it is not, the launches
+    cannot be apportioned and it raises."""
+    total = sum(seen.values())
+    out = {}
+    for problem, calls in seen.items():
+        row = []
+        for key in _LAUNCH_KEYS[family]:
+            n = launches.get(key, 0) * calls
+            if n % total:
+                raise ValueError(
+                    f"{launches.get(key, 0)} {key} launches do not split "
+                    f"over {len(seen)} local {family} problems of "
+                    f"{sorted(seen.values())} calls")
+            row.append(n // total)
+        out[problem] = tuple(row)
+    return out
+
+
+def _problem_flops(family: str, problem: tuple, n: tuple):
+    """(products, of them the head padding's) of one family's ``n``
+    launches (its kernels' in :data:`_LAUNCH_KEYS` order) on one local
+    problem (:func:`kernel_flops`)."""
     if family in ("attention", "mla"):
         if family == "attention":
-            b, h, _, sq, skv, dqk, window = problem
+            b, h, _, sq, skv, dqk, window, causal = problem
             dv = dqk
         else:
             b, h, sq, skv, dqk, dv = problem
-            window = None
-        if sq != skv:
-            raise ValueError(f"{family} {sq} x {skv}: a train step's "
-                             f"problems are square")
+            window, causal = None, True
         from ..kernels.flash_attention import _pad_head
-        n = (launches.get("flash_attention_fwd", 0),
-             launches.get("flash_attention_dq", 0),
-             launches.get("flash_attention_dkv", 0))
+        pairs = _pairs(sq, skv, window, causal)
         own = sum(c * f for c, f in zip(n, _attention_products(
-            b, h, sq, window, dqk, dv)))
+            b, h, pairs, dqk, dv)))
         dp = _pad_head(max(dqk, dv))
         padded = sum(c * f for c, f in zip(n, _attention_products(
-            b, h, sq, window, dp, dp)))
+            b, h, pairs, dp, dp)))
         return own, padded - own
     if family == "ssd":
-        b, length, h, p, g, n, chunk = problem
-        fwd, bwd = _ssd_products(length, chunk, h, p, g, n)
-        return b * (fwd * launches.get("ssd_scan", 0)
-                    + bwd * launches.get("ssd_scan_bwd", 0)), 0.0
+        b, length, h, p, g, n_state, chunk = problem
+        fwd, bwd = _ssd_products(length, chunk, h, p, g, n_state)
+        return b * (fwd * n[0] + bwd * n[1]), 0.0
     raise ValueError(f"no products for kernel family {family}")
+
+
+def _flops(problems: dict, launches: dict) -> tuple:
+    """(:func:`kernel_flops`, :func:`kernel_padding_flops`)."""
+    if "attention" in problems and "mla" in problems:
+        raise ValueError("attention and MLA problems in one step share "
+                         "the kernels' launches")
+    own = pad = 0.0
+    for family, seen in problems.items():
+        for problem, n in _launch_shares(family, seen, launches).items():
+            o, p = _problem_flops(family, problem, n)
+            own, pad = own + o, pad + p
+    return own, pad
 
 
 def kernel_padding_flops(problems: dict, launches: dict) -> float:
     """The products the attention kernels add by padding a head to the
     head they run (MLA's q/k 192 and v 128 to 256): the kernels do
     :func:`kernel_flops` plus these."""
-    return sum(_problem_flops(family, _one_problem(family, seen),
-                              launches)[1]
-               for family, seen in problems.items())
-
-
-def _one_problem(family: str, seen: dict) -> tuple:
-    if len(seen) != 1:
-        raise ValueError(f"{len(seen)} local {family} problems in one "
-                         f"step: {sorted(seen)}")
-    return next(iter(seen))
+    return _flops(problems, launches)[1]
 
 
 def kernel_flops(problems: dict, launches: dict) -> float:
@@ -318,21 +366,18 @@ def kernel_flops(problems: dict, launches: dict) -> float:
     local problems the mesh hooks handed the kernels (``problems``, as
     :func:`~repro_torch.models.layers.book_local_problems` books them)
     times each kernel's launches (``launches``: the kernels' ``LAUNCHES``
-    keys): #5 Q K^T and P.V (2 mm, mm = 2 D Hq B pairs over the live
-    causal pairs), #6 Q K^T, dO V^T and dS K (3 mm), #7 Q K^T, dO V^T,
-    P^T dO and dS^T Q (4 mm); an MLA problem at its own heads, Q K^T, dS
-    K and dS^T Q at q/k, the others at v (the padding to the kernels'
-    head apart, :func:`kernel_padding_flops`); #8 and 8' by
-    :func:`_ssd_products`.  A cell hands each kernel family one local
-    problem (all its layers alike); more than one raises, since the
-    launches could not be apportioned, and so does an attention and an
-    MLA problem in one step."""
-    if "attention" in problems and "mla" in problems:
-        raise ValueError("attention and MLA problems in one step share "
-                         "the kernels' launches")
-    return sum(_problem_flops(family, _one_problem(family, seen),
-                              launches)[0]
-               for family, seen in problems.items())
+    keys): #5 Q K^T and P.V (2 mm, mm = 2 D Hq B pairs over the pairs
+    attended: the live causal ones, or all Sq x Skv of a non-causal
+    problem), #6 Q K^T, dO V^T and dS K (3 mm), #7 Q K^T, dO V^T, P^T dO
+    and dS^T Q (4 mm); an MLA problem at its own heads, Q K^T, dS K and
+    dS^T Q at q/k, the others at v (the padding to the kernels' head
+    apart, :func:`kernel_padding_flops`); #8 and 8' by
+    :func:`_ssd_products`.  A family's launches are split over its
+    problems by their calls (:func:`_launch_shares`: a cross layer's,
+    an encoder's and a self-attention's problems in one step); an
+    attention and an MLA problem in one step raise, since they share
+    the kernels' launches."""
+    return _flops(problems, launches)[0]
 
 
 # ---- rank 0's share of the state ----------------------------------------
@@ -404,11 +449,30 @@ def _skip_reason(cfg: ArchConfig, shape: ShapeConfig):
         return ("long_500k requires sub-quadratic attention "
                 "(full-attention arch; see DESIGN.md)")
     if shape.kind != "train":
-        return (f"the {shape.kind} cells are ROADMAP queue 1 (with "
-                f"cache_logical_axes)")
-    if cfg.family not in SLICE_FAMILIES:
-        return f"the {cfg.family} family under a mesh: {_QUEUED}"
+        return (f"the {shape.kind} cells are ROADMAP queue 1 item 1.3 "
+                f"(with cache_logical_axes)")
     return None
+
+
+def memory_tokens(cfg: ArchConfig, seq_len: int) -> int:
+    """The memory's length a row of a train batch: a vision config's
+    image tokens, an encoder config's frames (seq // frame_ratio, at
+    least 1), else 0 (the reference's ``input_specs``)."""
+    if cfg.vision is not None:
+        return cfg.vision.n_image_tokens
+    if cfg.encoder is not None:
+        return max(1, seq_len // cfg.encoder.frame_ratio)
+    return 0
+
+
+def _logits_bytes(cfg: ArchConfig, rows: int, seq_len: int, mesh) -> int:
+    """The local float32 logits of a step, each head's (the MTP head's
+    too): vocab-parallel over ``model`` where the vocabulary divides it,
+    else whole on every device (the reference's ``_constrain_logits``)."""
+    from ..models.common import axis_sizes
+    mp = axis_sizes(mesh).get("model", 1)
+    v = cfg.vocab // mp if cfg.vocab % mp == 0 else cfg.vocab
+    return (2 if cfg.mtp else 1) * rows * seq_len * v * 4
 
 
 def _step_metrics(cfg: ArchConfig, shape: ShapeConfig, mesh, device,
@@ -421,8 +485,9 @@ def _step_metrics(cfg: ArchConfig, shape: ShapeConfig, mesh, device,
     from ..models.common import DEFAULT_RULES, axis_sizes
     from ..models.layers import book_local_problems
     from ..perf import flags
-    from ..train.train_step import (TrainStepConfig, batch_pspec,
-                                    make_train_state_specs, make_train_step)
+    from ..train.train_step import (AFTER_FORWARD, TrainStepConfig,
+                                    batch_pspec, make_train_state_specs,
+                                    make_train_step)
 
     rules = DEFAULT_RULES.replace(ff=None) if flags().replicate_ff \
         else DEFAULT_RULES
@@ -436,28 +501,49 @@ def _step_metrics(cfg: ArchConfig, shape: ShapeConfig, mesh, device,
                       global_batch=shape.global_batch, seed=seed)
     local = torch.as_tensor(synthetic_batch(data, 0, slice(0, rows))
                             ["tokens"], device=device)
-    tokens = _from_local(local, mesh, batch_pspec(mesh),
-                         (shape.global_batch, shape.seq_len))
+    batch = {"tokens": _from_local(local, mesh, batch_pspec(mesh),
+                                   (shape.global_batch, shape.seq_len))}
+    n_mem = memory_tokens(cfg, shape.seq_len)
+    if n_mem:
+        # the stub frontend's embeddings, made on the device (their
+        # values are not read as results)
+        gen = torch.Generator(device=device).manual_seed(int(seed) + 1)
+        batch["memory"] = _from_local(
+            torch.randn((rows, n_mem, cfg.d_model), generator=gen,
+                        device=device).to(torch.bfloat16), mesh,
+            batch_pspec(mesh) + (None, None),
+            (shape.global_batch, n_mem, cfg.d_model))
     step_fn = make_train_step(cfg, device, ts, donate=True, mesh=mesh)
     arg_bytes = _state_bytes(state)
     cuda = torch.device(device).type == "cuda"
+    marks = []
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
+        AFTER_FORWARD.append(lambda: marks.append(
+            torch.cuda.memory_allocated()))
     FA.reset_launches()
     SS.reset_launches()
     t0 = time.perf_counter()
-    with book_local_problems() as problems, CollectiveCounter(mesh) \
-            as counter:
-        state, metrics = step_fn(state, {"tokens": tokens})
+    try:
+        with book_local_problems() as problems, CollectiveCounter(mesh) \
+                as counter:
+            state, metrics = step_fn(state, batch)
+    finally:
+        AFTER_FORWARD.clear()
     if cuda:
         torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     launches = {**FA.LAUNCHES, **SS.LAUNCHES}
-    kflops = kernel_flops(problems, launches)
-    pad_flops = kernel_padding_flops(problems, launches)
+    kflops, pad_flops = _flops(problems, launches)
     peak = (torch.cuda.max_memory_allocated() - base) if cuda else None
+    logits = _logits_bytes(cfg, rows, shape.seq_len, mesh)
+    saved = (marks[0] - base - logits) if marks else None
+    parts = {"state": arg_bytes, "saved_activations": saved,
+             "logits_and_gradient": 2 * logits,
+             "rest": (None if saved is None
+                      else peak - saved - 2 * logits)}
     return {
         "flops": float(counter.flops + kflops),
         "aten_flops": float(counter.flops),
@@ -472,13 +558,14 @@ def _step_metrics(cfg: ArchConfig, shape: ShapeConfig, mesh, device,
                    "temp_bytes": (None if peak is None
                                   else max(0, peak - arg_bytes)),
                    "peak_bytes": peak, "alias_bytes": None,
-                   "generated_code_bytes": None},
+                   "generated_code_bytes": None, "peak_parts": parts},
         "launches": {k: int(v) for k, v in launches.items() if v},
         "kernel_problems": {family: [[*problem, calls] for problem, calls
                                      in seen.items()]
                             for family, seen in problems.items()},
         "step_seconds": step_s,
         "per_device_batch": [rows, shape.seq_len],
+        "memory_tokens": n_mem,
     }
 
 

@@ -40,7 +40,11 @@ acts on a mesh only.  ``--production-mesh`` trains on the (16, 16)
 production mesh, which needs a process group of 256 ranks (one a card,
 under a cluster launcher); with fewer it raises and names the dry run
 (:mod:`repro_torch.launch.dryrun`), which runs one rank's share of such
-a step on one card.
+a step on one card.  Every family trains there but the encoder arch,
+which this launcher refuses as above: recurrentgemma-9b's RG-LRU layers
+with their width split over ``model``, llama-3.2-vision-90b's cross
+layers with the stub image embeddings carried into the sharded step
+over the batch axes.
 """
 
 from __future__ import annotations

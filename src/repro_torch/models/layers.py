@@ -14,20 +14,21 @@ place.  Cross-attention (an ``Attention`` built with ``cross=True`` and
 given a memory) attends the memory through the kernel in every mode,
 decode included, as the reference does.
 
-On a mesh (``mesh``, a ``DeviceMesh``; training of the dense GQA
-family and of MLA) the weights are DTensors placed by their specs and
-the activations follow them.  The mesh hooks are the reference's:
-``batch_axes_for`` (the batch over ``("pod", "data")`` where that
-divides it, over ``model`` too under the ``dp_over_model`` perf flag)
-and ``constrain_heads`` (q, k and v sharded over ``model`` by head where
-the head count divides it).  A weight sharded over the batch axes
+On a mesh (``mesh``, a ``DeviceMesh``; training of the GQA family,
+of MLA, of the cross layers and the encoder) the weights are DTensors
+placed by their specs and the activations follow them.  The mesh hooks
+are the reference's: ``batch_axes_for`` (the batch over ``("pod",
+"data")`` where that divides it, over ``model`` too under the
+``dp_over_model`` perf flag) and ``constrain_heads`` (q, k and v sharded
+over ``model`` by head where the head count divides it).  A weight sharded over the batch axes
 (``fsdp``) is all-gathered over them at its use, after the cast
 (:func:`cast_weight`), and its gradient comes back by reduce-scatter.
 The kernels run on each device's block through ``local_map``
 (:func:`local_attention`, :func:`local_mla_attention`): DTensor has no
-sharding rule for them.  Under :func:`book_local_problems` the mesh
-hooks book the local problem each kernel call is handed (the dry run's
-kernel products).
+sharding rule for them.  A cross layer's K and V come from the memory,
+which is sharded over the batch axes and replicated over ``model``.
+Under :func:`book_local_problems` the mesh hooks book the local problem
+each kernel call is handed (the dry run's kernel products).
 """
 
 from __future__ import annotations
@@ -295,8 +296,8 @@ _PROBLEMS: list = []
 def book_local_problems():
     """Within the block, the mesh hooks book each kernel call's local
     problem: yields ``{kernel family: {problem: calls}}``, the family
-    ``"attention"`` with problems ``(B, Hq, Hkv, Sq, Skv, D, window)``
-    (causal) as :func:`attention_block` hands them to the kernel,
+    ``"attention"`` with problems ``(B, Hq, Hkv, Sq, Skv, D, window,
+    causal)`` as :func:`attention_block` hands them to the kernel,
     ``"mla"`` with ``(B, H, Sq, Skv, Dqk, Dv)`` (:func:`mla_block`) and
     ``"ssd"`` with ``(B, L, H, P, G, N, chunk)``."""
     seen: dict = {}
@@ -341,7 +342,8 @@ def attention_block(ql, kl, vl, kv=None, **opts):
     if kv is not None:
         kl, vl = kl[:, kv[0]:kv[1]], vl[:, kv[0]:kv[1]]
     _book("attention", (ql.shape[0], ql.shape[1], kl.shape[1], ql.shape[2],
-                        kl.shape[2], ql.shape[3], opts.get("window")))
+                        kl.shape[2], ql.shape[3], opts.get("window"),
+                        bool(opts.get("causal", True))))
     return ops.attention(ql, kl, vl, **opts)
 
 
@@ -523,7 +525,7 @@ class Attention(nn.Module):
         docstring).  Returns ``(y (B, S, M), cache)``, the cache None in
         training."""
         if memory is not None:
-            return self._cross(x, mode, cache, memory)
+            return self._cross(x, mode, cache, memory, mesh)
         if mesh is not None and mode != "train":
             raise NotImplementedError(
                 "a mesh shards training only; the prefill and decode cells "
@@ -565,7 +567,7 @@ class Attention(nn.Module):
                           cast_weight(self, "wo", out.dtype)
                           .reshape(hq * dh, -1))
 
-    def _cross(self, x, mode, cache, memory):
+    def _cross(self, x, mode, cache, memory, mesh=None):
         """Gated cross-attention to ``memory`` (the reference's
         ``apply_attention`` with a memory): only x is normed, no rope, no
         mask.  K and V are projected from the memory as given in
@@ -573,30 +575,55 @@ class Attention(nn.Module):
         ``k``; otherwise they are the cache's.  Every mode attends through
         the kernel (``causal=False``; Sq = 1 in decode).  The cache is
         ``{"k", "v"}`` at the memory's length; y is scaled by
-        tanh(gate)."""
+        tanh(gate).  ``mesh``: training on a mesh, x (sequence-sharded
+        under sequence parallelism: gathered after the norm) and the
+        memory DTensors over the batch axes; q, k and v constrained by
+        head (:func:`constrain_heads`), the kernel on each device's block
+        (:func:`local_attention`, Sq against the memory's Skv), ``wo``'s
+        float32 partial sums over ``model`` reduced to x's layout (an
+        all-reduce, or a reduce-scatter under sequence parallelism) and
+        rounded before the gate scales them."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"mode {mode!r}: 'train', 'prefill' or "
                              f"'decode'")
-        h = rms_norm(x, self.norm, self.cfg.norm_eps)
-        q = _project(h, cast_weight(self, "wq", h.dtype))
+        if mesh is not None and mode != "train":
+            raise NotImplementedError(
+                "a mesh shards training only; the prefill and decode cells "
+                "are ROADMAP queue 1")
+        h = gather_seq(rms_norm(x, self.norm, self.cfg.norm_eps))
+        q = constrain_heads(_project(h, cast_weight(self, "wq", h.dtype)),
+                            mesh)
         if mode == "decode" and cache is not None \
                 and cache.get("k") is not None:
             k, v = cache["k"], cache["v"]
         else:
             hm = memory.to(h.dtype)
-            k = _project(hm, cast_weight(self, "wk", h.dtype)).contiguous()
-            v = _project(hm, cast_weight(self, "wv", h.dtype)).contiguous()
-        y = self._out(ops.attention(q, k, v, causal=False))
-        y = y * torch.tanh(self.gate).to(y.dtype)
-        return y, ({"k": k, "v": v} if mode != "train" else None)
+            k, v = (constrain_heads(_project(
+                hm, cast_weight(self, name, h.dtype)), mesh).contiguous()
+                for name in ("wk", "wv"))
+        if mesh is None:
+            y = self._out(ops.attention(q, k, v, causal=False))
+        else:
+            # the partial sums reduced to x's layout and rounded to its
+            # dtype before the gate, as the reference's program rounds
+            # the product before it scales it
+            y = self._out(local_attention(q, k, v, mesh, causal=False))
+            y = y.redistribute(mesh, x.placements).to(x.dtype)
+        return _gated(y, self.gate), \
+            ({"k": k, "v": v} if mode != "train" else None)
 
-    def encode(self, x):
+    def encode(self, x, mesh=None):
         """Bidirectional self-attention of the encoder (the reference's
-        ``_run_encoder`` body): normed x, no rope, no mask, no cache."""
+        ``_run_encoder`` body): normed x, no rope, no mask, no cache.
+        ``mesh``: on a mesh, as :meth:`_cross` runs there, the kernel
+        non-causal on each device's heads."""
         h = rms_norm(x, self.norm, self.cfg.norm_eps)
-        q, k, v = (_project(h, cast_weight(self, name, h.dtype))
-                   for name in ("wq", "wk", "wv"))
-        return self._out(ops.attention(q, k, v, causal=False))
+        q, k, v = (constrain_heads(_project(
+            h, cast_weight(self, name, h.dtype)), mesh)
+            for name in ("wq", "wk", "wv"))
+        out = (ops.attention(q, k, v, causal=False) if mesh is None else
+               local_attention(q, k, v, mesh, causal=False))
+        return self._out(out)
 
     @staticmethod
     def _prefill_cache(k, v, s, window, cache_slots):
@@ -643,6 +670,45 @@ class Attention(nn.Module):
         probs = torch.softmax(logits, dim=-1)
         out = (probs @ cv.float()).view(b, hq, 1, dh).to(q.dtype)
         return out, {"k": ck, "v": cv, "kpos": kpos}
+
+
+class _Gated(torch.autograd.Function):
+    """:func:`_gated` of DTensors: the forward is y x tanh(gate) as
+    DTensor computes it; the backward forms the gate's gradient on each
+    device's block and leaves it a partial sum over every mesh dim on
+    which y is not replicated."""
+
+    @staticmethod
+    def forward(ctx, y, gate):
+        t = torch.tanh(gate)
+        ctx.save_for_backward(y, t)
+        return y * t.to(y.dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        y, t = ctx.saved_tensors
+        want = tuple(Replicate() if p.is_partial() else p
+                     for p in y.placements)
+        if tuple(gy.placements) != want:
+            gy = gy.redistribute(y.device_mesh, want)
+        dt = (gy.to_local().float() * y.to_local().float()).sum()
+        tl = t.to_local().float()
+        dgate = DTensor.from_local(
+            (dt * (1.0 - tl * tl)).to(t.dtype), y.device_mesh,
+            [Replicate() if p.is_replicate() else Partial()
+             for p in y.placements], run_check=False)
+        return gy * t.to(gy.dtype), dgate
+
+
+def _gated(y, gate):
+    """y x tanh(gate), in y's dtype.  On DTensors (y split by batch, and
+    by sequence under sequence parallelism) the replicated 0-d gate's
+    gradient is left a partial sum wherever y is not replicated
+    (:class:`_Gated`): its data-parallel reduction is the train step's,
+    with every other gradient's, as in the reference."""
+    if not isinstance(y, DTensor):
+        return y * torch.tanh(gate).to(y.dtype)
+    return _Gated.apply(y, gate)
 
 
 class MLA(nn.Module):

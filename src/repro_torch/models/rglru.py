@@ -7,6 +7,17 @@ Counterpart of ``repro/models/rglru.py``.  The decode cache is ``{"conv":
 and its one-token step are :func:`repro_torch.kernels.ops.rglru` and
 ``rglru_decode_step`` (plain torch; the reference has no kernel for them
 either).
+
+On a mesh (training) the width W is sharded over ``model`` by the
+``ff`` rule, as the weights' specs place it; the reference leaves every
+placement to GSPMD, the port makes each one explicit.  The depthwise
+conv and the scan are elementwise in W and run on each device's block
+through ``local_map`` (``ssm._local_channels``); the gate products ``xc
+@ w_a`` and ``xc @ w_i`` contract over the sharded W: their float32
+partial sums over ``model`` are all-reduced, as the reference's compiled
+program reduces them, and cut back to the W-sharded layout of the scan
+(:func:`_gate_product`); ``w_out``'s product is a partial sum that the
+block reduces at its exit.
 """
 
 from __future__ import annotations
@@ -20,14 +31,32 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
-from .layers import cast_weight, constant, gelu, rms_norm, truncated_normal
-from .ssm import _causal_conv
+from .layers import (branch_out, cast_weight, constant, gelu, rms_norm,
+                     truncated_normal)
+from .ssm import _causal_conv, _local_channels
 
 __all__ = ["RGLRUBlock"]
 
 
 def _width(cfg: ArchConfig) -> int:
     return cfg.rglru.lru_width or cfg.d_model
+
+
+def _gate_product(xc, w, mesh):
+    """``xc @ w`` for an RG-LRU gate on a mesh: xc (B, S, W) sharded by W
+    over ``model``, w (W, W) by its rows.  The float32 partial sums over
+    ``model`` (:func:`~repro_torch.models.layers.branch_out`) are
+    all-reduced, as the reference's compiled program reduces them, then
+    each device keeps its W columns (no bytes move) and rounds them to
+    xc's dtype; the backward all-gathers the gate's float32 gradient
+    over ``model``, as the reference's does.  A reduce-scatter would
+    move 1/``model`` of the forward's bytes."""
+    from torch.distributed.tensor import Replicate
+
+    g = branch_out(xc, w)
+    g = g.redistribute(mesh, [Replicate() if p.is_partial() else p
+                              for p in g.placements])
+    return g.redistribute(mesh, xc.placements).to(xc.dtype)
 
 
 class RGLRUBlock(nn.Module):
@@ -56,11 +85,12 @@ class RGLRUBlock(nn.Module):
             dtype=torch.float32, device=device).to(dt))
         self.w_out = tn((w, m))
 
-    def forward(self, x, *, mode: str, cache=None):
+    def forward(self, x, *, mode: str, cache=None, mesh=None):
         """mode 'train', 'prefill' (returns the cache; a given
         ``cache["state"]`` is the scan's initial state) or 'decode' (S =
-        1, advances ``cache``).  Returns ``(y (B, S, M), cache)``, the
-        cache None in training."""
+        1, advances ``cache``).  ``mesh``: training on a mesh, x and the
+        weights DTensors (see the module's docstring).  Returns ``(y (B,
+        S, M), cache)``, the cache None in training."""
         cfg = self.cfg
         s = x.shape[1]
         k = cfg.rglru.d_conv
@@ -68,6 +98,20 @@ class RGLRUBlock(nn.Module):
         dt = hidden.dtype
         xb = hidden @ cast_weight(self, "w_x", dt)
         gate = gelu(hidden @ cast_weight(self, "w_gate", dt))
+        if mesh is not None:
+            if mode != "train":
+                raise NotImplementedError(
+                    "a mesh shards training only; the prefill and decode "
+                    "cells are ROADMAP queue 1")
+            xc = _local_channels(_causal_conv, xb,
+                                 (self.conv_w, self.conv_b), mesh)
+            y, _ = _local_channels(
+                lambda x_, a_, i_, p_: ops.rglru(x_, a_, i_, p_,
+                                                 c=cfg.rglru.c),
+                xc, (_gate_product(xc, cast_weight(self, "w_a", dt), mesh),
+                     _gate_product(xc, cast_weight(self, "w_i", dt), mesh),
+                     self.a_param), mesh, outs=2)
+            return branch_out(y * gate, cast_weight(self, "w_out", dt)), None
         if mode == "decode":
             window = torch.cat([cache["conv"], xb], dim=1)   # (B, d_conv, W)
             xc = ((window.float() * self.conv_w.float()[None]).sum(1)

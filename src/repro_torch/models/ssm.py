@@ -56,23 +56,37 @@ def _causal_conv(x, w, b):
     return (out + b.float()).to(x.dtype)
 
 
-def _local_conv(x, w, b, *, mesh):
-    """:func:`_causal_conv` of DTensors on each device's block through
-    ``local_map``: x's rows over the batch axes, the channels whole;
-    the weights' gradients are partial sums over the batch axes."""
-    from torch.distributed.tensor import Partial
+def _local_channels(fn, x, params, mesh, *, outs: int = 1):
+    """``fn(x, *params)`` on each device's block through ``local_map``,
+    for a function elementwise in the channels: x (B, S, C) a DTensor
+    over the batch axes and, by channel, over ``model`` or not;
+    ``params`` per-channel weights placed as their specs place them
+    (their last dim C as x's) or activations placed as x; the ``outs``
+    outputs placed as x (a second one, a (B, C) final state, by x's
+    batch and channel dims).  The gradient of a weight, replicated where
+    x is split by batch, is a partial sum over the batch axes, which the
+    train step reduces."""
+    from torch.distributed.tensor import Partial, Shard
     from torch.distributed.tensor.experimental import local_map
 
+    xp = tuple(x.placements)
+    pp = [tuple(p.placements) for p in params]
+    grads = [tuple(Partial() if q.is_shard(0) and p.is_replicate() else p
+                   for q, p in zip(xp, pl)) for pl in pp]
+    state = tuple(Shard(1) if q == Shard(2) else q for q in xp)
+    run = local_map(fn, out_placements=(xp,) if outs == 1 else (xp, state),
+                    in_placements=(xp, *pp),
+                    in_grad_placements=(xp, *grads), device_mesh=mesh)
+    return run(x, *params)
+
+
+def _local_conv(x, w, b, *, mesh):
+    """:func:`_causal_conv` of DTensors on each device's block: x's rows
+    over the batch axes, the channels whole (:func:`_local_channels`)."""
     x = constrain(x, mesh, (tuple(n for n, p in zip(
         mesh.mesh_dim_names, x.placements) if p.is_shard(0)) or None,
         None, None))
-    xp = tuple(x.placements)
-    wg = tuple(Partial() if p.is_shard(0) else p for p in xp)
-    fn = local_map(_causal_conv, out_placements=(xp,),
-                   in_placements=(xp, tuple(w.placements),
-                                  tuple(b.placements)),
-                   in_grad_placements=(xp, wg, wg), device_mesh=mesh)
-    return fn(x, w, b)
+    return _local_channels(_causal_conv, x, (w, b), mesh)
 
 
 def _local_ssd(xs, dt, a_log, bmat, cmat, d_skip, mesh, *, chunk: int):

@@ -36,8 +36,9 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from .common import axis_sizes
 from .layers import (MLA, MLP, Attention, batch_axes_for, cast_weight,
-                     constrain, gather_fsdp, gather_seq, local_embedding,
-                     replicated, rms_norm, rope_table, truncated_normal)
+                     constrain, gather_fsdp, gather_seq, grad_layout,
+                     local_embedding, replicated, rms_norm, rope_table,
+                     truncated_normal)
 from .moe import MoE
 from .rglru import RGLRUBlock
 from .ssm import SSDBlock
@@ -116,23 +117,18 @@ class Block(nn.Module):
         MoE): serving reads no aux, so it computes none.  An ``xattn``
         layer given no memory runs as causal self-attention, with no
         window and a cache of the prompt's length, as the reference's
-        does.  ``mesh``: training on a mesh (the GQA, MLA, SSD and MoE
-        kinds); h leaves the block constrained as the reference's
-        ``_apply_block`` leaves it (:meth:`_constrain`)."""
+        does.  ``mesh``: training on a mesh (every kind); h leaves the
+        block constrained as the reference's ``_apply_block`` leaves it
+        (:meth:`_constrain`)."""
         cache = cache or {}
         c_in = cache.get("mixer")
         res = (lambda out: out) if mesh is None else \
             (lambda out: self._constrain(out, mode, mesh).to(h.dtype))
         if mesh is not None:
-            if self.kind not in ("attn", "ssd"):
-                raise NotImplementedError(
-                    f"{self.cfg.name}: a mesh shards the GQA, MLA, SSD and "
-                    f"MoE blocks; the RG-LRU and the memory-input blocks "
-                    f"under a mesh are ROADMAP queue 1 item 1.2")
             h = self._constrain(h, mode, mesh)
         if self.kind == "xattn":
             out, c = self.mixer(h, positions=positions, mode=mode, cache=c_in,
-                                rope_tab=rope_tab, memory=memory)
+                                rope_tab=rope_tab, memory=memory, mesh=mesh)
         elif isinstance(self.mixer, Attention):
             out, c = self.mixer(h, positions=positions, mode=mode, cache=c_in,
                                 window=self.cfg.window,
@@ -142,17 +138,15 @@ class Block(nn.Module):
             out, c = self.mixer(h, positions=positions, mode=mode, cache=c_in,
                                 cache_slots=cache_slots, rope_tab=rope_tab,
                                 mesh=mesh)
-        elif isinstance(self.mixer, SSDBlock):
-            out, c = self.mixer(h, mode=mode, cache=c_in, mesh=mesh)
         else:
-            out, c = self.mixer(h, mode=mode, cache=c_in)
+            out, c = self.mixer(h, mode=mode, cache=c_in, mesh=mesh)
         h = h + res(out)
         new_cache = {"mixer": c}
         if self.kind == "dec_xattn":
             out, new_cache["cross"] = self.cross(
                 h, positions=positions, mode=mode, cache=cache.get("cross"),
-                rope_tab=rope_tab, memory=memory)
-            h = h + out
+                rope_tab=rope_tab, memory=memory, mesh=mesh)
+            h = h + res(out)
         aux = None
         if isinstance(self.mlp, MoE):
             out, aux = self.mlp(h, with_aux=mode == "train", mesh=mesh)
@@ -164,36 +158,51 @@ class Block(nn.Module):
     def _constrain(self, h, mode, mesh):
         """h (B, S, M) over the batch axes where they divide B (the
         model-parallel dim decides ``dp_over_model``: the SSD's heads,
-        else the attention heads) and, for a ``seq_shard`` config in
-        training, the sequence over ``model`` between attention blocks
-        (Megatron sequence parallelism: the saved h shrinks by the model
-        degree, and the all-gather / reduce-scatter pair sits at the
-        block's entry and exit), replicated over the rest.  The block
-        holds h there at its entry and each branch's output (a partial
-        sum over ``model`` where the branch's product is sharded) is
-        reduced there before the residual add: an all-reduce, or a
-        reduce-scatter under sequence parallelism."""
+        the RG-LRU's width, else the attention heads) and, for a
+        ``seq_shard`` config in training, the sequence over ``model``
+        between attention blocks (self or cross: Megatron sequence
+        parallelism, the saved h shrinks by the model degree, and the
+        all-gather / reduce-scatter pair sits at the block's entry and
+        exit), replicated over the rest; the sequential mixers (SSD,
+        RG-LRU) keep a batch-only layout, so a hybrid's layout changes
+        at each switch between the kinds.  The block holds h there at
+        its entry and each branch's output (a partial sum over ``model``
+        where the branch's product is sharded) is reduced there before
+        the residual add: an all-reduce, or a reduce-scatter under
+        sequence parallelism.  The reference's rules
+        (``_apply_block``)."""
         cfg = self.cfg
         sizes = axis_sizes(mesh)
         mp = sizes.get("model", 1)
         if self.kind == "ssd":
             div = ((cfg.ssm.expand * cfg.d_model)
                    // cfg.ssm.head_dim) % mp == 0
+        elif self.kind == "rglru":
+            div = (cfg.rglru.lru_width or cfg.d_model) % mp == 0
         else:
             div = cfg.n_heads % mp == 0
         batch_axes = batch_axes_for(mesh, h.shape[0], div) or None
         seq_ax = None
-        if (cfg.seq_shard and mode == "train" and self.kind == "attn"
+        if (cfg.seq_shard and mode == "train"
+                and self.kind in ("attn", "xattn", "dec_xattn")
                 and "model" in sizes and "model" not in (batch_axes or ())
                 and h.shape[1] % sizes["model"] == 0):
             seq_ax = "model"
         return constrain(h, mesh, (batch_axes, seq_ax, None))
 
 
-def _encoder_layer(block: Block, h):
-    """One encoder layer: bidirectional attention, then the dense MLP."""
-    h = h + block.mixer.encode(h)
-    return h + block.mlp(h)
+def _encoder_layer(block: Block, h, mesh=None):
+    """One encoder layer: bidirectional attention, then the dense MLP.
+    ``mesh``: on a mesh, h over the batch axes and replicated over
+    ``model`` (the encoder has no sequence parallelism), each branch's
+    partial sum over ``model`` reduced there before its residual add."""
+    if mesh is None:
+        h = h + block.mixer.encode(h)
+        return h + block.mlp(h)
+    res = lambda t: block._constrain(t, "encode", mesh).to(h.dtype)
+    h = res(h)
+    h = h + res(block.mixer.encode(h, mesh))
+    return h + res(block.mlp(h))
 
 
 class Encoder(nn.Module):
@@ -217,14 +226,22 @@ class Encoder(nn.Module):
         self.final_norm = nn.Parameter(
             torch.ones((m,), dtype=torch.float32, device=device))
 
-    def forward(self, frames, *, remat: bool = False):
+    def forward(self, frames, *, remat: bool = False, mesh=None):
         """frames (B, Sf, M) bf16 -> the memory (B, Sf, M) bf16; each
-        layer under activation checkpointing where ``remat``."""
+        layer under activation checkpointing where ``remat``.  ``mesh``:
+        training on a mesh (the reference's ``_run_encoder`` there),
+        frames a DTensor over the batch axes; the memory leaves over the
+        batch axes, replicated over ``model``, and its gradient, the sum
+        of the cross layers' partial sums over ``model``, is all-reduced
+        once, in float32 (:func:`~repro_torch.models.layers.
+        grad_layout`)."""
         h = frames @ cast_weight(self, "adapter", frames.dtype)
         for block in self.blocks:
-            h = (checkpoint(_encoder_layer, block, h, use_reentrant=False)
-                 if remat else _encoder_layer(block, h))
-        return rms_norm(h, self.final_norm, self.cfg.norm_eps)
+            h = (checkpoint(_encoder_layer, block, h, mesh,
+                            use_reentrant=False)
+                 if remat else _encoder_layer(block, h, mesh))
+        out = rms_norm(h, self.final_norm, self.cfg.norm_eps)
+        return out if mesh is None else grad_layout(out)
 
 
 class MTPHead(nn.Module):
@@ -351,11 +368,12 @@ def layers_of(cache) -> list:
     return cache["layers"] if isinstance(cache, dict) else cache
 
 
-def _memory(model: Model, mode, cache, memory_inputs):
+def _memory(model: Model, mode, cache, memory_inputs, mesh=None):
     """What the cross layers attend: the encoder's output over the frames
     (an encoder config), the image embeddings in bf16 or None (a vision
     config), or None; in decode the cache's ``enc_memory`` where it has
-    one."""
+    one.  On a mesh ``memory_inputs`` is a DTensor over the batch axes
+    (the train step's batch), and so is what the cross layers attend."""
     cfg = model.cfg
     if cfg.encoder is None and cfg.vision is None:
         return None
@@ -369,7 +387,8 @@ def _memory(model: Model, mode, cache, memory_inputs):
         raise ValueError(
             f"{cfg.name}: the encoder's stub frontend needs memory inputs "
             f"(B, frames, d_model): pass memory_inputs")
-    return model.encoder(memory_inputs, remat=cfg.remat and mode == "train")
+    return model.encoder(memory_inputs, remat=cfg.remat and mode == "train",
+                         mesh=mesh)
 
 
 def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
@@ -388,7 +407,8 @@ def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
     token i + 2, through the final norm and the head.
 
     ``mesh``: training on a ``DeviceMesh``, the weights DTensors placed
-    by their specs and ``tokens`` a DTensor over the batch axes; the
+    by their specs and ``tokens`` (and ``memory_inputs``, where the
+    config takes them) DTensors over the batch axes; the
     rotary table and the aux accumulator become replicated DTensors, and
     the logits leave vocab-parallel (sharded over ``model`` where the
     vocabulary divides it) for :func:`~repro_torch.models.model.loss_fn`
@@ -399,7 +419,7 @@ def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
         raise NotImplementedError("a mesh shards training only; the "
                                   "prefill and decode cells are ROADMAP "
                                   "queue 1")
-    memory = _memory(model, mode, cache, memory_inputs)
+    memory = _memory(model, mode, cache, memory_inputs, mesh)
     if mesh is None:
         h = F.embedding(tokens, model.embed).to(torch.bfloat16)
     else:

@@ -22,11 +22,12 @@ and ``g_acc + g / N`` runs from zeros in microbatch order, leaf by leaf
 in place (one more set of gradients beside the state, not two), loss
 and metrics averaged the same way; otherwise the plain step runs.
 
-On a mesh (``mesh``, a ``DeviceMesh`` of more than one device; the
-GQA, MLA, SSD and MoE families) the state's tensors are DTensors placed by
+On a mesh (``mesh``, a ``DeviceMesh`` of more than one device; every
+family) the state's tensors are DTensors placed by
 :func:`make_train_state_specs` (the reference's specs: params, m and v
 by the parameter specs, ``count`` and ``step`` replicated) and the
-batch is sharded over the batch axes (:func:`batch_pspec`).  The loss
+batch, its tokens and a memory-input config's memory, is sharded over
+the batch axes (:func:`batch_pspec`).  The loss
 runs with ``mesh`` and its backward under ``loss_parallel``; then each
 gradient is reduced explicitly to its parameter's placements, before the
 clip and AdamW: the data-parallel all-reduce (a weight sharded over the
@@ -66,9 +67,12 @@ from ..perf import flags
 
 __all__ = ["TrainStepConfig", "init_train_state", "train_state_from_model",
            "make_train_step", "make_train_state_specs", "batch_pspec",
-           "COLLECTIVE_PHASE"]
+           "COLLECTIVE_PHASE", "AFTER_FORWARD"]
 
 COLLECTIVE_PHASE = {"name": None}
+# callables the mesh step calls with no argument between its forward and
+# its backward (the dry run reads the card's memory there)
+AFTER_FORWARD: list = []
 
 
 @contextlib.contextmanager
@@ -259,20 +263,26 @@ def make_train_step(cfg: ArchConfig, device=None,
 
 
 def _mesh_batch(batch, mesh) -> dict:
-    """``batch["tokens"]`` as a DTensor over the batch axes: kept where
-    it is one, else each rank takes its rows of the global array it
-    holds."""
+    """``batch["tokens"]`` and, where the batch has one, its ``memory``
+    (B, T, M) in bf16, each a DTensor over the batch axes (the
+    reference's ``in_shardings``): kept where it is one, else each rank
+    takes its rows of the global array it holds."""
     from torch.distributed.tensor import DTensor, distribute_tensor
 
-    tok = batch["tokens"]
-    if not isinstance(tok, DTensor):
-        dev = torch.device(mesh.device_type)
-        if mesh.device_type == "cuda":
-            dev = torch.device("cuda", torch.cuda.current_device())
-        tok = distribute_tensor(torch.as_tensor(tok, device=dev), mesh,
-                                placements(batch_pspec(mesh), mesh),
-                                src_data_rank=None)
-    return {"tokens": tok}
+    dev = torch.device(mesh.device_type)
+    if mesh.device_type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for key in ("tokens", "memory"):
+        t = batch.get(key)
+        if t is None:
+            continue
+        if not isinstance(t, DTensor):
+            t = distribute_tensor(torch.as_tensor(t, device=dev), mesh,
+                                  placements(batch_pspec(mesh), mesh),
+                                  src_data_rank=None)
+        out[key] = t.to(torch.bfloat16) if key == "memory" else t
+    return out
 
 
 def _reduce_grad(g, mesh, want):
@@ -315,6 +325,8 @@ def _make_mesh_step(cfg: ArchConfig, ts: TrainStepConfig, donate: bool,
         names = list(params)
         with loss_parallel(), _phase("loss"):
             loss, metrics = bundle.loss(model, batch, mesh=mesh)
+            for fn in AFTER_FORWARD:
+                fn()
             grads = torch.autograd.grad(
                 loss, [params[n] for n in names], allow_unused=True,
                 materialize_grads=True)

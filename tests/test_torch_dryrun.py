@@ -509,7 +509,8 @@ def test_plan_from_the_port_record_matches_reference(records):
 
 
 def test_skipped_cells_name_their_queue():
-    out = dryrun.lower_cell("recurrentgemma-9b", "train_4k", False, "cpu")
+    out = dryrun.lower_cell("recurrentgemma-9b", "prefill_32k", False,
+                            "cpu")
     assert out["status"] == "skipped" and "ROADMAP" in out["reason"]
     out = dryrun.lower_cell("smollm-135m", "decode_32k", False, "cpu")
     assert out["status"] == "skipped" and "ROADMAP" in out["reason"]
@@ -530,9 +531,9 @@ def test_kernel_flops_formulas():
     """The kernels' products as chip_smoke.py's bounds count them, on the
     local problems booked: #5 2 mm, #6 3 mm, #7 4 mm over the live
     causal pairs; #8 and 8' by chunk; two problems of one family in a
-    step raise."""
+    step whose launches do not split whole over their calls raise."""
     mm = 2.0 * 64 * 9 * 16 * (4096 * 4097 // 2)
-    attn = {"attention": {(16, 9, 3, 4096, 4096, 64, None): 60}}
+    attn = {"attention": {(16, 9, 3, 4096, 4096, 64, None, True): 60}}
     got = dryrun.kernel_flops(attn, {"flash_attention_fwd": 60,
                                      "flash_attention_dq": 30,
                                      "flash_attention_dkv": 30})
@@ -546,9 +547,10 @@ def test_kernel_flops_formulas():
     ssd = {"ssd": {(16, 512, 24, 64, 1, 128, 256): 48}}
     assert dryrun.kernel_flops(ssd, {"ssd_scan": 48, "ssd_scan_bwd": 24}) \
         == pytest.approx(16 * (48 * fwd + 24 * bwd))
-    attn["attention"][(2, 9, 3, 4096, 4096, 64, None)] = 1
+    attn["attention"][(2, 9, 3, 4096, 4096, 64, None, True)] = 1
     with pytest.raises(ValueError, match="2 local attention problems"):
-        dryrun.kernel_flops(attn, {"flash_attention_fwd": 61})
+        dryrun.kernel_flops(attn, {"flash_attention_fwd": 61,
+                                   "flash_attention_dq": 30})
 
 
 @pytest.mark.parametrize("dp_over_model", [False, True])
@@ -572,7 +574,7 @@ def test_kernel_problems_are_the_local_blocks(dp_over_model):
     rows = 2 if dp_over_model else 16
     # forward and remat recompute of each of the 2 layers
     assert rec["kernel_problems"] == {
-        "attention": [[rows, 4, 2, 256, 256, 32, None, 4]]}
+        "attention": [[rows, 4, 2, 256, 256, 32, None, True, 4]]}
     problems = {"attention": {tuple(p[:-1]): p[-1] for p in
                               rec["kernel_problems"]["attention"]}}
     mm = 2.0 * 32 * 4 * rows * (256 * 257 // 2)

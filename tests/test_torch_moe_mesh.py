@@ -801,7 +801,8 @@ def test_dryrun_data_parallel_bytes_and_kernel_problems(records, arch):
     if arch.startswith("deepseek"):
         assert problems == {"mla": [[2, 4, 256, 256, 32, 16, 7]]}
     else:
-        assert problems == {"attention": [[2, 4, 2, 256, 256, 32, None, 4]]}
+        assert problems == {"attention": [[2, 4, 2, 256, 256, 32, None, True,
+                                           4]]}
 
 
 def test_kernel_flops_count_mla_at_its_own_heads():
@@ -818,13 +819,13 @@ def test_kernel_flops_count_mla_at_its_own_heads():
     padded = pairs * 256 * (10 * 2 + 5 * 3 + 5 * 4)
     assert dryrun.kernel_padding_flops(problems, launches) \
         == pytest.approx(padded - want)
-    both = dict(problems, attention={(b, h, h, s, s, 64, None): 1})
+    both = dict(problems, attention={(b, h, h, s, s, 64, None, True): 1})
     with pytest.raises(ValueError, match="share"):
         dryrun.kernel_flops(both, launches)
 
 
 # ---------------------------------------------------------------------------
-# What still raises on a mesh
+# The other block kinds on a mesh; what raises
 # ---------------------------------------------------------------------------
 
 
@@ -832,17 +833,55 @@ def test_kernel_flops_count_mla_at_its_own_heads():
     ("recurrentgemma-9b", "rglru"),
     ("llama-3.2-vision-90b", "xattn"),
     ("seamless-m4t-large-v2", "dec_xattn")])
-def test_queued_blocks_raise_on_a_mesh(arch, kind):
-    """The RG-LRU and the memory-input blocks still raise on a mesh,
-    naming the ROADMAP item that queues them; MoE and MLA blocks pass
-    the gate (their mesh runs are held above)."""
-    from repro_torch.models.transformer import Block
+def test_rglru_and_memory_blocks_run_on_a_mesh(arch, kind):
+    """The RG-LRU and the memory-input blocks run on a mesh (their values
+    are held over gloo in ``tests/test_torch_memory_mesh.py``): on a fake
+    (2, 2) world each reduced block, its weights placed by their specs,
+    takes h (2, 8, M) and a memory (2, 4, M) over ``data`` and returns h
+    in the layout of its kind (batch over ``data``; the sequence over
+    ``model`` for vision's sequence-parallel cross layer), and its
+    backward reaches every weight."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models.common import placements
+    from repro_torch.models.layers import replicated, rope_table
+    from repro_torch.models.model import build
+    from repro_torch.models.transformer import Block, layer_plan
     cfg = get_arch(arch).reduced()
-    block = Block(cfg, kind, device="meta")
-    h = torch.zeros((1, 4, cfg.d_model), device="meta")
-    with pytest.raises(NotImplementedError, match="queue 1 item 1.2"):
-        block(h, mode="train", positions=None, cache=None, cache_slots=None,
-              mesh=object())
+    if kind == "xattn":
+        cfg = cfg.replace(n_layers=10)     # reduced() keeps no cross layer
+    block = Block(cfg, kind, device="cpu",
+                  generator=torch.Generator().manual_seed(0))
+    with dryrun.fake_world(4):
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        specs = build(cfg).param_specs(mesh)
+        idx = layer_plan(cfg).kinds.index(kind)
+        for name, p in list(block.named_parameters()):
+            owner, _, leaf = name.rpartition(".")
+            block.get_submodule(owner)._parameters[leaf] = \
+                torch.nn.Parameter(distribute_tensor(
+                    p.detach(), mesh,
+                    placements(specs[f"blocks.{idx}.{name}"], mesh)))
+        h = distribute_tensor(torch.zeros((2, 8, cfg.d_model)), mesh,
+                              [Shard(0), Replicate()]).bfloat16()
+        mem = distribute_tensor(torch.zeros((2, 4, cfg.d_model)), mesh,
+                                [Shard(0), Replicate()]).bfloat16()
+        h.requires_grad_(True)
+        pos = torch.arange(8)
+        tab = tuple(replicated(t, mesh) for t in rope_table(
+            pos, cfg.resolved_head_dim, cfg.rope_theta, pos.device))
+        out, cache, _ = block(h, mode="train", positions=pos, cache=None,
+                              cache_slots=None, rope_tab=tab, memory=mem,
+                              mesh=mesh)
+        grads = torch.autograd.grad(out.float().sum(), [
+            h, *block.parameters()], allow_unused=True)
+    seq = Shard(1) if cfg.seq_shard and kind != "rglru" else Replicate()
+    assert tuple(out.shape) == (2, 8, cfg.d_model) and cache == {
+        "mixer": None, **({"cross": None} if kind == "dec_xattn" else {})}
+    assert tuple(out.placements) == (Shard(0), seq)
+    assert all(g is not None for g in grads)
 
 
 def test_moe_on_a_one_device_mesh_raises():
