@@ -509,6 +509,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     cross layers at Sq 4096 against Skv 1600, seamless's encoder and
     cross layers) as in phase 29.  D: ``fabric.plan`` on each record.
     Every peak under 80 GB; the launches go under ``phase_launches``.
+32. Serving on the production mesh: the dry run's serve cells of
+    smollm-135m, h2o-danube-3-4b, mamba2-130m and recurrentgemma-9b on
+    ``pod1`` at full width and depth (rank 0's share, as phase 29 runs
+    its cells).  A: ``prefill_32k`` (2 rows of 32,768 tokens a device):
+    each record's collective bytes by kind, by phase and axis and one by
+    one (adding up, all under ``prefill``), FLOPs, ``peak_parts`` and
+    the step's seconds; #5 launched exactly once an attention layer (30,
+    24, 12) and #8 24 times; #5 held through ``attention_block`` at the
+    cell's local problem cut to Sq = Skv = ``SERVE_HOLD_SEQ`` (the plain
+    versions' scores at 32,768 would not fit; logged), #8 at the cell's
+    local problem (``_hold_mesh_ssd``), to phases 9 and 10's limits.  B:
+    ``decode_32k`` (8 rows) for the four, ``long_500k`` (1 row) for the
+    three sub-quadratic ones: the same record; the cache's local bytes
+    leaf by leaf exactly the reckoning from the config
+    (``dryrun.reckon_cache_bytes``), k + v exactly PERF.md's
+    (``DECODE_KV_BYTES``);
+    no kernel launched (decode attends the cache in plain torch).  C:
+    ``Engine(mesh=)`` on a (1, 1) mesh of the card (a one-rank NCCL
+    group) serves phase 11's eight smollm-135m requests: every token and
+    every prefill logit bit for bit phase 11's meshless engine's and
+    prefill's, #5 30 times a request.  D: ``fabric.plan`` on h2o's
+    ``decode_32k`` record.  The launches go under ``phase_launches``.
 
 Output: the card's name and power limit, then a ``kernels`` JSON line,
 then ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -1844,7 +1866,7 @@ def serve_arch(dev, arch: str, kernel: str, seed: int = 0, *,
     return model, launches[kernel], dict(
         seconds=seconds, tok_s=n_tok / seconds, decode_ms=decode_ms,
         prefill_ms=float(np.mean(st["prefill_ms"])), peak=peak,
-        prompts=prompts)
+        prompts=prompts, tokens=[out[r] for r in rids])
 
 
 def profile_serve(dev, model, arch: str, seed: int = 1, memory=None):
@@ -7180,6 +7202,251 @@ def check_memory_mesh(dev, out: dict):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 32: serving on the production mesh
+# ---------------------------------------------------------------------------
+
+SERVE_MESH_ARCHS = ("smollm-135m", "h2o-danube-3-4b", "mamba2-130m",
+                    RGEMMA_ARCH)
+# the k and v bytes of rank 0's decode cache, the reckoning of PERF.md
+# section 4: layers x 2 x rows x kv heads (replicated: none divides 16)
+# x min(seq_len, window) slots x head x 2 B
+DECODE_KV_BYTES = {
+    ("smollm-135m", "decode_32k"): 30 * 2 * 8 * 3 * 32768 * 64 * 2,
+    ("h2o-danube-3-4b", "decode_32k"): 24 * 2 * 8 * 8 * 4096 * 120 * 2,
+    ("h2o-danube-3-4b", "long_500k"): 24 * 2 * 1 * 8 * 4096 * 120 * 2,
+    ("mamba2-130m", "decode_32k"): 0, ("mamba2-130m", "long_500k"): 0,
+    (RGEMMA_ARCH, "decode_32k"): 12 * 2 * 8 * 1 * 2048 * 256 * 2,
+    (RGEMMA_ARCH, "long_500k"): 12 * 2 * 1 * 1 * 2048 * 256 * 2}
+# the sequence at which phase 32 A holds #5 against its plain versions:
+# the cells' 32,768 would take (2, 9, 32768, 32768) float32 scores (77
+# GB) in the plain versions; 8,192 is past h2o's window of 4,096 and
+# recurrentgemma's of 2,048
+SERVE_HOLD_SEQ = 8192
+
+
+def _serve_cell(dev, arch: str, shape_name: str, label: str, total: dict):
+    """One serve cell of phase 32 on ``pod1`` at full width and depth:
+    its record, checked for consistency (the collectives' bytes by kind,
+    by phase and axis and one by one add up, every one under the cell's
+    phase; FLOPs the aten ops' plus the kernels'; the peak's parts add
+    up and stay under 80 GB), its launches added to ``total``, its
+    numbers logged."""
+    from repro_torch.launch.dryrun import lower_cell
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = lower_cell(arch, shape_name, False, dev)
+    wall = time.perf_counter() - t0
+    if rec["status"] != "ok":
+        raise AssertionError(f"{label}: {rec}")
+    kind = "prefill" if shape_name == "prefill_32k" else "decode"
+    coll = rec["collective_bytes_per_device"]
+    by = rec["collective_bytes_by_phase_axis"]
+    kinds = sum(v for k, v in coll.items() if k != "total")
+    phased = sum(sum(row.values()) for row in by.values())
+    listed = sum(r["bytes"] * r["count"] for r in rec["collectives"])
+    if not (coll["total"] == kinds == phased == listed) or any(
+            not at.startswith(f"{kind}/") for at in by):
+        raise AssertionError(f"{label}: collective bytes {coll} by phase "
+                             f"and axis {by}, listed {listed}")
+    if rec["flops"] != rec["aten_flops"] + rec["kernel_flops"] \
+            or rec["flops"] <= 0:
+        raise AssertionError(f"{label}: FLOPs {rec['flops']}")
+    mem = rec["memory"]
+    parts = mem["peak_parts"]
+    if parts["rest"] < 0 or mem["peak_bytes"] + mem["argument_bytes"] \
+            > PEAK_LIMIT:
+        raise AssertionError(f"{label}: memory {mem}")
+    for kname, n in rec["launches"].items():
+        total[kname] = total.get(kname, 0) + n
+    log(f"{label}: collective bytes a device {json.dumps(coll)}; by "
+        f"phase/axis {json.dumps(by)}")
+    log(f"{label}: the largest collectives "
+        f"{json.dumps(rec['collectives'][:6])}")
+    log(f"{label}: {rec['collective_calls']} collectives; FLOPs "
+        f"{rec['flops']:.4e} (aten {rec['aten_flops']:.4e}, kernels "
+        f"{rec['kernel_flops']:.4e}; head padding adds "
+        f"{rec['kernel_padding_flops']:.4e}); arguments "
+        f"{mem['argument_bytes'] / 2**30:.3f} GiB, outputs "
+        f"{mem['output_bytes'] / 2**30:.3f} GiB, peak "
+        f"{mem['peak_bytes'] / 2**30:.3f} GiB above them (temp "
+        f"{mem['temp_bytes'] / 2**30:.3f} GiB); step "
+        f"{rec['step_seconds']:.3f} s, cell {wall:.2f} s; launches "
+        f"{rec['launches']}; rows a device {rec['per_device_batch']}, "
+        f"context {rec['context']}")
+    log(f"{label}: peak parts, GiB: " + ", ".join(
+        f"{k} {v / 2**30:.3f}" for k, v in parts.items())
+        + f"; cache by leaf, B: {json.dumps(mem['cache_parts'])}")
+    return rec
+
+
+def _serve_engine_on_mesh(dev, smollm_serve: dict, total: dict) -> dict:
+    """Phase 32 C: ``Engine(mesh=)`` on a (1, 1) mesh of the card (a
+    one-rank NCCL group) serves phase 11's eight smollm-135m requests,
+    the weights seeded as phase 11's and placed by their specs: every
+    emitted token equals phase 11's meshless engine's and every
+    request's prefill logits (``cache_slots`` 2,048, as the engine's)
+    equal the meshless prefill's, bit for bit; #5 launches 30 times a
+    request."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build, place_params
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_arch("smollm-135m")
+    bundle = build(cfg)
+    prompts = smollm_serve["prompts"]
+    plain = bundle.init(0, dev)
+    try:
+        mesh = make_host_mesh(1, 1, device_type="cuda")
+        model = place_params(bundle.init(0, dev), mesh)
+        worst = 0
+        for i, prompt in enumerate(prompts):
+            tok = torch.as_tensor(prompt[None], device=dev).long()
+            want, _ = bundle.prefill(plain, tok, cache_slots=SERVE["max_len"])
+            got, _ = bundle.prefill(model, tok, cache_slots=SERVE["max_len"],
+                                    mesh=mesh)
+            got = got.full_tensor()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"phase 32 C: request {i}'s prefill logits on the mesh "
+                    f"differ from the meshless ones by "
+                    f"{float((got - want).abs().max())}")
+            worst = max(worst, int(prompt.shape[0]))
+        del plain
+        eng = Engine(cfg, model, ServeConfig(max_batch=SERVE["max_batch"],
+                                             max_len=SERVE["max_len"]),
+                     device=dev, mesh=mesh)
+        rids = [eng.submit(p, max_new=SERVE["max_new"]) for p in prompts]
+        FA.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(FA.LAUNCHES)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    toks = [out[r] for r in rids]
+    if toks != smollm_serve["tokens"]:
+        bad = [i for i, (a, b) in enumerate(zip(toks, smollm_serve["tokens"]))
+               if a != b]
+        raise AssertionError(f"phase 32 C: requests {bad} emit other tokens "
+                             f"on the mesh than phase 11's engine")
+    want = {"flash_attention_fwd": 30 * len(prompts)}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"phase 32 C: launches {launches}, expected "
+                             f"{want}")
+    total["flash_attention_fwd"] = total.get("flash_attention_fwd", 0) + \
+        want["flash_attention_fwd"]
+    n_tok = sum(len(t) for t in toks)
+    st = eng.stats
+    log(f"phase 32 C: Engine(mesh=(1, 1) NCCL) served {len(toks)} "
+        f"requests, {n_tok} tokens in {seconds:.3f} s ({n_tok / seconds:.1f} "
+        f"tok/s; phase 11 meshless {smollm_serve['seconds']:.3f} s); prefill "
+        f"{np.mean(st['prefill_ms']):.2f} ms a request, decode "
+        f"{sum(st['decode_ms']) / sum(st['decode_steps']):.3f} ms a step "
+        f"(phase 11 {smollm_serve['prefill_ms']:.2f} / "
+        f"{smollm_serve['decode_ms']:.3f}); every token phase 11's and every "
+        f"prefill logit the meshless prefill's, bit for bit; #5 launched "
+        f"{launches['flash_attention_fwd']} times")
+    return {"seconds": seconds, "tokens": n_tok,
+            "prefill_ms": float(np.mean(st["prefill_ms"])),
+            "decode_ms": sum(st["decode_ms"]) / sum(st["decode_steps"])}
+
+
+def check_serve_mesh(dev, smollm_serve: dict, out: dict):
+    """Phase 32 (see the module's docstring): A-D.  Puts each cell's
+    numbers, C's and D's rows into ``out``; returns the phase's
+    launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.fabric.planner import StepProfile, plan
+    from repro_torch.kernels import mask_gemm as MG
+    from repro_torch.launch.dryrun import reckon_cache_bytes
+
+    total = {}
+    t0 = time.perf_counter()
+    for arch in SERVE_MESH_ARCHS:
+        cfg = get_arch(arch)
+        label = f"phase 32 A {arch} prefill_32k pod1"
+        rec = _serve_cell(dev, arch, "prefill_32k", label, total)
+        n_attn = sum(cfg.pattern[i % len(cfg.pattern)] == "attn"
+                     for i in range(cfg.n_layers))
+        want = ({"flash_attention_fwd": n_attn} if n_attn else
+                {"ssd_scan": cfg.n_layers})
+        if rec["launches"] != want:
+            raise AssertionError(f"{label}: launches {rec['launches']}, "
+                                 f"expected {want}")
+        holds = {}
+        if n_attn:
+            problems = rec["kernel_problems"]["attention"]
+            if len(problems) != 1 or problems[0][-1] != n_attn:
+                raise AssertionError(f"{label}: local attention problems "
+                                     f"{problems}, {n_attn} calls expected")
+            problem = tuple(problems[0][:-1])
+            cut = problem[:3] + (SERVE_HOLD_SEQ, SERVE_HOLD_SEQ) + problem[5:]
+            log(f"{label}: #5 held at its local problem {problem} cut to "
+                f"Sq = Skv = {SERVE_HOLD_SEQ}")
+            holds["attention"] = _hold_mesh_attention(dev, label, cfg, rec,
+                                                      problem=cut)
+        else:
+            _hold_mesh_ssd(dev, label, rec)
+        out[f"{arch}/prefill_32k"] = {**_cell_line(rec), "holds": holds}
+        log(f"{label}: {time.perf_counter() - t0:.1f} s")
+
+    decode_recs = {}
+    for arch in SERVE_MESH_ARCHS:
+        cfg = get_arch(arch)
+        for shape_name in ("decode_32k", "long_500k"):
+            if shape_name == "long_500k" and not cfg.sub_quadratic:
+                continue
+            label = f"phase 32 B {arch} {shape_name} pod1"
+            rec = _serve_cell(dev, arch, shape_name, label, total)
+            rows, slots = rec["per_device_batch"][0], rec["context"]
+            want = reckon_cache_bytes(cfg, rows, slots)
+            got = rec["memory"]["cache_parts"]
+            kv = got.get("k", 0) + got.get("v", 0)
+            if got != want or kv != DECODE_KV_BYTES[(arch, shape_name)] \
+                    or rec["launches"]:
+                raise AssertionError(
+                    f"{label}: cache bytes {got}, reckoned {want}, k + v "
+                    f"{kv} against {DECODE_KV_BYTES[(arch, shape_name)]}; "
+                    f"launches {rec['launches']}")
+            log(f"{label}: cache bytes leaf by leaf the reckoning; k + v "
+                f"{kv:,} B ({kv / 1e9:.2f} GB)")
+            decode_recs[(arch, shape_name)] = rec
+            out[f"{arch}/{shape_name}"] = _cell_line(rec)
+    log(f"phase 32 B: {time.perf_counter() - t0:.1f} s")
+
+    out["engine"] = _serve_engine_on_mesh(dev, smollm_serve, total)
+    log(f"phase 32 C: {time.perf_counter() - t0:.1f} s")
+
+    rec = decode_recs[("h2o-danube-3-4b", "decode_32k")]
+    MG.reset_launches()
+    profile = StepProfile.from_dryrun(rec)
+    rows = plan(profile, min_terminals=256, mesh_shape=(16, 16),
+                axis_names=("data", "model"), device=dev)
+    mg = dict(MG.LAUNCHES)
+    for kname in ("frontier_step", "backward_step"):
+        if not mg.get(kname):
+            raise AssertionError(f"phase 32 D: {kname} never launched")
+        total[kname] = total.get(kname, 0) + mg[kname]
+    log(f"phase 32 D: plan(StepProfile.from_dryrun(h2o decode_32k), "
+        f"min_terminals=256, mesh (16, 16)) on the card, #3 / #4 launched "
+        f"{mg['frontier_step']} / {mg['backward_step']} times; profile "
+        f"{json.dumps(profile.bytes_by_kind)}")
+    for r in rows[:3]:
+        log(f"phase 32 D:   {json.dumps(r)}")
+    out["plan"] = rows[:3]
+    log(f"phase 32 D: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 32: launches {total}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA "
@@ -7223,7 +7490,7 @@ def main() -> int:
     errs["flash_attention_fwd"], timing["flash_attention_fwd"] = \
         check_flash(dev, bw)
     errs["ssd_scan"], timing["ssd_scan"] = check_ssd(dev, bw)
-    smollm, launches["flash_attention_fwd"], _ = serve_arch(
+    smollm, launches["flash_attention_fwd"], smollm_serve = serve_arch(
         dev, "smollm-135m", "flash_attention_fwd")
     _, launches["ssd_scan"], _ = serve_arch(dev, "mamba2-130m", "ssd_scan")
     profile_serve(dev, smollm, "smollm-135m")
@@ -7238,13 +7505,14 @@ def main() -> int:
     for kname in bwd_errs:
         launches[kname] = train_launches[kname]
     done("15")
-    # phases 16-31 run kernels #1-#4 (22, 25 and 28 #5-#7, 23 and 24 #5,
-    # 26 #8, 27 all but #3 and #4, 29 #3-#8 and 8', 30 and 31 #3-#7) on
-    # new paths: their
+    # phases 16-32 run kernels #1-#4 (22, 25 and 28 #5-#7, 23 and 24 #5,
+    # 26 #8, 27 all but #3 and #4, 29 #3-#8 and 8', 30 and 31 #3-#7, 32
+    # #3-#5 and #8) on new paths: their
     # launches there go beside each kernel's main-path count; phase 26's
     # path is the SSD backward's main path
     phase_launches = {}
-    ssd_bwd, perf, h256, mesh, moe_mesh, mem_mesh = {}, {}, {}, {}, {}, {}
+    ssd_bwd, perf, h256, mesh, moe_mesh, mem_mesh, serve_mesh = \
+        {}, {}, {}, {}, {}, {}, {}
     for phase, fn in (("16", lambda: check_families(dev)),
                       ("17", lambda: check_faults_analytic(dev)),
                       ("18", lambda: check_faults_sim(
@@ -7262,7 +7530,9 @@ def main() -> int:
                       ("28", lambda: check_head256(dev, bw, h256)),
                       ("29", lambda: check_mesh(dev, mesh)),
                       ("30", lambda: check_moe_mesh(dev, moe_mesh)),
-                      ("31", lambda: check_memory_mesh(dev, mem_mesh))):
+                      ("31", lambda: check_memory_mesh(dev, mem_mesh)),
+                      ("32", lambda: check_serve_mesh(dev, smollm_serve,
+                                                      serve_mesh))):
         t0 = time.perf_counter()
         for kname, count in fn().items():
             phase_launches.setdefault(kname, {})[phase] = count

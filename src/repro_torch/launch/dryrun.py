@@ -1,5 +1,6 @@
 """Production-mesh dry run on one card: rank 0's share of a train step,
-run for real, with every collective counted and none carried.
+a prefill or a decode step, run for real, with every collective counted
+and none carried.
 
 Counterpart of ``repro/launch/dryrun.py``.  The reference lowers and
 compiles each (arch x shape x mesh) cell over 512 placeholder host
@@ -16,6 +17,8 @@ bytes, time and memory, never values.
 
   python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k \\
       --mesh pod1
+  python -m repro_torch.launch.dryrun --arch h2o-danube-3-4b \\
+      --shape long_500k --device cpu
   python -m repro_torch.launch.dryrun --all --mesh pod1 --device cpu
 
 The record has the reference's fields:
@@ -60,9 +63,27 @@ The record has the reference's fields:
 Every family runs its ``train_4k`` cell; a memory-input config's batch
 carries its memory as the reference's ``input_specs`` give it (vision:
 (B, n_image_tokens, d_model), an encoder: (B, seq // frame_ratio,
-d_model), bf16 over the batch axes).  The prefill and decode cells are
-``skipped``, naming the ROADMAP item that queues them; ``long_500k`` on
-a full-attention arch is skipped as in the reference.  :func:`run_cell`
+d_model), bf16 over the batch axes).
+
+The dense GQA, SSD and RG-LRU families also run their serve cells
+(``prefill_32k``, ``decode_32k``, and ``long_500k`` where the config is
+sub-quadratic) as the reference's ``_lower_prefill`` and
+``_lower_decode`` lower them (:func:`_serve_metrics`): the parameters
+of the train state without the moments; a prefill of the cell's rows,
+or one decode step of one token a row at position ``seq_len - 1``
+against rank 0's blocks of the cache of a prefill into
+``min(seq_len, window)`` slots (:func:`local_cache`: placed by
+``cache_specs``, seeded values, ``kpos`` exact).  The collectives are
+booked under the phase ``prefill`` or ``decode``; the record has the
+train record's fields, its ``memory`` the arguments (the parameters,
+and the cache in decode), the outputs (the local logits and the
+cache), the peak and ``peak_parts`` (``params``, ``cache``,
+``logits``, ``rest``: the peak less the logits and the cache the step
+allocated), ``cache_parts`` the cache's local bytes by leaf name, and
+``context`` the cache's slots.  The MoE / MLA and memory-input
+families' serve cells are ``skipped``, naming the ROADMAP item that
+queues them; ``long_500k`` on a full-attention arch is skipped as in
+the reference.  :func:`run_cell`
 writes each record as JSON under ``REPRO_DRYRUN_DIR`` (default
 ``build/dryrun/`` of the checkout).  :class:`~repro_torch.fabric.
 planner.StepProfile`'s ``from_dryrun`` reads a record.
@@ -87,7 +108,9 @@ from ..configs.base import ArchConfig, ShapeConfig
 
 __all__ = ["OUT_DIR", "CollectiveCounter", "fake_world", "kernel_flops",
            "kernel_padding_flops", "memory_tokens",
-           "dp_gradient_bytes", "local_train_state", "lower_cell",
+           "dp_gradient_bytes", "local_params", "local_train_state",
+           "local_cache", "cache_bytes", "reckon_cache_bytes",
+           "decode_context", "lower_cell",
            "cell_path", "run_cell", "main"]
 
 OUT_DIR = os.environ.get(
@@ -407,25 +430,36 @@ def _from_local(local, mesh, spec, shape):
                               stride=stride)
 
 
+def local_params(cfg: ArchConfig, mesh, specs: dict, device,
+                 seed: int = 0) -> dict:
+    """Rank 0's blocks of the parameters as DTensors on ``mesh``, from a
+    generator seeded with ``seed`` (:func:`_local_init`), each placed by
+    ``specs`` (``{name: spec}``)."""
+    from ..models.common import local_shape
+    from ..models.model import param_shapes
+
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    return {name: _from_local(
+        _local_init(name, local_shape(shape, specs[name], mesh), dt, gen,
+                    device), mesh, specs[name], shape)
+        for name, (shape, dt) in param_shapes(cfg).items()}
+
+
 def local_train_state(cfg: ArchConfig, mesh, specs: dict, device,
                       seed: int = 0) -> dict:
     """Rank 0's blocks of a fresh train state as DTensors on ``mesh``:
-    parameters from a generator seeded with ``seed``, AdamW moments in
-    the optimizer's dtype and ``count``/``step`` zero, each placed by
+    the parameters of :func:`local_params`, AdamW moments in the
+    optimizer's dtype and ``count``/``step`` zero, each placed by
     ``specs`` (:func:`~repro_torch.train.train_step.
     make_train_state_specs`)."""
     from ..models.common import local_shape
     from ..models.model import param_shapes
     from ..train.train_step import TrainStepConfig, _opt_cfg
 
-    gen = torch.Generator(device=device).manual_seed(int(seed))
     state_dtype = _opt_cfg(cfg, TrainStepConfig()).state_dtype
-    params, m, v = {}, {}, {}
+    params = local_params(cfg, mesh, specs["params"], device, seed)
+    m, v = {}, {}
     for name, (shape, dt) in param_shapes(cfg).items():
-        sp = specs["params"][name]
-        params[name] = _from_local(
-            _local_init(name, local_shape(shape, sp, mesh), dt, gen, device),
-            mesh, sp, shape)
         for moments in (m, v):
             ms = specs["opt"]["m"][name]
             moments[name] = _from_local(torch.zeros(
@@ -448,9 +482,11 @@ def _skip_reason(cfg: ArchConfig, shape: ShapeConfig):
             and not cfg.sub_quadratic:
         return ("long_500k requires sub-quadratic attention "
                 "(full-attention arch; see DESIGN.md)")
-    if shape.kind != "train":
-        return (f"the {shape.kind} cells are ROADMAP queue 1 item 1.3 "
-                f"(with cache_logical_axes)")
+    from ..models.transformer import serves_on_mesh
+
+    if shape.kind != "train" and not serves_on_mesh(cfg):
+        return (f"the {shape.kind} cells of the MoE / MLA and memory-input "
+                f"families are ROADMAP queue 1 item 1, step 3b")
     return None
 
 
@@ -569,6 +605,206 @@ def _step_metrics(cfg: ArchConfig, shape: ShapeConfig, mesh, device,
     }
 
 
+def decode_context(cfg: ArchConfig, seq_len: int) -> int:
+    """A decode cell's cache slots: the reference's context,
+    ``min(seq_len, window)`` (its ``_lower_decode``)."""
+    return seq_len if cfg.window is None else min(seq_len, cfg.window)
+
+
+def _local_bytes(t) -> int:
+    t = t.to_local() if hasattr(t, "to_local") else t
+    return t.numel() * t.element_size()
+
+
+def cache_bytes(cache) -> dict:
+    """The local bytes of a cache's leaves by leaf name (``k``, ``v``,
+    ``kpos``, ``conv``, ``state``), over every layer."""
+    from torch.utils._pytree import tree_flatten_with_path
+
+    out: dict[str, int] = {}
+    for path, t in tree_flatten_with_path(cache)[0]:
+        name = path[-1].key
+        out[name] = out.get(name, 0) + _local_bytes(t)
+    return out
+
+
+def reckon_cache_bytes(cfg: ArchConfig, rows: int, slots: int,
+                       model: int = 16) -> dict:
+    """A decode cell's cache bytes a device by leaf name from the config
+    alone: each layer's leaves at ``rows`` rows and ``slots`` attention
+    slots, a ``kv_heads`` or ``ff`` dim split ``model`` ways where it
+    divides it (the reference's ``cache_logical_axes`` and rules); bf16
+    k, v and conv, int32 kpos, float32 states."""
+    def cut(n):
+        return n // model if n % model == 0 else n
+    out: dict[str, int] = {}
+
+    def add(name, n):
+        out[name] = out.get(name, 0) + n
+
+    for i in range(cfg.n_layers):
+        kind = cfg.pattern[i % len(cfg.pattern)]
+        if kind == "attn":
+            for name in ("k", "v"):
+                add(name, rows * cut(cfg.n_kv_heads) * slots
+                    * cfg.resolved_head_dim * 2)
+            add("kpos", rows * slots * 4)
+        elif kind == "ssd":
+            ssm = cfg.ssm
+            d_inner = ssm.expand * cfg.d_model
+            add("conv", rows * (ssm.d_conv - 1)
+                * cut(d_inner + 2 * ssm.n_groups * ssm.d_state) * 2)
+            add("state", rows * (d_inner // ssm.head_dim) * ssm.d_state
+                * ssm.head_dim * 4)
+        elif kind == "rglru":
+            w = cfg.rglru.lru_width or cfg.d_model
+            add("conv", rows * (cfg.rglru.d_conv - 1) * cut(w) * 2)
+            add("state", rows * cut(w) * 4)
+        else:
+            raise ValueError(f"no cache reckoning for {kind!r} layers")
+    return out
+
+
+def local_cache(cfg: ArchConfig, mesh, batch: int, seq_len: int, device,
+                seed: int = 0) -> list:
+    """Rank 0's blocks of a decode cell's cache as DTensors on ``mesh``:
+    the cache of a prefill into :func:`decode_context` slots
+    (:meth:`~repro_torch.models.model.ModelBundle.cache_shapes`), each
+    leaf placed by :func:`~repro_torch.models.model.cache_specs`, with
+    seeded values (``k``, ``v``, ``conv`` and ``state`` standard normal,
+    the states times 0.1) and ``kpos`` as a prefill of ``seq_len - 1``
+    tokens leaves it (:func:`~repro_torch.models.layers.
+    slot_positions`), so that the one new token at position ``seq_len -
+    1`` takes slot ``(seq_len - 1) mod slots``."""
+    from ..models import build
+    from ..models.common import local_shape
+    from ..models.layers import slot_positions
+    from ..models.model import cache_specs
+
+    slots = decode_context(cfg, seq_len)
+    shapes = build(cfg).cache_shapes(batch, slots)
+    specs = cache_specs(shapes, mesh)
+    gen = torch.Generator(device=device).manual_seed(int(seed) + 2)
+    kpos = slot_positions(seq_len - 1, slots, device)
+
+    def make(name, t, spec):
+        shape = local_shape(tuple(t.shape), spec, mesh)
+        if name == "kpos":
+            local = kpos[None, :].repeat(shape[0], 1)
+        else:
+            local = torch.randn(shape, generator=gen, device=device)
+            local = (local * 0.1 if name == "state" else local).to(t.dtype)
+        return _from_local(local, mesh, spec, tuple(t.shape))
+
+    return [{"mixer": {name: make(name, t, specs[i]["mixer"][name])
+                       for name, t in layer["mixer"].items()}}
+            for i, layer in enumerate(shapes)]
+
+
+def _serve_metrics(cfg: ArchConfig, shape: ShapeConfig, mesh, device,
+                   seed: int = 0) -> dict:
+    """Run rank 0's share of one prefill (``shape.kind == "prefill"``:
+    the cell's rows of ``seq_len`` tokens) or one decode step (one token
+    a row against :func:`local_cache`) of ``shape`` on ``mesh`` and
+    measure it (see the module's docstring)."""
+    from ..data import DataConfig, synthetic_batch
+    from ..kernels import flash_attention as FA
+    from ..kernels import ssd_scan as SS
+    from ..models import Model, build
+    from ..models.common import axis_sizes
+    from torch.utils._pytree import tree_leaves
+
+    from ..models.layers import batch_axes_for, book_local_problems
+    from ..train.train_step import _bind, _phase
+
+    bundle = build(cfg)
+    params = local_params(cfg, mesh, bundle.param_specs(mesh), device, seed)
+    model = Model(cfg, device="meta")
+    _bind(model, params)
+    b = shape.global_batch
+    axes = tuple(batch_axes_for(mesh, b, True))
+    sizes = axis_sizes(mesh)
+    rows = b // int(np.prod([sizes[a] for a in axes]))
+    bspec = (axes or None, None)
+    decode = shape.kind == "decode"
+    cache = None
+    if decode:
+        gen = torch.Generator(device=device).manual_seed(int(seed) + 1)
+        tokens = _from_local(torch.randint(
+            0, cfg.vocab, (rows, 1), generator=gen, device=device), mesh,
+            bspec, (b, 1))
+        positions = _from_local(torch.full(
+            (rows, 1), shape.seq_len - 1, dtype=torch.int64, device=device),
+            mesh, bspec, (b, 1))
+        cache = local_cache(cfg, mesh, b, shape.seq_len, device, seed)
+    else:
+        data = DataConfig(vocab=cfg.vocab, seq_len=shape.seq_len,
+                          global_batch=b, seed=seed)
+        tokens = _from_local(torch.as_tensor(synthetic_batch(
+            data, 0, slice(0, rows))["tokens"], device=device), mesh, bspec,
+            (b, shape.seq_len))
+    param_bytes = _state_bytes(params)
+    cache_in = cache_bytes(cache) if decode else {}
+    in_ptrs = ({t.to_local().data_ptr() for t in tree_leaves(cache)}
+               if decode else set())
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    FA.reset_launches()
+    SS.reset_launches()
+    t0 = time.perf_counter()
+    with _phase(shape.kind), book_local_problems() as problems, \
+            CollectiveCounter(mesh) as counter:
+        if decode:
+            logits, out_cache = bundle.decode_step(model, cache, tokens,
+                                                   positions, mesh=mesh)
+        else:
+            logits, out_cache = bundle.prefill(model, tokens, mesh=mesh)
+    if cuda:
+        torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = {**FA.LAUNCHES, **SS.LAUNCHES}
+    kflops, pad_flops = _flops(problems, launches)
+    peak = (torch.cuda.max_memory_allocated() - base) if cuda else None
+    logit_bytes = _local_bytes(logits)
+    cache_out = cache_bytes(out_cache)
+    new_cache = sum(_local_bytes(t) for t in tree_leaves(out_cache)
+                    if t.to_local().data_ptr() not in in_ptrs)
+    rest = None if peak is None else peak - logit_bytes - new_cache
+    return {
+        "flops": float(counter.flops + kflops),
+        "aten_flops": float(counter.flops),
+        "kernel_flops": float(kflops),
+        "kernel_padding_flops": float(pad_flops),
+        "collective_bytes_per_device": counter.per_device(),
+        "collective_bytes_by_phase_axis": counter.by_phase_axis,
+        "collectives": counter.table(),
+        "dp_gradient_bytes": {},
+        "collective_calls": counter.calls,
+        "memory": {
+            "argument_bytes": param_bytes + sum(cache_in.values()),
+            "output_bytes": logit_bytes + sum(cache_out.values()),
+            "temp_bytes": None if rest is None else max(0, rest),
+            "peak_bytes": peak, "alias_bytes": None,
+            "generated_code_bytes": None,
+            "peak_parts": {"params": param_bytes,
+                           "cache": sum(cache_out.values()),
+                           "logits": logit_bytes, "rest": rest},
+            "cache_parts": cache_out},
+        "launches": {k: int(v) for k, v in launches.items() if v},
+        "kernel_problems": {family: [[*problem, calls] for problem, calls
+                                     in seen.items()]
+                            for family, seen in problems.items()},
+        "step_seconds": step_s,
+        "per_device_batch": [rows, 1 if decode else shape.seq_len],
+        "context": decode_context(cfg, shape.seq_len) if decode
+        else shape.seq_len,
+        "memory_tokens": 0,
+    }
+
+
 def lower_cell(arch: str, shape_name: str, multi_pod: bool, device=None, *,
                cfg: ArchConfig | None = None, shape: ShapeConfig | None = None,
                seed: int = 0) -> dict:
@@ -595,7 +831,9 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool, device=None, *,
     with fake_world(n):
         mesh = make_production_mesh(multi_pod=multi_pod,
                                     device_type=device.type)
-        main = _step_metrics(cfg, shape, mesh, device, seed)
+        metrics = _step_metrics if shape.kind == "train" else \
+            _serve_metrics
+        main = metrics(cfg, shape, mesh, device, seed)
     return {
         "status": "ok", "arch": arch, "shape": shape_name,
         "mesh": mesh_name,

@@ -131,12 +131,15 @@ def _names(entry) -> tuple:
 
 def placements(spec, mesh) -> tuple:
     """DTensor placements of ``spec`` on ``mesh``, one per mesh dim in
-    the mesh's order (see the module's docstring)."""
+    the mesh's order (see the module's docstring).  A mesh dim of one
+    device is ``Replicate()``: a split one way is no split, and DTensor's
+    view rules refuse to reshape a dim "sharded" there (a single kv
+    head's)."""
     from torch.distributed.tensor import Replicate, Shard
     out = []
-    for name in axis_sizes(mesh):
+    for name, size in axis_sizes(mesh).items():
         dims = [d for d, e in enumerate(spec) if name in _names(e)]
-        out.append(Shard(dims[0]) if dims else Replicate())
+        out.append(Shard(dims[0]) if dims and size > 1 else Replicate())
     return tuple(out)
 
 

@@ -15,7 +15,8 @@ given a memory) attends the memory through the kernel in every mode,
 decode included, as the reference does.
 
 On a mesh (``mesh``, a ``DeviceMesh``; training of the GQA family,
-of MLA, of the cross layers and the encoder) the weights are DTensors
+of MLA, of the cross layers and the encoder, and the GQA family's
+prefill and decode) the weights are DTensors
 placed by their specs and the activations follow them.  The mesh hooks
 are the reference's: ``batch_axes_for`` (the batch over ``("pod",
 "data")`` where that divides it, over ``model`` too under the
@@ -25,7 +26,9 @@ over ``model`` by head where the head count divides it).  A weight sharded over 
 (:func:`cast_weight`), and its gradient comes back by reduce-scatter.
 The kernels run on each device's block through ``local_map``
 (:func:`local_attention`, :func:`local_mla_attention`): DTensor has no
-sharding rule for them.  A cross layer's K and V come from the memory,
+sharding rule for them.  So do a prefill's ring cache
+(:func:`_local_prefill_cache`) and a decode step's in-place writes and
+attention to the cache (:func:`_local_decode`), on the local tensors.  A cross layer's K and V come from the memory,
 which is sharded over the batch axes and replicated over ``model``.
 Under :func:`book_local_problems` the mesh hooks book the local problem
 each kernel call is handed (the dry run's kernel products).
@@ -50,10 +53,9 @@ from .common import axis_sizes, placements
 
 __all__ = ["rms_norm", "rope", "rope_table", "apply_rope", "cast_weight",
            "gelu", "silu", "truncated_normal", "constant", "Attention", "MLA",
-           "MLP", "KPOS_PAD", "batch_axes_for", "constrain",
+           "MLP", "KPOS_PAD", "batch_axes_for", "batch_layout", "constrain",
            "branch_out", "constrain_heads", "gather_seq", "grad_layout",
-           "relayout",
-           "replicated",
+           "relayout", "replicated", "slot_positions",
            "gather_fsdp", "book_local_problems", "kv_heads_read",
            "attention_block", "local_attention", "local_embedding",
            "mla_block", "local_mla_attention"]
@@ -166,8 +168,10 @@ def branch_out(x, w):
     sum runs in float32 as in a bf16 GEMM): a contraction sharded over
     ``model`` leaves float32 partial sums, reduced in float32 and
     rounded to bf16 once, after the reduction, as the reference's
-    compiled program does."""
-    if isinstance(x, DTensor):
+    compiled program does.  On a mesh of one device nothing is split:
+    the product is ``x @ w`` in x's dtype, the port's without a mesh, bit
+    for bit."""
+    if isinstance(x, DTensor) and x.device_mesh.size() > 1:
         return x.float() @ w.float()
     return x @ w
 
@@ -233,6 +237,14 @@ def constrain(x, mesh, spec):
     """``x`` redistributed to ``spec`` on ``mesh`` (the reference's
     ``with_sharding_constraint``)."""
     want = placements(spec, mesh)
+    return x if tuple(x.placements) == want else x.redistribute(mesh, want)
+
+
+def batch_layout(x, mesh):
+    """DTensor x split by its batch dim (dim 0) where it is split there,
+    replicated over every other mesh dim: a partial sum is reduced, a
+    split of another dim gathered."""
+    want = tuple(p if p.is_shard(0) else Replicate() for p in x.placements)
     return x if tuple(x.placements) == want else x.redistribute(mesh, want)
 
 
@@ -520,16 +532,14 @@ class Attention(nn.Module):
         (S = 1, positions (B, 1); cache updated in place); ``rope_tab``
         the positions' :func:`rope_table` where the caller has it.  With
         a ``memory`` (B, T, M), the layer cross-attends it instead (see
-        :meth:`_cross`).  ``mesh``: training on a mesh, x and the weights
-        DTensors, ``rope_tab`` replicated DTensors (see the module's
-        docstring).  Returns ``(y (B, S, M), cache)``, the cache None in
-        training."""
+        :meth:`_cross`).  ``mesh``: on a mesh, x and the weights
+        DTensors, ``rope_tab`` DTensors (replicated, or in decode by the
+        rows), ``positions`` in decode a DTensor by the rows and the
+        cache's leaves placed by :func:`~repro_torch.models.model.
+        cache_specs` (see the module's docstring).  Returns ``(y (B, S,
+        M), cache)``, the cache None in training."""
         if memory is not None:
             return self._cross(x, mode, cache, memory, mesh)
-        if mesh is not None and mode != "train":
-            raise NotImplementedError(
-                "a mesh shards training only; the prefill and decode cells "
-                "are ROADMAP queue 1")
         cfg = self.cfg
         b, s, _ = x.shape
         hq, dh = self.wq.shape[1], self.wq.shape[2]
@@ -550,9 +560,16 @@ class Attention(nn.Module):
         elif mode == "train":
             out = ops.attention(q, k, v, causal=True, window=window)
             new_cache = None
+        elif mode == "prefill" and mesh is not None:
+            out = local_attention(q, k, v, mesh, causal=True, window=window)
+            new_cache = _local_prefill_cache(k, v, s, window, cache_slots,
+                                             mesh)
         elif mode == "prefill":
             out = ops.attention(q, k, v, causal=True, window=window)
             new_cache = self._prefill_cache(k, v, s, window, cache_slots)
+        elif mode == "decode" and mesh is not None:
+            out, new_cache = _local_decode(q, k, v, positions, cache, window,
+                                           mesh)
         elif mode == "decode":
             out, new_cache = self._decode(q, k, v, positions, cache, window)
         else:
@@ -588,8 +605,8 @@ class Attention(nn.Module):
                              f"'decode'")
         if mesh is not None and mode != "train":
             raise NotImplementedError(
-                "a mesh shards training only; the prefill and decode cells "
-                "are ROADMAP queue 1")
+                "on a mesh this layer trains only; its prefill and decode "
+                "cells are ROADMAP queue 1 item 1, step 3b")
         h = gather_seq(rms_norm(x, self.norm, self.cfg.norm_eps))
         q = constrain_heads(_project(h, cast_weight(self, "wq", h.dtype)),
                             mesh)
@@ -628,7 +645,6 @@ class Attention(nn.Module):
     @staticmethod
     def _prefill_cache(k, v, s, window, cache_slots):
         b = k.shape[0]
-        dev = k.device
         slots = cache_slots if cache_slots is not None else (
             min(window, s) if window is not None else s)
         if slots < s:
@@ -636,21 +652,22 @@ class Attention(nn.Module):
             shift = s % slots
             kc = torch.roll(k[:, :, -slots:], shift, dims=2)
             vc = torch.roll(v[:, :, -slots:], shift, dims=2)
-            kpos = torch.roll(torch.arange(s - slots, s, device=dev), shift)
         else:
             pad = slots - s
             kc = F.pad(k, (0, 0, 0, pad))
             vc = F.pad(v, (0, 0, 0, pad))
-            kpos = torch.cat([torch.arange(s, device=dev),
-                              torch.full((pad,), KPOS_PAD, device=dev)])
-        kpos = kpos.to(torch.int32)[None, :].repeat(b, 1)
+        kpos = slot_positions(s, slots, k.device)[None, :].repeat(b, 1)
         return {"k": kc.contiguous(), "v": vc.contiguous(), "kpos": kpos}
 
     @staticmethod
-    def _decode(q, k, v, positions, cache, window):
+    def _decode(q, k, v, positions, cache, window, kv=None):
+        """One token's attention to the cache, k and v written into it in
+        place first; ``kv = (lo, hi)``: q's heads read only those kv
+        heads of the cache (:func:`kv_heads_read`), all of which are
+        written."""
         ck, cv, kpos = cache["k"], cache["v"], cache["kpos"]
         b, slots = kpos.shape
-        hq, hkv, dh = q.shape[1], ck.shape[1], q.shape[3]
+        hq, dh = q.shape[1], q.shape[3]
         pos = positions.reshape(b).to(torch.int64)
         slot = pos % slots
         rows = torch.arange(b, device=pos.device)
@@ -662,14 +679,95 @@ class Attention(nn.Module):
         mask = mask_pos <= qpos
         if window is not None:
             mask &= mask_pos > qpos - window
+        kr, vr = (ck, cv) if kv is None else (ck[:, kv[0]:kv[1]],
+                                              cv[:, kv[0]:kv[1]])
+        hkv = kr.shape[1]
         # q head h reads kv head h // (hq / hkv): the q heads of one group
         # stand in the rows of one product (no repeated K/V)
         qg = q.float().view(b, hkv, hq // hkv, dh)
-        logits = (qg @ ck.float().transpose(-1, -2)) * dh ** -0.5
+        logits = (qg @ kr.float().transpose(-1, -2)) * dh ** -0.5
         logits = torch.where(mask, logits, -1e30)
         probs = torch.softmax(logits, dim=-1)
-        out = (probs @ cv.float()).view(b, hq, 1, dh).to(q.dtype)
+        out = (probs @ vr.float()).view(b, hq, 1, dh).to(q.dtype)
         return out, {"k": ck, "v": cv, "kpos": kpos}
+
+
+def slot_positions(s: int, slots: int, device):
+    """``kpos`` of one row after a prefill of ``s`` tokens into ``slots``
+    cache slots, (slots,) int32: a ring where slots < s (position p at
+    slot p % slots, the last ``slots`` positions kept), else positions 0
+    .. s - 1 and :data:`KPOS_PAD` in the empty slots."""
+    if slots < s:
+        pos = torch.roll(torch.arange(s - slots, s, device=device),
+                         s % slots)
+    else:
+        pos = torch.cat([torch.arange(s, device=device),
+                         torch.full((slots - s,), KPOS_PAD, device=device)])
+    return pos.to(torch.int32)
+
+
+def _local_prefill_cache(k, v, s, window, cache_slots, mesh):
+    """:meth:`Attention._prefill_cache` on each device's block of the
+    DTensors k and v (B, Hkv, S, D), through ``local_map``: the cache's
+    ``k`` and ``v`` placed as k, ``kpos`` (B, slots) by k's batch dim,
+    replicated elsewhere.  No bytes move."""
+    from torch.distributed.tensor.experimental import local_map
+
+    kp = tuple(k.placements)
+    pos_pl = tuple(p if p.is_shard(0) else Replicate() for p in kp)
+
+    def run(kl, vl):
+        c = Attention._prefill_cache(kl, vl, s, window, cache_slots)
+        return c["k"], c["v"], c["kpos"]
+
+    fn = local_map(run, out_placements=(kp, kp, pos_pl),
+                   in_placements=(kp, tuple(v.placements)),
+                   device_mesh=mesh)
+    ck, cv, kpos = fn(k, v)
+    return {"k": ck, "v": cv, "kpos": kpos}
+
+
+def _local_decode(q, k, v, positions, cache, window, mesh):
+    """:meth:`Attention._decode` on each device's block through
+    ``local_map``: q (B, Hq, 1, D), the new k and v (B, Hkv, 1, D) and
+    positions (B, 1) DTensors, the cache's ``k`` / ``v`` (B, Hkv, slots,
+    D) and ``kpos`` (B, slots) DTensors placed by
+    :func:`~repro_torch.models.model.cache_specs`.  The new k and v take
+    the cache's placements (a slice where the cache is split more: no
+    bytes move) and are written into each device's local cache tensors
+    in place; where q is split by head over ``model`` and the cache's kv
+    heads are not (fewer kv heads than the axis), each device's q heads
+    read the kv heads that they read under the global group map
+    (:func:`kv_heads_read`).  Returns ``(out placed as q, the cache)``."""
+    from torch.distributed.tensor.experimental import local_map
+
+    ck, cv, kpos = cache["k"], cache["v"], cache["kpos"]
+    cp = tuple(ck.placements)
+    if any(a.is_shard(0) != b.is_shard(0)
+           for a, b in zip(q.placements, cp)):
+        raise NotImplementedError(
+            f"decode on a mesh: q's batch placements {q.placements} are "
+            f"not the cache's {cp}")
+    k, v = (t if tuple(t.placements) == cp else t.redistribute(ck.device_mesh,
+                                                                cp)
+            for t in (k, v))
+    md = _model_dim(mesh)
+    kv = None
+    if md is not None and q.placements[md] == Shard(1) \
+            and cp[md] != Shard(1):
+        kv = kv_heads_read(q.shape[1], ck.shape[1], mesh.size(md),
+                           _model_rank(mesh))
+
+    def run(ql, kl, vl, pl, ckl, cvl, kposl):
+        return Attention._decode(ql, kl, vl, pl, {"k": ckl, "v": cvl,
+                                                  "kpos": kposl}, window,
+                                 kv)[0]
+
+    args = (q, k, v, positions, ck, cv, kpos)
+    fn = local_map(run, out_placements=(tuple(q.placements),),
+                   in_placements=tuple(tuple(t.placements) for t in args),
+                   device_mesh=mesh)
+    return fn(*args), {"k": ck, "v": cv, "kpos": kpos}
 
 
 class _Gated(torch.autograd.Function):
@@ -759,8 +857,8 @@ class MLA(nn.Module):
         nope, r = mla.qk_nope, mla.qk_rope
         if mesh is not None and mode != "train":
             raise NotImplementedError(
-                "a mesh shards training only; the prefill and decode cells "
-                "are ROADMAP queue 1")
+                "on a mesh this layer trains only; its prefill and decode "
+                "cells are ROADMAP queue 1 item 1, step 3b")
         hidden = gather_seq(rms_norm(x, self.norm, cfg.norm_eps))
         dt = hidden.dtype
         if rope_tab is None:

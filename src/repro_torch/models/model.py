@@ -11,6 +11,10 @@ Model` (an ``nn.Module``).  The batch is axis 0 of every cache leaf
 (the cross layers' ``k``, ``v`` and ``enc_memory`` too), so
 ``concat_caches`` concatenates there (the reference needs
 ``cache_logical_axes`` to find it under its stacked layer axis).
+:func:`cache_logical_axes` and :func:`cache_specs` give a serve cache's
+leaves the reference's axes and specs on a mesh; ``prefill`` and
+``decode_step`` take a ``mesh`` as the reference's do, the weights
+placed by :func:`place_params`.
 
 :func:`param_axes` gives every parameter the logical axes that the
 reference's ``box(...)`` calls give its weight, and
@@ -25,6 +29,7 @@ from __future__ import annotations
 import functools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -34,12 +39,13 @@ from .common import DEFAULT_RULES, ShardingRules, resolve_specs
 from .layers import MLA, MLP, Attention
 from .moe import MoE
 from .rglru import RGLRUBlock
-from .ssm import SSDBlock
+from .ssm import SSDBlock, ssd_block_cache_shape
 from .transformer import (Encoder, Model, MTPHead, count_params, forward,
-                          model_flops)
+                          layer_plan, model_flops)
 
 __all__ = ["ModelBundle", "build", "loss_fn", "param_axes",
-           "param_shapes"]
+           "param_shapes", "cache_logical_axes", "cache_specs",
+           "place_params"]
 
 
 def _leaf_axes(module, leaf: str) -> tuple:
@@ -109,6 +115,81 @@ def param_axes(cfg: ArchConfig) -> dict:
 def param_shapes(cfg: ArchConfig) -> dict:
     """``{parameter name: (shape, dtype)}`` of the global parameters."""
     return {name: (shape, dt) for name, shape, dt, _ in _meta_params(cfg)}
+
+
+def _leaf_cache_axes(name: str, nd: int) -> tuple:
+    """The reference's logical axes of a cache leaf by its name and rank
+    (``cache_logical_axes``)."""
+    if name in ("k", "v"):
+        axes = ("batch", "kv_heads", "kv_seq", None)
+    elif name == "kpos":
+        axes = ("batch", "kv_seq")
+    elif name in ("ckv", "krope"):
+        axes = ("batch", "kv_seq", None)
+    elif name == "conv":
+        axes = ("batch", None, "ff")
+    elif name == "state":
+        axes = ("batch", None, None, None) if nd == 4 else ("batch", "ff")
+    elif name == "enc_memory":
+        axes = ("batch", None, None)
+    else:
+        axes = ("batch",) + (None,) * (nd - 1)
+    if len(axes) != nd:
+        raise ValueError(f"cache leaf {name!r} of rank {nd}: axes {axes}")
+    return axes
+
+
+def cache_logical_axes(cache):
+    """The logical sharding axes of every leaf of a serve cache, by the
+    leaf's name and rank, as the reference's ``cache_logical_axes``
+    assigns them: ``k`` / ``v`` ``("batch", "kv_heads", "kv_seq",
+    None)``, ``kpos`` ``("batch", "kv_seq")``, ``conv`` ``("batch", None,
+    "ff")``, ``state`` ``("batch", None, None, None)`` at rank 4 (the
+    SSD's) else ``("batch", "ff")`` (the RG-LRU's), ``ckv`` / ``krope``
+    ``("batch", "kv_seq", None)``, ``enc_memory`` ``("batch", None,
+    None)``, anything else the batch first.  The cache is the port's
+    tree of tensors (a list of per-layer dicts, or ``{"layers": [...],
+    "enc_memory": ...}``).  The port's layers are not stacked: every
+    leaf has the batch at axis 0 and no layer axis to strip."""
+    from torch.utils._pytree import tree_map_with_path
+
+    return tree_map_with_path(
+        lambda path, t: _leaf_cache_axes(path[-1].key, t.dim()), cache)
+
+
+def cache_specs(cache, mesh, rules: ShardingRules = DEFAULT_RULES):
+    """The spec of every leaf of a serve cache on ``mesh``:
+    :func:`cache_logical_axes` resolved through ``rules`` at each leaf's
+    shape (the reference's ``_output_shardings``: ``kv_seq`` is
+    unsharded under the default rules; an axis whose mesh axes do not
+    divide its dim falls back to replication)."""
+    from torch.utils._pytree import tree_map_with_path
+
+    return tree_map_with_path(
+        lambda path, t: resolve_specs(_leaf_cache_axes(path[-1].key,
+                                                       t.dim()),
+                                      rules, mesh, tuple(t.shape)), cache)
+
+
+def place_params(model: Model, mesh, rules: ShardingRules = DEFAULT_RULES
+                 ) -> Model:
+    """``model``'s parameters, in place, as DTensors on ``mesh`` placed by
+    :meth:`ModelBundle.param_specs`: each rank holds the whole model and
+    keeps its blocks (no bytes move).  Returns the model."""
+    from torch import nn
+    from torch.distributed.tensor import distribute_tensor
+
+    from .common import placements
+
+    specs = ModelBundle(model.cfg).param_specs(mesh, rules)
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        model.get_submodule(owner)._parameters[leaf] = nn.Parameter(
+            distribute_tensor(p.detach(), mesh,
+                              placements(specs[name], mesh),
+                              src_data_rank=None),
+            requires_grad=p.requires_grad)
+    return model
 
 
 def _cross_entropy(logits, targets, mask):
@@ -222,29 +303,74 @@ class ModelBundle:
         return {name: resolve_specs(axes, rules, mesh, shape)
                 for name, shape, _, axes in _meta_params(self.cfg)}
 
+    def cache_shapes(self, batch: int, slots: int) -> list:
+        """The cache that a prefill of ``batch`` rows with ``cache_slots=
+        slots`` returns, as meta tensors (shape and dtype, nothing
+        allocated): per layer ``{"mixer": ...}``, an attention layer's
+        ``k`` / ``v`` (B, Hkv, slots, D) bf16 and ``kpos`` (B, slots)
+        int32, an SSD layer's ``conv`` (B, d_conv - 1, conv_dim) bf16 and
+        ``state`` (B, H, N, P) float32, an RG-LRU layer's ``conv`` (B,
+        d_conv - 1, W) bf16 and ``state`` (B, W) float32.  The families
+        that serve on a mesh only (MLA and the cross layers raise)."""
+        cfg = self.cfg
+        meta = functools.partial(torch.empty, device="meta")
+        bf16 = torch.bfloat16
+        out = []
+        for kind in layer_plan(cfg).kinds:
+            if kind == "attn" and cfg.mla is None:
+                kv = (batch, cfg.n_kv_heads, slots, cfg.resolved_head_dim)
+                c = {"k": meta(kv, dtype=bf16), "v": meta(kv, dtype=bf16),
+                     "kpos": meta((batch, slots), dtype=torch.int32)}
+            elif kind == "ssd":
+                shapes = ssd_block_cache_shape(cfg, batch)
+                c = {"conv": meta(shapes["conv"], dtype=bf16),
+                     "state": meta(shapes["state"], dtype=torch.float32)}
+            elif kind == "rglru":
+                w = cfg.rglru.lru_width or cfg.d_model
+                c = {"conv": meta((batch, cfg.rglru.d_conv - 1, w),
+                                  dtype=bf16),
+                     "state": meta((batch, w), dtype=torch.float32)}
+            else:
+                raise NotImplementedError(
+                    f"{cfg.name}: cache shapes of {kind!r} layers"
+                    f"{' with MLA' if cfg.mla is not None else ''}")
+            out.append({"mixer": c})
+        return out
+
     @torch.no_grad()
     def prefill(self, params: Model, tokens, *, memory=None,
-                cache_slots=None):
+                cache_slots=None, mesh=None):
         """tokens (B, S), ``memory`` (B, T, M) frame or image embeddings
         where the config takes them -> (logits (B, S, V) float32,
-        cache)."""
+        cache).  ``mesh``: on a ``DeviceMesh`` (the weights DTensors
+        placed by :meth:`param_specs`, :func:`place_params`; tokens a
+        DTensor over the batch axes, or the global tensor on every rank):
+        the logits leave vocab-parallel and the cache placed by
+        :func:`cache_specs`."""
         out = forward(params, tokens, mode="prefill", cache_slots=cache_slots,
-                      memory_inputs=memory)
+                      memory_inputs=memory, mesh=mesh)
         return out["logits"], out["cache"]
 
     @torch.no_grad()
-    def decode_step(self, params: Model, cache, tokens, positions):
+    def decode_step(self, params: Model, cache, tokens, positions, *,
+                    mesh=None):
         """tokens (B, 1), positions (B, 1) -> (logits (B, 1, V), cache);
-        the attention caches are updated in place."""
+        the attention caches are updated in place.  ``mesh``: as
+        :meth:`prefill`; the cache's leaves are placed by
+        :func:`cache_specs` first."""
         out = forward(params, tokens, mode="decode", positions=positions,
-                      cache=cache)
+                      cache=cache, mesh=mesh)
         return out["logits"], out["cache"]
 
     @staticmethod
     def concat_caches(caches: list):
         """Merge per-request caches along the batch axis (axis 0): every
         leaf, the cross layers' ``k`` / ``v`` and ``enc_memory``
-        included."""
+        included.  DTensor leaves of one placement whose batch no mesh
+        dim splits (a request's prefill of one row) are concatenated on
+        each device's blocks (no bytes move); the merged cache's leaves
+        keep that placement (a decode step places them by
+        :func:`cache_specs`)."""
         if len(caches) == 1:
             return caches[0]
 
@@ -254,7 +380,7 @@ class ModelBundle:
                         for k in leaves[0]}
             if isinstance(leaves[0], list):
                 return [merge(*items) for items in zip(*leaves)]
-            return torch.cat(leaves, dim=0)
+            return _cat_rows(leaves)
 
         return merge(*caches)
 
@@ -270,6 +396,27 @@ class ModelBundle:
     def flops(self, tokens: int, mode: str = "train") -> float:
         """:func:`model_flops`: 6 N_active D a training step."""
         return model_flops(self.cfg, tokens, mode)
+
+
+def _cat_rows(leaves):
+    """``torch.cat(leaves, 0)``; DTensors of one placement that does not
+    split dim 0 on their blocks (see :meth:`ModelBundle.concat_caches`)."""
+    from torch.distributed.tensor import DTensor
+
+    first = leaves[0]
+    if not isinstance(first, DTensor):
+        return torch.cat(leaves, dim=0)
+    pl = tuple(first.placements)
+    if any(tuple(t.placements) != pl for t in leaves) or any(
+            p.is_shard(0) for p in pl):
+        raise ValueError(f"concat_caches: DTensor leaves of placements "
+                         f"{[tuple(t.placements) for t in leaves]}: one "
+                         f"placement whose batch is whole is needed")
+    local = torch.cat([t.to_local() for t in leaves], dim=0)
+    shape = (sum(t.shape[0] for t in leaves), *first.shape[1:])
+    stride = tuple(int(np.prod(shape[i + 1:])) for i in range(len(shape)))
+    return DTensor.from_local(local, first.device_mesh, pl, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
 
 
 def build(cfg: ArchConfig) -> ModelBundle:

@@ -7,7 +7,8 @@ which also returns the final state and is differentiable through its
 backward kernel, at the chunk of the ``ssd_chunk`` perf flag where it
 is set (else the config's; the kernels raise above 256); decode keeps ``{"conv": (B, d_conv - 1,
 conv_dim), "state": (B, H, N, P)}`` and advances it one token in plain
-torch, O(1) per token.
+torch, O(1) per token.  On a mesh (training, prefill and decode) see
+:meth:`SSDBlock.forward`.
 """
 
 from __future__ import annotations
@@ -22,8 +23,8 @@ from ..configs.base import ArchConfig
 from ..kernels import ops
 from ..perf import flags
 from .common import _names, axis_sizes
-from .layers import (_book, batch_axes_for, branch_out, cast_weight,
-                     constant, constrain, relayout, rms_norm,
+from .layers import (_book, batch_axes_for, batch_layout, branch_out,
+                     cast_weight, constant, constrain, relayout, rms_norm,
                      truncated_normal)
 
 __all__ = ["SSDBlock", "ssd_block_cache_shape"]
@@ -78,6 +79,71 @@ def _local_channels(fn, x, params, mesh, *, outs: int = 1):
                     in_placements=(xp, *pp),
                     in_grad_placements=(xp, *grads), device_mesh=mesh)
     return run(x, *params)
+
+
+def _tail(x, k: int):
+    """The last k positions of x (B, S, C), left-padded with zeros where
+    S < k: a prefill's conv cache."""
+    return F.pad(x, (0, 0, max(0, k - x.shape[1]), 0))[:, -k:].contiguous()
+
+
+def _local_tail(x, k: int, mesh):
+    """:func:`_tail` of a DTensor x on each device's block (its sequence
+    whole), placed as x."""
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = tuple(x.placements)
+    return local_map(functools.partial(_tail, k=k), out_placements=(pl,),
+                     in_placements=(pl,), device_mesh=mesh)(x)
+
+
+def _conv_window(conv, x, w, b):
+    """One token's causal depthwise conv: the cache's conv (B, K - 1, C)
+    and x (B, 1, C) -> (the float32 output (B, C), the new conv (B, K -
+    1, C))."""
+    window = torch.cat([conv, x], dim=1)
+    out = (window.float() * w.float()[None]).sum(1) + b.float()
+    return out, window[:, 1:].contiguous()
+
+
+def _local_conv_window(conv, x, w, b, mesh):
+    """:func:`_conv_window` of DTensors on each device's channels through
+    ``local_map``: x takes the cache conv's placements (a slice where the
+    cache splits more: no bytes move), the weights (K, C) and (C,) are
+    placed by channel as the cache (already so where the ``ff`` rule
+    splits both); the output (B, C) is placed by the conv's batch and
+    channel dims."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    cp = tuple(conv.placements)
+    x = x if tuple(x.placements) == cp else x.redistribute(mesh, cp)
+    chan = tuple(n for n, p in zip(mesh.mesh_dim_names, cp)
+                 if p.is_shard(2)) or None
+    w, b = relayout(w, mesh, (None, chan)), relayout(b, mesh, (chan,))
+    out_pl = tuple(Shard(1) if p.is_shard(2) else p for p in cp)
+    fn = local_map(_conv_window, out_placements=(out_pl, cp),
+                   in_placements=(cp, cp, tuple(w.placements),
+                                  tuple(b.placements)), device_mesh=mesh)
+    return fn(conv, x, w, b)
+
+
+def _local_ssd_step(state, x_t, dt_t, a_log, b_t, c_t, d_skip, *, mesh):
+    """:func:`repro_torch.kernels.ops.ssd_decode_step` on each device's
+    block through ``local_map``: the state (B, H, N, P) placed by
+    :func:`~repro_torch.models.model.cache_specs` (over the batch axes),
+    the one token's x, dt, B and C by their batch dim, the per-head
+    weights replicated.  Returns ``(y_t placed as x_t, new state placed
+    as the state)``."""
+    from torch.distributed.tensor.experimental import local_map
+
+    args = (state, x_t, dt_t, a_log, b_t, c_t, d_skip)
+    fn = local_map(ops.ssd_decode_step,
+                   out_placements=(tuple(x_t.placements),
+                                   tuple(state.placements)),
+                   in_placements=tuple(tuple(t.placements) for t in args),
+                   device_mesh=mesh)
+    return fn(*args)
 
 
 def _local_conv(x, w, b, *, mesh):
@@ -167,14 +233,23 @@ class SSDBlock(nn.Module):
         """mode 'prefill' (returns the cache; a given ``cache["state"]``
         is the scan's initial state), 'train' (the prefill's branch with
         no cache in or out, as in the reference) or 'decode' (S = 1,
-        advances ``cache``).  ``mesh``: training on a mesh (x and the
-        weights DTensors; the scan on each device's block, see
-        :func:`_local_ssd`).  Returns ``(y (B, S, M), cache)``, the cache
-        None in training."""
-        if mesh is not None and mode != "train":
-            raise NotImplementedError(
-                "a mesh shards training only; the prefill and decode cells "
-                "are ROADMAP queue 1")
+        advances ``cache``).  ``mesh``: on a mesh, x and the weights
+        DTensors.  Training and prefill gather the in_proj and conv
+        weights and run the scan on each device's block
+        (:func:`_local_ssd`); a prefill there starts from no state.
+        Decode gathers the one token's in_proj product instead of the
+        weight, runs the conv step on the cache's channel blocks
+        (:func:`_local_conv_window`), gathers its output over the
+        channels and advances the state on each device's rows
+        (:func:`_local_ssd_step`).  Returns ``(y (B, S, M), cache)``, the
+        cache None in training."""
+        if mode not in ("prefill", "train", "decode"):
+            raise ValueError(f"mode {mode!r}: 'prefill', 'train' or "
+                             f"'decode'")
+        if mesh is not None and mode == "prefill" and cache \
+                and cache.get("state") is not None:
+            raise NotImplementedError("a prefill on a mesh starts from no "
+                                      "state")
         cfg, ssm = self.cfg, self.cfg.ssm
         b, s, _ = x.shape
         d_inner, h, conv_dim = _dims(cfg)
@@ -182,7 +257,7 @@ class SSDBlock(nn.Module):
         hidden = rms_norm(x, self.norm, cfg.norm_eps)
         w_in = cast_weight(self, "in_proj", hidden.dtype)
         conv_w, conv_b = self.conv_w, self.conv_b
-        if mesh is not None:
+        if mesh is not None and mode != "decode":
             # the in_proj columns and the conv channels split z, x B C
             # and dt at no boundary of theirs: gather the weights (a few
             # MB) rather than the activations, which the heads then
@@ -190,25 +265,30 @@ class SSDBlock(nn.Module):
             w_in, conv_w, conv_b = (relayout(w, mesh, (None,) * w.dim())
                                     for w in (w_in, conv_w, conv_b))
         zxbcdt = hidden @ w_in
+        if mesh is not None and mode == "decode":
+            # one token: its product's columns are fewer bytes than the
+            # weight's
+            zxbcdt = batch_layout(zxbcdt, mesh)
         z, xbc, dt_raw = torch.split(zxbcdt, [d_inner, conv_dim, h], dim=-1)
 
         if mode == "decode":
-            window = torch.cat([cache["conv"], xbc], dim=1)  # (B, d_conv, C)
-            conv_out = (window.float() * self.conv_w.float()[None]).sum(1) \
-                + self.conv_b.float()
+            if mesh is None:
+                conv_out, new_conv = _conv_window(cache["conv"], xbc,
+                                                  conv_w, conv_b)
+            else:
+                conv_out, new_conv = _local_conv_window(
+                    cache["conv"], xbc, conv_w, conv_b, mesh)
             xbc_act = F.silu(conv_out).to(x.dtype)[:, None]
-            new_conv = window[:, 1:]
-        elif mode in ("prefill", "train"):
+            if mesh is not None:
+                xbc_act = batch_layout(xbc_act, mesh)
+        else:
             conv = _causal_conv if mesh is None else \
                 functools.partial(_local_conv, mesh=mesh)
             xbc_act = F.silu(conv(xbc, conv_w, conv_b)
                              .float()).to(x.dtype)
             if mode == "prefill":
-                pad = max(0, ssm.d_conv - 1 - s)
-                new_conv = F.pad(xbc, (0, 0, pad, 0))[:, -(ssm.d_conv - 1):]
-        else:
-            raise ValueError(f"mode {mode!r}: 'prefill', 'train' or "
-                             f"'decode'")
+                new_conv = _tail(xbc, ssm.d_conv - 1) if mesh is None \
+                    else _local_tail(xbc, ssm.d_conv - 1, mesh)
 
         xs, bmat, cmat = torch.split(xbc_act, [d_inner, gn, gn], dim=-1)
         xs = xs.reshape(b, -1, h, ssm.head_dim)
@@ -217,9 +297,11 @@ class SSDBlock(nn.Module):
         dt = F.softplus(dt_raw.float() + self.dt_bias.float())
 
         if mode == "decode":
-            y_t, new_state = ops.ssd_decode_step(
-                cache["state"], xs[:, 0], dt[:, 0], self.a_log, bmat[:, 0],
-                cmat[:, 0], self.d_skip)
+            step = ops.ssd_decode_step if mesh is None else \
+                functools.partial(_local_ssd_step, mesh=mesh)
+            y_t, new_state = step(cache["state"], xs[:, 0], dt[:, 0],
+                                  self.a_log, bmat[:, 0], cmat[:, 0],
+                                  self.d_skip)
             y = y_t[:, None]
         elif mesh is not None:
             y, new_state = _local_ssd(xs, dt, self.a_log, bmat, cmat,
@@ -234,7 +316,7 @@ class SSDBlock(nn.Module):
                                    chunk=flags().ssd_chunk or ssm.chunk,
                                    state=state_in)
         new_cache = (None if mode == "train" else
-                     {"conv": new_conv.contiguous(), "state": new_state})
+                     {"conv": new_conv, "state": new_state})
 
         y = y.reshape(b, -1, d_inner)
         y = rms_norm(y * F.silu(z.float()).to(y.dtype), self.gate_norm,

@@ -31,10 +31,11 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
-from .common import axis_sizes
+from .common import axis_sizes, placements
 from .layers import (MLA, MLP, Attention, batch_axes_for, cast_weight,
                      constrain, gather_fsdp, gather_seq, grad_layout,
                      local_embedding, replicated, rms_norm, rope_table,
@@ -44,7 +45,8 @@ from .rglru import RGLRUBlock
 from .ssm import SSDBlock
 
 __all__ = ["LayerPlan", "layer_plan", "Block", "Encoder", "MTPHead",
-           "Model", "forward", "layers_of", "count_params", "model_flops"]
+           "Model", "forward", "layers_of", "place_cache", "serves_on_mesh",
+           "count_params", "model_flops"]
 
 
 @dataclass(frozen=True)
@@ -117,8 +119,9 @@ class Block(nn.Module):
         MoE): serving reads no aux, so it computes none.  An ``xattn``
         layer given no memory runs as causal self-attention, with no
         window and a cache of the prompt's length, as the reference's
-        does.  ``mesh``: training on a mesh (every kind); h leaves the
-        block constrained as the reference's ``_apply_block`` leaves it
+        does.  ``mesh``: on a mesh (training: every kind; prefill and
+        decode: attention, SSD and RG-LRU); h leaves the block
+        constrained as the reference's ``_apply_block`` leaves it
         (:meth:`_constrain`)."""
         cache = cache or {}
         c_in = cache.get("mixer")
@@ -406,19 +409,29 @@ def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
     ``"mtp_logits"`` (B, S, V) float32: the MTP head's prediction of
     token i + 2, through the final norm and the head.
 
-    ``mesh``: training on a ``DeviceMesh``, the weights DTensors placed
-    by their specs and ``tokens`` (and ``memory_inputs``, where the
-    config takes them) DTensors over the batch axes; the
-    rotary table and the aux accumulator become replicated DTensors, and
-    the logits leave vocab-parallel (sharded over ``model`` where the
-    vocabulary divides it) for :func:`~repro_torch.models.model.loss_fn`
-    to take without gathering them."""
+    ``mesh``: on a ``DeviceMesh``, the weights DTensors placed by their
+    specs and ``tokens`` (and ``memory_inputs``, where the config takes
+    them) DTensors over the batch axes; the rotary table and the aux
+    accumulator become replicated DTensors, and the logits leave
+    vocab-parallel (sharded over ``model`` where the vocabulary divides
+    it) for :func:`~repro_torch.models.model.loss_fn` to take without
+    gathering them.  Prefill and decode on a mesh (the dense GQA, SSD and
+    RG-LRU families; the others raise): ``tokens`` (and ``positions`` in
+    decode) may be the global tensors, which each rank cuts to its rows
+    (:func:`_on_batch`); each block holds h over the batch axes only, as
+    the reference's ``_apply_block`` does outside training; a decode
+    step's rotary table is formed on each device's rows; the cache, in
+    and out, is placed by :func:`~repro_torch.models.model.cache_specs`
+    (:func:`place_cache`)."""
     cfg = model.cfg
     _, s = tokens.shape
-    if mesh is not None and mode != "train":
-        raise NotImplementedError("a mesh shards training only; the "
-                                  "prefill and decode cells are ROADMAP "
-                                  "queue 1")
+    serve_mesh = mesh is not None and mode != "train"
+    if serve_mesh:
+        _check_serve_mesh(cfg)
+        tokens = _on_batch(tokens, mesh)
+        if mode == "decode":
+            positions = _on_batch(positions, mesh)
+            cache = place_cache(cache, mesh)
     memory = _memory(model, mode, cache, memory_inputs, mesh)
     if mesh is None:
         h = F.embedding(tokens, model.embed).to(torch.bfloat16)
@@ -430,11 +443,15 @@ def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
     # at MLA's rotated slice
     rope_d = cfg.mla.qk_rope if cfg.mla is not None else \
         cfg.resolved_head_dim
-    tab = (rope_table(positions, rope_d, cfg.rope_theta, tokens.device)
-           if "attn" in cfg.pattern else None)
+    tab = None
+    if "attn" in cfg.pattern:
+        tab = (_local_rope(positions, rope_d, cfg.rope_theta, mesh)
+               if isinstance(positions, DTensor) else
+               rope_table(positions, rope_d, cfg.rope_theta, tokens.device))
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if mesh is not None:
-        tab = tuple(replicated(t, mesh) for t in tab) if tab else None
+        if tab is not None and not isinstance(tab[0], DTensor):
+            tab = tuple(replicated(t, mesh) for t in tab)
         aux = replicated(aux, mesh)
     layers_in = layers_of(cache) if cache is not None else None
     new_cache = []
@@ -449,7 +466,8 @@ def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
             continue
         h, c, _ = block(h, mode=mode, positions=positions,
                         cache=layers_in[i] if layers_in is not None else None,
-                        cache_slots=cache_slots, rope_tab=tab, memory=memory)
+                        cache_slots=cache_slots, rope_tab=tab, memory=memory,
+                        mesh=mesh)
         new_cache.append(c)
     hf = gather_seq(rms_norm(h, model.final_norm, cfg.norm_eps))
     head = (cast_weight(model, "embed", hf.dtype).T if cfg.tie_embeddings
@@ -468,7 +486,72 @@ def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
     if mode != "train":
         out["cache"] = (new_cache if memory is None else
                         {"layers": new_cache, "enc_memory": memory})
+        if serve_mesh:
+            out["cache"] = place_cache(out["cache"], mesh)
     return out
+
+
+def serves_on_mesh(cfg: ArchConfig) -> bool:
+    """Whether ``cfg`` prefills and decodes on a mesh: the dense GQA, SSD
+    and RG-LRU families do; the MoE / MLA and memory-input families'
+    serve cells are still queued."""
+    return cfg.moe is None and cfg.mla is None and cfg.encoder is None \
+        and cfg.vision is None
+
+
+def _check_serve_mesh(cfg: ArchConfig) -> None:
+    if not serves_on_mesh(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: serving on a mesh covers the dense GQA, SSD and "
+            f"RG-LRU families; the MoE / MLA and memory-input serve cells "
+            f"are ROADMAP queue 1 item 1, step 3b")
+
+
+def _on_batch(t, mesh):
+    """``t`` (B, ...) as a DTensor split by its rows over the batch axes
+    where they divide B, replicated elsewhere: kept where it is a
+    DTensor, else each rank takes its rows of the global tensor it holds
+    (no bytes move)."""
+    if isinstance(t, DTensor):
+        return t
+    from torch.distributed.tensor import distribute_tensor
+    spec = (tuple(batch_axes_for(mesh, t.shape[0], True)) or None,) + \
+        (None,) * (t.dim() - 1)
+    return distribute_tensor(t, mesh, placements(spec, mesh),
+                             src_data_rank=None)
+
+
+def _local_rope(positions, d: int, theta: float, mesh):
+    """:func:`~repro_torch.models.layers.rope_table` of DTensor positions
+    (B, 1) on each device's rows: the table (B, 1, 1, d/2) placed by the
+    positions' rows."""
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = tuple(positions.placements)
+    fn = local_map(lambda p: rope_table(p, d, theta, p.device),
+                   out_placements=(pl, pl), in_placements=(pl,),
+                   device_mesh=mesh)
+    return fn(positions)
+
+
+def place_cache(cache, mesh):
+    """A serve cache's leaves placed by :func:`~repro_torch.models.model.
+    cache_specs` on ``mesh``: a DTensor redistributed to its spec (the
+    layers' own layouts are the specs' but for a split that the spec
+    adds, a slice), a plain tensor, the global leaf on every rank,
+    cut to each rank's block."""
+    from torch.distributed.tensor import distribute_tensor
+    from torch.utils._pytree import tree_map
+
+    from .model import cache_specs
+
+    def place(t, spec):
+        if isinstance(t, DTensor):
+            return constrain(t, mesh, spec)
+        return distribute_tensor(t, mesh, placements(spec, mesh),
+                                 src_data_rank=None)
+
+    return tree_map(place, cache, cache_specs(cache, mesh))
 
 
 # ---------------------------------------------------------------------------

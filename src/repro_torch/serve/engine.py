@@ -10,6 +10,16 @@ reference jits its decode step).  Tokens stay on the device until the
 batch is done; the engine reads them back once per batch.  On the card
 it also records, with CUDA events (no extra synchronisation), the device
 time of every prefill and of every batch's decode loop in ``stats``.
+
+With ``mesh`` (a ``DeviceMesh``, as the reference's ``Engine`` takes
+one) every prefill and decode step runs on the mesh: the model's
+parameters are DTensors placed by their specs
+(:func:`~repro_torch.models.model.place_params`), every rank submits
+the same requests, a request's tokens are the global batch that each
+rank cuts to its rows, the caches are placed by
+:func:`~repro_torch.models.model.cache_specs`, and the greedy choice
+gathers the last position's vocab-parallel logits whole
+(:func:`greedy_sample`), so every rank emits the same tokens.
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
@@ -35,8 +46,14 @@ class ServeConfig:
 
 
 def greedy_sample(logits):
-    """(B, S, V) logits -> (B,) int32 argmax of the last position."""
-    return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+    """(B, S, V) logits -> (B,) int32 argmax of the last position.  Of
+    DTensor logits (vocab-parallel on a mesh) the last position's (B, 1,
+    V) slice is gathered whole first: the argmax is over the whole
+    vocabulary, on every rank."""
+    last = logits[:, -1:, :]
+    if isinstance(last, DTensor):
+        last = last.full_tensor()
+    return torch.argmax(last[:, 0], dim=-1).to(torch.int32)
 
 
 @dataclass
@@ -54,6 +71,7 @@ class Engine:
     params: Any                     # the port's Model, on ``device``
     scfg: ServeConfig = ServeConfig()
     device: Any = None              # default: the card
+    mesh: Any = None                # a DeviceMesh: serve on it
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -100,7 +118,8 @@ class Engine:
                 marks.append(self._mark())
                 logits, c = bundle.prefill(self.params, tokens,
                                            memory=memory,
-                                           cache_slots=self.scfg.max_len)
+                                           cache_slots=self.scfg.max_len,
+                                           mesh=self.mesh)
                 caches.append(c)
                 first.append(greedy_sample(logits))
                 marks.append(self._mark())
@@ -113,7 +132,8 @@ class Engine:
             marks.append(self._mark())
             for _ in range(steps):
                 logits, cache = bundle.decode_step(
-                    self.params, cache, next_tok[:, None].long(), pos)
+                    self.params, cache, next_tok[:, None].long(), pos,
+                    mesh=self.mesh)
                 next_tok = greedy_sample(logits)
                 emitted.append(next_tok)
                 pos = pos + 1

@@ -509,10 +509,15 @@ def test_plan_from_the_port_record_matches_reference(records):
 
 
 def test_skipped_cells_name_their_queue():
-    out = dryrun.lower_cell("recurrentgemma-9b", "prefill_32k", False,
+    """The serve cells still queued: the MoE / MLA and memory-input
+    families' (granite-moe's prefill, seamless's decode) name their
+    ROADMAP item; long_500k on a full-attention arch is skipped as in
+    the reference."""
+    out = dryrun.lower_cell("granite-moe-3b-a800m", "prefill_32k", False,
                             "cpu")
     assert out["status"] == "skipped" and "ROADMAP" in out["reason"]
-    out = dryrun.lower_cell("smollm-135m", "decode_32k", False, "cpu")
+    out = dryrun.lower_cell("seamless-m4t-large-v2", "decode_32k", False,
+                            "cpu")
     assert out["status"] == "skipped" and "ROADMAP" in out["reason"]
     out = dryrun.lower_cell("smollm-135m", "long_500k", False, "cpu")
     assert out["status"] == "skipped" and "sub-quadratic" in out["reason"]
@@ -583,3 +588,248 @@ def test_kernel_problems_are_the_local_blocks(dp_over_model):
                                           "flash_attention_dkv": 2}) \
         == pytest.approx(mm * (2 * 4 + 3 * 2 + 4 * 2))
     assert rec["kernel_flops"] == 0        # nothing launches on the CPU
+
+
+# ---------------------------------------------------------------------------
+# The serve cells: prefill_32k, decode_32k and long_500k
+# ---------------------------------------------------------------------------
+
+SERVE_ARCHS = ("smollm-135m", "h2o-danube-3-4b", "mamba2-130m",
+               "recurrentgemma-9b")
+# the reference's dry-run cells of these tests, at reduced widths: a
+# prefill of 32 rows of 256 tokens, a decode step of 128 rows against 256
+# tokens of context, long_500k's one row against 300 (past reduced h2o's
+# and recurrentgemma's window of 64: a ring)
+SERVE_SHAPES = {"prefill_32k": ShapeConfig("prefill_32k", 256, 32,
+                                           "prefill"),
+                "decode_32k": ShapeConfig("decode_32k", 256, 128, "decode"),
+                "long_500k": ShapeConfig("long_500k", 300, 1, "decode")}
+
+
+def _serve_cell(arch: str, shape_name: str, multi_pod: bool = False):
+    return dryrun.lower_cell(arch, shape_name, multi_pod, "cpu",
+                             cfg=get_arch(arch).reduced(),
+                             shape=SERVE_SHAPES[shape_name])
+
+
+@pytest.fixture(scope="module")
+def serve_records():
+    return {(arch, name): _serve_cell(arch, name) for arch in SERVE_ARCHS
+            for name in SERVE_SHAPES}
+
+
+@pytest.mark.parametrize("shape_name", sorted(SERVE_SHAPES))
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_serve_cell_record(serve_records, arch, shape_name):
+    """A serve cell on a fake (16, 16) world at reduced widths: the
+    train record's fields; its collectives booked under the ``prefill``
+    or ``decode`` phase; rows a device (the batch over "data" where 16
+    divides it); a prefill's local attention problem (square, causal, at
+    the window, one call a layer) or SSD problem; a decode cell's cache
+    of min(seq_len, window) slots, its local bytes leaf by leaf exactly
+    the reckoning from the config (``dryrun.reckon_cache_bytes``), in the
+    memory's
+    parts; the arguments the parameters (and the cache), the outputs the
+    local float32 logits (vocab-parallel: 512 / 16 a device) and the
+    cache."""
+    rec = serve_records[(arch, shape_name)]
+    cfg = get_arch(arch).reduced()
+    shape = SERVE_SHAPES[shape_name]
+    if shape_name == "long_500k" and not cfg.sub_quadratic:
+        assert rec["status"] == "skipped"
+        return
+    assert rec["status"] == "ok" and rec["n_devices"] == 256
+    kind = shape.kind
+    rows = shape.global_batch // 16 if shape.global_batch % 16 == 0 else \
+        shape.global_batch
+    seq = 1 if kind == "decode" else shape.seq_len
+    assert rec["per_device_batch"] == [rows, seq]
+    coll = rec["collective_bytes_per_device"]
+    assert coll["total"] == sum(v for k, v in coll.items() if k != "total")
+    assert sum(r["bytes"] * r["count"] for r in rec["collectives"]) \
+        == coll["total"] > 0
+    phases = {at.split("/")[0] for at in
+              rec["collective_bytes_by_phase_axis"]}
+    assert phases == {kind}
+    assert rec["dp_gradient_bytes"] == {}
+    assert rec["flops"] == rec["aten_flops"] + rec["kernel_flops"] > 0
+    assert rec["launches"] == {} and rec["kernel_flops"] == 0
+    mem = rec["memory"]
+    parts = mem["peak_parts"]
+    logits = rows * seq * (cfg.vocab // 16) * 4
+    assert parts["logits"] == logits and parts["rest"] is None
+    assert mem["peak_bytes"] is None and mem["temp_bytes"] is None
+    cache = sum(mem["cache_parts"].values())
+    assert parts["cache"] == cache
+    assert mem["output_bytes"] == logits + cache
+    n_attn = sum(cfg.pattern[i % len(cfg.pattern)] == "attn"
+                 for i in range(cfg.n_layers))
+    if kind == "prefill":
+        assert mem["argument_bytes"] == parts["params"]
+        problems = rec["kernel_problems"]
+        if n_attn:
+            hq = cfg.n_heads // 16 if cfg.n_heads % 16 == 0 else cfg.n_heads
+            hkv = cfg.n_kv_heads // 16 if cfg.n_kv_heads % 16 == 0 \
+                else cfg.n_kv_heads
+            assert problems == {"attention": [[
+                rows, hq, hkv, seq, seq, cfg.resolved_head_dim, cfg.window,
+                True, n_attn]]}
+        else:
+            ssm = cfg.ssm
+            h = ssm.expand * cfg.d_model // ssm.head_dim
+            assert problems == {"ssd": [[
+                rows, seq, h // 16 if h % 16 == 0 else h, ssm.head_dim,
+                ssm.n_groups, ssm.d_state, ssm.chunk, cfg.n_layers]]}
+        assert rec["context"] == seq
+    else:
+        slots = dryrun.decode_context(cfg, shape.seq_len)
+        assert rec["context"] == slots and rec["kernel_problems"] == {}
+        assert mem["cache_parts"] == dryrun.reckon_cache_bytes(cfg, rows,
+                                                               slots)
+        assert mem["argument_bytes"] == parts["params"] + cache
+
+
+def test_pod2_serve_cell():
+    """h2o's decode_32k cell on a fake (2, 16, 16) world: the 128 rows
+    over ("pod", "data"), 4 a device, and the cache's bytes the
+    reckoning at 4 rows."""
+    rec = _serve_cell("h2o-danube-3-4b", "decode_32k", multi_pod=True)
+    cfg = get_arch("h2o-danube-3-4b").reduced()
+    assert rec["status"] == "ok" and rec["n_devices"] == 512
+    assert rec["mesh"] == "2x16x16" and rec["per_device_batch"] == [4, 1]
+    assert rec["memory"]["cache_parts"] == dryrun.reckon_cache_bytes(
+        cfg, 4, cfg.window)
+    assert set(rec["collective_bytes_by_phase_axis"]) <= {
+        "decode/model", "decode/data", "decode/pod"}
+
+
+def test_long_context_decode_writes_its_ring_slot():
+    """A decode cell's cache is a prefill of seq_len - 1 tokens
+    (``local_cache``): reduced h2o's ring of 64 slots at long_500k's
+    short stand-in context of 300 holds positions 236 .. 298, position
+    p at slot p mod 64; the step's one token at position 299 lands in
+    slot 299 mod 64 = 43 of each layer's ring (kpos, computed on the
+    device, carries no collective's garbage)."""
+    from repro_torch.models import Model, build
+    from repro_torch.train.train_step import _bind
+    from repro_torch.launch.mesh import make_production_mesh
+    cfg = get_arch("h2o-danube-3-4b").reduced()
+    dev = torch.device("cpu")
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh(device_type="cpu")
+        cache = dryrun.local_cache(cfg, mesh, 1, 300, dev)
+        kpos = cache[0]["mixer"]["kpos"].to_local()
+        assert kpos.shape == (1, 64)
+        assert sorted(kpos[0].tolist()) == list(range(235, 299))
+        assert all(int(p) % 64 == i for i, p in enumerate(kpos[0]))
+        bundle = build(cfg)
+        model = Model(cfg, device="meta")
+        _bind(model, dryrun.local_params(cfg, mesh, bundle.param_specs(mesh),
+                                         dev))
+        tok = torch.zeros((1, 1), dtype=torch.long)
+        _, out = bundle.decode_step(model, cache, tok,
+                                    torch.full((1, 1), 299), mesh=mesh)
+    for layer in out:
+        got = layer["mixer"]["kpos"].to_local()[0]
+        assert int(got[299 % 64]) == 299
+        assert sorted(got.tolist()) == list(range(236, 300))
+
+
+REF_SERVE = textwrap.dedent(r"""
+    import json
+    from repro.launch import dryrun
+    import jax
+    import numpy as np
+    from repro.configs import get_arch
+    from repro.configs.base import ShapeConfig
+
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:256]).reshape(16, 16),
+                             ("data", "model"))
+    shapes = {"prefill_32k": ShapeConfig("prefill_32k", 256, 32, "prefill"),
+              "decode_32k": ShapeConfig("decode_32k", 256, 128, "decode")}
+    out = {}
+    for arch in ("smollm-135m", "h2o-danube-3-4b", "mamba2-130m",
+                 "recurrentgemma-9b"):
+        cfg = get_arch(arch).reduced().replace(scan_layers=False)
+        for name, shape in shapes.items():
+            with mesh:
+                text = dryrun._lower_any(cfg, shape, mesh).compile() \
+                    .as_text()
+            rows = []
+            for line in text.splitlines():
+                m = dryrun.COLLECTIVE_RE.search(line)
+                if m:
+                    rows.append([m[2], dryrun.SHAPE_RE.findall(m[1]),
+                                 dryrun._shape_bytes(m[1])])
+            out[f"{arch}/{name}"] = {"bytes": dryrun.collective_bytes(text),
+                                     "rows": rows}
+    print(json.dumps(out))
+""")
+
+
+@pytest.fixture(scope="module")
+def ref_serve():
+    """The reference's compiled serve cells (its ``_lower_prefill`` /
+    ``_lower_decode`` on an Auto-axis (16, 16) mesh), layers unrolled:
+    collective bytes by kind and each collective's operands."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    env.pop("REPRO_PERF", None)
+    out = subprocess.run([sys.executable, "-c", REF_SERVE], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("shape_name", ["prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_serve_collectives_against_reference(serve_records, ref_serve,
+                                             arch, shape_name):
+    """The serve cells' collectives against the reference's compiled
+    cells with their layers unrolled (each layer's collectives in the
+    program once, as the port runs them), the ratio printed.  The dense
+    GQA and RG-LRU archs move the reference's kinds and bytes exactly:
+    all-reduces only, the vocab-parallel embedding's, each MLP's (and
+    RG-LRU's gate and output) float32 partial sums.  mamba2's prefill
+    all-reduces the reference's bytes exactly; GSPMD also shifts the
+    conv's halo by collective-permute and gathers the in_proj weight in
+    the decode step, where the port gathers the in_proj and conv weights
+    in the prefill and, in decode, the one token's in_proj product and
+    conv output (``SSDBlock``): the port moves fewer bytes in all, each
+    collective printed under ``-s``."""
+    rec = serve_records[(arch, shape_name)]
+    got = rec["collective_bytes_per_device"]
+    want = ref_serve[f"{arch}/{shape_name}"]["bytes"]
+    print(f"\n{arch} {shape_name}: port {json.dumps(got)}; reference "
+          f"unrolled {json.dumps(want)}; ratio "
+          f"{got['total'] / want['total']:.4f}")
+    if arch != "mamba2-130m":
+        assert got == want
+        return
+    for r in rec["collectives"]:
+        print(f"  port  {r['at']:18s} {r['kind']:18s} {r['shape']:24s} "
+              f"{r['bytes']:>8,} B x {r['count']}")
+    for kind, shapes, nbytes in ref_serve[f"{arch}/{shape_name}"]["rows"]:
+        print(f"  ref   {kind:18s} {nbytes:>8,} B: {shapes[:4]}")
+    assert set(got) <= {"all-reduce", "all-gather", "total"}
+    assert got["total"] < want["total"]
+    if shape_name == "prefill_32k":
+        assert got["all-reduce"] == want["all-reduce"]
+
+
+def test_plan_from_a_serve_record_matches_reference(serve_records):
+    """h2o's decode record through ``StepProfile.from_dryrun`` and
+    ``plan`` gives the rows of the reference's ``plan`` fed the same
+    record (its exact ``numpy`` engine)."""
+    rec = serve_records[("h2o-danube-3-4b", "decode_32k")]
+    kw = dict(min_terminals=256, mesh_shape=(16, 16),
+              axis_names=("data", "model"))
+    rows = plan(StepProfile.from_dryrun(rec), device="cpu", **kw)
+    old = ref_flags().util_engine
+    ref_set_flags(util_engine="numpy")
+    try:
+        want = RF.plan(RF.StepProfile.from_dryrun(json.loads(
+            json.dumps(rec))), **kw)
+    finally:
+        ref_set_flags(util_engine=old)
+    assert rows == want
