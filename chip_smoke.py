@@ -285,8 +285,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     served as phase 11 serves smollm: #5 exactly 32 times per request
     (256) inside ``Engine.run``, every emitted token within 0.05 of the
     solo teacher-forced max logit, tok/s, prefill ms, decode ms per
-    step, peak memory, a warm run, and the device idle share of one
-    1536-token prefill and of a batch-4 decode step.  C: deepseek-v3-671b
+    step, peak memory and a warm run (the device time of a prefill and
+    a decode step stands in PERF.md; their profiles are left out to pay
+    for phase 33).  C: deepseek-v3-671b
     (MLA through #5 with v zero-padded from 16 to 32, a shared expert, a
     dense first layer) and recurrentgemma-9b (two RG-LRU layers and one
     MQA layer of window 64 on a 64-slot ring cache) at ``reduced()``,
@@ -309,8 +310,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     decode step), every emitted token within 0.05 of the solo
     teacher-forced max logit, a second memory draw moving the first
     request's last prefill logits by more than 0.05, tok/s, prefill ms,
-    decode ms per step, peak memory, a warm run, and the idle share of a
-    1536-token prefill and of a batch-4 decode step.  C:
+    decode ms per step, peak memory and a warm run (its profiles left
+    out, as phase 23's).  C:
     llama-3.2-vision-90b at ``reduced()`` with 10 layers (cross layers 4
     and 9) and 16 image tokens, gates at 1.0, served the same way: #5
     exactly 204 times (10 a request, 2 a decode step).  #5's launches in
@@ -418,14 +419,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     served as phase 11 serves smollm: #5 exactly 12 times a request (96),
     every token within 0.05 of the solo teacher-forced max logit or, on
     a near-tie, the solo run's second choice with its top two within
-    2^-4 (logged and counted), peak memory, prefill and decode ms, and
-    the device time and idle share of a 1536-token prefill and a batch-4
-    decode step.  C:
+    2^-4 (logged and counted), peak memory, prefill and decode ms (the
+    device time of its prefill and decode step stands in PERF.md; their
+    profiles are left out to pay for phase 33).  C:
     recurrentgemma-9b at full width cut to 3 layers (2.75B parameters)
     through ``launch.train.train`` (B 1 x S 4096, window 2048, 4 donated
     steps, remat, AdamW): #5 / #6 / #7 exactly 2 / 1 / 1 a step, phase
-    15's loss rule, peak under 80 GB, ms a step, tokens/s, a profiled
-    step's device time and idle share.  D: one step of its ``reduced()``
+    15's loss rule, peak under 80 GB, ms a step, tokens/s.  D: one step
+    of its ``reduced()``
     config with heads of 256 on the card against the CPU (loss within
     5e-3, grad norm within 1e-2) and donated against kept, bit for bit.
     B-D's launches go under ``phase_launches``; A's rows beside #5-#7's
@@ -479,9 +480,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     against the same steps on the CPU in float64, within one bf16
     rounding.  B: the same cell at ``moe_3d=0`` (the flattened tokens
     over every axis): the bins' bytes equal A's, DTensor's re-layout
-    bytes logged beside A's.  C: the same cell under ``bf16_experts``:
-    bytes and FLOPs equal A's, peak and step time against A's run again
-    after it (A's first step is the phase's first).  D:
+    bytes logged beside A's; it runs first, so that A's step is not the
+    phase's first (whose DTensor and cuBLAS calls run cold).  C: the same
+    cell under ``bf16_experts``: bytes and FLOPs equal A's, peak and step
+    time against A's.  D:
     deepseek-v3-671b at full width (``MLA_DEPTH``: all 61 layers, or a
     logged cut): the bins' bytes exactly 6 x 256 x 160 x 7168 x 2 a MoE
     layer (58 at full depth), the data-parallel bytes exact, #5-#7 held
@@ -531,6 +533,34 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     every prefill logit bit for bit phase 11's meshless engine's and
     prefill's, #5 30 times a request.  D: ``fabric.plan`` on h2o's
     ``decode_32k`` record.  The launches go under ``phase_launches``.
+33. Serving the MoE / MLA and memory-input families on the production
+    mesh, as phase 32 runs its cells.  A: ``prefill_32k`` of
+    granite-moe-3b-a800m (32 layers; the MoE on the all-to-all path),
+    deepseek-v3-671b (``MLA_DEPTH`` layers: 3 dense, 2 MoE, MLA over 8
+    of 128 heads a device), llama-3.2-vision-90b (100 layers, its
+    prefill carrying 1,600 image tokens a row) and seamless-m4t-large-v2
+    (24 + 24 layers at 2 rows of ``AUDIO_PREFILL_SEQ`` = 8,192 tokens,
+    2,048 frames: its whole-vocabulary float32 logits at 32,768 would be
+    67.2 GB; logged): each record as in phase 32; the cache's local
+    bytes leaf by leaf exactly ``reckon_cache_bytes`` and its headline
+    leaves ``FAMILY_CACHE_BYTES``; the bins' all-to-all exactly
+    ``FAMILY_BINS_BYTES``, all over ``model``; #5 launched 32, 5, 100
+    and 72 times; #5-#7 held at each local problem (MLA's at heads
+    padded to 256, the cross and encoder problems non-causal) cut to Sq
+    = ``SERVE_HOLD_SEQ`` (logged), to phases 9, 14 and 28's limits.  B:
+    ``decode_32k`` (8 rows): granite, deepseek at ``MLA_DEPTH``, vision
+    at ``VISION_LAYERS`` = 10 (its cache at 100 layers is 87.2 GB on
+    rank 0; logged), seamless: the cache's bytes exactly as in A; #5 0,
+    0, 2 and 24 times (the cross layers at Sq = 1); the MoE decode
+    gathers no expert weight and all-reduces its (E_local, C, M) float32
+    bins over ``data`` twice a MoE layer.  C: ``Engine(mesh=)`` on a (1,
+    1) mesh of the card serves phase 23's granite-moe-3b-a800m requests
+    and phase 24's seamless-m4t-large-v2 requests (384 frames, gates at
+    1.0): every token and every prefill logit bit for bit those phases'
+    meshless engine's and prefill's; #5 32 times a granite request, 72 a
+    seamless request and 24 a decode step.  D: ``fabric.plan`` on
+    granite's ``prefill_32k`` record (its all-to-all bytes in the
+    profile).  The launches go under ``phase_launches``.
 
 Output: the card's name and power limit, then a ``kernels`` JSON line,
 then ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -1869,22 +1899,19 @@ def serve_arch(dev, arch: str, kernel: str, seed: int = 0, *,
         prompts=prompts, tokens=[out[r] for r in rids])
 
 
-def profile_serve(dev, model, arch: str, seed: int = 1, memory=None):
+def profile_serve(dev, model, arch: str, seed: int = 1):
     """Where a full-width prefill's and a batched decode step's device
-    time goes (torch.profiler, by kernel, and the idle share); every
-    prefill takes ``memory`` where given."""
+    time goes (torch.profiler, by kernel, and the idle share)."""
     from repro_torch.models import build
     cfg = model.cfg
     bundle = build(cfg)
-    mem = None if memory is None else torch.as_tensor(memory, device=dev)
     rng = np.random.default_rng(seed)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 1536)),
                              device=dev)
-    profile_device(lambda: bundle.prefill(model, prompt, memory=mem,
+    profile_device(lambda: bundle.prefill(model, prompt,
                                           cache_slots=SERVE["max_len"]),
                    1, "prefill", f"profile {arch} prefill S=1536")
-    caches = [bundle.prefill(model, prompt[:, :n], memory=mem,
-                             cache_slots=2048)[1]
+    caches = [bundle.prefill(model, prompt[:, :n], cache_slots=2048)[1]
               for n in (256, 700, 1100, 1536)]
     cache = bundle.concat_caches(caches)
     tok = torch.zeros((4, 1), dtype=torch.long, device=dev)
@@ -4471,16 +4498,17 @@ def _hold_moe_route(dev, bw):
     return rows
 
 
-def check_archs(dev, bw):
+def check_archs(dev, bw, out: dict):
     """Phase 23: the MoE route at full width (A), granite-moe-3b-a800m
     served at full width (B), deepseek-v3-671b and recurrentgemma-9b
     served at ``reduced()`` (C); #5's launches inside the three
     Engine.run calls.  First #5 at granite's and deepseek's MLA shapes
-    against its plain version."""
+    against its plain version.  Puts granite's prompts and emitted
+    tokens into ``out`` (phase 33 C serves them again on a mesh)."""
     _hold_arch_attention(dev)
     _hold_moe_route(dev, bw)
-    model, n_moe, _ = serve_arch(dev, MOE_ARCH, "flash_attention_fwd")
-    profile_serve(dev, model, MOE_ARCH)
+    model, n_moe, out["granite"] = serve_arch(dev, MOE_ARCH,
+                                              "flash_attention_fwd")
     del model
     torch.cuda.empty_cache()
     _, n_mla, _ = serve_arch(dev, "deepseek-v3-671b", "flash_attention_fwd",
@@ -4600,15 +4628,16 @@ def _hold_memory_attention(dev, bw) -> dict:
     return rows
 
 
-def check_memory(dev, bw):
+def check_memory(dev, bw, out: dict):
     """Phase 24: #5 at the memory families' shapes (A);
     seamless-m4t-large-v2 at full width served with one memory of 384
     frames, its gates at 1.0 (B): #5 exactly 72 times a request and 24 a
     decode step inside Engine.run, tokens within 0.05 of the solo max
     logit, a second memory draw moving the first request's last prefill
-    logits by more than 0.05, and the idle share of a prefill and a
-    decode step; llama-3.2-vision-90b at ``reduced()`` with 10 layers and
-    16 image tokens (C): #5 10 times a request and 2 a decode step."""
+    logits by more than 0.05; llama-3.2-vision-90b at ``reduced()`` with 10 layers and
+    16 image tokens (C): #5 10 times a request and 2 a decode step.
+    Puts seamless's prompts, memory and emitted tokens into ``out``
+    (phase 33 C serves them again on a mesh)."""
     from repro_torch.configs import get_arch
     from repro_torch.models import build
 
@@ -4619,6 +4648,7 @@ def check_memory(dev, bw):
     memory = _memory_draw(cfg, frames, MEMORY_SEEDS[0])
     model, n_enc, info = serve_arch(dev, ENC_ARCH, "flash_attention_fwd",
                                     memory=memory)
+    out["seamless"] = dict(info, memory=memory)
     bundle = build(cfg)
     prompt = torch.as_tensor(info["prompts"][0][None], device=dev).long()
     last = [bundle.prefill(model, prompt, memory=torch.as_tensor(
@@ -4631,7 +4661,6 @@ def check_memory(dev, bw):
     if not moved > SERVE["gap"]:
         raise AssertionError(f"{ENC_ARCH}: the memory does not reach the "
                              f"logits (moved {moved:.4f})")
-    profile_serve(dev, model, ENC_ARCH, memory=memory)
     del model, last
     torch.cuda.empty_cache()
 
@@ -6281,8 +6310,7 @@ def _serve_rgemma(dev, total: dict) -> dict:
     serves smollm: #5 exactly 12 times a request inside ``Engine.run``,
     every emitted token within 0.05 of the solo teacher-forced max logit
     (or a near-tie flip, FLIP_GAP), prefill ms, decode ms a step and peak
-    memory; then where a 1536-token prefill's and a batch-4 decode
-    step's device time goes (:func:`profile_serve`)."""
+    memory."""
     from repro_torch.configs import get_arch
     from repro_torch.models import count_params
     log(f"{RGEMMA_ARCH}: {count_params(get_arch(RGEMMA_ARCH)):,} "
@@ -6291,7 +6319,6 @@ def _serve_rgemma(dev, total: dict) -> dict:
     model, n, times = serve_arch(dev, RGEMMA_ARCH, "flash_attention_fwd",
                                  flip=FLIP_GAP)
     total["flash_attention_fwd"] = total.get("flash_attention_fwd", 0) + n
-    profile_serve(dev, model, RGEMMA_ARCH)
     del model
     torch.cuda.empty_cache()
     return {key: times[key] for key in ("tok_s", "prefill_ms", "decode_ms",
@@ -6303,8 +6330,8 @@ def _train_rgemma(dev, total: dict) -> dict:
     RGEMMA_TRAIN_LAYERS layers through the launcher's ``train`` (a
     donating step, remat, AdamW with the cosine schedule, B 1 x S 4096, 4
     steps): #5 / #6 / #7 exactly as the layer plan says (2 / 1 / 1 a
-    step at 3 layers), the loss rule, peak memory under 80 GB, ms a step,
-    tokens/s and one profiled step's device time and idle share."""
+    step at 3 layers), the loss rule, peak memory under 80 GB, ms a step
+    and tokens/s."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.train import train
     from repro_torch.models import build, count_params
@@ -6336,9 +6363,6 @@ def _train_rgemma(dev, total: dict) -> dict:
     _loss_rule(label, losses, cfg.vocab)
     _report_run(label, trainer, seconds, tokens, flops, peak)
     warm = sorted(h.seconds for h in trainer.history[1:])
-    _counted(total, f"{label}, profiled step", _train_launches(cfg), 1,
-             lambda: _step_profile(f"profile {label} step", trainer, state,
-                                   tokens, flops))
     del trainer, state
     shutil.rmtree(H256_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -7014,17 +7038,19 @@ def check_moe_mesh(dev, out: dict):
     total = {}
     t0 = time.perf_counter()
     g = get_arch(MOE_ARCH)
+    # B first: the phase's first step runs its DTensor and cuBLAS calls
+    # cold, and C's time is held against A's
+    b2 = _mesh_cell(dev, MOE_ARCH, f"phase 30 B {MOE_ARCH} train_4k pod1 "
+                    f"(moe_3d=0)", total, moe_3d=False)
+    _check_moe_cell("phase 30 B", g, b2, MOE_BINS_BYTES)
+    log(f"phase 30 B: {time.perf_counter() - t0:.1f} s")
+
     a = _mesh_cell(dev, MOE_ARCH, f"phase 30 A {MOE_ARCH} train_4k pod1 "
                    f"(moe_3d)", total)
     _check_moe_cell("phase 30 A", g, a, MOE_BINS_BYTES)
     _hold_mesh_attention(dev, "phase 30 A", g, a)
     out["body"] = _hold_moe_body(dev, "phase 30 A", g, a)
     out["A"] = _cell_line(a)
-    log(f"phase 30 A: {time.perf_counter() - t0:.1f} s")
-
-    b2 = _mesh_cell(dev, MOE_ARCH, f"phase 30 B {MOE_ARCH} train_4k pod1 "
-                    f"(moe_3d=0)", total, moe_3d=False)
-    _check_moe_cell("phase 30 B", g, b2, MOE_BINS_BYTES)
     ca, cb = a["collective_bytes_per_device"], b2[
         "collective_bytes_per_device"]
     extra = {k: cb.get(k, 0) - ca.get(k, 0) for k in set(ca) | set(cb)}
@@ -7032,7 +7058,7 @@ def check_moe_mesh(dev, out: dict):
         f"kind {json.dumps(extra)} (the bins' all-to-all "
         f"{cb['all-to-all']:,} B in both)")
     out["B"] = _cell_line(b2)
-    log(f"phase 30 B: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 30 A: {time.perf_counter() - t0:.1f} s")
 
     c = _mesh_cell(dev, MOE_ARCH, f"phase 30 C {MOE_ARCH} train_4k pod1 "
                    f"(bf16_experts)", total, bf16_experts=True)
@@ -7041,22 +7067,11 @@ def check_moe_mesh(dev, out: dict):
         raise AssertionError(f"phase 30 C: bytes or FLOPs differ from A's: "
                              f"{c['collective_bytes_per_device']}, "
                              f"{c['flops']} against {ca}, {a['flops']}")
-    log(f"phase 30 C: bytes and FLOPs equal A's; peak above the state "
-        f"{c['memory']['peak_bytes'] / 2**30:.3f} GiB against "
-        f"{a['memory']['peak_bytes'] / 2**30:.3f}, step "
-        f"{c['step_seconds']:.2f} s against {a['step_seconds']:.2f}")
-    # A again: its first step ran the phase's first DTensor and cuBLAS
-    # calls, so C's time is held against this one
-    a2 = _mesh_cell(dev, MOE_ARCH, f"phase 30 C {MOE_ARCH} train_4k pod1 "
-                    f"(moe_3d) again", total)
-    if a2["collective_bytes_per_device"] != ca:
-        raise AssertionError("phase 30 C: A's bytes differ when run again")
-    log(f"phase 30 C: bf16_experts step {c['step_seconds']:.2f} s against "
-        f"{a2['step_seconds']:.2f} s for A run again; peak above the state "
-        f"{c['memory']['peak_bytes'] / 2**30:.3f} GiB against "
-        f"{a2['memory']['peak_bytes'] / 2**30:.3f}")
-    out["C"] = {**_cell_line(c), "A_again_step_seconds": a2["step_seconds"],
-                "A_again_peak_above_state_bytes": a2["memory"]["peak_bytes"]}
+    log(f"phase 30 C: bytes and FLOPs equal A's; bf16_experts step "
+        f"{c['step_seconds']:.2f} s against A's {a['step_seconds']:.2f} s; "
+        f"peak above the state {c['memory']['peak_bytes'] / 2**30:.3f} GiB "
+        f"against {a['memory']['peak_bytes'] / 2**30:.3f}")
+    out["C"] = _cell_line(c)
     log(f"phase 30 C: {time.perf_counter() - t0:.1f} s")
 
     ds = get_arch(MLA_ARCH)
@@ -7101,8 +7116,11 @@ def check_moe_mesh(dev, out: dict):
 # ---------------------------------------------------------------------------
 
 # llama-3.2-vision-90b's depth in phase 31 B: None runs the config's 100
-# layers (20 of them cross layers); a number cuts it, the pattern kept
-VISION_DEPTH = None
+# layers (20 of them cross layers); a number cuts it, the pattern kept.
+# 10 (2 cross layers, as phase 24 serves it) pays, with the profiles left
+# out of phases 23, 24 and 28, for phase 33 (the 100-layer cell took
+# about half of phase 31's time)
+VISION_DEPTH = 10
 # seamless-m4t-large-v2's rows a device in phase 31 C: its 256,206-token
 # vocabulary does not divide the 16-way model axis, so its float32 logits
 # sit whole on every device, as in the reference's specs: (16, 4096,
@@ -7225,18 +7243,20 @@ DECODE_KV_BYTES = {
 SERVE_HOLD_SEQ = 8192
 
 
-def _serve_cell(dev, arch: str, shape_name: str, label: str, total: dict):
-    """One serve cell of phase 32 on ``pod1`` at full width and depth:
-    its record, checked for consistency (the collectives' bytes by kind,
-    by phase and axis and one by one add up, every one under the cell's
-    phase; FLOPs the aten ops' plus the kernels'; the peak's parts add
-    up and stay under 80 GB), its launches added to ``total``, its
-    numbers logged."""
+def _serve_cell(dev, arch: str, shape_name: str, label: str, total: dict,
+                *, cfg=None, shape=None):
+    """One serve cell of phases 32 and 33 on ``pod1`` at full width (and
+    depth, unless ``cfg`` cuts it; ``shape`` cuts the shape's rows or
+    sequence): its record, checked for consistency (the collectives'
+    bytes by kind, by phase and axis and one by one add up, every one
+    under the cell's phase; FLOPs the aten ops' plus the kernels'; the
+    peak's parts add up and stay under 80 GB), its launches added to
+    ``total``, its numbers logged."""
     from repro_torch.launch.dryrun import lower_cell
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    rec = lower_cell(arch, shape_name, False, dev)
+    rec = lower_cell(arch, shape_name, False, dev, cfg=cfg, shape=shape)
     wall = time.perf_counter() - t0
     if rec["status"] != "ok":
         raise AssertionError(f"{label}: {rec}")
@@ -7447,6 +7467,350 @@ def check_serve_mesh(dev, smollm_serve: dict, out: dict):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 33: serving the MoE / MLA and memory-input families on the
+# production mesh
+# ---------------------------------------------------------------------------
+
+FAMILY_SERVE_ARCHS = (MOE_ARCH, MLA_ARCH, VISION_ARCH, ENC_ARCH)
+# seamless-m4t-large-v2's prefill_32k cell in phase 33 A: its 256,206-token
+# vocabulary does not divide the 16-way model axis, so its float32 logits
+# sit whole on every device, 67.2 GB at the cell's 2 rows of 32,768
+# tokens; 2 rows of 8,192 (2,048 frames) hold 16.8 GB
+AUDIO_PREFILL_SEQ = 8192
+# llama-3.2-vision-90b's decode_32k cell in phase 33 B runs at
+# VISION_LAYERS (10 layers, 2 cross layers): at 100 layers rank 0's cache
+# is 87.2 GB
+_MLA_LAYERS = MLA_DEPTH or 61
+# the headline cache leaves of rank 0 (PERF.md section 4's reckoning):
+# prefill 2 rows of 32,768 (seamless 8,192, its memory 2,048 frames),
+# decode 8 rows; kv heads split over "model" only where 16 divides them
+FAMILY_CACHE_BYTES = {
+    (MOE_ARCH, "prefill_32k"): {"k+v": 32 * 2 * 2 * 8 * 32768 * 64 * 2},
+    (MLA_ARCH, "prefill_32k"): {
+        "ckv+krope": _MLA_LAYERS * 2 * 32768 * (512 + 64) * 2},
+    (VISION_ARCH, "prefill_32k"): {
+        "k+v": 80 * 2 * 2 * 8 * 32768 * 128 * 2,
+        "cross_k+cross_v": 20 * 2 * 2 * 8 * 1600 * 128 * 2},
+    (ENC_ARCH, "prefill_32k"): {
+        "k+v": 24 * 2 * 2 * 1 * 8192 * 64 * 2,
+        "cross_k+cross_v": 24 * 2 * 2 * 1 * 2048 * 64 * 2,
+        "enc_memory": 2 * 2048 * 1024 * 2},
+    (MOE_ARCH, "decode_32k"): {"k+v": 17_179_869_184,
+                               "kpos": 33_554_432},
+    (MLA_ARCH, "decode_32k"): {
+        "ckv+krope": _MLA_LAYERS * 8 * 32768 * (512 + 64) * 2},
+    (VISION_ARCH, "decode_32k"): {
+        "k+v": VISION_LAYERS * 4 // 5 * 2 * 8 * 8 * 32768 * 128 * 2,
+        "cross_k+cross_v": VISION_LAYERS // 5 * 2 * 8 * 8 * 1600 * 128 * 2,
+        "enc_memory": 8 * 1600 * 8192 * 2},
+    (ENC_ARCH, "decode_32k"): {"k+v": 1_610_612_736, "kpos": 25_165_824,
+                               "cross_k+cross_v": 402_653_184,
+                               "enc_memory": 134_217_728}}
+# the bins' all-to-all of a prefill_32k cell (PERF.md section 4): a MoE
+# layer's two exchanges (there and back, forward only) of the (E_pad, C,
+# M) bf16 bins, C = ceil(4096 x 8 / E x 1.25) for the 2 x 32,768 / 16
+# tokens a device
+FAMILY_BINS_BYTES = {
+    MOE_ARCH: 32 * 2 * 48 * 1024 * 1536 * 2,
+    MLA_ARCH: (_MLA_LAYERS - 3) * 2 * 256 * 160 * 7168 * 2}
+
+
+def _family_cell_cfg(arch: str, shape_name: str):
+    """``(cfg, shape, note)`` of a phase 33 cell: deepseek-v3 at
+    MLA_DEPTH layers, vision's decode at VISION_LAYERS, seamless's
+    prefill at AUDIO_PREFILL_SEQ tokens a row (None: the published
+    config or the named shape); the note names the cut."""
+    from repro_torch.configs import ShapeConfig, get_arch
+
+    cfg = get_arch(arch)
+    shape, note = None, ""
+    if arch == MLA_ARCH and MLA_DEPTH is not None:
+        cfg, note = cfg.replace(n_layers=MLA_DEPTH), \
+            f", cut to {MLA_DEPTH} of 61 layers"
+    if arch == VISION_ARCH and shape_name == "decode_32k":
+        cfg, note = cfg.replace(n_layers=VISION_LAYERS), \
+            (f", cut to {VISION_LAYERS} of 100 layers (rank 0's cache at "
+             f"100 is 87.2 GB)")
+    if arch == ENC_ARCH and shape_name == "prefill_32k":
+        shape = ShapeConfig("prefill_32k", AUDIO_PREFILL_SEQ, 32, "prefill")
+        note = (f", 2 rows of {AUDIO_PREFILL_SEQ} (its whole-vocabulary "
+                f"float32 logits at 32,768 are 67.2 GB)")
+    return cfg, shape, note
+
+
+def _check_family_cell(label: str, cfg, rec: dict, key) -> dict:
+    """A phase 33 cell against the reckonings: the cache's local bytes
+    leaf by leaf exactly ``reckon_cache_bytes`` and its headline leaves
+    FAMILY_CACHE_BYTES; #5's launches one per attention layer in a
+    prefill (MLA's and a memory config's encoder, self and cross layers,
+    :func:`_memory_launches`) and one per cross layer in decode; in a MoE
+    prefill the bins' all-to-all exactly FAMILY_BINS_BYTES, all over
+    ``model``; in a MoE decode no expert weight gathered and the bins'
+    (E_local, C, M) float32 partial sums all-reduced over ``data`` twice
+    a MoE layer.  Returns the cache's bytes by leaf."""
+    from repro_torch.launch.dryrun import reckon_cache_bytes
+    from repro_torch.models import layer_plan
+    from repro_torch.models.moe import capacity
+
+    arch, shape_name = key
+    prefill = shape_name == "prefill_32k"
+    rows, slots = rec["per_device_batch"][0], rec["context"]
+    n_mem = rec["memory_tokens"]
+    got = rec["memory"]["cache_parts"]
+    want = reckon_cache_bytes(cfg, rows, slots, memory_len=n_mem)
+    heads = {name: sum(got.get(part, 0) for part in name.split("+"))
+             for name in FAMILY_CACHE_BYTES[key]}
+    if got != want or heads != FAMILY_CACHE_BYTES[key]:
+        raise AssertionError(f"{label}: cache bytes {got}, reckoned {want}; "
+                             f"{heads} against {FAMILY_CACHE_BYTES[key]}")
+    log(f"{label}: cache bytes leaf by leaf the reckoning; " + ", ".join(
+        f"{k} {v:,} B ({v / 1e9:.3f} GB)" for k, v in heads.items()))
+    n_self = sum(k in ("attn", "dec_xattn") for k in layer_plan(cfg).kinds)
+    if cfg.encoder is not None or cfg.vision is not None:
+        n_pre, n_dec = _memory_launches(cfg)
+    else:
+        n_pre, n_dec = n_self, 0
+    n5 = n_pre if prefill else n_dec
+    if rec["launches"] != ({"flash_attention_fwd": n5} if n5 else {}):
+        raise AssertionError(f"{label}: launches {rec['launches']}, "
+                             f"expected {n5} of #5")
+    if cfg.moe is None:
+        return heads
+    coll = rec["collective_bytes_per_device"]
+    by = rec["collective_bytes_by_phase_axis"]
+    n_moe = sum(layer_plan(cfg).has_moe)
+    if prefill:
+        bins = FAMILY_BINS_BYTES[arch]
+        a2a = {k: v["all-to-all"] for k, v in by.items()
+               if v.get("all-to-all")}
+        log(f"{label}: the bins' all-to-all {coll.get('all-to-all', 0):,} B "
+            f"by phase/axis {json.dumps(a2a)} (expected {bins:,} B)")
+        if coll.get("all-to-all") != bins or a2a != {"prefill/model": bins}:
+            raise AssertionError(f"{label}: all-to-all {a2a}, expected "
+                                 f"{bins}")
+        return heads
+    moe, m = cfg.moe, cfg.d_model
+    e_loc = moe.n_experts // 16 if moe.n_experts % 16 == 0 else \
+        moe.n_experts
+    f_loc = moe.d_ff_expert // 16
+    shape = f"f32[{e_loc},{capacity(128, moe)},{m}]"
+    bins = [(r["at"], r["count"]) for r in rec["collectives"]
+            if r["kind"] == "all-reduce" and r["shape"] == shape]
+    gathers = [r for r in rec["collectives"] if r["kind"] == "all-gather"]
+    experts = [r for r in gathers if re.search(
+        rf",({m},{f_loc}|{f_loc},{m}|{m},{moe.d_ff_expert}|"
+        rf"{moe.d_ff_expert},{m})\]$", r["shape"])]
+    logits = [r for r in gathers
+              if r["shape"] == f"f32[128,{moe.n_experts}]"]
+    log(f"{label}: the bins' all-reduces {shape} {bins} (expected "
+        f"decode/data x {2 * n_moe}); the router's logits all-gathered "
+        f"{[(r['at'], r['count']) for r in logits]}; expert weights "
+        f"gathered {len(experts)}")
+    if bins != [("decode/data", 2 * n_moe)] or experts or \
+            sum(r["count"] for r in logits) != n_moe:
+        raise AssertionError(f"{label}: bins {bins}, expert weight gathers "
+                             f"{experts}, logits {logits}")
+    return heads
+
+
+def _hold_family_kernels(dev, label: str, cfg, rec: dict) -> list:
+    """Phase 33 A: #5-#7 at each of a prefill cell's local problems, cut
+    to Sq (and a causal problem's Skv) of SERVE_HOLD_SEQ where longer
+    (logged): an attention problem through ``attention_block``
+    (:func:`_hold_mesh_attention`; the encoder's and the cross layers'
+    non-causal), MLA's through ``mla_block`` at its heads padded to 256
+    (:func:`_hold_mesh_mla`), to phases 9, 14 and 28's limits."""
+    holds = []
+    for family, problems in rec["kernel_problems"].items():
+        for problem in problems:
+            *problem, calls = problem
+            if family == "mla":
+                b, h, sq, skv, dqk, dv = problem
+                cut = min(sq, SERVE_HOLD_SEQ)
+                log(f"{label}: MLA held at its local problem {problem} cut "
+                    f"to Sq = Skv = {cut}")
+                errs = _hold_mesh_mla(dev, label, cfg, {"kernel_problems": {
+                    "mla": [[b, h, cut, cut, dqk, dv, calls]]}})
+                holds.append({"problem": problem, "cut": cut,
+                              "calls": calls, "errs": errs})
+                continue
+            b, hq, hkv, sq, skv, d, window, causal = problem
+            cut_q = min(sq, SERVE_HOLD_SEQ)
+            cut_kv = cut_q if causal else skv
+            log(f"{label}: #5 held at its local problem {problem} cut to "
+                f"Sq = {cut_q}, Skv = {cut_kv}")
+            errs = _hold_mesh_attention(
+                dev, label, cfg, rec, problem=(b, hq, hkv, cut_q, cut_kv, d,
+                                               window, causal))
+            holds.append({"problem": problem, "cut": [cut_q, cut_kv],
+                          "calls": calls, "errs": errs})
+    return holds
+
+
+def _family_engine_on_mesh(dev, mesh, arch: str, info: dict, total: dict,
+                           memory=None) -> dict:
+    """Phase 33 C: ``Engine(mesh=)`` on the one-rank mesh serves the
+    requests of phase 23 (granite-moe-3b-a800m) or 24
+    (seamless-m4t-large-v2, ``memory`` its 384 frames, the gates at 1.0),
+    the weights seeded as there and placed by their specs: every request's
+    prefill logits (``cache_slots`` 2,048, as the engine's) equal the
+    meshless prefill's and every emitted token that phase's meshless
+    engine's, bit for bit; #5's launches one a prefill's attention layer
+    (and, with a memory, one a decode step's cross layer)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import build, layer_plan, place_params
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_arch(arch)
+    bundle = build(cfg)
+    prompts = info["prompts"]
+    mem = None if memory is None else torch.as_tensor(memory, device=dev)
+
+    def seeded():
+        model = bundle.init(0, dev)
+        if memory is not None:
+            with torch.no_grad():
+                for name, prm in model.named_parameters():
+                    if name.endswith(".gate"):
+                        prm.fill_(1.0)
+        return model
+
+    plain = seeded()
+    model = place_params(seeded(), mesh)
+    for i, prompt in enumerate(prompts):
+        tok = torch.as_tensor(prompt[None], device=dev).long()
+        want, _ = bundle.prefill(plain, tok, memory=mem,
+                                 cache_slots=SERVE["max_len"])
+        got, _ = bundle.prefill(model, tok, memory=mem,
+                                cache_slots=SERVE["max_len"], mesh=mesh)
+        got = got.full_tensor()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"phase 33 C {arch}: request {i}'s prefill logits on the "
+                f"mesh differ from the meshless ones by "
+                f"{float((got - want).abs().max())}")
+        del want, got
+    del plain
+    torch.cuda.empty_cache()
+    eng = Engine(cfg, model, ServeConfig(max_batch=SERVE["max_batch"],
+                                         max_len=SERVE["max_len"]),
+                 device=dev, mesh=mesh)
+    rids = [eng.submit(p, max_new=SERVE["max_new"]) for p in prompts]
+    FA.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run(memory=mem)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in FA.LAUNCHES.items() if v}
+    toks = [out[r] for r in rids]
+    if toks != info["tokens"]:
+        bad = [i for i, (a, b) in enumerate(zip(toks, info["tokens"]))
+               if a != b]
+        raise AssertionError(f"phase 33 C {arch}: requests {bad} emit other "
+                             f"tokens on the mesh than the meshless engine")
+    if memory is not None:
+        per_req, per_step = _memory_launches(cfg)
+    else:
+        per_req = sum(k == "attn" for k in layer_plan(cfg).kinds)
+        per_step = 0
+    n_batches = -(-len(prompts) // SERVE["max_batch"])
+    n5 = per_req * len(prompts) + per_step * n_batches * (
+        SERVE["max_new"] - 1)
+    if launches != {"flash_attention_fwd": n5}:
+        raise AssertionError(f"phase 33 C {arch}: launches {launches}, "
+                             f"expected {n5} of #5")
+    total["flash_attention_fwd"] = total.get("flash_attention_fwd", 0) + n5
+    n_tok = sum(len(t) for t in toks)
+    st = eng.stats
+    row = {"seconds": seconds, "tokens": n_tok,
+           "prefill_ms": float(np.mean(st["prefill_ms"])),
+           "decode_ms": sum(st["decode_ms"]) / sum(st["decode_steps"])}
+    log(f"phase 33 C: {arch} through Engine(mesh=(1, 1) NCCL): "
+        f"{len(toks)} requests, {n_tok} tokens in {seconds:.3f} s (the "
+        f"meshless engine {info['seconds']:.3f} s); prefill "
+        f"{row['prefill_ms']:.2f} ms a request, decode "
+        f"{row['decode_ms']:.3f} ms a step (meshless "
+        f"{info['prefill_ms']:.2f} / {info['decode_ms']:.3f}); every token "
+        f"and every prefill logit the meshless engine's, bit for bit; #5 "
+        f"launched {n5} times ({per_req} a request"
+        f"{f', {per_step} a decode step' if per_step else ''})")
+    del model, eng
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_family_serve_mesh(dev, served: dict, out: dict):
+    """Phase 33 (see the module's docstring): A-D.  Puts each cell's
+    numbers, its kernel holds, C's and D's rows into ``out``; returns the
+    phase's launches."""
+    import torch.distributed as dist
+    from repro_torch.fabric.planner import StepProfile, plan
+    from repro_torch.kernels import mask_gemm as MG
+    from repro_torch.launch.mesh import make_host_mesh
+
+    total = {}
+    t0 = time.perf_counter()
+    recs = {}
+    for shape_name, part in (("prefill_32k", "A"), ("decode_32k", "B")):
+        for arch in FAMILY_SERVE_ARCHS:
+            cfg, shape, note = _family_cell_cfg(arch, shape_name)
+            label = f"phase 33 {part} {arch} {shape_name} pod1{note}"
+            rec = _serve_cell(dev, arch, shape_name, label, total,
+                              cfg=cfg, shape=shape)
+            heads = _check_family_cell(label, cfg, rec, (arch, shape_name))
+            holds = (_hold_family_kernels(dev, label, cfg, rec)
+                     if part == "A" else [])
+            recs[(arch, shape_name)] = rec
+            out[f"{arch}/{shape_name}"] = {
+                **_cell_line(rec), "n_layers": cfg.n_layers,
+                "per_device_batch": rec["per_device_batch"],
+                "memory_tokens": rec["memory_tokens"],
+                "cache_parts": rec["memory"]["cache_parts"], "cache": heads,
+                "kernel_problems": rec["kernel_problems"], "holds": holds}
+            log(f"{label}: {time.perf_counter() - t0:.1f} s")
+        log(f"phase 33 {part}: {time.perf_counter() - t0:.1f} s")
+
+    try:
+        mesh = make_host_mesh(1, 1, device_type="cuda")
+        out["engine"] = {
+            MOE_ARCH: _family_engine_on_mesh(dev, mesh, MOE_ARCH,
+                                             served["granite"], total),
+            ENC_ARCH: _family_engine_on_mesh(
+                dev, mesh, ENC_ARCH, served["seamless"], total,
+                memory=served["seamless"]["memory"])}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    log(f"phase 33 C: {time.perf_counter() - t0:.1f} s")
+
+    rec = recs[(MOE_ARCH, "prefill_32k")]
+    MG.reset_launches()
+    profile = StepProfile.from_dryrun(rec)
+    rows = plan(profile, min_terminals=256, mesh_shape=(16, 16),
+                axis_names=("data", "model"), device=dev)
+    mg = dict(MG.LAUNCHES)
+    for kname in ("frontier_step", "backward_step"):
+        if not mg.get(kname):
+            raise AssertionError(f"phase 33 D: {kname} never launched")
+        total[kname] = total.get(kname, 0) + mg[kname]
+    if not profile.bytes_by_kind.get("all-to-all"):
+        raise AssertionError(f"phase 33 D: the profile carries no "
+                             f"all-to-all: {profile.bytes_by_kind}")
+    log(f"phase 33 D: plan(StepProfile.from_dryrun({MOE_ARCH} prefill_32k), "
+        f"min_terminals=256, mesh (16, 16)) on the card, #3 / #4 launched "
+        f"{mg['frontier_step']} / {mg['backward_step']} times; profile "
+        f"{json.dumps(profile.bytes_by_kind)}")
+    for r in rows[:3]:
+        log(f"phase 33 D:   {json.dumps(r)}")
+    out["plan"] = rows[:3]
+    log(f"phase 33 D: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 33: launches {total}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA "
@@ -7505,14 +7869,15 @@ def main() -> int:
     for kname in bwd_errs:
         launches[kname] = train_launches[kname]
     done("15")
-    # phases 16-32 run kernels #1-#4 (22, 25 and 28 #5-#7, 23 and 24 #5,
+    # phases 16-33 run kernels #1-#4 (22, 25 and 28 #5-#7, 23 and 24 #5,
     # 26 #8, 27 all but #3 and #4, 29 #3-#8 and 8', 30 and 31 #3-#7, 32
-    # #3-#5 and #8) on new paths: their
+    # #3-#5 and #8, 33 #3-#7) on new paths: their
     # launches there go beside each kernel's main-path count; phase 26's
     # path is the SSD backward's main path
     phase_launches = {}
     ssd_bwd, perf, h256, mesh, moe_mesh, mem_mesh, serve_mesh = \
         {}, {}, {}, {}, {}, {}, {}
+    served, family_mesh = {}, {}
     for phase, fn in (("16", lambda: check_families(dev)),
                       ("17", lambda: check_faults_analytic(dev)),
                       ("18", lambda: check_faults_sim(
@@ -7521,8 +7886,8 @@ def main() -> int:
                       ("20", lambda: check_adversary(dev)),
                       ("21", lambda: check_fabric(dev)),
                       ("22", lambda: check_obs(dev)),
-                      ("23", lambda: check_archs(dev, bw)),
-                      ("24", lambda: check_memory(dev, bw)),
+                      ("23", lambda: check_archs(dev, bw, served)),
+                      ("24", lambda: check_memory(dev, bw, served)),
                       ("25", lambda: check_train_archs(dev, bw)),
                       ("26", lambda: check_train_ssd(dev, bw, ssd_bwd)),
                       ("27", lambda: check_perf_flags(
@@ -7532,7 +7897,9 @@ def main() -> int:
                       ("30", lambda: check_moe_mesh(dev, moe_mesh)),
                       ("31", lambda: check_memory_mesh(dev, mem_mesh)),
                       ("32", lambda: check_serve_mesh(dev, smollm_serve,
-                                                      serve_mesh))):
+                                                      serve_mesh)),
+                      ("33", lambda: check_family_serve_mesh(
+                          dev, served, family_mesh))):
         t0 = time.perf_counter()
         for kname, count in fn().items():
             phase_launches.setdefault(kname, {})[phase] = count

@@ -65,25 +65,27 @@ carries its memory as the reference's ``input_specs`` give it (vision:
 (B, n_image_tokens, d_model), an encoder: (B, seq // frame_ratio,
 d_model), bf16 over the batch axes).
 
-The dense GQA, SSD and RG-LRU families also run their serve cells
-(``prefill_32k``, ``decode_32k``, and ``long_500k`` where the config is
-sub-quadratic) as the reference's ``_lower_prefill`` and
-``_lower_decode`` lower them (:func:`_serve_metrics`): the parameters
-of the train state without the moments; a prefill of the cell's rows,
-or one decode step of one token a row at position ``seq_len - 1``
-against rank 0's blocks of the cache of a prefill into
-``min(seq_len, window)`` slots (:func:`local_cache`: placed by
-``cache_specs``, seeded values, ``kpos`` exact).  The collectives are
-booked under the phase ``prefill`` or ``decode``; the record has the
-train record's fields, its ``memory`` the arguments (the parameters,
-and the cache in decode), the outputs (the local logits and the
-cache), the peak and ``peak_parts`` (``params``, ``cache``,
-``logits``, ``rest``: the peak less the logits and the cache the step
-allocated), ``cache_parts`` the cache's local bytes by leaf name, and
-``context`` the cache's slots.  The MoE / MLA and memory-input
-families' serve cells are ``skipped``, naming the ROADMAP item that
-queues them; ``long_500k`` on a full-attention arch is skipped as in
-the reference.  :func:`run_cell`
+Every family also runs its serve cells (``prefill_32k``,
+``decode_32k``, and ``long_500k`` where the config is sub-quadratic) as
+the reference's ``_lower_prefill`` and ``_lower_decode`` lower them
+(:func:`_serve_metrics`): the parameters of the train state without the
+moments; a prefill of the cell's rows (a memory config's with a seeded
+memory of :func:`memory_tokens` rows over the batch axes, as the
+reference's ``_memory_abstract`` gives it), or one decode step of one
+token a row at position ``seq_len - 1`` against rank 0's blocks of the
+cache of a prefill into ``min(seq_len, window)`` slots
+(:func:`local_cache`: placed by ``cache_specs``, seeded values, ``kpos``
+exact; a memory config's cross layers and ``enc_memory`` at the
+memory's length).  The collectives are booked under the phase
+``prefill`` or ``decode``; the record has the train record's fields, its
+``memory`` the arguments (the parameters, the memory in a prefill, the
+cache in decode), the outputs (the local logits and the cache), the
+peak and ``peak_parts`` (``params``, ``cache``, ``logits``, ``rest``:
+the peak less the logits and the cache the step allocated; ``memory``,
+the memory's local bytes, where the cell carries one), ``cache_parts``
+the cache's local bytes by leaf name (:func:`cache_bytes`) and
+``context`` the cache's slots.  ``long_500k`` on a full-attention arch
+is skipped as in the reference.  :func:`run_cell`
 writes each record as JSON under ``REPRO_DRYRUN_DIR`` (default
 ``build/dryrun/`` of the checkout).  :class:`~repro_torch.fabric.
 planner.StepProfile`'s ``from_dryrun`` reads a record.
@@ -482,11 +484,6 @@ def _skip_reason(cfg: ArchConfig, shape: ShapeConfig):
             and not cfg.sub_quadratic:
         return ("long_500k requires sub-quadratic attention "
                 "(full-attention arch; see DESIGN.md)")
-    from ..models.transformer import serves_on_mesh
-
-    if shape.kind != "train" and not serves_on_mesh(cfg):
-        return (f"the {shape.kind} cells of the MoE / MLA and memory-input "
-                f"families are ROADMAP queue 1 item 1, step 3b")
     return None
 
 
@@ -616,25 +613,43 @@ def _local_bytes(t) -> int:
     return t.numel() * t.element_size()
 
 
+def _cache_leaves(cache):
+    """``(name, leaf)`` of every leaf of a serve cache (a list of per-layer
+    dicts, or ``{"layers": [...], "enc_memory": ...}``): a leaf by its
+    name, but a cross layer's ``k`` / ``v`` (those of a dict without
+    ``kpos``: an ``xattn`` layer's mixer, a ``dec_xattn`` layer's
+    ``cross``) as ``cross_k`` / ``cross_v``."""
+    from ..models.transformer import layers_of
+
+    for layer in layers_of(cache):
+        for part in layer.values():
+            cross = "k" in part and "kpos" not in part
+            for name, t in part.items():
+                yield (f"cross_{name}" if cross else name), t
+    if isinstance(cache, dict):
+        yield "enc_memory", cache["enc_memory"]
+
+
 def cache_bytes(cache) -> dict:
     """The local bytes of a cache's leaves by leaf name (``k``, ``v``,
-    ``kpos``, ``conv``, ``state``), over every layer."""
-    from torch.utils._pytree import tree_flatten_with_path
-
+    ``kpos``, ``ckv``, ``krope``, ``conv``, ``state``, ``cross_k``,
+    ``cross_v``, ``enc_memory``), over every layer."""
     out: dict[str, int] = {}
-    for path, t in tree_flatten_with_path(cache)[0]:
-        name = path[-1].key
+    for name, t in _cache_leaves(cache):
         out[name] = out.get(name, 0) + _local_bytes(t)
     return out
 
 
 def reckon_cache_bytes(cfg: ArchConfig, rows: int, slots: int,
-                       model: int = 16) -> dict:
-    """A decode cell's cache bytes a device by leaf name from the config
-    alone: each layer's leaves at ``rows`` rows and ``slots`` attention
-    slots, a ``kv_heads`` or ``ff`` dim split ``model`` ways where it
-    divides it (the reference's ``cache_logical_axes`` and rules); bf16
-    k, v and conv, int32 kpos, float32 states."""
+                       model: int = 16, memory_len: int = 0) -> dict:
+    """A decode cell's cache bytes a device by leaf name (as
+    :func:`cache_bytes` names them) from the config alone: each layer's
+    leaves at ``rows`` rows, ``slots`` attention slots and, for a cross
+    layer, the memory's ``memory_len`` positions, a ``kv_heads`` or
+    ``ff`` dim split ``model`` ways where it divides it (the reference's
+    ``cache_logical_axes`` and rules; MLA's latents and ``enc_memory``
+    only over the batch); bf16 k, v, ckv, krope, conv and the memory,
+    int32 kpos, float32 states."""
     def cut(n):
         return n // model if n % model == 0 else n
     out: dict[str, int] = {}
@@ -642,12 +657,18 @@ def reckon_cache_bytes(cfg: ArchConfig, rows: int, slots: int,
     def add(name, n):
         out[name] = out.get(name, 0) + n
 
-    for i in range(cfg.n_layers):
-        kind = cfg.pattern[i % len(cfg.pattern)]
-        if kind == "attn":
-            for name in ("k", "v"):
-                add(name, rows * cut(cfg.n_kv_heads) * slots
-                    * cfg.resolved_head_dim * 2)
+    def attn(prefix, heads, n_slots):
+        for name in ("k", "v"):
+            add(prefix + name, rows * cut(heads) * n_slots
+                * cfg.resolved_head_dim * 2)
+
+    from ..models.transformer import layer_plan
+    for kind in layer_plan(cfg).kinds:
+        if kind == "attn" and cfg.mla is not None:
+            add("ckv", rows * slots * cfg.mla.kv_lora * 2)
+            add("krope", rows * slots * cfg.mla.qk_rope * 2)
+        elif kind in ("attn", "dec_xattn"):
+            attn("", cfg.n_kv_heads, slots)
             add("kpos", rows * slots * 4)
         elif kind == "ssd":
             ssm = cfg.ssm
@@ -660,34 +681,47 @@ def reckon_cache_bytes(cfg: ArchConfig, rows: int, slots: int,
             w = cfg.rglru.lru_width or cfg.d_model
             add("conv", rows * (cfg.rglru.d_conv - 1) * cut(w) * 2)
             add("state", rows * cut(w) * 4)
-        else:
+        elif kind != "xattn":
             raise ValueError(f"no cache reckoning for {kind!r} layers")
+        if kind in ("xattn", "dec_xattn"):
+            attn("cross_", max(1, cfg.n_kv_heads), memory_len)
+    if cfg.encoder is not None or cfg.vision is not None:
+        add("enc_memory", rows * memory_len * cfg.d_model * 2)
     return out
 
 
 def local_cache(cfg: ArchConfig, mesh, batch: int, seq_len: int, device,
-                seed: int = 0) -> list:
+                seed: int = 0):
     """Rank 0's blocks of a decode cell's cache as DTensors on ``mesh``:
     the cache of a prefill into :func:`decode_context` slots
-    (:meth:`~repro_torch.models.model.ModelBundle.cache_shapes`), each
-    leaf placed by :func:`~repro_torch.models.model.cache_specs`, with
-    seeded values (``k``, ``v``, ``conv`` and ``state`` standard normal,
-    the states times 0.1) and ``kpos`` as a prefill of ``seq_len - 1``
-    tokens leaves it (:func:`~repro_torch.models.layers.
+    (:meth:`~repro_torch.models.model.ModelBundle.cache_shapes`; a
+    memory config's cross layers and ``enc_memory`` at
+    :func:`memory_tokens` positions), each leaf placed by
+    :func:`~repro_torch.models.model.cache_specs`, with seeded values
+    (standard normal, the states times 0.1) and ``kpos`` as a prefill of
+    ``seq_len - 1`` tokens leaves it (:func:`~repro_torch.models.layers.
     slot_positions`), so that the one new token at position ``seq_len -
-    1`` takes slot ``(seq_len - 1) mod slots``."""
+    1`` takes slot ``(seq_len - 1) mod slots`` (MLA's latents: slot
+    ``seq_len - 1`` of ``seq_len``)."""
+    from torch.utils._pytree import tree_map_with_path
+
     from ..models import build
     from ..models.common import local_shape
     from ..models.layers import slot_positions
     from ..models.model import cache_specs
 
     slots = decode_context(cfg, seq_len)
-    shapes = build(cfg).cache_shapes(batch, slots)
+    shapes = build(cfg).cache_shapes(
+        batch, slots, memory_tokens(cfg, seq_len) or None)
     specs = cache_specs(shapes, mesh)
     gen = torch.Generator(device=device).manual_seed(int(seed) + 2)
     kpos = slot_positions(seq_len - 1, slots, device)
 
-    def make(name, t, spec):
+    def make(path, t):
+        name = path[-1].key
+        spec = specs
+        for key in path:
+            spec = spec[key.key if hasattr(key, "key") else key.idx]
         shape = local_shape(tuple(t.shape), spec, mesh)
         if name == "kpos":
             local = kpos[None, :].repeat(shape[0], 1)
@@ -696,9 +730,7 @@ def local_cache(cfg: ArchConfig, mesh, batch: int, seq_len: int, device,
             local = (local * 0.1 if name == "state" else local).to(t.dtype)
         return _from_local(local, mesh, spec, tuple(t.shape))
 
-    return [{"mixer": {name: make(name, t, specs[i]["mixer"][name])
-                       for name, t in layer["mixer"].items()}}
-            for i, layer in enumerate(shapes)]
+    return tree_map_with_path(make, shapes)
 
 
 def _serve_metrics(cfg: ArchConfig, shape: ShapeConfig, mesh, device,
@@ -737,16 +769,28 @@ def _serve_metrics(cfg: ArchConfig, shape: ShapeConfig, mesh, device,
             (rows, 1), shape.seq_len - 1, dtype=torch.int64, device=device),
             mesh, bspec, (b, 1))
         cache = local_cache(cfg, mesh, b, shape.seq_len, device, seed)
-    else:
+    n_mem = memory_tokens(cfg, shape.seq_len)
+    memory = None
+    if not decode:
         data = DataConfig(vocab=cfg.vocab, seq_len=shape.seq_len,
                           global_batch=b, seed=seed)
         tokens = _from_local(torch.as_tensor(synthetic_batch(
             data, 0, slice(0, rows))["tokens"], device=device), mesh, bspec,
             (b, shape.seq_len))
+        if n_mem:
+            # the stub frontend's embeddings, made on the device (their
+            # values are not read as results)
+            gen = torch.Generator(device=device).manual_seed(int(seed) + 1)
+            memory = _from_local(
+                torch.randn((rows, n_mem, cfg.d_model), generator=gen,
+                            device=device).to(torch.bfloat16), mesh,
+                bspec + (None,), (b, n_mem, cfg.d_model))
     param_bytes = _state_bytes(params)
+    mem_bytes = (_local_bytes(memory) if memory is not None else
+                 cache_bytes(cache).get("enc_memory", 0) if decode else 0)
     cache_in = cache_bytes(cache) if decode else {}
-    in_ptrs = ({t.to_local().data_ptr() for t in tree_leaves(cache)}
-               if decode else set())
+    in_ptrs = {t.to_local().data_ptr() for t in tree_leaves(
+        cache if decode else [memory] if memory is not None else [])}
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.synchronize()
@@ -761,7 +805,8 @@ def _serve_metrics(cfg: ArchConfig, shape: ShapeConfig, mesh, device,
             logits, out_cache = bundle.decode_step(model, cache, tokens,
                                                    positions, mesh=mesh)
         else:
-            logits, out_cache = bundle.prefill(model, tokens, mesh=mesh)
+            logits, out_cache = bundle.prefill(model, tokens, memory=memory,
+                                               mesh=mesh)
     if cuda:
         torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
@@ -784,14 +829,16 @@ def _serve_metrics(cfg: ArchConfig, shape: ShapeConfig, mesh, device,
         "dp_gradient_bytes": {},
         "collective_calls": counter.calls,
         "memory": {
-            "argument_bytes": param_bytes + sum(cache_in.values()),
+            "argument_bytes": param_bytes + sum(cache_in.values())
+            + (mem_bytes if not decode else 0),
             "output_bytes": logit_bytes + sum(cache_out.values()),
             "temp_bytes": None if rest is None else max(0, rest),
             "peak_bytes": peak, "alias_bytes": None,
             "generated_code_bytes": None,
             "peak_parts": {"params": param_bytes,
                            "cache": sum(cache_out.values()),
-                           "logits": logit_bytes, "rest": rest},
+                           "logits": logit_bytes, "rest": rest,
+                           **({"memory": mem_bytes} if n_mem else {})},
             "cache_parts": cache_out},
         "launches": {k: int(v) for k, v in launches.items() if v},
         "kernel_problems": {family: [[*problem, calls] for problem, calls
@@ -801,7 +848,7 @@ def _serve_metrics(cfg: ArchConfig, shape: ShapeConfig, mesh, device,
         "per_device_batch": [rows, 1 if decode else shape.seq_len],
         "context": decode_context(cfg, shape.seq_len) if decode
         else shape.seq_len,
-        "memory_tokens": 0,
+        "memory_tokens": n_mem,
     }
 
 

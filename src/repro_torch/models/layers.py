@@ -14,9 +14,9 @@ place.  Cross-attention (an ``Attention`` built with ``cross=True`` and
 given a memory) attends the memory through the kernel in every mode,
 decode included, as the reference does.
 
-On a mesh (``mesh``, a ``DeviceMesh``; training of the GQA family,
-of MLA, of the cross layers and the encoder, and the GQA family's
-prefill and decode) the weights are DTensors
+On a mesh (``mesh``, a ``DeviceMesh``; training, prefill and decode of
+every kind: GQA attention, MLA, the cross layers and the encoder) the
+weights are DTensors
 placed by their specs and the activations follow them.  The mesh hooks
 are the reference's: ``batch_axes_for`` (the batch over ``("pod",
 "data")`` where that divides it, over ``model`` too under the
@@ -27,9 +27,11 @@ over ``model`` by head where the head count divides it).  A weight sharded over 
 The kernels run on each device's block through ``local_map``
 (:func:`local_attention`, :func:`local_mla_attention`): DTensor has no
 sharding rule for them.  So do a prefill's ring cache
-(:func:`_local_prefill_cache`) and a decode step's in-place writes and
-attention to the cache (:func:`_local_decode`), on the local tensors.  A cross layer's K and V come from the memory,
-which is sharded over the batch axes and replicated over ``model``.
+(:func:`_local_prefill_cache`, :func:`_local_mla_cache`) and a decode
+step's in-place writes and attention to the cache (:func:`_local_decode`,
+:func:`_local_mla_decode`), on the local tensors.  A cross layer's K and
+V come from the memory, which is sharded over the batch axes and
+replicated over ``model``, and in decode from its cache.
 Under :func:`book_local_problems` the mesh hooks book the local problem
 each kernel call is handed (the dry run's kernel products).
 """
@@ -592,21 +594,21 @@ class Attention(nn.Module):
         ``k``; otherwise they are the cache's.  Every mode attends through
         the kernel (``causal=False``; Sq = 1 in decode).  The cache is
         ``{"k", "v"}`` at the memory's length; y is scaled by
-        tanh(gate).  ``mesh``: training on a mesh, x (sequence-sharded
-        under sequence parallelism: gathered after the norm) and the
-        memory DTensors over the batch axes; q, k and v constrained by
-        head (:func:`constrain_heads`), the kernel on each device's block
-        (:func:`local_attention`, Sq against the memory's Skv), ``wo``'s
-        float32 partial sums over ``model`` reduced to x's layout (an
-        all-reduce, or a reduce-scatter under sequence parallelism) and
-        rounded before the gate scales them."""
+        tanh(gate).  ``mesh``: on a mesh, x (sequence-sharded under
+        sequence parallelism in training: gathered after the norm) and
+        the memory DTensors over the batch axes; q, k and v constrained
+        by head (:func:`constrain_heads`; in decode k and v are the
+        cache's, placed by :func:`~repro_torch.models.model.cache_specs`),
+        the kernel on each device's block (:func:`local_attention`, Sq
+        against the memory's Skv, Sq = 1 in decode; where the kv heads do
+        not divide ``model``, each device's q heads read the kv heads of
+        the global group map, :func:`kv_heads_read`), ``wo``'s float32
+        partial sums over ``model`` reduced to x's layout (an all-reduce,
+        or a reduce-scatter under sequence parallelism) and rounded
+        before the gate scales them."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"mode {mode!r}: 'train', 'prefill' or "
                              f"'decode'")
-        if mesh is not None and mode != "train":
-            raise NotImplementedError(
-                "on a mesh this layer trains only; its prefill and decode "
-                "cells are ROADMAP queue 1 item 1, step 3b")
         h = gather_seq(rms_norm(x, self.norm, self.cfg.norm_eps))
         q = constrain_heads(_project(h, cast_weight(self, "wq", h.dtype)),
                             mesh)
@@ -843,22 +845,23 @@ class MLA(nn.Module):
         the slots).  ``rope_tab``: the positions' :func:`rope_table` at
         qk_rope.  Prefill and training attend through the flash-attention
         kernel, the value head zero-padded to the q/k head; decode attends
-        the cache in plain torch, masked to ``kv_len = pos + 1`` (under
-        the ``prob_bf16`` perf flag with bf16 operands as the reference's
-        jnp route attends then, :func:`~repro_torch.kernels.ref.
-        attention_prob_bf16_ref`).  ``mesh``: training on a mesh, as the
-        reference's ``apply_mla`` runs there: q and the expanded kv
-        constrained by head (:func:`constrain_heads`), the kernels on
-        each device's heads (:func:`local_mla_attention`), ``wo``'s
-        product a partial sum over ``model`` for the block to reduce.
-        Returns ``(y (B, S, M), cache)``, the cache None in training."""
+        the cache in plain torch, masked to ``kv_len = pos + 1``
+        (:func:`_mla_decode`).  ``mesh``: on a mesh, as the reference's
+        ``apply_mla`` runs there: q and the expanded kv constrained by
+        head (:func:`constrain_heads`), the kernels on each device's
+        heads (:func:`local_mla_attention`); a prefill's cache, the
+        latents ``ckv`` and ``krope``, over the batch axes and replicated
+        over ``model`` (:func:`_local_mla_cache`); a decode step writes
+        each device's cache and expands K and V with its block of
+        ``wkv_b``'s heads (:func:`_local_mla_decode`); ``wo``'s product a
+        partial sum over ``model`` for the block to reduce.  Returns ``(y
+        (B, S, M), cache)``, the cache None in training."""
         cfg, mla = self.cfg, self.cfg.mla
         b, s, _ = x.shape
         nope, r = mla.qk_nope, mla.qk_rope
-        if mesh is not None and mode != "train":
-            raise NotImplementedError(
-                "on a mesh this layer trains only; its prefill and decode "
-                "cells are ROADMAP queue 1 item 1, step 3b")
+        if mode not in ("train", "prefill", "decode"):
+            raise ValueError(f"mode {mode!r}: 'train', 'prefill' or "
+                             f"'decode'")
         hidden = gather_seq(rms_norm(x, self.norm, cfg.norm_eps))
         dt = hidden.dtype
         if rope_tab is None:
@@ -873,57 +876,125 @@ class MLA(nn.Module):
         c_kv = rms_norm(kv_a[..., :mla.kv_lora], self.kv_norm, cfg.norm_eps)
         k_rope = apply_rope(kv_a[:, None, :, mla.kv_lora:], rope_tab)
         scale = (nope + r) ** -0.5
-        if mesh is not None:
-            kv = constrain_heads(_project(c_kv, cast_weight(self, "wkv_b",
-                                                            dt)), mesh)
-            out = local_mla_attention(q, kv, k_rope, mesh, nope=nope,
-                                      scale=scale)
-            new_cache = None
-        elif mode == "decode":
-            pos = positions.reshape(b).to(torch.int64)
-            rows = torch.arange(b, device=x.device)
-            ckv, krope = cache["ckv"], cache["krope"]
-            ckv[rows, pos] = c_kv[:, 0]
-            krope[rows, pos] = k_rope[:, 0, 0]
-            new_cache = {"ckv": ckv, "krope": krope}
-            k, v = self._expand(ckv, krope[:, None])
-            if flags().prob_bf16 and q.dtype == torch.bfloat16:
-                # the reference's jnp route with kv_len under the flag
-                out = attention_prob_bf16_ref(
-                    q, k, v, causal=False, kv_len=pos + 1, scale=scale)[0]
-            else:
-                live = torch.arange(ckv.shape[1],
-                                    device=x.device)[None, :] <= pos[:, None]
-                logits = (q.float() @ k.float().transpose(-1, -2)) * scale
-                logits = torch.where(live[:, None, None, :], logits, -1e30)
-                out = (torch.softmax(logits, dim=-1) @ v.float()).to(dt)
-        elif mode in ("train", "prefill"):
-            k, v = self._expand(c_kv, k_rope)
-            out = ops.attention(q, k, v, causal=True, scale=scale)
-            new_cache = None
-            if mode == "prefill":
-                pad = max(0, (cache_slots or s) - s)
-                new_cache = {"ckv": F.pad(c_kv, (0, 0, 0, pad)).contiguous(),
-                             "krope": F.pad(k_rope[:, 0],
-                                            (0, 0, 0, pad)).contiguous()}
+        wkv_b = cast_weight(self, "wkv_b", dt)
+        new_cache = None
+        if mode == "decode":
+            args = (q, c_kv, k_rope, positions, cache["ckv"],
+                    cache["krope"], wkv_b)
+            out = (_mla_decode(*args, nope=nope, scale=scale) if mesh is None
+                   else _local_mla_decode(*args, mesh, nope=nope,
+                                          scale=scale))
+            new_cache = {"ckv": cache["ckv"], "krope": cache["krope"]}
         else:
-            raise ValueError(f"mode {mode!r}: 'train', 'prefill' or "
-                             f"'decode'")
+            if mesh is not None:
+                kv = constrain_heads(_project(c_kv, wkv_b), mesh)
+                out = local_mla_attention(q, kv, k_rope, mesh, nope=nope,
+                                          scale=scale)
+            else:
+                k, v = _expand_kv(c_kv, k_rope, wkv_b, nope)
+                out = ops.attention(q, k, v, causal=True, scale=scale)
+            if mode == "prefill":
+                slots = max(s, cache_slots or s)
+                new_cache = (_mla_cache(c_kv, k_rope, slots) if mesh is None
+                             else _local_mla_cache(c_kv, k_rope, slots,
+                                                   mesh))
         hv = out.shape[1] * out.shape[3]
         y = branch_out(out.transpose(1, 2).reshape(b, s, hv),
                        cast_weight(self, "wo", out.dtype).reshape(hv, -1))
         return y, new_cache
 
-    def _expand(self, c_kv, k_rope):
-        """K (B, H, T, qk_nope + qk_rope) and V (B, H, T, v_head) from the
-        latents (B, T, kv_lora) and the shared rotated key (B, 1, T,
-        qk_rope)."""
-        nope = self.cfg.mla.qk_nope
-        kv = _project(c_kv, cast_weight(self, "wkv_b", c_kv.dtype))
-        k_nope = kv[..., :nope]
-        k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:-1], -1)
-                       .to(k_nope.dtype)], dim=-1)
-        return k, kv[..., nope:]
+
+def _expand_kv(c_kv, k_rope, wkv_b, nope: int):
+    """MLA's K (B, H, T, qk_nope + qk_rope) and V (B, H, T, v_head) from
+    the latents (B, T, kv_lora), the shared rotated key (B, 1, T,
+    qk_rope) and ``wkv_b`` (kv_lora, H, qk_nope + v_head) in the
+    latents' dtype (a device's block of its heads on a mesh)."""
+    kv = _project(c_kv, wkv_b)
+    k_nope = kv[..., :nope]
+    k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:-1], -1)
+                   .to(k_nope.dtype)], dim=-1)
+    return k, kv[..., nope:]
+
+
+def _mla_cache(c_kv, k_rope, slots: int):
+    """A prefill's MLA cache: the latents (B, S, kv_lora) and the rotated
+    shared key (B, 1, S, qk_rope) as ``ckv`` (B, slots, kv_lora) and
+    ``krope`` (B, slots, qk_rope), zero-padded past S."""
+    pad = slots - c_kv.shape[1]
+    return {"ckv": F.pad(c_kv, (0, 0, 0, pad)).contiguous(),
+            "krope": F.pad(k_rope[:, 0], (0, 0, 0, pad)).contiguous()}
+
+
+def _local_mla_cache(c_kv, k_rope, slots: int, mesh):
+    """:func:`_mla_cache` on each device's block of the DTensors c_kv and
+    k_rope (over the batch axes, replicated over ``model``), through
+    ``local_map``: the cache placed as c_kv.  No bytes move."""
+    from torch.distributed.tensor.experimental import local_map
+
+    cp = tuple(c_kv.placements)
+
+    def run(cl, kl):
+        c = _mla_cache(cl, kl, slots)
+        return c["ckv"], c["krope"]
+
+    ckv, krope = local_map(run, out_placements=(cp, cp),
+                           in_placements=(cp, tuple(k_rope.placements)),
+                           device_mesh=mesh)(c_kv, k_rope)
+    return {"ckv": ckv, "krope": krope}
+
+
+def _mla_decode(q, c_kv, k_rope, positions, ckv, krope, wkv_b, *, nope: int,
+               scale: float):
+    """One MLA decode step on (a device's block of) the tensors: the new
+    latent c_kv (B, 1, kv_lora) and rotated key k_rope (B, 1, 1,
+    qk_rope) written into the cache ``ckv`` / ``krope`` in place at slot
+    = position, K and V expanded from the whole cache with ``wkv_b``
+    (:func:`_expand_kv`), and q (B, H, 1, qk_nope + qk_rope) attending it
+    in plain torch masked to ``kv_len = pos + 1`` (under the
+    ``prob_bf16`` perf flag with bf16 operands as the reference's jnp
+    route attends then, :func:`~repro_torch.kernels.ref.
+    attention_prob_bf16_ref`).  Returns the output (B, H, 1, v_head)."""
+    b = q.shape[0]
+    pos = positions.reshape(b).to(torch.int64)
+    rows = torch.arange(b, device=q.device)
+    ckv[rows, pos] = c_kv[:, 0]
+    krope[rows, pos] = k_rope[:, 0, 0]
+    k, v = _expand_kv(ckv, krope[:, None], wkv_b, nope)
+    if flags().prob_bf16 and q.dtype == torch.bfloat16:
+        # the reference's jnp route with kv_len under the flag
+        return attention_prob_bf16_ref(q, k, v, causal=False,
+                                       kv_len=pos + 1, scale=scale)[0]
+    live = torch.arange(ckv.shape[1], device=q.device)[None, :] \
+        <= pos[:, None]
+    logits = (q.float() @ k.float().transpose(-1, -2)) * scale
+    logits = torch.where(live[:, None, None, :], logits, -1e30)
+    return (torch.softmax(logits, dim=-1) @ v.float()).to(q.dtype)
+
+
+def _local_mla_decode(q, c_kv, k_rope, positions, ckv, krope, wkv_b, mesh,
+                      *, nope: int, scale: float):
+    """:func:`_mla_decode` on each device's block through ``local_map``:
+    q (B, H, 1, D) by head over ``model`` where H divides it, the new
+    latents and key, positions (B, 1) and the cache (placed by
+    :func:`~repro_torch.models.model.cache_specs`: over the batch axes,
+    replicated over ``model``) by rows; the writes land on each device's
+    local cache tensors, and each device expands K and V with its block
+    of ``wkv_b``'s heads (placed as q's heads).  Returns the output
+    placed as q."""
+    from torch.distributed.tensor.experimental import local_map
+
+    qp = tuple(q.placements)
+    if any(a.is_shard(0) != c.is_shard(0)
+           for a, c in zip(qp, ckv.placements)):
+        raise NotImplementedError(
+            f"MLA decode on a mesh: q's batch placements {qp} are not the "
+            f"cache's {tuple(ckv.placements)}")
+    args = (q, c_kv, k_rope, positions, ckv, krope, wkv_b)
+    fn = local_map(functools.partial(_mla_decode, nope=nope, scale=scale),
+                   out_placements=(qp,),
+                   in_placements=tuple(tuple(t.placements) for t in args),
+                   device_mesh=mesh)
+    return fn(*args)
 
 
 def gelu(x):

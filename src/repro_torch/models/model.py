@@ -303,39 +303,70 @@ class ModelBundle:
         return {name: resolve_specs(axes, rules, mesh, shape)
                 for name, shape, _, axes in _meta_params(self.cfg)}
 
-    def cache_shapes(self, batch: int, slots: int) -> list:
+    def cache_shapes(self, batch: int, slots: int, memory_len=None):
         """The cache that a prefill of ``batch`` rows with ``cache_slots=
         slots`` returns, as meta tensors (shape and dtype, nothing
         allocated): per layer ``{"mixer": ...}``, an attention layer's
         ``k`` / ``v`` (B, Hkv, slots, D) bf16 and ``kpos`` (B, slots)
-        int32, an SSD layer's ``conv`` (B, d_conv - 1, conv_dim) bf16 and
-        ``state`` (B, H, N, P) float32, an RG-LRU layer's ``conv`` (B,
-        d_conv - 1, W) bf16 and ``state`` (B, W) float32.  The families
-        that serve on a mesh only (MLA and the cross layers raise)."""
+        int32, MLA's ``ckv`` (B, slots, kv_lora) and ``krope`` (B, slots,
+        qk_rope) bf16, an SSD layer's ``conv`` (B, d_conv - 1, conv_dim)
+        bf16 and ``state`` (B, H, N, P) float32, an RG-LRU layer's
+        ``conv`` (B, d_conv - 1, W) bf16 and ``state`` (B, W) float32, a
+        cross layer's ``k`` / ``v`` (B, max(1, Hkv), T, D) bf16 at the
+        memory's length ``memory_len`` = T (no ``kpos``); a ``dec_xattn``
+        layer's ``{"mixer": self-attention, "cross": cross}``.  A config
+        that takes a memory (an encoder or a vision config) needs
+        ``memory_len``, and its cache is ``{"layers": [...],
+        "enc_memory": (B, T, M) bf16}``."""
         cfg = self.cfg
         meta = functools.partial(torch.empty, device="meta")
         bf16 = torch.bfloat16
+        takes_memory = cfg.encoder is not None or cfg.vision is not None
+        if takes_memory and memory_len is None:
+            raise ValueError(f"{cfg.name}: the cache of a memory config "
+                             f"needs memory_len")
+        dh = cfg.resolved_head_dim
+
+        def attn(n_slots, kpos=True):
+            heads = cfg.n_kv_heads if kpos else max(1, cfg.n_kv_heads)
+            kv = (batch, heads, n_slots, dh)
+            c = {"k": meta(kv, dtype=bf16), "v": meta(kv, dtype=bf16)}
+            if kpos:
+                c["kpos"] = meta((batch, n_slots), dtype=torch.int32)
+            return c
+
         out = []
         for kind in layer_plan(cfg).kinds:
-            if kind == "attn" and cfg.mla is None:
-                kv = (batch, cfg.n_kv_heads, slots, cfg.resolved_head_dim)
-                c = {"k": meta(kv, dtype=bf16), "v": meta(kv, dtype=bf16),
-                     "kpos": meta((batch, slots), dtype=torch.int32)}
+            if kind == "attn" and cfg.mla is not None:
+                mla = cfg.mla
+                layer = {"mixer": {
+                    "ckv": meta((batch, slots, mla.kv_lora), dtype=bf16),
+                    "krope": meta((batch, slots, mla.qk_rope), dtype=bf16)}}
+            elif kind == "attn":
+                layer = {"mixer": attn(slots)}
+            elif kind == "xattn":
+                layer = {"mixer": attn(memory_len, kpos=False)}
+            elif kind == "dec_xattn":
+                layer = {"mixer": attn(slots),
+                         "cross": attn(memory_len, kpos=False)}
             elif kind == "ssd":
                 shapes = ssd_block_cache_shape(cfg, batch)
-                c = {"conv": meta(shapes["conv"], dtype=bf16),
-                     "state": meta(shapes["state"], dtype=torch.float32)}
+                layer = {"mixer": {
+                    "conv": meta(shapes["conv"], dtype=bf16),
+                    "state": meta(shapes["state"], dtype=torch.float32)}}
             elif kind == "rglru":
                 w = cfg.rglru.lru_width or cfg.d_model
-                c = {"conv": meta((batch, cfg.rglru.d_conv - 1, w),
-                                  dtype=bf16),
-                     "state": meta((batch, w), dtype=torch.float32)}
+                layer = {"mixer": {
+                    "conv": meta((batch, cfg.rglru.d_conv - 1, w),
+                                 dtype=bf16),
+                    "state": meta((batch, w), dtype=torch.float32)}}
             else:
-                raise NotImplementedError(
-                    f"{cfg.name}: cache shapes of {kind!r} layers"
-                    f"{' with MLA' if cfg.mla is not None else ''}")
-            out.append({"mixer": c})
-        return out
+                raise ValueError(f"{cfg.name}: block kind {kind!r}")
+            out.append(layer)
+        if not takes_memory:
+            return out
+        return {"layers": out, "enc_memory": meta(
+            (batch, memory_len, cfg.d_model), dtype=bf16)}
 
     @torch.no_grad()
     def prefill(self, params: Model, tokens, *, memory=None,

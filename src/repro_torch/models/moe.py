@@ -26,8 +26,9 @@ and ``moe_3d`` in the mesh dispatch (``:238``); with one device
 ``apply_moe`` runs ``_dense_path`` (``:266-270``), so neither changes a
 bit there, and the port's bins already run in the activation dtype.
 
-On a mesh (``MoE.forward(..., mesh=...)``, a ``DeviceMesh``; training)
-the block dispatches as the reference's ``apply_moe`` (``:209-272``):
+On a mesh (``MoE.forward(..., mesh=...)``, a ``DeviceMesh``; training and
+serving) the block dispatches as the reference's ``apply_moe``
+(``:209-272``):
 
 * where the mesh has ``model``, more than one device and B S divides
   over the devices, the expert-parallel all-to-all path: each device's
@@ -38,24 +39,38 @@ the block dispatches as the reference's ``apply_moe`` (``:209-272``):
   those divide B and S, and are flattened inside the body; otherwise
   the flattened (B S, M) tokens are sharded over every axis in mesh
   order (DTensor's ``Shard(0)`` on each mesh dim, the reference's
-  ``P(all_axes)``);
-* elsewhere on a mesh of more than one device,
-  :func:`_global_scatter_path` on the replicated tokens and weights
-  (the reference's ``:174-198``, which GSPMD places);
+  ``P(all_axes)``).  A prefill takes this path (``with_aux=False``: no
+  balance loss, so none of its means);
+* elsewhere on a mesh of more than one device (a decode step's tokens),
+  the global scatter path laid out as the reference's compiled program
+  lays it out (:meth:`MoE._scatter_on_mesh`): the router's logits of
+  each device's rows all-gathered, the picks and slots the same on
+  every device, each device's rows scattered into its experts' float32
+  bins and the bins all-reduced over the batch axes, each device's
+  experts (over ``model`` where their count divides it) on its
+  ``expert_ff`` block (over ``data``) with no expert weight gathered,
+  the output's float32 partial sums all-reduced over ``data``, and each
+  device's tokens combined from its experts, the partial sums over
+  ``model`` reduced in float32;
+* on a mesh of one device, the one-card route on the local tensors, bit
+  for bit the block without a mesh (the reference's ``apply_moe`` takes
+  its meshless route there too);
 * the shared expert is added after either path, its partial sums over
   ``model`` reduced in float32 to the routed output's layout.
 
-A mesh path that cannot run raises; none falls back to the one-card
-route.  The experts are padded with zero experts to ``E_pad``, the next
-multiple of the ``model`` axis (granite's 40 become 48 on 16), and the
-router stays over the real experts.  Where the expert count does not
-divide ``model`` the weights are replicated over it (the reference's
-rules drop the assignment), and each device pads them and takes its
-``E_pad / model`` experts, so their gradient is a partial sum over
-``model``.  Capacity overflow drops, as in the reference: C = ceil(t_loc
-k / E x capacity_factor) rows a bin, t_loc the device's tokens.  The
-picks are combined in float32 in a fixed order, as on one card (no
-float atomics), where the reference adds bf16 rows by a scatter.
+A mesh path of more than one device that cannot run raises; none falls
+back to the one-card route.  On the all-to-all path the experts are
+padded with zero experts to ``E_pad``, the next multiple of the
+``model`` axis (granite's 40 become 48 on 16), and the router stays
+over the real experts.  Where the expert count does not divide
+``model`` the weights are replicated over it (the reference's rules
+drop the assignment), and each device pads them and takes its ``E_pad
+/ model`` experts, so their gradient is a partial sum over ``model``.
+Capacity overflow drops, as in the reference: C = ceil(t k / E x
+capacity_factor) rows a bin, t the device's tokens on the all-to-all
+path, all the step's tokens on the scatter path.  The picks are
+combined in float32 in a fixed order, as on one card (no float
+atomics), where the reference adds bf16 rows by a scatter.
 """
 
 from __future__ import annotations
@@ -71,8 +86,8 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..perf import flags
 from .common import axis_sizes
-from .layers import (MLP, cast_weight, constant, constrain, gather_seq,
-                     rms_norm, truncated_normal)
+from .layers import (MLP, batch_layout, cast_weight, constant, constrain,
+                     gather_seq, rms_norm, truncated_normal)
 
 __all__ = ["MoE", "router_topk", "moe_aux_loss", "capacity", "slot_rule",
            "dispatch", "combine", "expert_mlp", "a2a_body", "Exchange",
@@ -148,17 +163,17 @@ def dispatch(x, top_idx, slot, keep, n_bins: int, cap: int):
     return bins[:dump].view(n_bins, cap, m), index
 
 
-def combine(back, index, top_w, keep):
+def combine(back, index, top_w, keep, dtype=None):
     """sum_j keep top_w[t, j] back[pick (t, j)] for bins ``back`` (n_bins,
     cap, M) and the picks' flat rows ``index`` (:func:`dispatch`): the k
     picks of each token weighted and summed in float32 in a fixed order,
-    in back's dtype."""
+    in ``dtype`` (default back's)."""
     t, k = top_w.shape
     m = back.shape[-1]
     flat = torch.cat([back.reshape(-1, m), back.new_zeros((1, m))])
     picked = flat[index].view(t, k, m).float()
     w = top_w.float() * keep.view(t, k)
-    return (picked * w[..., None]).sum(1).to(back.dtype)
+    return (picked * w[..., None]).sum(1).to(dtype or back.dtype)
 
 
 def _no_tf32():
@@ -252,16 +267,19 @@ class Exchange:
 
     def weights(self, w, dim: int, e_pad: int):
         """An expert weight's block whole in its width, this device's
-        experts of the E_pad."""
+        experts of the E_pad: where the weights hold every real expert,
+        this device's are padded and cut first, so that the gather moves
+        only them (the reference's padded weights, placed over
+        ``model``, are gathered so)."""
         from torch.distributed import _functional_collectives as fc
         gather = getattr(fc, "all_gather_single_autograd",
                          fc.all_gather_tensor_autograd)
-        for g in self.gather_groups:
-            w = gather(w, dim, g)
         if self.slice_experts or self.n_model == 1:
             w = F.pad(w, (0, 0, 0, 0, 0, e_pad - w.shape[0]))
             per = e_pad // self.n_model
             w = w[self.rank * per:(self.rank + 1) * per]
+        for g in self.gather_groups:
+            w = gather(w, dim, g)
         return w
 
     def to_experts(self, bins):
@@ -318,7 +336,7 @@ class _MeshMean(torch.autograd.Function):
 
 
 def a2a_body(cfg: ArchConfig, x, router, w_gate, w_up, w_down, *,
-             cap: int, e_pad: int, ex: Exchange):
+             cap: int, e_pad: int, ex: Exchange, with_aux: bool = True):
     """One device's block of the expert-parallel dispatch (the
     reference's ``_a2a_body``): x (t_loc, M) its tokens, ``router`` (M,
     E), the expert weights its blocks.  The weights are gathered whole
@@ -328,7 +346,9 @@ def a2a_body(cfg: ArchConfig, x, router, w_gate, w_up, w_down, *,
     the bins all-to-all'd to the experts' devices, through
     :func:`expert_mlp`, and back; the picks combined (:func:`combine`).
     The balance loss E sum_e f_e p_e averages f_e and p_e over every
-    mesh axis before the product.  Returns ``(out (t_loc, M), aux)``."""
+    mesh axis before the product; ``with_aux=False`` (serving) forms no
+    balance loss and makes none of its collectives.  Returns ``(out
+    (t_loc, M), aux or None)``."""
     moe = cfg.moe
     wg = ex.weights(w_gate, 2, e_pad)
     wu = ex.weights(w_up, 2, e_pad)
@@ -339,6 +359,8 @@ def a2a_body(cfg: ArchConfig, x, router, w_gate, w_up, w_down, *,
     bins, index = dispatch(x, top_idx, slot, keep, e_pad, cap)
     y = expert_mlp(ex.to_experts(bins), wg, wu, wd).to(x.dtype)
     out = combine(ex.from_experts(y), index, top_w, keep)
+    if not with_aux:
+        return out, None
     f_e = ex.mean(F.one_hot(top_idx[:, 0], moe.n_experts).float().mean(0))
     p_e = ex.mean(probs.mean(0))
     return out, moe.n_experts * (f_e * p_e).sum()
@@ -360,6 +382,44 @@ def _global_scatter_path(cfg: ArchConfig, p, x2d):
     y = expert_mlp(bins, p["w_gate"], p["w_up"], p["w_down"]).to(x2d.dtype)
     out = combine(y, index, top_w, keep)
     return out, moe_aux_loss(probs, top_idx, moe.n_experts)
+
+
+def _route(x2d, top_w, top_idx, w_gate, w_up, w_down):
+    """sum_j top_w[t, j] MLP_{top_idx[t, j]}(x2d[t]) for x2d (T, M) and
+    the experts' weights in x2d's dtype, through bins of T rows per
+    expert (see the module's docstring); in x2d's dtype."""
+    t, m = x2d.shape
+    k = top_idx.shape[1]
+    flat_e = top_idx.reshape(-1)
+    flat_t = torch.arange(t, device=x2d.device).repeat_interleave(k)
+    # each row repeated k times by a broadcast, not a gather: the
+    # gradient sums the k copies as a reduction in a fixed order (a
+    # gather's backward adds them with atomics, in any order on the
+    # card), so a train step gives the same bits every time
+    rows = x2d[:, None, :].expand(t, k, m).reshape(t * k, m)
+    bins = x2d.new_zeros((w_gate.shape[0], t, m)).index_put_(
+        (flat_e, flat_t), rows)
+    # F.silu rounds once, where layers.silu rounds every step as the
+    # reference does: its four more passes would run over bins of E/k
+    # times the routed rows, and on an H100 they moved granite's batched
+    # decode a bf16 step (0.0625) off its solo run, past the serving
+    # rule's 0.05
+    hidden = F.silu(torch.bmm(bins, w_gate)) * torch.bmm(bins, w_up)
+    out = torch.bmm(hidden, w_down)
+    picked = out[flat_e, flat_t].view(t, k, m).float()
+    return (picked * top_w[..., None]).sum(1).to(x2d.dtype)
+
+
+def _block_index(placements_, mesh) -> int:
+    """This rank's block of a tensor's dim 0 split by ``Shard(0)`` on the
+    mesh dims where ``placements_`` has it, in mesh-dim order (the order
+    in which DTensor cuts it)."""
+    coord = mesh.get_coordinate()
+    idx = 0
+    for i, p in enumerate(placements_):
+        if p.is_shard(0):
+            idx = idx * mesh.size(i) + coord[i]
+    return idx
 
 
 class MoE(nn.Module):
@@ -390,63 +450,74 @@ class MoE(nn.Module):
     def forward(self, x, with_aux: bool = True, mesh=None):
         """x (B, S, M) -> ``(y (B, S, M), aux loss x router_aux_weight)``,
         the aux None unless ``with_aux`` (serving reads none).  ``mesh``:
-        training on a mesh, x and the weights DTensors (see the module's
+        on a mesh, x and the weights DTensors (see the module's
         docstring)."""
         cfg, moe = self.cfg, self.cfg.moe
         b, s, m = x.shape
-        if mesh is not None:
-            y, aux = self._mesh_dispatch(x, mesh)
-            return y, aux * moe.router_aux_weight
+        if mesh is not None and mesh.size() > 1:
+            y, aux = self._mesh_dispatch(x, mesh, with_aux)
+            return y, (aux * moe.router_aux_weight if with_aux else None)
         h = rms_norm(x, self.norm, cfg.norm_eps)
-        x2d = h.reshape(b * s, m)
-        logits = x2d @ cast_weight(self, "router", x2d.dtype)
-        probs, top_w, top_idx = router_topk(cfg, logits)
-        y = self.route(x2d, top_w, top_idx).view(b, s, m)
+        if mesh is not None:
+            y, aux = self._on_one_device(h, mesh, with_aux)
+        else:
+            x2d = h.reshape(b * s, m)
+            logits = x2d @ cast_weight(self, "router", x2d.dtype)
+            probs, top_w, top_idx = router_topk(cfg, logits)
+            y = self.route(x2d, top_w, top_idx).view(b, s, m)
+            aux = moe_aux_loss(probs, top_idx, moe.n_experts) \
+                if with_aux else None
         if self.shared is not None:
             y = y + self.shared(h, skip_norm=True)
-        if not with_aux:
-            return y, None
-        aux = moe_aux_loss(probs, top_idx, moe.n_experts)
-        return y, aux * moe.router_aux_weight
+        return y, (aux * moe.router_aux_weight if with_aux else None)
 
     def route(self, x2d, top_w, top_idx):
         """sum_j top_w[t, j] MLP_{top_idx[t, j]}(x2d[t]) for x2d (T, M),
         through bins of T rows per expert; in x2d's dtype."""
-        t, m = x2d.shape
-        k = top_idx.shape[1]
-        flat_e = top_idx.reshape(-1)
-        flat_t = torch.arange(t, device=x2d.device).repeat_interleave(k)
-        # each row repeated k times by a broadcast, not a gather: the
-        # gradient sums the k copies as a reduction in a fixed order (a
-        # gather's backward adds them with atomics, in any order on the
-        # card), so a train step gives the same bits every time
-        rows = x2d[:, None, :].expand(t, k, m).reshape(t * k, m)
-        bins = x2d.new_zeros((self.cfg.moe.n_experts, t, m)).index_put_(
-            (flat_e, flat_t), rows)
         dt = x2d.dtype
-        # F.silu rounds once, where layers.silu rounds every step as the
-        # reference does: its four more passes would run over bins of
-        # E/k times the routed rows, and on an H100 they moved granite's
-        # batched decode a bf16 step (0.0625) off its solo run, past the
-        # serving rule's 0.05
-        hidden = F.silu(torch.bmm(bins, cast_weight(self, "w_gate", dt))) \
-            * torch.bmm(bins, cast_weight(self, "w_up", dt))
-        out = torch.bmm(hidden, cast_weight(self, "w_down", dt))
-        picked = out[flat_e, flat_t].view(t, k, m).float()
-        return (picked * top_w[..., None]).sum(1).to(dt)
+        return _route(x2d, top_w, top_idx,
+                      *(cast_weight(self, n, dt)
+                        for n in ("w_gate", "w_up", "w_down")))
+
+    def _on_one_device(self, h, mesh, with_aux):
+        """The one-card route on a mesh of one device: the router, the
+        top-k and :func:`_route` on the local tensors through
+        ``local_map`` (every placement is ``Replicate()`` there), bit for
+        bit the block without a mesh.  Returns ``(y, aux or None)``."""
+        from torch.distributed.tensor import Replicate
+        from torch.distributed.tensor.experimental import local_map
+
+        cfg = self.cfg
+        b, s, m = h.shape
+        dt = h.dtype
+        rep = (Replicate(),) * mesh.ndim
+
+        def run(hl, router, wg, wu, wd):
+            x2d = hl.reshape(b * s, m)
+            probs, top_w, top_idx = router_topk(cfg, x2d @ router)
+            y = _route(x2d, top_w, top_idx, wg, wu, wd).view(b, s, m)
+            if not with_aux:
+                return (y,)
+            return y, moe_aux_loss(probs, top_idx, cfg.moe.n_experts)
+
+        n_out = 2 if with_aux else 1
+        fn = local_map(run, out_placements=(rep,) * n_out,
+                       in_placements=(rep,) * 5,
+                       in_grad_placements=(rep,) * 5, device_mesh=mesh)
+        out = fn(h, *(cast_weight(self, n, dt) for n in
+                      ("router", "w_gate", "w_up", "w_down")))
+        return out[0], (out[1] if with_aux else None)
 
     # ---- on a mesh ------------------------------------------------------
 
-    def _mesh_dispatch(self, x, mesh):
-        """The reference's ``apply_moe`` dispatch on a mesh for the DTensor
-        x (B, S, M), normed first: ``(y, aux)``, y a DTensor laid out as
-        the routed path leaves it, aux a replicated 0-d DTensor."""
+    def _mesh_dispatch(self, x, mesh, with_aux: bool):
+        """The reference's ``apply_moe`` dispatch on a mesh of more than
+        one device for the DTensor x (B, S, M), normed first: ``(y,
+        aux)``, y a DTensor laid out as the routed path leaves it, aux a
+        replicated 0-d DTensor, or None unless ``with_aux``."""
         b, s, m = x.shape
         sizes = axis_sizes(mesh)
         n_dev = int(np.prod(list(sizes.values())))
-        if n_dev == 1:
-            raise ValueError("a one-device mesh trains through the plain "
-                             "step (mesh=None)")
         h = rms_norm(x, self.norm, self.cfg.norm_eps)
         batch_axes = tuple(a for a in ("pod", "data") if a in sizes)
         nb = int(np.prod([sizes[a] for a in batch_axes])) \
@@ -455,16 +526,16 @@ class MoE(nn.Module):
             ep = sizes["model"]
             if flags().moe_3d and b % nb == 0 and s % ep == 0:
                 x3 = constrain(h, mesh, (batch_axes or None, "model", None))
-                y, aux = self._a2a(x3, mesh, n_dev)
+                y, aux = self._a2a(x3, mesh, n_dev, with_aux)
             else:
                 # the (B S, M) tokens over every axis, in mesh order
                 bspec = batch_axes if (batch_axes and b % nb == 0) else None
                 hb = constrain(h, mesh, (bspec, None, None))
                 x2d = constrain(hb.reshape(b * s, m), mesh, (tuple(sizes),))
-                y2d, aux = self._a2a(x2d, mesh, n_dev)
+                y2d, aux = self._a2a(x2d, mesh, n_dev, with_aux)
                 y = constrain(y2d, mesh, (bspec, None)).reshape(b, s, m)
         else:
-            y, aux = self._scatter_replicated(h, mesh)
+            y, aux = self._scatter_on_mesh(h, mesh, with_aux)
         if self.shared is not None:
             ys = self.shared(gather_seq(h), skip_norm=True)
             y = y + ys.redistribute(mesh, y.placements).to(y.dtype)
@@ -473,7 +544,7 @@ class MoE(nn.Module):
     def _expert_placements(self, mesh):
         """``(weights' placements, their gradients', gather axes,
         slice_experts)`` of the expert weights on ``mesh``."""
-        from torch.distributed.tensor import Partial, Shard
+        from torch.distributed.tensor import Partial
 
         names = mesh.mesh_dim_names
         md = names.index("model")
@@ -485,21 +556,29 @@ class MoE(nn.Module):
         gather = tuple(a for i, a in enumerate(names)
                        if a != "model" and any(q.is_shard() for q in
                                                (p[i] for p in pl)))
+        self._check_placements(pl, md)
+        return pl, grads, gather, sliced
+
+    def _check_placements(self, pl, md):
+        """Raises unless each expert weight's placements ``pl`` split its
+        experts over the mesh dim ``md`` (``model``) and its width
+        (``expert_ff``) over the others, or replicate them."""
+        from torch.distributed.tensor import Shard
+
         for p, width in zip(pl, (2, 2, 1)):
             for i, q in enumerate(p):
                 if q.is_shard() and q != (Shard(0) if i == md else
                                           Shard(width)):
                     raise NotImplementedError(
                         f"{self.cfg.name}: expert weights placed {p}")
-        return pl, grads, gather, sliced
 
-    def _a2a(self, x, mesh, n_dev):
+    def _a2a(self, x, mesh, n_dev, with_aux: bool):
         """:func:`a2a_body` on each device's block of x (a DTensor, (t, M)
         or (B, S, M)) through ``local_map``: x's gradient at its own
         placements, the router's a partial sum over every axis, the
         expert weights' at their placements (a partial sum over
         ``model`` where each device took its experts of replicated
-        weights)."""
+        weights).  ``with_aux=False``: the output alone, aux None."""
         from torch.distributed.tensor import Partial, Replicate
         from torch.distributed.tensor.experimental import local_map
 
@@ -514,38 +593,158 @@ class MoE(nn.Module):
         def run(xl, router, wg, wu, wd):
             lead = xl.shape[:-1]
             out, aux = a2a_body(cfg, xl.reshape(-1, xl.shape[-1]), router,
-                                wg, wu, wd, cap=cap, e_pad=e_pad, ex=ex)
-            return out.view(*lead, -1), aux
+                                wg, wu, wd, cap=cap, e_pad=e_pad, ex=ex,
+                                with_aux=with_aux)
+            out = out.view(*lead, -1)
+            return (out, aux) if with_aux else (out,)
 
         rep = (Replicate(),) * mesh.ndim
-        fn = local_map(run, out_placements=(xp, rep),
+        fn = local_map(run, out_placements=(xp, rep) if with_aux else (xp,),
                        in_placements=(xp, rep, *pl),
                        in_grad_placements=(xp, (Partial(),) * mesh.ndim,
                                            *grads),
                        device_mesh=mesh)
-        return fn(x, self.router, self.w_gate, self.w_up, self.w_down)
+        out = fn(x, self.router, self.w_gate, self.w_up, self.w_down)
+        return out[0], (out[1] if with_aux else None)
 
-    def _scatter_replicated(self, h, mesh):
+    def _scatter_on_mesh(self, h, mesh, with_aux: bool):
         """:func:`_global_scatter_path` where the tokens do not divide
-        over the devices: tokens and weights replicated, every device
-        computes the whole layer (the reference leaves this layout to
-        GSPMD)."""
-        from torch.distributed.tensor import Replicate
+        over the devices (a decode step's), laid out as the reference's
+        compiled program lays it out (GSPMD's placement of its
+        ``_global_scatter_path``): no expert weight moves.  Five steps,
+        each on the local blocks through ``local_map``:
+
+        1. the router's logits of each device's rows of the (T, M) tokens
+           (the batch over ``pod`` / ``data`` where it divides), in
+           float32, all-gathered over the batch axes;
+        2. the top-k, the slots (:func:`slot_rule`, the capacity of all T
+           tokens) and the kept picks, the same on every device;
+        3. each device's rows scattered into the float32 bins of its
+           experts (E / model of them where E divides ``model``, else
+           all E), the bins' partial sums all-reduced over the batch axes
+           (each bin row has one token: the sum is exact);
+        4. :func:`expert_mlp` on the device's experts and its
+           ``expert_ff`` block (over ``data``): the output's float32
+           partial sums all-reduced over those axes, rounded to x's dtype
+           after the reduction;
+        5. each device's tokens combined from its experts' rows in
+           float32 in the picks' fixed order, the partial sums over
+           ``model`` (where the experts are split there) all-reduced in
+           float32, rounded to x's dtype.
+
+        The gradients follow from the placements (DTensor's
+        redistributions and ``local_map``'s gradient placements).
+        Returns ``(y (B, S, M) over the batch axes, aux or None)``."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
         from torch.distributed.tensor.experimental import local_map
 
-        cfg = self.cfg
+        cfg, moe = self.cfg, self.cfg.moe
         b, s, m = h.shape
+        t, k, n_e = b * s, moe.top_k, moe.n_experts
+        cap = capacity(t, moe)
+        dt = h.dtype
+        x2d = batch_layout(h, mesh).reshape(t, m)
+        xp = tuple(x2d.placements)
         rep = (Replicate(),) * mesh.ndim
-        names = ("router", "w_gate", "w_up", "w_down")
-        ws = [getattr(self, n).redistribute(mesh, rep) for n in names]
-        x2d = h.redistribute(mesh, rep).reshape(b * s, m)
+        rows_split = [p.is_shard(0) for p in xp]
+        t_loc = t // int(np.prod([mesh.size(i) for i, r in
+                                  enumerate(rows_split) if r] or [1]))
+        t0 = _block_index(xp, mesh) * t_loc
+        names = mesh.mesh_dim_names
+        md = names.index("model") if "model" in names else None
+        wp = [tuple(getattr(self, n).placements)
+              for n in ("w_gate", "w_up", "w_down")]
+        split = md is not None and wp[0][md].is_shard()
+        e_loc = n_e // mesh.size(md) if split else n_e
+        e0 = mesh.get_local_rank(md) * e_loc if split else 0
+        self._check_placements(wp, md)
+        if split and rows_split[md]:
+            raise NotImplementedError(
+                f"{self.cfg.name}: the scatter path with the tokens and the "
+                f"experts both split over model")
+        ff_split = [q.is_shard() and i != md for i, q in enumerate(wp[0])]
+        on_model = lambda i: Shard(0) if (split and i == md) else Replicate()
+        mine = slice(t0, t0 + t_loc)
 
-        def run(xl, *wl):
-            return _global_scatter_path(cfg, dict(zip(names, wl)), xl)
+        def local_picks(top_idx, slot, keep):
+            idx = top_idx[mine]
+            sl = slot.view(t, k)[mine]
+            kp = keep.view(t, k)[mine] & (idx >= e0) & (idx < e0 + e_loc)
+            return idx - e0, sl, kp
 
-        fn = local_map(run, out_placements=(rep, rep),
-                       in_placements=(rep,) * 5,
-                       in_grad_placements=(rep,) * 5, device_mesh=mesh)
-        out, aux = fn(x2d, *ws)
-        return out.reshape(b, s, m), aux
+        # 1. the router's logits, all-gathered over the batch axes
+        logits = local_map(
+            lambda xl, r: (xl @ r.to(xl.dtype)).float(),
+            out_placements=(xp,), in_placements=(xp, rep),
+            in_grad_placements=(xp, tuple(Partial() if r else Replicate()
+                                          for r in rows_split)),
+            device_mesh=mesh)(x2d, self.router).redistribute(mesh, rep)
 
+        # 2. the picks, the same on every device
+        def pick(lg):
+            probs, top_w, top_idx = router_topk(cfg, lg)
+            slot, keep = slot_rule(top_idx, n_e, cap)
+            return probs, top_w, top_idx, slot, keep
+
+        probs, top_w, top_idx, slot, keep = local_map(
+            pick, out_placements=(rep,) * 5, in_placements=(rep,),
+            device_mesh=mesh)(logits)
+
+        # 3. each device's rows into its experts' float32 bins
+        def scatter(xl, ti, sl, kp):
+            idx, slot_l, keep_l = local_picks(ti, sl, kp)
+            return dispatch(xl.float(), idx, slot_l.reshape(-1),
+                            keep_l.reshape(-1), e_loc, cap)[0]
+
+        bins = local_map(
+            scatter, out_placements=(tuple(
+                Partial() if rows_split[i] else on_model(i)
+                for i in range(mesh.ndim)),),
+            in_placements=(xp, rep, rep, rep),
+            in_grad_placements=(tuple(
+                Partial() if (split and i == md) else xp[i]
+                for i in range(mesh.ndim)), rep, rep, rep),
+            device_mesh=mesh)(x2d, top_idx, slot, keep)
+        bins = bins.redistribute(mesh, tuple(on_model(i)
+                                             for i in range(mesh.ndim)))
+
+        # 4. the experts where they lie, the partial sums over expert_ff
+        bp = tuple(bins.placements)
+        y = local_map(
+            expert_mlp, out_placements=(tuple(
+                Partial() if ff_split[i] else bp[i]
+                for i in range(mesh.ndim)),),
+            in_placements=(bp, *wp),
+            in_grad_placements=(tuple(Partial() if ff_split[i] else bp[i]
+                                      for i in range(mesh.ndim)), *wp),
+            device_mesh=mesh)(bins, self.w_gate, self.w_up, self.w_down)
+        y = y.redistribute(mesh, bp).to(dt)
+
+        # 5. each device's tokens from its experts' rows
+        def gather_back(yl, tw, ti, sl, kp):
+            idx, slot_l, keep_l = local_picks(ti, sl, kp)
+            index = torch.where(keep_l, idx * cap + slot_l, e_loc * cap)
+            return combine(yl, index.reshape(-1), tw[mine], keep_l,
+                           dtype=torch.float32)
+
+        model_partial = tuple(
+            Partial() if (split and i == md) else
+            (Shard(0) if rows_split[i] else Replicate())
+            for i in range(mesh.ndim))
+        picks_grad = tuple(Partial() if (rows_split[i] or
+                                         (split and i == md))
+                           else Replicate() for i in range(mesh.ndim))
+        out = local_map(
+            gather_back, out_placements=(model_partial,),
+            in_placements=(bp, rep, rep, rep, rep),
+            in_grad_placements=(tuple(Partial() if rows_split[i] else bp[i]
+                                      for i in range(mesh.ndim)),
+                                picks_grad, rep, rep, rep),
+            device_mesh=mesh)(y, top_w, top_idx, slot, keep)
+        out = out.redistribute(mesh, xp).to(dt).reshape(b, s, m)
+        if not with_aux:
+            return out, None
+        aux = local_map(lambda pr, ti: moe_aux_loss(pr, ti, n_e),
+                        out_placements=(rep,), in_placements=(rep, rep),
+                        device_mesh=mesh)(probs, top_idx)
+        return out, aux

@@ -45,7 +45,7 @@ from .rglru import RGLRUBlock
 from .ssm import SSDBlock
 
 __all__ = ["LayerPlan", "layer_plan", "Block", "Encoder", "MTPHead",
-           "Model", "forward", "layers_of", "place_cache", "serves_on_mesh",
+           "Model", "forward", "layers_of", "place_cache",
            "count_params", "model_flops"]
 
 
@@ -119,8 +119,7 @@ class Block(nn.Module):
         MoE): serving reads no aux, so it computes none.  An ``xattn``
         layer given no memory runs as causal self-attention, with no
         window and a cache of the prompt's length, as the reference's
-        does.  ``mesh``: on a mesh (training: every kind; prefill and
-        decode: attention, SSD and RG-LRU); h leaves the block
+        does.  ``mesh``: on a mesh (every kind and mode); h leaves the block
         constrained as the reference's ``_apply_block`` leaves it
         (:meth:`_constrain`)."""
         cache = cache or {}
@@ -335,9 +334,11 @@ def _roll_tokens(tokens, shift: int):
 
 def _embed_on_mesh(tokens, embed, mesh):
     """The embedding lookup of DTensor tokens on a mesh: vocab-parallel
-    (:func:`local_embedding`), its partial sums reduced in the table's
-    dtype to the batch layout, then rounded to bf16."""
-    h = local_embedding(tokens, gather_fsdp(embed), mesh)
+    (:func:`local_embedding`), its partial sums reduced to the batch
+    layout in float32 (one nonzero term an entry: the sum is exact in any
+    dtype; the reference's program reduces them in float32, a bf16
+    table's too), then rounded to bf16."""
+    h = local_embedding(tokens, gather_fsdp(embed), mesh).float()
     return constrain(h, mesh, (tuple(batch_axes_for(
         mesh, h.shape[0], True)) or None, None, None)).to(torch.bfloat16)
 
@@ -415,20 +416,23 @@ def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
     accumulator become replicated DTensors, and the logits leave
     vocab-parallel (sharded over ``model`` where the vocabulary divides
     it) for :func:`~repro_torch.models.model.loss_fn` to take without
-    gathering them.  Prefill and decode on a mesh (the dense GQA, SSD and
-    RG-LRU families; the others raise): ``tokens`` (and ``positions`` in
-    decode) may be the global tensors, which each rank cuts to its rows
-    (:func:`_on_batch`); each block holds h over the batch axes only, as
-    the reference's ``_apply_block`` does outside training; a decode
-    step's rotary table is formed on each device's rows; the cache, in
-    and out, is placed by :func:`~repro_torch.models.model.cache_specs`
-    (:func:`place_cache`)."""
+    gathering them.  Prefill and decode on a mesh (every family):
+    ``tokens`` (and ``positions`` in decode, ``memory_inputs`` in
+    prefill) may be the global tensors, which each rank cuts to its rows
+    (:func:`_on_batch`); the encoder runs on the mesh without remat; each
+    block holds h over the batch axes only, as the reference's
+    ``_apply_block`` does outside training; a decode step's rotary table
+    is formed on each device's rows and its memory is the cache's
+    ``enc_memory``; the cache, in and out, is placed by
+    :func:`~repro_torch.models.model.cache_specs` (:func:`place_cache`;
+    ``enc_memory`` over the batch axes)."""
     cfg = model.cfg
     _, s = tokens.shape
     serve_mesh = mesh is not None and mode != "train"
     if serve_mesh:
-        _check_serve_mesh(cfg)
         tokens = _on_batch(tokens, mesh)
+        if memory_inputs is not None:
+            memory_inputs = _on_batch(memory_inputs, mesh)
         if mode == "decode":
             positions = _on_batch(positions, mesh)
             cache = place_cache(cache, mesh)
@@ -489,22 +493,6 @@ def forward(model: Model, tokens, *, mode: str = "prefill", positions=None,
         if serve_mesh:
             out["cache"] = place_cache(out["cache"], mesh)
     return out
-
-
-def serves_on_mesh(cfg: ArchConfig) -> bool:
-    """Whether ``cfg`` prefills and decodes on a mesh: the dense GQA, SSD
-    and RG-LRU families do; the MoE / MLA and memory-input families'
-    serve cells are still queued."""
-    return cfg.moe is None and cfg.mla is None and cfg.encoder is None \
-        and cfg.vision is None
-
-
-def _check_serve_mesh(cfg: ArchConfig) -> None:
-    if not serves_on_mesh(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: serving on a mesh covers the dense GQA, SSD and "
-            f"RG-LRU families; the MoE / MLA and memory-input serve cells "
-            f"are ROADMAP queue 1 item 1, step 3b")
 
 
 def _on_batch(t, mesh):

@@ -15,11 +15,13 @@ With ``mesh`` (a ``DeviceMesh``, as the reference's ``Engine`` takes
 one) every prefill and decode step runs on the mesh: the model's
 parameters are DTensors placed by their specs
 (:func:`~repro_torch.models.model.place_params`), every rank submits
-the same requests, a request's tokens are the global batch that each
-rank cuts to its rows, the caches are placed by
-:func:`~repro_torch.models.model.cache_specs`, and the greedy choice
-gathers the last position's vocab-parallel logits whole
-(:func:`greedy_sample`), so every rank emits the same tokens.
+the same requests, a request's tokens (and the memory of a memory
+config) are the global batch that each rank cuts to its rows, the
+caches are placed by :func:`~repro_torch.models.model.cache_specs`, and
+the greedy choice gathers the last position's logits whole
+(:func:`greedy_sample`: vocab-parallel where the vocabulary divides
+``model``, whole on every device where it does not), so every rank
+emits the same tokens.
 """
 
 from __future__ import annotations

@@ -508,18 +508,16 @@ def test_plan_from_the_port_record_matches_reference(records):
     assert any("placed_comm_ms" in r for r in rows)
 
 
-def test_skipped_cells_name_their_queue():
-    """The serve cells still queued: the MoE / MLA and memory-input
-    families' (granite-moe's prefill, seamless's decode) name their
-    ROADMAP item; long_500k on a full-attention arch is skipped as in
-    the reference."""
-    out = dryrun.lower_cell("granite-moe-3b-a800m", "prefill_32k", False,
-                            "cpu")
-    assert out["status"] == "skipped" and "ROADMAP" in out["reason"]
-    out = dryrun.lower_cell("seamless-m4t-large-v2", "decode_32k", False,
-                            "cpu")
-    assert out["status"] == "skipped" and "ROADMAP" in out["reason"]
-    out = dryrun.lower_cell("smollm-135m", "long_500k", False, "cpu")
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-v3-671b",
+                                  "llama-3.2-vision-90b",
+                                  "seamless-m4t-large-v2"])
+def test_skipped_cells_name_their_queue(arch):
+    """What stays skipped: long_500k on a full-attention arch (the four
+    MoE / MLA and memory-input configs are none of them sub-quadratic),
+    as in the reference; their prefill_32k and decode_32k cells run
+    (:func:`test_family_serve_cell_record`)."""
+    assert not get_arch(arch).sub_quadratic
+    out = dryrun.lower_cell(arch, "long_500k", False, "cpu")
     assert out["status"] == "skipped" and "sub-quadratic" in out["reason"]
 
 
@@ -736,7 +734,7 @@ def test_long_context_decode_writes_its_ring_slot():
 
 
 REF_SERVE = textwrap.dedent(r"""
-    import json
+    import json, re
     from repro.launch import dryrun
     import jax
     import numpy as np
@@ -747,10 +745,31 @@ REF_SERVE = textwrap.dedent(r"""
                              ("data", "model"))
     shapes = {"prefill_32k": ShapeConfig("prefill_32k", 256, 32, "prefill"),
               "decode_32k": ShapeConfig("decode_32k", 256, 128, "decode")}
+    ids = np.arange(256).reshape(16, 16)
+    axes = {tuple(ids[0]): "model", tuple(ids[:, 0]): "data"}
+
+    def axis(line):
+        # iota form [G,S]<=[dims]T(perm), or an explicit list {{...},...}
+        m = re.search(r"replica_groups=\[(\d+),(\d+)\]<=\[([\d,]+)\]"
+                      r"(?:T\(([\d,]+)\))?", line)
+        if m:
+            g = np.arange(256).reshape([int(d) for d in m[3].split(",")])
+            if m[4]:
+                g = g.transpose([int(d) for d in m[4].split(",")])
+            return axes.get(tuple(g.reshape(int(m[1]), int(m[2]))[0]),
+                            "other")
+        m = re.search(r"replica_groups=\{\{([\d,]+)\}", line)
+        return axes.get(tuple(int(d) for d in m[1].split(",")), "other") \
+            if m else "other"
+
     out = {}
     for arch in ("smollm-135m", "h2o-danube-3-4b", "mamba2-130m",
-                 "recurrentgemma-9b"):
+                 "recurrentgemma-9b", "granite-moe-3b-a800m",
+                 "deepseek-v3-671b", "llama-3.2-vision-90b",
+                 "seamless-m4t-large-v2"):
         cfg = get_arch(arch).reduced().replace(scan_layers=False)
+        if cfg.vision is not None:
+            cfg = cfg.replace(n_layers=10)
         for name, shape in shapes.items():
             with mesh:
                 text = dryrun._lower_any(cfg, shape, mesh).compile() \
@@ -760,7 +779,7 @@ REF_SERVE = textwrap.dedent(r"""
                 m = dryrun.COLLECTIVE_RE.search(line)
                 if m:
                     rows.append([m[2], dryrun.SHAPE_RE.findall(m[1]),
-                                 dryrun._shape_bytes(m[1])])
+                                 dryrun._shape_bytes(m[1]), axis(line)])
             out[f"{arch}/{name}"] = {"bytes": dryrun.collective_bytes(text),
                                      "rows": rows}
     print(json.dumps(out))
@@ -809,7 +828,8 @@ def test_serve_collectives_against_reference(serve_records, ref_serve,
     for r in rec["collectives"]:
         print(f"  port  {r['at']:18s} {r['kind']:18s} {r['shape']:24s} "
               f"{r['bytes']:>8,} B x {r['count']}")
-    for kind, shapes, nbytes in ref_serve[f"{arch}/{shape_name}"]["rows"]:
+    for kind, shapes, nbytes, _ in ref_serve[f"{arch}/{shape_name}"][
+            "rows"]:
         print(f"  ref   {kind:18s} {nbytes:>8,} B: {shapes[:4]}")
     assert set(got) <= {"all-reduce", "all-gather", "total"}
     assert got["total"] < want["total"]
@@ -833,3 +853,255 @@ def test_plan_from_a_serve_record_matches_reference(serve_records):
     finally:
         ref_set_flags(util_engine=old)
     assert rows == want
+
+
+# ---------------------------------------------------------------------------
+# The serve cells of the MoE / MLA and memory-input families
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("granite-moe-3b-a800m", "deepseek-v3-671b",
+                "llama-3.2-vision-90b", "seamless-m4t-large-v2")
+# the reference's figures of these cells at reduced widths (vision at ten
+# layers), unrolled: collective bytes a device by kind
+REF_FAMILY_BYTES = {
+    "granite-moe-3b-a800m/prefill_32k": {
+        "all-gather": 1_507_328, "all-to-all": 327_680, "total": 1_835_008},
+    "granite-moe-3b-a800m/decode_32k": {
+        "all-reduce": 684_032, "collective-permute": 16_384,
+        "all-gather": 24_576, "total": 724_992},
+    "deepseek-v3-671b/prefill_32k": {
+        "all-reduce": 524_288, "all-gather": 917_504, "all-to-all": 327_680,
+        "total": 1_769_472},
+    "deepseek-v3-671b/decode_32k": {
+        "all-reduce": 696_320, "collective-permute": 16_384,
+        "all-gather": 24_576, "total": 737_280},
+    "llama-3.2-vision-90b/prefill_32k": {"all-reduce": 2_883_584,
+                                         "total": 2_883_584},
+    "llama-3.2-vision-90b/decode_32k": {"all-reduce": 45_056,
+                                        "total": 45_056},
+    "seamless-m4t-large-v2/prefill_32k": {"all-reduce": 917_504,
+                                          "total": 917_504},
+    "seamless-m4t-large-v2/decode_32k": {"all-reduce": 12_288,
+                                         "total": 12_288}}
+
+
+def _family_cfg(arch):
+    cfg = get_arch(arch).reduced()
+    # reduced() keeps 4 of vision's layers, and so no cross layer
+    return cfg.replace(n_layers=10) if cfg.vision is not None else cfg
+
+
+def _family_cell(arch: str, shape_name: str, multi_pod: bool = False):
+    return dryrun.lower_cell(arch, shape_name, multi_pod, "cpu",
+                             cfg=_family_cfg(arch),
+                             shape=SERVE_SHAPES[shape_name])
+
+
+@pytest.fixture(scope="module")
+def family_records():
+    return {(arch, name): _family_cell(arch, name) for arch in FAMILY_ARCHS
+            for name in ("prefill_32k", "decode_32k")}
+
+
+def _family_problems(cfg, kind: str, rows: int) -> dict:
+    """The local kernel problems a serve cell of ``cfg`` books on the
+    fake (16, 16) world at reduced widths (4 heads, 2 kv heads, none
+    split over 16): the self-attention's causal square (MLA's at q/k 32
+    and v 16) a layer in prefill, each cross layer's non-causal problem
+    against the memory's length (Sq = 1 in decode), the encoder's
+    non-causal square in prefill."""
+    from repro_torch.models.transformer import layer_plan
+    kinds = layer_plan(cfg).kinds
+    seq = 1 if kind == "decode" else 256
+    n_mem = dryrun.memory_tokens(cfg, 256)
+    d = cfg.resolved_head_dim
+    if cfg.mla is not None:
+        mla = cfg.mla
+        return {} if kind == "decode" else {"mla": [[
+            rows, 4, seq, seq, mla.qk_nope + mla.qk_rope, mla.v_head,
+            len(kinds)]]}
+    rows_out = []
+    if cfg.encoder is not None and kind == "prefill":
+        rows_out.append([rows, 4, 2, n_mem, n_mem, d, None, False,
+                         cfg.encoder.n_layers])
+    n_self = sum(k in ("attn", "dec_xattn") for k in kinds)
+    if kind == "prefill":
+        rows_out.append([rows, 4, 2, seq, seq, d, None, True, n_self])
+    n_cross = sum(k in ("xattn", "dec_xattn") for k in kinds)
+    if n_cross:
+        rows_out.append([rows, 4, 2, seq, n_mem, d, None, False, n_cross])
+    return {"attention": rows_out} if rows_out else {}
+
+
+@pytest.mark.parametrize("shape_name", ["prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_serve_cell_record(family_records, arch, shape_name):
+    """The serve cells of the MoE / MLA and memory-input families on a
+    fake (16, 16) world at reduced widths (vision at ten layers) and the
+    small shapes of :data:`SERVE_SHAPES`: the train record's fields; the
+    collectives booked under the cell's phase; 2 rows a device in
+    prefill, 8 in decode; the memory of ``memory_tokens`` rows (16
+    image tokens, 256 / 4 = 64 frames) carried, its local bytes in
+    ``peak_parts``; the local kernel problems (:func:`_family_problems`:
+    the cross and encoder problems non-causal at Sq x Skv, MLA's at its
+    own heads); a decode cell's cache (MLA's latents at 256 slots, the
+    cross layers' k and v and ``enc_memory`` at the memory's length)
+    leaf by leaf exactly the reckoning from the config
+    (``dryrun.reckon_cache_bytes``)."""
+    rec = family_records[(arch, shape_name)]
+    cfg = _family_cfg(arch)
+    shape = SERVE_SHAPES[shape_name]
+    kind = shape.kind
+    assert rec["status"] == "ok" and rec["n_devices"] == 256
+    rows = shape.global_batch // 16
+    seq = 1 if kind == "decode" else shape.seq_len
+    assert rec["per_device_batch"] == [rows, seq]
+    coll = rec["collective_bytes_per_device"]
+    assert coll["total"] == sum(v for k, v in coll.items() if k != "total")
+    assert sum(r["bytes"] * r["count"] for r in rec["collectives"]) \
+        == coll["total"] > 0
+    assert {at.split("/")[0] for at in
+            rec["collective_bytes_by_phase_axis"]} == {kind}
+    assert rec["dp_gradient_bytes"] == {}
+    assert rec["flops"] == rec["aten_flops"] + rec["kernel_flops"] > 0
+    assert rec["launches"] == {} and rec["kernel_flops"] == 0
+    n_mem = dryrun.memory_tokens(cfg, shape.seq_len)
+    assert rec["memory_tokens"] == n_mem
+    mem = rec["memory"]
+    parts = mem["peak_parts"]
+    logits = rows * seq * (cfg.vocab // 16) * 4
+    assert parts["logits"] == logits and parts["rest"] is None
+    assert parts.get("memory", 0) == rows * n_mem * cfg.d_model * 2
+    cache = sum(mem["cache_parts"].values())
+    assert parts["cache"] == cache
+    assert mem["output_bytes"] == logits + cache
+    assert rec["kernel_problems"] == _family_problems(cfg, kind, rows)
+    if kind == "prefill":
+        assert rec["context"] == seq
+        assert mem["argument_bytes"] == parts["params"] + parts.get(
+            "memory", 0)
+    else:
+        slots = dryrun.decode_context(cfg, shape.seq_len)
+        assert rec["context"] == slots == shape.seq_len
+        assert mem["cache_parts"] == dryrun.reckon_cache_bytes(
+            cfg, rows, slots, memory_len=n_mem)
+        assert mem["argument_bytes"] == parts["params"] + cache
+
+
+def test_family_pod2_serve_cell():
+    """deepseek-v3's decode_32k cell on a fake (2, 16, 16) world: the
+    128 rows over ("pod", "data"), 4 a device; the latents' bytes the
+    reckoning at 4 rows; the MoE's float32 bins all-reduced over both
+    batch axes, its router logits all-gathered over them, and no expert
+    weight gathered."""
+    rec = _family_cell("deepseek-v3-671b", "decode_32k", multi_pod=True)
+    cfg = _family_cfg("deepseek-v3-671b")
+    assert rec["status"] == "ok" and rec["n_devices"] == 512
+    assert rec["mesh"] == "2x16x16" and rec["per_device_batch"] == [4, 1]
+    assert rec["memory"]["cache_parts"] == dryrun.reckon_cache_bytes(
+        cfg, 4, 256)
+    by = rec["collective_bytes_by_phase_axis"]
+    assert set(by) <= {"decode/model", "decode/data", "decode/pod"}
+    bins = [r for r in rec["collectives"] if r["kind"] == "all-reduce"
+            and r["shape"] == "f32[8,40,128]"]
+    assert {r["at"] for r in bins} == {"decode/data", "decode/pod"}
+    assert all(r["count"] == 4 for r in bins)
+    _no_expert_weight_gathered(cfg, rec)
+
+
+def _no_expert_weight_gathered(cfg, rec):
+    """Every all-gather of a MoE decode cell is of the router's float32
+    logits, (rows, E), one a batch axis and MoE layer (over "data", then
+    "pod" on the 2 x 16 x 16 mesh): no expert weight moves."""
+    from repro_torch.models.transformer import layer_plan
+    t, e = SERVE_SHAPES["decode_32k"].global_batch, cfg.moe.n_experts
+    gathers = [r for r in rec["collectives"] if r["kind"] == "all-gather"]
+    shapes = {r["shape"] for r in gathers}
+    assert shapes <= {f"f32[{t // n},{e}]" for n in (1, 2)}, gathers
+    n_axes = len(rec["mesh"].split("x")) - 1
+    assert sum(r["count"] for r in gathers) == \
+        sum(layer_plan(cfg).has_moe) * n_axes
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-v3-671b"])
+def test_moe_decode_gathers_no_expert_weight(family_records, arch):
+    """The MoE decode cell (128 tokens on 256 devices: the global scatter
+    path) as the reference's compiled cell lays it out: the router's
+    logits all-gathered over ``data``, the bins (E, C, M) = (8, 40, 128)
+    float32 all-reduced over ``data`` twice a MoE layer (each device's
+    rows scattered, then the experts' ``expert_ff`` partial sums), and
+    no expert weight gathered: the only all-gathers are the logits'."""
+    rec = family_records[(arch, "decode_32k")]
+    cfg = _family_cfg(arch)
+    _no_expert_weight_gathered(cfg, rec)
+    from repro_torch.models.moe import capacity
+    from repro_torch.models.transformer import layer_plan
+    c = capacity(128, cfg.moe)
+    bins = [r for r in rec["collectives"] if r["kind"] == "all-reduce"
+            and r["shape"] == f"f32[{cfg.moe.n_experts},{c},{cfg.d_model}]"]
+    assert [(r["at"], r["count"]) for r in bins] == [
+        ("decode/data", 2 * sum(layer_plan(cfg).has_moe))]
+
+
+@pytest.mark.parametrize("shape_name", ["prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_collectives_against_reference(family_records, ref_serve,
+                                              arch, shape_name):
+    """The families' serve cells against the reference's compiled cells
+    with their layers unrolled (:data:`REF_FAMILY_BYTES` pins its
+    figures), each collective printed under ``-s``.  vision and seamless
+    move the reference's kinds and bytes exactly: the vocab-parallel
+    embedding's and each MLP's float32 partial sums (the embedding's
+    reduced in float32, a bf16 table's too, as the reference's program
+    reduces it).  The MoE cells lay out the reference's MoE layers:
+    in prefill the expert weights' all-gathers over ``data`` are the
+    reference's (each device's experts cut before the gather; deepseek's
+    bf16 weights move half the reference's float32 bytes) and the bins'
+    all-to-all half its bytes (bf16 bins, where XLA moves the float32
+    casts of ``_expert_mlp_any`` before the exchange); in decode the
+    router's float32 logits all-gathered and the (E, C, M) float32 bins
+    all-reduced over ``data`` as there, row for row.  The rest is
+    GSPMD's own choice (the embedding table gathered, q / k / v
+    gathered, the shared expert's weights gathered over ``model``; the
+    one-hot's int32 gather, collective-permutes and small all-reduces of
+    the scatter path's combine), where the port reduces partial sums:
+    PERF.md section 6 lists them; the port moves fewer bytes in all."""
+    rec = family_records[(arch, shape_name)]
+    got = rec["collective_bytes_per_device"]
+    ref = ref_serve[f"{arch}/{shape_name}"]
+    want = ref["bytes"]
+    assert want == REF_FAMILY_BYTES[f"{arch}/{shape_name}"]
+    print(f"\n{arch} {shape_name}: port {json.dumps(got)}; reference "
+          f"unrolled {json.dumps(want)}; ratio "
+          f"{got['total'] / want['total']:.4f}")
+    for r in rec["collectives"]:
+        print(f"  port  {r['at']:18s} {r['kind']:18s} {r['shape']:24s} "
+              f"{r['bytes']:>8,} B x {r['count']}")
+    for kind, shapes, nbytes, axis in ref["rows"]:
+        print(f"  ref   {axis:18s} {kind:18s} {nbytes:>8,} B: {shapes[:4]}")
+    cfg = _family_cfg(arch)
+    if cfg.moe is None:
+        assert got == want
+        return
+    assert got["total"] < want["total"]
+    ref_rows = lambda kind, axis: sorted(
+        (shapes[0][1], nbytes) for k, shapes, nbytes, a in ref["rows"]
+        if k == kind and a == axis)
+    port_rows = lambda kind, at: sorted(
+        (r["shape"].split("[")[1][:-1], r["bytes"])
+        for r in rec["collectives"] if r["kind"] == kind and r["at"] == at
+        for _ in range(r["count"]))
+    if shape_name == "prefill_32k":
+        assert got["all-to-all"] * 2 == want["all-to-all"]
+        ratio = 2 if cfg.bf16_params else 1
+        gathers = port_rows("all-gather", "prefill/data")
+        ref_gathers = ref_rows("all-gather", "data")
+        assert len(gathers) == len(ref_gathers) == 6
+        assert sum(b for _, b in gathers) * ratio == sum(
+            b for _, b in ref_gathers)
+    else:
+        for kind, shape in (("all-reduce", "8,40,128"),
+                            ("all-gather", "128,8")):
+            assert [r for r in port_rows(kind, "decode/data")
+                    if r[0] == shape] == [
+                r for r in ref_rows(kind, "data") if r[0] == shape]

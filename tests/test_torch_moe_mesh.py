@@ -284,6 +284,21 @@ GLOO = textwrap.dedent("""
             y, aux = moe(xs, mesh=mesh)
         out[f"{arch}/scatter"] = {"y": y.full_tensor().float().tolist(),
                                   "aux": float(aux.full_tensor())}
+        # the scatter path's backward (a train step's where the tokens do
+        # not divide): 2 x 3 tokens, the rows over data
+        xg = distribute_tensor(torch.from_numpy(x[:2, :3]).bfloat16(), mesh,
+                               [Shard(0), Replicate()]).requires_grad_()
+        y, aux = moe(xg, mesh=mesh)
+        names = [n for n, _ in moe.named_parameters()]
+        grads = torch.autograd.grad(
+            (y.float() ** 2).sum() + 1e3 * aux,
+            [xg, *moe.parameters()], allow_unused=True)
+        out[f"{arch}/scatter_grads"] = {
+            "y": y.full_tensor().float().tolist(),
+            "aux": float(aux.full_tensor()),
+            "grads": {n: (None if g is None else
+                          g.full_tensor().float().tolist())
+                      for n, g in zip(["x", *names], grads)}}
     # two sharded train steps of each arch at each capacity factor
     for (arch, cf), (cfg, tree, tok) in job["steps"].items():
         ts = TrainStepConfig()
@@ -626,6 +641,59 @@ def test_scatter_path_on_a_mesh_matches_reference(runs, arch):
     assert reps[0][key]["aux"] == pytest.approx(ref[key]["aux"], rel=1e-5)
 
 
+@pytest.mark.parametrize("arch", list(A2A_CASES))
+def test_scatter_path_gradients_on_a_mesh(runs, arch):
+    """The global scatter path's backward on the (2, 2) mesh (2 x 3
+    tokens, the rows over "data": a train step's path where the tokens
+    do not divide over the devices) against the port's one-device
+    ``_global_scatter_path`` on the same weights and tokens (the shared
+    expert added, the aux weighted, the loss sum y^2 + 1000 aux): the
+    output within 2^-7 of its largest magnitude, the aux within rel
+    1e-5, the gradients of x and of every weight within 2^-6 of each
+    leaf's largest magnitude (measured: the experts' equal, the rest
+    within 6.9e-3; x's bf16 gradient sums its picks' and the router's
+    terms in another order, over ``model`` where the experts are split
+    there, which a gradient placed as x's would miss)."""
+    from repro_torch.models.layers import rms_norm
+    reps = runs["reps"]
+    key = f"{arch}/scatter_grads"
+    assert all(r[key] == reps[0][key] for r in reps)
+    cfg, tree, x = runs["a2a"][arch]
+    layer = params_from_numpy(cfg, tree, device="cpu").blocks[
+        cfg.moe.first_dense].mlp
+    xg = torch.from_numpy(x[:2, :3]).bfloat16().requires_grad_()
+    h = rms_norm(xg, layer.norm, cfg.norm_eps)
+    p = {n: getattr(layer, n) for n in ("router", "w_gate", "w_up",
+                                         "w_down")}
+    y2d, aux = tmoe._global_scatter_path(cfg, p, h.reshape(-1, h.shape[-1]))
+    y = y2d.view(h.shape)
+    if layer.shared is not None:
+        y = y + layer.shared(h, skip_norm=True)
+    aux = aux * cfg.moe.router_aux_weight
+    names = [n for n, _ in layer.named_parameters()]
+    grads = torch.autograd.grad((y.float() ** 2).sum() + 1e3 * aux,
+                                [xg, *layer.parameters()], allow_unused=True)
+    got = reps[0][key]
+    want_y = y.detach().float().numpy()
+    assert np.abs(np.asarray(got["y"]) - want_y).max() <= \
+        2.0 ** -7 * np.abs(want_y).max()
+    assert got["aux"] == pytest.approx(float(aux.detach()), rel=1e-5)
+    worst = {}
+    for name, g in zip(["x", *names], grads):
+        mine = got["grads"][name]
+        assert (mine is None) == (g is None), name
+        if g is None:
+            continue
+        want = g.detach().float().numpy()
+        err = np.abs(np.asarray(mine) - want).max() / max(
+            np.abs(want).max(), 1e-30)
+        assert err <= 2.0 ** -6, (name, err)
+        worst[name] = err
+    print(f"\n{arch} scatter path gradients, error over each leaf's "
+          f"largest magnitude: " + ", ".join(f"{k} {v:.2e}"
+                                             for k, v in worst.items()))
+
+
 def _float32_route(monkeypatch):
     """The one-process step's MoE layers through the mesh path's
     float32 experts: the scatter path's steps at a capacity of T rows
@@ -885,15 +953,46 @@ def test_rglru_and_memory_blocks_run_on_a_mesh(arch, kind):
 
 
 def test_moe_on_a_one_device_mesh_raises():
-    """A mesh path that cannot run raises, and never falls back to the
-    one-card route: a one-device mesh trains through the plain step."""
+    """A one-device mesh runs the one-card route on the local tensors,
+    as the reference's ``apply_moe`` takes its meshless route on one
+    device: the layer's output, aux and every gradient (reduced
+    deepseek's, with its shared expert, the weights placed on a (1, 1)
+    mesh) bit for bit those without a mesh, with and without the aux."""
     from repro_torch.launch.mesh import make_host_mesh
     from torch.distributed.tensor import Replicate, distribute_tensor
-    cfg = get_arch("granite-moe-3b-a800m").reduced()
+    cfg = get_arch("deepseek-v3-671b").reduced()
     mesh = make_host_mesh(1, 1, device_type="cpu")
-    layer = tmoe.MoE(cfg, device="cpu", generator=torch.Generator()
-                     .manual_seed(0))
-    x = distribute_tensor(torch.zeros((1, 4, cfg.d_model)), mesh,
-                          [Replicate(), Replicate()])
-    with pytest.raises(ValueError, match="one-device mesh"):
-        layer(x, mesh=mesh)
+    x = torch.randn((2, 5, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1)).bfloat16()
+
+    def layer():
+        return tmoe.MoE(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+
+    plain, placed = layer(), layer()
+    for name, p in list(placed.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        mod = placed.get_submodule(owner) if owner else placed
+        mod._parameters[leaf] = torch.nn.Parameter(distribute_tensor(
+            p.detach(), mesh, [Replicate(), Replicate()]))
+    for with_aux in (True, False):
+        xa = x.clone().requires_grad_()
+        xb = distribute_tensor(x.clone(), mesh, [Replicate(), Replicate()])
+        xb.requires_grad_()
+        ya, aux_a = plain(xa, with_aux=with_aux)
+        yb, aux_b = placed(xb, with_aux=with_aux, mesh=mesh)
+        assert torch.equal(yb.full_tensor(), ya)
+        if not with_aux:
+            assert aux_a is None and aux_b is None
+            continue
+        assert torch.equal(aux_b.full_tensor(), aux_a)
+        loss_a = ya.float().square().sum() + aux_a
+        loss_b = yb.float().square().sum() + aux_b
+        ga = torch.autograd.grad(loss_a, [xa, *plain.parameters()],
+                                 allow_unused=True)
+        gb = torch.autograd.grad(loss_b, [xb, *placed.parameters()],
+                                 allow_unused=True)
+        for a, b in zip(ga, gb):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert torch.equal(b.full_tensor(), a)
