@@ -14,7 +14,8 @@ training of mamba2-130m at full width through the SSD's backward, the
 recurrentgemma-9b served at full width and depth and trained at full
 width, and the mesh layer: rank 0's share of a production-mesh train
 step on the card, whose collective bytes feed the fabric planner, for
-the dense, SSM and MoE families (MLA included).
+the dense, SSM and MoE families (MLA included), under the
+``microbatch`` flag and ``grad_compress`` too.
 
     python3 chip_smoke.py
 
@@ -392,7 +393,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     chunk 128, its first loss within 1e-3 relative of phase 26's at
     chunk 256); at ``microbatch=2`` and at 1, 2 steps each at full width:
     smollm-135m (8 x 2048) with its losses within rel 2e-4, and
-    granite-moe-3b-a800m (2 x 2048) with the first step's cross-entropy
+    granite-moe-3b-a800m (2 x 2048, ``PERF_MB_MOE_LAYERS`` = 8 of its 32
+    layers) with the first step's cross-entropy
     within rel 2e-4 (its router aux loss is per microbatch, as in the
     reference, so its losses differ and are logged), peak memory under
     80 GB, ms a step.  D: ``obs=metrics`` and ``util_engine=dense``
@@ -499,10 +501,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     full depth (``VISION_DEPTH``: all 100 layers, 20 of them cross
     layers, or a logged cut), its batch carrying (16, 1600, 8192) bf16
     image embeddings a device.  C: seamless-m4t-large-v2 (24 encoder and
-    24 decoder layers) at ``AUDIO_ROWS`` = 4 rows a device, a global
-    batch of 64: its vocabulary does not divide ``model``, so its
-    float32 logits sit whole on every device, 67.2 GB at the cell's 16
-    rows; its batch carries (4, 1024, 1024) bf16 frames.  Each cell: the
+    24 decoder layers) at the cell's 16 rows a device (a global batch of
+    256) under ``microbatch=4`` (``AUDIO_MB``): its vocabulary does not
+    divide ``model``, so its float32 logits sit whole on every device,
+    67.2 GB at 16 rows, 16.8 GB at a microbatch's 4; its batch carries
+    (16, 1024, 1024) bf16 frames, routed into the microbatches by one
+    all-to-all over ``data`` exactly ``AUDIO_SPLIT_BYTES``; each
+    loss-phase axis exactly 4 times the 4-row cell's bytes, #5-#7 4
+    times its 144 / 72 / 72 launches.  Each cell: the
     data-parallel gradient all-reduce exactly the local gradients not
     sharded over ``data`` (the 0-d cross gates too), every collective's
     bytes by kind, phase and axis, FLOPs, the state and the peak split
@@ -537,14 +543,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     mesh, as phase 32 runs its cells.  A: ``prefill_32k`` of
     granite-moe-3b-a800m (32 layers; the MoE on the all-to-all path),
     deepseek-v3-671b (``MLA_DEPTH`` layers: 3 dense, 2 MoE, MLA over 8
-    of 128 heads a device), llama-3.2-vision-90b (100 layers, its
-    prefill carrying 1,600 image tokens a row) and seamless-m4t-large-v2
+    of 128 heads a device), llama-3.2-vision-90b (``VISION_LAYERS`` = 10
+    of its 100 layers, 2 of them cross layers; its prefill
+    carrying 1,600 image tokens a row) and seamless-m4t-large-v2
     (24 + 24 layers at 2 rows of ``AUDIO_PREFILL_SEQ`` = 8,192 tokens,
     2,048 frames: its whole-vocabulary float32 logits at 32,768 would be
     67.2 GB; logged): each record as in phase 32; the cache's local
     bytes leaf by leaf exactly ``reckon_cache_bytes`` and its headline
     leaves ``FAMILY_CACHE_BYTES``; the bins' all-to-all exactly
-    ``FAMILY_BINS_BYTES``, all over ``model``; #5 launched 32, 5, 100
+    ``FAMILY_BINS_BYTES``, all over ``model``; #5 launched 32, 5, 10
     and 72 times; #5-#7 held at each local problem (MLA's at heads
     padded to 256, the cross and encoder problems non-causal) cut to Sq
     = ``SERVE_HOLD_SEQ`` (logged), to phases 9, 14 and 28's limits.  B:
@@ -561,6 +568,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     seamless request and 24 a decode step.  D: ``fabric.plan`` on
     granite's ``prefill_32k`` record (its all-to-all bytes in the
     profile).  The launches go under ``phase_launches``.
+34. The mesh step's ``microbatch`` flag and ``grad_compress``.  A:
+    smollm-135m ``train_4k`` on ``pod1`` under ``microbatch=2``
+    (``MESH_MB``) beside phase 29 A's cell at 1: the data-parallel
+    all-reduce exactly 133,293,312 B in both (one reduction a step); the
+    microbatches' re-placement over ``data`` exactly one all-to-all of
+    each rank's 16 rows of 4096 int32 tokens, under its own phase
+    ``split``; every loss-phase collective twice as often at half its
+    bytes; the gradient and optimizer phases equal; #5-#7 twice phase 29
+    A's launches and held at the microbatch's local problem as in phase
+    29; the peak, its parts and the step's seconds beside A's.  B: one
+    mesh step of smollm-135m cut to ``COMPRESS_DEPTH`` = 2 layers with
+    ``grad_compress`` on the fake 256-rank world: every ``ef`` leaf at
+    its parameter's placements and local shape after the step, the
+    compress route's gathered leaves (``optim.gather_bytes``) and the
+    ``compress`` phase's all-gather bytes exactly ``COMPRESS_GATHERED``,
+    reckoned from the specs before the run; the card's int8 codes and
+    scales of an in-place leaf's local block (w_down, 96 x 576) and of a
+    gathered leaf (w_up, 576 x 1536, cut back to rank 0's 96 columns)
+    bit for bit the CPU's on the same float32 input.  The launches go
+    under ``phase_launches``.
 
 Output: the card's name and power limit, then a ``kernels`` JSON line,
 then ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -5501,6 +5528,11 @@ PERF_DIR = ROOT / "build" / "train_smoke27"
 # 25's, 2 steps each
 PERF_TRAIN = dict(steps=3, seq=2048, batch=8, lr=1e-3)
 PERF_MB = 2
+# granite-moe-3b-a800m's depth in phase 27 C's microbatch runs: 8 of its
+# 32 layers (each a MoE layer, so the aux loss per microbatch shows at
+# any depth); phase 25 trains it at full depth, and the cut pays for
+# phase 34
+PERF_MB_MOE_LAYERS = 8
 # #5-#7 under prob_bf16 against their plain versions: every output within
 # this share of its leaf's largest magnitude (one bf16 rounding)
 PB_TOL = 2.0 ** -7
@@ -5846,18 +5878,21 @@ def _perf_mamba2(dev, total: dict, first_256: float):
 
 
 def _microbatch_runs(dev, total: dict, arch: str, batch: int,
-                     steps: int = 2):
-    """``arch`` at full width, ``batch`` x 2048 tokens, ``steps`` donated
-    steps through ``make_train_step`` (the launcher's seed, data and
-    schedule) under ``microbatch=PERF_MB`` (#5-#8 as many times the
-    step's layer plan) and again at 1.  Returns each run's per-step
-    metrics (with its ms) and peak memory, by microbatch."""
+                     steps: int = 2, n_layers=None):
+    """``arch`` at full width (cut to ``n_layers`` where given), ``batch``
+    x 2048 tokens, ``steps`` donated steps through ``make_train_step``
+    (the launcher's seed, data and schedule) under
+    ``microbatch=PERF_MB`` (#5-#8 as many times the step's layer plan)
+    and again at 1.  Returns each run's per-step metrics (with its ms)
+    and peak memory, by microbatch."""
     from repro_torch.configs import get_arch
     from repro_torch.data import DataConfig, synthetic_batch
     from repro_torch.optim import AdamWConfig, cosine_schedule
     from repro_torch.train import (TrainStepConfig, init_train_state,
                                    make_train_step)
     cfg = get_arch(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     data = DataConfig(vocab=cfg.vocab, seq_len=2048, global_batch=batch)
     ts = TrainStepConfig(optimizer=AdamWConfig(lr=cosine_schedule(
         1e-3, warmup=min(20, steps // 10 + 1), total=steps)))
@@ -5899,7 +5934,8 @@ def _perf_microbatch(dev, total: dict) -> dict:
     """Phase 27 C, ``microbatch=2`` at full width.  smollm-135m (8 x 2048,
     no aux loss): each step's loss within MB_RTOL of microbatch 1's, the
     reference's own rule.  granite-moe-3b-a800m in phase 25's cell (2 x
-    2048, two microbatches of one sequence): the first step's
+    2048, two microbatches of one sequence) cut to PERF_MB_MOE_LAYERS
+    layers: the first step's
     cross-entropy within MB_RTOL of microbatch 1's (a mean over tokens,
     which equal microbatches average exactly); its router aux loss is the
     mean of the microbatches' own, as the reference computes it, so the
@@ -5918,11 +5954,13 @@ def _perf_microbatch(dev, total: dict) -> dict:
         raise AssertionError(f"smollm-135m microbatch={PERF_MB}: {got} vs "
                              f"{want}")
     from repro_torch.configs import get_arch
-    runs = _microbatch_runs(dev, total, MOE_ARCH, MOE_TRAIN["batch"])
+    runs = _microbatch_runs(dev, total, MOE_ARCH, MOE_TRAIN["batch"],
+                            n_layers=PERF_MB_MOE_LAYERS)
     got, want = runs[PERF_MB]["metrics"], runs[1]["metrics"]
     rel = abs(got[0]["ce"] - want[0]["ce"]) / abs(want[0]["ce"])
     peak = runs[PERF_MB]["peak"]
-    log(f"{MOE_ARCH} train (B 2, S 2048, 2 steps): microbatch={PERF_MB} "
+    log(f"{MOE_ARCH} train ({PERF_MB_MOE_LAYERS} of 32 layers, B 2, S 2048, "
+        f"2 steps): microbatch={PERF_MB} "
         f"ce {_col(got, 'ce')}, microbatch=1 ce {_col(want, 'ce')}: first "
         f"step rel {rel:.2e} (limit {MB_RTOL:.0e}); loss "
         f"{_col(got, 'loss')} against {_col(want, 'loss')}, of which the "
@@ -7121,12 +7159,13 @@ def check_moe_mesh(dev, out: dict):
 # out of phases 23, 24 and 28, for phase 33 (the 100-layer cell took
 # about half of phase 31's time)
 VISION_DEPTH = 10
-# seamless-m4t-large-v2's rows a device in phase 31 C: its 256,206-token
+# seamless-m4t-large-v2's microbatches in phase 31 C: its 256,206-token
 # vocabulary does not divide the 16-way model axis, so its float32 logits
 # sit whole on every device, as in the reference's specs: (16, 4096,
 # 256206) at the cell's 16 rows, 67.2 GB, and as much again for their
-# gradient; at 4 rows (a global batch of 64) the cell fits one card
-AUDIO_ROWS = 4
+# gradient; under microbatch=4 a microbatch holds 4 rows a device, and
+# the uncut cell (global batch 256) fits one card
+AUDIO_MB = 4
 
 
 def _check_memory_cell(label: str, cfg, rec: dict, n_mem: int):
@@ -7153,11 +7192,47 @@ def _check_memory_cell(label: str, cfg, rec: dict, n_mem: int):
     return problems
 
 
+# the local bytes a device of seamless's microbatched cell: the split's
+# all-to-all over "data" (each rank's 16 rows of 4096 int32 tokens and of
+# 1024 x 1024 bf16 frames), and the loss phase of the cell at 4 rows a
+# device (a global batch of 64), which each of the 4 microbatches repeats
+AUDIO_SPLIT_BYTES = 16 * 4096 * 4 + 16 * 1024 * 1024 * 2
+AUDIO_LOSS_BYTES = {"loss/model": 14_914_945_024, "loss/data": 4}
+
+
+def _check_audio_microbatches(label: str, rec: dict):
+    """Phase 31 C's microbatched cell: 4 microbatches of 4 rows a device,
+    the split's all-to-all exactly ``AUDIO_SPLIT_BYTES``, each loss-phase
+    axis exactly ``AUDIO_MB`` times the 4-row cell's, #5-#7 ``AUDIO_MB``
+    times its 144 / 72 / 72 launches."""
+    by = rec["collective_bytes_by_phase_axis"]
+    split = by.get("split/data", {})
+    want_launch = {"flash_attention_fwd": 144 * AUDIO_MB,
+                   "flash_attention_dq": 72 * AUDIO_MB,
+                   "flash_attention_dkv": 72 * AUDIO_MB}
+    log(f"{label}: microbatch {rec['microbatch']}, rows a device "
+        f"{rec['per_device_batch']}; split {json.dumps(split)} (expected "
+        f"all-to-all {AUDIO_SPLIT_BYTES:,} B); loss/model "
+        f"{by['loss/model']} (expected {AUDIO_MB} x "
+        f"{AUDIO_LOSS_BYTES['loss/model']:,} B)")
+    if rec["microbatch"] != AUDIO_MB or rec["per_device_batch"] != [4, 4096] \
+            or split != {"all-to-all": AUDIO_SPLIT_BYTES}:
+        raise AssertionError(f"{label}: microbatches {rec['microbatch']}, "
+                             f"rows {rec['per_device_batch']}, split {split}")
+    for key, b in AUDIO_LOSS_BYTES.items():
+        if by[key] != {"all-reduce": AUDIO_MB * b}:
+            raise AssertionError(f"{label}: {key} {by[key]} != {AUDIO_MB} x "
+                                 f"{b}")
+    if rec["launches"] != want_launch:
+        raise AssertionError(f"{label}: launches {rec['launches']} != "
+                             f"{want_launch}")
+
+
 def check_memory_mesh(dev, out: dict):
     """Phase 31 (see the module's docstring): A-D.  Puts each cell's
     numbers, its kernel holds and D's rows into ``out``; returns the
     phase's launches."""
-    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.configs import get_arch
     from repro_torch.fabric.planner import StepProfile, plan
     from repro_torch.kernels import mask_gemm as MG
 
@@ -7171,20 +7246,22 @@ def check_memory_mesh(dev, out: dict):
     cells = (("A", RGEMMA_ARCH, get_arch(RGEMMA_ARCH), None, 0),
              ("B", VISION_ARCH, vision, None,
               vision.vision.n_image_tokens),
-             ("C", ENC_ARCH, get_arch(ENC_ARCH),
-              ShapeConfig("train_4k", 4096, 16 * AUDIO_ROWS, "train"),
+             ("C", ENC_ARCH, get_arch(ENC_ARCH), {"microbatch": AUDIO_MB},
               4096 // 4))
     recs = {}
-    for key, arch, cfg, shape, n_mem in cells:
+    for key, arch, cfg, flag_kw, n_mem in cells:
         label = f"phase 31 {key}"
-        rows = "" if shape is None else \
-            f", {AUDIO_ROWS} rows a device (global batch {shape.global_batch})"
+        rows = "" if not flag_kw else \
+            f", microbatch={AUDIO_MB} (16 rows a device in {AUDIO_MB} " \
+            f"microbatches)"
         enc = "" if cfg.encoder is None else \
             f" and {cfg.encoder.n_layers} encoder layers"
         rec = _mesh_cell(dev, arch, f"{label} {arch} train_4k pod1, "
                          f"{cfg.n_layers} layers{enc}{rows}", total,
                          cfg=cfg if cfg.n_layers != get_arch(arch).n_layers
-                         else None, shape=shape)
+                         else None, **(flag_kw or {}))
+        if flag_kw:
+            _check_audio_microbatches(label, rec)
         holds = []
         for problem, calls in _check_memory_cell(label, cfg, rec, n_mem):
             errs = _hold_mesh_attention(dev, label, cfg, rec,
@@ -7478,9 +7555,10 @@ FAMILY_SERVE_ARCHS = (MOE_ARCH, MLA_ARCH, VISION_ARCH, ENC_ARCH)
 # sit whole on every device, 67.2 GB at the cell's 2 rows of 32,768
 # tokens; 2 rows of 8,192 (2,048 frames) hold 16.8 GB
 AUDIO_PREFILL_SEQ = 8192
-# llama-3.2-vision-90b's decode_32k cell in phase 33 B runs at
-# VISION_LAYERS (10 layers, 2 cross layers): at 100 layers rank 0's cache
-# is 87.2 GB
+# llama-3.2-vision-90b's cells in phase 33 run at VISION_LAYERS (10
+# layers, 2 cross layers): at 100 layers rank 0's decode cache is 87.2
+# GB, and its prefill at 100 took a fifth of phase 33's time (the cut
+# pays for phase 34)
 _MLA_LAYERS = MLA_DEPTH or 61
 # the headline cache leaves of rank 0 (PERF.md section 4's reckoning):
 # prefill 2 rows of 32,768 (seamless 8,192, its memory 2,048 frames),
@@ -7490,8 +7568,8 @@ FAMILY_CACHE_BYTES = {
     (MLA_ARCH, "prefill_32k"): {
         "ckv+krope": _MLA_LAYERS * 2 * 32768 * (512 + 64) * 2},
     (VISION_ARCH, "prefill_32k"): {
-        "k+v": 80 * 2 * 2 * 8 * 32768 * 128 * 2,
-        "cross_k+cross_v": 20 * 2 * 2 * 8 * 1600 * 128 * 2},
+        "k+v": VISION_LAYERS * 4 // 5 * 2 * 2 * 8 * 32768 * 128 * 2,
+        "cross_k+cross_v": VISION_LAYERS // 5 * 2 * 2 * 8 * 1600 * 128 * 2},
     (ENC_ARCH, "prefill_32k"): {
         "k+v": 24 * 2 * 2 * 1 * 8192 * 64 * 2,
         "cross_k+cross_v": 24 * 2 * 2 * 1 * 2048 * 64 * 2,
@@ -7518,7 +7596,7 @@ FAMILY_BINS_BYTES = {
 
 def _family_cell_cfg(arch: str, shape_name: str):
     """``(cfg, shape, note)`` of a phase 33 cell: deepseek-v3 at
-    MLA_DEPTH layers, vision's decode at VISION_LAYERS, seamless's
+    MLA_DEPTH layers, vision at VISION_LAYERS, seamless's
     prefill at AUDIO_PREFILL_SEQ tokens a row (None: the published
     config or the named shape); the note names the cut."""
     from repro_torch.configs import ShapeConfig, get_arch
@@ -7528,10 +7606,11 @@ def _family_cell_cfg(arch: str, shape_name: str):
     if arch == MLA_ARCH and MLA_DEPTH is not None:
         cfg, note = cfg.replace(n_layers=MLA_DEPTH), \
             f", cut to {MLA_DEPTH} of 61 layers"
-    if arch == VISION_ARCH and shape_name == "decode_32k":
+    if arch == VISION_ARCH:
         cfg, note = cfg.replace(n_layers=VISION_LAYERS), \
-            (f", cut to {VISION_LAYERS} of 100 layers (rank 0's cache at "
-             f"100 is 87.2 GB)")
+            (f", cut to {VISION_LAYERS} of 100 layers" + (
+                " (rank 0's cache at 100 is 87.2 GB)"
+                if shape_name == "decode_32k" else ""))
     if arch == ENC_ARCH and shape_name == "prefill_32k":
         shape = ShapeConfig("prefill_32k", AUDIO_PREFILL_SEQ, 32, "prefill")
         note = (f", 2 rows of {AUDIO_PREFILL_SEQ} (its whole-vocabulary "
@@ -7811,6 +7890,204 @@ def check_family_serve_mesh(dev, served: dict, out: dict):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 34: the mesh step's microbatch flag and grad_compress
+# ---------------------------------------------------------------------------
+
+# phase 34 A's microbatches of smollm-135m's train_4k cell (16 rows a
+# device: 8 a microbatch)
+MESH_MB = 2
+# phase 34 B: smollm-135m cut to 2 of its 30 layers (the leaves' local
+# blocks are the cell's), and the compress route's gathers reckoned from
+# its specs on (16, 16) before the run: each layer's w_gate and w_up
+# (576, 1536) cut over the ff dim on "model" (96 columns a device: no
+# contiguous run of the flat order) are all-gathered whole in float32;
+# wq / wk / wv (heads that do not divide 16) and the norms are
+# replicated, w_down (96 rows a device: 216 whole 256-blocks) and the
+# embedding (3,072 rows: 6,912 blocks) are compressed in place
+COMPRESS_DEPTH = 2
+COMPRESS_GATHERED = {f"blocks.{i}.mlp.{w}": [576 * 1536 * 4]
+                     for i in range(COMPRESS_DEPTH) for w in ("w_gate",
+                                                              "w_up")}
+# phase 34 B's two leaves held card against CPU: an in-place leaf's local
+# block and a gathered leaf's whole gradient
+COMPRESS_HOLD = {"blocks.0.mlp.w_down": (96, 576),
+                 "blocks.0.mlp.w_up": (576, 1536)}
+
+
+def _loss_rows(rec: dict, mb: int = 1) -> list:
+    """A record's loss-phase collectives as (phase/axis, kind, bytes,
+    count), sorted; with ``mb``, as ``mb`` microbatches would issue them:
+    each ``mb`` times as often, at 1/mb of its bytes (a scalar's
+    unchanged)."""
+    return sorted((r["at"], r["kind"], r["bytes"] if r["shape"].endswith(
+        "[]") else r["bytes"] // mb, r["count"] * mb)
+        for r in rec["collectives"] if r["at"].startswith("loss/"))
+
+
+def _check_microbatched_cell(label: str, one: dict, rec: dict, mb: int):
+    """Phase 34 A: the microbatched cell against the plain one (phase 29
+    A's record): the data-parallel bytes exact in both; the split's
+    all-to-all over ``data`` exactly each rank's rows of int32 tokens;
+    every loss-phase collective ``mb`` times as often at 1/mb of its
+    bytes (the scalars' all-reduce over ``data`` ``mb`` times); the
+    gradient and optimizer phases equal; #5-#7 ``mb`` times the plain
+    step's launches."""
+    _check_dp_bytes(label, rec, "smollm-135m", False)
+    pa = one["collective_bytes_by_phase_axis"]
+    pb = dict(rec["collective_bytes_by_phase_axis"])
+    rows, seq = one["per_device_batch"]
+    split = pb.pop("split/data", None)
+    want_split = {"all-to-all": rows * seq * 4}
+    log(f"{label}: split {split} (expected {want_split}); by phase/axis "
+        f"against microbatch=1: " + ", ".join(
+            f"{k} {pb.get(k)} / {pa.get(k)}" for k in sorted(set(pa) | set(
+                pb))))
+    if split != want_split or set(pa) != set(pb):
+        raise AssertionError(f"{label}: split {split}, phases {sorted(pb)} "
+                             f"against {sorted(pa)}")
+    for key in pa:
+        if key.startswith("loss/"):
+            continue
+        if pa[key] != pb[key]:
+            raise AssertionError(f"{label}: {key} {pb[key]} != {pa[key]}")
+    mine, scaled = _loss_rows(rec), _loss_rows(one, mb)
+    if mine != scaled:
+        raise AssertionError(f"{label}: loss-phase collectives {mine[:8]} "
+                             f"... against microbatch=1's scaled "
+                             f"{scaled[:8]} ...")
+    want = {k: mb * n for k, n in one["launches"].items()}
+    if rec["launches"] != want:
+        raise AssertionError(f"{label}: launches {rec['launches']} != "
+                             f"{want}")
+    mem_a, mem_b = one["memory"], rec["memory"]
+    log(f"{label}: peak {mem_b['peak_bytes'] / 2**30:.3f} GiB above the "
+        f"state against {mem_a['peak_bytes'] / 2**30:.3f} at "
+        f"microbatch=1; parts " + ", ".join(
+            f"{k} {v / 2**30:.3f}" for k, v in mem_b["peak_parts"].items()
+            if v is not None) + f"; step {rec['step_seconds']:.3f} s "
+        f"against {one['step_seconds']:.3f} s")
+
+
+def _compress_step(dev, total: dict) -> dict:
+    """Phase 34 B (see the module's docstring): one mesh step of smollm
+    cut to ``COMPRESS_DEPTH`` layers with ``grad_compress`` on a fake
+    256-rank world; returns the compress phase's collectives."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.dryrun import (CollectiveCounter, _from_local,
+                                           fake_world, local_train_state)
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.common import local_shape, placements
+    from repro_torch.models.model import param_shapes
+    from repro_torch.optim import gather_bytes
+    from repro_torch.train.train_step import (TrainStepConfig, batch_pspec,
+                                              make_train_state_specs,
+                                              make_train_step)
+
+    cfg = get_arch("smollm-135m").replace(n_layers=COMPRESS_DEPTH)
+    ts = TrainStepConfig(grad_compress=True)
+    label = f"phase 34 B smollm-135m ({COMPRESS_DEPTH} layers) grad_compress"
+    with fake_world(256):
+        mesh = make_production_mesh(device_type="cuda")
+        specs = make_train_state_specs(cfg, mesh, ts)
+        state = local_train_state(cfg, mesh, specs, dev)
+        shapes = param_shapes(cfg)
+        state["ef"] = {n: _from_local(torch.zeros(
+            local_shape(shape, specs["ef"][n], mesh), dtype=torch.float32,
+            device=dev), mesh, specs["ef"][n], shape)
+            for n, (shape, _) in shapes.items()}
+        route = {n: gather_bytes(shape, placements(specs["params"][n], mesh),
+                                 mesh) for n, (shape, _) in shapes.items()}
+        route = {n: b for n, b in route.items() if b}
+        if route != COMPRESS_GATHERED:
+            raise AssertionError(f"{label}: gathered leaves {route} != the "
+                                 f"reckoning {COMPRESS_GATHERED}")
+        data = DataConfig(vocab=cfg.vocab, seq_len=4096, global_batch=256)
+        local = torch.as_tensor(synthetic_batch(data, 0, slice(0, 16))
+                                ["tokens"], device=dev)
+        batch = {"tokens": _from_local(local, mesh, batch_pspec(mesh),
+                                       (256, 4096))}
+        step_fn = make_train_step(cfg, dev, ts, donate=True, mesh=mesh)
+        FA.reset_launches()
+        t0 = time.perf_counter()
+        with CollectiveCounter(mesh) as counter:
+            state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        for kname, n in FA.LAUNCHES.items():
+            total[kname] = total.get(kname, 0) + n
+        placed = all(
+            tuple(state["ef"][n].placements) == tuple(p.placements)
+            and state["ef"][n].to_local().shape == p.to_local().shape
+            for n, p in state["params"].items())
+        rows = [r for r in counter.table() if r["at"].startswith(
+            "compress/")]
+    booked = {}
+    for r in rows:
+        key = (r["at"], r["kind"])
+        booked[key] = booked.get(key, 0) + r["bytes"] * r["count"]
+    want = {("compress/model", "all-gather"):
+            sum(sum(b) for b in COMPRESS_GATHERED.values())}
+    log(f"{label}: step {step_s:.2f} s; every ef leaf at its parameter's "
+        f"placements and local shape: {placed}; compress collectives "
+        f"{json.dumps(rows)} (reckoned {want[('compress/model', 'all-gather')]:,}"
+        f" B of all-gathers over model, {len(COMPRESS_GATHERED)} leaves)")
+    if not placed or booked != want:
+        raise AssertionError(f"{label}: ef placed {placed}; compress bytes "
+                             f"{booked} != {want}")
+    return {"step_seconds": step_s, "compress": rows}
+
+
+def _hold_compress(label: str, dev):
+    """Phase 34 B: the card's codes and scales of ``COMPRESS_HOLD``'s
+    in-place block and gathered leaf, bit for bit the CPU's on the same
+    seeded float32 input (the gathered one also cut back to rank 0's
+    block), and its round trip's error."""
+    from repro_torch.optim import compress, decompress
+
+    gen = torch.Generator().manual_seed(34)
+    for name, shape in COMPRESS_HOLD.items():
+        x = torch.randn(shape, generator=gen) * 1e-2
+        x[0, :256] = 0.0                  # an all-zero block: scale 1
+        got = compress(x.to(dev))
+        want = compress(x)
+        same = all(torch.equal(g.cpu(), w) for g, w in zip(got[:2],
+                                                           want[:2]))
+        approx = decompress(*got, shape).cpu()
+        if shape[1] == 1536:              # rank 0's 96 ff columns
+            same &= torch.equal(approx[:, :96],
+                                decompress(*want, shape)[:, :96])
+        err = float((x - approx).abs().max())
+        log(f"{label}: {name} {tuple(shape)}: codes and scales on the card "
+            f"bit for bit the CPU's: {same}; round trip max abs err "
+            f"{err:.3e}")
+        if not same:
+            raise AssertionError(f"{label}: {name}: the card's codes differ "
+                                 f"from the CPU's")
+
+
+def check_mesh_step(dev, smollm_rec: dict, out: dict):
+    """Phase 34 (see the module's docstring): A, B.  ``smollm_rec``:
+    phase 29 A's record (``microbatch=1``); returns the phase's
+    launches."""
+    total = {}
+    t0 = time.perf_counter()
+    rec = _mesh_cell(dev, "smollm-135m", f"phase 34 A smollm-135m train_4k "
+                     f"pod1 microbatch={MESH_MB}", total, microbatch=MESH_MB)
+    _check_microbatched_cell("phase 34 A", smollm_rec, rec, MESH_MB)
+    from repro_torch.configs import get_arch
+    _hold_mesh_attention(dev, "phase 34 A", get_arch("smollm-135m"), rec)
+    out["A"] = _cell_line(rec)
+    log(f"phase 34 A: {time.perf_counter() - t0:.1f} s")
+    out["B"] = _compress_step(dev, total)
+    _hold_compress("phase 34 B", dev)
+    log(f"phase 34 B: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 34: launches {total}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA "
@@ -7869,15 +8146,15 @@ def main() -> int:
     for kname in bwd_errs:
         launches[kname] = train_launches[kname]
     done("15")
-    # phases 16-33 run kernels #1-#4 (22, 25 and 28 #5-#7, 23 and 24 #5,
+    # phases 16-34 run kernels #1-#4 (22, 25 and 28 #5-#7, 23 and 24 #5,
     # 26 #8, 27 all but #3 and #4, 29 #3-#8 and 8', 30 and 31 #3-#7, 32
-    # #3-#5 and #8, 33 #3-#7) on new paths: their
+    # #3-#5 and #8, 33 #3-#7, 34 #5-#7) on new paths: their
     # launches there go beside each kernel's main-path count; phase 26's
     # path is the SSD backward's main path
     phase_launches = {}
     ssd_bwd, perf, h256, mesh, moe_mesh, mem_mesh, serve_mesh = \
         {}, {}, {}, {}, {}, {}, {}
-    served, family_mesh = {}, {}
+    served, family_mesh, mesh_step = {}, {}, {}
     for phase, fn in (("16", lambda: check_families(dev)),
                       ("17", lambda: check_faults_analytic(dev)),
                       ("18", lambda: check_faults_sim(
@@ -7899,7 +8176,9 @@ def main() -> int:
                       ("32", lambda: check_serve_mesh(dev, smollm_serve,
                                                       serve_mesh)),
                       ("33", lambda: check_family_serve_mesh(
-                          dev, served, family_mesh))):
+                          dev, served, family_mesh)),
+                      ("34", lambda: check_mesh_step(dev, mesh["smollm"],
+                                                     mesh_step))):
         t0 = time.perf_counter()
         for kname, count in fn().items():
             phase_launches.setdefault(kname, {})[phase] = count

@@ -27,9 +27,11 @@ The record has the reference's fields:
   that the step issues, seen by a ``TorchDispatchMode``; each kind's
   per-device result bytes are added (the reference's ``collective_bytes``
   definition), plus ``total``.  ``collective_bytes_by_phase_axis``
-  splits them by the step's part (``loss``: forward and backward;
-  ``gradients``: the explicit data-parallel reduction; ``optimizer``: the
-  clip's norm and ZeRO-1's all-gathers) and mesh axis, as
+  splits them by the step's part (``split``: a microbatched step's
+  batch routed into its microbatches; ``loss``: forward and backward;
+  ``gradients``: the explicit data-parallel reduction; ``compress``:
+  ``grad_compress``'s gathers; ``optimizer``: the clip's norm and
+  ZeRO-1's all-gathers) and mesh axis, as
   ``"phase/axis"``; ``collectives`` lists each distinct collective
   (phase and axis, kind, result shape) with its bytes and count.  A MoE
   layer's all-to-all exchanges of its bins fall under ``loss/model``.
@@ -52,7 +54,15 @@ The record has the reference's fields:
   their gradient (twice the local float32 logits' bytes, each head's:
   what the loss keeps for its backward and the gradient it hands back)
   and the rest (the peak less these); on the CPU only the state and the
-  logits' part, which are counted, not measured.
+  logits' part, which are counted, not measured.  Under
+  ``REPRO_PERF=microbatch=N`` (where N divides the global batch, the
+  reference's rule) the step runs N microbatches: the logits are a
+  microbatch's, ``per_device_batch`` holds a microbatch's rows,
+  ``microbatch`` the count, and ``peak_parts`` adds the gradients' sums,
+  ``gradient_accumulator`` (one set of local gradients).  The batch's
+  re-placement into microbatches is booked under ``split``; the
+  data-parallel gradient bytes are those of one microbatch, as the
+  reduction runs once a step.
 * ``n_devices``, ``mesh``, ``perf_flags``, ``status``; keys with no
   counterpart in an eager run (``compile_seconds``, ``hlo_chars``,
   ``probe``, ``raw``, ``bytes_accessed``, ``transcendentals``,
@@ -518,9 +528,9 @@ def _step_metrics(cfg: ArchConfig, shape: ShapeConfig, mesh, device,
     from ..models.common import DEFAULT_RULES, axis_sizes
     from ..models.layers import book_local_problems
     from ..perf import flags
-    from ..train.train_step import (AFTER_FORWARD, TrainStepConfig,
-                                    batch_pspec, make_train_state_specs,
-                                    make_train_step)
+    from ..train.train_step import (AFTER_FORWARD, AFTER_SPLIT,
+                                    TrainStepConfig, batch_pspec,
+                                    make_train_state_specs, make_train_step)
 
     rules = DEFAULT_RULES.replace(ff=None) if flags().replicate_ff \
         else DEFAULT_RULES
@@ -556,6 +566,7 @@ def _step_metrics(cfg: ArchConfig, shape: ShapeConfig, mesh, device,
         base = torch.cuda.memory_allocated()
         AFTER_FORWARD.append(lambda: marks.append(
             torch.cuda.memory_allocated()))
+    AFTER_SPLIT.append(lambda parts: _refill(parts, cfg.vocab))
     FA.reset_launches()
     SS.reset_launches()
     t0 = time.perf_counter()
@@ -565,18 +576,24 @@ def _step_metrics(cfg: ArchConfig, shape: ShapeConfig, mesh, device,
             state, metrics = step_fn(state, batch)
     finally:
         AFTER_FORWARD.clear()
+        AFTER_SPLIT.clear()
     if cuda:
         torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     launches = {**FA.LAUNCHES, **SS.LAUNCHES}
     kflops, pad_flops = _flops(problems, launches)
     peak = (torch.cuda.max_memory_allocated() - base) if cuda else None
-    logits = _logits_bytes(cfg, rows, shape.seq_len, mesh)
+    mb = _microbatch_count(shape.global_batch)
+    logits = _logits_bytes(cfg, rows // mb, shape.seq_len, mesh)
     saved = (marks[0] - base - logits) if marks else None
+    # the microbatches' gradient sums: one set of local gradients, at the
+    # parameters' local shapes and dtypes
+    acc = _state_bytes(state["params"]) if mb > 1 else 0
     parts = {"state": arg_bytes, "saved_activations": saved,
              "logits_and_gradient": 2 * logits,
+             **({"gradient_accumulator": acc} if mb > 1 else {}),
              "rest": (None if saved is None
-                      else peak - saved - 2 * logits)}
+                      else peak - saved - 2 * logits - acc)}
     return {
         "flops": float(counter.flops + kflops),
         "aten_flops": float(counter.flops),
@@ -597,9 +614,34 @@ def _step_metrics(cfg: ArchConfig, shape: ShapeConfig, mesh, device,
                                      in seen.items()]
                             for family, seen in problems.items()},
         "step_seconds": step_s,
-        "per_device_batch": [rows, shape.seq_len],
+        "per_device_batch": [rows // mb, shape.seq_len],
+        "microbatch": mb,
         "memory_tokens": n_mem,
     }
+
+
+def _refill(parts: list, vocab: int) -> None:
+    """A microbatched step's microbatches made valid in place: the fake
+    group may leave the split's all-to-all output unwritten (torch
+    2.11's does; 2.13's copies its input), and a token outside the
+    vocabulary would index out of bounds on the card.  The tokens are
+    taken modulo ``vocab`` and the memory made finite within [-1, 1];
+    the values are not read as results."""
+    with torch.no_grad():
+        for part in parts:
+            part["tokens"].to_local().remainder_(vocab)
+            if "memory" in part:
+                part["memory"].to_local().nan_to_num_(0.0, 0.0, 0.0) \
+                    .clamp_(-1.0, 1.0)
+
+
+def _microbatch_count(global_batch: int) -> int:
+    """The microbatches a train step of ``global_batch`` rows runs: the
+    ``microbatch`` flag where it divides the batch, else 1 (the
+    reference's rule)."""
+    from ..perf import flags
+    mb = int(flags().microbatch)
+    return mb if mb > 1 and global_batch % mb == 0 else 1
 
 
 def decode_context(cfg: ArchConfig, seq_len: int) -> int:

@@ -44,7 +44,12 @@ a step on one card.  Every family trains there but the encoder arch,
 which this launcher refuses as above: recurrentgemma-9b's RG-LRU layers
 with their width split over ``model``, llama-3.2-vision-90b's cross
 layers with the stub image embeddings carried into the sharded step
-over the batch axes.
+over the batch axes.  ``--grad-compress`` and ``REPRO_PERF=
+microbatch=N`` act there as on one card: the sharded step compresses
+the reduced gradients at their parameters' placements (gathering only
+the leaves whose local blocks are not whole 256-blocks of the flat
+order) and accumulates the microbatches' gradients before one
+data-parallel reduction a step.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """Training of the port: the train step (with the ``microbatch`` perf
-flag's gradient accumulation, and on a mesh the data-parallel gradient
+flag's gradient accumulation and error-feedback gradient compression,
+on one device and on a mesh; there also the data-parallel gradient
 reduction and ZeRO-1), atomic checkpoints, the fault-tolerant trainer,
 and elastic re-meshing."""
 

@@ -39,11 +39,36 @@ sharded over ``data`` (ZeRO-1: each data rank owns a slice of the
 optimizer state; the reference keeps m and v at the parameter's spec and
 leaves the layout to GSPMD), the update runs on the slice, and the
 parameter comes back by all-gather.  A one-device mesh shards nothing:
-the step is the plain one, ``zero1`` included, bit for bit.  The
-``microbatch`` flag and ``grad_compress`` are not run on a mesh yet
-(they raise).  ``COLLECTIVE_PHASE`` names the part of the step that is
-running (``"loss"``, ``"gradients"``, ``"optimizer"``), so that the dry
-run can book each collective to it.
+the step is the plain one, ``zero1`` included, bit for bit.
+
+The ``microbatch`` flag on a mesh follows the reference's rule on the
+global batch: where N > 1 divides it, microbatch i is the global rows
+``[i B / N, (i + 1) B / N)`` (an MoE's aux loss is per microbatch, so
+which rows form one matters), each placed over the batch axes again, as
+the reference's ``with_sharding_constraint(..., P(None, *bspec))``
+places it; a microbatch whose rows the batch axes do not divide raises
+``ValueError`` (DTensor's uneven shards would leave some ranks a row
+short of the others; the reference pads them).  A global array that
+every rank holds is cut before it is distributed (no byte moves); a
+DTensor batch is routed block by block with explicit all-to-alls over
+the batch axes (:func:`_split_rows`).  Each microbatch's gradients,
+still partial sums, are added ``/ N`` from zeros in microbatch order
+into local tensors (one set of gradients beside the state), and the
+data-parallel reduction runs once, on the sum.  ``grad_compress``
+(error-feedback int8, :func:`~repro_torch.optim.ef_compress_grads`)
+runs after that reduction, on the gradients at their parameters'
+placements (a ZeRO-1 leaf's gradient is all-reduced then, as the
+replicated error needs the whole sum on every rank), and before the
+ZeRO-1 slice and AdamW, the reference's order; its error leaves ``ef``
+sit at the parameters' placements.
+
+``COLLECTIVE_PHASE`` names the part of the step that is running, so
+that the dry run can book each collective to it: ``"split"`` (a DTensor
+batch's microbatches routed over the batch axes), ``"loss"`` (forward
+and backward), ``"gradients"`` (the data-parallel reduction),
+``"compress"`` (the gathers of the leaves that ``grad_compress`` cannot
+compress in place) and ``"optimizer"`` (the clip's norm, ZeRO-1's
+all-gathers).
 """
 
 from __future__ import annotations
@@ -67,12 +92,16 @@ from ..perf import flags
 
 __all__ = ["TrainStepConfig", "init_train_state", "train_state_from_model",
            "make_train_step", "make_train_state_specs", "batch_pspec",
-           "COLLECTIVE_PHASE", "AFTER_FORWARD"]
+           "COLLECTIVE_PHASE", "AFTER_FORWARD", "AFTER_SPLIT"]
 
 COLLECTIVE_PHASE = {"name": None}
 # callables the mesh step calls with no argument between its forward and
 # its backward (the dry run reads the card's memory there)
 AFTER_FORWARD: list = []
+# callables the mesh step calls with the list of its microbatches (dicts
+# of DTensors) once it has split the batch (the dry run's fake group
+# leaves an all-to-all's output unwritten, and the dry run refills it)
+AFTER_SPLIT: list = []
 
 
 @contextlib.contextmanager
@@ -262,27 +291,155 @@ def make_train_step(cfg: ArchConfig, device=None,
     return step_fn
 
 
-def _mesh_batch(batch, mesh) -> dict:
-    """``batch["tokens"]`` and, where the batch has one, its ``memory``
-    (B, T, M) in bf16, each a DTensor over the batch axes (the
-    reference's ``in_shardings``): kept where it is one, else each rank
-    takes its rows of the global array it holds."""
+def _placed(t, mesh):
+    """``t`` as a DTensor over the batch axes on dim 0: kept where it is
+    one, else each rank takes its rows of the global array it holds (no
+    byte moves)."""
     from torch.distributed.tensor import DTensor, distribute_tensor
 
+    if isinstance(t, DTensor):
+        return t
     dev = torch.device(mesh.device_type)
     if mesh.device_type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
+    return distribute_tensor(torch.as_tensor(t, device=dev), mesh,
+                             placements(batch_pspec(mesh), mesh),
+                             src_data_rank=None)
+
+
+def _mesh_batch(batch, mesh) -> dict:
+    """``batch["tokens"]`` and, where the batch has one, its ``memory``
+    (B, T, M) in bf16, each a DTensor over the batch axes (the
+    reference's ``in_shardings``, :func:`_placed`)."""
     out = {}
+    for key in ("tokens", "memory"):
+        t = batch.get(key)
+        if t is not None:
+            t = _placed(t, mesh)
+            out[key] = t.to(torch.bfloat16) if key == "memory" else t
+    return out
+
+
+def _batch_dims(mesh) -> list:
+    """The mesh dims of the batch axes, outermost first."""
+    return [mesh.mesh_dim_names.index(a)
+            for a in (batch_pspec(mesh)[0] or ())]
+
+
+def _microbatch_rows(bsz: int, mb: int, mesh) -> int:
+    """Rows of a microbatch of a global batch of ``bsz``, which the
+    batch axes must divide (see the module's docstring)."""
+    n = 1
+    for d in _batch_dims(mesh):
+        n *= mesh.size(d)
+    rows = bsz // mb
+    if rows % n:
+        raise ValueError(
+            f"microbatch={mb}: a microbatch of {rows} of the batch's {bsz} "
+            f"rows does not divide over the batch axes' {n} devices, and "
+            f"DTensor would give some ranks fewer rows than others (the "
+            f"reference pads them); pick a microbatch count that leaves a "
+            f"multiple of {n} rows")
+    return rows
+
+
+def _split_rows(t, mesh, mb: int) -> list:
+    """The ``mb`` microbatches of a DTensor ``t`` sharded over the batch
+    axes on dim 0, each again over the batch axes: microbatch i holds
+    the global rows ``[i B / mb, (i + 1) B / mb)``.  Each rank's rows
+    are ``mb`` blocks of ``c = B / (mb n)`` rows; global block b goes to
+    rank ``b mod n`` as its rows of microbatch ``b // n``.  The blocks
+    are routed by one all-to-all over each batch axis, the innermost
+    first, each block moving to its destination's coordinate on that
+    axis; every rank reckons every rank's blocks, so the split sizes
+    agree on both ends."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor
+
+    dims = _batch_dims(mesh)
+    sizes = [mesh.size(d) for d in dims]
+    n = 1
+    for k in sizes:
+        n *= k
+    rows = _microbatch_rows(t.shape[0], mb, mesh)
+    c = rows // n
+
+    def coords(r):
+        out = []
+        for k in reversed(sizes):
+            out.append(r % k)
+            r //= k
+        return out[::-1]
+
+    def flat(cs):
+        r = 0
+        for x, k in zip(cs, sizes):
+            r = r * k + x
+        return r
+
+    me = flat([mesh.get_local_rank(d) for d in dims])
+    held = {r: [r * mb + k for k in range(mb)] for r in range(n)}
+    blocks = list(t.to_local().split(c))
+    for j in reversed(range(len(dims))):
+        def dest(b, j=j):
+            return coords(b % n)[j]
+        if all(dest(b) == coords(r)[j] for r, bs in held.items()
+               for b in bs):
+            continue
+        sends = {r: sorted(bs, key=dest) for r, bs in held.items()}
+        mine = coords(me)
+        src = [flat(mine[:j] + [s] + mine[j + 1:]) for s in range(sizes[j])]
+        got = {s: [b for b in sends[r] if dest(b) == mine[j]]
+               for s, r in enumerate(src)}
+        order = [held[me].index(b) for b in sends[me]]
+        out = funcol.all_to_all_single(
+            torch.cat([blocks[i] for i in order]),
+            [len(got[s]) * c for s in range(sizes[j])],
+            [sum(dest(b) == x for b in sends[me]) * c
+             for x in range(sizes[j])], (mesh, dims[j]))
+        if hasattr(out, "wait"):
+            out = out.wait()
+        blocks = list(out.split(c))
+        new = {}
+        for r in held:
+            cs = coords(r)
+            new[r] = [b for s in range(sizes[j])
+                      for b in sends[flat(cs[:j] + [s] + cs[j + 1:])]
+                      if dest(b) == cs[j]]
+        held = new
+    order = sorted(range(mb), key=lambda i: held[me][i])
+    shape = (rows, *t.shape[1:])
+    stride = tuple(int(torch.Size(shape[k + 1:]).numel())
+                   for k in range(len(shape)))
+    return [DTensor.from_local(blocks[i], mesh, tuple(t.placements),
+                               run_check=False, shape=torch.Size(shape),
+                               stride=stride) for i in order]
+
+
+def _microbatches(batch, mesh, mb: int) -> list:
+    """The mesh batch (:func:`_mesh_batch`) as ``mb`` microbatches of
+    consecutive global rows, each over the batch axes (see the module's
+    docstring): a global array is cut before it is distributed, a
+    DTensor routed by :func:`_split_rows` under the phase ``"split"``."""
+    from torch.distributed.tensor import DTensor
+
+    rows = _microbatch_rows(int(batch["tokens"].shape[0]), mb, mesh)
+    parts = [{} for _ in range(mb)]
     for key in ("tokens", "memory"):
         t = batch.get(key)
         if t is None:
             continue
-        if not isinstance(t, DTensor):
-            t = distribute_tensor(torch.as_tensor(t, device=dev), mesh,
-                                  placements(batch_pspec(mesh), mesh),
-                                  src_data_rank=None)
-        out[key] = t.to(torch.bfloat16) if key == "memory" else t
-    return out
+        if isinstance(t, DTensor):
+            with _phase("split"):
+                cut = _split_rows(t, mesh, mb)
+        else:
+            cut = [_placed(t[i * rows:(i + 1) * rows], mesh)
+                   for i in range(mb)]
+        for part, x in zip(parts, cut):
+            part[key] = x.to(torch.bfloat16) if key == "memory" else x
+    for fn in AFTER_SPLIT:
+        fn(parts)
+    return parts
 
 
 def _reduce_grad(g, mesh, want):
@@ -299,15 +456,18 @@ def _reduce_grad(g, mesh, want):
         g.redistribute(mesh, want)
 
 
+def _local(t):
+    """A replicated DTensor's local value, or ``t``."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def _make_mesh_step(cfg: ArchConfig, ts: TrainStepConfig, donate: bool,
                     mesh):
     """The train step on a mesh (see the module's docstring)."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.parallel import loss_parallel
 
-    if ts.grad_compress:
-        raise NotImplementedError("grad_compress on a mesh: ROADMAP "
-                                  "queue 1")
     bundle = build(cfg)
     model = Model(cfg, device="meta")      # weights bound at every step
     opt_cfg = _opt_cfg(cfg, ts)
@@ -315,28 +475,74 @@ def _make_mesh_step(cfg: ArchConfig, ts: TrainStepConfig, donate: bool,
     want = {n: placements(sp, mesh) for n, sp in specs["params"].items()}
     grad_to = {n: placements(sp, mesh) for n, sp in specs["opt"]["m"]
                .items()}
+    # the reduction's target: the ZeRO-1 slice, or under grad_compress
+    # the parameter's placements (the slice is cut after compression)
+    reduce_to = want if ts.grad_compress else grad_to
 
-    def step_fn(state, batch):
-        if int(flags().microbatch) > 1:
-            raise NotImplementedError("the microbatch flag on a mesh: "
-                                      "ROADMAP queue 1")
-        params = _bind(model, state["params"])
-        batch = _mesh_batch(batch, mesh)
-        names = list(params)
+    def value_and_grad(params, names, batch):
         with loss_parallel(), _phase("loss"):
             loss, metrics = bundle.loss(model, batch, mesh=mesh)
             for fn in AFTER_FORWARD:
                 fn()
-            grads = torch.autograd.grad(
+            grads = list(torch.autograd.grad(
                 loss, [params[n] for n in names], allow_unused=True,
-                materialize_grads=True)
-        loss = loss.detach()
-        metrics = {k: v.detach() for k, v in metrics.items()}
+                materialize_grads=True))
+        return (_local(loss.detach()),
+                {k: _local(v.detach()) for k, v in metrics.items()}, grads)
+
+    def accumulated(params, names, parts):
+        """The reference's microbatch scan on the unreduced gradients:
+        sums of ``x / mb`` from zeros in microbatch order, leaf by leaf
+        on the local tensors."""
+        mb = len(parts)
+        acc = loss_acc = m_acc = None
+        for part in parts:
+            loss, metrics, grads = value_and_grad(params, names, part)
+            if acc is None:
+                acc = [(torch.zeros_like(g.to_local()), tuple(g.placements),
+                        g.shape, g.stride()) for g in grads]
+                loss_acc = torch.zeros_like(loss)
+                m_acc = {k: torch.zeros_like(v) for k, v in metrics.items()}
+            for i, name in enumerate(names):
+                g, grads[i] = grads[i], None
+                if tuple(g.placements) != acc[i][1]:
+                    raise RuntimeError(
+                        f"{name}: its gradient's placements "
+                        f"{tuple(g.placements)} differ between microbatches "
+                        f"(first {acc[i][1]})")
+                acc[i][0].add_(g.to_local() / mb)
+                del g
+            loss_acc += loss / mb
+            for k, v in metrics.items():
+                m_acc[k] += v / mb
+        grads = [DTensor.from_local(a, mesh, pl, run_check=False,
+                                    shape=shape, stride=stride)
+                 for a, pl, shape, stride in acc]
+        return loss_acc, m_acc, grads
+
+    def step_fn(state, batch):
+        params = _bind(model, state["params"])
+        names = list(params)
+        mb = int(flags().microbatch)
+        if mb > 1 and batch["tokens"].shape[0] % mb == 0:
+            loss, metrics, grads = accumulated(
+                params, names, _microbatches(batch, mesh, mb))
+        else:
+            loss, metrics, grads = value_and_grad(
+                params, names, _mesh_batch(batch, mesh))
         with _phase("gradients"):
             # the data-parallel reduction (reduce-scatter of a ZeRO-1
             # leaf), explicit and leaf by leaf
-            grads = {n: _reduce_grad(g, mesh, grad_to[n])
+            grads = {n: _reduce_grad(g, mesh, reduce_to[n])
                      for n, g in zip(names, grads)}
+        if ts.grad_compress:
+            with _phase("compress"):
+                grads, new_ef = ef_compress_grads(grads, state["ef"])
+            # a ZeRO-1 leaf's slice of the compressed gradient (no byte
+            # moves: each rank cuts its rows)
+            grads = {n: g if tuple(g.placements) == grad_to[n]
+                     else g.redistribute(mesh, grad_to[n])
+                     for n, g in grads.items()}
         opt = AdamWState(state["opt"]["m"], state["opt"]["v"],
                          state["opt"]["count"])
         with _phase("optimizer"):
@@ -344,6 +550,11 @@ def _make_mesh_step(cfg: ArchConfig, ts: TrainStepConfig, donate: bool,
                 new_params, new_opt, opt_metrics = adamw_update_(
                     grads, opt, state["params"], opt_cfg)
                 step = state["step"].add_(1)
+                if ts.grad_compress:
+                    with torch.no_grad():
+                        for key, e in new_ef.items():
+                            state["ef"][key].copy_(e)
+                    new_ef = state["ef"]
             else:
                 new_params, new_opt, opt_metrics = adamw_update(
                     grads, opt, state["params"], opt_cfg)
@@ -355,9 +566,10 @@ def _make_mesh_step(cfg: ArchConfig, ts: TrainStepConfig, donate: bool,
                 step = state["step"] + 1
         new_state = {"params": new_params, "opt": new_opt._asdict(),
                      "step": step}
+        if ts.grad_compress:
+            new_state["ef"] = new_ef
         metrics = {"loss": loss, **metrics, **opt_metrics}
-        metrics = {k: v.to_local() if isinstance(v, DTensor) else v
-                   for k, v in metrics.items()}
+        metrics = {k: _local(v) for k, v in metrics.items()}
         return new_state, metrics
 
     return step_fn

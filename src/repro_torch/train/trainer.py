@@ -23,8 +23,11 @@ reference's ``Trainer(..., mesh)``) the step is the sharded one
 (:func:`~repro_torch.train.train_step.make_train_step` with ``mesh``):
 every rank builds or restores the whole state on the host side and
 keeps its blocks (:func:`~repro_torch.train.elastic.reshard_state`); a
-checkpoint gathers the state on every rank and rank 0 writes it.  An
-elastic restart onto a survivor mesh is ROADMAP queue 1.
+checkpoint gathers the state on every rank and rank 0 writes it.  The
+``microbatch`` perf flag and ``grad_compress`` run there as on one
+device: the error accumulators ``ef`` sit at their parameters'
+placements and are checkpointed, restored and placed with the rest of
+the state.  An elastic restart onto a survivor mesh is ROADMAP queue 1.
 """
 
 from __future__ import annotations
