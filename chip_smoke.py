@@ -416,7 +416,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     Each kernel's time by CUDA events and device time, its plain
     version's, its bound at the caller's widths, its registers and stack
     from the build, and SDPA's forward and backward on the unpadded
-    inputs (the leading kernel names the backend).  B: recurrentgemma-9b
+    inputs (the leading kernel names the backend).  The same four shapes
+    again with float32 operands, on the CUDA-core kernels: o, lse, dq,
+    dk and dv under phases 9 and 14's float32 limits, each call one
+    launch, repeated bit for bit, the MLA layer's ``ops.attention``
+    backward the kernels' bit for bit; each kernel's times, registers
+    and stack, its bound (the bytes at 3.35 TB/s or the float32 products
+    at 67 TFLOP/s, the larger) and SDPA's float32 forward and backward
+    (the ``float32`` rows of ``head256``).  B: recurrentgemma-9b
     at full width and depth (38 layers, 10.44B float32 parameters)
     served as phase 11 serves smollm: #5 exactly 12 times a request (96),
     every token within 0.05 of the solo teacher-forced max logit or, on
@@ -1027,7 +1034,7 @@ def check_mask_gemm(dev, bw):
                 library_ms=cuda_ms(lambda: torch.matmul(x, a), 5),
                 sparse_mm_ms=cuda_ms(lambda: torch.sparse.mm(at, x.t()), 5),
                 bound_ms=nbytes / bw * 1e3, nbytes=nbytes,
-                dense_flop_ms=flops / 67e12 * 1e3, flops=flops,
+                dense_flop_ms=flops / F32_FLOPS * 1e3, flops=flops,
                 shape=f"{label} S={rows} N={n} nnz={nnz} float64")
             r = rows_t[name]
             log(f"{name} [{r['shape']}]: {r['ms']:.4f} ms, plain "
@@ -1479,6 +1486,7 @@ def profile_device(fn, per: int, unit: str, label: str = "profile"):
 # ---------------------------------------------------------------------------
 
 BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak (data sheet)
+F32_FLOPS = 67e12       # H100 SXM float32 peak on the CUDA cores (data sheet)
 SERVE = dict(requests=8, min_len=256, max_len_prompt=1536, max_new=32,
              max_batch=4, max_len=2048, gap=0.05)
 
@@ -1647,6 +1655,16 @@ def _bound(nbytes, *, bw, bf16_flops=0.0, f32_bf16_flops=0.0):
     ops_ms = tc_flops / BF16_FLOPS * 1e3
     return dict(bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
                 ops_ms=ops_ms, tc_flops=tc_flops,
+                bound_by="operations" if ops_ms > bytes_ms else "bytes")
+
+
+def _fma_bound(nbytes, flops, *, bw):
+    """The least time for float32 work on the CUDA cores: the larger of
+    its bytes at the HBM rate and its products at F32_FLOPS."""
+    bytes_ms = nbytes / bw * 1e3
+    ops_ms = flops / F32_FLOPS * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
+                ops_ms=ops_ms, flops=flops,
                 bound_by="operations" if ops_ms > bytes_ms else "bytes")
 
 
@@ -1977,11 +1995,9 @@ TC_INSTANCES = 4 * 3 + 4 * 2 + 3 * 3 + 2 * 3 * 4
 
 
 @functools.cache
-def tc_usage():
-    """``{instance: (HGMMA, SASS instructions, registers, stack bytes)}``
-    of each bf16 instantiation of the product kernels of #5, #6, #7, #8
-    and 8' in the built library (``flash_fwd_kernel<256, 0>`` and so
-    on), from the CUDA toolkit's cuobjdump; None where it has none."""
+def _cuobjdump(flag: str):
+    """The CUDA toolkit's ``cuobjdump flag`` of the built library; None
+    where the toolkit has no cuobjdump."""
     from torch.utils.cpp_extension import CUDA_HOME
     from repro_torch.kernels._build import BUILD_DIR
     tool = shutil.which("cuobjdump")
@@ -1990,11 +2006,30 @@ def tc_usage():
     if tool is None or not Path(tool).exists():
         return None
     lib = str(BUILD_DIR / "repro_torch_kernels.so")
+    return subprocess.run([tool, flag, lib], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
 
-    def dump(flag):
-        return subprocess.run([tool, flag, lib], capture_output=True,
-                              text=True, timeout=300, check=True).stdout
 
+def _res_usage(kernel, instance) -> dict:
+    """``{instance(m): (registers, stack bytes)}`` of the functions of the
+    built library whose names ``kernel`` matches (``m`` its match)."""
+    usage = {}
+    for m in re.finditer(r"Function (\S+):\s+REG:(\d+) STACK:(\d+)",
+                         _cuobjdump("-res-usage")):
+        k = kernel.search(m.group(1))
+        if k:
+            usage[instance(k)] = (int(m.group(2)), int(m.group(3)))
+    return usage
+
+
+@functools.cache
+def tc_usage():
+    """``{instance: (HGMMA, SASS instructions, registers, stack bytes)}``
+    of each bf16 instantiation of the product kernels of #5, #6, #7, #8
+    and 8' in the built library (``flash_fwd_kernel<256, 0>`` and so
+    on), from the CUDA toolkit's cuobjdump; None where it has none."""
+    if _cuobjdump("-res-usage") is None:
+        return None
     kernel = re.compile(rf"({'|'.join(TC_KERNELS)})ILi(\d+)E(?:Li(\d+)E)?"
                         rf"(?:Lb([01])E)?")
 
@@ -2003,19 +2038,31 @@ def tc_usage():
 
     instruction = re.compile(r"/\*[0-9a-f]{4,}\*/\s+\S")
     hgmma, total = {}, {}
-    for part in dump("-sass").split("Function : ")[1:]:
+    for part in _cuobjdump("-sass").split("Function : ")[1:]:
         m = kernel.search(part.split(None, 1)[0])
         if m:
             hgmma[instance(m)] = part.count("HGMMA")
             total[instance(m)] = len(instruction.findall(part))
-    usage = {}
-    for m in re.finditer(r"Function (\S+):\s+REG:(\d+) STACK:(\d+)",
-                         dump("-res-usage")):
-        k = kernel.search(m.group(1))
-        if k:
-            usage[instance(k)] = (int(m.group(2)), int(m.group(3)))
+    usage = _res_usage(kernel, instance)
     return {name: (hgmma[name], total[name], *usage.get(name, (None, None)))
             for name in hgmma}
+
+
+# the float32 instantiations of #5, #6 and #7's CUDA-core kernels
+FMA_KERNELS = ("flash_fwd_fma_kernel", "flash_dq_fma_kernel",
+               "flash_dkv_fma_kernel")
+
+
+@functools.cache
+def fma_usage():
+    """``{instance: (registers, stack bytes)}`` of each instantiation of
+    #5, #6 and #7's CUDA-core kernels in the built library
+    (``flash_fwd_fma_kernel<float, 256>`` and so on), from the CUDA
+    toolkit's cuobjdump; None where it has none."""
+    if _cuobjdump("-res-usage") is None:
+        return None
+    kernel = re.compile(rf"({'|'.join(FMA_KERNELS)})IfLi(\d+)E")
+    return _res_usage(kernel, lambda m: f"{m.group(1)}<float, {m.group(2)}>")
 
 
 def check_tensor_cores():
@@ -6086,16 +6133,18 @@ def _live_pairs(sq, skv, causal, window, q_offset) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def _attn_work(kname, b, hq, hkv, sq, skv, dqk, dv, pairs, pb):
+def _attn_work(kname, b, hq, hkv, sq, skv, dqk, dv, pairs, pb, elem=2):
     """``(bytes, bf16 x bf16 FLOP, float32 x bf16 FLOP)`` of one call of
     #5, #6 or #7 by phase 14's rule: each input read once and each output
-    written once; the products over the live pairs at the caller's
-    widths, q and k ``dqk`` and v ``dv`` (MLA: 192 and 128, whatever
-    the kernel pads them to); under ``pb`` p enters P.V (#5) and p^T dO
-    (#7) as one bf16 operand."""
+    written once (q, k, v, o, dO and dq of ``elem`` bytes an element: 2
+    for bf16, 4 for float32); the products over the live pairs at the
+    caller's widths, q and k ``dqk`` and v ``dv`` (MLA: 192 and 128,
+    whatever the kernel pads them to); under ``pb`` p enters P.V (#5) and
+    p^T dO (#7) as one bf16 operand.  With float32 operands every
+    product is float32 x float32: the two FLOP counts add."""
     qk, pv = 2.0 * dqk * hq * b * pairs, 2.0 * dv * hq * b * pairs
-    q_b, o_b = 2 * b * hq * sq * dqk, 2 * b * hq * sq * dv
-    kv_b, rows = 2 * b * hkv * skv * (dqk + dv), 4 * b * hq * sq
+    q_b, o_b = elem * b * hq * sq * dqk, elem * b * hq * sq * dv
+    kv_b, rows = elem * b * hkv * skv * (dqk + dv), 4 * b * hq * sq
     if kname == "flash_attention_fwd":      # q, k, v -> o, lse
         return (q_b + kv_b + o_b + rows, qk + (pv if pb else 0.0),
                 0.0 if pb else pv)
@@ -6115,6 +6164,31 @@ def _sdpa_mask(sq, skv, causal, window, q_offset, dev):
     k_pos = torch.arange(skv, device=dev)[None, :]
     live = k_pos > q_pos - window if window else torch.ones_like(k_pos > 0)
     return live & (k_pos <= q_pos) if causal else live
+
+
+def _sdpa_times(qkvo, shape, reps, dev) -> dict:
+    """SDPA's forward and backward (cotangent ``do``) on ``qkvo = (q, k,
+    v, do)`` under the kernels' masks, ``shape = (sq, skv, causal, window,
+    q_offset)``: ``{kernel: (ms by CUDA events, ms of device time, the
+    leading device kernel's name)}``, the forward's under #5, the
+    backward's under #6 and #7."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v, do = qkvo
+    mask = _sdpa_mask(*shape, dev)
+    sk = dict(attn_mask=mask, is_causal=mask is None and shape[2],
+              enable_gqa=q.shape[1] != k.shape[1],
+              scale=q.shape[-1] ** -0.5)
+    fwd_lib = lambda: sdpa(q, k, v, **sk)
+    f_rows = device_rows(fwd_lib, reps)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    o_sdpa = sdpa(qs, ks, vs, **sk)
+    bwd_lib = lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), do,
+                                          retain_graph=True)
+    b_rows = device_rows(bwd_lib, reps)
+    fwd = (cuda_ms(fwd_lib, reps), f_rows[2] / reps, f_rows[0][0][2])
+    bwd = (cuda_ms(bwd_lib, reps), b_rows[2] / reps, b_rows[0][0][2])
+    return {"flash_attention_fwd": fwd, "flash_attention_dq": bwd,
+            "flash_attention_dkv": bwd}
 
 
 def _hold_head256(dev, bw):
@@ -6137,7 +6211,8 @@ def _hold_head256(dev, bw):
     time, its plain version's, its bound (phase 14's rule, at the
     caller's widths), its registers and stack from the build, and SDPA's
     forward and backward on the unpadded inputs, with the backend that
-    ran (the leading kernel's name).  Returns ``{kernel: {shape:
+    ran (the leading kernel's name).  Then the same shapes with float32
+    operands (:func:`_hold_head256_f32`).  Returns ``{kernel: {shape:
     row}}``."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as FA
@@ -6156,20 +6231,20 @@ def _hold_head256(dev, bw):
         "deepseek-v3 MLA layer": (1, ds.n_heads, ds.n_heads, 2048, 2048,
                                   True, None, 0)}
     gen = torch.Generator(device=dev).manual_seed(28)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     usage = tc_usage() or {}
     rows = {k: {} for k in H256_KERNELS}
     reps = 10
+    f32_s = 0.0
     for label, (b, hq_, hkv_, sq, skv, causal, window, off) in \
             shapes.items():
         narrow = label.startswith("deepseek")
         dqk, dv = ((mla.qk_nope + mla.qk_rope, mla.v_head) if narrow
                    else (rg.resolved_head_dim,) * 2)
-        q = torch.randn((b, hq_, sq, dqk), generator=gen, device=dev)
-        k = torch.randn((b, hkv_, skv, dqk), generator=gen, device=dev)
-        v = torch.randn((b, hkv_, skv, dv), generator=gen, device=dev)
-        do = torch.randn((b, hq_, sq, dv), generator=gen, device=dev)
-        q, k, v, do = (t.bfloat16() for t in (q, k, v, do))
+        f32 = (torch.randn((b, hq_, sq, dqk), generator=gen, device=dev),
+               torch.randn((b, hkv_, skv, dqk), generator=gen, device=dev),
+               torch.randn((b, hkv_, skv, dv), generator=gen, device=dev),
+               torch.randn((b, hq_, sq, dv), generator=gen, device=dev))
+        q, k, v, do = (t.bfloat16() for t in f32)
         qp, kp, vp, dop = (torch.nn.functional.pad(t, (0, 256 - t.shape[-1]))
                            for t in (q, k, v, do))
         kw = dict(causal=causal, window=window, q_offset=off,
@@ -6264,21 +6339,8 @@ def _hold_head256(dev, bw):
         # times, default variant (device time of the prob_bf16 variants
         # of #5 and #7 beside), on the last variant's lse and dsum
         pairs = _live_pairs(sq, skv, causal, window, off)
-        mask = _sdpa_mask(sq, skv, causal, window, off, dev)
-        sk = dict(attn_mask=mask, is_causal=mask is None and causal,
-                  enable_gqa=hq_ != hkv_, scale=dqk ** -0.5)
-        fwd_lib = lambda: sdpa(q, k, v, **sk)
-        f_rows = device_rows(fwd_lib, reps)
-        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-        o_sdpa = sdpa(qs, ks, vs, **sk)
-        bwd_lib = lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), do,
-                                              retain_graph=True)
-        b_rows = device_rows(bwd_lib, reps)
-        lib = {"flash_attention_fwd": (cuda_ms(fwd_lib, reps),
-                                       f_rows[2] / reps, f_rows[0][0][2]),
-               "flash_attention_dq": (cuda_ms(bwd_lib, reps),
-                                      b_rows[2] / reps, b_rows[0][0][2])}
-        lib["flash_attention_dkv"] = lib["flash_attention_dq"]
+        lib = _sdpa_times((q, k, v, do), (sq, skv, causal, window, off),
+                          reps, dev)
         calls = {
             "flash_attention_fwd": (
                 lambda pb=False: FA.flash_attention(qp, kp, vp, prob_bf16=pb,
@@ -6328,9 +6390,132 @@ def _hold_head256(dev, bw):
                 f"{row['ops_ms']:.4f} ms; {nbytes / 1e6:.2f} MB = "
                 f"{row['bytes_ms']:.4f} ms; {pairs} live pairs a head); "
                 f"{inst}: {regs} registers, {stack} bytes of stack")
-        del o_sdpa, qs, ks, vs, args, calls, fwd_lib, bwd_lib
+        del args, calls, q, k, v, do, qp, kp, vp, dop
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _hold_head256_f32(dev, bw, label, name,
+                          (b, hq_, hkv_, sq, skv, causal, window, off), f32,
+                          kw, reps, rows)
+        f32_s += time.perf_counter() - t0
+        del f32
+        torch.cuda.empty_cache()
+    log(f"phase 28 A: the float32 operands took {f32_s:.1f} s")
     return rows
+
+
+def _hold_head256_f32(dev, bw, label, name, shape, f32, kw, reps, rows):
+    """Phase 28 A with float32 operands (the unrounded draws of the bf16
+    ones), on #5, #6 and #7's CUDA-core kernels at D = 256 (q/k and v
+    zero-padded to 256 here, as for bf16): o and lse held to phase 9's
+    float32 limits (3e-5 + 3e-5 |x|), dq to phase 14's (2e-5 + 2e-5
+    |dq|), dk and dv per q head to 2e-4 + 2e-5 |d|, all against the
+    plain versions; every launch repeats bit for bit and each call
+    launches its kernel once; the MLA layer's backward through
+    ``ops.attention`` gives the kernels' gradients cut back, bit for
+    bit.  Then each kernel's time by CUDA events and by device time, its
+    plain version's, its bound (the bytes at the HBM rate or the float32
+    products at 67 TFLOP/s, the larger), its registers and stack, and
+    SDPA's float32 forward and backward on the unpadded inputs with the
+    backend that ran.  Puts each kernel's row under ``"float32"`` in
+    ``rows[kernel][label]``."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops, ref
+
+    b, hq_, hkv_, sq, skv, causal, window, off = shape
+    dqk, dv = f32[0].shape[-1], f32[2].shape[-1]
+    name = f"{name} float32"
+    qp, kp, vp, dop = (torch.nn.functional.pad(t, (0, 256 - t.shape[-1]))
+                       for t in f32)
+    before = dict(FA.LAUNCHES)
+    o, lse = FA.flash_attention(qp, kp, vp, **kw)
+    dsum = (dop[..., :dv] * o[..., :dv]).sum(-1, keepdim=True)
+    args = (qp, kp, vp, dop, lse, dsum)
+    dq = FA.flash_attention_dq(*args, **kw)
+    dkh, dvh = FA.flash_attention_dkv(*args, **kw)
+    again = (*FA.flash_attention(qp, kp, vp, **kw),
+             FA.flash_attention_dq(*args, **kw),
+             *FA.flash_attention_dkv(*args, **kw))
+    torch.cuda.synchronize()
+    launched = {key: n - before[key] for key, n in FA.LAUNCHES.items()}
+    if launched != {key: 2 for key in FA.LAUNCHES}:
+        raise AssertionError(f"{name}: launches {launched}, expected two "
+                             f"of each kernel")
+    if not all(torch.equal(x, y) for x, y in
+               zip((o, lse, dq, dkh, dvh), again)):
+        raise AssertionError(f"{name}: a repeat differs")
+    del again
+    w_o, w_lse = ref.flash_attention_ref(qp, kp, vp, **kw)
+    w_dq = ref.flash_attention_dq_ref(*args, **kw)
+    w_dk, w_dv = ref.flash_attention_dkv_ref(*args, **kw)
+    errs = {leaf: _close_or_raise(f"{name} {leaf}", got, want, atol,
+                                  rtol)[0]
+            for leaf, got, want, atol, rtol in (
+                ("o", o, w_o, 3e-5, 3e-5), ("lse", lse, w_lse, 3e-5, 3e-5),
+                ("dq", dq, w_dq, 2e-5, 2e-5), ("dk", dkh, w_dk, 2e-4, 2e-5),
+                ("dv", dvh, w_dv, 2e-4, 2e-5))}
+    del w_o, w_lse, w_dq, w_dk, w_dv
+    log(f"{name}: ok, a repeat bit for bit, each call one launch; max abs "
+        f"err {', '.join(f'{k_} {v_:.3e}' for k_, v_ in errs.items())}")
+    if label.startswith("deepseek"):
+        qg, kg, vg = (t.detach().requires_grad_() for t in f32[:3])
+        out = ops.attention(qg, kg, vg, causal=True, scale=dqk ** -0.5)
+        gq, gk, gv = torch.autograd.grad(out, (qg, kg, vg), f32[3])
+        if not (torch.equal(out, o[..., :dv])
+                and torch.equal(gq, dq[..., :dqk])
+                and torch.equal(gk, dkh[..., :dqk])
+                and torch.equal(gv, dvh[..., :dv])):
+            raise AssertionError(f"{name}: ops.attention differs from the "
+                                 f"kernels on the padded head")
+        log(f"{name}: ops.attention gives the kernels' o, dq, dk and dv "
+            f"cut back, bit for bit")
+        del out, gq, gk, gv, qg, kg, vg
+
+    pairs = _live_pairs(sq, skv, causal, window, off)
+    lib = _sdpa_times(f32, (sq, skv, causal, window, off), reps, dev)
+    calls = {
+        "flash_attention_fwd": (
+            lambda: FA.flash_attention(qp, kp, vp, **kw),
+            lambda: ref.flash_attention_ref(qp, kp, vp, **kw)),
+        "flash_attention_dq": (
+            lambda: FA.flash_attention_dq(*args, **kw),
+            lambda: ref.flash_attention_dq_ref(*args, **kw)),
+        "flash_attention_dkv": (
+            lambda: FA.flash_attention_dkv(*args, **kw),
+            lambda: ref.flash_attention_dkv_ref(*args, **kw))}
+    usage = fma_usage() or {}
+    kerr = {"flash_attention_fwd": errs["o"], "flash_attention_dq": errs["dq"],
+            "flash_attention_dkv": max(errs["dk"], errs["dv"])}
+    # the three kernels' device times from one profiled session, by name
+    k_rows = device_rows(lambda: [call() for call, _ in calls.values()],
+                         reps)[0]
+    for kname, (call, plain) in calls.items():
+        nbytes, f_a, f_b = _attn_work(kname, b, hq_, hkv_, sq, skv, dqk, dv,
+                                      pairs, False, elem=4)
+        inst = f"{kname.replace('attention_', '')}_fma_kernel<float, 256>"
+        regs, stack = usage.get(inst, (None, None))
+        device_ms = sum(ms for ms, _, key in k_rows if inst in key) / reps
+        if device_ms <= 0:
+            raise AssertionError(f"{name}: no device time of {inst} in "
+                                 f"{[key[:60] for _, _, key in k_rows]}")
+        row = dict(max_abs_err=kerr[kname], launches=2, ms=cuda_ms(call, reps),
+                   device_ms=device_ms,
+                   plain_ms=cuda_ms(plain, 1), library_ms=lib[kname][0],
+                   library_device_ms=lib[kname][1],
+                   library_kernel=lib[kname][2][:80], registers=regs,
+                   stack_bytes=stack, **_fma_bound(nbytes, f_a + f_b, bw=bw))
+        rows[kname][label]["float32"] = row
+        log(f"{kname} [{label}, float32]: {row['ms']:.4f} ms by CUDA "
+            f"events, {row['device_ms']:.4f} ms of device time, plain "
+            f"{row['plain_ms']:.4f} ms; SDPA float32 "
+            f"{'forward' if kname.endswith('fwd') else 'backward'} "
+            f"{row['library_ms']:.4f} / {row['library_device_ms']:.4f} ms "
+            f"({row['library_kernel']}); bound {row['bound_ms']:.4f} ms by "
+            f"{row['bound_by']} ({row['flops'] / 1e9:.3f} GFLOP float32 on "
+            f"the CUDA cores = {row['ops_ms']:.4f} ms at 67 TFLOP/s; "
+            f"{nbytes / 1e6:.2f} MB = {row['bytes_ms']:.4f} ms; {pairs} "
+            f"live pairs a head); {inst}: {regs} registers, {stack} bytes "
+            f"of stack")
+    del args, calls
 
 
 def _pb_note(row) -> str:

@@ -21,16 +21,16 @@ blocks, the kernel takes any lengths and masks the ragged edge itself, so
 an unpadded prompt of any length goes through it.  q, k and v are read in
 their dtype (bfloat16 or float32) and the arithmetic is float32 (the
 bf16 kernels multiply float32 p and ds on the tensor cores as three exact
-bf16 terms, :func:`repro_torch.kernels.ref.bf16_split3`).  The
-tensor-core kernels are built for head sizes 32, 64, 128 and 256; a
-smaller head is zero-padded to the next of them (the scores and the
-output's first D columns do not change: a head of 192, deepseek-v3's
-MLA, runs at 256); the backward pads and cuts its gradients the same
-way, so they come back at the caller's D.  The CUDA-core kernels of
-float32 operands stop at 128 (at D = 256 the forward's tiles would take
-223 KB of shared memory and dq's 362 KB): float32 operands of a larger
-head raise ``ValueError`` on the card, and nothing falls back to the
-plain version there.
+bf16 terms, :func:`repro_torch.kernels.ref.bf16_split3`).  Both
+routes are built for head sizes 32, 64, 128 and 256; a smaller head is
+zero-padded to the next of them (the scores and the output's first D
+columns do not change: a head of 192, deepseek-v3's MLA, runs at 256);
+the backward pads and cuts its gradients the same way, so they come back
+at the caller's D.  At D = 256 the CUDA-core kernels of float32 operands
+run smaller tiles than below it (#6 32 q rows against 32-key tiles, #7
+32 keys a block), so that each block's tiles fit its 227 KB of shared
+memory.  A head over 256 raises ``ValueError`` on the card, and nothing
+falls back to the plain version there.
 
 ``prob_bf16`` (the perf flag, :mod:`repro_torch.perf`; the forward and
 the dk/dv wrappers take it as an argument, :class:`FlashAttention` reads
@@ -63,8 +63,8 @@ __all__ = ["flash_attention", "flash_attention_dq", "flash_attention_dkv",
 LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_dq": 0,
             "flash_attention_dkv": 0}
 
-HEAD_DIMS = (32, 64, 128, 256)   # head sizes the bf16 kernels are built for
-FMA_HEAD_MAX = 128               # the float32 (CUDA-core) kernels' largest
+HEAD_DIMS = (32, 64, 128, 256)   # head sizes the kernels are built for
+FMA_HEAD_MAX = 256               # the float32 (CUDA-core) kernels' largest
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -97,13 +97,6 @@ def _check(q, k, v, window, q_offset) -> str:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if q.device.type == "cuda" and d > HEAD_DIMS[-1]:
         raise ValueError(f"head size {d} is over {HEAD_DIMS[-1]}")
-    if (q.device.type == "cuda" and q.dtype == torch.float32
-            and d > FMA_HEAD_MAX):
-        raise ValueError(f"head size {d} with float32 operands: the "
-                         f"float32 (CUDA-core) kernels take heads up to "
-                         f"{FMA_HEAD_MAX}; the route above it is not "
-                         f"built (bfloat16 operands take up to "
-                         f"{HEAD_DIMS[-1]})")
     if q.device.type in ("cpu", "cuda"):
         return q.device.type
     raise ValueError(f"no flash-attention kernel for device {q.device}")
@@ -175,8 +168,7 @@ def flash_attention_dq(q, k, v, do, lse, dsum, *, causal: bool = True,
     """dq of the recompute backward (kernel #6 on the card): q, do (B,
     Hq, Sq, D); k, v (B, Hkv, Skv, D); lse, dsum (B, Hq, Sq, 1) float32,
     the forward's lse and ``rowsum(do * o)``.  Returns dq in q's dtype.
-    On the card D must be one of :data:`HEAD_DIMS` (float32: up to
-    128)."""
+    On the card D must be one of :data:`HEAD_DIMS`, in either dtype."""
     route = _check_bwd(q, k, v, do, lse, dsum, window, int(q_offset))
     scale = float(scale) if scale is not None else q.shape[3] ** -0.5
     kw = dict(causal=bool(causal), window=window, q_offset=int(q_offset),

@@ -2,7 +2,8 @@
 against the reference, on the CPU.
 
 The port's flash attention goes through ``FlashAttention`` (the plain
-versions here, the tensor-core kernels at D = 256 on the card) and is
+versions here; at D = 256 on the card the tensor-core kernels for bf16
+operands, the CUDA-core ones for float32 operands) and is
 held against the reference's Pallas kernels run through the interpreter,
 forward (``_fwd``, o and the log-sum-exp) and backward (``jax.vjp`` of
 ``flash_attention``), on an MQA 4:1 case with a window shorter than S, a
@@ -147,10 +148,11 @@ def test_function_grads_match_pallas_backward_interpret(case, d):
                                       (192, 256), (256, 256)])
 def test_pad_head(d, padded):
     """The head size the card's kernels run a head of ``d`` at: the next
-    of HEAD_DIMS; 192 (deepseek-v3's MLA q/k head) runs at 256."""
+    of HEAD_DIMS; 192 (deepseek-v3's MLA q/k head) runs at 256, with
+    float32 operands (the CUDA-core kernels) as with bf16 ones."""
     assert FA._pad_head(d) == padded
     assert FA.HEAD_DIMS == (32, 64, 128, 256)
-    assert FA.FMA_HEAD_MAX == 128
+    assert FA.FMA_HEAD_MAX == 256
 
 
 # ---------------------------------------------------------------------------
