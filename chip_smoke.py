@@ -382,18 +382,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     magnitude, lse within 1e-5 of the default variant's (D = 64), a
     repeat bit for bit; #5 at B 1 and 8 and #7 at B 8 timed by CUDA
     events and device time beside the default variants', their bounds
-    and SDPA's forward and backward.  B: #8 and 8' at chunks 64 and 128
-    at the mamba2 layer (B 1 and 8, L 2048, bf16) under phase 10's and
-    26's rules, repeated bit for bit; device times at chunks 64, 128 and
-    256 and the bounds.  C: smollm-135m under ``prob_bf16,gqa_grouped``
-    served as in phase 11 (30 launches of #5 a request, the emitted-token
-    rule against solo runs under the same flags) and trained 3 steps of
-    8 x 2048 (60 / 30 / 30 a step, phase 15's loss rule); mamba2-130m at
-    ``ssd_chunk=128`` trained 3 steps (48 / 24 a step, every scan at
-    chunk 128, its first loss within 1e-3 relative of phase 26's at
-    chunk 256); at ``microbatch=2`` and at 1, 2 steps each at full width:
-    smollm-135m (8 x 2048) with its losses within rel 2e-4, and
-    granite-moe-3b-a800m (2 x 2048, ``PERF_MB_MOE_LAYERS`` = 8 of its 32
+    and SDPA's forward and backward.  B: #8 and 8' at chunks 64, 128
+    and 512 at the mamba2 layer (B 1 and 8, L 2048, bf16) under phase
+    10's and 26's rules, repeated bit for bit; device times at chunks 64,
+    128, 256 and 512 and the bounds; then chunk 512 at B 1 and the wide
+    shapes (chunk 1024 ragged, d_state 320, 130 and 256, head size 320)
+    with bf16 and float32 operands, with and without a state, under the
+    same rules, each one's device time and bound.  C: smollm-135m under
+    ``prob_bf16,gqa_grouped`` served as in phase 11 (30 launches of #5 a
+    request, the emitted-token rule against solo runs under the same
+    flags) and trained 3 steps of 8 x 2048 (60 / 30 / 30 a step, phase
+    15's loss rule); mamba2-130m at ``ssd_chunk=512`` trained 3 steps
+    (48 / 24 a step, every scan at chunk 512, its first loss within 1e-3
+    relative of phase 26's at chunk 256) and served one request of 1,300
+    prompt tokens (24 launches of #8, every emitted token within 0.05 of
+    a solo run's max logit); at ``microbatch=2`` and at 1, 2 steps each
+    at full width: smollm-135m (8 x 2048) with its losses within rel
+    2e-4, and
+    granite-moe-3b-a800m (2 x 2048, ``PERF_MB_MOE_LAYERS`` = 4 of its 32
     layers) with the first step's cross-entropy
     within rel 2e-4 (its router aux loss is per microbatch, as in the
     reference, so its losses differ and are logged), peak memory under
@@ -5575,11 +5581,12 @@ PERF_DIR = ROOT / "build" / "train_smoke27"
 # 25's, 2 steps each
 PERF_TRAIN = dict(steps=3, seq=2048, batch=8, lr=1e-3)
 PERF_MB = 2
-# granite-moe-3b-a800m's depth in phase 27 C's microbatch runs: 8 of its
+# granite-moe-3b-a800m's depth in phase 27 C's microbatch runs: 4 of its
 # 32 layers (each a MoE layer, so the aux loss per microbatch shows at
-# any depth); phase 25 trains it at full depth, and the cut pays for
-# phase 34
-PERF_MB_MOE_LAYERS = 8
+# any depth); phase 25 trains it at full depth, and the cuts pay for
+# phase 34 (32 to 8) and for phase 27 B's SSD shapes and C's mamba2
+# request at chunk 512 (8 to 4)
+PERF_MB_MOE_LAYERS = 4
 # #5-#7 under prob_bf16 against their plain versions: every output within
 # this share of its leaf's largest magnitude (one bf16 rounding)
 PB_TOL = 2.0 ** -7
@@ -5590,8 +5597,22 @@ PB_LSE = 1e-5
 # cross-entropy (the reference's own rule for the loss of a model with no
 # aux loss, tests/test_perf_flags.py)
 MB_RTOL = 2e-4
-# mamba2's first loss at ssd_chunk 128 against phase 26's at chunk 256
+# mamba2's first loss at ssd_chunk 512 against phase 26's at chunk 256
 CHUNK_RTOL = 1e-3
+# phase 27 C's chunk over 256: mamba2-130m trained and served at it
+PERF_CHUNK = 512
+# its served request: prompt tokens (two chunks of 512 and a short one)
+PERF_CHUNK_PROMPT = 1300
+# phase 27 B's shapes beside the mamba2 layer, (B, L, H, P, G, N, chunk),
+# at phase 10's decay: chunk 1024 (ragged), d_state 320 (the bf16 route
+# pads it to three slices of 128, the float32 one takes slices of 256 and
+# 64), 130 (padded), 256 at chunk 256 (the float32 kernel's shared-memory
+# case) and head size 320 (the bf16 backward: two blocks of 192)
+SSD_WIDE_SHAPES = ((1, 1100, 4, 64, 1, 128, 1024),
+                   (1, 600, 4, 64, 1, 320, 256),
+                   (2, 300, 2, 48, 1, 130, 128),
+                   (1, 512, 4, 64, 1, 256, 256),
+                   (1, 512, 2, 320, 1, 64, 256))
 
 
 @contextlib.contextmanager
@@ -5774,14 +5795,15 @@ def _ssd_fwd_bound(bsz, length, bw, chunk, h=24, p=64, g=1, n=128):
 
 
 def _hold_ssd_chunks(dev, bw):
-    """Phase 27 B: #8 and 8' at chunks 64 and 128 at the mamba2 layer (B
-    1 and 8, L 2048, bf16) against their plain versions under phase 10's
-    rules (state 3e-4; y 3e-4 + 2^-7 |y|, equal to the plain float32 y in
-    bf16 in SAME_SHARE of the entries) and phase 26's (every gradient
-    within 2^-7 of its leaf's largest magnitude, d a_log and ddt within
-    1e-5, within 1e-5 of ``terms=3``), each repeated bit for bit; then
-    each chunk's device time beside chunk 256's in this call, and the
-    bounds.  Returns ``(fwd rows, bwd rows)`` by chunk."""
+    """Phase 27 B: #8 and 8' at chunks 64, 128 and PERF_CHUNK (over 256)
+    at the mamba2 layer (B 1 and 8, L 2048, bf16) against their plain
+    versions under phase 10's rules (state 3e-4; y 3e-4 + 2^-7 |y|, equal
+    to the plain float32 y in bf16 in SAME_SHARE of the entries) and
+    phase 26's (every gradient within 2^-7 of its leaf's largest
+    magnitude, d a_log and ddt within 1e-5, within 1e-5 of ``terms=3``),
+    each repeated bit for bit; then each chunk's device time beside chunk
+    256's in this call, and the bounds.  Returns ``(fwd rows, bwd rows)``
+    by chunk."""
     from repro_torch.kernels import ssd_scan as SS
     from repro_torch.kernels.ref import (ssd_scan_bwd_ref,
                                          ssd_scan_chunked_ref, ssd_scan_ref)
@@ -5793,16 +5815,14 @@ def _hold_ssd_chunks(dev, bw):
         dy = torch.randn(x.shape, generator=gen, device=dev)
         bargs = (x.bfloat16(), dt, a_log, b.bfloat16(), c.bfloat16(), ds)
         gargs = bargs + (dy.bfloat16(),)
-        for chunk in (64, 128):
+        for chunk in (64, 128, PERF_CHUNK):
             name = f"ssd_scan B={bsz} L=2048 H=24 P=64 N=128 chunk={chunk}"
             y, st = SS.ssd_scan(*bargs, chunk=chunk)
             y2, st2 = SS.ssd_scan(*bargs, chunk=chunk)
             got = SS.ssd_scan_bwd(*gargs, chunk=chunk)
             again = SS.ssd_scan_bwd(*gargs, chunk=chunk)
             torch.cuda.synchronize()
-            if not (torch.equal(y, y2) and torch.equal(st, st2) and all(
-                    torch.equal(a, b_) for a, b_ in zip(got, again)
-                    if a is not None)):
+            if not (torch.equal(y, y2) and torch.equal(st, st2)):
                 raise AssertionError(f"{name}: a repeat differs")
             w_y, w_st = ssd_scan_ref(*bargs, chunk=chunk)
             e = _close_or_raise(name + " bf16 state", st, w_st, 3e-4,
@@ -5812,15 +5832,8 @@ def _hold_ssd_chunks(dev, bw):
             share = _check_same_share(name + " bf16 y", y, w_y)
             want = ssd_scan_bwd_ref(*gargs, chunk=chunk)
             split = ssd_scan_bwd_ref(*gargs, chunk=chunk, terms=3)
-            worst = []
-            for leaf, gv, wv, sv in zip(SSD_BWD_NAMES, got, want, split):
-                if wv is None:
-                    continue
-                limit = (SSD_BWD_CANCEL if leaf in ("ddt", "da_log")
-                         else SSD_BWD_TOL[torch.bfloat16])
-                worst.append(f"{leaf} {_share_of_max(f'{name} {leaf}', gv, wv, limit):.2e}")
-                _share_of_max(f"{name} {leaf} against terms=3", gv, sv,
-                              SSD_BWD_SPLIT)
+            worst = _hold_ssd_grads(name, got, again, want, torch.bfloat16,
+                                    split)
             log(f"{name}: ok, forward and backward repeated bit for bit; "
                 f"state {e:.3e}, bf16 y {ey:.3e} (max rel err {rel:.3e}, "
                 f"{share:.5f} equal to the plain y in bf16); the backward's "
@@ -5829,7 +5842,7 @@ def _hold_ssd_chunks(dev, bw):
                 f"within {SSD_BWD_SPLIT:.0e} of terms=3")
             del y, y2, st, st2, got, again, want, split, w_y, w_st
         reps = 10
-        for chunk in (64, 128, 256):
+        for chunk in (64, 128, 256, PERF_CHUNK):
             fwd = lambda: SS.ssd_scan(*bargs, chunk=chunk)
             bwd = lambda: SS.ssd_scan_bwd(*gargs, chunk=chunk)
             fb = _ssd_fwd_bound(bsz, 2048, bw, chunk)
@@ -5849,6 +5862,137 @@ def _hold_ssd_chunks(dev, bw):
                 f"backward {brow['ms']:.4f} / {brow['device_ms']:.4f} ms, "
                 f"bound {brow['bound_ms']:.4f} ms by {brow['bound_by']}")
         del x, dt, b, c, dy, bargs, gargs
+    return fwd_rows, bwd_rows
+
+
+def _ssd_fma_bounds(bsz, length, bw, chunk, h, p, g, n):
+    """:func:`_fma_bound` of the SSD forward and of its backward with
+    float32 operands: the products that :func:`_ssd_fwd_bound` and
+    :func:`_ssd_bwd_bound` count, each once on the CUDA cores; the bytes
+    of the inputs read and the outputs written once, 4 each.  Returns
+    ``(fwd, bwd)``."""
+    fwd_flops = bwd_flops = 0.0
+    for c0 in range(0, length, chunk):
+        qc = min(chunk, length - c0)
+        tri = qc * (qc + 1) / 2
+        fwd_flops += 2 * tri * (n * g + p * h) + 4 * qc * n * p * h
+        bwd_flops += (2 * tri * (n * g + p * h) + 2 * tri * (p + 2 * n) * h
+                      + 5 * 2 * qc * n * p * h)
+    tokens = bsz * length
+    ins = 4 * (tokens * h * p + 2 * tokens * g * n + tokens * h) + 8 * h
+    fwd = _fma_bound(ins + 4 * (tokens * h * p + bsz * h * n * p),
+                     bsz * fwd_flops, bw=bw)
+    bwd = _fma_bound(ins + 4 * tokens * h * p
+                     + 4 * (tokens * h * p + tokens * h + 2 * tokens * g * n
+                            + 2 * h), bsz * bwd_flops, bw=bw)
+    return fwd, bwd
+
+
+def _hold_ssd_grads(name, got, again, want, dtype, split=None):
+    """Phase 26's rules on 8''s gradients: every leaf finite and within
+    SSD_BWD_TOL of its largest magnitude (d a_log and ddt within
+    SSD_BWD_CANCEL), a repeat (``again``) bit for bit and, where given,
+    within SSD_BWD_SPLIT of ``split`` (``terms=3``).  Returns each leaf's
+    error over its largest magnitude."""
+    worst = []
+    for i, (leaf, gv, av, wv) in enumerate(zip(SSD_BWD_NAMES, got, again,
+                                               want)):
+        if wv is None:
+            continue
+        limit = (SSD_BWD_CANCEL if leaf in ("ddt", "da_log")
+                 else SSD_BWD_TOL[dtype])
+        rel = _share_of_max(f"{name} {leaf}", gv, wv, limit)
+        worst.append(f"{leaf} {rel:.2e}")
+        if not torch.equal(gv, av):
+            raise AssertionError(f"{name} {leaf}: a repeat differs")
+        if split is not None:
+            _share_of_max(f"{name} {leaf} against terms=3", gv, split[i],
+                          SSD_BWD_SPLIT)
+    return worst
+
+
+def _hold_ssd_shapes(dev, bw):
+    """Phase 27 B, beside the mamba2 layer: #8 and 8' at PERF_CHUNK on
+    the mamba2 layer (B 1) and at SSD_WIDE_SHAPES, with bf16 and with
+    float32 operands, against their plain versions under phase 10's rules
+    (float32 y and state 3e-4; bf16 as in :func:`_hold_ssd_chunks`) and
+    phase 26's, with and without an initial state (and a final-state
+    gradient), each repeated bit for bit; then each one's device time and
+    bound.  Returns ``(fwd rows, bwd rows)`` by shape and dtype."""
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.kernels.ref import ssd_scan_bwd_ref, ssd_scan_ref
+
+    gen = torch.Generator(device=dev).manual_seed(38)
+    fwd_rows, bwd_rows = {}, {}
+    shapes = ((1, 2048, 24, 64, 1, 128, PERF_CHUNK),) + SSD_WIDE_SHAPES
+    for bsz, length, h, p, g, n, chunk in shapes:
+        x, dt, a_log, b, c, ds = _ssd_inputs(gen, dev, length, h=h, p=p,
+                                             g=g, n=n, batch=bsz)
+        dy = torch.randn(x.shape, generator=gen, device=dev)
+        s0, dfinal = (torch.randn((bsz, h, n, p), generator=gen, device=dev)
+                      for _ in range(2))
+        fb32, bb32 = _ssd_fma_bounds(bsz, length, bw, chunk, h, p, g, n)
+        for dtype in (torch.bfloat16, torch.float32):
+            shape = (f"B={bsz} L={length} H={h} P={p} G={g} N={n} "
+                     f"chunk={chunk} {str(dtype)[6:]}")
+            name = f"ssd_scan {shape}"
+            args = (x.to(dtype), dt, a_log, b.to(dtype), c.to(dtype), ds)
+            gargs = args + (dy.to(dtype),)
+            rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 3e-4
+            notes = []
+            for state, df in ((None, None), (s0, dfinal)):
+                kw = dict(chunk=chunk, state=state)
+                y, st = SS.ssd_scan(*args, **kw)
+                y2, st2 = SS.ssd_scan(*args, **kw)
+                got = SS.ssd_scan_bwd(*gargs, dfinal=df, **kw)
+                again = SS.ssd_scan_bwd(*gargs, dfinal=df, **kw)
+                torch.cuda.synchronize()
+                if not (torch.equal(y, y2) and torch.equal(st, st2)):
+                    raise AssertionError(f"{name}: a repeat differs")
+                w_y, w_st = ssd_scan_ref(*args, **kw)
+                e = _close_or_raise(f"{name} state", st, w_st, 3e-4,
+                                    3e-4)[0]
+                ey, rel = _close_or_raise(f"{name} y", y, w_y, 3e-4, rtol)
+                share = (_check_same_share(f"{name} y", y, w_y)
+                         if dtype == torch.bfloat16 else None)
+                want = ssd_scan_bwd_ref(*gargs, dfinal=df, **kw)
+                split = (ssd_scan_bwd_ref(*gargs, dfinal=df, terms=3, **kw)
+                         if dtype == torch.bfloat16 else None)
+                worst = _hold_ssd_grads(name, got, again, want, dtype, split)
+                same = ("" if share is None else
+                        f", {share:.5f} equal to the plain y in bf16")
+                notes.append(
+                    f"state {'given' if state is not None else 'zero'}: "
+                    f"state {e:.3e}, y {ey:.3e} (max rel err {rel:.3e}"
+                    f"{same}); gradients {', '.join(worst)}")
+                del y, y2, st, st2, got, again, want, split, w_y, w_st
+            split_rule = (f", within {SSD_BWD_SPLIT:.0e} of terms=3"
+                          if dtype == torch.bfloat16 else "")
+            log(f"{name}: ok, forward and backward repeated bit for bit; "
+                f"{'; '.join(notes)} (limits: y 3e-4 + {rtol:.3g} |y|, "
+                f"state 3e-4; gradients {SSD_BWD_TOL[dtype]:.3g}, ddt and "
+                f"da_log {SSD_BWD_CANCEL:.0e}{split_rule})")
+            reps = 10 if dtype == torch.bfloat16 else 3
+            fwd = lambda: SS.ssd_scan(*args, chunk=chunk)
+            bwd = lambda: SS.ssd_scan_bwd(*gargs, chunk=chunk)
+            if dtype == torch.bfloat16:
+                fb = _ssd_fwd_bound(bsz, length, bw, chunk, h=h, p=p, g=g,
+                                    n=n)
+                bb = _ssd_bwd_bound(bsz, length, bw, h=h, p=p, g=g, n=n,
+                                    chunk=chunk)
+            else:
+                fb, bb = fb32, bb32
+            frow = dict(device_ms=device_rows(fwd, reps)[2] / reps,
+                        bound_ms=fb["bound_ms"], bound_by=fb["bound_by"])
+            brow = dict(device_ms=device_rows(bwd, reps)[2] / reps,
+                        bound_ms=bb["bound_ms"], bound_by=bb["bound_by"])
+            fwd_rows[shape], bwd_rows[shape] = frow, brow
+            log(f"ssd_scan / ssd_scan_bwd [{shape}]: forward "
+                f"{frow['device_ms']:.4f} ms of device time, bound "
+                f"{frow['bound_ms']:.4f} ms by {frow['bound_by']}; backward "
+                f"{brow['device_ms']:.4f} ms, bound {brow['bound_ms']:.4f} "
+                f"ms by {brow['bound_by']}")
+        del x, dt, b, c, dy, s0, dfinal
     return fwd_rows, bwd_rows
 
 
@@ -5882,10 +6026,11 @@ def _perf_smollm(dev, total: dict):
 
 
 def _perf_mamba2(dev, total: dict, first_256: float):
-    """Phase 27 C, mamba2-130m under ``ssd_chunk=128``: 3 steps of 8 x
-    2048 through the launcher (48 / 24 launches a step), its first loss
-    within CHUNK_RTOL of phase 26's at chunk 256 (``first_256``: the same
-    weights and batch), the loss rule."""
+    """Phase 27 C, mamba2-130m under ``ssd_chunk=PERF_CHUNK`` (over 256):
+    3 steps of 8 x 2048 through the launcher (48 / 24 launches a step),
+    its first loss within CHUNK_RTOL of phase 26's at chunk 256
+    (``first_256``: the same weights and batch), the loss rule, every scan
+    at the flag's chunk."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ssd_scan as SS
     from repro_torch.launch.train import train
@@ -5899,9 +6044,9 @@ def _perf_mamba2(dev, total: dict, first_256: float):
 
     SS.ssd_scan = spy
     try:
-        with perf_flags(ssd_chunk=128):
+        with perf_flags(ssd_chunk=PERF_CHUNK):
             trainer, _ = _counted(
-                total, f"{SSD_ARCH} train, ssd_chunk=128",
+                total, f"{SSD_ARCH} train, ssd_chunk={PERF_CHUNK}",
                 _train_launches(cfg), PERF_TRAIN["steps"],
                 lambda: train(SSD_ARCH, ckpt_dir=str(PERF_DIR / "mamba2"),
                               ckpt_every=PERF_TRAIN["steps"] + 1,
@@ -5910,17 +6055,103 @@ def _perf_mamba2(dev, total: dict, first_256: float):
         SS.ssd_scan = scan
     losses = [h.loss for h in trainer.history]
     rel = abs(losses[0] - first_256) / abs(first_256)
-    if set(chunks) != {128} or rel > CHUNK_RTOL:
-        raise AssertionError(f"{SSD_ARCH} ssd_chunk=128: chunks "
+    if set(chunks) != {PERF_CHUNK} or rel > CHUNK_RTOL:
+        raise AssertionError(f"{SSD_ARCH} ssd_chunk={PERF_CHUNK}: chunks "
                              f"{sorted(set(chunks))}, first loss "
                              f"{losses[0]} vs {first_256} at chunk 256")
-    _loss_rule(f"{SSD_ARCH} ssd_chunk=128", losses, cfg.vocab)
-    log(f"{SSD_ARCH} train under ssd_chunk=128: every scan at chunk 128; "
-        f"losses {[round(x, 6) for x in losses]}; first loss against phase "
-        f"26's at chunk 256 {first_256:.6f}: rel {rel:.2e} (limit "
+    _loss_rule(f"{SSD_ARCH} ssd_chunk={PERF_CHUNK}", losses, cfg.vocab)
+    log(f"{SSD_ARCH} train under ssd_chunk={PERF_CHUNK}: every scan "
+        f"({len(chunks)}) at chunk {PERF_CHUNK}; losses "
+        f"{[round(x, 6) for x in losses]}; first loss against phase 26's at "
+        f"chunk 256 {first_256:.6f}: rel {rel:.2e} (limit "
         f"{CHUNK_RTOL:.0e}); step ms "
         f"{[round(h.seconds * 1e3, 1) for h in trainer.history]}")
     del trainer
+    torch.cuda.empty_cache()
+
+
+def _perf_mamba2_serve(dev, total: dict):
+    """Phase 27 C, mamba2-130m at full width served under
+    ``ssd_chunk=PERF_CHUNK``: one request of PERF_CHUNK_PROMPT prompt
+    tokens (two chunks of 512 and a short one) and SERVE["max_new"] new
+    ones through Engine.run, one launch of #8 a layer, every scan at the
+    flag's chunk; each emitted token held against a solo teacher-forced
+    run on the card under the same flag (prefill, then decode steps):
+    within SERVE["gap"] of its max logit, logits and states finite."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models import build, layer_plan, layers_of
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_arch(SSD_ARCH)
+    bundle = build(cfg)
+    model = bundle.init(27, dev)
+    prompt = np.random.default_rng(27).integers(
+        0, cfg.vocab, PERF_CHUNK_PROMPT).astype(np.int32)
+    max_len = SERVE["max_len"]
+    chunks = []
+    scan = SS.ssd_scan
+
+    def spy(*args, chunk, **kw):        # the chunk each launch was given
+        chunks.append(chunk)
+        return scan(*args, chunk=chunk, **kw)
+
+    SS.ssd_scan = spy
+    try:
+        with perf_flags(ssd_chunk=PERF_CHUNK):
+            eng = Engine(cfg, model, ServeConfig(max_batch=1,
+                                                 max_len=max_len),
+                         device=dev)
+            rid = eng.submit(prompt, max_new=SERVE["max_new"])
+            FA.reset_launches()
+            SS.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = eng.run()[rid]
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {**FA.LAUNCHES, **SS.LAUNCHES}
+            n_layers = sum(k == "ssd" for k in layer_plan(cfg).kinds)
+            want = {k: n_layers if k == "ssd_scan" else 0 for k in launches}
+            if launches != want or set(chunks) != {PERF_CHUNK}:
+                raise AssertionError(
+                    f"{SSD_ARCH} serve under ssd_chunk={PERF_CHUNK}: "
+                    f"launches {launches} (expected {want}), chunks "
+                    f"{sorted(set(chunks))}")
+            total["ssd_scan"] = total.get("ssd_scan", 0) + n_layers
+            logits, cache = bundle.prefill(
+                model, torch.as_tensor(prompt[None], device=dev).long(),
+                cache_slots=max_len)
+            lg = [logits[0, -1]]
+            finite = [torch.isfinite(logits).all()]
+            tok_t = torch.tensor(toks, device=dev)
+            for i in range(len(toks) - 1):
+                pos = torch.full((1, 1), len(prompt) + i, device=dev)
+                logits, cache = bundle.decode_step(
+                    model, cache, tok_t[i].view(1, 1).long(), pos)
+                lg.append(logits[0, 0])
+                finite.append(torch.isfinite(logits).all())
+            finite += [torch.isfinite(cl["mixer"]["state"]).all()
+                       for cl in layers_of(cache) if "state" in cl["mixer"]]
+    finally:
+        SS.ssd_scan = scan
+    lg = torch.stack(lg)
+    gaps = lg.max(-1).values - lg.gather(1, tok_t[:, None].long())[:, 0]
+    worst = float(gaps.max())
+    if (len(toks) != SERVE["max_new"] or not bool(torch.stack(finite).all())
+            or worst > SERVE["gap"]):
+        raise AssertionError(f"{SSD_ARCH} serve under ssd_chunk="
+                             f"{PERF_CHUNK}: {len(toks)} tokens, worst gap "
+                             f"{worst} (limit {SERVE['gap']}), finite "
+                             f"{bool(torch.stack(finite).all())}")
+    log(f"{SSD_ARCH} served under ssd_chunk={PERF_CHUNK}: one request of "
+        f"{len(prompt)} prompt tokens, {len(toks)} new in {seconds:.3f} s; "
+        f"#8 launched {n_layers} times, every scan ({len(chunks)}) at chunk "
+        f"{PERF_CHUNK}; every emitted token within {worst:.4f} of the solo "
+        f"teacher-forced max logit (limit {SERVE['gap']}); logits and SSD "
+        f"states finite")
+    del model, eng, cache
     torch.cuda.empty_cache()
 
 
@@ -6082,19 +6313,29 @@ def _perf_defaults(dev, total: dict):
 def check_perf_flags(dev, bw, first_256: float, out: dict):
     """Phase 27: the REPRO_PERF flags on one card, set through
     ``repro_torch.perf.set_flags`` and restored after each part: #5-#7
-    under ``prob_bf16`` (A), #8 and 8' at chunks 64 and 128 (B),
-    smollm-135m served and trained under ``prob_bf16,gqa_grouped``,
-    mamba2-130m trained at ``ssd_chunk=128``, smollm-135m and
+    under ``prob_bf16`` (A), #8 and 8' at chunks 64, 128 and 512 and at
+    SSD_WIDE_SHAPES (B), smollm-135m served and trained under
+    ``prob_bf16,gqa_grouped``, mamba2-130m trained and served at
+    ``ssd_chunk=512``, smollm-135m and
     granite-moe-3b-a800m at ``microbatch=2`` at full width (C), and the
     flags that set defaults (D).  Puts the timing rows into ``out``; returns the phase's
     launches."""
-    out["attention"] = _hold_prob_bf16(dev, bw)
-    out["ssd"] = _hold_ssd_chunks(dev, bw)
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        got = fn()
+        log(f"phase 27 {label}: {time.perf_counter() - t0:.1f} s")
+        return got
+
+    out["attention"] = timed("A", lambda: _hold_prob_bf16(dev, bw))
+    out["ssd"] = timed("B chunks", lambda: _hold_ssd_chunks(dev, bw))
+    out["ssd_shapes"] = timed("B shapes", lambda: _hold_ssd_shapes(dev, bw))
     total = {}
     shutil.rmtree(PERF_DIR, ignore_errors=True)
-    _perf_smollm(dev, total)
-    _perf_mamba2(dev, total, first_256)
-    out["granite"] = _perf_microbatch(dev, total)
+    timed("C smollm", lambda: _perf_smollm(dev, total))
+    timed("C mamba2 train", lambda: _perf_mamba2(dev, total, first_256))
+    timed("C mamba2 request", lambda: _perf_mamba2_serve(dev, total))
+    out["granite"] = timed("C microbatch",
+                           lambda: _perf_microbatch(dev, total))
     shutil.rmtree(PERF_DIR, ignore_errors=True)
     _perf_defaults(dev, total)
     log(f"phase 27: launches {total}")
@@ -8377,11 +8618,14 @@ def main() -> int:
         ssd_bwd["row"]
     launches["ssd_scan_bwd"] = ssd_bwd["launches"]
     # phase 27: the prob_bf16 variants' rows beside #5's and #7's, the
-    # chunk 64 / 128 / 256 rows beside #8's and 8''s
+    # chunk 64 / 128 / 256 / 512 rows and the wide shapes' rows beside
+    # #8's and 8''s
     (timing["flash_attention_fwd"]["prob_bf16"],
      timing["flash_attention_dkv"]["prob_bf16"]) = perf["attention"]
     (timing["ssd_scan"]["chunks"],
      timing["ssd_scan_bwd"]["chunks"]) = perf["ssd"]
+    (timing["ssd_scan"]["shapes"],
+     timing["ssd_scan_bwd"]["shapes"]) = perf["ssd_shapes"]
     # phase 28: #5-#7 at head size 256, by shape
     for kname, by_shape in h256["attention"].items():
         timing[kname]["head256"] = by_shape
@@ -8429,7 +8673,7 @@ def main() -> int:
                                "train_library_device_ms", "train_bound_ms",
                                "sparse_mm_ms", "level_ms", "block_ms",
                                "block_launches", "block_bound_ms",
-                               "prob_bf16", "chunks", "head256")
+                               "prob_bf16", "chunks", "shapes", "head256")
                    if key in timing[kname]}}
                for kname in replaces]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -113,13 +113,14 @@ cudaError_t ssd_scan_fwd(const void* x, const float* dt, const float* a_log,
                          double* cum, float* states, int b, int len, int h,
                          int p, int g, int n, int q, cudaStream_t stream);
 
-// float32 operands: the CUDA-core kernel of ssd_scan_fma.cu.
+// float32 operands: the CUDA-core kernels of ssd_scan_fma.cu.
 cudaError_t ssd_scan_fwd_fma(const float* x, const float* dt,
                              const float* a_log, const float* bm,
                              const float* cm, const float* d_skip,
                              const float* state_in, float* y,
-                             float* state_out, int b, int len, int h, int p,
-                             int g, int n, int q, cudaStream_t stream);
+                             float* state_out, double* cum, int b, int len,
+                             int h, int p, int g, int n, int q,
+                             cudaStream_t stream);
 
 // The SSD scan's backward.  bfloat16 operands: the tensor-core kernels of
 // ssd_scan_bwd.cu.
@@ -528,11 +529,12 @@ void flash_dkv(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// x (B, L, H, P), b_mat and c_mat (B, L, G, N), y like x: bfloat16 or
-// float32; dt (B, L, H), a_log and d_skip (H,), state_out (B, H, N, P) and
-// state_in float32, state_in empty for a zero initial state.  bfloat16
-// only: the scratch cum (B, H, L) float64 and states (B, H, n_chunks, N,
-// P) float32 (empty for float32).
+// x (B, L, H, P), b_mat and c_mat (B, L, G, N): bfloat16 or float32; y
+// like x (float32: ceil(N / 256) shares of y, one per slice of 256 state
+// rows, which the caller adds); dt (B, L, H), a_log and d_skip (H,),
+// state_out (B, H, N, P) and state_in float32, state_in empty for a zero
+// initial state.  Scratch: cum (B, H, L) float64; bfloat16 only: states
+// (B, H, n_chunks, N, P) float32 (empty for float32).
 void ssd_scan(const at::Tensor& x, const at::Tensor& dt,
               const at::Tensor& a_log, const at::Tensor& b_mat,
               const at::Tensor& c_mat, const at::Tensor& d_skip,
@@ -554,7 +556,11 @@ void ssd_scan(const at::Tensor& x, const at::Tensor& dt,
               "x must be (B, L, H, P) and b_mat, c_mat (B, L, G, N)");
   const int64_t b = x.size(0), len = x.size(1), h = x.size(2), p = x.size(3);
   const int64_t g = b_mat.size(2), n = b_mat.size(3);
-  TORCH_CHECK(y.sizes() == x.sizes(), "y must be shaped like x");
+  const bool bf = xt == at::kBFloat16;
+  TORCH_CHECK(bf ? y.sizes() == x.sizes()
+                 : y.numel() == (n + 255) / 256 * x.numel(),
+              "y must be shaped like x (float32: a share per 256 state "
+              "rows)");
   TORCH_CHECK(dt.dim() == 3 && dt.size(0) == b && dt.size(1) == len &&
                   dt.size(2) == h, "dt must be (B, L, H)");
   TORCH_CHECK(b_mat.size(0) == b && b_mat.size(1) == len && h % g == 0,
@@ -570,15 +576,14 @@ void ssd_scan(const at::Tensor& x, const at::Tensor& dt,
                 "(B, H, N, P)");
     s_in = state_in.data_ptr<float>();
   }
-  const bool bf = xt == at::kBFloat16;
+  TORCH_CHECK(chunk >= 1, "chunk must be >= 1");
+  check_cuda(cum, "cum", at::kDouble);
+  TORCH_CHECK(cum.numel() == b * h * len, "cum must be (B, H, L)");
   if (bf) {
-    TORCH_CHECK(chunk >= 1, "chunk must be >= 1");
     const int64_t n_chunks = (len + chunk - 1) / chunk;
-    check_cuda(cum, "cum", at::kDouble);
     check_cuda(states, "states", at::kFloat);
-    TORCH_CHECK(cum.numel() == b * h * len &&
-                    states.numel() == b * h * n_chunks * n * p,
-                "cum must be (B, H, L) and states (B, H, n_chunks, N, P)");
+    TORCH_CHECK(states.numel() == b * h * n_chunks * n * p,
+                "states must be (B, H, n_chunks, N, P)");
   }
   const c10::cuda::CUDAGuard guard(x.device());
   const cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
@@ -599,7 +604,8 @@ void ssd_scan(const at::Tensor& x, const at::Tensor& dt,
                             c_mat.data_ptr<float>(),
                             d_skip.data_ptr<float>(), s_in,
                             y.data_ptr<float>(), state_out.data_ptr<float>(),
-                            ib, il, ih, ip, ig, in, iq, stream);
+                            cum.data_ptr<double>(), ib, il, ih, ip, ig, in,
+                            iq, stream);
   TORCH_CHECK(err == cudaSuccess, "ssd_scan launch failed: ",
               cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();

@@ -23,7 +23,7 @@
 //             last term, on row Q-1)
 //     d(dt a) = reverse cumsum of dcum;  ddt = sum_i (S L G)_ij +
 //             w x.(B dS) + a d(dt a);  d a_log = a sum dt d(dt a)
-// Five launches on one stream (the wrapper counts them as one):
+// Five kinds of launch on one stream (the wrapper counts them as one):
 //   1. ssd_bwd_sums_kernel, per (batch, head, chunk, 64 columns of P,
 //      product): the cumsum (into a float64 scratch), the chunk's own
 //      state B^T (x dt w) or the pull of its output on its entering
@@ -108,18 +108,32 @@
 //     bits.
 //   * Ragged lengths.  The last chunk may be short: rows past the end
 //     load as zeros and are never stored.
-// Shapes: N in {64, 128, 256}, P in {64, 128, 192, 256} (the Python
-// wrapper zero-pads other N <= 256 and P <= 256), chunk <= 256, H % G == 0.
+//   * Any chunk.  Nothing is held for the whole chunk: the chunk sums
+//     carry the cumsum from one tile of 256 rows to the next (a first walk
+//     finds the last row, the decay of w), the rows and the columns
+//     kernels take each block's cumsum and dt with its tiles, and the
+//     close kernel walks a long chunk tile by tile, its reverse cumsum
+//     from the last tile back.
+//   * Sub-problems.  A d_state over 256 is taken in slices of 256 or 128
+//     state rows (a grid axis of the chunk sums) and a head size over 256
+//     in blocks of 256 or 192 columns; the rows and the columns kernels
+//     run once per (slice, block), in that order, each on its slice's B
+//     and C columns and its block's x and dy columns.  What sums over the
+//     slices (dx) or the blocks (dB, dC, the float64 row terms) is added
+//     to what the launches before left: a fixed order, no atomics.
+// Shapes: N in {64, 128, 256} or a multiple of 128 above 256, P in {64,
+// 128, 192, 256} or a multiple of 192 or 256 above (the Python wrapper
+// zero-pads any other N and P), any chunk, H % G == 0.
 
 #include "wgmma.cuh"
 
 namespace {
 
 constexpr int kBQ = 64;        // rows of a slab (chunk rows, K-slabs)
-constexpr int kMaxQ = 256;     // chunk rows
+constexpr int kTileQ = 256;    // chunk rows of a cumsum tile
 constexpr int kStages = 2;     // depth of the rings
 constexpr int kPassThreads = 256;
-constexpr int kCloseThreads = kMaxQ;  // one thread per chunk row
+constexpr int kCloseThreads = kTileQ;  // one thread per row of a tile
 constexpr int kCloseWarps = kCloseThreads / 32;
 constexpr int kMLd = 68;       // row stride (floats) of the M tile
 // planes of the float64 row scratch: 0 the rows kernel's state term of
@@ -150,18 +164,36 @@ __device__ __forceinline__ void split_tile(uint32_t tile,
   fence_proxy_async();
 }
 
+// *p = v, or *p += v where acc: the part of a sum over sub-problems (state
+// slices, head-size blocks) that the launches before have left there.
+template <typename T>
+__device__ __forceinline__ void put(T* p, T v, bool acc) {
+  *p = acc ? *p + v : v;
+}
+__device__ __forceinline__ void put2(float* p, float v0, float v1,
+                                     bool acc) {
+  float2* q = reinterpret_cast<float2*>(p);
+  if (acc) {
+    const float2 o = *q;
+    v0 += o.x;
+    v1 += o.y;
+  }
+  *q = make_float2(v0, v1);
+}
+
 // ---------------------------------------------------------------------
-// 1. The chunk sums.  Block (chunk, head, (batch x P block) x 2), N / 64
-// warpgroups, warpgroup w owning state rows 64 w .. 64 w + 63; product 0
-// is own = B^T (x dt w), product 1 pull = C^T (exp(cum) dy).  Shared
-// memory: per stage the B or C slab (64 x N) and the three bf16 terms of
-// the row-scaled x or dy (3 x 64 x 64), then one mbarrier per stage, cum
-// (double) and the row factors.
+// 1. The chunk sums.  Block (chunk x state slice, head, (batch x P block)
+// x 2), N / 64 warpgroups, warpgroup w owning rows 64 w .. 64 w + 63 of
+// the slice's N state rows; product 0 is own = B^T (x dt w), product 1
+// pull = C^T (exp(cum) dy).  Shared memory: per stage the B or C slab (64
+// x N) and the three bf16 terms of the row-scaled x or dy (3 x 64 x 64),
+// then one mbarrier per stage, the cumsum (double) and the row factors of
+// a tile of kTileQ chunk rows.
 
 template <int N>
 __host__ __device__ constexpr int sums_smem_bytes() {
   return 1024 + kStages * (kBQ * N * 2 + 3 * kSplitTile) + 8 * kStages +
-         kMaxQ * (8 + 4);
+         kTileQ * (8 + 4);
 }
 
 template <int N>
@@ -172,7 +204,7 @@ ssd_bwd_sums_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                     const bf16* __restrict__ dy, double* __restrict__ cum_out,
                     float* __restrict__ own, float* __restrict__ pull,
                     int len, int h_count, int p, int g_count, int q,
-                    int n_chunks) {
+                    int n_chunks, int n_slices) {
   constexpr int kThreads = 2 * N;
   constexpr int kStage = kBQ * N * 2 + 3 * kSplitTile;
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -181,40 +213,66 @@ ssd_bwd_sums_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   const uint32_t bars = base + kStages * kStage;
   double* cum = reinterpret_cast<double*>(smem_raw + (bars + 8 * kStages -
                                                       raw));
-  float* f = reinterpret_cast<float*>(cum + kMaxQ);
+  float* f = reinterpret_cast<float*>(cum + kTileQ);
   auto s_m = [&](int st) { return base + st * kStage; };
   auto s_v = [&](int st) { return base + st * kStage + kBQ * N * 2; };
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int wg = tid / kWarpgroup;
-  const int c = blockIdx.x, h = blockIdx.y;
+  const int c = blockIdx.x / n_slices, k = blockIdx.x % n_slices;
+  const int h = blockIdx.y;
   const int npb = p / 64;
   const int prod = blockIdx.z % 2;
   const int b = blockIdx.z / 2 / npb, pb = blockIdx.z / 2 % npb;
   const int c0 = c * q, qc = min(q, len - c0);
   const int g = h / (h_count / g_count);
   const int64_t bh = static_cast<int64_t>(b) * h_count + h;
+  const int n_tot = N * n_slices;
+  const float a = -expf(a_log[h]);
+  const float* dt_row = dt + (static_cast<int64_t>(b) * len + c0) * h_count
+                        + h;
+  const int n_tiles = (qc + kTileQ - 1) / kTileQ;
+  // warp 0: the cumsum of tile t into cum and dt into f, after carry
+  auto scan = [&](int t, double carry) {
+    return chunk_cumsum(cum, f, dt_row + static_cast<int64_t>(t) * kTileQ *
+                                             h_count,
+                        h_count, a, min(kTileQ, qc - t * kTileQ), lane,
+                        carry);
+  };
 
+  // the chunk's cumsum tile by tile: its last row, then tile 0 again
+  double carry = 0.0;
   if (warp == 0)
-    chunk_cumsum(cum, f, dt + (static_cast<int64_t>(b) * len + c0) * h_count
-                             + h, h_count, -expf(a_log[h]), qc, lane);
+    for (int t = 0; t < n_tiles; ++t) carry = scan(t, carry);
   if (tid == 0) {
     for (int st = 0; st < kStages; ++st) mbar_init(bars + 8 * st, kThreads);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  // f = dt w (own) or exp(cum) (pull); one block writes the cumsum out
-  const double last = cum[qc - 1];
-  for (int j = tid; j < qc; j += kThreads) {
-    f[j] = prod == 0 ? f[j] * expf(static_cast<float>(last - cum[j]))
-                     : expf(static_cast<float>(cum[j]));
-    if (prod == 0 && pb == 0) cum_out[bh * len + c0 + j] = cum[j];
-  }
-  __syncthreads();
+  const double last = cum[(qc - 1) % kTileQ];
+  // f = dt w (own) or exp(cum) (pull) over tile t (its cumsum in place);
+  // one block writes the cumsum out
+  auto weigh = [&](int t) {
+    if (n_tiles > 1) {
+      __syncthreads();  // every thread is done with the tile before
+      if (warp == 0) carry = scan(t, t == 0 ? 0.0 : carry);
+      __syncthreads();
+    }
+    const int r0 = t * kTileQ, rows = min(kTileQ, qc - r0);
+    for (int j = tid; j < rows; j += kThreads) {
+      f[j] = prod == 0 ? f[j] * expf(static_cast<float>(last - cum[j]))
+                       : expf(static_cast<float>(cum[j]));
+      if (prod == 0 && pb == 0 && k == 0)
+        cum_out[bh * len + c0 + r0 + j] = cum[j];
+    }
+    __syncthreads();
+  };
+  weigh(0);
 
   const bf16* msrc = (prod == 0 ? bm : cm) +
-                     (static_cast<int64_t>(b) * len * g_count + g) * N;
+                     (static_cast<int64_t>(b) * len * g_count + g) * n_tot +
+                     k * N;
   const bf16* vsrc = (prod == 0 ? x : dy) +
                      (static_cast<int64_t>(b) * len * h_count + h) * p +
                      pb * 64;
@@ -225,7 +283,7 @@ ssd_bwd_sums_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   // three bf16 terms of the row-scaled x or dy by the threads
   auto fill = [&](int s, int st) {
     load_tile<N, kBQ, kThreads>(s_m(st), msrc, c0 + s * kBQ, c0 + qc, tid,
-                                static_cast<int64_t>(g_count) * N);
+                                static_cast<int64_t>(g_count) * n_tot);
     cp_async_arrive(bars + 8 * st);
     for (int e = tid; e < kBQ * 8; e += kThreads) {
       const int r = e / 8, ch = e % 8, j = s * kBQ + r;
@@ -234,12 +292,13 @@ ssd_bwd_sums_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
         const uint4 raw8 = *reinterpret_cast<const uint4*>(
             vsrc + (c0 + j) * vld + 8 * ch);
         const uint32_t w4[4] = {raw8.x, raw8.y, raw8.z, raw8.w};
+        const float fj = f[j % kTileQ];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float2 t = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(&w4[i]));
-          v[2 * i] = t.x * f[j];
-          v[2 * i + 1] = t.y * f[j];
+          v[2 * i] = t.x * fj;
+          v[2 * i + 1] = t.y * fj;
         }
       } else {
 #pragma unroll
@@ -272,15 +331,18 @@ ssd_bwd_sums_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                                           0),
                          1);
     wg_commit();
-    if (s + 1 < n_slabs) fill(s + 1, (s + 1) % kStages);
+    if (s + 1 < n_slabs) {
+      if ((s + 1) * kBQ % kTileQ == 0) weigh((s + 1) * kBQ / kTileQ);
+      fill(s + 1, (s + 1) % kStages);
+    }
     wg_wait();
     fence_regs(acc);
   }
 
-  // rows 64 wg + r_lo (+ 8), columns 8 n8 + 2 (lane % 4) + j
+  // rows 64 wg + r_lo (+ 8) of the slice, columns 8 n8 + 2 (lane % 4) + j
   const int r_lo = 64 * wg + 16 * (warp % 4) + lane / 4;
   float* dst = (prod == 0 ? own : pull) +
-               ((bh * n_chunks + c) * N + r_lo) * p + pb * 64 +
+               ((bh * n_chunks + c) * n_tot + k * N + r_lo) * p + pb * 64 +
                2 * (lane % 4);
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -377,7 +439,12 @@ ssd_bwd_pass_kernel(const double* __restrict__ cum,
 
 // ---------------------------------------------------------------------
 // Shared by the rows and the columns kernels: the block's (chunk, head,
-// batch) from blockIdx.x, and the chunk's cum and dt in shared memory.
+// batch) from blockIdx.x, and one sub-problem's place in the operands.  A
+// sub-problem is a slice of N state rows (k) and a block of P head columns
+// (pb): the kernels take its B and C columns, x and dy columns, and its
+// part of the states; n_ld and p_ld are the whole d_state and head size.
+// Each output that sums over slices or blocks is added to what the
+// sub-problems launched before left (acc_*), in launch order.
 
 struct Slab {
   int c, h, b, c0, qc, g;
@@ -399,19 +466,47 @@ __device__ __forceinline__ Slab slab_of(int len, int h_count, int g_count,
   return s;
 }
 
-// rows [0, rows) of the chunk's cum and dt; 0 past its end
-__device__ __forceinline__ void load_chunk(double* cum, float* dts,
-                                           const double* __restrict__ cum_in,
-                                           const float* __restrict__ dt,
-                                           const Slab& s, int rows, int len,
-                                           int h_count) {
-  for (int j = threadIdx.x; j < rows; j += kWarpgroup) {
-    const bool ok = j < s.qc;
-    cum[j] = ok ? cum_in[s.bh * len + s.c0 + j] : 0.0;
-    dts[j] = ok ? dt[(static_cast<int64_t>(s.b) * len + s.c0 + j) * h_count +
-                     s.h]
-                : 0.f;
+struct Sub {
+  int n_ld, p_ld;  // the whole d_state and head size
+  int acc_k;       // 1: add dx to the slices' before (k > 0)
+  int acc_p;       // 1: add dB, dC to the head blocks' before (pb > 0)
+  int acc_rows;    // 1: add the float64 planes to the sub-problems' before
+  int first_k;     // 1: slice 0, which adds d_skip dy and dy.x
+};
+
+// rows [r0, r0 + 64) of the chunk's cum (and dt, where dts) into shared
+// memory; 0 past its end
+__device__ __forceinline__ void load_rows64(double* cum, float* dts,
+                                            const double* __restrict__ cum_in,
+                                            const float* __restrict__ dt,
+                                            const Slab& s, int r0, int len,
+                                            int h_count) {
+  for (int j = threadIdx.x; j < kBQ; j += kWarpgroup) {
+    const bool ok = r0 + j < s.qc;
+    cum[j] = ok ? cum_in[s.bh * len + s.c0 + r0 + j] : 0.0;
+    if (dts != nullptr)
+      dts[j] = ok ? dt[(static_cast<int64_t>(s.b) * len + s.c0 + r0 + j) *
+                           h_count + s.h]
+                  : 0.f;
   }
+}
+
+// The same rows by cp.async (counted by the stage's mbarrier), by the
+// warpgroup's threads: 0-63 the cumsum, 64-127 dt (where dts).
+__device__ __forceinline__ void copy_rows64(double* cum, float* dts,
+                                            const double* __restrict__ cum_in,
+                                            const float* __restrict__ dt,
+                                            const Slab& s, int r0, int len,
+                                            int h_count, int tid) {
+  const int j = tid % kBQ;
+  const bool ok = r0 + j < s.qc;
+  const int row = ok ? s.c0 + r0 + j : 0;
+  if (tid < kBQ)
+    cp_async8(smem_u32(cum + j), cum_in + s.bh * len + row, ok);
+  else if (dts != nullptr)
+    cp_async4(smem_u32(dts + j),
+              dt + (static_cast<int64_t>(s.b) * len + row) * h_count + s.h,
+              ok);
 }
 
 // ---------------------------------------------------------------------
@@ -419,13 +514,14 @@ __device__ __forceinline__ void load_chunk(double* cum, float* dts,
 // Shared memory: the dy (64 x P) and C (64 x N) slabs, the three bf16
 // terms of a 64 x 64 tile of S_in (then the M tile: 64 x 64 floats, rows
 // i, kMLd apart), then per stage a key block's B (64 x N) and x (64 x P),
-// then one mbarrier per stage, cum (double) and dt of the chunk's rows.
+// then one mbarrier per stage, the slab's cumsum (double), and per stage
+// the key block's cumsum (double) and dt.
 
 template <int N, int P>
 __host__ __device__ constexpr int rows_smem_bytes() {
   return 1024 + kBQ * P * 2 + kBQ * N * 2 + 3 * kSplitTile +
-         kStages * (kBQ * N * 2 + kBQ * P * 2) + 8 * kStages +
-         kMaxQ * (8 + 4);
+         kStages * (kBQ * N * 2 + kBQ * P * 2) + 8 * kStages + kBQ * 8 +
+         kStages * kBQ * (8 + 4);
 }
 
 static_assert(kBQ * kMLd * 4 <= 3 * kSplitTile,
@@ -439,7 +535,7 @@ ssd_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                     const double* __restrict__ cum_in,
                     const float* __restrict__ s_in, float* __restrict__ dc,
                     double* __restrict__ rows, int len, int h_count,
-                    int g_count, int q, int n_chunks) {
+                    int g_count, int q, int n_chunks, Sub sub) {
   constexpr int kTileB = kBQ * N * 2, kTileX = kBQ * P * 2;
   constexpr int NB = N / 64;
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -450,9 +546,10 @@ ssd_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   const uint32_t ring = s_s + 3 * kSplitTile;
   const uint32_t bars = ring + kStages * (kTileB + kTileX);
   float* mt = reinterpret_cast<float*>(smem_raw + (s_s - raw));
-  double* cum = reinterpret_cast<double*>(smem_raw + (bars + 8 * kStages -
-                                                      raw));
-  float* dts = reinterpret_cast<float*>(cum + kMaxQ);
+  double* icum = reinterpret_cast<double*>(smem_raw + (bars + 8 * kStages -
+                                                       raw));
+  double* kcum = icum + kBQ;                 // [kStages][kBQ]
+  float* kdt = reinterpret_cast<float*>(kcum + kStages * kBQ);
   auto s_b = [&](int st) { return ring + st * (kTileB + kTileX); };
   auto s_x = [&](int st) { return s_b(st) + kTileB; };
 
@@ -469,21 +566,23 @@ ssd_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     for (int st = 0; st < kStages; ++st) mbar_init(bars + 8 * st, kWarpgroup);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  load_chunk(cum, dts, cum_in, dt, sl, nblk * kBQ, len, h_count);
+  load_rows64(icum, nullptr, cum_in, dt, sl, i0, len, h_count);
   __syncthreads();
 
-  const int64_t gld = static_cast<int64_t>(g_count) * N;
-  const int64_t xld = static_cast<int64_t>(h_count) * P;
+  const int64_t gld = static_cast<int64_t>(g_count) * sub.n_ld;
+  const int64_t xld = static_cast<int64_t>(h_count) * sub.p_ld;
   const int64_t bg = static_cast<int64_t>(sl.b) * len * g_count + sl.g;
   const int64_t bhx = (static_cast<int64_t>(sl.b) * len * h_count + sl.h);
-  const bf16* bsrc = bm + bg * N;
-  const bf16* csrc = cm + bg * N;
-  const bf16* xsrc = x + bhx * P;
-  const bf16* dysrc = dy + bhx * P;
+  const bf16* bsrc = bm + bg * sub.n_ld;
+  const bf16* csrc = cm + bg * sub.n_ld;
+  const bf16* xsrc = x + bhx * sub.p_ld;
+  const bf16* dysrc = dy + bhx * sub.p_ld;
   const int end = sl.c0 + sl.qc;
   auto fill = [&](int jb, int st) {
     load_tile<N, kBQ>(s_b(st), bsrc, sl.c0 + jb * kBQ, end, tid, gld);
     load_tile<P, kBQ>(s_x(st), xsrc, sl.c0 + jb * kBQ, end, tid, xld);
+    copy_rows64(kcum + st * kBQ, kdt + st * kBQ, cum_in, dt, sl, jb * kBQ,
+                len, h_count, tid);
     cp_async_arrive(bars + 8 * st);
   };
   // the dy and C slabs land with block 0
@@ -493,8 +592,8 @@ ssd_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 
   // acc = dy S_in^T, S_in taken in 64 x 64 tiles (state rows nb, head
   // columns ks), each split into three bf16 terms
-  const float* sin_c = s_in + (sl.bh * n_chunks + sl.c) * N *
-                                  static_cast<int64_t>(P);
+  const float* sin_c = s_in + (sl.bh * n_chunks + sl.c) * sub.n_ld *
+                                  static_cast<int64_t>(sub.p_ld);
   float acc[NB][32];
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb)
@@ -510,7 +609,9 @@ ssd_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
         for (int k = 0; k < NB; ++k) fence_regs(acc[k]);
         __syncthreads();
       }
-      split_tile<kWarpgroup>(s_s, sin_c + nb * 64 * P + ks * 64, P, tid);
+      split_tile<kWarpgroup>(
+          s_s, sin_c + static_cast<int64_t>(nb) * 64 * sub.p_ld + ks * 64,
+          sub.p_ld, tid);
       __syncthreads();
       if (nb + ks == 0) {  // the dy slab
         mbar_wait(bars, 0);
@@ -534,11 +635,12 @@ ssd_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   // exp(cum_i) dy S_in^T
   const int il_lo = i0 + 16 * warp + lane / 4;
   const int64_t plane = static_cast<int64_t>(gridDim.x / n_chunks) * len;
+  const bool acc_rows = sub.acc_rows;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int il = il_lo + 8 * i;
     const bool ok = il < sl.qc;
-    const float ei = ok ? expf(static_cast<float>(cum[il])) : 0.f;
+    const float ei = ok ? expf(static_cast<float>(icum[il - i0])) : 0.f;
     const bf16* crow = csrc + (ok ? (sl.c0 + il) * gld : 0) + 2 * (lane % 4);
     float part = 0.f;
 #pragma unroll
@@ -558,7 +660,8 @@ ssd_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     part += __shfl_xor_sync(0xffffffffu, part, 1);
     part += __shfl_xor_sync(0xffffffffu, part, 2);
     if (ok && lane % 4 == 0)
-      rows[sl.bh * len + sl.c0 + il] = static_cast<double>(ei * part);
+      put(rows + sl.bh * len + sl.c0 + il, static_cast<double>(ei * part),
+          acc_rows);
   }
   __syncthreads();  // every warp is past the split tile: it is the M tile
 
@@ -590,15 +693,16 @@ ssd_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     // Z = G L dt_j in place of G, 0 above the diagonal and past the end;
     // M = S Z into the tile
     const bool diag = jb == si;
+    const double* kc = kcum + st * kBQ;
+    const float* kd = kdt + st * kBQ;
 #pragma unroll
     for (int at = 0; at < 32; ++at) {  // at = 4 n8 + 2 i + j
       const int il = il_lo + 8 * (at / 2 % 2);
       const int jt = 8 * (at / 4) + 2 * (lane % 4) + at % 2;
-      const int jl = jb * kBQ + jt;
-      const float l = (!diag || jl <= il) && il < sl.qc
-                          ? expf(static_cast<float>(cum[il] - cum[jl]))
+      const float l = (!diag || jb * kBQ + jt <= il) && il < sl.qc
+                          ? expf(static_cast<float>(icum[il - i0] - kc[jt]))
                           : 0.f;
-      const float z = (gm[at] * l) * dts[jl];
+      const float z = (gm[at] * l) * kd[jt];
       mt[(il - i0) * kMLd + jt] = sm[at] * z;
       gm[at] = z;
     }
@@ -607,12 +711,12 @@ ssd_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     split_frags<64>(gm, fr);
     wg_fence();
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc)
+    for (int kc4 = 0; kc4 < 4; ++kc4)
 #pragma unroll
       for (int part = 0; part < 3; ++part)
 #pragma unroll
         for (int nb = 0; nb < NB; ++nb)
-          mma_rs(acc[nb], fr[part][kc], desc_mn<N, kBQ>(s_b(st), kc, nb));
+          mma_rs(acc[nb], fr[part][kc4], desc_mn<N, kBQ>(s_b(st), kc4, nb));
     wg_commit();
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) fence_regs(acc[nb]);
@@ -627,7 +731,8 @@ ssd_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
         for (int k = 0; k < 4; ++k)
           c4[k] += static_cast<double>(mt[(r + k) * kMLd + tid]);
       const int jl = jb * kBQ + tid;
-      if (jl < sl.qc) colsum[jl] = (c4[0] + c4[1]) + (c4[2] + c4[3]);
+      if (jl < sl.qc)
+        put(colsum + jl, (c4[0] + c4[1]) + (c4[2] + c4[3]), acc_rows);
     } else {
       const float4* mrow =
           reinterpret_cast<const float4*>(mt + (tid - kBQ) * kMLd);
@@ -652,7 +757,8 @@ ssd_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     if (jb + kStages < nblk) fill(jb + kStages, st);
   }
   if (tid >= kBQ && i0 + tid - kBQ < sl.qc)
-    rows[plane + sl.bh * len + sl.c0 + i0 + tid - kBQ] = rowsum;
+    put(rows + plane + sl.bh * len + sl.c0 + i0 + tid - kBQ, rowsum,
+        acc_rows);
 
   // dC per head, float32: columns 64 nb + 8 n8 + 2 (lane % 4) + j
 #pragma unroll
@@ -660,13 +766,13 @@ ssd_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     const int il = il_lo + 8 * i;
     if (il >= sl.qc) continue;
     float* dst = dc + ((static_cast<int64_t>(sl.b) * len + sl.c0 + il) *
-                           h_count + sl.h) * N + 2 * (lane % 4);
+                           h_count + sl.h) * sub.n_ld + 2 * (lane % 4);
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
       for (int n8 = 0; n8 < 8; ++n8)
-        *reinterpret_cast<float2*>(dst + nb * 64 + 8 * n8) = make_float2(
-            acc[nb][4 * n8 + 2 * i], acc[nb][4 * n8 + 2 * i + 1]);
+        put2(dst + nb * 64 + 8 * n8, acc[nb][4 * n8 + 2 * i],
+             acc[nb][4 * n8 + 2 * i + 1], sub.acc_p);
   }
 }
 
@@ -674,14 +780,14 @@ ssd_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 // 4. dx, dB and the direct ddt terms.  Block (chunk x head x batch, slab
 // j), one warpgroup.  Shared memory: the B (64 x N) and x (64 x P) slabs,
 // then per stage an i block's C (64 x N) and dy (64 x P) (the epilogue
-// splits dS into the first stage), then one mbarrier per stage, cum
-// (double) and dt of the chunk.
+// splits dS into the first stage), then one mbarrier per stage, the
+// slab's cumsum (double) and dt, and per stage the i block's cumsum.
 
 template <int N, int P>
 __host__ __device__ constexpr int cols_smem_bytes() {
   return 1024 + kBQ * N * 2 + kBQ * P * 2 +
          kStages * (kBQ * N * 2 + kBQ * P * 2) + 8 * kStages +
-         kMaxQ * (8 + 4);
+         kBQ * (8 + 4) + kStages * kBQ * 8;
 }
 
 template <int N, int P>
@@ -693,7 +799,8 @@ ssd_bwd_cols_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                     const double* __restrict__ cum_in,
                     const float* __restrict__ ds_out, float* __restrict__ dx,
                     float* __restrict__ db, double* __restrict__ rows,
-                    int len, int h_count, int g_count, int q, int n_chunks) {
+                    int len, int h_count, int g_count, int q, int n_chunks,
+                    Sub sub) {
   constexpr int kTileB = kBQ * N * 2, kTileX = kBQ * P * 2;
   constexpr int NB = N / 64, XB = P / 64;
   static_assert(3 * kSplitTile <= kStages * (kTileB + kTileX),
@@ -704,9 +811,10 @@ ssd_bwd_cols_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   const uint32_t s_bj = base, s_xj = base + kTileB;
   const uint32_t ring = s_xj + kTileX;
   const uint32_t bars = ring + kStages * (kTileB + kTileX);
-  double* cum = reinterpret_cast<double*>(smem_raw + (bars + 8 * kStages -
-                                                      raw));
-  float* dts = reinterpret_cast<float*>(cum + kMaxQ);
+  double* jcum = reinterpret_cast<double*>(smem_raw + (bars + 8 * kStages -
+                                                       raw));
+  double* kcum = jcum + kBQ;                 // [kStages][kBQ]
+  float* jdt = reinterpret_cast<float*>(kcum + kStages * kBQ);
   auto s_c = [&](int st) { return ring + st * (kTileB + kTileX); };
   auto s_dy = [&](int st) { return s_c(st) + kTileB; };
 
@@ -723,30 +831,33 @@ ssd_bwd_cols_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     for (int st = 0; st < kStages; ++st) mbar_init(bars + 8 * st, kWarpgroup);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  load_chunk(cum, dts, cum_in, dt, sl, n_live * kBQ, len, h_count);
+  load_rows64(jcum, jdt, cum_in, dt, sl, j0, len, h_count);
   __syncthreads();
 
-  const int64_t gld = static_cast<int64_t>(g_count) * N;
-  const int64_t xld = static_cast<int64_t>(h_count) * P;
+  const int64_t gld = static_cast<int64_t>(g_count) * sub.n_ld;
+  const int64_t xld = static_cast<int64_t>(h_count) * sub.p_ld;
   const int64_t bg = static_cast<int64_t>(sl.b) * len * g_count + sl.g;
   const int64_t bhx = (static_cast<int64_t>(sl.b) * len * h_count + sl.h);
-  const bf16* csrc = cm + bg * N;
-  const bf16* dysrc = dy + bhx * P;
+  const bf16* csrc = cm + bg * sub.n_ld;
+  const bf16* dysrc = dy + bhx * sub.p_ld;
   const int end = sl.c0 + sl.qc;
   auto fill = [&](int t, int st) {
-    const int r0 = sl.c0 + (sj + t) * kBQ;
-    load_tile<N, kBQ>(s_c(st), csrc, r0, end, tid, gld);
-    load_tile<P, kBQ>(s_dy(st), dysrc, r0, end, tid, xld);
+    const int r0 = (sj + t) * kBQ;
+    load_tile<N, kBQ>(s_c(st), csrc, sl.c0 + r0, end, tid, gld);
+    load_tile<P, kBQ>(s_dy(st), dysrc, sl.c0 + r0, end, tid, xld);
+    copy_rows64(kcum + st * kBQ, nullptr, cum_in, dt, sl, r0, len, h_count,
+                tid);
     cp_async_arrive(bars + 8 * st);
   };
   // B_j and x_j land with the first i block
-  load_tile<N, kBQ>(s_bj, bm + bg * N, sl.c0 + j0, end, tid, gld);
-  load_tile<P, kBQ>(s_xj, x + bhx * P, sl.c0 + j0, end, tid, xld);
+  load_tile<N, kBQ>(s_bj, bm + bg * sub.n_ld, sl.c0 + j0, end, tid, gld);
+  load_tile<P, kBQ>(s_xj, x + bhx * sub.p_ld, sl.c0 + j0, end, tid, xld);
   for (int t = 0; t < kStages && t < n_i; ++t) fill(t, t);
 
   // this thread's rows of the slab: jl_lo and jl_lo + 8 (chunk-local)
   const int jl_lo = j0 + 16 * warp + lane / 4;
-  const float dtj[2] = {dts[jl_lo], dts[jl_lo + 8]};
+  const float dtj[2] = {jdt[jl_lo - j0], jdt[jl_lo + 8 - j0]};
+  const double cj[2] = {jcum[jl_lo - j0], jcum[jl_lo + 8 - j0]};
   double qd[2] = {0.0, 0.0};
   float dxa[XB][32], dba[NB][32];
 #pragma unroll
@@ -782,13 +893,15 @@ ssd_bwd_cols_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     wg_wait();
     fence_regs(s);
     fence_regs(gt);
+    const double* ic = kcum + st * kBQ;
 #pragma unroll
     for (int at = 0; at < 32; ++at) {  // at = 4 n8 + 2 i + j
       const int k = at / 2 % 2;
       const int jl = jl_lo + 8 * k;
-      const int il = i0 + 8 * (at / 4) + 2 * (lane % 4) + at % 2;
+      const int it = 8 * (at / 4) + 2 * (lane % 4) + at % 2;
+      const int il = i0 + it;
       const float l = jl <= il && il < sl.qc
-                          ? expf(static_cast<float>(cum[il] - cum[jl]))
+                          ? expf(static_cast<float>(ic[it] - cj[k]))
                           : 0.f;
       const float slv = s[at] * l;
       qd[k] += static_cast<double>(slv * gt[at]);
@@ -832,15 +945,15 @@ ssd_bwd_cols_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 
   // the epilogue, against dS split 64 x 64 at a time into the first stage
   // (free now): bds = B_j dS, then xds = x_j dS^T
-  const float* dso = ds_out + (sl.bh * n_chunks + sl.c) * N *
-                                  static_cast<int64_t>(P);
+  const float* dso = ds_out + (sl.bh * n_chunks + sl.c) * sub.n_ld *
+                                  static_cast<int64_t>(sub.p_ld);
   const uint32_t s_t = ring;
-  const double last = cum[sl.qc - 1];
+  const double last = cum_in[sl.bh * len + sl.c0 + sl.qc - 1];
   float w[2];
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     const int jl = jl_lo + 8 * k;
-    w[k] = jl < sl.qc ? expf(static_cast<float>(last - cum[jl])) : 0.f;
+    w[k] = jl < sl.qc ? expf(static_cast<float>(last - cj[k])) : 0.f;
   }
   {
     float bds[XB][32];
@@ -858,7 +971,9 @@ ssd_bwd_cols_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
           for (int k = 0; k < XB; ++k) fence_regs(bds[k]);
           __syncthreads();
         }
-        split_tile<kWarpgroup>(s_t, dso + nb * 64 * P + pb * 64, P, tid);
+        split_tile<kWarpgroup>(
+            s_t, dso + static_cast<int64_t>(nb) * 64 * sub.p_ld + pb * 64,
+            sub.p_ld, tid);
         __syncthreads();
         wg_fence();
 #pragma unroll
@@ -878,15 +993,15 @@ ssd_bwd_cols_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     // dx = dt (dxa + w bds) + D dy; the rows' x.(B dS), dy.x and sums of
     // S L G
     const int64_t plane = static_cast<int64_t>(gridDim.x / n_chunks) * len;
-    const float dsk = d_skip[sl.h];
+    const float dsk = sub.first_k ? d_skip[sl.h] : 0.f;
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
       const int jl = jl_lo + 8 * k;
       const bool live = jl < sl.qc;
       const int64_t at = (sl.c0 + (live ? jl : 0)) * xld + 2 * (lane % 4);
-      const bf16* xr = x + bhx * P + at;
+      const bf16* xr = x + bhx * sub.p_ld + at;
       const bf16* dyr = dysrc + at;
-      float* dxr = dx + bhx * P + at;
+      float* dxr = dx + bhx * sub.p_ld + at;
       float xb = 0.f, dd = 0.f;
 #pragma unroll
       for (int pb = 0; pb < XB; ++pb)
@@ -901,9 +1016,9 @@ ssd_bwd_cols_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
           const float b0 = bds[pb][a], b1 = bds[pb][a + 1];
           xb += xv.x * b0 + xv.y * b1;
           dd += dyv.x * xv.x + dyv.y * xv.y;
-          *reinterpret_cast<float2*>(dxr + col) = make_float2(
-              dtj[k] * (dxa[pb][a] + w[k] * b0) + dsk * dyv.x,
-              dtj[k] * (dxa[pb][a + 1] + w[k] * b1) + dsk * dyv.y);
+          put2(dxr + col, dtj[k] * (dxa[pb][a] + w[k] * b0) + dsk * dyv.x,
+               dtj[k] * (dxa[pb][a + 1] + w[k] * b1) + dsk * dyv.y,
+               sub.acc_k);
         }
       xb += __shfl_xor_sync(0xffffffffu, xb, 1);
       xb += __shfl_xor_sync(0xffffffffu, xb, 2);
@@ -914,9 +1029,10 @@ ssd_bwd_cols_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
       qd_k += __shfl_xor_sync(0xffffffffu, qd_k, 2);
       if (live && lane % 4 == 0) {
         const int64_t row = sl.bh * len + sl.c0 + jl;
-        rows[plane * 2 + row] = qd_k;
-        rows[plane * 3 + row] = static_cast<double>(xb);
-        rows[plane * 4 + row] = static_cast<double>(dd);
+        put(rows + plane * 2 + row, qd_k, sub.acc_rows);
+        put(rows + plane * 3 + row, static_cast<double>(xb), sub.acc_rows);
+        if (sub.first_k)
+          put(rows + plane * 4 + row, static_cast<double>(dd), sub.acc_p);
       }
     }
   }
@@ -937,7 +1053,9 @@ ssd_bwd_cols_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
         for (int k = 0; k < NB; ++k) fence_regs(xds[k]);
         __syncthreads();  // the previous tile's products are done with s_t
       }
-      split_tile<kWarpgroup>(s_t, dso + nb * 64 * P + pb * 64, P, tid);
+      split_tile<kWarpgroup>(
+          s_t, dso + static_cast<int64_t>(nb) * 64 * sub.p_ld + pb * 64,
+          sub.p_ld, tid);
       __syncthreads();
       wg_fence();
 #pragma unroll
@@ -958,15 +1076,15 @@ ssd_bwd_cols_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     const int jl = jl_lo + 8 * k;
     if (jl >= sl.qc) continue;
     float* dst = db + ((static_cast<int64_t>(sl.b) * len + sl.c0 + jl) *
-                           h_count + sl.h) * N + 2 * (lane % 4);
+                           h_count + sl.h) * sub.n_ld + 2 * (lane % 4);
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
       for (int n8 = 0; n8 < 8; ++n8) {
         const int a = 4 * n8 + 2 * k;
-        *reinterpret_cast<float2*>(dst + nb * 64 + 8 * n8) = make_float2(
-            dtj[k] * (dba[nb][a] + w[k] * xds[nb][a]),
-            dtj[k] * (dba[nb][a + 1] + w[k] * xds[nb][a + 1]));
+        put2(dst + nb * 64 + 8 * n8,
+             dtj[k] * (dba[nb][a] + w[k] * xds[nb][a]),
+             dtj[k] * (dba[nb][a + 1] + w[k] * xds[nb][a + 1]), sub.acc_p);
       }
   }
 }
@@ -974,7 +1092,9 @@ ssd_bwd_cols_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 // ---------------------------------------------------------------------
 // 5. Per (b, h, chunk): <S_in, dS>, dcum, its reverse cumsum d(dt a),
 // ddt, and the chunk's partials a sum dt d(dt a) (of d a_log) and sum
-// dy.x (of d d_skip).
+// dy.x (of d d_skip).  One thread per row of a tile of kTileQ rows; a
+// longer chunk is walked tile by tile, its reverse cumsum from the last
+// tile back, carried.
 
 // Sum of v over the block, the same in every thread: a warp xor tree,
 // then the warps' sums in order.  red holds kCloseWarps values.
@@ -1015,59 +1135,82 @@ ssd_bwd_close_kernel(const float* __restrict__ dt,
                      float* __restrict__ ddt, float* __restrict__ parts,
                      int len, int h_count, int n_tiles, int q, int n_chunks) {
   __shared__ double red[kCloseWarps];
-  __shared__ double dda[kMaxQ];
+  __shared__ double dda[kTileQ];
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int c0 = c * q, qc = min(q, len - c0), i = threadIdx.x;
+  const int c0 = c * q, qc = min(q, len - c0), tid = threadIdx.x;
   const int n_live = (qc + kBQ - 1) / kBQ;
   const int64_t bh = static_cast<int64_t>(b) * h_count + h;
   const int64_t plane = static_cast<int64_t>(gridDim.z) * h_count * len;
-  const int64_t at = bh * len + c0 + i;
-  const bool live = i < qc;
   const float a = -expf(a_log[h]);
   const double last = cum[bh * len + c0 + qc - 1];
 
   // <S_in, dS>: the state passing's float64 partials, in a fixed order
   const double* sp_c = sdot_parts + (bh * n_chunks + c) * n_tiles;
   double sp = 0.0;
-  for (int t = i; t < n_tiles; t += kCloseThreads) sp += sp_c[t];
+  for (int t = tid; t < n_tiles; t += kCloseThreads) sp += sp_c[t];
   const float sdot = static_cast<float>(block_sum(sp, red));
 
-  double cumi = 0.0, rowp = 0.0, colm = 0.0, qd = 0.0, xb = 0.0, dd = 0.0;
-  float dti = 0.f;
-  if (live) {
-    cumi = cum[at];
-    rowp = rows[at] + rows[plane + at];
+  // row i's terms: w, dt and x.(B dS), and dcum but for row qc - 1's
+  // extras
+  struct Row {
+    float w, dti, t;
+    double qd, xb, dd, dcum;
+  };
+  auto row_of = [&](int i) {
+    Row r{0.f, 0.f, 0.f, 0.0, 0.0, 0.0, 0.0};
+    if (i >= qc) return r;
+    const int64_t at = bh * len + c0 + i;
+    const double cumi = cum[at];
+    const double rowp = rows[at] + rows[plane + at];
+    double colm = 0.0;
     for (int s = i / kBQ; s < n_live; ++s)
       colm += rows[(kColPlane + s) * plane + at];
-    qd = rows[2 * plane + at];
-    xb = rows[3 * plane + at];
-    dd = rows[4 * plane + at];
-    dti = dt[(static_cast<int64_t>(b) * len + c0 + i) * h_count + h];
+    r.qd = rows[2 * plane + at];
+    r.xb = rows[3 * plane + at];
+    r.dd = rows[4 * plane + at];
+    r.dti = dt[(static_cast<int64_t>(b) * len + c0 + i) * h_count + h];
+    r.w = expf(static_cast<float>(last - cumi));
+    r.t = r.w * r.dti * static_cast<float>(r.xb);
+    r.dcum = rowp - colm - static_cast<double>(r.t);
+    return r;
+  };
+  double t_part = 0.0;
+  for (int i = tid; i < qc; i += kCloseThreads)
+    t_part += static_cast<double>(row_of(i).t);
+  const double t_sum = block_sum(t_part, red);
+
+  // reverse inclusive cumsum, tile by tile from the last: thread k scans
+  // the tile's element rows - 1 - k, after the carry of the tiles behind
+  double carry = 0.0, da = 0.0, ds = 0.0;
+  for (int tl = (qc - 1) / kTileQ; tl >= 0; --tl) {
+    const int r0 = tl * kTileQ, rows_t = min(kTileQ, qc - r0);
+    const int i = r0 + tid;
+    const bool live = tid < rows_t;
+    const Row r = row_of(i);
+    double dcum = r.dcum;
+    if (i == qc - 1)
+      dcum += static_cast<double>(expf(static_cast<float>(last)) * sdot) +
+              t_sum;
+    __syncthreads();
+    if (live) dda[tid] = dcum;
+    __syncthreads();
+    const int k = rows_t - 1 - tid;
+    const double rv = block_scan(live ? dda[k] : 0.0, red) + carry;
+    __syncthreads();
+    if (live) dda[k] = rv;
+    __syncthreads();
+    const double ddai = live ? dda[tid] : 0.0;
+    if (live)
+      ddt[(static_cast<int64_t>(b) * len + c0 + i) * h_count + h] =
+          static_cast<float>(r.qd) + r.w * static_cast<float>(r.xb) +
+          a * static_cast<float>(ddai);
+    da += static_cast<double>(r.dti) * ddai;
+    ds += r.dd;
+    carry = dda[0];
   }
-  const float w = live ? expf(static_cast<float>(last - cumi)) : 0.f;
-  const float t = w * dti * static_cast<float>(xb);
-  double dcum = live ? rowp - colm - static_cast<double>(t) : 0.0;
-  const double t_sum = block_sum(static_cast<double>(t), red);
-  if (i == qc - 1)
-    dcum += static_cast<double>(expf(static_cast<float>(last)) * sdot) +
-            t_sum;
-  // reverse inclusive cumsum: thread k scans the element qc - 1 - k
-  __syncthreads();
-  if (live) dda[i] = dcum;
-  __syncthreads();
-  const int k = qc - 1 - i;
-  const double rv = block_scan(i < qc ? dda[k] : 0.0, red);
-  __syncthreads();
-  if (live) dda[k] = rv;
-  __syncthreads();
-  const double ddai = live ? dda[i] : 0.0;
-  if (live)
-    ddt[(static_cast<int64_t>(b) * len + c0 + i) * h_count + h] =
-        static_cast<float>(qd) + w * static_cast<float>(xb) +
-        a * static_cast<float>(ddai);
-  const double da = block_sum(static_cast<double>(dti) * ddai, red);
-  const double ds = block_sum(dd, red);
-  if (i == 0) {
+  da = block_sum(da, red);
+  ds = block_sum(ds, red);
+  if (tid == 0) {
     const int64_t nparts = static_cast<int64_t>(gridDim.z) * h_count *
                            n_chunks;
     parts[bh * n_chunks + c] = static_cast<float>(static_cast<double>(a) * da);
@@ -1089,7 +1232,7 @@ struct Args {
   double* cum;
   float *own, *pull;
   double *sdot, *rows;
-  int b, len, h, g, q;
+  int b, len, h, g, q, n, p;
   cudaStream_t stream;
 };
 
@@ -1099,58 +1242,75 @@ cudaError_t allow_smem(Kern kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// The rows and the columns kernels of sub-problem (k, pb): state rows k N
+// .., head columns pb P ..
+template <int N, int P>
+cudaError_t launch_sub(const Args& a, int k, int pb, int nc) {
+  const int spc = (a.q + kBQ - 1) / kBQ;
+  constexpr int s3 = rows_smem_bytes<N, P>(), s4 = cols_smem_bytes<N, P>();
+  cudaError_t err;
+  if ((err = allow_smem(ssd_bwd_rows_kernel<N, P>, s3)) != cudaSuccess ||
+      (err = allow_smem(ssd_bwd_cols_kernel<N, P>, s4)) != cudaSuccess)
+    return err;
+  const Sub sub{a.n, a.p, k > 0, pb > 0, k + pb > 0, k == 0};
+  const int64_t state_at = static_cast<int64_t>(k) * N * a.p + pb * P;
+  ssd_bwd_rows_kernel<N, P><<<dim3(nc * a.h * a.b, spc), kWarpgroup, s3,
+                              a.stream>>>(
+      a.x + pb * P, a.dt, a.bm + k * N, a.cm + k * N, a.dy + pb * P, a.cum,
+      a.own + state_at, a.dc + k * N, a.rows, a.len, a.h, a.g, a.q, nc, sub);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_bwd_cols_kernel<N, P><<<dim3(nc * a.h * a.b, spc), kWarpgroup, s4,
+                              a.stream>>>(
+      a.x + pb * P, a.dt, a.bm + k * N, a.cm + k * N, a.dy + pb * P,
+      a.d_skip, a.cum, a.pull + state_at, a.dx + pb * P, a.db + k * N,
+      a.rows, a.len, a.h, a.g, a.q, nc, sub);
+  return cudaGetLastError();
+}
+
+// N state rows a slice, P head columns a block (the whole d_state a.n and
+// head size a.p their multiples)
 template <int N, int P>
 cudaError_t launch(const Args& a) {
   const int nc = (a.len + a.q - 1) / a.q;
-  const int spc = (a.q + kBQ - 1) / kBQ;
-  constexpr int s1 = sums_smem_bytes<N>(), s3 = rows_smem_bytes<N, P>(),
-                s4 = cols_smem_bytes<N, P>();
+  const int n_slices = a.n / N, n_blocks = a.p / P;
+  constexpr int s1 = sums_smem_bytes<N>();
   cudaError_t err;
-  if ((err = allow_smem(ssd_bwd_sums_kernel<N>, s1)) != cudaSuccess ||
-      (err = allow_smem(ssd_bwd_rows_kernel<N, P>, s3)) != cudaSuccess ||
-      (err = allow_smem(ssd_bwd_cols_kernel<N, P>, s4)) != cudaSuccess)
+  if ((err = allow_smem(ssd_bwd_sums_kernel<N>, s1)) != cudaSuccess)
     return err;
-  ssd_bwd_sums_kernel<N><<<dim3(nc, a.h, a.b * (P / 64) * 2), 2 * N, s1,
-                           a.stream>>>(a.x, a.dt, a.a_log, a.bm, a.cm, a.dy,
-                                       a.cum, a.own, a.pull, a.len, a.h, P,
-                                       a.g, a.q, nc);
+  ssd_bwd_sums_kernel<N><<<dim3(nc * n_slices, a.h, a.b * (a.p / 64) * 2),
+                           2 * N, s1, a.stream>>>(
+      a.x, a.dt, a.a_log, a.bm, a.cm, a.dy, a.cum, a.own, a.pull, a.len, a.h,
+      a.p, a.g, a.q, nc, n_slices);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  constexpr int np = N * P;
-  static_assert(np % (4 * kPassThreads) == 0, "the pass grid is not exact");
+  const int np = a.n * a.p;  // a multiple of 4 kPassThreads
   ssd_bwd_pass_kernel<<<dim3(np / 4 / kPassThreads, a.h, a.b), kPassThreads,
                         0, a.stream>>>(a.cum, a.state_in, a.dfinal, a.own,
                                     a.pull, a.dstate, a.sdot, a.len, a.h, np,
                                     a.q, nc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ssd_bwd_rows_kernel<N, P><<<dim3(nc * a.h * a.b, spc), kWarpgroup, s3,
-                              a.stream>>>(a.x, a.dt, a.bm, a.cm, a.dy, a.cum,
-                                          a.own, a.dc, a.rows, a.len, a.h,
-                                          a.g, a.q, nc);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ssd_bwd_cols_kernel<N, P><<<dim3(nc * a.h * a.b, spc), kWarpgroup, s4,
-                              a.stream>>>(a.x, a.dt, a.bm, a.cm, a.dy,
-                                          a.d_skip, a.cum, a.pull, a.dx,
-                                          a.db, a.rows, a.len, a.h, a.g, a.q,
-                                          nc);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  for (int k = 0; k < n_slices; ++k)
+    for (int pb = 0; pb < n_blocks; ++pb)
+      if ((err = launch_sub<N, P>(a, k, pb, nc)) != cudaSuccess) return err;
   ssd_bwd_close_kernel<<<dim3(nc, a.h, a.b), kCloseThreads, 0, a.stream>>>(
       a.dt, a.a_log, a.cum, a.rows, a.sdot, a.ddt, a.parts, a.len, a.h,
       np / kTileEntries, a.q, nc);
   return cudaGetLastError();
 }
 
+// The head block: the whole head size where it is 64, 128, 192 or 256,
+// else blocks of 192 or 256 (the wrapper pads to one of their multiples).
 template <int N>
-cudaError_t launch_p(const Args& a, int p) {
-  switch (p) {
+cudaError_t launch_p(const Args& a) {
+  switch (a.p) {
     case 64:
       return launch<N, 64>(a);
     case 128:
       return launch<N, 128>(a);
     case 192:
       return launch<N, 192>(a);
-    case 256:
-      return launch<N, 256>(a);
     default:
+      if (a.p % 256 == 0) return launch<N, 256>(a);
+      if (a.p % 192 == 0) return launch<N, 192>(a);
       return cudaErrorInvalidValue;
   }
 }
@@ -1164,8 +1324,10 @@ cudaError_t launch_p(const Args& a, int p) {
 // partials of d a_log and d d_skip.  Scratch: cum (B, H, L) float64,
 // states and pulls (B, H, n_chunks, N, P) float32, sdot (B, H, n_chunks,
 // N P / 128) float64, rows (5 + ceil(q / 64), B, H, L) float64.  All
-// contiguous, rows 16-byte aligned; N in {64, 128, 256}, P in {64, 128,
-// 192, 256}, 1 <= q <= 256, H % G == 0.
+// contiguous, rows 16-byte aligned; N in {64, 128, 256} or a multiple of
+// 128 above 256 (slices of 256 where it is a multiple of 256, else of
+// 128), P in {64, 128, 192} or a multiple of 192 or 256 (blocks of 256,
+// else of 192), q >= 1, H % G == 0.
 cudaError_t ssd_scan_backward(const void* x, const float* dt,
                               const float* a_log, const void* bm,
                               const void* cm, const float* d_skip,
@@ -1176,21 +1338,16 @@ cudaError_t ssd_scan_backward(const void* x, const float* dt,
                               float* pulls, double* sdot, double* rows,
                               int b, int len, int h, int p, int g, int n,
                               int q, cudaStream_t stream) {
-  if (b <= 0 || len <= 0 || g <= 0 || h % g != 0 || q < 1 || q > kMaxQ)
+  if (b <= 0 || len <= 0 || g <= 0 || h % g != 0 || q < 1)
     return cudaErrorInvalidValue;
   const Args a{static_cast<const bf16*>(x), dt, a_log,
                static_cast<const bf16*>(bm), static_cast<const bf16*>(cm),
                d_skip, state_in, static_cast<const bf16*>(dy), dfinal, dx,
                ddt, db, dc, dstate, parts, cum, states, pulls, sdot, rows,
-               b, len, h, g, q, stream};
-  switch (n) {
-    case 64:
-      return launch_p<64>(a, p);
-    case 128:
-      return launch_p<128>(a, p);
-    case 256:
-      return launch_p<256>(a, p);
-    default:
-      return cudaErrorInvalidValue;
-  }
+               b, len, h, g, q, n, p, stream};
+  if (n == 64) return launch_p<64>(a);
+  if (n == 128) return launch_p<128>(a);
+  if (n > 0 && n % 256 == 0) return launch_p<256>(a);
+  if (n > 256 && n % 128 == 0) return launch_p<128>(a);
+  return cudaErrorInvalidValue;
 }

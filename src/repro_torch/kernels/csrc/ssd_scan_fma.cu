@@ -6,13 +6,16 @@
 // (repro/kernels/ssd_scan.py:31, _kernel via ssd_scan), float32 in and out.
 //
 // There, a sequential chunk grid axis carried the float32 (N, P) state in
-// VMEM.  Here one block owns a (batch, head, 16-column slice of P) and
-// walks the chunks in a loop with the state slice in shared memory.  Per
-// chunk of Q rows it computes, in the reference's order:
+// VMEM.  Here one block owns a (batch, head, 16-column slice of P, slice
+// of at most 256 state rows) and walks the chunks in a loop with its part
+// of the state in shared memory.  Per chunk of Q rows it computes, in the
+// reference's order:
 //     cum    = inclusive cumsum of dt * a
 //     scores = (C B^T) * exp(where(causal, cum_i - cum_j, -inf))
 //     y      = scores @ (x dt) + (C @ S_in) * exp(cum) + x * d_skip
 //     S_out  = exp(cum[-1]) S_in + B^T @ (exp(cum[-1] - cum) * x dt)
+// Two launches: ssd_cumsum_kernel, one warp per (batch, head, chunk), the
+// float64 cumsum into a scratch; then ssd_scan_fma_kernel.
 //
 // What bounds it: the float32 products at the CUDA cores' 67 TFLOP/s (the
 // first port of #8; the tensor cores take float32 only as TF32, which is
@@ -21,20 +24,26 @@
 //     for 132 SMs.  The P columns of y and of the state are independent,
 //     so each block takes 16 of them: 96 blocks of 512 threads.  Each
 //     recomputes its chunk's C B^T, the price of the wider grid.
-//   * Shared memory.  At Q = 256 the (Q, Q) float32 scores alone are
-//     256 KB, over a block's 227 KB.  The block keeps B^T of the chunk
-//     (N x Q) and computes the scores in slabs of 32 query rows: the
-//     slab's C rows and scores, x dt of the chunk and the state slice,
-//     209.5 KB in all at the serve shape (dynamic shared memory).  Rows
-//     of C and of the scores are read as float4.
-//   * Causality.  A slab only computes the scores left of its diagonal;
-//     columns of 32 past it are skipped by whole warps.
+//   * Shared memory is bounded by the tiles, not by the chunk: a block
+//     takes the chunk's queries in slabs of 64 rows and, for each, walks
+//     the key slabs of 64 rows left of its diagonal (B^T of the slab, x dt
+//     and the keys' cumsum), then walks the key slabs once more for the
+//     state.  With 256 state rows: 64 rows of C, 256 x 64 of B^T, the 64 x
+//     64 scores, the state slice, 172.3 KB in all.  Rows of C and of the
+//     scores are read as float4.
+//   * A d_state over 256 is cut into slices of 256 rows: the rows of the
+//     state are independent, and so are the slices' shares of y, which the
+//     wrapper adds in slice order (y then holds one share per slice).
+//   * Causality.  Only the key slabs left of a query slab's diagonal are
+//     visited; the diagonal slab is masked.
 //   * The cumsum is carried in float64 (a warp-shuffle scan): at the
 //     serve shape it reaches about -3e3 within a chunk, where a float32
 //     ulp of 2.4e-4 would put that much noise into every decay factor.
 //   * Ragged lengths.  The last chunk may be short: rows past the end
 //     load as zeros and are never stored.
 // No TF32, no tensor cores: float32 FMAs throughout.
+// Shapes: N a multiple of 4 (the Python wrapper zero-pads any other), any
+// P and chunk, H % G == 0.
 
 #include <cuda_runtime.h>
 
@@ -45,291 +54,315 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPT = 16;        // state and y columns per block
-constexpr int kSR = 32;        // query rows per score slab
-constexpr int kMaxQ = 256;     // chunk rows (8 column groups of 32)
-constexpr int kMaxN = 256;     // d_state (8 state rows per thread)
+constexpr int kQS = 64;        // query rows per slab (4 per warp)
+constexpr int kKS = 64;        // key rows per slab (2 columns per lane)
+constexpr int kMaxN = 256;     // state rows of a slice (8 per thread)
+constexpr int kLdk = kKS + 1;  // bt rows: odd, for the transposed stores
+constexpr int kLds = kKS + 4;  // score rows
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+static_assert(kQS == 4 * kWarps && kKS == 64 && kThreads == kQS * kPT / 2,
+              "the slabs do not match the threads");
 
-__host__ __device__ constexpr int round32(int v) { return (v + 31) / 32 * 32; }
-
-// Shared-memory layout of one block (qa = chunk rounded up to 32; N a
-// multiple of 4): doubles cum[qa], wsum[kWarps]; floats bt[N][qa + 1]
-// (padded to 16 bytes), cs[kSR][N + 4], ss[kSR][qa + 4], xdt[qa][kPT],
-// st[N][kPT], w[qa].  The rows of cs and ss are read as float4.
-__host__ __device__ inline int bt_floats(int qa, int n) {
-  return (n * (qa + 1) + 3) / 4 * 4;
+__host__ __device__ constexpr int slices(int n) {
+  return (n + kMaxN - 1) / kMaxN;
 }
-inline int64_t smem_bytes(int q, int n) {
-  const int qa = round32(q);
-  return 8 * (qa + kWarps) +
-         4 * (static_cast<int64_t>(bt_floats(qa, n)) + kSR * (n + 4) +
-              kSR * (qa + 4) + qa * kPT + n * kPT + qa);
+
+// Shared-memory layout of one block with ns state rows (a multiple of 4):
+// doubles icum[kQS], kcum[kKS]; floats cs[kQS][ns + 4], bt[ns][kLdk],
+// ss[kQS][kLds], xdt[kKS][kPT], st[ns][kPT], kw[kKS].
+inline int64_t smem_bytes(int ns) {
+  return 8 * (kQS + kKS) +
+         4 * (static_cast<int64_t>(kQS) * (ns + 4) + ns * kLdk + kQS * kLds +
+              kKS * kPT + ns * kPT + kKS);
 }
 
 __device__ __forceinline__ float lane4(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-ssd_scan_fma_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ a_log, const T* __restrict__ bm,
-                const T* __restrict__ cm, const float* __restrict__ d_skip,
-                const float* __restrict__ state_in, T* __restrict__ y,
-                float* __restrict__ state_out, int len, int h_count, int p,
-                int g_count, int n, int q) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int qa = round32(q);
-  const int ldq = qa + 1;          // bt rows: odd, for the transposed stores
-  const int ldc = n + 4;           // cs rows
-  const int lds = qa + 4;          // ss rows
-  double* cum = reinterpret_cast<double*>(smem_raw);
-  double* wsum = cum + qa;
-  float* bt = reinterpret_cast<float*>(wsum + kWarps);
-  float* cs = bt + bt_floats(qa, n);
-  float* ss = cs + kSR * ldc;
-  float* xdt = ss + kSR * lds;
-  float* st = xdt + qa * kPT;
-  float* w = st + n * kPT;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int p0 = blockIdx.x * kPT;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int g = h / (h_count / g_count);
+// The float64 inclusive cumsum of dt a within each chunk, one warp per
+// (chunk, head, batch): 32 rows at a time, a shuffle scan plus the carry.
+__global__ void __launch_bounds__(32)
+ssd_cumsum_kernel(const float* __restrict__ dt,
+                  const float* __restrict__ a_log, double* __restrict__ cum,
+                  int len, int h_count, int q) {
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x;
+  const int c0 = c * q, qc = min(q, len - c0);
   const float a = -expf(a_log[h]);
-  const float dsk = d_skip[h];
-  const int64_t state_base = (static_cast<int64_t>(b) * h_count + h) * n * p;
-
-  for (int e = tid; e < n * kPT; e += kThreads) {
-    const int pp = e % kPT;
-    const int64_t at = state_base + static_cast<int64_t>(e / kPT) * p + p0 + pp;
-    st[e] = (state_in != nullptr && p0 + pp < p) ? state_in[at] : 0.f;
-  }
-
-  for (int c0 = 0; c0 < len; c0 += q) {
-    const int qc = min(q, len - c0);
-    __syncthreads();  // the previous chunk's readers are done
-
-    // dt of the chunk and the float64 inclusive cumsum of dt * a
-    double v = 0.0;
-    if (tid < qa) {
-      const float dtv =
-          tid < qc ? dt[(static_cast<int64_t>(b) * len + c0 + tid) * h_count +
-                        h]
-                   : 0.f;
-      w[tid] = dtv;
-      v = static_cast<double>(dtv * a);
-    }
+  const int64_t bh = static_cast<int64_t>(b) * h_count + h;
+  double carry = 0.0;
+  for (int r0 = 0; r0 < qc; r0 += 32) {
+    const int j = r0 + lane;
+    const float d = j < qc ? dt[(static_cast<int64_t>(b) * len + c0 + j) *
+                                    h_count + h]
+                           : 0.f;
+    double v = static_cast<double>(d * a);
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
       const double t = __shfl_up_sync(0xffffffffu, v, off);
       if (lane >= off) v += t;
     }
-    if (lane == 31) wsum[warp] = v;
-    __syncthreads();
-    if (tid < qa) {
-      for (int i = 0; i < warp; ++i) v += wsum[i];
-      cum[tid] = v;
+    v += carry;
+    if (j < qc) cum[bh * len + c0 + j] = v;
+    carry = __shfl_sync(0xffffffffu, v, 31);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_scan_fma_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ bm, const float* __restrict__ cm,
+                    const float* __restrict__ d_skip,
+                    const double* __restrict__ cum,
+                    const float* __restrict__ state_in, float* __restrict__ y,
+                    float* __restrict__ state_out, int b_count, int len,
+                    int h_count, int p, int g_count, int n, int q) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n_sl = slices(n);
+  const int ns_max = n_sl > 1 ? kMaxN : n;
+  const int ldc = ns_max + 4;
+  double* icum = reinterpret_cast<double*>(smem_raw);
+  double* kcum = icum + kQS;
+  float* cs = reinterpret_cast<float*>(kcum + kKS);
+  float* bt = cs + kQS * ldc;
+  float* ss = bt + ns_max * kLdk;
+  float* xdt = ss + kQS * kLds;
+  float* st = xdt + kKS * kPT;
+  float* kw = st + ns_max * kPT;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int p0 = blockIdx.x / n_sl * kPT;
+  const int k = blockIdx.x % n_sl;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n0 = k * kMaxN, ns = min(kMaxN, n - n0);  // the slice's rows
+  const int g = h / (h_count / g_count);
+  const float dsk = k == 0 ? d_skip[h] : 0.f;  // slice 0 adds x d_skip
+  const int64_t bh = static_cast<int64_t>(b) * h_count + h;
+  const int64_t state_base = bh * n * p;
+  // slice k's share of y
+  float* yk = y + static_cast<int64_t>(k) * b_count * len * h_count * p;
+
+  for (int e = tid; e < ns * kPT; e += kThreads) {
+    const int pp = e % kPT;
+    const int64_t at = state_base + static_cast<int64_t>(n0 + e / kPT) * p +
+                       p0 + pp;
+    st[e] = (state_in != nullptr && p0 + pp < p) ? state_in[at] : 0.f;
+  }
+
+  // rows j0 .. j0 + kKS - 1 of the chunk from c0: B^T of the slice into
+  // bt, x dt (times w with `decayed`) into xdt, the cumsum into kcum;
+  // rows past qc are zero
+  auto load_keys = [&](int c0, int qc, int j0, bool decayed, double last) {
+    if (tid < kKS) {
+      const int j = j0 + tid;
+      const bool ok = j < qc;
+      const double cj = ok ? cum[bh * len + c0 + j] : 0.0;
+      float v = ok ? dt[(static_cast<int64_t>(b) * len + c0 + j) * h_count +
+                        h]
+                   : 0.f;
+      if (decayed && ok) v *= expf(static_cast<float>(last - cj));
+      kcum[tid] = cj;
+      kw[tid] = v;
     }
-    // B^T and x dt of the chunk; rows past its end are zero
-    for (int e = tid; e < qa * n; e += kThreads) {
-      const int j = e / n;
-      const int nn = e % n;
-      bt[nn * ldq + j] =
-          j < qc ? to_f32(bm[((static_cast<int64_t>(b) * len + c0 + j) *
-                                  g_count + g) * n + nn])
-                 : 0.f;
+    for (int e = tid; e < kKS * ns; e += kThreads) {
+      const int j = e / ns, nn = e % ns;
+      bt[nn * kLdk + j] =
+          j0 + j < qc ? bm[((static_cast<int64_t>(b) * len + c0 + j0 + j) *
+                                g_count + g) * n + n0 + nn]
+                      : 0.f;
     }
-    for (int e = tid; e < qa * kPT; e += kThreads) {
-      const int j = e / kPT;
-      const int pp = e % kPT;
+    __syncthreads();  // kw
+    for (int e = tid; e < kKS * kPT; e += kThreads) {
+      const int j = e / kPT, pp = e % kPT;
       float val = 0.f;
-      if (j < qc && p0 + pp < p)
-        val = to_f32(x[((static_cast<int64_t>(b) * len + c0 + j) * h_count +
-                        h) * p + p0 + pp]) * w[j];
+      if (j0 + j < qc && p0 + pp < p)
+        val = x[((static_cast<int64_t>(b) * len + c0 + j0 + j) * h_count +
+                 h) * p + p0 + pp] * kw[j];
       xdt[e] = val;
     }
     __syncthreads();
+  };
 
-    for (int i0 = 0; i0 < qc; i0 += kSR) {
-      // the slab's C rows
-      for (int e = tid; e < kSR * n; e += kThreads) {
-        const int r = e / n;
-        const int nn = e % n;
+  for (int c0 = 0; c0 < len; c0 += q) {
+    const int qc = min(q, len - c0);
+    const double last = cum[bh * len + c0 + qc - 1];
+
+    for (int i0 = 0; i0 < qc; i0 += kQS) {
+      __syncthreads();  // the previous slab's readers are done
+      // the slab's C rows (of the slice) and cumsum
+      for (int e = tid; e < kQS * ns; e += kThreads) {
+        const int r = e / ns, nn = e % ns;
         cs[r * ldc + nn] =
-            i0 + r < qc ? to_f32(cm[((static_cast<int64_t>(b) * len + c0 +
-                                      i0 + r) * g_count + g) * n + nn])
+            i0 + r < qc ? cm[((static_cast<int64_t>(b) * len + c0 + i0 + r) *
+                                  g_count + g) * n + n0 + nn]
                         : 0.f;
       }
-      __syncthreads();
+      if (tid < kQS)
+        icum[tid] = i0 + tid < qc ? cum[bh * len + c0 + i0 + tid] : 0.0;
 
-      // scores of the slab: warp w has rows 4 (w % 8) .. + 3 and, with
-      // lane l, the columns l + 32 c for c = w / 8, w / 8 + 2, ... left of
-      // the diagonal
-      {
-        const int cmax = i0 / 32;
-        const int r0 = 4 * (warp % 8);
-        const int c0g = warp / 8;
-        float acc[4][4];
+      // thread (r, pp) has rows r and r + 32 of column pp; four partial
+      // sums per row keep the FMAs independent
+      const int pp = tid % kPT, r = tid / kPT;
+      float a0[4] = {0.f, 0.f, 0.f, 0.f}, a1[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int j0 = 0; j0 <= i0; j0 += kKS) {
+        __syncthreads();  // bt, xdt and ss are free
+        load_keys(c0, qc, j0, false, last);
+
+        // scores of (query slab, key slab): warp w has rows 4 w .. 4 w + 3
+        // and, with lane l, the keys l and l + 32
+        {
+          const int r0 = 4 * warp;
+          float acc[4][2];
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+          for (int rr = 0; rr < 4; ++rr) acc[rr][0] = acc[rr][1] = 0.f;
+          const float* crow = cs + r0 * ldc;
+          for (int nn = 0; nn < ns; nn += 4) {
+            float4 cv[4];
 #pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-        const float* crow = cs + r0 * ldc;
-        for (int nn = 0; nn < n; nn += 4) {
-          float4 cv[4];
+            for (int rr = 0; rr < 4; ++rr)
+              cv[rr] = *reinterpret_cast<const float4*>(crow + rr * ldc + nn);
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
-            cv[r] = *reinterpret_cast<const float4*>(crow + r * ldc + nn);
+            for (int u = 0; u < 4; ++u) {
+              const float* brow = bt + (nn + u) * kLdk + lane;
+              const float b0 = brow[0], b1 = brow[32];
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const float* brow = bt + (nn + u) * ldq + lane;
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              if (c0g + 2 * c <= cmax) {
-                const float bv = brow[32 * (c0g + 2 * c)];
-#pragma unroll
-                for (int r = 0; r < 4; ++r)
-                  acc[r][c] = fmaf(lane4(cv[r], u), bv, acc[r][c]);
+              for (int rr = 0; rr < 4; ++rr) {
+                acc[rr][0] = fmaf(lane4(cv[rr], u), b0, acc[rr][0]);
+                acc[rr][1] = fmaf(lane4(cv[rr], u), b1, acc[rr][1]);
               }
             }
           }
-        }
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int i = i0 + r0 + r;
+          for (int rr = 0; rr < 4; ++rr) {
+            const int i = i0 + r0 + rr;
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            if (c0g + 2 * c <= cmax) {
-              const int j = lane + 32 * (c0g + 2 * c);
+            for (int cc = 0; cc < 2; ++cc) {
+              const int jl = lane + 32 * cc;
               float val = 0.f;
-              if (j <= i && i < qc)
-                val = acc[r][c] *
-                      expf(static_cast<float>(cum[i] - cum[j]));
-              ss[(r0 + r) * lds + j] = val;
+              if (j0 + jl <= i && i < qc)
+                val = acc[rr][cc] *
+                      expf(static_cast<float>(icum[r0 + rr] - kcum[jl]));
+              ss[(r0 + rr) * kLds + jl] = val;
             }
           }
         }
-      }
-      __syncthreads();
+        __syncthreads();
 
-      // y of the slab: thread (r, pp) has row r of column pp; four
-      // partial sums per product keep the FMAs independent
-      {
-        const int pp = tid % kPT;
-        const int r = tid / kPT;
-        // past min(i0 + 32, qc) the scores and x dt are zero, so the
-        // loops run on in whole float4s
-        const int jmax = (min(i0 + kSR, qc) + 3) & ~3;
-        const float* sr = ss + r * lds;
-        float a[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int j = 0; j < jmax; j += 4) {
-          const float4 sv = *reinterpret_cast<const float4*>(sr + j);
+        // y of the slab += scores x dt; past qc the scores and x dt are
+        // zero
+        const float* s0 = ss + r * kLds;
+        const float* s1 = ss + (r + 32) * kLds;
+        for (int j = 0; j < kKS; j += 4) {
+          const float4 v0 = *reinterpret_cast<const float4*>(s0 + j);
+          const float4 v1 = *reinterpret_cast<const float4*>(s1 + j);
 #pragma unroll
-          for (int u = 0; u < 4; ++u)
-            a[u] = fmaf(lane4(sv, u), xdt[(j + u) * kPT + pp], a[u]);
+          for (int u = 0; u < 4; ++u) {
+            const float xv = xdt[(j + u) * kPT + pp];
+            a0[u] = fmaf(lane4(v0, u), xv, a0[u]);
+            a1[u] = fmaf(lane4(v1, u), xv, a1[u]);
+          }
         }
-        const float ys = (a[0] + a[1]) + (a[2] + a[3]);
-        const float* cr = cs + r * ldc;
+      }
+
+      // y = scores x dt + (C S_in) exp(cum) + x d_skip
+      const float ys0 = (a0[0] + a0[1]) + (a0[2] + a0[3]);
+      const float ys1 = (a1[0] + a1[1]) + (a1[2] + a1[3]);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int rr = r + 32 * half;
+        const float ys = half ? ys1 : ys0;
+        const float* cr = cs + rr * ldc;
         float c4[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int nn = 0; nn < n; nn += 4) {
+        for (int nn = 0; nn < ns; nn += 4) {
           const float4 cv = *reinterpret_cast<const float4*>(cr + nn);
 #pragma unroll
           for (int u = 0; u < 4; ++u)
             c4[u] = fmaf(lane4(cv, u), st[(nn + u) * kPT + pp], c4[u]);
         }
         const float csum = (c4[0] + c4[1]) + (c4[2] + c4[3]);
-        const int i = i0 + r;
+        const int i = i0 + rr;
         if (p0 + pp < p && i < qc) {
           const int64_t at =
               ((static_cast<int64_t>(b) * len + c0 + i) * h_count + h) * p +
               p0 + pp;
-          float out = ys + csum * expf(static_cast<float>(cum[i]));
-          out += to_f32(x[at]) * dsk;
-          store(&y[at], out);
+          float out = ys + csum * expf(static_cast<float>(icum[rr]));
+          out += x[at] * dsk;
+          yk[at] = out;
         }
       }
-      __syncthreads();
     }
 
-    // the state carried into the next chunk
-    const double last = cum[qc - 1];
-    if (tid < qa) w[tid] = tid < qc ? expf(static_cast<float>(last - cum[tid])) : 0.f;
-    __syncthreads();
-    for (int e = tid; e < qa * kPT; e += kThreads) xdt[e] *= w[e / kPT];
-    __syncthreads();
+    // the state carried into the next chunk: S = exp(cum[-1]) S + B^T (w x
+    // dt), the keys walked once more in slabs
     {
       constexpr int kRowsPer = kMaxN / (kThreads / kPT);   // 8
       const int pp = tid % kPT;
-      const int n0 = tid / kPT;
-      const float decay = expf(static_cast<float>(last));
+      const int nr = tid / kPT;
       float acc[kRowsPer];
 #pragma unroll
       for (int kk = 0; kk < kRowsPer; ++kk) acc[kk] = 0.f;
-      for (int j = 0; j < qc; ++j) {
-        const float xv = xdt[j * kPT + pp];
+      for (int j0 = 0; j0 < qc; j0 += kKS) {
+        __syncthreads();  // bt, xdt (and, first, cs and st) are free
+        load_keys(c0, qc, j0, true, last);
+        for (int j = 0; j < kKS; ++j) {
+          const float xv = xdt[j * kPT + pp];
 #pragma unroll
-        for (int kk = 0; kk < kRowsPer; ++kk) {
-          const int nn = n0 + (kThreads / kPT) * kk;
-          if (nn < n) acc[kk] = fmaf(bt[nn * ldq + j], xv, acc[kk]);
+          for (int kk = 0; kk < kRowsPer; ++kk) {
+            const int nn = nr + (kThreads / kPT) * kk;
+            if (nn < ns) acc[kk] = fmaf(bt[nn * kLdk + j], xv, acc[kk]);
+          }
         }
       }
+      const float decay = expf(static_cast<float>(last));
 #pragma unroll
       for (int kk = 0; kk < kRowsPer; ++kk) {
-        const int nn = n0 + (kThreads / kPT) * kk;
-        if (nn < n) st[nn * kPT + pp] = decay * st[nn * kPT + pp] + acc[kk];
+        const int nn = nr + (kThreads / kPT) * kk;
+        if (nn < ns) st[nn * kPT + pp] = decay * st[nn * kPT + pp] + acc[kk];
       }
     }
   }
   __syncthreads();
-  for (int e = tid; e < n * kPT; e += kThreads) {
+  for (int e = tid; e < ns * kPT; e += kThreads) {
     const int pp = e % kPT;
     if (p0 + pp < p)
-      state_out[state_base + static_cast<int64_t>(e / kPT) * p + p0 + pp] =
-          st[e];
+      state_out[state_base + static_cast<int64_t>(n0 + e / kPT) * p + p0 +
+                pp] = st[e];
   }
-}
-
-template <typename T>
-cudaError_t launch(const void* x, const float* dt, const float* a_log,
-                   const void* bm, const void* cm, const float* d_skip,
-                   const float* state_in, void* y, float* state_out, int b,
-                   int len, int h, int p, int g, int n, int q,
-                   cudaStream_t stream) {
-  const int64_t bytes = smem_bytes(q, n);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_fma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p + kPT - 1) / kPT, h, b);
-  ssd_scan_fma_kernel<T><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(x), dt, a_log, static_cast<const T*>(bm),
-      static_cast<const T*>(cm), d_skip, state_in, static_cast<T*>(y),
-      state_out, len, h, p, g, n, q);
-  return cudaGetLastError();
 }
 
 }  // namespace
 
-// x (B, L, H, P), b_mat and c_mat (B, L, G, N), y like x, dt (B, L, H),
-// a_log and d_skip (H,), state_in (B, H, N, P) or null, state_out (B, H,
-// N, P): float32, all contiguous; 1 <= q <= 256, N <= 256 a multiple of
-// 4, H % G == 0.  A (q, N) whose shared memory exceeds a block's 227 KB
-// fails the launch (209.5 KB at q = 256, N = 128).
+// x (B, L, H, P), b_mat and c_mat (B, L, G, N), dt (B, L, H), a_log and
+// d_skip (H,), state_in (B, H, N, P) or null, state_out (B, H, N, P):
+// float32, all contiguous; N a multiple of 4, q >= 1, H % G == 0.  y holds
+// ceil(N / 256) shares (slices of 256 state rows) of y, each shaped like
+// x: their sum in slice order is y.  Scratch: cum (B, H, L) float64.
 cudaError_t ssd_scan_fwd_fma(const float* x, const float* dt,
                              const float* a_log, const float* bm,
                              const float* cm, const float* d_skip,
                              const float* state_in, float* y,
-                             float* state_out, int b, int len, int h, int p,
-                             int g, int n, int q, cudaStream_t stream) {
-  if (b <= 0 || len <= 0 || g <= 0 || h % g != 0 || q < 1 || q > kMaxQ ||
-      n < 4 || n > kMaxN || n % 4 != 0 || p < 1)
+                             float* state_out, double* cum, int b, int len,
+                             int h, int p, int g, int n, int q,
+                             cudaStream_t stream) {
+  if (b <= 0 || len <= 0 || g <= 0 || h % g != 0 || q < 1 || n < 4 ||
+      n % 4 != 0 || p < 1)
     return cudaErrorInvalidValue;
-  return launch<float>(x, dt, a_log, bm, cm, d_skip, state_in, y, state_out,
-                       b, len, h, p, g, n, q, stream);
+  const int n_chunks = (len + q - 1) / q;
+  ssd_cumsum_kernel<<<dim3(n_chunks, h, b), 32, 0, stream>>>(dt, a_log, cum,
+                                                             len, h, q);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t bytes = smem_bytes(slices(n) > 1 ? kMaxN : n);
+  err = cudaFuncSetAttribute(ssd_scan_fma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p + kPT - 1) / kPT * slices(n), h, b);
+  ssd_scan_fma_kernel<<<grid, kThreads, bytes, stream>>>(
+      x, dt, bm, cm, d_skip, cum, state_in, y, state_out, b, len, h, p, g, n,
+      q);
+  return cudaGetLastError();
 }

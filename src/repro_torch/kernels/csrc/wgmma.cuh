@@ -108,6 +108,18 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 8 : 0)
+               : "memory");
+}
+
+// Waits until every cp.async this thread has started has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
                "r"(count)
@@ -443,14 +455,16 @@ __device__ __forceinline__ bool live(int q_pos, int k_pos, int skv,
 
 constexpr int kSplitTile = 64 * 64 * 2;  // one bf16 term of a 64 x 64 tile
 
-// The inclusive float64 cumsum of (float) dt a over the chunk's qc rows
-// into cum[], and dt into dts[], by one warp; dt_row is the chunk's first
-// dt, its rows stride apart.
-__device__ __forceinline__ void chunk_cumsum(double* cum, float* dts,
-                                             const float* __restrict__ dt_row,
-                                             int stride, float a, int qc,
-                                             int lane) {
-  double carry = 0.0;
+// The inclusive float64 cumsum of (float) dt a over qc rows, carry (the
+// cumsum before them) added, into cum[], and dt into dts[], by one warp;
+// dt_row is the first row's dt, its rows stride apart.  Returns the
+// cumsum at the last row, the carry of the rows that follow: a chunk
+// taken in tiles of rows, a multiple of 32 each, gets the same bits as in
+// one call.
+__device__ __forceinline__ double chunk_cumsum(double* cum, float* dts,
+                                               const float* __restrict__ dt_row,
+                                               int stride, float a, int qc,
+                                               int lane, double carry) {
   for (int r0 = 0; r0 < qc; r0 += 32) {
     const int j = r0 + lane;
     const float d = j < qc ? dt_row[static_cast<int64_t>(j) * stride] : 0.f;
@@ -467,6 +481,7 @@ __device__ __forceinline__ void chunk_cumsum(double* cum, float* dts,
     }
     carry = __shfl_sync(0xffffffffu, v, 31);
   }
+  return carry;
 }
 
 // Eight consecutive float32 values x0..x7 split into their three bf16

@@ -16,24 +16,28 @@ device raises, and so does a failed build or launch.
 
 Unlike the Pallas kernel, it also returns the final state (the reference
 recomputes it on its jnp path), takes a length that is no multiple of
-the chunk (the last chunk is short) and an optional initial state.  The
-tensor-core kernels take d_state 64, 128 or 256 and a head size that is
-a multiple of 64: the wrapper zero-pads any other d_state up to 256 and
-head size (the padded rows and columns of B, C, x and the state add
-nothing to y or to the state), and cuts y and the state back.
+the chunk (the last chunk is short) and an optional initial state.  Any
+chunk, d_state and head size runs on the card.  The tensor-core kernels
+take d_state 64, 128, 256 or a multiple of 128 above 256 (in slices of
+256 or 128 state rows) and a head size that is a multiple of 64: the
+wrapper zero-pads any other d_state and head size (the padded rows and
+columns of B, C, x and the state add nothing to y or to the state), and
+cuts y and the state back.  The CUDA-core kernel takes a d_state that is
+a multiple of 4 (the wrapper zero-pads it alike) in slices of 256 state
+rows, each giving a share of y, which the wrapper adds in slice order.
 
 The backward, :func:`ssd_scan_bwd`, has no counterpart among the Pallas
 kernels: the reference trains the SSD by autodiff of its jnp path
 (``_ssd_jnp_chunked``, ``repro/kernels/ops.py:145``).  On CUDA tensors it
-launches hand-written kernels, five launches counted as one: for bf16
-operands the tensor-core kernels of ``csrc/ssd_scan_bwd.cu``, which take
-d_state 64, 128 or 256 and a head size of 64, 128, 192 or 256 (the
-wrapper zero-pads the operands as the forward's does, :func:`pad_bwd`,
-and cuts the gradients back, :func:`cut_bwd`), for float32 ones the
-CUDA-core kernels of ``csrc/ssd_scan_bwd_fma.cu`` (any d_state and head
-size).  On CPU tensors it runs its plain version
-:func:`repro_torch.kernels.ref.ssd_scan_bwd_ref`, and raises elsewhere.
-:class:`SSDScan` is the autograd Function over both.
+launches hand-written kernels, counted as one launch: for bf16 operands
+the tensor-core kernels of ``csrc/ssd_scan_bwd.cu``, which take the
+forward's d_state and a head size of 64, 128, 192 or a multiple of 192 or
+256 above (in blocks of 192 or 256 columns; the wrapper zero-pads the
+operands, :func:`pad_bwd`, and cuts the gradients back, :func:`cut_bwd`),
+for float32 ones the CUDA-core kernels of ``csrc/ssd_scan_bwd_fma.cu``
+(any d_state and head size, no padding).  On CPU tensors it runs its
+plain version :func:`repro_torch.kernels.ref.ssd_scan_bwd_ref`, and
+raises elsewhere.  :class:`SSDScan` is the autograd Function over both.
 """
 
 from __future__ import annotations
@@ -45,16 +49,17 @@ from .flash_attention import _aligned
 from .ref import ssd_scan_bwd_ref, ssd_scan_ref
 
 __all__ = ["ssd_scan", "ssd_scan_bwd", "SSDScan", "LAUNCHES",
-           "reset_launches", "MAX_CHUNK", "pad_bwd", "cut_bwd"]
+           "reset_launches", "pad_fwd", "pad_bwd", "cut_bwd"]
 
 # kernel launches on the card since the last reset_launches()
 LAUNCHES = {"ssd_scan": 0, "ssd_scan_bwd": 0}
 
-MAX_CHUNK = 256          # chunk rows one block handles
-MAX_STATE = 256          # d_state the kernels take
-_STATE_DIMS = (64, 128, 256)   # d_state of the tensor-core kernels
+_STATE_DIMS = (64, 128, 256)   # d_state up to 256 of the tensor-core kernels
+_STATE_SLICE = 128       # above 256 they take a multiple of this
 _P_BLOCK = 64            # head-size multiple of the tensor-core kernels
-_MAX_HEAD_BWD = 256      # head size of the tensor-core backward
+_HEAD_BLOCKS = (256, 192)  # head blocks of the tensor-core backward over 256
+_FMA_STATE = 4           # d_state multiple of the CUDA-core forward
+_FMA_SLICE = 256         # state rows of its slices (a share of y each)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -106,11 +111,20 @@ def _check_inputs(x, dt, a_log, b_mat, c_mat, d_skip, chunk, state):
     return g, n, chunk
 
 
-def _padded(n: int, p: int):
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _padded(n: int, p: int, bwd: bool = False):
     """``(d_state, head size)`` of the tensor-core kernels for ``(n, p)``:
-    d_state up to 64, 128 or 256, the head size up to a multiple of 64."""
-    n_pad = next(d for d in _STATE_DIMS if d >= n)
-    return n_pad, -(-p // _P_BLOCK) * _P_BLOCK
+    d_state up to 64, 128 or 256, above 256 up to a multiple of 128; the
+    head size up to a multiple of 64, and in the backward above 256 up to
+    the nearer multiple of 192 or 256."""
+    n_pad = next((d for d in _STATE_DIMS if d >= n), _up(n, _STATE_SLICE))
+    p_pad = _up(p, _P_BLOCK)
+    if bwd and p_pad > _HEAD_BLOCKS[0]:
+        p_pad = min(_up(p, blk) for blk in _HEAD_BLOCKS)
+    return n_pad, p_pad
 
 
 def _pad(n_pad, p_pad, heads=(), mats=(), states=()):
@@ -127,13 +141,26 @@ def _pad(n_pad, p_pad, heads=(), mats=(), states=()):
             [None if t is None else widen(t, p_pad, n_pad) for t in states])
 
 
+def pad_fwd(x, b_mat, c_mat, state=None):
+    """The operands of :func:`ssd_scan` zero-padded to the sizes of the
+    kernels for x's dtype: ``(x, b_mat, c_mat, state)``, on any device.
+    bf16: d_state and head size as :func:`_padded`; float32: d_state up to
+    a multiple of 4, the head size as it is."""
+    n, p = b_mat.shape[3], x.shape[3]
+    n_pad, p_pad = (_padded(n, p) if x.dtype == torch.bfloat16
+                    else (_up(n, _FMA_STATE), p))
+    (x,), (b_mat, c_mat), (state,) = _pad(n_pad, p_pad, (x,), (b_mat, c_mat),
+                                          (state,))
+    return x, b_mat, c_mat, state
+
+
 def pad_bwd(x, b_mat, c_mat, dy, state=None, dfinal=None):
     """The operands of :func:`ssd_scan_bwd` zero-padded to the tensor-core
     kernels' sizes: ``(x, b_mat, c_mat, dy, state, dfinal)``, on any
     device (a tensor that needs no padding is returned as it is)."""
     (x, dy), (b_mat, c_mat), (state, dfinal) = _pad(
-        *_padded(b_mat.shape[3], x.shape[3]), (x, dy), (b_mat, c_mat),
-        (state, dfinal))
+        *_padded(b_mat.shape[3], x.shape[3], bwd=True), (x, dy),
+        (b_mat, c_mat), (state, dfinal))
     return x, b_mat, c_mat, dy, state, dfinal
 
 
@@ -155,7 +182,8 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int,
     step sizes; a_log, d_skip: (H,) float32; b_mat, c_mat: (B, L, G, N) in
     x's dtype, H % G == 0; state: optional (B, H, N, P) float32 initial
     state.  ``y`` in x's dtype, ``final_state`` (B, H, N, P) float32.
-    The chunk is ``min(chunk, L)``.
+    The chunk is ``min(chunk, L)``: ceil(L / chunk) chunk states, any
+    chunk, d_state and head size.
     """
     g, n, chunk = _check_inputs(x, dt, a_log, b_mat, c_mat, d_skip, chunk,
                                 state)
@@ -166,32 +194,29 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int,
                             state=state)
     if dev.type != "cuda":
         raise ValueError(f"no ssd_scan kernel for device {dev}")
-    if chunk > MAX_CHUNK or n > MAX_STATE:
-        raise ValueError(f"the kernels take chunk <= {MAX_CHUNK} and "
-                         f"d_state <= {MAX_STATE}, got {chunk} and {n}")
-    if x.dtype == f32 and n % 4:
-        raise ValueError(f"the float32 kernel takes a d_state that is a "
-                         f"multiple of 4, got {n}")
     from ._build import extension
     ext = extension()
     empty = torch.empty(0, dtype=f32, device=dev)
-    n_pad, p_pad = n, p
-    cum = states = empty
-    if x.dtype == torch.bfloat16:
-        n_pad, p_pad = _padded(n, p)
-        (x,), (b_mat, c_mat), (state,) = _pad(n_pad, p_pad, (x,),
-                                              (b_mat, c_mat), (state,))
+    bf = x.dtype == torch.bfloat16
+    x, b_mat, c_mat, state = pad_fwd(x, b_mat, c_mat, state)
+    n_pad, p_pad = b_mat.shape[3], x.shape[3]
+    cum = torch.empty((bsz, h, length), dtype=torch.float64, device=dev)
+    states = empty
+    if bf:
         x, b_mat, c_mat = _aligned(x, b_mat, c_mat)
-        n_chunks = -(-length // chunk)
-        cum = torch.empty((bsz, h, length), dtype=torch.float64, device=dev)
-        states = torch.empty((bsz, h, n_chunks, n_pad, p_pad), dtype=f32,
-                             device=dev)
-    y = torch.empty_like(x)
+        states = torch.empty((bsz, h, -(-length // chunk), n_pad, p_pad),
+                             dtype=f32, device=dev)
+        y = torch.empty_like(x)
+    else:  # a share of y per slice of state rows
+        y = torch.empty((-(-n_pad // _FMA_SLICE),) + tuple(x.shape),
+                        dtype=f32, device=dev)
     final = torch.empty((bsz, h, n_pad, p_pad), dtype=f32, device=dev)
     s_in = state if state is not None else empty
     ext.ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, s_in, chunk, y, final,
                  cum, states)
     LAUNCHES["ssd_scan"] += 1
+    if not bf:
+        y = y[0] if y.shape[0] == 1 else y.sum(0)
     if (n_pad, p_pad) != (n, p):
         y = y[..., :p].contiguous()
         final = final[:, :, :n, :p].contiguous()
@@ -204,7 +229,8 @@ def ssd_scan_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, *, chunk: int,
     da_log, db, dc, dd_skip, dstate)``, float32 in the inputs' shapes,
     ``dstate`` None without an initial state.  Operands as
     :func:`ssd_scan`; ``dy`` like x, ``dfinal`` (B, H, N, P) float32 or
-    None (zero).  The chunk is ``min(chunk, L)``, as in the forward."""
+    None (zero).  The chunk is ``min(chunk, L)``, as in the forward: any
+    chunk, d_state and head size."""
     g, n, chunk = _check_inputs(x, dt, a_log, b_mat, c_mat, d_skip, chunk,
                                 state)
     bsz, length, h, p = x.shape
@@ -217,14 +243,8 @@ def ssd_scan_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, *, chunk: int,
                                 chunk=chunk, state=state, dfinal=dfinal)
     if dev.type != "cuda":
         raise ValueError(f"no ssd_scan_bwd kernel for device {dev}")
-    if chunk > MAX_CHUNK or n > MAX_STATE:
-        raise ValueError(f"the kernels take chunk <= {MAX_CHUNK} and "
-                         f"d_state <= {MAX_STATE}, got {chunk} and {n}")
     bf = x.dtype == torch.bfloat16
     if bf:
-        if p > _MAX_HEAD_BWD:
-            raise ValueError(f"the bf16 backward takes a head size <= "
-                             f"{_MAX_HEAD_BWD}, got {p}")
         x, b_mat, c_mat, dy, state, dfinal = pad_bwd(x, b_mat, c_mat, dy,
                                                      state, dfinal)
         x, b_mat, c_mat, dy = _aligned(x, b_mat, c_mat, dy)

@@ -29,7 +29,7 @@ What each flag does on one card:
                   operands are unchanged, as in the reference.
   ssd_chunk=N   — the SSD chunk of every prefill and training scan (0 =
                   the config's; ``repro/models/ssm.py:113-114``); the
-                  kernels take chunks up to 256 and raise above.
+                  kernels take any chunk.
   microbatch=N  — gradient accumulation over N microbatches inside the
                   train step (``repro/train/train_step.py:90-127``):
                   where N > 1 divides the batch, ``g_acc + g / N`` from

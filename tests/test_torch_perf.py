@@ -13,9 +13,10 @@ reference's (``repro.perf``), on the CPU at reduced sizes.
   and no jit cache traced without it is reused), o and the gradients
   (``jax.grad``, the cast passed straight through) within 2^-7 of each
   leaf's largest magnitude; the MLA block's prefill and decode at
-  deepseek-v3 ``reduced()`` at the MLA test's 3e-2; ``ssd_chunk`` 16 and
-  64 on reduced mamba2, loss within 1e-3 and gradients at the train
-  tests' rule (3e-2 of each leaf's largest magnitude, cosine >= 0.9999);
+  deepseek-v3 ``reduced()`` at the MLA test's 3e-2; ``ssd_chunk`` 16, 64
+  and 512 on reduced mamba2 (512 on 1,024 tokens), loss within 1e-3 and
+  gradients at the train tests' rule (3e-2 of each leaf's largest
+  magnitude, cosine >= 0.9999);
   ``microbatch=4`` on reduced smollm (B 4, S 16, 2 steps): the port's
   loss at mb 1 and mb 4 within rel 2e-4 (the reference's own rule) and
   the port against the reference's microbatched step within 1e-3;
@@ -356,14 +357,15 @@ def _grads(cfg, model, tokens):
     return float(loss.detach()), dict(zip(params, grads))
 
 
-@pytest.mark.parametrize("chunk", [16, 64])
+@pytest.mark.parametrize("chunk", [16, 64, 512])
 def test_ssd_chunk_matches_reference(chunk, monkeypatch):
     """Reduced mamba2 (chunk 32 in its config) under ``ssd_chunk``: the
     port's loss and gradients (the SSD kernels' plain versions at that
     chunk) against ``jax.value_and_grad`` of the reference's loss, run
     eagerly under the same flag: loss within 1e-3, gradients at the
     train tests' rule; every scan of the port's step took the flag's
-    chunk, and without the flag the config's."""
+    chunk, and without the flag the config's.  Chunk 512 (over 256)
+    runs on 1,024 tokens, so that the scan takes two chunks of it."""
     import jax
     import jax.numpy as jnp
     from repro.models.model import loss_fn as jloss
@@ -373,7 +375,8 @@ def test_ssd_chunk_matches_reference(chunk, monkeypatch):
 
     rcfg, npp = _arch_reference("mamba2-130m", unrolled)
     cfg = unrolled(get_arch("mamba2-130m").reduced())
-    tok = np.random.default_rng(1).integers(0, cfg.vocab, (2, 64))
+    tok = np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 64 if chunk <= 64 else 2 * chunk))
     tok = tok.astype(np.int32)
     model = params_from_numpy(cfg, npp, device="cpu")
     chunks = []

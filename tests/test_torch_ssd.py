@@ -22,6 +22,15 @@ kernel, and its emulation of the tensor cores' three-way bf16 split
 against the plain version, beside one bf16 cast that fails the card's
 checks.
 
+A chunk over 256 and a d_state over 256 (chunk 512 over L 1024, d_state
+320) are held against the Pallas kernel, the jnp path and the oracle as
+above, and at the serve decay against the oracle.  The wrapper's zero
+padding (``pad_fwd``: float32 d_state to a multiple of 4, bf16 d_state
+and head size to the tensor-core kernels' sizes) gives the unpadded
+outputs through the plain version, and so does the float32 kernel's cut
+of a d_state over 256 into slices of 256 state rows, whose shares of y
+add up to y.
+
 The CUDA kernels themselves are held against the plain version by the
 ``cuda``-marked test, which skips without a card.
 """
@@ -45,7 +54,19 @@ SSD_SHAPES = [
     (2, 128, 8, 16, 4, 8, 64),
 ]
 RAGGED = [(1, 77, 4, 16, 1, 32, 32), (2, 45, 6, 8, 2, 16, 64)]
+# a chunk and a d_state over 256
+LONG_CASE = (1, 1024, 2, 16, 1, 320, 512)
+# the card's new shapes (cuda tests), (case, decay)
+WIDE_CASES = [((1, 2048, 24, 64, 1, 128, 512), "serve"),
+              ((1, 1100, 4, 64, 1, 128, 1024), "serve"),
+              ((1, 600, 4, 64, 1, 320, 256), "serve"),
+              ((2, 300, 2, 48, 1, 130, 128), "serve"),
+              ((1, 512, 4, 64, 1, 256, 256), "serve"),
+              ((1, 512, 2, 320, 1, 64, 256), "serve")]
 TOL = 3e-4
+# the zero padding through the plain version, of the outputs' largest
+# magnitude
+PAD_TOL = 1e-6
 # the least share of bf16 y entries equal to the plain version's (the
 # card's check, chip_smoke.SAME_SHARE)
 SAME_SHARE = 0.95
@@ -208,6 +229,93 @@ def test_ssd_split_terms_match_plain_and_one_bf16_cast_does_not(case):
     assert shares[1] < SAME_SHARE and errs[1] > 0
 
 
+def test_ssd_plain_long_chunk_wide_state_matches_reference():
+    """Chunk 512 over L 1024 and d_state 320: y against the reference's
+    Pallas kernel at that chunk in the interpreter, y and the final state
+    against its chunked jnp path and its oracle."""
+    chunk = LONG_CASE[-1]
+    arrs = _inputs(LONG_CASE, seed=10)
+    y, s = SS.ssd_scan(*_t(arrs), chunk=chunk)
+    pallas, jnp_ssd, oracle, _ = _reference()
+    _close(y, pallas(*arrs, chunk=chunk, interpret=True), "y vs Pallas")
+    y_j, s_j = jnp_ssd(*arrs, chunk=chunk, impl="jnp")
+    _close(y, y_j, "y vs jnp chunked")
+    _close(s, s_j, "state vs jnp chunked")
+    y_o, s_o = oracle(*arrs)
+    _close(y, y_o, "y vs ssd_ref")
+    _close(s, s_o, "state vs ssd_ref")
+
+
+def test_ssd_plain_long_chunk_serve_decay_matches_oracle():
+    """The serve decay over a chunk of 512 (the cumsum within a chunk
+    reaches about -6e3), with an initial state, against the oracle."""
+    case = (1, 1024, 4, 16, 1, 320, 512)
+    arrs = _inputs(case, seed=11, decay="serve")
+    a = -np.exp(arrs[2].astype(np.float64))
+    assert np.cumsum(arrs[1].astype(np.float64)[0, :512] * a, 0).min() < -5e3
+    s0 = np.random.default_rng(12).normal(
+        size=(1, 4, 320, 16)).astype(np.float32)
+    y, s = SS.ssd_scan(*_t(arrs), chunk=512, state=torch.from_numpy(s0))
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    y_o, s_o = jref.ssd_ref(*arrs, state=jnp.asarray(s0))
+    _close(y, y_o, "y vs ssd_ref")
+    _close(s, s_o, "state vs ssd_ref")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_padding_gives_the_same_outputs(dtype):
+    """The wrapper's zero padding (``pad_fwd``) of d_state 130 (float32:
+    to 132; bf16: to 256) and head size 48 (bf16: to 64), with an initial
+    state, through the plain version: y and the final state cut back are
+    the unpadded operands' within PAD_TOL of their largest magnitude."""
+    case = (2, 300, 2, 48, 1, 130, 128)
+    x, dt, a_log, bm, cm, ds = _t(_inputs(case, seed=13, decay="serve"))
+    x, bm, cm = (t.to(dtype) for t in (x, bm, cm))
+    s0 = torch.from_numpy(np.random.default_rng(14).normal(
+        size=(2, 2, 130, 48)).astype(np.float32))
+    xp, bp, cp, sp = SS.pad_fwd(x, bm, cm, s0)
+    padded = (132, 48) if dtype == torch.float32 else (256, 64)
+    assert (bp.shape[3], xp.shape[3]) == padded
+    assert sp.shape[2:] == padded and cp.shape == bp.shape
+    assert torch.equal(sp[:, :, :130, :48], s0) and not sp[:, :, 130:].any()
+    assert torch.equal(bp[..., :130], bm) and not bp[..., 130:].any()
+    assert torch.equal(xp[..., :48], x) and not xp[..., 48:].any()
+    y, s = ref.ssd_scan_ref(xp, dt, a_log, bp, cp, ds, chunk=128, state=sp)
+    w_y, w_s = ref.ssd_scan_ref(x, dt, a_log, bm, cm, ds, chunk=128,
+                                state=s0)
+    for what, got, want in (("y", y[..., :48], w_y),
+                            ("state", s[:, :, :130, :48], w_s)):
+        got, want = got.double(), want.double()
+        assert float((got - want).abs().max()) <= \
+            PAD_TOL * float(want.abs().max()), what
+
+
+def test_ssd_state_slices_add_up():
+    """The float32 kernel's cut of a d_state over 256 into slices of 256
+    state rows (d_state 520: 256, 256 and 8), through the plain version:
+    each slice's scan of its B, C and state rows (d_skip in the first
+    only) gives a share of y, the shares added in slice order give y and
+    the slices' final states stack to the final state, within TOL."""
+    case = (1, 200, 2, 16, 1, 520, 64)
+    x, dt, a_log, bm, cm, ds = _t(_inputs(case, seed=15, decay="serve"))
+    s0 = torch.from_numpy(np.random.default_rng(16).normal(
+        size=(1, 2, 520, 16)).astype(np.float32))
+    w_y, w_s = ref.ssd_scan_ref(x, dt, a_log, bm, cm, ds, chunk=64,
+                                state=s0)
+    y, finals = None, []
+    for k0 in range(0, 520, 256):
+        cut = slice(k0, k0 + 256)
+        y_k, s_k = ref.ssd_scan_ref(
+            x, dt, a_log, bm[..., cut].contiguous(),
+            cm[..., cut].contiguous(), ds if k0 == 0 else torch.zeros_like(ds),
+            chunk=64, state=s0[:, :, cut].contiguous())
+        y = y_k if y is None else y + y_k
+        finals.append(s_k)
+    _close(y, w_y, "y from the slices' shares")
+    _close(torch.cat(finals, 2), w_s, "state from the slices")
+
+
 def test_port_oracle_matches_reference_oracle():
     arrs = _inputs((2, 24, 4, 8, 2, 16), seed=3)
     y, s = ref.ssd_ref(*_t(arrs))
@@ -257,10 +365,12 @@ def test_ssd_wrapper_rejects_bad_inputs():
 def test_cuda_ssd_scan_matches_plain_version(dtype):
     """On the card: the kernels against their plain version over the
     shape lists, ragged lengths down to L = 1, an initial state, the serve
-    shape, d_state 256 and several 64-column blocks of P (3e-4 on y and on the final
-    state; bf16 y within one bf16 rounding: atol 3e-4, rtol 2^-7, and
-    equal to the plain bf16 y in at least SAME_SHARE of the entries over
-    all cases)."""
+    shape, d_state 256 and several 64-column blocks of P, and WIDE_CASES:
+    chunks of 512 and 1024 (ragged), d_state 320, 130 and 256 (at chunk
+    256: the float32 kernel's shared-memory case) and head size 320 (3e-4
+    on y and on the final state; bf16 y within one bf16 rounding: atol
+    3e-4, rtol 2^-7, and equal to the plain bf16 y in at least SAME_SHARE
+    of the entries over all cases)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     cases = [(c, "test") for c in SSD_SHAPES + RAGGED]
@@ -270,6 +380,7 @@ def test_cuda_ssd_scan_matches_plain_version(dtype):
     cases.append(((2, 130, 2, 160, 2, 100, 64), "serve"))
     cases.append(((1, 1, 4, 16, 1, 32, 16), "test"))
     cases.append(((1, 3, 2, 64, 1, 128, 256), "serve"))
+    cases += WIDE_CASES
     before = SS.LAUNCHES["ssd_scan"]
     same = total = 0
     for case, decay in cases:

@@ -54,7 +54,7 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd_scan as SS
-from test_torch_ssd import RAGGED, SSD_SHAPES, _inputs
+from test_torch_ssd import RAGGED, SSD_SHAPES, WIDE_CASES, _inputs
 
 CASES = SSD_SHAPES + RAGGED
 NAMES = ("dx", "ddt", "da_log", "db", "dc", "dd_skip", "dstate")
@@ -69,9 +69,16 @@ BF16_TOL = 2.0 ** -7
 SPLIT_TOL = 1e-5
 # (case, d_state and head size as the bf16 kernels pad them)
 PAD_CASES = [((1, 96, 4, 16, 1, 16, 32), (64, 64)),     # reduced mamba2
-             ((2, 130, 2, 160, 2, 100, 64), (128, 192))]
+             ((2, 130, 2, 160, 2, 100, 64), (128, 192)),
+             ((1, 64, 2, 320, 1, 320, 32), (384, 384)),   # blocks of 192
+             ((1, 70, 2, 300, 2, 520, 64), (640, 384)),
+             ((1, 40, 2, 500, 1, 16, 16), (64, 512))]      # blocks of 256
 # the serve decay at the model's chunk: cum reaches about -1.5e3
 SERVE_CASE = (1, 300, 4, 16, 1, 32, 256)
+# the serve decay at chunk 512: cum reaches about -6e3
+SERVE_LONG_CASE = (1, 1100, 4, 16, 1, 32, 512)
+# a chunk, a d_state and a head size over 256
+LONG_CASE = (1, 1024, 2, 320, 1, 320, 512)
 
 
 @pytest.fixture(autouse=True)
@@ -192,6 +199,35 @@ def test_serve_decay_at_chunk_256_gives_finite_gradients():
         assert torch.isfinite(g).all(), name
     _hold(got, _autograd(arrs, dy, 256, state, dfinal), AUTOGRAD_TOL,
           "serve decay, chunk 256")
+
+
+def test_serve_decay_at_chunk_512_gives_finite_gradients():
+    """The serve decay over chunks of 512 (the cumsum reaches about -6e3;
+    a short last chunk): every gradient finite and held against
+    autograd."""
+    arrs = _inputs(SERVE_LONG_CASE, seed=16, decay="serve")
+    dy, df, s0 = _cotangents(SERVE_LONG_CASE, seed=17)
+    a = -np.exp(arrs[2].astype(np.float64))
+    cum = np.cumsum(arrs[1].astype(np.float64)[0, :512] * a, axis=0)
+    assert cum.min() < -5e3
+    state, dfinal = torch.from_numpy(s0), torch.from_numpy(df)
+    got = _plain(arrs, dy, 512, state, dfinal)
+    for name, g in zip(NAMES, got):
+        assert torch.isfinite(g).all(), name
+    _hold(got, _autograd(arrs, dy, 512, state, dfinal), AUTOGRAD_TOL,
+          "serve decay, chunk 512")
+
+
+def test_plain_backward_long_chunk_wide_state_and_head_matches_reference():
+    """Chunk 512, d_state 320 and head size 320, with an initial state
+    and a final-state gradient: the plain backward against ``jax.grad``
+    of the reference's jnp path, every leaf within REFERENCE_TOL."""
+    chunk = LONG_CASE[-1]
+    arrs = _inputs(LONG_CASE, seed=18)
+    dy, df, s0 = _cotangents(LONG_CASE, seed=19)
+    want = _reference_grad(True)(*arrs, s0, dy, df, chunk=chunk)
+    got = _plain(arrs, dy, chunk, torch.from_numpy(s0), torch.from_numpy(df))
+    _hold(got, want, REFERENCE_TOL, f"{LONG_CASE}")
 
 
 def test_plain_backward_repeats_bit_for_bit():
@@ -332,14 +368,15 @@ def test_cuda_ssd_scan_bwd_matches_plain_version(dtype):
     largest magnitude, d a_log and ddt at the serve decay within 1e-5 in
     both dtypes, bf16 within 1e-5 of ``ssd_scan_bwd_ref(terms=3)``, and
     a repeat bit for bit.  d_state 64, 128 and 256 (and smaller ones
-    padded to 64)."""
+    padded to 64), and WIDE_CASES: chunks of 512 and 1024 (ragged),
+    d_state 320, 130 and 256 and head size 320 (blocks of 192)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     cases = [(c, "test") for c in CASES] + [(c, "serve") for c in CASES]
     cases += [((1, 1000, 24, 64, 1, 128, 256), "serve"),
               ((1, 300, 4, 64, 1, 256, 128), "serve"),
               ((2, 130, 2, 160, 2, 100, 64), "serve"),
-              ((1, 1, 4, 16, 1, 32, 16), "test")]
+              ((1, 1, 4, 16, 1, 32, 16), "test")] + WIDE_CASES
     tol = 3e-4 if dtype == torch.float32 else 2.0 ** -7
     before = SS.LAUNCHES["ssd_scan_bwd"]
     for case, decay in cases:
